@@ -1,0 +1,122 @@
+"""Parameters from the JAX package into the port.
+
+:func:`params_from_jax` takes either a pytree of arrays (``SeqRecModel.init``
+output of the JAX package passed through ``np.asarray``) or a checkpoint
+directory, and returns the port's nested parameter dict on a device. The
+names are the JAX pytree's own, blocks stacked along a leading
+``[num_blocks]`` axis, so the mapping is one to one.
+
+Checkpoint layout (``train/checkpoint.py`` of both packages): ``manifest.json``
+lists every leaf with its tree ``path``, ``file``, ``shape`` and ``dtype``,
+or with ``shards`` (per-extent files) for a mesh-sharded leaf; leaves of a
+train state's parameters have paths starting with ``0/`` (optimizer state
+``1/`` and step ``2`` are skipped). A table of 30M+ rows is stored packed as
+[V/R, 8, 128], row-major, and unpacks as ``reshape(-1, D)[:itemnum + 1]``.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+MANIFEST_FILE = "manifest.json"
+
+
+def _to_numpy(leaf, dtype_name: Optional[str] = None) -> np.ndarray:
+    arr = np.asarray(leaf)
+    if (dtype_name or arr.dtype.name) == "bfloat16":
+        return arr.view(np.uint16)        # reinterpreted by _to_torch
+    return arr
+
+
+def _to_torch(arr: np.ndarray, bf16: bool, device) -> torch.Tensor:
+    t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    if bf16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
+def is_packed(arr) -> bool:
+    return arr.ndim == 3 and tuple(arr.shape[1:]) == (8, 128)
+
+
+def unpack_table(arr: np.ndarray, dim: int,
+                 rows: Optional[int] = None) -> np.ndarray:
+    """Packed [V/R, 8, 128] -> [V, dim] (first ``rows`` rows)."""
+    out = arr.reshape(-1, dim)
+    return out[:rows] if rows is not None else out
+
+
+def _load_entry(path: Path, e: dict) -> np.ndarray:
+    if "shards" not in e:
+        return _to_numpy(np.load(path / e["file"], allow_pickle=False),
+                         e.get("dtype"))
+    dtype = np.uint16 if e["dtype"] == "bfloat16" else np.dtype(e["dtype"])
+    out = np.zeros(tuple(e["shape"]), dtype)
+    for s in e["shards"]:
+        sl = tuple(slice(a, b) for a, b in s["index"])
+        out[sl] = _to_numpy(np.load(path / s["file"]), e["dtype"])
+    return out
+
+
+def read_checkpoint_leaves(path) -> Dict[str, tuple]:
+    """{param path: (numpy array, is_bf16)} of a checkpoint directory's
+    parameter leaves (the ``0/`` subtree of a train state, or every leaf of
+    a bare parameter tree)."""
+    path = Path(path)
+    manifest = json.loads((path / MANIFEST_FILE).read_text())
+    entries = manifest["leaves"]
+    state = any(e["path"].startswith("0/") for e in entries)
+    out = {}
+    for e in entries:
+        p = e["path"]
+        if state:
+            if not p.startswith("0/"):
+                continue
+            p = p[2:]
+        out[p] = (_load_entry(path, e), e["dtype"] == "bfloat16")
+    return out
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, Mapping):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _nest(flat: Dict[str, object]) -> Dict:
+    root: Dict = {}
+    for p, v in flat.items():
+        node = root
+        *parents, last = p.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return root
+
+
+def params_from_jax(src, device="cpu", itemnum: Optional[int] = None
+                    ) -> Dict:
+    """The port's parameter dict from a JAX parameter pytree or checkpoint
+    directory. A packed ``item_emb`` (the only table the JAX package packs)
+    unpacks to [V, D]; with ``itemnum`` it keeps the ``itemnum + 1``
+    addressable rows."""
+    if isinstance(src, (str, Path)):
+        flat = read_checkpoint_leaves(src)
+    else:
+        flat = {p: (_to_numpy(v), np.asarray(v).dtype.name == "bfloat16")
+                for p, v in _flatten(src).items()}
+    out = {}
+    for p, (arr, bf16) in flat.items():
+        if p == "item_emb" and is_packed(arr):
+            arr = unpack_table(arr, flat["pos_emb"][0].shape[1],
+                               itemnum + 1 if itemnum is not None else None)
+        out[p] = _to_torch(arr, bf16, device)
+    return _nest(out)

@@ -1,0 +1,271 @@
+"""Embedding tables and feature-fusion towers, forward only.
+
+Counterpart of ``tencent_recommendation_2025_tpu/models/embedding.py``:
+
+- the per-feature sparse and array tables live in ONE fused table addressed
+  by per-feature row offsets (data/featurizer.FusedVocab);
+- ``padding_idx=0`` is a functional mask: looked-up rows are multiplied by
+  ``(id != 0)``;
+- multimodal vectors live in dense id-indexed tables and are gathered by
+  item id.
+
+Parameters are a plain nested dict of tensors with the JAX pytree's names:
+
+    item_emb   [I+1, D]      user_emb [U+1, D]     pos_emb [2*maxlen+1, D]
+    fused_feat [R, D]        mm_proj  {fid: {w,b}} itemdnn/userdnn {w,b}
+
+The JAX package stores tables of 30M+ rows packed as [V/R, 8, 128] for the
+TPU's layout; the port keeps every table [V, D] (the bridge unpacks).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from ..config import MAX_USER_TOKENS_PER_ROW, ModelConfig
+from ..data import schema as S
+from ..data.featurizer import FusedVocab
+from ..data.schema import FeatureSchema
+
+#: vocabularies up to this size run the JAX forward as one-hot matmuls,
+#: which give a ZERO row for an id above the vocabulary (a gather would read
+#: the next feature's row); the port reproduces that
+ONEHOT_FWD_MAX_VOCAB = 1024
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (xavier-normal for >=2-D, zeros for 1-D, padding row zeroed)
+# ---------------------------------------------------------------------------
+
+def xavier_normal(gen: torch.Generator, shape, dtype=torch.float32):
+    assert len(shape) >= 2, "xavier init is for >=2-D params"
+    fan_in = int(np.prod(shape[:-1]))
+    fan_out = shape[-1]
+    std = math.sqrt(2.0 / (fan_in + fan_out))
+    return (torch.randn(tuple(shape), generator=gen) * std).to(dtype)
+
+
+def _emb_init(gen, rows, dim, dtype=torch.float32):
+    w = xavier_normal(gen, (rows, dim), dtype)
+    w[0] = 0.0
+    return w
+
+
+def linear_init(gen, d_in, d_out):
+    return {"w": xavier_normal(gen, (d_in, d_out)),
+            "b": torch.zeros(d_out)}
+
+
+def linear(p, x):
+    return x @ p["w"] + p["b"]
+
+
+def layernorm_init(dim, scale_init: float):
+    return {"scale": torch.full((dim,), float(scale_init)),
+            "bias": torch.zeros(dim)}
+
+
+def layernorm(p, x, eps: float = 1e-8):
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+
+
+def tower_dims(cfg: ModelConfig, schema: FeatureSchema) -> Tuple[int, int]:
+    D = cfg.hidden_units
+    userdim = D * (len(S.USER_SPARSE_IDS) + 1 + len(S.USER_ARRAY_IDS)) \
+        + len(S.USER_CONTINUAL_IDS)
+    itemdim = D * (len(S.ITEM_SPARSE_IDS) + 1 + len(S.ITEM_ARRAY_IDS)) \
+        + len(S.ITEM_CONTINUAL_IDS) + D * len(schema.mm_emb_ids)
+    return userdim, itemdim
+
+
+def init_embedding_params(gen: torch.Generator, cfg: ModelConfig,
+                          schema: FeatureSchema, fused: FusedVocab,
+                          usernum: int, itemnum: int) -> Dict:
+    userdim, itemdim = tower_dims(cfg, schema)
+    D = cfg.hidden_units
+    params = {
+        "item_emb": _emb_init(gen, itemnum + 1, D,
+                              torch_dtype(cfg.table_dtype)),
+        "user_emb": _emb_init(gen, usernum + 1, D),
+        "pos_emb": _emb_init(gen, 2 * cfg.maxlen + 1, D),
+        "fused_feat": _emb_init(gen, fused.total_rows, D),
+        "itemdnn": linear_init(gen, itemdim, D),
+        "userdnn": linear_init(gen, userdim, D),
+        "mm_proj": {},
+    }
+    for fid in schema.mm_emb_ids:
+        params["mm_proj"][fid] = linear_init(gen, schema.item_emb_dims[fid],
+                                             D)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Lookups
+# ---------------------------------------------------------------------------
+
+def masked_take(table: torch.Tensor, ids: torch.Tensor,
+                dtype=None) -> torch.Tensor:
+    """``table[ids] * (ids != 0)``: the padding-row-0 contract. Out-of-range
+    ids clamp to the table's ends (the JAX gather's mode='clip')."""
+    emb = table[ids.long().clamp(0, table.shape[0] - 1)]
+    if dtype is not None:
+        emb = emb.to(dtype)
+    return emb * (ids != 0)[..., None].to(emb.dtype)
+
+
+def fused_feature_lookup(fused_table: torch.Tensor, ids: torch.Tensor,
+                         offsets, dtype=None,
+                         sizes=None) -> torch.Tensor:
+    """ids [..., F] with per-slot offsets [F] -> embeddings [..., F, D].
+
+    Row = offset[f] + id when id > 0, the shared zero row otherwise. With
+    per-slot vocabulary ``sizes`` no larger than ONEHOT_FWD_MAX_VOCAB, ids
+    above their vocabulary give zero rows, as the JAX one-hot forward does.
+    """
+    offsets = torch.as_tensor(np.asarray(offsets), dtype=torch.long,
+                              device=ids.device)
+    keep = ids > 0
+    if sizes is not None and max(sizes) <= ONEHOT_FWD_MAX_VOCAB:
+        sz = torch.as_tensor(np.asarray(sizes), dtype=torch.long,
+                             device=ids.device)
+        keep = keep & (ids <= sz)
+    global_ids = torch.where(keep, ids.long() + offsets,
+                             torch.zeros_like(ids, dtype=torch.long))
+    return masked_take(fused_table, global_ids, dtype=dtype)
+
+
+def _slot_layout(fused: FusedVocab, fids):
+    return ([fused.offsets[fused.slot(f)] for f in fids],
+            list(fused.group_sizes(fids)))
+
+
+def _array_feature_lookup(table, ids, fused: FusedVocab, fids, dtype):
+    """Array features [..., F, CAP] -> per-feature summed embeddings
+    [..., F, D]."""
+    *lead, F, CAP = ids.shape
+    flat = ids.reshape(*lead, F * CAP)
+    offs, sizes = _slot_layout(fused, fids)
+    emb = fused_feature_lookup(table, flat, np.repeat(offs, CAP),
+                               dtype=dtype, sizes=np.repeat(sizes, CAP))
+    return emb.reshape(*lead, F, CAP, -1).sum(dim=-2)
+
+
+def _cast_linear(p, dtype):
+    return {"w": p["w"].to(dtype), "b": p["b"].to(dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Towers
+# ---------------------------------------------------------------------------
+
+def item_tower(params: Mapping, ids: torch.Tensor,
+               item_sparse: torch.Tensor, item_array: torch.Tensor,
+               mm_vecs: Mapping[str, torch.Tensor],
+               fused: FusedVocab, schema: FeatureSchema,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Item-token embedding: id emb ++ sparse ++ array-sum ++ mm-proj -> DNN
+    (feature order: id, ITEM_SPARSE, ITEM_ARRAY, continual, mm)."""
+    dtype = torch_dtype(cfg.dtype)
+    feats = [masked_take(params["item_emb"], ids, dtype=dtype)]
+    if fused.n_item_sparse:
+        offs, sizes = _slot_layout(fused, S.ITEM_SPARSE_IDS)
+        sp = fused_feature_lookup(params["fused_feat"], item_sparse, offs,
+                                  dtype=dtype, sizes=sizes)
+        feats.append(sp.reshape(*sp.shape[:-2], -1))
+    if fused.n_item_array:
+        ar = _array_feature_lookup(params["fused_feat"], item_array, fused,
+                                   S.ITEM_ARRAY_IDS, dtype)
+        feats.append(ar.reshape(*ar.shape[:-2], -1))
+    for fid in schema.mm_emb_ids:
+        feats.append(linear(_cast_linear(params["mm_proj"][fid], dtype),
+                            mm_vecs[fid].to(dtype)))
+    x = torch.cat(feats, dim=-1)
+    return Fn.relu(linear(_cast_linear(params["itemdnn"], dtype), x))
+
+
+def user_tower(params: Mapping, ids: torch.Tensor,
+               user_sparse: torch.Tensor, user_array: torch.Tensor,
+               fused: FusedVocab, cfg: ModelConfig) -> torch.Tensor:
+    dtype = torch_dtype(cfg.dtype)
+    feats = [masked_take(params["user_emb"], ids, dtype=dtype)]
+    if fused.n_user_sparse:
+        offs, sizes = _slot_layout(fused, S.USER_SPARSE_IDS)
+        sp = fused_feature_lookup(params["fused_feat"], user_sparse, offs,
+                                  dtype=dtype, sizes=sizes)
+        feats.append(sp.reshape(*sp.shape[:-2], -1))
+    if fused.n_user_array:
+        ar = _array_feature_lookup(params["fused_feat"], user_array, fused,
+                                   S.USER_ARRAY_IDS, dtype)
+        feats.append(ar.reshape(*ar.shape[:-2], -1))
+    x = torch.cat(feats, dim=-1)
+    return Fn.relu(linear(_cast_linear(params["userdnn"], dtype), x))
+
+
+def gather_mm(mm_tables: Mapping[str, torch.Tensor], ids: torch.Tensor,
+              schema: FeatureSchema, dtype=None) -> Dict[str, torch.Tensor]:
+    """Gather frozen multimodal vectors by item id (id 0 hits the zero row;
+    out-of-range ids clamp)."""
+    out = {}
+    for fid in schema.mm_emb_ids:
+        t = mm_tables[fid]
+        v = t[ids.long().clamp(0, t.shape[0] - 1)]
+        out[fid] = v.to(dtype) if dtype is not None else v
+    return out
+
+
+def fuse_sequence(params: Mapping, batch: Mapping, mm_tables: Mapping,
+                  fused: FusedVocab, schema: FeatureSchema,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Both towers over the sequence, added (include_user=True fusion). Ids
+    are multiplied by their token-type mask before lookup.
+
+    The user tower runs on the first MAX_USER_TOKENS_PER_ROW user positions
+    of each row and the all-zero-input constant is broadcast elsewhere:
+    exact, because user features are zero-filled at non-user positions."""
+    seq = batch["seq"]
+    tt = batch["token_type"]
+    zero = torch.zeros_like(seq)
+    item_ids = torch.where(tt == 1, seq, zero)
+    user_ids = torch.where(tt == 2, seq, zero)
+    dtype = torch_dtype(cfg.dtype)
+    mm_vecs = gather_mm(mm_tables, item_ids, schema, dtype=dtype)
+    it = item_tower(params, item_ids, batch["seq_item_sparse"],
+                    batch["seq_item_array"], mm_vecs, fused, schema, cfg)
+
+    K = MAX_USER_TOKENS_PER_ROW
+    B, L = seq.shape
+    is_u = tt == 2
+    iota = torch.arange(L, device=seq.device)
+    score = torch.where(is_u, -iota[None, :].expand(B, L),
+                        torch.full_like(seq, -L - 1, dtype=torch.long))
+    posk = torch.topk(score, K, dim=1).indices                 # [B, K]
+    validk = torch.gather(is_u, 1, posk)                       # [B, K]
+    vk = validk.to(seq.dtype)
+    uk = torch.gather(user_ids, 1, posk) * vk
+    rows = torch.arange(B, device=seq.device)[:, None]
+    spk = batch["seq_user_sparse"][rows, posk] * vk[..., None]
+    ark = batch["seq_user_array"][rows, posk] * vk[..., None, None]
+    utk = user_tower(params, uk, spk, ark, fused, cfg)         # [B, K, D]
+
+    def zshape(t):
+        return torch.zeros((1, 1) + tuple(t.shape[2:]), dtype=t.dtype,
+                           device=t.device)
+
+    const = user_tower(params, zshape(uk), zshape(spk), zshape(ark),
+                       fused, cfg)                             # [1, 1, D]
+    onehot = ((posk[:, :, None] == iota[None, None, :])
+              & validk[:, :, None]).to(dtype)                  # [B, K, L]
+    ut = const + torch.einsum("bkl,bkd->bld", onehot,
+                              (utk - const).to(dtype))
+    return it + ut

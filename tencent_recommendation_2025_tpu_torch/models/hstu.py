@@ -1,0 +1,69 @@
+"""HSTU pointwise-gated attention block, dense PyTorch version.
+
+Counterpart of ``tencent_recommendation_2025_tpu/models/hstu.py``: one
+packed projection D -> 4D gives U (gate), V, Q, K through SiLU; attention
+weights are pointwise, ``silu(QK^T / sqrt(hd) + rab) * mask / L`` with no
+softmax; ``rab`` is a learned bias over clamped causal distance; the output
+is ``(LayerNorm(A @ V) * U) @ Wo + bo`` without the residual.
+
+This is the path the encoder takes wherever the JAX package runs plain XLA
+(the CPU, short or ragged sequences), and the oracle the fused kernel is
+tested against.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as Fn
+
+from .embedding import layernorm, layernorm_init, linear_init, xavier_normal
+
+
+def init_hstu_params(gen: torch.Generator, d_model: int, num_heads: int,
+                     rel_pos_buckets: int = 128):
+    return {
+        "uvqk": {"w": xavier_normal(gen, (d_model, 4 * d_model)),
+                 "b": torch.zeros(4 * d_model)},
+        "out": linear_init(gen, d_model, d_model),
+        "attn_ln": layernorm_init(d_model, 1.0),
+        "rab": torch.randn((num_heads, rel_pos_buckets), generator=gen)
+        * 0.02,
+    }
+
+
+def rel_pos_bias(rab: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """[H, buckets] -> [H, L, L] causal distance bias (distance clamped)."""
+    buckets = rab.shape[-1]
+    pos = torch.arange(seq_len, device=rab.device)
+    dist = (pos[:, None] - pos[None, :]).clamp(0, buckets - 1)
+    return rab[:, dist]
+
+
+def hstu_block(params: Mapping, x: torch.Tensor, mask: torch.Tensor,
+               num_heads: int) -> torch.Tensor:
+    """x [B, L, D]; mask [B, L, L] bool (True = attend). Returns the block
+    output without the residual (inference: no dropout)."""
+    dtype = x.dtype
+    B, L, D = x.shape
+    hd = D // num_heads
+    uvqk = Fn.silu(x @ params["uvqk"]["w"].to(dtype)
+                   + params["uvqk"]["b"].to(dtype))
+    u, v, q, k = torch.split(uvqk, D, dim=-1)
+
+    def heads(t):
+        return t.reshape(B, L, num_heads, hd).transpose(1, 2)
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    scores = scores * (hd ** -0.5)
+    scores = scores + rel_pos_bias(params["rab"].float(), L)[None]
+    attn = Fn.silu(scores) * mask[:, None].float()
+    attn = attn / float(L)
+    av = torch.matmul(attn.to(dtype).float(), vh.float()).to(dtype)
+    av = av.transpose(1, 2).reshape(B, L, D)
+    ln = {"scale": params["attn_ln"]["scale"].to(dtype),
+          "bias": params["attn_ln"]["bias"].to(dtype)}
+    gated = layernorm(ln, av) * u
+    return gated @ params["out"]["w"].to(dtype) + params["out"]["b"].to(dtype)

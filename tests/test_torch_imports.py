@@ -1,0 +1,49 @@
+"""The port imports neither JAX nor any module of the JAX package, whose
+name is a prefix of the port's: the check compares module names exactly."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX_PKG = "tencent_recommendation_2025_tpu"
+PORT = "tencent_recommendation_2025_tpu_torch"
+
+_PROBE = f"""
+import importlib, json, pkgutil, sys
+import {PORT} as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, "{PORT}.")]
+for n in names:
+    importlib.import_module(n)
+print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
+"""
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name == JAX_PKG
+            or name.startswith(JAX_PKG + "."))
+
+
+def test_port_imports_no_jax():
+    import json
+
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    imported = set(res["imported"])
+    for mod in ("cli.infer", "ops.fused_block", "ops.kernels", "bridge",
+                "models.baseline", "train.checkpoint", "retrieval.ann",
+                "data.pipeline"):
+        assert f"{PORT}.{mod}" in imported, mod
+    bad = [m for m in res["modules"] if _forbidden(m)]
+    assert not bad, bad
+    assert PORT in res["modules"]
+
+
+def test_exact_name_check():
+    assert _forbidden(JAX_PKG) and _forbidden(JAX_PKG + ".config")
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert not _forbidden(PORT) and not _forbidden(PORT + ".config")
+    assert not _forbidden("jaxtyping")
