@@ -45,6 +45,11 @@ WORK = ROOT / "build" / "chip_smoke"
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 FLAGSHIP = dict(B=128, L=1024, D=64, H=1, F=256, NB=128)
+# the serving run: synthetic fixture and window (maxlen 1023 gives L=1024,
+# the kernel's shape); the model is the hstu_flagship preset as it stands
+FIXTURE = dict(num_users=1024, num_items=5000, min_seq=256, max_seq=1000,
+               seed=21)
+MAXLEN = 1023
 
 
 def log(*a):
@@ -63,14 +68,16 @@ def card_line() -> str:
 # phase 3: kernel vs plain
 # ---------------------------------------------------------------------------
 
-def block_inputs(B, L, D, H, F, NB, dtype, seed):
-    """Seeded block params (LN and biases off their init) and inputs: row 0
-    left-padded, the last row (B > 1) fully padded."""
+def block_inputs(B, L, D, H, F, NB, dtype, seed, device="cuda"):
+    """Seeded kernel operands of one block (LN, biases and the rel-pos bias
+    off their init) and inputs on ``device``: row 0 left-padded, the last
+    row (B > 1) fully padded."""
     import numpy as np
     import torch
 
     from tencent_recommendation_2025_tpu_torch.config import ModelConfig
     from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
 
     cfg = ModelConfig(hidden_units=D, num_heads=H, block_type="hstu",
                       ffn_type="swiglu", hstu_rel_pos_buckets=NB,
@@ -83,19 +90,19 @@ def block_inputs(B, L, D, H, F, NB, dtype, seed):
     def perturb(t, key):
         if isinstance(t, dict):
             return {k: perturb(v, k) for k, v in t.items()}
-        if key in ("b", "bias", "scale"):
+        if key in ("b", "bias", "scale", "rab"):
             t = t + torch.from_numpy(
                 rng.standard_normal(tuple(t.shape)).astype(np.float32) * 0.1)
-        return t.cuda()
+        return t.to(device)
 
-    bp = perturb(bp, "")
+    ops = FB.block_operands(perturb(bp, ""), dtype)
     x = torch.from_numpy(
         (rng.standard_normal((B, L, D)) * 0.5).astype(np.float32))
     tt = np.ones((B, L), np.int32)
     tt[0, :L // 3 + 5] = 0
     if B > 1:
         tt[-1] = 0
-    return x.to(dtype).cuda(), bp, torch.from_numpy(tt).cuda()
+    return x.to(dtype).to(device), ops, torch.from_numpy(tt).to(device)
 
 
 def compare(out, ref, dtype):
@@ -160,10 +167,10 @@ def phase_kernels():
              ("b", dict(B=4, L=256, D=32, H=2, F=256, NB=128), f32)]
     ok_all = True
     for name, shp, dt in cases:
-        x, bp, tt = block_inputs(**shp, dtype=dt, seed=11)
-        out = FB.fused_hstu_block(x, bp, tt, shp["H"])
+        x, ops, tt = block_inputs(**shp, dtype=dt, seed=11)
+        out = FB.fused_hstu_block(x, ops, tt, shp["H"])
         torch.cuda.synchronize()
-        ref = FB.fused_hstu_block_plain(x, bp, tt, shp["H"])
+        ref = FB.fused_hstu_block_plain(x, ops, tt, shp["H"])
         ok, err, lim = compare(out, ref, dt)
         finite = bool(torch.isfinite(out.float()).all())
         log(f"fused_block case ({name}) {shp} {str(dt)[6:]}: "
@@ -173,15 +180,15 @@ def phase_kernels():
 
     # time at the main path's shape, in the product dtype
     s = FLAGSHIP
-    x, bp, tt = block_inputs(**s, dtype=bf16, seed=12)
-    out = FB.fused_hstu_block(x, bp, tt, s["H"])
-    ref = FB.fused_hstu_block_plain(x, bp, tt, s["H"])
+    x, ops, tt = block_inputs(**s, dtype=bf16, seed=12)
+    out = FB.fused_hstu_block(x, ops, tt, s["H"])
+    ref = FB.fused_hstu_block_plain(x, ops, tt, s["H"])
     ok, err, lim = compare(out, ref, bf16)
     log(f"fused_block flagship {s} bf16: max_abs_err={err:.6g} limit {lim} "
         f"{'ok' if ok else 'FAIL'}")
     ok_all &= ok
-    ms = time_ms(lambda: FB.fused_hstu_block(x, bp, tt, s["H"]), 3, 20)
-    plain_ms = time_ms(lambda: FB.fused_hstu_block_plain(x, bp, tt, s["H"]),
+    ms = time_ms(lambda: FB.fused_hstu_block(x, ops, tt, s["H"]), 3, 20)
+    plain_ms = time_ms(lambda: FB.fused_hstu_block_plain(x, ops, tt, s["H"]),
                        1, 5)
     bound, by, flops, nbytes = fused_block_bound(
         s["B"], s["L"], s["D"], s["H"], s["F"], 2, PEAK_BF16_FLOPS)
@@ -203,10 +210,8 @@ def phase_kernels():
 # phase 4: serving
 # ---------------------------------------------------------------------------
 
-def phase_serving(num_users=1024, num_items=5000, min_seq=256, max_seq=1000,
-                  maxlen=1023, argv=()):
-    """The serving phase at the given fixture and window; ``argv`` adds
-    cli.infer arguments (the defaults are the run on the card)."""
+def phase_serving():
+    """cli.infer on the card: hstu_flagship at --maxlen 1023 on FIXTURE."""
     import numpy as np
     import torch
 
@@ -232,16 +237,11 @@ def phase_serving(num_users=1024, num_items=5000, min_seq=256, max_seq=1000,
     data_dir, model_dir, res_dir = WORK / "data", WORK / "model", \
         WORK / "result"
     t0 = time.perf_counter()
-    synthetic.generate(data_dir, num_users=num_users, num_items=num_items,
-                       min_seq=min_seq, max_seq=max_seq, mm_emb_ids=("81",),
-                       seed=21)
+    synthetic.generate(data_dir, mm_emb_ids=("81",), **FIXTURE)
     log(f"fixture generated in {time.perf_counter() - t0:.1f} s")
 
-    cfg = PRESETS["hstu_flagship"]()
-    over = dict(zip(argv[::2], argv[1::2]))
-    mcfg = dataclasses.replace(
-        cfg.model, maxlen=maxlen,
-        num_blocks=int(over.get("--num_blocks", cfg.model.num_blocks)))
+    mcfg = dataclasses.replace(PRESETS["hstu_flagship"]().model,
+                               maxlen=MAXLEN)
     data = TencentGRData(data_dir, mm_emb_ids=("81",), split="test")
     schema = FeatureSchema.from_indexer(data.indexer, ("81",), 8)
     model = SeqRecModel(cfg=mcfg, schema=schema,
@@ -259,13 +259,15 @@ def phase_serving(num_users=1024, num_items=5000, min_seq=256, max_seq=1000,
     os.environ["MODEL_OUTPUT_PATH"] = str(model_dir)
     timings = {}
     FB.fused_hstu_block.launches = 0
-    metrics = INF.main(["--preset", "hstu_flagship", "--maxlen", str(maxlen),
-                        *argv], timings=timings)
+    metrics = INF.main(["--preset", "hstu_flagship", "--maxlen", str(MAXLEN)],
+                       timings=timings)
     launches = FB.fused_hstu_block.launches
     nb = timings["n_query_batches"]
-    ok = launches == mcfg.num_blocks * nb
+    # every test user is a query: 1024 users in batches of 128
+    ok = nb == -(-FIXTURE["num_users"] // 128) and \
+        launches == mcfg.num_blocks * nb
     log(f"fused_block launches on the serving path: {launches} "
-        f"(expected {mcfg.num_blocks} x {nb} query batches) "
+        f"(expected {mcfg.num_blocks} blocks x {nb} query batches) "
         f"{'ok' if ok else 'FAIL'}")
 
     # first query batch again through the plain version of every kernel on
@@ -273,8 +275,8 @@ def phase_serving(num_users=1024, num_items=5000, min_seq=256, max_seq=1000,
     queries = formats.load_fbin(res_dir / "query.fbin")
     corpus = formats.load_fbin(res_dir / "embedding.fbin")
     finite = bool(np.isfinite(queries).all() and np.isfinite(corpus).all())
-    shapes_ok = queries.shape == (timings["n_queries"], mcfg.hidden_units) \
-        and corpus.shape == (timings["n_items"], mcfg.hidden_units)
+    shapes_ok = queries.shape == (FIXTURE["num_users"], mcfg.hidden_units) \
+        and corpus.shape == (FIXTURE["num_items"], mcfg.hidden_units)
     torch.set_num_threads(os.cpu_count() or 1)
     batch, _, n_valid = next(iter(TestLoader(
         TestSampler(data, schema, mcfg.maxlen), 128, num_workers=8)))

@@ -162,8 +162,9 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     if route is None:
         route = block_route(cfg, L, fused_emb.device.type)
     if route == "fused":
+        ops = FB.block_operands(blocks, dtype)   # every block's, at once
         for i in range(cfg.num_blocks):
-            x = FB.fused_hstu_block(x, block_params(blocks, i), token_type,
+            x = FB.fused_hstu_block(x, block_params(ops, i), token_type,
                                     cfg.num_heads)
         return layernorm(_cast_ln(params["last_ln"], dtype), x)
 

@@ -102,14 +102,17 @@ def fused_block_supported(cfg, L: int, backend: str) -> bool:
 
 
 def block_operands(bp: Mapping, dtype: torch.dtype) -> dict:
-    """Kernel-ready operands from one block's parameter subtree
+    """Kernel-ready operands from a block parameter subtree
     ({attn_ln, ffn_ln, ffn{w13, w2}, hstu{uvqk, out, attn_ln, rab}}):
-    weights in the activation dtype, LN pack / biases / rab in f32."""
+    weights in the activation dtype, LN pack / biases / rab in f32. On the
+    stacked tree of every block each operand gains the leading
+    [num_blocks] axis, so a caller builds them once for the whole chain."""
     f32 = torch.float32
     h = bp["hstu"]
     ln = torch.stack([bp["attn_ln"]["scale"], bp["attn_ln"]["bias"],
                       h["attn_ln"]["scale"], h["attn_ln"]["bias"],
-                      bp["ffn_ln"]["scale"], bp["ffn_ln"]["bias"]]).to(f32)
+                      bp["ffn_ln"]["scale"], bp["ffn_ln"]["bias"]],
+                     dim=-2).to(f32)
     return {
         "ln": ln.contiguous(),                               # [6, D]
         "wuvqk": h["uvqk"]["w"].to(dtype).contiguous(),      # [D, 4D]
@@ -134,14 +137,14 @@ def _mm(a, b):
     return torch.matmul(a.float(), b.float())
 
 
-def fused_hstu_block_plain(x: torch.Tensor, bp: Mapping,
+def fused_hstu_block_plain(x: torch.Tensor, o: Mapping,
                            token_type: torch.Tensor,
                            num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, with its rounding points."""
+    """Plain PyTorch version of the kernel, with its rounding points, on
+    the same operands (:func:`block_operands` of one block)."""
     cdt = x.dtype
     B, L, D = x.shape
     hd = D // num_heads
-    o = block_operands(bp, cdt)
     ln = o["ln"]
     F = o["w2"].shape[0]
     NB = o["rab"].shape[1]
@@ -182,7 +185,7 @@ def _kernel_fn():
     return fn
 
 
-def _launch(x: torch.Tensor, bp: Mapping, token_type: torch.Tensor,
+def _launch(x: torch.Tensor, o: Mapping, token_type: torch.Tensor,
             num_heads: int) -> torch.Tensor:
     B, L, D = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -195,19 +198,29 @@ def _launch(x: torch.Tensor, bp: Mapping, token_type: torch.Tensor,
     if tuple(token_type.shape) != (B, L):
         raise ValueError(f"fused block kernel: token_type has shape "
                          f"{tuple(token_type.shape)}, expected {(B, L)}")
-    o = block_operands(bp, x.dtype)
     F = o["w2"].shape[0]
     H, NB = o["rab"].shape
     if F % 16 or H != num_heads or o["wuvqk"].shape != (D, 4 * D):
         raise ValueError(f"fused block kernel: F={F} must be a multiple of "
                          f"16 and rab must have {num_heads} heads (got {H})")
+    for name, t in o.items():
+        want = x.dtype if name in ("wuvqk", "wo", "w13", "w2") \
+            else torch.float32
+        if t.dtype != want:
+            raise ValueError(f"fused block kernel: {name} is {t.dtype}, not "
+                             f"{want} (build the operands with "
+                             f"block_operands(bp, x.dtype))")
     x = x.contiguous()
-    valid = (token_type != 0).to(torch.int32).contiguous()
+    # the kernel reads token_type itself: nonzero = valid key
+    valid = token_type.to(torch.int32).contiguous()
     tensors = [x, valid, *o.values()]
     for t in tensors:
         if t.device != x.device:
             raise ValueError("fused block kernel: operands on different "
                              "devices")
+        if not t.is_contiguous():
+            raise ValueError("fused block kernel: operands must be "
+                             "contiguous")
         if t.data_ptr() % 16:
             raise ValueError("fused block kernel: operands must be 16-byte "
                              "aligned")
@@ -233,17 +246,18 @@ def _launch(x: torch.Tensor, bp: Mapping, token_type: torch.Tensor,
     return out
 
 
-def fused_hstu_block(x: torch.Tensor, bp: Mapping, token_type: torch.Tensor,
+def fused_hstu_block(x: torch.Tensor, ops: Mapping, token_type: torch.Tensor,
                      num_heads: int) -> torch.Tensor:
     """One full HSTU block on [B, L, D] activations (bf16 or f32), forward
-    only. ``bp`` is one block's parameter subtree, ``token_type`` [B, L]
-    (0 = padding key). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (counted in ``fused_hstu_block.launches``)."""
+    only. ``ops`` is ``block_operands(bp, x.dtype)`` of one block, built
+    once by the caller; ``token_type`` [B, L] (0 = padding key). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (counted
+    in ``fused_hstu_block.launches``)."""
     if x.device.type == "cpu":
-        return fused_hstu_block_plain(x, bp, token_type, num_heads)
+        return fused_hstu_block_plain(x, ops, token_type, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_hstu_block: no kernel for {x.device}")
-    return _launch(x, bp, token_type, num_heads)
+    return _launch(x, ops, token_type, num_heads)
 
 
 fused_hstu_block.launches = 0

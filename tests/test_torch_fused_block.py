@@ -58,6 +58,11 @@ def _torch(params):
     return params_from_jax(jax.tree.map(np.asarray, params))
 
 
+def _ops(params):
+    """Kernel operands of one JAX block, in f32."""
+    return TFB.block_operands(_torch(params), torch.float32)
+
+
 def _eager_block(bp, x, tt, H):
     """The port's dense encoder wiring of one block (the oracle route)."""
     mask = TENC.attention_mask(tt, tt)
@@ -71,7 +76,7 @@ def _eager_block(bp, x, tt, H):
 def test_plain_matches_jax_fused_kernel(B, L, D, H):
     cfg, params, x, tt = _setup(B, L, D, H)
     ref = _jax_fused(params, x, tt, H)
-    out = TFB.fused_hstu_block(torch.from_numpy(x), _torch(params),
+    out = TFB.fused_hstu_block(torch.from_numpy(x), _ops(params),
                                torch.from_numpy(tt), H).numpy()
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
@@ -90,10 +95,11 @@ def test_two_stacked_blocks():
     _, p2, _, _ = _setup(B=2, L=256, D=16, H=2, seed=11)
     ref = _jax_fused(p2, _jax_fused(p1, x, tt, 2), tt, 2)
     stacked = jax.tree.map(lambda a, b: np.stack([a, b]), p1, p2)
-    blocks = params_from_jax(stacked)
+    # operands of both blocks built at once, as the encoder builds them
+    ops = TFB.block_operands(params_from_jax(stacked), torch.float32)
     xt, ttt = torch.from_numpy(x), torch.from_numpy(tt)
     for i in range(2):
-        xt = TFB.fused_hstu_block(xt, TENC.block_params(blocks, i), ttt, 2)
+        xt = TFB.fused_hstu_block(xt, TENC.block_params(ops, i), ttt, 2)
     np.testing.assert_allclose(xt.numpy(), ref, rtol=1e-4, atol=2e-5)
 
 
@@ -132,7 +138,7 @@ def test_supported_gate():
 def test_cpu_tensors_take_the_plain_version():
     TFB.fused_hstu_block.launches = 0
     cfg, params, x, tt = _setup(B=1, L=256, D=16, H=2, seed=5)
-    tp = _torch(params)
+    tp = _ops(params)
     out = TFB.fused_hstu_block(torch.from_numpy(x), tp,
                                torch.from_numpy(tt), 2)
     plain = TFB.fused_hstu_block_plain(torch.from_numpy(x), tp,
@@ -163,3 +169,25 @@ def test_encoder_block_route():
     assert TENC.block_route(no_kernels, 512, "cuda") == "dense"
     for L in (128, 1024, 1025, 2048):
         assert TENC.block_route(cfg, L, "cpu") == "dense"
+
+
+@pytest.mark.parametrize("fault", ["none", "dropped", "shifted", "clamped"])
+def test_card_bf16_check_catches_a_wrong_rel_pos_bias(fault):
+    """chip_smoke's bf16 kernel-vs-plain check (max abs and per-token
+    cosine) passes the plain version against itself and fails it against a
+    plain version whose rel-pos bias is dropped, read one distance off, or
+    clamped at half the buckets."""
+    import chip_smoke
+
+    x, ops, tt = chip_smoke.block_inputs(B=2, L=512, D=64, H=1, F=256,
+                                         NB=128, dtype=torch.bfloat16,
+                                         seed=11, device="cpu")
+    ref = TFB.fused_hstu_block_plain(x, ops, tt, 1)
+    rab = ops["rab"]
+    wrong = {"none": rab, "dropped": torch.zeros_like(rab),
+             "shifted": torch.roll(rab, 1, dims=1),
+             "clamped": torch.cat([rab[:, :64],
+                                   rab[:, 63:64].expand(-1, 64)], dim=1)}
+    out = TFB.fused_hstu_block_plain(x, dict(ops, rab=wrong[fault]), tt, 1)
+    ok, _, _ = chip_smoke.compare(out, ref, torch.bfloat16)
+    assert ok == (fault == "none")

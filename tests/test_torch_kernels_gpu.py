@@ -22,8 +22,9 @@ torch.set_num_threads(2)
 
 
 def _block(B, L, D, H, dtype, seed):
-    """One block's seeded params (LN and biases off their init) and inputs:
-    row 0 left-padded, the last row fully padded."""
+    """One block's seeded kernel operands (LN, biases and rel-pos bias off
+    their init) and inputs: row 0 left-padded, the last row fully
+    padded."""
     cfg = ModelConfig(hidden_units=D, num_heads=H, block_type="hstu",
                       ffn_type="swiglu", reference_init=False)
     rng = np.random.default_rng(seed)
@@ -32,7 +33,7 @@ def _block(B, L, D, H, dtype, seed):
     def perturb(t, key):
         if isinstance(t, dict):
             return {k: perturb(v, k) for k, v in t.items()}
-        if key in ("b", "bias", "scale"):
+        if key in ("b", "bias", "scale", "rab"):
             t = t + torch.from_numpy(
                 rng.standard_normal(tuple(t.shape)).astype(np.float32) * 0.1)
         return t.cuda()
@@ -42,7 +43,7 @@ def _block(B, L, D, H, dtype, seed):
     tt = np.ones((B, L), np.int32)
     tt[0, :L // 3 + 5] = 0
     tt[-1] = 0
-    return (perturb(bp, ""), x.to(dtype).cuda(),
+    return (FB.block_operands(perturb(bp, ""), dtype), x.to(dtype).cuda(),
             torch.from_numpy(tt).cuda())
 
 

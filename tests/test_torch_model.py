@@ -28,6 +28,7 @@ from tencent_recommendation_2025_tpu_torch.data.featurizer import \
     FusedVocab, build_item_tables
 from tencent_recommendation_2025_tpu_torch.data.readers import TencentGRData
 from tencent_recommendation_2025_tpu_torch.data.schema import FeatureSchema
+from tencent_recommendation_2025_tpu_torch.models import embedding as TE
 from tencent_recommendation_2025_tpu_torch.models import encoder as TENC
 from tencent_recommendation_2025_tpu_torch.models.baseline import SeqRecModel
 
@@ -79,6 +80,23 @@ def test_predict_matches(models):
                                   for k, v in b.items()},
                          {"81": torch.from_numpy(w["t"].mm["81"])})
     assert out.shape == (16, 32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_fused_route_matches(models):
+    """The encoder's fused route on CPU tensors (the plain version of the
+    fused block kernel, operands of every block built at once) gives the
+    JAX queries too."""
+    w = models
+    b = {k: torch.from_numpy(v) for k, v in w["batch"].items()}
+    ref = w["jm"].predict(w["jp"], {k: jnp.asarray(v)
+                                    for k, v in w["batch"].items()},
+                          {"81": jnp.asarray(w["jt"].mm["81"])})
+    fe = TE.fuse_sequence(w["p"], b, {"81": torch.from_numpy(w["t"].mm["81"])},
+                          w["m"].fused, w["m"].schema, w["m"].cfg)
+    out = TENC.encode(w["p"], fe, b["seq"], b["token_type"],
+                      w["p"]["pos_emb"], w["m"].cfg, route="fused")[:, -1]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
 
