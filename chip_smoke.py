@@ -8,28 +8,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. device   — require CUDA; print the card's name and power limit
                (nvidia-smi --query-gpu=name,power.limit);
 2. build    — compile every kernel under tencent_recommendation_2025_tpu_torch/
-               csrc/ from the checkout (nvcc, sm_90a), print the seconds;
+               csrc/ from the checkout (nvcc, sm_90a, one process per
+               source, all at once), print the seconds;
 3. kernels  — each kernel against its plain PyTorch version on the card, on
                seeded inputs with left padding and one fully padded row, at
-               the stated tolerances; then its time at the main path's shape
-               (CUDA events) beside the plain version's and its bound;
-4. serving  — a seeded synthetic fixture (1024 users, 5000 items, sequences
-               of 256..1000 events), a seeded flagship model written as a
-               checkpoint, and the port's cli.infer main with
-               ``--preset hstu_flagship --maxlen 1023`` on the card; checks
-               the fused-block launch count, recomputes the first query
-               batch with the plain versions on the CPU in bf16 and in f32
-               and holds the card's bf16 queries to both (per-query cosine);
-               prints serving throughput and HR@10/NDCG@10 (random weights:
-               printed, not judged);
-5. report   — one JSON line per kernel list, then the last line
-               ``{"ok": true, "device": {...}}``.
+               the stated tolerances: the fused block forward in inference
+               and in training (with dropout, and its av output) and its
+               backward; then their times at the main path's shape (CUDA
+               events) beside the plain versions' and their bounds;
+4. training — a seeded synthetic fixture (1024 users, 5000 items, sequences
+               of 256..1000 events) and the port's cli.train main with
+               ``--preset hstu_flagship --maxlen 1023 --num_epochs 1`` on the
+               card; checks the launch counts of the three kernels, finite
+               losses and the checkpoint; then one step at full width and
+               depth on 16 rows against the plain versions on the CPU in
+               bf16 and in f32 (loss and per-leaf gradient cosine); prints
+               train examples/s and a profile of one step;
+5. serving  — the port's cli.infer main with the same arguments on the
+               checkpoint just trained; checks the fused-block launch count,
+               recomputes the first query batch with the plain versions on
+               the CPU in bf16 and in f32 and holds the card's bf16 queries
+               to both (per-query cosine); prints serving throughput and
+               HR@10/NDCG@10 (one epoch on synthetic data: printed, not
+               judged);
+6. report   — the card line, one JSON line listing every kernel, then the
+               last line ``{"ok": true, "device": {...}}``.
 
 Scratch data goes to build/chip_smoke/ in the checkout.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -45,11 +55,18 @@ WORK = ROOT / "build" / "chip_smoke"
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 FLAGSHIP = dict(B=128, L=1024, D=64, H=1, F=256, NB=128)
-# the serving run: synthetic fixture and window (maxlen 1023 gives L=1024,
-# the kernel's shape); the model is the hstu_flagship preset as it stands
+FLAGSHIP_DROPOUT = 0.01       # hstu_flagship's dropout_rate
+# the training and serving runs: synthetic fixture and window (maxlen 1023
+# gives L=1024, the kernels' shape); the model is hstu_flagship as it stands
 FIXTURE = dict(num_users=1024, num_items=5000, min_seq=256, max_seq=1000,
                seed=21)
 MAXLEN = 1023
+ARGS = ["--preset", "hstu_flagship", "--maxlen", str(MAXLEN)]
+SRC = "tencent_recommendation_2025_tpu_torch/csrc/"
+TPU = "tencent_recommendation_2025_tpu/ops/fused_block.py"
+FWD_KERNELS = ("proj_kernel", "attn_ffn_kernel")
+BWD_KERNELS = ("gate_ffn_bwd_kernel", "attn_dkdv_kernel", "attn_dq_kernel",
+               "proj_bwd_kernel", "reduce_rows_kernel")
 
 
 def log(*a):
@@ -122,6 +139,24 @@ def compare(out, ref, dtype):
                                   f"{cos.min().item():.6f} >= 0.9995")
 
 
+def compare_grad(got, ref, dtype):
+    """(ok, max_abs_err, limit text) for one gradient: f32 rtol 2e-4 and
+    atol 2e-5 * max(1, max|ref|); bf16 cosine >= 0.999 and max abs <=
+    3e-2 * max(1, max|ref|)."""
+    import torch
+
+    g, r = got.float().flatten(), ref.float().flatten()
+    err = (g - r).abs()
+    scale = max(1.0, r.abs().max().item())
+    if dtype == torch.float32:
+        ok = bool((err <= 2e-5 * scale + 2e-4 * r.abs()).all())
+        return ok, err.max().item(), f"rtol=2e-4 atol={2e-5 * scale:.3g}"
+    cos = torch.nn.functional.cosine_similarity(g, r, dim=0).item()
+    ok = err.max().item() <= 3e-2 * scale and cos >= 0.999
+    return ok, err.max().item(), (f"max_abs<={3e-2 * scale:.4g}, cosine "
+                                  f"{cos:.6f} >= 0.999")
+
+
 def time_ms(fn, warmup, iters):
     import torch
 
@@ -138,25 +173,53 @@ def time_ms(fn, warmup, iters):
     return start.elapsed_time(end) / iters
 
 
-def fused_block_bound(B, L, D, H, F, elem_bytes, peak_flops):
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def _param_bytes(D, H, F, NB, elem_bytes):
+    weights = (D * 4 * D + D * D + D * 2 * F + F * D) * elem_bytes
+    return weights + (6 * D + 4 * D + D + H * NB) * 4
+
+
+def fused_block_bound(B, L, D, H, F, elem_bytes, train=False, NB=128):
     """Least time (ms) of one fused block forward: the larger of its matmul
-    operations over the peak rate and its bytes (inputs once, output once)
-    over the memory rate. Causal: q.k^T and a.v each cost L(L+1)/2 key
-    pairs per query row."""
+    operations over the peak rate and its bytes (inputs once, outputs once;
+    training also writes av) over the memory rate. Causal: q.k^T and a.v
+    each cost L(L+1)/2 key pairs per query row."""
     flops = (2 * B * L * D * 4 * D           # projection
              + 2 * B * D * L * (L + 1)        # q.k^T and a.v, causal
              + 2 * B * L * D * D              # Wo
              + 2 * B * L * D * 2 * F          # W13
              + 2 * B * L * F * D)             # W2
-    weights = (D * 4 * D + D * D + D * 2 * F + F * D) * elem_bytes
-    small = (6 * D + 4 * D + D + H * 128) * 4
-    nbytes = 2 * B * L * D * elem_bytes + B * L * 4 + weights + small
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    acts = (3 if train else 2) * B * L * D * elem_bytes
+    nbytes = acts + B * L * 4 + _param_bytes(D, H, F, NB, elem_bytes)
+    return _bound(flops, nbytes)
+
+
+def fused_block_bwd_bound(B, L, D, H, F, elem_bytes, NB=128):
+    """Least time (ms) of one fused block backward (the TPU kernel's work,
+    l.354-430): the recompute (projection, s, Wo, W13), the four attention
+    products (dv, da, dq, dk, causal) and each weight product twice (dW and
+    dX); bytes: x, av and dout in, dx out, the mask, the weights in and
+    their f32 gradients out."""
+    M = B * L
+    causal = B * D * L * (L + 1)             # one causal [L, L] x D product
+    flops = (2 * M * D * 4 * D + causal + 2 * M * D * D + 2 * M * D * 2 * F
+             + 4 * causal
+             + 2 * (2 * M * D * 4 * D + 2 * M * D * D + 2 * M * D * 2 * F
+                    + 2 * M * F * D))
+    grads = (D * 4 * D + D * D + D * 2 * F + F * D + 6 * D + 5 * D
+             + H * NB) * 4
+    nbytes = 4 * M * D * elem_bytes + M * 4 + \
+        _param_bytes(D, H, F, NB, elem_bytes) + grads
+    return _bound(flops, nbytes)
 
 
 def phase_kernels():
+    """Inference forward: against the plain version, then timed."""
     import torch
 
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
@@ -191,33 +254,412 @@ def phase_kernels():
     plain_ms = time_ms(lambda: FB.fused_hstu_block_plain(x, ops, tt, s["H"]),
                        1, 5)
     bound, by, flops, nbytes = fused_block_bound(
-        s["B"], s["L"], s["D"], s["H"], s["F"], 2, PEAK_BF16_FLOPS)
+        s["B"], s["L"], s["D"], s["H"], s["F"], 2)
     log(f"fused_block flagship time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB); kernel at {flops / ms / 1e9:.1f} TFLOP/s")
     entry = {"name": "fused_hstu_block_fwd", "route": "cuda",
-             "source": "tencent_recommendation_2025_tpu_torch/csrc/"
-                       "fused_block.cu",
-             "replaces": "tencent_recommendation_2025_tpu/ops/fused_block.py"
-                         ":274",
+             "source": SRC + "fused_block.cu", "replaces": TPU + ":274",
              "launches": None, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
              "library_ms": None}
-    return ok_all, [entry]
+    return ok_all, entry
+
+
+def phase_train_kernels():
+    """Training forward (dropout, av) and backward: against their plain
+    versions on the card, then timed at the flagship shape."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    a = dict(B=8, L=1024, D=64, H=1, F=256, NB=128)
+    b = dict(B=4, L=256, D=32, H=2, F=256, NB=128)
+    cases = [(a, f32, 0.0), (a, f32, 0.5), (b, f32, 0.0), (b, f32, 0.5),
+             (a, bf16, 0.0), (a, bf16, 0.5)]
+    ok_all = True
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for shp, dt, rate in cases:
+        tag = f"{shp} {str(dt)[6:]} p={rate}"
+        x, ops, tt = block_inputs(**shp, dtype=dt, seed=13)
+        H = shp["H"]
+        out, av = FB.fused_hstu_block_train(x, ops, tt, H, 1234, rate)
+        torch.cuda.synchronize()
+        ref, ref_av = FB.fused_hstu_block_train_plain(x, ops, tt, H, 1234,
+                                                      rate)
+        ok1, e1, lim = compare(out, ref, dt)
+        # av is 0 on the fully padded row: held as a whole, not per token
+        ok2, e2, lim2 = compare_grad(av, ref_av, dt)
+        ok = ok1 and ok2 and bool(torch.isfinite(out.float()).all())
+        msg = ""
+        if rate > 0:
+            # the masks are what the comparison holds: the plain version
+            # with another seed must fail the same limit
+            other, _ = FB.fused_hstu_block_train_plain(x, ops, tt, H, 1235,
+                                                       rate)
+            differs = not compare(out, other, dt)[0]
+            kept = sum(float((FB.keep_mask(shp["B"], shp["L"], W, 1234, site,
+                                           rate, "cuda") > 0).float().mean())
+                       for site, W in ((0, shp["D"]), (1, shp["F"]))) / 2
+            msg = (f"; another seed fails the limit: {differs}; plain kept "
+                   f"fraction {kept:.4f}")
+            ok &= differs
+        log(f"train forward {tag}: out max_abs_err={e1:.6g} (limit {lim}), "
+            f"av max_abs_err={e2:.6g} ({lim2}){msg} "
+            f"{'ok' if ok else 'FAIL'}")
+        ok_all &= ok
+
+        dout = torch.from_numpy(np.random.default_rng(14).standard_normal(
+            tuple(x.shape)).astype(np.float32)).to(dt).cuda()
+        got = FB.fused_hstu_block_bwd(x, ref_av, dout, ops, tt, H, 1234,
+                                      rate)
+        torch.cuda.synchronize()
+        want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, ops, tt, H,
+                                             1234, rate)
+        parts = []
+        ok = True
+        for name in want:
+            okg, eg, limg = compare_grad(got[name], want[name], dt)
+            ok &= okg and bool(torch.isfinite(got[name].float()).all())
+            parts.append(f"{name} {eg:.3g} ({limg})")
+        log(f"backward {tag}: " + "; ".join(parts)
+            + f" {'ok' if ok else 'FAIL'}")
+        ok_all &= ok
+
+    s = FLAGSHIP
+    H, p = s["H"], FLAGSHIP_DROPOUT
+    x, ops, tt = block_inputs(**s, dtype=bf16, seed=15)
+    seed = torch.tensor([99], dtype=torch.int32, device="cuda")
+    out, av = FB.fused_hstu_block_train(x, ops, tt, H, seed, p)
+    ref, ref_av = FB.fused_hstu_block_train_plain(x, ops, tt, H, seed, p)
+    okf, errs["fwd"], lim = compare(out, ref, bf16)
+    log(f"train forward flagship {s} bf16 p={p}: max_abs_err="
+        f"{errs['fwd']:.6g} limit {lim} {'ok' if okf else 'FAIL'}")
+    dout = (torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(16), device="cuda")).to(bf16)
+    got = FB.fused_hstu_block_bwd(x, ref_av, dout, ops, tt, H, seed, p)
+    want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, ops, tt, H, seed, p)
+    okb = True
+    for name in want:
+        okg, eg, limg = compare_grad(got[name], want[name], bf16)
+        okb &= okg
+        errs["bwd"] = max(errs["bwd"], eg)
+        log(f"  backward flagship {name}: max_abs_err={eg:.6g} ({limg}) "
+            f"{'ok' if okg else 'FAIL'}")
+    ok_all &= okf and okb
+    del got, want, ref, ref_av
+
+    t_fwd = time_ms(lambda: FB.fused_hstu_block_train(x, ops, tt, H, seed,
+                                                      p), 3, 20)
+    t_fwd_plain = time_ms(lambda: FB.fused_hstu_block_train_plain(
+        x, ops, tt, H, seed, p), 1, 3)
+    t_bwd = time_ms(lambda: FB.fused_hstu_block_bwd(x, av, dout, ops, tt, H,
+                                                    seed, p), 2, 10)
+    t_bwd_plain = time_ms(lambda: FB.fused_hstu_block_bwd_plain(
+        x, av, dout, ops, tt, H, seed, p), 1, 3)
+    bf, byf, ff, nf = fused_block_bound(s["B"], s["L"], s["D"], H, s["F"], 2,
+                                        train=True)
+    bb, byb, fb, nb = fused_block_bwd_bound(s["B"], s["L"], s["D"], H,
+                                            s["F"], 2)
+    log(f"train forward flagship time: kernel {t_fwd:.4f} ms, plain "
+        f"{t_fwd_plain:.4f} ms, bound {bf:.4f} ms ({byf}: {ff / 1e9:.2f} "
+        f"GFLOP, {nf / 1e6:.2f} MB); kernel at {ff / t_fwd / 1e9:.1f} TFLOP/s")
+    log(f"backward flagship time: kernel {t_bwd:.4f} ms, plain "
+        f"{t_bwd_plain:.4f} ms, bound {bb:.4f} ms ({byb}: {fb / 1e9:.2f} "
+        f"GFLOP, {nb / 1e6:.2f} MB); kernel at {fb / t_bwd / 1e9:.1f} TFLOP/s")
+    entries = [
+        {"name": "fused_hstu_block_fwd_train", "route": "cuda",
+         "source": SRC + "fused_block.cu", "replaces": TPU + ":274",
+         "launches": None, "max_abs_err": errs["fwd"], "ms": t_fwd,
+         "plain_ms": t_fwd_plain, "bound_ms": bf, "bound_by": byf,
+         "library_ms": None},
+        {"name": "fused_hstu_block_bwd", "route": "cuda",
+         "source": SRC + "fused_block_bwd.cu", "replaces": TPU + ":325",
+         "launches": None, "max_abs_err": errs["bwd"], "ms": t_bwd,
+         "plain_ms": t_bwd_plain, "bound_ms": bb, "bound_by": byb,
+         "library_ms": None}]
+    return ok_all, entries
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serving
+# phase 4: training
 # ---------------------------------------------------------------------------
 
-def phase_serving():
-    """cli.infer on the card: hstu_flagship at --maxlen 1023 on FIXTURE."""
+def phase_training():
+    """cli.train on the card: hstu_flagship at --maxlen 1023, one epoch."""
+    import numpy as np
+
+    from tencent_recommendation_2025_tpu_torch.cli import train as TRN
+    from tencent_recommendation_2025_tpu_torch.config import PRESETS
+    from tencent_recommendation_2025_tpu_torch.data import synthetic
+    from tencent_recommendation_2025_tpu_torch.data.dataset import \
+        TrainSampler
+    from tencent_recommendation_2025_tpu_torch.data.pipeline import \
+        train_val_split
+    from tencent_recommendation_2025_tpu_torch.data.readers import \
+        TencentGRData
+    from tencent_recommendation_2025_tpu_torch.data.schema import \
+        FeatureSchema
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    data_dir, model_dir, log_dir = WORK / "data", WORK / "model", \
+        WORK / "logs"
+    t0 = time.perf_counter()
+    synthetic.generate(data_dir, mm_emb_ids=("81",), **FIXTURE)
+    log(f"fixture generated in {time.perf_counter() - t0:.1f} s")
+
+    os.environ["TRAIN_DATA_PATH"] = str(data_dir)
+    os.environ["TRAIN_CKPT_PATH"] = str(model_dir)
+    os.environ["TRAIN_LOG_PATH"] = str(log_dir)
+    FB.fused_hstu_block.launches = 0
+    FB.fused_hstu_block_train.launches = 0
+    FB.fused_hstu_block_bwd.launches = 0
+    t0 = time.perf_counter()
+    state = TRN.main(ARGS + ["--num_epochs", "1"])
+    wall = time.perf_counter() - t0
+    launches = {"fwd": FB.fused_hstu_block.launches,
+                "fwd_train": FB.fused_hstu_block_train.launches,
+                "bwd": FB.fused_hstu_block_bwd.launches}
+
+    cfg = PRESETS["hstu_flagship"]()
+    mcfg = dataclasses.replace(cfg.model, maxlen=MAXLEN)
+    data = TencentGRData(data_dir, mm_emb_ids=("81",))
+    schema = FeatureSchema.from_indexer(data.indexer, ("81",), 8)
+    sampler = TrainSampler(data, schema, MAXLEN)
+    _, va = train_val_split(len(sampler), cfg.train.valid_fraction,
+                            cfg.train.seed)
+    n_valid = -(-len(va) // cfg.train.batch_size)
+    steps = state.step
+    nb = mcfg.num_blocks
+    ok = (launches["fwd_train"] == nb * steps and launches["bwd"] == nb * steps
+          and launches["fwd"] == nb * n_valid and steps > 0)
+    log(f"training launches: forward (training) {launches['fwd_train']}, "
+        f"backward {launches['bwd']} (expected {nb} blocks x {steps} steps); "
+        f"forward (inference) {launches['fwd']} (expected {nb} x {n_valid} "
+        f"validation batches) {'ok' if ok else 'FAIL'}")
+    lines = [json.loads(ln) for ln in open(log_dir / "train.log")]
+    losses = [ln["loss"] for ln in lines]
+    finite = len(losses) == steps and bool(np.isfinite(losses).all())
+    ckpt = CK.latest_checkpoint(model_dir)
+    ok_ck = ckpt is not None and ckpt.name.startswith(f"global_step{steps}.")
+    log(f"train losses ({steps} steps): {', '.join(f'{v:.4f}' for v in losses)}"
+        f"; finite {finite}; checkpoint {ckpt.name if ckpt else None} "
+        f"{'ok' if finite and ok_ck else 'FAIL'}")
+    log(f"cli.train wall {wall:.1f} s for {steps} steps of "
+        f"{cfg.train.batch_size} (data loading, validation and checkpoint "
+        f"included); last logged steps/s {lines[-1]['steps_per_second']:.3f}")
+    return ok and finite and ok_ck, launches, data_dir, ckpt, data
+
+
+def _train_batches(data, n, rows=None):
+    """The first ``n`` train batches of epoch 1, tower-dedup prepped as
+    train_loop prepares them (optionally cut to ``rows`` rows)."""
+    from tencent_recommendation_2025_tpu_torch.config import PRESETS
+    from tencent_recommendation_2025_tpu_torch.data.dataset import \
+        TrainSampler
+    from tencent_recommendation_2025_tpu_torch.data.pipeline import (
+        TrainLoader, train_val_split)
+    from tencent_recommendation_2025_tpu_torch.data.schema import \
+        FeatureSchema
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    cfg = PRESETS["hstu_flagship"]()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, maxlen=MAXLEN))
+    schema = FeatureSchema.from_indexer(data.indexer, ("81",), 8)
+    sampler = TrainSampler(data, schema, MAXLEN)
+    tr, _ = train_val_split(len(sampler), cfg.train.valid_fraction,
+                            cfg.train.seed)
+    loader = TrainLoader(sampler, tr, cfg.train.batch_size,
+                         seed=cfg.train.seed)
+    out = []
+    for b in loader.epoch(1):
+        if rows is not None:
+            b = {k: v[:rows] for k, v in b.items()}
+        out.append(b)
+        if len(out) == n:
+            break
+    return cfg, schema, out
+
+
+def _loss_and_grads(model, cfg, params, batch, tables, device, route=None):
+    """Loss and per-leaf gradients of one training forward (dropout off)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    state = TR.init_state(model, cfg, params=params, device=device)
+    tabs = TR.device_tables(tables, device)
+    saved = ENC.block_route
+    if route is not None:
+        ENC.block_route = lambda *a: route
+    try:
+        loss, _ = TR.compute_loss(model, state.params,
+                                  TR.put_batch(batch, device), tabs["mm"],
+                                  tabs, cfg, train=True)
+        loss.backward()
+    finally:
+        ENC.block_route = saved
+    return loss.item(), {p: t.grad.float().cpu()
+                         for p, t in TR.param_leaves(state.params)}
+
+
+def phase_one_step(data, ckpt):
+    """One step at full width and depth on the first 16 rows of the first
+    train batch, dropout 0: the card (kernels, bf16) against the plain
+    versions on the CPU in bf16 and in f32."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    cfg, schema, (batch,) = _train_batches(data, 1, rows=16)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rate=0.0))
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+    batch = TR.augment_batch_dedup(batch, cfg, tables, data.itemnum)
+    params, _ = CK.load_params(ckpt)
+
+    def model_in(dtype):
+        mc = dataclasses.replace(cfg.model, dtype=dtype)
+        return (SeqRecModel(cfg=mc, schema=schema,
+                            fused=FusedVocab.build(schema),
+                            usernum=data.usernum, itemnum=data.itemnum),
+                cfg.replace(model=mc))
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    m16, c16 = model_in("bfloat16")
+    m32, c32 = model_in("float32")
+    card_loss, card = _loss_and_grads(m16, c16, params, batch, tables,
+                                      "cuda")
+    torch.cuda.synchronize()
+    l16, g16 = _loss_and_grads(m16, c16, params, batch, tables, "cpu",
+                               route="fused")
+    l32, g32 = _loss_and_grads(m32, c32, params, batch, tables, "cpu",
+                               route="fused")
+
+    def cos(a, b):
+        na, nb = a.norm().item(), b.norm().item()
+        if na == 0.0 and nb == 0.0:
+            return 1.0
+        return float(torch.dot(a.flatten(), b.flatten()) / (na * nb))
+
+    ok_loss = abs(card_loss - l16) <= 1e-3 * abs(l16)
+    worst16, worst32, fails = (None, 2.0), (None, 2.0, 0.0), []
+    for name in card:
+        c16_ = cos(card[name], g16[name])
+        c32_ = cos(card[name], g32[name])
+        floor = min(0.999, cos(g16[name], g32[name]) - 5e-4)
+        if c16_ < worst16[1]:
+            worst16 = (name, c16_)
+        if c32_ < worst32[1]:
+            worst32 = (name, c32_, floor)
+        if c16_ < 0.999 or c32_ < floor:
+            fails.append(f"{name} ({c16_:.6f}, {c32_:.6f} vs {floor:.6f})")
+    ok = ok_loss and not fails and np.isfinite(card_loss)
+    log(f"one step, 16 rows at full width and depth ({len(card)} gradient "
+        f"leaves, CPU plain versions in {time.perf_counter() - t0:.1f} s): "
+        f"loss card {card_loss:.6f}, CPU bf16 {l16:.6f}, CPU f32 {l32:.6f} "
+        f"(limit 1e-3 relative to bf16); lowest gradient cosine to CPU bf16 "
+        f"{worst16[1]:.6f} ({worst16[0]}, limit 0.999), to CPU f32 "
+        f"{worst32[1]:.6f} ({worst32[0]}, limit {worst32[2]:.6f}: 0.999 or "
+        f"the CPU bf16 version's own cosine - 5e-4); failing: "
+        f"{fails or 'none'} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_train_speed(data, ckpt):
+    """Train examples/s of the step itself (host clock, synchronised, after
+    warm-up, on batches already on the card), and where one step's time
+    goes (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    cfg, schema, raw = _train_batches(data, 4)
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+    model = SeqRecModel(cfg=cfg.model, schema=schema,
+                        fused=FusedVocab.build(schema), usernum=data.usernum,
+                        itemnum=data.itemnum)
+    batches = [TR.put_batch(TR.augment_batch_dedup(b, cfg, tables,
+                                                   data.itemnum), "cuda")
+               for b in raw]
+    params, _ = CK.load_params(ckpt)
+    state = TR.init_state(model, cfg, params=params, device="cuda")
+    tabs = TR.device_tables(tables, "cuda")
+    step = TR.make_train_step(model, cfg)
+    for b in batches[:2]:
+        state, m = step(state, b, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    n = 6
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, m = step(state, batches[i % len(batches)], tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    B = cfg.train.batch_size
+    log(f"train step (B={B}, L={MAXLEN + 1}, bf16, dropout "
+        f"{cfg.model.dropout_rate}, tower dedup): {dt * 1e3:.3f} ms, "
+        f"{B / dt:.1f} examples/s (host clock, synchronised, {n} steps "
+        f"after 2 warm-up)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[0], tabs["mm"], tabs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.device_time_total / 1e3
+    busy = sum(by_name.values())
+
+    def share(names):
+        return sum(v for k, v in by_name.items() if any(n in k for n in names))
+
+    fwd, bwd = share(FWD_KERNELS), share(BWD_KERNELS)
+    others = ", ".join(f"{k[:60]} {v:.3f}" for k, v in by_name.most_common()
+                       if not any(n in k for n in FWD_KERNELS + BWD_KERNELS)
+                       )[:900]
+    split = ", ".join(f"{n} {share((n,)):.3f}" for n in BWD_KERNELS)
+    log(f"train step profile: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle {max(0.0, 1 - busy / wall):.1%}); forward kernels "
+        f"{fwd:.3f} ms, backward kernels {bwd:.3f} ms ({split}); other "
+        f"kernels (ms): {others}")
+    return B / dt
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving
+# ---------------------------------------------------------------------------
+
+def phase_serving(data_dir, ckpt):
+    """cli.infer on the card on the trained checkpoint."""
     import numpy as np
     import torch
 
     from tencent_recommendation_2025_tpu_torch.cli import infer as INF
     from tencent_recommendation_2025_tpu_torch.config import PRESETS
-    from tencent_recommendation_2025_tpu_torch.data import formats, synthetic
+    from tencent_recommendation_2025_tpu_torch.data import formats
     from tencent_recommendation_2025_tpu_torch.data.dataset import \
         TestSampler
     from tencent_recommendation_2025_tpu_torch.data.featurizer import (
@@ -232,14 +674,7 @@ def phase_serving():
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
 
-    if WORK.exists():
-        shutil.rmtree(WORK)
-    data_dir, model_dir, res_dir = WORK / "data", WORK / "model", \
-        WORK / "result"
-    t0 = time.perf_counter()
-    synthetic.generate(data_dir, mm_emb_ids=("81",), **FIXTURE)
-    log(f"fixture generated in {time.perf_counter() - t0:.1f} s")
-
+    res_dir = WORK / "result"
     mcfg = dataclasses.replace(PRESETS["hstu_flagship"]().model,
                                maxlen=MAXLEN)
     data = TencentGRData(data_dir, mm_emb_ids=("81",), split="test")
@@ -247,20 +682,16 @@ def phase_serving():
     model = SeqRecModel(cfg=mcfg, schema=schema,
                         fused=FusedVocab.build(schema), usernum=data.usernum,
                         itemnum=data.itemnum)
-    params = model.init(torch.Generator().manual_seed(21))
-    ckpt = CK.save_params(model_dir, params, global_step=0,
-                          model_config=mcfg)
     log(f"flagship D={mcfg.hidden_units} blocks={mcfg.num_blocks} "
-        f"H={mcfg.num_heads} L={mcfg.maxlen + 1} dtype={mcfg.dtype}: "
-        f"{sum(t.numel() for t in _leaves(params))} parameters -> {ckpt.name}")
+        f"H={mcfg.num_heads} L={mcfg.maxlen + 1} dtype={mcfg.dtype}: serving "
+        f"the trained checkpoint {ckpt.name}")
 
     os.environ["EVAL_DATA_PATH"] = str(data_dir)
     os.environ["EVAL_RESULT_PATH"] = str(res_dir)
-    os.environ["MODEL_OUTPUT_PATH"] = str(model_dir)
+    os.environ["MODEL_OUTPUT_PATH"] = str(ckpt.parent)
     timings = {}
     FB.fused_hstu_block.launches = 0
-    metrics = INF.main(["--preset", "hstu_flagship", "--maxlen", str(MAXLEN)],
-                       timings=timings)
+    metrics = INF.main(ARGS, timings=timings)
     launches = FB.fused_hstu_block.launches
     nb = timings["n_query_batches"]
     # every test user is a query: 1024 users in batches of 128
@@ -322,8 +753,6 @@ def phase_serving():
 def profile_predict(model, params, batch, mm):
     """Where one predict batch's time goes: device time by kernel name
     (torch.profiler) against the synchronised host clock."""
-    import collections
-
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -342,10 +771,9 @@ def profile_predict(model, params, batch, mm):
             by_name[e.name] += e.device_time_total / 1e3
     busy = sum(by_name.values())
     fused = sum(v for k, v in by_name.items()
-                if "proj_kernel" in k or "attn_ffn_kernel" in k)
+                if any(n in k for n in FWD_KERNELS))
     others = ", ".join(f"{k[:60]} {v:.3f}" for k, v in by_name.most_common()
-                       if "proj_kernel" not in k and "attn_ffn_kernel" not in k
-                       )[:600]
+                       if not any(n in k for n in FWD_KERNELS))[:600]
     log(f"predict profile (one batch of {batch['seq'].shape[0]}): wall "
         f"{wall_ms:.3f} ms, device busy {busy:.3f} ms (idle "
         f"{max(0.0, 1 - busy / wall_ms):.1%}); fused block kernels "
@@ -355,13 +783,17 @@ def profile_predict(model, params, batch, mm):
 def plain_queries(model, params, batch, mm, dtype):
     """Last-position queries of one CPU batch through the encoder's fused
     route, i.e. the plain version of the fused block kernel, in ``dtype``."""
+    import torch
+
     from tencent_recommendation_2025_tpu_torch.models import embedding as E
     from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
 
     cfg = dataclasses.replace(model.cfg, dtype=dtype)
-    fe = E.fuse_sequence(params, batch, mm, model.fused, model.schema, cfg)
-    out = ENC.encode(params, fe, batch["seq"], batch["token_type"],
-                     params["pos_emb"], cfg, route="fused")
+    with torch.no_grad():
+        fe = E.fuse_sequence(params, batch, mm, model.fused, model.schema,
+                             cfg)
+        out = ENC.encode(params, fe, batch["seq"], batch["token_type"],
+                         params["pos_emb"], cfg, route="fused")
     return out[:, -1].float().numpy()
 
 
@@ -370,14 +802,6 @@ def cosine(a, b):
 
     return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
                              * np.linalg.norm(b, axis=1))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def main() -> int:
@@ -404,12 +828,24 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         log(f"  {name}: " + " | ".join(regs))
 
-    ok_k, entries = phase_kernels()
-    ok_s, launches = phase_serving()
-    entries[0]["launches"] = launches
+    t0 = time.perf_counter()
+    ok_k, fwd = phase_kernels()
+    ok_t, train_entries = phase_train_kernels()
+    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ok_tr, tl, data_dir, ckpt, data = phase_training()
+    ok_1 = phase_one_step(data, ckpt)
+    phase_train_speed(data, ckpt)
+    log(f"training phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ok_s, launches = phase_serving(data_dir, ckpt)
+    log(f"serving phase: {time.perf_counter() - t0:.1f} s")
+    fwd["launches"] = launches
+    train_entries[0]["launches"] = tl["fwd_train"]
+    train_entries[1]["launches"] = tl["bwd"]
     log(card)
-    log(json.dumps({"kernels": entries}))
-    if not (ok_k and ok_s):
+    log(json.dumps({"kernels": [fwd] + train_entries}))
+    if not (ok_k and ok_t and ok_tr and ok_1 and ok_s):
         log("chip_smoke: FAILED")
         return 1
     print(json.dumps({"ok": True, "device": {

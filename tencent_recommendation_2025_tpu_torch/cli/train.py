@@ -1,0 +1,197 @@
+"""Training entry point: the reference ``main.py`` contract on the H100.
+
+Counterpart of ``tencent_recommendation_2025_tpu/cli/train.py``, with its
+arguments, its environment variables (``TRAIN_DATA_PATH``,
+``TRAIN_LOG_PATH``, ``TRAIN_TF_EVENTS_PATH``, ``TRAIN_CKPT_PATH``) and its
+outputs (JSONL ``train.log``, TensorBoard events, per-epoch checkpoints
+named ``global_step{N}.valid_loss={v}``, which the port's ``cli.infer``
+serves).
+
+Runs on the card (``--device cuda``, the default) unless ``--device cpu``
+is given; without CUDA and without ``--device cpu`` it raises. The loader
+is the streaming ``TrainLoader`` (``--loader auto`` means streaming here);
+the cached and native loaders, meshes, sparse tables, gradient
+accumulation, the sampled softmax loss and epoch-end retrieval eval raise
+``NotImplementedError`` naming their ROADMAP item.
+
+    TRAIN_DATA_PATH=... TRAIN_CKPT_PATH=... python -m \\
+        tencent_recommendation_2025_tpu_torch.cli.train \\
+        --preset hstu_flagship --maxlen 1023
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from pathlib import Path
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser()
+    # reference train params (main.py:21-44)
+    p.add_argument("--batch_size", default=None, type=int)
+    p.add_argument("--lr", default=None, type=float)
+    p.add_argument("--maxlen", default=None, type=int)
+    p.add_argument("--hidden_units", default=None, type=int)
+    p.add_argument("--num_blocks", default=None, type=int)
+    p.add_argument("--num_epochs", default=None, type=int)
+    p.add_argument("--num_heads", default=None, type=int)
+    p.add_argument("--dropout_rate", default=None, type=float)
+    p.add_argument("--l2_emb", default=None, type=float)
+    p.add_argument("--device", default="cuda", type=str,
+                   help="'cuda' (default) or 'cpu'")
+    p.add_argument("--inference_only", action="store_true")
+    p.add_argument("--state_dict_path", default=None, type=str,
+                   help="checkpoint dir (or a dir of them) to resume from")
+    p.add_argument("--norm_first", action="store_true")
+    p.add_argument("--mm_emb_id", nargs="+", default=["81"], type=str,
+                   choices=[str(s) for s in range(81, 87)])
+    # framework flags
+    p.add_argument("--preset", default="baseline",
+                   choices=["baseline", "baseline_o1", "hstu_mini",
+                            "hstu_flagship", "sampled_softmax_dp",
+                            "sharded_multihost"])
+    p.add_argument("--block_type", default=None, choices=["mha", "hstu"])
+    p.add_argument("--loss_type", default=None,
+                   choices=["bce", "sampled_softmax"])
+    p.add_argument("--num_inbatch_negatives", default=None, type=int)
+    p.add_argument("--grad_accum_steps", default=None, type=int)
+    p.add_argument("--eval_retrieval_users", default=None, type=int)
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
+    p.add_argument("--mesh_data", default=None, type=int)
+    p.add_argument("--mesh_model", default=None, type=int)
+    p.add_argument("--mesh_seq", default=None, type=int)
+    p.add_argument("--mesh_pipe", default=None, type=int)
+    p.add_argument("--pp_microbatches", default=None, type=int)
+    p.add_argument("--num_workers", default=8, type=int)
+    p.add_argument("--seed", default=None, type=int)
+    p.add_argument("--profile_steps", default=0, type=int,
+                   help="trace N train steps with torch.profiler, written "
+                        "under TRAIN_LOG_PATH/profile")
+    p.add_argument("--profile_start", default=4, type=int,
+                   help="1-based step the profile window starts at")
+    p.add_argument("--loader", default="auto",
+                   choices=["auto", "native", "cached", "streaming"],
+                   help="streaming: threaded per-epoch sampling (auto means "
+                        "streaming in the port); native and cached are not "
+                        "ported yet")
+    return p.parse_args(argv)
+
+
+def build_config(args):
+    from ..config import PRESETS
+
+    cfg = PRESETS[args.preset]()
+    model_over = {k: getattr(args, k) for k in
+                  ("hidden_units", "num_blocks", "num_heads", "maxlen",
+                   "dropout_rate", "block_type", "dtype")
+                  if getattr(args, k) is not None}
+    if args.norm_first:
+        model_over["norm_first"] = True
+    train_over = {k: getattr(args, k) for k in
+                  ("batch_size", "lr", "num_epochs", "l2_emb", "loss_type",
+                   "seed", "num_inbatch_negatives", "grad_accum_steps",
+                   "eval_retrieval_users")
+                  if getattr(args, k) is not None}
+    mesh_over = {}
+    for ax in ("data", "model", "seq", "pipe"):
+        v = getattr(args, f"mesh_{ax}")
+        if v is not None:
+            mesh_over[ax] = v
+    if args.pp_microbatches is not None:
+        mesh_over["pp_microbatches"] = args.pp_microbatches
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, **model_over),
+        train=dataclasses.replace(cfg.train, **train_over),
+        mesh=dataclasses.replace(cfg.mesh, **mesh_over),
+        features=dataclasses.replace(cfg.features,
+                                     mm_emb_ids=tuple(args.mm_emb_id)),
+    )
+
+
+def main(argv=None):
+    args = get_args(argv)
+    cfg = build_config(args)
+
+    import torch
+
+    from ..config import EnvPaths
+    from ..data.dataset import TrainSampler
+    from ..data.featurizer import FusedVocab, build_item_tables
+    from ..data.pipeline import TrainLoader, train_val_split
+    from ..data.readers import TencentGRData
+    from ..data.schema import FeatureSchema
+    from ..models.baseline import SeqRecModel
+    from ..train import checkpoint as CK
+    from ..train.trainer import check_supported, train_loop
+    from .infer import resolve_device
+
+    dev = resolve_device(args.device)
+    check_supported(cfg)
+    if args.loader in ("cached", "native"):
+        raise NotImplementedError(
+            f"--loader {args.loader} is not ported yet: ROADMAP Queue 1, "
+            "Cached/native loader")
+    if args.loader == "auto":
+        print("loader: auto is the streaming TrainLoader in the port")
+
+    env = EnvPaths.from_env()
+    assert env.train_data_path, "TRAIN_DATA_PATH must be set"
+    print(f"System info: torch {torch.__version__}, device {dev}"
+          + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
+             else ""))
+
+    data = TencentGRData(env.train_data_path,
+                         mm_emb_ids=cfg.features.mm_emb_ids)
+    schema = FeatureSchema.from_indexer(data.indexer,
+                                        cfg.features.mm_emb_ids,
+                                        cfg.features.array_cap)
+    fused = FusedVocab.build(schema)
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+    model = SeqRecModel(cfg=cfg.model, schema=schema, fused=fused,
+                        usernum=data.usernum, itemnum=data.itemnum)
+
+    sampler = TrainSampler(data, schema, cfg.model.maxlen)
+    tr_idx, va_idx = train_val_split(len(sampler), cfg.train.valid_fraction,
+                                     cfg.train.seed)
+    train_loader = TrainLoader(sampler, tr_idx, cfg.train.batch_size,
+                               seed=cfg.train.seed,
+                               num_workers=args.num_workers)
+    valid_loader = TrainLoader(sampler, va_idx, cfg.train.batch_size,
+                               seed=cfg.train.seed, shuffle=False,
+                               num_workers=args.num_workers)
+
+    state = None
+    start_epoch = 0
+    if args.state_dict_path:
+        state, meta = CK.load_checkpoint(args.state_dict_path, model, cfg,
+                                         device=dev)
+        # the reference parses epoch= from the file name and runs only the
+        # remaining epochs; the meta carries it directly
+        start_epoch = int(meta.get("epoch", 0))
+        print(f"resumed from {args.state_dict_path} "
+              f"(step {meta.get('global_step')}, {start_epoch}/"
+              f"{cfg.train.num_epochs} epochs done)")
+
+    if args.inference_only:
+        print("inference_only: skipping training")
+        return None
+
+    profile_dir = None
+    if args.profile_steps:
+        profile_dir = str(Path(env.train_log_path or ".") / "profile")
+    state = train_loop(model, cfg, train_loader, valid_loader, tables,
+                       log_dir=env.train_log_path,
+                       tb_dir=env.train_tf_events_path,
+                       ckpt_dir=env.train_ckpt_path, state=state,
+                       start_epoch=start_epoch,
+                       profile_steps=args.profile_steps,
+                       profile_dir=profile_dir,
+                       profile_start=args.profile_start, device=dev)
+    print("Done")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
-// Fused pre-norm HSTU block forward (inference) for Hopper, sm_90a.
+// Fused pre-norm HSTU block forward for Hopper, sm_90a, in inference and in
+// training.
 //
 // Replaces tencent_recommendation_2025_tpu/ops/fused_block.py::_fwd_kernel
-// (the whole-sequence Pallas kernel, train=False). Per batch row and token,
+// (the whole-sequence Pallas kernel, both modes). Per batch row and token,
 // with x [B, L, D] in the compute dtype T (bf16 on the product path, f32 in
 // the checks):
 //
@@ -10,9 +11,15 @@
 //   u = uvqk[:D] (f32), v = T(uvqk[D:2D] / L), q = T(uvqk[2D:3D] * hd^-1/2),
 //   k = T(uvqk[3D:])
 //   av_h = sum_{k<=q, valid k} T(silu(q_h.k_h + rab[h, min(q-k, NB-1)])) v_h
-//   g    = LN2(av) * u
+//   g    = LN2(av) * u * keep1
 //   y    = x + T(g) @ Wo + bo
-//   out  = T(y + T(silu(x1) * x3) @ W2),  [x1 | x3] = T(LN3(y)) @ W13
+//   out  = T(y + T(silu(x1) * x3 * keep2) @ W2),  [x1 | x3] = T(LN3(y)) @ W13
+//
+// Training (the wrapper passes an av output): av is also written in T, the
+// residual the backward (fused_block_bwd.cu) reads, while LN2 here reads the
+// f32 sum, as the TPU kernel does. With dropout (a seed pointer), keep1 and
+// keep2 are the counter-hash masks of fused_block_common.cuh (site 0 over
+// [L, D], site 1 over [L, F]); otherwise both are 1.
 //
 // Matmul operands are in T with f32 accumulation; every LN, SiLU, gate and
 // residual is f32. The rounding points are those of the TPU kernel, so the
@@ -41,26 +48,13 @@
 // T is bf16 and the widths are multiples of 16, else as FMA loops (the f32
 // instance, which exists so that the card can be checked tightly).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "fused_block_common.cuh"
 
-#include <stdint.h>
-#include <type_traits>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace fbk;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 64;      // tokens per projection block
-constexpr int kNC = 64;      // output-column chunk of the weight products
-constexpr int kLdS = kNC + 4;  // f32 chunk tile leading dim
-constexpr int kLdP = kNC + 8;  // compute-dtype chunk tile leading dim
-constexpr float kEps = 1e-8f;
-constexpr size_t kMaxSmem = 232448;  // H100 opt-in shared memory per block
 
 struct Params {
   const void* x;       // [B, L, D] T
@@ -78,141 +72,13 @@ struct Params {
   void* v;             // scratch [B, L, D] T (scaled by 1/L)
   float* u;            // scratch [B, L, D] f32
   void* out;           // [B, L, D] T
+  void* av;            // training: [B, L, D] T, the attention output; or null
+  const int* seed;     // training with dropout: [1] seed; null = no dropout
   int B, L, D, H, F, NB;
   float scale, inv_len;
+  unsigned thr;        // dropout: keep iff bits >= thr
+  float keep_scale;    // dropout: 1 / (1 - p)
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float silu(float v) {
-  return v / (1.0f + __expf(-v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__host__ __device__ __forceinline__ size_t align128(size_t n) {
-  return (n + 127) & ~size_t(127);
-}
-
-// C[M x N] (f32, ldc) = (ACCUM ? C : 0) + A[M x K] . B, A row-major (lda);
-// B is row-major [K x N] (ldb), or with B_T the transpose of a row-major
-// [N x K] array (ldb). FMA loops: any widths.
-template <typename T, bool B_T, bool ACCUM>
-__device__ void gemm_fma(const T* A, int lda, const T* B, int ldb, float* C,
-                         int ldc, int M, int N, int K) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int m = i / N, n = i - m * N;
-    const T* a = A + (size_t)m * lda;
-    float acc = 0.0f;
-    if (B_T) {
-      const T* bt = B + (size_t)n * ldb;
-      for (int kk = 0; kk < K; ++kk) acc += to_f(a[kk]) * to_f(bt[kk]);
-    } else {
-      for (int kk = 0; kk < K; ++kk)
-        acc += to_f(a[kk]) * to_f(B[(size_t)kk * ldb + n]);
-    }
-    float* c = C + (size_t)m * ldc + n;
-    *c = ACCUM ? *c + acc : acc;
-  }
-}
-
-// The same product on the tensor cores: 16x16x16 bf16 WMMA tiles, f32
-// accumulators. M, N, K multiples of 16; lda/ldb multiples of 8, ldc of 4;
-// tile pointers 32-byte aligned (the callers' leading dims guarantee it).
-template <bool B_T, bool ACCUM>
-__device__ void gemm_wmma(const bf16* A, int lda, const bf16* B, int ldb,
-                          float* C, int ldc, int M, int N, int K) {
-  const int warp = threadIdx.x >> 5;
-  const int tn_count = N >> 4;
-  const int tiles = (M >> 4) * tn_count;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int tm = t / tn_count, tn = t - tm * tn_count;
-    float* c = C + (size_t)(tm * 16) * ldc + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (ACCUM)
-      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.0f);
-    const bf16* a = A + (size_t)(tm * 16) * lda;
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + kk, lda);
-      if (B_T) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, B + (size_t)(tn * 16) * ldb + kk, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, B + (size_t)kk * ldb + tn * 16, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-    }
-    wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-template <typename T, bool B_T, bool ACCUM>
-__device__ __forceinline__ void gemm(const T* A, int lda, const T* B, int ldb,
-                                     float* C, int ldc, int M, int N, int K,
-                                     bool tc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (tc) {
-      gemm_wmma<B_T, ACCUM>(A, lda, B, ldb, C, ldc, M, N, K);
-      return;
-    }
-  }
-  gemm_fma<T, B_T, ACCUM>(A, lda, B, ldb, C, ldc, M, N, K);
-}
-
-// Per-row mean and 1/sqrt(var + eps) over D, one warp per row.
-template <typename Tin>
-__device__ void row_stats(const Tin* in, int ld, int rows, int D, float* mu,
-                          float* rstd) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kWarps) {
-    const Tin* row = in + (size_t)r * ld;
-    float s = 0.0f;
-    for (int d = lane; d < D; d += 32) s += to_f(row[d]);
-    const float m = warp_sum(s) / D;
-    float var = 0.0f;
-    for (int d = lane; d < D; d += 32) {
-      const float t = to_f(row[d]) - m;
-      var += t * t;
-    }
-    var = warp_sum(var) / D;
-    if (lane == 0) {
-      mu[r] = m;
-      rstd[r] = rsqrtf(var + kEps);
-    }
-  }
-}
-
-// rows x D elements of T from global (row stride D) to shared (row stride
-// ld), 16 bytes per thread (D * sizeof(T) is a multiple of 16).
-template <typename T>
-__device__ void load_tile(const T* src, int rows, int D, T* dst, int ld) {
-  constexpr int per = 16 / sizeof(T);
-  const int vec_row = D / per;
-  for (int i = threadIdx.x; i < rows * vec_row; i += kThreads) {
-    const int r = i / vec_row, c = (i - r * vec_row) * per;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-  }
-}
 
 template <typename T>
 size_t proj_smem(int D) {
@@ -253,7 +119,8 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(Params p, bool tc) {
   T* ko = static_cast<T*>(p.k);
   T* vo = static_cast<T*>(p.v);
   for (int n0 = 0; n0 < 4 * D; n0 += kNC) {
-    gemm<T, false, false>(hs, ldt, w + n0, 4 * D, cs, kLdS, kTM, kNC, D, tc);
+    gemm<T, false, false, false>(hs, ldt, w + n0, 4 * D, cs, kLdS, kTM, kNC,
+                                 D, tc);
     __syncthreads();
     for (int i = threadIdx.x; i < kTM * kNC; i += kThreads) {
       const int r = i / kNC, c = i - r * kNC, col = n0 + c;
@@ -334,8 +201,8 @@ __global__ void __launch_bounds__(kThreads)
       kval[j] = p.valid[rowb + k0 + j];
     __syncthreads();
     for (int h = 0; h < H; ++h) {
-      gemm<T, true, false>(qs + h * hd, ldt, ks + h * hd, ldt, ss, kLdS, TQ,
-                           TQ, hd, tc_attn);
+      gemm<T, false, true, false>(qs + h * hd, ldt, ks + h * hd, ldt, ss,
+                                  kLdS, TQ, TQ, hd, tc_attn);
       __syncthreads();
       const float* rab = p.rab + (size_t)h * p.NB;
       for (int i = threadIdx.x; i < TQ * TQ; i += kThreads) {
@@ -347,24 +214,31 @@ __global__ void __launch_bounds__(kThreads)
         ps[r * kLdP + c] = from_f<T>(a);
       }
       __syncthreads();
-      gemm<T, false, true>(ps, kLdP, vs + h * hd, ldt, av + h * hd, ldf, TQ,
-                           hd, TQ, tc_attn);
+      gemm<T, false, false, true>(ps, kLdP, vs + h * hd, ldt, av + h * hd,
+                                  ldf, TQ, hd, TQ, tc_attn);
       __syncthreads();
     }
   }
 
-  // --- gate: g = LN2(av) * u ---
+  // --- gate: g = LN2(av) * u * keep1; training also writes av ---
+  const bool drop = p.seed != nullptr;
+  const uint32_t seed = drop ? (uint32_t)p.seed[0] : 0u;
   row_stats<float>(av, ldf, TQ, D, mu, rstd);
   __syncthreads();
   {
     const float* g2 = p.ln + 2 * D;
     const float* b2 = p.ln + 3 * D;
     const float* u = p.u + (rowb + q0) * D;
+    T* av_out = p.av ? static_cast<T*>(p.av) + (rowb + q0) * D : nullptr;
+    const uint32_t key = drop_key(seed, 2u * b);
     for (int i = threadIdx.x; i < TQ * D; i += kThreads) {
       const int r = i / D, d = i - r * D;
-      const float g = ((av[r * ldf + d] - mu[r]) * rstd[r] * g2[d] + b2[d]) *
-                      u[i];
+      float g = ((av[r * ldf + d] - mu[r]) * rstd[r] * g2[d] + b2[d]) * u[i];
+      if (drop)
+        g *= keep_factor(key, (uint32_t)((q0 + r) * D + d), p.thr,
+                         p.keep_scale);
       qs[r * ldt + d] = from_f<T>(g);
+      if (av_out) av_out[i] = from_f<T>(av[r * ldf + d]);
     }
   }
   __syncthreads();
@@ -374,7 +248,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* wo = static_cast<const T*>(p.wo);
   for (int n0 = 0; n0 < D; n0 += kNC) {
     const int nc = min(kNC, D - n0);
-    gemm<T, false, false>(qs, ldt, wo + n0, D, ss, kLdS, TQ, nc, D, tc);
+    gemm<T, false, false, false>(qs, ldt, wo + n0, D, ss, kLdS, TQ, nc, D,
+                                 tc);
     __syncthreads();
     for (int i = threadIdx.x; i < TQ * nc; i += kThreads) {
       const int r = i / nc, c = i - r * nc;
@@ -399,22 +274,28 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // --- SwiGLU FFN in F-chunks: os += T(silu(x1) * x3) @ W2[chunk] ---
+  // --- SwiGLU FFN in F-chunks: os += T(silu(x1) * x3 * keep2) @ W2[chunk]
   const T* w13 = static_cast<const T*>(p.w13);
   const T* w2 = static_cast<const T*>(p.w2);
+  const uint32_t key2 = drop_key(seed, 2u * b + 1u);
   for (int j0 = 0; j0 < F; j0 += kNC) {
     const int nc = min(kNC, F - j0);
-    gemm<T, false, false>(qs, ldt, w13 + j0, 2 * F, ss, kLdS, TQ, nc, D, tc);
-    gemm<T, false, false>(qs, ldt, w13 + F + j0, 2 * F, s2, kLdS, TQ, nc, D,
-                          tc);
+    gemm<T, false, false, false>(qs, ldt, w13 + j0, 2 * F, ss, kLdS, TQ, nc,
+                                 D, tc);
+    gemm<T, false, false, false>(qs, ldt, w13 + F + j0, 2 * F, s2, kLdS, TQ,
+                                 nc, D, tc);
     __syncthreads();
     for (int i = threadIdx.x; i < TQ * nc; i += kThreads) {
       const int r = i / nc, c = i - r * nc;
-      ps[r * kLdP + c] = from_f<T>(silu(ss[r * kLdS + c]) * s2[r * kLdS + c]);
+      float f = silu(ss[r * kLdS + c]) * s2[r * kLdS + c];
+      if (drop)
+        f *= keep_factor(key2, (uint32_t)((q0 + r) * F + j0 + c), p.thr,
+                         p.keep_scale);
+      ps[r * kLdP + c] = from_f<T>(f);
     }
     __syncthreads();
-    gemm<T, false, true>(ps, kLdP, w2 + (size_t)j0 * D, D, os, ldf, TQ, D, nc,
-                         tc);
+    gemm<T, false, false, true>(ps, kLdP, w2 + (size_t)j0 * D, D, os, ldf, TQ,
+                                D, nc, tc);
     __syncthreads();
   }
 
@@ -457,7 +338,10 @@ int launch(const Params& p, bool tc, cudaStream_t stream) {
 // Plain C entry point (bound with ctypes). Shapes: x/out [B, L, D], valid
 // [B, L] int32, ln [6, D] f32, wuvqk [D, 4D], buvqk [4D] f32, wo [D, D],
 // bo [D] f32, w13 [D, 2F], w2 [F, D], rab [H, NB] f32, scratch q/k/v
-// [B, L, D] in the compute dtype and u [B, L, D] f32. All contiguous, 16-byte
+// [B, L, D] in the compute dtype and u [B, L, D] f32. Training: av [B, L, D]
+// in the compute dtype (null in inference) and, for dropout, seed [1] int32
+// on the device with the keep threshold thr = uint32(p * 2^32) and
+// keep_scale = 1 / (1 - p) (seed null: no dropout). All contiguous, 16-byte
 // aligned. Requires L % 64 == 0, D % 16 == 0, F % 16 == 0, D % H == 0.
 // Returns a cudaError_t code (0 on success).
 extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
@@ -465,9 +349,10 @@ extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
                                const void* buvqk, const void* wo,
                                const void* bo, const void* w13,
                                const void* w2, const void* rab, void* q,
-                               void* k, void* v, void* u, void* out, int B,
-                               int L, int D, int H, int F, int NB, float scale,
-                               float inv_len, void* stream) {
+                               void* k, void* v, void* u, void* out, void* av,
+                               const void* seed, int B, int L, int D, int H,
+                               int F, int NB, float scale, float inv_len,
+                               unsigned thr, float keep_scale, void* stream) {
   if (L % kTM != 0 || D % 16 != 0 || F % 16 != 0 || H <= 0 || D % H != 0 ||
       NB <= 0)
     return (int)cudaErrorInvalidValue;
@@ -487,6 +372,8 @@ extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
   p.v = v;
   p.u = static_cast<float*>(u);
   p.out = out;
+  p.av = av;
+  p.seed = static_cast<const int*>(seed);
   p.B = B;
   p.L = L;
   p.D = D;
@@ -495,6 +382,8 @@ extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
   p.NB = NB;
   p.scale = scale;
   p.inv_len = inv_len;
+  p.thr = thr;
+  p.keep_scale = keep_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch<bf16>(p, true, s);
   return launch<float>(p, false, s);

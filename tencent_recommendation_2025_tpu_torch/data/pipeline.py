@@ -1,12 +1,11 @@
-"""Streaming input pipeline: sampling -> fixed-shape batches.
+"""Streaming input pipeline: sampling -> fixed-shape batches -> prefetch.
 
 A host-side streaming loader: worker threads build samples (the python-side
 sampling logic is the reference's bottleneck — SURVEY.md §3.1 "HOT"), batches
 are stacked into a struct-of-arrays dict of numpy arrays with **fixed**
 shapes, and the last partial batch is padded (padded rows have
 ``token_type == 0`` everywhere so they contribute nothing to the loss).
-Batches stay on the host; callers move them to the device with
-``torch.as_tensor(..., device=...)``.
+:func:`prefetch` builds and moves batch N+1 on a thread while N computes.
 
 Per-host sharding for multi-host DP: each host takes an interleaved slice of
 the user index space (``indices[host_id::num_hosts]``).
@@ -15,8 +14,10 @@ the user index space (``indices[host_id::num_hosts]``).
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -121,3 +122,49 @@ class TestLoader:
                         stacked[i] = getattr(s, name)
                     out[name] = stacked
                 yield out, user_ids, n_valid
+
+
+def prefetch(iterator: Iterator, put: Callable, size: int = 2) -> Iterator:
+    """Double-buffered prefetch: a producer thread builds the next batches
+    and applies ``put`` (the move to the device) while the consumer
+    computes. A producer error is raised on the consumer side; closing the
+    generator early stops the producer within ~0.1 s."""
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    end = object()
+    stop = threading.Event()
+
+    class _Err:
+        def __init__(self, e):
+            self.e = e
+
+    def offer(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in iterator:
+                if stop.is_set() or not offer(put(item)):
+                    return
+            offer(end)
+        except BaseException as e:  # noqa: BLE001 — relayed to the consumer
+            offer(_Err(e))
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, _Err):
+                raise item.e
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=5)

@@ -1,4 +1,4 @@
-"""The sequence-recommender model, inference half.
+"""The sequence-recommender model.
 
 Counterpart of ``tencent_recommendation_2025_tpu/models/baseline.py``: a
 static :class:`SeqRecModel` descriptor (config + schema + vocab layout) with
@@ -6,22 +6,23 @@ methods over a nested parameter dict of tensors.
 
 - :meth:`init` — parameters from a seeded ``torch.Generator``, with the
   shapes and distributions of the JAX init (the numbers differ);
+- :meth:`forward` / :meth:`logits` — the training forward: positive and
+  negative logits over next-item positions;
 - :meth:`predict` — last-position query vectors;
 - :meth:`encode_items` — candidate-corpus item tower.
-
-The training forward and loss belong to a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..config import ModelConfig
 from ..data.featurizer import FusedVocab
 from ..data.schema import FeatureSchema
+from ..ops.sparse_table import planned_lookup
 from . import embedding as E
 from . import encoder as ENC
 
@@ -55,12 +56,95 @@ class SeqRecModel:
         return E.item_tower(params, ids, item_sparse, item_array, mm_vecs,
                             self.fused, self.schema, self.cfg)
 
+    def dedup_spreads(self, params: Mapping, batch: Mapping,
+                      mm_tables: Mapping[str, torch.Tensor]):
+        """Tower-dedup candidate embeddings (``train.tower_dedup``): the
+        item tower runs ONCE on the batch's unique candidate ids
+        (``dedup_uids`` and their features, gathered on the host by
+        trainer.augment_batch_dedup) and its [cap, D] rows spread to each
+        consumer site by its host plan (ops/sparse_table.planned_lookup).
+        Returns (it_seq [B, L, D], pos_last [B, 1, D], negs [B, L, D])."""
+        if batch["dedup_uids"].dim() != 1:
+            raise NotImplementedError(
+                "the stacked [S, cap] tower-dedup plan belongs to data "
+                "meshes: ROADMAP Queue 1, Multi-device layer")
+        tu = self.item_embeddings(params, batch["dedup_uids"],
+                                  batch["dedup_sparse"],
+                                  batch["dedup_array"], mm_tables)
+
+        def spread(site):
+            return planned_lookup(tu, *(batch[f"dedup_{site}_{k}"] for k in
+                                        ("idx", "perm", "starts", "ends")))
+
+        return spread("seq"), spread("pos_last"), spread("negs")
+
     def log2feats(self, params: Mapping, batch: Mapping,
-                  mm_tables: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        fused_emb = E.fuse_sequence(params, batch, mm_tables, self.fused,
-                                    self.schema, self.cfg)
-        return ENC.encode(params, fused_emb, batch["seq"],
-                          batch["token_type"], params["pos_emb"], self.cfg)
+                  mm_tables: Mapping[str, torch.Tensor], train: bool = False,
+                  gen: Optional[torch.Generator] = None,
+                  return_item_tower: bool = False,
+                  item_tower_override: Optional[torch.Tensor] = None):
+        fused_out = E.fuse_sequence(
+            params, batch, mm_tables, self.fused, self.schema, self.cfg,
+            return_item_tower=return_item_tower,
+            item_tower_override=item_tower_override)
+        fused_emb, it_seq = fused_out if return_item_tower \
+            else (fused_out, None)
+        out = ENC.encode(params, fused_emb, batch["seq"],
+                         batch["token_type"], params["pos_emb"], self.cfg,
+                         train=train, gen=gen)
+        return (out, it_seq) if return_item_tower else out
+
+    def forward(self, params: Mapping, batch: Mapping,
+                mm_tables: Mapping[str, torch.Tensor],
+                item_tables: Mapping[str, torch.Tensor], train: bool = True,
+                gen: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(log_feats [B, L, D], pos_embs, neg_embs). The positives' tower
+        is the sequence item tower shifted by one (``pos[idx] ==
+        seq[idx+1]`` with the same features by construction), so only the
+        final target column runs its own tower. Negative-item features are
+        gathered on the device from the static item tables by id."""
+        if "dedup_uids" in batch:
+            it_seq, pos_last, neg_embs = self.dedup_spreads(params, batch,
+                                                            mm_tables)
+            log_feats = self.log2feats(params, batch, mm_tables, train=train,
+                                       gen=gen, item_tower_override=it_seq)
+            pos_embs = torch.cat([it_seq[:, 1:], pos_last], dim=1)
+            return log_feats, pos_embs, neg_embs
+        log_feats, it_seq = self.log2feats(params, batch, mm_tables,
+                                           train=train, gen=gen,
+                                           return_item_tower=True)
+        pos_last = self.item_embeddings(
+            params, batch["pos"][:, -1:], batch["pos_item_sparse"][:, -1:],
+            batch["pos_item_array"][:, -1:], mm_tables)
+        pos_embs = torch.cat([it_seq[:, 1:].to(pos_last.dtype), pos_last],
+                             dim=1)
+        neg = batch["neg"].long()
+
+        def take(table):
+            return table[neg.clamp(0, table.shape[0] - 1)]
+
+        neg_embs = self.item_embeddings(params, batch["neg"],
+                                        take(item_tables["sparse"]),
+                                        take(item_tables["array"]), mm_tables)
+        return log_feats, pos_embs, neg_embs
+
+    def logits(self, params: Mapping, batch: Mapping,
+               mm_tables: Mapping[str, torch.Tensor],
+               item_tables: Mapping[str, torch.Tensor], train: bool = True,
+               gen: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(pos_logits, neg_logits, loss_mask): dot products masked to
+        next-item positions (and to real samples of a padded batch)."""
+        log_feats, pos_embs, neg_embs = self.forward(
+            params, batch, mm_tables, item_tables, train=train, gen=gen)
+        loss_mask = batch["next_token_type"] == 1
+        if "sample_valid" in batch:
+            loss_mask = loss_mask & (batch["sample_valid"][:, None] > 0)
+        pos_logits = (log_feats * pos_embs).sum(-1)
+        neg_logits = (log_feats * neg_embs).sum(-1)
+        m = loss_mask.to(pos_logits.dtype)
+        return pos_logits * m, neg_logits * m, loss_mask
 
     @torch.no_grad()
     def predict(self, params: Mapping, batch: Mapping,

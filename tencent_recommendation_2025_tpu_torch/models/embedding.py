@@ -1,4 +1,4 @@
-"""Embedding tables and feature-fusion towers, forward only.
+"""Embedding tables and feature-fusion towers.
 
 Counterpart of ``tencent_recommendation_2025_tpu/models/embedding.py``:
 
@@ -226,22 +226,31 @@ def gather_mm(mm_tables: Mapping[str, torch.Tensor], ids: torch.Tensor,
 
 def fuse_sequence(params: Mapping, batch: Mapping, mm_tables: Mapping,
                   fused: FusedVocab, schema: FeatureSchema,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, return_item_tower: bool = False,
+                  item_tower_override: Optional[torch.Tensor] = None):
     """Both towers over the sequence, added (include_user=True fusion). Ids
     are multiplied by their token-type mask before lookup.
 
     The user tower runs on the first MAX_USER_TOKENS_PER_ROW user positions
     of each row and the all-zero-input constant is broadcast elsewhere:
-    exact, because user features are zero-filled at non-user positions."""
+    exact, because user features are zero-filled at non-user positions.
+
+    ``item_tower_override``: the whole item tower [B, L, D], computed before
+    (the tower-dedup spread, models/baseline.dedup_spreads); the batch's
+    per-position item features are not read then. ``return_item_tower``
+    also returns the item tower, which the positives reuse."""
     seq = batch["seq"]
     tt = batch["token_type"]
     zero = torch.zeros_like(seq)
-    item_ids = torch.where(tt == 1, seq, zero)
     user_ids = torch.where(tt == 2, seq, zero)
     dtype = torch_dtype(cfg.dtype)
-    mm_vecs = gather_mm(mm_tables, item_ids, schema, dtype=dtype)
-    it = item_tower(params, item_ids, batch["seq_item_sparse"],
-                    batch["seq_item_array"], mm_vecs, fused, schema, cfg)
+    if item_tower_override is not None:
+        it = item_tower_override.to(dtype)
+    else:
+        item_ids = torch.where(tt == 1, seq, zero)
+        mm_vecs = gather_mm(mm_tables, item_ids, schema, dtype=dtype)
+        it = item_tower(params, item_ids, batch["seq_item_sparse"],
+                        batch["seq_item_array"], mm_vecs, fused, schema, cfg)
 
     K = MAX_USER_TOKENS_PER_ROW
     B, L = seq.shape
@@ -268,4 +277,6 @@ def fuse_sequence(params: Mapping, batch: Mapping, mm_tables: Mapping,
               & validk[:, :, None]).to(dtype)                  # [B, K, L]
     ut = const + torch.einsum("bkl,bkd->bld", onehot,
                               (utk - const).to(dtype))
+    if return_item_tower:
+        return it + ut, it
     return it + ut

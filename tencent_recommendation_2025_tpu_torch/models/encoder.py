@@ -1,9 +1,9 @@
 """Sequence encoder: fused embeddings -> N blocks -> final LayerNorm.
 
-Counterpart of ``tencent_recommendation_2025_tpu/models/encoder.py``, the
-inference forward: sqrt(D) scaling, learned absolute positions 1..L zeroed
-on padding ids, the causal ∧ key-padding mask, pre-norm HSTU blocks with a
-SwiGLU (or ReLU) FFN, final LayerNorm(eps=1e-8).
+Counterpart of ``tencent_recommendation_2025_tpu/models/encoder.py``:
+sqrt(D) scaling, learned absolute positions 1..L zeroed on padding ids,
+embedding dropout in training, the causal ∧ key-padding mask, pre-norm HSTU
+blocks with a SwiGLU (or ReLU) FFN, final LayerNorm(eps=1e-8).
 
 Routing mirrors the JAX package's. Where it takes a Pallas kernel on a TPU,
 the port takes its CUDA kernel on the card (the fused whole-sequence block,
@@ -18,11 +18,12 @@ from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as Fn
+import torch.utils.checkpoint
 
 from ..config import ModelConfig
 from ..ops import fused_block as FB
 from .embedding import layernorm, layernorm_init, linear_init, torch_dtype
-from .hstu import hstu_block, init_hstu_params
+from .hstu import dropout, hstu_block, init_hstu_params
 
 
 def swiglu_hidden_dim(d_model: int, mult: float, multiple_of: int) -> int:
@@ -40,14 +41,18 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     return {"fc1": linear_init(gen, D, D), "fc2": linear_init(gen, D, D)}
 
 
-def ffn(params: Mapping, x: torch.Tensor) -> torch.Tensor:
+def ffn(params: Mapping, x: torch.Tensor, rate: float = 0.0,
+        train: bool = False,
+        gen: Optional[torch.Generator] = None) -> torch.Tensor:
     dtype = x.dtype
     if "w13" in params:
         x1, x3 = torch.chunk(x @ params["w13"].to(dtype), 2, dim=-1)
-        return (Fn.silu(x1) * x3) @ params["w2"].to(dtype)
+        h = dropout(Fn.silu(x1) * x3, rate, train, gen)
+        return h @ params["w2"].to(dtype)
     h = x @ params["fc1"]["w"].to(dtype) + params["fc1"]["b"].to(dtype)
-    h = Fn.relu(h)
-    return h @ params["fc2"]["w"].to(dtype) + params["fc2"]["b"].to(dtype)
+    h = Fn.relu(dropout(h, rate, train, gen))
+    h = h @ params["fc2"]["w"].to(dtype) + params["fc2"]["b"].to(dtype)
+    return dropout(h, rate, train, gen)
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -87,13 +92,35 @@ def init_encoder_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
             "last_ln": layernorm_init(cfg.hidden_units, ln_scale)}
 
 
+class _PositionalTake(torch.autograd.Function):
+    """Positions 1..L zeroed on padding ids, with the JAX package's
+    scatter-free backward: position l always reads row l + 1 (or the zero
+    row 0), so the table gradient is the batch sum of the valid positions'
+    cotangents written at rows 1..L, and row 0 gets none."""
+
+    @staticmethod
+    def forward(ctx, pos_table, seq_ids):
+        L = seq_ids.shape[1]
+        valid = seq_ids != 0
+        poss = torch.arange(1, L + 1, device=seq_ids.device)[None, :] * valid
+        ctx.save_for_backward(valid)
+        ctx.rows = pos_table.shape[0]
+        return pos_table[poss]
+
+    @staticmethod
+    def backward(ctx, cot):
+        (valid,) = ctx.saved_tensors
+        L, D = cot.shape[1], cot.shape[2]
+        summed = (cot.float() * valid[..., None]).sum(0)        # [L, D]
+        dtable = cot.new_zeros((ctx.rows, D), dtype=torch.float32)
+        dtable[1:L + 1] = summed
+        return dtable, None
+
+
 def positional_take(pos_table: torch.Tensor,
                     seq_ids: torch.Tensor) -> torch.Tensor:
     """Positions 1..L, zeroed (row 0) on padding ids."""
-    L = seq_ids.shape[1]
-    poss = torch.arange(1, L + 1, device=seq_ids.device)[None, :] \
-        * (seq_ids != 0)
-    return pos_table[poss]
+    return _PositionalTake.apply(pos_table, seq_ids)
 
 
 def attention_mask(seq_ids: torch.Tensor,
@@ -134,20 +161,27 @@ def block_route(cfg: ModelConfig, L: int, backend: str) -> str:
 
 def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
            token_type: torch.Tensor, pos_table: torch.Tensor,
-           cfg: ModelConfig, train: bool = False, mesh=None,
+           cfg: ModelConfig, train: bool = False,
+           gen: Optional[torch.Generator] = None, mesh=None,
            route: Optional[str] = None) -> torch.Tensor:
     """fused_emb [B, L, D] (output of embedding.fuse_sequence) -> [B, L, D].
-    Inference only. ``route`` overrides :func:`block_route`: "fused" on CPU
-    tensors runs the plain version of the fused kernel (the card's
-    arithmetic, for checks); by default the route follows the device."""
+
+    ``train`` with ``cfg.dropout_rate`` > 0 and a generator ``gen`` (on the
+    activations' device) applies dropout: on the embeddings, and inside each
+    block. ``route`` overrides :func:`block_route`: "fused" on CPU tensors
+    runs the plain versions of the fused block kernels (the card's
+    arithmetic, for checks); by default the route follows the device.
+
+    The fused route differentiates through :class:`ops.fused_block.
+    FusedBlockFn` whenever autograd records (its backward is the backward
+    kernel, which recomputes from x and av itself, so no checkpoint wraps
+    it); under ``torch.no_grad`` it takes the inference kernel with every
+    block's operands built once. The dense route checkpoints each block in
+    training when ``cfg.remat_blocks``, as the JAX package's remat does."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh, pipeline and ring encoder branches are not ported: "
             "ROADMAP Queue 1, Multi-device layer")
-    if train:
-        raise NotImplementedError(
-            "the training forward (dropout, fused_block _bwd_kernel) is not "
-            "ported yet: ROADMAP Queue 1, Training path")
     if cfg.block_type != "hstu":
         raise NotImplementedError(
             "softmax-MHA blocks (the baseline/baseline_o1 parity presets, "
@@ -157,22 +191,55 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     B, L, D = fused_emb.shape
     x = fused_emb.to(dtype) * torch.tensor(D ** 0.5, dtype=dtype)
     x = x + positional_take(pos_table, seq_ids).to(dtype)
+    rate = cfg.dropout_rate
+    use_dropout = train and rate > 0.0 and gen is not None
+    x = dropout(x, rate, use_dropout, gen)
     blocks = params["blocks"]
 
     if route is None:
         route = block_route(cfg, L, fused_emb.device.type)
     if route == "fused":
-        ops = FB.block_operands(blocks, dtype)   # every block's, at once
-        for i in range(cfg.num_blocks):
-            x = FB.fused_hstu_block(x, block_params(ops, i), token_type,
-                                    cfg.num_heads)
+        if torch.is_grad_enabled():
+            # per-block dropout seeds stay on the device (no host sync)
+            seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_blocks,),
+                                  generator=gen, device=gen.device) \
+                if use_dropout else torch.zeros(cfg.num_blocks,
+                                                dtype=torch.int64)
+            for i in range(cfg.num_blocks):
+                x = FB.fused_hstu_block_autograd(
+                    x, block_params(blocks, i), token_type, seeds[i],
+                    cfg.num_heads, rate, use_dropout)
+        else:
+            ops = FB.block_operands(blocks, dtype)   # every block's, at once
+            for i in range(cfg.num_blocks):
+                x = FB.fused_hstu_block(x, block_params(ops, i), token_type,
+                                        cfg.num_heads)
         return layernorm(_cast_ln(params["last_ln"], dtype), x)
 
     mask = attention_mask(seq_ids, token_type)
+    # each block draws its masks from a generator of its own, rebuilt from
+    # an int seed, so that a checkpointed block's recompute draws them again
+    seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_blocks,), generator=gen,
+                          device=gen.device).tolist() if use_dropout \
+        else [None] * cfg.num_blocks
+
+    def run_block(x, bp, seed):
+        bg = None
+        if seed is not None:
+            bg = torch.Generator(device=x.device)
+            bg.manual_seed(seed)
+        h = layernorm(_cast_ln(bp["attn_ln"], dtype), x)
+        x = x + hstu_block(bp["hstu"], h, mask, cfg.num_heads, rate,
+                           use_dropout, bg)
+        h = layernorm(_cast_ln(bp["ffn_ln"], dtype), x)
+        return x + ffn(bp["ffn"], h, rate, use_dropout, bg)
+
+    remat = train and cfg.remat_blocks and torch.is_grad_enabled()
     for i in range(cfg.num_blocks):
         bp = block_params(blocks, i)
-        h = layernorm(_cast_ln(bp["attn_ln"], dtype), x)
-        x = x + hstu_block(bp["hstu"], h, mask, cfg.num_heads)
-        h = layernorm(_cast_ln(bp["ffn_ln"], dtype), x)
-        x = x + ffn(bp["ffn"], h)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(run_block, x, bp, seeds[i],
+                                                  use_reentrant=False)
+        else:
+            x = run_block(x, bp, seeds[i])
     return layernorm(_cast_ln(params["last_ln"], dtype), x)

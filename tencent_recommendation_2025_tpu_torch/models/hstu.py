@@ -13,7 +13,7 @@ tested against.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as Fn
@@ -41,10 +41,24 @@ def rel_pos_bias(rab: torch.Tensor, seq_len: int) -> torch.Tensor:
     return rab[:, dist]
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with keep probability 1 - rate, masks drawn from
+    ``gen`` (on x's device); the identity unless training with a rate and a
+    generator, as the JAX package's guard reads."""
+    if not (train and rate > 0.0 and gen is not None):
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
 def hstu_block(params: Mapping, x: torch.Tensor, mask: torch.Tensor,
-               num_heads: int) -> torch.Tensor:
+               num_heads: int, dropout_rate: float = 0.0,
+               train: bool = False,
+               gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """x [B, L, D]; mask [B, L, L] bool (True = attend). Returns the block
-    output without the residual (inference: no dropout)."""
+    output without the residual; in training the gated output takes
+    dropout from ``gen``."""
     dtype = x.dtype
     B, L, D = x.shape
     hd = D // num_heads
@@ -65,5 +79,5 @@ def hstu_block(params: Mapping, x: torch.Tensor, mask: torch.Tensor,
     av = av.transpose(1, 2).reshape(B, L, D)
     ln = {"scale": params["attn_ln"]["scale"].to(dtype),
           "bias": params["attn_ln"]["bias"].to(dtype)}
-    gated = layernorm(ln, av) * u
+    gated = dropout(layernorm(ln, av) * u, dropout_rate, train, gen)
     return gated @ params["out"]["w"].to(dtype) + params["out"]["b"].to(dtype)

@@ -1,4 +1,4 @@
-"""Fused pre-norm HSTU block forward: CUDA kernel, plain version and gate.
+"""Fused pre-norm HSTU block: CUDA kernels, plain versions, autograd, gate.
 
 Counterpart of ``tencent_recommendation_2025_tpu/ops/fused_block.py``. One
 call runs a whole HSTU block (pre-norm, SwiGLU FFN) on [B, L, D]
@@ -7,32 +7,49 @@ activations and returns ``x + block(x)``:
     h    = LN(x; ln1)
     uvqk = silu(h @ Wuvqk + b);  u, v, q, k = split(uvqk)
     av   = (silu(q k^T * hd^-1/2 + rab) * causal * key_valid / L) @ v
-    y    = x + (LN(av; ln2) * u) @ Wo + bo
-    out  = y + (silu(x1) * x3) @ W2,   [x1 | x3] = LN(y; ln3) @ W13
+    y    = x + drop1(LN(av; ln2) * u) @ Wo + bo
+    out  = y + drop2(silu(x1) * x3) @ W2,   [x1 | x3] = LN(y; ln3) @ W13
 
-Kernel: ``csrc/fused_block.cu`` replaces the TPU kernel
-``tencent_recommendation_2025_tpu/ops/fused_block.py::_fwd_kernel`` (l.274)
-in inference (``train=False``: no dropout). Its bound on the H100 at the
-flagship shape (B=128, L=1024, D=64, F=256, H=1) is compute: 35.4 GFLOP of
-products per block, 36 us at 989 TFLOP/s bf16, against 33.5 MB of
-activation traffic (10 us at 3.35 TB/s). The source says how its design
-meets that. The backward (``_bwd_kernel``) belongs to the training slice.
+Kernels, each replacing a TPU kernel of the JAX package's file:
 
-Numerics (those of the TPU kernel): matmul operands in the activation dtype
+- ``csrc/fused_block.cu``, ``_fwd_kernel`` (l.274). Inference
+  (:func:`fused_hstu_block`) and training (:func:`fused_hstu_block_train`:
+  the two dropouts, and ``av`` written for the backward). Bound on the H100
+  at the flagship shape (B=128, L=1024, D=64, F=256, H=1): compute, 35.4
+  GFLOP per block, 36 us at 989 TFLOP/s bf16.
+- ``csrc/fused_block_bwd.cu``, ``_bwd_kernel`` (l.325)
+  (:func:`fused_hstu_block_bwd`): recompute from x and av, dx and every
+  weight, LN, bias and rel-pos gradient. Bound: compute, 93.5 GFLOP per
+  block, 94.5 us.
+
+:class:`FusedBlockFn` ties them into autograd. It takes the block's f32
+parameter leaves and casts inside, so weight gradients reach them in f32,
+unrounded, as the JAX custom VJP delivers them.
+
+Numerics (those of the TPU kernels): matmul operands in the activation dtype
 with f32 accumulation; LN, SiLU, gating and residuals in f32; ``q*hd^-1/2``,
 ``v/L`` and ``silu(s)`` rounded to the activation dtype before their
 products; LN eps 1e-8; division by the padded L; keys with token_type 0
-masked, queries not.
+masked, queries not. The backward rounds dout, dx13, dy, dav, ds and duvqk
+to the activation dtype where they are product operands; dx leaves in the
+activation dtype, every other gradient in f32.
 
-:func:`fused_hstu_block` takes the plain PyTorch version for a tensor on the
-CPU and launches the kernel for a CUDA tensor; it never falls back.
+Dropout: an element is kept iff its 32 random bits are >= ``uint32(p *
+2^32)``, and a kept element is scaled by 1/(1-p). The TPU's in-kernel PRNG
+cannot be reproduced on CUDA, so the bits are a counter-based hash
+(:func:`dropout_bits`) that the kernels and the plain versions compute alike,
+and the backward regenerates the masks instead of storing them.
+
+Each wrapper takes its plain PyTorch version for tensors on the CPU and
+launches its kernel for CUDA tensors; it never falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping
+from typing import Mapping, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 
@@ -125,10 +142,32 @@ def block_operands(bp: Mapping, dtype: torch.dtype) -> dict:
     }
 
 
-def _ln(xf, g, b):
+def _ln_stats(xf):
+    """(xhat, rstd) of an f32 LayerNorm over the last axis."""
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) * (xf - mu)).mean(-1, keepdim=True)
-    return (xf - mu) * torch.rsqrt(var + _EPS) * g + b
+    rstd = torch.rsqrt(var + _EPS)
+    return (xf - mu) * rstd, rstd
+
+
+def _ln(xf, g, b):
+    return _ln_stats(xf)[0] * g + b
+
+
+def _ln_bwd(dy, xhat, rstd, g):
+    """dx of ``xhat * g + b`` over the last axis, with (dgamma, dbeta)
+    summed over every token."""
+    dxhat = dy * g
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    D = dy.shape[-1]
+    return (rstd * (dxhat - m1 - xhat * m2),
+            (dy * xhat).reshape(-1, D).sum(0), dy.reshape(-1, D).sum(0))
+
+
+def _dsilu(s):
+    sig = torch.sigmoid(s)
+    return sig * (1.0 + s * (1.0 - sig))
 
 
 def _mm(a, b):
@@ -137,119 +176,338 @@ def _mm(a, b):
     return torch.matmul(a.float(), b.float())
 
 
-def fused_hstu_block_plain(x: torch.Tensor, o: Mapping,
-                           token_type: torch.Tensor,
-                           num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, with its rounding points, on
-    the same operands (:func:`block_operands` of one block)."""
-    cdt = x.dtype
-    B, L, D = x.shape
-    hd = D // num_heads
-    ln = o["ln"]
-    F = o["w2"].shape[0]
-    NB = o["rab"].shape[1]
-    xf = x.float()
-    uvqk = Fn.silu(_mm(_ln(xf, ln[0], ln[1]).to(cdt), o["wuvqk"])
-                   + o["buvqk"])
-    u = uvqk[..., :D]
+def _wsum(a, b):
+    """Sum over every token of a^T b: [..., M] x [..., N] -> [M, N]."""
+    return _mm(a.reshape(-1, a.shape[-1]).transpose(0, 1),
+               b.reshape(-1, b.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# dropout bits: the spec the CUDA kernels (csrc/fused_block_common.cuh) share
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32), without int64
+    overflow (the constant is split into 16-bit halves)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return ((((a * hi) & 0xFFFF) << 16) + a * lo) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer on int64 tensors holding uint32s."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_bits(seed, stream: torch.Tensor,
+                 counter: torch.Tensor) -> torch.Tensor:
+    """32 random bits per element, as int64 values in [0, 2^32), all
+    arithmetic mod 2^32:
+
+        key  = fmix32(seed + 0x9E3779B9 * stream)
+        bits = fmix32(key ^ fmix32(counter))
+
+    ``stream`` = 2 * batch row + site (0: the gate g, 1: the FFN activation
+    f), ``counter`` = token * width + column; the arguments broadcast."""
+    key = _fmix32((seed + _mul32(stream, 0x9E3779B9)) & _M32)
+    return _fmix32(key ^ _fmix32(counter))
+
+
+def drop_threshold(rate: float) -> int:
+    """An element is kept iff its bits are >= uint32(rate * 2^32)."""
+    return min(int(rate * 2.0 ** 32), _M32)
+
+
+def keep_scale(rate: float) -> float:
+    """1 / (1 - rate), rounded to f32 as the kernels take it."""
+    return float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def keep_mask(B: int, L: int, W: int, seed, site: int, rate: float,
+              device) -> torch.Tensor:
+    """[B, L, W] f32 keep mask of one dropout site: 1/(1-rate) where kept,
+    else 0. ``seed`` is an int or a tensor holding one."""
+    seed = torch.as_tensor(seed, device=device).to(torch.int64).reshape(())
+    stream = (2 * torch.arange(B, device=device, dtype=torch.int64)
+              + site)[:, None, None]
+    counter = torch.arange(L * W, device=device,
+                           dtype=torch.int64).reshape(1, L, W)
+    keep = dropout_bits(seed, stream, counter) >= drop_threshold(rate)
+    return keep.to(torch.float32) * keep_scale(rate)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _heads(t, H):
+    B, L, D = t.shape
+    return t.reshape(B, L, H, D // H).transpose(1, 2)
+
+
+def _rows(t):
+    B, H, L, hd = t.shape
+    return t.transpose(1, 2).reshape(B, L, H * hd)
+
+
+def _projection(h1c, o, L, hd, cdt):
+    """pre-activation, u (f32) and the rounded v/L, q*hd^-1/2, k."""
+    D = h1c.shape[-1]
+    pre = _mm(h1c, o["wuvqk"]) + o["buvqk"]
+    uvqk = Fn.silu(pre)
     v = (uvqk[..., D:2 * D] * (1.0 / L)).to(cdt)
     q = (uvqk[..., 2 * D:3 * D] * (hd ** -0.5)).to(cdt)
     k = uvqk[..., 3 * D:].to(cdt)
+    return pre, uvqk[..., :D], v, q, k
 
-    def heads(t):
-        return t.reshape(B, L, num_heads, hd).transpose(1, 2)
 
-    pos = torch.arange(L, device=x.device)
+def _scores(q, k, rab, token_type, H):
+    """s = q k^T + rab[h, min(q-k, NB-1)] [B, H, L, L] in f32 (q is
+    pre-scaled), the causal ∧ key-valid mask and each pair's bucket."""
+    L = q.shape[1]
+    pos = torch.arange(L, device=q.device)
     dist = pos[:, None] - pos[None, :]
-    bias = o["rab"][:, dist.clamp(0, NB - 1)]                 # [H, L, L]
+    bucket = dist.clamp(0, rab.shape[1] - 1)
     mask = (dist >= 0)[None, None] & (token_type != 0)[:, None, None, :]
-    s = _mm(heads(q), heads(k).transpose(-1, -2)) + bias[None]
+    s = _mm(_heads(q, H), _heads(k, H).transpose(-1, -2)) \
+        + rab[:, bucket][None]
+    return s, mask, bucket
+
+
+def _forward_plain(x, o, token_type, num_heads, seed, rate):
+    cdt = x.dtype
+    B, L, D = x.shape
+    ln = o["ln"]
+    F = o["w2"].shape[0]
+    xf = x.float()
+    _, u, v, q, k = _projection(_ln(xf, ln[0], ln[1]).to(cdt), o, L,
+                                D // num_heads, cdt)
+    s, mask, _ = _scores(q, k, o["rab"], token_type, num_heads)
     a = (Fn.silu(s) * mask).to(cdt)
-    av = _mm(a, heads(v)).transpose(1, 2).reshape(B, L, D)
+    av = _rows(_mm(a, _heads(v, num_heads)))
     g = _ln(av, ln[2], ln[3]) * u
+    if rate > 0.0:
+        g = g * keep_mask(B, L, D, seed, 0, rate, x.device)
     y = xf + _mm(g.to(cdt), o["wo"]) + o["bo"]
     x13 = _mm(_ln(y, ln[4], ln[5]).to(cdt), o["w13"])
     f = Fn.silu(x13[..., :F]) * x13[..., F:]
-    return (y + _mm(f.to(cdt), o["w2"])).to(cdt)
+    if rate > 0.0:
+        f = f * keep_mask(B, L, F, seed, 1, rate, x.device)
+    return (y + _mm(f.to(cdt), o["w2"])).to(cdt), av.to(cdt)
 
+
+def fused_hstu_block_plain(x: torch.Tensor, o: Mapping,
+                           token_type: torch.Tensor,
+                           num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the inference kernel, with its rounding
+    points, on the same operands (:func:`block_operands` of one block)."""
+    return _forward_plain(x, o, token_type, num_heads, 0, 0.0)[0]
+
+
+def fused_hstu_block_train_plain(x: torch.Tensor, o: Mapping,
+                                 token_type: torch.Tensor, num_heads: int,
+                                 seed, rate: float
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's training mode: (out, av), with the two
+    dropouts at ``rate`` (none at 0) and av in the activation dtype, the
+    residual the backward reads."""
+    return _forward_plain(x, o, token_type, num_heads, seed, rate)
+
+
+def fused_hstu_block_bwd_plain(x: torch.Tensor, av: torch.Tensor,
+                               dout: torch.Tensor, o: Mapping,
+                               token_type: torch.Tensor, num_heads: int,
+                               seed, rate: float) -> dict:
+    """Plain version of the backward kernel, written out op by op with its
+    rounding points (not autograd of the forward). Returns {"dx" (the
+    activation dtype), and in f32 "ln" [6, D], "wuvqk", "buvqk", "wo",
+    "bo", "w13", "w2", "rab" [H, NB]}."""
+    cdt = x.dtype
+    B, L, D = x.shape
+    H = num_heads
+    hd = D // H
+    ln = o["ln"]
+    F = o["w2"].shape[0]
+    xf = x.float()
+
+    # ---- recompute (av is the forward's, rounded) ----
+    xhat1, rstd1 = _ln_stats(xf)
+    h1c = (xhat1 * ln[0] + ln[1]).to(cdt)
+    pre, u, v, q, k = _projection(h1c, o, L, hd, cdt)
+    xhat2, rstd2 = _ln_stats(av.float())
+    av_ln = xhat2 * ln[2] + ln[3]
+    keep1 = keep2 = None
+    g = av_ln * u
+    if rate > 0.0:
+        keep1 = keep_mask(B, L, D, seed, 0, rate, x.device)
+        g = g * keep1
+    gc = g.to(cdt)
+    y = xf + _mm(gc, o["wo"]) + o["bo"]
+    xhat3, rstd3 = _ln_stats(y)
+    h2c = (xhat3 * ln[4] + ln[5]).to(cdt)
+    x13 = _mm(h2c, o["w13"])
+    x1, x3 = x13[..., :F], x13[..., F:]
+    sx1 = Fn.silu(x1)
+    f = sx1 * x3
+    if rate > 0.0:
+        keep2 = keep_mask(B, L, F, seed, 1, rate, x.device)
+        f = f * keep2
+
+    # ---- FFN, out-projection and gate ----
+    doutc = dout.to(cdt)
+    dw2 = _wsum(f.to(cdt), doutc)
+    df = _mm(doutc, o["w2"].transpose(0, 1))
+    if keep2 is not None:
+        df = df * keep2
+    dx13c = torch.cat([df * x3 * _dsilu(x1), df * sx1], -1).to(cdt)
+    dw13 = _wsum(h2c, dx13c)
+    dy_ln, dg3, db3 = _ln_bwd(_mm(dx13c, o["w13"].transpose(0, 1)), xhat3,
+                              rstd3, ln[4])
+    dy = dout.float() + dy_ln
+    dyc = dy.to(cdt)
+    dwo = _wsum(gc, dyc)
+    dbo = dy.reshape(-1, D).sum(0)
+    dg = _mm(dyc, o["wo"].transpose(0, 1))
+    if keep1 is not None:
+        dg = dg * keep1
+    du = dg * av_ln
+    dav, dg2, db2 = _ln_bwd(dg * u, xhat2, rstd2, ln[2])
+
+    # ---- attention ----
+    s, mask, bucket = _scores(q, k, o["rab"], token_type, H)
+    a = (Fn.silu(s) * mask).to(cdt)
+    dot_b = _heads(dav.to(cdt), H)
+    dv = _mm(a.transpose(-1, -2), dot_b)     # w.r.t. the 1/L-scaled v
+    ds = _mm(dot_b, _heads(v, H).transpose(-1, -2)) * _dsilu(s) * mask
+    dsc = ds.to(cdt)
+    dq = _mm(dsc, _heads(k, H)) * (hd ** -0.5)
+    dk = _mm(dsc.transpose(-1, -2), _heads(q, H))
+    drab = torch.zeros(o["rab"].shape, dtype=torch.float32,
+                       device=x.device).index_add_(
+        1, bucket.reshape(-1), ds.sum(0).reshape(H, -1))
+
+    # ---- projection and LN1 ----
+    duvqk = torch.cat([du, _rows(dv) * (1.0 / L), _rows(dq), _rows(dk)],
+                      -1) * _dsilu(pre)
+    duvqkc = duvqk.to(cdt)
+    dx_ln, dg1, db1 = _ln_bwd(_mm(duvqkc, o["wuvqk"].transpose(0, 1)),
+                              xhat1, rstd1, ln[0])
+    return {"dx": (dy + dx_ln).to(cdt),
+            "ln": torch.stack([dg1, db1, dg2, db2, dg3, db3]),
+            "wuvqk": _wsum(h1c, duvqkc),
+            "buvqk": duvqk.reshape(-1, 4 * D).sum(0),
+            "wo": dwo, "bo": dbo, "w13": dw13, "w2": dw2, "rab": drab}
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
+
+_WEIGHTS = ("wuvqk", "wo", "w13", "w2")
 
 
-def _kernel_fn():
+def _check(x: torch.Tensor, o: Mapping, token_type: torch.Tensor,
+           num_heads: int, name: str, *extra: torch.Tensor):
+    """Validate what the kernels take; returns (x contiguous, int32 valid
+    mask)."""
+    B, L, D = x.shape
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} takes bf16 or f32, not {x.dtype}")
+    if L % 64 or D % 16 or D % num_heads:
+        raise ValueError(f"{name} needs L % 64 == 0, D % 16 == 0 and "
+                         f"D % num_heads == 0 (L={L}, D={D}, H={num_heads})")
+    if tuple(token_type.shape) != (B, L):
+        raise ValueError(f"{name}: token_type has shape "
+                         f"{tuple(token_type.shape)}, expected {(B, L)}")
+    F = o["w2"].shape[0]
+    H = o["rab"].shape[0]
+    if F % 16 or H != num_heads or o["wuvqk"].shape != (D, 4 * D):
+        raise ValueError(f"{name}: F={F} must be a multiple of 16 and rab "
+                         f"must have {num_heads} heads (got {H})")
+    for key, t in o.items():
+        want = x.dtype if key in _WEIGHTS else torch.float32
+        if t.dtype != want:
+            raise ValueError(f"{name}: {key} is {t.dtype}, not {want} "
+                             f"(build the operands with "
+                             f"block_operands(bp, x.dtype))")
+    x = x.contiguous()
+    # the kernels read token_type themselves: nonzero = valid key
+    valid = token_type.to(torch.int32).contiguous()
+    for t in (x, valid, *o.values(), *extra):
+        if t.device != x.device:
+            raise ValueError(f"{name}: operands on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return x, valid
+
+
+def _seed_tensor(seed, device) -> torch.Tensor:
+    """The dropout seed as a [1] int32 tensor on ``device`` (a tensor seed
+    stays on the card: no host round trip)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int32).reshape(1) \
+            .contiguous()
+    return torch.tensor([seed], dtype=torch.int32, device=device)
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _fwd_fn():
     fn = kernels.load("fused_block").fused_block_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [_I] + [_P] * 15 + [_I] * 6 + [_F, _F, _P]
+    fn.argtypes = [_I] + [_P] * 17 + [_I] * 6 + [_F, _F, _U, _F, _P]
     return fn
 
 
-def _launch(x: torch.Tensor, o: Mapping, token_type: torch.Tensor,
-            num_heads: int) -> torch.Tensor:
+def _launch_fwd(x, o, token_type, num_heads, train: bool, seed, rate):
     B, L, D = x.shape
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"fused block kernel takes bf16 or f32, not "
-                         f"{x.dtype}")
-    if L % 64 or D % 16 or D % num_heads:
-        raise ValueError(f"fused block kernel needs L % 64 == 0, D % 16 == 0 "
-                         f"and D % num_heads == 0 (L={L}, D={D}, "
-                         f"H={num_heads})")
-    if tuple(token_type.shape) != (B, L):
-        raise ValueError(f"fused block kernel: token_type has shape "
-                         f"{tuple(token_type.shape)}, expected {(B, L)}")
-    F = o["w2"].shape[0]
-    H, NB = o["rab"].shape
-    if F % 16 or H != num_heads or o["wuvqk"].shape != (D, 4 * D):
-        raise ValueError(f"fused block kernel: F={F} must be a multiple of "
-                         f"16 and rab must have {num_heads} heads (got {H})")
-    for name, t in o.items():
-        want = x.dtype if name in ("wuvqk", "wo", "w13", "w2") \
-            else torch.float32
-        if t.dtype != want:
-            raise ValueError(f"fused block kernel: {name} is {t.dtype}, not "
-                             f"{want} (build the operands with "
-                             f"block_operands(bp, x.dtype))")
-    x = x.contiguous()
-    # the kernel reads token_type itself: nonzero = valid key
-    valid = token_type.to(torch.int32).contiguous()
-    tensors = [x, valid, *o.values()]
-    for t in tensors:
-        if t.device != x.device:
-            raise ValueError("fused block kernel: operands on different "
-                             "devices")
-        if not t.is_contiguous():
-            raise ValueError("fused block kernel: operands must be "
-                             "contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError("fused block kernel: operands must be 16-byte "
-                             "aligned")
+    x, valid = _check(x, o, token_type, num_heads, "fused block kernel")
     q = torch.empty_like(x)
     k = torch.empty_like(x)
     v = torch.empty_like(x)
     u = torch.empty((B, L, D), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    fn = _kernel_fn()
+    av = torch.empty_like(x) if train else None
+    drop = train and rate > 0.0
+    seed_t = _seed_tensor(seed, x.device) if drop else None
+    fn = _fwd_fn()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(int(x.dtype == torch.bfloat16), x.data_ptr(),
                 valid.data_ptr(), o["ln"].data_ptr(), o["wuvqk"].data_ptr(),
                 o["buvqk"].data_ptr(), o["wo"].data_ptr(), o["bo"].data_ptr(),
                 o["w13"].data_ptr(), o["w2"].data_ptr(), o["rab"].data_ptr(),
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(),
-                out.data_ptr(), B, L, D, num_heads, F, NB,
-                float(D // num_heads) ** -0.5, 1.0 / L, stream)
+                out.data_ptr(), av.data_ptr() if train else None,
+                seed_t.data_ptr() if drop else None, B, L, D, num_heads,
+                o["w2"].shape[0], o["rab"].shape[1],
+                float(D // num_heads) ** -0.5, 1.0 / L,
+                drop_threshold(rate) if drop else 0,
+                keep_scale(rate) if drop else 1.0, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"fused_block_fwd kernel launch failed: CUDA "
                            f"error {rc}")
-    fused_hstu_block.launches += 1
-    return out
+    return out, av
 
 
 def fused_hstu_block(x: torch.Tensor, ops: Mapping, token_type: torch.Tensor,
                      num_heads: int) -> torch.Tensor:
-    """One full HSTU block on [B, L, D] activations (bf16 or f32), forward
-    only. ``ops`` is ``block_operands(bp, x.dtype)`` of one block, built
+    """One full HSTU block on [B, L, D] activations (bf16 or f32), inference
+    forward. ``ops`` is ``block_operands(bp, x.dtype)`` of one block, built
     once by the caller; ``token_type`` [B, L] (0 = padding key). CPU
     tensors take the plain version; CUDA tensors launch the kernel (counted
     in ``fused_hstu_block.launches``)."""
@@ -257,7 +515,217 @@ def fused_hstu_block(x: torch.Tensor, ops: Mapping, token_type: torch.Tensor,
         return fused_hstu_block_plain(x, ops, token_type, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_hstu_block: no kernel for {x.device}")
-    return _launch(x, ops, token_type, num_heads)
+    out, _ = _launch_fwd(x, ops, token_type, num_heads, False, 0, 0.0)
+    fused_hstu_block.launches += 1
+    return out
 
 
 fused_hstu_block.launches = 0
+
+
+def fused_hstu_block_train(x: torch.Tensor, ops: Mapping,
+                           token_type: torch.Tensor, num_heads: int, seed,
+                           rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's training forward: (out, av), with dropout at ``rate``
+    from ``seed`` (an int, or a tensor holding one; no dropout at rate 0).
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    training instance (counted in ``fused_hstu_block_train.launches``)."""
+    if x.device.type == "cpu":
+        return fused_hstu_block_train_plain(x, ops, token_type, num_heads,
+                                            seed, rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_hstu_block_train: no kernel for {x.device}")
+    out = _launch_fwd(x, ops, token_type, num_heads, True, seed, rate)
+    fused_hstu_block_train.launches += 1
+    return out
+
+
+fused_hstu_block_train.launches = 0
+
+
+class _BwdArgs(ctypes.Structure):
+    """Mirror of ``BwdArgs`` in csrc/fused_block_bwd.cu, field for field."""
+
+    _fields_ = ([(n, _P) for n in (
+        "x", "valid", "ln", "wuvqk", "buvqk", "wo", "bo", "w13", "w2", "rab",
+        "av", "dout", "seed", "q", "k", "v", "dav", "du", "dy", "dv", "dq",
+        "dk", "part", "part_rab", "dx", "grads", "drab")]
+        + [(n, _I) for n in (
+            "B", "L", "D", "H", "F", "NB", "G", "P", "off_w2", "off_w13",
+            "off_wo", "off_bo", "off_ln", "off_wuvqk", "off_buvqk")]
+        + [("scale", _F), ("inv_len", _F), ("thr", _U), ("keep_scale", _F)])
+
+
+#: weight, LN and bias gradients in the order of the backward kernel's
+#: partial-sum rows: name -> shape as a function of (D, F)
+_BWD_GRADS = (("w2", lambda D, F: (F, D)), ("w13", lambda D, F: (D, 2 * F)),
+              ("wo", lambda D, F: (D, D)), ("bo", lambda D, F: (D,)),
+              ("ln", lambda D, F: (6, D)),
+              ("wuvqk", lambda D, F: (D, 4 * D)),
+              ("buvqk", lambda D, F: (4 * D,)))
+
+
+def bwd_layout(D: int, F: int):
+    """({name: (offset, shape)}, row width P) of the backward kernel's
+    partial sums; every segment starts on a 64-float (256-byte) boundary,
+    which keeps the kernel's tensor-core tiles aligned."""
+    layout, off = {}, 0
+    for name, shape_of in _BWD_GRADS:
+        shape = shape_of(D, F)
+        layout[name] = (off, shape)
+        off += -(-int(np.prod(shape)) // 64) * 64
+    return layout, off
+
+
+def _bwd_fn():
+    fn = kernels.load("fused_block_bwd").fused_block_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I, ctypes.POINTER(_BwdArgs), _P]
+    return fn
+
+
+def _launch_bwd(x, av, dout, o, token_type, num_heads, seed, rate):
+    B, L, D = x.shape
+    x, valid = _check(x, o, token_type, num_heads, "fused block backward",
+                      av, dout)
+    if av.shape != x.shape or dout.shape != x.shape or \
+            av.dtype != x.dtype or dout.dtype != x.dtype:
+        raise ValueError("fused block backward: av and dout must match x in "
+                         "shape and dtype")
+    F = o["w2"].shape[0]
+    H, NB = o["rab"].shape
+    dev = x.device
+    f32 = torch.float32
+    layout, P = bwd_layout(D, F)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = min(B * L // 64, 2 * sms)
+    drop = rate > 0.0
+    scratch = {n: torch.empty_like(x) for n in ("q", "k", "v", "dav")}
+    scratch.update({n: torch.empty((B, L, D), dtype=f32, device=dev)
+                    for n in ("du", "dy", "dv", "dq", "dk")})
+    part = torch.zeros((G, P), dtype=f32, device=dev)
+    part_rab = torch.zeros((B * L // 16, H * NB), dtype=f32, device=dev)
+    dx = torch.empty_like(x)
+    grads = torch.empty(P, dtype=f32, device=dev)
+    drab = torch.empty((H, NB), dtype=f32, device=dev)
+    seed_t = _seed_tensor(seed, dev) if drop else None
+    ptrs = dict(x=x, valid=valid, av=av, dout=dout, part=part,
+                part_rab=part_rab, dx=dx, grads=grads, drab=drab, **scratch,
+                **{n: o[n] for n in ("ln", "wuvqk", "buvqk", "wo", "bo",
+                                     "w13", "w2", "rab")})
+    args = _BwdArgs(
+        **{n: t.data_ptr() for n, t in ptrs.items()},
+        seed=seed_t.data_ptr() if drop else None,
+        B=B, L=L, D=D, H=H, F=F, NB=NB, G=G, P=P,
+        **{f"off_{n}": off for n, (off, _) in layout.items()},
+        scale=float(D // num_heads) ** -0.5, inv_len=1.0 / L,
+        thr=drop_threshold(rate) if drop else 0,
+        keep_scale=keep_scale(rate) if drop else 1.0)
+    fn = _bwd_fn()
+    with torch.cuda.device(dev):
+        rc = fn(int(x.dtype == torch.bfloat16), ctypes.byref(args),
+                _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fused_block_bwd kernel launch failed: CUDA "
+                           f"error {rc}")
+    out = {name: grads[off:off + int(np.prod(shape))].view(shape)
+           for name, (off, shape) in layout.items()}
+    out.update(dx=dx, rab=drab)
+    return out
+
+
+def fused_hstu_block_bwd(x: torch.Tensor, av: torch.Tensor,
+                         dout: torch.Tensor, ops: Mapping,
+                         token_type: torch.Tensor, num_heads: int, seed,
+                         rate: float) -> dict:
+    """The block's backward from the forward's x and av and the output
+    cotangent: {"dx", "ln", "wuvqk", "buvqk", "wo", "bo", "w13", "w2",
+    "rab"} (see :func:`fused_hstu_block_bwd_plain`). ``seed`` and ``rate``
+    are the training forward's, so the dropout masks agree. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (counted in
+    ``fused_hstu_block_bwd.launches``)."""
+    if x.device.type == "cpu":
+        return fused_hstu_block_bwd_plain(x, av, dout, ops, token_type,
+                                          num_heads, seed, rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_hstu_block_bwd: no kernel for {x.device}")
+    out = _launch_bwd(x, av, dout, ops, token_type, num_heads, seed, rate)
+    fused_hstu_block_bwd.launches += 1
+    return out
+
+
+fused_hstu_block_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+#: the block parameter leaves FusedBlockFn takes, in order
+BLOCK_LEAVES = (("attn_ln", "scale"), ("attn_ln", "bias"),
+                ("hstu", "attn_ln", "scale"), ("hstu", "attn_ln", "bias"),
+                ("ffn_ln", "scale"), ("ffn_ln", "bias"),
+                ("hstu", "uvqk", "w"), ("hstu", "uvqk", "b"),
+                ("hstu", "out", "w"), ("hstu", "out", "b"),
+                ("ffn", "w13"), ("ffn", "w2"), ("hstu", "rab"))
+
+
+def _nest(leaves):
+    tree: dict = {}
+    for path, t in zip(BLOCK_LEAVES, leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t
+    return tree
+
+
+class FusedBlockFn(torch.autograd.Function):
+    """One fused HSTU block with its hand-written backward.
+
+    ``apply(x, token_type, seed, rate, train, num_heads, *leaves)``: ``x``
+    [B, L, D] in the compute dtype; ``leaves`` the block's parameter leaves
+    in :data:`BLOCK_LEAVES` order (f32). The kernel operands (weight casts,
+    the LN stack) are built inside, so the gradients returned to the leaves
+    are the backward's f32 sums, unrounded. Dropout runs iff ``train`` and
+    ``rate`` > 0; the forward always produces the av residual."""
+
+    @staticmethod
+    def forward(ctx, x, token_type, seed, rate, train, num_heads, *leaves):
+        rate = float(rate) if train else 0.0
+        with torch.no_grad():
+            ops = block_operands(_nest(leaves), x.dtype)
+            out, av = fused_hstu_block_train(x, ops, token_type, num_heads,
+                                             seed, rate)
+        ctx.save_for_backward(x, av, token_type,
+                              seed if isinstance(seed, torch.Tensor)
+                              else torch.tensor(seed), *ops.values())
+        ctx.keys = tuple(ops)
+        ctx.rate, ctx.num_heads = rate, num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, av, token_type, seed, *opv = ctx.saved_tensors
+        ops = dict(zip(ctx.keys, opv))
+        g = fused_hstu_block_bwd(x, av, dout.contiguous(), ops, token_type,
+                                 ctx.num_heads, seed, ctx.rate)
+        grads = list(g["ln"]) + [g["wuvqk"], g["buvqk"], g["wo"], g["bo"],
+                                 g["w13"], g["w2"], g["rab"]]
+        return (g["dx"], None, None, None, None, None, *grads)
+
+
+def fused_hstu_block_autograd(x: torch.Tensor, bp: Mapping,
+                              token_type: torch.Tensor, seed,
+                              num_heads: int, rate: float = 0.0,
+                              train: bool = False) -> torch.Tensor:
+    """:class:`FusedBlockFn` on a block parameter subtree (the encoder's
+    per-block slice of the stacked tree)."""
+    leaves = []
+    for path in BLOCK_LEAVES:
+        node = bp
+        for key in path:
+            node = node[key]
+        leaves.append(node)
+    return FusedBlockFn.apply(x, token_type, seed, rate, train, num_heads,
+                              *leaves)

@@ -25,7 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 #: kernel name -> its source under csrc/
-SOURCES = {"fused_block": "fused_block.cu"}
+SOURCES = {"fused_block": "fused_block.cu",
+           "fused_block_bwd": "fused_block_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -49,9 +50,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The built library of ``name``: its file name carries a hash of the
+    source and of every shared header under csrc/."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

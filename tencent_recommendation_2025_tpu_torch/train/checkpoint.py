@@ -1,12 +1,16 @@
-"""Checkpoints, inference half: find, load and write model parameters.
+"""Checkpoints: find, write and load parameters and train states.
 
 Counterpart of ``tencent_recommendation_2025_tpu/train/checkpoint.py``, with
 its directory contract: ``global_step{N}.valid_loss={v}/`` holding one
 ``.npy`` per leaf, ``manifest.json`` (leaf tree paths, files, shapes,
-dtypes) and ``meta.json`` (step, loss and the model config). Parameters sit
-under the ``0/`` subtree, where a train state keeps them. Loading checks
-the saved model config against the model's, as the JAX package does.
-Optimizer state and training resume belong to the training slice.
+dtypes) and ``meta.json`` (step, loss, epoch and the model config).
+Parameters sit under the ``0/`` subtree, where a train state keeps them, so
+either package's reader finds them. A train state written by the port keeps
+its AdamW moments under ``1/<param path>/{exp_avg,exp_avg_sq}`` and its step
+as ``2``, with ``"state_format": "torch"`` in the meta. Loading checks the
+saved model config against the model's, as the JAX package does. Reading a
+JAX-written optimizer state is not ported yet (ROADMAP Queue 1,
+Resilience).
 """
 
 from __future__ import annotations
@@ -78,12 +82,10 @@ def _leaf_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save_params(ckpt_dir, params: Mapping, global_step: int = 0,
-                valid_loss: float = 0.0, model_config=None) -> Path:
-    """Write ``params`` as a checkpoint the loaders of both packages' layout
-    read (``0/...`` leaf paths, manifest, ``meta.json`` with the model
-    config). Staged in ``.tmp`` and renamed, so a crash is never picked
-    up."""
+def _write(ckpt_dir, leaves: Mapping[str, torch.Tensor], meta: dict,
+           global_step: int, valid_loss: float) -> Path:
+    """One checkpoint directory of ``leaves`` (tree path -> tensor), staged
+    in ``.tmp`` and renamed, so a crash is never picked up."""
     out = Path(ckpt_dir) / \
         f"global_step{global_step}.valid_loss={valid_loss:.4f}"
     tmp = out.with_name(out.name + ".tmp")
@@ -91,22 +93,102 @@ def save_params(ckpt_dir, params: Mapping, global_step: int = 0,
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     entries = []
-    for i, (path, leaf) in enumerate(_flatten(params).items()):
+    for i, (path, leaf) in enumerate(leaves.items()):
         arr, dtype = _leaf_numpy(leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(tmp / fname, arr)
-        entries.append({"path": f"0/{path}", "file": fname,
+        entries.append({"path": path, "file": fname,
                         "shape": list(arr.shape), "dtype": dtype})
     (tmp / MANIFEST_FILE).write_text(json.dumps({"leaves": entries}))
-    meta = {"global_step": global_step, "valid_loss": valid_loss}
-    cfgd = _config_dict(model_config)
-    if cfgd is not None:
-        meta["model_config"] = cfgd
     (tmp / META_FILE).write_text(json.dumps(meta))
     if out.exists():
         shutil.rmtree(out)
     tmp.rename(out)
     return out
+
+
+def _meta(global_step, valid_loss, model_config, extra=None) -> dict:
+    meta = {"global_step": global_step, "valid_loss": valid_loss}
+    meta.update(extra or {})
+    cfgd = _config_dict(model_config)
+    if cfgd is not None:
+        meta["model_config"] = cfgd
+    return meta
+
+
+def save_params(ckpt_dir, params: Mapping, global_step: int = 0,
+                valid_loss: float = 0.0, model_config=None) -> Path:
+    """Write ``params`` as a checkpoint the loaders of both packages' layout
+    read (``0/...`` leaf paths, manifest, ``meta.json`` with the model
+    config)."""
+    leaves = {f"0/{p}": t for p, t in _flatten(params).items()}
+    return _write(ckpt_dir, leaves,
+                  _meta(global_step, valid_loss, model_config),
+                  global_step, valid_loss)
+
+
+def save_checkpoint(ckpt_dir, state, global_step: int,
+                    valid_loss: float = 0.0, extra_meta: Optional[dict] = None,
+                    model_config=None) -> Path:
+    """Write a train state (``train.trainer.TrainState``): its parameters
+    under ``0/`` as :func:`save_params` does, the AdamW moments under
+    ``1/``, the step as ``2``."""
+    params = _flatten(state.params)
+    leaves = {f"0/{p}": t for p, t in params.items()}
+    for p, t in params.items():
+        st = state.opt.state.get(t, {})
+        for k in ("exp_avg", "exp_avg_sq"):
+            if k in st:
+                leaves[f"1/{p}/{k}"] = st[k]
+    leaves["2"] = torch.tensor(state.step, dtype=torch.int64)
+    meta = _meta(global_step, valid_loss, model_config,
+                 dict(extra_meta or {}, state_format="torch"))
+    return _write(ckpt_dir, leaves, meta, global_step, valid_loss)
+
+
+def load_checkpoint(path, model, cfg, device="cpu"):
+    """(train state, meta) from a checkpoint the port wrote with
+    :func:`save_checkpoint` (``path`` a checkpoint directory, or a
+    directory holding them: the newest is taken)."""
+    from .trainer import init_state, param_leaves
+
+    path = Path(path)
+    if not (path / MANIFEST_FILE).exists():
+        found = latest_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        path = found
+    params, meta = load_params(path, model, device=device)
+    if meta.get("state_format") != "torch":
+        raise NotImplementedError(
+            "reading the optimizer state of a JAX-written checkpoint is not "
+            "ported yet: ROADMAP Queue 1, Resilience")
+    state = init_state(model, cfg, params=params, device=device)
+    leaves = dict(_state_leaves(path))
+    step = int(leaves["2"])
+    opt_state = {}
+    for i, (p, _) in enumerate(param_leaves(state.params)):
+        if f"1/{p}/exp_avg" in leaves:
+            opt_state[i] = {
+                "step": torch.tensor(float(step)),
+                "exp_avg": torch.as_tensor(leaves[f"1/{p}/exp_avg"],
+                                           device=device),
+                "exp_avg_sq": torch.as_tensor(leaves[f"1/{p}/exp_avg_sq"],
+                                              device=device)}
+    sd = state.opt.state_dict()
+    sd["state"] = opt_state
+    state.opt.load_state_dict(sd)
+    state.step = step
+    return state, meta
+
+
+def _state_leaves(path):
+    """(tree path, numpy array) of every leaf of a port-written checkpoint
+    (f32 and int leaves only: the optimizer state and the step)."""
+    manifest = json.loads((Path(path) / MANIFEST_FILE).read_text())
+    for e in manifest["leaves"]:
+        if not e["path"].startswith("0/"):
+            yield e["path"], np.load(Path(path) / e["file"])
 
 
 def load_params(path, model=None, device="cpu") -> Tuple[dict, dict]:

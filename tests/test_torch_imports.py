@@ -35,11 +35,27 @@ def test_port_imports_no_jax():
     imported = set(res["imported"])
     for mod in ("cli.infer", "ops.fused_block", "ops.kernels", "bridge",
                 "models.baseline", "train.checkpoint", "retrieval.ann",
-                "data.pipeline"):
+                "data.pipeline", "cli.train", "train.trainer",
+                "train.telemetry", "ops.losses", "ops.sparse_table"):
         assert f"{PORT}.{mod}" in imported, mod
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad
     assert PORT in res["modules"]
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py, imported as a module, loads no JAX module."""
+    import json
+
+    probe = ("import json, sys; import chip_smoke; "
+             "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "chip_smoke" in mods
+    assert not [m for m in mods if _forbidden(m)]
 
 
 def test_exact_name_check():

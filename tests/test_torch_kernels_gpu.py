@@ -61,3 +61,52 @@ def test_fused_block_kernel_matches_plain_on_card(B, L, D, H):
     ref = FB.fused_hstu_block_plain(x, bp, tt, H)
     # f32 operands, sums of up to L terms taken in another order
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU version")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _close(out, ref, what):
+    """f32: rtol 2e-4 and atol 2e-5 * max(1, max|ref|); sums of up to B*L
+    terms are taken in another order on the card."""
+    ref = ref.float()
+    atol = 2e-5 * max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(out.float(), ref, rtol=2e-4, atol=atol,
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("B,L,D,H", [(2, 256, 32, 2), (2, 512, 64, 1)])
+def test_train_forward_kernel_matches_plain_on_card(B, L, D, H, rate):
+    _cuda_or_skip()
+    bp, x, tt = _block(B, L, D, H, torch.float32, seed=2)
+    before = FB.fused_hstu_block_train.launches
+    out, av = FB.fused_hstu_block_train(x, bp, tt, H, 1234, rate)
+    torch.cuda.synchronize()
+    assert FB.fused_hstu_block_train.launches == before + 1
+    ref, ref_av = FB.fused_hstu_block_train_plain(x, bp, tt, H, 1234, rate)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(av, ref_av, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("B,L,D,H", [(2, 256, 32, 2), (2, 512, 64, 1)])
+def test_backward_kernel_matches_plain_on_card(B, L, D, H, rate):
+    _cuda_or_skip()
+    bp, x, tt = _block(B, L, D, H, torch.float32, seed=3)
+    _, av = FB.fused_hstu_block_train_plain(x, bp, tt, H, 77, rate)
+    dout = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        tuple(x.shape)).astype(np.float32)).cuda()
+    before = FB.fused_hstu_block_bwd.launches
+    got = FB.fused_hstu_block_bwd(x, av, dout, bp, tt, H, 77, rate)
+    torch.cuda.synchronize()
+    assert FB.fused_hstu_block_bwd.launches == before + 1
+    ref = FB.fused_hstu_block_bwd_plain(x, av, dout, bp, tt, H, 77, rate)
+    assert set(got) == set(ref)
+    for name in ref:
+        _close(got[name], ref[name], name)

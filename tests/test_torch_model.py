@@ -120,11 +120,15 @@ def test_unported_encoder_branches_raise(models):
     w = models
     b = {k: torch.from_numpy(v) for k, v in w["batch"].items()}
     fe = torch.zeros(b["seq"].shape + (32,))
-    for kw, item in (({"train": True}, "Training path"),
-                     ({"mesh": object()}, "Multi-device layer")):
-        with pytest.raises(NotImplementedError, match=item):
-            TENC.encode(w["p"], fe, b["seq"], b["token_type"],
-                        w["p"]["pos_emb"], w["m"].cfg, **kw)
+    with pytest.raises(NotImplementedError, match="Multi-device layer"):
+        TENC.encode(w["p"], fe, b["seq"], b["token_type"],
+                    w["p"]["pos_emb"], w["m"].cfg, mesh=object())
+    # the training forward is ported: it runs on both routes
+    for route in ("dense", "fused"):
+        out = TENC.encode(w["p"], fe, b["seq"], b["token_type"],
+                          w["p"]["pos_emb"], w["m"].cfg, train=True,
+                          gen=torch.Generator().manual_seed(0), route=route)
+        assert out.shape == fe.shape and torch.isfinite(out).all()
     mha = dataclasses.replace(w["m"].cfg, block_type="mha")
     with pytest.raises(NotImplementedError, match="Parity presets"):
         TENC.encode(w["p"], fe, b["seq"], b["token_type"],
