@@ -14,16 +14,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                seeded inputs with left padding and one fully padded row, at
                the stated tolerances: the fused block forward in inference
                and in training (with dropout, and its av output) and its
-               backward; then their times at the main path's shape (CUDA
-               events) beside the plain versions' and their bounds;
+               backward, in the whole-sequence variant (L=1024 and 256) and
+               in the chunked one (L > wholeseq_max_l(D): 2048, 4096 and
+               16384 in f32 and bf16; D=128 and D=256 in f32), and whether
+               the chunked variant's bf16 output follows its rounding point;
+               then their times at both main paths' shapes (B=128, L=1024
+               and B=32, L=4096; CUDA events) beside the plain versions' and
+               their bounds;
 4. training — a seeded synthetic fixture (1024 users, 5000 items, sequences
                of 256..1000 events) and the port's cli.train main with
-               ``--preset hstu_flagship --maxlen 1023 --num_epochs 1`` on the
-               card; checks the launch counts of the three kernels, finite
-               losses and the checkpoint; then one step at full width and
-               depth on 16 rows against the plain versions on the CPU in
-               bf16 and in f32 (loss and per-leaf gradient cosine); prints
-               train examples/s and a profile of one step;
+               ``--preset hstu_flagship --maxlen 1023 --loader streaming
+               --num_epochs 1`` on the card; checks the launch counts of the
+               three kernels, finite losses and the checkpoint; then one
+               step at full width and depth on 16 rows against the plain
+               versions on the CPU in bf16 and in f32 (loss and per-leaf
+               gradient cosine); prints train examples/s and a profile of
+               one step;
 5. serving  — the port's cli.infer main with the same arguments on the
                checkpoint just trained; checks the fused-block launch count,
                recomputes the first query batch with the plain versions on
@@ -31,7 +37,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                to both (per-query cosine); prints serving throughput and
                HR@10/NDCG@10 (one epoch on synthetic data: printed, not
                judged);
-6. report   — the card line, one JSON line listing every kernel, then the
+6. long     — phases 4 and 5 on long sequences, through the chunked
+               variant: a fixture of 384 users, 5000 items and sequences of
+               2048..4000 events, ``cli.train --maxlen 4095 --batch_size 32
+               --loader cached --num_epochs 1`` (launch counts, losses,
+               checkpoint, the cache build's seconds, examples/s and
+               tokens/s of the step, a profile of one step), then
+               ``cli.infer --maxlen 4095`` on that checkpoint with the first
+               8 queries recomputed on the CPU;
+7. report   — the card line, one JSON line listing every kernel, then the
                last line ``{"ok": true, "device": {...}}``.
 
 Scratch data goes to build/chip_smoke/ in the checkout.
@@ -61,7 +75,36 @@ FLAGSHIP_DROPOUT = 0.01       # hstu_flagship's dropout_rate
 FIXTURE = dict(num_users=1024, num_items=5000, min_seq=256, max_seq=1000,
                seed=21)
 MAXLEN = 1023
-ARGS = ["--preset", "hstu_flagship", "--maxlen", str(MAXLEN)]
+# long sequences: L=4096 at the JAX package's long-sequence batch of 32
+# (the flagship's 131,072 tokens per step), the chunked variant's path
+LONG = dict(B=32, L=4096, D=64, H=1, F=256, NB=128)
+LONG_FIXTURE = dict(num_users=384, num_items=5000, min_seq=2048,
+                    max_seq=4000, seed=21)
+
+
+@dataclasses.dataclass(frozen=True)
+class Run:
+    """One end-to-end path: its fixture, window, batch and cli.train
+    arguments beyond ``--preset hstu_flagship --maxlen``."""
+    name: str
+    fixture: dict
+    maxlen: int
+    batch_size: int
+    train_args: tuple
+    work: Path
+    n_check: int        # first queries recomputed on the CPU
+
+    def args(self):
+        return ["--preset", "hstu_flagship", "--maxlen", str(self.maxlen)]
+
+
+# the L=1024 path keeps the streaming loader it has run with since its first
+# slice (its one-step check reads that run's checkpoint); the long path
+# takes the packed cache
+FLAGSHIP_RUN = Run("flagship", FIXTURE, MAXLEN, 128,
+                   ("--loader", "streaming"), WORK, 128)
+LONG_RUN = Run("long", LONG_FIXTURE, 4095, 32,
+               ("--batch_size", "32", "--loader", "cached"), WORK / "long", 8)
 SRC = "tencent_recommendation_2025_tpu_torch/csrc/"
 TPU = "tencent_recommendation_2025_tpu/ops/fused_block.py"
 FWD_KERNELS = ("proj_kernel", "attn_ffn_kernel")
@@ -218,200 +261,230 @@ def fused_block_bwd_bound(B, L, D, H, F, elem_bytes, NB=128):
     return _bound(flops, nbytes)
 
 
-def phase_kernels():
-    """Inference forward: against the plain version, then timed."""
+def _free():
+    import gc
+
     import torch
 
-    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
-
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [("a", dict(B=8, L=1024, D=64, H=1, F=256, NB=128), f32),
-             ("a", dict(B=8, L=1024, D=64, H=1, F=256, NB=128), bf16),
-             ("b", dict(B=4, L=256, D=32, H=2, F=256, NB=128), f32)]
-    ok_all = True
-    for name, shp, dt in cases:
-        x, ops, tt = block_inputs(**shp, dtype=dt, seed=11)
-        out = FB.fused_hstu_block(x, ops, tt, shp["H"])
-        torch.cuda.synchronize()
-        ref = FB.fused_hstu_block_plain(x, ops, tt, shp["H"])
-        ok, err, lim = compare(out, ref, dt)
-        finite = bool(torch.isfinite(out.float()).all())
-        log(f"fused_block case ({name}) {shp} {str(dt)[6:]}: "
-            f"max_abs_err={err:.6g} limit {lim} finite={finite} "
-            f"{'ok' if ok and finite else 'FAIL'}")
-        ok_all &= ok and finite
-
-    # time at the main path's shape, in the product dtype
-    s = FLAGSHIP
-    x, ops, tt = block_inputs(**s, dtype=bf16, seed=12)
-    out = FB.fused_hstu_block(x, ops, tt, s["H"])
-    ref = FB.fused_hstu_block_plain(x, ops, tt, s["H"])
-    ok, err, lim = compare(out, ref, bf16)
-    log(f"fused_block flagship {s} bf16: max_abs_err={err:.6g} limit {lim} "
-        f"{'ok' if ok else 'FAIL'}")
-    ok_all &= ok
-    ms = time_ms(lambda: FB.fused_hstu_block(x, ops, tt, s["H"]), 3, 20)
-    plain_ms = time_ms(lambda: FB.fused_hstu_block_plain(x, ops, tt, s["H"]),
-                       1, 5)
-    bound, by, flops, nbytes = fused_block_bound(
-        s["B"], s["L"], s["D"], s["H"], s["F"], 2)
-    log(f"fused_block flagship time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB); kernel at {flops / ms / 1e9:.1f} TFLOP/s")
-    entry = {"name": "fused_hstu_block_fwd", "route": "cuda",
-             "source": SRC + "fused_block.cu", "replaces": TPU + ":274",
-             "launches": None, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-             "library_ms": None}
-    return ok_all, entry
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-def phase_train_kernels():
-    """Training forward (dropout, av) and backward: against their plain
-    versions on the card, then timed at the flagship shape."""
+def check_kernels(shp, dt, rate, seed):
+    """One shape: the inference forward, the training forward (dropout at
+    ``rate`` and its av output) and the backward against their plain
+    versions on the same inputs; with dropout, the plain version with
+    another seed must fail the limit the kernel passes."""
     import numpy as np
     import torch
 
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
 
+    t0 = time.perf_counter()
+    H = shp["H"]
+    x, ops, tt = block_inputs(**shp, dtype=dt, seed=seed)
+    out = FB.fused_hstu_block(x, ops, tt, H)
+    torch.cuda.synchronize()
+    ok0, e0, lim0 = compare(out, FB.fused_hstu_block_plain(x, ops, tt, H), dt)
+    ok0 &= bool(torch.isfinite(out.float()).all())
+    del out
+    _free()
+    out, av = FB.fused_hstu_block_train(x, ops, tt, H, 1234, rate)
+    torch.cuda.synchronize()
+    ref, ref_av = FB.fused_hstu_block_train_plain(x, ops, tt, H, 1234, rate)
+    ok1, e1, _ = compare(out, ref, dt)
+    # av is 0 on the fully padded row: held as a whole, not per token
+    ok2, e2, _ = compare_grad(av, ref_av, dt)
+    differs = True
+    if rate > 0:
+        other, _ = FB.fused_hstu_block_train_plain(x, ops, tt, H, 1235, rate)
+        differs = not compare(out, other, dt)[0]
+        del other
+    del out, av, ref
+    _free()
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(dt).cuda()
+    got = FB.fused_hstu_block_bwd(x, ref_av, dout, ops, tt, H, 1234, rate)
+    torch.cuda.synchronize()
+    want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, ops, tt, H, 1234,
+                                         rate)
+    ok3, worst, parts = True, (None, 0.0), []
+    for name in want:
+        okg, eg, limg = compare_grad(got[name], want[name], dt)
+        okg &= bool(torch.isfinite(got[name].float()).all())
+        ok3 &= okg
+        if eg >= worst[1]:
+            worst = (name, eg)
+        if not okg:
+            parts.append(f"{name} {eg:.4g} ({limg})")
+    ok = ok0 and ok1 and ok2 and ok3 and differs
+    variant = "chunked" if FB.chunked(shp["L"], shp["D"]) else "whole-seq"
+    log(f"{variant} {shp} {str(dt)[6:]} p={rate}: inference "
+        f"max_abs_err={e0:.6g} ({lim0}); training out {e1:.6g}, av {e2:.6g}"
+        + (f", another seed fails the limit: {differs}" if rate > 0 else "")
+        + f"; backward largest error {worst[1]:.6g} ({worst[0]})"
+        + (f", failing: {'; '.join(parts)}" if parts else "")
+        + f"; {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    del got, want, ref_av, dout, x, ops, tt
+    _free()
+    return ok
+
+
+def phase_kernels():
+    """Every kernel against its plain version, on seeded inputs with left
+    padding and one fully padded row: the whole-sequence variant at L=1024
+    (D=64) and L=256 (D=32, H=2); the chunked variant at L = 2048, 4096
+    and 16384 (D=64) in f32 and bf16 and at D=128 and D=256 in f32; then
+    the chunked variant's bf16 rounding point."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
     f32, bf16 = torch.float32, torch.bfloat16
-    a = dict(B=8, L=1024, D=64, H=1, F=256, NB=128)
-    b = dict(B=4, L=256, D=32, H=2, F=256, NB=128)
+
+    def shape(B, L, D=64, H=1, F=256):
+        return dict(B=B, L=L, D=D, H=H, F=F, NB=128)
+
+    a, b = shape(8, 1024), shape(4, 256, D=32, H=2)
     cases = [(a, f32, 0.0), (a, f32, 0.5), (b, f32, 0.0), (b, f32, 0.5),
-             (a, bf16, 0.0), (a, bf16, 0.5)]
+             (a, bf16, 0.0), (a, bf16, 0.5),
+             (shape(4, 2048), f32, 0.5), (shape(4, 2048), bf16, 0.01),
+             (shape(4, 4096), f32, 0.5), (shape(4, 4096), bf16, 0.01),
+             (shape(2, 16384), f32, 0.5), (shape(2, 16384), bf16, 0.01),
+             (shape(2, 1024, D=128, F=512), f32, 0.5),
+             (shape(2, 512, D=256, F=768), f32, 0.5)]
     ok_all = True
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    for shp, dt, rate in cases:
-        tag = f"{shp} {str(dt)[6:]} p={rate}"
-        x, ops, tt = block_inputs(**shp, dtype=dt, seed=13)
-        H = shp["H"]
-        out, av = FB.fused_hstu_block_train(x, ops, tt, H, 1234, rate)
-        torch.cuda.synchronize()
-        ref, ref_av = FB.fused_hstu_block_train_plain(x, ops, tt, H, 1234,
-                                                      rate)
-        ok1, e1, lim = compare(out, ref, dt)
-        # av is 0 on the fully padded row: held as a whole, not per token
-        ok2, e2, lim2 = compare_grad(av, ref_av, dt)
-        ok = ok1 and ok2 and bool(torch.isfinite(out.float()).all())
-        msg = ""
-        if rate > 0:
-            # the masks are what the comparison holds: the plain version
-            # with another seed must fail the same limit
-            other, _ = FB.fused_hstu_block_train_plain(x, ops, tt, H, 1235,
-                                                       rate)
-            differs = not compare(out, other, dt)[0]
-            kept = sum(float((FB.keep_mask(shp["B"], shp["L"], W, 1234, site,
-                                           rate, "cuda") > 0).float().mean())
-                       for site, W in ((0, shp["D"]), (1, shp["F"]))) / 2
-            msg = (f"; another seed fails the limit: {differs}; plain kept "
-                   f"fraction {kept:.4f}")
-            ok &= differs
-        log(f"train forward {tag}: out max_abs_err={e1:.6g} (limit {lim}), "
-            f"av max_abs_err={e2:.6g} ({lim2}){msg} "
-            f"{'ok' if ok else 'FAIL'}")
-        ok_all &= ok
+    for i, (shp, dt, rate) in enumerate(cases):
+        ok_all &= check_kernels(shp, dt, rate, seed=11 + 2 * i)
 
-        dout = torch.from_numpy(np.random.default_rng(14).standard_normal(
-            tuple(x.shape)).astype(np.float32)).to(dt).cuda()
-        got = FB.fused_hstu_block_bwd(x, ref_av, dout, ops, tt, H, 1234,
-                                      rate)
-        torch.cuda.synchronize()
-        want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, ops, tt, H,
-                                             1234, rate)
-        parts = []
-        ok = True
-        for name in want:
-            okg, eg, limg = compare_grad(got[name], want[name], dt)
-            ok &= okg and bool(torch.isfinite(got[name].float()).all())
-            parts.append(f"{name} {eg:.3g} ({limg})")
-        log(f"backward {tag}: " + "; ".join(parts)
-            + f" {'ok' if ok else 'FAIL'}")
-        ok_all &= ok
+    # the rounding point: in bf16 the kernel's output agrees with the plain
+    # chunked version in more elements than with the plain whole-sequence
+    # version (LN2 on the f32 sum), which differs only there
+    shp = shape(4, 2048)
+    x, ops, tt = block_inputs(**shp, dtype=bf16, seed=30)
+    out = FB.fused_hstu_block(x, ops, tt, 1)
+    ref = FB.fused_hstu_block_plain(x, ops, tt, 1)
+    saved = FB.FB_WHOLESEQ_MAX
+    FB.FB_WHOLESEQ_MAX = shp["L"]
+    try:
+        whole = FB.fused_hstu_block_plain(x, ops, tt, 1)
+    finally:
+        FB.FB_WHOLESEQ_MAX = saved
+    share = (out != ref).float().mean().item()
+    share_w = (out != whole).float().mean().item()
+    ok = share < share_w
+    log(f"chunked rounding point {shp} bf16: output elements differing from "
+        f"the plain chunked version {share:.4%}, from the plain "
+        f"whole-sequence version {share_w:.4%} {'ok' if ok else 'FAIL'}")
+    del x, ops, tt, out, ref, whole
+    _free()
+    return ok_all and ok
 
-    s = FLAGSHIP
-    H, p = s["H"], FLAGSHIP_DROPOUT
-    x, ops, tt = block_inputs(**s, dtype=bf16, seed=15)
+
+#: (variant suffix of the JSON names, TPU kernel lines of fwd, of bwd)
+_REPLACES = {False: ("", "274", "325"),
+             True: ("_chunked", "452,468,502", "612,533,573,710")}
+
+
+def phase_times(s):
+    """At a main path's shape, in bf16: each kernel against its plain
+    version, then timed (CUDA events) beside it and its bound; returns
+    (ok, the kernels' JSON entries without launches)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    bf16, H, p = torch.bfloat16, s["H"], FLAGSHIP_DROPOUT
+    suffix, fwd_rows, bwd_rows = _REPLACES[FB.chunked(s["L"], s["D"])]
+    x, ops, tt = block_inputs(**s, dtype=bf16, seed=12)
     seed = torch.tensor([99], dtype=torch.int32, device="cuda")
-    out, av = FB.fused_hstu_block_train(x, ops, tt, H, seed, p)
+    err = {}
+    okx, err["fwd"], _ = compare(FB.fused_hstu_block(x, ops, tt, H),
+                                 FB.fused_hstu_block_plain(x, ops, tt, H),
+                                 bf16)
+    out, _ = FB.fused_hstu_block_train(x, ops, tt, H, seed, p)
     ref, ref_av = FB.fused_hstu_block_train_plain(x, ops, tt, H, seed, p)
-    okf, errs["fwd"], lim = compare(out, ref, bf16)
-    log(f"train forward flagship {s} bf16 p={p}: max_abs_err="
-        f"{errs['fwd']:.6g} limit {lim} {'ok' if okf else 'FAIL'}")
-    dout = (torch.randn(x.shape, generator=torch.Generator(
-        device="cuda").manual_seed(16), device="cuda")).to(bf16)
+    okt, err["fwd_train"], _ = compare(out, ref, bf16)
+    del out, ref
+    _free()
+    dout = torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(16), device="cuda").to(bf16)
     got = FB.fused_hstu_block_bwd(x, ref_av, dout, ops, tt, H, seed, p)
     want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, ops, tt, H, seed, p)
-    okb = True
+    okb, err["bwd"] = True, 0.0
     for name in want:
-        okg, eg, limg = compare_grad(got[name], want[name], bf16)
+        okg, eg, _ = compare_grad(got[name], want[name], bf16)
         okb &= okg
-        errs["bwd"] = max(errs["bwd"], eg)
-        log(f"  backward flagship {name}: max_abs_err={eg:.6g} ({limg}) "
-            f"{'ok' if okg else 'FAIL'}")
-    ok_all &= okf and okb
-    del got, want, ref, ref_av
+        err["bwd"] = max(err["bwd"], eg)
+    del got, want
+    _free()
+    ok = okx and okt and okb
+    log(f"{s} bf16 p={p}: inference max_abs_err {err['fwd']:.6g}, training "
+        f"{err['fwd_train']:.6g}, backward largest {err['bwd']:.6g} "
+        f"{'ok' if ok else 'FAIL'}")
 
-    t_fwd = time_ms(lambda: FB.fused_hstu_block_train(x, ops, tt, H, seed,
-                                                      p), 3, 20)
-    t_fwd_plain = time_ms(lambda: FB.fused_hstu_block_train_plain(
-        x, ops, tt, H, seed, p), 1, 3)
-    t_bwd = time_ms(lambda: FB.fused_hstu_block_bwd(x, av, dout, ops, tt, H,
-                                                    seed, p), 2, 10)
-    t_bwd_plain = time_ms(lambda: FB.fused_hstu_block_bwd_plain(
-        x, av, dout, ops, tt, H, seed, p), 1, 3)
-    bf, byf, ff, nf = fused_block_bound(s["B"], s["L"], s["D"], H, s["F"], 2,
-                                        train=True)
-    bb, byb, fb, nb = fused_block_bwd_bound(s["B"], s["L"], s["D"], H,
-                                            s["F"], 2)
-    log(f"train forward flagship time: kernel {t_fwd:.4f} ms, plain "
-        f"{t_fwd_plain:.4f} ms, bound {bf:.4f} ms ({byf}: {ff / 1e9:.2f} "
-        f"GFLOP, {nf / 1e6:.2f} MB); kernel at {ff / t_fwd / 1e9:.1f} TFLOP/s")
-    log(f"backward flagship time: kernel {t_bwd:.4f} ms, plain "
-        f"{t_bwd_plain:.4f} ms, bound {bb:.4f} ms ({byb}: {fb / 1e9:.2f} "
-        f"GFLOP, {nb / 1e6:.2f} MB); kernel at {fb / t_bwd / 1e9:.1f} TFLOP/s")
-    entries = [
-        {"name": "fused_hstu_block_fwd_train", "route": "cuda",
-         "source": SRC + "fused_block.cu", "replaces": TPU + ":274",
-         "launches": None, "max_abs_err": errs["fwd"], "ms": t_fwd,
-         "plain_ms": t_fwd_plain, "bound_ms": bf, "bound_by": byf,
-         "library_ms": None},
-        {"name": "fused_hstu_block_bwd", "route": "cuda",
-         "source": SRC + "fused_block_bwd.cu", "replaces": TPU + ":325",
-         "launches": None, "max_abs_err": errs["bwd"], "ms": t_bwd,
-         "plain_ms": t_bwd_plain, "bound_ms": bb, "bound_by": byb,
-         "library_ms": None}]
-    return ok_all, entries
+    t = {"fwd": time_ms(lambda: FB.fused_hstu_block(x, ops, tt, H), 3, 20),
+         "fwd_train": time_ms(lambda: FB.fused_hstu_block_train(
+             x, ops, tt, H, seed, p), 3, 20),
+         "bwd": time_ms(lambda: FB.fused_hstu_block_bwd(
+             x, ref_av, dout, ops, tt, H, seed, p), 2, 10)}
+    plain = {"fwd": time_ms(lambda: FB.fused_hstu_block_plain(
+                 x, ops, tt, H), 1, 5),
+             "fwd_train": time_ms(lambda: FB.fused_hstu_block_train_plain(
+                 x, ops, tt, H, seed, p), 1, 3),
+             "bwd": time_ms(lambda: FB.fused_hstu_block_bwd_plain(
+                 x, ref_av, dout, ops, tt, H, seed, p), 1, 3)}
+    args = (s["B"], s["L"], s["D"], H, s["F"], 2)
+    bounds = {"fwd": fused_block_bound(*args),
+              "fwd_train": fused_block_bound(*args, train=True),
+              "bwd": fused_block_bwd_bound(*args)}
+    entries = []
+    for key, src, rows in (("fwd", "fused_block.cu", fwd_rows),
+                           ("fwd_train", "fused_block.cu", fwd_rows),
+                           ("bwd", "fused_block_bwd.cu", bwd_rows)):
+        bound, by, flops, nbytes = bounds[key]
+        log(f"{key}{suffix} time at {s}: kernel {t[key]:.4f} ms, plain "
+            f"{plain[key]:.4f} ms, bound {bound:.4f} ms ({by}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+            f"{flops / t[key] / 1e9:.1f} TFLOP/s")
+        entries.append({"name": f"fused_hstu_block_{key}{suffix}",
+                        "route": "cuda", "source": SRC + src,
+                        "replaces": f"{TPU}:{rows}", "launches": None,
+                        "max_abs_err": err[key], "ms": t[key],
+                        "plain_ms": plain[key], "bound_ms": bound,
+                        "bound_by": by, "library_ms": None})
+    del x, ops, tt, ref_av, dout
+    _free()
+    return ok, entries
 
 
 # ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
-def phase_training():
-    """cli.train on the card: hstu_flagship at --maxlen 1023, one epoch."""
+def phase_training(run):
+    """cli.train on the card, one epoch: hstu_flagship at --maxlen 1023, or
+    the long path (--maxlen 4095 --batch_size 32 --loader cached)."""
     import numpy as np
 
     from tencent_recommendation_2025_tpu_torch.cli import train as TRN
     from tencent_recommendation_2025_tpu_torch.config import PRESETS
     from tencent_recommendation_2025_tpu_torch.data import synthetic
-    from tencent_recommendation_2025_tpu_torch.data.dataset import \
-        TrainSampler
     from tencent_recommendation_2025_tpu_torch.data.pipeline import \
         train_val_split
     from tencent_recommendation_2025_tpu_torch.data.readers import \
         TencentGRData
-    from tencent_recommendation_2025_tpu_torch.data.schema import \
-        FeatureSchema
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
 
-    if WORK.exists():
-        shutil.rmtree(WORK)
-    data_dir, model_dir, log_dir = WORK / "data", WORK / "model", \
-        WORK / "logs"
+    if run.work.exists():
+        shutil.rmtree(run.work)
+    data_dir, model_dir, log_dir = run.work / "data", run.work / "model", \
+        run.work / "logs"
     t0 = time.perf_counter()
-    synthetic.generate(data_dir, mm_emb_ids=("81",), **FIXTURE)
-    log(f"fixture generated in {time.perf_counter() - t0:.1f} s")
+    synthetic.generate(data_dir, mm_emb_ids=("81",), **run.fixture)
+    log(f"{run.name}: fixture {run.fixture} generated in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     os.environ["TRAIN_DATA_PATH"] = str(data_dir)
     os.environ["TRAIN_CKPT_PATH"] = str(model_dir)
@@ -419,26 +492,26 @@ def phase_training():
     FB.fused_hstu_block.launches = 0
     FB.fused_hstu_block_train.launches = 0
     FB.fused_hstu_block_bwd.launches = 0
+    timings = {}
     t0 = time.perf_counter()
-    state = TRN.main(ARGS + ["--num_epochs", "1"])
+    state = TRN.main(run.args() + list(run.train_args)
+                     + ["--num_epochs", "1"], timings=timings)
     wall = time.perf_counter() - t0
     launches = {"fwd": FB.fused_hstu_block.launches,
                 "fwd_train": FB.fused_hstu_block_train.launches,
                 "bwd": FB.fused_hstu_block_bwd.launches}
 
     cfg = PRESETS["hstu_flagship"]()
-    mcfg = dataclasses.replace(cfg.model, maxlen=MAXLEN)
     data = TencentGRData(data_dir, mm_emb_ids=("81",))
-    schema = FeatureSchema.from_indexer(data.indexer, ("81",), 8)
-    sampler = TrainSampler(data, schema, MAXLEN)
-    _, va = train_val_split(len(sampler), cfg.train.valid_fraction,
+    _, va = train_val_split(len(data.seq), cfg.train.valid_fraction,
                             cfg.train.seed)
-    n_valid = -(-len(va) // cfg.train.batch_size)
+    n_valid = -(-len(va) // run.batch_size)
     steps = state.step
-    nb = mcfg.num_blocks
+    nb = cfg.model.num_blocks
     ok = (launches["fwd_train"] == nb * steps and launches["bwd"] == nb * steps
           and launches["fwd"] == nb * n_valid and steps > 0)
-    log(f"training launches: forward (training) {launches['fwd_train']}, "
+    log(f"{run.name}: training launches: forward (training) "
+        f"{launches['fwd_train']}, "
         f"backward {launches['bwd']} (expected {nb} blocks x {steps} steps); "
         f"forward (inference) {launches['fwd']} (expected {nb} x {n_valid} "
         f"validation batches) {'ok' if ok else 'FAIL'}")
@@ -447,18 +520,21 @@ def phase_training():
     finite = len(losses) == steps and bool(np.isfinite(losses).all())
     ckpt = CK.latest_checkpoint(model_dir)
     ok_ck = ckpt is not None and ckpt.name.startswith(f"global_step{steps}.")
-    log(f"train losses ({steps} steps): {', '.join(f'{v:.4f}' for v in losses)}"
+    log(f"{run.name}: train losses ({steps} steps): "
+        f"{', '.join(f'{v:.4f}' for v in losses)}"
         f"; finite {finite}; checkpoint {ckpt.name if ckpt else None} "
         f"{'ok' if finite and ok_ck else 'FAIL'}")
-    log(f"cli.train wall {wall:.1f} s for {steps} steps of "
-        f"{cfg.train.batch_size} (data loading, validation and checkpoint "
-        f"included); last logged steps/s {lines[-1]['steps_per_second']:.3f}")
+    log(f"{run.name}: cli.train wall {wall:.1f} s for {steps} steps of "
+        f"{run.batch_size} at L={run.maxlen + 1} (data loading, validation "
+        f"and checkpoint included); loader {timings.get('loader')}, cache "
+        f"build {timings.get('cache_build_s', float('nan')):.2f} s; last "
+        f"logged steps/s {lines[-1]['steps_per_second']:.3f}")
     return ok and finite and ok_ck, launches, data_dir, ckpt, data
 
 
-def _train_batches(data, n, rows=None):
-    """The first ``n`` train batches of epoch 1, tower-dedup prepped as
-    train_loop prepares them (optionally cut to ``rows`` rows)."""
+def _train_batches(data, n, run, rows=None):
+    """The first ``n`` train batches of epoch 1 of ``run`` (streamed; cut to
+    ``rows`` rows if given) and its config."""
     from tencent_recommendation_2025_tpu_torch.config import PRESETS
     from tencent_recommendation_2025_tpu_torch.data.dataset import \
         TrainSampler
@@ -469,9 +545,11 @@ def _train_batches(data, n, rows=None):
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
 
     cfg = PRESETS["hstu_flagship"]()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, maxlen=MAXLEN))
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, maxlen=run.maxlen),
+        train=dataclasses.replace(cfg.train, batch_size=run.batch_size))
     schema = FeatureSchema.from_indexer(data.indexer, ("81",), 8)
-    sampler = TrainSampler(data, schema, MAXLEN)
+    sampler = TrainSampler(data, schema, run.maxlen)
     tr, _ = train_val_split(len(sampler), cfg.train.valid_fraction,
                             cfg.train.seed)
     loader = TrainLoader(sampler, tr, cfg.train.batch_size,
@@ -523,7 +601,7 @@ def phase_one_step(data, ckpt):
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
 
-    cfg, schema, (batch,) = _train_batches(data, 1, rows=16)
+    cfg, schema, (batch,) = _train_batches(data, 1, FLAGSHIP_RUN, rows=16)
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rate=0.0))
     tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
                                data.mm_emb_dict, data.indexer_i_rev)
@@ -579,10 +657,10 @@ def phase_one_step(data, ckpt):
     return ok
 
 
-def phase_train_speed(data, ckpt):
-    """Train examples/s of the step itself (host clock, synchronised, after
-    warm-up, on batches already on the card), and where one step's time
-    goes (torch.profiler)."""
+def phase_train_speed(data, ckpt, run):
+    """Train examples/s and tokens/s of the step itself (host clock,
+    synchronised, after warm-up, on batches already on the card), and where
+    one step's time goes (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -594,7 +672,7 @@ def phase_train_speed(data, ckpt):
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
 
-    cfg, schema, raw = _train_batches(data, 4)
+    cfg, schema, raw = _train_batches(data, 4, run)
     tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
                                data.mm_emb_dict, data.indexer_i_rev)
     model = SeqRecModel(cfg=cfg.model, schema=schema,
@@ -616,11 +694,11 @@ def phase_train_speed(data, ckpt):
         state, m = step(state, batches[i % len(batches)], tabs["mm"], tabs)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n
-    B = cfg.train.batch_size
-    log(f"train step (B={B}, L={MAXLEN + 1}, bf16, dropout "
+    B, L = cfg.train.batch_size, run.maxlen + 1
+    log(f"{run.name}: train step (B={B}, L={L}, bf16, dropout "
         f"{cfg.model.dropout_rate}, tower dedup): {dt * 1e3:.3f} ms, "
-        f"{B / dt:.1f} examples/s (host clock, synchronised, {n} steps "
-        f"after 2 warm-up)")
+        f"{B / dt:.1f} examples/s, {B * L / dt:.0f} tokens/s (host clock, "
+        f"synchronised, {n} steps after 2 warm-up)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -640,11 +718,13 @@ def phase_train_speed(data, ckpt):
     others = ", ".join(f"{k[:60]} {v:.3f}" for k, v in by_name.most_common()
                        if not any(n in k for n in FWD_KERNELS + BWD_KERNELS)
                        )[:900]
+    fsplit = ", ".join(f"{n} {share((n,)):.3f}" for n in FWD_KERNELS)
     split = ", ".join(f"{n} {share((n,)):.3f}" for n in BWD_KERNELS)
-    log(f"train step profile: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+    log(f"{run.name}: train step profile: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms "
         f"(idle {max(0.0, 1 - busy / wall):.1%}); forward kernels "
-        f"{fwd:.3f} ms, backward kernels {bwd:.3f} ms ({split}); other "
-        f"kernels (ms): {others}")
+        f"{fwd:.3f} ms ({fsplit}), backward kernels {bwd:.3f} ms ({split}); "
+        f"other kernels (ms): {others}")
     return B / dt
 
 
@@ -652,8 +732,8 @@ def phase_train_speed(data, ckpt):
 # phase 5: serving
 # ---------------------------------------------------------------------------
 
-def phase_serving(data_dir, ckpt):
-    """cli.infer on the card on the trained checkpoint."""
+def phase_serving(data_dir, ckpt, run):
+    """cli.infer on the card on the checkpoint ``run`` trained."""
     import numpy as np
     import torch
 
@@ -676,7 +756,7 @@ def phase_serving(data_dir, ckpt):
 
     res_dir = WORK / "result"
     mcfg = dataclasses.replace(PRESETS["hstu_flagship"]().model,
-                               maxlen=MAXLEN)
+                               maxlen=run.maxlen)
     data = TencentGRData(data_dir, mm_emb_ids=("81",), split="test")
     schema = FeatureSchema.from_indexer(data.indexer, ("81",), 8)
     model = SeqRecModel(cfg=mcfg, schema=schema,
@@ -691,11 +771,11 @@ def phase_serving(data_dir, ckpt):
     os.environ["MODEL_OUTPUT_PATH"] = str(ckpt.parent)
     timings = {}
     FB.fused_hstu_block.launches = 0
-    metrics = INF.main(ARGS, timings=timings)
+    metrics = INF.main(run.args(), timings=timings)
     launches = FB.fused_hstu_block.launches
     nb = timings["n_query_batches"]
-    # every test user is a query: 1024 users in batches of 128
-    ok = nb == -(-FIXTURE["num_users"] // 128) and \
+    # every test user is a query, in batches of 128
+    ok = nb == -(-run.fixture["num_users"] // 128) and \
         launches == mcfg.num_blocks * nb
     log(f"fused_block launches on the serving path: {launches} "
         f"(expected {mcfg.num_blocks} blocks x {nb} query batches) "
@@ -706,15 +786,17 @@ def phase_serving(data_dir, ckpt):
     queries = formats.load_fbin(res_dir / "query.fbin")
     corpus = formats.load_fbin(res_dir / "embedding.fbin")
     finite = bool(np.isfinite(queries).all() and np.isfinite(corpus).all())
-    shapes_ok = queries.shape == (FIXTURE["num_users"], mcfg.hidden_units) \
-        and corpus.shape == (FIXTURE["num_items"], mcfg.hidden_units)
+    shapes_ok = queries.shape == (run.fixture["num_users"],
+                                  mcfg.hidden_units) \
+        and corpus.shape == (run.fixture["num_items"], mcfg.hidden_units)
     torch.set_num_threads(os.cpu_count() or 1)
     batch, _, n_valid = next(iter(TestLoader(
         TestSampler(data, schema, mcfg.maxlen), 128, num_workers=8)))
     cpu_params, _ = CK.load_params(ckpt)
     tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
                                data.mm_emb_dict, data.indexer_i_rev)
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    n_valid = min(n_valid, run.n_check)
+    tb = {k: torch.from_numpy(v[:run.n_check]) for k, v in batch.items()}
     mm = {k: torch.from_numpy(v) for k, v in tables.mm.items()}
     t0 = time.perf_counter()
     ref32 = plain_queries(model, cpu_params, tb, mm, "float32")[:n_valid]
@@ -727,7 +809,7 @@ def phase_serving(data_dir, ckpt):
     floor = cosine(ref16, ref32)
     limit32 = np.minimum(0.999, floor - 5e-4)
     cos_ok = bool((cos32 >= limit32).all() and cos16.min() >= 0.999)
-    log(f"first query batch ({n_valid} queries, plain versions on the CPU in "
+    log(f"{run.name}: first {n_valid} queries (plain versions on the CPU in "
         f"{time.perf_counter() - t0:.1f} s): card bf16 vs CPU bf16 cosine min "
         f"{cos16.min():.6f} (limit 0.999); card bf16 vs CPU f32 cosine min "
         f"{cos32.min():.6f} median {np.median(cos32):.6f} (limit 0.999, or "
@@ -738,7 +820,7 @@ def phase_serving(data_dir, ckpt):
     log(f"outputs: queries {queries.shape}, corpus {corpus.shape}, finite="
         f"{finite} {'ok' if finite and shapes_ok else 'FAIL'}")
     profile_predict(model, CK.load_params(ckpt, model, device="cuda")[0],
-                    {k: v.cuda() for k, v in tb.items()},
+                    {k: torch.from_numpy(v).cuda() for k, v in batch.items()},
                     {k: v.cuda() for k, v in mm.items()})
     serving = {
         "queries_per_s": timings["n_queries"] / timings["predict_s"],
@@ -746,7 +828,7 @@ def phase_serving(data_dir, ckpt):
         "topk_ms": timings["topk_s"] * 1e3,
         "n_queries": timings["n_queries"], "n_items": timings["n_items"],
         "hr10": metrics["hr"], "ndcg10": metrics["ndcg"]}
-    log("serving " + json.dumps(serving))
+    log(f"{run.name}: serving at L={run.maxlen + 1} " + json.dumps(serving))
     return ok and cos_ok and finite and shapes_ok, launches
 
 
@@ -828,25 +910,32 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         log(f"  {name}: " + " | ".join(regs))
 
+    oks = {}
     t0 = time.perf_counter()
-    ok_k, fwd = phase_kernels()
-    ok_t, train_entries = phase_train_kernels()
+    oks["kernels"] = phase_kernels()
+    oks["times"], entries = phase_times(FLAGSHIP)
+    oks["times_chunked"], chunked = phase_times(LONG)
+    entries += chunked
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    ok_tr, tl, data_dir, ckpt, data = phase_training()
-    ok_1 = phase_one_step(data, ckpt)
-    phase_train_speed(data, ckpt)
-    log(f"training phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    ok_s, launches = phase_serving(data_dir, ckpt)
-    log(f"serving phase: {time.perf_counter() - t0:.1f} s")
-    fwd["launches"] = launches
-    train_entries[0]["launches"] = tl["fwd_train"]
-    train_entries[1]["launches"] = tl["bwd"]
+    # the JSON entries in order: fwd, fwd_train, bwd of each variant
+    for run, found in ((FLAGSHIP_RUN, entries[:3]), (LONG_RUN, entries[3:])):
+        t0 = time.perf_counter()
+        oks[f"{run.name}_train"], tl, data_dir, ckpt, data = \
+            phase_training(run)
+        if run is FLAGSHIP_RUN:
+            oks["one_step"] = phase_one_step(data, ckpt)
+        phase_train_speed(data, ckpt, run)
+        log(f"{run.name} training phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        oks[f"{run.name}_serve"], served = phase_serving(data_dir, ckpt, run)
+        log(f"{run.name} serving phase: {time.perf_counter() - t0:.1f} s")
+        for entry, n in zip(found, (served, tl["fwd_train"], tl["bwd"])):
+            entry["launches"] = n
     log(card)
-    log(json.dumps({"kernels": [fwd] + train_entries}))
-    if not (ok_k and ok_t and ok_tr and ok_1 and ok_s):
-        log("chip_smoke: FAILED")
+    log(json.dumps({"kernels": entries}))
+    failed = [k for k, v in oks.items() if not v]
+    if failed:
+        log(f"chip_smoke: FAILED ({', '.join(failed)})")
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,22 +8,33 @@ named ``global_step{N}.valid_loss={v}``, which the port's ``cli.infer``
 serves).
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given; without CUDA and without ``--device cpu`` it raises. The loader
-is the streaming ``TrainLoader`` (``--loader auto`` means streaming here);
-the cached and native loaders, meshes, sparse tables, gradient
-accumulation, the sampled softmax loss and epoch-end retrieval eval raise
-``NotImplementedError`` naming their ROADMAP item.
+is given; without CUDA and without ``--device cpu`` it raises. Loaders:
+``cached`` packs every user's sample once (``data/cached_dataset.py``) and
+samples negatives vectorised; ``streaming`` samples in python threads every
+epoch; ``auto`` takes the cached loader up to 2M samples and streams above,
+as the JAX package's ``auto`` does where its native tool is absent. The
+native loader, meshes, sparse tables, gradient accumulation, the sampled
+softmax loss and epoch-end retrieval eval raise ``NotImplementedError``
+naming their ROADMAP item.
 
     TRAIN_DATA_PATH=... TRAIN_CKPT_PATH=... python -m \\
         tencent_recommendation_2025_tpu_torch.cli.train \\
         --preset hstu_flagship --maxlen 1023
+
+Long sequences (L = 4096, the chunked variant of the fused block kernels):
+``--preset hstu_flagship --maxlen 4095 --batch_size 32 --loader cached``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 from pathlib import Path
+from typing import Optional
+
+#: above this many samples ``--loader auto`` streams instead of packing
+AUTO_CACHE_MAX_SAMPLES = 2_000_000
 
 
 def get_args(argv=None):
@@ -72,9 +83,10 @@ def get_args(argv=None):
                    help="1-based step the profile window starts at")
     p.add_argument("--loader", default="auto",
                    choices=["auto", "native", "cached", "streaming"],
-                   help="streaming: threaded per-epoch sampling (auto means "
-                        "streaming in the port); native and cached are not "
-                        "ported yet")
+                   help="cached: python pack, vectorized negatives; "
+                        "streaming: threaded per-epoch sampling; auto: "
+                        "cached up to 2M samples, else streaming; native is "
+                        "not ported yet")
     return p.parse_args(argv)
 
 
@@ -109,13 +121,18 @@ def build_config(args):
     )
 
 
-def main(argv=None):
+def main(argv=None, timings: Optional[dict] = None):
+    """Train; returns the final state. ``timings``, when given, receives the
+    loader taken ("cached" or "streaming") and, for the cached one, the
+    seconds its pack took."""
     args = get_args(argv)
+    timings = {} if timings is None else timings
     cfg = build_config(args)
 
     import torch
 
     from ..config import EnvPaths
+    from ..data.cached_dataset import CachedTrainLoader, PackedCache
     from ..data.dataset import TrainSampler
     from ..data.featurizer import FusedVocab, build_item_tables
     from ..data.pipeline import TrainLoader, train_val_split
@@ -128,12 +145,10 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     check_supported(cfg)
-    if args.loader in ("cached", "native"):
+    if args.loader == "native":
         raise NotImplementedError(
-            f"--loader {args.loader} is not ported yet: ROADMAP Queue 1, "
-            "Cached/native loader")
-    if args.loader == "auto":
-        print("loader: auto is the streaming TrainLoader in the port")
+            "--loader native (the C++ dataprep pack) is not ported yet: "
+            "ROADMAP Queue 1, item 3 (native pack)")
 
     env = EnvPaths.from_env()
     assert env.train_data_path, "TRAIN_DATA_PATH must be set"
@@ -155,12 +170,29 @@ def main(argv=None):
     sampler = TrainSampler(data, schema, cfg.model.maxlen)
     tr_idx, va_idx = train_val_split(len(sampler), cfg.train.valid_fraction,
                                      cfg.train.seed)
-    train_loader = TrainLoader(sampler, tr_idx, cfg.train.batch_size,
-                               seed=cfg.train.seed,
-                               num_workers=args.num_workers)
-    valid_loader = TrainLoader(sampler, va_idx, cfg.train.batch_size,
-                               seed=cfg.train.seed, shuffle=False,
-                               num_workers=args.num_workers)
+    cached = args.loader == "cached" or (
+        args.loader == "auto" and len(sampler) <= AUTO_CACHE_MAX_SAMPLES)
+    if cached:
+        t0 = time.perf_counter()
+        cache = PackedCache(sampler, num_workers=args.num_workers)
+        timings.update(loader="cached",
+                       cache_build_s=time.perf_counter() - t0)
+        print(f"loader: cached (--loader {args.loader}); packed "
+              f"{len(cache)} samples in {timings['cache_build_s']:.2f} s")
+        train_loader = CachedTrainLoader(
+            cache, tr_idx, cfg.train.batch_size, seed=cfg.train.seed,
+            num_workers=min(args.num_workers, 8))
+        valid_loader = CachedTrainLoader(cache, va_idx, cfg.train.batch_size,
+                                         seed=cfg.train.seed, shuffle=False)
+    else:
+        timings.update(loader="streaming")
+        print(f"loader: streaming (--loader {args.loader})")
+        train_loader = TrainLoader(sampler, tr_idx, cfg.train.batch_size,
+                                   seed=cfg.train.seed,
+                                   num_workers=args.num_workers)
+        valid_loader = TrainLoader(sampler, va_idx, cfg.train.batch_size,
+                                   seed=cfg.train.seed, shuffle=False,
+                                   num_workers=args.num_workers)
 
     state = None
     start_epoch = 0

@@ -2,9 +2,11 @@
 // training.
 //
 // Replaces tencent_recommendation_2025_tpu/ops/fused_block.py::_fwd_kernel
-// (the whole-sequence Pallas kernel, both modes). Per batch row and token,
-// with x [B, L, D] in the compute dtype T (bf16 on the product path, f32 in
-// the checks):
+// (the whole-sequence Pallas kernel, both modes) and the chunked variant's
+// three stages: _fwd_pre_kernel_chunk (l.452) is proj_kernel below,
+// _fwd_attn_kernel_chunk (l.468) and _fwd_post_kernel_chunk (l.502) are the
+// two halves of attn_ffn_kernel. Per batch row and token, with x [B, L, D]
+// in the compute dtype T (bf16 on the product path, f32 in the checks):
 //
 //   h1   = LN1(x)                                   f32, eps 1e-8
 //   uvqk = silu(T(h1) @ Wuvqk + b)                  f32 accumulation
@@ -17,7 +19,10 @@
 //
 // Training (the wrapper passes an av output): av is also written in T, the
 // residual the backward (fused_block_bwd.cu) reads, while LN2 here reads the
-// f32 sum, as the TPU kernel does. With dropout (a seed pointer), keep1 and
+// f32 sum, as the whole-sequence TPU kernel does. The chunked variant
+// (round_av, L > wholeseq_max_l(D)) rounds av to T before LN2, as the TPU's
+// attention stage writes it in T for its post stage; the av written out is
+// then the value LN2 read. With dropout (a seed pointer), keep1 and
 // keep2 are the counter-hash masks of fused_block_common.cuh (site 0 over
 // [L, D], site 1 over [L, F]); otherwise both are 1.
 //
@@ -75,6 +80,7 @@ struct Params {
   void* av;            // training: [B, L, D] T, the attention output; or null
   const int* seed;     // training with dropout: [1] seed; null = no dropout
   int B, L, D, H, F, NB;
+  int round_av;        // chunked variant: LN2 reads T(av), not the f32 sum
   float scale, inv_len;
   unsigned thr;        // dropout: keep iff bits >= thr
   float keep_scale;    // dropout: 1 / (1 - p)
@@ -221,6 +227,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // --- gate: g = LN2(av) * u * keep1; training also writes av ---
+  if (p.round_av) {
+    for (int i = threadIdx.x; i < TQ * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      av[r * ldf + d] = to_f(from_f<T>(av[r * ldf + d]));
+    }
+    __syncthreads();
+  }
   const bool drop = p.seed != nullptr;
   const uint32_t seed = drop ? (uint32_t)p.seed[0] : 0u;
   row_stats<float>(av, ldf, TQ, D, mu, rstd);
@@ -341,9 +354,10 @@ int launch(const Params& p, bool tc, cudaStream_t stream) {
 // [B, L, D] in the compute dtype and u [B, L, D] f32. Training: av [B, L, D]
 // in the compute dtype (null in inference) and, for dropout, seed [1] int32
 // on the device with the keep threshold thr = uint32(p * 2^32) and
-// keep_scale = 1 / (1 - p) (seed null: no dropout). All contiguous, 16-byte
-// aligned. Requires L % 64 == 0, D % 16 == 0, F % 16 == 0, D % H == 0.
-// Returns a cudaError_t code (0 on success).
+// keep_scale = 1 / (1 - p) (seed null: no dropout). round_av nonzero selects
+// the chunked variant's rounding point. All contiguous, 16-byte aligned.
+// Requires L % 64 == 0, D % 16 == 0, F % 16 == 0, D % H == 0. Returns a
+// cudaError_t code (0 on success).
 extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
                                const void* ln, const void* wuvqk,
                                const void* buvqk, const void* wo,
@@ -351,8 +365,9 @@ extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
                                const void* w2, const void* rab, void* q,
                                void* k, void* v, void* u, void* out, void* av,
                                const void* seed, int B, int L, int D, int H,
-                               int F, int NB, float scale, float inv_len,
-                               unsigned thr, float keep_scale, void* stream) {
+                               int F, int NB, int round_av, float scale,
+                               float inv_len, unsigned thr, float keep_scale,
+                               void* stream) {
   if (L % kTM != 0 || D % 16 != 0 || F % 16 != 0 || H <= 0 || D % H != 0 ||
       NB <= 0)
     return (int)cudaErrorInvalidValue;
@@ -380,6 +395,7 @@ extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
   p.H = H;
   p.F = F;
   p.NB = NB;
+  p.round_av = round_av;
   p.scale = scale;
   p.inv_len = inv_len;
   p.thr = thr;

@@ -114,11 +114,36 @@ def init_embedding_params(gen: torch.Generator, cfg: ModelConfig,
 # Lookups
 # ---------------------------------------------------------------------------
 
+class _ClampedTake(torch.autograd.Function):
+    """``table[clamp(ids)]`` whose backward drops id 0 and every id past the
+    table's end, as the JAX package's ``_zst_bwd`` does (its scatter's
+    mode='drop'): the forward reads the last row for such an id, but its
+    gradient lands nowhere."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ids = ids.long()
+        ctx.save_for_backward(ids)
+        ctx.shape = table.shape
+        return table[ids.clamp(0, table.shape[0] - 1)]
+
+    @staticmethod
+    def backward(ctx, cot):
+        (ids,) = ctx.saved_tensors
+        ok = (ids > 0) & (ids < ctx.shape[0])
+        cot = cot * ok[..., None].to(cot.dtype)
+        dtable = cot.new_zeros(ctx.shape).index_add_(
+            0, torch.where(ok, ids, 0).reshape(-1),
+            cot.reshape(-1, ctx.shape[1]))
+        return dtable, None
+
+
 def masked_take(table: torch.Tensor, ids: torch.Tensor,
                 dtype=None) -> torch.Tensor:
     """``table[ids] * (ids != 0)``: the padding-row-0 contract. Out-of-range
-    ids clamp to the table's ends (the JAX gather's mode='clip')."""
-    emb = table[ids.long().clamp(0, table.shape[0] - 1)]
+    ids clamp to the table's ends (the JAX gather's mode='clip') and send
+    no gradient to the table."""
+    emb = _ClampedTake.apply(table, ids)
     if dtype is not None:
         emb = emb.to(dtype)
     return emb * (ids != 0)[..., None].to(emb.dtype)

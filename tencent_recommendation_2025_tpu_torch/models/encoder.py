@@ -6,10 +6,11 @@ embedding dropout in training, the causal ∧ key-padding mask, pre-norm HSTU
 blocks with a SwiGLU (or ReLU) FFN, final LayerNorm(eps=1e-8).
 
 Routing mirrors the JAX package's. Where it takes a Pallas kernel on a TPU,
-the port takes its CUDA kernel on the card (the fused whole-sequence block,
-``ops/fused_block``), or raises ``NotImplementedError`` naming the kernel
-not ported yet. Where it runs plain XLA, the port runs plain PyTorch on any
-device. On the CPU every path is plain.
+the port takes its CUDA kernel on the card (the fused block in its
+whole-sequence or chunked variant, ``ops/fused_block``), or raises
+``NotImplementedError`` naming the kernel not ported yet. Where it runs
+plain XLA, the port runs plain PyTorch on any device. On the CPU every path
+is plain.
 """
 
 from __future__ import annotations
@@ -138,17 +139,11 @@ def _cast_ln(p, dtype):
 
 def block_route(cfg: ModelConfig, L: int, backend: str) -> str:
     """How the encoder runs its HSTU blocks at length L on ``backend``
-    ("cuda" or "cpu"): "fused" (the fused block kernel, one launch per
-    block) or "dense" (plain PyTorch). Raises ``NotImplementedError`` where
-    the JAX package would take a Pallas kernel the port has not ported."""
-    D = cfg.hidden_units
+    ("cuda" or "cpu"): "fused" (the fused block kernels, whole-sequence or
+    chunked variant by ``FB.chunked``) or "dense" (plain PyTorch). Raises
+    ``NotImplementedError`` where the JAX package would take a Pallas kernel
+    the port has not ported."""
     if FB.fused_block_supported(cfg, L, backend):
-        if L > FB.wholeseq_max_l(D):
-            raise NotImplementedError(
-                f"L={L} > wholeseq_max_l({D})={FB.wholeseq_max_l(D)} takes "
-                "the chunked fused kernels (ops/fused_block.py::"
-                "_fwd_pre_kernel_chunk, _fwd_attn_kernel_chunk, "
-                "_fwd_post_kernel_chunk), not ported yet: ROADMAP Queue 2")
         return "fused"
     if backend == "cuda" and cfg.use_flash_attention and 256 <= L \
             and L % 128 == 0:

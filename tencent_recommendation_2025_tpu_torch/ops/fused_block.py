@@ -10,17 +10,37 @@ activations and returns ``x + block(x)``:
     y    = x + drop1(LN(av; ln2) * u) @ Wo + bo
     out  = y + drop2(silu(x1) * x3) @ W2,   [x1 | x3] = LN(y; ln3) @ W13
 
-Kernels, each replacing a TPU kernel of the JAX package's file:
+Kernels, each replacing TPU kernels of the JAX package's file:
 
-- ``csrc/fused_block.cu``, ``_fwd_kernel`` (l.274). Inference
+- ``csrc/fused_block.cu`` (``proj_kernel``, ``attn_ffn_kernel``). Inference
   (:func:`fused_hstu_block`) and training (:func:`fused_hstu_block_train`:
-  the two dropouts, and ``av`` written for the backward). Bound on the H100
-  at the flagship shape (B=128, L=1024, D=64, F=256, H=1): compute, 35.4
-  GFLOP per block, 36 us at 989 TFLOP/s bf16.
-- ``csrc/fused_block_bwd.cu``, ``_bwd_kernel`` (l.325)
-  (:func:`fused_hstu_block_bwd`): recompute from x and av, dx and every
-  weight, LN, bias and rel-pos gradient. Bound: compute, 93.5 GFLOP per
-  block, 94.5 us.
+  the two dropouts, and ``av`` written for the backward). Replaces
+  ``_fwd_kernel`` (l.274) and, in the chunked variant, the three forward
+  stages: ``_fwd_pre_kernel_chunk`` (l.452) is ``proj_kernel``;
+  ``_fwd_attn_kernel_chunk`` (l.468) and ``_fwd_post_kernel_chunk``
+  (l.502) are the attention and the post half of ``attn_ffn_kernel``. Bound
+  on the H100 at the flagship shape (B=128, L=1024, D=64, F=256, H=1):
+  compute, 35.4 GFLOP per block, 36 us at 989 TFLOP/s bf16.
+- ``csrc/fused_block_bwd.cu`` (:func:`fused_hstu_block_bwd`): recompute
+  from x and av, dx and every weight, LN, bias and rel-pos gradient.
+  Replaces ``_bwd_kernel`` (l.325) and, in the chunked variant,
+  ``_bwd_gate_kernel_chunk`` (l.612) with ``gate_ffn_bwd_kernel``,
+  ``_bwd_dq_kernel_chunk`` (l.533) with ``attn_dq_kernel`` (its rel-pos
+  tile gradients come from ``attn_dkdv_kernel``, straight to ``rab``),
+  ``_bwd_dkdv_kernel_chunk`` (l.573) with ``attn_dkdv_kernel`` and
+  ``_bwd_proj_kernel_chunk`` (l.710) with ``proj_bwd_kernel``, the weight
+  gradients of both summed by ``reduce_rows_kernel``. Bound: compute, 93.5
+  GFLOP per block, 94.5 us.
+
+Variants. The TPU package takes the whole-sequence kernels up to
+``wholeseq_max_l(D)`` and the chunked ones above it (:func:`chunked`), for
+VMEM's sake alone. The CUDA kernels stage q, k, v and u through global
+memory and stream key tiles at every L, so both variants are the same
+kernels. They differ at one rounding point: the chunked attention stage
+writes ``av`` in the activation dtype and the post stage's LN2 reads that
+rounded value, where the whole-sequence kernel feeds LN2 the f32 sum. The
+forward kernel rounds ``av`` there when the variant is chunked, and so do
+the plain versions; the backward reads the saved ``av`` in both.
 
 :class:`FusedBlockFn` ties them into autograd. It takes the block's f32
 parameter leaves and casts inside, so weight gradients reach them in f32,
@@ -56,17 +76,24 @@ import torch.nn.functional as Fn
 from . import kernels
 
 FB_BLK = 128             # TPU stripe width: the gate's L granularity
-FB_WHOLESEQ_MAX = 1024   # whole-sequence kernel ceiling at D=64
-FB_CHUNK = 512           # L-chunk width of the (unported) chunked kernels
+FB_WHOLESEQ_MAX = 1024   # whole-sequence variant ceiling at D=64
+FB_CHUNK = 512           # L-chunk width of the TPU's chunked kernels (gate)
 FB_ATTN_BLK_BWD = 512
 MAX_CHUNKED_L = 16384
 _EPS = 1e-8
 
 
 def wholeseq_max_l(D: int) -> int:
-    """Longest L the whole-sequence kernel takes at width D; longer runs
-    need the chunked kernels (not ported)."""
+    """Longest L of the whole-sequence variant at width D; longer runs take
+    the chunked variant."""
     return FB_WHOLESEQ_MAX * 64 // max(D, 64)
+
+
+def chunked(L: int, D: int) -> bool:
+    """Whether length L at width D takes the chunked variant (the JAX
+    package's ``L > wholeseq_max_l(D)``; read at call time, so a test can
+    shrink ``FB_WHOLESEQ_MAX``)."""
+    return L > wholeseq_max_l(D)
 
 
 #: widest model the fused kernels accept
@@ -269,7 +296,7 @@ def _projection(h1c, o, L, hd, cdt):
 
 def _scores(q, k, rab, token_type, H):
     """s = q k^T + rab[h, min(q-k, NB-1)] [B, H, L, L] in f32 (q is
-    pre-scaled), the causal ∧ key-valid mask and each pair's bucket."""
+    pre-scaled) and the causal ∧ key-valid mask."""
     L = q.shape[1]
     pos = torch.arange(L, device=q.device)
     dist = pos[:, None] - pos[None, :]
@@ -277,7 +304,23 @@ def _scores(q, k, rab, token_type, H):
     mask = (dist >= 0)[None, None] & (token_type != 0)[:, None, None, :]
     s = _mm(_heads(q, H), _heads(k, H).transpose(-1, -2)) \
         + rab[:, bucket][None]
-    return s, mask, bucket
+    return s, mask
+
+
+def _rab_grad(ds, NB):
+    """[H, NB] gradient of rab from ds [H, L, L] (batch-summed, zero off
+    the causal valid pairs): distance d < NB - 1 is one diagonal, the
+    clamped bucket NB - 1 the triangle below. Each is a torch sum, which
+    is pairwise; scattering every pair into its bucket (index_add_) would
+    add up to L^2 / 2 terms in one run and, at L = 16384, lose f32
+    precision the kernel keeps."""
+    H, L, _ = ds.shape
+    drab = ds.new_zeros((H, NB))
+    for d in range(min(NB - 1, L)):
+        drab[:, d] = torch.diagonal(ds, offset=-d, dim1=-2, dim2=-1).sum(-1)
+    if L > NB - 1:
+        drab[:, NB - 1] = torch.tril(ds, diagonal=-(NB - 1)).sum((-2, -1))
+    return drab
 
 
 def _forward_plain(x, o, token_type, num_heads, seed, rate):
@@ -288,9 +331,11 @@ def _forward_plain(x, o, token_type, num_heads, seed, rate):
     xf = x.float()
     _, u, v, q, k = _projection(_ln(xf, ln[0], ln[1]).to(cdt), o, L,
                                 D // num_heads, cdt)
-    s, mask, _ = _scores(q, k, o["rab"], token_type, num_heads)
+    s, mask = _scores(q, k, o["rab"], token_type, num_heads)
     a = (Fn.silu(s) * mask).to(cdt)
     av = _rows(_mm(a, _heads(v, num_heads)))
+    if chunked(L, D):
+        av = av.to(cdt).float()   # the chunked variant's LN2 reads T(av)
     g = _ln(av, ln[2], ln[3]) * u
     if rate > 0.0:
         g = g * keep_mask(B, L, D, seed, 0, rate, x.device)
@@ -316,7 +361,8 @@ def fused_hstu_block_train_plain(x: torch.Tensor, o: Mapping,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel's training mode: (out, av), with the two
     dropouts at ``rate`` (none at 0) and av in the activation dtype, the
-    residual the backward reads."""
+    residual the backward reads (in the chunked variant, the value LN2
+    read)."""
     return _forward_plain(x, o, token_type, num_heads, seed, rate)
 
 
@@ -380,7 +426,7 @@ def fused_hstu_block_bwd_plain(x: torch.Tensor, av: torch.Tensor,
     dav, dg2, db2 = _ln_bwd(dg * u, xhat2, rstd2, ln[2])
 
     # ---- attention ----
-    s, mask, bucket = _scores(q, k, o["rab"], token_type, H)
+    s, mask = _scores(q, k, o["rab"], token_type, H)
     a = (Fn.silu(s) * mask).to(cdt)
     dot_b = _heads(dav.to(cdt), H)
     dv = _mm(a.transpose(-1, -2), dot_b)     # w.r.t. the 1/L-scaled v
@@ -388,9 +434,7 @@ def fused_hstu_block_bwd_plain(x: torch.Tensor, av: torch.Tensor,
     dsc = ds.to(cdt)
     dq = _mm(dsc, _heads(k, H)) * (hd ** -0.5)
     dk = _mm(dsc.transpose(-1, -2), _heads(q, H))
-    drab = torch.zeros(o["rab"].shape, dtype=torch.float32,
-                       device=x.device).index_add_(
-        1, bucket.reshape(-1), ds.sum(0).reshape(H, -1))
+    drab = _rab_grad(ds.sum(0), o["rab"].shape[1])
 
     # ---- projection and LN1 ----
     duvqk = torch.cat([du, _rows(dv) * (1.0 / L), _rows(dq), _rows(dk)],
@@ -470,7 +514,7 @@ def _stream(device) -> int:
 def _fwd_fn():
     fn = kernels.load("fused_block").fused_block_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [_I] + [_P] * 17 + [_I] * 6 + [_F, _F, _U, _F, _P]
+    fn.argtypes = [_I] + [_P] * 17 + [_I] * 7 + [_F, _F, _U, _F, _P]
     return fn
 
 
@@ -494,7 +538,7 @@ def _launch_fwd(x, o, token_type, num_heads, train: bool, seed, rate):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(),
                 out.data_ptr(), av.data_ptr() if train else None,
                 seed_t.data_ptr() if drop else None, B, L, D, num_heads,
-                o["w2"].shape[0], o["rab"].shape[1],
+                o["w2"].shape[0], o["rab"].shape[1], int(chunked(L, D)),
                 float(D // num_heads) ** -0.5, 1.0 / L,
                 drop_threshold(rate) if drop else 0,
                 keep_scale(rate) if drop else 1.0, _stream(x.device))

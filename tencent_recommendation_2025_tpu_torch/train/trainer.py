@@ -380,12 +380,20 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
         pending.clear()
 
     def epoch_batches(epoch):
-        src = train_loader.epoch(epoch)
         if not dedup_on:
-            return src
-        return (augment_batch_dedup(b, cfg, item_tables, model.itemnum,
-                                    step_key=(cfg.train.seed, 97, epoch, i))
-                for i, b in enumerate(src))
+            return train_loader.epoch(epoch)
+
+        def prep(b, i):
+            return augment_batch_dedup(b, cfg, item_tables, model.itemnum,
+                                       step_key=(cfg.train.seed, 97, epoch,
+                                                 i))
+
+        # the cached loader runs the prep on its worker pool (keyed by batch
+        # index, so deterministic); other loaders get it serially on the
+        # prefetch thread
+        if getattr(train_loader, "supports_prep", False):
+            return train_loader.epoch(epoch, prep=prep)
+        return (prep(b, i) for i, b in enumerate(train_loader.epoch(epoch)))
 
     if start_epoch >= epochs and verbose:
         print(f"resume: {start_epoch}/{epochs} epochs already trained — "

@@ -176,3 +176,38 @@ def test_out_of_vocab_ids_follow_the_one_hot_forward(towers):
                                   torch.from_numpy(ids), offs, sizes=sizes)
     np.testing.assert_array_equal(np.asarray(ref), out.numpy())
     assert not out[0, 0].any() and not out[1, 0].any()
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_out_of_range_id_gradient_matches_jax(dtype):
+    """An id past the table's end reads the last row in both packages, and
+    its gradient is dropped in both (JAX ``_zst_bwd``: scatter mode 'drop');
+    id 0 sends none either."""
+    V, D = 7, 4
+    rng = np.random.default_rng(21)
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    ids = np.array([[0, 1, V - 1, V], [V + 5, 3, 3, 0]], np.int32)
+    cot = rng.standard_normal((2, 4, D)).astype(np.float32)
+    jdt = None if dtype is None else jnp.bfloat16
+    tdt = None if dtype is None else torch.bfloat16
+
+    def f(t):
+        out = JE.masked_take(t, jnp.asarray(ids), dtype=jdt)
+        return (out.astype(jnp.float32) * cot).sum(), out
+
+    (_, jout), jgrad = jax.value_and_grad(f, has_aux=True)(jnp.asarray(table))
+    tt = torch.from_numpy(table).requires_grad_(True)
+    out = TE.masked_take(tt, torch.from_numpy(ids), dtype=tdt)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_array_equal(out.float().detach().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
+    # with a bf16 lookup the JAX package sums a row's cotangents in bf16 (its
+    # scatter runs in the cotangent's dtype), the port in f32: one bf16 step
+    tol = 1e-6 if dtype is None else 2.0 ** -8
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(jgrad), rtol=tol,
+                               atol=tol)
+    # the last row gets only id V-1's cotangent; row 0 none
+    last = cot[0, 2] if dtype is None else \
+        torch.from_numpy(cot[0, 2]).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(tt.grad[V - 1].numpy(), last)
+    assert not tt.grad[0].any()

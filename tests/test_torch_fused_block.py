@@ -152,16 +152,17 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_encoder_block_route():
     """The encoder's routing on the card: the flagship at L=1024 takes the
-    fused kernel; the preset's default maxlen=1024 gives L=1025, which runs
-    plain; shapes on which the JAX package takes a Pallas kernel the port
-    has not ported raise. On the CPU every shape runs plain."""
+    fused kernel, and so does L=2048 (its chunked variant); the preset's
+    default maxlen=1024 gives L=1025, which runs plain; shapes on which the
+    JAX package takes a Pallas kernel the port has not ported raise. On the
+    CPU every shape runs plain."""
     cfg = _cfg(D=64, H=1)
     assert TENC.block_route(cfg, 1024, "cuda") == "fused"
     assert TENC.block_route(cfg, 256, "cuda") == "fused"
     assert TENC.block_route(cfg, 1025, "cuda") == "dense"
     assert TENC.block_route(cfg, 128, "cuda") == "dense"
-    with pytest.raises(NotImplementedError, match="chunked"):
-        TENC.block_route(cfg, 2048, "cuda")
+    assert TENC.block_route(cfg, 2048, "cuda") == "fused"
+    assert TFB.chunked(2048, 64) and not TFB.chunked(1024, 64)
     relu = dataclasses.replace(cfg, ffn_type="relu")
     with pytest.raises(NotImplementedError, match="hstu_attention"):
         TENC.block_route(relu, 512, "cuda")

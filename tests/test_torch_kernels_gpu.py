@@ -110,3 +110,56 @@ def test_backward_kernel_matches_plain_on_card(B, L, D, H, rate):
     assert set(got) == set(ref)
     for name in ref:
         _close(got[name], ref[name], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_chunked_variant_kernels_match_plain_on_card(rate):
+    """L=2048 > wholeseq_max_l(64): the kernels' chunked variant (LN2 reads
+    the rounded av) against the plain versions' chunked variant: inference
+    and training forward (out and av) and the backward."""
+    _cuda_or_skip()
+    B, L, D, H = 2, 2048, 64, 1
+    assert FB.chunked(L, D)
+    bp, x, tt = _block(B, L, D, H, torch.float32, seed=5)
+    out = FB.fused_hstu_block(x, bp, tt, H)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, FB.fused_hstu_block_plain(x, bp, tt, H),
+                               rtol=1e-4, atol=1e-4)
+    out, av = FB.fused_hstu_block_train(x, bp, tt, H, 4321, rate)
+    torch.cuda.synchronize()
+    ref, ref_av = FB.fused_hstu_block_train_plain(x, bp, tt, H, 4321, rate)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(av, ref_av, rtol=1e-4, atol=1e-4)
+    dout = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        tuple(x.shape)).astype(np.float32)).cuda()
+    got = FB.fused_hstu_block_bwd(x, ref_av, dout, bp, tt, H, 4321, rate)
+    torch.cuda.synchronize()
+    want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, bp, tt, H, 4321,
+                                         rate)
+    assert set(got) == set(want)
+    for name in want:
+        _close(got[name], want[name], name)
+
+
+@pytest.mark.gpu
+def test_chunked_variant_rounds_av_before_ln2_on_card():
+    """In bf16 the kernel's chunked variant writes the av its LN2 read: the
+    training forward's av is bf16 and the output agrees with the plain
+    chunked version more closely than with the whole-sequence one."""
+    _cuda_or_skip()
+    B, L, D, H = 2, 2048, 64, 1
+    bp, x, tt = _block(B, L, D, H, torch.bfloat16, seed=7)
+    out, av = FB.fused_hstu_block_train(x, bp, tt, H, 0, 0.0)
+    torch.cuda.synchronize()
+    ref, _ = FB.fused_hstu_block_train_plain(x, bp, tt, H, 0, 0.0)
+    saved = FB.FB_WHOLESEQ_MAX
+    FB.FB_WHOLESEQ_MAX = L
+    try:
+        whole, _ = FB.fused_hstu_block_train_plain(x, bp, tt, H, 0, 0.0)
+    finally:
+        FB.FB_WHOLESEQ_MAX = saved
+    assert av.dtype == torch.bfloat16
+    share = (out != ref).float().mean().item()
+    share_whole = (out != whole).float().mean().item()
+    assert share < share_whole, (share, share_whole)
