@@ -1,7 +1,8 @@
-// Shared device helpers of the fused HSTU block kernels (fused_block.cu,
-// fused_block_bwd.cu): conversions, SiLU, warp sums, block-wide products
-// (WMMA bf16 tensor-core tiles, or FMA loops for the f32 check instance),
-// LayerNorm row statistics, tile loads and the dropout hash.
+// Shared device helpers of the port's kernels (fused_block.cu,
+// fused_block_bwd.cu, flash_attention.cu, hstu_attention.cu): conversions,
+// SiLU, warp sums and maxima, block-wide products (WMMA bf16 tensor-core
+// tiles, or FMA loops for the f32 check instance), LayerNorm row
+// statistics, tile and head-slice loads and the dropout hash.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -167,6 +168,34 @@ __device__ void load_tile(const T* src, int rows, int D, T* dst, int ld) {
     const int r = i / vec_row, c = (i - r * vec_row) * per;
     *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c) =
         *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// rows x width elements of T from global (row stride src_ld) to shared (row
+// stride ld), 16 bytes per thread; with ``scaled`` each element becomes
+// T(f32(element) * scale). width, src_ld and ld hold whole 16-byte vectors
+// (one head's slice of a head-packed [.., D] row: hd % 16 == 0).
+template <typename T>
+__device__ void load_head(const T* src, int src_ld, int rows, int width,
+                          T* dst, int ld, float scale, bool scaled) {
+  constexpr int per = 16 / sizeof(T);
+  const int vec_row = width / per;
+  for (int i = threadIdx.x; i < rows * vec_row; i += kThreads) {
+    const int r = i / vec_row, c = (i - r * vec_row) * per;
+    uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c);
+    if (scaled) {
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < per; ++j) e[j] = from_f<T>(to_f(e[j]) * scale);
+    }
+    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c) = raw;
   }
 }
 

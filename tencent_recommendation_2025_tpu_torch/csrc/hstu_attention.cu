@@ -1,0 +1,449 @@
+// Standalone HSTU pointwise attention for Hopper, sm_90a: forward and
+// backward, whole sequence.
+//
+// Replaces tencent_recommendation_2025_tpu/ops/hstu_attention.py::
+// _fwd_kernel (l.164) with hstu_fwd_kernel, and ::_bwd_kernel (l.193) with
+// hstu_bwd_dq_kernel, hstu_bwd_dkdv_kernel and reduce_rows_kernel. Per
+// batch row and head h, with q, k, v, dout [B, L, D] head-packed (D = H *
+// hd, post-SiLU) in the compute dtype T (bf16 on the product path, f32 in
+// the checks) and rab [H, NB] f32:
+//
+//   qs = T(q_h * hd^-1/2)                        (rounded before q.k^T)
+//   s  = qs k_h^T + rab[h, min(q - k, NB - 1)]   f32
+//   a  = T(silu(s) * (causal & key valid) * (1/L))  (L the padded length)
+//   out_h = a v_h                                f32 accumulation, out in T
+//
+//   backward: dv = a^T do; da = do v^T; ds = da * dsilu(s) * mask / L (f32);
+//   dq = T(ds) k * hd^-1/2; dk = T(ds)^T qs; drab[h, bucket] = sum of ds
+//   over the pairs in that bucket, every batch row. dq, dk, dv in T, drab
+//   in f32.
+//
+// These are the TPU kernel's rounding points. The TPU kernel builds rab
+// into [BLK, BLK] bias tiles (one per sub-diagonal block offset below
+// n_near, then one constant far tile) and returns their gradients, which
+// _bias_tiles_transpose folds back to rab. Here the bias is read from rab
+// by distance, which gives the same values (every distance of a far tile
+// clamps to NB - 1), and the gradient is summed straight into rab's
+// buckets per tile diagonal.
+//
+// Design. The TPU kernel runs a grid of (B,) over one row's whole [L, D]
+// in VMEM, unrolling 128-query stripes and heads. Here one block of 256
+// threads owns one (64-query tile, head, batch row) and streams 64-key
+// tiles of its head's slice through shared memory up to the diagonal
+// (tiles above it skipped, heaviest query tiles first). Products are
+// 16x16x16 WMMA tiles, bf16 with f32 accumulators (T = f32: FMA loops,
+// the check instance); the bias, SiLU and mask are f32. The backward is
+// the fused block's attention half on this layout: hstu_bwd_dq walks the
+// key tiles of a query tile (dq), hstu_bwd_dkdv the query tiles at or
+// below a key tile's diagonal (dk, dv, and the rel-pos gradient summed
+// per tile diagonal into a per-(batch row, key tile) slice), and
+// reduce_rows sums the slices in order. No atomics: deterministic.
+//
+// Bound on the H100 at hstu_mini's shape with --maxlen 255 (B=64, L=256,
+// D=64, H=4): forward 0.54 GFLOP of causal products (q.k^T and a.v)
+// against 8.4 MB of q, k, v and out: 2.5 us, bound by bytes; backward
+// 1.35 GFLOP (s, da, dv, dq, dk) against 14.7 MB: 4.4 us, bound by bytes.
+// This first kernel recomputes s and da in both backward kernels.
+
+#include "fused_block_common.cuh"
+
+using namespace fbk;
+
+namespace {
+
+constexpr int kT = 64;  // queries and keys per tile
+
+struct HstuArgs {
+  const void* q;       // [B, L, D] T
+  const void* k;       // [B, L, D] T
+  const void* v;       // [B, L, D] T
+  const int* valid;    // [B, L] nonzero = valid key
+  const float* rab;    // [H, NB]
+  const void* dout;    // backward: [B, L, D] T
+  void* out;           // forward: [B, L, D] T
+  void* dq;            // backward: [B, L, D] T
+  void* dk;            // backward: [B, L, D] T
+  void* dv;            // backward: [B, L, D] T
+  float* part_rab;     // backward scratch [B * L / 64, H, NB]
+  float* drab;         // backward: [H, NB]
+  int B, L, D, H, NB;
+  float scale;         // hd^-1/2
+  float inv_len;       // 1 / L
+};
+
+template <typename T>
+size_t fwd_smem(int hd) {
+  return 3 * align128((size_t)kT * (hd + 8) * sizeof(T))  // q, k, v
+         + align128((size_t)kT * kLdS * sizeof(float))     // s
+         + align128((size_t)kT * kLdP * sizeof(T))         // a
+         + align128((size_t)kT * (hd + 4) * sizeof(float)) // out sum
+         + align128(kT * sizeof(int));                     // key valid
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) hstu_fwd_kernel(HstuArgs p,
+                                                            bool tc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = p.D, hd = D / p.H, L = p.L, NB = p.NB;
+  const int ldh = hd + 8, lda = hd + 4;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * kT;
+
+  unsigned char* ptr = smem;
+  const size_t tile = align128((size_t)kT * ldh * sizeof(T));
+  T* qs = reinterpret_cast<T*>(ptr);
+  ptr += tile;
+  T* ks = reinterpret_cast<T*>(ptr);
+  ptr += tile;
+  T* vs = reinterpret_cast<T*>(ptr);
+  ptr += tile;
+  float* ss = reinterpret_cast<float*>(ptr);
+  ptr += align128((size_t)kT * kLdS * sizeof(float));
+  T* as = reinterpret_cast<T*>(ptr);
+  ptr += align128((size_t)kT * kLdP * sizeof(T));
+  float* acc = reinterpret_cast<float*>(ptr);
+  ptr += align128((size_t)kT * lda * sizeof(float));
+  int* kval = reinterpret_cast<int*>(ptr);
+
+  const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
+  const float* rab = p.rab + (size_t)h * NB;
+  load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, kT, hd,
+               qs, ldh, p.scale, true);
+  for (int i = threadIdx.x; i < kT * hd; i += kThreads)
+    acc[(i / hd) * lda + i % hd] = 0.0f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();  // the previous tile's products are done
+    load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, kT,
+                 hd, ks, ldh, 1.0f, false);
+    load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, kT,
+                 hd, vs, ldh, 1.0f, false);
+    for (int j = threadIdx.x; j < kT; j += kThreads)
+      kval[j] = p.valid[rowb + k0 + j];
+    __syncthreads();
+    gemm<T, false, true, false>(qs, ldh, ks, ldh, ss, kLdS, kT, kT, hd, tc);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
+      const int r = i / kT, c = i - r * kT;
+      const int dist = (q0 + r) - (k0 + c);
+      float a = 0.0f;
+      if (dist >= 0 && kval[c] != 0)
+        a = silu(ss[r * kLdS + c] + rab[min(dist, NB - 1)]) * p.inv_len;
+      as[r * kLdP + c] = from_f<T>(a);
+    }
+    __syncthreads();
+    gemm<T, false, false, true>(as, kLdP, vs, ldh, acc, lda, kT, hd, kT, tc);
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(p.out) + (rowb + q0) * D + col;
+  for (int i = threadIdx.x; i < kT * hd; i += kThreads) {
+    const int r = i / hd, d = i - r * hd;
+    out[(size_t)r * D + d] = from_f<T>(acc[r * lda + d]);
+  }
+}
+
+template <typename T>
+size_t bwd_smem(int hd, int NB) {
+  return 4 * align128((size_t)kT * (hd + 8) * sizeof(T))   // q, do, k, v
+         + 2 * align128((size_t)kT * kLdS * sizeof(float))  // s, da/ds
+         + 2 * align128((size_t)kT * kLdP * sizeof(T))      // a, T(ds)
+         + 2 * align128((size_t)kT * (hd + 4) * sizeof(float))  // sums
+         + align128(kT * sizeof(int))                       // key valid
+         + align128(NB * sizeof(float))                     // drab slice
+         + align128(2 * kT * sizeof(float));                // diagonals
+}
+
+// The shared-memory carve-out of both backward kernels.
+template <typename T>
+struct BwdTiles {
+  T *qs, *dos, *ks, *vs, *as, *dss;
+  float *ss, *das, *acc1, *acc2, *drab, *diag;
+  int* kval;
+
+  __device__ BwdTiles(unsigned char* ptr, int hd, int NB) {
+    const size_t tile = align128((size_t)kT * (hd + 8) * sizeof(T));
+    const size_t ftile = align128((size_t)kT * kLdS * sizeof(float));
+    const size_t ptile = align128((size_t)kT * kLdP * sizeof(T));
+    const size_t atile = align128((size_t)kT * (hd + 4) * sizeof(float));
+    qs = reinterpret_cast<T*>(ptr);
+    dos = reinterpret_cast<T*>(ptr + tile);
+    ks = reinterpret_cast<T*>(ptr + 2 * tile);
+    vs = reinterpret_cast<T*>(ptr + 3 * tile);
+    ptr += 4 * tile;
+    ss = reinterpret_cast<float*>(ptr);
+    das = reinterpret_cast<float*>(ptr + ftile);
+    ptr += 2 * ftile;
+    as = reinterpret_cast<T*>(ptr);
+    dss = reinterpret_cast<T*>(ptr + ptile);
+    ptr += 2 * ptile;
+    acc1 = reinterpret_cast<float*>(ptr);
+    acc2 = reinterpret_cast<float*>(ptr + atile);
+    ptr += 2 * atile;
+    kval = reinterpret_cast<int*>(ptr);
+    ptr += align128(kT * sizeof(int));
+    drab = reinterpret_cast<float*>(ptr);
+    ptr += align128(NB * sizeof(float));
+    diag = reinterpret_cast<float*>(ptr);
+  }
+};
+
+// s = qs k^T and da = do v^T of one tile pair, then on the visible pairs
+// the bias and SiLU: a (into as, when given) and ds = da * dsilu(s) / L (f32
+// into das, rounded into dss); zero elsewhere.
+template <typename T>
+__device__ void pair_grads(const HstuArgs& p, BwdTiles<T>& t, int hd,
+                           const float* rab, int q0, int k0, bool tc,
+                           bool with_a) {
+  const int ldh = hd + 8, NB = p.NB;
+  gemm<T, false, true, false>(t.qs, ldh, t.ks, ldh, t.ss, kLdS, kT, kT, hd,
+                              tc);
+  gemm<T, false, true, false>(t.dos, ldh, t.vs, ldh, t.das, kLdS, kT, kT, hd,
+                              tc);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
+    const int r = i / kT, c = i - r * kT;
+    const int dist = (q0 + r) - (k0 + c);
+    float a = 0.0f, ds = 0.0f;
+    if (dist >= 0 && t.kval[c] != 0) {
+      const float s = t.ss[r * kLdS + c] + rab[min(dist, NB - 1)];
+      a = silu(s) * p.inv_len;
+      ds = t.das[r * kLdS + c] * dsilu(s) * p.inv_len;
+    }
+    if (with_a) t.as[r * kLdP + c] = from_f<T>(a);
+    t.das[r * kLdS + c] = ds;
+    t.dss[r * kLdP + c] = from_f<T>(ds);
+  }
+  __syncthreads();
+}
+
+// dq of one query tile, walking the key tiles up to its diagonal.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    hstu_bwd_dq_kernel(HstuArgs p, bool tc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = p.D, hd = D / p.H, L = p.L;
+  const int ldh = hd + 8, lda = hd + 4;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * kT;
+  BwdTiles<T> t(smem, hd, p.NB);
+
+  const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
+  const float* rab = p.rab + (size_t)h * p.NB;
+  load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, kT, hd,
+               t.qs, ldh, p.scale, true);
+  load_head<T>(static_cast<const T*>(p.dout) + (rowb + q0) * D + col, D, kT,
+               hd, t.dos, ldh, 1.0f, false);
+  for (int i = threadIdx.x; i < kT * hd; i += kThreads)
+    t.acc1[(i / hd) * lda + i % hd] = 0.0f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();  // the previous tile is done with every buffer
+    load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, kT,
+                 hd, t.ks, ldh, 1.0f, false);
+    load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, kT,
+                 hd, t.vs, ldh, 1.0f, false);
+    for (int j = threadIdx.x; j < kT; j += kThreads)
+      t.kval[j] = p.valid[rowb + k0 + j];
+    __syncthreads();
+    pair_grads<T>(p, t, hd, rab, q0, k0, tc, false);
+    // dq += T(ds) k
+    gemm<T, false, false, true>(t.dss, kLdP, t.ks, ldh, t.acc1, lda, kT, hd,
+                                kT, tc);
+  }
+  __syncthreads();
+  T* dq = static_cast<T*>(p.dq) + (rowb + q0) * D + col;
+  for (int i = threadIdx.x; i < kT * hd; i += kThreads) {
+    const int r = i / hd, d = i - r * hd;
+    dq[(size_t)r * D + d] = from_f<T>(t.acc1[r * lda + d] * p.scale);
+  }
+}
+
+// dk, dv of one key tile, walking the query tiles at or below its
+// diagonal, and the rel-pos gradient of the same pairs per tile diagonal.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    hstu_bwd_dkdv_kernel(HstuArgs p, bool tc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = p.D, H = p.H, hd = D / H, L = p.L, NB = p.NB;
+  const int ldh = hd + 8, lda = hd + 4;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * kT;
+  BwdTiles<T> t(smem, hd, NB);
+  float* dk = t.acc1;
+  float* dv = t.acc2;
+
+  const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
+  const float* rab = p.rab + (size_t)h * NB;
+  load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, kT, hd,
+               t.ks, ldh, 1.0f, false);
+  load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, kT, hd,
+               t.vs, ldh, 1.0f, false);
+  for (int j = threadIdx.x; j < kT; j += kThreads)
+    t.kval[j] = p.valid[rowb + k0 + j];
+  for (int i = threadIdx.x; i < kT * hd; i += kThreads) {
+    dk[(i / hd) * lda + i % hd] = 0.0f;
+    dv[(i / hd) * lda + i % hd] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < NB; i += kThreads) t.drab[i] = 0.0f;
+
+  for (int qt = kt; qt < L / kT; ++qt) {
+    const int q0 = qt * kT;
+    __syncthreads();  // the previous query tile is done with every buffer
+    load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, kT,
+                 hd, t.qs, ldh, p.scale, true);
+    load_head<T>(static_cast<const T*>(p.dout) + (rowb + q0) * D + col, D,
+                 kT, hd, t.dos, ldh, 1.0f, false);
+    __syncthreads();
+    pair_grads<T>(p, t, hd, rab, q0, k0, tc, true);
+    // dv += a^T do;  dk += T(ds)^T qs
+    gemm<T, true, false, true>(t.as, kLdP, t.dos, ldh, dv, lda, kT, hd, kT,
+                               tc);
+    gemm<T, true, false, true>(t.dss, kLdP, t.qs, ldh, dk, lda, kT, hd, kT,
+                               tc);
+    // rel-pos gradient: diagonal e of the tile holds the pairs at distance
+    // q0 - k0 + e - (kT - 1); distances below NB - 1 are distinct per
+    // diagonal, the clamped ones fold in order below
+    for (int e = threadIdx.x; e < 2 * kT - 1; e += kThreads) {
+      const int off = e - (kT - 1);  // r - c
+      float s = 0.0f;
+      for (int r = max(0, off); r < min(kT, kT + off); ++r)
+        s += t.das[r * kLdS + (r - off)];
+      t.diag[e] = s;
+      const int dist = q0 - k0 + off;
+      if (dist >= 0 && dist < NB - 1) t.drab[dist] += s;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int e = 0; e < 2 * kT - 1; ++e)
+        if (q0 - k0 + e - (kT - 1) >= NB - 1) t.drab[NB - 1] += t.diag[e];
+    }
+  }
+  __syncthreads();
+  T* dko = static_cast<T*>(p.dk) + (rowb + k0) * D + col;
+  T* dvo = static_cast<T*>(p.dv) + (rowb + k0) * D + col;
+  for (int i = threadIdx.x; i < kT * hd; i += kThreads) {
+    const int r = i / hd, d = i - r * hd;
+    dko[(size_t)r * D + d] = from_f<T>(dk[r * lda + d]);
+    dvo[(size_t)r * D + d] = from_f<T>(dv[r * lda + d]);
+  }
+  float* out = p.part_rab + (((size_t)b * gridDim.x + kt) * H + h) * NB;
+  for (int i = threadIdx.x; i < NB; i += kThreads) out[i] = t.drab[i];
+}
+
+// out[i] = sum over g of part[g * P + i], in order of g
+__global__ void reduce_rows_kernel(const float* part, int G, int P,
+                                   float* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P) return;
+  float s = 0.0f;
+  for (int g = 0; g < G; ++g) s += part[(size_t)g * P + i];
+  out[i] = s;
+}
+
+bool shapes_ok(int B, int L, int D, int H, int NB) {
+  if (B <= 0 || H <= 0 || L <= 0 || NB <= 0 || L % kT != 0 || D % H != 0)
+    return false;
+  const int hd = D / H;
+  return hd % 16 == 0 && hd <= 64;
+}
+
+template <typename T>
+int launch_fwd(const HstuArgs& p, cudaStream_t stream) {
+  const size_t sm = fwd_smem<T>(p.D / p.H);
+  cudaError_t e = cudaFuncSetAttribute(
+      hstu_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(p.L / kT, p.H, p.B);
+  hstu_fwd_kernel<T><<<grid, kThreads, sm, stream>>>(
+      p, std::is_same<T, bf16>::value);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const HstuArgs& p, cudaStream_t stream) {
+  const size_t sm = bwd_smem<T>(p.D / p.H, p.NB);
+  if (sm > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      hstu_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(hstu_bwd_dkdv_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  const bool tc = std::is_same<T, bf16>::value;
+  const dim3 grid(p.L / kT, p.H, p.B);
+  hstu_bwd_dq_kernel<T><<<grid, kThreads, sm, stream>>>(p, tc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  hstu_bwd_dkdv_kernel<T><<<grid, kThreads, sm, stream>>>(p, tc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int hnb = p.H * p.NB;
+  reduce_rows_kernel<<<(hnb + kThreads - 1) / kThreads, kThreads, 0,
+                       stream>>>(p.part_rab, p.B * (p.L / kT), hnb, p.drab);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). q, k, v, out, dout, dq, dk, dv
+// [B, L, D] head-packed in the compute dtype (bf16 when is_bf16, else
+// f32), valid [B, L] int32, rab and drab [H, NB] f32, part_rab
+// [B * L / 64, H, NB] f32 scratch; all contiguous and 16-byte aligned.
+// Requires L % 64 == 0, D % H == 0 and hd = D / H a multiple of 16 no
+// larger than 64. Each returns a cudaError_t code (0 on success).
+extern "C" int hstu_attn_fwd(int is_bf16, const void* q, const void* k,
+                             const void* v, const void* valid,
+                             const void* rab, void* out, int B, int L, int D,
+                             int H, int NB, float scale, float inv_len,
+                             void* stream) {
+  if (!shapes_ok(B, L, D, H, NB)) return (int)cudaErrorInvalidValue;
+  HstuArgs p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.valid = static_cast<const int*>(valid);
+  p.rab = static_cast<const float*>(rab);
+  p.out = out;
+  p.B = B;
+  p.L = L;
+  p.D = D;
+  p.H = H;
+  p.NB = NB;
+  p.scale = scale;
+  p.inv_len = inv_len;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_fwd<bf16>(p, s) : launch_fwd<float>(p, s);
+}
+
+extern "C" int hstu_attn_bwd(int is_bf16, const void* q, const void* k,
+                             const void* v, const void* dout,
+                             const void* valid, const void* rab, void* dq,
+                             void* dk, void* dv, void* part_rab, void* drab,
+                             int B, int L, int D, int H, int NB, float scale,
+                             float inv_len, void* stream) {
+  if (!shapes_ok(B, L, D, H, NB)) return (int)cudaErrorInvalidValue;
+  HstuArgs p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.valid = static_cast<const int*>(valid);
+  p.rab = static_cast<const float*>(rab);
+  p.dout = dout;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.part_rab = static_cast<float*>(part_rab);
+  p.drab = static_cast<float*>(drab);
+  p.B = B;
+  p.L = L;
+  p.D = D;
+  p.H = H;
+  p.NB = NB;
+  p.scale = scale;
+  p.inv_len = inv_len;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_bwd<bf16>(p, s) : launch_bwd<float>(p, s);
+}

@@ -2,19 +2,23 @@
 
 Counterpart of ``tencent_recommendation_2025_tpu/models/encoder.py``:
 sqrt(D) scaling, learned absolute positions 1..L zeroed on padding ids,
-embedding dropout in training, the causal ∧ key-padding mask, pre-norm HSTU
-blocks with a SwiGLU (or ReLU) FFN, final LayerNorm(eps=1e-8).
+embedding dropout in training, the causal ∧ key-padding mask, final
+LayerNorm(eps=1e-8). Blocks: pre-norm HSTU with a SwiGLU or ReLU FFN, or
+softmax MHA (the parity presets) with pre-LN (``norm_first``) or the
+reference's post-LN wiring.
 
 Routing mirrors the JAX package's. Where it takes a Pallas kernel on a TPU,
 the port takes its CUDA kernel on the card (the fused block in its
-whole-sequence or chunked variant, ``ops/fused_block``), or raises
-``NotImplementedError`` naming the kernel not ported yet. Where it runs
-plain XLA, the port runs plain PyTorch on any device. On the CPU every path
-is plain.
+whole-sequence or chunked variant, ``ops/fused_block``; the standalone HSTU
+attention, ``ops/hstu_attention``; flash MHA, ``ops/flash_attention``), or
+raises ``NotImplementedError`` naming the kernel not ported yet. Where it
+runs plain XLA, the port runs plain PyTorch on any device. On the CPU every
+path is plain.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional
 
 import torch
@@ -22,9 +26,13 @@ import torch.nn.functional as Fn
 import torch.utils.checkpoint
 
 from ..config import ModelConfig
+from ..ops import flash_attention as FA
 from ..ops import fused_block as FB
+from ..ops import hstu_attention as HA
+from .attention import init_mha_params, mha
 from .embedding import layernorm, layernorm_init, linear_init, torch_dtype
-from .hstu import dropout, hstu_block, init_hstu_params
+from .hstu import (dropout, hstu_block, hstu_output, hstu_project,
+                   init_hstu_params)
 
 
 def swiglu_hidden_dim(d_model: int, mult: float, multiple_of: int) -> int:
@@ -57,18 +65,18 @@ def ffn(params: Mapping, x: torch.Tensor, rate: float = 0.0,
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    if cfg.block_type != "hstu":
-        raise NotImplementedError(
-            "softmax-MHA blocks (the baseline/baseline_o1 parity presets) "
-            "are not ported yet: ROADMAP Queue 1, Parity presets")
+    """One block's parameters; ``reference_init`` zeroes its LN scales, as
+    the reference's init zeroes every 1-D parameter."""
     ln_scale = 0.0 if cfg.reference_init else 1.0
-    return {
-        "attn_ln": layernorm_init(cfg.hidden_units, ln_scale),
-        "ffn_ln": layernorm_init(cfg.hidden_units, ln_scale),
-        "ffn": init_ffn_params(gen, cfg),
-        "hstu": init_hstu_params(gen, cfg.hidden_units, cfg.num_heads,
-                                 cfg.hstu_rel_pos_buckets),
-    }
+    p = {"attn_ln": layernorm_init(cfg.hidden_units, ln_scale),
+         "ffn_ln": layernorm_init(cfg.hidden_units, ln_scale),
+         "ffn": init_ffn_params(gen, cfg)}
+    if cfg.block_type == "hstu":
+        p["hstu"] = init_hstu_params(gen, cfg.hidden_units, cfg.num_heads,
+                                     cfg.hstu_rel_pos_buckets)
+    else:
+        p["attn"] = init_mha_params(gen, cfg.hidden_units)
+    return p
 
 
 def _stack(trees):
@@ -138,20 +146,54 @@ def _cast_ln(p, dtype):
 
 
 def block_route(cfg: ModelConfig, L: int, backend: str) -> str:
-    """How the encoder runs its HSTU blocks at length L on ``backend``
-    ("cuda" or "cpu"): "fused" (the fused block kernels, whole-sequence or
-    chunked variant by ``FB.chunked``) or "dense" (plain PyTorch). Raises
-    ``NotImplementedError`` where the JAX package would take a Pallas kernel
-    the port has not ported."""
+    """How the encoder runs its blocks at length L on ``backend`` ("cuda" or
+    "cpu"), as the JAX package chooses between its fused block and
+    ``make_attention_cores`` (single device, ``"cuda"`` in place of
+    ``"tpu"``):
+
+    - "fused": the fused HSTU block kernels, whole-sequence or chunked
+      variant by ``FB.chunked``;
+    - "core": the blocks' attention inner loop in a kernel: the standalone
+      HSTU attention kernels for an HSTU block the fused gate refuses (a
+      ReLU FFN, say) at 256 <= L, L % 128 == 0; the flash MHA kernels for
+      an MHA block there with L * max(D, 64) <= 1024 * 64;
+    - "dense": plain PyTorch (MHA beyond the flash gate, as in the JAX
+      package).
+
+    Raises ``NotImplementedError`` where the JAX package would take a
+    Pallas kernel the port has not ported: an HSTU shape that needs the
+    chunked HSTU attention kernels (Queue 2 rows 15-17)."""
     if FB.fused_block_supported(cfg, L, backend):
         return "fused"
-    if backend == "cuda" and cfg.use_flash_attention and 256 <= L \
-            and L % 128 == 0:
-        raise NotImplementedError(
-            "this shape takes the standalone HSTU attention kernels "
-            "(ops/hstu_attention.py::_fwd_kernel / _fwd_kernel_chunk) in the "
-            "JAX package, not ported yet: ROADMAP Queue 2")
+    if backend != "cuda" or not cfg.use_flash_attention \
+            or not (256 <= L and L % 128 == 0):
+        return "dense"
+    D = cfg.hidden_units
+    if cfg.block_type == "hstu":
+        if HA._use_long(L, D):
+            raise NotImplementedError(
+                f"HSTU blocks at L={L}, D={D} take the chunked HSTU "
+                "attention kernels (ops/hstu_attention.py::"
+                "_fwd_kernel_chunk, _dq_kernel_chunk, _dkdv_kernel_chunk) "
+                "in the JAX package, not ported yet: ROADMAP Queue 2, rows "
+                "15-17")
+        return "core"
+    if L * max(D, 64) <= FA.MAX_FLASH_L * 64:
+        return "core"
     return "dense"
+
+
+def attention_core(cfg: ModelConfig, token_type: torch.Tensor):
+    """The attention inner loop of the "core" route on head-packed
+    [B, L, D] q, k, v: flash MHA for an MHA block, ``core(q, k, v)``; the
+    standalone HSTU attention for an HSTU block, ``core(q, k, v, rab)``.
+    Keys with token_type 0 are masked; HSTU divides by the padded L."""
+    valid = token_type != 0
+    L = token_type.shape[1]
+    if cfg.block_type == "hstu":
+        return lambda q, k, v, rab: HA.hstu_attention_packed(
+            q, k, v, valid, rab, L, cfg.num_heads)
+    return lambda q, k, v: FA.flash_mha_packed(q, k, v, valid, cfg.num_heads)
 
 
 def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
@@ -163,25 +205,22 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
 
     ``train`` with ``cfg.dropout_rate`` > 0 and a generator ``gen`` (on the
     activations' device) applies dropout: on the embeddings, and inside each
-    block. ``route`` overrides :func:`block_route`: "fused" on CPU tensors
-    runs the plain versions of the fused block kernels (the card's
+    block. ``route`` overrides :func:`block_route`: "fused" or "core" on
+    CPU tensors runs the plain versions of those kernels (the card's
     arithmetic, for checks); by default the route follows the device.
 
     The fused route differentiates through :class:`ops.fused_block.
     FusedBlockFn` whenever autograd records (its backward is the backward
     kernel, which recomputes from x and av itself, so no checkpoint wraps
     it); under ``torch.no_grad`` it takes the inference kernel with every
-    block's operands built once. The dense route checkpoints each block in
-    training when ``cfg.remat_blocks``, as the JAX package's remat does."""
+    block's operands built once. The dense and core routes checkpoint each
+    block in training when ``cfg.remat_blocks``, as the JAX package's remat
+    does: an MHA block's flash forward then runs again in the backward, an
+    HSTU block's attention core does not (its output is kept)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh, pipeline and ring encoder branches are not ported: "
             "ROADMAP Queue 1, Multi-device layer")
-    if cfg.block_type != "hstu":
-        raise NotImplementedError(
-            "softmax-MHA blocks (the baseline/baseline_o1 parity presets, "
-            "ops/flash_attention.py kernels) are not ported yet: ROADMAP "
-            "Queue 1, Parity presets")
     dtype = torch_dtype(cfg.dtype)
     B, L, D = fused_emb.shape
     x = fused_emb.to(dtype) * torch.tensor(D ** 0.5, dtype=dtype)
@@ -211,30 +250,69 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
                                         cfg.num_heads)
         return layernorm(_cast_ln(params["last_ln"], dtype), x)
 
-    mask = attention_mask(seq_ids, token_type)
+    core = attention_core(cfg, token_type) if route == "core" else None
+    # the dense [B, L, L] mask only where no core runs; a core masks by
+    # token_type itself
+    mask = attention_mask(seq_ids, token_type) if core is None else None
     # each block draws its masks from a generator of its own, rebuilt from
     # an int seed, so that a checkpointed block's recompute draws them again
     seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_blocks,), generator=gen,
                           device=gen.device).tolist() if use_dropout \
         else [None] * cfg.num_blocks
+    H = cfg.num_heads
+
+    def ln(p, t):
+        return layernorm(_cast_ln(p, dtype), t)
 
     def run_block(x, bp, seed):
-        bg = None
-        if seed is not None:
-            bg = torch.Generator(device=x.device)
-            bg.manual_seed(seed)
-        h = layernorm(_cast_ln(bp["attn_ln"], dtype), x)
-        x = x + hstu_block(bp["hstu"], h, mask, cfg.num_heads, rate,
-                           use_dropout, bg)
-        h = layernorm(_cast_ln(bp["ffn_ln"], dtype), x)
-        return x + ffn(bp["ffn"], h, rate, use_dropout, bg)
+        bg = _block_generator(seed, x.device)
+        if cfg.block_type == "hstu":     # pre-norm by design
+            x = x + hstu_block(bp["hstu"], ln(bp["attn_ln"], x), mask, H,
+                               rate, use_dropout, bg, core=core)
+            return x + ffn(bp["ffn"], ln(bp["ffn_ln"], x), rate, use_dropout,
+                           bg)
+        if cfg.norm_first:
+            x = x + mha(bp["attn"], ln(bp["attn_ln"], x), mask, H, rate,
+                        use_dropout, bg, core=core)
+            return x + ffn(bp["ffn"], ln(bp["ffn_ln"], x), rate, use_dropout,
+                           bg)
+        # post-LN, the reference's default wiring
+        x = ln(bp["attn_ln"], x + mha(bp["attn"], x, mask, H, rate,
+                                      use_dropout, bg, core=core))
+        return ln(bp["ffn_ln"], x + ffn(bp["ffn"], x, rate, use_dropout, bg))
+
+    def hstu_pre(x, bp):
+        return hstu_project(bp["hstu"], ln(bp["attn_ln"], x))
+
+    def hstu_post(x, av, u, bp, seed):
+        bg = _block_generator(seed, x.device)
+        x = x + hstu_output(bp["hstu"], av, u, rate, use_dropout, bg)
+        return x + ffn(bp["ffn"], ln(bp["ffn_ln"], x), rate, use_dropout, bg)
 
     remat = train and cfg.remat_blocks and torch.is_grad_enabled()
+    # the JAX remat policy saves the HSTU core's output ("hstu_av"): the
+    # checkpoints wrap the parts before and after the core, which runs once
+    split = remat and core is not None and cfg.block_type == "hstu"
+    ckpt = functools.partial(torch.utils.checkpoint.checkpoint,
+                             use_reentrant=False)
     for i in range(cfg.num_blocks):
         bp = block_params(blocks, i)
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(run_block, x, bp, seeds[i],
-                                                  use_reentrant=False)
+        if split:
+            u, v, q, k = ckpt(hstu_pre, x, bp)
+            av = core(q, k, v, bp["hstu"]["rab"])
+            x = ckpt(hstu_post, x, av, u, bp, seeds[i])
+        elif remat:
+            x = ckpt(run_block, x, bp, seeds[i])
         else:
             x = run_block(x, bp, seeds[i])
     return layernorm(_cast_ln(params["last_ln"], dtype), x)
+
+
+def _block_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    """A block's dropout generator, rebuilt from its int seed (None: no
+    dropout)."""
+    if seed is None:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g

@@ -8,7 +8,8 @@ is ``(LayerNorm(A @ V) * U) @ Wo + bo`` without the residual.
 
 This is the path the encoder takes wherever the JAX package runs plain XLA
 (the CPU, short or ragged sequences), and the oracle the fused kernel is
-tested against.
+tested against. With a ``core`` the attention inner loop is the standalone
+HSTU attention kernel's instead (``ops/hstu_attention.py``).
 """
 
 from __future__ import annotations
@@ -52,19 +53,48 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
-def hstu_block(params: Mapping, x: torch.Tensor, mask: torch.Tensor,
-               num_heads: int, dropout_rate: float = 0.0,
-               train: bool = False,
-               gen: Optional[torch.Generator] = None) -> torch.Tensor:
+def hstu_project(params: Mapping, x: torch.Tensor):
+    """(u, v, q, k), each [B, L, D]: silu of the packed D -> 4D
+    projection."""
+    dtype = x.dtype
+    uvqk = Fn.silu(x @ params["uvqk"]["w"].to(dtype)
+                   + params["uvqk"]["b"].to(dtype))
+    return torch.split(uvqk, x.shape[-1], dim=-1)
+
+
+def hstu_output(params: Mapping, av: torch.Tensor, u: torch.Tensor,
+                dropout_rate: float = 0.0, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``(LayerNorm(av) * u) @ Wo + bo``, the gated product taking dropout
+    from ``gen`` in training."""
+    dtype = av.dtype
+    ln = {"scale": params["attn_ln"]["scale"].to(dtype),
+          "bias": params["attn_ln"]["bias"].to(dtype)}
+    gated = dropout(layernorm(ln, av) * u, dropout_rate, train, gen)
+    return gated @ params["out"]["w"].to(dtype) + params["out"]["b"].to(dtype)
+
+
+def hstu_block(params: Mapping, x: torch.Tensor,
+               mask: Optional[torch.Tensor], num_heads: int,
+               dropout_rate: float = 0.0, train: bool = False,
+               gen: Optional[torch.Generator] = None,
+               core=None) -> torch.Tensor:
     """x [B, L, D]; mask [B, L, L] bool (True = attend). Returns the block
     output without the residual; in training the gated output takes
-    dropout from ``gen``."""
+    dropout from ``gen``.
+
+    ``core(q, k, v, rab) -> av`` replaces the dense pointwise-attention
+    inner loop on head-packed [B, L, D] post-SiLU q, k, v (the standalone
+    HSTU attention kernels, ``ops/hstu_attention.py``); ``mask`` is then
+    unused. The JAX package's unpacked [B, H, L, hd] cores and its
+    ``fused_silu`` variant are set nowhere in it and are not ported."""
     dtype = x.dtype
     B, L, D = x.shape
     hd = D // num_heads
-    uvqk = Fn.silu(x @ params["uvqk"]["w"].to(dtype)
-                   + params["uvqk"]["b"].to(dtype))
-    u, v, q, k = torch.split(uvqk, D, dim=-1)
+    u, v, q, k = hstu_project(params, x)
+    if core is not None:
+        return hstu_output(params, core(q, k, v, params["rab"]), u,
+                           dropout_rate, train, gen)
 
     def heads(t):
         return t.reshape(B, L, num_heads, hd).transpose(1, 2)
@@ -77,7 +107,4 @@ def hstu_block(params: Mapping, x: torch.Tensor, mask: torch.Tensor,
     attn = attn / float(L)
     av = torch.matmul(attn.to(dtype).float(), vh.float()).to(dtype)
     av = av.transpose(1, 2).reshape(B, L, D)
-    ln = {"scale": params["attn_ln"]["scale"].to(dtype),
-          "bias": params["attn_ln"]["bias"].to(dtype)}
-    gated = dropout(layernorm(ln, av) * u, dropout_rate, train, gen)
-    return gated @ params["out"]["w"].to(dtype) + params["out"]["b"].to(dtype)
+    return hstu_output(params, av, u, dropout_rate, train, gen)

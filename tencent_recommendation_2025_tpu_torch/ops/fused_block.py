@@ -108,20 +108,12 @@ def _chunk_of(Lc: int, D: int = 64):
     return None
 
 
-def _n_near(buckets: int, blk: int = FB_BLK) -> int:
-    """Non-constant rel-pos bias slots of the TPU kernels (at most 8)."""
-    needed = (buckets - 2 + blk - 1) // blk + 1
-    if needed > 8:
-        raise ValueError(
-            f"hstu_rel_pos_buckets={buckets} needs {needed} non-constant "
-            f"bias tile slots but the kernel supports at most 8 "
-            f"(buckets <= {7 * blk + 2})")
-    return needed
-
-
 def fused_block_supported(cfg, L: int, backend: str) -> bool:
     """The fused-block gate of the JAX package with ``"cuda"`` in place of
     ``"tpu"``: the shapes on which it takes its Pallas fused kernels."""
+    # imported here: ops.hstu_attention imports this module
+    from .hstu_attention import _n_near
+
     if not (getattr(cfg, "fused_block", False) and backend == "cuda"):
         return False
     if cfg.block_type != "hstu" or cfg.ffn_type != "swiglu":

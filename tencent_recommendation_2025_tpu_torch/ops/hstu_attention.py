@@ -1,0 +1,322 @@
+"""Standalone HSTU pointwise attention: CUDA kernels, plain versions, autograd.
+
+Counterpart of ``tencent_recommendation_2025_tpu/ops/hstu_attention.py``,
+its whole-sequence half. Per batch row and head, on head-packed [B, L, D]
+post-SiLU q, k, v (D = H * hd) and a rel-pos bias ``rab`` [H, buckets]:
+
+    s   = T(q * hd^-1/2) k^T + rab[h, clip(q - k, 0, buckets - 1)]   (f32)
+    a   = T(silu(s) * causal * key_valid / seq_len)
+    out = a @ v                                   (f32 sums, out in T)
+
+with T the compute dtype (bf16 on the card's product path, f32 in the
+checks) and ``seq_len`` the padded length. The backward gives dq, dk, dv in
+T and ``drab`` [H, buckets] in f32, summed over the batch.
+
+Kernels (``csrc/hstu_attention.cu``): ``hstu_fwd_kernel`` replaces
+``_fwd_kernel`` (l.164) and ``hstu_bwd_dq_kernel``, ``hstu_bwd_dkdv_kernel``
+and ``reduce_rows_kernel`` replace ``_bwd_kernel`` (l.193). The TPU kernels
+read the bias from precomputed [128, 128] tiles and return tile gradients;
+the CUDA kernels read ``rab`` by distance and sum its gradient straight into
+its buckets (the same values: every distance of a far tile clamps to the
+last bucket). Bound at hstu_mini's shape (B=64, L=256, D=64, H=4): bytes,
+2.5 us forward and 4.4 us backward on the H100.
+
+The encoder takes these where the JAX package's ``make_attention_cores``
+does: an HSTU block that the fused gate refuses, at 256 <= L, L % 128 == 0,
+and ``not _use_long(L, D)``. Above that the JAX package takes its chunked
+kernels (``_fwd_kernel_chunk``, ``_dq_kernel_chunk``, ``_dkdv_kernel_chunk``,
+l.297-428), not ported yet: on the card :func:`hstu_attention_packed` raises
+``NotImplementedError`` there; on the CPU the plain version computes the
+same function.
+
+Each wrapper takes its plain version for tensors on the CPU and launches its
+kernel for CUDA tensors (counted in ``hstu_attention_fwd.launches`` and
+``hstu_attention_bwd.launches``); it never falls back. The kernels take hd a
+multiple of 16 up to 64 and L a multiple of 64, bf16 or f32; anything else
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as Fn
+
+from . import kernels
+from .fused_block import _dsilu, _heads, _mm, _rab_grad, _rows, _stream
+
+BLK = 128
+MAX_WHOLESEQ_L = 1024
+#: the kernels' query and key tile
+KERNEL_TILE = 64
+
+
+def _n_near(buckets: int, blk: int = BLK) -> int:
+    """Number of sub-diagonal block slots whose bias tile is non-constant in
+    the TPU kernels. Capped at 8 slots; configs needing more (buckets >
+    7*blk + 2) fail loudly here, as they do in the JAX package."""
+    needed = (buckets - 2 + blk - 1) // blk + 1
+    if needed > 8:
+        raise ValueError(
+            f"hstu_rel_pos_buckets={buckets} needs {needed} non-constant "
+            f"bias tile slots but the kernel supports at most 8 "
+            f"(buckets <= {7 * blk + 2}); use fewer buckets or the dense "
+            f"XLA path")
+    return needed
+
+
+def _use_long(L: int, D: int) -> bool:
+    """Whole-sequence vs chunked-KV dispatch of the JAX package (D-aware;
+    read ``MAX_WHOLESEQ_L`` at call time, so a test can shrink it)."""
+    return L * max(D, 64) > MAX_WHOLESEQ_L * 64
+
+
+def check_attention_inputs(name: str, num_heads: int, q: torch.Tensor,
+                           *others: torch.Tensor) -> None:
+    """Raise on what the attention kernels do not take: q and every other
+    [B, L, D] operand alike in shape and dtype (bf16 or f32), L a multiple
+    of 64, hd = D / num_heads a multiple of 16 no larger than 64,
+    contiguous, 16-byte aligned, on one device."""
+    B, L, D = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} takes bf16 or f32, not {q.dtype}")
+    if D % num_heads or (D // num_heads) % 16 or D // num_heads > 64:
+        raise ValueError(f"{name} needs a head dim that is a multiple of 16 "
+                         f"and at most 64 (D={D}, H={num_heads})")
+    if L % KERNEL_TILE:
+        raise ValueError(f"{name} needs L % {KERNEL_TILE} == 0 (L={L})")
+    for t in (q, *others):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name}: q, k, v (and dout) must match in shape "
+                             f"and dtype")
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on different devices")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous and "
+                             f"16-byte aligned")
+
+
+def valid_int32(valid: torch.Tensor, shape) -> torch.Tensor:
+    """The [B, L] key-valid mask as the kernels read it (int32, nonzero =
+    valid key)."""
+    if tuple(valid.shape) != tuple(shape[:2]):
+        raise ValueError(f"valid has shape {tuple(valid.shape)}, expected "
+                         f"{tuple(shape[:2])}")
+    return valid.to(torch.int32).contiguous()
+
+
+def causal_valid(valid: torch.Tensor, L: int) -> torch.Tensor:
+    """[B, 1, L, L] bool: causal (key <= query) and key valid."""
+    pos = torch.arange(L, device=valid.device)
+    return (pos[None, :] <= pos[:, None])[None, None] \
+        & (valid != 0)[:, None, None, :]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _scores(q, k, valid, rab, num_heads):
+    """(T(q * hd^-1/2) in heads, s with the bias [B, H, L, L] f32, mask)."""
+    L, D = q.shape[1], q.shape[2]
+    hd = D // num_heads
+    qs = _heads((q.float() * hd ** -0.5).to(q.dtype), num_heads)
+    pos = torch.arange(L, device=q.device)
+    bucket = (pos[:, None] - pos[None, :]).clamp(0, rab.shape[1] - 1)
+    s = _mm(qs, _heads(k, num_heads).transpose(-1, -2)) \
+        + rab.float()[:, bucket][None]
+    return qs, s, causal_valid(valid, L)
+
+
+def hstu_attention_fwd_plain(q, k, v, valid, rab, seq_len: int,
+                             num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel, with its rounding
+    points."""
+    _, s, mask = _scores(q, k, valid, rab, num_heads)
+    a = (Fn.silu(s) * (mask.float() / seq_len)).to(q.dtype)
+    return _rows(_mm(a, _heads(v, num_heads))).to(q.dtype)
+
+
+def hstu_attention_bwd_plain(q, k, v, dout, valid, rab, seq_len: int,
+                             num_heads: int) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward kernel, written out op by op with its
+    rounding points: (dq, dk, dv) in the compute dtype, drab [H, buckets]
+    in f32."""
+    cdt = q.dtype
+    hd = q.shape[2] // num_heads
+    qs, s, mask = _scores(q, k, valid, rab, num_heads)
+    m = mask.float() / seq_len
+    a = (Fn.silu(s) * m).to(cdt)
+    do = _heads(dout.to(cdt), num_heads)
+    dv = _mm(a.transpose(-1, -2), do)
+    ds = _mm(do, _heads(v, num_heads).transpose(-1, -2)) * _dsilu(s) * m
+    dsc = ds.to(cdt)
+    dq = _mm(dsc, _heads(k, num_heads)) * hd ** -0.5
+    dk = _mm(dsc.transpose(-1, -2), qs)
+    return (_rows(dq).to(cdt), _rows(dk).to(cdt), _rows(dv).to(cdt),
+            _rab_grad(ds.sum(0), rab.shape[1]))
+
+
+def hstu_attention_oracle(q, k, v, valid, rab, seq_len: int) -> torch.Tensor:
+    """Dense reference over [B, H, L, hd] for tests (the JAX package's
+    oracle: f32 throughout, q scaled after the product)."""
+    B, H, L, hd = q.shape
+    pos = torch.arange(L, device=q.device)
+    bucket = (pos[:, None] - pos[None, :]).clamp(0, rab.shape[1] - 1)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5 \
+        + rab.float()[:, bucket][None]
+    a = Fn.silu(s) * causal_valid(valid, L).float() / seq_len
+    return torch.matmul(a, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _fn(name: str, n_ptr: int):
+    fn = getattr(kernels.load("hstu_attention"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I] + [_P] * n_ptr + [_I] * 5 + [_F, _F, _P]
+    return fn
+
+
+def _check_rab(rab: torch.Tensor, num_heads: int, device) -> torch.Tensor:
+    if rab.dim() != 2 or rab.shape[0] != num_heads:
+        raise ValueError(f"rab must be [{num_heads}, buckets], not "
+                         f"{tuple(rab.shape)}")
+    if rab.device != device:
+        raise ValueError("rab is on another device than q")
+    return rab.to(torch.float32).contiguous()
+
+
+def hstu_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       valid: torch.Tensor, rab: torch.Tensor, seq_len: int,
+                       num_heads: int) -> torch.Tensor:
+    """The forward kernel on head-packed [B, L, D] q, k, v; ``valid`` [B, L]
+    (nonzero = valid key), ``rab`` [H, buckets]. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (counted in
+    ``hstu_attention_fwd.launches``)."""
+    if q.device.type == "cpu":
+        return hstu_attention_fwd_plain(q, k, v, valid, rab, seq_len,
+                                        num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"hstu_attention_fwd: no kernel for {q.device}")
+    check_attention_inputs("hstu attention kernel", num_heads, q, k, v)
+    B, L, D = q.shape
+    vi = valid_int32(valid, q.shape)
+    rab = _check_rab(rab, num_heads, q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _fn("hstu_attn_fwd", 6)(
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), vi.data_ptr(), rab.data_ptr(), out.data_ptr(), B,
+            L, D, num_heads, rab.shape[1], float(D // num_heads) ** -0.5,
+            1.0 / seq_len, _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"hstu_attn_fwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    hstu_attention_fwd.launches += 1
+    return out
+
+
+hstu_attention_fwd.launches = 0
+
+
+def hstu_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, valid: torch.Tensor,
+                       rab: torch.Tensor, seq_len: int, num_heads: int
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel: (dq, dk, dv, drab). CPU tensors take the plain
+    version; CUDA tensors launch the kernels (one count in
+    ``hstu_attention_bwd.launches``)."""
+    if q.device.type == "cpu":
+        return hstu_attention_bwd_plain(q, k, v, dout, valid, rab, seq_len,
+                                        num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"hstu_attention_bwd: no kernel for {q.device}")
+    check_attention_inputs("hstu attention backward", num_heads, q, k, v,
+                           dout)
+    B, L, D = q.shape
+    vi = valid_int32(valid, q.shape)
+    rab = _check_rab(rab, num_heads, q.device)
+    NB = rab.shape[1]
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    part = torch.empty((B * (L // KERNEL_TILE), num_heads, NB),
+                       dtype=torch.float32, device=q.device)
+    drab = torch.empty((num_heads, NB), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _fn("hstu_attn_bwd", 11)(
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), vi.data_ptr(), rab.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
+            drab.data_ptr(), B, L, D, num_heads, NB,
+            float(D // num_heads) ** -0.5, 1.0 / seq_len, _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"hstu_attn_bwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    hstu_attention_bwd.launches += 1
+    return dq, dk, dv, drab
+
+
+hstu_attention_bwd.launches = 0
+
+
+class HstuAttentionFn(torch.autograd.Function):
+    """``apply(q, k, v, valid, rab, seq_len, num_heads)``: the forward kernel,
+    and the backward kernel for dq, dk, dv and the f32 ``rab`` gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, rab, seq_len, num_heads):
+        ctx.save_for_backward(q, k, v, valid, rab)
+        ctx.seq_len, ctx.num_heads = seq_len, num_heads
+        return hstu_attention_fwd(q, k, v, valid, rab, seq_len, num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, valid, rab = ctx.saved_tensors
+        dq, dk, dv, drab = hstu_attention_bwd(
+            q, k, v, dout.contiguous(), valid, rab, ctx.seq_len,
+            ctx.num_heads)
+        return dq, dk, dv, None, drab.to(rab.dtype), None, None
+
+
+def hstu_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          valid: torch.Tensor, rab: torch.Tensor,
+                          seq_len: int, num_heads: int) -> torch.Tensor:
+    """Head-packed HSTU attention: q/k/v [B, L, D] (D = H * hd), valid
+    [B, L], rab [H, buckets]. Returns [B, L, D]. Differentiable in q, k, v
+    and rab. Raises the JAX package's ``ValueError`` for more buckets than
+    its bias tiles take, and on the card ``NotImplementedError`` where the
+    JAX package takes its chunked kernels."""
+    _n_near(rab.shape[1])
+    L, D = q.shape[1], q.shape[2]
+    if q.device.type == "cuda" and _use_long(L, D):
+        raise NotImplementedError(
+            f"L={L} at D={D} takes the chunked HSTU attention kernels "
+            "(ops/hstu_attention.py::_fwd_kernel_chunk, _dq_kernel_chunk, "
+            "_dkdv_kernel_chunk; Queue 2 rows 15-17) in the JAX package, "
+            "not ported yet")
+    return HstuAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), valid, rab, seq_len,
+                                 num_heads)
+
+
+def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor, rab: torch.Tensor,
+                   seq_len: int) -> torch.Tensor:
+    """[B, H, L, hd] interface (transposes into the packed layout)."""
+    B, H, L, hd = q.shape
+
+    def pack(t):
+        return t.transpose(1, 2).reshape(B, L, H * hd).contiguous()
+
+    out = hstu_attention_packed(pack(q), pack(k), pack(v), valid, rab,
+                                seq_len, H)
+    return out.reshape(B, L, H, hd).transpose(1, 2)

@@ -1,0 +1,151 @@
+"""The port's flash MHA (tencent_recommendation_2025_tpu_torch/ops/
+flash_attention.py) against the JAX package's Pallas kernel run in
+interpret mode on the CPU: the plain versions of the forward and backward
+kernels (which a CPU tensor takes) through the port's autograd Function.
+The CUDA kernels themselves are held to these plain versions on the card
+(chip_smoke.py, tests/test_torch_kernels_gpu.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tencent_recommendation_2025_tpu.models.attention import \
+    safe_masked_softmax as jsafe
+from tencent_recommendation_2025_tpu.ops import flash_attention as JFA
+from tencent_recommendation_2025_tpu_torch.ops import flash_attention as TFA
+from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as THA
+
+torch.set_num_threads(2)
+
+PAD = 37   # left padding of row 0: its first 37 queries see no valid key
+
+
+def _inputs(B=3, L=256, D=64, seed=0):
+    """q, k, v, dout [B, L, D] and the key-valid mask: row 0 left-padded,
+    the last row fully padded."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((B, L, D)).astype(np.float32)
+                   for _ in range(4))
+    valid = np.ones((B, L), bool)
+    valid[0, :PAD] = False
+    valid[-1] = False
+    return q, k, v, do, valid
+
+
+def _jax(q, k, v, do, valid, H, dtype=jnp.float32):
+    """The JAX kernel's output and its (dq, dk, dv) for the cotangent do."""
+    args = [jnp.asarray(t, dtype) for t in (q, k, v)]
+
+    def f(q, k, v):
+        return JFA.flash_mha_packed(q, k, v, jnp.asarray(valid), H,
+                                    interpret=True)
+
+    out, vjp = jax.vjp(f, *args)
+    return out, vjp(jnp.asarray(do, dtype))
+
+
+def _port(q, k, v, do, valid, H, dtype=torch.float32):
+    qt, kt, vt = (torch.from_numpy(t).to(dtype).requires_grad_(True)
+                  for t in (q, k, v))
+    out = TFA.flash_mha_packed(qt, kt, vt, torch.from_numpy(valid), H)
+    out.backward(torch.from_numpy(do).to(dtype))
+    return out.detach(), (qt.grad, kt.grad, vt.grad)
+
+
+@pytest.mark.parametrize("H", [1, 4])
+def test_f32_forward_and_gradients_match_jax(H):
+    """H=1 (hd=64, baseline_o1) and H=4 (hd=16, baseline) at L=256: forward
+    at rtol 1e-4 / atol 1e-5, gradients at 2e-4 / 2e-5."""
+    q, k, v, do, valid = _inputs(seed=H)
+    ref, rgrads = _jax(q, k, v, do, valid, H)
+    out, grads = _port(q, k, v, do, valid, H)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+    # fully masked query rows and padded keys: exactly zero
+    assert not out[-1].any() and not out[0, :PAD].any()
+    for g in grads:
+        assert not g[-1].any() and not g[0, :PAD].any()
+
+
+def _cos(a, b):
+    a, b = a.reshape(-1).astype(np.float64), b.reshape(-1).astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+@pytest.mark.parametrize("H", [1, 4])
+def test_bf16_matches_jax_kernel(H):
+    """In bf16 the port's plain version keeps the JAX kernel's rounding
+    points (q scaled then rounded; p normalised then rounded), so the two
+    differ by f32 summation order alone: max abs error <= 1/128 of max(1,
+    max|ref|) (one bf16 step at that magnitude) and cosine >= 0.99999 for
+    the output and each gradient."""
+    q, k, v, do, valid = _inputs(seed=10 + H)
+    ref, rgrads = _jax(q, k, v, do, valid, H, jnp.bfloat16)
+    out, grads = _port(q, k, v, do, valid, H, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (ref, *rgrads)):
+        g = got.float().numpy()
+        w = np.asarray(want.astype(jnp.float32))
+        assert np.abs(g - w).max() <= 1 / 128 * max(1.0, np.abs(w).max()), \
+            name
+        assert _cos(g, w) >= 0.99999, name
+
+
+def test_packed_and_head_interfaces_agree():
+    q, k, v, _, valid = _inputs(B=2, L=128, D=32)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    packed = TFA.flash_mha_packed(*t, torch.from_numpy(valid), 2)
+
+    def heads(a):
+        return a.reshape(2, 128, 2, 16).transpose(1, 2)
+
+    out = TFA.flash_mha(*(heads(a) for a in t), torch.from_numpy(valid))
+    torch.testing.assert_close(out.transpose(1, 2).reshape(2, 128, 32),
+                               packed)
+
+
+def test_safe_masked_softmax_matches_jax():
+    """Fully masked rows give 0 and finite gradients."""
+    rng = np.random.default_rng(3)
+    s = rng.standard_normal((2, 5, 7)).astype(np.float32)
+    mask = rng.random((2, 5, 7)) > 0.4
+    mask[1, 2] = False
+    ref = jsafe(jnp.asarray(s), jnp.asarray(mask))
+    st = torch.from_numpy(s).requires_grad_(True)
+    got = TFA.safe_masked_softmax(st, torch.from_numpy(mask))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=1e-6, atol=1e-7)
+    assert not got[1, 2].any()
+    got.square().sum().backward()
+    assert torch.isfinite(st.grad).all()
+
+
+def test_kernel_input_checks():
+    """What the CUDA kernels do not take raises before a launch: a head dim
+    that is not a multiple of 16 or is above 64, L not a multiple of 64,
+    fp16, mismatched operands; a device without a kernel raises too."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+
+    check = THA.check_attention_inputs
+    check("k", 4, z(2, 256, 64), z(2, 256, 64))   # hd=16: taken
+    check("k", 1, z(2, 256, 64, dtype=torch.bfloat16))
+    for H, D in ((8, 64), (1, 128), (4, 72)):
+        with pytest.raises(ValueError, match="head dim"):
+            check("k", H, z(2, 256, D))
+    with pytest.raises(ValueError, match="L % 64"):
+        check("k", 1, z(2, 96, 64))
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        check("k", 1, z(2, 256, 64, dtype=torch.float16))
+    with pytest.raises(ValueError, match="must match"):
+        check("k", 1, z(2, 256, 64), z(2, 256, 64, dtype=torch.bfloat16))
+    meta = torch.zeros((2, 256, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        TFA.flash_mha_fwd(meta, meta, meta, torch.ones(2, 256), 1)
+    assert TFA.MAX_FLASH_L == JFA.MAX_FLASH_L

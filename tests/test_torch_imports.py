@@ -36,7 +36,9 @@ def test_port_imports_no_jax():
     for mod in ("cli.infer", "ops.fused_block", "ops.kernels", "bridge",
                 "models.baseline", "train.checkpoint", "retrieval.ann",
                 "data.pipeline", "cli.train", "train.trainer",
-                "train.telemetry", "ops.losses", "ops.sparse_table"):
+                "train.telemetry", "ops.losses", "ops.sparse_table",
+                "ops.flash_attention", "ops.hstu_attention",
+                "models.attention", "models.encoder", "models.hstu"):
         assert f"{PORT}.{mod}" in imported, mod
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad

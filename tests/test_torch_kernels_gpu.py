@@ -163,3 +163,83 @@ def test_chunked_variant_rounds_av_before_ln2_on_card():
     share = (out != ref).float().mean().item()
     share_whole = (out != whole).float().mean().item()
     assert share < share_whole, (share, share_whole)
+
+
+def _attention(B, L, D, H, dtype, seed, NB=128):
+    """Seeded q, k, v, dout [B, L, D], rab [H, NB] and the key-valid mask
+    on the card: row 0 left-padded, the last row fully padded."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s)
+                                .astype(np.float32)).cuda()
+
+    q, k, v, dout = (t((B, L, D)).to(dtype) for _ in range(4))
+    valid = np.ones((B, L), bool)
+    valid[0, :L // 3 + 5] = False
+    valid[-1] = False
+    return q, k, v, dout, torch.from_numpy(valid).cuda(), t((H, NB), 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,H", [(256, 4), (1024, 1)])
+def test_flash_attention_kernels_match_plain_on_card(L, H):
+    """Forward and backward kernels in f32 against their plain versions;
+    fully masked rows and padded keys give exactly 0."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, dout, valid, _ = _attention(3, L, 64, H, torch.float32, 8)
+    before = (FA.flash_mha_fwd.launches, FA.flash_mha_bwd.launches)
+    out = FA.flash_mha_fwd(q, k, v, valid, H)
+    grads = FA.flash_mha_bwd(q, k, v, dout, valid, H)
+    torch.cuda.synchronize()
+    assert (FA.flash_mha_fwd.launches,
+            FA.flash_mha_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, FA.flash_mha_fwd_plain(q, k, v, valid, H),
+                               rtol=1e-4, atol=1e-4)
+    for name, g, r in zip(("dq", "dk", "dv"), grads,
+                          FA.flash_mha_bwd_plain(q, k, v, dout, valid, H)):
+        _close(g, r, name)
+        assert not g[-1].any() and not g[0, :L // 3 + 5].any(), name
+    assert not out[-1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,H,NB", [(256, 4, 128), (1024, 1, 300)])
+def test_hstu_attention_kernels_match_plain_on_card(L, H, NB):
+    """Forward and backward kernels (dq, dk, dv and the rel-pos gradient)
+    in f32 against their plain versions."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    q, k, v, dout, valid, rab = _attention(3, L, 64, H, torch.float32, 9, NB)
+    before = (HA.hstu_attention_fwd.launches, HA.hstu_attention_bwd.launches)
+    out = HA.hstu_attention_fwd(q, k, v, valid, rab, L, H)
+    grads = HA.hstu_attention_bwd(q, k, v, dout, valid, rab, L, H)
+    torch.cuda.synchronize()
+    assert (HA.hstu_attention_fwd.launches,
+            HA.hstu_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        out, HA.hstu_attention_fwd_plain(q, k, v, valid, rab, L, H),
+        rtol=1e-4, atol=1e-4)
+    for name, g, r in zip(("dq", "dk", "dv", "drab"), grads,
+                          HA.hstu_attention_bwd_plain(q, k, v, dout, valid,
+                                                      rab, L, H)):
+        _close(g, r, name)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_raise_instead_of_falling_back_on_card():
+    """On CUDA tensors a shape the kernels do not take raises; an HSTU
+    shape that needs the chunked kernels raises NotImplementedError."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    q, k, v, _, valid, rab = _attention(2, 256, 64, 8, torch.float32, 10)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_mha_fwd(q, k, v, valid, 8)          # hd = 8
+    q, k, v, _, valid, rab = _attention(2, 2048, 64, 1, torch.float32, 11)
+    with pytest.raises(NotImplementedError, match="rows 15-17"):
+        HA.hstu_attention_packed(q, k, v, valid, rab, 2048, 1)
