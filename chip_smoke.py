@@ -14,10 +14,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                seeded inputs with left padding and one fully padded row, at
                the stated tolerances: the fused block forward in inference
                and in training (with dropout, and its av output) and its
-               backward, in the whole-sequence variant (L=1024 and 256) and
-               in the chunked one (L > wholeseq_max_l(D): 2048, 4096 and
-               16384 in f32 and bf16; D=128 and D=256 in f32), and whether
-               the chunked variant's bf16 output follows its rounding point;
+               backward, in the whole-sequence variant (L=1024 and 256; and
+               at B=128, L=1024 with H=4 heads of 16, sharded_multihost's
+               shape, in f32 and bf16) and in the chunked one (L >
+               wholeseq_max_l(D): 2048, 4096 and 16384 in f32 and bf16;
+               D=128 and D=256 in f32), and whether the chunked variant's
+               bf16 output follows its rounding point;
                then their times at both main paths' shapes (B=128, L=1024
                and B=32, L=4096; CUDA events) beside the plain versions' and
                their bounds; then the attention cores, flash MHA (L=256,
@@ -26,7 +28,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                backward in f32 and bf16, fully masked rows and padded keys
                exactly 0, and their times at the parity runs' shapes beside
                the plain versions', their bounds and, for flash MHA,
-               scaled_dot_product_attention's;
+               scaled_dot_product_attention's; then the group scatter and
+               group gather of a sparse-trained table (a 16M x 64 table, 1M
+               groups, in f32 and bf16; 196,608 slots, 190,000 real groups
+               and a sentinel tail): bitwise equal to their plain versions,
+               the scatter in place with untouched groups unchanged, timed
+               beside the plain versions, index_copy_ / index_select and
+               their bytes bound;
 4. training — a seeded synthetic fixture (1024 users, 5000 items, sequences
                of 256..1000 events) and the port's cli.train main with
                ``--preset hstu_flagship --maxlen 1023 --loader streaming
@@ -60,7 +68,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                baseline_o1 --maxlen 1023`` (flash MHA, one head) on the
                flagship's fixture; the one-step check for baseline and
                hstu_mini;
-8. report   — the card line, one JSON line listing every kernel, then the
+8. sparse   — phases 4 and 5 for ``--preset sharded_multihost --maxlen
+               1023`` on the flagship's fixture (B=64; its mesh wants 8
+               devices: the warning is printed and it trains single-device;
+               sparse item_emb, rowwise Adagrad, sampled softmax, tower
+               dedup, 8 blocks of 4 heads): fused launches as the flagship's,
+               no group scatter (5,001 rows are below packed scale); the
+               one-step check also holds the touched rows' update; then
+               ``--preset sampled_softmax_dp`` (mesh data=8 on one card,
+               64 in-batch negatives, tower dedup) at its own window (L=102,
+               no kernel) on the parity fixture;
+9. 100m     — the JAX package's 100M-row sparse step
+               (benchmarks/sparse_table_bench.py --100m: itemnum 1e8, B=64,
+               L=1024, D=64, 8 blocks, H=1, bf16 table, rowwise Adagrad, BCE)
+               through the port's init_state, augment_batch_sparse and
+               make_train_step on a seeded synthetic batch: 3 group-scatter
+               launches a step (196,608 slots in chunks of 65,536 groups),
+               every touched row equal to compute_row_update's from the
+               same row gradients, 100,000 untouched rows bitwise unchanged;
+               step ms, examples/s, lookup GB/s, peak memory, and the group
+               scatter's device time in a profiled step;
+10. report  — the card line, one JSON line listing every kernel, then the
                last line ``{"ok": true, "device": {...}}``.
 
 The f32 side of the one-step and query checks is held to min(0.999, c -
@@ -74,7 +102,9 @@ Scratch data goes to build/chip_smoke/ in the checkout.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -184,6 +214,15 @@ PARITY_RUNS = (
     # reuses the flagship's fixture (sequences of 256 to 1000 events)
     Run("baseline_o1", "baseline_o1", 1023, FIXTURE, WORK / "data", 128, (),
         WORK / "baseline_o1", "flash", 128, False))
+# sparse item_emb, rowwise Adagrad, sampled softmax, tower dedup: the
+# preset's B=64 on the flagship's fixture
+SPARSE_RUN = Run("sparse", "sharded_multihost", MAXLEN, FIXTURE,
+                 WORK / "data", 64, (), WORK / "sparse", "fused", 128, True)
+# sampled softmax with 64 in-batch negatives and tower dedup, at the
+# preset's own window (L=102: plain PyTorch, no kernel)
+SOFTMAX_DP_RUN = Run("softmax_dp", "sampled_softmax_dp", None, PARITY_FIXTURE,
+                     PARITY_DATA, 64, (), WORK / "softmax_dp", "none", 128,
+                     False)
 SRC = "tencent_recommendation_2025_tpu_torch/csrc/"
 TPU = "tencent_recommendation_2025_tpu/ops/fused_block.py"
 
@@ -193,13 +232,16 @@ def launch_counters():
     from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
     from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
 
     return {"fused_fwd": FB.fused_hstu_block,
             "fused_train": FB.fused_hstu_block_train,
             "fused_bwd": FB.fused_hstu_block_bwd,
             "flash_fwd": FA.flash_mha_fwd, "flash_bwd": FA.flash_mha_bwd,
             "hstu_fwd": HA.hstu_attention_fwd,
-            "hstu_bwd": HA.hstu_attention_bwd}
+            "hstu_bwd": HA.hstu_attention_bwd,
+            "group_scatter": ST.group_scatter,
+            "group_gather": ST.group_gather}
 
 
 def reset_launches():
@@ -467,9 +509,10 @@ def check_kernels(shp, dt, rate, seed):
 def phase_kernels():
     """Every kernel against its plain version, on seeded inputs with left
     padding and one fully padded row: the whole-sequence variant at L=1024
-    (D=64) and L=256 (D=32, H=2); the chunked variant at L = 2048, 4096
-    and 16384 (D=64) in f32 and bf16 and at D=128 and D=256 in f32; then
-    the chunked variant's bf16 rounding point."""
+    (D=64), at L=256 (D=32, H=2) and at sharded_multihost's B=128, L=1024,
+    H=4 (hd=16) in f32 and bf16; the chunked variant at L = 2048, 4096 and
+    16384 (D=64) in f32 and bf16 and at D=128 and D=256 in f32; then the
+    chunked variant's bf16 rounding point."""
     import torch
 
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
@@ -480,13 +523,15 @@ def phase_kernels():
         return dict(B=B, L=L, D=D, H=H, F=F, NB=128)
 
     a, b = shape(8, 1024), shape(4, 256, D=32, H=2)
+    h4 = shape(128, 1024, H=4)
     cases = [(a, f32, 0.0), (a, f32, 0.5), (b, f32, 0.0), (b, f32, 0.5),
              (a, bf16, 0.0), (a, bf16, 0.5),
              (shape(4, 2048), f32, 0.5), (shape(4, 2048), bf16, 0.01),
              (shape(4, 4096), f32, 0.5), (shape(4, 4096), bf16, 0.01),
              (shape(2, 16384), f32, 0.5), (shape(2, 16384), bf16, 0.01),
              (shape(2, 1024, D=128, F=512), f32, 0.5),
-             (shape(2, 512, D=256, F=768), f32, 0.5)]
+             (shape(2, 512, D=256, F=768), f32, 0.5),
+             (h4, f32, 0.5), (h4, bf16, 0.01)]
     ok_all = True
     for i, (shp, dt, rate) in enumerate(cases):
         ok_all &= check_kernels(shp, dt, rate, seed=11 + 2 * i)
@@ -824,6 +869,100 @@ def phase_attention_times():
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the group kernels of a sparse-trained table
+# ---------------------------------------------------------------------------
+
+#: the check's table: 16M rows of 64 as 1M write groups of 1024 elements;
+#: 196,608 slots (the 100M-row step's K) of which 190,000 real groups
+GROUPS = dict(nG=1 << 20, W=1024, K=196_608, n_real=190_000)
+_GROUP_REPLACES = "tencent_recommendation_2025_tpu/ops/sparse_table.py:"
+
+
+def phase_group_kernels():
+    """The group scatter and group gather against their plain versions on
+    the card, in f32 and bf16: the scatter in place (same buffer), equal to
+    its plain version bitwise, untouched groups bitwise unchanged; the
+    gather's real rows equal to the plain gather's. Then each timed (CUDA
+    events) beside its plain version, its one-call yardstick on the [nG,
+    W] view (``index_copy_`` / ``index_select`` of the real groups) and its
+    bytes bound: the real groups' rows read once and written once, and the
+    slots' ids. Returns (ok, the kernels' JSON entries without launches,
+    from the bf16 run: the 100M-row step's dtype)."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+
+    nG, W, K, n_real = (GROUPS[k] for k in ("nG", "W", "K", "n_real"))
+    groups = np.full((K,), nG, np.int32)
+    groups[:n_real] = np.sort(np.random.default_rng(60).choice(
+        nG, size=n_real, replace=False))
+    g = torch.from_numpy(groups).cuda()
+    real = g[:n_real].long()
+    untouched = torch.ones(nG, dtype=torch.bool, device="cuda")
+    untouched[real] = False
+    ok_all, entries = True, []
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(61)
+        table = torch.randn((nG, W), generator=gen, device="cuda").to(dt)
+        arranged = torch.randn((K, W), generator=gen, device="cuda").to(dt)
+        before = table.clone()
+        ptr = table.data_ptr()
+        out = ST.group_scatter(table, g, arranged)
+        torch.cuda.synchronize()
+        ref = ST.group_scatter_plain(before.clone(), g, arranged)
+        err_s = (table.float() - ref.float()).abs().max().item()
+        ok_s = out.data_ptr() == ptr and torch.equal(table, ref) and \
+            torch.equal(table[untouched], before[untouched])
+        del ref, before
+        got = ST.group_gather(table, g)
+        torch.cuda.synchronize()
+        want = ST.group_gather_plain(table, g)
+        err_g = (got[:n_real].float() - want[:n_real].float()).abs().max() \
+            .item()
+        ok_g = torch.equal(got[:n_real], want[:n_real])
+        del got, want
+        _free()
+        src = arranged[:n_real]
+        t = {"scatter": time_ms(lambda: ST.group_scatter(table, g, arranged),
+                                3, 20),
+             "gather": time_ms(lambda: ST.group_gather(table, g), 3, 20)}
+        plain = {"scatter": time_ms(lambda: ST.group_scatter_plain(
+                     table, g, arranged), 1, 5),
+                 "gather": time_ms(lambda: ST.group_gather_plain(table, g),
+                                   1, 5)}
+        lib = {"scatter": time_ms(lambda: table.index_copy_(0, real, src),
+                                  3, 20),
+               "gather": time_ms(lambda: table.index_select(0, real), 3, 20)}
+        nbytes = 2 * n_real * W * table.element_size() + K * 4
+        bound = nbytes / PEAK_BYTES * 1e3
+        ok = ok_s and ok_g
+        ok_all &= ok
+        for key, err, row in (("scatter", err_s, "424"),
+                              ("gather", err_g, "498")):
+            log(f"group_{key} {str(dt)[6:]} ({nG} groups of {W}, {K} slots, "
+                f"{n_real} real): kernel {t[key]:.4f} ms "
+                f"({nbytes / t[key] / 1e6:.1f} GB/s), plain "
+                f"{plain[key]:.4f} ms, "
+                f"{'index_copy_' if key == 'scatter' else 'index_select'} "
+                f"{lib[key]:.4f} ms, bound {bound:.4f} ms (bytes: "
+                f"{nbytes / 1e6:.1f} MB); max abs err {err:.3g}"
+                + ("; in place, untouched groups unchanged" if key ==
+                   "scatter" else "") + f" {'ok' if ok else 'FAIL'}")
+            if dt == torch.bfloat16:
+                entries.append({
+                    "name": f"group_{key}", "route": "cuda",
+                    "source": SRC + "sparse_table.cu",
+                    "replaces": _GROUP_REPLACES + row, "launches": None,
+                    "max_abs_err": err, "ms": t[key],
+                    "plain_ms": plain[key], "bound_ms": bound,
+                    "bound_by": "bytes", "library_ms": lib[key]})
+        del table, arranged, src
+        _free()
+    return ok_all, entries
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
@@ -838,10 +977,26 @@ def check_launches(run, what, got, want):
     return ok
 
 
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept, to read what a phase printed."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
 def phase_training(run):
     """cli.train on the card, one epoch of ``run``; every launch counter
-    held to its expected count."""
+    held to its expected count. A preset whose mesh wants several devices
+    must print the JAX CLI's warning and train single-device."""
     import numpy as np
+    import torch
 
     from tencent_recommendation_2025_tpu_torch.cli import train as TRN
     from tencent_recommendation_2025_tpu_torch.data import synthetic
@@ -865,14 +1020,25 @@ def phase_training(run):
     os.environ["TRAIN_CKPT_PATH"] = str(model_dir)
     os.environ["TRAIN_LOG_PATH"] = str(log_dir)
     timings = {}
+    tee = _Tee(sys.stdout)
     reset_launches()
     t0 = time.perf_counter()
-    state = TRN.main(run.args() + list(run.train_args)
-                     + ["--num_epochs", "1"], timings=timings)
+    with contextlib.redirect_stdout(tee):
+        state = TRN.main(run.args() + list(run.train_args)
+                         + ["--num_epochs", "1"], timings=timings)
     wall = time.perf_counter() - t0
     launches = read_launches()
 
     cfg = run.config()
+    mc = cfg.mesh
+    want_dev = mc.data * mc.model * mc.seq * mc.pipe
+    warned = True
+    if want_dev > 1:
+        line = TRN.single_device_warning(want_dev,
+                                         torch.cuda.device_count())
+        warned = line in tee.kept.getvalue()
+        log(f"{run.name}: printed '{line}': {warned} "
+            f"{'ok' if warned else 'FAIL'}")
     data = TencentGRData(data_dir, mm_emb_ids=("81",))
     _, va = train_val_split(len(data.seq), cfg.train.valid_fraction,
                             cfg.train.seed)
@@ -898,7 +1064,22 @@ def phase_training(run):
         f"{timings.get('cache_build_s', float('nan')):.2f} s; last logged "
         f"steps/s {lines[-1]['steps_per_second']:.3f}, "
         f"{lines[-1]['steps_per_second'] * run.batch_size:.1f} examples/s")
-    return ok and finite and ok_ck, launches, ckpt, data
+    return ok and finite and ok_ck and warned, launches, ckpt, data
+
+
+def _host_prep(cfg, batch, tables, data, i):
+    """The train loop's host prep of batch ``i`` of epoch 1: tower dedup,
+    then the sparse-table prep (keyed as train_loop keys them)."""
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    key = (cfg.train.seed, 97, 1, i)
+    if cfg.train.tower_dedup:
+        batch = TR.augment_batch_dedup(batch, cfg, tables, data.itemnum,
+                                       step_key=key)
+    if cfg.train.sparse_tables:
+        batch = TR.augment_batch_sparse(batch, cfg, data.itemnum, key,
+                                        usernum=data.usernum)
+    return batch
 
 
 def _train_batches(data, n, run, rows=None):
@@ -951,11 +1132,41 @@ def _loss_and_grads(model, cfg, params, batch, tables, device, route=None):
                          for p, t in TR.param_leaves(state.params)}
 
 
+def _sparse_step(model, cfg, state, batch, tables, device, route=None):
+    """Loss, dense gradients and the touched rows' update of one
+    sparse-table train step (the port's make_train_step) from ``state``;
+    the update is keyed "item_emb (touched rows' update)"."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    uids = torch.from_numpy(batch["touched_uids"]).long()
+    real = uids[uids < state.params["item_emb"].shape[0]].to(device)
+    before = state.params["item_emb"][real].float().cpu()
+    tabs = TR.device_tables(tables, device)
+    saved = ENC.block_route
+    if route is not None:
+        ENC.block_route = lambda *a: route
+    try:
+        state, m = TR.make_train_step(model, cfg)(
+            state, TR.put_batch(batch, device), tabs["mm"], tabs)
+    finally:
+        ENC.block_route = saved
+    out = {p: t.grad.float().cpu() for p, t in TR.dense_leaves(state.params,
+                                                                cfg)}
+    out["item_emb (touched rows' update)"] = \
+        state.params["item_emb"][real].float().cpu() - before
+    return float(m["loss"]), out
+
+
 def phase_one_step(run, data, ckpt):
     """One step at full width and depth on the first 16 rows of the first
     train batch of ``run``, dropout 0, from its checkpoint: the card
     (kernels, bf16) against the plain versions on the CPU in bf16 and in
-    f32."""
+    f32, on the loss and each gradient; with sparse tables a whole train
+    step from the checkpoint's state (the table's row-optimizer state too),
+    on the loss, the dense gradients and the touched rows' update."""
     import numpy as np
     import torch
 
@@ -964,14 +1175,16 @@ def phase_one_step(run, data, ckpt):
     from tencent_recommendation_2025_tpu_torch.models.baseline import \
         SeqRecModel
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
-    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
 
     cfg, schema, (batch,) = _train_batches(data, 1, run, rows=16)
+    saved_model = SeqRecModel(cfg=cfg.model, schema=schema,
+                              fused=FusedVocab.build(schema),
+                              usernum=data.usernum, itemnum=data.itemnum)
+    saved_cfg = cfg
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rate=0.0))
     tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
                                data.mm_emb_dict, data.indexer_i_rev)
-    if cfg.train.tower_dedup:
-        batch = TR.augment_batch_dedup(batch, cfg, tables, data.itemnum)
+    batch = _host_prep(cfg, batch, tables, data, 0)
     params, _ = CK.load_params(ckpt)
 
     def model_in(dtype):
@@ -981,17 +1194,21 @@ def phase_one_step(run, data, ckpt):
                             usernum=data.usernum, itemnum=data.itemnum),
                 cfg.replace(model=mc))
 
+    def one(dtype, device, route=None):
+        model, c = model_in(dtype)
+        if not cfg.train.sparse_tables:
+            return _loss_and_grads(model, c, params, batch, tables, device,
+                                   route)
+        state, _ = CK.load_checkpoint(ckpt, saved_model, saved_cfg,
+                                      device=device)
+        return _sparse_step(model, c, state, batch, tables, device, route)
+
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
-    m16, c16 = model_in("bfloat16")
-    m32, c32 = model_in("float32")
-    card_loss, card = _loss_and_grads(m16, c16, params, batch, tables,
-                                      "cuda")
+    card_loss, card = one("bfloat16", "cuda")
     torch.cuda.synchronize()
-    l16, g16 = _loss_and_grads(m16, c16, params, batch, tables, "cpu",
-                               route=run.cpu_route)
-    l32, g32 = _loss_and_grads(m32, c32, params, batch, tables, "cpu",
-                               route=run.cpu_route)
+    l16, g16 = one("bfloat16", "cpu", run.cpu_route)
+    l32, g32 = one("float32", "cpu", run.cpu_route)
 
     def cos(a, b):
         na, nb = a.norm().item(), b.norm().item()
@@ -1013,7 +1230,7 @@ def phase_one_step(run, data, ckpt):
             fails.append(f"{name} ({c16_:.6f}, {c32_:.6f} vs {floor:.6f})")
     ok = ok_loss and not fails and np.isfinite(card_loss)
     log(f"{run.name}: one step, 16 rows at full width and depth "
-        f"({len(card)} gradient leaves, CPU plain versions in "
+        f"({len(card)} gradients or updates, CPU plain versions in "
         f"{time.perf_counter() - t0:.1f} s): loss card {card_loss:.6f}, CPU "
         f"bf16 {l16:.6f}, CPU f32 {l32:.6f} (limit 1e-3 relative to bf16); "
         f"lowest gradient cosine to CPU bf16 {worst16[1]:.6f} ({worst16[0]}, "
@@ -1062,10 +1279,8 @@ def phase_train_speed(data, ckpt, run):
     model = SeqRecModel(cfg=cfg.model, schema=schema,
                         fused=FusedVocab.build(schema), usernum=data.usernum,
                         itemnum=data.itemnum)
-    if cfg.train.tower_dedup:
-        raw = [TR.augment_batch_dedup(b, cfg, tables, data.itemnum)
-               for b in raw]
-    batches = [TR.put_batch(b, "cuda") for b in raw]
+    batches = [TR.put_batch(_host_prep(cfg, b, tables, data, i), "cuda")
+               for i, b in enumerate(raw)]
     params, _ = CK.load_params(ckpt)
     state = TR.init_state(model, cfg, params=params, device="cuda")
     tabs = TR.device_tables(tables, "cuda")
@@ -1276,6 +1491,231 @@ def phase_run(run, oks):
     return trained, served
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the 100M-row sparse step
+# ---------------------------------------------------------------------------
+
+#: benchmarks/sparse_table_bench.py --100m (l.23-46, 120-126): the JAX
+#: package's north-star sparse step on one chip
+SPARSE_100M = dict(itemnum=100_000_000, usernum=200, B=64, L=1024, D=64,
+                   blocks=8, heads=1, feature_rows=200_000)
+
+
+def synthetic_batch(rng, B, L, schema, itemnum, usernum):
+    """The JAX package's synthetic train batch (``__graft_entry__.
+    _make_batch`` without feature tables): a leading user token, item
+    tokens of random ids in [1, itemnum), features drawn freely."""
+    import numpy as np
+
+    from tencent_recommendation_2025_tpu_torch.data import schema as S
+
+    nis, nia = len(S.ITEM_SPARSE_IDS), len(S.ITEM_ARRAY_IDS)
+    nus, nua = len(S.USER_SPARSE_IDS), len(S.USER_ARRAY_IDS)
+    cap = schema.array_cap
+    tt = np.ones((B, L), np.int32)
+    tt[:, 0] = 2
+    ntt = np.roll(tt, -1, axis=1)
+    ntt[:, -1] = 0
+    seq = rng.integers(1, itemnum, (B, L)).astype(np.int32)
+    seq[:, 0] = rng.integers(1, usernum, B)
+    pos = rng.integers(1, itemnum, (B, L)).astype(np.int32)
+    return {
+        "seq": seq, "pos": pos,
+        "neg": rng.integers(1, itemnum, (B, L)).astype(np.int32),
+        "token_type": tt, "next_token_type": ntt,
+        "next_action_type": np.zeros((B, L), np.int32),
+        "seq_item_sparse": rng.integers(0, 50, (B, L, nis)).astype(np.int32),
+        "seq_item_array": np.zeros((B, L, nia, cap), np.int32),
+        "seq_user_sparse": rng.integers(0, 50, (B, L, nus)).astype(np.int32),
+        "seq_user_array": rng.integers(0, 50, (B, L, nua, cap)
+                                       ).astype(np.int32),
+        "pos_item_sparse": rng.integers(0, 50, (B, L, nis)).astype(np.int32),
+        "pos_item_array": np.zeros((B, L, nia, cap), np.int32),
+        "sample_valid": np.ones((B,), np.int32)}
+
+
+def phase_sparse_100m():
+    """The 100M-row sparse step on the card through the port's init_state
+    (the table drawn on the card), augment_batch_sparse and
+    make_train_step: one checked step (launch counts; every touched group,
+    all its rows, equal to a plain row write of compute_row_update's rows
+    from the same row gradients into a copy of it, and the touched
+    accumulators to compute_row_update's, bitwise; a seeded sample of
+    100,000 untouched rows bitwise unchanged), then its speed and a
+    profiled step. Returns (ok, the launch counts over the phase's
+    steps)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tencent_recommendation_2025_tpu_torch.config import (
+        MM_EMB_DIMS, Config, ModelConfig, TrainConfig)
+    from tencent_recommendation_2025_tpu_torch.data import schema as S
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import \
+        FusedVocab
+    from tencent_recommendation_2025_tpu_torch.data.schema import \
+        FeatureSchema
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    c = SPARSE_100M
+    B, L, itemnum = c["B"], c["L"], c["itemnum"]
+    cfg = Config(
+        model=ModelConfig(hidden_units=c["D"], num_blocks=c["blocks"],
+                          num_heads=c["heads"], maxlen=L - 1,
+                          block_type="hstu", ffn_type="swiglu",
+                          reference_init=False, dtype="bfloat16",
+                          table_dtype="bfloat16"),
+        train=TrainConfig(batch_size=B, loss_type="bce", l2_emb=0.0,
+                          weight_decay=0.0, sparse_tables=("item_emb",),
+                          table_optimizer="rowwise_adagrad",
+                          table_moments_dtype="bfloat16"))
+    vocab = {fid: 50 for fid in (*S.USER_SPARSE_IDS, *S.ITEM_SPARSE_IDS,
+                                 *S.USER_ARRAY_IDS, *S.ITEM_ARRAY_IDS)}
+    schema = FeatureSchema(vocab=vocab, mm_emb_ids=("81",), array_cap=8)
+    model = SeqRecModel(cfg=cfg.model, schema=schema,
+                        fused=FusedVocab.build(schema),
+                        usernum=c["usernum"], itemnum=itemnum)
+    rng = np.random.default_rng(0)
+    raw = synthetic_batch(rng, B, L, schema, itemnum, c["usernum"])
+    # feature tables of 200,000 rows: larger ids clamp, as they clip there
+    n = c["feature_rows"] + 1
+    sparse_t = rng.integers(0, 50, (n, len(S.ITEM_SPARSE_IDS)))
+    sparse_t[0] = 0
+    tabs = {"sparse": torch.as_tensor(sparse_t.astype(np.int32),
+                                      device="cuda"),
+            "array": torch.zeros((n, len(S.ITEM_ARRAY_IDS), 8),
+                                 dtype=torch.int32, device="cuda"),
+            "mm": {"81": torch.as_tensor(rng.standard_normal(
+                (n, MM_EMB_DIMS["81"])).astype(np.float32), device="cuda")}}
+    t0 = time.perf_counter()
+    batch = TR.augment_batch_sparse(raw, cfg, itemnum, (0, 1))
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = TR.init_state(model, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table = state.params["item_emb"]
+    acc = state.tables["item_emb"]["acc"]
+    Vp = table.shape[0]
+    uids = batch["touched_uids"]
+    n_real = int((uids < Vp).sum())
+    real = torch.from_numpy(uids[:n_real]).long().cuda()
+    cand = rng.integers(1, itemnum + 1, 130_000)
+    cand = np.unique(cand[~np.isin(cand, uids)])
+    sample = torch.from_numpy(rng.permutation(cand)[:100_000]).long().cuda()
+    sample_before = table[sample].clone()
+    # every touched group, whole: the kernel writes all R rows of each
+    gview = ST.group_view(table, ST.scatter_group_rows(c["D"]))
+    n_grp = int((batch["scatter_groups"] < gview.shape[0]).sum())
+    grp = torch.from_numpy(batch["scatter_groups"][:n_grp]).long().cuda()
+    uid_pos = torch.from_numpy(batch["scatter_uid_pos"][:n_real]).long().cuda()
+    groups_before = gview[grp].clone()
+    bd = TR.put_batch(batch, "cuda")
+    step = TR.make_train_step(model, cfg)
+    log(f"100m: itemnum {itemnum} ({Vp} rows, {tuple(table.shape)} "
+        f"{table.dtype}, {table.numel() * 2 / 1e9:.1f} GB, drawn on the card "
+        f"in {init_s:.1f} s), B={B}, L={L}, {c['blocks']} blocks, H="
+        f"{c['heads']}, rowwise Adagrad, BCE; host prep {prep_s:.2f} s: "
+        f"{n_real} touched rows in {len(batch['scatter_groups'])} group "
+        f"slots")
+
+    # the reference: the same row gradients (same step, same generator)
+    # through compute_row_update
+    _, _, per = TR.sparse_loss_backward(
+        model, cfg, state, bd, tabs["mm"], tabs,
+        TR.step_generator(cfg.train.seed, state.step, table.device))
+    p = per["item_emb"]
+    with torch.no_grad():
+        want_rows, want_opt = ST.compute_row_update(
+            table, state.tables["item_emb"], p["uids"], p["rows"].grad,
+            kind="rowwise_adagrad", lr=TR.lr_at_step(cfg.train,
+                                                     state.step + 1),
+            step=state.step + 1, rows0=p["rows"].detach())
+    want_acc = want_opt["acc"][:n_real]
+    # the plain row write of those rows into a copy of the touched groups:
+    # new rows at the touched slots, the old ones everywhere else
+    want_groups = groups_before.view(-1, c["D"]).index_copy_(
+        0, uid_pos, want_rows[:n_real]).view(n_grp, -1)
+    del per, p, want_rows, groups_before
+    reset_launches()
+    state, m = step(state, bd, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    steps = 1
+    got_groups = gview[grp]
+    ok_rows = torch.equal(got_groups, want_groups)
+    ok_acc = torch.equal(acc[real], want_acc)
+    row_err = 0.0 if ok_rows else \
+        (got_groups.float() - want_groups.float()).abs().max().item()
+    ok_untouched = torch.equal(table[sample], sample_before)
+    del want_groups, got_groups, want_acc, sample_before
+    # the peak of training, not of the check's copies
+    torch.cuda.reset_peak_memory_stats()
+    touched = int(m["touched_rows"])
+    loss = float(m["loss"])
+    for _ in range(2):
+        state, m = step(state, bd, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    n_timed = 5
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, m = step(state, bd, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, bd, tabs["mm"], tabs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    steps += 2 + n_timed + 1
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    by_name = _device_ms(prof)
+    busy = sum(by_name.values())
+    scatter_ms, _ = _kernel_split(by_name, ("group_scatter_kernel",))
+    fwd, _ = _kernel_split(by_name, KERNEL_NAMES["fused"][0])
+    bwd, _ = _kernel_split(by_name, KERNEL_NAMES["fused"][1])
+    chunks = -(-len(batch["scatter_groups"]) // ST._SCATTER_CHUNK_GROUPS)
+    want = dict.fromkeys(launch_counters(), 0)
+    want.update(fused_train=c["blocks"] * steps, fused_bwd=c["blocks"] * steps,
+                group_scatter=chunks * steps)
+    ok_launch = launches == want
+    finite = bool(np.isfinite(loss) and np.isfinite(float(m["loss"])))
+    gb = touched * c["D"] * 2 * 2 / 1e9
+    fused_names = KERNEL_NAMES["fused"][0] + KERNEL_NAMES["fused"][1]
+    others = ", ".join(f"{k[:50]} {v:.3f}" for k, v in by_name.most_common()
+                       if not any(n in k for n in fused_names
+                                  + ("group_scatter",)))[:700]
+    log(f"100m: launches over {steps} steps: "
+        + ", ".join(f"{k} {launches[k]} (expected {want[k]})"
+                    for k in launches)
+        + f" ({chunks} group-scatter chunks of "
+        f"{ST._SCATTER_CHUNK_GROUPS} a step) {'ok' if ok_launch else 'FAIL'}")
+    log(f"100m: checked step: loss {loss:.6f}; {n_grp} touched groups "
+        f"({n_grp * gview.shape[1] // c['D']} rows) equal to a plain row "
+        f"write of compute_row_update's {n_real} rows: {ok_rows} (max abs "
+        f"diff {row_err:.3g}), accumulator {ok_acc}; 100,000 untouched rows "
+        f"unchanged {ok_untouched}; losses finite {finite} "
+        f"{'ok' if ok_rows and ok_acc and ok_untouched and finite else 'FAIL'}")
+    log(f"100m: train step {dt * 1e3:.3f} ms, {B / dt:.1f} examples/s (host "
+        f"clock, synchronised, {n_timed} steps after 3), touched rows "
+        f"{touched}, lookup {gb / dt:.2f} GB/s ({touched} rows x {c['D']} x "
+        f"2 bytes, gathered and written back), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated over the "
+        f"{steps - 1} steps after the checked one); "
+        f"profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle {max(0.0, 1 - busy / wall):.1%}), group scatter "
+        f"{scatter_ms:.3f} ms in {chunks} launches, fused forward "
+        f"{fwd:.3f} ms, backward {bwd:.3f} ms; other kernels (ms): {others}")
+    del state, table, gview, acc, bd, tabs
+    _free()
+    return (ok_rows and ok_acc and ok_untouched and ok_launch and finite,
+            launches)
+
+
 def main() -> int:
     import torch
 
@@ -1308,6 +1748,7 @@ def main() -> int:
     entries += chunked
     oks["attention_kernels"] = phase_attention_kernels()
     oks["attention_times"], attention = phase_attention_times()
+    oks["group_kernels"], group_entries = phase_group_kernels()
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     # the fused JSON entries in order: fwd, fwd_train, bwd of each variant
     for run, found in ((FLAGSHIP_RUN, entries[:3]), (LONG_RUN, entries[3:])):
@@ -1324,6 +1765,15 @@ def main() -> int:
                 key = f"{run.kernels}_{way}"
                 entry["launches"] = trained[key] + served[key]
     entries += [entry for _, entry in attention]
+    # sharded_multihost's table is below packed scale: no group scatter
+    for run in (SPARSE_RUN, SOFTMAX_DP_RUN):
+        phase_run(run, oks)
+    t0 = time.perf_counter()
+    oks["sparse_100m"], launches = phase_sparse_100m()
+    log(f"100m phase: {time.perf_counter() - t0:.1f} s")
+    for entry in group_entries:
+        entry["launches"] = launches[entry["name"]]
+    entries += group_entries
     log(card)
     log(json.dumps({"kernels": entries}))
     failed = [k for k, v in oks.items() if not v]

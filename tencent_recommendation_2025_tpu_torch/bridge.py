@@ -106,8 +106,9 @@ def params_from_jax(src, device="cpu", itemnum: Optional[int] = None
                     ) -> Dict:
     """The port's parameter dict from a JAX parameter pytree or checkpoint
     directory. A packed ``item_emb`` (the only table the JAX package packs)
-    unpacks to [V, D]; with ``itemnum`` it keeps the ``itemnum + 1``
-    addressable rows."""
+    unpacks to [Vp, D], its padded rows: the port's own layout of a table
+    it trains sparsely at packed scale. With ``itemnum`` it keeps the
+    ``itemnum + 1`` addressable rows only (serving)."""
     if isinstance(src, (str, Path)):
         flat = read_checkpoint_leaves(src)
     else:

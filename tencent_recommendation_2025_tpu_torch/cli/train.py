@@ -12,10 +12,11 @@ is given; without CUDA and without ``--device cpu`` it raises. Loaders:
 ``cached`` packs every user's sample once (``data/cached_dataset.py``) and
 samples negatives vectorised; ``streaming`` samples in python threads every
 epoch; ``auto`` takes the cached loader up to 2M samples and streams above,
-as the JAX package's ``auto`` does where its native tool is absent. The
-native loader, meshes, sparse tables, gradient accumulation, the sampled
-softmax loss and epoch-end retrieval eval raise ``NotImplementedError``
-naming their ROADMAP item.
+as the JAX package's ``auto`` does where its native tool is absent. A
+preset whose mesh wants several devices (``sampled_softmax_dp``,
+``sharded_multihost``) trains on one, with the JAX CLI's warning. The
+native loader, gradient accumulation and epoch-end retrieval eval raise
+``NotImplementedError`` naming their ROADMAP item.
 
     TRAIN_DATA_PATH=... TRAIN_CKPT_PATH=... python -m \\
         tencent_recommendation_2025_tpu_torch.cli.train \\
@@ -23,6 +24,9 @@ naming their ROADMAP item.
 
 Long sequences (L = 4096, the chunked variant of the fused block kernels):
 ``--preset hstu_flagship --maxlen 4095 --batch_size 32 --loader cached``.
+Sparse tables and the sampled softmax: ``--preset sharded_multihost
+--maxlen 1023`` (sparse ``item_emb``, rowwise Adagrad) or ``--preset
+sampled_softmax_dp``.
 """
 
 from __future__ import annotations
@@ -121,6 +125,19 @@ def build_config(args):
     )
 
 
+def single_device_warning(want: int, present: int) -> str:
+    """What ``main`` prints when the preset's mesh wants ``want`` devices:
+    the JAX CLI's warning where fewer are present (it trains single-device
+    there); the port has no mesh layer yet, so it trains single-device
+    where enough are present too, and says why."""
+    if present < want:
+        return (f"WARNING: preset wants {want} devices but only {present} "
+                "present — training single-device")
+    return (f"WARNING: preset wants {want} devices; the port's multi-device "
+            "layer is not ported yet (ROADMAP Queue 1, item 10) — training "
+            "single-device")
+
+
 def main(argv=None, timings: Optional[dict] = None):
     """Train; returns the final state. ``timings``, when given, receives the
     loader taken ("cached" or "streaming") and, for the cached one, the
@@ -144,6 +161,11 @@ def main(argv=None, timings: Optional[dict] = None):
     from .infer import resolve_device
 
     dev = resolve_device(args.device)
+    mc = cfg.mesh
+    want = mc.pipe * mc.data * mc.model * mc.seq
+    if want > 1:
+        print(single_device_warning(
+            want, torch.cuda.device_count() if dev.type == "cuda" else 1))
     check_supported(cfg)
     if args.loader == "native":
         raise NotImplementedError(

@@ -36,10 +36,11 @@ class SeqRecModel:
     itemnum: int
 
     def init(self, gen: torch.Generator, device="cpu") -> Dict:
-        """Fresh parameters drawn on the CPU from ``gen``, then moved."""
+        """Fresh parameters drawn on the CPU from ``gen``, then moved; an
+        item table at packed scale is drawn on ``device`` itself."""
         params = E.init_embedding_params(gen, self.cfg, self.schema,
                                          self.fused, self.usernum,
-                                         self.itemnum)
+                                         self.itemnum, device=device)
         params.update(ENC.init_encoder_params(gen, self.cfg))
         return tree_to(params, device)
 
@@ -47,14 +48,17 @@ class SeqRecModel:
                         item_sparse: torch.Tensor, item_array: torch.Tensor,
                         mm_tables: Mapping[str, torch.Tensor],
                         mm_override: Optional[Mapping[str, torch.Tensor]]
-                        = None) -> torch.Tensor:
+                        = None, lookup_site: Optional[str] = None
+                        ) -> torch.Tensor:
         """Item tower on explicit ids + features; ``mm_override`` supplies
-        explicit multimodal vectors, else they are gathered by id."""
+        explicit multimodal vectors, else they are gathered by id.
+        ``lookup_site`` names the call site for sparse-training plans."""
         mm_vecs = mm_override if mm_override is not None else \
             E.gather_mm(mm_tables, ids, self.schema,
                         dtype=E.torch_dtype(self.cfg.dtype))
         return E.item_tower(params, ids, item_sparse, item_array, mm_vecs,
-                            self.fused, self.schema, self.cfg)
+                            self.fused, self.schema, self.cfg,
+                            lookup_site=lookup_site)
 
     def dedup_spreads(self, params: Mapping, batch: Mapping,
                       mm_tables: Mapping[str, torch.Tensor]):
@@ -63,14 +67,16 @@ class SeqRecModel:
         (``dedup_uids`` and their features, gathered on the host by
         trainer.augment_batch_dedup) and its [cap, D] rows spread to each
         consumer site by its host plan (ops/sparse_table.planned_lookup).
-        Returns (it_seq [B, L, D], pos_last [B, 1, D], negs [B, L, D])."""
+        Returns (it_seq [B, L, D], pos_last [B, 1, D], negs: [B, L, D]
+        under BCE, the sampled negatives [N, D] under sampled softmax)."""
         if batch["dedup_uids"].dim() != 1:
             raise NotImplementedError(
                 "the stacked [S, cap] tower-dedup plan belongs to data "
                 "meshes: ROADMAP Queue 1, Multi-device layer")
         tu = self.item_embeddings(params, batch["dedup_uids"],
                                   batch["dedup_sparse"],
-                                  batch["dedup_array"], mm_tables)
+                                  batch["dedup_array"], mm_tables,
+                                  lookup_site="dedup")
 
         def spread(site):
             return planned_lookup(tu, *(batch[f"dedup_{site}_{k}"] for k in
@@ -114,20 +120,36 @@ class SeqRecModel:
         log_feats, it_seq = self.log2feats(params, batch, mm_tables,
                                            train=train, gen=gen,
                                            return_item_tower=True)
-        pos_last = self.item_embeddings(
-            params, batch["pos"][:, -1:], batch["pos_item_sparse"][:, -1:],
-            batch["pos_item_array"][:, -1:], mm_tables)
+        pos_last = self.pos_last(params, batch, mm_tables)
         pos_embs = torch.cat([it_seq[:, 1:].to(pos_last.dtype), pos_last],
                              dim=1)
-        neg = batch["neg"].long()
+        neg_embs = self.candidates(params, batch["neg"], mm_tables,
+                                   item_tables, "posneg")
+        return log_feats, pos_embs, neg_embs
+
+    def pos_last(self, params: Mapping, batch: Mapping,
+                 mm_tables: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The final target column's item tower [B, 1, D]."""
+        return self.item_embeddings(
+            params, batch["pos"][:, -1:], batch["pos_item_sparse"][:, -1:],
+            batch["pos_item_array"][:, -1:], mm_tables,
+            lookup_site="pos_last")
+
+    def candidates(self, params: Mapping, ids: torch.Tensor,
+                   mm_tables: Mapping[str, torch.Tensor],
+                   item_tables: Mapping[str, torch.Tensor],
+                   lookup_site: str) -> torch.Tensor:
+        """Item tower on candidate ids whose features are gathered on the
+        device from the static item tables by id (ids clamped to the
+        tables, which may hold fewer rows than the item table)."""
+        idx = ids.long()
 
         def take(table):
-            return table[neg.clamp(0, table.shape[0] - 1)]
+            return table[idx.clamp(0, table.shape[0] - 1)]
 
-        neg_embs = self.item_embeddings(params, batch["neg"],
-                                        take(item_tables["sparse"]),
-                                        take(item_tables["array"]), mm_tables)
-        return log_feats, pos_embs, neg_embs
+        return self.item_embeddings(params, ids, take(item_tables["sparse"]),
+                                    take(item_tables["array"]), mm_tables,
+                                    lookup_site=lookup_site)
 
     def logits(self, params: Mapping, batch: Mapping,
                mm_tables: Mapping[str, torch.Tensor],

@@ -14,8 +14,12 @@ Parameters are a plain nested dict of tensors with the JAX pytree's names:
     item_emb   [I+1, D]      user_emb [U+1, D]     pos_emb [2*maxlen+1, D]
     fused_feat [R, D]        mm_proj  {fid: {w,b}} itemdnn/userdnn {w,b}
 
-The JAX package stores tables of 30M+ rows packed as [V/R, 8, 128] for the
-TPU's layout; the port keeps every table [V, D] (the bridge unpacks).
+The JAX package stores an item table of 30M+ rows packed as [Vp/R, 8, 128]
+for the TPU's layout, Vp the rows padded to a multiple of 256; the port
+keeps it [Vp, D], the same bytes row-major, with zero pad rows
+(ops/sparse_table.py). Under sparse-table training a table is a
+:class:`ops.sparse_table.GatheredRows` inside the step, and every lookup of
+it names its call site (``site``) for the host plans.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from ..config import MAX_USER_TOKENS_PER_ROW, ModelConfig
 from ..data import schema as S
 from ..data.featurizer import FusedVocab
 from ..data.schema import FeatureSchema
+from ..ops.sparse_table import GatheredRows, is_packed_scale, \
+    padded_table_rows
 
 #: vocabularies up to this size run the JAX forward as one-hot matmuls,
 #: which give a ZERO row for an id above the vocabulary (a gather would read
@@ -89,13 +95,40 @@ def tower_dims(cfg: ModelConfig, schema: FeatureSchema) -> Tuple[int, int]:
     return userdim, itemdim
 
 
+def _big_table_init(gen: torch.Generator, rows: int, dim: int, dtype,
+                    device) -> torch.Tensor:
+    """An item table at packed scale, [padded_table_rows(rows), dim]: drawn
+    on ``device`` in ``dtype`` from a generator there, seeded from ``gen``
+    (a 100M-row table drawn on the CPU would take minutes and 25.6 GB of
+    host f32); row 0 and the pad rows zero."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    dgen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.empty((padded_table_rows(rows), dim), dtype=dtype,
+                    device=device)
+    std = math.sqrt(2.0 / (rows + dim))
+    chunk = 1 << 22
+    for lo in range(0, rows, chunk):
+        hi = min(lo + chunk, rows)
+        w[lo:hi] = torch.randn((hi - lo, dim), generator=dgen,
+                               device=device) * std
+    w[0] = 0.0
+    w[rows:] = 0.0
+    return w
+
+
 def init_embedding_params(gen: torch.Generator, cfg: ModelConfig,
                           schema: FeatureSchema, fused: FusedVocab,
-                          usernum: int, itemnum: int) -> Dict:
+                          usernum: int, itemnum: int,
+                          device="cpu") -> Dict:
+    """Parameters drawn on the CPU, except an item table at packed scale,
+    which is drawn on ``device`` (:func:`_big_table_init`)."""
     userdim, itemdim = tower_dims(cfg, schema)
     D = cfg.hidden_units
+    big = cfg.pack_big_tables and is_packed_scale(itemnum + 1, D)
     params = {
-        "item_emb": _emb_init(gen, itemnum + 1, D,
+        "item_emb": _big_table_init(gen, itemnum + 1, D,
+                                    torch_dtype(cfg.table_dtype), device)
+        if big else _emb_init(gen, itemnum + 1, D,
                               torch_dtype(cfg.table_dtype)),
         "user_emb": _emb_init(gen, usernum + 1, D),
         "pos_emb": _emb_init(gen, 2 * cfg.maxlen + 1, D),
@@ -138,12 +171,17 @@ class _ClampedTake(torch.autograd.Function):
         return dtable, None
 
 
-def masked_take(table: torch.Tensor, ids: torch.Tensor,
-                dtype=None) -> torch.Tensor:
+def masked_take(table, ids: torch.Tensor, dtype=None,
+                site: Optional[str] = None) -> torch.Tensor:
     """``table[ids] * (ids != 0)``: the padding-row-0 contract. Out-of-range
     ids clamp to the table's ends (the JAX gather's mode='clip') and send
-    no gradient to the table."""
-    emb = _ClampedTake.apply(table, ids)
+    no gradient to the table. ``table`` may be a :class:`GatheredRows`
+    (sparse-table training): ids then resolve against its rows, by the
+    host plan of call site ``site`` where the step ships one."""
+    if isinstance(table, GatheredRows):
+        emb = table.lookup(ids, site=site)
+    else:
+        emb = _ClampedTake.apply(table, ids)
     if dtype is not None:
         emb = emb.to(dtype)
     return emb * (ids != 0)[..., None].to(emb.dtype)
@@ -198,11 +236,14 @@ def item_tower(params: Mapping, ids: torch.Tensor,
                item_sparse: torch.Tensor, item_array: torch.Tensor,
                mm_vecs: Mapping[str, torch.Tensor],
                fused: FusedVocab, schema: FeatureSchema,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig,
+               lookup_site: Optional[str] = None) -> torch.Tensor:
     """Item-token embedding: id emb ++ sparse ++ array-sum ++ mm-proj -> DNN
-    (feature order: id, ITEM_SPARSE, ITEM_ARRAY, continual, mm)."""
+    (feature order: id, ITEM_SPARSE, ITEM_ARRAY, continual, mm).
+    ``lookup_site`` names this call site for the sparse-training plans."""
     dtype = torch_dtype(cfg.dtype)
-    feats = [masked_take(params["item_emb"], ids, dtype=dtype)]
+    feats = [masked_take(params["item_emb"], ids, dtype=dtype,
+                         site=lookup_site)]
     if fused.n_item_sparse:
         offs, sizes = _slot_layout(fused, S.ITEM_SPARSE_IDS)
         sp = fused_feature_lookup(params["fused_feat"], item_sparse, offs,
@@ -221,9 +262,11 @@ def item_tower(params: Mapping, ids: torch.Tensor,
 
 def user_tower(params: Mapping, ids: torch.Tensor,
                user_sparse: torch.Tensor, user_array: torch.Tensor,
-               fused: FusedVocab, cfg: ModelConfig) -> torch.Tensor:
+               fused: FusedVocab, cfg: ModelConfig,
+               lookup_site: Optional[str] = None) -> torch.Tensor:
     dtype = torch_dtype(cfg.dtype)
-    feats = [masked_take(params["user_emb"], ids, dtype=dtype)]
+    feats = [masked_take(params["user_emb"], ids, dtype=dtype,
+                         site=lookup_site)]
     if fused.n_user_sparse:
         offs, sizes = _slot_layout(fused, S.USER_SPARSE_IDS)
         sp = fused_feature_lookup(params["fused_feat"], user_sparse, offs,
@@ -275,7 +318,8 @@ def fuse_sequence(params: Mapping, batch: Mapping, mm_tables: Mapping,
         item_ids = torch.where(tt == 1, seq, zero)
         mm_vecs = gather_mm(mm_tables, item_ids, schema, dtype=dtype)
         it = item_tower(params, item_ids, batch["seq_item_sparse"],
-                        batch["seq_item_array"], mm_vecs, fused, schema, cfg)
+                        batch["seq_item_array"], mm_vecs, fused, schema, cfg,
+                        lookup_site="seq")
 
     K = MAX_USER_TOKENS_PER_ROW
     B, L = seq.shape
@@ -290,7 +334,8 @@ def fuse_sequence(params: Mapping, batch: Mapping, mm_tables: Mapping,
     rows = torch.arange(B, device=seq.device)[:, None]
     spk = batch["seq_user_sparse"][rows, posk] * vk[..., None]
     ark = batch["seq_user_array"][rows, posk] * vk[..., None, None]
-    utk = user_tower(params, uk, spk, ark, fused, cfg)         # [B, K, D]
+    utk = user_tower(params, uk, spk, ark, fused, cfg,
+                     lookup_site="user")                       # [B, K, D]
 
     def zshape(t):
         return torch.zeros((1, 1) + tuple(t.shape[2:]), dtype=t.dtype,

@@ -28,7 +28,8 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = {"fused_block": "fused_block.cu",
            "fused_block_bwd": "fused_block_bwd.cu",
            "flash_attention": "flash_attention.cu",
-           "hstu_attention": "hstu_attention.cu"}
+           "hstu_attention": "hstu_attention.cu",
+           "sparse_table": "sparse_table.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,15 +1,25 @@
-"""Training objective: the reference BCE and its L2 embedding penalty.
+"""Training objectives: the reference BCE and its L2 embedding penalty, and
+the sampled softmax with logQ correction.
 
-Counterpart of ``tencent_recommendation_2025_tpu/ops/losses.py`` (l.25-55):
-mean BCE-with-logits over positions whose next token is an item, positives
-labelled 1 and the single uniform negative labelled 0, plus BaseLine's
-explicit ``l2_emb * ||item_emb||`` (L2 norm, *not* squared). Sampled
-softmax is not ported yet: ROADMAP Queue 1, Sampled softmax.
+Counterpart of ``tencent_recommendation_2025_tpu/ops/losses.py``:
+
+- BCE: mean BCE-with-logits over positions whose next token is an item,
+  positives labelled 1 and the single uniform negative labelled 0, plus
+  BaseLine's explicit ``l2_emb * ||item_emb||`` (L2 norm, *not* squared);
+- sampled softmax: softmax cross-entropy over [positive | shared
+  negatives] with the logQ correction ``logit_j - log Q(j)`` on the sampled
+  candidates, accidental hits and padding candidates masked out; the
+  in-batch candidates (:func:`inbatch_candidates`) reuse the positives'
+  tower outputs with their empirical-frequency logQ.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+
+from .sparse_table import GatheredRows
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -30,6 +40,74 @@ def reference_bce_loss(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
             + (bce_with_logits(neg, torch.zeros_like(neg)) * m).sum() / n)
 
 
-def l2_emb_penalty(item_emb: torch.Tensor, l2_emb: float) -> torch.Tensor:
-    """BaseLine's ``l2_emb * torch.norm(item_emb)``: L2 norm, not squared."""
+def l2_emb_penalty(item_emb, l2_emb: float) -> torch.Tensor:
+    """BaseLine's ``l2_emb * torch.norm(item_emb)``: L2 norm, not squared.
+    Under sparse-table training (a :class:`GatheredRows`) it covers the
+    step's touched rows only."""
+    if isinstance(item_emb, GatheredRows):
+        item_emb = item_emb.rows
     return l2_emb * torch.sqrt((item_emb.float() ** 2).sum())
+
+
+def sampled_softmax_loss(query: torch.Tensor, pos_emb: torch.Tensor,
+                         neg_embs: torch.Tensor, neg_ids: torch.Tensor,
+                         pos_ids: torch.Tensor, loss_mask: torch.Tensor,
+                         num_items: int, temperature: float = 1.0,
+                         neg_logq: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Sampled softmax with logQ correction and accidental-hit masking.
+
+    query [B, L, D] encoder outputs, pos_emb [B, L, D] positive item
+    embeddings, neg_embs [N, D] shared negatives, neg_ids [N] and pos_ids
+    [B, L] for the masking, loss_mask [B, L] bool. ``neg_logq`` [N] is each
+    candidate's log sampling probability; None means all-uniform, -log
+    ``num_items``. Candidates with id <= 0 (padding slots of the in-batch
+    selection) and accidental hits (a candidate equal to the row's
+    positive) are masked out; the positive is not sampled and takes no
+    correction. The mean over masked positions, in f32."""
+    f32 = torch.float32
+    q = query.float() / temperature
+    pos_logit = (q * pos_emb.float()).sum(-1)                       # [B, L]
+    neg_logit = torch.einsum("bld,nd->bln", q, neg_embs.float())    # [B, L, N]
+    if neg_logq is None:
+        neg_logq = torch.full((neg_ids.shape[0],), -float(torch.log(
+            torch.tensor(float(num_items), dtype=f32))), dtype=f32,
+            device=q.device)
+    neg_logit = neg_logit - neg_logq[None, None, :]
+    hit = (neg_ids[None, None, :] == pos_ids[..., None]) \
+        | (neg_ids <= 0)[None, None, :]
+    neg_logit = torch.where(hit, torch.finfo(f32).min, neg_logit)
+    logits = torch.cat([pos_logit[..., None], neg_logit], -1)
+    nll = -torch.log_softmax(logits, -1)[..., 0]
+    m = loss_mask.float()
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def inbatch_candidates(pos_ids: torch.Tensor, pos_embs: torch.Tensor,
+                       loss_mask: torch.Tensor, n: int,
+                       gen: Optional[torch.Generator] = None,
+                       idx: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``n`` in-batch negative candidates from the batch's positives:
+    uniformly drawn positions of ``pos_ids`` [B, L] (``idx`` [n] into the
+    flattened positions when given, else drawn from ``gen``), reusing the
+    positives' tower outputs ``pos_embs`` [B, L, D]. Returns (ids [n], embs
+    [n, D], logq [n]): logQ is the exact per-candidate probability of this
+    draw, count_batch(j) / n_valid over the valid positions. Draws that land
+    on an invalid position get id 0, which the loss masks out."""
+    f32 = torch.float32
+    flat_ids = pos_ids.reshape(-1)
+    flat_valid = loss_mask.reshape(-1)
+    D = pos_embs.shape[-1]
+    if idx is None:
+        idx = torch.randint(0, flat_ids.shape[0], (n,), generator=gen,
+                            device=flat_ids.device)
+    idx = idx.long()
+    cand_ids = torch.where(flat_valid[idx], flat_ids[idx],
+                           torch.zeros_like(flat_ids[idx]))
+    cand_embs = pos_embs.reshape(-1, D)[idx]
+    match = (flat_ids[None, :] == cand_ids[:, None]) & flat_valid[None, :]
+    counts = match.sum(1).to(f32)
+    n_valid = torch.clamp(flat_valid.sum().to(f32), min=1.0)
+    logq = torch.log(torch.clamp(counts, min=1.0)) - torch.log(n_valid)
+    return cand_ids, cand_embs, logq

@@ -1,18 +1,61 @@
-"""Host-planned lookups with a scatter-free backward.
+"""Sparse embedding-table training: host-planned lookups, the dedup'd row
+gather, row-sparse optimizers and whole-group write-back.
 
-Counterpart of the non-kernel head of
-``tencent_recommendation_2025_tpu/ops/sparse_table.py`` (l.45-96): the
-tower-dedup path (train/trainer.augment_batch_dedup) runs the item tower
-once per unique candidate id and spreads its rows to every consumer site by
-a plan the host builds. The rest of that file (gathered-row sparse
-training, the packed-table group kernels) is not ported yet: ROADMAP Queue
-1, Sparse tables.
+Counterpart of ``tencent_recommendation_2025_tpu/ops/sparse_table.py`` for
+one device. A table listed in ``train.sparse_tables`` trains by the
+gather-train pattern:
+
+1. the host collects every id the step touches and dedups it into sorted
+   ``uids`` [K], padded with the sentinel = the table's row count
+   (:func:`host_unique_touched`, in the input pipeline);
+2. the step gathers those K rows once; the loss is differentiated with
+   respect to the gathered rows [K, D], never the [V, D] table;
+3. lookups inside the model resolve ids against the gathered rows
+   (:class:`GatheredRows`, through ``embedding.masked_take``), by a host
+   plan per call site (:func:`planned_lookup`, a scatter-free backward) or
+   by ``searchsorted``;
+4. the optimizer updates only the K touched rows (:func:`compute_row_update`:
+   ``lazy_adam`` with SparseAdam's global step, or ``rowwise_adagrad`` with
+   one f32 accumulator a row), written back in place.
+
+Tables of ``TABLE_PACK_MIN_ROWS`` (30M) rows and more pad to ``Vp =
+padded_table_rows(rows)`` rows and write back whole groups of R = 1024 / D
+rows (:func:`host_group_plan`, :func:`group_scatter_apply`): the JAX
+package stores them packed [Vp / R, 8, 128] for the TPU's layout. The port
+keeps the table [Vp, D], which is that packed array's bytes, row-major, and
+takes the write groups as the view ``table.view(Vp // R, R * D)``. On a
+CUDA tensor the group write is the hand-written kernel
+``csrc/sparse_table.cu::group_scatter_kernel`` (:func:`group_scatter`,
+replacing ``pallas_group_scatter``, l.391-476); its gather twin
+``group_gather_kernel`` (:func:`group_gather`, replacing
+``pallas_group_gather``, l.479-544) is on no product path, as in the JAX
+package: :func:`gather_rows_grouped` takes the plain dim-0 gather. Each
+wrapper takes its plain version for a CPU tensor and launches its kernel
+for a CUDA tensor (counted in ``group_scatter.launches`` and
+``group_gather.launches``); it never falls back. 1-D state (the rowwise
+accumulator) and tables below packed scale take a plain row write
+(``index_copy_``), as they take XLA's scatter in the JAX package; a table
+at packed scale never does (the trainer refuses a batch without its group
+plan).
+
+The mesh-sharded tables (``host_shard_plan``, ``sharded_*``) belong to the
+multi-device layer and are not ported (ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+from typing import Dict, Optional, Tuple
+
 import numpy as np
 import torch
+
+from . import kernels
+
+# ---------------------------------------------------------------------------
+# host-planned lookups
+# ---------------------------------------------------------------------------
 
 
 class PlannedLookup(torch.autograd.Function):
@@ -60,3 +103,435 @@ def build_lookup_plan(uids_np, ids_np):
     ends = np.cumsum(counts).astype(np.int32)
     starts = (ends - counts).astype(np.int32)
     return {"idx": idx, "perm": perm, "starts": starts, "ends": ends}
+
+
+@dataclasses.dataclass
+class GatheredRows:
+    """A table stand-in holding only the step's touched rows: ``uids`` [K]
+    sorted unique ids (sentinel-padded with the row count) and ``rows``
+    [K, D]. ``embedding.masked_take`` resolves ids against it, so every
+    call site works unchanged and the gradient lands on the [K, D] rows.
+
+    ``plans`` maps a lookup-site name ("seq", "posneg", "pos_last", "negs",
+    "dedup", "user") to a host plan (:func:`build_lookup_plan`); a site
+    without one resolves by ``searchsorted``."""
+
+    uids: torch.Tensor
+    rows: torch.Tensor
+    plans: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def shape(self):
+        return self.rows.shape
+
+    def lookup(self, ids: torch.Tensor, site: Optional[str] = None
+               ) -> torch.Tensor:
+        """Rows for ``ids`` [...] -> [..., D]; the caller applies the
+        padding mask."""
+        plan = self.plans.get(site) if site is not None else None
+        if plan is not None and tuple(plan["idx"].shape) == tuple(ids.shape):
+            return planned_lookup(self.rows, plan["idx"], plan["perm"],
+                                  plan["starts"], plan["ends"])
+        idx = torch.searchsorted(self.uids, ids.to(self.uids.dtype)
+                                 .contiguous())
+        return self.rows[idx.clamp(0, self.rows.shape[0] - 1)]
+
+
+def unique_touched(ids: torch.Tensor, capacity: int, vocab_rows: int
+                   ) -> torch.Tensor:
+    """Sorted unique ids padded to ``capacity`` with the sentinel
+    ``vocab_rows``, on the device: the step's fallback when the batch ships
+    no ``touched_uids`` (the host prep, :func:`host_unique_touched`, is the
+    product path)."""
+    u = torch.unique(ids.reshape(-1))[:capacity]
+    out = torch.full((capacity,), vocab_rows, dtype=ids.dtype,
+                     device=ids.device)
+    out[:len(u)] = u
+    return out
+
+
+def host_unique_touched(ids_np, capacity: int, vocab_rows: int):
+    """Host (numpy) twin of :func:`unique_touched`: run it in the data
+    pipeline and ship ``touched_uids`` with the batch."""
+    u = np.unique(np.asarray(ids_np).reshape(-1))
+    out = np.full((capacity,), vocab_rows, dtype=np.int32)
+    out[: min(len(u), capacity)] = u[:capacity]
+    return out
+
+
+def row_take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for 1-D state or [V, D] tables, ids clamped to the
+    rows (the JAX gather's mode='clip')."""
+    return table[ids.long().clamp(0, table.shape[0] - 1)]
+
+
+def gather_rows(table: torch.Tensor, uids: torch.Tensor) -> GatheredRows:
+    rows = row_take(table, uids)
+    # sentinel lanes read a clamped row; zero them so they contribute nothing
+    return GatheredRows(uids, rows * (uids < table.shape[0])[:, None]
+                        .to(rows.dtype))
+
+
+# ---------------------------------------------------------------------------
+# row-sparse optimizer states and updates
+# ---------------------------------------------------------------------------
+
+def init_table_opt(table: torch.Tensor, kind: str,
+                   moments_dtype: str = "float32") -> Dict[str, torch.Tensor]:
+    """``lazy_adam``: moments shaped as the table in ``moments_dtype``;
+    ``rowwise_adagrad``: one f32 accumulator a row."""
+    if kind == "lazy_adam":
+        dt = {"float32": torch.float32,
+              "bfloat16": torch.bfloat16}[moments_dtype]
+        return {"mu": torch.zeros_like(table, dtype=dt),
+                "nu": torch.zeros_like(table, dtype=dt)}
+    if kind == "rowwise_adagrad":
+        return {"acc": torch.zeros(table.shape[0], dtype=torch.float32,
+                                   device=table.device)}
+    raise ValueError(f"unknown table optimizer {kind!r}")
+
+
+def compute_row_update(table: torch.Tensor, opt: Dict, uids: torch.Tensor,
+                       drows: torch.Tensor, *, kind: str, lr: float,
+                       step: int, b1: float = 0.9, b2: float = 0.98,
+                       eps: float = 1e-8, weight_decay: float = 0.0,
+                       rows0: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """Row math only (gathers, no writes): new values for the rows in
+    ``uids`` from their gradient ``drows`` [K, D]. Returns (new_rows [K, D]
+    in the table's dtype, new optimizer-state rows). ``step`` is the
+    1-based global step of Adam's bias correction (SparseAdam: touched rows
+    correct with the global t); ``rows0``, the forward's gathered rows,
+    saves a second table gather. The math runs in f32; sentinel rows get a
+    zero gradient and keep their value."""
+    f32 = torch.float32
+    g = drows.to(f32)
+    rows = (rows0 if rows0 is not None else row_take(table, uids)).to(f32)
+    ok = (uids < table.shape[0])[:, None].to(f32)
+    g = g * ok
+    if kind == "lazy_adam":
+        mu_r = row_take(opt["mu"], uids).to(f32)
+        nu_r = row_take(opt["nu"], uids).to(f32)
+        mu_r = b1 * mu_r + (1 - b1) * g
+        nu_r = b2 * nu_r + (1 - b2) * g * g
+        # the bias corrections in f32, as the JAX package computes them
+        t = np.float32(step)
+        mu_hat = mu_r / float(np.float32(1) - np.float32(b1) ** t)
+        nu_hat = nu_r / float(np.float32(1) - np.float32(b2) ** t)
+        upd = mu_hat / (torch.sqrt(nu_hat) + eps)
+        if weight_decay:
+            upd = upd + weight_decay * rows
+        new_rows = rows - lr * upd * ok
+        opt_rows = {"mu": mu_r.to(opt["mu"].dtype),
+                    "nu": nu_r.to(opt["nu"].dtype)}
+    elif kind == "rowwise_adagrad":
+        acc_r = row_take(opt["acc"], uids) + (g * g).mean(-1)
+        upd = g * torch.rsqrt(acc_r + eps)[:, None]
+        if weight_decay:
+            upd = upd + weight_decay * rows
+        new_rows = rows - lr * upd * ok
+        opt_rows = {"acc": acc_r}
+    else:
+        raise ValueError(f"unknown table optimizer {kind!r}")
+    return new_rows.to(table.dtype), opt_rows
+
+
+# ---------------------------------------------------------------------------
+# tables at packed scale: padding and whole-group writes
+# ---------------------------------------------------------------------------
+
+#: tables of this many rows and more train in whole write groups (the JAX
+#: package's threshold: where its TPU layout stops fitting one chip)
+TABLE_PACK_MIN_ROWS = 30_000_000
+#: pad unit of such a table: the lcm of the group sizes at D | 128 (R <= 16)
+#: times the JAX package's largest table-shard count
+_PAD_ROWS = 256
+#: K, the group plan's length, is a multiple of this (the JAX kernel's id
+#: chunk)
+_SCATTER_CSC = 1024
+#: groups per merge-and-write chunk of :func:`group_scatter_apply`: bounds
+#: its temporaries where the table fills most of the card (100M rows)
+_SCATTER_CHUNK_GROUPS = 65536
+
+
+def padded_table_rows(rows: int) -> int:
+    """Physical rows of a learned table of ``rows`` logical rows: tables at
+    packed scale pad to a multiple of 256, so they split into whole groups
+    for any supported D. The pad rows are zero and never read."""
+    if rows >= TABLE_PACK_MIN_ROWS:
+        return -(-rows // _PAD_ROWS) * _PAD_ROWS
+    return rows
+
+
+def scatter_group_rows(dim: int) -> Optional[int]:
+    """Rows per write group: 1024 elements of ``dim``-wide rows, whatever
+    the dtype (the JAX package's [8, 128] tile). None when ``dim`` does not
+    divide 128."""
+    if dim > 128 or 128 % dim:
+        return None
+    return 8 * (128 // dim)
+
+
+def is_packed_scale(rows: int, dim: int) -> bool:
+    """Whether a learned table of ``rows`` logical rows of ``dim`` trains at
+    packed scale: padded to :func:`padded_table_rows` and written back in
+    whole groups (the JAX package stores it packed [Vp / R, 8, 128] there).
+    The caller also checks ``model.pack_big_tables``."""
+    return scatter_group_rows(dim) is not None and rows >= TABLE_PACK_MIN_ROWS
+
+
+def host_group_plan(uids_np, vocab_rows: int, group_rows: int) -> Dict:
+    """HOST-side write plan for the group scatter. ``uids_np`` is the
+    sorted unique id list with the sentinel ``vocab_rows`` tail
+    (:func:`host_unique_touched`). With R = ``group_rows`` and K =
+    len(uids) rounded up to a multiple of 1024:
+
+    - ``groups`` [K] int32: unique touched groups, sentinel
+      ``vocab_rows // R`` (skipped by the scatter);
+    - ``slot_src`` [K, R] int32: for each group slot, the row of the step's
+      new-row tensor that goes there, or K to keep the old value;
+    - ``uid_pos`` [len(uids)] int32: each uid's row in the gathered group
+      buffer viewed [K * R, D] (sentinels point at row 0; callers mask)."""
+    uids = np.asarray(uids_np)
+    K = -(-len(uids) // _SCATTER_CSC) * _SCATTER_CSC
+    R = group_rows
+    nG = vocab_rows // R
+    real = uids < vocab_rows           # sentinels sort last -> real prefix
+    gr = uids[real] // R
+    first = np.ones(len(gr), bool)
+    first[1:] = gr[1:] != gr[:-1]
+    groups_u = gr[first]
+    groups = np.full((K,), nG, np.int32)
+    groups[: len(groups_u)] = groups_u
+    slot_src = np.full((K, R), K, np.int32)
+    gidx = np.cumsum(first) - 1        # group index of each real uid
+    slot = uids[real] % R
+    slot_src[gidx, slot] = np.arange(len(gr), dtype=np.int32)
+    uid_pos = np.zeros((len(uids),), np.int32)
+    uid_pos[: len(gr)] = gidx.astype(np.int32) * R + slot.astype(np.int32)
+    return {"groups": groups, "slot_src": slot_src, "uid_pos": uid_pos}
+
+
+def group_view(table: torch.Tensor, group_rows: int) -> torch.Tensor:
+    """The [Vp, D] table as its write groups [Vp / R, R * D] (a view)."""
+    V, D = table.shape
+    if V % group_rows:
+        raise ValueError(f"{V} table rows do not split into groups of "
+                         f"{group_rows}: pad them (padded_table_rows)")
+    return table.view(V // group_rows, group_rows * D)
+
+
+# ---------------------------------------------------------------------------
+# the group kernels: wrappers and plain versions
+# ---------------------------------------------------------------------------
+
+def group_scatter_plain(table_groups: torch.Tensor, groups: torch.Tensor,
+                        arranged: torch.Tensor) -> torch.Tensor:
+    """Plain version of the scatter kernel: ``table_groups[groups[j]] =
+    arranged[j]`` for the real groups, in place."""
+    real = (groups >= 0) & (groups < table_groups.shape[0])
+    table_groups[groups[real].long()] = arranged[real].to(table_groups.dtype)
+    return table_groups
+
+
+def group_gather_plain(table_groups: torch.Tensor, groups: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain version of the gather kernel: ``out[j] = table_groups[
+    groups[j]]`` for the real groups; the rows of sentinel groups are
+    zero here (the kernel leaves them unwritten)."""
+    real = (groups >= 0) & (groups < table_groups.shape[0])
+    out = table_groups.new_zeros((groups.shape[0], table_groups.shape[1]))
+    out[real] = table_groups[groups[real].long()]
+    return out
+
+
+def _check_groups(name: str, table_groups, groups, rows=None) -> int:
+    """Raise on operands the kernel does not take; returns the row bytes."""
+    if table_groups.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} takes an f32 or bf16 table, not "
+                         f"{table_groups.dtype}")
+    if table_groups.dim() != 2 or not table_groups.is_contiguous():
+        raise ValueError(f"{name}: the table must be a contiguous [groups, "
+                         f"width] view, not {tuple(table_groups.shape)}")
+    if groups.dtype != torch.int32 or groups.dim() != 1 \
+            or not groups.is_contiguous():
+        raise ValueError(f"{name}: groups must be a contiguous [K] int32")
+    row_bytes = table_groups.shape[1] * table_groups.element_size()
+    tensors = [table_groups, groups]
+    if rows is not None:
+        if rows.dtype != table_groups.dtype or not rows.is_contiguous() \
+                or tuple(rows.shape) != (groups.shape[0],
+                                         table_groups.shape[1]):
+            raise ValueError(f"{name}: rows must be a contiguous [K, "
+                             f"{table_groups.shape[1]}] {table_groups.dtype}")
+        tensors.append(rows)
+    if row_bytes % 16 or table_groups.data_ptr() % 16 \
+            or (rows is not None and rows.data_ptr() % 16):
+        raise ValueError(f"{name}: rows must be 16-byte aligned multiples of "
+                         "16 bytes")
+    if any(t.device != table_groups.device for t in tensors):
+        raise ValueError(f"{name}: operands on different devices")
+    return row_bytes
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _fn(name: str):
+    fn = getattr(kernels.load("sparse_table"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 \
+        + [ctypes.c_void_p]
+    return fn
+
+
+def group_scatter(table_groups: torch.Tensor, groups: torch.Tensor,
+                  arranged: torch.Tensor) -> torch.Tensor:
+    """``table_groups[groups[j]] = arranged[j]`` for every real group (the
+    sentinel ``groups[j] >= len(table_groups)`` is skipped), in place:
+    writes into the caller's tensor and returns it, with no copy of the
+    table. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (counted in ``group_scatter.launches``)."""
+    if table_groups.device.type == "cpu":
+        return group_scatter_plain(table_groups, groups, arranged)
+    if table_groups.device.type != "cuda":
+        raise ValueError(f"group_scatter: no kernel for "
+                         f"{table_groups.device}")
+    row_bytes = _check_groups("group_scatter", table_groups, groups, arranged)
+    with torch.cuda.device(table_groups.device):
+        rc = _fn("group_scatter")(
+            table_groups.data_ptr(), groups.data_ptr(), arranged.data_ptr(),
+            groups.shape[0], table_groups.shape[0], row_bytes,
+            _stream(table_groups.device))
+    if rc != 0:
+        raise RuntimeError(f"group_scatter kernel launch failed: CUDA error "
+                           f"{rc}")
+    group_scatter.launches += 1
+    return table_groups
+
+
+group_scatter.launches = 0
+
+
+def group_gather(table_groups: torch.Tensor, groups: torch.Tensor
+                 ) -> torch.Tensor:
+    """``out[j] = table_groups[groups[j]]`` for every real group; the rows
+    of sentinel groups are never written (and must not be read). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (counted
+    in ``group_gather.launches``)."""
+    if table_groups.device.type == "cpu":
+        return group_gather_plain(table_groups, groups)
+    if table_groups.device.type != "cuda":
+        raise ValueError(f"group_gather: no kernel for {table_groups.device}")
+    row_bytes = _check_groups("group_gather", table_groups, groups)
+    out = table_groups.new_empty((groups.shape[0], table_groups.shape[1]))
+    with torch.cuda.device(table_groups.device):
+        rc = _fn("group_gather")(
+            table_groups.data_ptr(), groups.data_ptr(), out.data_ptr(),
+            groups.shape[0], table_groups.shape[0], row_bytes,
+            _stream(table_groups.device))
+    if rc != 0:
+        raise RuntimeError(f"group_gather kernel launch failed: CUDA error "
+                           f"{rc}")
+    group_gather.launches += 1
+    return out
+
+
+group_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# grouped gather and write-back of a table at packed scale
+# ---------------------------------------------------------------------------
+
+def gather_rows_grouped(table: torch.Tensor, uids: torch.Tensor,
+                        group_plan: Dict, dim: int,
+                        plans: Optional[Dict] = None
+                        ) -> Tuple[GatheredRows, torch.Tensor]:
+    """(GatheredRows for ``uids``, the gathered group buffer [K, R * D])
+    from a table at packed scale: one plain dim-0 gather of the touched
+    groups (the JAX package measured it faster than its Pallas gather, and
+    takes it), then the touched rows out of that buffer. The buffer is the
+    old content :func:`group_scatter_apply` merges with."""
+    R = group_plan["slot_src"].shape[1]
+    groups_view = group_view(table, R)
+    group_buf = groups_view[group_plan["groups"].long()
+                            .clamp(0, groups_view.shape[0] - 1)]
+    rows = group_buf.view(-1, dim)[group_plan["uid_pos"].long()]
+    rows = rows * (uids < table.shape[0])[:, None].to(rows.dtype)
+    return GatheredRows(uids, rows, plans or {}), group_buf
+
+
+def group_scatter_apply(buf: torch.Tensor, vals: torch.Tensor,
+                        group_plan: Dict,
+                        old: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``buf[uids] = vals`` on a [Vp, D] buffer at packed scale, as whole
+    group writes, in place: each touched group's merged content (new rows
+    at touched slots, old rows elsewhere: a gather and a ``where``, no row
+    scatter), then :func:`group_scatter`, one launch per chunk of
+    ``_SCATTER_CHUNK_GROUPS`` groups so the temporaries stay O(chunk).
+    ``old``: the group buffer of :func:`gather_rows_grouped`, when the
+    groups were gathered this step."""
+    groups, slot_src = group_plan["groups"], group_plan["slot_src"]
+    K, R = slot_src.shape
+    D = vals.shape[-1]
+    if R * D != 8 * 128:
+        raise ValueError(f"a group plan of {R} rows does not fit rows of "
+                         f"{D}")
+    table_groups = group_view(buf, R)
+    nG = table_groups.shape[0]
+    vals_ext = torch.cat([vals.to(buf.dtype), vals.new_zeros((1, D),
+                                                             dtype=buf.dtype)])
+    step = max(_SCATTER_CSC,
+               min(K, -(-_SCATTER_CHUNK_GROUPS // _SCATTER_CSC)
+                   * _SCATTER_CSC))
+    for lo in range(0, K, step):
+        hi = min(lo + step, K)
+        g = groups[lo:hi]
+        ss = slot_src[lo:hi].long()
+        picked = vals_ext[ss.clamp(max=vals_ext.shape[0] - 1)]   # [k, R, D]
+        old_k = old[lo:hi] if old is not None \
+            else table_groups[g.long().clamp(0, nG - 1)]
+        arranged = torch.where((ss < K)[..., None], picked,
+                               old_k.view(hi - lo, R, D))
+        group_scatter(table_groups, g, arranged.reshape(hi - lo, R * D))
+    return buf
+
+
+def scatter_row_update(table: torch.Tensor, opt: Dict, uids: torch.Tensor,
+                       new_rows: torch.Tensor, opt_rows: Dict,
+                       group_plan: Optional[Dict] = None,
+                       table_old: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """Write-only companion of :func:`compute_row_update`, in place. With a
+    host ``group_plan`` (tables at packed scale) every [Vp, D] buffer
+    writes whole groups (:func:`group_scatter_apply`); 1-D state and
+    tables below packed scale take a row write of the real uids (sentinels
+    dropped). A table at packed scale must come with its plan: the trainer
+    refuses a batch without one (``trainer.sparse_loss_backward``)."""
+    real = uids < table.shape[0]
+    idx = uids[real].long()
+
+    def one(buf, vals, old=None):
+        if group_plan is not None and buf.dim() == 2:
+            return group_scatter_apply(buf, vals, group_plan, old=old)
+        return buf.index_copy_(0, idx, vals[real].to(buf.dtype))
+
+    table = one(table, new_rows, old=table_old)
+    opt = {k: one(opt[k], v) for k, v in opt_rows.items()}
+    return table, opt
+
+
+def apply_row_update(table: torch.Tensor, opt: Dict, uids: torch.Tensor,
+                     drows: torch.Tensor, group_plan: Optional[Dict] = None,
+                     rows0: Optional[torch.Tensor] = None,
+                     table_old: Optional[torch.Tensor] = None,
+                     **kw) -> Tuple[torch.Tensor, Dict]:
+    """:func:`compute_row_update` then :func:`scatter_row_update`, in
+    place. At packed scale pass ``rows0`` and ``table_old`` from
+    :func:`gather_rows_grouped`, so the table is not gathered again."""
+    new_rows, opt_rows = compute_row_update(table, opt, uids, drows,
+                                            rows0=rows0, **kw)
+    return scatter_row_update(table, opt, uids, new_rows, opt_rows,
+                              group_plan=group_plan, table_old=table_old)

@@ -6,11 +6,13 @@ its directory contract: ``global_step{N}.valid_loss={v}/`` holding one
 dtypes) and ``meta.json`` (step, loss, epoch and the model config).
 Parameters sit under the ``0/`` subtree, where a train state keeps them, so
 either package's reader finds them. A train state written by the port keeps
-its AdamW moments under ``1/<param path>/{exp_avg,exp_avg_sq}`` and its step
-as ``2``, with ``"state_format": "torch"`` in the meta. Loading checks the
-saved model config against the model's, as the JAX package does. Reading a
-JAX-written optimizer state is not ported yet (ROADMAP Queue 1,
-Resilience).
+its AdamW moments under ``1/<param path>/{exp_avg,exp_avg_sq}``, a
+sparse-trained table's row-optimizer state under ``1/tables/<table>/<key>``
+(``mu``, ``nu`` or ``acc``) and its step as ``2``, with ``"state_format":
+"torch"`` in the meta. A table at packed scale is saved as the port holds
+it, [Vp, D] with its pad rows. Loading checks the saved model config
+against the model's, as the JAX package does. Reading a JAX-written
+optimizer state is not ported yet (ROADMAP Queue 1, Resilience).
 """
 
 from __future__ import annotations
@@ -131,8 +133,8 @@ def save_checkpoint(ckpt_dir, state, global_step: int,
                     valid_loss: float = 0.0, extra_meta: Optional[dict] = None,
                     model_config=None) -> Path:
     """Write a train state (``train.trainer.TrainState``): its parameters
-    under ``0/`` as :func:`save_params` does, the AdamW moments under
-    ``1/``, the step as ``2``."""
+    under ``0/`` as :func:`save_params` does, the AdamW moments and the
+    tables' row-optimizer state under ``1/``, the step as ``2``."""
     params = _flatten(state.params)
     leaves = {f"0/{p}": t for p, t in params.items()}
     for p, t in params.items():
@@ -140,6 +142,9 @@ def save_checkpoint(ckpt_dir, state, global_step: int,
         for k in ("exp_avg", "exp_avg_sq"):
             if k in st:
                 leaves[f"1/{p}/{k}"] = st[k]
+    for name, opt in state.tables.items():
+        for k, t in opt.items():
+            leaves[f"1/tables/{name}/{k}"] = t
     leaves["2"] = torch.tensor(state.step, dtype=torch.int64)
     meta = _meta(global_step, valid_loss, model_config,
                  dict(extra_meta or {}, state_format="torch"))
@@ -150,7 +155,7 @@ def load_checkpoint(path, model, cfg, device="cpu"):
     """(train state, meta) from a checkpoint the port wrote with
     :func:`save_checkpoint` (``path`` a checkpoint directory, or a
     directory holding them: the newest is taken)."""
-    from .trainer import init_state, param_leaves
+    from .trainer import dense_leaves, init_state
 
     path = Path(path)
     if not (path / MANIFEST_FILE).exists():
@@ -164,31 +169,35 @@ def load_checkpoint(path, model, cfg, device="cpu"):
             "reading the optimizer state of a JAX-written checkpoint is not "
             "ported yet: ROADMAP Queue 1, Resilience")
     state = init_state(model, cfg, params=params, device=device)
-    leaves = dict(_state_leaves(path))
+    leaves = dict(_state_leaves(path, device))
     step = int(leaves["2"])
     opt_state = {}
-    for i, (p, _) in enumerate(param_leaves(state.params)):
+    for i, (p, _) in enumerate(dense_leaves(state.params, cfg)):
         if f"1/{p}/exp_avg" in leaves:
-            opt_state[i] = {
-                "step": torch.tensor(float(step)),
-                "exp_avg": torch.as_tensor(leaves[f"1/{p}/exp_avg"],
-                                           device=device),
-                "exp_avg_sq": torch.as_tensor(leaves[f"1/{p}/exp_avg_sq"],
-                                              device=device)}
+            opt_state[i] = {"step": torch.tensor(float(step)),
+                            "exp_avg": leaves[f"1/{p}/exp_avg"],
+                            "exp_avg_sq": leaves[f"1/{p}/exp_avg_sq"]}
     sd = state.opt.state_dict()
     sd["state"] = opt_state
     state.opt.load_state_dict(sd)
+    for name, opt in state.tables.items():
+        for k in opt:
+            opt[k] = leaves[f"1/tables/{name}/{k}"]
     state.step = step
     return state, meta
 
 
-def _state_leaves(path):
-    """(tree path, numpy array) of every leaf of a port-written checkpoint
-    (f32 and int leaves only: the optimizer state and the step)."""
+def _state_leaves(path, device="cpu"):
+    """(tree path, tensor on ``device``) of every leaf of a port-written
+    checkpoint outside the parameters: the optimizer states and the
+    step."""
     manifest = json.loads((Path(path) / MANIFEST_FILE).read_text())
     for e in manifest["leaves"]:
         if not e["path"].startswith("0/"):
-            yield e["path"], np.load(Path(path) / e["file"])
+            t = torch.from_numpy(np.load(Path(path) / e["file"]))
+            if e["dtype"] == "bfloat16":
+                t = t.view(torch.bfloat16)
+            yield e["path"], t.to(device)
 
 
 def load_params(path, model=None, device="cpu") -> Tuple[dict, dict]:

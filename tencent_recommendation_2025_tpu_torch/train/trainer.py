@@ -1,16 +1,23 @@
-"""Training: train and eval steps, tower-dedup prep, epoch loop.
+"""Training: train and eval steps, the host preps, epoch loop.
 
 Counterpart of ``tencent_recommendation_2025_tpu/train/trainer.py`` for one
-device and dense tables: the BCE loss, backward (the fused block's backward
-kernel on the card), AdamW, per-epoch validation and checkpoints. PyTorch
-runs eagerly, so a step is a plain function; the train state is updated in
-place (the JAX package's is immutable and donated), which keeps one copy of
-the parameters and optimizer moments.
+device: the BCE or sampled-softmax loss, backward (the fused block's
+backward kernel on the card), AdamW over the dense parameters, per-epoch
+validation and checkpoints. Tables listed in ``train.sparse_tables``
+(``item_emb``, ``user_emb``) train by the gather-train pattern of
+``ops/sparse_table.py``: the host dedups the step's touched ids
+(:func:`augment_batch_sparse`), the step differentiates the loss with
+respect to the gathered rows only and updates them with a row-sparse
+optimizer, in place; a table at packed scale (30M+ rows) writes back whole
+groups through the group-scatter kernel. PyTorch runs eagerly, so a step is
+a plain function; the train state is updated in place (the JAX package's is
+immutable and donated), which keeps one copy of the parameters and
+optimizer state.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: a mesh, ``sparse_tables``, ``grad_accum_steps > 1``, the sampled
-softmax loss, ``eval_retrieval_users > 0``, and the SIGTERM / preemption
-checkpoint with its mid-epoch resume.
+item: an explicit mesh (a preset's ``cfg.mesh`` trains single-device, as
+the JAX CLI falls back), ``grad_accum_steps > 1``, ``eval_retrieval_users >
+0``, and the SIGTERM / preemption checkpoint with its mid-epoch resume.
 """
 
 from __future__ import annotations
@@ -25,12 +32,12 @@ import numpy as np
 import torch
 
 from ..bridge import _flatten
-from ..config import Config
+from ..config import MAX_USER_TOKENS_PER_ROW, Config
 from ..data.featurizer import ItemFeatureTables
 from ..data.pipeline import prefetch
 from ..models.baseline import SeqRecModel
 from ..ops import losses as LS
-from ..ops.sparse_table import build_lookup_plan
+from ..ops import sparse_table as ST
 from . import telemetry as T
 
 
@@ -40,19 +47,18 @@ def _unported(what: str, item: str):
 
 
 def check_supported(cfg: Config, mesh=None) -> None:
-    """Raise on the training options the port does not cover yet."""
+    """Raise on the training options the port does not cover yet. A
+    preset's ``cfg.mesh`` is not one of them: the port trains it on one
+    device, as the JAX CLI does where the devices are missing."""
     t = cfg.train
-    if mesh is not None or cfg.mesh.data * cfg.mesh.model * cfg.mesh.seq \
-            * cfg.mesh.pipe > 1:
+    if mesh is not None:
         _unported("training on a device mesh", "Multi-device layer")
-    if t.sparse_tables:
-        _unported("sparse-table training (train.sparse_tables)",
-                  "Sparse tables and grad accumulation")
+    if not set(t.sparse_tables) <= {"item_emb", "user_emb"}:
+        raise ValueError("train.sparse_tables takes subsets of (item_emb, "
+                         f"user_emb), not {t.sparse_tables}")
     if t.grad_accum_steps > 1:
         _unported("gradient accumulation (train.grad_accum_steps > 1)",
                   "Sparse tables and grad accumulation")
-    if t.loss_type != "bce":
-        _unported(f"the {t.loss_type} loss", "Sampled softmax")
     if t.eval_retrieval_users > 0:
         _unported("epoch-end retrieval eval (train.eval_retrieval_users)",
                   "Retrieval tiers")
@@ -60,11 +66,15 @@ def check_supported(cfg: Config, mesh=None) -> None:
 
 @dataclasses.dataclass
 class TrainState:
-    """Parameters (a nested dict of f32 leaves that take gradients), their
-    AdamW optimizer and the count of steps taken."""
+    """Parameters (a nested dict; f32 leaves that take gradients, and the
+    sparse-trained tables, which do not), the dense leaves' AdamW, each
+    sparse table's row-optimizer state (``tables``: name -> {"mu", "nu"}
+    or {"acc"}) and the count of steps taken."""
     params: Dict
     opt: torch.optim.Optimizer
     step: int = 0
+    tables: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(
+        default_factory=dict)
 
 
 def lr_at_step(tcfg, step: int) -> float:
@@ -86,12 +96,21 @@ def param_leaves(params: Mapping):
     return list(_flatten(params).items())
 
 
+def dense_leaves(params: Mapping, cfg: Config):
+    """:func:`param_leaves` without the sparse-trained tables: the leaves
+    AdamW updates."""
+    sparse = set(cfg.train.sparse_tables)
+    return [(p, t) for p, t in param_leaves(params)
+            if p.split("/")[0] not in sparse]
+
+
 def make_optimizer(cfg: Config, params: Mapping) -> torch.optim.Optimizer:
-    """AdamW as optax builds it: eps 1e-8 outside the square root, weight
-    decay on every leaf (none with ``weight_decay == 0``: plain Adam); the
-    learning rate is set before each step from :func:`lr_at_step`."""
+    """AdamW as optax builds it over the dense leaves: eps 1e-8 outside the
+    square root, weight decay on every leaf (none with ``weight_decay ==
+    0``: plain Adam); the learning rate is set before each step from
+    :func:`lr_at_step`."""
     t = cfg.train
-    return torch.optim.AdamW([p for _, p in param_leaves(params)],
+    return torch.optim.AdamW([p for _, p in dense_leaves(params, cfg)],
                              lr=lr_at_step(t, 0), betas=(t.adam_b1, t.adam_b2),
                              eps=1e-8, weight_decay=t.weight_decay)
 
@@ -100,19 +119,29 @@ def init_state(model: SeqRecModel, cfg: Config, seed: Optional[int] = None,
                params: Optional[Mapping] = None,
                device="cpu") -> TrainState:
     """A fresh state: parameters drawn from ``seed`` (default
-    ``cfg.train.seed``), or the given ``params``, as leaves on ``device``
-    that take gradients."""
-    if params is None:
+    ``cfg.train.seed``; an item table at packed scale is drawn on
+    ``device`` itself), or copies of the given ``params``, on ``device``:
+    dense leaves that take gradients, sparse-trained tables that do not,
+    with their row-optimizer state (``cfg.train.table_optimizer``)."""
+    fresh = params is None
+    if fresh:
         seed = cfg.train.seed if seed is None else seed
-        params = model.init(torch.Generator().manual_seed(seed))
+        params = model.init(torch.Generator().manual_seed(seed),
+                            device=device)
+    sparse = set(cfg.train.sparse_tables)
 
-    def leafify(t):
+    def leafify(t, grad):
         if isinstance(t, Mapping):
-            return {k: leafify(v) for k, v in t.items()}
-        return t.detach().to(device).clone().requires_grad_(True)
+            return {k: leafify(v, grad) for k, v in t.items()}
+        t = t.detach().to(device)
+        t = t if fresh else t.clone()      # the caller keeps its tensors
+        return t.requires_grad_(True) if grad else t
 
-    params = leafify(params)
-    return TrainState(params, make_optimizer(cfg, params), 0)
+    params = {k: leafify(v, k not in sparse) for k, v in params.items()}
+    tables = {n: ST.init_table_opt(params[n], cfg.train.table_optimizer,
+                                   cfg.train.table_moments_dtype)
+              for n in cfg.train.sparse_tables}
+    return TrainState(params, make_optimizer(cfg, params), 0, tables)
 
 
 def device_tables(item_tables: ItemFeatureTables, device) -> Dict[str, Any]:
@@ -123,8 +152,11 @@ def device_tables(item_tables: ItemFeatureTables, device) -> Dict[str, Any]:
                    for k, v in item_tables.mm.items()}}
 
 
-def put_batch(batch: Mapping, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v), device=device)
+def put_batch(batch: Mapping, device) -> Dict[str, Any]:
+    """A host batch on ``device`` (nested dicts, the sparse prep's per-site
+    plans, kept nested)."""
+    return {k: put_batch(v, device) if isinstance(v, Mapping)
+            else torch.as_tensor(np.asarray(v), device=device)
             for k, v in batch.items()}
 
 
@@ -142,10 +174,13 @@ def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
                  cfg: Config, train: bool,
                  gen: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Dict]:
-    """The reference BCE over next-item positions, plus the L2 penalty on
-    the item table when ``l2_emb`` > 0."""
-    if cfg.train.loss_type != "bce":
-        _unported(f"the {cfg.train.loss_type} loss", "Sampled softmax")
+    """``train.loss_type`` "sampled_softmax": :func:`_sampled_softmax`;
+    otherwise the reference BCE over next-item positions, plus the L2
+    penalty on the item table when ``l2_emb`` > 0. ``params`` may hold
+    :class:`ops.sparse_table.GatheredRows` tables."""
+    if cfg.train.loss_type == "sampled_softmax":
+        return _sampled_softmax(model, params, batch, mm_tables,
+                                item_tables, cfg, train, gen)
     pos_logits, neg_logits, loss_mask = model.logits(
         params, batch, mm_tables, item_tables, train=train, gen=gen)
     bce = LS.reference_bce_loss(pos_logits, neg_logits, loss_mask)
@@ -156,6 +191,61 @@ def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
                   "n_mask": loss_mask.sum().float()}
 
 
+def _sampled_softmax(model: SeqRecModel, params, batch, mm_tables,
+                     item_tables, cfg: Config, train: bool,
+                     gen: Optional[torch.Generator] = None
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """Sampled softmax over [positive | shared negatives]: the positives
+    reuse the sequence item tower shifted by one (only the final column
+    runs its own tower), the negatives are ``batch["sampled_neg_ids"]``
+    (the host preps sample them) or drawn on the device, and with
+    ``num_inbatch_negatives`` > 0 the batch's positives join them with
+    their empirical logQ. With tower dedup one tower serves every site.
+    The draws come from ``gen``; without one (the eval step) from a
+    generator seeded 0, as the JAX eval step's fixed key."""
+    t = cfg.train
+    dev = batch["seq"].device
+    draw = gen if gen is not None else \
+        torch.Generator(device=dev).manual_seed(0)
+    if "dedup_uids" in batch:
+        it_seq, pos_last, neg_embs = model.dedup_spreads(params, batch,
+                                                         mm_tables)
+        log_feats = model.log2feats(params, batch, mm_tables, train=train,
+                                    gen=gen, item_tower_override=it_seq)
+        neg_ids = batch["sampled_neg_ids"]
+    else:
+        log_feats, it_seq = model.log2feats(params, batch, mm_tables,
+                                            train=train, gen=gen,
+                                            return_item_tower=True)
+        pos_last = model.pos_last(params, batch, mm_tables)
+        neg_ids = batch.get("sampled_neg_ids")
+        if neg_ids is None:
+            neg_ids = torch.randint(1, model.itemnum + 1,
+                                    (t.num_sampled_negatives,),
+                                    generator=draw, device=dev,
+                                    dtype=torch.int32)
+        neg_embs = model.candidates(params, neg_ids, mm_tables, item_tables,
+                                    "negs")
+    pos_embs = torch.cat([it_seq[:, 1:].to(pos_last.dtype), pos_last], 1)
+    loss_mask = batch["next_token_type"] == 1
+    if "sample_valid" in batch:
+        loss_mask = loss_mask & (batch["sample_valid"][:, None] > 0)
+    neg_logq = None
+    if t.num_inbatch_negatives > 0:
+        inb_ids, inb_embs, inb_logq = LS.inbatch_candidates(
+            batch["pos"], pos_embs, loss_mask, t.num_inbatch_negatives,
+            gen=draw)
+        uni = -float(torch.log(torch.tensor(float(model.itemnum))))
+        neg_logq = torch.cat([torch.full((neg_ids.shape[0],), uni,
+                                         device=dev), inb_logq])
+        neg_ids = torch.cat([neg_ids, inb_ids.to(neg_ids.dtype)])
+        neg_embs = torch.cat([neg_embs, inb_embs.to(neg_embs.dtype)])
+    loss = LS.sampled_softmax_loss(log_feats, pos_embs, neg_embs, neg_ids,
+                                   batch["pos"], loss_mask, model.itemnum,
+                                   neg_logq=neg_logq)
+    return loss, {"loss": loss.detach(), "n_mask": loss_mask.sum().float()}
+
+
 def _grad_metrics(metrics: Dict, grads) -> Dict:
     metrics = dict(metrics)
     metrics["grad_max"] = torch.stack([g.abs().max() for g in grads]).max()
@@ -163,30 +253,150 @@ def _grad_metrics(metrics: Dict, grads) -> Dict:
     return metrics
 
 
+def _sfx(name: str) -> str:
+    """Batch-key suffix of a sparse table's prep: item_emb keeps the bare
+    names, other tables append ``@<table>``."""
+    return "" if name == "item_emb" else "@" + name
+
+
+def packed_item_table(cfg: Config, itemnum: int) -> bool:
+    """Whether ``item_emb`` is at packed scale: Vp rows, written back in
+    whole groups (``ops.sparse_table.is_packed_scale``). ``user_emb`` never
+    is."""
+    return bool(cfg.model.pack_big_tables) and ST.is_packed_scale(
+        itemnum + 1, cfg.model.hidden_units)
+
+
+def _collect_touched_ids(batch, cfg: Config, name: str) -> torch.Tensor:
+    """Every id the step can touch in table ``name`` (the device fallback
+    when the batch ships no ``touched_uids``). item_emb: sequence item
+    tokens, positives, and the sampled or uniform negatives; user_emb: the
+    sequence's user tokens."""
+    tt, seq = batch["token_type"], batch["seq"]
+    zero = torch.zeros_like(seq)
+    if name == "user_emb":
+        return torch.where(tt == 2, seq, zero).reshape(-1)
+    negs = batch["sampled_neg_ids"] \
+        if cfg.train.loss_type == "sampled_softmax" else batch["neg"]
+    return torch.cat([torch.where(tt == 1, seq, zero).reshape(-1),
+                      batch["pos"].reshape(-1).to(seq.dtype),
+                      negs.reshape(-1).to(seq.dtype)])
+
+
+def sparse_loss_backward(model: SeqRecModel, cfg: Config, state: TrainState,
+                         batch, mm_tables, item_tables,
+                         gen: Optional[torch.Generator] = None):
+    """Forward and backward of a sparse-table step: per table in
+    ``train.sparse_tables`` the touched rows are gathered (by whole groups
+    at packed scale) into a :class:`ops.sparse_table.GatheredRows` whose
+    rows take the gradient; then the loss and its backward, into the dense
+    leaves' ``.grad`` and the rows' ``.grad``. Returns (loss, metrics, per
+    table {"uids", "rows", "V", "group_plan", "group_buf"})."""
+    batch = dict(batch)
+    t = cfg.train
+    if t.loss_type == "sampled_softmax" and "sampled_neg_ids" not in batch:
+        batch["sampled_neg_ids"] = torch.randint(
+            1, model.itemnum + 1, (t.num_sampled_negatives,), generator=gen,
+            device=batch["seq"].device, dtype=torch.int32)
+    params = dict(state.params)
+    per = {}
+    for name in t.sparse_tables:
+        sfx = _sfx(name)
+        table = state.params[name]
+        V = table.shape[0]
+        plans = batch.pop("sparse_plans" + sfx, {})
+        group_plan = None
+        if "scatter_groups" + sfx in batch:
+            group_plan = {k: batch.pop(f"scatter_{k}{sfx}")
+                          for k in ("groups", "slot_src", "uid_pos")}
+        elif name == "item_emb" and packed_item_table(cfg, model.itemnum):
+            # its write-back is the group kernel's, never a row write
+            raise ValueError(
+                "item_emb is at packed scale (>= TABLE_PACK_MIN_ROWS rows) "
+                "and writes back whole groups: the batch needs its host "
+                "group plan (scatter_groups, from augment_batch_sparse)")
+        if "touched_uids" + sfx in batch:
+            uids = batch.pop("touched_uids" + sfx)
+        else:
+            ids_all = _collect_touched_ids(batch, cfg, name)
+            uids = ST.unique_touched(ids_all, ids_all.shape[0], V)
+        with torch.no_grad():
+            if group_plan is not None:
+                # one dim-0 group gather feeds the forward's rows and the
+                # write-back's old group content
+                gathered, group_buf = ST.gather_rows_grouped(
+                    table, uids, group_plan, cfg.model.hidden_units)
+            else:
+                gathered, group_buf = ST.gather_rows(table, uids), None
+        rows = gathered.rows.requires_grad_(True)
+        params[name] = ST.GatheredRows(uids, rows, plans)
+        per[name] = dict(uids=uids, rows=rows, V=V, group_plan=group_plan,
+                         group_buf=group_buf)
+    loss, metrics = compute_loss(model, params, batch, mm_tables,
+                                 item_tables, cfg, train=True, gen=gen)
+    loss.backward()
+    return loss, metrics, per
+
+
 def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
     """``step(state, batch, mm_tables, item_tables) -> (state, metrics)``:
-    loss, backward, AdamW at the step's learning rate. The state updates in
-    place; the gradients stay on the leaves (``.grad``) until the next
-    step. Metrics stay on the device."""
+    loss, backward, AdamW over the dense leaves at the step's learning
+    rate. With ``train.sparse_tables`` the listed tables train row-sparse
+    (:func:`sparse_loss_backward`, then ``ops.sparse_table.
+    apply_row_update`` at ``lr_at_step(step + 1)`` and global step ``step +
+    1``), and the metrics count the step's touched rows. The state updates
+    in place; the dense gradients stay on the leaves (``.grad``) until the
+    next step. Metrics stay on the device."""
     check_supported(cfg, mesh)
+    t = cfg.train
+    sparse = tuple(t.sparse_tables)
+    if "item_emb" not in sparse and packed_item_table(cfg, model.itemnum):
+        raise ValueError(
+            "tables at packed scale (>=30M rows) must train sparsely: set "
+            "train.sparse_tables=('item_emb',) or pack_big_tables=False")
 
     def step_fn(state: TrainState, batch, mm_tables, item_tables):
         dev = next(iter(_flatten(state.params).values())).device
-        gen = step_generator(cfg.train.seed, state.step, dev)
+        gen = step_generator(t.seed, state.step, dev)
         state.opt.zero_grad(set_to_none=True)
-        loss, metrics = compute_loss(model, state.params, batch, mm_tables,
-                                     item_tables, cfg, train=True, gen=gen)
-        loss.backward()
-        leaves = [p for _, p in param_leaves(state.params)]
+        if sparse:
+            _, metrics, per = sparse_loss_backward(
+                model, cfg, state, batch, mm_tables, item_tables, gen)
+        else:
+            loss, metrics = compute_loss(model, state.params, batch,
+                                         mm_tables, item_tables, cfg,
+                                         train=True, gen=gen)
+            loss.backward()
+        leaves = [p for _, p in dense_leaves(state.params, cfg)]
         for p in leaves:
             # AdamW skips a leaf without a gradient, where optax still
             # decays it: a leaf the loss does not reach gets zeros
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        metrics = _grad_metrics(metrics, [p.grad for p in leaves])
+        grads = [p.grad for p in leaves]
         for group in state.opt.param_groups:
-            group["lr"] = lr_at_step(cfg.train, state.step)
+            group["lr"] = lr_at_step(t, state.step)
         state.opt.step()
+        if sparse:
+            touched = torch.zeros((), dtype=torch.int64, device=dev)
+            with torch.no_grad():
+                for name, p in per.items():
+                    drows = p["rows"].grad if p["rows"].grad is not None \
+                        else torch.zeros_like(p["rows"])
+                    grouped = p["group_plan"] is not None
+                    ST.apply_row_update(
+                        state.params[name], state.tables[name], p["uids"],
+                        drows, group_plan=p["group_plan"],
+                        rows0=p["rows"].detach() if grouped else None,
+                        table_old=p["group_buf"], kind=t.table_optimizer,
+                        lr=lr_at_step(t, state.step + 1),
+                        step=state.step + 1, b1=t.adam_b1, b2=t.adam_b2,
+                        weight_decay=t.weight_decay)
+                    grads.append(drows)
+                    # the sentinel is the physical row count: real rows only
+                    touched += (p["uids"] < p["V"]).sum()
+            metrics = dict(metrics, touched_rows=touched)
+        metrics = _grad_metrics(metrics, grads)
         state.step += 1
         return state, metrics
 
@@ -255,19 +465,21 @@ def augment_batch_dedup(batch, cfg: Config, item_feats, itemnum: int,
 
     A batch whose unique count exceeds the static capacity ships
     un-dedup'd (dense per-position towers) with a rate-limited warning.
-    ``step_key`` is accepted for the JAX signature (it seeds the sampled
-    softmax negatives there, which the port does not have yet)."""
+    Under sampled softmax the negatives are sampled here from ``step_key``
+    (numpy), where the batch has none yet. Runs before
+    :func:`augment_batch_sparse`, whose item_emb plan keys on the dedup'd
+    id column."""
     if n_data_shards != 1:
         _unported("the stacked per-shard tower-dedup plan",
                   "Multi-device layer")
-    if cfg.train.loss_type != "bce":
-        _unported(f"tower dedup with the {cfg.train.loss_type} loss",
-                  "Sampled softmax")
     out = dict(batch)
+    ss = cfg.train.loss_type == "sampled_softmax"
+    if ss and "sampled_neg_ids" not in out:
+        out["sampled_neg_ids"] = _sample_negatives(cfg, itemnum, step_key)
     tt = np.asarray(out["token_type"])
     seq_ids = np.where(tt == 1, np.asarray(out["seq"]), 0)
     pos_last = np.asarray(out["pos"])[:, -1:]
-    negs = np.asarray(out["neg"])
+    negs = np.asarray(out["sampled_neg_ids"] if ss else out["neg"])
     cap = tower_dedup_capacity(cfg, itemnum)
     sites = [("seq", seq_ids), ("pos_last", pos_last), ("negs", negs)]
     u = np.unique(np.concatenate([i.reshape(-1) for _, i in sites]))
@@ -281,12 +493,112 @@ def augment_batch_dedup(batch, cfg: Config, item_feats, itemnum: int,
     out["dedup_sparse"] = item_feats.sparse[safe].astype(np.int32)
     out["dedup_array"] = item_feats.array[safe].astype(np.int32)
     for site, ids in sites:
-        for k, v in build_lookup_plan(uids, ids).items():
+        for k, v in ST.build_lookup_plan(uids, ids).items():
             out[f"dedup_{site}_{k}"] = v
     # the per-position feature copies these plans replace
     for k in ("seq_item_sparse", "seq_item_array", "pos_item_sparse",
               "pos_item_array"):
         out.pop(k, None)
+    return out
+
+
+def _sample_negatives(cfg: Config, itemnum: int, step_key) -> np.ndarray:
+    """The step's shared uniform negatives, drawn on the host from
+    ``step_key`` as the JAX package draws them."""
+    r = np.random.default_rng(step_key)
+    return r.integers(1, itemnum + 1,
+                      cfg.train.num_sampled_negatives).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# sparse-table prep (host numpy)
+# ---------------------------------------------------------------------------
+
+def sparse_touch_capacity(cfg: Config, name: str = "item_emb") -> int:
+    """Static touched-id capacity of one batch in table ``name``."""
+    if name == "user_emb":
+        # the samplers hold rows to MAX_USER_TOKENS_PER_ROW user tokens, so
+        # the dedup'd user ids number at most B * K (+1 for the padding 0)
+        return cfg.train.batch_size * MAX_USER_TOKENS_PER_ROW + 1
+    n = 2 * cfg.train.batch_size * (cfg.model.maxlen + 1)
+    if cfg.train.loss_type == "sampled_softmax":
+        return n + cfg.train.num_sampled_negatives
+    return n + cfg.train.batch_size * (cfg.model.maxlen + 1)
+
+
+def _user_token_positions(token_type, K: int):
+    """Host twin of embedding.fuse_sequence's earliest-K user positions:
+    (posk [B, K], validk [B, K])."""
+    B, L = token_type.shape
+    is_u = token_type == 2
+    score = np.where(is_u, -np.arange(L, dtype=np.int64)[None, :], -L - 1)
+    posk = np.argsort(-score, axis=1, kind="stable")[:, :K]
+    return posk, np.take_along_axis(is_u, posk, axis=1)
+
+
+def augment_batch_sparse(batch, cfg: Config, itemnum: int, step_key,
+                         n_table_shards: int = 1, usernum: int = 0):
+    """HOST-side sparse-table prep, in the input pipeline: samples the
+    softmax negatives (numpy) where the batch has none, and per table in
+    ``train.sparse_tables`` ships the dedup'd ``touched_uids`` (sentinel =
+    the table's physical rows), at packed scale the group write plan
+    (``scatter_groups``, ``scatter_slot_src``, ``scatter_uid_pos``), and
+    one lookup plan per call site (``sparse_plans``). Keys of tables other
+    than item_emb carry ``@<table>``; ``user_emb`` needs ``usernum``. The
+    per-shard plan of a mesh-sharded table (``n_table_shards`` > 1) is not
+    ported."""
+    if n_table_shards != 1:
+        _unported("the per-shard plan of a mesh-sharded table",
+                  "Multi-device layer")
+    out = dict(batch)
+    ss = cfg.train.loss_type == "sampled_softmax"
+    if ss and "sampled_neg_ids" not in out:
+        out["sampled_neg_ids"] = _sample_negatives(cfg, itemnum, step_key)
+    tt, seq = np.asarray(out["token_type"]), np.asarray(out["seq"])
+    D = cfg.model.hidden_units
+    for name in (cfg.train.sparse_tables or ("item_emb",)):
+        sfx = _sfx(name)
+        packed = False
+        if name == "user_emb":
+            if usernum <= 0:
+                raise ValueError("augment_batch_sparse: user_emb needs "
+                                 "usernum")
+            ids_all = np.where(tt == 2, seq, 0).reshape(-1)
+            rows = usernum + 1        # user_emb is never packed
+        else:
+            negs = out["sampled_neg_ids"] if ss else out["neg"]
+            ids_all = np.concatenate([
+                np.where(tt == 1, seq, 0).reshape(-1),
+                np.asarray(out["pos"]).reshape(-1),
+                np.asarray(negs).reshape(-1)])
+            rows = itemnum + 1
+            packed = packed_item_table(cfg, itemnum)
+        vocab = ST.padded_table_rows(rows) if packed else rows
+        uids = ST.host_unique_touched(ids_all,
+                                      sparse_touch_capacity(cfg, name), vocab)
+        out["touched_uids" + sfx] = uids
+        if packed:
+            plan = ST.host_group_plan(uids, vocab, ST.scatter_group_rows(D))
+            for k, v in plan.items():
+                out[f"scatter_{k}{sfx}"] = v
+        if name == "user_emb":
+            posk, validk = _user_token_positions(tt, MAX_USER_TOKENS_PER_ROW)
+            uk = np.take_along_axis(seq, posk, axis=1) * validk
+            plans = {"user": ST.build_lookup_plan(uids, uk)}
+        elif "dedup_uids" in out:
+            # tower dedup: the item_emb lookup is the dedup'd tower's column
+            plans = {"dedup": ST.build_lookup_plan(uids, out["dedup_uids"])}
+        else:
+            plans = {"seq": ST.build_lookup_plan(uids,
+                                                 np.where(tt == 1, seq, 0)),
+                     "pos_last": ST.build_lookup_plan(
+                         uids, np.asarray(out["pos"])[:, -1:])}
+            if ss:
+                plans["negs"] = ST.build_lookup_plan(uids,
+                                                     out["sampled_neg_ids"])
+            else:
+                plans["posneg"] = ST.build_lookup_plan(uids, out["neg"])
+        out["sparse_plans" + sfx] = plans
     return out
 
 
@@ -346,31 +658,47 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
         probe_batch = put(next(iter(valid_loader.epoch(0))))
 
     dedup_on = cfg.train.tower_dedup
+    sparse = bool(cfg.train.sparse_tables)
+    # a touched row read by the gather and written back, in the table dtype
+    row_bytes = cfg.model.hidden_units * \
+        (2 if cfg.model.table_dtype == "bfloat16" else 4)
     pending = []   # (record without loss, device metrics)
 
     def flush(epoch):
         if not pending:
             return
-        keys = ("loss", "bce", "grad_max", "grad_mean")
+        keys = [k for k in ("loss", "bce", "grad_max", "grad_mean",
+                            "touched_rows") if k in pending[0][1]]
         fetched = torch.stack([torch.stack([m[k].float() for k in keys])
                                for _, m in pending]).tolist()
         for (rec, _), vals in zip(pending, fetched):
             m = dict(zip(keys, vals))
             gs = rec["global_step"]
             rec["loss"] = m["loss"]
-            rec["bce"] = m["bce"]
+            if "bce" in m:
+                rec["bce"] = m["bce"]
             jlog.write(rec)
             tb.scalar("Loss/train", m["loss"], gs)
-            tb.scalar("Loss/BCE", m["bce"], gs)
+            if "bce" in m:
+                tb.scalar("Loss/BCE", m["bce"], gs)
             tb.scalar("Performance/step_time", rec["step_time"], gs)
             tb.scalar("Performance/steps_per_second",
                       rec["steps_per_second"], gs)
             tb.scalar("Performance/examples_per_second_per_chip",
                       rec["steps_per_second"] * cfg.train.batch_size, gs)
+            if "touched_rows" in m and rec["step_time"] > 0:
+                # the step's own count of dedup'd rows across sparse tables
+                gb = m["touched_rows"] * row_bytes * 2 / 1e9
+                tb.scalar("Performance/lookup_gb_s", gb / rec["step_time"],
+                          gs)
+                tb.scalar("Performance/touched_rows", m["touched_rows"], gs)
             if gs % cfg.train.grad_log_every == 0:
+                lr_now = lr_at_step(cfg.train, gs)
                 tb.scalar("Gradient/max", m["grad_max"], gs)
                 tb.scalar("Gradient/mean", m["grad_mean"], gs)
-                tb.scalar("LearningRate/base", lr_at_step(cfg.train, gs), gs)
+                tb.scalar("LearningRate/base", lr_now, gs)
+                if sparse:
+                    tb.scalar("LearningRate/table", lr_now, gs)
         last = pending[-1][0]
         if verbose:
             print(f"  epoch {epoch} step {last['step'] + 1}/"
@@ -380,13 +708,20 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
         pending.clear()
 
     def epoch_batches(epoch):
-        if not dedup_on:
+        if not (dedup_on or sparse):
             return train_loader.epoch(epoch)
 
         def prep(b, i):
-            return augment_batch_dedup(b, cfg, item_tables, model.itemnum,
-                                       step_key=(cfg.train.seed, 97, epoch,
-                                                 i))
+            key = (cfg.train.seed, 97, epoch, i)
+            if dedup_on:
+                # first: the sparse prep keys its item_emb plan on the
+                # dedup'd id column
+                b = augment_batch_dedup(b, cfg, item_tables, model.itemnum,
+                                        step_key=key)
+            if sparse:
+                b = augment_batch_sparse(b, cfg, model.itemnum, key,
+                                         usernum=model.usernum)
+            return b
 
         # the cached loader runs the prep on its worker pool (keyed by batch
         # index, so deterministic); other loaders get it serially on the

@@ -60,6 +60,17 @@ def test_chip_smoke_imports_no_jax():
     assert not [m for m in mods if _forbidden(m)]
 
 
+def test_every_kernel_source_is_built():
+    """Every csrc/*.cu is a kernel source that ops/kernels.py builds, and
+    each source's module is among those the first probe imports."""
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    csrc = ROOT / PORT / "csrc"
+    assert set(kernels.SOURCES.values()) == {p.name
+                                             for p in csrc.glob("*.cu")}
+    assert kernels.SOURCES["sparse_table"] == "sparse_table.cu"
+
+
 def test_exact_name_check():
     assert _forbidden(JAX_PKG) and _forbidden(JAX_PKG + ".config")
     assert _forbidden("jax") and _forbidden("jax.numpy")

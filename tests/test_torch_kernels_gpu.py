@@ -243,3 +243,63 @@ def test_attention_wrappers_raise_instead_of_falling_back_on_card():
     q, k, v, _, valid, rab = _attention(2, 2048, 64, 1, torch.float32, 11)
     with pytest.raises(NotImplementedError, match="rows 15-17"):
         HA.hstu_attention_packed(q, k, v, valid, rab, 2048, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_kernels_match_plain_on_card(dtype):
+    """The group scatter writes in place (same buffer, untouched groups
+    bitwise unchanged) and equals its plain version bitwise; the group
+    gather equals its plain version on the real groups."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+
+    rng = np.random.default_rng(12)
+    nG, W, K, n_real = 4096, 1024, 3072, 2500
+    table = torch.randn((nG, W), generator=torch.Generator().manual_seed(0)
+                        ).to(dtype).cuda()
+    groups = np.full((K,), nG, np.int32)
+    groups[:n_real] = rng.choice(nG, size=n_real, replace=False)
+    g = torch.from_numpy(groups).cuda()
+    arranged = torch.randn((K, W), generator=torch.Generator().manual_seed(1)
+                           ).to(dtype).cuda()
+    before = table.clone()
+    ref = ST.group_scatter_plain(table.clone(), g, arranged)
+    n = ST.group_scatter.launches
+    out = ST.group_scatter(table, g, arranged)
+    torch.cuda.synchronize()
+    assert ST.group_scatter.launches == n + 1
+    assert out.data_ptr() == table.data_ptr() and torch.equal(table, ref)
+    untouched = torch.ones(nG, dtype=torch.bool, device="cuda")
+    untouched[g[:n_real].long()] = False
+    assert torch.equal(table[untouched], before[untouched])
+    n = ST.group_gather.launches
+    got = ST.group_gather(table, g)
+    torch.cuda.synchronize()
+    assert ST.group_gather.launches == n + 1
+    assert torch.equal(got[:n_real], ST.group_gather_plain(table, g)[:n_real])
+
+
+@pytest.mark.gpu
+def test_group_scatter_apply_launches_kernel_per_chunk_on_card(monkeypatch):
+    """On CUDA tensors the packed write-back launches the kernel once per
+    chunk and equals its CPU run."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+
+    monkeypatch.setattr(ST, "_SCATTER_CHUNK_GROUPS", 1024)
+    rng = np.random.default_rng(13)
+    V, D = 64 * 512, 64
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32))
+    uids = np.full((1536,), V, np.int32)
+    uids[:1500] = np.sort(rng.choice(V, size=1500, replace=False))
+    vals = torch.from_numpy(rng.standard_normal((1536, D)).astype(np.float32))
+    plan = {k: torch.from_numpy(v)
+            for k, v in ST.host_group_plan(uids, V, 16).items()}
+    want = ST.group_scatter_apply(table.clone(), vals, plan)
+    n = ST.group_scatter.launches
+    got = ST.group_scatter_apply(table.cuda(), vals.cuda(),
+                                 {k: v.cuda() for k, v in plan.items()})
+    torch.cuda.synchronize()
+    assert ST.group_scatter.launches == n + 2
+    assert torch.equal(got.cpu(), want)
