@@ -24,10 +24,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                and B=32, L=4096; CUDA events) beside the plain versions' and
                their bounds; then the attention cores, flash MHA (L=256,
                H=4; L=1024, H=1) and the standalone HSTU attention (L=256
-               and 1024, H=4 and 1, 128 and 300 buckets), forward and
-               backward in f32 and bf16, fully masked rows and padded keys
-               exactly 0, and their times at the parity runs' shapes beside
-               the plain versions', their bounds and, for flash MHA,
+               and 1024, H=4 and 1, 128 and 300 buckets; its chunked route
+               at L = 2048, 4096 and 16384 and with 1000 buckets), both at
+               hd 8 and hd 128, forward and backward in f32 and bf16, each
+               call on its route's launch counters, fully masked rows and
+               padded keys exactly 0, and their times at the runs' shapes
+               (hstu_mini at B=32, L=4096 for the chunked route) beside the
+               plain versions', their bounds and, for flash MHA,
                scaled_dot_product_attention's; then the group scatter and
                group gather of a sparse-trained table (a 16M x 64 table, 1M
                groups, in f32 and bf16; 196,608 slots, 190,000 real groups
@@ -41,8 +44,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                --num_epochs 1`` on the card; holds every kernel's launch
                count to its expected value (the other kernels' to 0), checks
                finite losses and the checkpoint; then one step at full width
-               and depth on 16 rows against the plain versions on the CPU in
-               bf16 and in f32 (loss and per-leaf gradient cosine); prints
+               and depth on 16 rows (8 at L=4096 and for sparse) against the
+               plain versions on the CPU in bf16 and in f32 (loss and
+               per-leaf gradient cosine); prints
                train examples/s and a profile of one step;
 5. serving  — the port's cli.infer main with the same arguments on the
                checkpoint just trained; checks every launch count,
@@ -58,7 +62,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                checkpoint, the cache build's seconds, examples/s and
                tokens/s of the step, a profile of one step), then
                ``cli.infer --maxlen 4095`` on that checkpoint with the first
-               8 queries recomputed on the CPU;
+               4 queries recomputed on the CPU; then ``--preset hstu_mini``
+               on the same fixture and pack, with ``--eval_retrieval_users
+               256`` (the chunked HSTU attention route: its launches, the
+               epoch-end HR@10 record, the one-step check, the step's
+               speed and profile), served with 8 queries held to the CPU
+               and its result directory served again with the approx, int8
+               and hnsw methods;
+6b. retrieval — the tiers on a seeded 10M x 64 corpus, Q=1024: exact,
+               approx (ids equal exact's) and int8 (recall@10 against
+               exact), each one's time, queries/s and peak memory; the HNSW
+               tool on its first 20,000 rows (build and search seconds,
+               recall);
 7. parity   — phases 4 and 5 for the reference's own models and the
                ReLU-FFN HSTU: cli.train's default (no --preset: baseline at
                L=102, dense, no kernel launched), ``--preset baseline
@@ -67,7 +82,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                users, 5000 items and 20..250 events, and ``--preset
                baseline_o1 --maxlen 1023`` (flash MHA, one head) on the
                flagship's fixture; the one-step check for baseline and
-               hstu_mini;
+               hstu_mini; one training epoch each of ``baseline
+               --hidden_units 32`` (hd 8) and ``baseline_o1 --hidden_units
+               128 --maxlen 511`` (hd 128) on the parity fixture (launch
+               counts);
 8. sparse   — phases 4 and 5 for ``--preset sharded_multihost --maxlen
                1023`` on the flagship's fixture (B=64; its mesh wants 8
                devices: the warning is printed and it trains single-device;
@@ -88,8 +106,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                same row gradients, 100,000 untouched rows bitwise unchanged;
                step ms, examples/s, lookup GB/s, peak memory, and the group
                scatter's device time in a profiled step;
-10. report  — the card line, one JSON line listing every kernel, then the
-               last line ``{"ok": true, "device": {...}}``.
+10. report  — the script's seconds, the card line, one JSON line listing
+               every kernel, then the last line ``{"ok": true, "device":
+               {...}}``.
 
 The f32 side of the one-step and query checks is held to min(0.999, c -
 max(5e-4, 0.5 * (1 - c))), c the CPU bf16 version's own cosine to f32: a
@@ -116,6 +135,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+START = time.perf_counter()
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -149,6 +169,8 @@ KERNEL_NAMES = {
              ("hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
               "reduce_rows_kernel")),
     "none": ((), ())}
+# the chunked HSTU attention route launches the same CUDA functions
+KERNEL_NAMES["hstu_chunk"] = KERNEL_NAMES["hstu"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,8 +178,9 @@ class Run:
     """One end-to-end path: its preset (None: cli.train's default, no
     ``--preset``), window (None: the preset's), fixture and data directory,
     batch, further cli.train arguments, the kernel family it takes
-    ("fused", "flash", "hstu" or "none"), the first queries recomputed on
-    the CPU, and whether one full-depth step is held to the CPU."""
+    ("fused", "flash", "hstu", "hstu_chunk" or "none"), the first queries
+    recomputed on the CPU, whether one full-depth step is held to the CPU
+    and on how many rows."""
     name: str
     preset: Optional[str]
     maxlen: Optional[int]
@@ -169,6 +192,7 @@ class Run:
     kernels: str
     n_check: int
     one_step: bool
+    check_rows: int = 16
 
     def args(self):
         return (["--preset", self.preset] if self.preset else []) + \
@@ -176,19 +200,17 @@ class Run:
 
     def config(self):
         """The run's config as cli.train builds it."""
-        from tencent_recommendation_2025_tpu_torch.config import PRESETS
+        from tencent_recommendation_2025_tpu_torch.cli import train as TRN
 
-        cfg = PRESETS[self.preset or "baseline"]()
-        return cfg.replace(
-            model=dataclasses.replace(cfg.model,
-                                      maxlen=self.maxlen or cfg.model.maxlen),
-            train=dataclasses.replace(cfg.train, batch_size=self.batch_size))
+        return TRN.build_config(TRN.get_args(
+            self.args() + list(self.train_args)
+            + ["--batch_size", str(self.batch_size)]))
 
     @property
     def cpu_route(self):
         """The encoder route whose plain versions the CPU checks take."""
         return {"fused": "fused", "flash": "core", "hstu": "core",
-                "none": None}[self.kernels]
+                "hstu_chunk": "core", "none": None}[self.kernels]
 
 
 # the L=1024 path keeps the streaming loader it has run with since its first
@@ -197,11 +219,19 @@ class Run:
 # auto (the packed cache at these sizes)
 FLAGSHIP_RUN = Run("flagship", "hstu_flagship", MAXLEN, FIXTURE,
                    WORK / "data", 128, ("--loader", "streaming"), WORK,
-                   "fused", 128, True)
+                   "fused", 32, True)
 LONG_RUN = Run("long", "hstu_flagship", 4095, LONG_FIXTURE,
                WORK / "long" / "data", 32,
                ("--batch_size", "32", "--loader", "cached"), WORK / "long",
-               "fused", 8, False)
+               "fused", 4, False)
+# hstu_mini (ReLU FFN: the fused gate refuses it) on the long fixture: the
+# chunked HSTU attention kernels, with the epoch-end retrieval eval; it
+# reuses the long run's pack (same data, same window)
+MINI_LONG_RUN = Run("mini_long", "hstu_mini", 4095, LONG_FIXTURE,
+                    WORK / "long" / "data", 32,
+                    ("--batch_size", "32", "--loader", "cached",
+                     "--eval_retrieval_users", "256"), WORK / "mini_long",
+                    "hstu_chunk", 8, True, check_rows=8)
 PARITY_DATA = WORK / "parity_data"
 PARITY_RUNS = (
     # cli.train's default: baseline at its own window (L=102), dense
@@ -213,16 +243,29 @@ PARITY_RUNS = (
         WORK / "hstu_mini", "hstu", 128, True),
     # reuses the flagship's fixture (sequences of 256 to 1000 events)
     Run("baseline_o1", "baseline_o1", 1023, FIXTURE, WORK / "data", 128, (),
-        WORK / "baseline_o1", "flash", 128, False))
+        WORK / "baseline_o1", "flash", 32, False))
+# head dims the flash kernels take since their FMA and cut-tile paths:
+# hd 8 (4 heads of 8) and hd 128 (one head), trained one epoch (launch
+# counts; the kernel checks hold the numbers)
+HEAD_DIM_RUNS = (
+    Run("baseline_hd8", "baseline", 255, PARITY_FIXTURE, PARITY_DATA, 64,
+        ("--hidden_units", "32"), WORK / "baseline_hd8", "flash", 0, False),
+    Run("baseline_o1_hd128", "baseline_o1", 511, PARITY_FIXTURE, PARITY_DATA,
+        128, ("--hidden_units", "128"), WORK / "baseline_o1_hd128", "flash",
+        0, False))
 # sparse item_emb, rowwise Adagrad, sampled softmax, tower dedup: the
 # preset's B=64 on the flagship's fixture
 SPARSE_RUN = Run("sparse", "sharded_multihost", MAXLEN, FIXTURE,
-                 WORK / "data", 64, (), WORK / "sparse", "fused", 128, True)
+                 WORK / "data", 64, (), WORK / "sparse", "fused", 16, True,
+                 check_rows=8)
 # sampled softmax with 64 in-batch negatives and tower dedup, at the
 # preset's own window (L=102: plain PyTorch, no kernel)
 SOFTMAX_DP_RUN = Run("softmax_dp", "sampled_softmax_dp", None, PARITY_FIXTURE,
                      PARITY_DATA, 64, (), WORK / "softmax_dp", "none", 128,
                      False)
+#: cli.train's last packed cache, kept across the runs: the runs that
+#: follow one of the same data and window reuse it
+PACKS: dict = {}
 SRC = "tencent_recommendation_2025_tpu_torch/csrc/"
 TPU = "tencent_recommendation_2025_tpu/ops/fused_block.py"
 
@@ -240,6 +283,8 @@ def launch_counters():
             "flash_fwd": FA.flash_mha_fwd, "flash_bwd": FA.flash_mha_bwd,
             "hstu_fwd": HA.hstu_attention_fwd,
             "hstu_bwd": HA.hstu_attention_bwd,
+            "hstu_chunk_fwd": HA.hstu_attention_chunk_fwd,
+            "hstu_chunk_bwd": HA.hstu_attention_chunk_bwd,
             "group_scatter": ST.group_scatter,
             "group_gather": ST.group_gather}
 
@@ -259,8 +304,9 @@ def expected_launches(kernels, blocks, steps, n_eval):
     JAX package's remat runs them: the fused block once forward (training
     instance) and once backward per block and step; flash MHA twice forward
     (the checkpointed block's recompute re-runs it) and once backward; the
-    standalone HSTU attention once each way (its output is kept); one
-    forward per block and batch without autograd. Every other counter 0."""
+    standalone HSTU attention once each way (its output is kept), under
+    the chunked counters past ``_use_long``; one forward per block and
+    batch without autograd. Every other counter 0."""
     want = dict.fromkeys(launch_counters(), 0)
     if kernels == "fused":
         want.update(fused_fwd=blocks * n_eval, fused_train=blocks * steps,
@@ -268,9 +314,10 @@ def expected_launches(kernels, blocks, steps, n_eval):
     elif kernels == "flash":
         want.update(flash_fwd=blocks * (2 * steps + n_eval),
                     flash_bwd=blocks * steps)
-    elif kernels == "hstu":
-        want.update(hstu_fwd=blocks * (steps + n_eval),
-                    hstu_bwd=blocks * steps)
+    elif kernels in ("hstu", "hstu_chunk"):
+        prefix = "hstu_chunk" if kernels == "hstu_chunk" else "hstu"
+        want.update({f"{prefix}_fwd": blocks * (steps + n_eval),
+                     f"{prefix}_bwd": blocks * steps})
     return want
 
 
@@ -668,6 +715,15 @@ def _attn_fns(kind, valid, rab, L, H):
     from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
     from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
 
+    if kind == "hstu_chunk":
+        return (lambda q, k, v: HA.hstu_attention_chunk_fwd(
+                    q, k, v, valid, rab, L, H),
+                lambda q, k, v, d: HA.hstu_attention_chunk_bwd(
+                    q, k, v, d, valid, rab, L, H),
+                lambda q, k, v: HA.hstu_attention_fwd_plain(q, k, v, valid,
+                                                            rab, L, H),
+                lambda q, k, v, d: HA.hstu_attention_bwd_plain(
+                    q, k, v, d, valid, rab, L, H))
     if kind == "flash":
         return (lambda q, k, v: FA.flash_mha_fwd(q, k, v, valid, H),
                 lambda q, k, v, d: FA.flash_mha_bwd(q, k, v, d, valid, H),
@@ -714,10 +770,25 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
     t0 = time.perf_counter()
     q, k, v, dout, valid, rab = attention_inputs(B, L, D, H, dt, seed, NB)
     fwd, bwd, fwd_p, bwd_p = _attn_fns(kind, valid, rab, L, H)
+    before = read_launches()
     out = fwd(q, k, v)
     torch.cuda.synchronize()
+    got = bwd(q, k, v, dout)
+    torch.cuda.synchronize()
+    after = read_launches()
+    # the wrappers' counters: one launch each way, on the route's own
+    if kind == "flash":
+        route = "flash"
+    else:
+        from tencent_recommendation_2025_tpu_torch.ops import \
+            hstu_attention as HA
+
+        route = "hstu_chunk" if HA._use_long(L, D) else "hstu"
+    ok_route = {k_: after[k_] - before[k_] for k_ in after} == dict(
+        dict.fromkeys(after, 0), **{f"{route}_fwd": 1, f"{route}_bwd": 1})
     ok_f, e_f, lim_f = compare_attn(out, fwd_p(q, k, v), dt)
-    got, want = bwd(q, k, v, dout), bwd_p(q, k, v, dout)
+    ok_f &= ok_route
+    want = bwd_p(q, k, v, dout)
     torch.cuda.synchronize()
     names = ("dq", "dk", "dv", "drab")
     ok_b, worst, parts = True, (None, 0.0), []
@@ -726,16 +797,19 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
         okg, eg, limg = compare_grad(g, w, dt)
         okg &= bool(torch.isfinite(g.float()).all())
         if name != "drab":   # padded keys / queries and the padded row
-            okg &= bool((g[-1] == 0).all() and (g[0, :pad] == 0).all())
+            okg &= bool((g[0, :pad] == 0).all())
+            if B > 1:
+                okg &= bool((g[-1] == 0).all())
         ok_b &= okg
         if eg >= worst[1]:
             worst = (name, eg)
         if not okg:
             parts.append(f"{name} {eg:.4g} ({limg})")
     ok = ok_f and ok_b
-    log(f"{kind} B={B} L={L} D={D} H={H}" + (f" NB={NB}" if kind == "hstu"
-                                             else "")
-        + f" {str(dt)[6:]}: forward max_abs_err={e_f:.6g} ({lim_f}); "
+    log(f"{kind} B={B} L={L} D={D} H={H} hd={D // H}"
+        + (f" NB={NB}" if kind == "hstu" else "")
+        + f" {str(dt)[6:]} ({route} counters {ok_route}): forward "
+        f"max_abs_err={e_f:.6g} ({lim_f}); "
         f"backward largest error {worst[1]:.6g} ({worst[0]})"
         + (f", failing: {'; '.join(parts)}" if parts else "")
         + f"; {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
@@ -746,15 +820,23 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
 
 def phase_attention_kernels():
     """The attention cores against their plain versions on seeded inputs
-    with left padding and one fully padded row: flash MHA at L=256 (H=4)
-    and L=1024 (H=1); HSTU attention at L=256 and 1024 with H=4 and H=1
-    and buckets 128 and 300; f32 (tight) and bf16."""
+    with left padding and one fully padded row (B > 1): flash MHA at L=256
+    (H=4) and L=1024 (H=1); HSTU attention at L=256 and 1024 with H=4 and
+    H=1 and buckets 128 and 300; the chunked HSTU route (past _use_long) at
+    L = 2048, 4096 and 16384 (hstu_mini's D=64, H=4) and with 1000 buckets
+    (H=1: the JAX package's 256 tile); both cores at hd 8 (D=32, H=4: FMA
+    products) and hd 128 (D=128, H=1: cut tiles); f32 (tight) and bf16.
+    Each call is held to its own route's counters."""
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("flash", 8, 256, 64, 4, 128), ("flash", 4, 1024, 64, 1, 128),
              ("hstu", 8, 256, 64, 4, 128), ("hstu", 8, 256, 64, 1, 300),
-             ("hstu", 4, 1024, 64, 1, 128), ("hstu", 4, 1024, 64, 4, 300)]
+             ("hstu", 4, 1024, 64, 1, 128), ("hstu", 4, 1024, 64, 4, 300),
+             ("hstu", 2, 2048, 64, 4, 128), ("hstu", 2, 4096, 64, 4, 128),
+             ("hstu", 1, 16384, 64, 4, 128), ("hstu", 2, 2048, 64, 1, 1000),
+             ("flash", 4, 256, 32, 4, 128), ("flash", 2, 512, 128, 1, 128),
+             ("hstu", 4, 256, 32, 4, 128), ("hstu", 2, 512, 128, 1, 128)]
     ok = True
     for i, (kind, B, L, D, H, NB) in enumerate(cases):
         for dt in (f32, bf16):
@@ -763,17 +845,29 @@ def phase_attention_kernels():
 
 
 #: the attention cores' main-path shapes: (kind, run, B, L, D, H); the run
-#: whose launches the JSON entry reports
+#: whose launches the JSON entry reports (None: timed and logged only, no
+#: run takes that shape)
 ATTN_SHAPES = (("flash", "baseline", 64, 256, 64, 4),
                ("flash", "baseline_o1", 128, 1024, 64, 1),
-               ("hstu", "hstu_mini", 64, 256, 64, 4))
+               ("hstu", "hstu_mini", 64, 256, 64, 4),
+               ("hstu_chunk", "mini_long", 32, 4096, 64, 4),
+               ("flash", "baseline_hd8", 64, 256, 32, 4),
+               ("flash", "baseline_o1_hd128", 128, 512, 128, 1),
+               ("hstu", None, 64, 256, 32, 4),
+               ("hstu", None, 64, 512, 128, 1))
 _ATTN_REPLACES = {
     "flash": ("flash_attention.cu",
               "tencent_recommendation_2025_tpu/ops/flash_attention.py:",
               "50", "81"),
     "hstu": ("hstu_attention.cu",
              "tencent_recommendation_2025_tpu/ops/hstu_attention.py:",
-             "164", "193")}
+             "164", "193"),
+    "hstu_chunk": ("hstu_attention.cu",
+                   "tencent_recommendation_2025_tpu/ops/hstu_attention.py:",
+                   "297", "331,380")}
+#: JSON names of each kind's kernels
+_ATTN_NAMES = {"flash": "flash_mha", "hstu": "hstu_attention",
+               "hstu_chunk": "hstu_attention_chunk"}
 
 
 def attention_bound(kind, B, L, D, H, elem_bytes, bwd, NB=128):
@@ -785,7 +879,7 @@ def attention_bound(kind, B, L, D, H, elem_bytes, bwd, NB=128):
     act = B * L * D * elem_bytes
     flops = (5 if bwd else 2) * B * D * L * (L + 1)
     nbytes = (7 if bwd else 4) * act + B * L * 4
-    if kind == "hstu":
+    if kind != "flash":
         nbytes += (2 if bwd else 1) * H * NB * 4
     return _bound(flops, nbytes)
 
@@ -828,6 +922,9 @@ def phase_attention_times():
     bf16 = torch.bfloat16
     ok_all, entries = True, []
     for kind, run, B, L, D, H in ATTN_SHAPES:
+        # the chunked backward's plain version holds several [B, H, L, L]
+        # f32 tensors: ~40 GB at B=32, L=4096, H=4
+        _free()
         q, k, v, dout, valid, rab = attention_inputs(B, L, D, H, bf16, 50)
         fwd, bwd, fwd_p, bwd_p = _attn_fns(kind, valid, rab, L, H)
         ok, err_f, _ = compare_attn(fwd(q, k, v), fwd_p(q, k, v), bf16)
@@ -837,28 +934,38 @@ def phase_attention_times():
             ok &= okg
             err_b = max(err_b, eg)
         _free()
-        t = {"fwd": time_ms(lambda: fwd(q, k, v), 3, 20),
-             "bwd": time_ms(lambda: bwd(q, k, v, dout), 3, 20)}
-        plain = {"fwd": time_ms(lambda: fwd_p(q, k, v), 1, 3),
-                 "bwd": time_ms(lambda: bwd_p(q, k, v, dout), 1, 3)}
+        long_ = L * D > 1024 * 64
+        t = {"fwd": time_ms(lambda: fwd(q, k, v), 2 if long_ else 3,
+                            5 if long_ else 20),
+             "bwd": time_ms(lambda: bwd(q, k, v, dout), 2 if long_ else 3,
+                            5 if long_ else 20)}
+        _free()
+        plain = {"fwd": time_ms(lambda: fwd_p(q, k, v), 1, 1 if long_ else 3)}
+        _free()
+        plain["bwd"] = time_ms(lambda: bwd_p(q, k, v, dout), 1,
+                               1 if long_ else 3)
         _free()
         lib = sdpa_ms(q, k, v, dout, valid, H) if kind == "flash" \
             else (None, None)
         src, tpu, fwd_row, bwd_row = _ATTN_REPLACES[kind]
-        name = "flash_mha" if kind == "flash" else "hstu_attention"
+        name = _ATTN_NAMES[kind]
         for key, err, row, lib_ms in (("fwd", err_f, fwd_row, lib[0]),
                                       ("bwd", err_b, bwd_row, lib[1])):
             bound, by, flops, nbytes = attention_bound(
                 kind, B, L, D, H, 2, key == "bwd")
-            log(f"{name}_{key} ({run}: B={B} L={L} D={D} H={H}): kernel "
+            log(f"{name}_{key} ({run or 'no run'}: B={B} L={L} D={D} H={H} "
+                f"hd={D // H}): kernel "
                 f"{t[key]:.4f} ms, plain {plain[key]:.4f} ms, bound "
                 f"{bound:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB), library "
                 + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
                 + f"; kernel at {flops / t[key] / 1e9:.1f} TFLOP/s; max abs "
                 f"err {err:.4g} {'ok' if ok else 'FAIL'}")
+            if run is None:
+                continue
+            hd = "" if D // H in (16, 64) else f"_hd{D // H}"
             entries.append((run, {
-                "name": f"{name}_{key}_L{L}_H{H}", "route": "cuda",
+                "name": f"{name}_{key}_L{L}_H{H}{hd}", "route": "cuda",
                 "source": SRC + src, "replaces": tpu + row, "launches": None,
                 "max_abs_err": err, "ms": t[key], "plain_ms": plain[key],
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}))
@@ -1025,7 +1132,8 @@ def phase_training(run):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         state = TRN.main(run.args() + list(run.train_args)
-                         + ["--num_epochs", "1"], timings=timings)
+                         + ["--num_epochs", "1"], timings=timings,
+                         packs=PACKS)
     wall = time.perf_counter() - t0
     launches = read_launches()
 
@@ -1043,14 +1151,29 @@ def phase_training(run):
     _, va = train_val_split(len(data.seq), cfg.train.valid_fraction,
                             cfg.train.seed)
     steps = state.step
-    # validation batches, and a probe batch every grad_log_every steps
-    n_eval = -(-len(va) // run.batch_size) + steps // cfg.train.grad_log_every
+    # validation batches, and a probe batch every grad_log_every steps; the
+    # retrieval eval predicts every validation batch again (fewer users
+    # than it asks for)
+    n_val = -(-len(va) // run.batch_size)
+    n_eval = n_val + steps // cfg.train.grad_log_every
+    users = cfg.train.eval_retrieval_users
+    if users:
+        assert len(va) <= users
+        n_eval += n_val
     ok = steps > 0 and check_launches(
         run, "training", launches,
         expected_launches(run.kernels, cfg.model.num_blocks, steps, n_eval))
-    lines = [json.loads(ln) for ln in open(log_dir / "train.log")]
+    records = [json.loads(ln) for ln in open(log_dir / "train.log")]
+    lines = [ln for ln in records if "loss" in ln]
     losses = [ln["loss"] for ln in lines]
     finite = len(losses) == steps and bool(np.isfinite(losses).all())
+    if users:
+        evs = [ln for ln in records if ln.get("event") == "retrieval_eval"]
+        ok_ev = len(evs) == 1 and evs[0]["n"] > 0 and \
+            0.0 <= evs[0]["ndcg"] <= evs[0]["hr"] <= 1.0
+        log(f"{run.name}: epoch-end retrieval eval (--eval_retrieval_users "
+            f"{users}): {evs} {'ok' if ok_ev else 'FAIL'}")
+        ok &= ok_ev
     ckpt = CK.latest_checkpoint(model_dir)
     ok_ck = ckpt is not None and ckpt.name.startswith(f"global_step{steps}.")
     log(f"{run.name}: train losses ({steps} steps): "
@@ -1061,7 +1184,9 @@ def phase_training(run):
     log(f"{run.name}: cli.train wall {wall:.1f} s for {steps} steps of "
         f"{run.batch_size} at L={L} (data loading, validation and checkpoint "
         f"included); loader {timings.get('loader')}, cache build "
-        f"{timings.get('cache_build_s', float('nan')):.2f} s; last logged "
+        f"{timings.get('cache_build_s', float('nan')):.2f} s"
+        + (" (the previous run's pack, reused)"
+           if timings.get("cache_reused") else "") + "; last logged "
         f"steps/s {lines[-1]['steps_per_second']:.3f}, "
         f"{lines[-1]['steps_per_second'] * run.batch_size:.1f} examples/s")
     return ok and finite and ok_ck and warned, launches, ckpt, data
@@ -1176,7 +1301,7 @@ def phase_one_step(run, data, ckpt):
         SeqRecModel
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
 
-    cfg, schema, (batch,) = _train_batches(data, 1, run, rows=16)
+    cfg, schema, (batch,) = _train_batches(data, 1, run, rows=run.check_rows)
     saved_model = SeqRecModel(cfg=cfg.model, schema=schema,
                               fused=FusedVocab.build(schema),
                               usernum=data.usernum, itemnum=data.itemnum)
@@ -1229,7 +1354,7 @@ def phase_one_step(run, data, ckpt):
         if c16_ < 0.999 or c32_ < floor:
             fails.append(f"{name} ({c16_:.6f}, {c32_:.6f} vs {floor:.6f})")
     ok = ok_loss and not fails and np.isfinite(card_loss)
-    log(f"{run.name}: one step, 16 rows at full width and depth "
+    log(f"{run.name}: one step, {run.check_rows} rows at full width and depth "
         f"({len(card)} gradients or updates, CPU plain versions in "
         f"{time.perf_counter() - t0:.1f} s): loss card {card_loss:.6f}, CPU "
         f"bf16 {l16:.6f}, CPU f32 {l32:.6f} (limit 1e-3 relative to bf16); "
@@ -1273,7 +1398,8 @@ def phase_train_speed(data, ckpt, run):
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
 
-    cfg, schema, raw = _train_batches(data, 4, run)
+    # two batches, streamed through the python sampler
+    cfg, schema, raw = _train_batches(data, 2, run)
     tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
                                data.mm_emb_dict, data.indexer_i_rev)
     model = SeqRecModel(cfg=cfg.model, schema=schema,
@@ -1489,6 +1615,174 @@ def phase_run(run, oks):
     oks[f"{run.name}_serve"], served = phase_serving(ckpt, run)
     log(f"{run.name} serving phase: {time.perf_counter() - t0:.1f} s")
     return trained, served
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the retrieval tiers
+# ---------------------------------------------------------------------------
+
+def _ids_recall(got, want):
+    """Mean share of each row of ``want`` found in the same row of
+    ``got``."""
+    import numpy as np
+
+    return float(np.mean([len(set(g.tolist()) & set(w.tolist())) / len(w)
+                          for g, w in zip(got, want)]))
+
+
+def phase_ann_methods(run):
+    """``run``'s served result directory (embedding.fbin, id.u64bin,
+    query.fbin) served again through ``retrieval.ann.run_ann`` with the
+    approx, int8 and hnsw methods (what ``cli.infer --ann_method`` runs
+    after encoding; tests/test_torch_train_cli.py drives that flag end to
+    end): approx's ids equal the exact serve's, int8's and hnsw's top 10
+    hold >= 0.9 of exact's; hnsw must have run the C++ tool (built from
+    native/hnsw with make), not the JAX package's exact fallback. Prints
+    each method's seconds."""
+    import numpy as np
+
+    from tencent_recommendation_2025_tpu_torch.config import RetrievalConfig
+    from tencent_recommendation_2025_tpu_torch.data import formats
+    from tencent_recommendation_2025_tpu_torch.retrieval import ann
+
+    res = run.work / "result"
+    exact = np.asarray(formats.read_result_ids(res / "id100.u64bin"))
+    t0 = time.perf_counter()
+    tool = ann.binary_path(build=True)
+    log(f"{run.name}: HNSW tool {tool} (built or found in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    ok_all = tool is not None
+    for method in ("approx", "int8", "hnsw"):
+        t0 = time.perf_counter()
+        out = ann.run_ann(res, RetrievalConfig(method=method),
+                          result_file=f"id100_{method}.u64bin")
+        wall = time.perf_counter() - t0
+        got = np.asarray(formats.read_result_ids(out))
+        recall = _ids_recall(got, exact)
+        ok = got.shape == exact.shape and (
+            np.array_equal(got, exact) if method == "approx"
+            else recall >= 0.9)
+        ok_all &= ok
+        log(f"{run.name}: ann method {method}: top-{got.shape[1]} of "
+            f"{got.shape[0]} queries, "
+            + (f"ids equal exact's: {np.array_equal(got, exact)}"
+               if method == "approx" else
+               f"recall@10 against exact {recall:.4f} (limit 0.9)")
+            + f"; {wall:.2f} s with the files' I/O "
+            f"{'ok' if ok else 'FAIL'}")
+    return ok_all
+
+
+#: the retrieval check: a seeded corpus of 10M rows of 64 and 1024 queries
+#: (normal draws on the card); HNSW, whose index build on the host's
+#: cores takes about 30 s per 50,000 rows at the reference's M=64,
+#: efC=1280, runs on the first 20,000 rows
+RETRIEVAL = dict(N=10_000_000, D=64, Q=1024, k=10, hnsw_rows=20_000)
+
+
+def phase_retrieval():
+    """The retrieval tiers at 10M x 64 with Q=1024, k=10: exact (blocked,
+    65,536 rows a block), approx (per 1M-row block) and int8 (codes
+    quantized on the host in row chunks, scores int8 x int8 exact in int32,
+    ranked in bf16): each one's time (host clock, synchronised, after a
+    warm-up on a 100,000-row slice), queries/s, peak device memory above
+    the resident corpus, and recall@10 against exact; approx's ids must
+    equal exact's. Then the HNSW tool on the first 20,000 rows: build and
+    search seconds and recall@10 against exact on that slice."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.data import formats
+    from tencent_recommendation_2025_tpu_torch.retrieval import ann
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as MIPS
+
+    c = RETRIEVAL
+    N, D, Q, k = c["N"], c["D"], c["Q"], c["k"]
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    corpus = torch.randn((N, D), generator=gen, device="cuda")
+    queries = torch.randn((Q, D), generator=gen, device="cuda")
+    n = c["hnsw_rows"]
+    base = corpus[:n].clone()
+
+    def timed(fn, *args):
+        fn(queries, *(a[:100_000] for a in args), k=k)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(queries, *args, k=k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return out, dt, torch.cuda.max_memory_allocated() - base
+
+    (_, exact), t_exact, m_exact = timed(MIPS.topk_mips, corpus)
+    (_, approx), t_approx, m_approx = timed(MIPS.topk_mips_approx, corpus)
+    host = corpus.cpu().numpy()
+    t0 = time.perf_counter()
+    codes, scales = MIPS.quantize_corpus_int8(host, "cuda")
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    (_, int8), t_int8, m_int8 = timed(MIPS.topk_mips_int8, codes, scales)
+    exact_np = exact.cpu().numpy()
+    ok_approx = torch.equal(approx, exact)
+    r_int8 = _ids_recall(int8.cpu().numpy(), exact_np)
+    gb = 1e-9
+    for name, t, m, extra in (
+            ("exact", t_exact, m_exact, f"corpus f32 {N * D * 4 * gb:.2f} GB"),
+            ("approx", t_approx, m_approx, f"ids equal exact's {ok_approx}"),
+            ("int8", t_int8, m_int8,
+             f"recall@10 against exact {r_int8:.4f}; corpus int8 "
+             f"{(N * D + 4 * N) * gb:.2f} GB with scales, quantized on the "
+             f"host in {t_quant:.1f} s")):
+        log(f"retrieval {name} ({N} x {D}, Q={Q}, k={k}): {t * 1e3:.1f} ms, "
+            f"{Q / t:.0f} queries/s, peak device memory above the corpus "
+            f"{m * gb:.2f} GB; {extra}")
+    del corpus, codes, scales, host
+    _free()
+
+    # HNSW on the first rows, through the reference's file contract
+    d = WORK / "retrieval_hnsw"
+    d.mkdir(parents=True, exist_ok=True)
+    _, want = MIPS.topk_mips(queries, base, k=k)
+    formats.save_emb(base.cpu().numpy(), d / "embedding.fbin")
+    formats.save_emb(np.arange(n, dtype=np.uint64).reshape(-1, 1),
+                     d / "id.u64bin")
+    formats.save_emb(queries.cpu().numpy(), d / "query.fbin")
+    tool = ann.binary_path(build=True)
+    ok_hnsw = tool is not None
+    if ok_hnsw:
+        from tencent_recommendation_2025_tpu_torch.config import \
+            RetrievalConfig
+
+        rc = RetrievalConfig()
+        t0 = time.perf_counter()
+        out = subprocess.run([
+            str(tool), f"--dataset_vector_file_path={d / 'embedding.fbin'}",
+            f"--dataset_id_file_path={d / 'id.u64bin'}",
+            f"--query_vector_file_path={d / 'query.fbin'}",
+            f"--result_id_file_path={d / 'id100.u64bin'}",
+            f"--query_ann_top_k={k}", f"--faiss_M={rc.hnsw_m}",
+            f"--faiss_ef_construction={rc.hnsw_ef_construction}",
+            f"--query_ef_search={rc.hnsw_ef_search}",
+            f"--faiss_metric_type={rc.metric_type}"],
+            capture_output=True, text=True, check=True, timeout=300)
+        wall = time.perf_counter() - t0
+        build = float(out.stderr.split("build ")[-1].split("s")[0])
+        got = np.asarray(formats.read_result_ids(d / "id100.u64bin"))
+        r_hnsw = _ids_recall(got, want.cpu().numpy())
+        log(f"retrieval hnsw ({n} x {D}, Q={Q}, k={k}, M={rc.hnsw_m}, "
+            f"efC={rc.hnsw_ef_construction}, efS={rc.hnsw_ef_search}, "
+            f"{os.cpu_count()} host cores): build {build:.2f} s, search and "
+            f"file I/O {wall - build:.2f} s ({Q / (wall - build):.0f} "
+            f"queries/s), recall@10 against exact on the same rows "
+            f"{r_hnsw:.4f}")
+    else:
+        log("retrieval hnsw: the tool did not build FAIL")
+    del base, queries
+    _free()
+    ok = ok_approx and ok_hnsw
+    log(f"retrieval tiers {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -1750,6 +2044,15 @@ def main() -> int:
     oks["attention_times"], attention = phase_attention_times()
     oks["group_kernels"], group_entries = phase_group_kernels()
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+
+    def attach(run, trained, served):
+        """This run's launches into its attention kernels' JSON entries."""
+        for name, entry in attention:
+            if name == run.name:   # this run's forward or backward kernel
+                way = "bwd" if "_bwd_" in entry["name"] else "fwd"
+                key = f"{run.kernels}_{way}"
+                entry["launches"] = trained[key] + served[key]
+
     # the fused JSON entries in order: fwd, fwd_train, bwd of each variant
     for run, found in ((FLAGSHIP_RUN, entries[:3]), (LONG_RUN, entries[3:])):
         trained, served = phase_run(run, oks)
@@ -1757,13 +2060,21 @@ def main() -> int:
                                     trained["fused_train"],
                                     trained["fused_bwd"])):
             entry["launches"] = n
-    for run in PARITY_RUNS:
-        trained, served = phase_run(run, oks)
-        for name, entry in attention:
-            if name == run.name:   # this run's forward or backward kernel
-                way = "bwd" if "_bwd_" in entry["name"] else "fwd"
-                key = f"{run.kernels}_{way}"
-                entry["launches"] = trained[key] + served[key]
+    attach(MINI_LONG_RUN, *phase_run(MINI_LONG_RUN, oks))
+    t0 = time.perf_counter()
+    oks["mini_long_ann"] = phase_ann_methods(MINI_LONG_RUN)
+    oks["retrieval"] = phase_retrieval()
+    log(f"retrieval phase: {time.perf_counter() - t0:.1f} s")
+    # the head-dim runs after the runs of the same window (the pack reused)
+    for run in PARITY_RUNS[:3]:
+        attach(run, *phase_run(run, oks))
+    for run in HEAD_DIM_RUNS:
+        t0 = time.perf_counter()
+        oks[f"{run.name}_train"], trained, _, _ = phase_training(run)
+        attach(run, trained, dict.fromkeys(trained, 0))
+        log(f"{run.name} training phase: {time.perf_counter() - t0:.1f} s")
+    for run in PARITY_RUNS[3:]:
+        attach(run, *phase_run(run, oks))
     entries += [entry for _, entry in attention]
     # sharded_multihost's table is below packed scale: no group scatter
     for run in (SPARSE_RUN, SOFTMAX_DP_RUN):
@@ -1774,6 +2085,7 @@ def main() -> int:
     for entry in group_entries:
         entry["launches"] = launches[entry["name"]]
     entries += group_entries
+    log(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": entries}))
     failed = [k for k, v in oks.items() if not v]

@@ -6,8 +6,10 @@ arguments, environment variables (``EVAL_DATA_PATH``, ``EVAL_RESULT_PATH``,
 test split, load the newest checkpoint under ``MODEL_OUTPUT_PATH``, encode
 every test user's last position to ``query.fbin``, encode the candidate
 corpus from ``predict_set.jsonl`` (cold-start fill, mm attach,
-``retrive_id2creative_id.json``) in fixed 1024-row chunks, run exact top-k
-MIPS and decode ``id100.u64bin`` to per-user top-10 creative ids.
+``retrive_id2creative_id.json``) in fixed 1024-row chunks, run the top-k
+search of ``--ann_method`` (``exact``, the default; ``approx``; ``int8``,
+the quantized corpus; ``hnsw``, the C++ HNSW tool; see ``retrieval/ann``)
+and decode ``id100.u64bin`` to per-user top-10 creative ids.
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given; without CUDA and without ``--device cpu`` it raises.

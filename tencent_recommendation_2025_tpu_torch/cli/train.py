@@ -14,9 +14,11 @@ samples negatives vectorised; ``streaming`` samples in python threads every
 epoch; ``auto`` takes the cached loader up to 2M samples and streams above,
 as the JAX package's ``auto`` does where its native tool is absent. A
 preset whose mesh wants several devices (``sampled_softmax_dp``,
-``sharded_multihost``) trains on one, with the JAX CLI's warning. The
-native loader, gradient accumulation and epoch-end retrieval eval raise
-``NotImplementedError`` naming their ROADMAP item.
+``sharded_multihost``) trains on one, with the JAX CLI's warning.
+``--eval_retrieval_users N`` logs HR@10 / NDCG@10 of N validation users at
+the end of each epoch (stdout, ``train.log``, TensorBoard). The native
+loader and gradient accumulation raise ``NotImplementedError`` naming their
+ROADMAP item.
 
     TRAIN_DATA_PATH=... TRAIN_CKPT_PATH=... python -m \\
         tencent_recommendation_2025_tpu_torch.cli.train \\
@@ -26,13 +28,16 @@ Long sequences (L = 4096, the chunked variant of the fused block kernels):
 ``--preset hstu_flagship --maxlen 4095 --batch_size 32 --loader cached``.
 Sparse tables and the sampled softmax: ``--preset sharded_multihost
 --maxlen 1023`` (sparse ``item_emb``, rowwise Adagrad) or ``--preset
-sampled_softmax_dp``.
+sampled_softmax_dp``. The ReLU-FFN HSTU on long histories (the standalone
+HSTU attention kernels, chunked route): ``--preset hstu_mini --maxlen 4095
+--batch_size 32 --loader cached``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from pathlib import Path
 from typing import Optional
@@ -138,10 +143,15 @@ def single_device_warning(want: int, present: int) -> str:
             "single-device")
 
 
-def main(argv=None, timings: Optional[dict] = None):
+def main(argv=None, timings: Optional[dict] = None,
+         packs: Optional[dict] = None):
     """Train; returns the final state. ``timings``, when given, receives the
     loader taken ("cached" or "streaming") and, for the cached one, the
-    seconds its pack took."""
+    seconds its pack took and whether it was reused. ``packs``, when given,
+    keeps the last packed cache under (data directory, its mtime, mm ids,
+    array cap, maxlen): a caller that trains several models on the same
+    data and window in one process passes the same dict, and the pack is
+    built once."""
     args = get_args(argv)
     timings = {} if timings is None else timings
     cfg = build_config(args)
@@ -196,11 +206,22 @@ def main(argv=None, timings: Optional[dict] = None):
         args.loader == "auto" and len(sampler) <= AUTO_CACHE_MAX_SAMPLES)
     if cached:
         t0 = time.perf_counter()
-        cache = PackedCache(sampler, num_workers=args.num_workers)
-        timings.update(loader="cached",
-                       cache_build_s=time.perf_counter() - t0)
-        print(f"loader: cached (--loader {args.loader}); packed "
-              f"{len(cache)} samples in {timings['cache_build_s']:.2f} s")
+        path = os.path.realpath(env.train_data_path)
+        key = (path, os.stat(path).st_mtime_ns,
+               tuple(cfg.features.mm_emb_ids), cfg.features.array_cap,
+               cfg.model.maxlen)
+        cache = (packs or {}).get(key)
+        timings.update(loader="cached", cache_reused=cache is not None)
+        if cache is None:
+            cache = PackedCache(sampler, num_workers=args.num_workers)
+            if packs is not None:
+                packs.clear()
+                packs[key] = cache
+        timings["cache_build_s"] = time.perf_counter() - t0
+        print(f"loader: cached (--loader {args.loader}); "
+              + ("reused the pack of" if timings["cache_reused"]
+                 else "packed")
+              + f" {len(cache)} samples in {timings['cache_build_s']:.2f} s")
         train_loader = CachedTrainLoader(
             cache, tr_idx, cfg.train.batch_size, seed=cfg.train.seed,
             num_workers=min(args.num_workers, 8))

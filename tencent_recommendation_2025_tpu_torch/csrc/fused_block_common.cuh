@@ -179,13 +179,23 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // rows x width elements of T from global (row stride src_ld) to shared (row
-// stride ld), 16 bytes per thread; with ``scaled`` each element becomes
-// T(f32(element) * scale). width, src_ld and ld hold whole 16-byte vectors
-// (one head's slice of a head-packed [.., D] row: hd % 16 == 0).
+// stride ld); with ``scaled`` each element becomes T(f32(element) * scale).
+// 16 bytes per thread where width, src_ld, ld and src hold whole 16-byte
+// vectors (one head's slice of a head-packed [.., D] row with hd * sizeof(T)
+// a multiple of 16), else one element per thread (any head dim).
 template <typename T>
 __device__ void load_head(const T* src, int src_ld, int rows, int width,
                           T* dst, int ld, float scale, bool scaled) {
   constexpr int per = 16 / sizeof(T);
+  if (width % per || src_ld % per || ld % per ||
+      reinterpret_cast<uintptr_t>(src) % 16) {
+    for (int i = threadIdx.x; i < rows * width; i += kThreads) {
+      const int r = i / width, c = i - r * width;
+      const T e = src[(size_t)r * src_ld + c];
+      dst[(size_t)r * ld + c] = scaled ? from_f<T>(to_f(e) * scale) : e;
+    }
+    return;
+  }
   const int vec_row = width / per;
   for (int i = threadIdx.x; i < rows * vec_row; i += kThreads) {
     const int r = i / vec_row, c = (i - r * vec_row) * per;

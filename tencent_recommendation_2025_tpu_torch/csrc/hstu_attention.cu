@@ -1,12 +1,13 @@
 // Standalone HSTU pointwise attention for Hopper, sm_90a: forward and
-// backward, whole sequence.
+// backward, whole sequence and chunked over keys.
 //
 // Replaces tencent_recommendation_2025_tpu/ops/hstu_attention.py::
-// _fwd_kernel (l.164) with hstu_fwd_kernel, and ::_bwd_kernel (l.193) with
-// hstu_bwd_dq_kernel, hstu_bwd_dkdv_kernel and reduce_rows_kernel. Per
-// batch row and head h, with q, k, v, dout [B, L, D] head-packed (D = H *
-// hd, post-SiLU) in the compute dtype T (bf16 on the product path, f32 in
-// the checks) and rab [H, NB] f32:
+// _fwd_kernel (l.164) and _fwd_kernel_chunk (l.297) with hstu_fwd_kernel,
+// and ::_bwd_kernel (l.193), _dq_kernel_chunk (l.331) and
+// _dkdv_kernel_chunk (l.380) with hstu_bwd_dq_kernel, hstu_bwd_dkdv_kernel
+// and reduce_rows_kernel. Per batch row and head h, with q, k, v, dout
+// [B, L, D] head-packed (D = H * hd, post-SiLU) in the compute dtype T
+// (bf16 on the product path, f32 in the checks) and rab [H, NB] f32:
 //
 //   qs = T(q_h * hd^-1/2)                        (rounded before q.k^T)
 //   s  = qs k_h^T + rab[h, min(q - k, NB - 1)]   f32
@@ -18,32 +19,44 @@
 //   over the pairs in that bucket, every batch row. dq, dk, dv in T, drab
 //   in f32.
 //
-// These are the TPU kernel's rounding points. The TPU kernel builds rab
-// into [BLK, BLK] bias tiles (one per sub-diagonal block offset below
-// n_near, then one constant far tile) and returns their gradients, which
+// These are the TPU kernels' rounding points, the same in the whole-sequence
+// kernels and in the chunked ones (which take over past L * max(D, 64) =
+// 1024 * 64 on the TPU, where a whole [L, D] row no longer fits its VMEM).
+// The TPU kernels build rab into [blk, blk] bias tiles (one per
+// sub-diagonal block offset below n_near, then one constant far tile; blk
+// 128, or 256 in the chunked kernels) and return their gradients, which
 // _bias_tiles_transpose folds back to rab. Here the bias is read from rab
-// by distance, which gives the same values (every distance of a far tile
-// clamps to NB - 1), and the gradient is summed straight into rab's
-// buckets per tile diagonal.
+// by distance, which gives the same values at either blk (every distance of
+// a far tile clamps to NB - 1), and the gradient is summed straight into
+// rab's buckets per tile diagonal.
 //
-// Design. The TPU kernel runs a grid of (B,) over one row's whole [L, D]
-// in VMEM, unrolling 128-query stripes and heads. Here one block of 256
-// threads owns one (64-query tile, head, batch row) and streams 64-key
-// tiles of its head's slice through shared memory up to the diagonal
-// (tiles above it skipped, heaviest query tiles first). Products are
-// 16x16x16 WMMA tiles, bf16 with f32 accumulators (T = f32: FMA loops,
-// the check instance); the bias, SiLU and mask are f32. The backward is
-// the fused block's attention half on this layout: hstu_bwd_dq walks the
-// key tiles of a query tile (dq), hstu_bwd_dkdv the query tiles at or
-// below a key tile's diagonal (dk, dv, and the rel-pos gradient summed
-// per tile diagonal into a per-(batch row, key tile) slice), and
-// reduce_rows sums the slices in order. No atomics: deterministic.
+// Design. The TPU's whole-sequence kernel runs a grid of (B,) over one
+// row's whole [L, D] in VMEM; its chunked kernels stream [blk, D] key tiles
+// on a (B, nq, nk) grid with an f32 accumulator carried across the key
+// axis. Here one block of 256 threads owns one (query tile, head, batch
+// row) and streams key tiles of its head's slice through shared memory up
+// to the diagonal (tiles above it skipped, heaviest query tiles first), so
+// shared memory is flat in L and one design serves both: the chunked route
+// differs only in its launch count (ops/hstu_attention.py). Tiles are TQ =
+// 64 rows, or 32 or 16 where a wide head (hd up to 256) would not fit 227
+// KB of shared memory. Products are 16x16x16 WMMA tiles, bf16 with f32
+// accumulators, where hd % 16 == 0; FMA loops otherwise (any hd) and for
+// T = f32 (the check instance); the bias, SiLU and mask are f32. The
+// backward is the fused block's attention half on this layout:
+// hstu_bwd_dq walks the key tiles of a query tile (dq), hstu_bwd_dkdv the
+// query tiles at or below a key tile's diagonal (dk, dv, and the rel-pos
+// gradient summed per tile diagonal into a per-(batch row, key tile)
+// slice), and reduce_rows sums the slices in a fixed order. No atomics: deterministic. Offsets into
+// [B, L, D] and the slices are 64-bit.
 //
-// Bound on the H100 at hstu_mini's shape with --maxlen 255 (B=64, L=256,
-// D=64, H=4): forward 0.54 GFLOP of causal products (q.k^T and a.v)
-// against 8.4 MB of q, k, v and out: 2.5 us, bound by bytes; backward
-// 1.35 GFLOP (s, da, dv, dq, dk) against 14.7 MB: 4.4 us, bound by bytes.
-// This first kernel recomputes s and da in both backward kernels.
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s). hstu_mini with --maxlen
+// 255 (B=64, L=256, D=64, H=4): forward 0.54 GFLOP of causal products
+// (q.k^T and a.v) against 8.4 MB of q, k, v and out: 2.5 us, bound by
+// bytes; backward 1.35 GFLOP (s, da, dv, dq, dk) against 14.7 MB: 4.4 us,
+// bytes. With --maxlen 4095 (B=32, L=4096, D=64, H=4): forward 68.7 GFLOP,
+// 0.069 ms; backward 171.8 GFLOP, 0.174 ms; both bound by operations.
+// This first kernel recomputes s and da in both backward kernels and
+// stages every product through shared memory.
 
 #include "fused_block_common.cuh"
 
@@ -51,7 +64,7 @@ using namespace fbk;
 
 namespace {
 
-constexpr int kT = 64;  // queries and keys per tile
+constexpr int kMaxHd = 256;  // widest head slice the kernels take
 
 struct HstuArgs {
   const void* q;       // [B, L, D] T
@@ -64,7 +77,7 @@ struct HstuArgs {
   void* dq;            // backward: [B, L, D] T
   void* dk;            // backward: [B, L, D] T
   void* dv;            // backward: [B, L, D] T
-  float* part_rab;     // backward scratch [B * L / 64, H, NB]
+  float* part_rab;     // backward scratch [B * L / TQ, H, NB]
   float* drab;         // backward: [H, NB]
   int B, L, D, H, NB;
   float scale;         // hd^-1/2
@@ -72,25 +85,25 @@ struct HstuArgs {
 };
 
 template <typename T>
-size_t fwd_smem(int hd) {
-  return 3 * align128((size_t)kT * (hd + 8) * sizeof(T))  // q, k, v
-         + align128((size_t)kT * kLdS * sizeof(float))     // s
-         + align128((size_t)kT * kLdP * sizeof(T))         // a
-         + align128((size_t)kT * (hd + 4) * sizeof(float)) // out sum
-         + align128(kT * sizeof(int));                     // key valid
+size_t fwd_smem(int hd, int TQ) {
+  return 3 * align128((size_t)TQ * (hd + 8) * sizeof(T))  // q, k, v
+         + align128((size_t)TQ * kLdS * sizeof(float))     // s
+         + align128((size_t)TQ * kLdP * sizeof(T))         // a
+         + align128((size_t)TQ * (hd + 4) * sizeof(float)) // out sum
+         + align128(TQ * sizeof(int));                     // key valid
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) hstu_fwd_kernel(HstuArgs p,
-                                                            bool tc) {
+template <typename T, int TQ>
+__global__ void __launch_bounds__(kThreads)
+    hstu_fwd_kernel(HstuArgs p, bool tc) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, hd = D / p.H, L = p.L, NB = p.NB;
   const int ldh = hd + 8, lda = hd + 4;
   const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kT;
+  const int q0 = qt * TQ;
 
   unsigned char* ptr = smem;
-  const size_t tile = align128((size_t)kT * ldh * sizeof(T));
+  const size_t tile = align128((size_t)TQ * ldh * sizeof(T));
   T* qs = reinterpret_cast<T*>(ptr);
   ptr += tile;
   T* ks = reinterpret_cast<T*>(ptr);
@@ -98,34 +111,34 @@ __global__ void __launch_bounds__(kThreads) hstu_fwd_kernel(HstuArgs p,
   T* vs = reinterpret_cast<T*>(ptr);
   ptr += tile;
   float* ss = reinterpret_cast<float*>(ptr);
-  ptr += align128((size_t)kT * kLdS * sizeof(float));
+  ptr += align128((size_t)TQ * kLdS * sizeof(float));
   T* as = reinterpret_cast<T*>(ptr);
-  ptr += align128((size_t)kT * kLdP * sizeof(T));
+  ptr += align128((size_t)TQ * kLdP * sizeof(T));
   float* acc = reinterpret_cast<float*>(ptr);
-  ptr += align128((size_t)kT * lda * sizeof(float));
+  ptr += align128((size_t)TQ * lda * sizeof(float));
   int* kval = reinterpret_cast<int*>(ptr);
 
   const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
   const float* rab = p.rab + (size_t)h * NB;
-  load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, kT, hd,
+  load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, TQ, hd,
                qs, ldh, p.scale, true);
-  for (int i = threadIdx.x; i < kT * hd; i += kThreads)
+  for (int i = threadIdx.x; i < TQ * hd; i += kThreads)
     acc[(i / hd) * lda + i % hd] = 0.0f;
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kT;
+    const int k0 = kt * TQ;
     __syncthreads();  // the previous tile's products are done
-    load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, kT,
+    load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, TQ,
                  hd, ks, ldh, 1.0f, false);
-    load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, kT,
+    load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, TQ,
                  hd, vs, ldh, 1.0f, false);
-    for (int j = threadIdx.x; j < kT; j += kThreads)
+    for (int j = threadIdx.x; j < TQ; j += kThreads)
       kval[j] = p.valid[rowb + k0 + j];
     __syncthreads();
-    gemm<T, false, true, false>(qs, ldh, ks, ldh, ss, kLdS, kT, kT, hd, tc);
+    gemm<T, false, true, false>(qs, ldh, ks, ldh, ss, kLdS, TQ, TQ, hd, tc);
     __syncthreads();
-    for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-      const int r = i / kT, c = i - r * kT;
+    for (int i = threadIdx.x; i < TQ * TQ; i += kThreads) {
+      const int r = i / TQ, c = i - r * TQ;
       const int dist = (q0 + r) - (k0 + c);
       float a = 0.0f;
       if (dist >= 0 && kval[c] != 0)
@@ -133,25 +146,25 @@ __global__ void __launch_bounds__(kThreads) hstu_fwd_kernel(HstuArgs p,
       as[r * kLdP + c] = from_f<T>(a);
     }
     __syncthreads();
-    gemm<T, false, false, true>(as, kLdP, vs, ldh, acc, lda, kT, hd, kT, tc);
+    gemm<T, false, false, true>(as, kLdP, vs, ldh, acc, lda, TQ, hd, TQ, tc);
   }
   __syncthreads();
   T* out = static_cast<T*>(p.out) + (rowb + q0) * D + col;
-  for (int i = threadIdx.x; i < kT * hd; i += kThreads) {
+  for (int i = threadIdx.x; i < TQ * hd; i += kThreads) {
     const int r = i / hd, d = i - r * hd;
     out[(size_t)r * D + d] = from_f<T>(acc[r * lda + d]);
   }
 }
 
 template <typename T>
-size_t bwd_smem(int hd, int NB) {
-  return 4 * align128((size_t)kT * (hd + 8) * sizeof(T))   // q, do, k, v
-         + 2 * align128((size_t)kT * kLdS * sizeof(float))  // s, da/ds
-         + 2 * align128((size_t)kT * kLdP * sizeof(T))      // a, T(ds)
-         + 2 * align128((size_t)kT * (hd + 4) * sizeof(float))  // sums
-         + align128(kT * sizeof(int))                       // key valid
+size_t bwd_smem(int hd, int NB, int TQ) {
+  return 4 * align128((size_t)TQ * (hd + 8) * sizeof(T))   // q, do, k, v
+         + 2 * align128((size_t)TQ * kLdS * sizeof(float))  // s, da/ds
+         + 2 * align128((size_t)TQ * kLdP * sizeof(T))      // a, T(ds)
+         + 2 * align128((size_t)TQ * (hd + 4) * sizeof(float))  // sums
+         + align128(TQ * sizeof(int))                       // key valid
          + align128(NB * sizeof(float))                     // drab slice
-         + align128(2 * kT * sizeof(float));                // diagonals
+         + align128(2 * TQ * sizeof(float));                // diagonals
 }
 
 // The shared-memory carve-out of both backward kernels.
@@ -161,11 +174,11 @@ struct BwdTiles {
   float *ss, *das, *acc1, *acc2, *drab, *diag;
   int* kval;
 
-  __device__ BwdTiles(unsigned char* ptr, int hd, int NB) {
-    const size_t tile = align128((size_t)kT * (hd + 8) * sizeof(T));
-    const size_t ftile = align128((size_t)kT * kLdS * sizeof(float));
-    const size_t ptile = align128((size_t)kT * kLdP * sizeof(T));
-    const size_t atile = align128((size_t)kT * (hd + 4) * sizeof(float));
+  __device__ BwdTiles(unsigned char* ptr, int hd, int NB, int TQ) {
+    const size_t tile = align128((size_t)TQ * (hd + 8) * sizeof(T));
+    const size_t ftile = align128((size_t)TQ * kLdS * sizeof(float));
+    const size_t ptile = align128((size_t)TQ * kLdP * sizeof(T));
+    const size_t atile = align128((size_t)TQ * (hd + 4) * sizeof(float));
     qs = reinterpret_cast<T*>(ptr);
     dos = reinterpret_cast<T*>(ptr + tile);
     ks = reinterpret_cast<T*>(ptr + 2 * tile);
@@ -181,7 +194,7 @@ struct BwdTiles {
     acc2 = reinterpret_cast<float*>(ptr + atile);
     ptr += 2 * atile;
     kval = reinterpret_cast<int*>(ptr);
-    ptr += align128(kT * sizeof(int));
+    ptr += align128(TQ * sizeof(int));
     drab = reinterpret_cast<float*>(ptr);
     ptr += align128(NB * sizeof(float));
     diag = reinterpret_cast<float*>(ptr);
@@ -191,18 +204,18 @@ struct BwdTiles {
 // s = qs k^T and da = do v^T of one tile pair, then on the visible pairs
 // the bias and SiLU: a (into as, when given) and ds = da * dsilu(s) / L (f32
 // into das, rounded into dss); zero elsewhere.
-template <typename T>
+template <typename T, int TQ>
 __device__ void pair_grads(const HstuArgs& p, BwdTiles<T>& t, int hd,
                            const float* rab, int q0, int k0, bool tc,
                            bool with_a) {
   const int ldh = hd + 8, NB = p.NB;
-  gemm<T, false, true, false>(t.qs, ldh, t.ks, ldh, t.ss, kLdS, kT, kT, hd,
+  gemm<T, false, true, false>(t.qs, ldh, t.ks, ldh, t.ss, kLdS, TQ, TQ, hd,
                               tc);
-  gemm<T, false, true, false>(t.dos, ldh, t.vs, ldh, t.das, kLdS, kT, kT, hd,
+  gemm<T, false, true, false>(t.dos, ldh, t.vs, ldh, t.das, kLdS, TQ, TQ, hd,
                               tc);
   __syncthreads();
-  for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-    const int r = i / kT, c = i - r * kT;
+  for (int i = threadIdx.x; i < TQ * TQ; i += kThreads) {
+    const int r = i / TQ, c = i - r * TQ;
     const int dist = (q0 + r) - (k0 + c);
     float a = 0.0f, ds = 0.0f;
     if (dist >= 0 && t.kval[c] != 0) {
@@ -218,43 +231,43 @@ __device__ void pair_grads(const HstuArgs& p, BwdTiles<T>& t, int hd,
 }
 
 // dq of one query tile, walking the key tiles up to its diagonal.
-template <typename T>
+template <typename T, int TQ>
 __global__ void __launch_bounds__(kThreads)
     hstu_bwd_dq_kernel(HstuArgs p, bool tc) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, hd = D / p.H, L = p.L;
   const int ldh = hd + 8, lda = hd + 4;
   const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kT;
-  BwdTiles<T> t(smem, hd, p.NB);
+  const int q0 = qt * TQ;
+  BwdTiles<T> t(smem, hd, p.NB, TQ);
 
   const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
   const float* rab = p.rab + (size_t)h * p.NB;
-  load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, kT, hd,
+  load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, TQ, hd,
                t.qs, ldh, p.scale, true);
-  load_head<T>(static_cast<const T*>(p.dout) + (rowb + q0) * D + col, D, kT,
+  load_head<T>(static_cast<const T*>(p.dout) + (rowb + q0) * D + col, D, TQ,
                hd, t.dos, ldh, 1.0f, false);
-  for (int i = threadIdx.x; i < kT * hd; i += kThreads)
+  for (int i = threadIdx.x; i < TQ * hd; i += kThreads)
     t.acc1[(i / hd) * lda + i % hd] = 0.0f;
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kT;
+    const int k0 = kt * TQ;
     __syncthreads();  // the previous tile is done with every buffer
-    load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, kT,
+    load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, TQ,
                  hd, t.ks, ldh, 1.0f, false);
-    load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, kT,
+    load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, TQ,
                  hd, t.vs, ldh, 1.0f, false);
-    for (int j = threadIdx.x; j < kT; j += kThreads)
+    for (int j = threadIdx.x; j < TQ; j += kThreads)
       t.kval[j] = p.valid[rowb + k0 + j];
     __syncthreads();
-    pair_grads<T>(p, t, hd, rab, q0, k0, tc, false);
+    pair_grads<T, TQ>(p, t, hd, rab, q0, k0, tc, false);
     // dq += T(ds) k
-    gemm<T, false, false, true>(t.dss, kLdP, t.ks, ldh, t.acc1, lda, kT, hd,
-                                kT, tc);
+    gemm<T, false, false, true>(t.dss, kLdP, t.ks, ldh, t.acc1, lda, TQ, hd,
+                                TQ, tc);
   }
   __syncthreads();
   T* dq = static_cast<T*>(p.dq) + (rowb + q0) * D + col;
-  for (int i = threadIdx.x; i < kT * hd; i += kThreads) {
+  for (int i = threadIdx.x; i < TQ * hd; i += kThreads) {
     const int r = i / hd, d = i - r * hd;
     dq[(size_t)r * D + d] = from_f<T>(t.acc1[r * lda + d] * p.scale);
   }
@@ -262,53 +275,53 @@ __global__ void __launch_bounds__(kThreads)
 
 // dk, dv of one key tile, walking the query tiles at or below its
 // diagonal, and the rel-pos gradient of the same pairs per tile diagonal.
-template <typename T>
+template <typename T, int TQ>
 __global__ void __launch_bounds__(kThreads)
     hstu_bwd_dkdv_kernel(HstuArgs p, bool tc) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = p.D, H = p.H, hd = D / H, L = p.L, NB = p.NB;
   const int ldh = hd + 8, lda = hd + 4;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kT;
-  BwdTiles<T> t(smem, hd, NB);
+  const int k0 = kt * TQ;
+  BwdTiles<T> t(smem, hd, NB, TQ);
   float* dk = t.acc1;
   float* dv = t.acc2;
 
   const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
   const float* rab = p.rab + (size_t)h * NB;
-  load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, kT, hd,
+  load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, TQ, hd,
                t.ks, ldh, 1.0f, false);
-  load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, kT, hd,
+  load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, TQ, hd,
                t.vs, ldh, 1.0f, false);
-  for (int j = threadIdx.x; j < kT; j += kThreads)
+  for (int j = threadIdx.x; j < TQ; j += kThreads)
     t.kval[j] = p.valid[rowb + k0 + j];
-  for (int i = threadIdx.x; i < kT * hd; i += kThreads) {
+  for (int i = threadIdx.x; i < TQ * hd; i += kThreads) {
     dk[(i / hd) * lda + i % hd] = 0.0f;
     dv[(i / hd) * lda + i % hd] = 0.0f;
   }
   for (int i = threadIdx.x; i < NB; i += kThreads) t.drab[i] = 0.0f;
 
-  for (int qt = kt; qt < L / kT; ++qt) {
-    const int q0 = qt * kT;
+  for (int qt = kt; qt < L / TQ; ++qt) {
+    const int q0 = qt * TQ;
     __syncthreads();  // the previous query tile is done with every buffer
-    load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, kT,
+    load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, TQ,
                  hd, t.qs, ldh, p.scale, true);
     load_head<T>(static_cast<const T*>(p.dout) + (rowb + q0) * D + col, D,
-                 kT, hd, t.dos, ldh, 1.0f, false);
+                 TQ, hd, t.dos, ldh, 1.0f, false);
     __syncthreads();
-    pair_grads<T>(p, t, hd, rab, q0, k0, tc, true);
+    pair_grads<T, TQ>(p, t, hd, rab, q0, k0, tc, true);
     // dv += a^T do;  dk += T(ds)^T qs
-    gemm<T, true, false, true>(t.as, kLdP, t.dos, ldh, dv, lda, kT, hd, kT,
+    gemm<T, true, false, true>(t.as, kLdP, t.dos, ldh, dv, lda, TQ, hd, TQ,
                                tc);
-    gemm<T, true, false, true>(t.dss, kLdP, t.qs, ldh, dk, lda, kT, hd, kT,
+    gemm<T, true, false, true>(t.dss, kLdP, t.qs, ldh, dk, lda, TQ, hd, TQ,
                                tc);
     // rel-pos gradient: diagonal e of the tile holds the pairs at distance
-    // q0 - k0 + e - (kT - 1); distances below NB - 1 are distinct per
+    // q0 - k0 + e - (TQ - 1); distances below NB - 1 are distinct per
     // diagonal, the clamped ones fold in order below
-    for (int e = threadIdx.x; e < 2 * kT - 1; e += kThreads) {
-      const int off = e - (kT - 1);  // r - c
+    for (int e = threadIdx.x; e < 2 * TQ - 1; e += kThreads) {
+      const int off = e - (TQ - 1);  // r - c
       float s = 0.0f;
-      for (int r = max(0, off); r < min(kT, kT + off); ++r)
+      for (int r = max(0, off); r < min(TQ, TQ + off); ++r)
         s += t.das[r * kLdS + (r - off)];
       t.diag[e] = s;
       const int dist = q0 - k0 + off;
@@ -316,14 +329,14 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      for (int e = 0; e < 2 * kT - 1; ++e)
-        if (q0 - k0 + e - (kT - 1) >= NB - 1) t.drab[NB - 1] += t.diag[e];
+      for (int e = 0; e < 2 * TQ - 1; ++e)
+        if (q0 - k0 + e - (TQ - 1) >= NB - 1) t.drab[NB - 1] += t.diag[e];
     }
   }
   __syncthreads();
   T* dko = static_cast<T*>(p.dk) + (rowb + k0) * D + col;
   T* dvo = static_cast<T*>(p.dv) + (rowb + k0) * D + col;
-  for (int i = threadIdx.x; i < kT * hd; i += kThreads) {
+  for (int i = threadIdx.x; i < TQ * hd; i += kThreads) {
     const int r = i / hd, d = i - r * hd;
     dko[(size_t)r * D + d] = from_f<T>(dk[r * lda + d]);
     dvo[(size_t)r * D + d] = from_f<T>(dv[r * lda + d]);
@@ -332,58 +345,109 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < NB; i += kThreads) out[i] = t.drab[i];
 }
 
-// out[i] = sum over g of part[g * P + i], in order of g
-__global__ void reduce_rows_kernel(const float* part, int G, int P,
-                                   float* out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P) return;
+// out[i] = sum over g of part[g * P + i]. A block sums 32 columns: warp w
+// takes rows w, w + 8, ... in order, then warp 0 adds the 8 partial sums
+// in warp order. A fixed order, so deterministic; the rows are split 8
+// ways because G = B * L / TQ reaches 8,192 at B=32, L=16384.
+__global__ void __launch_bounds__(kThreads)
+    reduce_rows_kernel(const float* part, int G, int P, float* out) {
+  __shared__ float sums[kWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * 32 + lane;
   float s = 0.0f;
-  for (int g = 0; g < G; ++g) s += part[(size_t)g * P + i];
-  out[i] = s;
+  if (i < P) {
+#pragma unroll 4
+    for (int g = warp; g < G; g += kWarps) s += part[(size_t)g * P + i];
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && i < P) {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += sums[w][lane];
+    out[i] = t;
+  }
 }
 
 bool shapes_ok(int B, int L, int D, int H, int NB) {
-  if (B <= 0 || H <= 0 || L <= 0 || NB <= 0 || L % kT != 0 || D % H != 0)
+  if (B <= 0 || H <= 0 || L <= 0 || NB <= 0 || L % 64 != 0 || D % H != 0)
     return false;
-  const int hd = D / H;
-  return hd % 16 == 0 && hd <= 64;
+  return D / H <= kMaxHd;
+}
+
+// The query/key tile: 64 rows, or 32 or 16 where the head slice would not
+// fit shared memory at 64 (0: none fits).
+template <typename T>
+int pick_tile(int hd, int NB, bool bwd) {
+  for (int t = 64; t >= 16; t >>= 1) {
+    const size_t sm = bwd ? bwd_smem<T>(hd, NB, t) : fwd_smem<T>(hd, t);
+    if (sm <= kMaxSmem) return t;
+  }
+  return 0;
 }
 
 template <typename T>
-int launch_fwd(const HstuArgs& p, cudaStream_t stream) {
-  const size_t sm = fwd_smem<T>(p.D / p.H);
+bool use_tc(int hd) {
+  return std::is_same<T, bf16>::value && hd % 16 == 0;
+}
+
+template <typename T, int TQ>
+int launch_fwd_tiles(const HstuArgs& p, cudaStream_t stream) {
+  const int hd = p.D / p.H;
+  const size_t sm = fwd_smem<T>(hd, TQ);
   cudaError_t e = cudaFuncSetAttribute(
-      hstu_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hstu_fwd_kernel<T, TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sm);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(p.L / kT, p.H, p.B);
-  hstu_fwd_kernel<T><<<grid, kThreads, sm, stream>>>(
-      p, std::is_same<T, bf16>::value);
+  const dim3 grid(p.L / TQ, p.H, p.B);
+  hstu_fwd_kernel<T, TQ><<<grid, kThreads, sm, stream>>>(p, use_tc<T>(hd));
   return (int)cudaGetLastError();
+}
+
+template <typename T, int TQ>
+int launch_bwd_tiles(const HstuArgs& p, cudaStream_t stream) {
+  const int hd = p.D / p.H;
+  const size_t sm = bwd_smem<T>(hd, p.NB, TQ);
+  cudaError_t e = cudaFuncSetAttribute(
+      hstu_bwd_dq_kernel<T, TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(hstu_bwd_dkdv_kernel<T, TQ>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  const bool tc = use_tc<T>(hd);
+  const dim3 grid(p.L / TQ, p.H, p.B);
+  hstu_bwd_dq_kernel<T, TQ><<<grid, kThreads, sm, stream>>>(p, tc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  hstu_bwd_dkdv_kernel<T, TQ><<<grid, kThreads, sm, stream>>>(p, tc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int hnb = p.H * p.NB;
+  reduce_rows_kernel<<<(hnb + 31) / 32, kThreads, 0, stream>>>(
+      p.part_rab, p.B * (p.L / TQ), hnb, p.drab);
+  return (int)cudaGetLastError();
+}
+
+// The tile rows are a template argument, so that the tile loops unroll as
+// the 64-row design's did.
+template <typename T>
+int launch_fwd(const HstuArgs& p, cudaStream_t stream) {
+  switch (pick_tile<T>(p.D / p.H, p.NB, false)) {
+    case 64: return launch_fwd_tiles<T, 64>(p, stream);
+    case 32: return launch_fwd_tiles<T, 32>(p, stream);
+    case 16: return launch_fwd_tiles<T, 16>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 int launch_bwd(const HstuArgs& p, cudaStream_t stream) {
-  const size_t sm = bwd_smem<T>(p.D / p.H, p.NB);
-  if (sm > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      hstu_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sm);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(hstu_bwd_dkdv_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sm);
-  if (e != cudaSuccess) return (int)e;
-  const bool tc = std::is_same<T, bf16>::value;
-  const dim3 grid(p.L / kT, p.H, p.B);
-  hstu_bwd_dq_kernel<T><<<grid, kThreads, sm, stream>>>(p, tc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  hstu_bwd_dkdv_kernel<T><<<grid, kThreads, sm, stream>>>(p, tc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int hnb = p.H * p.NB;
-  reduce_rows_kernel<<<(hnb + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(p.part_rab, p.B * (p.L / kT), hnb, p.drab);
-  return (int)cudaGetLastError();
+  switch (pick_tile<T>(p.D / p.H, p.NB, true)) {
+    case 64: return launch_bwd_tiles<T, 64>(p, stream);
+    case 32: return launch_bwd_tiles<T, 32>(p, stream);
+    case 16: return launch_bwd_tiles<T, 16>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -391,9 +455,17 @@ int launch_bwd(const HstuArgs& p, cudaStream_t stream) {
 // Plain C entry points (bound with ctypes). q, k, v, out, dout, dq, dk, dv
 // [B, L, D] head-packed in the compute dtype (bf16 when is_bf16, else
 // f32), valid [B, L] int32, rab and drab [H, NB] f32, part_rab
-// [B * L / 64, H, NB] f32 scratch; all contiguous and 16-byte aligned.
-// Requires L % 64 == 0, D % H == 0 and hd = D / H a multiple of 16 no
-// larger than 64. Each returns a cudaError_t code (0 on success).
+// [B * L / hstu_attn_bwd_tile(...), H, NB] f32 scratch; all contiguous and
+// 16-byte aligned. Requires L % 64 == 0, D % H == 0 and hd = D / H at most
+// 256. Each launch returns a cudaError_t code (0 on success).
+
+// The backward's query/key tile rows at this dtype, head dim and bucket
+// count (64, 32 or 16; 0 where no tile fits).
+extern "C" int hstu_attn_bwd_tile(int is_bf16, int hd, int NB) {
+  return is_bf16 ? pick_tile<bf16>(hd, NB, true)
+                 : pick_tile<float>(hd, NB, true);
+}
+
 extern "C" int hstu_attn_fwd(int is_bf16, const void* q, const void* k,
                              const void* v, const void* valid,
                              const void* rab, void* out, int B, int L, int D,

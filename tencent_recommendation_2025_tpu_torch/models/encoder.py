@@ -10,8 +10,8 @@ reference's post-LN wiring.
 Routing mirrors the JAX package's. Where it takes a Pallas kernel on a TPU,
 the port takes its CUDA kernel on the card (the fused block in its
 whole-sequence or chunked variant, ``ops/fused_block``; the standalone HSTU
-attention, ``ops/hstu_attention``; flash MHA, ``ops/flash_attention``), or
-raises ``NotImplementedError`` naming the kernel not ported yet. Where it
+attention, whole-sequence or chunked, ``ops/hstu_attention``; flash MHA,
+``ops/flash_attention``). Where it
 runs plain XLA, the port runs plain PyTorch on any device. On the CPU every
 path is plain.
 """
@@ -155,14 +155,15 @@ def block_route(cfg: ModelConfig, L: int, backend: str) -> str:
       variant by ``FB.chunked``;
     - "core": the blocks' attention inner loop in a kernel: the standalone
       HSTU attention kernels for an HSTU block the fused gate refuses (a
-      ReLU FFN, say) at 256 <= L, L % 128 == 0; the flash MHA kernels for
-      an MHA block there with L * max(D, 64) <= 1024 * 64;
+      ReLU FFN, say) at 256 <= L, L % 128 == 0 (past ``HA._use_long``,
+      where the JAX package takes its chunked kernels, the same kernels
+      launch under the chunked wrappers' own counters); the flash MHA
+      kernels for an MHA block there with L * max(D, 64) <= 1024 * 64;
     - "dense": plain PyTorch (MHA beyond the flash gate, as in the JAX
       package).
 
-    Raises ``NotImplementedError`` where the JAX package would take a
-    Pallas kernel the port has not ported: an HSTU shape that needs the
-    chunked HSTU attention kernels (Queue 2 rows 15-17)."""
+    A head wider than the kernels take (256) raises ``NotImplementedError``
+    in the kernel's wrapper, on the card."""
     if FB.fused_block_supported(cfg, L, backend):
         return "fused"
     if backend != "cuda" or not cfg.use_flash_attention \
@@ -170,13 +171,6 @@ def block_route(cfg: ModelConfig, L: int, backend: str) -> str:
         return "dense"
     D = cfg.hidden_units
     if cfg.block_type == "hstu":
-        if HA._use_long(L, D):
-            raise NotImplementedError(
-                f"HSTU blocks at L={L}, D={D} take the chunked HSTU "
-                "attention kernels (ops/hstu_attention.py::"
-                "_fwd_kernel_chunk, _dq_kernel_chunk, _dkdv_kernel_chunk) "
-                "in the JAX package, not ported yet: ROADMAP Queue 2, rows "
-                "15-17")
         return "core"
     if L * max(D, 64) <= FA.MAX_FLASH_L * 64:
         return "core"

@@ -29,9 +29,10 @@ The encoder takes these where the JAX package's ``make_attention_cores``
 does: 256 <= L, L % 128 == 0 and L * max(D, 64) <= 1024 * 64; longer MHA
 runs dense. Each wrapper takes its plain version for tensors on the CPU and
 launches its kernel for CUDA tensors (counted in ``flash_mha_fwd.launches``
-and ``flash_mha_bwd.launches``); it never falls back. The kernels take hd a
-multiple of 16 up to 64 and L a multiple of 64, bf16 or f32; anything else
-raises.
+and ``flash_mha_bwd.launches``); it never falls back. The kernels take any
+head dim up to 256 (every D the gate admits at L >= 256; WMMA tensor-core
+products where hd % 16 == 0 in bf16, FMA loops otherwise) and L a multiple
+of 64, bf16 or f32; anything else raises.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Standalone HSTU pointwise attention: CUDA kernels, plain versions, autograd.
 
-Counterpart of ``tencent_recommendation_2025_tpu/ops/hstu_attention.py``,
-its whole-sequence half. Per batch row and head, on head-packed [B, L, D]
-post-SiLU q, k, v (D = H * hd) and a rel-pos bias ``rab`` [H, buckets]:
+Counterpart of ``tencent_recommendation_2025_tpu/ops/hstu_attention.py``.
+Per batch row and head, on head-packed [B, L, D] post-SiLU q, k, v (D = H *
+hd) and a rel-pos bias ``rab`` [H, buckets]:
 
     s   = T(q * hd^-1/2) k^T + rab[h, clip(q - k, 0, buckets - 1)]   (f32)
     a   = T(silu(s) * causal * key_valid / seq_len)
@@ -13,27 +13,36 @@ checks) and ``seq_len`` the padded length. The backward gives dq, dk, dv in
 T and ``drab`` [H, buckets] in f32, summed over the batch.
 
 Kernels (``csrc/hstu_attention.cu``): ``hstu_fwd_kernel`` replaces
-``_fwd_kernel`` (l.164) and ``hstu_bwd_dq_kernel``, ``hstu_bwd_dkdv_kernel``
-and ``reduce_rows_kernel`` replace ``_bwd_kernel`` (l.193). The TPU kernels
-read the bias from precomputed [128, 128] tiles and return tile gradients;
-the CUDA kernels read ``rab`` by distance and sum its gradient straight into
-its buckets (the same values: every distance of a far tile clamps to the
-last bucket). Bound at hstu_mini's shape (B=64, L=256, D=64, H=4): bytes,
-2.5 us forward and 4.4 us backward on the H100.
+``_fwd_kernel`` (l.164) and ``_fwd_kernel_chunk`` (l.297);
+``hstu_bwd_dq_kernel``, ``hstu_bwd_dkdv_kernel`` and ``reduce_rows_kernel``
+replace ``_bwd_kernel`` (l.193), ``_dq_kernel_chunk`` (l.331) and
+``_dkdv_kernel_chunk`` (l.380). The TPU kernels read the bias from
+precomputed [blk, blk] tiles and return tile gradients; the CUDA kernels
+read ``rab`` by distance and sum its gradient straight into its buckets
+(the same values: every distance of a far tile clamps to the last bucket).
+The TPU takes its chunked kernels past ``_use_long`` (L * max(D, 64) > 1024
+* 64), where a whole [L, D] row no longer fits its VMEM; the CUDA kernels
+stream key tiles through shared memory at any L, so one kernel design
+serves both routes, which count their launches apart:
+``hstu_attention_fwd.launches`` / ``hstu_attention_bwd.launches`` for the
+whole-sequence shapes, ``hstu_attention_chunk_fwd.launches`` /
+``hstu_attention_chunk_bwd.launches`` for the chunked ones. Bound at
+hstu_mini's shapes on the H100: bytes at B=64, L=256 (2.5 us forward, 4.4
+us backward); operations at B=32, L=4096 (0.069 ms, 0.174 ms).
 
-The encoder takes these where the JAX package's ``make_attention_cores``
-does: an HSTU block that the fused gate refuses, at 256 <= L, L % 128 == 0,
-and ``not _use_long(L, D)``. Above that the JAX package takes its chunked
-kernels (``_fwd_kernel_chunk``, ``_dq_kernel_chunk``, ``_dkdv_kernel_chunk``,
-l.297-428), not ported yet: on the card :func:`hstu_attention_packed` raises
-``NotImplementedError`` there; on the CPU the plain version computes the
-same function.
+The bucket limit follows the bias-tile block the JAX package picks
+(``_tile_blk``): 128 on the whole-sequence route (at most 898 buckets),
+256 on the chunked one where L and its VMEM budget allow (at most 1794).
+The encoder takes these kernels where the JAX package's
+``make_attention_cores`` does: an HSTU block that the fused gate refuses,
+at 256 <= L, L % 128 == 0. ``silu_qkv`` (SiLU inside the kernel) has no
+caller in the JAX package and is not ported.
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
-kernel for CUDA tensors (counted in ``hstu_attention_fwd.launches`` and
-``hstu_attention_bwd.launches``); it never falls back. The kernels take hd a
-multiple of 16 up to 64 and L a multiple of 64, bf16 or f32; anything else
-raises.
+kernel for CUDA tensors; it never falls back. The kernels take any head dim
+up to 256 (WMMA tensor-core products where hd % 16 == 0 in bf16, FMA loops
+otherwise) and L a multiple of 64, bf16 or f32; a wider head raises
+``NotImplementedError`` (ROADMAP Queue 3), anything else ``ValueError``.
 """
 
 from __future__ import annotations
@@ -49,8 +58,10 @@ from .fused_block import _dsilu, _heads, _mm, _rab_grad, _rows, _stream
 
 BLK = 128
 MAX_WHOLESEQ_L = 1024
-#: the kernels' query and key tile
+#: L is a multiple of the kernels' largest query and key tile
 KERNEL_TILE = 64
+#: the widest head slice the attention kernels take
+MAX_HEAD_DIM = 256
 
 
 def _n_near(buckets: int, blk: int = BLK) -> int:
@@ -67,24 +78,49 @@ def _n_near(buckets: int, blk: int = BLK) -> int:
     return needed
 
 
+def _chunk_blk(L: int, H: int, buckets: int) -> int:
+    """The JAX package's bias-tile block of its chunked kernels: 256 when it
+    divides L and the [H, nt, blk, blk] f32 tile stack and its gradient fit
+    8 MiB of VMEM, else 128 (``_n_near`` raises where the buckets need
+    more than 8 slots at the block it tries)."""
+    for blk in (256, 128):
+        if L % blk != 0:
+            continue
+        nt = _n_near(buckets, blk) + 1
+        if 2 * H * nt * blk * blk * 4 <= 8 * 1024 * 1024:
+            return blk
+    return BLK
+
+
 def _use_long(L: int, D: int) -> bool:
     """Whole-sequence vs chunked-KV dispatch of the JAX package (D-aware;
     read ``MAX_WHOLESEQ_L`` at call time, so a test can shrink it)."""
     return L * max(D, 64) > MAX_WHOLESEQ_L * 64
 
 
+def _tile_blk(L: int, H: int, buckets: int, D: int = 64) -> int:
+    """The JAX package's bias-tile block: ``BLK`` on the whole-sequence
+    route, ``_chunk_blk`` on the chunked one."""
+    return _chunk_blk(L, H, buckets) if _use_long(L, D) else BLK
+
+
 def check_attention_inputs(name: str, num_heads: int, q: torch.Tensor,
                            *others: torch.Tensor) -> None:
     """Raise on what the attention kernels do not take: q and every other
     [B, L, D] operand alike in shape and dtype (bf16 or f32), L a multiple
-    of 64, hd = D / num_heads a multiple of 16 no larger than 64,
-    contiguous, 16-byte aligned, on one device."""
+    of 64, D a multiple of num_heads, contiguous, 16-byte aligned, on one
+    device; a head dim past ``MAX_HEAD_DIM`` raises
+    ``NotImplementedError``."""
     B, L, D = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} takes bf16 or f32, not {q.dtype}")
-    if D % num_heads or (D // num_heads) % 16 or D // num_heads > 64:
-        raise ValueError(f"{name} needs a head dim that is a multiple of 16 "
-                         f"and at most 64 (D={D}, H={num_heads})")
+    if D % num_heads:
+        raise ValueError(f"{name} needs D % H == 0 (D={D}, H={num_heads})")
+    if D // num_heads > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name}: head dim {D // num_heads} (D={D}, H={num_heads}) is "
+            f"past the {MAX_HEAD_DIM} the attention kernels take: ROADMAP "
+            "Queue 3, heads wider than 256")
     if L % KERNEL_TILE:
         raise ValueError(f"{name} needs L % {KERNEL_TILE} == 0 (L={L})")
     for t in (q, *others):
@@ -196,18 +232,7 @@ def _check_rab(rab: torch.Tensor, num_heads: int, device) -> torch.Tensor:
     return rab.to(torch.float32).contiguous()
 
 
-def hstu_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       valid: torch.Tensor, rab: torch.Tensor, seq_len: int,
-                       num_heads: int) -> torch.Tensor:
-    """The forward kernel on head-packed [B, L, D] q, k, v; ``valid`` [B, L]
-    (nonzero = valid key), ``rab`` [H, buckets]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (counted in
-    ``hstu_attention_fwd.launches``)."""
-    if q.device.type == "cpu":
-        return hstu_attention_fwd_plain(q, k, v, valid, rab, seq_len,
-                                        num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"hstu_attention_fwd: no kernel for {q.device}")
+def _launch_fwd(q, k, v, valid, rab, seq_len, num_heads):
     check_attention_inputs("hstu attention kernel", num_heads, q, k, v)
     B, L, D = q.shape
     vi = valid_int32(valid, q.shape)
@@ -222,6 +247,67 @@ def hstu_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"hstu_attn_fwd kernel launch failed: CUDA error "
                            f"{rc}")
+    return out
+
+
+def _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads):
+    check_attention_inputs("hstu attention backward", num_heads, q, k, v,
+                           dout)
+    B, L, D = q.shape
+    vi = valid_int32(valid, q.shape)
+    rab = _check_rab(rab, num_heads, q.device)
+    NB = rab.shape[1]
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    tile_fn = kernels.load("hstu_attention").hstu_attn_bwd_tile
+    tile_fn.restype = _I
+    tile_fn.argtypes = [_I, _I, _I]
+    tile = tile_fn(is_bf16, D // num_heads, NB)
+    if tile == 0:
+        raise ValueError(f"hstu attention backward: no tile fits shared "
+                         f"memory at hd={D // num_heads}, {NB} buckets")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    # the rel-pos gradient of each (batch row, key tile), summed in order
+    part = torch.empty((B * (L // tile), num_heads, NB), dtype=torch.float32,
+                       device=q.device)
+    drab = torch.empty((num_heads, NB), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _fn("hstu_attn_bwd", 11)(
+            is_bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), vi.data_ptr(), rab.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), part.data_ptr(), drab.data_ptr(), B,
+            L, D, num_heads, NB, float(D // num_heads) ** -0.5,
+            1.0 / seq_len, _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"hstu_attn_bwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    return dq, dk, dv, drab
+
+
+def _on_card(name: str, q: torch.Tensor) -> bool:
+    """False for CPU tensors (the plain version); True for CUDA ones;
+    raises for any other device."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+    return True
+
+
+def hstu_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       valid: torch.Tensor, rab: torch.Tensor, seq_len: int,
+                       num_heads: int) -> torch.Tensor:
+    """The forward kernel on head-packed [B, L, D] q, k, v; ``valid`` [B, L]
+    (nonzero = valid key), ``rab`` [H, buckets]. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, counted in
+    ``hstu_attention_fwd.launches``, or for a chunked shape (``_use_long``)
+    in :func:`hstu_attention_chunk_fwd`'s count."""
+    if not _on_card("hstu_attention_fwd", q):
+        return hstu_attention_fwd_plain(q, k, v, valid, rab, seq_len,
+                                        num_heads)
+    if _use_long(q.shape[1], q.shape[2]):
+        return hstu_attention_chunk_fwd(q, k, v, valid, rab, seq_len,
+                                        num_heads)
+    out = _launch_fwd(q, k, v, valid, rab, seq_len, num_heads)
     hstu_attention_fwd.launches += 1
     return out
 
@@ -229,43 +315,62 @@ def hstu_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 hstu_attention_fwd.launches = 0
 
 
+def hstu_attention_chunk_fwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor,
+                             rab: torch.Tensor, seq_len: int,
+                             num_heads: int) -> torch.Tensor:
+    """The forward kernel where the JAX package takes ``_fwd_kernel_chunk``
+    (counted in ``hstu_attention_chunk_fwd.launches``)."""
+    if not _on_card("hstu_attention_chunk_fwd", q):
+        return hstu_attention_fwd_plain(q, k, v, valid, rab, seq_len,
+                                        num_heads)
+    out = _launch_fwd(q, k, v, valid, rab, seq_len, num_heads)
+    hstu_attention_chunk_fwd.launches += 1
+    return out
+
+
+hstu_attention_chunk_fwd.launches = 0
+
+
 def hstu_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        dout: torch.Tensor, valid: torch.Tensor,
                        rab: torch.Tensor, seq_len: int, num_heads: int
                        ) -> Tuple[torch.Tensor, ...]:
-    """The backward kernel: (dq, dk, dv, drab). CPU tensors take the plain
-    version; CUDA tensors launch the kernels (one count in
-    ``hstu_attention_bwd.launches``)."""
-    if q.device.type == "cpu":
+    """The backward kernels: (dq, dk, dv, drab). CPU tensors take the plain
+    version; CUDA tensors launch the kernels, one count in
+    ``hstu_attention_bwd.launches``, or for a chunked shape in
+    :func:`hstu_attention_chunk_bwd`'s."""
+    if not _on_card("hstu_attention_bwd", q):
         return hstu_attention_bwd_plain(q, k, v, dout, valid, rab, seq_len,
                                         num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"hstu_attention_bwd: no kernel for {q.device}")
-    check_attention_inputs("hstu attention backward", num_heads, q, k, v,
-                           dout)
-    B, L, D = q.shape
-    vi = valid_int32(valid, q.shape)
-    rab = _check_rab(rab, num_heads, q.device)
-    NB = rab.shape[1]
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    part = torch.empty((B * (L // KERNEL_TILE), num_heads, NB),
-                       dtype=torch.float32, device=q.device)
-    drab = torch.empty((num_heads, NB), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _fn("hstu_attn_bwd", 11)(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), dout.data_ptr(), vi.data_ptr(), rab.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
-            drab.data_ptr(), B, L, D, num_heads, NB,
-            float(D // num_heads) ** -0.5, 1.0 / seq_len, _stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"hstu_attn_bwd kernel launch failed: CUDA error "
-                           f"{rc}")
+    if _use_long(q.shape[1], q.shape[2]):
+        return hstu_attention_chunk_bwd(q, k, v, dout, valid, rab, seq_len,
+                                        num_heads)
+    grads = _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads)
     hstu_attention_bwd.launches += 1
-    return dq, dk, dv, drab
+    return grads
 
 
 hstu_attention_bwd.launches = 0
+
+
+def hstu_attention_chunk_bwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor,
+                             valid: torch.Tensor, rab: torch.Tensor,
+                             seq_len: int, num_heads: int
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels where the JAX package takes
+    ``_dq_kernel_chunk`` and ``_dkdv_kernel_chunk`` (one count in
+    ``hstu_attention_chunk_bwd.launches``)."""
+    if not _on_card("hstu_attention_chunk_bwd", q):
+        return hstu_attention_bwd_plain(q, k, v, dout, valid, rab, seq_len,
+                                        num_heads)
+    grads = _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads)
+    hstu_attention_chunk_bwd.launches += 1
+    return grads
+
+
+hstu_attention_chunk_bwd.launches = 0
 
 
 class HstuAttentionFn(torch.autograd.Function):
@@ -292,17 +397,10 @@ def hstu_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           seq_len: int, num_heads: int) -> torch.Tensor:
     """Head-packed HSTU attention: q/k/v [B, L, D] (D = H * hd), valid
     [B, L], rab [H, buckets]. Returns [B, L, D]. Differentiable in q, k, v
-    and rab. Raises the JAX package's ``ValueError`` for more buckets than
-    its bias tiles take, and on the card ``NotImplementedError`` where the
-    JAX package takes its chunked kernels."""
-    _n_near(rab.shape[1])
+    and rab. Raises the JAX package's ``ValueError`` where its bias tiles
+    at the block its dispatch picks (``_tile_blk``) take fewer buckets."""
     L, D = q.shape[1], q.shape[2]
-    if q.device.type == "cuda" and _use_long(L, D):
-        raise NotImplementedError(
-            f"L={L} at D={D} takes the chunked HSTU attention kernels "
-            "(ops/hstu_attention.py::_fwd_kernel_chunk, _dq_kernel_chunk, "
-            "_dkdv_kernel_chunk; Queue 2 rows 15-17) in the JAX package, "
-            "not ported yet")
+    _n_near(rab.shape[1], _tile_blk(L, rab.shape[0], rab.shape[1], D))
     return HstuAttentionFn.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), valid, rab, seq_len,
                                  num_heads)

@@ -2,41 +2,83 @@
 
 Counterpart of ``tencent_recommendation_2025_tpu/retrieval/ann``: read
 ``embedding.fbin`` / ``id.u64bin`` / ``query.fbin`` from a result directory,
-write the top-k retrieval ids to ``id100.u64bin``. The port serves the exact
-method; the other methods of the JAX package raise until ported.
+write the top-k retrieval ids to ``id100.u64bin``. Methods: ``exact``,
+``approx`` and ``int8`` through :func:`..mips.retrieve_topk` on the device;
+``hnsw`` through the repo's C++ HNSW tool (``native/hnsw``, built with
+``make`` on first use), the reference's own contract:
+
+    hnsw_tool --dataset_vector_file_path=... --dataset_id_file_path=...
+              --query_vector_file_path=... --result_id_file_path=...
+              --query_ann_top_k=10 --faiss_M=64 --faiss_ef_construction=1280
+              --query_ef_search=640 --faiss_metric_type=0
+
+Where the tool cannot be built, ``hnsw`` falls back to exact search, as the
+JAX package's wrapper does. ``semantic`` (generative semantic-id serving)
+is not ported yet.
 """
 
 from __future__ import annotations
 
+import subprocess
 from pathlib import Path
+from typing import Optional
 
 from ...config import RetrievalConfig
 from ...data import formats
 
-_NOT_PORTED = {
-    "approx": "approximate top-k (ROADMAP Queue 1, Retrieval tiers)",
-    "int8": "int8-quantized corpus top-k (ROADMAP Queue 1, Retrieval tiers)",
-    "hnsw": "the native HNSW tool wrapper (ROADMAP Queue 1, Retrieval tiers)",
-    "semantic": "generative semantic-id serving (ROADMAP Queue 1, Generative tier)",
-}
+_NATIVE_DIR = Path(__file__).resolve().parents[3] / "native" / "hnsw"
+_BINARY = _NATIVE_DIR / "hnsw_tool"
+
+
+def binary_path(build: bool = True) -> Optional[Path]:
+    """The HNSW tool's path, built with make if needed; None where it
+    cannot be built."""
+    if _BINARY.exists():
+        return _BINARY
+    if not build:
+        return None
+    try:
+        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
+                       capture_output=True)
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    return _BINARY if _BINARY.exists() else None
 
 
 def run_ann(result_dir, cfg: RetrievalConfig = RetrievalConfig(),
             dataset_file="embedding.fbin", id_file="id.u64bin",
             query_file="query.fbin", result_file="id100.u64bin",
             device="cuda") -> Path:
-    """Exact top-k search with the reference's file contract."""
-    if cfg.method != "exact":
-        what = _NOT_PORTED.get(cfg.method, "this method")
+    """Top-k search by ``cfg.method`` with the reference's file contract;
+    returns the result file's path."""
+    if cfg.method == "semantic":
         raise NotImplementedError(
-            f"ann method {cfg.method!r}: {what} is not ported yet")
-    from ..mips import retrieve_topk
-
+            "ann method 'semantic': generative semantic-id serving is not "
+            "ported yet (ROADMAP Queue 1, Generative tier)")
     result_dir = Path(result_dir)
     out = result_dir / result_file
+    tool = binary_path() if cfg.method == "hnsw" else None
+    if tool is not None:
+        subprocess.run([
+            str(tool),
+            f"--dataset_vector_file_path={result_dir / dataset_file}",
+            f"--dataset_id_file_path={result_dir / id_file}",
+            f"--query_vector_file_path={result_dir / query_file}",
+            f"--result_id_file_path={out}",
+            f"--query_ann_top_k={cfg.top_k}",
+            f"--faiss_M={cfg.hnsw_m}",
+            f"--faiss_ef_construction={cfg.hnsw_ef_construction}",
+            f"--query_ef_search={cfg.hnsw_ef_search}",
+            f"--faiss_metric_type={cfg.metric_type}",
+        ], check=True)
+        return out
+    from ..mips import retrieve_topk
+
     corpus = formats.load_fbin(result_dir / dataset_file)
     ids = formats.load_u64bin(result_dir / id_file)[:, 0]
     queries = formats.load_fbin(result_dir / query_file)
-    top = retrieve_topk(queries, corpus, ids, k=cfg.top_k, device=device)
+    top = retrieve_topk(queries, corpus, ids, k=cfg.top_k, device=device,
+                        approx=cfg.method == "approx",
+                        quantize=cfg.method == "int8")
     formats.save_result_ids(top, out)
     return out

@@ -3,7 +3,8 @@
 Counterpart of ``tencent_recommendation_2025_tpu/train/trainer.py`` for one
 device: the BCE or sampled-softmax loss, backward (the fused block's
 backward kernel on the card), AdamW over the dense parameters, per-epoch
-validation and checkpoints. Tables listed in ``train.sparse_tables``
+validation, the epoch-end retrieval eval (``eval_retrieval_users``) and
+checkpoints. Tables listed in ``train.sparse_tables``
 (``item_emb``, ``user_emb``) train by the gather-train pattern of
 ``ops/sparse_table.py``: the host dedups the step's touched ids
 (:func:`augment_batch_sparse`), the step differentiates the loss with
@@ -16,8 +17,8 @@ optimizer state.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: an explicit mesh (a preset's ``cfg.mesh`` trains single-device, as
-the JAX CLI falls back), ``grad_accum_steps > 1``, ``eval_retrieval_users >
-0``, and the SIGTERM / preemption checkpoint with its mid-epoch resume.
+the JAX CLI falls back), ``grad_accum_steps > 1``, and the SIGTERM /
+preemption checkpoint with its mid-epoch resume.
 """
 
 from __future__ import annotations
@@ -59,9 +60,6 @@ def check_supported(cfg: Config, mesh=None) -> None:
     if t.grad_accum_steps > 1:
         _unported("gradient accumulation (train.grad_accum_steps > 1)",
                   "Sparse tables and grad accumulation")
-    if t.eval_retrieval_users > 0:
-        _unported("epoch-end retrieval eval (train.eval_retrieval_users)",
-                  "Retrieval tiers")
 
 
 @dataclasses.dataclass
@@ -603,6 +601,79 @@ def augment_batch_sparse(batch, cfg: Config, itemnum: int, step_key,
 
 
 # ---------------------------------------------------------------------------
+# epoch-end retrieval eval
+# ---------------------------------------------------------------------------
+
+#: items the retrieval eval encodes at a time
+_EVAL_ENCODE_ROWS = 8192
+
+
+def make_retrieval_eval(model: SeqRecModel, tables: Mapping, mm_tables,
+                        put, max_users: int, k: int = 10):
+    """Epoch-end retrieval eval over the validation split: HR@k and NDCG@k
+    (the competition metric). The whole item corpus is encoded with the
+    item tower, in chunks of 8,192 ids, and the last next-item position of
+    up to ``max_users`` validation users is scored against it with
+    :func:`retrieval.mips.topk_mips_approx`, as the JAX package's
+    ``make_retrieval_eval`` does. Unlike it, the last chunk is not padded
+    with item-0 rows, which the JAX package scores as candidates (they can
+    take a place in a top k); for ``itemnum % 8192 == 0`` the two agree.
+
+    ``tables``: the device item-feature tables of :func:`device_tables`;
+    ``put``: a host batch to the device. Returns ``eval_fn(params,
+    valid_loader) -> {"hr", "ndcg", "n"}`` or None without a scored
+    user."""
+    from ..retrieval import mips as MIPS
+
+    @torch.no_grad()
+    def encode_all(params):
+        """[itemnum, D]: row i is item id i + 1."""
+        dev = tables["sparse"].device
+        last = tables["sparse"].shape[0] - 1
+        out = []
+        for s in range(1, model.itemnum + 1, _EVAL_ENCODE_ROWS):
+            ids = torch.arange(s, min(s + _EVAL_ENCODE_ROWS,
+                                      model.itemnum + 1), device=dev)
+            rows = ids.clamp(max=last)
+            out.append(model.encode_items(
+                params, ids, tables["sparse"][rows], tables["array"][rows],
+                {fid: t[rows] for fid, t in tables["mm"].items()}))
+        return torch.cat(out)
+
+    def eval_fn(params, valid_loader):
+        qs, ts, seen = [], [], 0
+        for batch in valid_loader.epoch(0):
+            with torch.no_grad():
+                q = model.predict(params, put(batch), mm_tables)
+            q = q.float().cpu().numpy()
+            # the last position must be a real sample predicting an item
+            ok = (np.asarray(batch["sample_valid"]) == 1) \
+                & (np.asarray(batch["next_token_type"])[:, -1] == 1) \
+                & (np.asarray(batch["pos"])[:, -1] > 0)
+            qs.append(q[ok])
+            ts.append(np.asarray(batch["pos"])[:, -1][ok])
+            seen += int(ok.sum())
+            if seen >= max_users:
+                break
+        if seen == 0:
+            return None
+        q = np.concatenate(qs)[:max_users]
+        t = np.concatenate(ts)[:max_users]
+        corpus = encode_all(params)
+        _, idx = MIPS.topk_mips_approx(
+            torch.as_tensor(q, device=corpus.device), corpus.float(), k=k)
+        got = idx.cpu().numpy() + 1
+        hit = got == t[:, None]
+        any_hit = hit.any(axis=1)
+        ranks = hit.argmax(axis=1)
+        ndcg = np.where(any_hit, 1.0 / np.log2(ranks + 2.0), 0.0)
+        return {"hr": float(any_hit.mean()), "ndcg": float(ndcg.mean()),
+                "n": int(len(t))}
+
+    return eval_fn
+
+
+# ---------------------------------------------------------------------------
 # epoch loop
 # ---------------------------------------------------------------------------
 
@@ -656,6 +727,13 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     probe_batch = None
     if valid_loader is not None and len(valid_loader) > 0:
         probe_batch = put(next(iter(valid_loader.epoch(0))))
+
+    # epoch-end competition-metric eval (train.eval_retrieval_users)
+    retrieval_eval_fn = None
+    if cfg.train.eval_retrieval_users > 0 and valid_loader is not None:
+        retrieval_eval_fn = make_retrieval_eval(
+            model, tables, mm_tables, put,
+            max_users=cfg.train.eval_retrieval_users)
 
     dedup_on = cfg.train.tower_dedup
     sparse = bool(cfg.train.sparse_tables)
@@ -778,6 +856,17 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
             if verbose:
                 print(f"epoch {epoch}: valid_loss {valid_loss:.4f} "
                       f"({T.format_time(vtime)})")
+            if retrieval_eval_fn is not None:
+                r = retrieval_eval_fn(state.params, valid_loader)
+                if r is not None:
+                    tb.scalar("Retrieval/HR@10", r["hr"], timer.global_step)
+                    tb.scalar("Retrieval/NDCG@10", r["ndcg"],
+                              timer.global_step)
+                    jlog.write({"event": "retrieval_eval", "epoch": epoch,
+                                "global_step": timer.global_step, **r})
+                    if verbose:
+                        print(f"epoch {epoch}: HR@10 {r['hr']:.4f} "
+                              f"NDCG@10 {r['ndcg']:.4f} (n={r['n']})")
             if ckpt_dir:
                 path = save_checkpoint(ckpt_dir, state, timer.global_step,
                                        valid_loss,

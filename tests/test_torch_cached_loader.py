@@ -138,3 +138,22 @@ def test_cli_train_loader_choice(train_env, loader, taken):
         return
     assert TTRAIN.main(argv, timings=timings) is None
     assert timings["loader"] == taken
+
+
+def test_cli_train_reuses_the_last_pack(train_env):
+    """With a ``packs`` dict, a second run on the same data and window
+    reuses the pack (another model: the pack does not depend on it);
+    another window packs anew; without one, every run packs."""
+    runs = (MODEL, MODEL[:-2] + ["--batch_size", "4", "--preset", "hstu_mini"],
+            [a if a != "255" else "127" for a in MODEL], MODEL)
+    packs, seen = {}, []
+    for argv in runs:
+        timings = {}
+        TTRAIN.main(argv + ["--loader", "cached", "--inference_only"],
+                    timings=timings, packs=packs)
+        seen.append(timings["cache_reused"])
+    assert seen == [False, True, False, False] and len(packs) == 1
+    timings = {}
+    TTRAIN.main(MODEL + ["--loader", "cached", "--inference_only"],
+                timings=timings)
+    assert not timings["cache_reused"]

@@ -126,19 +126,39 @@ def test_safe_masked_softmax_matches_jax():
     assert torch.isfinite(st.grad).all()
 
 
+@pytest.mark.parametrize("D,H", [(32, 4), (128, 1)])
+def test_head_dims_match_jax(D, H):
+    """Head dims 8 (``baseline --hidden_units 32``) and 128
+    (``baseline_o1 --hidden_units 128``), which the CUDA kernels take since
+    their FMA and cut-tile paths: the plain version against the JAX kernel
+    in f32."""
+    q, k, v, do, valid = _inputs(D=D, seed=D)
+    ref, rgrads = _jax(q, k, v, do, valid, H)
+    out, grads = _port(q, k, v, do, valid, H)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+
+
 def test_kernel_input_checks():
-    """What the CUDA kernels do not take raises before a launch: a head dim
-    that is not a multiple of 16 or is above 64, L not a multiple of 64,
-    fp16, mismatched operands; a device without a kernel raises too."""
+    """What the CUDA kernels do not take raises before a launch: D not a
+    multiple of H, a head dim past 256 (NotImplementedError, ROADMAP Queue
+    3), L not a multiple of 64, fp16, mismatched operands; a device without
+    a kernel raises too. Every head dim up to 256 is taken."""
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype)
 
     check = THA.check_attention_inputs
     check("k", 4, z(2, 256, 64), z(2, 256, 64))   # hd=16: taken
     check("k", 1, z(2, 256, 64, dtype=torch.bfloat16))
-    for H, D in ((8, 64), (1, 128), (4, 72)):
-        with pytest.raises(ValueError, match="head dim"):
-            check("k", H, z(2, 256, D))
+    for H, D in ((8, 64), (1, 128), (4, 72), (1, 256), (3, 24)):
+        check("k", H, z(2, 256, D))                # hd 8, 128, 18, 256, 8
+    with pytest.raises(ValueError, match="D % H"):
+        check("k", 3, z(2, 256, 64))
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        check("k", 1, z(2, 256, 264))
     with pytest.raises(ValueError, match="L % 64"):
         check("k", 1, z(2, 96, 64))
     with pytest.raises(ValueError, match="bf16 or f32"):

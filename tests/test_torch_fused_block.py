@@ -155,9 +155,8 @@ def test_encoder_block_route():
     fused kernel, and so does L=2048 (its chunked variant); the preset's
     default maxlen=1024 gives L=1025, which runs plain; a block the fused
     gate refuses (a ReLU FFN) takes the standalone HSTU attention kernels
-    ("core") up to their whole-sequence ceiling, and shapes on which the
-    JAX package takes a Pallas kernel the port has not ported (the chunked
-    HSTU attention) raise. On the CPU every shape runs plain."""
+    ("core"), whole-sequence or past their ceiling chunked, as the JAX
+    package takes its Pallas kernels. On the CPU every shape runs plain."""
     cfg = _cfg(D=64, H=1)
     assert TENC.block_route(cfg, 1024, "cuda") == "fused"
     assert TENC.block_route(cfg, 256, "cuda") == "fused"
@@ -167,8 +166,7 @@ def test_encoder_block_route():
     assert TFB.chunked(2048, 64) and not TFB.chunked(1024, 64)
     relu = dataclasses.replace(cfg, ffn_type="relu")
     assert TENC.block_route(relu, 512, "cuda") == "core"
-    with pytest.raises(NotImplementedError, match="hstu_attention"):
-        TENC.block_route(relu, 2048, "cuda")
+    assert TENC.block_route(relu, 2048, "cuda") == "core"
     no_kernels = dataclasses.replace(relu, use_flash_attention=False)
     assert TENC.block_route(no_kernels, 512, "cuda") == "dense"
     for L in (128, 1024, 1025, 2048):

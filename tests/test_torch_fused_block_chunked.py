@@ -25,6 +25,7 @@ from tencent_recommendation_2025_tpu_torch.bridge import params_from_jax
 from tencent_recommendation_2025_tpu_torch.config import ModelConfig
 from tencent_recommendation_2025_tpu_torch.models import encoder as TENC
 from tencent_recommendation_2025_tpu_torch.ops import fused_block as TFB
+from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as THA
 
 torch.set_num_threads(2)
 
@@ -264,8 +265,9 @@ def test_block_route_takes_the_chunked_variant_on_the_card():
     """At the real ceilings: every L in (1024, 16384] with L % 128 == 0
     takes the fused kernels at D=64 on the card, in the chunked variant,
     wherever the JAX package takes its chunked kernels on the TPU; so do the
-    wider models' chunked ranges. Shapes on which the JAX package takes an
-    unported kernel still raise; on the CPU every shape runs plain."""
+    wider models' chunked ranges. Past the chunked ceiling the JAX package
+    takes its chunked standalone HSTU attention, and so does the port (the
+    core route); on the CPU every shape runs plain."""
     cfg = ModelConfig(hidden_units=64, num_heads=1, block_type="hstu",
                       ffn_type="swiglu")
     jcfg = JConfig(hidden_units=64, num_heads=1, block_type="hstu",
@@ -279,10 +281,9 @@ def test_block_route_takes_the_chunked_variant_on_the_card():
         assert TENC.block_route(cfg, L, "cpu") == "dense"
     assert not TFB.chunked(1024, 64)
     # past the chunked ceiling the JAX package takes its standalone HSTU
-    # attention kernels, which the port has not ported
+    # attention kernels (chunked), as the port does
     assert not JFB.fused_block_supported(jcfg, 16384 + 128, "tpu")
-    with pytest.raises(NotImplementedError, match="hstu_attention"):
-        TENC.block_route(cfg, 16384 + 128, "cuda")
+    assert TENC.block_route(cfg, 16384 + 128, "cuda") == "core"
     for D, L in ((128, 640), (128, 1024), (256, 384), (256, 512)):
         c = dataclasses.replace(cfg, hidden_units=D)
         assert TENC.block_route(c, L, "cuda") == "fused", (D, L)
@@ -290,8 +291,10 @@ def test_block_route_takes_the_chunked_variant_on_the_card():
         assert JFB.fused_block_supported(
             dataclasses.replace(jcfg, hidden_units=D), L, "tpu"), (D, L)
     relu = dataclasses.replace(cfg, ffn_type="relu")
-    with pytest.raises(NotImplementedError, match="hstu_attention"):
-        TENC.block_route(relu, 4096, "cuda")
+    assert TENC.block_route(relu, 4096, "cuda") == "core"
+    # D=512 in one head: the core route, whose kernels refuse a head past
+    # 256 before any launch (ROADMAP Queue 3)
     wide = dataclasses.replace(cfg, hidden_units=512)
-    with pytest.raises(NotImplementedError, match="hstu_attention"):
-        TENC.block_route(wide, 2048, "cuda")
+    assert TENC.block_route(wide, 2048, "cuda") == "core"
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        THA.check_attention_inputs("k", 1, torch.zeros((1, 2048, 512)))

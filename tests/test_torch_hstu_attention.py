@@ -3,7 +3,9 @@ ops/hstu_attention.py) against the JAX package's Pallas kernels run in
 interpret mode on the CPU: the plain versions of the forward and backward
 kernels (which a CPU tensor takes) through the port's autograd Function,
 including the rel-pos gradient, which the JAX package folds back from its
-bias-tile gradients with ``_bias_tiles_transpose``. The CUDA kernels are
+bias-tile gradients with ``_bias_tiles_transpose``; whole-sequence and
+chunked shapes (the ceilings cut to 128 in both packages), bucket limits,
+head dims 8 to 128. The CUDA kernels are
 held to these plain versions on the card (chip_smoke.py,
 tests/test_torch_kernels_gpu.py)."""
 
@@ -97,16 +99,118 @@ def test_bf16_matches_jax_kernel():
             name
 
 
-def test_chunked_shape_on_the_cpu_matches_jax_chunked_kernels(monkeypatch):
-    """Past ``_use_long`` the JAX package takes its chunked kernels (not
-    ported); on the CPU the port's plain version computes the same
-    function (both ceilings cut to 128 so that L=384 is chunked)."""
+#: chunked shapes with both ceilings cut to 128: (L, H, D, buckets, the
+#: bias-tile block the JAX package picks)
+CHUNKED = [(384, 1, 64, 300, 128), (384, 4, 64, 128, 128),
+           (512, 1, 64, 300, 256), (512, 4, 64, 128, 256)]
+
+
+def _cut_ceilings(monkeypatch):
     monkeypatch.setattr(JHA, "MAX_WHOLESEQ_L", 128)
     monkeypatch.setattr(THA, "MAX_WHOLESEQ_L", 128)
+
+
+def test_chunked_shape_on_the_cpu_matches_jax_chunked_kernels(monkeypatch):
+    """Past ``_use_long`` the JAX package takes its chunked kernels; on the
+    CPU the port's plain version computes the same function (both ceilings
+    cut to 128 so that L=384 is chunked)."""
+    _cut_ceilings(monkeypatch)
     assert JHA._use_long(384, 32) and THA._use_long(384, 32)
     q, k, v, do, rab, valid = _inputs(B=2, L=384, buckets=300, seed=9)
     ref, rgrads = _jax(q, k, v, do, rab, valid, 2)
     out, grads = _port(q, k, v, do, rab, valid, 2)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+    for name, g, r in zip(("dq", "dk", "dv", "drab"), grads, rgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("L,H,D,buckets,blk", CHUNKED)
+def test_chunked_shapes_match_jax_chunked_kernels(monkeypatch, L, H, D,
+                                                  buckets, blk):
+    """Past ``_use_long`` the JAX package takes its chunked kernels
+    (``_fwd_kernel_chunk``, ``_dq_kernel_chunk``, ``_dkdv_kernel_chunk``,
+    at a 128 or a 256 tile); the port's plain version, which the chunked
+    wrappers take on the CPU, computes the same function in f32: forward at
+    rtol 1e-4 / atol 1e-5, gradients at 2e-4 / 2e-5."""
+    _cut_ceilings(monkeypatch)
+    assert JHA._use_long(L, D) and THA._use_long(L, D)
+    assert THA._tile_blk(L, H, buckets, D) == \
+        JHA._tile_blk(L, H, buckets, D) == blk
+    q, k, v, do, rab, valid = _inputs(B=2, L=L, D=D, H=H, buckets=buckets,
+                                      seed=L + H)
+    ref, rgrads = _jax(q, k, v, do, rab, valid, H)
+    out, grads = _port(q, k, v, do, rab, valid, H)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+    for name, g, r in zip(("dq", "dk", "dv", "drab"), grads, rgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+
+
+def _bf16_close(got, want, names):
+    """One bf16 step of max(1, max|ref|) and cosine >= 0.99999 for each
+    output (the two differ by f32 summation order alone)."""
+    for name, g, w in zip(names, got, want):
+        g = g.float().numpy().astype(np.float64).ravel()
+        w = np.asarray(w.astype(jnp.float32)).astype(np.float64).ravel()
+        assert np.abs(g - w).max() <= 1 / 128 * max(1.0, np.abs(w).max()), \
+            name
+        assert g @ w / (np.linalg.norm(g) * np.linalg.norm(w)) >= 0.99999, \
+            name
+
+
+@pytest.mark.parametrize("L,H,D,buckets,blk", CHUNKED[2:])
+def test_chunked_bf16_matches_jax_chunked_kernel(monkeypatch, L, H, D,
+                                                 buckets, blk):
+    """bf16 at the 256 tile: the plain version keeps the JAX chunked
+    kernels' rounding points (f32 accumulator across key tiles, output
+    rounded once)."""
+    _cut_ceilings(monkeypatch)
+    q, k, v, do, rab, valid = _inputs(B=2, L=L, D=D, H=H, buckets=buckets,
+                                      seed=7 + H)
+    ref, rgrads = _jax(q, k, v, do, rab, valid, H, jnp.bfloat16)
+    out, grads = _port(q, k, v, do, rab, valid, H, torch.bfloat16)
+    _bf16_close((out, *grads), (ref, *rgrads),
+                ("out", "dq", "dk", "dv", "drab"))
+
+
+def test_bucket_limit_follows_the_tile(monkeypatch):
+    """1000 buckets take 5 of the 8 bias-tile slots at a 256 tile and 9 at
+    a 128 tile: the JAX package runs them on its chunked route (L=512, H=1)
+    and raises its ValueError on the whole-sequence one (L=256) and where
+    the chunked tile is 128 (L=384); the port runs and raises exactly
+    there, with the same message."""
+    _cut_ceilings(monkeypatch)
+    q, k, v, do, rab, valid = _inputs(B=2, L=512, D=64, H=1, buckets=1000,
+                                      seed=21)
+    ref, rgrads = _jax(q, k, v, do, rab, valid, 1)
+    out, grads = _port(q, k, v, do, rab, valid, 1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+    for name, g, r in zip(("dq", "dk", "dv", "drab"), grads, rgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+    for L in (256, 384):
+        monkeypatch.setattr(JHA, "MAX_WHOLESEQ_L", 128 if L == 384 else 1024)
+        monkeypatch.setattr(THA, "MAX_WHOLESEQ_L", 128 if L == 384 else 1024)
+        q, k, v, do, rab, valid = _inputs(B=1, L=L, D=64, H=1, buckets=1000)
+        with pytest.raises(ValueError) as theirs:
+            _jax(q, k, v, do, rab, valid, 1)
+        with pytest.raises(ValueError) as mine:
+            _port(q, k, v, do, rab, valid, 1)
+        assert str(mine.value) == str(theirs.value)
+        assert "at most 8" in str(mine.value)
+
+
+@pytest.mark.parametrize("D,H", [(32, 4), (128, 1)])
+def test_head_dims_match_jax(D, H):
+    """Head dims 8 and 128, which the CUDA kernels take since their FMA and
+    cut-tile paths: the plain version against the JAX kernel in f32."""
+    q, k, v, do, rab, valid = _inputs(B=2, D=D, H=H, seed=D)
+    ref, rgrads = _jax(q, k, v, do, rab, valid, H)
+    out, grads = _port(q, k, v, do, rab, valid, H)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-5)
     for name, g, r in zip(("dq", "dk", "dv", "drab"), grads, rgrads):
@@ -133,14 +237,21 @@ def test_n_near_error_matches_jax():
 
 
 def test_use_long_dispatch_and_the_card_raising_for_it():
+    """The chunked dispatch is the JAX package's; hstu_mini takes the core
+    route on the card at every long L (the chunked kernels); a head past
+    the 256 the kernels take raises NotImplementedError naming its ROADMAP
+    entry, before any launch."""
     for L in (256, 512, 1024, 2048, 4096):
         for D in (16, 64, 128, 256):
             assert THA._use_long(L, D) == JHA._use_long(L, D), (L, D)
     mini = PRESETS["hstu_mini"]().model
-    assert TENC.block_route(mini, 1024, "cuda") == "core"
-    with pytest.raises(NotImplementedError, match="rows 15-17"):
-        TENC.block_route(mini, 2048, "cuda")
+    for L in (1024, 2048, 4096, 16384):
+        assert TENC.block_route(mini, L, "cuda") == "core"
     assert TENC.block_route(mini, 2048, "cpu") == "dense"
+    wide = torch.zeros((1, 256, 512))
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        THA.check_attention_inputs("k", 1, wide)
+    THA.check_attention_inputs("k", 2, wide)          # hd 256: taken
 
 
 def test_oracle_and_head_interface_match_jax():

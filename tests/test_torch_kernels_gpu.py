@@ -230,19 +230,84 @@ def test_hstu_attention_kernels_match_plain_on_card(L, H, NB):
 
 
 @pytest.mark.gpu
-def test_attention_wrappers_raise_instead_of_falling_back_on_card():
-    """On CUDA tensors a shape the kernels do not take raises; an HSTU
-    shape that needs the chunked kernels raises NotImplementedError."""
+@pytest.mark.parametrize("L,H,NB", [(2048, 4, 128), (2048, 1, 1000)])
+def test_chunked_hstu_attention_kernels_match_plain_on_card(L, H, NB):
+    """Past ``_use_long`` (the JAX package's chunked kernels, here at its
+    256 tile, 1000 buckets too) the kernels launch under the chunked
+    wrappers' counters and match their plain versions in f32."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    assert HA._use_long(L, 64) and HA._tile_blk(L, H, NB, 64) == 256
+    q, k, v, dout, valid, rab = _attention(2, L, 64, H, torch.float32, 14, NB)
+    counters = (HA.hstu_attention_fwd, HA.hstu_attention_bwd,
+                HA.hstu_attention_chunk_fwd, HA.hstu_attention_chunk_bwd)
+    before = [c.launches for c in counters]
+    out = HA.hstu_attention_fwd(q, k, v, valid, rab, L, H)
+    grads = HA.hstu_attention_bwd(q, k, v, dout, valid, rab, L, H)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, 1, 1]
+    torch.testing.assert_close(
+        out, HA.hstu_attention_fwd_plain(q, k, v, valid, rab, L, H),
+        rtol=1e-4, atol=1e-4)
+    for name, g, r in zip(("dq", "dk", "dv", "drab"), grads,
+                          HA.hstu_attention_bwd_plain(q, k, v, dout, valid,
+                                                      rab, L, H)):
+        _close(g, r, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["flash", "hstu"])
+@pytest.mark.parametrize("D,H", [(32, 4), (128, 1)])
+def test_attention_kernels_at_head_dims_on_card(kind, D, H):
+    """hd 8 (FMA products, no tensor cores) and hd 128 (cut tiles in the
+    backward) against the plain versions, f32 and bf16 forward."""
     _cuda_or_skip()
     from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
     from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
 
-    q, k, v, _, valid, rab = _attention(2, 256, 64, 8, torch.float32, 10)
-    with pytest.raises(ValueError, match="head dim"):
-        FA.flash_mha_fwd(q, k, v, valid, 8)          # hd = 8
-    q, k, v, _, valid, rab = _attention(2, 2048, 64, 1, torch.float32, 11)
-    with pytest.raises(NotImplementedError, match="rows 15-17"):
+    L = 256
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, dout, valid, rab = _attention(2, L, D, H, dt, 15)
+        if kind == "flash":
+            got = (FA.flash_mha_fwd(q, k, v, valid, H),
+                   *FA.flash_mha_bwd(q, k, v, dout, valid, H))
+            want = (FA.flash_mha_fwd_plain(q, k, v, valid, H),
+                    *FA.flash_mha_bwd_plain(q, k, v, dout, valid, H))
+        else:
+            got = (HA.hstu_attention_fwd(q, k, v, valid, rab, L, H),
+                   *HA.hstu_attention_bwd(q, k, v, dout, valid, rab, L, H))
+            want = (HA.hstu_attention_fwd_plain(q, k, v, valid, rab, L, H),
+                    *HA.hstu_attention_bwd_plain(q, k, v, dout, valid, rab,
+                                                 L, H))
+        torch.cuda.synchronize()
+        for name, g, r in zip(("out", "dq", "dk", "dv", "drab"), got, want):
+            if dt == torch.float32:
+                _close(g, r, name)
+            else:   # one bf16 step of the largest value, cosine 0.999
+                g, r = g.float().flatten(), r.float().flatten()
+                assert (g - r).abs().max() <= 3e-2 * max(1.0, r.abs().max())
+                assert torch.nn.functional.cosine_similarity(g, r, 0) > 0.999
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_raise_instead_of_falling_back_on_card():
+    """On CUDA tensors a shape the kernels do not take raises before a
+    launch: a head past 256 (NotImplementedError), D not a multiple of H,
+    fp16."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    q, k, v, _, valid, rab = _attention(2, 2048, 512, 1, torch.float32, 10)
+    with pytest.raises(NotImplementedError, match="Queue 3"):
         HA.hstu_attention_packed(q, k, v, valid, rab, 2048, 1)
+    q, k, v, _, valid, rab = _attention(2, 256, 64, 3, torch.float32, 11)
+    with pytest.raises(ValueError, match="D % H"):
+        FA.flash_mha_fwd(q, k, v, valid, 3)
+    half = q.half()
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        HA.hstu_attention_fwd(half, half, half, valid, rab, 256, 1)
 
 
 @pytest.mark.gpu

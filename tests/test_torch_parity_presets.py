@@ -8,7 +8,10 @@ gradient, the parameters after one AdamW step).
 At --maxlen 101 (L=102) both packages run dense. At --maxlen 255 (L=256)
 the JAX CPU runs dense and the port takes its "core" route (monkeypatched
 ``block_route``) through the plain versions of the flash MHA and HSTU
-attention kernels, checkpointed as on the card.
+attention kernels, checkpointed as on the card; hstu_mini also at --maxlen
+511 (L=512) with the whole-sequence ceiling cut to 128, where the chunked
+HSTU attention wrappers (and their 256-row bias-tile bucket check) take
+over.
 
 The LN scales and biases, every bias and ``rab`` are moved off their init:
 ``reference_init`` zeroes the LN scales, and under post-LN every block's
@@ -56,7 +59,10 @@ torch.set_num_threads(2)
 PRESET_NAMES = ("baseline", "baseline_o1", "hstu_mini")
 #: (maxlen, port route): L=102 dense on both; L=256 the port's core route
 ROUTES = ((101, "dense"), (255, "core"))
-CASES = [(p, m, r) for p in PRESET_NAMES for m, r in ROUTES]
+#: and hstu_mini at L=512 on the core route, with the whole-sequence
+#: ceiling cut to 128: past ``_use_long``, the chunked kernels' shapes
+CASES = [(p, m, r) for p in PRESET_NAMES for m, r in ROUTES] \
+    + [("hstu_mini", 511, "core")]
 
 
 def _cfg(presets, name, maxlen):
@@ -134,6 +140,7 @@ def _jax_leaves(tree):
 
 def _route(monkeypatch, route):
     monkeypatch.setattr(TENC, "block_route", lambda *a: route)
+    monkeypatch.setattr(THA, "MAX_WHOLESEQ_L", 128)
 
 
 @pytest.mark.parametrize("name,maxlen,route", CASES)
@@ -211,6 +218,7 @@ def test_reference_init_zeroes_ln_scales(synth_dir, name):
     ("baseline", 1024, "core"), ("baseline", 2048, "dense"),
     ("baseline_o1", 1024, "core"), ("hstu_mini", 129, "dense"),
     ("hstu_mini", 256, "core"), ("hstu_mini", 1024, "core"),
+    ("hstu_mini", 2048, "core"), ("hstu_mini", 16384, "core"),
     ("hstu_flagship", 1024, "fused")])
 def test_block_route_mirrors_make_attention_cores(name, L, route):
     """Routes on the card, as the JAX package chooses between its fused
@@ -222,16 +230,19 @@ def test_block_route_mirrors_make_attention_cores(name, L, route):
 
 
 def test_block_route_raises_for_chunked_hstu_attention():
-    """An HSTU shape past the whole-sequence kernels (_use_long) needs Queue
-    2 rows 15-17 on the card; MHA past the flash gate runs dense; a wider
-    MHA runs dense from a shorter L."""
+    """An HSTU shape past the whole-sequence kernels (_use_long) takes the
+    chunked HSTU attention kernels on the card (the core route, at any
+    width up to 256 per head); a head past 256 raises in the kernels' input
+    check; MHA past the flash gate runs dense; a wider MHA runs dense from
+    a shorter L."""
     mini = PRESETS["hstu_mini"]().model
     assert THA._use_long(2048, 64) and not THA._use_long(1024, 64)
-    with pytest.raises(NotImplementedError, match="rows 15-17"):
-        TENC.block_route(mini, 2048, "cuda")
+    assert TENC.block_route(mini, 2048, "cuda") == "core"
     wide = dataclasses.replace(mini, hidden_units=128)
-    with pytest.raises(NotImplementedError, match="rows 15-17"):
-        TENC.block_route(wide, 1024, "cuda")
+    assert THA._use_long(1024, 128)
+    assert TENC.block_route(wide, 1024, "cuda") == "core"
+    with pytest.raises(NotImplementedError, match="wider than 256"):
+        THA.check_attention_inputs("k", 1, torch.zeros((1, 1024, 512)))
     mha = dataclasses.replace(PRESETS["baseline"]().model, hidden_units=128)
     assert TENC.block_route(mha, 512, "cuda") == "core"
     assert TENC.block_route(mha, 1024, "cuda") == "dense"

@@ -90,3 +90,31 @@ def test_infer_on_trained_checkpoint(trained, synth_dir, tmp_path,
     assert m["n"] == len(gt)
     # tiny corpus: must beat the random-retrieval floor (10/100)
     assert m["hr"] > 0.15, m
+
+
+@pytest.mark.parametrize("method", ["approx", "int8", "hnsw"])
+def test_infer_ann_methods_on_trained_checkpoint(trained, synth_dir,
+                                                 tmp_path, monkeypatch,
+                                                 method):
+    """``cli.infer --ann_method`` serves the checkpoint through each tier:
+    approx's top 10 equal exact's, int8's and hnsw's hold >= 0.9 of them
+    (hnsw falls back to exact where the tool cannot be built, as in the
+    JAX package)."""
+    from tencent_recommendation_2025_tpu_torch.data import formats
+
+    root, _ = trained
+    monkeypatch.setenv("EVAL_DATA_PATH", str(synth_dir))
+    monkeypatch.setenv("MODEL_OUTPUT_PATH", str(root / "ckpt"))
+    results = {}
+    for m in ("exact", method):
+        monkeypatch.setenv("EVAL_RESULT_PATH", str(tmp_path / m))
+        TINF.main(MODEL + ["--ann_method", m])
+        results[m] = np.asarray(formats.read_result_ids(
+            tmp_path / m / "id100.u64bin"))
+    got, want = results[method], results["exact"]
+    assert got.shape == want.shape
+    if method == "approx":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.mean([len(set(g) & set(w)) / len(w)
+                        for g, w in zip(got, want)]) >= 0.9
