@@ -74,6 +74,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                exact), each one's time, queries/s and peak memory; the HNSW
                tool on its first 20,000 rows (build and search seconds,
                recall);
+6c. ring    — the sequence-parallel ring (after the long run): rows
+               10-12 (the pair kernels of csrc/ring_pair.cu) against their
+               plain versions at shards of 1024 and 2048, offsets 0, +Lc,
+               -Lc (wholly in the future: no launch, exactly 0) and +3 Lc,
+               H = 1, 4 and 8 (hd 8), f32 and bf16; the pre and post stages
+               and their backwards, each a launch of its own; every ring
+               kernel timed at the S = 2 shard of the long run (B=32, Lc =
+               2048) beside its plain version and bound; one full-depth
+               step of ``hstu_flagship`` at L=4096 on a local mesh of S = 2
+               and 4 shards from the long run's checkpoint, against the
+               single-device chunked step on the card and the CPU's plain
+               ring, in bf16 and f32, on 8 rows, each step's
+               launches held; the S = 2 step's ms and tokens/s (6 after 2,
+               launches held) and its profile;
 7. parity   — phases 4 and 5 for the reference's own models and the
                ReLU-FFN HSTU: cli.train's default (no --preset: baseline at
                L=102, dense, no kernel launched), ``--preset baseline
@@ -168,6 +182,9 @@ KERNEL_NAMES = {
     "hstu": (("hstu_fwd_kernel",),
              ("hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
               "reduce_rows_kernel")),
+    "ring": (("proj_kernel", "attn_ffn_kernel", "pair_fwd_kernel"),
+             ("gate_ffn_bwd_kernel", "pair_dq_kernel", "pair_dkdv_kernel",
+              "proj_bwd_kernel", "reduce_rows_kernel")),
     "none": ((), ())}
 # the chunked HSTU attention route launches the same CUDA functions
 KERNEL_NAMES["hstu_chunk"] = KERNEL_NAMES["hstu"]
@@ -286,7 +303,11 @@ def launch_counters():
             "hstu_chunk_fwd": HA.hstu_attention_chunk_fwd,
             "hstu_chunk_bwd": HA.hstu_attention_chunk_bwd,
             "group_scatter": ST.group_scatter,
-            "group_gather": ST.group_gather}
+            "group_gather": ST.group_gather,
+            **{n: getattr(FB, n) for n in (
+                "ring_pre_fwd", "ring_post_fwd", "ring_pair_fwd",
+                "ring_pair_dq", "ring_pair_dkdv", "ring_post_bwd",
+                "ring_pre_bwd")}}
 
 
 def reset_launches():
@@ -1234,8 +1255,10 @@ def _train_batches(data, n, run, rows=None):
     return cfg, schema, out
 
 
-def _loss_and_grads(model, cfg, params, batch, tables, device, route=None):
-    """Loss and per-leaf gradients of one training forward (dropout off)."""
+def _loss_and_grads(model, cfg, params, batch, tables, device, route=None,
+                    mesh=None):
+    """Loss and per-leaf gradients of one training forward (dropout off),
+    the encoder on ``mesh`` where one is given."""
     import torch
 
     from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
@@ -1249,7 +1272,7 @@ def _loss_and_grads(model, cfg, params, batch, tables, device, route=None):
     try:
         loss, _ = TR.compute_loss(model, state.params,
                                   TR.put_batch(batch, device), tabs["mm"],
-                                  tabs, cfg, train=True)
+                                  tabs, cfg, train=True, mesh=mesh)
         loss.backward()
     finally:
         ENC.block_route = saved
@@ -2010,6 +2033,518 @@ def phase_sparse_100m():
             launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 6c: the sequence-parallel ring (hstu_flagship on a seq mesh)
+# ---------------------------------------------------------------------------
+
+RING_SHARDS = (2, 4)
+#: TPU kernel lines of the ring's kernels (ops/fused_block.py)
+_RING_REPLACES = {"ring_pair_fwd": "1269", "ring_pair_dq": "1304",
+                  "ring_pair_dkdv": "1345", "ring_pre_fwd": "452",
+                  "ring_post_fwd": "502", "ring_post_bwd": "612",
+                  "ring_pre_bwd": "710"}
+_RING_SOURCES = {"ring_pair_fwd": "ring_pair.cu",
+                 "ring_pair_dq": "ring_pair.cu",
+                 "ring_pair_dkdv": "ring_pair.cu",
+                 "ring_pre_fwd": "fused_block.cu",
+                 "ring_post_fwd": "fused_block.cu",
+                 "ring_post_bwd": "fused_block_bwd.cu",
+                 "ring_pre_bwd": "fused_block_bwd.cu"}
+
+
+def ring_expected(blocks, S, steps):
+    """Every counter's launches over ``steps`` training steps on a local
+    mesh of S shards: per block and step, S pre and S post launches each
+    way, and S (S + 1) / 2 pair launches of each pair kernel (the pairs
+    wholly in the future launch nothing); every other counter 0."""
+    want = dict.fromkeys(launch_counters(), 0)
+    per = blocks * steps
+    want.update(ring_pre_fwd=per * S, ring_post_fwd=per * S,
+                ring_post_bwd=per * S, ring_pre_bwd=per * S,
+                ring_pair_fwd=per * S * (S + 1) // 2,
+                ring_pair_dq=per * S * (S + 1) // 2,
+                ring_pair_dkdv=per * S * (S + 1) // 2)
+    return want
+
+
+def _pair_inputs(B, Lc, D, H, dtype, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(shape, s=0.5):
+        return torch.from_numpy((rng.standard_normal(shape) * s)
+                                .astype(np.float32)).to(dtype).cuda()
+
+    q, k, v, dav = (t((B, Lc, D)) for _ in range(4))
+    valid = torch.ones((B, Lc), dtype=torch.int32, device="cuda")
+    valid[0, :Lc // 3 + 5] = 0
+    if B > 1:
+        valid[-1] = 0
+    rab = t((H, 128), 0.1).float()
+    return q, k, v, dav, valid, rab
+
+
+def check_ring_pairs(B, Lc, D, H, off, dt, seed):
+    """Rows 10-12 at one shape and offset against their plain versions on
+    the card; a pair wholly in the future launches nothing and is 0."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    q, k, v, dav, valid, rab = _pair_inputs(B, Lc, D, H, dt, seed)
+    before = read_launches()
+    got = {"av": FB.ring_pair_fwd(q, k, v, valid, rab, off, H)}
+    got["dq"], got["drab"] = FB.ring_pair_dq(q, k, v, dav, valid, rab, off, H)
+    got["dk"], got["dv"] = FB.ring_pair_dkdv(q, k, v, dav, valid, rab, off,
+                                             H)
+    torch.cuda.synchronize()
+    after = read_launches()
+    n = int(off + Lc > 0)
+    ok_count = {k_: after[k_] - before[k_] for k_ in after} == dict(
+        dict.fromkeys(after, 0), ring_pair_fwd=n, ring_pair_dq=n,
+        ring_pair_dkdv=n)
+    want = {"av": FB.ring_pair_fwd_plain(q, k, v, valid, rab, off, H)}
+    want["dq"], want["drab"] = FB.ring_pair_dq_plain(q, k, v, dav, valid, rab,
+                                                     off, H)
+    want["dk"], want["dv"] = FB.ring_pair_dkdv_plain(q, k, v, dav, valid,
+                                                     rab, off, H)
+    ok, worst, fails = ok_count, (None, 0.0), []
+    for name in want:
+        if n:   # the f32 partial is 0 on the fully padded row: held whole
+            okg, eg, lim = compare_grad(got[name], want[name], dt)
+        else:
+            eg, lim = got[name].abs().max().item(), "exactly 0"
+            okg = eg == 0.0 and not want[name].any()
+        okg &= bool(torch.isfinite(got[name].float()).all())
+        ok &= okg
+        if eg >= worst[1]:
+            worst = (name, eg)
+        if not okg:
+            fails.append(f"{name} {eg:.4g} ({lim})")
+    log(f"ring pair B={B} Lc={Lc} D={D} H={H} hd={D // H} off={off} "
+        f"{str(dt)[6:]}: launches {n} each {ok_count}; largest error "
+        f"{worst[1]:.6g} ({worst[0]})"
+        + (f", failing: {'; '.join(fails)}" if fails else "")
+        + f" {'ok' if ok else 'FAIL'}")
+    del q, k, v, dav, got, want
+    _free()
+    return ok
+
+
+def check_ring_stages(B, Lc, D, H, F, dt, rate, seed):
+    """The ring's pre and post stages and their backwards, each a launch of
+    its own, against their plain versions on the card."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    x, ops, _ = block_inputs(B, Lc, D, H, F, 128, dt, seed)
+    L = 2 * Lc
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(s=1.0):
+        return (torch.randn(x.shape, generator=g, device="cuda") * s).to(dt)
+
+    got, want = {}, {}
+    for name, o in zip(("q", "k", "v", "u"), FB.ring_pre_fwd(x, ops, L, H)):
+        got[f"pre {name}"] = o
+    for name, o in zip(("q", "k", "v", "u"),
+                       FB.ring_pre_fwd_plain(x, ops, L, H)):
+        want[f"pre {name}"] = o
+    u = want["pre u"]
+    av, dout = rnd(0.05), rnd()
+    got["post"] = FB.ring_post_fwd(x, av, u, ops, 77, rate)
+    want["post"] = FB.ring_post_fwd_plain(x, av, u, ops, 77, rate)
+    for out, fn in ((got, FB.ring_post_bwd), (want, FB.ring_post_bwd_plain)):
+        for name, o in fn(x, av, dout, ops, 77, rate, L, H).items():
+            out[f"post bwd {name}"] = o
+    cots = [rnd() for _ in range(3)] + [rnd().float()]
+    for out, fn in ((got, FB.ring_pre_bwd), (want, FB.ring_pre_bwd_plain)):
+        for name, o in fn(x, ops, *cots, L, H).items():
+            out[f"pre bwd {name}"] = o
+    torch.cuda.synchronize()
+    ok, worst, fails = True, (None, 0.0), []
+    for name in want:
+        cmp = compare if name == "post" else compare_grad
+        okg, eg, lim = cmp(got[name], want[name], dt)
+        okg &= bool(torch.isfinite(got[name].float()).all())
+        ok &= okg
+        if eg >= worst[1]:
+            worst = (name, eg)
+        if not okg:
+            fails.append(f"{name} {eg:.4g} ({lim})")
+    log(f"ring stages B={B} Lc={Lc} D={D} H={H} {str(dt)[6:]} p={rate}: "
+        f"largest error {worst[1]:.6g} ({worst[0]})"
+        + (f", failing: {'; '.join(fails)}" if fails else "")
+        + f" {'ok' if ok else 'FAIL'}")
+    del x, ops, got, want
+    _free()
+    return ok
+
+
+def ring_bounds(B, Lc, D, H, F, pairs, elem):
+    """(flops, bytes) of each ring kernel's call at a shard of Lc tokens:
+    ``pairs`` the (query, key) pairs at distance >= 0 per row of the pair
+    (this run's: Lc (Lc + 1) / 2 on the diagonal, Lc^2 behind it); each
+    input read once, each output written once."""
+    M, act = B * Lc, B * Lc * D * elem
+    f32 = B * Lc * D * 4
+    w_pre = D * 4 * D * elem + (2 * D + 4 * D) * 4
+    w_post = (D * D + D * 2 * F + F * D) * elem + (4 * D + D) * 4
+    prod = 2 * B * D * pairs                # one [L, L] x D product
+    return {
+        "ring_pair_fwd": (2 * prod, 3 * act + B * Lc * 4 + H * 128 * 4 + f32),
+        "ring_pair_dq": (3 * prod, 4 * act + B * Lc * 4 + 2 * H * 128 * 4
+                         + f32),
+        "ring_pair_dkdv": (4 * prod, 4 * act + B * Lc * 4 + H * 128 * 4
+                           + 2 * f32),
+        "ring_pre_fwd": (2 * M * D * 4 * D, act + w_pre + 3 * act + f32),
+        "ring_post_fwd": (2 * M * (D * D + D * 2 * F + F * D),
+                          2 * act + f32 + w_post + act),
+        # recompute (projection, Wo, W13), then dW2, df, dW13, dh2, dWo, dg
+        "ring_post_bwd": (2 * M * (7 * D * D + 8 * D * F),
+                          3 * act + w_pre + w_post + act + 2 * f32 + (
+                              D * D + D * 2 * F + F * D + 5 * D) * 4),
+        "ring_pre_bwd": (3 * 2 * M * D * 4 * D,
+                         4 * act + f32 + w_pre + act + (D * 4 * D + 6 * D)
+                         * 4)}
+
+
+def phase_ring_times(B, Lc, D, H, F):
+    """At the S = 2 main path's shard (bf16): each ring kernel held to its
+    plain version (a pair kernel at off 0, the diagonal with its causal
+    mask, and at off Lc) and timed (CUDA events) beside it and its bound; a
+    pair kernel's time is the mean over one block's pairs at S = 2 (two on
+    the diagonal, off 0, and one behind it, off Lc), its bound the same
+    mean. Returns (ok, the JSON entries without launches)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    bf16 = torch.bfloat16
+    q, k, v, dav, valid, rab = _pair_inputs(B, Lc, D, H, bf16, 61)
+    x, ops, _ = block_inputs(B, Lc, D, H, F, 128, bf16, 62)
+    L = 2 * Lc
+    u = FB.ring_pre_fwd(x, ops, L, H)[3]
+    dout = dav
+    cots = (q, k, v, u)
+    kern = {
+        "ring_pair_fwd": lambda o: FB.ring_pair_fwd(q, k, v, valid, rab, o, H),
+        "ring_pair_dq": lambda o: FB.ring_pair_dq(q, k, v, dav, valid, rab, o,
+                                                  H),
+        "ring_pair_dkdv": lambda o: FB.ring_pair_dkdv(q, k, v, dav, valid,
+                                                      rab, o, H),
+        "ring_pre_fwd": lambda o: FB.ring_pre_fwd(x, ops, L, H),
+        "ring_post_fwd": lambda o: FB.ring_post_fwd(x, dav, u, ops, 5, 0.01),
+        "ring_post_bwd": lambda o: FB.ring_post_bwd(x, dav, dout, ops, 5,
+                                                    0.01, L, H),
+        "ring_pre_bwd": lambda o: FB.ring_pre_bwd(x, ops, *cots, L, H)}
+    plain = {
+        "ring_pair_fwd": lambda o: FB.ring_pair_fwd_plain(q, k, v, valid, rab,
+                                                          o, H),
+        "ring_pair_dq": lambda o: FB.ring_pair_dq_plain(q, k, v, dav, valid,
+                                                        rab, o, H),
+        "ring_pair_dkdv": lambda o: FB.ring_pair_dkdv_plain(
+            q, k, v, dav, valid, rab, o, H),
+        "ring_pre_fwd": lambda o: FB.ring_pre_fwd_plain(x, ops, L, H),
+        "ring_post_fwd": lambda o: FB.ring_post_fwd_plain(x, dav, u, ops, 5,
+                                                          0.01),
+        "ring_post_bwd": lambda o: FB.ring_post_bwd_plain(x, dav, dout, ops,
+                                                          5, 0.01, L, H),
+        "ring_pre_bwd": lambda o: FB.ring_pre_bwd_plain(x, ops, *cots, L, H)}
+
+    def held(name, got, want):
+        """(every output finite and within its tolerance, the largest
+        error, the limits' text)."""
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        if isinstance(got[0], dict):
+            got, want = tuple(got[0].values()), tuple(want[0][k]
+                                                      for k in got[0])
+        cmp = compare if name == "ring_post_fwd" else compare_grad
+        res = [cmp(g, w, bf16) for g, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        return (finite and all(r[0] for r in res), max(r[1] for r in res),
+                "; ".join(r[2] for r in res))
+
+    ok, entries = True, []
+    for name in kern:
+        offs = (0, 0, Lc) if "pair" in name else (0,)
+        err = 0.0
+        for o in sorted(set(offs)):
+            ok_o, e_o, lim = held(name, kern[name](o), plain[name](o))
+            torch.cuda.synchronize()
+            _free()
+            err = max(err, e_o)
+            ok &= ok_o
+            if not ok_o:
+                log(f"{name} (B={B} Lc={Lc} D={D} H={H}, bf16, off {o}) "
+                    f"against its plain version: max abs err {e_o:.4g} "
+                    f"({lim}) FAIL")
+        t = sum(time_ms(lambda: kern[name](o), 2, 10) for o in offs) \
+            / len(offs)
+        _free()
+        tp = sum(time_ms(lambda: plain[name](o), 1, 2) for o in offs) \
+            / len(offs)
+        _free()
+        fl, nb = 0.0, 0.0
+        for o in offs:
+            pairs = Lc * (Lc + 1) // 2 if o == 0 else Lc * Lc
+            f_, b_ = ring_bounds(B, Lc, D, H, F, pairs, 2)[name]
+            fl, nb = fl + f_ / len(offs), nb + b_ / len(offs)
+        bound, by, _, _ = _bound(fl, nb)
+        log(f"{name} (B={B} Lc={Lc} D={D} H={H}, bf16"
+            + (", mean of offsets 0, 0, Lc" if len(offs) > 1 else "")
+            + f"): kernel {t:.4f} ms, plain {tp:.4f} ms, bound {bound:.4f} "
+            f"ms ({by}: {fl / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB); kernel at "
+            f"{fl / t / 1e9:.1f} TFLOP/s; max abs err against the plain "
+            f"version {err:.4g}" + (" (offsets 0 and Lc)" if len(offs) > 1
+                                     else ""))
+        entries.append({"name": name, "route": "cuda",
+                        "source": SRC + _RING_SOURCES[name],
+                        "replaces": f"{TPU}:{_RING_REPLACES[name]}",
+                        "launches": None, "max_abs_err": err, "ms": t,
+                        "plain_ms": tp, "bound_ms": bound, "bound_by": by,
+                        "library_ms": None})
+    del q, k, v, dav, x, ops, u
+    _free()
+    return ok, entries
+
+
+def _ring_world(run, ckpt, rows=None, dropout=True):
+    """The long run's model, tables, trained parameters and first two train
+    batches (cut to ``rows``), for the ring's steps."""
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.data.readers import \
+        TencentGRData
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+
+    data = TencentGRData(run.data_dir, mm_emb_ids=("81",))
+    cfg, schema, raw = _train_batches(data, 2, run, rows=rows)
+    if not dropout:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    dropout_rate=0.0))
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+
+    def model_in(dtype):
+        mc = dataclasses.replace(cfg.model, dtype=dtype)
+        return (SeqRecModel(cfg=mc, schema=schema,
+                            fused=FusedVocab.build(schema),
+                            usernum=data.usernum, itemnum=data.itemnum),
+                cfg.replace(model=mc))
+
+    params, _ = CK.load_params(ckpt)
+    return model_in, tables, params, raw
+
+
+def phase_ring_one_step(run, ckpt):
+    """One full-depth step (loss and every gradient, dropout off) on the
+    first 8 rows of the long run's first batch, on a local mesh of S = 2
+    and 4 shards on the card, held (a) to the single-device chunked fused
+    step on the card: in f32 (cosine >= 0.999), and in bf16 to the
+    single-device f32 step by the drift rule, c the single-device bf16
+    step's own cosine (the ring's rounding points differ from the single
+    device's, so the two bf16 steps are held through f32, not to each
+    other); (b) to the CPU's plain ring, in bf16 (cosine >= 0.999) and in
+    f32 (the drift rule). The CPU's plain ring runs once per dtype, at S =
+    4 (the cheaper of the two on the CPU), and both card rings are held to
+    it. Each card step's launches are held to their expected counts."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+
+    model_in, tables, params, raw = _ring_world(run, ckpt, rows=8,
+                                                dropout=False)
+    batch = raw[0]
+    m16, c16 = model_in("bfloat16")
+    m32, c32 = model_in("float32")
+    blocks = c16.model.num_blocks
+
+    def cos(a, b):
+        na, nb = a.norm().item(), b.norm().item()
+        if na == 0.0 and nb == 0.0:
+            return 1.0
+        return float(torch.dot(a.flatten(), b.flatten()) / (na * nb))
+
+    def held(name, got, want, floor_of=None):
+        """Every leaf's cosine to ``want`` at 0.999 or ``floor_of(leaf)``."""
+        worst, fails = (None, 2.0, 0.999), []
+        for leaf in want:
+            c = cos(got[leaf], want[leaf])
+            floor = 0.999 if floor_of is None else floor_of(leaf)
+            if c < worst[1]:
+                worst = (leaf, c, floor)
+            if c < floor:
+                fails.append(f"{leaf} ({c:.6f} < {floor:.6f})")
+        log(f"ring one step, {name}: lowest gradient cosine {worst[1]:.6f} "
+            f"({worst[0]}, limit {worst[2]:.6f}); failing: "
+            f"{fails or 'none'} {'FAIL' if fails else 'ok'}")
+        return not fails
+
+    def drift(ref16, ref32):
+        return lambda leaf: float(drift_limit(cos(ref16[leaf],
+                                                  ref32[leaf])))
+
+    def loss_ok(name, got, want, rel):
+        ok_ = abs(got - want) <= rel * abs(want) and np.isfinite(got)
+        log(f"ring one step, {name}: loss {got:.6f} against {want:.6f} "
+            f"(limit {rel:g} relative) {'ok' if ok_ else 'FAIL'}")
+        return ok_
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    reset_launches()
+    l_one16, g_one16 = _loss_and_grads(m16, c16, params, batch, tables,
+                                       "cuda")
+    l_one32, g_one32 = _loss_and_grads(m32, c32, params, batch, tables,
+                                       "cuda")
+    ok = check_launches(run, "ring reference (single-device chunked, bf16 "
+                        "and f32) steps", read_launches(),
+                        expected_launches("fused", blocks, 2, 0))
+    t1 = time.perf_counter()
+    S_cpu = RING_SHARDS[-1]
+    cpu_mesh = local_mesh(MeshConfig(seq=S_cpu))
+    p16, q16 = _loss_and_grads(m16, c16, params, batch, tables, "cpu",
+                               route="ring_fused", mesh=cpu_mesh)
+    p32, q32 = _loss_and_grads(m32, c32, params, batch, tables, "cpu",
+                               route="ring_fused", mesh=cpu_mesh)
+    cpu_s = time.perf_counter() - t1
+    for S in RING_SHARDS:
+        mesh = local_mesh(MeshConfig(seq=S))
+        reset_launches()
+        l16, g16 = _loss_and_grads(m16, c16, params, batch, tables, "cuda",
+                                   mesh=mesh)
+        l32, g32 = _loss_and_grads(m32, c32, params, batch, tables, "cuda",
+                                   mesh=mesh)
+        ok &= check_launches(run, f"ring S={S} steps (bf16 and f32)",
+                             read_launches(), ring_expected(blocks, S, 2))
+        ok &= loss_ok(f"S={S} card ring f32 vs card single-device f32",
+                      l32, l_one32, 1e-5)
+        ok &= loss_ok(f"S={S} card ring bf16 vs card single-device bf16",
+                      l16, l_one16, 1e-3)
+        ok &= held(f"S={S} card ring f32 vs card single-device f32", g32,
+                   g_one32)
+        ok &= held(f"S={S} card ring bf16 vs card single-device f32 "
+                   f"({DRIFT_RULE}, of the single-device bf16 step)", g16,
+                   g_one32, drift(g_one16, g_one32))
+        cpu = f"CPU plain ring S={S_cpu}"
+        ok &= loss_ok(f"S={S} card ring bf16 vs {cpu} bf16 ({cpu} f32 "
+                      f"{p32:.6f}; the CPU's two steps {cpu_s:.1f} s)", l16,
+                      p16, 1e-3)
+        ok &= held(f"S={S} card ring vs {cpu} bf16", g16, q16)
+        ok &= held(f"S={S} card ring vs {cpu} f32 ({DRIFT_RULE})", g16, q32,
+                   drift(q16, q32))
+    log(f"ring one-step checks (8 rows, L=4096, 8 blocks): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ok
+
+
+def phase_ring_speed(run, ckpt, S=2):
+    """Train step ms and tokens/s on a local mesh of S shards (the long
+    run's B = 32, L = 4096, bf16, dropout as the preset): 6 synchronised
+    steps after 2, the counters set to 0 before the 8 and held after; then
+    one step's profile. Returns (ok, launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    model_in, tables, params, raw = _ring_world(run, ckpt)
+    model, cfg = model_in("bfloat16")
+    mesh = local_mesh(MeshConfig(seq=S))
+    batches = [TR.put_batch(b, "cuda") for b in raw]
+    state = TR.init_state(model, cfg, params=params, device="cuda")
+    tabs = TR.device_tables(tables, "cuda")
+    step = TR.make_train_step(model, cfg, mesh)
+    reset_launches()
+    for b in batches[:2]:
+        state, m = step(state, b, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    n = 6
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, m = step(state, batches[i % 2], tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    launches = read_launches()
+    ok = check_launches(run, f"ring S={S} speed run (8 steps)", launches,
+                        ring_expected(cfg.model.num_blocks, S, n + 2))
+    ok &= bool(torch.isfinite(m["loss"]).item())
+    B, L = cfg.train.batch_size, cfg.model.maxlen + 1
+    log(f"ring S={S}: train step (B={B}, L={L}, shards of {L // S}, bf16, "
+        f"dropout {cfg.model.dropout_rate}): {dt * 1e3:.3f} ms, "
+        f"{B / dt:.1f} examples/s, {B * L / dt:.0f} tokens/s (host clock, "
+        f"synchronised, {n} steps after 2 warm-up); loss "
+        f"{float(m['loss']):.4f}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[0], tabs["mm"], tabs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = _device_ms(prof)
+    busy = sum(by_name.values())
+    fwd_names, bwd_names = KERNEL_NAMES["ring"]
+    fwd, fsplit = _kernel_split(by_name, fwd_names)
+    bwd, split = _kernel_split(by_name, bwd_names)
+    others = ", ".join(f"{k[:60]} {v:.3f}" for k, v in by_name.most_common()
+                       if not any(n_ in k for n_ in fwd_names + bwd_names)
+                       )[:900]
+    log(f"ring S={S}: train step profile: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall):.1%}); forward "
+        f"kernels {fwd:.3f} ms ({fsplit}), backward kernels {bwd:.3f} ms "
+        f"({split}); other kernels (ms): {others}")
+    return ok, launches
+
+
+def phase_ring(ckpt):
+    """The ring's kernels against their plain versions (rows 10-12 at Lc =
+    1024 and 2048, offsets 0, +Lc, -Lc, +3 Lc, H = 1 and 4, and hd 8; the
+    stages at B = 4, Lc = 2048), each held again and timed at the main
+    path's shard (B = 32, Lc = 2048), the one-step checks at S = 2 and 4
+    and the S = 2 step's speed, on the long run's fixture and checkpoint.
+    Returns (ok, JSON entries)."""
+    import torch
+
+    t0 = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    ok = True
+    i = 0
+    for Lc in (1024, 2048):
+        for H in (1, 4):
+            for off in (0, Lc, -Lc, 3 * Lc):
+                for dt in (f32, bf16):
+                    ok &= check_ring_pairs(2, Lc, 64, H, off, dt, 70 + i)
+                    i += 1
+    for off in (0, 1024):
+        for dt in (f32, bf16):
+            ok &= check_ring_pairs(2, 1024, 64, 8, off, dt, 90 + off)
+    ok &= check_ring_stages(4, 2048, 64, 1, 256, f32, 0.5, 95)
+    ok &= check_ring_stages(4, 2048, 64, 1, 256, bf16, 0.01, 96)
+    log(f"ring kernel checks: {time.perf_counter() - t0:.1f} s")
+    ok_t, entries = phase_ring_times(LONG["B"], LONG["L"] // 2, LONG["D"],
+                                     LONG["H"], LONG["F"])
+    ok &= ok_t
+    ok &= phase_ring_one_step(LONG_RUN, ckpt)
+    ok_s, launches = phase_ring_speed(LONG_RUN, ckpt)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    log(f"ring phase: {time.perf_counter() - t0:.1f} s")
+    return ok and ok_s, entries
+
+
 def main() -> int:
     import torch
 
@@ -2060,6 +2595,11 @@ def main() -> int:
                                     trained["fused_train"],
                                     trained["fused_bwd"])):
             entry["launches"] = n
+    # the ring on the long run's fixture and checkpoint
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+
+    oks["ring"], ring_entries = phase_ring(
+        CK.latest_checkpoint(LONG_RUN.work / "model"))
     attach(MINI_LONG_RUN, *phase_run(MINI_LONG_RUN, oks))
     t0 = time.perf_counter()
     oks["mini_long_ann"] = phase_ann_methods(MINI_LONG_RUN)
@@ -2084,7 +2624,7 @@ def main() -> int:
     log(f"100m phase: {time.perf_counter() - t0:.1f} s")
     for entry in group_entries:
         entry["launches"] = launches[entry["name"]]
-    entries += group_entries
+    entries += group_entries + ring_entries
     log(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": entries}))

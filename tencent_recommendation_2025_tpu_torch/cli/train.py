@@ -12,9 +12,16 @@ is given; without CUDA and without ``--device cpu`` it raises. Loaders:
 ``cached`` packs every user's sample once (``data/cached_dataset.py``) and
 samples negatives vectorised; ``streaming`` samples in python threads every
 epoch; ``auto`` takes the cached loader up to 2M samples and streams above,
-as the JAX package's ``auto`` does where its native tool is absent. A
-preset whose mesh wants several devices (``sampled_softmax_dp``,
-``sharded_multihost``) trains on one, with the JAX CLI's warning.
+as the JAX package's ``auto`` does where its native tool is absent. In
+one process, a preset whose mesh wants several devices
+(``sampled_softmax_dp``, ``sharded_multihost``, or any ``--mesh_*``) trains
+on one, with the JAX CLI's warning. Under ``torchrun`` (``WORLD_SIZE`` > 1)
+the processes form the mesh, one card each (``LOCAL_RANK``; NCCL, or gloo
+with ``--device cpu``): a ``seq`` axis above 1, any ``data``, dense tables
+and the BCE loss train sequence-parallel; any other mesh or option raises
+``NotImplementedError`` (ROADMAP Queue 1, item 5). Only rank 0 writes
+``train.log``, TensorBoard events and checkpoints; the parameters are
+replicated, so the checkpoint is the single-device one.
 ``--eval_retrieval_users N`` logs HR@10 / NDCG@10 of N validation users at
 the end of each epoch (stdout, ``train.log``, TensorBoard). The native
 loader and gradient accumulation raise ``NotImplementedError`` naming their
@@ -26,6 +33,9 @@ ROADMAP item.
 
 Long sequences (L = 4096, the chunked variant of the fused block kernels):
 ``--preset hstu_flagship --maxlen 4095 --batch_size 32 --loader cached``.
+Sequence-parallel on S cards (not yet run on a machine with several):
+``torchrun --nproc_per_node S -m tencent_recommendation_2025_tpu_torch.cli.
+train --preset hstu_flagship --mesh_seq S --maxlen 4095 --batch_size 32``.
 Sparse tables and the sampled softmax: ``--preset sharded_multihost
 --maxlen 1023`` (sparse ``item_emb``, rowwise Adagrad) or ``--preset
 sampled_softmax_dp``. The ReLU-FFN HSTU on long histories (the standalone
@@ -131,15 +141,17 @@ def build_config(args):
 
 
 def single_device_warning(want: int, present: int) -> str:
-    """What ``main`` prints when the preset's mesh wants ``want`` devices:
-    the JAX CLI's warning where fewer are present (it trains single-device
-    there); the port has no mesh layer yet, so it trains single-device
-    where enough are present too, and says why."""
+    """What ``main`` prints in one process when the preset's mesh wants
+    ``want`` devices: the JAX CLI's warning where fewer are present (it
+    trains single-device there); where enough are, the port still trains
+    single-device (one process drives one card), and says how a mesh
+    runs."""
     if present < want:
         return (f"WARNING: preset wants {want} devices but only {present} "
                 "present — training single-device")
-    return (f"WARNING: preset wants {want} devices; the port's multi-device "
-            "layer is not ported yet (ROADMAP Queue 1, item 10) — training "
+    return (f"WARNING: preset wants {want} devices; one process drives one "
+            "card: a seq mesh trains under torchrun with one process per "
+            "card, other meshes wait for ROADMAP Queue 1, item 5 — training "
             "single-device")
 
 
@@ -173,10 +185,24 @@ def main(argv=None, timings: Optional[dict] = None,
     dev = resolve_device(args.device)
     mc = cfg.mesh
     want = mc.pipe * mc.data * mc.model * mc.seq
-    if want > 1:
+    # the mesh before the model, as the JAX CLI decides it: several
+    # processes form one (or raise); one process trains single-device
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        import torch.distributed as dist
+
+        from ..parallel.mesh import build_mesh, initialize_distributed
+
+        initialize_distributed(dev.type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = build_mesh(mc)
+        print(f"mesh: {mesh.shape} over {os.environ['WORLD_SIZE']} processes "
+              f"(rank {mesh.rank})")
+    elif want > 1:
         print(single_device_warning(
             want, torch.cuda.device_count() if dev.type == "cuda" else 1))
-    check_supported(cfg)
+    check_supported(cfg, mesh)
     if args.loader == "native":
         raise NotImplementedError(
             "--loader native (the C++ dataprep pack) is not ported yet: "
@@ -263,7 +289,11 @@ def main(argv=None, timings: Optional[dict] = None,
                        start_epoch=start_epoch,
                        profile_steps=args.profile_steps,
                        profile_dir=profile_dir,
-                       profile_start=args.profile_start, device=dev)
+                       profile_start=args.profile_start, mesh=mesh,
+                       device=dev)
+    if mesh is not None:
+        dist.barrier()
+        dist.destroy_process_group()
     print("Done")
     return state
 

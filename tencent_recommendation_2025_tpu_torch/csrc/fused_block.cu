@@ -78,6 +78,8 @@ struct Params {
   float* u;            // scratch [B, L, D] f32
   void* out;           // [B, L, D] T
   void* av;            // training: [B, L, D] T, the attention output; or null
+  const void* av_in;   // post stage alone: [B, L, D] T attention output read
+                       // in place of the attention loop; or null
   const int* seed;     // training with dropout: [1] seed; null = no dropout
   int B, L, D, H, F, NB;
   int round_av;        // chunked variant: LN2 reads T(av), not the f32 sum
@@ -191,14 +193,25 @@ __global__ void __launch_bounds__(kThreads)
   float* rstd = reinterpret_cast<float*>(ptr);
 
   const size_t rowb = (size_t)b * L;
-  load_tile<T>(static_cast<const T*>(p.q) + (rowb + q0) * D, TQ, D, qs, ldt);
-  for (int i = threadIdx.x; i < TQ * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    av[r * ldf + d] = 0.0f;
+  if (p.av_in) {
+    // the post stage alone (a ring's): av comes in, in T
+    const T* a = static_cast<const T*>(p.av_in) + (rowb + q0) * D;
+    for (int i = threadIdx.x; i < TQ * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      av[r * ldf + d] = to_f(a[i]);
+    }
+    __syncthreads();
+  } else {
+    load_tile<T>(static_cast<const T*>(p.q) + (rowb + q0) * D, TQ, D, qs,
+                 ldt);
+    for (int i = threadIdx.x; i < TQ * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      av[r * ldf + d] = 0.0f;
+    }
   }
 
   // --- attention: key tiles up to the diagonal ---
-  for (int kt = 0; kt <= qt; ++kt) {
+  for (int kt = 0; !p.av_in && kt <= qt; ++kt) {
     const int k0 = kt * TQ;
     __syncthreads();  // previous tile's products are done with ks/vs/ps
     load_tile<T>(static_cast<const T*>(p.k) + (rowb + k0) * D, TQ, D, ks, ldt);
@@ -319,8 +332,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// stages: 1 = proj_kernel, 2 = attn_ffn_kernel, 3 = both (the whole block)
 template <typename T>
-int launch(const Params& p, bool tc, cudaStream_t stream) {
+int launch(const Params& p, bool tc, cudaStream_t stream, int stages) {
   int TQ = 0;
   for (int t = 64; t >= 16; t >>= 1) {
     if (p.L % t == 0 && attn_smem<T>(p.D, t) <= kMaxSmem) {
@@ -338,17 +352,20 @@ int launch(const Params& p, bool tc, cudaStream_t stream) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)sm_b);
   if (e != cudaSuccess) return (int)e;
-  proj_kernel<T><<<dim3(p.L / kTM, p.B), kThreads, sm_a, stream>>>(p, tc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  attn_ffn_kernel<T><<<dim3(p.L / TQ, p.B), kThreads, sm_b, stream>>>(p, TQ,
-                                                                      tc);
+  if (stages & 1) {
+    proj_kernel<T><<<dim3(p.L / kTM, p.B), kThreads, sm_a, stream>>>(p, tc);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (stages & 2)
+    attn_ffn_kernel<T><<<dim3(p.L / TQ, p.B), kThreads, sm_b, stream>>>(
+        p, TQ, tc);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Shapes: x/out [B, L, D], valid
+// Plain C entry points (bound with ctypes). Shapes: x/out [B, L, D], valid
 // [B, L] int32, ln [6, D] f32, wuvqk [D, 4D], buvqk [4D] f32, wo [D, D],
 // bo [D] f32, w13 [D, 2F], w2 [F, D], rab [H, NB] f32, scratch q/k/v
 // [B, L, D] in the compute dtype and u [B, L, D] f32. Training: av [B, L, D]
@@ -356,18 +373,16 @@ int launch(const Params& p, bool tc, cudaStream_t stream) {
 // on the device with the keep threshold thr = uint32(p * 2^32) and
 // keep_scale = 1 / (1 - p) (seed null: no dropout). round_av nonzero selects
 // the chunked variant's rounding point. All contiguous, 16-byte aligned.
-// Requires L % 64 == 0, D % 16 == 0, F % 16 == 0, D % H == 0. Returns a
+// Requires L % 64 == 0, D % 16 == 0, F % 16 == 0, D % H == 0. Each returns a
 // cudaError_t code (0 on success).
-extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
-                               const void* ln, const void* wuvqk,
-                               const void* buvqk, const void* wo,
-                               const void* bo, const void* w13,
-                               const void* w2, const void* rab, void* q,
-                               void* k, void* v, void* u, void* out, void* av,
-                               const void* seed, int B, int L, int D, int H,
-                               int F, int NB, int round_av, float scale,
-                               float inv_len, unsigned thr, float keep_scale,
-                               void* stream) {
+static int run(int is_bf16, const void* x, const void* valid, const void* ln,
+               const void* wuvqk, const void* buvqk, const void* wo,
+               const void* bo, const void* w13, const void* w2,
+               const void* rab, void* q, void* k, void* v, void* u, void* out,
+               void* av, const void* av_in, const void* seed, int B, int L,
+               int D, int H, int F, int NB, int round_av, float scale,
+               float inv_len, unsigned thr, float keep_scale, void* stream,
+               int stages) {
   if (L % kTM != 0 || D % 16 != 0 || F % 16 != 0 || H <= 0 || D % H != 0 ||
       NB <= 0)
     return (int)cudaErrorInvalidValue;
@@ -388,6 +403,7 @@ extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
   p.u = static_cast<float*>(u);
   p.out = out;
   p.av = av;
+  p.av_in = av_in;
   p.seed = static_cast<const int*>(seed);
   p.B = B;
   p.L = L;
@@ -401,6 +417,46 @@ extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
   p.thr = thr;
   p.keep_scale = keep_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<bf16>(p, true, s);
-  return launch<float>(p, false, s);
+  if (is_bf16) return launch<bf16>(p, true, s, stages);
+  return launch<float>(p, false, s, stages);
+}
+
+// The whole block: proj_kernel, then attn_ffn_kernel.
+extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
+                               const void* ln, const void* wuvqk,
+                               const void* buvqk, const void* wo,
+                               const void* bo, const void* w13,
+                               const void* w2, const void* rab, void* q,
+                               void* k, void* v, void* u, void* out, void* av,
+                               const void* seed, int B, int L, int D, int H,
+                               int F, int NB, int round_av, float scale,
+                               float inv_len, unsigned thr, float keep_scale,
+                               void* stream) {
+  return run(is_bf16, x, valid, ln, wuvqk, buvqk, wo, bo, w13, w2, rab, q, k,
+             v, u, out, av, nullptr, seed, B, L, D, H, F, NB, round_av, scale,
+             inv_len, thr, keep_scale, stream, 3);
+}
+
+// One stage of a sequence-sharded ring (ops/fused_block.ring_pre_fwd,
+// ring_post_fwd), on a shard of L tokens: stage 0 runs proj_kernel alone
+// (replacing _fwd_pre_kernel_chunk, l.452, as ring_pre_proj launches it;
+// inv_len is 1 / the whole sequence's length); stage 1 runs
+// attn_ffn_kernel's post half alone on the attention output av_in (in T),
+// replacing _fwd_post_kernel_chunk (l.502) as ring_post_gate launches it.
+// Pointers a stage does not read may be null.
+extern "C" int fused_block_stage(int is_bf16, int stage, const void* x,
+                                 const void* ln, const void* wuvqk,
+                                 const void* buvqk, const void* wo,
+                                 const void* bo, const void* w13,
+                                 const void* w2, void* q, void* k, void* v,
+                                 void* u, void* out, const void* av_in,
+                                 const void* seed, int B, int L, int D, int H,
+                                 int F, float scale, float inv_len,
+                                 unsigned thr, float keep_scale,
+                                 void* stream) {
+  if (stage != 0 && (stage != 1 || av_in == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return run(is_bf16, x, nullptr, ln, wuvqk, buvqk, wo, bo, w13, w2, nullptr,
+             q, k, v, u, out, nullptr, av_in, seed, B, L, D, H, F, 1, 0, scale,
+             inv_len, thr, keep_scale, stream, stage == 0 ? 1 : 2);
 }

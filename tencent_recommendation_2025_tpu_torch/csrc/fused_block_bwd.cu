@@ -706,16 +706,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[i] = sum over g of part[g * P + i], in order of g
-__global__ void reduce_rows_kernel(const float* part, int G, int P,
-                                   float* out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P) return;
-  float s = 0.0f;
-  for (int g = 0; g < G; ++g) s += part[(size_t)g * P + i];
-  out[i] = s;
-}
-
 template <typename T>
 int pick_tile(int L, size_t (*smem)(int, int), int D) {
   for (int t = 64; t >= 16; t >>= 1)
@@ -772,7 +762,58 @@ int launch_bwd(const BwdArgs& p, bool tc, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// One stage of a sequence-sharded ring's backward, on a shard of L tokens:
+// stage 0 runs gate_ffn_bwd_kernel alone (replacing _bwd_gate_kernel_chunk,
+// l.612, as ring_post_gate's backward launches it: dav in T, dy and du in
+// f32, the gradients of W2, W13, Wo, bo and LN2/LN3), stage 1
+// proj_bwd_kernel alone (replacing _bwd_proj_kernel_chunk, l.710, as
+// ring_pre_proj's backward launches it, with dy zero: the post stage owns
+// the residual path; dq comes in already scaled by hd^-1/2, dv w.r.t. the
+// 1/L-scaled v, inv_len 1 / the whole sequence's length); each then sums
+// its partials with reduce_rows_kernel. The other stage's gradient slots of
+// ``grads`` come out 0.
+template <typename T>
+int launch_stage(const BwdArgs& p, int stage, bool tc, cudaStream_t stream) {
+  const int TM = pick_tile<T>(p.L, gate_smem<T>, p.D);
+  if (TM == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (stage == 0) {
+    const size_t sm = gate_smem<T>(p.D, TM);
+    e = cudaFuncSetAttribute(gate_ffn_bwd_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm);
+    if (e != cudaSuccess) return (int)e;
+    gate_ffn_bwd_kernel<T><<<p.G, kThreads, sm, stream>>>(p, TM, tc);
+  } else {
+    const size_t sm = proj_bwd_smem<T>(p.D, TM);
+    e = cudaFuncSetAttribute(proj_bwd_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm);
+    if (e != cudaSuccess) return (int)e;
+    proj_bwd_kernel<T><<<p.G, kThreads, sm, stream>>>(p, TM, tc);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  reduce_rows_kernel<<<(p.P + kThreads - 1) / kThreads, kThreads, 0,
+                       stream>>>(p.part, p.G, p.P, p.grads);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Plain C entry point of one ring stage (launch_stage above): stage 0 or 1,
+// ``args`` as for fused_block_bwd (the fields the stage does not read may be
+// null). Returns a cudaError_t code (0 on success).
+extern "C" int fused_block_bwd_stage(int is_bf16, const BwdArgs* args,
+                                     int stage, void* stream) {
+  const BwdArgs& p = *args;
+  if (p.L % 64 != 0 || p.D % 16 != 0 || p.F % 16 != 0 || p.H <= 0 ||
+      p.D % p.H != 0 || p.G <= 0 || p.D > kThreads || (stage != 0 &&
+                                                        stage != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return launch_stage<bf16>(p, stage, true, s);
+  return launch_stage<float>(p, stage, false, s);
+}
 
 // Plain C entry point (bound with ctypes): ``args`` points to a BwdArgs
 // (the wrapper mirrors the struct field for field). Requires L % 64 == 0,

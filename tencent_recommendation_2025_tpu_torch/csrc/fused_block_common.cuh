@@ -234,4 +234,16 @@ __device__ __forceinline__ float keep_factor(uint32_t key, uint32_t counter,
   return fmix32(key ^ fmix32(counter)) >= thr ? scale : 0.0f;
 }
 
+// out[i] = sum over g of part[g * P + i], in order of g: the fixed-order
+// sum of per-tile partials that keeps the rel-pos gradients deterministic
+// (csrc/fused_block_bwd.cu, csrc/ring_pair.cu)
+__global__ void reduce_rows_kernel(const float* part, int G, int P,
+                                   float* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P) return;
+  float s = 0.0f;
+  for (int g = 0; g < G; ++g) s += part[(size_t)g * P + i];
+  out[i] = s;
+}
+
 }  // namespace fbk

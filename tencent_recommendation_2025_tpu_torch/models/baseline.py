@@ -88,7 +88,8 @@ class SeqRecModel:
                   mm_tables: Mapping[str, torch.Tensor], train: bool = False,
                   gen: Optional[torch.Generator] = None,
                   return_item_tower: bool = False,
-                  item_tower_override: Optional[torch.Tensor] = None):
+                  item_tower_override: Optional[torch.Tensor] = None,
+                  mesh=None):
         fused_out = E.fuse_sequence(
             params, batch, mm_tables, self.fused, self.schema, self.cfg,
             return_item_tower=return_item_tower,
@@ -97,13 +98,13 @@ class SeqRecModel:
             else (fused_out, None)
         out = ENC.encode(params, fused_emb, batch["seq"],
                          batch["token_type"], params["pos_emb"], self.cfg,
-                         train=train, gen=gen)
+                         train=train, gen=gen, mesh=mesh)
         return (out, it_seq) if return_item_tower else out
 
     def forward(self, params: Mapping, batch: Mapping,
                 mm_tables: Mapping[str, torch.Tensor],
                 item_tables: Mapping[str, torch.Tensor], train: bool = True,
-                gen: Optional[torch.Generator] = None
+                gen: Optional[torch.Generator] = None, mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(log_feats [B, L, D], pos_embs, neg_embs). The positives' tower
         is the sequence item tower shifted by one (``pos[idx] ==
@@ -114,12 +115,13 @@ class SeqRecModel:
             it_seq, pos_last, neg_embs = self.dedup_spreads(params, batch,
                                                             mm_tables)
             log_feats = self.log2feats(params, batch, mm_tables, train=train,
-                                       gen=gen, item_tower_override=it_seq)
+                                       gen=gen, item_tower_override=it_seq,
+                                       mesh=mesh)
             pos_embs = torch.cat([it_seq[:, 1:], pos_last], dim=1)
             return log_feats, pos_embs, neg_embs
         log_feats, it_seq = self.log2feats(params, batch, mm_tables,
                                            train=train, gen=gen,
-                                           return_item_tower=True)
+                                           return_item_tower=True, mesh=mesh)
         pos_last = self.pos_last(params, batch, mm_tables)
         pos_embs = torch.cat([it_seq[:, 1:].to(pos_last.dtype), pos_last],
                              dim=1)
@@ -154,12 +156,14 @@ class SeqRecModel:
     def logits(self, params: Mapping, batch: Mapping,
                mm_tables: Mapping[str, torch.Tensor],
                item_tables: Mapping[str, torch.Tensor], train: bool = True,
-               gen: Optional[torch.Generator] = None
+               gen: Optional[torch.Generator] = None, mesh=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(pos_logits, neg_logits, loss_mask): dot products masked to
-        next-item positions (and to real samples of a padded batch)."""
+        next-item positions (and to real samples of a padded batch); the
+        encoder on ``mesh`` (see ``models.encoder.encode``)."""
         log_feats, pos_embs, neg_embs = self.forward(
-            params, batch, mm_tables, item_tables, train=train, gen=gen)
+            params, batch, mm_tables, item_tables, train=train, gen=gen,
+            mesh=mesh)
         loss_mask = batch["next_token_type"] == 1
         if "sample_valid" in batch:
             loss_mask = loss_mask & (batch["sample_valid"][:, None] > 0)

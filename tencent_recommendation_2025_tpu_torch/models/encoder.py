@@ -11,9 +11,10 @@ Routing mirrors the JAX package's. Where it takes a Pallas kernel on a TPU,
 the port takes its CUDA kernel on the card (the fused block in its
 whole-sequence or chunked variant, ``ops/fused_block``; the standalone HSTU
 attention, whole-sequence or chunked, ``ops/hstu_attention``; flash MHA,
-``ops/flash_attention``). Where it
-runs plain XLA, the port runs plain PyTorch on any device. On the CPU every
-path is plain.
+``ops/flash_attention``; on a ``seq`` mesh, the per-shard fused blocks and
+ring pair kernels of ``parallel/ring_fused``). Where it runs plain XLA, the
+port runs plain PyTorch on any device (on a ``seq`` mesh the unfused ring,
+``parallel/ring_attention``). On the CPU every path is plain.
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ from .attention import init_mha_params, mha
 from .embedding import layernorm, layernorm_init, linear_init, torch_dtype
 from .hstu import (dropout, hstu_block, hstu_output, hstu_project,
                    init_hstu_params)
+from ..parallel import ring_attention as RA
+from ..parallel.mesh import seq_size, unported
+from ..parallel.ring_fused import ring_fused_encode
 
 
 def swiglu_hidden_dim(d_model: int, mult: float, multiple_of: int) -> int:
@@ -145,11 +149,18 @@ def _cast_ln(p, dtype):
     return {"scale": p["scale"].to(dtype), "bias": p["bias"].to(dtype)}
 
 
-def block_route(cfg: ModelConfig, L: int, backend: str) -> str:
+def block_route(cfg: ModelConfig, L: int, backend: str, mesh=None) -> str:
     """How the encoder runs its blocks at length L on ``backend`` ("cuda" or
     "cpu"), as the JAX package chooses between its fused block and
-    ``make_attention_cores`` (single device, ``"cuda"`` in place of
-    ``"tpu"``):
+    ``make_attention_cores`` (``"cuda"`` in place of ``"tpu"``). On a mesh
+    whose ``seq`` axis is S > 1:
+
+    - "ring_fused": the per-shard fused blocks and the ring pair kernels
+      where ``FB.ring_fused_supported`` passes (JAX encoder l.340-356);
+    - "ring": otherwise, the blocks with the unfused ring attention cores
+      (JAX l.171-185).
+
+    Without one:
 
     - "fused": the fused HSTU block kernels, whole-sequence or chunked
       variant by ``FB.chunked``;
@@ -164,6 +175,10 @@ def block_route(cfg: ModelConfig, L: int, backend: str) -> str:
 
     A head wider than the kernels take (256) raises ``NotImplementedError``
     in the kernel's wrapper, on the card."""
+    S = seq_size(mesh)
+    if S > 1:
+        return "ring_fused" if FB.ring_fused_supported(cfg, L, S, backend) \
+            else "ring"
     if FB.fused_block_supported(cfg, L, backend):
         return "fused"
     if backend != "cuda" or not cfg.use_flash_attention \
@@ -177,13 +192,24 @@ def block_route(cfg: ModelConfig, L: int, backend: str) -> str:
     return "dense"
 
 
-def attention_core(cfg: ModelConfig, token_type: torch.Tensor):
+def attention_core(cfg: ModelConfig, token_type: torch.Tensor, mesh=None,
+                   seq_len: Optional[int] = None):
     """The attention inner loop of the "core" route on head-packed
     [B, L, D] q, k, v: flash MHA for an MHA block, ``core(q, k, v)``; the
     standalone HSTU attention for an HSTU block, ``core(q, k, v, rab)``.
-    Keys with token_type 0 are masked; HSTU divides by the padded L."""
+    Keys with token_type 0 are masked; HSTU divides by the padded L. With a
+    ``seq`` mesh, the unfused ring's cores (``token_type`` then this
+    process's shard on a process mesh, and ``seq_len`` the whole
+    sequence's L)."""
     valid = token_type != 0
-    L = token_type.shape[1]
+    L = token_type.shape[1] if seq_len is None else seq_len
+    H = cfg.num_heads
+    if seq_size(mesh) > 1:
+        if cfg.block_type == "hstu":
+            hd = cfg.hidden_units // H
+            return lambda q, k, v, rab: RA.ring_hstu_attention(
+                mesh, q, k, v, valid, rab, H, hd ** -0.5, L)
+        return lambda q, k, v: RA.ring_attention(mesh, q, k, v, valid, H)
     if cfg.block_type == "hstu":
         return lambda q, k, v, rab: HA.hstu_attention_packed(
             q, k, v, valid, rab, L, cfg.num_heads)
@@ -210,11 +236,18 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     block's operands built once. The dense and core routes checkpoint each
     block in training when ``cfg.remat_blocks``, as the JAX package's remat
     does: an MHA block's flash forward then runs again in the backward, an
-    HSTU block's attention core does not (its output is kept)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh, pipeline and ring encoder branches are not ported: "
-            "ROADMAP Queue 1, Multi-device layer")
+    HSTU block's attention core does not (its output is kept).
+
+    A ``mesh`` (``parallel/mesh``) whose ``seq`` axis is S > 1 takes the
+    ring routes. Every process computes the embeddings of its whole rows;
+    the blocks run on its shards of L (all S on a local mesh), and the
+    output gathers along L before the final LayerNorm. A mesh with pipe or
+    model > 1 raises ``NotImplementedError``."""
+    shape = getattr(mesh, "shape", None)
+    if mesh is not None and (shape is None or shape.get("pipe", 1) > 1
+                             or shape.get("model", 1) > 1):
+        unported(f"the encoder on the mesh {shape or mesh!r} (pipeline and "
+                 "tensor parallelism)")
     dtype = torch_dtype(cfg.dtype)
     B, L, D = fused_emb.shape
     x = fused_emb.to(dtype) * torch.tensor(D ** 0.5, dtype=dtype)
@@ -225,7 +258,41 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     blocks = params["blocks"]
 
     if route is None:
-        route = block_route(cfg, L, fused_emb.device.type)
+        route = block_route(cfg, L, fused_emb.device.type, mesh)
+    if (route in ("ring_fused", "ring")) != (seq_size(mesh) > 1):
+        raise ValueError(f"route {route!r} with a mesh of seq "
+                         f"{seq_size(mesh)}: the ring routes, and only they, "
+                         "take a seq mesh")
+    if route == "ring_fused":
+        # every seq rank holds the whole rows; the blocks run on its shards
+        seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_blocks,),
+                              generator=gen, device=gen.device) \
+            if use_dropout else torch.zeros(cfg.num_blocks,
+                                            dtype=torch.int64)
+        x = mesh.gather_seq(ring_fused_encode(
+            mesh, blocks, mesh.seq_shards(x), mesh.seq_shards(token_type),
+            seeds, cfg, use_dropout, L))
+    elif route == "ring" and mesh.process:
+        # this process's shard through the blocks, the whole rows after
+        (x,), (tt_run,) = mesh.seq_shards(x), mesh.seq_shards(token_type)
+        x = mesh.gather_seq([_blocks(params, x, seq_ids, tt_run, cfg,
+                                     use_dropout, gen, train, route, mesh,
+                                     L)])
+    else:
+        x = _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen,
+                    train, route, mesh, L)
+    return layernorm(_cast_ln(params["last_ln"], dtype), x)
+
+
+def _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen, train,
+            route, mesh, seq_len):
+    """The block stack on the "fused", "core", "dense" and "ring" routes
+    (before the final LayerNorm); on a process mesh's "ring" route, over
+    this process's shard of x and ``token_type`` (``seq_len`` the whole
+    sequence's L)."""
+    dtype = x.dtype
+    rate = cfg.dropout_rate
+    blocks = params["blocks"]
     if route == "fused":
         if torch.is_grad_enabled():
             # per-block dropout seeds stay on the device (no host sync)
@@ -242,9 +309,10 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
             for i in range(cfg.num_blocks):
                 x = FB.fused_hstu_block(x, block_params(ops, i), token_type,
                                         cfg.num_heads)
-        return layernorm(_cast_ln(params["last_ln"], dtype), x)
+        return x
 
-    core = attention_core(cfg, token_type) if route == "core" else None
+    core = attention_core(cfg, token_type, mesh, seq_len) \
+        if route in ("core", "ring") else None
     # the dense [B, L, L] mask only where no core runs; a core masks by
     # token_type itself
     mask = attention_mask(seq_ids, token_type) if core is None else None
@@ -253,6 +321,13 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_blocks,), generator=gen,
                           device=gen.device).tolist() if use_dropout \
         else [None] * cfg.num_blocks
+    if use_dropout and mesh is not None and mesh.process:
+        # distinct masks on every (data, seq) shard, as the fused ring's.
+        # A local mesh runs the whole sequence here and draws whole-sequence
+        # masks, so on this route it stands in for a process mesh only with
+        # dropout off (the fused ring folds the shard seeds on both)
+        si, di = mesh.seq_indices[0], mesh.data_index
+        seeds = [s + si * 1000003 + di * 10007 for s in seeds]
     H = cfg.num_heads
 
     def ln(p, t):
@@ -299,7 +374,7 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
             x = ckpt(run_block, x, bp, seeds[i])
         else:
             x = run_block(x, bp, seeds[i])
-    return layernorm(_cast_ln(params["last_ln"], dtype), x)
+    return x
 
 
 def _block_generator(seed: Optional[int], device) -> Optional[torch.Generator]:

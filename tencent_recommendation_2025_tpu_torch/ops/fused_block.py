@@ -32,6 +32,12 @@ Kernels, each replacing TPU kernels of the JAX package's file:
   gradients of both summed by ``reduce_rows_kernel``. Bound: compute, 93.5
   GFLOP per block, 94.5 us.
 
+- The ring units of a sequence-sharded mesh (the last section below):
+  ``csrc/ring_pair.cu`` for one (query shard, key shard) pair, replacing
+  ``_pair_attn_fwd_kernel`` (l.1269), ``_pair_dq_kernel`` (l.1304) and
+  ``_pair_dkdv_kernel`` (l.1345), and launches of their own for the pre and
+  post stages and their backwards.
+
 Variants. The TPU package takes the whole-sequence kernels up to
 ``wholeseq_max_l(D)`` and the chunked ones above it (:func:`chunked`), for
 VMEM's sake alone. The CUDA kernels stage q, k, v and u through global
@@ -78,6 +84,7 @@ from . import kernels
 FB_BLK = 128             # TPU stripe width: the gate's L granularity
 FB_WHOLESEQ_MAX = 1024   # whole-sequence variant ceiling at D=64
 FB_CHUNK = 512           # L-chunk width of the TPU's chunked kernels (gate)
+FB_ATTN_BLK = 256        # the TPU's forward attention tile (ring gate)
 FB_ATTN_BLK_BWD = 512
 MAX_CHUNKED_L = 16384
 _EPS = 1e-8
@@ -132,6 +139,42 @@ def fused_block_supported(cfg, L: int, backend: str) -> bool:
         return False
     try:
         _n_near(cfg.hstu_rel_pos_buckets, FB_BLK)
+    except ValueError:
+        return False
+    return True
+
+
+def _attn_blk(L: int, D: int = 64) -> int:
+    """The TPU's forward attention tile at length L and width D, the tile
+    whose bias slots the ring gate counts."""
+    for blk in (FB_ATTN_BLK, FB_BLK):
+        if L % blk == 0 and D * blk <= 64 * FB_ATTN_BLK_BWD:
+            return blk
+    return FB_BLK
+
+
+def ring_fused_supported(cfg, L: int, n_seq: int, backend: str) -> bool:
+    """The JAX package's gate of the per-shard fused path on a ``seq``
+    mesh, with ``"cuda"`` in place of ``"tpu"``: the fused-block shape
+    rules applied to the shard length L / n_seq."""
+    from .hstu_attention import _n_near
+
+    if not (getattr(cfg, "fused_block", False) and backend == "cuda"):
+        return False
+    if cfg.block_type != "hstu" or cfg.ffn_type != "swiglu":
+        return False
+    if L % n_seq:
+        return False
+    D = cfg.hidden_units
+    if D > MAX_FUSED_D:
+        return False
+    Lc = L // n_seq
+    if Lc < 256 or Lc % FB_BLK or _chunk_of(Lc, D) is None:
+        return False
+    if D % cfg.num_heads or (D // cfg.num_heads) % 8:
+        return False
+    try:
+        _n_near(cfg.hstu_rel_pos_buckets, _attn_blk(Lc, D=D))
     except ValueError:
         return False
     return True
@@ -286,12 +329,14 @@ def _projection(h1c, o, L, hd, cdt):
     return pre, uvqk[..., :D], v, q, k
 
 
-def _scores(q, k, rab, token_type, H):
-    """s = q k^T + rab[h, min(q-k, NB-1)] [B, H, L, L] in f32 (q is
-    pre-scaled) and the causal ∧ key-valid mask."""
-    L = q.shape[1]
-    pos = torch.arange(L, device=q.device)
-    dist = pos[:, None] - pos[None, :]
+def _scores(q, k, rab, token_type, H, off=0):
+    """s = q k^T + rab[h, min(dist, NB-1)] [B, H, Lq, Lk] in f32 (q is
+    pre-scaled) and the causal ∧ key-valid mask; a query at row r and a key
+    at column c lie at distance r + off - c (``off`` 0 on one sequence; the
+    query shard's start minus the key shard's on a ring)."""
+    Lq, Lk = q.shape[1], k.shape[1]
+    dist = (torch.arange(Lq, device=q.device)[:, None] + off) \
+        - torch.arange(Lk, device=q.device)[None, :]
     bucket = dist.clamp(0, rab.shape[1] - 1)
     mask = (dist >= 0)[None, None] & (token_type != 0)[:, None, None, :]
     s = _mm(_heads(q, H), _heads(k, H).transpose(-1, -2)) \
@@ -299,27 +344,44 @@ def _scores(q, k, rab, token_type, H):
     return s, mask
 
 
-def _rab_grad(ds, NB):
-    """[H, NB] gradient of rab from ds [H, L, L] (batch-summed, zero off
-    the causal valid pairs): distance d < NB - 1 is one diagonal, the
-    clamped bucket NB - 1 the triangle below. Each is a torch sum, which
-    is pairwise; scattering every pair into its bucket (index_add_) would
-    add up to L^2 / 2 terms in one run and, at L = 16384, lose f32
-    precision the kernel keeps."""
-    H, L, _ = ds.shape
+def _rab_grad(ds, NB, off=0):
+    """[H, NB] gradient of rab from ds [H, Lq, Lk] (batch-summed, zero off
+    the causal valid pairs; pairs at distance r + off - c): distance d < NB
+    - 1 is one diagonal, the clamped bucket NB - 1 the triangle below. Each
+    is a torch sum, which is pairwise; scattering every pair into its
+    bucket (index_add_) would add up to L^2 / 2 terms in one run and, at L
+    = 16384, lose f32 precision the kernel keeps."""
+    H, Lq, Lk = ds.shape
     drab = ds.new_zeros((H, NB))
-    for d in range(min(NB - 1, L)):
-        drab[:, d] = torch.diagonal(ds, offset=-d, dim1=-2, dim2=-1).sum(-1)
-    if L > NB - 1:
-        drab[:, NB - 1] = torch.tril(ds, diagonal=-(NB - 1)).sum((-2, -1))
+    for d in range(NB - 1):
+        if -Lq < off - d < Lk:
+            drab[:, d] = torch.diagonal(ds, offset=off - d, dim1=-2,
+                                        dim2=-1).sum(-1)
+    drab[:, NB - 1] = torch.tril(ds, diagonal=off - (NB - 1)).sum((-2, -1))
     return drab
+
+
+def _post_plain(xf, av, u, o, seed, rate, cdt):
+    """The block after attention on f32 x, av and u: the gate, the
+    out-projection, the residual, LN3, SwiGLU and the second residual."""
+    B, L, D = xf.shape
+    ln = o["ln"]
+    F = o["w2"].shape[0]
+    g = _ln(av, ln[2], ln[3]) * u
+    if rate > 0.0:
+        g = g * keep_mask(B, L, D, seed, 0, rate, xf.device)
+    y = xf + _mm(g.to(cdt), o["wo"]) + o["bo"]
+    x13 = _mm(_ln(y, ln[4], ln[5]).to(cdt), o["w13"])
+    f = Fn.silu(x13[..., :F]) * x13[..., F:]
+    if rate > 0.0:
+        f = f * keep_mask(B, L, F, seed, 1, rate, xf.device)
+    return (y + _mm(f.to(cdt), o["w2"])).to(cdt)
 
 
 def _forward_plain(x, o, token_type, num_heads, seed, rate):
     cdt = x.dtype
     B, L, D = x.shape
     ln = o["ln"]
-    F = o["w2"].shape[0]
     xf = x.float()
     _, u, v, q, k = _projection(_ln(xf, ln[0], ln[1]).to(cdt), o, L,
                                 D // num_heads, cdt)
@@ -328,15 +390,7 @@ def _forward_plain(x, o, token_type, num_heads, seed, rate):
     av = _rows(_mm(a, _heads(v, num_heads)))
     if chunked(L, D):
         av = av.to(cdt).float()   # the chunked variant's LN2 reads T(av)
-    g = _ln(av, ln[2], ln[3]) * u
-    if rate > 0.0:
-        g = g * keep_mask(B, L, D, seed, 0, rate, x.device)
-    y = xf + _mm(g.to(cdt), o["wo"]) + o["bo"]
-    x13 = _mm(_ln(y, ln[4], ln[5]).to(cdt), o["w13"])
-    f = Fn.silu(x13[..., :F]) * x13[..., F:]
-    if rate > 0.0:
-        f = f * keep_mask(B, L, F, seed, 1, rate, x.device)
-    return (y + _mm(f.to(cdt), o["w2"])).to(cdt), av.to(cdt)
+    return _post_plain(xf, av, u, o, seed, rate, cdt), av.to(cdt)
 
 
 def fused_hstu_block_plain(x: torch.Tensor, o: Mapping,
@@ -370,20 +424,53 @@ def fused_hstu_block_bwd_plain(x: torch.Tensor, av: torch.Tensor,
     B, L, D = x.shape
     H = num_heads
     hd = D // H
-    ln = o["ln"]
-    F = o["w2"].shape[0]
     xf = x.float()
+    pre, h1c, xhat1, rstd1, (u, v, q, k) = _recompute_projection(xf, o, L, hd,
+                                                                 cdt)
+    post = _post_bwd(xf, av, dout, o, u, seed, rate, cdt)
 
-    # ---- recompute (av is the forward's, rounded) ----
+    # ---- attention ----
+    s, mask = _scores(q, k, o["rab"], token_type, H)
+    a = (Fn.silu(s) * mask).to(cdt)
+    dot_b = _heads(post["dav"], H)
+    dv = _mm(a.transpose(-1, -2), dot_b)     # w.r.t. the 1/L-scaled v
+    ds = _mm(dot_b, _heads(v, H).transpose(-1, -2)) * _dsilu(s) * mask
+    dsc = ds.to(cdt)
+    dq = _mm(dsc, _heads(k, H)) * (hd ** -0.5)
+    dk = _mm(dsc.transpose(-1, -2), _heads(q, H))
+
+    pre_g = _pre_bwd(o, pre, h1c, xhat1, rstd1, post["du"], _rows(dv),
+                     _rows(dq), _rows(dk), post["dy"], L, cdt)
+    return {"dx": pre_g["dx"], "ln": pre_g["ln"] + post["ln"],
+            "wuvqk": pre_g["wuvqk"], "buvqk": pre_g["buvqk"],
+            "wo": post["wo"], "bo": post["bo"], "w13": post["w13"],
+            "w2": post["w2"], "rab": _rab_grad(ds.sum(0), o["rab"].shape[1])}
+
+
+def _recompute_projection(xf, o, L, hd, cdt):
+    """The backward's recompute of LN1 and the projection: (pre-activation,
+    T(LN1(x)), its xhat and rstd, (u, v, q, k) as :func:`_projection`
+    gives them)."""
+    ln = o["ln"]
     xhat1, rstd1 = _ln_stats(xf)
     h1c = (xhat1 * ln[0] + ln[1]).to(cdt)
     pre, u, v, q, k = _projection(h1c, o, L, hd, cdt)
+    return pre, h1c, xhat1, rstd1, (u, v, q, k)
+
+
+def _post_bwd(xf, av, dout, o, u, seed, rate, cdt):
+    """Backward of :func:`_post_plain` from the rounded av, op by op with
+    the kernel's rounding points: {"dav" (T), "du", "dy" (f32, the residual
+    path's dx), "ln" [6, D] (rows 2-5), "wo", "bo", "w13", "w2"}."""
+    B, L, D = xf.shape
+    ln = o["ln"]
+    F = o["w2"].shape[0]
     xhat2, rstd2 = _ln_stats(av.float())
     av_ln = xhat2 * ln[2] + ln[3]
     keep1 = keep2 = None
     g = av_ln * u
     if rate > 0.0:
-        keep1 = keep_mask(B, L, D, seed, 0, rate, x.device)
+        keep1 = keep_mask(B, L, D, seed, 0, rate, xf.device)
         g = g * keep1
     gc = g.to(cdt)
     y = xf + _mm(gc, o["wo"]) + o["bo"]
@@ -394,10 +481,9 @@ def fused_hstu_block_bwd_plain(x: torch.Tensor, av: torch.Tensor,
     sx1 = Fn.silu(x1)
     f = sx1 * x3
     if rate > 0.0:
-        keep2 = keep_mask(B, L, F, seed, 1, rate, x.device)
+        keep2 = keep_mask(B, L, F, seed, 1, rate, xf.device)
         f = f * keep2
 
-    # ---- FFN, out-projection and gate ----
     doutc = dout.to(cdt)
     dw2 = _wsum(f.to(cdt), doutc)
     df = _mm(doutc, o["w2"].transpose(0, 1))
@@ -409,36 +495,32 @@ def fused_hstu_block_bwd_plain(x: torch.Tensor, av: torch.Tensor,
                               rstd3, ln[4])
     dy = dout.float() + dy_ln
     dyc = dy.to(cdt)
-    dwo = _wsum(gc, dyc)
-    dbo = dy.reshape(-1, D).sum(0)
     dg = _mm(dyc, o["wo"].transpose(0, 1))
     if keep1 is not None:
         dg = dg * keep1
-    du = dg * av_ln
     dav, dg2, db2 = _ln_bwd(dg * u, xhat2, rstd2, ln[2])
+    zero = torch.zeros_like(dg2)
+    return {"dav": dav.to(cdt), "du": dg * av_ln, "dy": dy,
+            "ln": torch.stack([zero, zero, dg2, db2, dg3, db3]),
+            "wo": _wsum(gc, dyc), "bo": dy.reshape(-1, D).sum(0),
+            "w13": dw13, "w2": dw2}
 
-    # ---- attention ----
-    s, mask = _scores(q, k, o["rab"], token_type, H)
-    a = (Fn.silu(s) * mask).to(cdt)
-    dot_b = _heads(dav.to(cdt), H)
-    dv = _mm(a.transpose(-1, -2), dot_b)     # w.r.t. the 1/L-scaled v
-    ds = _mm(dot_b, _heads(v, H).transpose(-1, -2)) * _dsilu(s) * mask
-    dsc = ds.to(cdt)
-    dq = _mm(dsc, _heads(k, H)) * (hd ** -0.5)
-    dk = _mm(dsc.transpose(-1, -2), _heads(q, H))
-    drab = _rab_grad(ds.sum(0), o["rab"].shape[1])
 
-    # ---- projection and LN1 ----
-    duvqk = torch.cat([du, _rows(dv) * (1.0 / L), _rows(dq), _rows(dk)],
-                      -1) * _dsilu(pre)
+def _pre_bwd(o, pre, h1c, xhat1, rstd1, du, dv, dq, dk, dy, L, cdt):
+    """Backward of LN1 and the projection from the f32 gradients of u, the
+    1/L-scaled v, the silu output of q (dq already times hd^-1/2) and k,
+    plus the residual ``dy``: {"dx" (T), "ln" [6, D] (rows 0-1), "wuvqk",
+    "buvqk"}."""
+    D = h1c.shape[-1]
+    duvqk = torch.cat([du, dv * (1.0 / L), dq, dk], -1) * _dsilu(pre)
     duvqkc = duvqk.to(cdt)
     dx_ln, dg1, db1 = _ln_bwd(_mm(duvqkc, o["wuvqk"].transpose(0, 1)),
-                              xhat1, rstd1, ln[0])
+                              xhat1, rstd1, o["ln"][0])
+    zero = torch.zeros_like(dg1)
     return {"dx": (dy + dx_ln).to(cdt),
-            "ln": torch.stack([dg1, db1, dg2, db2, dg3, db3]),
+            "ln": torch.stack([dg1, db1, zero, zero, zero, zero]),
             "wuvqk": _wsum(h1c, duvqkc),
-            "buvqk": duvqk.reshape(-1, 4 * D).sum(0),
-            "wo": dwo, "bo": dbo, "w13": dw13, "w2": dw2, "rab": drab}
+            "buvqk": duvqk.reshape(-1, 4 * D).sum(0)}
 
 
 # ---------------------------------------------------------------------------
@@ -456,14 +538,14 @@ _WEIGHTS = ("wuvqk", "wo", "w13", "w2")
 def _check(x: torch.Tensor, o: Mapping, token_type: torch.Tensor,
            num_heads: int, name: str, *extra: torch.Tensor):
     """Validate what the kernels take; returns (x contiguous, int32 valid
-    mask)."""
+    mask, or None without a ``token_type``)."""
     B, L, D = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} takes bf16 or f32, not {x.dtype}")
     if L % 64 or D % 16 or D % num_heads:
         raise ValueError(f"{name} needs L % 64 == 0, D % 16 == 0 and "
                          f"D % num_heads == 0 (L={L}, D={D}, H={num_heads})")
-    if tuple(token_type.shape) != (B, L):
+    if token_type is not None and tuple(token_type.shape) != (B, L):
         raise ValueError(f"{name}: token_type has shape "
                          f"{tuple(token_type.shape)}, expected {(B, L)}")
     F = o["w2"].shape[0]
@@ -479,8 +561,10 @@ def _check(x: torch.Tensor, o: Mapping, token_type: torch.Tensor,
                              f"block_operands(bp, x.dtype))")
     x = x.contiguous()
     # the kernels read token_type themselves: nonzero = valid key
-    valid = token_type.to(torch.int32).contiguous()
-    for t in (x, valid, *o.values(), *extra):
+    valid = None if token_type is None else \
+        token_type.to(torch.int32).contiguous()
+    for t in (x, *([valid] if valid is not None else []), *o.values(),
+              *extra):
         if t.device != x.device:
             raise ValueError(f"{name}: operands on different devices")
         if not t.is_contiguous():
@@ -706,6 +790,17 @@ BLOCK_LEAVES = (("attn_ln", "scale"), ("attn_ln", "bias"),
                 ("ffn", "w13"), ("ffn", "w2"), ("hstu", "rab"))
 
 
+def leaves_of(bp: Mapping, paths) -> list:
+    """The leaves of a block parameter subtree at ``paths``."""
+    out = []
+    for path in paths:
+        node = bp
+        for key in path:
+            node = node[key]
+        out.append(node)
+    return out
+
+
 def _nest(leaves):
     tree: dict = {}
     for path, t in zip(BLOCK_LEAVES, leaves):
@@ -757,11 +852,495 @@ def fused_hstu_block_autograd(x: torch.Tensor, bp: Mapping,
                               train: bool = False) -> torch.Tensor:
     """:class:`FusedBlockFn` on a block parameter subtree (the encoder's
     per-block slice of the stacked tree)."""
-    leaves = []
-    for path in BLOCK_LEAVES:
-        node = bp
-        for key in path:
-            node = node[key]
-        leaves.append(node)
     return FusedBlockFn.apply(x, token_type, seed, rate, train, num_heads,
-                              *leaves)
+                              *leaves_of(bp, BLOCK_LEAVES))
+
+
+# ---------------------------------------------------------------------------
+# the ring units: one block on one shard of a sequence-sharded ring
+# ---------------------------------------------------------------------------
+#
+# Counterparts of the JAX package's ring_pre_proj, ring_pair_attn and
+# ring_post_gate (l.1401-1659), which parallel/ring_fused.py composes on a
+# ``seq`` mesh: the pre stage (LN1, projection, silu) on the local shard, S
+# ring steps in which one pair kernel computes the local queries against the
+# key shard in hand at its global offset, then the post stage (gate,
+# out-projection, residual, LN3, SwiGLU, residual). Their rounding points
+# are the ring's: the S f32 partials sum in ring order and round to T once;
+# each pair's dq, dk, dv round to T; the post stage returns dav and dx in T,
+# the pre stage dx in T, and x's gradient is the sum of the two in T.
+#
+# Kernels, each replacing a TPU kernel of the JAX file:
+#   ring_pre_fwd   proj_kernel alone (csrc/fused_block.cu), l.452
+#   ring_post_fwd  attn_ffn_kernel's post half on a given T(av), l.502
+#   ring_pair_fwd  pair_fwd_kernel (csrc/ring_pair.cu), l.1269
+#   ring_pair_dq   pair_dq_kernel + reduce_rows_kernel, l.1304
+#   ring_pair_dkdv pair_dkdv_kernel, l.1345
+#   ring_post_bwd  gate_ffn_bwd_kernel alone (csrc/fused_block_bwd.cu), l.612
+#   ring_pre_bwd   proj_bwd_kernel alone, zero residual, l.710
+
+def ring_pre_fwd_plain(x: torch.Tensor, o: Mapping, seq_len: int,
+                       num_heads: int):
+    """Plain version of the pre stage on a shard x [B, Lc, D]: (q, k, v in
+    the activation dtype, u in f32); q scaled by hd^-1/2, v by 1/seq_len,
+    the whole sequence's length."""
+    cdt = x.dtype
+    _, u, v, q, k = _projection(_ln(x.float(), o["ln"][0], o["ln"][1])
+                                .to(cdt), o, seq_len,
+                                x.shape[-1] // num_heads, cdt)
+    return q, k, v, u.contiguous()
+
+
+def ring_pre_bwd_plain(x, o, dq, dk, dv, du, seq_len: int,
+                       num_heads: int) -> dict:
+    """Plain version of the pre stage's backward from the gradients of its
+    outputs (dq w.r.t. the scaled q: times hd^-1/2 here; dv w.r.t. the
+    scaled v). The residual slot is zero: the post stage owns the residual
+    path. Returns {"dx" (T), "ln" [6, D] (rows 0-1), "wuvqk", "buvqk"}."""
+    cdt = x.dtype
+    hd = x.shape[-1] // num_heads
+    xf = x.float()
+    pre, h1c, xhat1, rstd1, _ = _recompute_projection(xf, o, seq_len, hd,
+                                                      cdt)
+    return _pre_bwd(o, pre, h1c, xhat1, rstd1, du.float(), dv.float(),
+                    dq.float() * (hd ** -0.5), dk.float(),
+                    torch.zeros_like(xf), seq_len, cdt)
+
+
+def ring_post_fwd_plain(x, av, u, o: Mapping, seed, rate: float):
+    """Plain version of the post stage on a shard: x and av [B, Lc, D] in
+    the activation dtype, u in f32; dropout at ``rate`` from ``seed``."""
+    return _post_plain(x.float(), av.float(), u, o, seed, rate, x.dtype)
+
+
+def ring_post_bwd_plain(x, av, dout, o, seed, rate: float, seq_len: int,
+                        num_heads: int) -> dict:
+    """Plain version of the post stage's backward (u recomputed from x, as
+    the kernel does): {"dav" (T), "du", "dy" (f32), "ln" [6, D] (rows 2-5),
+    "wo", "bo", "w13", "w2"}."""
+    cdt = x.dtype
+    xf = x.float()
+    *_, (u, _, _, _) = _recompute_projection(
+        xf, o, seq_len, x.shape[-1] // num_heads, cdt)
+    return _post_bwd(xf, av, dout, o, u, seed, rate, cdt)
+
+
+def ring_pair_fwd_plain(q, k, v, valid, rab, off: int, num_heads: int):
+    """Plain version of the pair forward: the f32 partial [B, Lq, D] of the
+    queries q [B, Lq, D] against the keys k, v [B, Lk, D] (``valid`` [B,
+    Lk], nonzero = valid key) at distance r + off - c."""
+    s, mask = _scores(q, k, rab, valid, num_heads, off)
+    a = (Fn.silu(s) * mask).to(q.dtype)
+    return _rows(_mm(a, _heads(v, num_heads)))
+
+
+def _pair_ds(q, k, v, dav, valid, rab, off, H):
+    s, mask = _scores(q, k, rab, valid, H, off)
+    dot_b = _heads(dav.to(q.dtype), H)
+    ds = _mm(dot_b, _heads(v, H).transpose(-1, -2)) * _dsilu(s) * mask
+    return s, mask, dot_b, ds
+
+
+def ring_pair_dq_plain(q, k, v, dav, valid, rab, off: int, num_heads: int):
+    """Plain version of the pair's dq kernel: (dq w.r.t. the scaled q,
+    drab [H, NB]), both f32."""
+    _, _, _, ds = _pair_ds(q, k, v, dav, valid, rab, off, num_heads)
+    return (_rows(_mm(ds.to(q.dtype), _heads(k, num_heads))),
+            _rab_grad(ds.sum(0), rab.shape[1], off))
+
+
+def ring_pair_dkdv_plain(q, k, v, dav, valid, rab, off: int,
+                         num_heads: int):
+    """Plain version of the pair's dk/dv kernel: (dk, dv w.r.t. the scaled
+    v), both f32."""
+    s, mask, dot_b, ds = _pair_ds(q, k, v, dav, valid, rab, off, num_heads)
+    a = (Fn.silu(s) * mask).to(q.dtype)
+    dk = _mm(ds.to(q.dtype).transpose(-1, -2), _heads(q, num_heads))
+    return _rows(dk), _rows(_mm(a.transpose(-1, -2), dot_b))
+
+
+class _PairArgs(ctypes.Structure):
+    """Mirror of ``PairArgs`` in csrc/ring_pair.cu, field for field."""
+
+    _fields_ = ([(n, _P) for n in (
+        "q", "k", "v", "valid", "rab", "dav", "av", "dq", "dk", "dv",
+        "part_rab", "drab")]
+        + [(n, _I) for n in ("B", "Lq", "Lk", "D", "H", "NB", "off")])
+
+
+def _future(off: int, Lq: int) -> bool:
+    """Whether every pair lies in the future (the key shard after the
+    query shard): the partial and its gradients are 0, and no kernel
+    launches."""
+    return off + Lq <= 0
+
+
+def _pair_launch(which, q, k, v, valid, rab, off, num_heads, dav=None):
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    name = f"ring pair kernel ({which})"
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} takes bf16 or f32, not {q.dtype}")
+    if k.shape != (B, Lk, D) or v.shape != k.shape or \
+            k.dtype != q.dtype or v.dtype != q.dtype or \
+            (dav is not None and (dav.shape != q.shape
+                                  or dav.dtype != q.dtype)):
+        raise ValueError(f"{name}: k and v must be [B, Lk, D] and dav like "
+                         "q, all in q's dtype")
+    if Lq % 16 or Lk % 16 or D % 16 or D % num_heads:
+        raise ValueError(f"{name} needs Lq, Lk and D multiples of 16 and D "
+                         f"% num_heads == 0 (Lq={Lq}, Lk={Lk}, D={D}, "
+                         f"H={num_heads})")
+    if tuple(valid.shape) != (B, Lk) or rab.dtype != torch.float32 or \
+            rab.dim() != 2 or rab.shape[0] != num_heads:
+        raise ValueError(f"{name}: valid must be [B, Lk] and rab f32 [H, "
+                         "NB] with num_heads rows")
+    valid = valid.to(torch.int32).contiguous()
+    H, NB = rab.shape
+    dev, f32 = q.device, torch.float32
+    outs = {}
+    if which == "fwd":
+        outs["av"] = torch.empty((B, Lq, D), dtype=f32, device=dev)
+    elif which == "dq":
+        outs["dq"] = torch.empty((B, Lq, D), dtype=f32, device=dev)
+        outs["part_rab"] = torch.empty((B * Lq // 16, H * NB), dtype=f32,
+                                       device=dev)
+        outs["drab"] = torch.empty((H, NB), dtype=f32, device=dev)
+    else:
+        outs["dk"] = torch.empty((B, Lk, D), dtype=f32, device=dev)
+        outs["dv"] = torch.empty((B, Lk, D), dtype=f32, device=dev)
+    ins = dict(q=q, k=k, v=v, valid=valid, rab=rab,
+               **({} if dav is None else {"dav": dav}))
+    for t in ins.values():
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+    args = _PairArgs(**{n: t.data_ptr() for n, t in {**ins, **outs}.items()},
+                     B=B, Lq=Lq, Lk=Lk, D=D, H=H, NB=NB, off=int(off))
+    fn = getattr(kernels.load("ring_pair"), f"ring_pair_{which}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I, ctypes.POINTER(_PairArgs), _P]
+    with torch.cuda.device(dev):
+        rc = fn(int(q.dtype == torch.bfloat16), ctypes.byref(args),
+                _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"ring_pair_{which} kernel launch failed: CUDA "
+                           f"error {rc}")
+    return outs
+
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the plain version);
+    raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {t.device}")
+    return True
+
+
+def ring_pair_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: torch.Tensor, rab: torch.Tensor, off: int,
+                  num_heads: int) -> torch.Tensor:
+    """The f32 partial of one (query shard, key shard) pair (see
+    :func:`ring_pair_fwd_plain`). A pair wholly in the future is 0 without
+    a launch; CPU tensors take the plain version; CUDA tensors launch the
+    kernel (counted in ``ring_pair_fwd.launches``)."""
+    if _future(off, q.shape[1]):
+        return q.new_zeros(q.shape, dtype=torch.float32)
+    if not _on_card(q, "ring_pair_fwd"):
+        return ring_pair_fwd_plain(q, k, v, valid, rab, off, num_heads)
+    out = _pair_launch("fwd", q, k, v, valid, rab, off, num_heads)["av"]
+    ring_pair_fwd.launches += 1
+    return out
+
+
+ring_pair_fwd.launches = 0
+
+
+def ring_pair_dq(q, k, v, dav, valid, rab, off: int, num_heads: int):
+    """(dq w.r.t. the scaled q, drab) of one pair, both f32, from the
+    partial's cotangent ``dav`` (in q's dtype). Launches counted in
+    ``ring_pair_dq.launches``; the future and CPU cases as
+    :func:`ring_pair_fwd`'s."""
+    if _future(off, q.shape[1]):
+        return (q.new_zeros(q.shape, dtype=torch.float32),
+                rab.new_zeros(rab.shape))
+    if not _on_card(q, "ring_pair_dq"):
+        return ring_pair_dq_plain(q, k, v, dav, valid, rab, off, num_heads)
+    out = _pair_launch("dq", q, k, v, valid, rab, off, num_heads, dav)
+    ring_pair_dq.launches += 1
+    return out["dq"], out["drab"]
+
+
+ring_pair_dq.launches = 0
+
+
+def ring_pair_dkdv(q, k, v, dav, valid, rab, off: int, num_heads: int):
+    """(dk, dv w.r.t. the scaled v) of one pair's key shard, both f32.
+    Launches counted in ``ring_pair_dkdv.launches``; the future and CPU
+    cases as :func:`ring_pair_fwd`'s."""
+    if _future(off, q.shape[1]):
+        return (k.new_zeros(k.shape, dtype=torch.float32),
+                k.new_zeros(k.shape, dtype=torch.float32))
+    if not _on_card(q, "ring_pair_dkdv"):
+        return ring_pair_dkdv_plain(q, k, v, dav, valid, rab, off, num_heads)
+    out = _pair_launch("dkdv", q, k, v, valid, rab, off, num_heads, dav)
+    ring_pair_dkdv.launches += 1
+    return out["dk"], out["dv"]
+
+
+ring_pair_dkdv.launches = 0
+
+
+def _stage_fn():
+    fn = kernels.load("fused_block").fused_block_stage
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I, _I] + [_P] * 15 + [_I] * 5 + [_F, _F, _U, _F, _P]
+    return fn
+
+
+def ring_pre_fwd(x: torch.Tensor, ops: Mapping, seq_len: int,
+                 num_heads: int):
+    """The pre stage on a shard (see :func:`ring_pre_fwd_plain`). CPU
+    tensors take the plain version; CUDA tensors launch ``proj_kernel``
+    alone (counted in ``ring_pre_fwd.launches``)."""
+    if not _on_card(x, "ring_pre_fwd"):
+        return ring_pre_fwd_plain(x, ops, seq_len, num_heads)
+    B, Lc, D = x.shape
+    x, _ = _check(x, ops, None, num_heads, "ring pre stage")
+    q, k, v = (torch.empty_like(x) for _ in range(3))
+    u = torch.empty((B, Lc, D), dtype=torch.float32, device=x.device)
+    P = lambda n: ops[n].data_ptr()   # noqa: E731
+    with torch.cuda.device(x.device):
+        rc = _stage_fn()(int(x.dtype == torch.bfloat16), 0, x.data_ptr(),
+                         P("ln"), P("wuvqk"), P("buvqk"), None, None, None,
+                         None, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         u.data_ptr(), None, None, None, B, Lc, D, num_heads,
+                         ops["w2"].shape[0], float(D // num_heads) ** -0.5,
+                         1.0 / seq_len, 0, 1.0, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"ring pre stage launch failed: CUDA error {rc}")
+    ring_pre_fwd.launches += 1
+    return q, k, v, u
+
+
+ring_pre_fwd.launches = 0
+
+
+def ring_post_fwd(x: torch.Tensor, av: torch.Tensor, u: torch.Tensor,
+                  ops: Mapping, seed, rate: float) -> torch.Tensor:
+    """The post stage on a shard (see :func:`ring_post_fwd_plain`). CPU
+    tensors take the plain version; CUDA tensors launch
+    ``attn_ffn_kernel``'s post half alone (counted in
+    ``ring_post_fwd.launches``)."""
+    if not _on_card(x, "ring_post_fwd"):
+        return ring_post_fwd_plain(x, av, u, ops, seed, rate)
+    B, Lc, D = x.shape
+    x, _ = _check(x, ops, None, ops["rab"].shape[0], "ring post stage",
+                  av, u)
+    if av.shape != x.shape or av.dtype != x.dtype or u.shape != x.shape or \
+            u.dtype != torch.float32:
+        raise ValueError("ring post stage: av must match x, u be f32 "
+                         "[B, Lc, D]")
+    out = torch.empty_like(x)
+    drop = rate > 0.0
+    seed_t = _seed_tensor(seed, x.device) if drop else None
+    P = lambda n: ops[n].data_ptr()   # noqa: E731
+    with torch.cuda.device(x.device):
+        rc = _stage_fn()(int(x.dtype == torch.bfloat16), 1, x.data_ptr(),
+                         P("ln"), None, None, P("wo"), P("bo"), P("w13"),
+                         P("w2"), None, None, None, u.data_ptr(),
+                         out.data_ptr(), av.data_ptr(),
+                         seed_t.data_ptr() if drop else None, B, Lc, D,
+                         ops["rab"].shape[0], ops["w2"].shape[0], 1.0, 1.0,
+                         drop_threshold(rate) if drop else 0,
+                         keep_scale(rate) if drop else 1.0, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"ring post stage launch failed: CUDA error {rc}")
+    ring_post_fwd.launches += 1
+    return out
+
+
+ring_post_fwd.launches = 0
+
+
+def _stage_bwd_fn():
+    fn = kernels.load("fused_block_bwd").fused_block_bwd_stage
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I, ctypes.POINTER(_BwdArgs), _I, _P]
+    return fn
+
+
+def _launch_bwd_stage(stage, x, ops, num_heads, seq_len, seed, rate, keys,
+                      **bufs):
+    """One backward stage (0: gate/FFN, 1: projection) on a shard; returns
+    the gradients named in ``keys`` from its reduced partial sums."""
+    B, Lc, D = x.shape
+    F = ops["w2"].shape[0]
+    H, NB = ops["rab"].shape
+    dev = x.device
+    layout, P = bwd_layout(D, F)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = min(B * Lc // 64, 2 * sms)
+    part = torch.zeros((G, P), dtype=torch.float32, device=dev)
+    grads = torch.empty(P, dtype=torch.float32, device=dev)
+    drop = rate > 0.0
+    seed_t = _seed_tensor(seed, dev) if drop else None
+    ptrs = dict(x=x, part=part, grads=grads, **bufs,
+                **{n: ops[n] for n in ("ln", "wuvqk", "buvqk", "wo", "bo",
+                                       "w13", "w2", "rab")})
+    args = _BwdArgs(
+        **{n: t.data_ptr() for n, t in ptrs.items()},
+        seed=seed_t.data_ptr() if drop else None,
+        B=B, L=Lc, D=D, H=H, F=F, NB=NB, G=G, P=P,
+        **{f"off_{n}": off for n, (off, _) in layout.items()},
+        scale=float(D // num_heads) ** -0.5, inv_len=1.0 / seq_len,
+        thr=drop_threshold(rate) if drop else 0,
+        keep_scale=keep_scale(rate) if drop else 1.0)
+    with torch.cuda.device(dev):
+        rc = _stage_bwd_fn()(int(x.dtype == torch.bfloat16),
+                             ctypes.byref(args), stage, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"ring backward stage {stage} launch failed: "
+                           f"CUDA error {rc}")
+    return {n: grads[off:off + int(np.prod(shape))].view(shape)
+            for n, (off, shape) in layout.items() if n in keys}
+
+
+def ring_post_bwd(x, av, dout, ops: Mapping, seed, rate: float,
+                  seq_len: int, num_heads: int) -> dict:
+    """The post stage's backward (see :func:`ring_post_bwd_plain`). CPU
+    tensors take the plain version; CUDA tensors launch
+    ``gate_ffn_bwd_kernel`` alone (counted in ``ring_post_bwd.launches``)."""
+    if not _on_card(x, "ring_post_bwd"):
+        return ring_post_bwd_plain(x, av, dout, ops, seed, rate, seq_len,
+                                   num_heads)
+    x, _ = _check(x, ops, None, num_heads, "ring post stage backward", av,
+                  dout)
+    if av.shape != x.shape or dout.shape != x.shape or \
+            av.dtype != x.dtype or dout.dtype != x.dtype:
+        raise ValueError("ring post stage backward: av and dout must match "
+                         "x in shape and dtype")
+    f32 = torch.float32
+    bufs = {n: torch.empty_like(x) for n in ("q", "k", "v", "dav")}
+    bufs.update({n: torch.empty(x.shape, dtype=f32, device=x.device)
+                 for n in ("du", "dy")})
+    out = _launch_bwd_stage(0, x, ops, num_heads, seq_len, seed, rate,
+                            ("w2", "w13", "wo", "bo", "ln"), av=av,
+                            dout=dout, **bufs)
+    ring_post_bwd.launches += 1
+    return dict(out, dav=bufs["dav"], du=bufs["du"], dy=bufs["dy"])
+
+
+ring_post_bwd.launches = 0
+
+
+def ring_pre_bwd(x, ops: Mapping, dq, dk, dv, du, seq_len: int,
+                 num_heads: int) -> dict:
+    """The pre stage's backward (see :func:`ring_pre_bwd_plain`). CPU
+    tensors take the plain version; CUDA tensors launch
+    ``proj_bwd_kernel`` alone with a zero residual (counted in
+    ``ring_pre_bwd.launches``)."""
+    if not _on_card(x, "ring_pre_bwd"):
+        return ring_pre_bwd_plain(x, ops, dq, dk, dv, du, seq_len, num_heads)
+    x, _ = _check(x, ops, None, num_heads, "ring pre stage backward")
+    f32 = torch.float32
+    hd = x.shape[-1] // num_heads
+    ins = {"dq": dq.float() * (hd ** -0.5), "dk": dk.float(),
+           "dv": dv.float(), "du": du.float()}
+    ins = {n: t.contiguous() for n, t in ins.items()}
+    if any(t.shape != x.shape for t in ins.values()):
+        raise ValueError("ring pre stage backward: gradients must match x")
+    dx = torch.empty_like(x)
+    out = _launch_bwd_stage(1, x, ops, num_heads, seq_len, 0, 0.0,
+                            ("ln", "wuvqk", "buvqk"), dx=dx,
+                            dy=torch.zeros(x.shape, dtype=f32,
+                                           device=x.device), **ins)
+    ring_pre_bwd.launches += 1
+    return dict(out, dx=dx)
+
+
+ring_pre_bwd.launches = 0
+
+
+#: the block leaves each ring stage differentiates, in BLOCK_LEAVES' terms
+PRE_LEAVES = BLOCK_LEAVES[0:2] + BLOCK_LEAVES[6:8]
+POST_LEAVES = BLOCK_LEAVES[2:6] + BLOCK_LEAVES[8:12]
+
+
+class RingPreProjFn(torch.autograd.Function):
+    """The pre stage with its kernel backward. ``apply(x, ops, seq_len,
+    num_heads, *leaves)``: ``ops`` the block's :func:`block_operands`
+    (built once per block by the caller), ``leaves`` its
+    :data:`PRE_LEAVES` (f32), which take the stage's weight gradients.
+    Returns (q, k, v, u)."""
+
+    @staticmethod
+    def forward(ctx, x, ops, seq_len, num_heads, *leaves):
+        ctx.save_for_backward(x)
+        ctx.ops, ctx.seq_len, ctx.num_heads = ops, seq_len, num_heads
+        return ring_pre_fwd(x, ops, seq_len, num_heads)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv, du):
+        (x,) = ctx.saved_tensors
+        g = ring_pre_bwd(x, ctx.ops, dq, dk, dv, du, ctx.seq_len,
+                         ctx.num_heads)
+        return (g["dx"], None, None, None, g["ln"][0], g["ln"][1],
+                g["wuvqk"], g["buvqk"])
+
+
+class RingPairAttnFn(torch.autograd.Function):
+    """One pair of the ring with its kernel backward. ``apply(q, k, v,
+    rab, valid, off, num_heads)`` -> the f32 partial; the backward returns
+    dq, dk, dv in the activation dtype and drab in f32 (nothing for a pair
+    wholly in the future)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rab, valid, off, num_heads):
+        ctx.save_for_backward(q, k, v, rab, valid)
+        ctx.off, ctx.num_heads = off, num_heads
+        return ring_pair_fwd(q, k, v, valid, rab, off, num_heads)
+
+    @staticmethod
+    def backward(ctx, dav):
+        q, k, v, rab, valid = ctx.saved_tensors
+        if _future(ctx.off, q.shape[1]):
+            return (None,) * 7
+        dav = dav.to(q.dtype).contiguous()
+        args = (q, k, v, dav, valid, rab, ctx.off, ctx.num_heads)
+        dq, drab = ring_pair_dq(*args)
+        dk, dv = ring_pair_dkdv(*args)
+        cdt = q.dtype
+        return (dq.to(cdt), dk.to(cdt), dv.to(cdt), drab, None, None, None)
+
+
+class RingPostGateFn(torch.autograd.Function):
+    """The post stage with its kernel backward. ``apply(x, av, u, ops,
+    seed, rate, seq_len, num_heads, *leaves)``: ``leaves`` the block's
+    :data:`POST_LEAVES`; dropout at ``rate`` (0: none) from ``seed``.
+    Returns the block's output; the backward gives x the residual path's
+    gradient and av, u theirs (u's recomputed from x)."""
+
+    @staticmethod
+    def forward(ctx, x, av, u, ops, seed, rate, seq_len, num_heads,
+                *leaves):
+        ctx.save_for_backward(x, av, seed if isinstance(seed, torch.Tensor)
+                              else torch.tensor(seed))
+        ctx.ops, ctx.rate = ops, rate
+        ctx.seq_len, ctx.num_heads = seq_len, num_heads
+        return ring_post_fwd(x, av, u, ops, seed, rate)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, av, seed = ctx.saved_tensors
+        g = ring_post_bwd(x, av, dout.contiguous(), ctx.ops, seed, ctx.rate,
+                          ctx.seq_len, ctx.num_heads)
+        ln = g["ln"]
+        return (g["dy"].to(x.dtype), g["dav"], g["du"], None, None, None,
+                None, None, ln[2], ln[3], ln[4], ln[5], g["wo"], g["bo"],
+                g["w13"], g["w2"])

@@ -30,10 +30,13 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
 
 
 def reference_bce_loss(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
-                       loss_mask: torch.Tensor) -> torch.Tensor:
-    """mean BCE(pos, 1) + mean BCE(neg, 0) over masked positions, in f32."""
+                       loss_mask: torch.Tensor,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean BCE(pos, 1) + mean BCE(neg, 0) over masked positions, in f32;
+    with ``count``, the sums divide by it (a data shard's share of the
+    global mean) in place of the masked positions here."""
     m = loss_mask.float()
-    n = torch.clamp(m.sum(), min=1.0)
+    n = torch.clamp(m.sum() if count is None else count, min=1.0)
     pos = pos_logits.float()
     neg = neg_logits.float()
     return ((bce_with_logits(pos, torch.ones_like(pos)) * m).sum() / n

@@ -1,0 +1,226 @@
+"""Device meshes of the port: the (pipe, data, model, seq) axes of the JAX
+package's ``parallel/mesh.py``, for sequence-parallel training.
+
+Two kinds, with one interface that the encoder and the trainer read:
+
+- :class:`ProcessMesh`, :func:`build_mesh`: one process per card, under
+  ``torchrun`` (:func:`initialize_distributed`). Each process holds one
+  (data, seq) shard: the rows of its data index and, inside the encoder, the
+  tokens of its seq index. It keeps a ``torch.distributed`` group per axis.
+  Key/value shards rotate around the seq group by point-to-point sends
+  (:meth:`ProcessMesh.rotate`), and the encoder output gathers along L
+  (:meth:`ProcessMesh.gather_seq`).
+- :class:`LocalMesh`, :func:`local_mesh`: all S seq shards in one process
+  on one device, the counterpart of the JAX tests' virtual CPU devices:
+  rotation is indexing into the list of shards, and autograd sums the
+  key/value gradients itself. The tests and ``chip_smoke.py`` use it; the
+  CLI never builds it.
+
+Only meshes with pipe = model = 1 are built; others raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 5.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..config import MeshConfig
+
+AXES = ("pipe", "data", "model", "seq")
+QUEUE_ITEM = "ROADMAP Queue 1, item 5 (Multi-device layer)"
+
+
+def unported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet: {QUEUE_ITEM}")
+
+
+def _check_axes(cfg: MeshConfig) -> None:
+    if cfg.pipe > 1 or cfg.model > 1:
+        unported(f"a mesh with pipe={cfg.pipe}, model={cfg.model} (tensor "
+                 "and pipeline parallelism)")
+
+
+def initialize_distributed(device: str = "cuda") -> bool:
+    """Join the process group ``torchrun`` describes in the environment
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``): NCCL with one card per process (``LOCAL_RANK``) on
+    ``cuda``, gloo on ``cpu``. Returns False, doing nothing, for a single
+    process."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    if not dist.is_initialized():
+        if device == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                init_method="env://")
+    return True
+
+
+class LocalMesh:
+    """Every seq shard in this process (see the module docstring). Its data
+    axis is 1: the rows all run here."""
+
+    process = False
+
+    def __init__(self, seq: int):
+        self.shape: Dict[str, int] = {"pipe": 1, "data": 1, "model": 1,
+                                      "seq": seq}
+        self.data_index = 0
+
+    @property
+    def seq_indices(self) -> List[int]:
+        return list(range(self.shape["seq"]))
+
+    def seq_shards(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The local shards of ``x`` along L (dim 1)."""
+        return list(x.chunk(self.shape["seq"], dim=1))
+
+    def gather_seq(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(list(shards), dim=1)
+
+    def rotate(self, shards: list) -> list:
+        """One ring step: shard i receives shard i - 1's tensors."""
+        return shards[-1:] + shards[:-1]
+
+
+class ProcessMesh:
+    """This process's place in a (data, seq) mesh of processes, one card
+    each (see the module docstring): ``rank = data_index * seq +
+    seq_index``, as the JAX mesh orders its devices."""
+
+    process = True
+
+    def __init__(self, data: int, seq: int):
+        rank = dist.get_rank()
+        self.shape = {"pipe": 1, "data": data, "model": 1, "seq": seq}
+        self.data_index, self.seq_index = divmod(rank, seq)
+        self.seq_ranks = [self.data_index * seq + s for s in range(seq)]
+        # every process creates every group, in the same order
+        for d in range(data):
+            g = dist.new_group([d * seq + s for s in range(seq)])
+            if d == self.data_index:
+                self.seq_group = g
+        for s in range(seq):
+            g = dist.new_group([d * seq + s for d in range(data)])
+            if s == self.seq_index:
+                self.data_group = g
+
+    @property
+    def seq_indices(self) -> List[int]:
+        return [self.seq_index]
+
+    @property
+    def rank(self) -> int:
+        return self.data_index * self.shape["seq"] + self.seq_index
+
+    def seq_shards(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """This process's shard of ``x`` along L (dim 1), as a list of
+        one."""
+        Lc = x.shape[1] // self.shape["seq"]
+        return [x[:, self.seq_index * Lc:(self.seq_index + 1) * Lc]]
+
+    def gather_seq(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The seq group's shards concatenated along L; the backward keeps
+        this shard's slice of the gradient summed over the group."""
+        (x,) = shards
+        return _GatherSeq.apply(x, self)
+
+    def shift(self, t: torch.Tensor, step: int) -> torch.Tensor:
+        """``t`` sent ``step`` places up the seq ring; the tensor of the
+        process ``step`` places down returned."""
+        S, si = self.shape["seq"], self.seq_index
+        out = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t.contiguous(),
+                          self.seq_ranks[(si + step) % S],
+                          group=self.seq_group),
+               dist.P2POp(dist.irecv, out, self.seq_ranks[(si - step) % S],
+                          group=self.seq_group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+    def rotate(self, shards: list) -> list:
+        """One ring step: this shard receives the previous seq rank's
+        tensors; a tensor that requires a gradient sends it back the other
+        way in the backward, as ``ppermute``'s transpose does."""
+        (ts,) = shards
+        return [tuple(_Shift.apply(t, self) if t.requires_grad
+                      else self.shift(t, 1) for t in ts)]
+
+    def all_reduce(self, t: torch.Tensor, group: str = "world"
+                   ) -> torch.Tensor:
+        """Sum ``t`` in place over the world, the data or the seq group."""
+        dist.all_reduce(t, group={"world": None, "data": self.data_group,
+                                  "seq": self.seq_group}[group])
+        return t
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.shift(t, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.shift(g.contiguous(), -1), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        parts = [torch.empty_like(x) for _ in range(mesh.shape["seq"])]
+        dist.all_gather(parts, x.contiguous(), group=mesh.seq_group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a reduce-scatter, as an all-reduce and this shard's slice (gloo
+        # has no reduce-scatter)
+        mesh = ctx.mesh
+        g = mesh.all_reduce(g.contiguous(), "seq")
+        return mesh.seq_shards(g)[0].contiguous(), None
+
+
+def build_mesh(cfg: MeshConfig = MeshConfig()) -> ProcessMesh:
+    """The process mesh over the initialised process group: seq = cfg.seq,
+    and every leftover process folds into data, as the JAX ``build_mesh``
+    folds leftover devices."""
+    _check_axes(cfg)
+    n = dist.get_world_size()
+    if n % cfg.seq:
+        raise ValueError(f"{n} processes are not divisible by seq="
+                         f"{cfg.seq}")
+    return ProcessMesh(n // cfg.seq, cfg.seq)
+
+
+def local_mesh(cfg: MeshConfig = MeshConfig()) -> LocalMesh:
+    """A mesh of cfg.seq shards in this process on one device (its data
+    axis folds to 1). With dropout on, its unfused "ring" route draws
+    whole-sequence masks where a process mesh draws per-shard ones, so the
+    two agree there only with dropout off; the fused ring folds the shard
+    seeds on both."""
+    _check_axes(cfg)
+    return LocalMesh(cfg.seq)
+
+
+def host_batch_slice(global_batch: int, mesh=None) -> slice:
+    """The rows of a global batch that this process trains: its data
+    index's share (all of them without a process mesh)."""
+    if mesh is None or not mesh.process:
+        return slice(0, global_batch)
+    dp = mesh.shape["data"]
+    if global_batch % dp:
+        raise ValueError(f"batch {global_batch} is not divisible by data="
+                         f"{dp}")
+    per = global_batch // dp
+    return slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+
+
+def seq_size(mesh: Optional[object]) -> int:
+    return 1 if mesh is None else mesh.shape.get("seq", 1)

@@ -15,10 +15,17 @@ a plain function; the train state is updated in place (the JAX package's is
 immutable and donated), which keeps one copy of the parameters and
 optimizer state.
 
+A ``seq`` mesh (``parallel/mesh``) trains the encoder sequence-parallel:
+on a local mesh in one process; on a process mesh (one process per card,
+under ``torchrun``) each process takes its data index's rows, the loss is
+normalised by the global count of masked positions, and the gradients are
+summed over every process, so each holds the single-device gradient of the
+global batch and the replicated parameters stay equal.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: an explicit mesh (a preset's ``cfg.mesh`` trains single-device, as
-the JAX CLI falls back), ``grad_accum_steps > 1``, and the SIGTERM /
-preemption checkpoint with its mid-epoch resume.
+item: any other mesh (a preset's ``cfg.mesh`` in one process trains
+single-device, as the JAX CLI falls back), ``grad_accum_steps > 1``, and the
+SIGTERM / preemption checkpoint with its mid-epoch resume.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from ..data.pipeline import prefetch
 from ..models.baseline import SeqRecModel
 from ..ops import losses as LS
 from ..ops import sparse_table as ST
+from ..parallel.mesh import host_batch_slice, seq_size
+from ..parallel.mesh import unported as mesh_unported
 from . import telemetry as T
 
 
@@ -49,11 +58,28 @@ def _unported(what: str, item: str):
 
 def check_supported(cfg: Config, mesh=None) -> None:
     """Raise on the training options the port does not cover yet. A
-    preset's ``cfg.mesh`` is not one of them: the port trains it on one
-    device, as the JAX CLI does where the devices are missing."""
+    preset's ``cfg.mesh`` is not one of them: in one process the port
+    trains it on one device, as the JAX CLI does where the devices are
+    missing. A ``mesh`` must have a seq axis above 1, pipe = model = 1,
+    dense tables and the BCE loss (the sampled softmax's in-batch negatives
+    span the global batch); anything else raises ``NotImplementedError``
+    naming ROADMAP Queue 1 item 5."""
     t = cfg.train
     if mesh is not None:
-        _unported("training on a device mesh", "Multi-device layer")
+        shape = getattr(mesh, "shape", None)
+        if shape is None:
+            mesh_unported(f"training on the device mesh {mesh!r}")
+        if shape.get("pipe", 1) > 1 or shape.get("model", 1) > 1:
+            mesh_unported(f"training on a mesh with pipe or model > 1 "
+                          f"({dict(shape)})")
+        if seq_size(mesh) < 2:
+            mesh_unported(f"training on a mesh without a seq axis "
+                          f"({dict(shape)}: data parallelism alone)")
+        if t.sparse_tables:
+            mesh_unported("sparse tables on a device mesh")
+        if t.loss_type == "sampled_softmax":
+            mesh_unported("the sampled softmax on a device mesh (its "
+                          "in-batch negatives span the global batch)")
     if not set(t.sparse_tables) <= {"item_emb", "user_emb"}:
         raise ValueError("train.sparse_tables takes subsets of (item_emb, "
                          f"user_emb), not {t.sparse_tables}")
@@ -158,35 +184,76 @@ def put_batch(batch: Mapping, device) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device,
+                   shard: Optional[int] = None) -> torch.Generator:
     """The step's randomness: a generator on the device seeded from
     (seed + 1, step), as the JAX step folds the step into its key, so a run
-    is reproducible step by step."""
+    is reproducible step by step; a data shard's index, where given, folds
+    in too (its rows draw their own masks)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(np.random.SeedSequence(
-        [seed + 1, step]).generate_state(1, np.uint64)[0] >> 1))
+        [seed + 1, step] + ([] if shard is None else [shard]))
+        .generate_state(1, np.uint64)[0] >> 1))
     return gen
+
+
+def shard_batch(batch: Mapping, mesh=None) -> Dict[str, Any]:
+    """This process's rows of a global batch (:func:`parallel.mesh.
+    host_batch_slice`): every tensor whose first axis is the batch's; the
+    batch itself without a process mesh."""
+    if mesh is None or not mesh.process:
+        return batch
+    B = batch["seq"].shape[0]
+    rows = host_batch_slice(B, mesh)
+    return {k: v[rows] if isinstance(v, torch.Tensor) and v.dim() > 0
+            and v.shape[0] == B else v for k, v in batch.items()}
+
+
+def _data_shard(mesh) -> Optional[int]:
+    """The data index that folds into the step generator: on a process
+    mesh with data > 1 only."""
+    if mesh is None or not mesh.process or mesh.shape["data"] == 1:
+        return None
+    return mesh.data_index
 
 
 def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
                  cfg: Config, train: bool,
-                 gen: Optional[torch.Generator] = None
+                 gen: Optional[torch.Generator] = None, mesh=None
                  ) -> Tuple[torch.Tensor, Dict]:
     """``train.loss_type`` "sampled_softmax": :func:`_sampled_softmax`;
     otherwise the reference BCE over next-item positions, plus the L2
     penalty on the item table when ``l2_emb`` > 0. ``params`` may hold
-    :class:`ops.sparse_table.GatheredRows` tables."""
+    :class:`ops.sparse_table.GatheredRows` tables. The encoder runs on
+    ``mesh``. On a process mesh ``batch`` holds this process's rows: the
+    BCE divides by the global count of masked positions, the metrics hold
+    the global loss, and the loss returned is this process's share, whose
+    gradients summed over every process are the global loss's."""
     if cfg.train.loss_type == "sampled_softmax":
         return _sampled_softmax(model, params, batch, mm_tables,
                                 item_tables, cfg, train, gen)
     pos_logits, neg_logits, loss_mask = model.logits(
-        params, batch, mm_tables, item_tables, train=train, gen=gen)
-    bce = LS.reference_bce_loss(pos_logits, neg_logits, loss_mask)
-    loss = bce
-    if cfg.train.l2_emb > 0.0:
-        loss = loss + LS.l2_emb_penalty(params["item_emb"], cfg.train.l2_emb)
-    return loss, {"loss": loss.detach(), "bce": bce.detach(),
-                  "n_mask": loss_mask.sum().float()}
+        params, batch, mm_tables, item_tables, train=train, gen=gen,
+        mesh=mesh)
+    n_mask = loss_mask.sum().float()
+    proc = mesh is not None and mesh.process
+    if proc:
+        n_mask = mesh.all_reduce(n_mask, "data")
+    bce = LS.reference_bce_loss(pos_logits, neg_logits, loss_mask,
+                                count=n_mask if proc else None)
+    l2 = LS.l2_emb_penalty(params["item_emb"], cfg.train.l2_emb) \
+        if cfg.train.l2_emb > 0.0 else None
+    loss = bce if l2 is None else bce + l2
+    if not proc:
+        return loss, {"loss": loss.detach(), "bce": bce.detach(),
+                      "n_mask": n_mask}
+    # every seq rank computes its rows' loss in full; each data rank adds
+    # its rows' share, the penalty once
+    S, dp = mesh.shape["seq"], mesh.shape["data"]
+    bce_all = mesh.all_reduce(bce.detach().clone(), "data")
+    total = bce_all if l2 is None else bce_all + l2.detach()
+    share = (bce if l2 is None else bce + l2 / dp) / S
+    return share, {"loss": total, "bce": bce_all, "n_mask": n_mask}
 
 
 def _sampled_softmax(model: SeqRecModel, params, batch, mm_tables,
@@ -352,18 +419,20 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
         raise ValueError(
             "tables at packed scale (>=30M rows) must train sparsely: set "
             "train.sparse_tables=('item_emb',) or pack_big_tables=False")
+    proc = mesh is not None and mesh.process
 
     def step_fn(state: TrainState, batch, mm_tables, item_tables):
         dev = next(iter(_flatten(state.params).values())).device
-        gen = step_generator(t.seed, state.step, dev)
+        gen = step_generator(t.seed, state.step, dev, _data_shard(mesh))
         state.opt.zero_grad(set_to_none=True)
         if sparse:
             _, metrics, per = sparse_loss_backward(
                 model, cfg, state, batch, mm_tables, item_tables, gen)
         else:
-            loss, metrics = compute_loss(model, state.params, batch,
+            loss, metrics = compute_loss(model, state.params,
+                                         shard_batch(batch, mesh),
                                          mm_tables, item_tables, cfg,
-                                         train=True, gen=gen)
+                                         train=True, gen=gen, mesh=mesh)
             loss.backward()
         leaves = [p for _, p in dense_leaves(state.params, cfg)]
         for p in leaves:
@@ -372,6 +441,13 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in leaves]
+        if proc:
+            # one all-reduce of every gradient: the global batch's sum
+            flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+            off = 0
+            for g in grads:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
         for group in state.opt.param_groups:
             group["lr"] = lr_at_step(t, state.step)
         state.opt.step()
@@ -401,11 +477,12 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
     return step_fn
 
 
-def make_eval_step(model: SeqRecModel, cfg: Config):
+def make_eval_step(model: SeqRecModel, cfg: Config, mesh=None):
     @torch.no_grad()
     def step_fn(params, batch, mm_tables, item_tables):
-        return compute_loss(model, params, batch, mm_tables, item_tables, cfg,
-                            train=False)[1]
+        return compute_loss(model, params, shard_batch(batch, mesh),
+                            mm_tables, item_tables, cfg, train=False,
+                            mesh=mesh)[1]
 
     return step_fn
 
@@ -701,7 +778,11 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     ``profile_steps`` > 0 traces steps ``profile_start`` ..
     ``profile_start + profile_steps - 1`` with ``torch.profiler`` into
     ``profile_dir/trace.json``. The loop installs no SIGTERM handler:
-    preemption checkpoints are not ported yet."""
+    preemption checkpoints are not ported yet.
+
+    With a ``mesh`` the steps run on it (see :func:`make_train_step`); on a
+    process mesh every process runs the loop on the same global batches,
+    and only rank 0 logs, evaluates retrieval and writes checkpoints."""
     from .checkpoint import save_checkpoint
 
     if skip_steps:
@@ -711,7 +792,12 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     if state is None:
         state = init_state(model, cfg, device=device)
     train_step = make_train_step(model, cfg, mesh)
-    eval_step = make_eval_step(model, cfg)
+    eval_step = make_eval_step(model, cfg, mesh)
+    if mesh is not None and mesh.process and mesh.rank != 0:
+        log_dir = tb_dir = ckpt_dir = None
+        verbose = False
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, eval_retrieval_users=0))
     tables = device_tables(item_tables, device)
     mm_tables = tables["mm"]
 
@@ -735,7 +821,13 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
             model, tables, mm_tables, put,
             max_users=cfg.train.eval_retrieval_users)
 
-    dedup_on = cfg.train.tower_dedup
+    # the dedup plan indexes whole rows of one process's batch: not under a
+    # seq mesh or several processes (JAX train/trainer.py:1070-1080)
+    dedup_on = cfg.train.tower_dedup and mesh is None
+    if cfg.train.tower_dedup and not dedup_on and verbose:
+        print("WARNING: train.tower_dedup needs a single-process mesh "
+              "without seq/pipe sharding (model>1 only with sparse "
+              "item_emb) — disabled for this run")
     sparse = bool(cfg.train.sparse_tables)
     # a touched row read by the gather and written back, in the table dtype
     row_bytes = cfg.model.hidden_units * \

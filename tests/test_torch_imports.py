@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
                 "data.pipeline", "cli.train", "train.trainer",
                 "train.telemetry", "ops.losses", "ops.sparse_table",
                 "ops.flash_attention", "ops.hstu_attention",
-                "models.attention", "models.encoder", "models.hstu"):
+                "models.attention", "models.encoder", "models.hstu",
+                "parallel.mesh", "parallel.ring_fused",
+                "parallel.ring_attention"):
         assert f"{PORT}.{mod}" in imported, mod
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad

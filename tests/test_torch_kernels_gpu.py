@@ -368,3 +368,72 @@ def test_group_scatter_apply_launches_kernel_per_chunk_on_card(monkeypatch):
     torch.cuda.synchronize()
     assert ST.group_scatter.launches == n + 2
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off", [0, 256, -256, 768])
+@pytest.mark.parametrize("D,H", [(64, 1), (64, 4), (32, 4)])
+def test_ring_pair_kernels_match_plain_on_card(D, H, off):
+    """Rows 10-12: the pair forward, dq (with drab) and dk/dv kernels of
+    csrc/ring_pair.cu, in f32, at every offset kind (the same shard, a past
+    one, a future one: no launch, a far past one); hd 8 takes the FMA
+    products."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(D + H + off + 1000)
+    B, L = 2, 256
+
+    def t(shape, s=0.5):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * s).astype(np.float32)).cuda()
+
+    q, k, v, dav = t((B, L, D)), t((B, L, D)), t((B, L, D)), t((B, L, D), 1)
+    rab = t((H, 128), 0.1)
+    valid = torch.ones((B, L), dtype=torch.int32, device="cuda")
+    valid[0, :37] = 0
+    counts = [fn.launches for fn in (FB.ring_pair_fwd, FB.ring_pair_dq,
+                                     FB.ring_pair_dkdv)]
+    out = FB.ring_pair_fwd(q, k, v, valid, rab, off, H)
+    dq, drab = FB.ring_pair_dq(q, k, v, dav, valid, rab, off, H)
+    dk, dv = FB.ring_pair_dkdv(q, k, v, dav, valid, rab, off, H)
+    torch.cuda.synchronize()
+    launched = off + L > 0
+    assert [fn.launches for fn in (FB.ring_pair_fwd, FB.ring_pair_dq,
+                                   FB.ring_pair_dkdv)] == \
+        [c + launched for c in counts]
+    ref = FB.ring_pair_fwd_plain(q, k, v, valid, rab, off, H)
+    rdq, rdrab = FB.ring_pair_dq_plain(q, k, v, dav, valid, rab, off, H)
+    rdk, rdv = FB.ring_pair_dkdv_plain(q, k, v, dav, valid, rab, off, H)
+    for got, want, what in ((out, ref, "av"), (dq, rdq, "dq"),
+                            (drab, rdrab, "drab"), (dk, rdk, "dk"),
+                            (dv, rdv, "dv")):
+        _close(got, want, what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_ring_stage_kernels_match_plain_on_card(rate):
+    """The ring's pre and post stages and their backwards, each a launch of
+    its own, in f32 (a shard of 256 tokens of a 1024-token sequence)."""
+    _cuda_or_skip()
+    bp, x, _ = _block(2, 256, 64, 1, torch.float32, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    L = 1024
+    q, k, v, u = FB.ring_pre_fwd(x, bp, L, 1)
+    for got, want, what in zip((q, k, v, u),
+                               FB.ring_pre_fwd_plain(x, bp, L, 1),
+                               ("q", "k", "v", "u")):
+        _close(got, want, what)
+    av = torch.randn(x.shape, generator=g, device="cuda") * 0.05
+    out = FB.ring_post_fwd(x, av, u, bp, 77, rate)
+    _close(out, FB.ring_post_fwd_plain(x, av, u, bp, 77, rate), "post")
+    dout = torch.randn(x.shape, generator=g, device="cuda")
+    got = FB.ring_post_bwd(x, av, dout, bp, 77, rate, L, 1)
+    want = FB.ring_post_bwd_plain(x, av, dout, bp, 77, rate, L, 1)
+    for name in want:
+        _close(got[name], want[name], f"post bwd {name}")
+    cots = [torch.randn(x.shape, generator=g, device="cuda")
+            for _ in range(4)]
+    got = FB.ring_pre_bwd(x, bp, *cots, L, 1)
+    want = FB.ring_pre_bwd_plain(x, bp, *cots, L, 1)
+    for name in want:
+        _close(got[name], want[name], f"pre bwd {name}")

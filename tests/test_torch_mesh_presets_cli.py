@@ -96,3 +96,56 @@ def test_single_device_warning(present):
     assert text.startswith("WARNING: preset wants 8 devices")
     assert text.endswith("— training single-device")
     assert (f"but only {present} present" in text) == (present < 8)
+
+
+class _ProcessMesh:
+    """A stand-in for parallel.mesh.ProcessMesh: several processes."""
+
+    process = True
+    rank = data_index = 0
+
+    def __init__(self, **shape):
+        self.shape = dict({"pipe": 1, "data": 1, "model": 1, "seq": 1},
+                          **shape)
+
+
+_REFUSED = {
+    "data-only mesh": ("hstu_flagship", dict(data=2)),
+    "pipe > 1": ("hstu_flagship", dict(pipe=2, seq=2)),
+    "model > 1": ("hstu_flagship", dict(model=2, seq=2)),
+    "sparse tables": ("sharded_multihost", dict(seq=2)),
+    "sampled softmax": ("sampled_softmax_dp", dict(seq=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSED))
+def test_process_mesh_refuses_what_it_does_not_cover(case):
+    """Under several processes a mesh without a seq axis, pipe or model >
+    1, sparse tables and the sampled softmax raise, naming ROADMAP Queue 1
+    item 5, rather than training each process on its own."""
+    preset, shape = _REFUSED[case]
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+        TTR.check_supported(PRESETS[preset](), mesh=_ProcessMesh(**shape))
+
+
+def test_process_mesh_covers_seq_with_data():
+    TTR.check_supported(PRESETS["hstu_flagship"](),
+                        mesh=_ProcessMesh(data=2, seq=2))
+
+
+def test_cli_under_several_processes_refuses_a_data_only_mesh(
+        synth_dir, tmp_path, monkeypatch):
+    """cli.train with WORLD_SIZE > 1 forms the process mesh before the
+    model (mocked here: no process group) and raises for a data-only
+    preset."""
+    from tencent_recommendation_2025_tpu_torch.parallel import mesh as PM
+
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    monkeypatch.setattr(PM, "initialize_distributed", lambda device: True)
+    monkeypatch.setattr(PM, "build_mesh",
+                        lambda cfg: _ProcessMesh(data=cfg.data))
+    monkeypatch.setenv("TRAIN_DATA_PATH", str(synth_dir))
+    monkeypatch.setenv("TRAIN_CKPT_PATH", str(tmp_path / "ckpt"))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+        TTRAIN.main(["--preset", "sampled_softmax_dp", *SMALL])
+    assert not (tmp_path / "ckpt").exists()
