@@ -28,9 +28,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                at L = 2048, 4096 and 16384 and with 1000 buckets), both at
                hd 8 and hd 128, forward and backward in f32 and bf16, each
                call on its route's launch counters, fully masked rows and
-               padded keys exactly 0, and their times at the runs' shapes
-               (hstu_mini at B=32, L=4096 for the chunked route) beside the
-               plain versions', their bounds and, for flash MHA,
+               padded keys exactly 0 (flash MHA also at hd 16 with L=1024,
+               hd 24, hd 256, L=384 and hd 9, its row stats held to the
+               plain version's), and their times at the runs' shapes
+               (hstu_mini at B=32, L=4096 for the chunked route; CUDA
+               events, and the kernels' device time by the profiler)
+               beside the plain versions', their bounds and, for flash MHA,
                scaled_dot_product_attention's; then the group scatter and
                group gather of a sparse-trained table (a 16M x 64 table, 1M
                groups, in f32 and bf16; 196,608 slots, 190,000 real groups
@@ -177,8 +180,9 @@ KERNEL_NAMES = {
     "fused": (("proj_kernel", "attn_ffn_kernel"),
               ("gate_ffn_bwd_kernel", "attn_dkdv_kernel", "attn_dq_kernel",
                "proj_bwd_kernel", "reduce_rows_kernel")),
-    "flash": (("flash_fwd_kernel",),
-              ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
+    "flash": (("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
+              ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+               "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
     "hstu": (("hstu_fwd_kernel",),
              ("hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
               "reduce_rows_kernel")),
@@ -732,32 +736,53 @@ def attention_inputs(B, L, D, H, dtype, seed, NB=128):
 
 def _attn_fns(kind, valid, rab, L, H):
     """(kernel forward, kernel backward, plain forward, plain backward) of
-    one attention core, each on (q, k, v[, dout])."""
+    one attention core: each forward on (q, k, v) gives (out, aux), each
+    backward on (q, k, v, dout, aux) the gradients. aux is flash MHA's row
+    stats (the forward's softmax max and sum, which its backward takes),
+    None for the HSTU attention."""
     from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
     from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
 
-    if kind == "hstu_chunk":
-        return (lambda q, k, v: HA.hstu_attention_chunk_fwd(
-                    q, k, v, valid, rab, L, H),
-                lambda q, k, v, d: HA.hstu_attention_chunk_bwd(
-                    q, k, v, d, valid, rab, L, H),
-                lambda q, k, v: HA.hstu_attention_fwd_plain(q, k, v, valid,
-                                                            rab, L, H),
-                lambda q, k, v, d: HA.hstu_attention_bwd_plain(
-                    q, k, v, d, valid, rab, L, H))
     if kind == "flash":
-        return (lambda q, k, v: FA.flash_mha_fwd(q, k, v, valid, H),
-                lambda q, k, v, d: FA.flash_mha_bwd(q, k, v, d, valid, H),
-                lambda q, k, v: FA.flash_mha_fwd_plain(q, k, v, valid, H),
-                lambda q, k, v, d: FA.flash_mha_bwd_plain(q, k, v, d, valid,
-                                                          H))
-    return (lambda q, k, v: HA.hstu_attention_fwd(q, k, v, valid, rab, L, H),
-            lambda q, k, v, d: HA.hstu_attention_bwd(q, k, v, d, valid, rab,
-                                                     L, H),
-            lambda q, k, v: HA.hstu_attention_fwd_plain(q, k, v, valid, rab,
-                                                        L, H),
-            lambda q, k, v, d: HA.hstu_attention_bwd_plain(q, k, v, d, valid,
-                                                           rab, L, H))
+        return (lambda q, k, v: FA.flash_mha_fwd(q, k, v, valid, H,
+                                                 return_stats=True),
+                lambda q, k, v, d, st: FA.flash_mha_bwd(q, k, v, d, valid, H,
+                                                        st),
+                lambda q, k, v: FA.flash_mha_fwd_plain(q, k, v, valid, H,
+                                                       return_stats=True),
+                lambda q, k, v, d, st: FA.flash_mha_bwd_plain(
+                    q, k, v, d, valid, H, st))
+    if kind == "hstu_chunk":
+        fwd, bwd = HA.hstu_attention_chunk_fwd, HA.hstu_attention_chunk_bwd
+    else:
+        fwd, bwd = HA.hstu_attention_fwd, HA.hstu_attention_bwd
+    return (lambda q, k, v: (fwd(q, k, v, valid, rab, L, H), None),
+            lambda q, k, v, d, _: bwd(q, k, v, d, valid, rab, L, H),
+            lambda q, k, v: (HA.hstu_attention_fwd_plain(q, k, v, valid, rab,
+                                                         L, H), None),
+            lambda q, k, v, d, _: HA.hstu_attention_bwd_plain(
+                q, k, v, d, valid, rab, L, H))
+
+
+def compare_stats(st, ref):
+    """(ok, text) of flash MHA's row stats against the plain version's: on
+    rows with no visible key the max is exactly finfo(f32).min and the sum
+    exactly 0 in both; elsewhere the max within 1e-4 * max(1, |max|) and
+    the sum within 1e-4 * sum (f32 sums of the same scores in another
+    order)."""
+    import torch
+
+    m, z, rm, rz = st[0], st[1], ref[0], ref[1]
+    dead = rz == 0
+    exact = bool((z[dead] == 0).all() and (m[dead] == rm[dead]).all()
+                 and (rm[dead] == torch.finfo(torch.float32).min).all())
+    live = ~dead
+    em = ((m - rm).abs() / rm.abs().clamp(min=1.0))[live].max().item()
+    ez = ((z - rz).abs() / rz)[live].max().item()
+    ok = exact and em <= 1e-4 and ez <= 1e-4
+    return ok, (f"stats: max rel err {em:.3g}, sum rel err {ez:.3g} (limit "
+                f"1e-4), {int(dead.sum())} rows with no visible key exact "
+                f"{exact}")
 
 
 def compare_attn(out, ref, dtype):
@@ -792,9 +817,9 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
     q, k, v, dout, valid, rab = attention_inputs(B, L, D, H, dt, seed, NB)
     fwd, bwd, fwd_p, bwd_p = _attn_fns(kind, valid, rab, L, H)
     before = read_launches()
-    out = fwd(q, k, v)
+    out, aux = fwd(q, k, v)
     torch.cuda.synchronize()
-    got = bwd(q, k, v, dout)
+    got = bwd(q, k, v, dout, aux)
     torch.cuda.synchronize()
     after = read_launches()
     # the wrappers' counters: one launch each way, on the route's own
@@ -807,9 +832,14 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
         route = "hstu_chunk" if HA._use_long(L, D) else "hstu"
     ok_route = {k_: after[k_] - before[k_] for k_ in after} == dict(
         dict.fromkeys(after, 0), **{f"{route}_fwd": 1, f"{route}_bwd": 1})
-    ok_f, e_f, lim_f = compare_attn(out, fwd_p(q, k, v), dt)
+    ref, ref_aux = fwd_p(q, k, v)
+    ok_f, e_f, lim_f = compare_attn(out, ref, dt)
     ok_f &= ok_route
-    want = bwd_p(q, k, v, dout)
+    if aux is not None:   # flash MHA's row stats
+        ok_s, lim_s = compare_stats(aux, ref_aux)
+        ok_f &= ok_s
+        lim_f += "; " + lim_s
+    want = bwd_p(q, k, v, dout, ref_aux)
     torch.cuda.synchronize()
     names = ("dq", "dk", "dv", "drab")
     ok_b, worst, parts = True, (None, 0.0), []
@@ -834,7 +864,7 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
         f"backward largest error {worst[1]:.6g} ({worst[0]})"
         + (f", failing: {'; '.join(parts)}" if parts else "")
         + f"; {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
-    del q, k, v, dout, out, got, want
+    del q, k, v, dout, out, got, want, aux, ref_aux
     _free()
     return ok
 
@@ -845,9 +875,13 @@ def phase_attention_kernels():
     (H=4) and L=1024 (H=1); HSTU attention at L=256 and 1024 with H=4 and
     H=1 and buckets 128 and 300; the chunked HSTU route (past _use_long) at
     L = 2048, 4096 and 16384 (hstu_mini's D=64, H=4) and with 1000 buckets
-    (H=1: the JAX package's 256 tile); both cores at hd 8 (D=32, H=4: FMA
-    products) and hd 128 (D=128, H=1: cut tiles); f32 (tight) and bf16.
-    Each call is held to its own route's counters."""
+    (H=1: the JAX package's 256 tile); both cores at hd 8 (D=32, H=4) and
+    hd 128 (D=128, H=1); flash MHA also at hd 16 with L=1024 (D=64, H=4),
+    hd 24 (D=96, H=4, L=512: a head padded to 32 columns), hd 256 (D=256,
+    H=1, L=256: the first kernels' bf16 path), L=384 (D=64, H=1: six
+    tiles) and hd 9 (D=36, H=4: an odd head, copied through registers),
+    its kernel's row stats held to the plain version's; f32 (tight) and
+    bf16. Each call is held to its own route's counters."""
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -857,7 +891,10 @@ def phase_attention_kernels():
              ("hstu", 2, 2048, 64, 4, 128), ("hstu", 2, 4096, 64, 4, 128),
              ("hstu", 1, 16384, 64, 4, 128), ("hstu", 2, 2048, 64, 1, 1000),
              ("flash", 4, 256, 32, 4, 128), ("flash", 2, 512, 128, 1, 128),
-             ("hstu", 4, 256, 32, 4, 128), ("hstu", 2, 512, 128, 1, 128)]
+             ("hstu", 4, 256, 32, 4, 128), ("hstu", 2, 512, 128, 1, 128),
+             ("flash", 4, 1024, 64, 4, 128), ("flash", 4, 512, 96, 4, 128),
+             ("flash", 4, 256, 256, 1, 128), ("flash", 4, 384, 64, 1, 128),
+             ("flash", 4, 256, 36, 4, 128)]
     ok = True
     for i, (kind, B, L, D, H, NB) in enumerate(cases):
         for dt in (f32, bf16):
@@ -933,6 +970,25 @@ def sdpa_ms(q, k, v, dout, valid, H):
     return fwd, bwd
 
 
+def kernel_device_ms(fn, names, iters=10):
+    """Device ms per call of the kernels whose names contain one of
+    ``names``, from a torch.profiler trace of ``iters`` calls of ``fn``
+    after one: the kernels alone, without the wrapper's host time that a
+    short call's CUDA-event reading includes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(v for k, v in _device_ms(prof).items()
+               if any(n in k for n in names)) / iters
+
+
 def phase_attention_times():
     """At each main-path shape, in bf16: forward and backward kernels against
     their plain versions, then timed (CUDA events) beside them, their
@@ -948,9 +1004,15 @@ def phase_attention_times():
         _free()
         q, k, v, dout, valid, rab = attention_inputs(B, L, D, H, bf16, 50)
         fwd, bwd, fwd_p, bwd_p = _attn_fns(kind, valid, rab, L, H)
-        ok, err_f, _ = compare_attn(fwd(q, k, v), fwd_p(q, k, v), bf16)
+        # flash MHA's backward takes the stats of a forward made once, here,
+        # outside its timed window (as SDPA's timed backward its graph)
+        out, aux = fwd(q, k, v)
+        ref, ref_aux = fwd_p(q, k, v)
+        ok, err_f, _ = compare_attn(out, ref, bf16)
+        del out, ref
         err_b = 0.0
-        for g, w in zip(bwd(q, k, v, dout), bwd_p(q, k, v, dout)):
+        for g, w in zip(bwd(q, k, v, dout, aux),
+                        bwd_p(q, k, v, dout, ref_aux)):
             okg, eg, _ = compare_grad(g, w, bf16)
             ok &= okg
             err_b = max(err_b, eg)
@@ -958,12 +1020,16 @@ def phase_attention_times():
         long_ = L * D > 1024 * 64
         t = {"fwd": time_ms(lambda: fwd(q, k, v), 2 if long_ else 3,
                             5 if long_ else 20),
-             "bwd": time_ms(lambda: bwd(q, k, v, dout), 2 if long_ else 3,
-                            5 if long_ else 20)}
+             "bwd": time_ms(lambda: bwd(q, k, v, dout, aux),
+                            2 if long_ else 3, 5 if long_ else 20)}
+        names = KERNEL_NAMES[kind]
+        dev = {"fwd": kernel_device_ms(lambda: fwd(q, k, v), names[0]),
+               "bwd": kernel_device_ms(lambda: bwd(q, k, v, dout, aux),
+                                       names[1])}
         _free()
         plain = {"fwd": time_ms(lambda: fwd_p(q, k, v), 1, 1 if long_ else 3)}
         _free()
-        plain["bwd"] = time_ms(lambda: bwd_p(q, k, v, dout), 1,
+        plain["bwd"] = time_ms(lambda: bwd_p(q, k, v, dout, ref_aux), 1,
                                1 if long_ else 3)
         _free()
         lib = sdpa_ms(q, k, v, dout, valid, H) if kind == "flash" \
@@ -976,7 +1042,8 @@ def phase_attention_times():
                 kind, B, L, D, H, 2, key == "bwd")
             log(f"{name}_{key} ({run or 'no run'}: B={B} L={L} D={D} H={H} "
                 f"hd={D // H}): kernel "
-                f"{t[key]:.4f} ms, plain {plain[key]:.4f} ms, bound "
+                f"{t[key]:.4f} ms (device {dev[key]:.4f} ms by the "
+                f"profiler), plain {plain[key]:.4f} ms, bound "
                 f"{bound:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB), library "
                 + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
@@ -991,7 +1058,7 @@ def phase_attention_times():
                 "max_abs_err": err, "ms": t[key], "plain_ms": plain[key],
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}))
         ok_all &= ok
-        del q, k, v, dout, valid, rab
+        del q, k, v, dout, valid, rab, aux, ref_aux
         _free()
     return ok_all, entries
 
@@ -2564,10 +2631,11 @@ def main() -> int:
     report = kernels.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(sorted(report)) or 'already built'})")
-    for name, r in report.items():
-        regs = [ln.strip() for ln in r["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"  {name}: " + " | ".join(regs))
+    for name, r in report.items():   # -Xptxas -v: registers and spills
+        log(f"  {name}: " + "; ".join(
+            f"{k['kernel']} {k['registers']} registers, spills "
+            f"{k['spill_stores']}/{k['spill_loads']} B"
+            for k in kernels.ptxas_report(r["log"])))
 
     oks = {}
     t0 = time.perf_counter()

@@ -2,10 +2,12 @@
 // sm_90a: forward and backward.
 //
 // Replaces tencent_recommendation_2025_tpu/ops/flash_attention.py::
-// _fwd_kernel (l.50) with flash_fwd_kernel, and ::_bwd_kernel (l.81) with
-// flash_bwd_dq_kernel and flash_bwd_dkdv_kernel. Per batch row and head h,
-// with q, k, v, dout [B, L, D] head-packed (D = H * hd) in the compute
-// dtype T (bf16 on the product path, f32 in the checks):
+// _fwd_kernel (l.50) with flash_fwd_wgmma_kernel (flash_fwd_kernel for f32
+// and wide heads), and ::_bwd_kernel (l.81) with flash_bwd_dq_wgmma_kernel
+// and flash_bwd_dkdv_wgmma_kernel (flash_bwd_dq_kernel and
+// flash_bwd_dkdv_kernel). Per batch row and head h, with q, k, v, dout
+// [B, L, D] head-packed (D = H * hd) in the compute dtype T (bf16 on the
+// product path, f32 in the checks):
 //
 //   qs = T(q_h * hd^-1/2)                      (rounded before q.k^T)
 //   s  = qs k_h^T                              f32 accumulation
@@ -13,44 +15,68 @@
 //        a query row with no valid key gives p = 0, hence out = 0
 //   out_h = T(p) v_h                           f32 accumulation, out in T
 //
-//   backward (p recomputed in f32): dv = T(p)^T do; dp = do v^T;
-//   delta = rowsum(dp * p); ds = T(p * (dp - delta)); dq = ds k * hd^-1/2;
-//   dk = ds^T qs; dq, dk, dv in T.
+//   backward (p recomputed in f32 from the forward's max and sum): dv =
+//   T(p)^T do; dp = do v^T; delta = rowsum(dp * p); ds = T(p * (dp -
+//   delta)); dq = ds k * hd^-1/2; dk = ds^T qs; dq, dk, dv in T.
 //
 // These are the TPU kernel's rounding points. A streaming (online) softmax
 // would round the unnormalised exp before p.v; instead every query tile
 // first walks its key tiles for the row max and sum (the sum rescaled as
 // the max grows), then walks them again with p normalised before it is
-// rounded. The backward takes delta = rowsum(dp * p) as the TPU kernel
-// does, not rowsum(do * out), which equals it only in exact arithmetic.
+// rounded. The forward writes each row's max and sum (stats [2, B, H, L]
+// f32; max = finfo(f32).min and sum = 0 on a row with no visible key), and
+// the backward reads them instead of recomputing them. It takes delta =
+// rowsum(dp * p) as the TPU kernel does, not rowsum(do * out), which equals
+// it only in exact arithmetic.
 //
-// Design. The TPU kernel runs a grid of (B,) over one row's whole [L, D]
-// in VMEM with a static loop over 128-query stripes and heads. Here one
-// block of 256 threads owns one (query tile, head, batch row) and streams
-// key tiles of its head's slice through shared memory, up to the diagonal
-// (tiles above it are skipped; the heaviest query tiles launch first).
-// Tiles are TQ = 64 rows, or 32 or 16 where a wide head (hd up to 256)
-// would not fit 227 KB of shared memory. Products are 16x16x16 WMMA
-// tiles, bf16 with f32 accumulators, where hd % 16 == 0; FMA loops
-// otherwise (any hd, as the TPU kernel slices any head) and for T = f32
-// (the check instance); every softmax step is f32, one warp per query row.
-// The backward is two kernels: flash_bwd_dq walks the key tiles of one
-// query tile three times (max and sum, delta, then ds and dq) and leaves
-// each row's max, sum and delta in a scratch; flash_bwd_dkdv then walks
-// the query tiles at or below one key tile's diagonal, recomputes p and ds
-// from those and sums dk and dv. No atomics: the results are deterministic.
+// Which kernel takes which shape. bf16 with hd <= 128 (every preset) takes
+// the wgmma kernels, the head slice zero-padded in shared memory to W = 16,
+// 32, 64 or 128 columns. f32 (the tight check instance: Hopper has no f32
+// tensor-core product at full precision) and hd 129-256 (one head of D >
+// 128 at L = 256 under the gate, in no preset; its dk and dv accumulators
+// would not fit in registers) keep the first kernels: 256 threads, 16x16x16
+// WMMA through shared-memory accumulators where hd % 16 == 0 in bf16, FMA
+// loops otherwise, tiles of 64 rows cut to 32 or 16 where a wide head would
+// not fit 227 KB of shared memory.
+//
+// The wgmma kernels (csrc/sm90_mma.cuh). One block is one warpgroup of 128
+// threads and owns one 64-row tile of one (head, batch row); the heaviest
+// tiles launch first. Operands sit in swizzled shared-memory tiles (128-byte
+// swizzle at W >= 64, 64-byte at 32, 32-byte at 16) that wgmma reads
+// through descriptors; accumulators stay in registers; the softmax runs in
+// the accumulator layout, each row's values in one quad of threads, with
+// exp2 on the special-function unit (ex2.approx). Key (or query) tiles
+// stream through a two-stage ring filled by cp.async from precomputed chunk
+// offsets, so the next tile loads while this one is multiplied. The barrier
+// that admits a tile also votes whether all its keys are valid: such a
+// tile below the diagonal takes an elementwise path with no mask.
+//
+// - forward, one block per query tile: walk 1, S = Qs.K^T (SS: both
+//   operands in shared memory) and the online max and sum; walk 2, S again,
+//   p normalised in registers, rounded in place to bf16 A fragments, and
+//   O += T(P).V (RS: A from registers, V as an MN-major B). 3 products per
+//   (query, key) tile pair.
+// - dq kernel, one block per query tile: walk 1, S and dP = dO.V^T, p from
+//   the stats, delta += rowsum(dp * p); walk 2, S, dP, ds, dQ += T(ds).K.
+//   Writes dq and delta (a [B, H, L] f32 scratch). 5 products a pair.
+// - dk/dv kernel, one block per key tile, walking the query tiles at or
+//   below its diagonal: S^T = K.Qs^T and dP^T = V.dO^T directly, so that
+//   T(p)^T and T(ds)^T are register A operands of dV += T(p)^T.dO and
+//   dK += T(ds)^T.Qs. 4 products a pair. No atomics: deterministic.
 //
 // Bound on the H100 at baseline_o1's shape (B=128, L=1024, D=64, H=1):
 // forward 17.2 GFLOP of causal products (q.k^T and p.v, L(L+1)/2 pairs a
 // row) against 67 MB of q, k, v and out: 0.020 ms, bound by bytes at 3.35
 // TB/s; backward 43.0 GFLOP (s, dp, dv, dq, dk) against 117 MB: 0.044 ms,
-// bound by operations at 989 TFLOP/s. This first kernel recomputes s
-// three times in flash_bwd_dq and once in each other pass, so it does
-// about twice the forward's and the backward's bound work.
+// bound by operations at 989 TFLOP/s. The wgmma kernels do 1.5x the
+// forward's bound products (the two-pass softmax) and 1.8x the backward's
+// (s and dp in both kernels, twice in dq), plus the diagonal tiles' masked
+// half.
 
 #include <cfloat>
 
 #include "fused_block_common.cuh"
+#include "sm90_mma.cuh"
 
 using namespace fbk;
 
@@ -58,6 +84,7 @@ namespace {
 
 constexpr float kNeg = -FLT_MAX;       // finfo(f32).min, the masked score
 constexpr int kMaxHd = 256;            // widest head slice the kernels take
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct FlashArgs {
   const void* q;       // [B, L, D] T
@@ -69,15 +96,21 @@ struct FlashArgs {
   void* dq;            // backward: [B, L, D] T
   void* dk;            // backward: [B, L, D] T
   void* dv;            // backward: [B, L, D] T
-  float* stats;        // backward scratch [3, B, H, L]: row max, sum, delta
+  float* stats;        // [2, B, H, L]: row max, sum (forward writes)
+  float* delta;        // backward scratch [B, H, L]: rowsum(dp * p)
   int B, L, D, H;
   float scale;         // hd^-1/2
+  bool vec;            // head slices in whole 16-byte chunks, aligned
 };
 
 __device__ __forceinline__ bool visible(int q, int k, const int* kval,
                                         int c) {
   return q >= k && kval[c] != 0;
 }
+
+// ===========================================================================
+// The first kernels: f32, and bf16 at hd 129-256
+// ===========================================================================
 
 template <typename T>
 size_t fwd_smem(int hd, int TQ) {
@@ -196,6 +229,15 @@ __global__ void __launch_bounds__(kThreads)
     const int r = i / hd, d = i - r * hd;
     out[(size_t)r * D + d] = from_f<T>(acc[r * lda + d]);
   }
+  if (lane == 0) {
+    const size_t plane = (size_t)p.B * p.H * L;
+    const size_t o = ((size_t)b * p.H + h) * L + q0 + warp * rows;
+#pragma unroll
+    for (int i = 0; i < rows; ++i) {
+      p.stats[o + i] = m[i];
+      p.stats[plane + o + i] = z[i];
+    }
+  }
 }
 
 template <typename T>
@@ -243,9 +285,9 @@ struct BwdTiles {
   }
 };
 
-// dq of one query tile, walking its key tiles three times: max and sum,
-// delta = rowsum(dp * p), then ds and dq. Leaves max, sum and delta per
-// row in p.stats for flash_bwd_dkdv_kernel.
+// dq of one query tile, walking its key tiles twice with each row's max
+// and sum from the forward: delta = rowsum(dp * p), then ds and dq. Leaves
+// delta per row in p.delta for flash_bwd_dkdv_kernel.
 template <typename T, int TQ>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(FlashArgs p, bool tc) {
@@ -268,42 +310,37 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < TQ * hd; i += kThreads)
     t.acc1[(i / hd) * lda + i % hd] = 0.0f;
 
+  const size_t plane = (size_t)p.B * H * L;
+  const size_t o = ((size_t)b * H + h) * L + q0 + warp * rows;
   float m[rows], z[rows], delta[rows];
 #pragma unroll
   for (int i = 0; i < rows; ++i) {
-    m[i] = kNeg;
-    z[i] = 0.0f;
+    m[i] = p.stats[o + i];
+    z[i] = fmaxf(p.stats[plane + o + i], 1e-30f);
     delta[i] = 0.0f;
   }
-  for (int pass = 0; pass < 3; ++pass) {
+  for (int pass = 1; pass < 3; ++pass) {
     for (int kt = 0; kt <= qt; ++kt) {
       const int k0 = kt * TQ;
       __syncthreads();  // the previous tile is done with every buffer
       load_head<T>(K + (rowb + k0) * D, D, TQ, hd, t.ks, ldh, 1.0f, false);
-      if (pass > 0)
-        load_head<T>(V + (rowb + k0) * D, D, TQ, hd, t.vs, ldh, 1.0f, false);
+      load_head<T>(V + (rowb + k0) * D, D, TQ, hd, t.vs, ldh, 1.0f, false);
       for (int j = threadIdx.x; j < TQ; j += kThreads)
         t.kval[j] = p.valid[rowb + k0 + j];
       __syncthreads();
       gemm<T, false, true, false>(t.qs, ldh, t.ks, ldh, t.ss, kLdS, TQ, TQ,
                                   hd, tc);
-      if (pass > 0)
-        gemm<T, false, true, false>(t.dos, ldh, t.vs, ldh, t.dps, kLdS, TQ,
-                                    TQ, hd, tc);
+      gemm<T, false, true, false>(t.dos, ldh, t.vs, ldh, t.dps, kLdS, TQ,
+                                  TQ, hd, tc);
       __syncthreads();
-      if (pass == 0) {
-        online_stats<TQ>(t.ss, q0, k0, t.kval, m, z);
-        continue;
-      }
 #pragma unroll
       for (int i = 0; i < rows; ++i) {
         const int r = warp * rows + i;
-        const float zz = fmaxf(z[i], 1e-30f);
         float sum = 0.0f;
         for (int c = lane; c < TQ; c += 32) {
           float pv = 0.0f;
           if (visible(q0 + r, k0 + c, t.kval, c))
-            pv = expf(t.ss[r * kLdS + c] - m[i]) / zz;
+            pv = expf(t.ss[r * kLdS + c] - m[i]) / z[i];
           const float dp = t.dps[r * kLdS + c];
           if (pass == 1)
             sum += dp * pv;
@@ -327,14 +364,8 @@ __global__ void __launch_bounds__(kThreads)
     dq[(size_t)r * D + d] = from_f<T>(t.acc1[r * lda + d] * p.scale);
   }
   if (lane == 0) {
-    const size_t plane = (size_t)p.B * H * L;
-    const size_t o = ((size_t)b * H + h) * L + q0 + warp * rows;
 #pragma unroll
-    for (int i = 0; i < rows; ++i) {
-      p.stats[o + i] = m[i];
-      p.stats[plane + o + i] = z[i];
-      p.stats[2 * plane + o + i] = delta[i];
-    }
+    for (int i = 0; i < rows; ++i) p.delta[o + i] = delta[i];
   }
 }
 
@@ -364,7 +395,7 @@ __global__ void __launch_bounds__(kThreads)
     dv[(i / hd) * lda + i % hd] = 0.0f;
   }
   const size_t plane = (size_t)p.B * H * L;
-  const float* stats = p.stats + ((size_t)b * H + h) * L;
+  const size_t srow = ((size_t)b * H + h) * L;
 
   for (int qt = kt; qt < L / TQ; ++qt) {
     const int q0 = qt * TQ;
@@ -374,9 +405,9 @@ __global__ void __launch_bounds__(kThreads)
     load_head<T>(static_cast<const T*>(p.dout) + (rowb + q0) * D + col, D,
                  TQ, hd, t.dos, ldh, 1.0f, false);
     for (int j = threadIdx.x; j < TQ; j += kThreads) {
-      t.rm[j] = stats[q0 + j];
-      t.rz[j] = fmaxf(stats[plane + q0 + j], 1e-30f);
-      t.rd[j] = stats[2 * plane + q0 + j];
+      t.rm[j] = p.stats[srow + q0 + j];
+      t.rz[j] = fmaxf(p.stats[plane + srow + q0 + j], 1e-30f);
+      t.rd[j] = p.delta[srow + q0 + j];
     }
     __syncthreads();
     gemm<T, false, true, false>(t.qs, ldh, t.ks, ldh, t.ss, kLdS, TQ, TQ, hd,
@@ -409,13 +440,564 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ===========================================================================
+// The wgmma kernels: bf16, hd <= 128 padded to W columns
+// ===========================================================================
+
+constexpr int kTile = sm90::kRows;   // query and key tile rows
+constexpr int kWg = sm90::kWgThreads;
+constexpr int kStages = 2;           // ring stages: loads run one tile ahead
+
+using sm90::acc_col;
+using sm90::acc_row;
+
+// Shared memory of the wgmma kernels, from a 1024-byte boundary: `fixed`
+// tiles held for the whole block (the query tile, or the key and value
+// tiles) and 1024 bytes of row data, then kStages ring stages of
+// `per_stage` tiles and 1024 bytes of row data (key-valid flags or the
+// query rows' stats) each.
+template <int W>
+struct Carve {
+  static constexpr size_t kTileBytes = sm90::Tile<W>::bytes(kTile);
+  int fixed, per_stage;
+
+  __host__ __device__ size_t stage_bytes() const {
+    return per_stage * kTileBytes + 1024;
+  }
+  __host__ __device__ size_t bytes() const {
+    return 1024 + fixed * kTileBytes + 1024 + kStages * stage_bytes();
+  }
+  __device__ bf16* held(unsigned char* base, int i) const {
+    return reinterpret_cast<bf16*>(base + i * kTileBytes);
+  }
+  __device__ unsigned char* held_rows(unsigned char* base) const {
+    return base + fixed * kTileBytes;
+  }
+  __device__ unsigned char* stage(unsigned char* base, int s) const {
+    return base + fixed * kTileBytes + 1024 + s * stage_bytes();
+  }
+  __device__ bf16* tile(unsigned char* base, int s, int i) const {
+    return reinterpret_cast<bf16*>(stage(base, s) + i * kTileBytes);
+  }
+  __device__ unsigned char* rows(unsigned char* base, int s) const {
+    return stage(base, s) + per_stage * kTileBytes;
+  }
+};
+
+// Bits of this thread's 32 accumulator elements (S = Q.K^T layout: rows
+// queries, columns keys) that are visible: key valid and, on the diagonal
+// tile, at or before the query.
+__device__ __forceinline__ uint32_t visible_bits(const int* kv, bool diag) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = acc_row(i), c = acc_col(i);
+    if (kv[c] != 0 && (!diag || r >= c)) bits |= 1u << i;
+  }
+  return bits;
+}
+
+// S (or S^T) = A . B^T over the W-column tiles a and b (64 rows each).
+template <int W>
+__device__ __forceinline__ void scores(float (&s)[32], const bf16* a,
+                                       const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk)
+    sm90::mma_ss_n64(s, sm90::Tile<W>::desc_k(a, kTile, kk),
+                     sm90::Tile<W>::desc_k(b, kTile, kk), kk > 0 ? 1 : 0);
+}
+
+// acc += T(P) . B over the 64 rows of the MN-major tile b, P's bf16 A
+// fragments in a.
+template <int W>
+__device__ __forceinline__ void accumulate(float (&acc)[W / 2],
+                                           const uint32_t (&a)[4][4],
+                                           const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::mma_rs<W>(acc, a[kk], sm90::Tile<W>::desc_mn(b, kTile, kk), 1);
+}
+
+// Writes this thread's part of a 64 x W accumulator, times `scale`, as
+// bf16 to rows of `out` (row stride D), the first hd columns.
+template <int W>
+__device__ __forceinline__ void store_rows(const float (&acc)[W / 2],
+                                           bf16* out, int D, int hd,
+                                           float scale) {
+#pragma unroll
+  for (int i = 0; i < W / 2; i += 2) {
+    const int r = acc_row(i), c = acc_col(i);
+    bf16* o = out + (size_t)r * D + c;
+    if ((hd & 1) == 0) {
+      if (c < hd)
+        *reinterpret_cast<__nv_bfloat162*>(o) =
+            __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    } else {
+      if (c < hd) o[0] = __float2bfloat16_rn(acc[i] * scale);
+      if (c + 1 < hd) o[1] = __float2bfloat16_rn(acc[i + 1] * scale);
+    }
+  }
+}
+
+// One thread's part of copying a head slice's 64 x hd tile into a ring
+// stage: cp.async by precomputed chunks where the slice is in whole 16-byte
+// chunks (p.vec), else element by element through registers.
+template <int W>
+__device__ __forceinline__ void load_head_tile(const sm90::TileCopy<W>& cp,
+                                               bf16* t, const bf16* src,
+                                               const FlashArgs& p, int hd) {
+  if (p.vec)
+    cp.async(t, src);
+  else
+    sm90::load_tile_sync<W>(t, src, p.D, kTile, hd, kWg, false, 1.0f, false);
+}
+
+// held tiles; tiles per ring stage
+template <int W>
+__host__ __device__ Carve<W> fwd_carve() {   // q; k, v
+  return Carve<W>{1, 2};
+}
+template <int W>
+__host__ __device__ Carve<W> bwd_carve() {   // dq: q, do; k, v. dk/dv: k,
+  return Carve<W>{2, 2};                      // v; q, do
+}
+
+// The elementwise steps run in two instances: `masked` tests each
+// element's visibility bit; the other serves tiles below the diagonal
+// whose keys are all valid (most tiles), where every element is visible.
+using Masked = std::true_type;
+using Dense = std::false_type;
+
+template <int W>
+__global__ void __launch_bounds__(kWg) flash_fwd_wgmma_kernel(FlashArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  const Carve<W> cv = fwd_carve<W>();
+  const int D = p.D, H = p.H, hd = D / H, L = p.L, tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * kTile, n = qt + 1;
+  const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
+  const bf16* K = static_cast<const bf16*>(p.k) + col;
+  const bf16* V = static_cast<const bf16*>(p.v) + col;
+  bf16* qs = cv.held(base, 0);
+  const sm90::TileCopy<W> cp(D, hd);
+
+  // the loads never write the padding columns hd..W-1: zero them once
+  if (hd < W) sm90::zero_smem(base, cv.bytes() - 1024, kWg);
+  __syncthreads();
+  sm90::load_tile_sync<W>(qs, static_cast<const bf16*>(p.q) +
+                                  (rowb + q0) * D + col,
+                          D, kTile, hd, kWg, p.vec, p.scale, true);
+
+  // step s < n: walk 1 over key tile s (k); s >= n: walk 2 over s - n (k, v)
+  auto issue = [&](int s) {
+    if (s < 2 * n) {
+      const int kt = s < n ? s : s - n, st = s % kStages;
+      const size_t r0 = rowb + (size_t)kt * kTile;
+      load_head_tile<W>(cp, cv.tile(base, st, 0), K + r0 * D, p, hd);
+      if (s >= n)
+        load_head_tile<W>(cp, cv.tile(base, st, 1), V + r0 * D, p, hd);
+      if (tid < kTile)
+        sm90::cp_async4(reinterpret_cast<int*>(cv.rows(base, st)) + tid,
+                        p.valid + r0 + tid);
+    }
+    sm90::cp_async_commit();
+  };
+
+  float m[2] = {kNeg, kNeg}, z[2] = {0.0f, 0.0f}, ml[2], rz[2];
+  float s[32], o[W / 2];
+  uint32_t vis = 0;
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+
+  // walk 1: the online max and this thread's share of the sum
+  auto stats = [&](auto masked) {
+    constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float tmax = kNeg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hf + e;
+          if (!kMasked || (vis >> i & 1u)) tmax = fmaxf(tmax, s[i]);
+        }
+      const float mn = fmaxf(m[hf], sm90::quad_max(tmax));
+      const float mnl = mn * kLog2e;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hf + e;
+          const float ex = sm90::exp2_approx(fmaf(s[i], kLog2e, -mnl));
+          if (!kMasked || (vis >> i & 1u)) sum += ex;
+        }
+      z[hf] = z[hf] * sm90::exp2_approx((m[hf] - mn) * kLog2e) + sum;
+      m[hf] = mn;
+    }
+  };
+  // walk 2: p normalised in place
+  auto probs = [&](auto masked) {
+    constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hf = (i >> 1) & 1;
+      const float pv =
+          sm90::exp2_approx(fmaf(s[i], kLog2e, -ml[hf])) * rz[hf];
+      s[i] = (!kMasked || (vis >> i & 1u)) ? pv : 0.0f;
+    }
+  };
+
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int step = 0; step < 2 * n; ++step) {
+    issue(step + kStages - 1);
+    sm90::cp_async_wait<kStages - 1>();
+    sm90::fence_async_smem();
+    const int st = step % kStages, kt = step < n ? step : step - n;
+    const int* kv = reinterpret_cast<const int*>(cv.rows(base, st));
+    // every key of the tile valid? (each thread reads the flag it copied)
+    const bool full = __syncthreads_and(tid >= kTile || kv[tid] != 0);
+    const bool dense = full && kt != qt;
+    if (!dense) vis = visible_bits(kv, kt == qt);
+    sm90::wgmma_fence();
+    scores<W>(s, qs, cv.tile(base, st, 0));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(s);
+    if (step < n) {
+      if (dense) stats(Dense{}); else stats(Masked{});
+      if (step == n - 1) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          z[hf] = sm90::quad_sum(z[hf]);
+          ml[hf] = m[hf] * kLog2e;
+          rz[hf] = 1.0f / fmaxf(z[hf], 1e-30f);
+        }
+      }
+    } else {
+      // p rounded into A fragments; O += T(P) V
+      if (dense) probs(Dense{}); else probs(Masked{});
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::frag_a(s, kk, a[kk]);
+      sm90::wgmma_fence();
+      accumulate<W>(o, a, cv.tile(base, st, 1));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::reg_fence(o);
+    }
+    __syncthreads();  // this stage is read; a later issue reloads it
+  }
+  store_rows<W>(o, static_cast<bf16*>(p.out) + (rowb + q0) * D + col, D, hd,
+                1.0f);
+  if ((tid & 3) == 0) {
+    const size_t plane = (size_t)p.B * H * L;
+    const size_t r = ((size_t)b * H + h) * L + q0 + acc_row(0);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      p.stats[r + 8 * hf] = m[hf];
+      p.stats[plane + r + 8 * hf] = z[hf];
+    }
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kWg)
+    flash_bwd_dq_wgmma_kernel(FlashArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  const Carve<W> cv = bwd_carve<W>();
+  const int D = p.D, H = p.H, hd = D / H, L = p.L, tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * kTile, n = qt + 1;
+  const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
+  const bf16* K = static_cast<const bf16*>(p.k) + col;
+  const bf16* V = static_cast<const bf16*>(p.v) + col;
+  bf16* qs = cv.held(base, 0);
+  bf16* dos = cv.held(base, 1);
+  const sm90::TileCopy<W> cp(D, hd);
+
+  if (hd < W) sm90::zero_smem(base, cv.bytes() - 1024, kWg);
+  __syncthreads();
+  sm90::load_tile_sync<W>(qs, static_cast<const bf16*>(p.q) +
+                                  (rowb + q0) * D + col,
+                          D, kTile, hd, kWg, p.vec, p.scale, true);
+  sm90::load_tile_sync<W>(dos, static_cast<const bf16*>(p.dout) +
+                                   (rowb + q0) * D + col,
+                          D, kTile, hd, kWg, p.vec, 1.0f, false);
+
+  // both walks stream k, v over key tiles 0..qt
+  auto issue = [&](int s) {
+    if (s < 2 * n) {
+      const int kt = s < n ? s : s - n, st = s % kStages;
+      const size_t r0 = rowb + (size_t)kt * kTile;
+      load_head_tile<W>(cp, cv.tile(base, st, 0), K + r0 * D, p, hd);
+      load_head_tile<W>(cp, cv.tile(base, st, 1), V + r0 * D, p, hd);
+      if (tid < kTile)
+        sm90::cp_async4(reinterpret_cast<int*>(cv.rows(base, st)) + tid,
+                        p.valid + r0 + tid);
+    }
+    sm90::cp_async_commit();
+  };
+
+  const size_t plane = (size_t)p.B * H * L;
+  const size_t srow = ((size_t)b * H + h) * L + q0 + acc_row(0);
+  float ml[2], rz[2], dsum[2] = {0.0f, 0.0f}, delta[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    ml[hf] = p.stats[srow + 8 * hf] * kLog2e;
+    rz[hf] = 1.0f / fmaxf(p.stats[plane + srow + 8 * hf], 1e-30f);
+  }
+  float s[32], dp[32], dq[W / 2];
+  uint32_t vis = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) dq[i] = 0.0f;
+
+  // p from the forward's stats, in place of s
+  auto probs = [&](auto masked) {
+    constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hf = (i >> 1) & 1;
+      const float pv =
+          sm90::exp2_approx(fmaf(s[i], kLog2e, -ml[hf])) * rz[hf];
+      s[i] = (!kMasked || (vis >> i & 1u)) ? pv : 0.0f;
+    }
+  };
+
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int step = 0; step < 2 * n; ++step) {
+    issue(step + kStages - 1);
+    sm90::cp_async_wait<kStages - 1>();
+    sm90::fence_async_smem();
+    const int st = step % kStages, kt = step < n ? step : step - n;
+    const int* kv = reinterpret_cast<const int*>(cv.rows(base, st));
+    const bool full = __syncthreads_and(tid >= kTile || kv[tid] != 0);
+    const bool dense = full && kt != qt;
+    if (!dense) vis = visible_bits(kv, kt == qt);
+    const bf16* ks = cv.tile(base, st, 0);
+    sm90::wgmma_fence();
+    scores<W>(s, qs, ks);
+    scores<W>(dp, dos, cv.tile(base, st, 1));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(s);
+    sm90::reg_fence(dp);
+    if (dense) probs(Dense{}); else probs(Masked{});
+    if (step < n) {
+      // walk 1: delta = rowsum(dp * p), this thread's share
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dsum[(i >> 1) & 1] += dp[i] * s[i];
+      if (step == n - 1) {
+        delta[0] = sm90::quad_sum(dsum[0]);
+        delta[1] = sm90::quad_sum(dsum[1]);
+      }
+    } else {
+      // walk 2: ds = T(p * (dp - delta)); dQ += T(ds) K
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= dp[i] - delta[(i >> 1) & 1];
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::frag_a(s, kk, a[kk]);
+      sm90::wgmma_fence();
+      accumulate<W>(dq, a, ks);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::reg_fence(dq);
+    }
+    __syncthreads();  // this stage is read; a later issue reloads it
+  }
+  store_rows<W>(dq, static_cast<bf16*>(p.dq) + (rowb + q0) * D + col, D, hd,
+                p.scale);
+  if ((tid & 3) == 0) {
+    p.delta[srow] = delta[0];
+    p.delta[srow + 8] = delta[1];
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kWg)
+    flash_bwd_dkdv_wgmma_kernel(FlashArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  const Carve<W> cv = bwd_carve<W>();
+  const int D = p.D, H = p.H, hd = D / H, L = p.L, tid = threadIdx.x;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * kTile, n = L / kTile - kt;
+  const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
+  const bf16* Q = static_cast<const bf16*>(p.q) + col;
+  const bf16* DO = static_cast<const bf16*>(p.dout) + col;
+  bf16* ks = cv.held(base, 0);
+  bf16* vs = cv.held(base, 1);
+  int* kval = reinterpret_cast<int*>(cv.held_rows(base));
+  const sm90::TileCopy<W> cp(D, hd);
+
+  if (hd < W) sm90::zero_smem(base, cv.bytes() - 1024, kWg);
+  __syncthreads();
+  sm90::load_tile_sync<W>(ks, static_cast<const bf16*>(p.k) +
+                                  (rowb + k0) * D + col,
+                          D, kTile, hd, kWg, p.vec, 1.0f, false);
+  sm90::load_tile_sync<W>(vs, static_cast<const bf16*>(p.v) +
+                                  (rowb + k0) * D + col,
+                          D, kTile, hd, kWg, p.vec, 1.0f, false);
+  if (tid < kTile) kval[tid] = p.valid[rowb + k0 + tid];
+
+  // step s walks query tile kt + s: q (scaled after it lands), do, and the
+  // query rows' max * log2(e), 1 / max(sum, 1e-30) and delta
+  const size_t plane = (size_t)p.B * H * L;
+  const size_t srow = ((size_t)b * H + h) * L;
+  auto issue = [&](int s) {
+    if (s < n) {
+      const int st = s % kStages;
+      const size_t q0 = (size_t)(kt + s) * kTile;
+      load_head_tile<W>(cp, cv.tile(base, st, 0), Q + (rowb + q0) * D, p,
+                        hd);
+      load_head_tile<W>(cp, cv.tile(base, st, 1), DO + (rowb + q0) * D, p,
+                        hd);
+      if (tid < kTile) {
+        float* rows = reinterpret_cast<float*>(cv.rows(base, st));
+        sm90::cp_async4(rows + tid, p.stats + srow + q0 + tid);
+        sm90::cp_async4(rows + kTile + tid, p.stats + plane + srow + q0 + tid);
+        sm90::cp_async4(rows + 2 * kTile + tid, p.delta + srow + q0 + tid);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+
+  float s[32], dp[32], dk[W / 2], dv[W / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) dk[i] = dv[i] = 0.0f;
+  __syncthreads();
+  // this thread's two key rows: valid?
+  const bool kv0 = kval[acc_row(0)] != 0, kv1 = kval[acc_row(2)] != 0;
+
+  // p^T and ds^T in place of s^T and dp^T; the query rows' stats come in
+  // pairs of adjacent columns
+  auto grads = [&](auto masked, const float* rows, bool diag) {
+    constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = acc_col(4 * j);
+      const float2 mc = *reinterpret_cast<const float2*>(rows + c);
+      const float2 zc = *reinterpret_cast<const float2*>(rows + kTile + c);
+      const float2 dc =
+          *reinterpret_cast<const float2*>(rows + 2 * kTile + c);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int i = 4 * j + v, e = v & 1;
+        const float pv = sm90::exp2_approx(fmaf(s[i], kLog2e,
+                                                -(e ? mc.y : mc.x))) *
+                         (e ? zc.y : zc.x);
+        const bool vis = !kMasked || (((v >> 1) ? kv1 : kv0) &&
+                                      (!diag || c + e >= acc_row(i)));
+        s[i] = vis ? pv : 0.0f;
+        dp[i] = s[i] * (dp[i] - (e ? dc.y : dc.x));
+      }
+    }
+  };
+
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int step = 0; step < n; ++step) {
+    issue(step + kStages - 1);
+    sm90::cp_async_wait<kStages - 1>();
+    const int st = step % kStages;
+    bf16* qs = cv.tile(base, st, 0);
+    const bf16* dos = cv.tile(base, st, 1);
+    float* rows = reinterpret_cast<float*>(cv.rows(base, st));
+    // each thread finishes what it copied itself
+    if (p.vec) cp.scale(qs, p.scale);
+    if (tid < kTile) {
+      rows[tid] *= kLog2e;
+      rows[kTile + tid] = 1.0f / fmaxf(rows[kTile + tid], 1e-30f);
+    }
+    if (!p.vec)   // loaded through registers: scale in place
+      for (int i = tid; i < kTile * hd; i += kWg) {
+        bf16* e = sm90::Tile<W>::at(qs, i / hd, i % hd, kTile);
+        *e = __float2bfloat16_rn(__bfloat162float(*e) * p.scale);
+      }
+    sm90::fence_async_smem();
+    __syncthreads();
+    sm90::wgmma_fence();
+    scores<W>(s, ks, qs);     // S^T: rows keys, columns queries
+    scores<W>(dp, vs, dos);   // dP^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(s);
+    sm90::reg_fence(dp);
+    const bool diag = step == 0;
+    if (kv0 && kv1 && !diag)
+      grads(Dense{}, rows, diag);
+    else
+      grads(Masked{}, rows, diag);
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      sm90::frag_a(s, kk, pa[kk]);
+      sm90::frag_a(dp, kk, da[kk]);
+    }
+    sm90::wgmma_fence();
+    accumulate<W>(dv, pa, dos);   // dV += T(p)^T dO
+    accumulate<W>(dk, da, qs);    // dK += T(ds)^T Qs
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(dv);
+    sm90::reg_fence(dk);
+    __syncthreads();  // this stage is read; a later issue reloads it
+  }
+  store_rows<W>(dk, static_cast<bf16*>(p.dk) + (rowb + k0) * D + col, D, hd,
+                1.0f);
+  store_rows<W>(dv, static_cast<bf16*>(p.dv) + (rowb + k0) * D + col, D, hd,
+                1.0f);
+}
+
+// ===========================================================================
+// launch
+// ===========================================================================
+
 bool shapes_ok(int B, int L, int D, int H) {
   if (B <= 0 || H <= 0 || L <= 0 || L % 64 != 0 || D % H != 0) return false;
   return D / H <= kMaxHd;
 }
 
-// The query/key tile: 64 rows, or 32 or 16 where the head slice would not
-// fit shared memory at 64 (0: none fits).
+// The wgmma kernels' tile width for a head of hd columns (0: none).
+int wgmma_width(int hd) {
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0;
+}
+
+template <typename K>
+int launch_wg(K kernel, size_t smem, const FlashArgs& p,
+              cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(p.L / kTile, p.H, p.B), kWg, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int W>
+int launch_fwd_wgmma(const FlashArgs& p, cudaStream_t stream) {
+  return launch_wg(flash_fwd_wgmma_kernel<W>, fwd_carve<W>().bytes(), p,
+                   stream);
+}
+
+template <int W>
+int launch_bwd_wgmma(const FlashArgs& p, cudaStream_t stream) {
+  const size_t smem = bwd_carve<W>().bytes();
+  const int e = launch_wg(flash_bwd_dq_wgmma_kernel<W>, smem, p, stream);
+  if (e != 0) return e;
+  return launch_wg(flash_bwd_dkdv_wgmma_kernel<W>, smem, p, stream);
+}
+
+// The first kernels' query/key tile: 64 rows, or 32 or 16 where the head
+// slice would not fit shared memory at 64 (0: none fits).
 template <typename T>
 int pick_tile(int hd, bool bwd) {
   for (int t = 64; t >= 16; t >>= 1)
@@ -483,54 +1065,75 @@ int launch_bwd(const FlashArgs& p, cudaStream_t stream) {
   }
 }
 
-}  // namespace
-
-// Plain C entry points (bound with ctypes). q, k, v, out, dout, dq, dk, dv
-// [B, L, D] head-packed in the compute dtype (bf16 when is_bf16, else
-// f32), valid [B, L] int32, stats [3, B, H, L] f32 scratch; all
-// contiguous and 16-byte aligned. Requires L % 64 == 0, D % H == 0 and
-// hd = D / H at most 256. Each returns a cudaError_t code (0 on success).
-extern "C" int flash_attn_fwd(int is_bf16, const void* q, const void* k,
-                              const void* v, const void* valid, void* out,
-                              int B, int L, int D, int H, float scale,
-                              void* stream) {
-  if (!shapes_ok(B, L, D, H)) return (int)cudaErrorInvalidValue;
-  FlashArgs p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.valid = static_cast<const int*>(valid);
-  p.out = out;
-  p.B = B;
-  p.L = L;
-  p.D = D;
-  p.H = H;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_fwd<bf16>(p, s) : launch_fwd<float>(p, s);
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-extern "C" int flash_attn_bwd(int is_bf16, const void* q, const void* k,
-                              const void* v, const void* dout,
-                              const void* valid, void* dq, void* dk, void* dv,
-                              void* stats, int B, int L, int D, int H,
-                              float scale, void* stream) {
-  if (!shapes_ok(B, L, D, H)) return (int)cudaErrorInvalidValue;
+FlashArgs make_args(const void* q, const void* k, const void* v,
+                    const void* valid, void* stats, int B, int L, int D,
+                    int H, float scale) {
   FlashArgs p = {};
   p.q = q;
   p.k = k;
   p.v = v;
   p.valid = static_cast<const int*>(valid);
-  p.dout = dout;
-  p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
   p.stats = static_cast<float*>(stats);
   p.B = B;
   p.L = L;
   p.D = D;
   p.H = H;
   p.scale = scale;
+  p.vec = (D / H) % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  return p;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). q, k, v, out, dout, dq, dk, dv
+// [B, L, D] head-packed in the compute dtype (bf16 when is_bf16, else
+// f32), valid [B, L] int32, stats [2, B, H, L] f32 (each query row's
+// softmax max and sum: written by the forward, read by the backward),
+// delta [B, H, L] f32 scratch; all contiguous. Requires L % 64 == 0,
+// D % H == 0 and hd = D / H at most 256. Each returns a cudaError_t code
+// (0 on success).
+extern "C" int flash_attn_fwd(int is_bf16, const void* q, const void* k,
+                              const void* v, const void* valid, void* out,
+                              void* stats, int B, int L, int D, int H,
+                              float scale, void* stream) {
+  if (!shapes_ok(B, L, D, H)) return (int)cudaErrorInvalidValue;
+  FlashArgs p = make_args(q, k, v, valid, stats, B, L, D, H, scale);
+  p.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bwd<bf16>(p, s) : launch_bwd<float>(p, s);
+  if (!is_bf16) return launch_fwd<float>(p, s);
+  switch (wgmma_width(D / H)) {
+    case 16: return launch_fwd_wgmma<16>(p, s);
+    case 32: return launch_fwd_wgmma<32>(p, s);
+    case 64: return launch_fwd_wgmma<64>(p, s);
+    case 128: return launch_fwd_wgmma<128>(p, s);
+    default: return launch_fwd<bf16>(p, s);
+  }
+}
+
+extern "C" int flash_attn_bwd(int is_bf16, const void* q, const void* k,
+                              const void* v, const void* dout,
+                              const void* valid, void* dq, void* dk, void* dv,
+                              void* stats, void* delta, int B, int L, int D,
+                              int H, float scale, void* stream) {
+  if (!shapes_ok(B, L, D, H)) return (int)cudaErrorInvalidValue;
+  FlashArgs p = make_args(q, k, v, valid, stats, B, L, D, H, scale);
+  p.dout = dout;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.delta = static_cast<float*>(delta);
+  p.vec = p.vec && aligned16(dout);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) return launch_bwd<float>(p, s);
+  switch (wgmma_width(D / H)) {
+    case 16: return launch_bwd_wgmma<16>(p, s);
+    case 32: return launch_bwd_wgmma<32>(p, s);
+    case 64: return launch_bwd_wgmma<64>(p, s);
+    case 128: return launch_bwd_wgmma<128>(p, s);
+    default: return launch_bwd<bf16>(p, s);
+  }
 }

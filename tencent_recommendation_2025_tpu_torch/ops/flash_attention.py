@@ -11,34 +11,42 @@ head, on head-packed [B, L, D] q, k, v (D = H * hd):
     out = T(p) @ v                                  (f32 sums, out in T)
 
 with T the compute dtype (bf16 on the card's product path, f32 in the
-checks). The backward recomputes p in f32: dv = T(p)^T do, ds = T(p * (dp -
-rowsum(dp * p))) with dp = do v^T, dq = ds k * hd^-1/2, dk = ds^T T(q *
-hd^-1/2); dq, dk and dv in T.
+checks). The forward also gives each query row's softmax max and sum
+(``stats`` [2, B, H, L] f32: finfo(f32).min and 0 on a row with no visible
+key), which the backward takes instead of recomputing them: p = exp(s -
+max) / max(sum, 1e-30) in f32, dv = T(p)^T do, ds = T(p * (dp - rowsum(dp *
+p))) with dp = do v^T, dq = ds k * hd^-1/2, dk = ds^T T(q * hd^-1/2); dq, dk
+and dv in T.
 
-Kernels (``csrc/flash_attention.cu``): ``flash_fwd_kernel`` replaces
-``_fwd_kernel`` (l.50); ``flash_bwd_dq_kernel`` and ``flash_bwd_dkdv_kernel``
-replace ``_bwd_kernel`` (l.81). The TPU kernel computes each 128-query
-stripe's exact softmax before it rounds p; the CUDA forward keeps that
-rounding point by walking a query tile's key tiles twice, first for the row
-max and sum, then for T(p) @ v with p normalised. The plain versions below
-are the TPU kernel's arithmetic, so both rounding points agree. Bound at
-baseline_o1's shape (B=128, L=1024, D=64, H=1) on the H100: bytes, 0.020
-ms forward; operations, 0.044 ms backward.
+Kernels (``csrc/flash_attention.cu``): ``flash_fwd_wgmma_kernel`` replaces
+``_fwd_kernel`` (l.50); ``flash_bwd_dq_wgmma_kernel`` and
+``flash_bwd_dkdv_wgmma_kernel`` replace ``_bwd_kernel`` (l.81): Hopper
+``wgmma`` products with register accumulators on swizzled shared-memory
+tiles fed by a cp.async ring (``csrc/sm90_mma.cuh``), for bf16 at any head
+dim up to 128 (zero-padded to 16, 32, 64 or 128 columns). f32 (the tight
+check instance) and heads of 129-256 keep the first kernels
+(``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``:
+WMMA or FMA products through shared memory). The TPU kernel computes each
+128-query stripe's exact softmax before it rounds p; the CUDA forward keeps
+that rounding point by walking a query tile's key tiles twice, first for
+the row max and sum, then for T(p) @ v with p normalised. The plain
+versions below are the TPU kernel's arithmetic, so both rounding points
+agree. Bound at baseline_o1's shape (B=128, L=1024, D=64, H=1) on the H100:
+bytes, 0.020 ms forward; operations, 0.044 ms backward.
 
 The encoder takes these where the JAX package's ``make_attention_cores``
 does: 256 <= L, L % 128 == 0 and L * max(D, 64) <= 1024 * 64; longer MHA
 runs dense. Each wrapper takes its plain version for tensors on the CPU and
 launches its kernel for CUDA tensors (counted in ``flash_mha_fwd.launches``
 and ``flash_mha_bwd.launches``); it never falls back. The kernels take any
-head dim up to 256 (every D the gate admits at L >= 256; WMMA tensor-core
-products where hd % 16 == 0 in bf16, FMA loops otherwise) and L a multiple
-of 64, bf16 or f32; anything else raises.
+head dim up to 256 and L a multiple of 64, bf16 or f32; anything else
+raises, as does a backward on CUDA tensors without the forward's stats.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,29 +72,60 @@ def safe_masked_softmax(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _probs(q, k, valid, num_heads):
-    """(T(q * hd^-1/2) in heads, p [B, H, L, L] f32)."""
+def _scores(q, k, valid, num_heads):
+    """(T(q * hd^-1/2) in heads, s [B, H, L, L] f32, the causal and
+    key-valid mask)."""
     L, D = q.shape[1], q.shape[2]
     hd = D // num_heads
     qs = _heads((q.float() * hd ** -0.5).to(q.dtype), num_heads)
     s = _mm(qs, _heads(k, num_heads).transpose(-1, -2))
-    return qs, safe_masked_softmax(s, causal_valid(valid, L))
+    return qs, s, causal_valid(valid, L)
 
 
-def flash_mha_fwd_plain(q, k, v, valid, num_heads: int) -> torch.Tensor:
+def softmax_stats(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Each row's max over its visible scores (finfo min where none is
+    visible) and sum of exp(s - max) over them: [2, *s.shape[:-1]] f32, as
+    ``safe_masked_softmax`` computes them."""
+    neg = torch.finfo(s.dtype).min
+    masked = torch.where(mask, s, torch.full_like(s, neg))
+    m = masked.amax(-1)
+    z = (torch.exp(masked - m[..., None]) * mask.to(s.dtype)).sum(-1)
+    return torch.stack([m, z])
+
+
+def _probs_from_stats(s, mask, stats):
+    """p from the rows' max and sum, as ``safe_masked_softmax`` forms it."""
+    neg = torch.finfo(s.dtype).min
+    masked = torch.where(mask, s, torch.full_like(s, neg))
+    e = torch.exp(masked - stats[0][..., None]) * mask.to(s.dtype)
+    return e / torch.clamp(stats[1][..., None], min=1e-30)
+
+
+def flash_mha_fwd_plain(q, k, v, valid, num_heads: int,
+                        return_stats: bool = False):
     """Plain PyTorch version of the forward kernel, with its rounding
-    points."""
-    _, p = _probs(q, k, valid, num_heads)
-    return _rows(_mm(p.to(q.dtype), _heads(v, num_heads))).to(q.dtype)
+    points; with ``return_stats``, (out, stats [2, B, H, L] f32)."""
+    _, s, mask = _scores(q, k, valid, num_heads)
+    stats = softmax_stats(s, mask)
+    p = _probs_from_stats(s, mask, stats)
+    out = _rows(_mm(p.to(q.dtype), _heads(v, num_heads))).to(q.dtype)
+    return (out, stats) if return_stats else out
 
 
-def flash_mha_bwd_plain(q, k, v, dout, valid, num_heads: int
+def flash_mha_bwd_plain(q, k, v, dout, valid, num_heads: int,
+                        stats: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """Plain version of the backward kernels, written out op by op with
-    their rounding points: (dq, dk, dv) in the compute dtype."""
+    their rounding points: (dq, dk, dv) in the compute dtype. p comes from
+    the forward's ``stats`` where given, else from the scores' own."""
     cdt = q.dtype
     hd = q.shape[2] // num_heads
-    qs, p = _probs(q, k, valid, num_heads)
+    qs, s, mask = _scores(q, k, valid, num_heads)
+    if stats is None:
+        stats = softmax_stats(s, mask)
+    else:
+        check_stats(stats, q, num_heads)
+    p = _probs_from_stats(s, mask, stats)
     do = _heads(dout.to(cdt), num_heads)
     dv = _mm(p.to(cdt).transpose(-1, -2), do)
     dp = _mm(do, _heads(v, num_heads).transpose(-1, -2))
@@ -94,6 +133,23 @@ def flash_mha_bwd_plain(q, k, v, dout, valid, num_heads: int
     dq = _mm(ds, _heads(k, num_heads)) * hd ** -0.5
     dk = _mm(ds.transpose(-1, -2), qs)
     return _rows(dq).to(cdt), _rows(dk).to(cdt), _rows(dv).to(cdt)
+
+
+def check_stats(stats: torch.Tensor, q: torch.Tensor, num_heads: int):
+    """Raises ValueError unless ``stats`` is the forward's [2, B, H, L] f32
+    tensor for ``q``, contiguous and on its device."""
+    B, L, _ = q.shape
+    want = (2, B, num_heads, L)
+    if not isinstance(stats, torch.Tensor) or tuple(stats.shape) != want \
+            or stats.dtype != torch.float32:
+        got = (tuple(stats.shape), stats.dtype) \
+            if isinstance(stats, torch.Tensor) else type(stats).__name__
+        raise ValueError(f"flash attention backward: stats must be the "
+                         f"forward's {want} float32 row max and sum, got "
+                         f"{got}")
+    if stats.device != q.device or not stats.is_contiguous():
+        raise ValueError(f"flash attention backward: stats must be "
+                         f"contiguous on {q.device}, got {stats.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -113,57 +169,70 @@ def _fn(name: str, n_ptr: int):
 
 
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  valid: torch.Tensor, num_heads: int) -> torch.Tensor:
+                  valid: torch.Tensor, num_heads: int,
+                  return_stats: bool = False):
     """The forward kernel on head-packed [B, L, D] q, k, v; ``valid`` [B, L]
-    (nonzero = valid key). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (counted in ``flash_mha_fwd.launches``)."""
+    (nonzero = valid key). With ``return_stats``, (out, stats): each query
+    row's softmax max and sum, [2, B, H, L] f32, for ``flash_mha_bwd``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (counted
+    in ``flash_mha_fwd.launches``)."""
     if q.device.type == "cpu":
-        return flash_mha_fwd_plain(q, k, v, valid, num_heads)
+        return flash_mha_fwd_plain(q, k, v, valid, num_heads, return_stats)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_fwd: no kernel for {q.device}")
     check_attention_inputs("flash attention kernel", num_heads, q, k, v)
     B, L, D = q.shape
     vi = valid_int32(valid, q.shape)
     out = torch.empty_like(q)
+    stats = torch.empty((2, B, num_heads, L), dtype=torch.float32,
+                        device=q.device)
     with torch.cuda.device(q.device):
-        rc = _fn("flash_attn_fwd", 5)(
+        rc = _fn("flash_attn_fwd", 6)(
             int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), vi.data_ptr(), out.data_ptr(), B, L, D, num_heads,
-            float(D // num_heads) ** -0.5, _stream(q.device))
+            v.data_ptr(), vi.data_ptr(), out.data_ptr(), stats.data_ptr(), B,
+            L, D, num_heads, float(D // num_heads) ** -0.5, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error "
                            f"{rc}")
     flash_mha_fwd.launches += 1
-    return out
+    return (out, stats) if return_stats else out
 
 
 flash_mha_fwd.launches = 0
 
 
 def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  dout: torch.Tensor, valid: torch.Tensor, num_heads: int
+                  dout: torch.Tensor, valid: torch.Tensor, num_heads: int,
+                  stats: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, ...]:
-    """The backward kernels: (dq, dk, dv). CPU tensors take the plain
-    version; CUDA tensors launch the kernels (one count in
+    """The backward kernels: (dq, dk, dv), p from the forward's ``stats``
+    (``flash_mha_fwd(..., return_stats=True)``). CPU tensors take the plain
+    version (which recomputes the stats where none are given); CUDA tensors
+    need the stats and launch the kernels (one count in
     ``flash_mha_bwd.launches``)."""
     if q.device.type == "cpu":
-        return flash_mha_bwd_plain(q, k, v, dout, valid, num_heads)
+        return flash_mha_bwd_plain(q, k, v, dout, valid, num_heads, stats)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_bwd: no kernel for {q.device}")
     check_attention_inputs("flash attention backward", num_heads, q, k, v,
                            dout)
+    if stats is None:
+        raise ValueError("flash_mha_bwd: the kernels take the forward's "
+                         "stats (flash_mha_fwd(..., return_stats=True))")
+    check_stats(stats, q, num_heads)
     B, L, D = q.shape
     vi = valid_int32(valid, q.shape)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # each row's softmax max, sum and rowsum(dp * p), for the dk/dv kernel
-    stats = torch.empty((3, B, num_heads, L), dtype=torch.float32,
+    # each row's rowsum(dp * p), from the dq kernel to the dk/dv kernel
+    delta = torch.empty((B, num_heads, L), dtype=torch.float32,
                         device=q.device)
     with torch.cuda.device(q.device):
-        rc = _fn("flash_attn_bwd", 9)(
+        rc = _fn("flash_attn_bwd", 10)(
             int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), vi.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, L, D,
-            num_heads, float(D // num_heads) ** -0.5, _stream(q.device))
+            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+            B, L, D, num_heads, float(D // num_heads) ** -0.5,
+            _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
                            f"{rc}")
@@ -176,19 +245,21 @@ flash_mha_bwd.launches = 0
 
 class FlashMHAFn(torch.autograd.Function):
     """``apply(q, k, v, valid, num_heads)``: the forward kernel, and the
-    backward kernels for dq, dk, dv."""
+    backward kernels for dq, dk, dv from the forward's row stats."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, num_heads):
-        ctx.save_for_backward(q, k, v, valid)
+        out, stats = flash_mha_fwd(q, k, v, valid, num_heads,
+                                   return_stats=True)
+        ctx.save_for_backward(q, k, v, valid, stats)
         ctx.num_heads = num_heads
-        return flash_mha_fwd(q, k, v, valid, num_heads)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, valid = ctx.saved_tensors
+        q, k, v, valid, stats = ctx.saved_tensors
         dq, dk, dv = flash_mha_bwd(q, k, v, dout.contiguous(), valid,
-                                   ctx.num_heads)
+                                   ctx.num_heads, stats)
         return dq, dk, dv, None, None
 
 

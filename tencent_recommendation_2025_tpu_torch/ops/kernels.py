@@ -13,12 +13,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -90,6 +91,58 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return report
+
+
+def _demangle(name: str) -> str:
+    """A kernel's name and template arguments from its mangled name
+    (``flash_fwd_wgmma_kernel<64>``); the mangled name where it is not a
+    nested template name."""
+    rest = name[3:] if name.startswith("_ZN") else ""
+    base = None
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        base, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    if base is None:
+        return name
+    args = []
+    if rest.startswith("I"):
+        rest = rest[1:]
+        while rest and rest[0] != "E":
+            lit = re.match(r"L[a-z](\d+)E", rest)
+            num = re.match(r"\d+", rest)
+            if lit:
+                args.append(lit.group(1))
+                rest = rest[lit.end():]
+            elif num:
+                n = int(num.group())
+                args.append(rest[num.end():num.end() + n].strip("_"))
+                rest = rest[num.end() + n:]
+            else:
+                args.append({"f": "float", "i": "int", "b": "bool"}.get(
+                    rest[0], rest[0]))
+                rest = rest[1:]
+    return base + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its name, registers and
+    spill stores and loads (bytes)."""
+    out: List[dict] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if entry:
+            out.append({"kernel": _demangle(entry.group(1)),
+                        "registers": None, "spill_stores": 0,
+                        "spill_loads": 0})
+        elif out and spill:
+            out[-1]["spill_stores"] = int(spill.group(1))
+            out[-1]["spill_loads"] = int(spill.group(2))
+        elif out and regs:
+            out[-1]["registers"] = int(regs.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

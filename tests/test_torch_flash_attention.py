@@ -169,3 +169,120 @@ def test_kernel_input_checks():
     with pytest.raises(ValueError, match="no kernel for meta"):
         TFA.flash_mha_fwd(meta, meta, meta, torch.ones(2, 256), 1)
     assert TFA.MAX_FLASH_L == JFA.MAX_FLASH_L
+
+
+# ---------------------------------------------------------------------------
+# the forward's row stats, which the backward kernels take
+# ---------------------------------------------------------------------------
+
+def _numpy_stats(q, k, valid, H, dtype):
+    """Each query row's max over its visible scores (finfo(f32).min where
+    none is visible) and sum of exp(score - max), in float64 from the same
+    rounded operands: [2, B, H, L]."""
+    B, L, D = q.shape
+    hd = D // H
+    qs = (torch.from_numpy(q).to(dtype).float() * hd ** -0.5).to(dtype)
+
+    def heads(a):
+        a = a.float().numpy().astype(np.float64)
+        return a.reshape(B, L, H, hd).transpose(0, 2, 1, 3)
+
+    s = heads(qs) @ heads(torch.from_numpy(k).to(dtype)).transpose(0, 1, 3, 2)
+    mask = np.tril(np.ones((L, L), bool))[None, None] & valid[:, None, None, :]
+    neg = np.finfo(np.float32).min
+    m = np.where(mask, s, -np.inf).max(-1)
+    m = np.where(np.isfinite(m), m, neg)
+    z = np.where(mask, np.exp(np.minimum(s - m[..., None], 0.0)), 0.0).sum(-1)
+    return np.stack([m, z])
+
+
+@pytest.mark.parametrize("H", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_forward_stats_match_numpy(H, dtype):
+    """``flash_mha_fwd(..., return_stats=True)`` on CPU tensors gives the
+    rows' max and sum as numpy computes them from the same rounded q and k
+    (rtol 1e-5: f32 against f64 sums), and on rows with no visible key (row
+    0's left padding, the fully padded last row) exactly finfo(f32).min
+    and 0."""
+    q, k, v, _, valid = _inputs(seed=20 + H)
+    t = [torch.from_numpy(a).to(dtype) for a in (q, k, v)]
+    out, stats = TFA.flash_mha_fwd(*t, torch.from_numpy(valid), H,
+                                   return_stats=True)
+    assert stats.shape == (2, 3, H, 256) and stats.dtype == torch.float32
+    torch.testing.assert_close(
+        out, TFA.flash_mha_fwd(*t, torch.from_numpy(valid), H), rtol=0,
+        atol=0)
+    want = _numpy_stats(q, k, valid, H, dtype)
+    got = stats.double().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    neg = torch.finfo(torch.float32).min
+    for dead in (stats[:, 0, :, :PAD], stats[:, -1]):
+        assert (dead[0] == neg).all() and (dead[1] == 0).all()
+    assert (stats[1, 0, :, PAD:] >= 1).all()   # the max's own exp(0)
+
+
+@pytest.mark.parametrize("H", [1, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_backward_with_stats_matches_jax(H, dtype):
+    """``flash_mha_bwd_plain`` given the plain forward's stats against the
+    JAX kernel's vjp (interpret mode), at this file's tolerances: f32 rtol
+    2e-4 / atol 2e-5; bf16 max abs <= 1/128 of max(1, max|ref|) and cosine
+    >= 0.99999."""
+    q, k, v, do, valid = _inputs(seed=30 + H)
+    tdt, jdt = {"f32": (torch.float32, jnp.float32),
+                "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    _, rgrads = _jax(q, k, v, do, valid, H, jdt)
+    t = [torch.from_numpy(a).to(tdt) for a in (q, k, v, do)]
+    vt = torch.from_numpy(valid)
+    _, stats = TFA.flash_mha_fwd_plain(*t[:3], vt, H, return_stats=True)
+    grads = TFA.flash_mha_bwd_plain(*t, vt, H, stats)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, rgrads):
+        g = got.float().numpy()
+        w = np.asarray(want.astype(jnp.float32))
+        if dtype == "f32":
+            np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-5,
+                                       err_msg=name)
+        else:
+            assert got.dtype == torch.bfloat16
+            lim = 1 / 128 * max(1.0, np.abs(w).max())
+            assert np.abs(g - w).max() <= lim, name
+            assert _cos(g, w) >= 0.99999, name
+        assert not got[-1].any() and not got[0, :PAD].any(), name
+
+
+def test_flash_fn_passes_forward_stats_to_backward(monkeypatch):
+    """``FlashMHAFn`` on CPU tensors hands the backward the very stats its
+    forward made."""
+    q, k, v, do, valid = _inputs(B=2, L=128, D=32)
+    t = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    vt = torch.from_numpy(valid)
+    seen = []
+    real = TFA.flash_mha_bwd
+
+    def spy(*args, **kw):
+        seen.append(args[6] if len(args) > 6 else kw.get("stats"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TFA, "flash_mha_bwd", spy)
+    out = TFA.flash_mha_packed(*t, vt, 2)
+    out.backward(torch.from_numpy(do))
+    _, want = TFA.flash_mha_fwd(*(a.detach() for a in t), vt, 2,
+                                return_stats=True)
+    assert len(seen) == 1 and seen[0] is not None
+    assert torch.equal(seen[0], want)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "heads", "type"])
+def test_backward_refuses_bad_stats(bad):
+    """Stats of the wrong shape, dtype or head count, or not a tensor,
+    raise ValueError before any launch."""
+    q, k, v, do, valid = _inputs(B=2, L=128, D=32)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    vt = torch.from_numpy(valid)
+    _, stats = TFA.flash_mha_fwd(*t[:3], vt, 2, return_stats=True)
+    stats = {"shape": stats[:, :, :, :64], "dtype": stats.double(),
+             "heads": stats.repeat(1, 1, 2, 1), "type": stats.tolist()}[bad]
+    before = TFA.flash_mha_bwd.launches
+    with pytest.raises(ValueError, match="stats"):
+        TFA.flash_mha_bwd(*t, vt, 2, stats)
+    assert TFA.flash_mha_bwd.launches == before

@@ -1,0 +1,49 @@
+"""The kernel build's report (tencent_recommendation_2025_tpu_torch/ops/
+kernels.py): each kernel's registers and spills as ``nvcc -Xptxas -v``
+prints them, which chip_smoke.py logs after the build. Runs on the CPU: the
+log is text."""
+
+from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__f0b83912_18_flash_attention_cu_fec1e3f627flash_bwd_dkdv_wgmma_kernelILi128EEEvNS_9FlashArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__f0b83912_18_flash_attention_cu_fec1e3f627flash_bwd_dkdv_wgmma_kernelILi128EEEvNS_9FlashArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 238 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__f0b83912_18_flash_attention_cu_fec1e3f621flash_bwd_dkdv_kernelI13__nv_bfloat16Li16EEEvNS_9FlashArgsEb' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__f0b83912_18_flash_attention_cu_fec1e3f621flash_bwd_dkdv_kernelI13__nv_bfloat16Li16EEEvNS_9FlashArgsEb
+    8 bytes stack frame, 120 bytes spill stores, 96 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN3fbk18reduce_rows_kernelEPKfiiPf' for 'sm_90a'
+ptxas info    : Used 32 registers
+"""
+
+
+def test_ptxas_report_names_each_kernel_with_registers_and_spills():
+    assert kernels.ptxas_report(LOG) == [
+        {"kernel": "flash_bwd_dkdv_wgmma_kernel<128>", "registers": 238,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "flash_bwd_dkdv_kernel<nv_bfloat16, 16>",
+         "registers": 255, "spill_stores": 120, "spill_loads": 96},
+        {"kernel": "reduce_rows_kernel", "registers": 32,
+         "spill_stores": 0, "spill_loads": 0}]
+
+
+def test_ptxas_report_of_a_log_without_kernels_is_empty():
+    assert kernels.ptxas_report("ptxas info    : 0 bytes gmem\n") == []
+
+
+def test_library_name_covers_every_shared_header(tmp_path, monkeypatch):
+    """An edit to a shared csrc/*.cuh (sm90_mma.cuh among them) renames
+    every kernel library, so the next build compiles it anew."""
+    for src in kernels.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = {n: kernels.library_path(n).name for n in kernels.SOURCES}
+    header = tmp_path / "sm90_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: kernels.library_path(n).name for n in kernels.SOURCES}
+    assert all(before[n] != after[n] for n in kernels.SOURCES)
+    assert after["flash_attention"].startswith("libflash_attention-")

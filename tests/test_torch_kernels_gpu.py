@@ -191,8 +191,8 @@ def test_flash_attention_kernels_match_plain_on_card(L, H):
 
     q, k, v, dout, valid, _ = _attention(3, L, 64, H, torch.float32, 8)
     before = (FA.flash_mha_fwd.launches, FA.flash_mha_bwd.launches)
-    out = FA.flash_mha_fwd(q, k, v, valid, H)
-    grads = FA.flash_mha_bwd(q, k, v, dout, valid, H)
+    out, stats = FA.flash_mha_fwd(q, k, v, valid, H, return_stats=True)
+    grads = FA.flash_mha_bwd(q, k, v, dout, valid, H, stats)
     torch.cuda.synchronize()
     assert (FA.flash_mha_fwd.launches,
             FA.flash_mha_bwd.launches) == (before[0] + 1, before[1] + 1)
@@ -260,8 +260,9 @@ def test_chunked_hstu_attention_kernels_match_plain_on_card(L, H, NB):
 @pytest.mark.parametrize("kind", ["flash", "hstu"])
 @pytest.mark.parametrize("D,H", [(32, 4), (128, 1)])
 def test_attention_kernels_at_head_dims_on_card(kind, D, H):
-    """hd 8 (FMA products, no tensor cores) and hd 128 (cut tiles in the
-    backward) against the plain versions, f32 and bf16 forward."""
+    """hd 8 and hd 128 against the plain versions, f32 and bf16 (flash
+    MHA: f32 on the first kernels, FMA loops at hd 8 and cut tiles at 128;
+    bf16 on the wgmma kernels, hd 8 padded to 16 columns)."""
     _cuda_or_skip()
     from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
     from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
@@ -270,8 +271,9 @@ def test_attention_kernels_at_head_dims_on_card(kind, D, H):
     for dt in (torch.float32, torch.bfloat16):
         q, k, v, dout, valid, rab = _attention(2, L, D, H, dt, 15)
         if kind == "flash":
-            got = (FA.flash_mha_fwd(q, k, v, valid, H),
-                   *FA.flash_mha_bwd(q, k, v, dout, valid, H))
+            out, stats = FA.flash_mha_fwd(q, k, v, valid, H,
+                                          return_stats=True)
+            got = (out, *FA.flash_mha_bwd(q, k, v, dout, valid, H, stats))
             want = (FA.flash_mha_fwd_plain(q, k, v, valid, H),
                     *FA.flash_mha_bwd_plain(q, k, v, dout, valid, H))
         else:
@@ -288,6 +290,67 @@ def test_attention_kernels_at_head_dims_on_card(kind, D, H):
                 g, r = g.float().flatten(), r.float().flatten()
                 assert (g - r).abs().max() <= 3e-2 * max(1.0, r.abs().max())
                 assert torch.nn.functional.cosine_similarity(g, r, 0) > 0.999
+
+
+def _bf16_close(got, ref, what):
+    """One bf16 step of the largest value, cosine 0.999."""
+    g, r = got.float().flatten(), ref.float().flatten()
+    assert (g - r).abs().max() <= 3e-2 * max(1.0, r.abs().max()), what
+    assert torch.nn.functional.cosine_similarity(g, r, 0) >= 0.999, what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,D,H", [(1024, 64, 4), (512, 96, 4),
+                                   (256, 256, 1), (384, 64, 1), (256, 36, 4)])
+def test_flash_attention_paths_on_card(L, D, H, dtype):
+    """Every path of the flash kernels: hd 16 at L=1024, hd 24 (a head
+    padded to 32 columns), hd 256 (the first kernels' bf16 path), L=384
+    (six tiles) and hd 9 (odd: copies through registers, element stores),
+    f32 and bf16, with left padding and a fully padded row. Outputs and gradients match the plain versions (f32 rtol 1e-4 /
+    2e-4; bf16 as _bf16_close), fully masked tokens are exactly 0, and the
+    kernel's row stats match the plain forward's (rtol 1e-4; rows with no
+    visible key exactly finfo(f32).min and 0)."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, dout, valid, _ = _attention(4, L, D, H, dtype, 16)
+    out, stats = FA.flash_mha_fwd(q, k, v, valid, H, return_stats=True)
+    grads = FA.flash_mha_bwd(q, k, v, dout, valid, H, stats)
+    torch.cuda.synchronize()
+    ref, ref_stats = FA.flash_mha_fwd_plain(q, k, v, valid, H,
+                                            return_stats=True)
+    want = FA.flash_mha_bwd_plain(q, k, v, dout, valid, H, ref_stats)
+    pad = L // 3 + 5
+    for name, g, r in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                          (ref, *want)):
+        if dtype == torch.float32:
+            _close(g, r, name)
+        else:
+            _bf16_close(g, r, name)
+        assert not g[-1].any() and not g[0, :pad].any(), name
+    dead = ref_stats[1] == 0
+    assert (stats[1][dead] == 0).all()
+    assert (stats[0][dead] == torch.finfo(torch.float32).min).all()
+    torch.testing.assert_close(stats[:, ~dead], ref_stats[:, ~dead],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_backward_needs_the_forward_stats_on_card():
+    """On CUDA tensors the backward raises without the forward's stats, or
+    with stats of another shape, before a launch."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, dout, valid, _ = _attention(2, 256, 64, 4, torch.bfloat16, 17)
+    _, stats = FA.flash_mha_fwd(q, k, v, valid, 4, return_stats=True)
+    before = FA.flash_mha_bwd.launches
+    with pytest.raises(ValueError, match="stats"):
+        FA.flash_mha_bwd(q, k, v, dout, valid, 4)
+    with pytest.raises(ValueError, match="stats"):
+        FA.flash_mha_bwd(q, k, v, dout, valid, 4, stats[:, :1])
+    assert FA.flash_mha_bwd.launches == before
 
 
 @pytest.mark.gpu
