@@ -22,9 +22,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                bf16 output follows its rounding point;
                then their times at both main paths' shapes (B=128, L=1024
                and B=32, L=4096; CUDA events) beside the plain versions' and
-               their bounds; then the attention cores, flash MHA (L=256,
-               H=4; L=1024, H=1) and the standalone HSTU attention (L=256
-               and 1024, H=4 and 1, 128 and 300 buckets; its chunked route
+               their bounds; then the fused block's attention backward
+               (csrc/hstu_attn_bwd_sm90.cuh, which the single device and
+               the ring launch) against the plain pair version in bf16 at
+               hd 8, 16, 32, 64 and 128 and in f32, at off 0 and +L, with
+               the wgmma kernels' spills from the build (none at W <= 64),
+               and its dq and dk/dv timed at the flagship, long and sparse
+               shapes beside the plain versions and their bounds (TFLOP/s
+               over the 7 products run); then the attention cores, flash
+               MHA (L=256, H=4; L=1024, H=1) and the standalone HSTU
+               attention (L=256 and 1024, H=4 and 1, 128 and 300
+               buckets; its chunked route
                at L = 2048, 4096 and 16384 and with 1000 buckets), both at
                hd 8 and hd 128, forward and backward in f32 and bf16, each
                call on its route's launch counters, fully masked rows and
@@ -50,7 +58,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                and depth on 16 rows (8 at L=4096 and for sparse) against the
                plain versions on the CPU in bf16 and in f32 (loss and
                per-leaf gradient cosine); prints
-               train examples/s and a profile of one step;
+               train examples/s and a profile of one step (a fused run's
+               must name the attention backward's wgmma kernels and none
+               of the kernels they replaced);
 5. serving  — the port's cli.infer main with the same arguments on the
                checkpoint just trained; checks every launch count,
                recomputes the first query batch with the plain versions on
@@ -90,7 +100,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                single-device chunked step on the card and the CPU's plain
                ring, in bf16 and f32, on 8 rows, each step's
                launches held; the S = 2 step's ms and tokens/s (6 after 2,
-               launches held) and its profile;
+               launches held) and its profile (the attention backward's
+               wgmma kernels named, as in the fused runs);
 7. parity   — phases 4 and 5 for the reference's own models and the
                ReLU-FFN HSTU: cli.train's default (no --preset: baseline at
                L=102, dense, no kernel launched), ``--preset baseline
@@ -143,6 +154,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -174,12 +186,22 @@ LONG_FIXTURE = dict(num_users=384, num_items=5000, min_seq=2048,
 PARITY_FIXTURE = dict(num_users=1024, num_items=5000, min_seq=20,
                       max_seq=250, seed=21)
 
+#: the HSTU attention backward (csrc/hstu_attn_bwd_sm90.cuh), shared by the
+#: single device's fused backward and the ring's pairs: the wgmma kernels
+#: (bf16, hd <= 128), then the generic ones (f32, wider heads)
+ATTN_BWD_WGMMA = ("attn_bwd_dq_wgmma_kernel", "attn_bwd_dkdv_wgmma_kernel")
+ATTN_BWD_NAMES = ATTN_BWD_WGMMA + ("attn_bwd_dq_kernel",
+                                   "attn_bwd_dkdv_kernel")
+#: the attention backward kernels these replaced, which no step may launch
+ATTN_BWD_DELETED = ("attn_dq_kernel", "attn_dkdv_kernel", "pair_dq_kernel",
+                    "pair_dkdv_kernel")
 #: CUDA kernel names of each kernel family, as a profile lists them
 #: (forward, backward)
 KERNEL_NAMES = {
     "fused": (("proj_kernel", "attn_ffn_kernel"),
-              ("gate_ffn_bwd_kernel", "attn_dkdv_kernel", "attn_dq_kernel",
-               "proj_bwd_kernel", "reduce_rows_kernel")),
+              ("gate_ffn_bwd_kernel",) + ATTN_BWD_NAMES
+              + ("proj_bwd_kernel", "reduce_rows_kernel",
+                 "reduce_rows_split_kernel")),
     "flash": (("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
               ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
@@ -187,8 +209,9 @@ KERNEL_NAMES = {
              ("hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
               "reduce_rows_kernel")),
     "ring": (("proj_kernel", "attn_ffn_kernel", "pair_fwd_kernel"),
-             ("gate_ffn_bwd_kernel", "pair_dq_kernel", "pair_dkdv_kernel",
-              "proj_bwd_kernel", "reduce_rows_kernel")),
+             ("gate_ffn_bwd_kernel",) + ATTN_BWD_NAMES
+             + ("proj_bwd_kernel", "reduce_rows_kernel",
+                "reduce_rows_split_kernel")),
     "none": ((), ())}
 # the chunked HSTU attention route launches the same CUDA functions
 KERNEL_NAMES["hstu_chunk"] = KERNEL_NAMES["hstu"]
@@ -707,6 +730,189 @@ def phase_times(s):
     del x, ops, tt, ref_av, dout
     _free()
     return ok, entries
+
+
+# ---------------------------------------------------------------------------
+# phase 3a: the HSTU attention backward (csrc/hstu_attn_bwd_sm90.cuh)
+# ---------------------------------------------------------------------------
+
+#: the attention backward's shapes on the main paths (B, L, D, H), by the
+#: run whose fused backward launches them
+ATTN_BWD_SHAPES = {"flagship": (128, 1024, 64, 1), "long": (32, 4096, 64, 1),
+                   "sparse": (64, 1024, 64, 4)}
+#: TPU kernel lines of each shape's (dq, dk/dv): the whole-sequence
+#: backward (row 2) or the chunked variant's two kernels (rows 7 and 8)
+_ATTN_BWD_REPLACES = {"flagship": ("325", "325"), "long": ("533", "573"),
+                      "sparse": ("325", "325")}
+#: (hd, H) of the checks, D = hd * H a multiple of 16
+ATTN_BWD_HEADS = ((8, 2), (16, 4), (32, 2), (64, 1), (128, 1))
+
+
+def attn_bwd_bound(B, L, D, H, which, elem=2, NB=128):
+    """(flops, bytes) of the attention backward over L tokens at off 0:
+    ``which`` "dq" (3 causal products, s, da and dq; q, k, v and dav in,
+    dq and drab out), "dkdv" (4: s, da, dv and dk; dk and dv out) or
+    "pair" (the least work of both: 5 products; dq, dk, dv and drab out).
+    Each input read once, each output written once."""
+    prod = B * D * L * (L + 1)          # one causal [L, L] x D product
+    act, f32 = B * L * D * elem, B * L * D * 4
+    ins = 4 * act + B * L * 4 + H * NB * 4
+    return {"dq": (3 * prod, ins + f32 + H * NB * 4),
+            "dkdv": (4 * prod, ins + 2 * f32),
+            "pair": (5 * prod, ins + 3 * f32 + H * NB * 4)}[which]
+
+
+def check_attn_bwd(B, L, hd, H, off, dt, seed):
+    """The attention backward's two kernels through ring_pair_dq and
+    ring_pair_dkdv (one launch each) against ring_pair_bwd_plain on the
+    card: row 0 left-padded, the last row fully padded, 128 buckets."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    q, k, v, dav, valid, rab = _pair_inputs(B, L, hd * H, H, dt, seed)
+    before = read_launches()
+    dq, drab = FB.ring_pair_dq(q, k, v, dav, valid, rab, off, H)
+    dk, dv = FB.ring_pair_dkdv(q, k, v, dav, valid, rab, off, H)
+    torch.cuda.synchronize()
+    after = read_launches()
+    ok = {n: after[n] - before[n] for n in after} == dict(
+        dict.fromkeys(after, 0), ring_pair_dq=1, ring_pair_dkdv=1)
+    want = FB.ring_pair_bwd_plain(q, k, v, dav, valid, rab, off, H)
+    worst, fails = (None, 0.0), []
+    for name, g, w in zip(("dq", "drab", "dk", "dv"), (dq, drab, dk, dv),
+                          want):
+        okg, eg, lim = compare_grad(g, w, dt)
+        okg &= bool(torch.isfinite(g).all())
+        ok &= okg
+        if eg >= worst[1]:
+            worst = (name, eg)
+        if not okg:
+            fails.append(f"{name} {eg:.4g} ({lim})")
+    ok &= not dk[-1].any() and not dv[-1].any()
+    log(f"attention backward B={B} L={L} hd={hd} H={H} off={off} "
+        f"{str(dt)[6:]}: largest error {worst[1]:.6g} ({worst[0]})"
+        + (f", failing: {'; '.join(fails)}" if fails else "")
+        + f" {'ok' if ok else 'FAIL'}")
+    del q, k, v, dav, dq, dk, dv, want
+    _free()
+    return ok
+
+
+def attn_bwd_times(name, B, L, D, H):
+    """At a main path's shape, in bf16 at off 0 (the single device's
+    call): both kernels held to the plain version, then timed (CUDA
+    events; the kernels' device time by the profiler) beside the plain
+    versions and their bounds. Returns (ok, the two JSON entries without
+    launches)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    bf16 = torch.bfloat16
+    q, k, v, dav, valid, rab = _pair_inputs(B, L, D, H, bf16, 41)
+    got = (*FB.ring_pair_dq(q, k, v, dav, valid, rab, 0, H),
+           *FB.ring_pair_dkdv(q, k, v, dav, valid, rab, 0, H))
+    want = FB.ring_pair_bwd_plain(q, k, v, dav, valid, rab, 0, H)
+    res = [compare_grad(g, w, bf16) for g, w in zip(got, want)]
+    ok = all(r[0] for r in res) and all(
+        bool(torch.isfinite(g).all()) for g in got)
+    err = {"dq": max(res[0][1], res[1][1]), "dkdv": max(res[2][1], res[3][1])}
+    del got, want
+    _free()
+    kern = {"dq": lambda: FB.ring_pair_dq(q, k, v, dav, valid, rab, 0, H),
+            "dkdv": lambda: FB.ring_pair_dkdv(q, k, v, dav, valid, rab, 0,
+                                              H)}
+    plain = {"dq": lambda: FB.ring_pair_dq_plain(q, k, v, dav, valid, rab, 0,
+                                                 H),
+             "dkdv": lambda: FB.ring_pair_dkdv_plain(q, k, v, dav, valid,
+                                                     rab, 0, H)}
+    t = {w: time_ms(kern[w], 3, 20) for w in kern}
+    dev = {w: kernel_device_ms(kern[w], (f"attn_bwd_{w}_wgmma_kernel",))
+           for w in kern}
+    tp = {w: time_ms(plain[w], 1, 3) for w in plain}
+    _free()
+    prod = B * D * L * (L + 1)
+    entries = []
+    for w, rows in zip(("dq", "dkdv"), _ATTN_BWD_REPLACES[name]):
+        flops, nbytes = attn_bwd_bound(B, L, D, H, w)
+        bound, by, _, _ = _bound(flops, nbytes)
+        log(f"attention backward {w} at {name} (B={B}, L={L}, D={D}, H={H}, "
+            f"bf16, off 0): kernel {t[w]:.4f} ms (device {dev[w]:.4f} ms), "
+            f"plain {tp[w]:.4f} ms, bound {bound:.4f} ms ({by}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+            f"{flops / t[w] / 1e9:.1f} TFLOP/s; max abs err {err[w]:.4g}")
+        entries.append({"name": f"hstu_attn_bwd_{w}_{name}", "route": "cuda",
+                        "source": SRC + "hstu_attn_bwd_sm90.cuh",
+                        "replaces": f"{TPU}:{rows}", "launches": None,
+                        "max_abs_err": err[w], "ms": t[w], "plain_ms": tp[w],
+                        "bound_ms": bound, "bound_by": by,
+                        "library_ms": None})
+    flops, nbytes = attn_bwd_bound(B, L, D, H, "pair")
+    bound, by, _, _ = _bound(flops, nbytes)
+    total = t["dq"] + t["dkdv"]
+    log(f"attention backward at {name}: dq + dk/dv {total:.4f} ms (device "
+        f"{dev['dq'] + dev['dkdv']:.4f} ms), plain {tp['dq'] + tp['dkdv']:.4f}"
+        f" ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB), {total / bound:.1f}x the bound; "
+        f"{7 * prod / total / 1e9:.1f} TFLOP/s over the 7 products run "
+        f"({7 * prod / 1e9:.2f} GFLOP) {'ok' if ok else 'FAIL'}")
+    del q, k, v, dav
+    _free()
+    return ok, entries
+
+
+def phase_attn_bwd():
+    """The HSTU attention backward of csrc/hstu_attn_bwd_sm90.cuh (the
+    single device's fused backward and the ring's pairs launch it): held to
+    the plain pair version at B=2, L=1024, in bf16 at hd 8, 16, 32, 64 and
+    128 (the wgmma kernels) and in f32 at hd 16 and 64 (the generic ones),
+    at off 0 (the causal diagonal) and +L (every pair visible); then timed
+    at the flagship, long and sparse shapes. Returns (ok, {run name: the
+    JSON entries of dq and dk/dv})."""
+    import torch
+
+    t0 = time.perf_counter()
+    ok, i = True, 0
+    cases = [(hd, H, torch.bfloat16) for hd, H in ATTN_BWD_HEADS] + [
+        (16, 4, torch.float32), (64, 1, torch.float32)]
+    for hd, H, dt in cases:
+        for off in (0, 1024):
+            ok &= check_attn_bwd(2, 1024, hd, H, off, dt, 200 + i)
+            i += 1
+    entries = {}
+    for name, (B, L, D, H) in ATTN_BWD_SHAPES.items():
+        ok_t, entries[name] = attn_bwd_times(name, B, L, D, H)
+        ok &= ok_t
+    log(f"attention backward phase: {time.perf_counter() - t0:.1f} s")
+    return ok, entries
+
+
+def attn_bwd_spills(report):
+    """Whether the attention backward's wgmma kernels at W <= 64 spill
+    nothing in this run's build (-Xptxas -v of fused_block_bwd and
+    ring_pair, 8 instances each); logs each instance."""
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    ok = True
+    for lib in ("fused_block_bwd", "ring_pair"):
+        if lib not in report:
+            log(f"{lib}: not built in this run; spills not read")
+            continue
+        found = []
+        for k in kernels.ptxas_report(report[lib]["log"]):
+            m = re.match(r"attn_bwd_(dq|dkdv)_wgmma_kernel<(\d+)>$",
+                         k["kernel"])
+            if not m:
+                continue
+            spill = k["spill_stores"] + k["spill_loads"]
+            found.append(f"{k['kernel']} {k['registers']} registers, spills "
+                         f"{k['spill_stores']}/{k['spill_loads']} B")
+            ok &= int(m.group(2)) > 64 or spill == 0
+        ok &= len(found) == 8
+        log(f"{lib}: attention backward wgmma kernels: {'; '.join(found)} "
+            f"{'ok' if ok else 'FAIL'}")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -1474,10 +1680,26 @@ def _device_ms(prof):
     return by_name
 
 
+def attn_bwd_route(name, by_name):
+    """Whether a profiled bf16 step's backward ran the attention backward's
+    wgmma kernels (both, with device time) and none of the kernels they
+    replaced nor the generic instance; logs the names found."""
+    found = {n: sum(v for k, v in by_name.items() if n in k)
+             for n in ATTN_BWD_NAMES + ATTN_BWD_DELETED}
+    ok = all(found[n] > 0 for n in ATTN_BWD_WGMMA) and not any(
+        found[n] for n in ATTN_BWD_NAMES[2:] + ATTN_BWD_DELETED)
+    log(f"{name}: attention backward route in the profiled step (device "
+        f"ms): " + ", ".join(f"{n} {v:.3f}" for n, v in found.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def phase_train_speed(data, ckpt, run):
     """Train examples/s and tokens/s of the step itself (host clock,
     synchronised, after warm-up, on batches already on the card), and where
-    one step's time goes (torch.profiler)."""
+    one step's time goes (torch.profiler). Returns whether a fused run's
+    profiled step took the attention backward's wgmma kernels (True for
+    the other runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1533,7 +1755,7 @@ def phase_train_speed(data, ckpt, run):
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall):.1%}); "
         f"{run.kernels} forward kernels {fwd:.3f} ms ({fsplit}), backward "
         f"kernels {bwd:.3f} ms ({split}); other kernels (ms): {others}")
-    return B / dt
+    return run.kernels != "fused" or attn_bwd_route(run.name, by_name)
 
 
 # ---------------------------------------------------------------------------
@@ -1699,7 +1921,7 @@ def phase_run(run, oks):
     oks[f"{run.name}_train"], trained, ckpt, data = phase_training(run)
     if run.one_step:
         oks[f"{run.name}_one_step"] = phase_one_step(run, data, ckpt)
-    phase_train_speed(data, ckpt, run)
+    oks[f"{run.name}_route"] = phase_train_speed(data, ckpt, run)
     log(f"{run.name} training phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     oks[f"{run.name}_serve"], served = phase_serving(ckpt, run)
@@ -2111,8 +2333,8 @@ _RING_REPLACES = {"ring_pair_fwd": "1269", "ring_pair_dq": "1304",
                   "ring_post_fwd": "502", "ring_post_bwd": "612",
                   "ring_pre_bwd": "710"}
 _RING_SOURCES = {"ring_pair_fwd": "ring_pair.cu",
-                 "ring_pair_dq": "ring_pair.cu",
-                 "ring_pair_dkdv": "ring_pair.cu",
+                 "ring_pair_dq": "hstu_attn_bwd_sm90.cuh",
+                 "ring_pair_dkdv": "hstu_attn_bwd_sm90.cuh",
                  "ring_pre_fwd": "fused_block.cu",
                  "ring_post_fwd": "fused_block.cu",
                  "ring_post_bwd": "fused_block_bwd.cu",
@@ -2519,7 +2741,8 @@ def phase_ring_speed(run, ckpt, S=2):
     """Train step ms and tokens/s on a local mesh of S shards (the long
     run's B = 32, L = 4096, bf16, dropout as the preset): 6 synchronised
     steps after 2, the counters set to 0 before the 8 and held after; then
-    one step's profile. Returns (ok, launches)."""
+    one step's profile, which must name the attention backward's wgmma
+    kernels. Returns (ok, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2573,6 +2796,7 @@ def phase_ring_speed(run, ckpt, S=2):
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall):.1%}); forward "
         f"kernels {fwd:.3f} ms ({fsplit}), backward kernels {bwd:.3f} ms "
         f"({split}); other kernels (ms): {others}")
+    ok &= attn_bwd_route(f"ring S={S}", by_name)
     return ok, launches
 
 
@@ -2637,12 +2861,13 @@ def main() -> int:
             f"{k['spill_stores']}/{k['spill_loads']} B"
             for k in kernels.ptxas_report(r["log"])))
 
-    oks = {}
+    oks = {"attn_bwd_spills": attn_bwd_spills(report)}
     t0 = time.perf_counter()
     oks["kernels"] = phase_kernels()
     oks["times"], entries = phase_times(FLAGSHIP)
     oks["times_chunked"], chunked = phase_times(LONG)
     entries += chunked
+    oks["attn_bwd"], attn_bwd = phase_attn_bwd()
     oks["attention_kernels"] = phase_attention_kernels()
     oks["attention_times"], attention = phase_attention_times()
     oks["group_kernels"], group_entries = phase_group_kernels()
@@ -2663,6 +2888,8 @@ def main() -> int:
                                     trained["fused_train"],
                                     trained["fused_bwd"])):
             entry["launches"] = n
+        for entry in attn_bwd[run.name]:   # one of each per fused backward
+            entry["launches"] = trained["fused_bwd"]
     # the ring on the long run's fixture and checkpoint
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
 
@@ -2686,12 +2913,15 @@ def main() -> int:
     entries += [entry for _, entry in attention]
     # sharded_multihost's table is below packed scale: no group scatter
     for run in (SPARSE_RUN, SOFTMAX_DP_RUN):
-        phase_run(run, oks)
+        trained, _ = phase_run(run, oks)
+        for entry in attn_bwd.get(run.name, ()):
+            entry["launches"] = trained["fused_bwd"]
     t0 = time.perf_counter()
     oks["sparse_100m"], launches = phase_sparse_100m()
     log(f"100m phase: {time.perf_counter() - t0:.1f} s")
     for entry in group_entries:
         entry["launches"] = launches[entry["name"]]
+    entries += [e for es in attn_bwd.values() for e in es]
     entries += group_entries + ring_entries
     log(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     log(card)

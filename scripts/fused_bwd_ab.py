@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Time the fused HSTU block's backward and the ring's pair backward of one
+checkout of the port, on one NVIDIA H100, for a comparison of two commits
+in one machine's turns.
+
+    python3 scripts/fused_bwd_ab.py ROOT TAG
+
+ROOT is the root of a checkout (this one, or an older commit unpacked with
+``git archive`` into a git-ignored directory); its package, its
+``chip_smoke.py`` helpers and its kernels (built under ROOT/build/) are the
+ones timed. Run it once per side in turns, each side its own process:
+
+    for t in parent change change parent; do
+        r=$([ $t = parent ] && echo build/parent || echo .)
+        (cd $r && python3 "$OLDPWD/scripts/fused_bwd_ab.py" "$PWD" $t)
+    done
+
+Times, in bf16 with the flagship's dropout: ``fused_hstu_block_bwd`` at the
+flagship (B=128, L=1024, D=64, H=1), long (B=32, L=4096) and sparse (B=64,
+L=1024, H=4) shapes, CUDA events over 10 calls after 2, with the device ms
+of each kernel name in one profiled call; and ``ring_pair_dq`` /
+``ring_pair_dkdv`` at the S = 2 shard (B=32, Lc=2048), the mean over
+offsets 0, 0 and +Lc. Prints ``tree TAG <package file>``, then one line
+``AB {json}``.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+
+def main() -> int:
+    root, tag = sys.argv[1], sys.argv[2]
+    sys.path.insert(0, root)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("fused_bwd_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("tree", tag, FB.__file__, flush=True)
+    kernels.build_all(["fused_block_bwd", "ring_pair"])
+    bf16 = torch.bfloat16
+    out = {"tag": tag, "card": cs.card_line()}
+
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {k[:40]: round(v, 4)
+                for k, v in cs._device_ms(prof).most_common(8)}
+
+    for name, shp in (("flagship", cs.FLAGSHIP), ("long", cs.LONG),
+                      ("sparse", dict(cs.FLAGSHIP, B=64, H=4))):
+        H = shp["H"]
+        x, ops, tt = cs.block_inputs(**shp, dtype=bf16, seed=12)
+        av = FB.fused_hstu_block_train(x, ops, tt, H, 5, 0.01)[1]
+        dout = torch.randn(x.shape, generator=torch.Generator(
+            device="cuda").manual_seed(3), device="cuda").to(bf16)
+
+        def bwd():
+            return FB.fused_hstu_block_bwd(x, av, dout, ops, tt, H, 5, 0.01)
+
+        out[name] = {"bwd_ms": cs.time_ms(bwd, 2, 10),
+                     "device": device_ms(bwd)}
+        del x, ops, tt, av, dout
+        cs._free()
+    q, k, v, dav, valid, rab = cs._pair_inputs(32, 2048, 64, 1, bf16, 61)
+    for w, fn in (("dq", FB.ring_pair_dq), ("dkdv", FB.ring_pair_dkdv)):
+        ts = [cs.time_ms(lambda: fn(q, k, v, dav, valid, rab, o, 1), 2, 10)
+              for o in (0, 0, 2048)]
+        out[f"ring_{w}_ms"] = sum(ts) / 3
+    print("AB", json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -84,7 +84,6 @@ namespace {
 
 constexpr float kNeg = -FLT_MAX;       // finfo(f32).min, the masked score
 constexpr int kMaxHd = 256;            // widest head slice the kernels take
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct FlashArgs {
   const void* q;       // [B, L, D] T
@@ -446,43 +445,16 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kTile = sm90::kRows;   // query and key tile rows
 constexpr int kWg = sm90::kWgThreads;
-constexpr int kStages = 2;           // ring stages: loads run one tile ahead
 
 using sm90::acc_col;
 using sm90::acc_row;
-
-// Shared memory of the wgmma kernels, from a 1024-byte boundary: `fixed`
-// tiles held for the whole block (the query tile, or the key and value
-// tiles) and 1024 bytes of row data, then kStages ring stages of
-// `per_stage` tiles and 1024 bytes of row data (key-valid flags or the
-// query rows' stats) each.
-template <int W>
-struct Carve {
-  static constexpr size_t kTileBytes = sm90::Tile<W>::bytes(kTile);
-  int fixed, per_stage;
-
-  __host__ __device__ size_t stage_bytes() const {
-    return per_stage * kTileBytes + 1024;
-  }
-  __host__ __device__ size_t bytes() const {
-    return 1024 + fixed * kTileBytes + 1024 + kStages * stage_bytes();
-  }
-  __device__ bf16* held(unsigned char* base, int i) const {
-    return reinterpret_cast<bf16*>(base + i * kTileBytes);
-  }
-  __device__ unsigned char* held_rows(unsigned char* base) const {
-    return base + fixed * kTileBytes;
-  }
-  __device__ unsigned char* stage(unsigned char* base, int s) const {
-    return base + fixed * kTileBytes + 1024 + s * stage_bytes();
-  }
-  __device__ bf16* tile(unsigned char* base, int s, int i) const {
-    return reinterpret_cast<bf16*>(stage(base, s) + i * kTileBytes);
-  }
-  __device__ unsigned char* rows(unsigned char* base, int s) const {
-    return stage(base, s) + per_stage * kTileBytes;
-  }
-};
+using sm90::accumulate;
+using sm90::aligned16;
+using sm90::Carve;
+using sm90::kLog2e;
+using sm90::kStages;
+using sm90::scores;
+using sm90::wgmma_width;
 
 // Bits of this thread's 32 accumulator elements (S = Q.K^T layout: rows
 // queries, columns keys) that are visible: key valid and, on the diagonal
@@ -495,27 +467,6 @@ __device__ __forceinline__ uint32_t visible_bits(const int* kv, bool diag) {
     if (kv[c] != 0 && (!diag || r >= c)) bits |= 1u << i;
   }
   return bits;
-}
-
-// S (or S^T) = A . B^T over the W-column tiles a and b (64 rows each).
-template <int W>
-__device__ __forceinline__ void scores(float (&s)[32], const bf16* a,
-                                       const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk)
-    sm90::mma_ss_n64(s, sm90::Tile<W>::desc_k(a, kTile, kk),
-                     sm90::Tile<W>::desc_k(b, kTile, kk), kk > 0 ? 1 : 0);
-}
-
-// acc += T(P) . B over the 64 rows of the MN-major tile b, P's bf16 A
-// fragments in a.
-template <int W>
-__device__ __forceinline__ void accumulate(float (&acc)[W / 2],
-                                           const uint32_t (&a)[4][4],
-                                           const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    sm90::mma_rs<W>(acc, a[kk], sm90::Tile<W>::desc_mn(b, kTile, kk), 1);
 }
 
 // Writes this thread's part of a 64 x W accumulator, times `scale`, as
@@ -967,11 +918,6 @@ bool shapes_ok(int B, int L, int D, int H) {
   return D / H <= kMaxHd;
 }
 
-// The wgmma kernels' tile width for a head of hd columns (0: none).
-int wgmma_width(int hd) {
-  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0;
-}
-
 template <typename K>
 int launch_wg(K kernel, size_t smem, const FlashArgs& p,
               cudaStream_t stream) {
@@ -1063,10 +1009,6 @@ int launch_bwd(const FlashArgs& p, cudaStream_t stream) {
     case 16: return launch_bwd_tiles<T, 16>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 FlashArgs make_args(const void* q, const void* k, const void* v,

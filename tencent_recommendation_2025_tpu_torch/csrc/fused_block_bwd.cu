@@ -35,28 +35,29 @@
 //   gate_ffn_bwd   G blocks striding over 64-token tiles: the recompute, the
 //                  FFN, out-projection and gate backward; writes q, k, v,
 //                  T(dav) and du, dy (f32) to a scratch;
-//   attn_dkdv      one block per (key tile, batch row), walking the query
-//                  tiles at or below the diagonal: dv, dk, and the rel-pos
-//                  gradient summed per diagonal of each tile;
-//   attn_dq        one block per (query tile, batch row), walking the key
-//                  tiles up to the diagonal: dq (s and ds are recomputed);
+//   attention      the HSTU attention backward of csrc/hstu_attn_bwd_sm90.cuh
+//                  at off 0 and Lq = Lk = L, the kernels the ring's pairs
+//                  launch too: dq (times hd^-1/2) with the rel-pos gradient
+//                  summed per diagonal of each tile into per-(query tile,
+//                  row) partials, then dk and dv (wgmma kernels in bf16 at
+//                  hd <= 128, the generic ones in f32 and at wider heads);
 //   proj_bwd       G blocks striding over token tiles: the projection and
 //                  LN1 backward, plus the residual, writing dx.
 // Weight, LN and bias gradients accumulate into a per-block slice of a
-// partial-sum buffer ([G, P] f32, the rel-pos one per key tile); a last
-// pass (reduce_rows) sums the slices in a fixed order. No atomics: the
-// result is deterministic.
+// partial-sum buffer ([G, P] f32); a last pass (reduce_rows) sums the slices
+// in a fixed order, as it sums the rel-pos partials. No atomics: the result
+// is deterministic.
 //
 // Bound on the H100 at the flagship shape (B=128, L=1024, D=64, F=256,
 // H=1), per block: 93.46 GFLOP of products (recompute: projection 4.29,
 // s 8.60, Wo 1.07, W13 8.59; attention dv, da, dq, dk 8.60 each; weight
 // products twice each, dW and dX: projection 8.59, Wo 2.15, W13 17.18, W2
 // 8.59), 94.5 us at 989 TFLOP/s bf16, against 67 MB of x, av, dout and dx
-// (20 us at 3.35 TB/s): compute bound. This first kernel runs its products
-// as WMMA tiles (bf16, f32 accumulators) through shared memory and
-// recomputes s and ds in attn_dq, so it does more than the bound's work.
+// (20 us at 3.35 TB/s): compute bound. gate_ffn_bwd and proj_bwd run their
+// products as WMMA tiles (bf16, f32 accumulators) through shared memory.
 
 #include "fused_block_common.cuh"
+#include "hstu_attn_bwd_sm90.cuh"
 
 using namespace fbk;
 
@@ -88,7 +89,7 @@ struct BwdArgs {
   float* dq;           // [B, L, D], times hd^-1/2
   float* dk;           // [B, L, D]
   float* part;         // [G, P] zeroed: per-block partial sums
-  float* part_rab;     // [B * L / 16, H * NB] zeroed: per key-tile partials
+  float* part_rab;     // [B * L / 16, H * NB]: per-(query tile, row) partials
   // outputs
   void* dx;            // [B, L, D] T
   float* grads;        // [P]: dW2, dW13, dWo, dbo, dln, dWuvqk, dbuvqk
@@ -388,215 +389,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-size_t attn_smem(int D, int TA, int HNB) {
-  const size_t tt = align128((size_t)TA * (D + 8) * sizeof(T));
-  return 4 * tt                                              // q, k, v, dot_b
-         + 2 * align128((size_t)TA * kLdS * sizeof(float))   // s, da
-         + 2 * align128((size_t)TA * kLdP * sizeof(T))       // a, ds
-         + 2 * align128((size_t)TA * (D + 4) * sizeof(float))  // accumulators
-         + align128(TA * sizeof(int))                        // key valid
-         + align128(HNB * sizeof(float))                     // rel-pos grads
-         + align128(2 * TA * sizeof(float));                 // diagonal sums
-}
-
-// Step 2a: dk and dv for one key tile, walking the query tiles at or below
-// the diagonal; the rel-pos gradient of the same pairs, per diagonal.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    attn_dkdv_kernel(BwdArgs p, int TA, bool tc) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = p.D, H = p.H, hd = D / H, L = p.L, NB = p.NB;
-  const int ldt = D + 8, ldf = D + 4;
-  const int b = blockIdx.y, kt = blockIdx.x, k0 = kt * TA;
-  const bool tc_attn = tc && (hd % 16 == 0);
-
-  unsigned char* ptr = smem;
-  const size_t tt = align128((size_t)TA * ldt * sizeof(T));
-  T* qs = reinterpret_cast<T*>(ptr);
-  ptr += tt;
-  T* ks = reinterpret_cast<T*>(ptr);
-  ptr += tt;
-  T* vs = reinterpret_cast<T*>(ptr);
-  ptr += tt;
-  T* dbs = reinterpret_cast<T*>(ptr);
-  ptr += tt;
-  float* ss = reinterpret_cast<float*>(ptr);  // dsilu(s) on valid pairs
-  ptr += align128((size_t)TA * kLdS * sizeof(float));
-  float* das = reinterpret_cast<float*>(ptr);  // da, then ds
-  ptr += align128((size_t)TA * kLdS * sizeof(float));
-  T* ps = reinterpret_cast<T*>(ptr);  // T(a)
-  ptr += align128((size_t)TA * kLdP * sizeof(T));
-  T* dss = reinterpret_cast<T*>(ptr);  // T(ds)
-  ptr += align128((size_t)TA * kLdP * sizeof(T));
-  float* dk = reinterpret_cast<float*>(ptr);
-  ptr += align128((size_t)TA * ldf * sizeof(float));
-  float* dv = reinterpret_cast<float*>(ptr);
-  ptr += align128((size_t)TA * ldf * sizeof(float));
-  int* kval = reinterpret_cast<int*>(ptr);
-  ptr += align128(TA * sizeof(int));
-  float* drab = reinterpret_cast<float*>(ptr);
-  ptr += align128(H * NB * sizeof(float));
-  float* diag = reinterpret_cast<float*>(ptr);
-
-  const size_t rowb = (size_t)b * L;
-  load_tile<T>(static_cast<const T*>(p.k) + (rowb + k0) * D, TA, D, ks, ldt);
-  load_tile<T>(static_cast<const T*>(p.v) + (rowb + k0) * D, TA, D, vs, ldt);
-  for (int j = threadIdx.x; j < TA; j += kThreads)
-    kval[j] = p.valid[rowb + k0 + j];
-  for (int i = threadIdx.x; i < TA * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    dk[r * ldf + d] = 0.0f;
-    dv[r * ldf + d] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < H * NB; i += kThreads) drab[i] = 0.0f;
-
-  for (int qt = kt; qt < L / TA; ++qt) {
-    const int q0 = qt * TA;
-    __syncthreads();  // the previous query tile is done with qs/dbs
-    load_tile<T>(static_cast<const T*>(p.q) + (rowb + q0) * D, TA, D, qs,
-                 ldt);
-    load_tile<T>(static_cast<const T*>(p.dav) + (rowb + q0) * D, TA, D, dbs,
-                 ldt);
-    __syncthreads();
-    for (int h = 0; h < H; ++h) {
-      const float* rab = p.rab + (size_t)h * NB;
-      // s = q k^T, da = dot_b v^T, both [query, key]
-      gemm<T, false, true, false>(qs + h * hd, ldt, ks + h * hd, ldt, ss,
-                                  kLdS, TA, TA, hd, tc_attn);
-      gemm<T, false, true, false>(dbs + h * hd, ldt, vs + h * hd, ldt, das,
-                                  kLdS, TA, TA, hd, tc_attn);
-      __syncthreads();
-      for (int i = threadIdx.x; i < TA * TA; i += kThreads) {
-        const int r = i / TA, c = i - r * TA;
-        const int dist = (q0 + r) - (k0 + c);
-        float a = 0.0f, ds = 0.0f;
-        if (dist >= 0 && kval[c] != 0) {
-          const float s = ss[r * kLdS + c] + rab[min(dist, NB - 1)];
-          a = silu(s);
-          ds = das[r * kLdS + c] * dsilu(s);
-        }
-        ps[r * kLdP + c] = from_f<T>(a);
-        das[r * kLdS + c] = ds;
-        dss[r * kLdP + c] = from_f<T>(ds);
-      }
-      __syncthreads();
-      // dv += T(a)^T dot_b;  dk += T(ds)^T q
-      gemm<T, true, false, true>(ps, kLdP, dbs + h * hd, ldt, dv + h * hd,
-                                 ldf, TA, hd, TA, tc_attn);
-      gemm<T, true, false, true>(dss, kLdP, qs + h * hd, ldt, dk + h * hd,
-                                 ldf, TA, hd, TA, tc_attn);
-      // rel-pos gradient: diagonal e of the tile holds the pairs at
-      // distance q0 - k0 + e - (TA - 1); distances below NB - 1 are
-      // distinct per diagonal, the clamped ones fold in order below
-      for (int e = threadIdx.x; e < 2 * TA - 1; e += kThreads) {
-        const int off = e - (TA - 1);  // r - c
-        float s = 0.0f;
-        for (int r = max(0, off); r < min(TA, TA + off); ++r)
-          s += das[r * kLdS + (r - off)];
-        diag[e] = s;
-        const int dist = q0 - k0 + off;
-        if (dist >= 0 && dist < NB - 1) drab[h * NB + dist] += s;
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        for (int e = 0; e < 2 * TA - 1; ++e)
-          if (q0 - k0 + e - (TA - 1) >= NB - 1) drab[h * NB + NB - 1] += diag[e];
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int i = threadIdx.x; i < TA * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    p.dk[(rowb + k0 + r) * D + d] = dk[r * ldf + d];
-    p.dv[(rowb + k0 + r) * D + d] = dv[r * ldf + d];
-  }
-  float* out = p.part_rab + ((size_t)b * gridDim.x + kt) * H * NB;
-  for (int i = threadIdx.x; i < H * NB; i += kThreads) out[i] = drab[i];
-}
-
-// Step 2b: dq for one query tile, walking the key tiles up to the diagonal.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    attn_dq_kernel(BwdArgs p, int TA, bool tc) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = p.D, H = p.H, hd = D / H, L = p.L, NB = p.NB;
-  const int ldt = D + 8, ldf = D + 4;
-  const int b = blockIdx.y, qt = gridDim.x - 1 - blockIdx.x, q0 = qt * TA;
-  const bool tc_attn = tc && (hd % 16 == 0);
-
-  unsigned char* ptr = smem;
-  const size_t tt = align128((size_t)TA * ldt * sizeof(T));
-  T* qs = reinterpret_cast<T*>(ptr);
-  ptr += tt;
-  T* ks = reinterpret_cast<T*>(ptr);
-  ptr += tt;
-  T* vs = reinterpret_cast<T*>(ptr);
-  ptr += tt;
-  T* dbs = reinterpret_cast<T*>(ptr);
-  ptr += tt;
-  float* ss = reinterpret_cast<float*>(ptr);
-  ptr += align128((size_t)TA * kLdS * sizeof(float));
-  float* das = reinterpret_cast<float*>(ptr);
-  ptr += align128((size_t)TA * kLdS * sizeof(float));
-  T* dss = reinterpret_cast<T*>(ptr);
-  ptr += align128((size_t)TA * kLdP * sizeof(T));
-  ptr += align128((size_t)TA * kLdP * sizeof(T));
-  float* dq = reinterpret_cast<float*>(ptr);
-  ptr += align128((size_t)TA * ldf * sizeof(float));
-  ptr += align128((size_t)TA * ldf * sizeof(float));
-  int* kval = reinterpret_cast<int*>(ptr);
-
-  const size_t rowb = (size_t)b * L;
-  load_tile<T>(static_cast<const T*>(p.q) + (rowb + q0) * D, TA, D, qs, ldt);
-  load_tile<T>(static_cast<const T*>(p.dav) + (rowb + q0) * D, TA, D, dbs,
-               ldt);
-  for (int i = threadIdx.x; i < TA * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    dq[r * ldf + d] = 0.0f;
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * TA;
-    __syncthreads();  // the previous key tile is done with ks/vs/dss
-    load_tile<T>(static_cast<const T*>(p.k) + (rowb + k0) * D, TA, D, ks,
-                 ldt);
-    load_tile<T>(static_cast<const T*>(p.v) + (rowb + k0) * D, TA, D, vs,
-                 ldt);
-    for (int j = threadIdx.x; j < TA; j += kThreads)
-      kval[j] = p.valid[rowb + k0 + j];
-    __syncthreads();
-    for (int h = 0; h < H; ++h) {
-      const float* rab = p.rab + (size_t)h * NB;
-      gemm<T, false, true, false>(qs + h * hd, ldt, ks + h * hd, ldt, ss,
-                                  kLdS, TA, TA, hd, tc_attn);
-      gemm<T, false, true, false>(dbs + h * hd, ldt, vs + h * hd, ldt, das,
-                                  kLdS, TA, TA, hd, tc_attn);
-      __syncthreads();
-      for (int i = threadIdx.x; i < TA * TA; i += kThreads) {
-        const int r = i / TA, c = i - r * TA;
-        const int dist = (q0 + r) - (k0 + c);
-        float ds = 0.0f;
-        if (dist >= 0 && kval[c] != 0)
-          ds = das[r * kLdS + c] *
-               dsilu(ss[r * kLdS + c] + rab[min(dist, NB - 1)]);
-        dss[r * kLdP + c] = from_f<T>(ds);
-      }
-      __syncthreads();
-      // dq += T(ds) k
-      gemm<T, false, false, true>(dss, kLdP, ks + h * hd, ldt, dq + h * hd,
-                                  ldf, TA, hd, TA, tc_attn);
-      __syncthreads();
-    }
-  }
-
-  for (int i = threadIdx.x; i < TA * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    p.dq[(rowb + q0 + r) * D + d] = dq[r * ldf + d] * p.scale;
-  }
-}
-
-template <typename T>
 size_t proj_bwd_smem(int D, int TM) {
   return align128((size_t)TM * (D + 8) * sizeof(T))        // T(h1)
          + align128((size_t)TM * kLdS * sizeof(float))      // chunk
@@ -713,31 +505,41 @@ int pick_tile(int L, size_t (*smem)(int, int), int D) {
   return 0;
 }
 
+// The attention backward's arguments: the pair of shards at off 0, Lq = Lk
+// = L, dq times hd^-1/2.
+hstu_bwd::AttnBwdArgs attn_args(const BwdArgs& p) {
+  hstu_bwd::AttnBwdArgs a = {};
+  a.q = p.q;
+  a.k = p.k;
+  a.v = p.v;
+  a.dav = p.dav;
+  a.valid = p.valid;
+  a.rab = p.rab;
+  a.dq = p.dq;
+  a.dk = p.dk;
+  a.dv = p.dv;
+  a.part_rab = p.part_rab;
+  a.drab = p.drab;
+  a.B = p.B;
+  a.Lq = a.Lk = p.L;
+  a.D = p.D;
+  a.H = p.H;
+  a.NB = p.NB;
+  a.off = 0;
+  a.dq_scale = p.scale;
+  return a;
+}
+
 template <typename T>
 int launch_bwd(const BwdArgs& p, bool tc, cudaStream_t stream) {
   const int TM = pick_tile<T>(p.L, gate_smem<T>, p.D);
-  int TA = 0;
-  for (int t = 64; t >= 16; t >>= 1)
-    if (p.L % t == 0 && attn_smem<T>(p.D, t, p.H * p.NB) <= kMaxSmem) {
-      TA = t;
-      break;
-    }
-  if (TM == 0 || TA == 0) return (int)cudaErrorInvalidValue;
+  if (TM == 0) return (int)cudaErrorInvalidValue;
   const size_t sm_g = gate_smem<T>(p.D, TM);
-  const size_t sm_a = attn_smem<T>(p.D, TA, p.H * p.NB);
   const size_t sm_p = proj_bwd_smem<T>(p.D, TM);
   cudaError_t e;
   e = cudaFuncSetAttribute(gate_ffn_bwd_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)sm_g);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(attn_dkdv_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sm_a);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(attn_dq_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sm_a);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(proj_bwd_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -746,19 +548,13 @@ int launch_bwd(const BwdArgs& p, bool tc, cudaStream_t stream) {
 
   gate_ffn_bwd_kernel<T><<<p.G, kThreads, sm_g, stream>>>(p, TM, tc);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const dim3 grid_a(p.L / TA, p.B);
-  attn_dkdv_kernel<T><<<grid_a, kThreads, sm_a, stream>>>(p, TA, tc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  attn_dq_kernel<T><<<grid_a, kThreads, sm_a, stream>>>(p, TA, tc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // dq and the rel-pos gradient (summed into drab), then dk and dv
+  const int ea = hstu_bwd::launch<T>(attn_args(p), true, true, stream);
+  if (ea != 0) return ea;
   proj_bwd_kernel<T><<<p.G, kThreads, sm_p, stream>>>(p, TM, tc);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   reduce_rows_kernel<<<(p.P + kThreads - 1) / kThreads, kThreads, 0,
                        stream>>>(p.part, p.G, p.P, p.grads);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int hnb = p.H * p.NB;
-  reduce_rows_kernel<<<(hnb + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(p.part_rab, p.B * (p.L / TA), hnb, p.drab);
   return (int)cudaGetLastError();
 }
 

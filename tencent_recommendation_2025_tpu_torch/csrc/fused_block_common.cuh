@@ -235,8 +235,8 @@ __device__ __forceinline__ float keep_factor(uint32_t key, uint32_t counter,
 }
 
 // out[i] = sum over g of part[g * P + i], in order of g: the fixed-order
-// sum of per-tile partials that keeps the rel-pos gradients deterministic
-// (csrc/fused_block_bwd.cu, csrc/ring_pair.cu)
+// sum of per-block partials that keeps the weight gradients deterministic
+// (csrc/fused_block_bwd.cu)
 __global__ void reduce_rows_kernel(const float* part, int G, int P,
                                    float* out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -244,6 +244,30 @@ __global__ void reduce_rows_kernel(const float* part, int G, int P,
   float s = 0.0f;
   for (int g = 0; g < G; ++g) s += part[(size_t)g * P + i];
   out[i] = s;
+}
+
+// The same sum for a few hundred columns of thousands of rows (the rel-pos
+// gradient's per-tile partials, csrc/hstu_attn_bwd_sm90.cuh), launched with
+// blocks of kSplitRows x 32 threads: thread (x, y) takes column blockIdx.x *
+// 32 + x and rows y, y + kSplitRows, ... in order, then thread (x, 0) adds
+// the kSplitRows partial sums in order of y. A fixed order: deterministic.
+constexpr int kSplitRows = 32;
+
+__global__ void __launch_bounds__(32 * kSplitRows)
+    reduce_rows_split_kernel(const float* part, int G, int P, float* out) {
+  __shared__ float sums[kSplitRows][32];
+  const int x = threadIdx.x, y = threadIdx.y, i = blockIdx.x * 32 + x;
+  float s = 0.0f;
+  if (i < P) {
+#pragma unroll 4
+    for (int g = y; g < G; g += kSplitRows) s += part[(size_t)g * P + i];
+  }
+  sums[y][x] = s;
+  __syncthreads();
+  if (y == 0 && i < P) {
+    for (int r = 1; r < kSplitRows; ++r) s += sums[r][x];
+    out[i] = s;
+  }
 }
 
 }  // namespace fbk

@@ -22,7 +22,8 @@
 //   operand of a register-sourced (RS) wgmma, rounding to nearest: the
 //   softmax probabilities feed p.v without leaving registers.
 //
-// Used by csrc/flash_attention.cu.
+// Used by csrc/flash_attention.cu and csrc/hstu_attn_bwd_sm90.cuh (the
+// HSTU attention backward of csrc/fused_block_bwd.cu and csrc/ring_pair.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +37,16 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWgThreads = 128;  // one warpgroup
 constexpr int kRows = 64;        // rows of one wgmma (M)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The tile width W (below) of a head of hd columns (0: wider than 128).
+inline int wgmma_width(int hd) {
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0;
+}
+
+inline bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -263,6 +274,43 @@ __device__ __forceinline__ void zero_smem(unsigned char* p, size_t bytes,
     *reinterpret_cast<uint4*>(p + i) = make_uint4(0, 0, 0, 0);
 }
 
+// Shared memory of a kernel that holds `fixed` tiles of kRows x W for the
+// whole block and streams `per_stage` tiles through a ring of kStages
+// stages, from a 1024-byte boundary: the held tiles, `extra` bytes of the
+// block's own data (a multiple of 1024; key-valid flags, row stats, a
+// scratch tile), then the stages, each its tiles and 1024 bytes of row
+// data (key-valid flags, row stats, biases).
+constexpr int kStages = 2;   // ring stages: loads run one tile ahead
+
+template <int W>
+struct Carve {
+  static constexpr size_t kTileBytes = Tile<W>::bytes(kRows);
+  int fixed, per_stage;
+  size_t extra = 1024;
+
+  __host__ __device__ size_t stage_bytes() const {
+    return per_stage * kTileBytes + 1024;
+  }
+  __host__ __device__ size_t bytes() const {
+    return 1024 + fixed * kTileBytes + extra + kStages * stage_bytes();
+  }
+  __device__ bf16* held(unsigned char* base, int i) const {
+    return reinterpret_cast<bf16*>(base + i * kTileBytes);
+  }
+  __device__ unsigned char* held_rows(unsigned char* base) const {
+    return base + fixed * kTileBytes;
+  }
+  __device__ unsigned char* stage(unsigned char* base, int s) const {
+    return base + fixed * kTileBytes + extra + s * stage_bytes();
+  }
+  __device__ bf16* tile(unsigned char* base, int s, int i) const {
+    return reinterpret_cast<bf16*>(stage(base, s) + i * kTileBytes);
+  }
+  __device__ unsigned char* rows(unsigned char* base, int s) const {
+    return stage(base, s) + per_stage * kTileBytes;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // accumulator layout, row reductions, A fragments
 // ---------------------------------------------------------------------------
@@ -442,6 +490,28 @@ __device__ __forceinline__ void mma_rs(float (&d)[W / 2],
   else if constexpr (W == 32) mma_rs_n32(d, a, db, scale_d);
   else if constexpr (W == 64) mma_rs_n64(d, a, db, scale_d);
   else mma_rs_n128(d, a, db, scale_d);
+}
+
+// S (or S^T) = A . B^T over the W-column tiles a and b (kRows rows each,
+// both K-major): the score products of the attention kernels.
+template <int W>
+__device__ __forceinline__ void scores(float (&s)[32], const bf16* a,
+                                       const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk)
+    mma_ss_n64(s, Tile<W>::desc_k(a, kRows, kk), Tile<W>::desc_k(b, kRows, kk),
+               kk > 0 ? 1 : 0);
+}
+
+// acc += T(P) . B over the kRows rows of the MN-major tile b, P's bf16 A
+// fragments (frag_a of a 64 x 64 accumulator) in a.
+template <int W>
+__device__ __forceinline__ void accumulate(float (&acc)[W / 2],
+                                           const uint32_t (&a)[4][4],
+                                           const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    mma_rs<W>(acc, a[kk], Tile<W>::desc_mn(b, kRows, kk), 1);
 }
 
 }  // namespace sm90

@@ -25,18 +25,21 @@ Kernels, each replacing TPU kernels of the JAX package's file:
   from x and av, dx and every weight, LN, bias and rel-pos gradient.
   Replaces ``_bwd_kernel`` (l.325) and, in the chunked variant,
   ``_bwd_gate_kernel_chunk`` (l.612) with ``gate_ffn_bwd_kernel``,
-  ``_bwd_dq_kernel_chunk`` (l.533) with ``attn_dq_kernel`` (its rel-pos
-  tile gradients come from ``attn_dkdv_kernel``, straight to ``rab``),
-  ``_bwd_dkdv_kernel_chunk`` (l.573) with ``attn_dkdv_kernel`` and
-  ``_bwd_proj_kernel_chunk`` (l.710) with ``proj_bwd_kernel``, the weight
-  gradients of both summed by ``reduce_rows_kernel``. Bound: compute, 93.5
-  GFLOP per block, 94.5 us.
+  ``_bwd_dq_kernel_chunk`` (l.533) and ``_bwd_dkdv_kernel_chunk`` (l.573)
+  with the HSTU attention backward of ``csrc/hstu_attn_bwd_sm90.cuh`` at off
+  0 (``attn_bwd_dq_wgmma_kernel``, which also sums the rel-pos gradient,
+  and ``attn_bwd_dkdv_wgmma_kernel`` in bf16 at hd <= 128; the generic
+  ``attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel`` in f32 and wider),
+  and ``_bwd_proj_kernel_chunk`` (l.710) with ``proj_bwd_kernel``, the
+  gradients summed by ``reduce_rows_kernel``. Bound: compute, 93.5 GFLOP
+  per block, 94.5 us.
 
 - The ring units of a sequence-sharded mesh (the last section below):
   ``csrc/ring_pair.cu`` for one (query shard, key shard) pair, replacing
-  ``_pair_attn_fwd_kernel`` (l.1269), ``_pair_dq_kernel`` (l.1304) and
-  ``_pair_dkdv_kernel`` (l.1345), and launches of their own for the pre and
-  post stages and their backwards.
+  ``_pair_attn_fwd_kernel`` (l.1269), and ``_pair_dq_kernel`` (l.1304) and
+  ``_pair_dkdv_kernel`` (l.1345) through the same attention backward as the
+  single device's, and launches of their own for the pre and post stages
+  and their backwards.
 
 Variants. The TPU package takes the whole-sequence kernels up to
 ``wholeseq_max_l(D)`` and the chunked ones above it (:func:`chunked`), for
@@ -421,7 +424,7 @@ def fused_hstu_block_bwd_plain(x: torch.Tensor, av: torch.Tensor,
     activation dtype), and in f32 "ln" [6, D], "wuvqk", "buvqk", "wo",
     "bo", "w13", "w2", "rab" [H, NB]}."""
     cdt = x.dtype
-    B, L, D = x.shape
+    _, L, D = x.shape
     H = num_heads
     hd = D // H
     xf = x.float()
@@ -429,22 +432,15 @@ def fused_hstu_block_bwd_plain(x: torch.Tensor, av: torch.Tensor,
                                                                  cdt)
     post = _post_bwd(xf, av, dout, o, u, seed, rate, cdt)
 
-    # ---- attention ----
-    s, mask = _scores(q, k, o["rab"], token_type, H)
-    a = (Fn.silu(s) * mask).to(cdt)
-    dot_b = _heads(post["dav"], H)
-    dv = _mm(a.transpose(-1, -2), dot_b)     # w.r.t. the 1/L-scaled v
-    ds = _mm(dot_b, _heads(v, H).transpose(-1, -2)) * _dsilu(s) * mask
-    dsc = ds.to(cdt)
-    dq = _mm(dsc, _heads(k, H)) * (hd ** -0.5)
-    dk = _mm(dsc.transpose(-1, -2), _heads(q, H))
-
-    pre_g = _pre_bwd(o, pre, h1c, xhat1, rstd1, post["du"], _rows(dv),
-                     _rows(dq), _rows(dk), post["dy"], L, cdt)
+    # ---- attention: the ring's pair of shards at off 0 ----
+    dq, drab, dk, dv = ring_pair_bwd_plain(q, k, v, post["dav"], token_type,
+                                           o["rab"], 0, H)
+    pre_g = _pre_bwd(o, pre, h1c, xhat1, rstd1, post["du"], dv,
+                     dq * (hd ** -0.5), dk, post["dy"], L, cdt)
     return {"dx": pre_g["dx"], "ln": pre_g["ln"] + post["ln"],
             "wuvqk": pre_g["wuvqk"], "buvqk": pre_g["buvqk"],
             "wo": post["wo"], "bo": post["bo"], "w13": post["w13"],
-            "w2": post["w2"], "rab": _rab_grad(ds.sum(0), o["rab"].shape[1])}
+            "w2": post["w2"], "rab": drab}
 
 
 def _recompute_projection(xf, o, L, hd, cdt):
@@ -724,7 +720,7 @@ def _launch_bwd(x, av, dout, o, token_type, num_heads, seed, rate):
     scratch.update({n: torch.empty((B, L, D), dtype=f32, device=dev)
                     for n in ("du", "dy", "dv", "dq", "dk")})
     part = torch.zeros((G, P), dtype=f32, device=dev)
-    part_rab = torch.zeros((B * L // 16, H * NB), dtype=f32, device=dev)
+    part_rab = torch.empty((B * L // 16, H * NB), dtype=f32, device=dev)
     dx = torch.empty_like(x)
     grads = torch.empty(P, dtype=f32, device=dev)
     drab = torch.empty((H, NB), dtype=f32, device=dev)
@@ -874,8 +870,12 @@ def fused_hstu_block_autograd(x: torch.Tensor, bp: Mapping,
 #   ring_pre_fwd   proj_kernel alone (csrc/fused_block.cu), l.452
 #   ring_post_fwd  attn_ffn_kernel's post half on a given T(av), l.502
 #   ring_pair_fwd  pair_fwd_kernel (csrc/ring_pair.cu), l.1269
-#   ring_pair_dq   pair_dq_kernel + reduce_rows_kernel, l.1304
-#   ring_pair_dkdv pair_dkdv_kernel, l.1345
+#   ring_pair_dq   attn_bwd_dq_wgmma_kernel (csrc/hstu_attn_bwd_sm90.cuh;
+#                  bf16 at hd <= 128, else attn_bwd_dq_kernel) +
+#                  reduce_rows_kernel, l.1304
+#   ring_pair_dkdv attn_bwd_dkdv_wgmma_kernel (else attn_bwd_dkdv_kernel),
+#                  l.1345 (the single device's fused backward launches both
+#                  at off 0)
 #   ring_post_bwd  gate_ffn_bwd_kernel alone (csrc/fused_block_bwd.cu), l.612
 #   ring_pre_bwd   proj_bwd_kernel alone, zero residual, l.710
 
@@ -941,12 +941,22 @@ def _pair_ds(q, k, v, dav, valid, rab, off, H):
     return s, mask, dot_b, ds
 
 
+def _pair_dq(k, ds, rab, off, H):
+    return (_rows(_mm(ds.to(k.dtype), _heads(k, H))),
+            _rab_grad(ds.sum(0), rab.shape[1], off))
+
+
+def _pair_dkdv(q, s, mask, dot_b, ds, H):
+    a = (Fn.silu(s) * mask).to(q.dtype)
+    dk = _mm(ds.to(q.dtype).transpose(-1, -2), _heads(q, H))
+    return _rows(dk), _rows(_mm(a.transpose(-1, -2), dot_b))
+
+
 def ring_pair_dq_plain(q, k, v, dav, valid, rab, off: int, num_heads: int):
     """Plain version of the pair's dq kernel: (dq w.r.t. the scaled q,
     drab [H, NB]), both f32."""
     _, _, _, ds = _pair_ds(q, k, v, dav, valid, rab, off, num_heads)
-    return (_rows(_mm(ds.to(q.dtype), _heads(k, num_heads))),
-            _rab_grad(ds.sum(0), rab.shape[1], off))
+    return _pair_dq(k, ds, rab, off, num_heads)
 
 
 def ring_pair_dkdv_plain(q, k, v, dav, valid, rab, off: int,
@@ -954,9 +964,16 @@ def ring_pair_dkdv_plain(q, k, v, dav, valid, rab, off: int,
     """Plain version of the pair's dk/dv kernel: (dk, dv w.r.t. the scaled
     v), both f32."""
     s, mask, dot_b, ds = _pair_ds(q, k, v, dav, valid, rab, off, num_heads)
-    a = (Fn.silu(s) * mask).to(q.dtype)
-    dk = _mm(ds.to(q.dtype).transpose(-1, -2), _heads(q, num_heads))
-    return _rows(dk), _rows(_mm(a.transpose(-1, -2), dot_b))
+    return _pair_dkdv(q, s, mask, dot_b, ds, num_heads)
+
+
+def ring_pair_bwd_plain(q, k, v, dav, valid, rab, off: int, num_heads: int):
+    """Both plain pair backwards from one computation of ds: (dq, drab, dk,
+    dv) as :func:`ring_pair_dq_plain` and :func:`ring_pair_dkdv_plain` give
+    them. The single device's plain backward is this at off 0."""
+    s, mask, dot_b, ds = _pair_ds(q, k, v, dav, valid, rab, off, num_heads)
+    return (*_pair_dq(k, ds, rab, off, num_heads),
+            *_pair_dkdv(q, s, mask, dot_b, ds, num_heads))
 
 
 class _PairArgs(ctypes.Structure):

@@ -30,6 +30,38 @@ def test_ptxas_report_names_each_kernel_with_registers_and_spills():
          "spill_stores": 0, "spill_loads": 0}]
 
 
+HSTU_LOG = """\
+ptxas info    : Compiling entry function '_ZN8hstu_bwd24attn_bwd_dq_wgmma_kernelILi64EEEvNS_11AttnBwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN8hstu_bwd24attn_bwd_dq_wgmma_kernelILi64EEEvNS_11AttnBwdArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN8hstu_bwd26attn_bwd_dkdv_wgmma_kernelILi128EEEvNS_11AttnBwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN8hstu_bwd26attn_bwd_dkdv_wgmma_kernelILi128EEEvNS_11AttnBwdArgsE
+    40 bytes stack frame, 36 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN8hstu_bwd18attn_bwd_dq_kernelIfEEvNS_11AttnBwdArgsEib' for 'sm_90a'
+ptxas info    : Used 90 registers
+ptxas info    : Compiling entry function '_ZN8hstu_bwd20attn_bwd_dkdv_kernelI13__nv_bfloat16EEvNS_11AttnBwdArgsEib' for 'sm_90a'
+ptxas info    : Used 128 registers
+"""
+
+
+def test_ptxas_report_names_the_attention_backward_kernels():
+    """The HSTU attention backward's kernels (csrc/hstu_attn_bwd_sm90.cuh,
+    namespace hstu_bwd): the wgmma instances by head width W, the generic
+    ones by compute dtype. chip_smoke.py reads the spills of the wgmma
+    kernels at W <= 64 from these names."""
+    assert kernels.ptxas_report(HSTU_LOG) == [
+        {"kernel": "attn_bwd_dq_wgmma_kernel<64>", "registers": 154,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "attn_bwd_dkdv_wgmma_kernel<128>", "registers": 255,
+         "spill_stores": 36, "spill_loads": 36},
+        {"kernel": "attn_bwd_dq_kernel<float>", "registers": 90,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "attn_bwd_dkdv_kernel<nv_bfloat16>", "registers": 128,
+         "spill_stores": 0, "spill_loads": 0}]
+
+
 def test_ptxas_report_of_a_log_without_kernels_is_empty():
     assert kernels.ptxas_report("ptxas info    : 0 bytes gmem\n") == []
 

@@ -500,3 +500,49 @@ def test_ring_stage_kernels_match_plain_on_card(rate):
     want = FB.ring_pre_bwd_plain(x, bp, *cots, L, 1)
     for name in want:
         _close(got[name], want[name], f"pre bwd {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off", [0, 512, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H", [(8, 2), (16, 4), (32, 2), (64, 1),
+                                  (128, 1)])
+def test_attn_bwd_kernels_match_plain_on_card(hd, H, dtype, off):
+    """The HSTU attention backward of csrc/hstu_attn_bwd_sm90.cuh (the
+    single device's and the ring's), through ring_pair_dq and
+    ring_pair_dkdv: the wgmma kernels in bf16 (hd 8 and 16 padded to 16
+    columns, 32, 64, 128), the generic ones in f32; at off 0 (the single
+    device: the causal diagonal), a whole shard behind (every pair visible)
+    and part of a tile behind; row 0 left-padded, the last row fully
+    padded, 96 buckets for 512 tokens (the last one clamps). f32 as _close,
+    bf16 as _bf16_close; one launch each."""
+    _cuda_or_skip()
+    B, L, D = 2, 512, hd * H
+    rng = np.random.default_rng(hd * 10 + H + off)
+
+    def t(shape, s=0.5):
+        return torch.from_numpy((rng.standard_normal(shape) * s)
+                                .astype(np.float32)).to(dtype).cuda()
+
+    q, k, v, dav = (t((B, L, D)) for _ in range(4))
+    rab = t((H, 96), 0.1).float()
+    valid = torch.ones((B, L), dtype=torch.int32, device="cuda")
+    valid[0, :L // 3 + 5] = 0
+    valid[-1] = 0
+    counts = (FB.ring_pair_dq.launches, FB.ring_pair_dkdv.launches)
+    dq, drab = FB.ring_pair_dq(q, k, v, dav, valid, rab, off, H)
+    dk, dv = FB.ring_pair_dkdv(q, k, v, dav, valid, rab, off, H)
+    torch.cuda.synchronize()
+    assert (FB.ring_pair_dq.launches, FB.ring_pair_dkdv.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    want = FB.ring_pair_bwd_plain(q, k, v, dav, valid, rab, off, H)
+    assert want[1][:, -1].abs().sum() > 0   # the clamped bucket is reached
+    for name, got, ref in zip(("dq", "drab", "dk", "dv"), (dq, drab, dk, dv),
+                              want):
+        assert bool(torch.isfinite(got).all()), name
+        if dtype == torch.float32:
+            _close(got, ref, name)
+        else:
+            _bf16_close(got, ref, name)
+    # the fully padded row's keys get no gradient
+    assert not dk[-1].any() and not dv[-1].any()
