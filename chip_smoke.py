@@ -29,7 +29,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                the wgmma kernels' spills from the build (none at W <= 64),
                and its dq and dk/dv timed at the flagship, long and sparse
                shapes beside the plain versions and their bounds (TFLOP/s
-               over the 7 products run); then the attention cores, flash
+               over the 7 products run); then the post half and the
+               gate/FFN backward on wgmma (attn_ffn_wgmma_kernel, inference
+               and training, its device time alone;
+               gate_ffn_bwd_wgmma_kernel with wgrad_wgmma_kernel, alone)
+               held to their plain versions, the backward bitwise equal
+               across two calls, timed at the flagship, long and sparse
+               shapes beside the plain versions and their own bounds, with
+               their registers and spills from the build (none at D <=
+               64); then the attention cores, flash
                MHA (L=256, H=4; L=1024, H=1) and the standalone HSTU
                attention (L=256 and 1024, H=4 and 1, 128 and 300
                buckets; its chunked route
@@ -59,13 +67,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                plain versions on the CPU in bf16 and in f32 (loss and
                per-leaf gradient cosine); prints
                train examples/s and a profile of one step (a fused run's
-               must name the attention backward's wgmma kernels and none
-               of the kernels they replaced);
+               must name the attention backward's, the post half's and the
+               gate/FFN backward's wgmma kernels and none of the kernels
+               they replaced);
 5. serving  — the port's cli.infer main with the same arguments on the
                checkpoint just trained; checks every launch count,
                recomputes the first query batch with the plain versions on
                the CPU in bf16 and in f32 and holds the card's bf16 queries
-               to both (per-query cosine); prints serving throughput and
+               to both (per-query cosine); profiles one predict batch (a
+               fused run's must name attn_ffn_wgmma_kernel and no bf16
+               attn_ffn_kernel); prints serving throughput and
                HR@10/NDCG@10 (one epoch on synthetic data: printed, not
                judged);
 6. long     — phases 4 and 5 on long sequences, through the chunked
@@ -100,8 +111,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                single-device chunked step on the card and the CPU's plain
                ring, in bf16 and f32, on 8 rows, each step's
                launches held; the S = 2 step's ms and tokens/s (6 after 2,
-               launches held) and its profile (the attention backward's
-               wgmma kernels named, as in the fused runs);
+               launches held) and its profile (the attention backward's,
+               the post half's and the gate/FFN backward's wgmma kernels
+               named, as in the fused runs);
 7. parity   — phases 4 and 5 for the reference's own models and the
                ReLU-FFN HSTU: cli.train's default (no --preset: baseline at
                L=102, dense, no kernel launched), ``--preset baseline
@@ -133,7 +145,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                every touched row equal to compute_row_update's from the
                same row gradients, 100,000 untouched rows bitwise unchanged;
                step ms, examples/s, lookup GB/s, peak memory, and the group
-               scatter's device time in a profiled step;
+               scatter's device time in a profiled step, which must name
+               the fused block's wgmma kernels as the fused runs' do;
 10. report  — the script's seconds, the card line, one JSON line listing
                every kernel, then the last line ``{"ok": true, "device":
                {...}}``.
@@ -195,11 +208,18 @@ ATTN_BWD_NAMES = ATTN_BWD_WGMMA + ("attn_bwd_dq_kernel",
 #: the attention backward kernels these replaced, which no step may launch
 ATTN_BWD_DELETED = ("attn_dq_kernel", "attn_dkdv_kernel", "pair_dq_kernel",
                     "pair_dkdv_kernel")
+#: the fused block's post half and gate/FFN backward on wgmma (bf16, D <=
+#: 128): the forward, the backward with its weight-gradient kernel
+POST_WGMMA = ("attn_ffn_wgmma_kernel", "gate_ffn_bwd_wgmma_kernel",
+              "wgrad_wgmma_kernel")
+#: the kernels they replace in bf16 (kept for f32 and D > 128), which no
+#: bf16 step or predict batch may launch
+POST_REPLACED = ("attn_ffn_kernel", "gate_ffn_bwd_kernel")
 #: CUDA kernel names of each kernel family, as a profile lists them
 #: (forward, backward)
 KERNEL_NAMES = {
-    "fused": (("proj_kernel", "attn_ffn_kernel"),
-              ("gate_ffn_bwd_kernel",) + ATTN_BWD_NAMES
+    "fused": (("proj_kernel", "attn_ffn_wgmma_kernel", "attn_ffn_kernel"),
+              POST_WGMMA[1:] + ("gate_ffn_bwd_kernel",) + ATTN_BWD_NAMES
               + ("proj_bwd_kernel", "reduce_rows_kernel",
                  "reduce_rows_split_kernel")),
     "flash": (("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
@@ -208,8 +228,9 @@ KERNEL_NAMES = {
     "hstu": (("hstu_fwd_kernel",),
              ("hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
               "reduce_rows_kernel")),
-    "ring": (("proj_kernel", "attn_ffn_kernel", "pair_fwd_kernel"),
-             ("gate_ffn_bwd_kernel",) + ATTN_BWD_NAMES
+    "ring": (("proj_kernel", "attn_ffn_wgmma_kernel", "attn_ffn_kernel",
+              "pair_fwd_kernel"),
+             POST_WGMMA[1:] + ("gate_ffn_bwd_kernel",) + ATTN_BWD_NAMES
              + ("proj_bwd_kernel", "reduce_rows_kernel",
                 "reduce_rows_split_kernel")),
     "none": ((), ())}
@@ -530,6 +551,39 @@ def fused_block_bwd_bound(B, L, D, H, F, elem_bytes, NB=128):
     nbytes = 4 * M * D * elem_bytes + M * 4 + \
         _param_bytes(D, H, F, NB, elem_bytes) + grads
     return _bound(flops, nbytes)
+
+
+def attn_ffn_bound(B, L, D, H, F, elem_bytes, train=False, NB=128):
+    """(flops, bytes) of attn_ffn alone (the forward's second kernel) on
+    the scratch the projection wrote: q.k^T and a.v causal, Wo, W13 and W2;
+    q, k, v, x (the compute dtype) and u (f32) in with the mask and the
+    weights, out written (training: av too)."""
+    M, act = B * L, B * L * D * elem_bytes
+    flops = 2 * B * D * L * (L + 1) + 2 * M * (D * D + 2 * D * F + F * D)
+    w = (D * D + D * 2 * F + F * D) * elem_bytes + (6 * D + D + H * NB) * 4
+    return flops, (4 + 1 + (1 if train else 0)) * act + M * D * 4 + M * 4 + w
+
+
+def gate_ffn_bwd_bound(B, L, D, H, F, elem_bytes, NB=128):
+    """(flops, bytes) of the gate/FFN backward (the single device's and the
+    ring's stage 0): the recompute (projection, Wo, W13), df, dh2 and dg,
+    and dW2, dW13 and dWo over the tokens; x, av and dout in with the
+    weights, q, k, v and dav (the compute dtype) and du, dy (f32) out, the
+    weight, LN and bias gradients out. The wgmma design's scratch between
+    its two kernels is not the function's work: see gate_scratch_bytes."""
+    M, act = B * L, B * L * D * elem_bytes
+    flops = 2 * M * (7 * D * D + 8 * D * F)
+    w = (D * 4 * D + D * D + D * 2 * F + F * D) * elem_bytes + \
+        (6 * D + 4 * D + D) * 4
+    grads = (D * D + D * 2 * F + F * D + 5 * D) * 4
+    return flops, 3 * act + w + 4 * act + 2 * M * D * 4 + grads
+
+
+def gate_scratch_bytes(B, L, D, F, elem_bytes):
+    """Bytes the wgmma gate/FFN design adds: the bf16 operands of its
+    weight products (T(f), T(dx13), T(h2), T(g), T(dy)) written by
+    gate_ffn_bwd_wgmma_kernel and read by wgrad_wgmma_kernel."""
+    return 2 * B * L * (3 * F + 3 * D) * elem_bytes
 
 
 def _free():
@@ -912,6 +966,195 @@ def attn_bwd_spills(report):
         ok &= len(found) == 8
         log(f"{lib}: attention backward wgmma kernels: {'; '.join(found)} "
             f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the post half and the gate/FFN backward on wgmma
+# ---------------------------------------------------------------------------
+
+#: the main paths' shapes of the two kernels (B, L, D, H, F)
+POST_SHAPES = {"flagship": (128, 1024, 64, 1, 256),
+               "long": (32, 4096, 64, 1, 256),
+               "sparse": (64, 1024, 64, 4, 256)}
+#: TPU kernel lines of each shape's (forward, backward): the whole-sequence
+#: kernels (rows 1, 2) or the chunked variant's stages (rows 4-5, 6)
+_POST_REPLACES = {"flagship": ("274", "325"), "long": ("468,502", "612"),
+                  "sparse": ("274", "325")}
+
+
+def post_times(name, B, L, D, H, F):
+    """At a main path's shape, in bf16 with the flagship's dropout: the
+    forward's second kernel (attn_ffn_wgmma_kernel; inference and training)
+    in the whole forward's wrapper, held to the plain attention and post
+    half on the q, k, v and u that proj_kernel writes (ring_pre_fwd: the
+    same kernel), its time alone the profiler's device ms; and
+    gate_ffn_bwd_wgmma_kernel with wgrad_wgmma_kernel (the ring's stage-0
+    launch at the whole sequence), held to its plain version and timed
+    (CUDA events; device ms by the profiler). Each beside its plain version
+    and its own bound. Returns (ok, the three JSON entries without
+    launches)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    bf16, p = torch.bfloat16, FLAGSHIP_DROPOUT
+    x, ops, tt = block_inputs(B, L, D, H, F, 128, bf16, seed=51)
+    seed = torch.tensor([7], dtype=torch.int32, device="cuda")
+    q, k, v, u = FB.ring_pre_fwd(x, ops, L, H)
+    chunked = FB.chunked(L, D)
+
+    def plain(train):
+        """attention from q, k, v (the f32 sum; the chunked variant's T(av))
+        and the post half on it"""
+        av = FB.ring_pair_fwd_plain(q, k, v, tt, ops["rab"], 0, H)
+        if chunked:
+            av = av.to(bf16).float()
+        return FB.ring_post_fwd_plain(x, av, u, ops, seed if train else 0,
+                                      p if train else 0.0), av.to(bf16)
+
+    kern = {"fwd": lambda: FB.fused_hstu_block(x, ops, tt, H),
+            "fwd_train": lambda: FB.fused_hstu_block_train(x, ops, tt, H,
+                                                           seed, p)}
+    err, ok = {}, True
+    ok_f, err["fwd"], _ = compare(kern["fwd"](), plain(False)[0], bf16)
+    got, want = kern["fwd_train"](), plain(True)
+    ok_t, e1, _ = compare(got[0], want[0], bf16)
+    ok_a, e2, _ = compare_grad(got[1], want[1], bf16)
+    err["fwd_train"] = max(e1, e2)
+    av = want[1]
+    del got, want
+    _free()
+    dout = torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(52), device="cuda").to(bf16)
+    kern["bwd"] = lambda: FB.ring_post_bwd(x, av, dout, ops, seed, p, L, H)
+    got = kern["bwd"]()
+    want = FB.ring_post_bwd_plain(x, av, dout, ops, seed, p, L, H)
+    res = [compare_grad(got[n], want[n], bf16) for n in want]
+    ok_b = all(r[0] for r in res) and all(
+        bool(torch.isfinite(got[n].float()).all()) for n in want)
+    again = kern["bwd"]()
+    same = all(torch.equal(got[n], again[n]) for n in got)
+    err["bwd"] = max(r[1] for r in res)
+    del got, want, again
+    _free()
+    ok = ok_f and ok_t and ok_a and ok_b and same
+    plains = {"fwd": lambda: plain(False), "fwd_train": lambda: plain(True),
+              "bwd": lambda: FB.ring_post_bwd_plain(x, av, dout, ops, seed,
+                                                    p, L, H)}
+    # the forward's wrapper also runs proj_kernel: the second kernel's
+    # time alone is its device time; the backward's stage wrapper runs the
+    # two kernels and the fixed-order sum alone (CUDA events)
+    wrapper = {w: time_ms(kern[w], 3, 20) for w in kern}
+    dev = {"fwd": kernel_device_ms(kern["fwd"], POST_WGMMA[:1]),
+           "fwd_train": kernel_device_ms(kern["fwd_train"], POST_WGMMA[:1]),
+           "gate": kernel_device_ms(kern["bwd"], POST_WGMMA[1:2]),
+           "wgrad": kernel_device_ms(kern["bwd"], POST_WGMMA[2:])}
+    t = {"fwd": dev["fwd"], "fwd_train": dev["fwd_train"],
+         "bwd": wrapper["bwd"]}
+    tp = {w: time_ms(plains[w], 1, 3) for w in plains}
+    _free()
+    bounds = {"fwd": attn_ffn_bound(B, L, D, H, F, 2),
+              "fwd_train": attn_ffn_bound(B, L, D, H, F, 2, train=True),
+              "bwd": gate_ffn_bwd_bound(B, L, D, H, F, 2)}
+    rows = _POST_REPLACES[name]
+    entries = []
+    for w, src, row, kname in (
+            ("fwd", "fused_block.cu", rows[0], "attn_ffn"),
+            ("fwd_train", "fused_block.cu", rows[0], "attn_ffn_train"),
+            ("bwd", "fused_block_bwd.cu", rows[1], "gate_ffn_bwd")):
+        flops, nbytes = bounds[w]
+        bound, by, _, _ = _bound(flops, nbytes)
+        timing = (f"kernel {t[w]:.4f} ms (device; the whole forward's "
+                  f"wrapper {wrapper[w]:.4f} ms)" if w != "bwd" else
+                  f"kernels {t[w]:.4f} ms (CUDA events; device "
+                  f"{dev['gate']:.4f} + wgrad {dev['wgrad']:.4f} ms)")
+        log(f"{kname} alone at {name} (B={B}, L={L}, D={D}, H={H}, F={F}, "
+            f"bf16, p={p}): {timing}, plain {tp[w]:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB), {t[w] / bound:.1f}x the bound, "
+            f"{flops / t[w] / 1e9:.1f} TFLOP/s; max abs err {err[w]:.4g}")
+        entries.append({"name": f"{kname}_{name}", "route": "cuda",
+                        "source": SRC + src, "replaces": f"{TPU}:{row}",
+                        "launches": None, "max_abs_err": err[w], "ms": t[w],
+                        "plain_ms": tp[w], "bound_ms": bound,
+                        "bound_by": by, "library_ms": None})
+    scratch = gate_scratch_bytes(B, L, D, F, 2)
+    log(f"gate_ffn_bwd's design cost at {name}: its bf16 scratch, "
+        f"{scratch / 1e6:.2f} MB written and read again, "
+        f"{scratch / PEAK_BYTES * 1e3:.4f} ms at the memory rate (not in "
+        f"its bound)")
+    log(f"post half and gate/FFN backward at {name}: held to the plain "
+        f"versions: forward {ok_f}, training {ok_t and ok_a}, backward "
+        f"{ok_b}; two backward calls bitwise equal: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    del x, ops, tt, av, dout, q, k, v, u
+    _free()
+    return ok, entries
+
+
+def phase_post():
+    """attn_ffn_wgmma_kernel and gate_ffn_bwd_wgmma_kernel (with
+    wgrad_wgmma_kernel) alone at the flagship, long and sparse shapes.
+    Every other case of these kernels is in phase_kernels (bf16 at D = 32,
+    64 and 128, H = 1-4, L = 256-16384, dropout, the chunked rounding
+    point) and the ring's stage checks. Returns (ok, {run name: the JSON
+    entries})."""
+    t0 = time.perf_counter()
+    ok, entries = True, {}
+    for name, shp in POST_SHAPES.items():
+        ok_t, entries[name] = post_times(name, *shp)
+        ok &= ok_t
+    log(f"post-half phase: {time.perf_counter() - t0:.1f} s")
+    return ok, entries
+
+
+def post_spills(report):
+    """Registers and spills of the wgmma post-half and gate/FFN kernels in
+    this run's build (-Xptxas -v of fused_block and fused_block_bwd):
+    attn_ffn_wgmma_kernel<W, DW> (9 instances), gate_ffn_bwd_wgmma_kernel
+    <DW> (3) and wgrad_wgmma_kernel; a spill at DW <= 64 (D <= 64) fails.
+    Logs each instance."""
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    ok = True
+    want = {"fused_block": 9, "fused_block_bwd": 4}
+    for lib, n in want.items():
+        if lib not in report:
+            log(f"{lib}: not built in this run; spills not read")
+            continue
+        found = []
+        for k in kernels.ptxas_report(report[lib]["log"]):
+            m = re.match(r"(?:attn_ffn_wgmma_kernel<\d+, |"
+                         r"gate_ffn_bwd_wgmma_kernel<)(\d+)>$|"
+                         r"wgrad_wgmma_kernel$", k["kernel"])
+            if not m:
+                continue
+            spill = k["spill_stores"] + k["spill_loads"]
+            found.append(f"{k['kernel']} {k['registers']} registers, spills "
+                         f"{k['spill_stores']}/{k['spill_loads']} B")
+            ok &= (m.group(1) is not None and int(m.group(1)) > 64) or \
+                spill == 0
+        ok &= len(found) == n
+        log(f"{lib}: post-half and gate/FFN wgmma kernels: "
+            f"{'; '.join(found)} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def post_route(name, by_name, train=True):
+    """Whether a profiled bf16 step (train) or predict batch ran the wgmma
+    post-half kernel and, training, the wgmma gate/FFN backward with its
+    weight-gradient kernel, each with device time, and no bf16 instance of
+    the kernels they replace; logs the names found."""
+    want = POST_WGMMA if train else POST_WGMMA[:1]
+    found = {n: sum(v for k, v in by_name.items() if n in k)
+             for n in POST_WGMMA + POST_REPLACED}
+    ok = all(found[n] > 0 for n in want) and not any(
+        found[n] for n in POST_REPLACED)
+    log(f"{name}: post-half and gate/FFN route in the profiled "
+        f"{'step' if train else 'predict batch'} (device ms): "
+        + ", ".join(f"{n} {v:.3f}" for n, v in found.items())
+        + f" {'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -1698,8 +1941,8 @@ def phase_train_speed(data, ckpt, run):
     """Train examples/s and tokens/s of the step itself (host clock,
     synchronised, after warm-up, on batches already on the card), and where
     one step's time goes (torch.profiler). Returns whether a fused run's
-    profiled step took the attention backward's wgmma kernels (True for
-    the other runs)."""
+    profiled step took the attention backward's, the post half's and the
+    gate/FFN backward's wgmma kernels (True for the other runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1755,7 +1998,10 @@ def phase_train_speed(data, ckpt, run):
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall):.1%}); "
         f"{run.kernels} forward kernels {fwd:.3f} ms ({fsplit}), backward "
         f"kernels {bwd:.3f} ms ({split}); other kernels (ms): {others}")
-    return run.kernels != "fused" or attn_bwd_route(run.name, by_name)
+    if run.kernels != "fused":
+        return True
+    ok = attn_bwd_route(run.name, by_name)
+    return post_route(run.name, by_name) and ok
 
 
 # ---------------------------------------------------------------------------
@@ -1849,9 +2095,10 @@ def phase_serving(ckpt, run):
     log(f"{run.name}: outputs: queries {queries.shape}, corpus "
         f"{corpus.shape}, finite={finite} "
         f"{'ok' if finite and shapes_ok else 'FAIL'}")
-    profile_predict(model, CK.load_params(ckpt, model, device="cuda")[0],
-                    {k: torch.from_numpy(v).cuda() for k, v in batch.items()},
-                    {k: v.cuda() for k, v in mm.items()}, run)
+    ok &= profile_predict(
+        model, CK.load_params(ckpt, model, device="cuda")[0],
+        {k: torch.from_numpy(v).cuda() for k, v in batch.items()},
+        {k: v.cuda() for k, v in mm.items()}, run)
     serving = {
         "queries_per_s": timings["n_queries"] / timings["predict_s"],
         "corpus_items_per_s": timings["n_items"] / timings["encode_items_s"],
@@ -1864,7 +2111,9 @@ def phase_serving(ckpt, run):
 
 def profile_predict(model, params, batch, mm, run):
     """Where one predict batch's time goes: device time by kernel name
-    (torch.profiler) against the synchronised host clock."""
+    (torch.profiler) against the synchronised host clock. Returns whether a
+    fused run's batch took the wgmma post-half kernel (True for the other
+    runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1886,6 +2135,8 @@ def profile_predict(model, params, batch, mm, run):
         f"{batch['seq'].shape[0]}): wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall_ms):.1%}); "
         f"{run.kernels} kernels {mine:.3f} ms; other kernels (ms): {others}")
+    return run.kernels != "fused" or post_route(run.name, by_name,
+                                                train=False)
 
 
 def plain_queries(model, params, batch, mm, dtype, route):
@@ -2316,10 +2567,12 @@ def phase_sparse_100m():
         f"(idle {max(0.0, 1 - busy / wall):.1%}), group scatter "
         f"{scatter_ms:.3f} ms in {chunks} launches, fused forward "
         f"{fwd:.3f} ms, backward {bwd:.3f} ms; other kernels (ms): {others}")
+    ok_route = attn_bwd_route("100m", by_name)
+    ok_route &= post_route("100m", by_name)
     del state, table, gview, acc, bd, tabs
     _free()
-    return (ok_rows and ok_acc and ok_untouched and ok_launch and finite,
-            launches)
+    return (ok_rows and ok_acc and ok_untouched and ok_launch and finite
+            and ok_route, launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2492,10 +2745,8 @@ def ring_bounds(B, Lc, D, H, F, pairs, elem):
         "ring_pre_fwd": (2 * M * D * 4 * D, act + w_pre + 3 * act + f32),
         "ring_post_fwd": (2 * M * (D * D + D * 2 * F + F * D),
                           2 * act + f32 + w_post + act),
-        # recompute (projection, Wo, W13), then dW2, df, dW13, dh2, dWo, dg
-        "ring_post_bwd": (2 * M * (7 * D * D + 8 * D * F),
-                          3 * act + w_pre + w_post + act + 2 * f32 + (
-                              D * D + D * 2 * F + F * D + 5 * D) * 4),
+        # the single device's gate/FFN backward, on the shard
+        "ring_post_bwd": gate_ffn_bwd_bound(B, Lc, D, H, F, elem),
         "ring_pre_bwd": (3 * 2 * M * D * 4 * D,
                          4 * act + f32 + w_pre + act + (D * 4 * D + 6 * D)
                          * 4)}
@@ -2797,6 +3048,7 @@ def phase_ring_speed(run, ckpt, S=2):
         f"kernels {fwd:.3f} ms ({fsplit}), backward kernels {bwd:.3f} ms "
         f"({split}); other kernels (ms): {others}")
     ok &= attn_bwd_route(f"ring S={S}", by_name)
+    ok &= post_route(f"ring S={S}", by_name)
     return ok, launches
 
 
@@ -2861,17 +3113,28 @@ def main() -> int:
             f"{k['spill_stores']}/{k['spill_loads']} B"
             for k in kernels.ptxas_report(r["log"])))
 
-    oks = {"attn_bwd_spills": attn_bwd_spills(report)}
+    oks = {"attn_bwd_spills": attn_bwd_spills(report),
+           "post_spills": post_spills(report)}
     t0 = time.perf_counter()
     oks["kernels"] = phase_kernels()
     oks["times"], entries = phase_times(FLAGSHIP)
     oks["times_chunked"], chunked = phase_times(LONG)
     entries += chunked
     oks["attn_bwd"], attn_bwd = phase_attn_bwd()
+    oks["post"], post = phase_post()
     oks["attention_kernels"] = phase_attention_kernels()
     oks["attention_times"], attention = phase_attention_times()
     oks["group_kernels"], group_entries = phase_group_kernels()
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+
+    def attach_post(run, trained, served):
+        """This run's launches into the post-half and gate/FFN entries: the
+        inference instance per forward without autograd, the training one
+        per training forward, the gate per backward."""
+        for entry, n in zip(post.get(run.name, ()), (
+                trained["fused_fwd"] + served["fused_fwd"],
+                trained["fused_train"], trained["fused_bwd"])):
+            entry["launches"] = n
 
     def attach(run, trained, served):
         """This run's launches into its attention kernels' JSON entries."""
@@ -2890,6 +3153,7 @@ def main() -> int:
             entry["launches"] = n
         for entry in attn_bwd[run.name]:   # one of each per fused backward
             entry["launches"] = trained["fused_bwd"]
+        attach_post(run, trained, served)
     # the ring on the long run's fixture and checkpoint
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
 
@@ -2913,15 +3177,17 @@ def main() -> int:
     entries += [entry for _, entry in attention]
     # sharded_multihost's table is below packed scale: no group scatter
     for run in (SPARSE_RUN, SOFTMAX_DP_RUN):
-        trained, _ = phase_run(run, oks)
+        trained, served = phase_run(run, oks)
         for entry in attn_bwd.get(run.name, ()):
             entry["launches"] = trained["fused_bwd"]
+        attach_post(run, trained, served)
     t0 = time.perf_counter()
     oks["sparse_100m"], launches = phase_sparse_100m()
     log(f"100m phase: {time.perf_counter() - t0:.1f} s")
     for entry in group_entries:
         entry["launches"] = launches[entry["name"]]
     entries += [e for es in attn_bwd.values() for e in es]
+    entries += [e for es in post.values() for e in es]
     entries += group_entries + ring_entries
     log(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     log(card)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the fused HSTU block's backward and the ring's pair backward of one
-checkout of the port, on one NVIDIA H100, for a comparison of two commits
-in one machine's turns.
+"""Time the fused HSTU block's forward and backward and the ring's pair
+backward of one checkout of the port, on one NVIDIA H100, for a comparison
+of two commits in one machine's turns.
 
     python3 scripts/fused_bwd_ab.py ROOT TAG
 
@@ -15,10 +15,13 @@ ones timed. Run it once per side in turns, each side its own process:
         (cd $r && python3 "$OLDPWD/scripts/fused_bwd_ab.py" "$PWD" $t)
     done
 
-Times, in bf16 with the flagship's dropout: ``fused_hstu_block_bwd`` at the
-flagship (B=128, L=1024, D=64, H=1), long (B=32, L=4096) and sparse (B=64,
-L=1024, H=4) shapes, CUDA events over 10 calls after 2, with the device ms
-of each kernel name in one profiled call; and ``ring_pair_dq`` /
+Times, in bf16 with the flagship's dropout: ``fused_hstu_block`` (the
+inference forward), ``fused_hstu_block_train`` and ``fused_hstu_block_bwd``
+at the flagship (B=128, L=1024, D=64, H=1), long (B=32, L=4096) and sparse
+(B=64, L=1024, H=4) shapes, CUDA events over 20 calls after 3 (the
+backward 10 after 2), with the device ms of each kernel name in one
+profiled call of the training forward and the backward; and
+``ring_pair_dq`` /
 ``ring_pair_dkdv`` at the S = 2 shard (B=32, Lc=2048), the mean over
 offsets 0, 0 and +Lc. Prints ``tree TAG <package file>``, then one line
 ``AB {json}``.
@@ -45,7 +48,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     print("tree", tag, FB.__file__, flush=True)
-    kernels.build_all(["fused_block_bwd", "ring_pair"])
+    kernels.build_all(["fused_block", "fused_block_bwd", "ring_pair"])
     bf16 = torch.bfloat16
     out = {"tag": tag, "card": cs.card_line()}
 
@@ -67,10 +70,19 @@ def main() -> int:
         dout = torch.randn(x.shape, generator=torch.Generator(
             device="cuda").manual_seed(3), device="cuda").to(bf16)
 
+        def fwd():
+            return FB.fused_hstu_block(x, ops, tt, H)
+
+        def train():
+            return FB.fused_hstu_block_train(x, ops, tt, H, 5, 0.01)
+
         def bwd():
             return FB.fused_hstu_block_bwd(x, av, dout, ops, tt, H, 5, 0.01)
 
-        out[name] = {"bwd_ms": cs.time_ms(bwd, 2, 10),
+        out[name] = {"fwd_ms": cs.time_ms(fwd, 3, 20),
+                     "train_ms": cs.time_ms(train, 3, 20),
+                     "bwd_ms": cs.time_ms(bwd, 2, 10),
+                     "device_train": device_ms(train),
                      "device": device_ms(bwd)}
         del x, ops, tt, av, dout
         cs._free()

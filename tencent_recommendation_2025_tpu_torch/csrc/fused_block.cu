@@ -48,12 +48,17 @@
 // Bound on the H100 (flagship B=128, L=1024, D=64, F=256, H=1, per block):
 // 35.4 GFLOP of products (projection 4.3, q.k^T causal 8.6, a.v 8.6, Wo 1.1,
 // W13 8.6, W2 4.3) against 33.5 MB of activation traffic; 36 us at 989
-// TFLOP/s bf16 versus 10 us at 3.35 TB/s, so the bound is compute. Products
-// run on the tensor cores through WMMA (16x16x16 bf16, f32 accumulate) when
-// T is bf16 and the widths are multiples of 16, else as FMA loops (the f32
-// instance, which exists so that the card can be checked tightly).
+// TFLOP/s bf16 versus 10 us at 3.35 TB/s, so the bound is compute.
+//
+// Instances. In bf16 at D <= 128 (every fused preset) the second kernel is
+// attn_ffn_wgmma_kernel (below, on csrc/fused_block_sm90.cuh): wgmma with
+// register accumulators, the weights streamed through a cp.async ring. In
+// f32 (the instance that lets the card be checked tightly) and at D > 128,
+// attn_ffn_kernel runs its products through WMMA (16x16x16 bf16, f32
+// accumulate) in bf16 and as FMA loops in f32; proj_kernel serves both.
 
 #include "fused_block_common.cuh"
+#include "fused_block_sm90.cuh"
 
 using namespace fbk;
 
@@ -332,9 +337,402 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ===========================================================================
+// attn_ffn_wgmma_kernel: the bf16 instance on wgmma (csrc/fused_block_sm90.cuh)
+// ===========================================================================
+//
+// The same function as attn_ffn_kernel, for bf16 at D <= 128 (padded to DW
+// = 32, 64 or 128 columns) with head slices in whole 16-byte chunks (hd % 8
+// == 0, padded to W = 16-128 columns as sm90::wgmma_width pads them). One
+// warpgroup owns one 64-query tile of one batch row with all its heads
+// (LN2 needs the whole row), the heaviest tiles first. A two-stage cp.async
+// ring streams, step by step: for each head and each key tile up to the
+// diagonal, k_h, v_h, the keys' valid flags and the tile's 127 rel-pos
+// biases; then, for each F-chunk of 64 columns, the two W13 slices and the
+// W2 rows of the chunk. Wo and the query tiles are loaded once.
+//
+// - Attention, per step: S = q_h k_h^T (SS wgmma), a = silu(s + bias) with
+//   the causal and key-valid mask in registers (an unmasked path for tiles
+//   below the diagonal whose keys are all valid), T(a) straight into the A
+//   operand of av_h += T(a) v_h (RS wgmma). A head's sum goes to a shared
+//   f32 tile at its columns; with one head whose width is DW it stays in
+//   registers.
+// - The post half from av in registers: LN2 * u * keep1 by quad shuffles,
+//   y = T(g) Wo + x + bo (RS, Wo an MN-major B), LN3, then per chunk x1 and
+//   x3 = T(LN3(y)) [W13 slices] (RS), f = silu(x1) x3 keep2 rounded into A
+//   fragments, out += T(f) W2[chunk] (RS) onto the y accumulator.
+template <int W, int DW>
+struct FwdCarve {
+  static constexpr int kFC = fb90::FwdChunk<DW>::kFC;
+  static constexpr size_t kWo = (size_t)DW * DW * 2;
+  // tile sizes as constants (Tile<>::bytes is a host constexpr function)
+  static constexpr size_t kQ = sm90::Tile<W>::bytes(fb90::kRows);
+  static constexpr size_t kW13 = sm90::Tile<kFC>::bytes(DW);
+  static constexpr size_t kTiles = fb90::cmax(
+      2 * sm90::Tile<W>::bytes(fb90::kRows),
+      fb90::cmax(2 * sm90::Tile<kFC>::bytes(DW),
+                 sm90::Tile<DW>::bytes(kFC)));
+  static constexpr size_t kStage = kTiles + 1024;  // + valid flags, biases
+  static constexpr int kAvLd = DW + 8;             // av tile row stride
+  int H;
+  bool attn, av_tile;
+
+  // With one head as wide as the padded row (at DW <= 64: at 128 the
+  // attention's registers beside av would spill) av stays in the
+  // attention's accumulator; else each head's sum goes to a shared tile.
+  __host__ __device__ static FwdCarve of(int H, bool attn) {
+    return {H, attn, attn && !(W == DW && DW <= 64 && H == 1)};
+  }
+
+  __host__ __device__ size_t q_bytes() const {
+    return attn ? (size_t)H * kQ : 0;
+  }
+  __host__ __device__ size_t av_bytes() const {
+    return av_tile ? fb90::round1024((size_t)fb90::kRows * kAvLd * 4) : 0;
+  }
+  __host__ __device__ size_t ring() const {
+    return kWo + q_bytes() + av_bytes();
+  }
+  __host__ __device__ size_t bytes() const {
+    return 1024 + ring() + sm90::kStages * kStage;
+  }
+};
+
+template <int W, int DW>
+__global__ void __launch_bounds__(fb90::kWg) attn_ffn_wgmma_kernel(Params p) {
+  using namespace fb90;
+  using Cv = FwdCarve<W, DW>;
+  constexpr int FC = Cv::kFC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  const int D = p.D, H = p.H, hd = D / H, F = p.F, L = p.L, NB = p.NB;
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kRows;
+  const bool attn = p.av_in == nullptr;
+  const Cv cv = Cv::of(H, attn);
+  const bool direct = attn && !cv.av_tile;   // av in the accumulator
+  bf16* wo_s = reinterpret_cast<bf16*>(base);
+  auto q_tile = [&](int h) {
+    return reinterpret_cast<bf16*>(base + Cv::kWo +
+                                   h * Cv::kQ);
+  };
+  float* av_s = reinterpret_cast<float*>(base + Cv::kWo + cv.q_bytes());
+  auto stage = [&](int s) {
+    return base + cv.ring() + (s % sm90::kStages) * Cv::kStage;
+  };
+  const int n = qt + 1;              // key tiles up to the diagonal
+  const int na = attn ? H * n : 0;   // attention steps
+  const int nf = (F + FC - 1) / FC;  // FFN chunks, two steps each
+  const int steps = na + 2 * nf;
+  const size_t rowb = (size_t)b * L;
+  const bf16* K = static_cast<const bf16*>(p.k);
+  const bf16* V = static_cast<const bf16*>(p.v);
+  const bf16* W13 = static_cast<const bf16*>(p.w13);
+  const bf16* W2 = static_cast<const bf16*>(p.w2);
+
+  // the first group also carries Wo and the query tiles
+  load_mat<DW>(wo_s, DW, static_cast<const bf16*>(p.wo), D, D, D);
+  if (attn)
+    for (int h = 0; h < H; ++h)
+      load_mat<W>(q_tile(h), kRows,
+                  static_cast<const bf16*>(p.q) + (rowb + q0) * D + h * hd,
+                  D, kRows, hd);
+
+  auto issue = [&](int s) {
+    if (s < steps) {
+      unsigned char* st = stage(s);
+      if (s < na) {
+        const int h = s / n, kt = s - h * n;
+        const size_t r0 = rowb + (size_t)kt * kRows;
+        load_mat<W>(reinterpret_cast<bf16*>(st), kRows, K + r0 * D + h * hd,
+                    D, kRows, hd);
+        load_mat<W>(reinterpret_cast<bf16*>(st + Cv::kQ),
+                    kRows, V + r0 * D + h * hd, D, kRows, hd);
+        unsigned char* rows = st + Cv::kTiles;
+        if (tid < kRows)
+          sm90::cp_async4(reinterpret_cast<int*>(rows) + tid,
+                          p.valid + r0 + tid);
+        if (tid < 2 * kRows - 1) {
+          const int dist = q0 - kt * kRows + tid - (kRows - 1);
+          sm90::cp_async4(reinterpret_cast<float*>(rows + 256) + tid,
+                          p.rab + (size_t)h * NB + min(max(dist, 0), NB - 1));
+        }
+      } else {
+        const int j0 = ((s - na) >> 1) * FC, w = min(FC, F - j0);
+        bf16* t = reinterpret_cast<bf16*>(st);
+        if (((s - na) & 1) == 0) {   // x1 and x3 slices of W13
+          load_mat<FC>(t, DW, W13 + j0, 2 * F, D, w);
+          load_mat<FC>(reinterpret_cast<bf16*>(st + Cv::kW13), DW,
+                       W13 + F + j0, 2 * F, D, w);
+        } else {                     // W2 rows of the chunk
+          load_mat<DW>(t, FC, W2 + (size_t)j0 * D, D, w, D);
+        }
+      }
+    }
+    sm90::cp_async_commit();
+  };
+
+  // av, then y, then the output sum; defined by the attention's last step
+  // (direct) or at the post half's start (from the av tile or av_in)
+  float y[DW / 2];
+  float s[32], acc[W / 2];
+  uint32_t h2a[DW / 16][4], fa[FC / 16][4];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+  const int r0 = acc_row(0), c0 = acc_col(0);
+  const bool drop = p.seed != nullptr;
+  const uint32_t seed = drop ? (uint32_t)p.seed[0] : 0u;
+  const uint32_t key1 = drop_key(seed, 2u * b);
+  const uint32_t key2 = drop_key(seed, 2u * b + 1u);
+
+  issue(0);
+  for (int step = 0; step < steps; ++step) {
+    issue(step + 1);
+    sm90::cp_async_wait<1>();
+    sm90::fence_async_smem();
+    unsigned char* st = stage(step);
+    if (step < na) {
+      // --- attention: head h, key tile kt ---
+      const int h = step / n, kt = step - h * n;
+      const int* kv = reinterpret_cast<const int*>(st + Cv::kTiles);
+      const float* rw = reinterpret_cast<const float*>(st + Cv::kTiles + 256);
+      // every key of the tile valid? (each thread reads the flag it copied)
+      const bool full = __syncthreads_and(tid >= kRows || kv[tid] != 0);
+      const int based = q0 - kt * kRows;   // distance of pair (0, 0)
+      sm90::wgmma_fence();
+      sm90::scores<W>(s, q_tile(h), reinterpret_cast<bf16*>(st));
+      finish(s);
+      auto act = [&](auto masked) {
+        constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = r0 + (((i >> 1) & 1) << 3);
+          const int c = c0 + ((i >> 2) << 3) + (i & 1);
+          const float a = fast_silu(s[i] + rw[r - c + kRows - 1]);
+          const bool vis = !kMasked || (based + r - c >= 0 && kv[c] != 0);
+          s[i] = vis ? a : 0.0f;
+        }
+      };
+      if (full && kt < qt)
+        act(std::false_type{});
+      else
+        act(std::true_type{});
+      uint32_t a[4][4];
+      frags(s, a);
+      sm90::wgmma_fence();
+      sm90::accumulate<W>(acc, a,
+                          reinterpret_cast<bf16*>(st + Cv::kQ));
+      finish(acc);
+      if (kt == n - 1) {   // head h is summed
+        if constexpr (W == DW && DW <= 64) {
+          if (direct) {
+#pragma unroll
+            for (int i = 0; i < W / 2; ++i) y[i] = acc[i];
+          }
+        }
+        if (!direct) {
+#pragma unroll
+          for (int i = 0; i < W / 2; i += 2) {
+            const int c = acc_col(i);
+            if (c < hd)
+              *reinterpret_cast<float2*>(av_s + acc_row(i) * Cv::kAvLd +
+                                         h * hd + c) =
+                  make_float2(acc[i], acc[i + 1]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
+      }
+    } else {
+      __syncthreads();
+      const int f = step - na, j0 = (f >> 1) * FC;
+      if (f == 0) {
+        // --- av in registers, LN2 * u * keep1, y = T(g) Wo + x + bo ---
+        const size_t row0 = rowb + q0;
+        if (!attn) {
+#pragma unroll
+          for (int i = 0; i < DW / 2; i += 2) {
+            const float2 v = ld_bf16x2(
+                static_cast<const bf16*>(p.av_in) + row0 * D, D, i, D);
+            y[i] = v.x;
+            y[i + 1] = v.y;
+          }
+        } else if (!direct) {
+#pragma unroll
+          for (int i = 0; i < DW / 2; i += 2) {
+            const int c = acc_col(i);
+            const float2 v = c < D ? *reinterpret_cast<const float2*>(
+                                         av_s + acc_row(i) * Cv::kAvLd + c)
+                                   : make_float2(0.0f, 0.0f);
+            y[i] = v.x;
+            y[i + 1] = v.y;
+          }
+        }
+        if (p.round_av) {
+#pragma unroll
+          for (int i = 0; i < DW / 2; ++i) y[i] = round_bf16(y[i]);
+        }
+        if (p.av) st_bf16(static_cast<bf16*>(p.av) + row0 * D, D, y, D);
+        float mu[2], rs[2];
+        row_stats(y, D, mu, rs);
+        const float* g2 = p.ln + 2 * D;
+        const float* b2 = p.ln + 3 * D;
+        const float* u = p.u + row0 * D;
+        float g[DW / 2];
+#pragma unroll
+        for (int i = 0; i < DW / 2; i += 2) {
+          const int hf = (i >> 1) & 1, r = acc_row(i), c = acc_col(i);
+          const float2 gg = ld_vec2(g2, i, D), bb = ld_vec2(b2, i, D);
+          const float2 uu = ld_f32x2(u, D, i, D);
+          g[i] = ((y[i] - mu[hf]) * rs[hf] * gg.x + bb.x) * uu.x;
+          g[i + 1] = ((y[i + 1] - mu[hf]) * rs[hf] * gg.y + bb.y) * uu.y;
+          if (drop) {
+            const uint32_t cnt = (uint32_t)((q0 + r) * D + c);
+            g[i] *= keep_factor(key1, cnt, p.thr, p.keep_scale);
+            g[i + 1] *= keep_factor(key1, cnt + 1u, p.thr, p.keep_scale);
+          }
+        }
+        uint32_t ga[DW / 16][4];
+        frags(g, ga);
+        sm90::wgmma_fence();
+        chain<DW, 1>(y, ga, [&](int kk) {
+          return Tile<DW>::desc_mn(wo_s, DW, kk);
+        }, false);
+        finish(y);
+        const bf16* x = static_cast<const bf16*>(p.x) + row0 * D;
+#pragma unroll
+        for (int i = 0; i < DW / 2; i += 2) {
+          const float2 xv = ld_bf16x2(x, D, i, D), bv = ld_vec2(p.bo, i, D);
+          y[i] += xv.x + bv.x;
+          y[i + 1] += xv.y + bv.y;
+        }
+        row_stats(y, D, mu, rs);
+        const float* g3 = p.ln + 4 * D;
+        const float* b3 = p.ln + 5 * D;
+#pragma unroll
+        for (int i = 0; i < DW / 2; i += 2) {
+          const int hf = (i >> 1) & 1;
+          const float2 gg = ld_vec2(g3, i, D), bb = ld_vec2(b3, i, D);
+          g[i] = (y[i] - mu[hf]) * rs[hf] * gg.x + bb.x;
+          g[i + 1] = (y[i + 1] - mu[hf]) * rs[hf] * gg.y + bb.y;
+        }
+        frags(g, h2a);
+      }
+      if ((f & 1) == 0) {
+        // --- [x1 | x3] = T(LN3(y)) W13[chunk]; f = silu(x1) x3 keep2 ---
+        float x1[FC / 2], x3[FC / 2];
+        const bf16* wa = reinterpret_cast<const bf16*>(st);
+        const bf16* wb = reinterpret_cast<const bf16*>(st +
+                                                       Cv::kW13);
+        sm90::wgmma_fence();
+        chain<FC, 1>(x1, h2a, [&](int kk) {
+          return Tile<FC>::desc_mn(wa, DW, kk);
+        }, false);
+        chain<FC, 1>(x3, h2a, [&](int kk) {
+          return Tile<FC>::desc_mn(wb, DW, kk);
+        }, false);
+        finish(x1);
+        sm90::reg_fence(x3);
+#pragma unroll
+        for (int i = 0; i < FC / 2; ++i) {
+          float fv = fast_silu(x1[i]) * x3[i];
+          if (drop)
+            fv *= keep_factor(key2, (uint32_t)((q0 + acc_row(i)) * F + j0 +
+                                               acc_col(i)),
+                              p.thr, p.keep_scale);
+          x1[i] = fv;
+        }
+        frags(x1, fa);
+      } else {
+        // --- out += T(f) W2[chunk], onto y ---
+        const bf16* w2s = reinterpret_cast<const bf16*>(st);
+        sm90::wgmma_fence();
+        chain<DW, 1>(y, fa, [&](int kk) {
+          return Tile<DW>::desc_mn(w2s, FC, kk);
+        }, true);
+        finish(y);
+      }
+    }
+    __syncthreads();  // this stage is read; a later issue reloads it
+  }
+  st_bf16(static_cast<bf16*>(p.out) + (rowb + q0) * D, D, y, D);
+}
+
+// Whether bf16 operands of this shape take attn_ffn_wgmma_kernel: D at
+// most 128 and head slices (with attention) in whole 16-byte chunks.
+inline bool attn_ffn_wgmma_shape(const Params& p, bool attn) {
+  const int hd = p.D / p.H;
+  return fb90::post_width(p.D) != 0 &&
+         (!attn || (hd % 8 == 0 && sm90::wgmma_width(hd) != 0));
+}
+
+template <int W, int DW>
+int launch_attn_ffn_wgmma(const Params& p, cudaStream_t stream) {
+  // the operands it streams with cp.async: a misaligned one fails the
+  // launch (the wrapper checks every operand's alignment)
+  if (!sm90::aligned16(p.wo) || !sm90::aligned16(p.w13) ||
+      !sm90::aligned16(p.w2) ||
+      (p.av_in == nullptr && (!sm90::aligned16(p.q) ||
+                              !sm90::aligned16(p.k) ||
+                              !sm90::aligned16(p.v))))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = FwdCarve<W, DW>::of(p.H, p.av_in == nullptr).bytes();
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_ffn_wgmma_kernel<W, DW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  attn_ffn_wgmma_kernel<W, DW>
+      <<<dim3(p.L / fb90::kRows, p.B), fb90::kWg, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int DW>
+int launch_attn_ffn_dw(const Params& p, cudaStream_t stream) {
+  // the post stage alone runs no attention: any head width will do
+  const int W = p.av_in ? 16 : sm90::wgmma_width(p.D / p.H);
+  if constexpr (DW >= 128)
+    if (W == 128) return launch_attn_ffn_wgmma<128, DW>(p, stream);
+  if constexpr (DW >= 64)
+    if (W == 64) return launch_attn_ffn_wgmma<64, DW>(p, stream);
+  if (W == 32) return launch_attn_ffn_wgmma<32, DW>(p, stream);
+  if (W == 16) return launch_attn_ffn_wgmma<16, DW>(p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_attn_ffn_wgmma_any(const Params& p, cudaStream_t stream) {
+  switch (fb90::post_width(p.D)) {
+    case 32: return launch_attn_ffn_dw<32>(p, stream);
+    case 64: return launch_attn_ffn_dw<64>(p, stream);
+    default: return launch_attn_ffn_dw<128>(p, stream);
+  }
+}
+
 // stages: 1 = proj_kernel, 2 = attn_ffn_kernel, 3 = both (the whole block)
+// Which instance runs where: bf16 at D <= 128 (every fused preset, the
+// whole-sequence and chunked forward and the ring's post stage) takes
+// attn_ffn_wgmma_kernel after proj_kernel; f32 (the tight check instance)
+// and D > 128 take attn_ffn_kernel (WMMA through shared memory in bf16, FMA
+// loops in f32). A choice by dtype and shape, made here alone: a failed
+// launch raises.
 template <typename T>
 int launch(const Params& p, bool tc, cudaStream_t stream, int stages) {
+  if (std::is_same<T, bf16>::value &&
+      attn_ffn_wgmma_shape(p, p.av_in == nullptr)) {
+    if (stages & 1) {
+      const size_t sm_a = proj_smem<T>(p.D);
+      cudaError_t e = cudaFuncSetAttribute(
+          proj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)sm_a);
+      if (e != cudaSuccess) return (int)e;
+      proj_kernel<T><<<dim3(p.L / kTM, p.B), kThreads, sm_a, stream>>>(p,
+                                                                       tc);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+    return (stages & 2) ? launch_attn_ffn_wgmma_any(p, stream) : 0;
+  }
   int TQ = 0;
   for (int t = 64; t >= 16; t >>= 1) {
     if (p.L % t == 0 && attn_smem<T>(p.D, t) <= kMaxSmem) {
@@ -421,7 +819,7 @@ static int run(int is_bf16, const void* x, const void* valid, const void* ln,
   return launch<float>(p, false, s, stages);
 }
 
-// The whole block: proj_kernel, then attn_ffn_kernel.
+// The whole block: proj_kernel, then the second kernel.
 extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
                                const void* ln, const void* wuvqk,
                                const void* buvqk, const void* wo,

@@ -48,15 +48,23 @@
 // in a fixed order, as it sums the rel-pos partials. No atomics: the result
 // is deterministic.
 //
+// In bf16 at D <= 128 (every fused preset) step 1 is
+// gate_ffn_bwd_wgmma_kernel + wgrad_wgmma_kernel (below, on csrc/
+// fused_block_sm90.cuh): wgmma with register accumulators, and the weight
+// products dW2, dW13 and dWo taken over token ranges from bf16 scratch
+// instead of an f32 read-modify-write of ``part`` per tile.
+//
 // Bound on the H100 at the flagship shape (B=128, L=1024, D=64, F=256,
 // H=1), per block: 93.46 GFLOP of products (recompute: projection 4.29,
 // s 8.60, Wo 1.07, W13 8.59; attention dv, da, dq, dk 8.60 each; weight
 // products twice each, dW and dX: projection 8.59, Wo 2.15, W13 17.18, W2
 // 8.59), 94.5 us at 989 TFLOP/s bf16, against 67 MB of x, av, dout and dx
-// (20 us at 3.35 TB/s): compute bound. gate_ffn_bwd and proj_bwd run their
-// products as WMMA tiles (bf16, f32 accumulators) through shared memory.
+// (20 us at 3.35 TB/s): compute bound. proj_bwd, and gate_ffn_bwd where it
+// runs (f32, D > 128), run their products as WMMA tiles (bf16, f32
+// accumulators) through shared memory, FMA loops in f32.
 
 #include "fused_block_common.cuh"
+#include "fused_block_sm90.cuh"
 #include "hstu_attn_bwd_sm90.cuh"
 
 using namespace fbk;
@@ -94,6 +102,14 @@ struct BwdArgs {
   void* dx;            // [B, L, D] T
   float* grads;        // [P]: dW2, dW13, dWo, dbo, dln, dWuvqk, dbuvqk
   float* drab;         // [H, NB]
+  // scratch of the wgmma gate/FFN kernel, whose presence selects it (the
+  // wrapper passes it in bf16 at D <= 128; else null): the bf16 operands of
+  // the weight-gradient products over tokens
+  void* fs;            // [B, L, F] T(f)
+  void* dx13s;         // [B, L, 2F] T([dx1 | dx3])
+  void* h2s;           // [B, L, D] T(LN3(y))
+  void* gs;            // [B, L, D] T(g)
+  void* dys;           // [B, L, D] T(dy)
   int B, L, D, H, F, NB;
   int G, P;            // blocks of the striding kernels; partial row width
   int off_w2, off_w13, off_wo, off_bo, off_ln, off_wuvqk, off_buvqk;
@@ -498,6 +514,554 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ===========================================================================
+// gate_ffn_bwd_wgmma_kernel and wgrad_wgmma_kernel: the bf16 instance on
+// wgmma (csrc/fused_block_sm90.cuh)
+// ===========================================================================
+//
+// The same function as gate_ffn_bwd_kernel, for bf16 at D <= 128 (padded to
+// DW = 32, 64 or 128 columns), in two kernels:
+//
+// - gate_ffn_bwd_wgmma_kernel<DW, FC>: G blocks of one warpgroup stride over
+//   the 64-token tiles. Per tile, with register accumulators: LN1 and the
+//   projection to u, v, q, k (four RS wgmma, one per D-column slice of
+//   Wuvqk; v, q, k written as gate_ffn_bwd_kernel writes them), g = LN2(av)
+//   u keep1, y = T(g) Wo + x + bo, LN3, then per FC-chunk df = T(dout)
+//   W2[chunk]^T, [x1 | x3] = T(h2) W13[chunk], f, dx13 and dh2 += dx13
+//   W13[chunk]^T; last LN3', dy, dg = T(dy) Wo^T, du and LN2' -> T(dav).
+//   Wo stays in shared memory; the Wuvqk slices and the W2 and W13 chunks
+//   stream through a two-stage cp.async ring whose steps run on from one
+//   tile to the next. u and y wait in shared memory, each thread its own
+//   elements. The LN and bias column sums add per tile, in a fixed order,
+//   into the block's sums, which it writes to its row of ``part`` at the end.
+//   The weight products' operands T(f), T(dx13), T(h2), T(g) and T(dy) go to
+//   the bf16 scratch of BwdArgs: no f32 read-modify-write per tile.
+// - wgrad_wgmma_kernel: dW2 = T(f)^T T(dout), dW13 = T(h2)^T T(dx13) and dWo
+//   = T(g)^T T(dy), products over tokens: one warpgroup per 64 x 64 output
+//   tile and range of token tiles, SS wgmma with both operands MN-major (the
+//   tokens are the K index), written to the range's row of ``part``;
+//   reduce_rows_kernel sums the rows in a fixed order. No atomics anywhere.
+
+template <int DW>
+struct GateCarve {
+  static constexpr int kFC = fb90::kBwdFC, kCPS = fb90::kBwdCPS;
+  static constexpr size_t kWo = (size_t)DW * DW * 2;
+  static constexpr size_t kKeep = (size_t)(DW / 2) * fb90::kWg * 4;  // u, y
+  // T(LN3(y))'s fragments, read by every chunk
+  static constexpr size_t kKeepH2 = (size_t)(DW / 4) * fb90::kWg * 4;
+  // the warps' shares [5][4][DW] and the block's sums [5][DW]
+  static constexpr size_t kRed = fb90::round1024((size_t)25 * DW * 4);
+  // a chunk's tiles: W2 rows (N-major for df), the x1 and x3 slices of W13
+  static constexpr size_t kW2 = sm90::Tile<DW>::bytes(kFC);
+  static constexpr size_t kW13 = sm90::Tile<kFC>::bytes(DW);
+  static constexpr size_t kChunk = kW2 + 2 * kW13;
+  static constexpr size_t kTiles =
+      fb90::cmax(sm90::Tile<DW>::bytes(DW), kCPS * kChunk);
+  static constexpr size_t kRing = kWo + 2 * kKeep + kKeepH2 + kRed;
+  static constexpr size_t bytes() {
+    return 1024 + kRing + sm90::kStages * kTiles;
+  }
+};
+
+template <int DW>
+__global__ void __launch_bounds__(fb90::kWg)
+    gate_ffn_bwd_wgmma_kernel(BwdArgs p) {
+  using namespace fb90;
+  using Cv = GateCarve<DW>;
+  constexpr int NF = DW / 2, FC = Cv::kFC, CPS = Cv::kCPS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  const int D = p.D, F = p.F, L = p.L, tid = threadIdx.x;
+  bf16* wo_s = reinterpret_cast<bf16*>(base);
+  float* u_keep = reinterpret_cast<float*>(base + Cv::kWo);
+  // y; during the projection steps T(LN1(x))'s fragments
+  float* y_keep = u_keep + NF * kWg;
+  uint32_t* h1_keep = reinterpret_cast<uint32_t*>(y_keep);
+  uint32_t* h2_keep = reinterpret_cast<uint32_t*>(base + Cv::kWo +
+                                                  2 * Cv::kKeep);
+  float* wsum = reinterpret_cast<float*>(base + Cv::kWo + 2 * Cv::kKeep +
+                                         Cv::kKeepH2);
+  float* sums = wsum + 20 * DW;
+  auto stage = [&](int s) {
+    return base + Cv::kRing + (s % sm90::kStages) * Cv::kTiles;
+  };
+  const int per_row = L / kRows, ntiles = p.B * per_row;
+  const int mine = (int)blockIdx.x < ntiles
+                       ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int nfs = (F + FC * CPS - 1) / (FC * CPS);
+  // steps of a tile: the four slices of Wuvqk, then CPS chunks of W2 and
+  // W13 a step
+  const int spt = 4 + nfs;
+  const int steps = mine * spt;
+  const bf16* WP = static_cast<const bf16*>(p.wuvqk);
+  const bf16* W13 = static_cast<const bf16*>(p.w13);
+  const bf16* W2 = static_cast<const bf16*>(p.w2);
+  const float* g1 = p.ln;
+  const float* b1 = p.ln + D;
+  const float* g2 = p.ln + 2 * D;
+  const float* b2 = p.ln + 3 * D;
+  const float* g3 = p.ln + 4 * D;
+  const float* b3 = p.ln + 5 * D;
+  const bool drop = p.seed != nullptr;
+  const uint32_t seed = drop ? (uint32_t)p.seed[0] : 0u;
+
+  for (int i = tid; i < 5 * DW; i += kWg) sums[i] = 0.0f;
+  load_mat<DW>(wo_s, DW, static_cast<const bf16*>(p.wo), D, D, D);
+
+  auto issue = [&](int s) {
+    if (s < steps) {
+      unsigned char* st = stage(s);
+      const int k = s % spt;
+      if (k < 4) {
+        load_mat<DW>(reinterpret_cast<bf16*>(st), DW, WP + k * D, 4 * D, D,
+                     D);
+      } else {
+#pragma unroll
+        for (int sc = 0; sc < CPS; ++sc) {
+          const int j0 = ((k - 4) * CPS + sc) * FC, w = min(FC, F - j0);
+          unsigned char* t = st + sc * Cv::kChunk;
+          load_mat<DW>(reinterpret_cast<bf16*>(t), FC, W2 + (size_t)j0 * D,
+                       D, w, D);
+          load_mat<FC>(reinterpret_cast<bf16*>(t + Cv::kW2), DW, W13 + j0,
+                       2 * F, D, w);
+          load_mat<FC>(reinterpret_cast<bf16*>(t + Cv::kW2 + Cv::kW13), DW,
+                       W13 + F + j0, 2 * F, D, w);
+        }
+      }
+    }
+    sm90::cp_async_commit();
+  };
+
+  float mu2[2], rs2[2], mu3[2], rs3[2];
+  float dh2[NF];
+#pragma unroll
+  for (int i = 0; i < NF; ++i) dh2[i] = 0.0f;
+
+  issue(0);
+  for (int step = 0; step < steps; ++step) {
+    issue(step + 1);
+    sm90::cp_async_wait<1>();
+    sm90::fence_async_smem();
+    __syncthreads();
+    const int ti = step / spt, k = step - ti * spt;
+    const int tile = blockIdx.x + ti * gridDim.x;
+    const int b = tile / per_row, t0 = (tile - b * per_row) * kRows;
+    const size_t row0 = (size_t)b * L + t0;
+    const bf16* x = static_cast<const bf16*>(p.x) + row0 * D;
+    const bf16* av = static_cast<const bf16*>(p.av) + row0 * D;
+    const bf16* dout = static_cast<const bf16*>(p.dout) + row0 * D;
+    const unsigned char* st = stage(step);
+    const uint32_t key1 = drop_key(seed, 2u * b);
+    const uint32_t key2 = drop_key(seed, 2u * b + 1u);
+
+    if (k < 4) {
+      uint32_t h1a[DW / 16][4];
+      if (k == 0) {
+        // --- LN1 -> T(h1) fragments (kept); LN2's statistics of av ---
+        float v[NF], mu1[2], rs1[2];
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const float2 e = ld_bf16x2(x, D, i, D);
+          v[i] = e.x;
+          v[i + 1] = e.y;
+        }
+        row_stats(v, D, mu1, rs1);
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const int hf = (i >> 1) & 1;
+          const float2 gg = ld_vec2(g1, i, D), bb = ld_vec2(b1, i, D);
+          v[i] = (v[i] - mu1[hf]) * rs1[hf] * gg.x + bb.x;
+          v[i + 1] = (v[i + 1] - mu1[hf]) * rs1[hf] * gg.y + bb.y;
+        }
+        frags(v, h1a);
+        keep(h1_keep, reinterpret_cast<uint32_t(&)[DW / 4]>(h1a));
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const float2 e = ld_bf16x2(av, D, i, D);
+          v[i] = e.x;
+          v[i + 1] = e.y;
+        }
+        row_stats(v, D, mu2, rs2);
+      } else {
+        unkeep(h1_keep, reinterpret_cast<uint32_t(&)[DW / 4]>(h1a));
+      }
+      // --- projection slice k: u (kept), v / L, q hd^-1/2, k ---
+      float pre[NF];
+      const bf16* wp = reinterpret_cast<const bf16*>(st);
+      sm90::wgmma_fence();
+      chain<DW, 1>(pre, h1a, [&](int kk) {
+        return Tile<DW>::desc_mn(wp, DW, kk);
+      }, false);
+      finish(pre);
+      const float mul = k == 1 ? p.inv_len : k == 2 ? p.scale : 1.0f;
+#pragma unroll
+      for (int i = 0; i < NF; i += 2) {
+        const float2 bb = ld_vec2(p.buvqk + k * D, i, D);
+        const bool in = acc_col(i) < D;
+        pre[i] = in ? fast_silu(pre[i] + bb.x) * mul : 0.0f;
+        pre[i + 1] = in ? fast_silu(pre[i + 1] + bb.y) * mul : 0.0f;
+      }
+      if (k == 0) {
+        keep(u_keep, pre);
+      } else {
+        void* out = k == 1 ? p.v : k == 2 ? p.q : p.k;
+        st_bf16(static_cast<bf16*>(out) + row0 * D, D, pre, D);
+      }
+      if (k == 3) {
+        // --- g = LN2(av) u keep1; y = T(g) Wo + x + bo; h2 = T(LN3(y)) ---
+        float g[NF];
+        unkeep(u_keep, g);
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const int hf = (i >> 1) & 1, r = acc_row(i), c = acc_col(i);
+          const float2 e = ld_bf16x2(av, D, i, D);
+          const float2 gg = ld_vec2(g2, i, D), bb = ld_vec2(b2, i, D);
+          g[i] *= (e.x - mu2[hf]) * rs2[hf] * gg.x + bb.x;
+          g[i + 1] *= (e.y - mu2[hf]) * rs2[hf] * gg.y + bb.y;
+          if (drop) {
+            const uint32_t cnt = (uint32_t)((t0 + r) * D + c);
+            g[i] *= keep_factor(key1, cnt, p.thr, p.keep_scale);
+            g[i + 1] *= keep_factor(key1, cnt + 1u, p.thr, p.keep_scale);
+          }
+        }
+        st_bf16(static_cast<bf16*>(p.gs) + row0 * D, D, g, D);
+        uint32_t ga[DW / 16][4];
+        frags(g, ga);
+        float y[NF];
+        sm90::wgmma_fence();
+        chain<DW, 1>(y, ga, [&](int kk) {
+          return Tile<DW>::desc_mn(wo_s, DW, kk);
+        }, false);
+        finish(y);
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const float2 xv = ld_bf16x2(x, D, i, D), bv = ld_vec2(p.bo, i, D);
+          y[i] += xv.x + bv.x;
+          y[i + 1] += xv.y + bv.y;
+        }
+        keep(y_keep, y);
+        row_stats(y, D, mu3, rs3);
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const int hf = (i >> 1) & 1;
+          const float2 gg = ld_vec2(g3, i, D), bb = ld_vec2(b3, i, D);
+          y[i] = (y[i] - mu3[hf]) * rs3[hf] * gg.x + bb.x;
+          y[i + 1] = (y[i + 1] - mu3[hf]) * rs3[hf] * gg.y + bb.y;
+        }
+        st_bf16(static_cast<bf16*>(p.h2s) + row0 * D, D, y, D);
+        uint32_t h2a[DW / 16][4];
+        frags(y, h2a);
+        keep(h2_keep, reinterpret_cast<uint32_t(&)[DW / 4]>(h2a));
+#pragma unroll
+        for (int i = 0; i < NF; ++i) dh2[i] = 0.0f;
+      }
+    } else {
+      // --- per chunk: df = T(dout) W2[chunk]^T (W2's rows the N index),
+      // [x1 | x3] = T(h2) W13[chunk]; f, dx13; dh2 += dx13 W13[chunk]^T
+      // (one chunk after the other: their registers do not overlap) ---
+#pragma unroll 1
+      for (int sc = 0; sc < CPS; ++sc) {
+        const int j0 = ((k - 4) * CPS + sc) * FC;
+        const unsigned char* t = st + sc * Cv::kChunk;
+        const bf16* w2c = reinterpret_cast<const bf16*>(t);
+        const bf16* wa = reinterpret_cast<const bf16*>(t + Cv::kW2);
+        const bf16* wb = reinterpret_cast<const bf16*>(t + Cv::kW2 +
+                                                       Cv::kW13);
+        float df[FC / 2], x1[FC / 2], x3[FC / 2];
+        {
+          uint32_t da[DW / 16][4], h2a[DW / 16][4];
+          frags_of(dout, D, D, da);
+          unkeep(h2_keep, reinterpret_cast<uint32_t(&)[DW / 4]>(h2a));
+          sm90::wgmma_fence();
+          chain<FC, 0>(df, da, [&](int kk) {
+            return Tile<DW>::desc_k(w2c, FC, kk);
+          }, false);
+          chain<FC, 1>(x1, h2a, [&](int kk) {
+            return Tile<FC>::desc_mn(wa, DW, kk);
+          }, false);
+          chain<FC, 1>(x3, h2a, [&](int kk) {
+            return Tile<FC>::desc_mn(wb, DW, kk);
+          }, false);
+          finish(df);
+          sm90::reg_fence(x1);
+          sm90::reg_fence(x3);
+        }
+        bf16* fs = static_cast<bf16*>(p.fs) + row0 * F + j0;
+        bf16* dx13 = static_cast<bf16*>(p.dx13s) + row0 * 2 * F + j0;
+#pragma unroll
+        for (int i = 0; i < FC / 2; i += 2) {
+          const int r = acc_row(i), c = acc_col(i);
+          float fv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float sg = fast_sigmoid(x1[i + e]);
+            const float sx = x1[i + e] * sg;
+            const float kp =
+                drop ? keep_factor(key2,
+                                   (uint32_t)((t0 + r) * F + j0 + c + e),
+                                   p.thr, p.keep_scale)
+                     : 1.0f;
+            const float dfv = df[i + e] * kp;
+            fv[e] = sx * x3[i + e] * kp;
+            x1[i + e] = dfv * x3[i + e] * (sg * (1.0f + x1[i + e] *
+                                                            (1.0f - sg)));
+            x3[i + e] = dfv * sx;
+          }
+          if (j0 + c < F) {
+            *reinterpret_cast<__nv_bfloat162*>(fs + (size_t)r * F + c) =
+                __floats2bfloat162_rn(fv[0], fv[1]);
+            *reinterpret_cast<__nv_bfloat162*>(dx13 + (size_t)r * 2 * F +
+                                               c) =
+                __floats2bfloat162_rn(x1[i], x1[i + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(dx13 + (size_t)r * 2 * F +
+                                               F + c) =
+                __floats2bfloat162_rn(x3[i], x3[i + 1]);
+          }
+        }
+        uint32_t d1a[FC / 16][4], d3a[FC / 16][4];
+        frags(x1, d1a);
+        frags(x3, d3a);
+        sm90::wgmma_fence();
+        chain<DW, 0>(dh2, d1a, [&](int kk) {
+          return Tile<FC>::desc_k(wa, DW, kk);
+        }, true);
+        chain<DW, 0>(dh2, d3a, [&](int kk) {
+          return Tile<FC>::desc_k(wb, DW, kk);
+        }, true);
+        finish(dh2);
+      }
+
+      if (k == spt - 1) {
+        // --- LN3': dy = dout + LN3'(dh2); dg = T(dy) Wo^T; LN2' -> dav ---
+        float xh[NF];
+        unkeep(y_keep, xh);
+#pragma unroll
+        for (int i = 0; i < NF; ++i)
+          xh[i] = acc_col(i) < D ? (xh[i] - mu3[(i >> 1) & 1]) *
+                                       rs3[(i >> 1) & 1]
+                                 : 0.0f;
+        col_part<DW>(wsum + 8 * DW, [&](int i) { return dh2[i] * xh[i]; });
+        col_part<DW>(wsum + 12 * DW, [&](int i) { return dh2[i]; });
+        float m1[2], m2[2];
+        row_means<NF>([&](int i) { return dh2[i] * g3[acc_col(i)]; },
+                      [&](int i) { return xh[i]; }, D, m1, m2);
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const int hf = (i >> 1) & 1, c = acc_col(i);
+          const float2 dv = ld_bf16x2(dout, D, i, D);
+          const float2 gg = ld_vec2(g3, i, D);
+          const bool in = c < D;
+          dh2[i] = in ? dv.x + rs3[hf] * (dh2[i] * gg.x - m1[hf] -
+                                          xh[i] * m2[hf])
+                      : 0.0f;
+          dh2[i + 1] = in ? dv.y + rs3[hf] * (dh2[i + 1] * gg.y - m1[hf] -
+                                              xh[i + 1] * m2[hf])
+                          : 0.0f;
+        }
+        st_f32(p.dy + row0 * D, D, dh2, D);
+        st_bf16(static_cast<bf16*>(p.dys) + row0 * D, D, dh2, D);
+        col_part<DW>(wsum + 16 * DW, [&](int i) { return dh2[i]; });
+        uint32_t dya[DW / 16][4];
+        frags(dh2, dya);
+        float dg[NF];
+        sm90::wgmma_fence();
+        chain<DW, 0>(dg, dya, [&](int kk) {
+          return Tile<DW>::desc_k(wo_s, DW, kk);
+        }, false);
+        finish(dg);
+        float* du = p.du + row0 * D;
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const int hf = (i >> 1) & 1, r = acc_row(i), c = acc_col(i);
+          const float2 e = ld_bf16x2(av, D, i, D);
+          const float2 gg = ld_vec2(g2, i, D), bb = ld_vec2(b2, i, D);
+          float k0 = 1.0f, k1 = 1.0f;
+          if (drop) {
+            const uint32_t cnt = (uint32_t)((t0 + r) * D + c);
+            k0 = keep_factor(key1, cnt, p.thr, p.keep_scale);
+            k1 = keep_factor(key1, cnt + 1u, p.thr, p.keep_scale);
+          }
+          const bool in = c < D;
+          xh[i] = in ? (e.x - mu2[hf]) * rs2[hf] : 0.0f;
+          xh[i + 1] = in ? (e.y - mu2[hf]) * rs2[hf] : 0.0f;
+          const float d0 = dg[i] * k0, d1 = dg[i + 1] * k1;
+          // du = dg LN2(av) out; dav_ln = dg u in dg's place
+          if (in)
+            *reinterpret_cast<float2*>(du + (size_t)r * D + c) = make_float2(
+                d0 * (xh[i] * gg.x + bb.x), d1 * (xh[i + 1] * gg.y + bb.y));
+          dg[i] = d0 * u_keep[i * kWg + tid];
+          dg[i + 1] = d1 * u_keep[(i + 1) * kWg + tid];
+        }
+        col_part<DW>(wsum, [&](int i) { return dg[i] * xh[i]; });
+        col_part<DW>(wsum + 4 * DW, [&](int i) { return dg[i]; });
+        row_means<NF>([&](int i) { return dg[i] * g2[acc_col(i)]; },
+                      [&](int i) { return xh[i]; }, D, m1, m2);
+#pragma unroll
+        for (int i = 0; i < NF; ++i) {
+          const int hf = (i >> 1) & 1, c = acc_col(i);
+          dg[i] = c < D ? rs2[hf] * (dg[i] * g2[c] - m1[hf] - xh[i] * m2[hf])
+                        : 0.0f;
+        }
+        st_bf16(static_cast<bf16*>(p.dav) + row0 * D, D, dg, D);
+        __syncthreads();
+        fold_cols<DW>(sums, wsum, 5);
+      }
+    }
+    __syncthreads();  // this stage is read; a later issue reloads it
+  }
+  __syncthreads();
+  // the block's LN2, LN3 and bias sums: ln rows 2-5, then bo
+  float* part = p.part + (size_t)blockIdx.x * p.P;
+  for (int i = tid; i < 5 * D; i += kWg) {
+    const int k = i / D, c = i - k * D;
+    part[(k < 4 ? p.off_ln + (2 + k) * D : p.off_bo) + c] = sums[k * DW + c];
+  }
+}
+
+// One product over tokens: out[Mo x No] = A^T B, A [tokens, Mo] and B
+// [tokens, No] bf16 (row strides Mo and No), written at ``off`` of a row of
+// ``part`` (row-major, row stride No)
+struct WgradJob {
+  const void* a;
+  const void* b;
+  int mo, no, off, tiles_m, tiles_n;
+};
+
+struct WgradArgs {
+  WgradJob job[3];
+  float* part;
+  int P;
+  int ntok;   // token tiles of 64
+  int per;    // token tiles of one range (one row of part)
+};
+
+constexpr size_t kWgradTile = sm90::Tile<64>::bytes(fb90::kRows);
+constexpr size_t kWgradStage = 2 * kWgradTile;
+
+__global__ void __launch_bounds__(fb90::kWg)
+    wgrad_wgmma_kernel(WgradArgs p) {
+  using namespace fb90;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  int t = blockIdx.x, j = 0;
+  while (j < 2 && t >= p.job[j].tiles_m * p.job[j].tiles_n) {
+    t -= p.job[j].tiles_m * p.job[j].tiles_n;
+    ++j;
+  }
+  const WgradJob jb = p.job[j];
+  const int m0 = (t / jb.tiles_n) * 64, n0 = (t % jb.tiles_n) * 64;
+  const int first = blockIdx.y * p.per;
+  const int n = min(p.ntok, first + p.per) - first;
+  if (n <= 0) return;
+  const int wa = min(64, jb.mo - m0), wb = min(64, jb.no - n0);
+  const bf16* A = static_cast<const bf16*>(jb.a) + m0;
+  const bf16* B = static_cast<const bf16*>(jb.b) + n0;
+  auto issue = [&](int s) {
+    if (s < n) {
+      unsigned char* st = base + (s % sm90::kStages) * kWgradStage;
+      const size_t tok = (size_t)(first + s) * kRows;
+      load_mat<64>(reinterpret_cast<bf16*>(st), kRows, A + tok * jb.mo,
+                   jb.mo, kRows, wa);
+      load_mat<64>(reinterpret_cast<bf16*>(st + kWgradTile),
+                   kRows, B + tok * jb.no, jb.no, kRows, wb);
+    }
+    sm90::cp_async_commit();
+  };
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  issue(0);
+  for (int step = 0; step < n; ++step) {
+    issue(step + 1);
+    sm90::cp_async_wait<1>();
+    sm90::fence_async_smem();
+    __syncthreads();
+    const unsigned char* st = base + (step % sm90::kStages) * kWgradStage;
+    const bf16* sa = reinterpret_cast<const bf16*>(st);
+    const bf16* sb = reinterpret_cast<const bf16*>(st + kWgradTile);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::mma_ss_n64<1, 1>(acc, Tile<64>::desc_mn(sa, kRows, kk),
+                             Tile<64>::desc_mn(sb, kRows, kk), 1);
+    finish(acc);
+    __syncthreads();  // this stage is read; a later issue reloads it
+  }
+  float* out = p.part + (size_t)blockIdx.y * p.P + jb.off;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = acc_row(i), c = acc_col(i);
+    if (r < wa && c < wb)
+      *reinterpret_cast<float2*>(out + (size_t)(m0 + r) * jb.no + n0 + c) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+}
+
+// Whether the wgmma gate/FFN kernels can take these operands: bf16, D at
+// most 128, the whole scratch there, every operand they stream with
+// cp.async on a 16-byte boundary. The wrapper passes the scratch exactly
+// where it wants them (ops/fused_block.post_wgmma); with the scratch there,
+// a launch they cannot make fails rather than taking the other instance.
+inline bool gate_wgmma_ok(const BwdArgs& p, bool is_bf16) {
+  return is_bf16 && fb90::post_width(p.D) != 0 && p.fs && p.dx13s &&
+         p.h2s && p.gs && p.dys && sm90::aligned16(p.fs) &&
+         sm90::aligned16(p.dx13s) && sm90::aligned16(p.h2s) &&
+         sm90::aligned16(p.gs) && sm90::aligned16(p.dys) &&
+         sm90::aligned16(p.dout) && sm90::aligned16(p.wuvqk) &&
+         sm90::aligned16(p.wo) && sm90::aligned16(p.w13) &&
+         sm90::aligned16(p.w2);
+}
+
+// dW2, dW13 and dWo over ranges of at least 16 token tiles, at most G
+// ranges (rows of part; the rows past the last range stay 0)
+inline int launch_wgrad(const BwdArgs& p, cudaStream_t stream) {
+  WgradArgs w = {};
+  auto job = [](const void* a, int mo, const void* b, int no, int off) {
+    WgradJob j;
+    j.a = a;
+    j.b = b;
+    j.mo = mo;
+    j.no = no;
+    j.off = off;
+    j.tiles_m = (mo + 63) / 64;
+    j.tiles_n = (no + 63) / 64;
+    return j;
+  };
+  w.job[0] = job(p.fs, p.F, p.dout, p.D, p.off_w2);
+  w.job[1] = job(p.h2s, p.D, p.dx13s, 2 * p.F, p.off_w13);
+  w.job[2] = job(p.gs, p.D, p.dys, p.D, p.off_wo);
+  w.part = p.part;
+  w.P = p.P;
+  w.ntok = p.B * p.L / fb90::kRows;
+  w.per = max(16, (w.ntok + p.G - 1) / p.G);
+  const int ranges = (w.ntok + w.per - 1) / w.per;
+  int tiles = 0;
+  for (const WgradJob& j : w.job) tiles += j.tiles_m * j.tiles_n;
+  return hstu_bwd::launch_kernel(wgrad_wgmma_kernel, dim3(tiles, ranges),
+                                 fb90::kWg, 1024 + sm90::kStages * kWgradStage,
+                                 stream, w);
+}
+
+template <int DW>
+int launch_gate_wgmma(const BwdArgs& p, cudaStream_t stream) {
+  const int e = hstu_bwd::launch_kernel(
+      gate_ffn_bwd_wgmma_kernel<DW>, dim3(p.G), fb90::kWg,
+      GateCarve<DW>::bytes(), stream, p);
+  return e != 0 ? e : launch_wgrad(p, stream);
+}
+
+template <typename T>
+int launch_gate_wgmma_any(const BwdArgs& p, cudaStream_t stream) {
+  if (!gate_wgmma_ok(p, std::is_same<T, bf16>::value))
+    return (int)cudaErrorInvalidValue;
+  switch (fb90::post_width(p.D)) {
+    case 32: return launch_gate_wgmma<32>(p, stream);
+    case 64: return launch_gate_wgmma<64>(p, stream);
+    default: return launch_gate_wgmma<128>(p, stream);
+  }
+}
+
 template <typename T>
 int pick_tile(int L, size_t (*smem)(int, int), int D) {
   for (int t = 64; t >= 16; t >>= 1)
@@ -546,8 +1110,18 @@ int launch_bwd(const BwdArgs& p, bool tc, cudaStream_t stream) {
                            (int)sm_p);
   if (e != cudaSuccess) return (int)e;
 
-  gate_ffn_bwd_kernel<T><<<p.G, kThreads, sm_g, stream>>>(p, TM, tc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // Which instance runs where: with the weight products' scratch (the
+  // wrapper passes it in bf16 at D <= 128, every fused preset)
+  // gate_ffn_bwd_wgmma_kernel + wgrad_wgmma_kernel; without it (f32, the
+  // tight check instance, and D > 128) gate_ffn_bwd_kernel (WMMA through
+  // shared memory in bf16, FMA loops in f32).
+  if (p.fs) {
+    const int eg = launch_gate_wgmma_any<T>(p, stream);
+    if (eg != 0) return eg;
+  } else {
+    gate_ffn_bwd_kernel<T><<<p.G, kThreads, sm_g, stream>>>(p, TM, tc);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
   // dq and the rel-pos gradient (summed into drab), then dk and dv
   const int ea = hstu_bwd::launch<T>(attn_args(p), true, true, stream);
   if (ea != 0) return ea;
@@ -573,7 +1147,11 @@ int launch_stage(const BwdArgs& p, int stage, bool tc, cudaStream_t stream) {
   const int TM = pick_tile<T>(p.L, gate_smem<T>, p.D);
   if (TM == 0) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if (stage == 0) {
+  if (stage == 0 && p.fs) {
+    // the wgmma instance, as launch_bwd chooses it
+    const int eg = launch_gate_wgmma_any<T>(p, stream);
+    if (eg != 0) return eg;
+  } else if (stage == 0) {
     const size_t sm = gate_smem<T>(p.D, TM);
     e = cudaFuncSetAttribute(gate_ffn_bwd_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -22,8 +22,10 @@
 //   operand of a register-sourced (RS) wgmma, rounding to nearest: the
 //   softmax probabilities feed p.v without leaving registers.
 //
-// Used by csrc/flash_attention.cu and csrc/hstu_attn_bwd_sm90.cuh (the
-// HSTU attention backward of csrc/fused_block_bwd.cu and csrc/ring_pair.cu).
+// Used by csrc/flash_attention.cu, csrc/hstu_attn_bwd_sm90.cuh (the HSTU
+// attention backward of csrc/fused_block_bwd.cu and csrc/ring_pair.cu) and
+// csrc/fused_block_sm90.cuh (the fused block's post half and gate/FFN
+// backward).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -362,7 +364,10 @@ __device__ __forceinline__ void frag_a(const float (&p)[32], int kk,
 // ---------------------------------------------------------------------------
 
 // D[64 x 64] = (scale_d ? D : 0) + A . B^T: A [64 x 16] and B [64 x 16], bf16
-// in shared memory, both K-major (descriptors from desc_k).
+// in shared memory, both K-major (descriptors from desc_k); with TA (TB) 1,
+// A (B) is MN-major instead (desc_mn): D = A^T . B over the rows of two
+// tiles whose rows are the K index (a product over tokens).
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
                                            uint64_t db, int scale_d) {
   asm volatile(
@@ -372,7 +377,7 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -381,11 +386,12 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D[64 x 16] = (scale_d ? D : 0) + A . B: A [64 x 16] bf16 in registers
 // (frag_a), B [16 x 16] bf16 in shared memory, MN-major (desc_mn).
+template <int TB = 1>
 __device__ __forceinline__ void mma_rs_n16(float (&d)[8],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
@@ -393,15 +399,16 @@ __device__ __forceinline__ void mma_rs_n16(float (&d)[8],
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7},"
-      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
 // D[64 x 32] = (scale_d ? D : 0) + A . B: A [64 x 16] bf16 in registers
 // (frag_a), B [16 x 32] bf16 in shared memory, MN-major (desc_mn).
+template <int TB = 1>
 __device__ __forceinline__ void mma_rs_n32(float (&d)[16],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
@@ -410,17 +417,18 @@ __device__ __forceinline__ void mma_rs_n32(float (&d)[16],
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15},"
-      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
 // D[64 x 64] = (scale_d ? D : 0) + A . B: A [64 x 16] bf16 in registers
 // (frag_a), B [16 x 64] bf16 in shared memory, MN-major (desc_mn).
+template <int TB = 1>
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
@@ -431,7 +439,7 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -441,11 +449,12 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
 // D[64 x 128] = (scale_d ? D : 0) + A . B: A [64 x 16] bf16 in registers
 // (frag_a), B [16 x 128] bf16 in shared memory, MN-major (desc_mn).
+template <int TB = 1>
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
@@ -460,7 +469,7 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -478,18 +487,20 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
-// D[64 x W] = (scale_d ? D : 0) + A . B with B a W-wide MN-major tile.
-template <int W>
+// D[64 x W] = (scale_d ? D : 0) + A . B with B a W-wide MN-major tile
+// (TB 1: its rows are the K index, desc_mn), or with TB 0 a K-major one
+// (its W rows are the N index, desc_k: D = A . B^T).
+template <int W, int TB = 1>
 __device__ __forceinline__ void mma_rs(float (&d)[W / 2],
                                        const uint32_t (&a)[4], uint64_t db,
                                        int scale_d) {
-  if constexpr (W == 16) mma_rs_n16(d, a, db, scale_d);
-  else if constexpr (W == 32) mma_rs_n32(d, a, db, scale_d);
-  else if constexpr (W == 64) mma_rs_n64(d, a, db, scale_d);
-  else mma_rs_n128(d, a, db, scale_d);
+  if constexpr (W == 16) mma_rs_n16<TB>(d, a, db, scale_d);
+  else if constexpr (W == 32) mma_rs_n32<TB>(d, a, db, scale_d);
+  else if constexpr (W == 64) mma_rs_n64<TB>(d, a, db, scale_d);
+  else mma_rs_n128<TB>(d, a, db, scale_d);
 }
 
 // S (or S^T) = A . B^T over the W-column tiles a and b (kRows rows each,

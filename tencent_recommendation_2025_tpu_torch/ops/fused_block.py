@@ -12,19 +12,22 @@ activations and returns ``x + block(x)``:
 
 Kernels, each replacing TPU kernels of the JAX package's file:
 
-- ``csrc/fused_block.cu`` (``proj_kernel``, ``attn_ffn_kernel``). Inference
+- ``csrc/fused_block.cu`` (``proj_kernel``, then ``attn_ffn_wgmma_kernel``
+  in bf16 at D <= 128, ``attn_ffn_kernel`` in f32 and wider). Inference
   (:func:`fused_hstu_block`) and training (:func:`fused_hstu_block_train`:
   the two dropouts, and ``av`` written for the backward). Replaces
   ``_fwd_kernel`` (l.274) and, in the chunked variant, the three forward
   stages: ``_fwd_pre_kernel_chunk`` (l.452) is ``proj_kernel``;
   ``_fwd_attn_kernel_chunk`` (l.468) and ``_fwd_post_kernel_chunk``
-  (l.502) are the attention and the post half of ``attn_ffn_kernel``. Bound
-  on the H100 at the flagship shape (B=128, L=1024, D=64, F=256, H=1):
-  compute, 35.4 GFLOP per block, 36 us at 989 TFLOP/s bf16.
+  (l.502) are the attention and the post half of the second kernel.
+  Bound on the H100 at the flagship shape (B=128, L=1024, D=64, F=256,
+  H=1): compute, 35.4 GFLOP per block, 36 us at 989 TFLOP/s bf16.
 - ``csrc/fused_block_bwd.cu`` (:func:`fused_hstu_block_bwd`): recompute
   from x and av, dx and every weight, LN, bias and rel-pos gradient.
   Replaces ``_bwd_kernel`` (l.325) and, in the chunked variant,
-  ``_bwd_gate_kernel_chunk`` (l.612) with ``gate_ffn_bwd_kernel``,
+  ``_bwd_gate_kernel_chunk`` (l.612) with ``gate_ffn_bwd_wgmma_kernel`` and
+  ``wgrad_wgmma_kernel`` (the weight products over tokens, from bf16
+  scratch) in bf16 at D <= 128, ``gate_ffn_bwd_kernel`` in f32 and wider,
   ``_bwd_dq_kernel_chunk`` (l.533) and ``_bwd_dkdv_kernel_chunk`` (l.573)
   with the HSTU attention backward of ``csrc/hstu_attn_bwd_sm90.cuh`` at off
   0 (``attn_bwd_dq_wgmma_kernel``, which also sums the rel-pos gradient,
@@ -665,7 +668,8 @@ class _BwdArgs(ctypes.Structure):
     _fields_ = ([(n, _P) for n in (
         "x", "valid", "ln", "wuvqk", "buvqk", "wo", "bo", "w13", "w2", "rab",
         "av", "dout", "seed", "q", "k", "v", "dav", "du", "dy", "dv", "dq",
-        "dk", "part", "part_rab", "dx", "grads", "drab")]
+        "dk", "part", "part_rab", "dx", "grads", "drab", "fs", "dx13s",
+        "h2s", "gs", "dys")]
         + [(n, _I) for n in (
             "B", "L", "D", "H", "F", "NB", "G", "P", "off_w2", "off_w13",
             "off_wo", "off_bo", "off_ln", "off_wuvqk", "off_buvqk")]
@@ -691,6 +695,33 @@ def bwd_layout(D: int, F: int):
         layout[name] = (off, shape)
         off += -(-int(np.prod(shape)) // 64) * 64
     return layout, off
+
+
+def post_wgmma(dtype: torch.dtype, D: int) -> bool:
+    """Whether the gate/FFN backward takes its wgmma instance
+    (``gate_ffn_bwd_wgmma_kernel`` with ``wgrad_wgmma_kernel``): bf16 at D
+    <= 128, every fused preset; f32 (the tight check instance) and wider
+    models take ``gate_ffn_bwd_kernel``. This is the one place of the rule:
+    the wrappers pass the wgmma instance's scratch (:func:`_gate_scratch`)
+    exactly then, and the CUDA source takes that instance exactly when the
+    scratch is there (a launch it cannot make fails). The forward's second
+    kernel is chosen in ``csrc/fused_block.cu`` alone
+    (``attn_ffn_wgmma_kernel`` in bf16 at D <= 128 with heads of 8k
+    columns, which the fused gate asks for)."""
+    return dtype == torch.bfloat16 and D <= 128
+
+
+def _gate_scratch(x: torch.Tensor, F: int) -> dict:
+    """The wgmma gate/FFN backward's bf16 scratch on x's tokens: the
+    operands of its weight-gradient products over tokens, T(f) [.., F],
+    T(dx13) [.., 2F], T(h2), T(g) and T(dy) [.., D]; empty where the
+    kernels take the other instance."""
+    B, L, D = x.shape
+    if not post_wgmma(x.dtype, D):
+        return {}
+    return {n: torch.empty((B, L, w), dtype=x.dtype, device=x.device)
+            for n, w in (("fs", F), ("dx13s", 2 * F), ("h2s", D),
+                         ("gs", D), ("dys", D))}
 
 
 def _bwd_fn():
@@ -727,6 +758,7 @@ def _launch_bwd(x, av, dout, o, token_type, num_heads, seed, rate):
     seed_t = _seed_tensor(seed, dev) if drop else None
     ptrs = dict(x=x, valid=valid, av=av, dout=dout, part=part,
                 part_rab=part_rab, dx=dx, grads=grads, drab=drab, **scratch,
+                **_gate_scratch(x, F),
                 **{n: o[n] for n in ("ln", "wuvqk", "buvqk", "wo", "bo",
                                      "w13", "w2", "rab")})
     args = _BwdArgs(
@@ -868,7 +900,8 @@ def fused_hstu_block_autograd(x: torch.Tensor, bp: Mapping,
 #
 # Kernels, each replacing a TPU kernel of the JAX file:
 #   ring_pre_fwd   proj_kernel alone (csrc/fused_block.cu), l.452
-#   ring_post_fwd  attn_ffn_kernel's post half on a given T(av), l.502
+#   ring_post_fwd  attn_ffn_wgmma_kernel's post half on a given T(av) (bf16
+#                  at D <= 128; else attn_ffn_kernel's), l.502
 #   ring_pair_fwd  pair_fwd_kernel (csrc/ring_pair.cu), l.1269
 #   ring_pair_dq   attn_bwd_dq_wgmma_kernel (csrc/hstu_attn_bwd_sm90.cuh;
 #                  bf16 at hd <= 128, else attn_bwd_dq_kernel) +
@@ -876,7 +909,9 @@ def fused_hstu_block_autograd(x: torch.Tensor, bp: Mapping,
 #   ring_pair_dkdv attn_bwd_dkdv_wgmma_kernel (else attn_bwd_dkdv_kernel),
 #                  l.1345 (the single device's fused backward launches both
 #                  at off 0)
-#   ring_post_bwd  gate_ffn_bwd_kernel alone (csrc/fused_block_bwd.cu), l.612
+#   ring_post_bwd  gate_ffn_bwd_wgmma_kernel + wgrad_wgmma_kernel (bf16 at
+#                  D <= 128; else gate_ffn_bwd_kernel) alone
+#                  (csrc/fused_block_bwd.cu), l.612
 #   ring_pre_bwd   proj_bwd_kernel alone, zero residual, l.710
 
 def ring_pre_fwd_plain(x: torch.Tensor, o: Mapping, seq_len: int,
@@ -1151,9 +1186,9 @@ ring_pre_fwd.launches = 0
 def ring_post_fwd(x: torch.Tensor, av: torch.Tensor, u: torch.Tensor,
                   ops: Mapping, seed, rate: float) -> torch.Tensor:
     """The post stage on a shard (see :func:`ring_post_fwd_plain`). CPU
-    tensors take the plain version; CUDA tensors launch
-    ``attn_ffn_kernel``'s post half alone (counted in
-    ``ring_post_fwd.launches``)."""
+    tensors take the plain version; CUDA tensors launch the forward's
+    second kernel's post half alone (``attn_ffn_wgmma_kernel`` in bf16 at
+    D <= 128; counted in ``ring_post_fwd.launches``)."""
     if not _on_card(x, "ring_post_fwd"):
         return ring_post_fwd_plain(x, av, u, ops, seed, rate)
     B, Lc, D = x.shape
@@ -1208,6 +1243,7 @@ def _launch_bwd_stage(stage, x, ops, num_heads, seq_len, seed, rate, keys,
     drop = rate > 0.0
     seed_t = _seed_tensor(seed, dev) if drop else None
     ptrs = dict(x=x, part=part, grads=grads, **bufs,
+                **(_gate_scratch(x, F) if stage == 0 else {}),
                 **{n: ops[n] for n in ("ln", "wuvqk", "buvqk", "wo", "bo",
                                        "w13", "w2", "rab")})
     args = _BwdArgs(
@@ -1231,8 +1267,9 @@ def _launch_bwd_stage(stage, x, ops, num_heads, seq_len, seed, rate, keys,
 def ring_post_bwd(x, av, dout, ops: Mapping, seed, rate: float,
                   seq_len: int, num_heads: int) -> dict:
     """The post stage's backward (see :func:`ring_post_bwd_plain`). CPU
-    tensors take the plain version; CUDA tensors launch
-    ``gate_ffn_bwd_kernel`` alone (counted in ``ring_post_bwd.launches``)."""
+    tensors take the plain version; CUDA tensors launch the gate/FFN
+    backward alone (``gate_ffn_bwd_wgmma_kernel`` + ``wgrad_wgmma_kernel``
+    where :func:`post_wgmma`; counted in ``ring_post_bwd.launches``)."""
     if not _on_card(x, "ring_post_bwd"):
         return ring_post_bwd_plain(x, av, dout, ops, seed, rate, seq_len,
                                    num_heads)

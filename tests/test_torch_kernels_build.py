@@ -79,3 +79,39 @@ def test_library_name_covers_every_shared_header(tmp_path, monkeypatch):
     after = {n: kernels.library_path(n).name for n in kernels.SOURCES}
     assert all(before[n] != after[n] for n in kernels.SOURCES)
     assert after["flash_attention"].startswith("libflash_attention-")
+
+
+POST_LOG = """\
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__5e7a1c02_14_fused_block_cu_9b3f0d4121attn_ffn_wgmma_kernelILi64ELi64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__5e7a1c02_14_fused_block_cu_9b3f0d4121attn_ffn_wgmma_kernelILi64ELi64EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 246 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__5e7a1c02_14_fused_block_cu_9b3f0d4121attn_ffn_wgmma_kernelILi16ELi128EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__5e7a1c02_14_fused_block_cu_9b3f0d4121attn_ffn_wgmma_kernelILi16ELi128EEEvNS_6ParamsE
+    144 bytes stack frame, 140 bytes spill stores, 140 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1a2b3c4d_18_fused_block_bwd_cu_5e6f7a8b25gate_ffn_bwd_wgmma_kernelILi32EEEv7BwdArgs' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__1a2b3c4d_18_fused_block_bwd_cu_5e6f7a8b25gate_ffn_bwd_wgmma_kernelILi32EEEv7BwdArgs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1a2b3c4d_18_fused_block_bwd_cu_5e6f7a8b18wgrad_wgmma_kernelENS_9WgradArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__1a2b3c4d_18_fused_block_bwd_cu_5e6f7a8b18wgrad_wgmma_kernelENS_9WgradArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_names_the_post_half_and_gate_kernels():
+    """The fused block's wgmma post half (attn_ffn_wgmma_kernel<W, DW>: head
+    width, padded model width), gate/FFN backward (gate_ffn_bwd_wgmma_kernel
+    <DW>) and weight-gradient kernel: chip_smoke.post_spills reads their
+    spills from these names and fails on one at DW <= 64."""
+    assert kernels.ptxas_report(POST_LOG) == [
+        {"kernel": "attn_ffn_wgmma_kernel<64, 64>", "registers": 246,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "attn_ffn_wgmma_kernel<16, 128>", "registers": 255,
+         "spill_stores": 140, "spill_loads": 140},
+        {"kernel": "gate_ffn_bwd_wgmma_kernel<32>", "registers": 166,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "wgrad_wgmma_kernel", "registers": 72,
+         "spill_stores": 0, "spill_loads": 0}]

@@ -546,3 +546,90 @@ def test_attn_bwd_kernels_match_plain_on_card(hd, H, dtype, off):
             _bf16_close(got, ref, name)
     # the fully padded row's keys get no gradient
     assert not dk[-1].any() and not dv[-1].any()
+
+
+#: (D, H) of the wgmma post-half and gate/FFN cases: D padded to 32, 64 and
+#: 128 columns, heads of 8 to 128 (hd 8 and 16 padded to 16 columns)
+POST_SHAPES = [(32, 1), (32, 2), (32, 4), (64, 1), (64, 2), (64, 4),
+               (64, 8), (128, 1), (128, 4), (128, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("D,H", POST_SHAPES)
+def test_post_wgmma_kernels_match_plain_on_card(D, H, rate):
+    """bf16 at D <= 128 takes attn_ffn_wgmma_kernel (forward) and
+    gate_ffn_bwd_wgmma_kernel + wgrad_wgmma_kernel (backward): the
+    inference and training forward (out, av), the whole-sequence backward
+    (every gradient; two calls bitwise equal: no atomics), the ring's post
+    stage alone on a given av (stage 1) and its backward (stage 0), each
+    against its plain version, one launch each; row 0 left-padded, the last
+    row fully padded."""
+    _cuda_or_skip()
+    B, L, bf16 = 2, 512, torch.bfloat16
+    assert FB.post_wgmma(bf16, D)
+    bp, x, tt = _block(B, L, D, H, bf16, seed=D + H)
+    counts = {n: getattr(FB, n).launches for n in (
+        "fused_hstu_block", "fused_hstu_block_train", "fused_hstu_block_bwd",
+        "ring_post_fwd", "ring_post_bwd")}
+    out = FB.fused_hstu_block(x, bp, tt, H)
+    torch.cuda.synchronize()
+    _bf16_close(out, FB.fused_hstu_block_plain(x, bp, tt, H), "inference")
+    out, av = FB.fused_hstu_block_train(x, bp, tt, H, 99, rate)
+    torch.cuda.synchronize()
+    ref, ref_av = FB.fused_hstu_block_train_plain(x, bp, tt, H, 99, rate)
+    _bf16_close(out, ref, "training out")
+    _bf16_close(av, ref_av, "training av")
+    dout = torch.from_numpy(np.random.default_rng(D * H).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(bf16).cuda()
+    got = FB.fused_hstu_block_bwd(x, ref_av, dout, bp, tt, H, 99, rate)
+    again = FB.fused_hstu_block_bwd(x, ref_av, dout, bp, tt, H, 99, rate)
+    torch.cuda.synchronize()
+    want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, bp, tt, H, 99,
+                                         rate)
+    assert set(got) == set(want)
+    for name in want:
+        assert bool(torch.isfinite(got[name].float()).all()), name
+        _bf16_close(got[name], want[name], name)
+        assert torch.equal(got[name], again[name]), name
+    u = FB.ring_pre_fwd_plain(x, bp, 2 * L, H)[3]
+    av_in = (torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(D), device="cuda") * 0.05).to(bf16)
+    _bf16_close(FB.ring_post_fwd(x, av_in, u, bp, 5, rate),
+                FB.ring_post_fwd_plain(x, av_in, u, bp, 5, rate), "stage 1")
+    got = FB.ring_post_bwd(x, av_in, dout, bp, 5, rate, 2 * L, H)
+    want = FB.ring_post_bwd_plain(x, av_in, dout, bp, 5, rate, 2 * L, H)
+    for name in want:
+        _bf16_close(got[name], want[name], f"stage 0 {name}")
+    torch.cuda.synchronize()
+    assert {n: getattr(FB, n).launches - c for n, c in counts.items()} == {
+        "fused_hstu_block": 1, "fused_hstu_block_train": 1,
+        "fused_hstu_block_bwd": 2, "ring_post_fwd": 1, "ring_post_bwd": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("H", [1, 4])
+def test_post_wgmma_kernels_chunked_variant_on_card(H, rate):
+    """L=2048 > wholeseq_max_l(64), bf16: the wgmma forward rounds av to
+    bf16 before LN2 (round_av) and the backward reads it, against the plain
+    chunked variant; gradients bitwise equal across two calls."""
+    _cuda_or_skip()
+    B, L, D, bf16 = 2, 2048, 64, torch.bfloat16
+    assert FB.chunked(L, D)
+    bp, x, tt = _block(B, L, D, H, bf16, seed=11 + H)
+    _bf16_close(FB.fused_hstu_block(x, bp, tt, H),
+                FB.fused_hstu_block_plain(x, bp, tt, H), "inference")
+    out, av = FB.fused_hstu_block_train(x, bp, tt, H, 7, rate)
+    ref, ref_av = FB.fused_hstu_block_train_plain(x, bp, tt, H, 7, rate)
+    _bf16_close(out, ref, "training out")
+    _bf16_close(av, ref_av, "training av")
+    dout = torch.from_numpy(np.random.default_rng(H).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(bf16).cuda()
+    got = FB.fused_hstu_block_bwd(x, ref_av, dout, bp, tt, H, 7, rate)
+    again = FB.fused_hstu_block_bwd(x, ref_av, dout, bp, tt, H, 7, rate)
+    want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, bp, tt, H, 7, rate)
+    torch.cuda.synchronize()
+    for name in want:
+        _bf16_close(got[name], want[name], name)
+        assert torch.equal(got[name], again[name]), name
