@@ -37,7 +37,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                across two calls, timed at the flagship, long and sparse
                shapes beside the plain versions and their own bounds, with
                their registers and spills from the build (none at D <=
-               64); then the attention cores, flash
+               64); then the pre half on wgmma (proj_wgmma_kernel,
+               proj_bwd_wgmma_kernel with wgrad_wgmma_kernel) held to its
+               plain versions in bf16 at D = 32, 64, 128 and H = 1, 4
+               (whole sequence, chunked at L=4096, ring stage; the
+               backward bitwise equal across two calls), each kernel
+               timed alone at the flagship, long, sparse and ring-stage
+               shapes beside its bound and the first design's kernel
+               (proj_kernel, proj_bwd_kernel: copies of the two sources
+               with the wgmma selectors off, built beside the checkout's),
+               with their registers and spills (none at D <= 64); then the
+               attention cores, flash
                MHA (L=256, H=4; L=1024, H=1) and the standalone HSTU
                attention (L=256 and 1024, H=4 and 1, 128 and 300
                buckets; its chunked route
@@ -67,15 +77,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                plain versions on the CPU in bf16 and in f32 (loss and
                per-leaf gradient cosine); prints
                train examples/s and a profile of one step (a fused run's
-               must name the attention backward's, the post half's and the
-               gate/FFN backward's wgmma kernels and none of the kernels
-               they replaced);
+               must name the attention backward's, the pre half's, the post
+               half's and the gate/FFN backward's wgmma kernels and none of
+               the kernels they replaced);
 5. serving  — the port's cli.infer main with the same arguments on the
                checkpoint just trained; checks every launch count,
                recomputes the first query batch with the plain versions on
                the CPU in bf16 and in f32 and holds the card's bf16 queries
                to both (per-query cosine); profiles one predict batch (a
-               fused run's must name attn_ffn_wgmma_kernel and no bf16
+               fused run's must name proj_wgmma_kernel and
+               attn_ffn_wgmma_kernel and no bf16 proj_kernel or
                attn_ffn_kernel); prints serving throughput and
                HR@10/NDCG@10 (one epoch on synthetic data: printed, not
                judged);
@@ -215,11 +226,18 @@ POST_WGMMA = ("attn_ffn_wgmma_kernel", "gate_ffn_bwd_wgmma_kernel",
 #: the kernels they replace in bf16 (kept for f32 and D > 128), which no
 #: bf16 step or predict batch may launch
 POST_REPLACED = ("attn_ffn_kernel", "gate_ffn_bwd_kernel")
+#: the fused block's pre half on wgmma (bf16, D <= 128): LN1 and the
+#: projection, and its backward (dWuvqk by wgrad_wgmma_kernel)
+PRE_WGMMA = ("proj_wgmma_kernel", "proj_bwd_wgmma_kernel")
+#: the kernels they replace in bf16 (kept for f32 and D > 128)
+PRE_REPLACED = ("proj_kernel", "proj_bwd_kernel")
 #: CUDA kernel names of each kernel family, as a profile lists them
 #: (forward, backward)
 KERNEL_NAMES = {
-    "fused": (("proj_kernel", "attn_ffn_wgmma_kernel", "attn_ffn_kernel"),
-              POST_WGMMA[1:] + ("gate_ffn_bwd_kernel",) + ATTN_BWD_NAMES
+    "fused": (PRE_WGMMA[:1] + ("proj_kernel", "attn_ffn_wgmma_kernel",
+                               "attn_ffn_kernel"),
+              PRE_WGMMA[1:] + POST_WGMMA[1:] + ("gate_ffn_bwd_kernel",)
+              + ATTN_BWD_NAMES
               + ("proj_bwd_kernel", "reduce_rows_kernel",
                  "reduce_rows_split_kernel")),
     "flash": (("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
@@ -228,9 +246,10 @@ KERNEL_NAMES = {
     "hstu": (("hstu_fwd_kernel",),
              ("hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
               "reduce_rows_kernel")),
-    "ring": (("proj_kernel", "attn_ffn_wgmma_kernel", "attn_ffn_kernel",
-              "pair_fwd_kernel"),
-             POST_WGMMA[1:] + ("gate_ffn_bwd_kernel",) + ATTN_BWD_NAMES
+    "ring": (PRE_WGMMA[:1] + ("proj_kernel", "attn_ffn_wgmma_kernel",
+                              "attn_ffn_kernel", "pair_fwd_kernel"),
+             PRE_WGMMA[1:] + POST_WGMMA[1:] + ("gate_ffn_bwd_kernel",)
+             + ATTN_BWD_NAMES
              + ("proj_bwd_kernel", "reduce_rows_kernel",
                 "reduce_rows_split_kernel")),
     "none": ((), ())}
@@ -584,6 +603,32 @@ def gate_scratch_bytes(B, L, D, F, elem_bytes):
     weight products (T(f), T(dx13), T(h2), T(g), T(dy)) written by
     gate_ffn_bwd_wgmma_kernel and read by wgrad_wgmma_kernel."""
     return 2 * B * L * (3 * F + 3 * D) * elem_bytes
+
+
+def pre_bounds(B, L, D, elem, ring=False):
+    """{"fwd", "bwd": (flops, bytes)} of the pre half over B x L tokens, its
+    own reads, writes and products. Forward: LN1 and the projection, x,
+    Wuvqk, its bias and LN1's gamma and beta in, q, k, v (the compute
+    dtype) and u (f32) out. Backward: the projection again, dh1 and dWuvqk
+    (three products of its size); x and the weights in with the cotangents
+    as each caller passes them (the single device: du, dv, dq, dk and the
+    residual dy in f32; the ring's stage 1: dq, dk, dv in the compute dtype
+    and du in f32, no residual), dx out, and dWuvqk, dbuvqk and LN1's
+    gradients (f32) out. The wgmma design's scratch is not the function's
+    work: see pre_scratch_bytes."""
+    act, f32 = B * L * D * elem, B * L * D * 4
+    w = D * 4 * D * elem + (2 * D + 4 * D) * 4
+    prod = 2 * B * L * D * 4 * D
+    cots = 3 * act + f32 if ring else 5 * f32
+    grads = (D * 4 * D + 4 * D + 2 * D) * 4
+    return {"fwd": (prod, act + w + 3 * act + f32),
+            "bwd": (3 * prod, act + w + cots + act + grads)}
+
+
+def pre_scratch_bytes(B, L, D, elem):
+    """Bytes the wgmma projection backward adds: T(h1) and T(duvqk), written
+    by proj_bwd_wgmma_kernel and read again by wgrad_wgmma_kernel."""
+    return 2 * B * L * (D + 4 * D) * elem
 
 
 def _free():
@@ -1141,20 +1186,352 @@ def post_spills(report):
     return ok
 
 
-def post_route(name, by_name, train=True):
-    """Whether a profiled bf16 step (train) or predict batch ran the wgmma
-    post-half kernel and, training, the wgmma gate/FFN backward with its
-    weight-gradient kernel, each with device time, and no bf16 instance of
-    the kernels they replace; logs the names found."""
-    want = POST_WGMMA if train else POST_WGMMA[:1]
+def wgmma_route(name, by_name, train=True):
+    """Whether a profiled bf16 step (train) or predict batch ran the fused
+    block's wgmma kernels, each with device time: the projection and the
+    post half and, training, the gate/FFN backward with its weight-gradient
+    kernel and the projection backward; and no bf16 instance of the kernels
+    they replace. Logs the names found."""
+    want = PRE_WGMMA[:1] + POST_WGMMA[:1]
+    if train:
+        want += PRE_WGMMA[1:] + POST_WGMMA[1:]
     found = {n: sum(v for k, v in by_name.items() if n in k)
-             for n in POST_WGMMA + POST_REPLACED}
+             for n in PRE_WGMMA + POST_WGMMA + PRE_REPLACED + POST_REPLACED}
     ok = all(found[n] > 0 for n in want) and not any(
-        found[n] for n in POST_REPLACED)
-    log(f"{name}: post-half and gate/FFN route in the profiled "
+        found[n] for n in PRE_REPLACED + POST_REPLACED)
+    log(f"{name}: the fused block's wgmma route in the profiled "
         f"{'step' if train else 'predict batch'} (device ms): "
         + ", ".join(f"{n} {v:.3f}" for n, v in found.items())
         + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the pre half (LN1 and the projection) on wgmma
+# ---------------------------------------------------------------------------
+
+#: the main paths' shapes of the pre half (B, L, D, H), and the shard of the
+#: S = 2 ring step (L the shard's tokens; the whole sequence twice that)
+PRE_SHAPES = {"flagship": (128, 1024, 64, 1), "long": (32, 4096, 64, 1),
+              "sparse": (64, 1024, 64, 4), "ring": (32, 2048, 64, 1)}
+#: TPU kernel lines of each shape's (forward, backward): the whole-sequence
+#: kernels' first and last stages (rows 1, 2), the chunked variant's (rows
+#: 3, 9), the ring's pre stage (rows 3, 9 through ring_pre_proj)
+_PRE_REPLACES = {"flagship": ("274", "325"), "long": ("452", "710"),
+                 "sparse": ("274", "325"), "ring": ("452", "710")}
+#: the pre half's wgmma selectors, and what a copy of each source built
+#: beside the checkout's puts in their place so that the first design
+#: (proj_kernel, proj_bwd_kernel) runs in bf16 too: its times beside the
+#: new kernels'
+_FIRST_DESIGN = {
+    "fused_block": ("  return is_bf16 && fb90::post_width(p.D) != 0;\n",
+                    "  return false;\n"),
+    "fused_block_bwd": ("inline bool proj_wgmma_on(const BwdArgs& p) { "
+                        "return p.h1s != nullptr; }",
+                        "inline bool proj_wgmma_on(const BwdArgs&) { "
+                        "return false; }")}
+
+
+def start_first_design_builds():
+    """One nvcc per edited copy of _FIRST_DESIGN, started now (beside the
+    checkout's build); first_design_libs collects them."""
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    procs = {}
+    for lib, (old, new) in _FIRST_DESIGN.items():
+        text = (kernels.CSRC / kernels.SOURCES[lib]).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"first design: the selector of {lib} is not "
+                               f"where chip_smoke looks for it")
+        d = WORK / "first_design" / lib
+        d.mkdir(parents=True, exist_ok=True)
+        (d / kernels.SOURCES[lib]).write_text(text.replace(old, new))
+        for h in kernels.CSRC.glob("*.cuh"):
+            (d / h.name).write_text(h.read_text())
+        out = d / f"lib{lib}.so"
+        procs[lib] = (subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(out),
+             str(d / kernels.SOURCES[lib])], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out)
+    return procs
+
+
+def first_design_libs(procs):
+    """{library name: the loaded copy} of start_first_design_builds'."""
+    import ctypes
+
+    libs = {}
+    for lib, (proc, out) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the first design's {lib}:"
+                               f"\n{text}")
+        libs[lib] = ctypes.CDLL(str(out))
+    return libs
+
+
+@contextlib.contextmanager
+def first_design(libs):
+    """The wrappers launch the first design's copies inside the block."""
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    saved = {n: kernels.load(n) for n in libs}
+    kernels._LIBS.update(libs)
+    try:
+        yield
+    finally:
+        kernels._LIBS.update(saved)
+
+
+def ffn_width(D):
+    """F of a block of width D, as the model config sizes SwiGLU."""
+    from tencent_recommendation_2025_tpu_torch.config import ModelConfig
+    from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
+
+    cfg = ModelConfig()
+    return ENC.swiglu_hidden_dim(D, cfg.ffn_hidden_mult, cfg.ffn_multiple_of)
+
+
+def pre_bwd_plain(x, ops, cots, dy, L, H):
+    """Plain version of the single device's projection backward step: f32
+    du, dv, dq (times hd^-1/2 already), dk and the residual dy."""
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    xf = x.float()
+    pre, h1c, xhat1, rstd1, _ = FB._recompute_projection(
+        xf, ops, L, x.shape[-1] // H, x.dtype)
+    du, dv, dq, dk = cots
+    return FB._pre_bwd(ops, pre, h1c, xhat1, rstd1, du, dv, dq, dk, dy, L,
+                       x.dtype)
+
+
+def check_pre(D, H, variant, seed):
+    """The pre half in bf16 against its plain versions on the card at B=2:
+    variant "whole" (L = wholeseq_max_l(D)) and "chunked" (L=4096), the
+    block's training forward (out, av) and backward, which launch the pre
+    half's kernels; "ring", the pre stage (a shard of 2048 of 4096 tokens)
+    and its backward (bf16 dq, dk, dv, f32 du), twice, bitwise equal."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    bf16 = torch.bfloat16
+    L = {"whole": FB.wholeseq_max_l(D), "chunked": 4096, "ring": 2048}[
+        variant]
+    x, ops, tt = block_inputs(2, L, D, H, ffn_width(D), 128, bf16, seed)
+    got, want, same = {}, {}, True
+    if variant == "ring":
+        for n, g, w in zip("qkvu", FB.ring_pre_fwd(x, ops, 2 * L, H),
+                           FB.ring_pre_fwd_plain(x, ops, 2 * L, H)):
+            got[n], want[n] = g, w
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        cots = [torch.randn(x.shape, generator=g, device="cuda")
+                for _ in range(4)]
+        cots = [c.to(bf16) for c in cots[:3]] + cots[3:]
+        bwd = FB.ring_pre_bwd(x, ops, *cots, 2 * L, H)
+        again = FB.ring_pre_bwd(x, ops, *cots, 2 * L, H)
+        ref = FB.ring_pre_bwd_plain(x, ops, *cots, 2 * L, H)
+    else:
+        got["out"], got["av"] = FB.fused_hstu_block_train(x, ops, tt, H, 3,
+                                                          0.01)
+        want["out"], want["av"] = FB.fused_hstu_block_train_plain(
+            x, ops, tt, H, 3, 0.01)
+        dout = torch.randn(x.shape, generator=torch.Generator(
+            device="cuda").manual_seed(seed), device="cuda").to(bf16)
+        bwd = FB.fused_hstu_block_bwd(x, want["av"], dout, ops, tt, H, 3,
+                                      0.01)
+        again = FB.fused_hstu_block_bwd(x, want["av"], dout, ops, tt, H, 3,
+                                        0.01)
+        ref = FB.fused_hstu_block_bwd_plain(x, want["av"], dout, ops, tt, H,
+                                            3, 0.01)
+    torch.cuda.synchronize()
+    for n in ref:
+        got[f"bwd {n}"], want[f"bwd {n}"] = bwd[n], ref[n]
+        same &= torch.equal(bwd[n], again[n])
+    ok, worst, fails = same, (None, 0.0), []
+    for n in want:
+        cmp = compare if n == "out" else compare_grad
+        okg, eg, lim = cmp(got[n], want[n], bf16)
+        okg &= bool(torch.isfinite(got[n].float()).all())
+        ok &= okg
+        if eg >= worst[1]:
+            worst = (n, eg)
+        if not okg:
+            fails.append(f"{n} {eg:.4g} ({lim})")
+    log(f"pre half {variant} B=2 L={L} D={D} H={H} bf16: largest error "
+        f"{worst[1]:.6g} ({worst[0]}); backward bitwise equal across two "
+        f"calls: {same}" + (f", failing: {'; '.join(fails)}" if fails else "")
+        + f" {'ok' if ok else 'FAIL'}")
+    del x, ops, tt, got, want, bwd, again, ref
+    _free()
+    return ok
+
+
+def pre_times(name, B, L, D, H, libs):
+    """At a main path's shape, in bf16: the projection alone (the ring's
+    stage-0 entry; at the single device's shapes with the whole sequence's
+    1/L, the same launch as the whole forward's first) and its backward
+    alone (stage 1's entry; at the single device's shapes with f32
+    cotangents and the f32 residual, as the whole backward launches it; in
+    the ring with bf16 dq, dk, dv, f32 du and no residual), each held to its
+    plain version, then timed (CUDA events over the entry: the kernel, and
+    in the backward wgrad_wgmma_kernel and the fixed-order sum; the
+    kernel's device ms by the profiler) beside its bound, its plain
+    version and the first design's kernel (proj_kernel, proj_bwd_kernel) in
+    the same call. Returns (ok, the two JSON entries without launches)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    bf16, ring = torch.bfloat16, name == "ring"
+    seq = 2 * L if ring else L
+    x, ops, _ = block_inputs(B, L, D, H, ffn_width(D), 128, bf16, seed=71)
+    g = torch.Generator(device="cuda").manual_seed(72)
+    cots = [torch.randn(x.shape, generator=g, device="cuda")
+            for _ in range(4)]
+    dy = None if ring else torch.randn(x.shape, generator=g, device="cuda")
+    if ring:   # dq, dk, dv as the pairs' backward returns them
+        cots = [c.to(bf16) for c in cots[:3]] + cots[3:]
+    dq, dk, dv, du = cots
+
+    def fwd():
+        return FB.ring_pre_fwd(x, ops, seq, H)
+
+    def bwd():
+        if ring:
+            return FB.ring_pre_bwd(x, ops, dq, dk, dv, du, seq, H)
+        dx = torch.empty_like(x)
+        out = FB._launch_bwd_stage(1, x, ops, H, seq, 0, 0.0,
+                                   ("ln", "wuvqk", "buvqk"), dx=dx, dy=dy,
+                                   du=du, dq=dq, dk=dk, dv=dv)
+        return dict(out, dx=dx)
+
+    def bwd_plain():
+        if ring:
+            return FB.ring_pre_bwd_plain(x, ops, dq, dk, dv, du, seq, H)
+        return pre_bwd_plain(x, ops, (du, dv, dq, dk), dy, seq, H)
+
+    want_f = FB.ring_pre_fwd_plain(x, ops, seq, H)
+    res = [compare_grad(a, b, bf16) for a, b in zip(fwd(), want_f)]
+    want_b = bwd_plain()
+    got_b = bwd()
+    res_b = [compare_grad(got_b[n], want_b[n], bf16) for n in want_b]
+    same = all(torch.equal(got_b[n], v) for n, v in bwd().items())
+    ok = all(r[0] for r in res + res_b) and same
+    err = {"fwd": max(r[1] for r in res), "bwd": max(r[1] for r in res_b)}
+    del want_f, want_b, got_b
+    _free()
+    t = {"fwd": time_ms(fwd, 3, 20), "bwd": time_ms(bwd, 3, 20)}
+    dev = {"fwd": kernel_device_ms(fwd, PRE_WGMMA[:1]),
+           "bwd": kernel_device_ms(bwd, PRE_WGMMA[1:]),
+           "wgrad": kernel_device_ms(bwd, ("wgrad_wgmma_kernel",))}
+    tp = {"fwd": time_ms(lambda: FB.ring_pre_fwd_plain(x, ops, seq, H), 1,
+                         3),
+          "bwd": time_ms(bwd_plain, 1, 3)}
+    with first_design(libs):
+        old = {"fwd": time_ms(fwd, 3, 20), "bwd": time_ms(bwd, 3, 20),
+               "fwd_dev": kernel_device_ms(fwd, ("proj_kernel",)),
+               "bwd_dev": kernel_device_ms(bwd, ("proj_bwd_kernel",))}
+    _free()
+    bounds = pre_bounds(B, L, D, 2, ring=ring)
+    entries = []
+    for w, src, row, kname in (
+            ("fwd", "fused_block.cu", _PRE_REPLACES[name][0], "proj"),
+            ("bwd", "fused_block_bwd.cu", _PRE_REPLACES[name][1],
+             "proj_bwd")):
+        flops, nbytes = bounds[w]
+        bound, by, _, _ = _bound(flops, nbytes)
+        extra = f" + wgrad {dev['wgrad']:.4f}" if w == "bwd" else ""
+        log(f"{kname} alone at {name} (B={B}, L={L}, D={D}, H={H}, bf16"
+            + (", ring stage" if ring else "") + f"): kernel {t[w]:.4f} ms "
+            f"(CUDA events; device {dev[w]:.4f}{extra} ms), first design "
+            f"{old[w]:.4f} ms (device {old[w + '_dev']:.4f} ms), plain "
+            f"{tp[w]:.4f} ms, bound {bound:.4f} ms ({by}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+            f"{t[w] / bound:.1f}x the bound, {nbytes / t[w] / 1e6:.1f} GB/s "
+            f"of its own bytes; max abs err {err[w]:.4g}")
+        entries.append({"name": f"{kname}_{name}", "route": "cuda",
+                        "source": SRC + src, "replaces": f"{TPU}:{row}",
+                        "launches": None, "max_abs_err": err[w], "ms": t[w],
+                        "plain_ms": tp[w], "bound_ms": bound, "bound_by": by,
+                        "library_ms": None})
+    scratch = pre_scratch_bytes(B, L, D, 2)
+    log(f"proj_bwd's design cost at {name}: its bf16 scratch T(h1), "
+        f"T(duvqk), {scratch / 2e6:.2f} MB written and read again, "
+        f"{scratch / PEAK_BYTES * 1e3:.4f} ms at the memory rate (not in its "
+        f"bound); held to the plain versions {ok} (two backward calls "
+        f"bitwise equal: {same}) {'ok' if ok else 'FAIL'}")
+    del x, ops, cots, dq, dk, dv, du, dy
+    _free()
+    return ok, entries
+
+
+def phase_pre(libs):
+    """proj_wgmma_kernel and proj_bwd_wgmma_kernel (with
+    wgrad_wgmma_kernel): held to their plain versions in bf16 at D = 32, 64
+    and 128 and H = 1 and 4, whole sequence, chunked (L=4096) and ring
+    stage; the first design in bf16 at D=256 (the ring stage, its bf16
+    cotangents); then each kernel alone at the flagship, long, sparse and
+    ring-stage shapes beside its bound and the first design's kernel.
+    Returns (ok, {run name: the JSON entries}; the ring stage's are
+    phase_ring_times')."""
+    t0 = time.perf_counter()
+    ok, i = True, 0
+    for D in (32, 64, 128):
+        for H in (1, 4):
+            for variant in ("whole", "chunked", "ring"):
+                ok &= check_pre(D, H, variant, 300 + i)
+                i += 1
+    ok &= check_pre(256, 4, "ring", 330)
+    entries = {}
+    for name, shp in PRE_SHAPES.items():
+        ok_t, entries[name] = pre_times(name, *shp, libs)
+        ok &= ok_t
+    entries.pop("ring")
+    log(f"pre-half phase: {time.perf_counter() - t0:.1f} s")
+    return ok, entries
+
+
+def pre_smem(DW, bwd):
+    """Dynamic shared memory of proj_wgmma_kernel<DW> (bwd False) or
+    proj_bwd_wgmma_kernel<DW>, as ProjCarve and ProjBwdCarve carve it:
+    Wuvqk's four DW x DW slices held (DW <= 64) or two in the ring; the
+    backward's T(h1) fragments and column sums; 1024 bytes of alignment
+    slack."""
+    w = (4 if DW <= 64 else 2) * DW * DW * 2
+    keep = DW // 4 * 128 * 4 if bwd else 0
+    red = -(-48 * DW * 4 // 1024) * 1024 if bwd else 0
+    return 1024 + w + keep + red
+
+
+def pre_spills(report):
+    """Registers, shared memory and spills of the wgmma pre-half kernels in
+    this run's build (-Xptxas -v of fused_block and fused_block_bwd):
+    proj_wgmma_kernel<DW> and proj_bwd_wgmma_kernel<DW>, 3 instances each;
+    a spill at DW <= 64 (D <= 64) fails. Logs each instance."""
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    ok = True
+    for lib, pat in (("fused_block", r"proj_wgmma_kernel<(\d+)>$"),
+                     ("fused_block_bwd", r"proj_bwd_wgmma_kernel<(\d+)>$")):
+        if lib not in report:
+            log(f"{lib}: not built in this run; spills not read")
+            continue
+        found = []
+        for k in kernels.ptxas_report(report[lib]["log"]):
+            m = re.match(pat, k["kernel"])
+            if not m:
+                continue
+            spill = k["spill_stores"] + k["spill_loads"]
+            DW = int(m.group(1))
+            found.append(f"{k['kernel']} {k['registers']} registers, "
+                         f"{pre_smem(DW, lib != 'fused_block')} B of shared "
+                         f"memory, spills {k['spill_stores']}/"
+                         f"{k['spill_loads']} B")
+            ok &= DW > 64 or spill == 0
+        ok &= len(found) == 3
+        log(f"{lib}: pre-half wgmma kernels: {'; '.join(found)} "
+            f"{'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -2001,7 +2378,7 @@ def phase_train_speed(data, ckpt, run):
     if run.kernels != "fused":
         return True
     ok = attn_bwd_route(run.name, by_name)
-    return post_route(run.name, by_name) and ok
+    return wgmma_route(run.name, by_name) and ok
 
 
 # ---------------------------------------------------------------------------
@@ -2135,7 +2512,7 @@ def profile_predict(model, params, batch, mm, run):
         f"{batch['seq'].shape[0]}): wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall_ms):.1%}); "
         f"{run.kernels} kernels {mine:.3f} ms; other kernels (ms): {others}")
-    return run.kernels != "fused" or post_route(run.name, by_name,
+    return run.kernels != "fused" or wgmma_route(run.name, by_name,
                                                 train=False)
 
 
@@ -2568,7 +2945,7 @@ def phase_sparse_100m():
         f"{scatter_ms:.3f} ms in {chunks} launches, fused forward "
         f"{fwd:.3f} ms, backward {bwd:.3f} ms; other kernels (ms): {others}")
     ok_route = attn_bwd_route("100m", by_name)
-    ok_route &= post_route("100m", by_name)
+    ok_route &= wgmma_route("100m", by_name)
     del state, table, gview, acc, bd, tabs
     _free()
     return (ok_rows and ok_acc and ok_untouched and ok_launch and finite
@@ -2733,7 +3110,6 @@ def ring_bounds(B, Lc, D, H, F, pairs, elem):
     input read once, each output written once."""
     M, act = B * Lc, B * Lc * D * elem
     f32 = B * Lc * D * 4
-    w_pre = D * 4 * D * elem + (2 * D + 4 * D) * 4
     w_post = (D * D + D * 2 * F + F * D) * elem + (4 * D + D) * 4
     prod = 2 * B * D * pairs                # one [L, L] x D product
     return {
@@ -2742,14 +3118,12 @@ def ring_bounds(B, Lc, D, H, F, pairs, elem):
                          + f32),
         "ring_pair_dkdv": (4 * prod, 4 * act + B * Lc * 4 + H * 128 * 4
                            + 2 * f32),
-        "ring_pre_fwd": (2 * M * D * 4 * D, act + w_pre + 3 * act + f32),
+        "ring_pre_fwd": pre_bounds(B, Lc, D, elem, ring=True)["fwd"],
         "ring_post_fwd": (2 * M * (D * D + D * 2 * F + F * D),
                           2 * act + f32 + w_post + act),
         # the single device's gate/FFN backward, on the shard
         "ring_post_bwd": gate_ffn_bwd_bound(B, Lc, D, H, F, elem),
-        "ring_pre_bwd": (3 * 2 * M * D * 4 * D,
-                         4 * act + f32 + w_pre + act + (D * 4 * D + 6 * D)
-                         * 4)}
+        "ring_pre_bwd": pre_bounds(B, Lc, D, elem, ring=True)["bwd"]}
 
 
 def phase_ring_times(B, Lc, D, H, F):
@@ -3048,7 +3422,7 @@ def phase_ring_speed(run, ckpt, S=2):
         f"kernels {fwd:.3f} ms ({fsplit}), backward kernels {bwd:.3f} ms "
         f"({split}); other kernels (ms): {others}")
     ok &= attn_bwd_route(f"ring S={S}", by_name)
-    ok &= post_route(f"ring S={S}", by_name)
+    ok &= wgmma_route(f"ring S={S}", by_name)
     return ok, launches
 
 
@@ -3104,9 +3478,12 @@ def main() -> int:
     from tencent_recommendation_2025_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
+    first = start_first_design_builds()
     report = kernels.build_all()
+    libs = first_design_libs(first)
     log(f"build: {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(sorted(report)) or 'already built'})")
+        f"({', '.join(sorted(report)) or 'already built'}; and the first "
+        f"design's copies of {', '.join(sorted(libs))})")
     for name, r in report.items():   # -Xptxas -v: registers and spills
         log(f"  {name}: " + "; ".join(
             f"{k['kernel']} {k['registers']} registers, spills "
@@ -3114,7 +3491,8 @@ def main() -> int:
             for k in kernels.ptxas_report(r["log"])))
 
     oks = {"attn_bwd_spills": attn_bwd_spills(report),
-           "post_spills": post_spills(report)}
+           "post_spills": post_spills(report),
+           "pre_spills": pre_spills(report)}
     t0 = time.perf_counter()
     oks["kernels"] = phase_kernels()
     oks["times"], entries = phase_times(FLAGSHIP)
@@ -3122,18 +3500,25 @@ def main() -> int:
     entries += chunked
     oks["attn_bwd"], attn_bwd = phase_attn_bwd()
     oks["post"], post = phase_post()
+    oks["pre"], pre = phase_pre(libs)
     oks["attention_kernels"] = phase_attention_kernels()
     oks["attention_times"], attention = phase_attention_times()
     oks["group_kernels"], group_entries = phase_group_kernels()
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     def attach_post(run, trained, served):
-        """This run's launches into the post-half and gate/FFN entries: the
-        inference instance per forward without autograd, the training one
-        per training forward, the gate per backward."""
+        """This run's launches into the post-half, gate/FFN and pre-half
+        entries: the inference instance per forward without autograd, the
+        training one per training forward, the gate per backward; the
+        projection per forward of either kind, its backward per
+        backward."""
         for entry, n in zip(post.get(run.name, ()), (
                 trained["fused_fwd"] + served["fused_fwd"],
                 trained["fused_train"], trained["fused_bwd"])):
+            entry["launches"] = n
+        for entry, n in zip(pre.get(run.name, ()), (
+                trained["fused_fwd"] + served["fused_fwd"]
+                + trained["fused_train"], trained["fused_bwd"])):
             entry["launches"] = n
 
     def attach(run, trained, served):
@@ -3188,6 +3573,7 @@ def main() -> int:
         entry["launches"] = launches[entry["name"]]
     entries += [e for es in attn_bwd.values() for e in es]
     entries += [e for es in post.values() for e in es]
+    entries += [e for es in pre.values() for e in es]
     entries += group_entries + ring_entries
     log(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     log(card)

@@ -23,8 +23,9 @@ backward 10 after 2), with the device ms of each kernel name in one
 profiled call of the training forward and the backward; and
 ``ring_pair_dq`` /
 ``ring_pair_dkdv`` at the S = 2 shard (B=32, Lc=2048), the mean over
-offsets 0, 0 and +Lc. Prints ``tree TAG <package file>``, then one line
-``AB {json}``.
+offsets 0, 0 and +Lc, and the pre stage and its backward there
+(``ring_pre_fwd``, ``ring_pre_bwd``: bf16 dq, dk, dv and f32 du). Prints
+``tree TAG <package file>``, then one line ``AB {json}``.
 """
 
 from __future__ import annotations
@@ -91,6 +92,12 @@ def main() -> int:
         ts = [cs.time_ms(lambda: fn(q, k, v, dav, valid, rab, o, 1), 2, 10)
               for o in (0, 0, 2048)]
         out[f"ring_{w}_ms"] = sum(ts) / 3
+    x, ops, _ = cs.block_inputs(32, 2048, 64, 1, 256, 128, bf16, seed=62)
+    u = FB.ring_pre_fwd(x, ops, 4096, 1)[3]
+    out["ring_pre_fwd_ms"] = cs.time_ms(
+        lambda: FB.ring_pre_fwd(x, ops, 4096, 1), 3, 20)
+    out["ring_pre_bwd_ms"] = cs.time_ms(
+        lambda: FB.ring_pre_bwd(x, ops, q, k, v, u, 4096, 1), 3, 20)
     print("AB", json.dumps(out), flush=True)
     return 0
 

@@ -206,7 +206,7 @@ def main(argv=None, timings: Optional[dict] = None,
     if args.loader == "native":
         raise NotImplementedError(
             "--loader native (the C++ dataprep pack) is not ported yet: "
-            "ROADMAP Queue 1, item 3 (native pack)")
+            "ROADMAP Queue 1, item 4 (native pack)")
 
     env = EnvPaths.from_env()
     assert env.train_data_path, "TRAIN_DATA_PATH must be set"

@@ -3,9 +3,9 @@
 //
 // Replaces tencent_recommendation_2025_tpu/ops/fused_block.py::_fwd_kernel
 // (the whole-sequence Pallas kernel, both modes) and the chunked variant's
-// three stages: _fwd_pre_kernel_chunk (l.452) is proj_kernel below,
-// _fwd_attn_kernel_chunk (l.468) and _fwd_post_kernel_chunk (l.502) are the
-// two halves of attn_ffn_kernel. Per batch row and token, with x [B, L, D]
+// three stages: _fwd_pre_kernel_chunk (l.452) is proj_kernel below (its
+// first stage, l.288-295, likewise), _fwd_attn_kernel_chunk (l.468) and
+// _fwd_post_kernel_chunk (l.502) are the two halves of attn_ffn_kernel. Per batch row and token, with x [B, L, D]
 // in the compute dtype T (bf16 on the product path, f32 in the checks):
 //
 //   h1   = LN1(x)                                   f32, eps 1e-8
@@ -50,12 +50,13 @@
 // W13 8.6, W2 4.3) against 33.5 MB of activation traffic; 36 us at 989
 // TFLOP/s bf16 versus 10 us at 3.35 TB/s, so the bound is compute.
 //
-// Instances. In bf16 at D <= 128 (every fused preset) the second kernel is
-// attn_ffn_wgmma_kernel (below, on csrc/fused_block_sm90.cuh): wgmma with
-// register accumulators, the weights streamed through a cp.async ring. In
-// f32 (the instance that lets the card be checked tightly) and at D > 128,
-// attn_ffn_kernel runs its products through WMMA (16x16x16 bf16, f32
-// accumulate) in bf16 and as FMA loops in f32; proj_kernel serves both.
+// Instances. In bf16 at D <= 128 (every fused preset) the two kernels are
+// proj_wgmma_kernel and attn_ffn_wgmma_kernel (below, on csrc/
+// fused_block_sm90.cuh): wgmma with register accumulators, the weights
+// resident or streamed through a cp.async ring. In f32 (the instance that
+// lets the card be checked tightly) and at D > 128, proj_kernel and
+// attn_ffn_kernel run their products through WMMA (16x16x16 bf16, f32
+// accumulate) in bf16 and as FMA loops in f32.
 
 #include "fused_block_common.cuh"
 #include "fused_block_sm90.cuh"
@@ -710,29 +711,132 @@ int launch_attn_ffn_wgmma_any(const Params& p, cudaStream_t stream) {
   }
 }
 
-// stages: 1 = proj_kernel, 2 = attn_ffn_kernel, 3 = both (the whole block)
-// Which instance runs where: bf16 at D <= 128 (every fused preset, the
-// whole-sequence and chunked forward and the ring's post stage) takes
-// attn_ffn_wgmma_kernel after proj_kernel; f32 (the tight check instance)
-// and D > 128 take attn_ffn_kernel (WMMA through shared memory in bf16, FMA
-// loops in f32). A choice by dtype and shape, made here alone: a failed
-// launch raises.
+// ===========================================================================
+// proj_wgmma_kernel: LN1 and the projection, the bf16 instance on wgmma
+// ===========================================================================
+//
+// The same function as proj_kernel, for bf16 at D <= 128 (padded to DW = 32,
+// 64 or 128 columns): the whole-sequence and chunked forward's first stage
+// and the ring's stage 0. Persistent blocks of one warpgroup, four to an SM
+// at DW <= 64, stride over the 64-token tiles. Per tile, in registers: x's
+// rows (8-byte loads); LN1 in the accumulator layout (quad shuffles, the
+// function gate_ffn_bwd_wgmma_kernel recomputes with) into T(h1)'s A
+// fragments; per slice k of Wuvqk (u, v, q, k) pre = T(h1) W_k (RS wgmma,
+// W_k an MN-major B), then silu(pre + b_k) times 1, 1/L, hd^-1/2 or 1,
+// stored straight from registers: u in f32 (16-byte stores), v, q and k in
+// bf16 (8-byte stores). Wuvqk stays in shared memory at DW <= 64 (8 or 32
+// KB, loaded once per block); at DW = 128 (32 KB a slice) the slices stream
+// through the two-stage cp.async ring.
+//
+// Bound: memory. At the flagship (B=128, L=1024, D=64) x in and q, k, v, u
+// out are 101 MB (30 us at 3.35 TB/s) against 4.3 GFLOP (4.3 us): the
+// products are small, so the design keeps every value in registers, reads
+// x once and writes each output once with whole 32-byte sectors per row.
+// Four blocks an SM (registers capped at 128, 124 used at DW = 64) hide the
+// loads' latency better than three that load x one tile ahead (PERF.md).
+template <int DW>
+__global__ void __launch_bounds__(fb90::kWg, DW <= 64 ? 4 : 1)
+    proj_wgmma_kernel(Params p) {
+  using namespace fb90;
+  constexpr int NF = DW / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const int D = p.D;
+  const int ntiles = p.B * (p.L / kRows);
+  const int mine = (int)blockIdx.x < ntiles
+                       ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const bf16* X = static_cast<const bf16*>(p.x);
+  const WuvqkSlices<DW> ws{sm90::align1024(smem_raw),
+                           static_cast<const bf16*>(p.wuvqk), D, 4 * mine};
+  ws.start();
+
+  for (int ti = 0; ti < mine; ++ti) {
+    const size_t row0 = ((size_t)blockIdx.x + (size_t)ti * gridDim.x) * kRows;
+    uint32_t h1a[DW / 16][4];
+    {
+      uint32_t xr[NF / 2];
+      float mu[2], rs[2];
+      ld_pairs(X + row0 * D, D, D, xr);
+      ln1<DW>(xr, p.ln, D, h1a, mu, rs);
+    }
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      const int s = 4 * ti + k;
+      float pre[NF];
+      proj_slice<DW>(pre, h1a, ws.acquire(s));
+      ws.release();
+      silu_bias(pre, p.buvqk + k * D, D,
+                k == 1 ? p.inv_len : k == 2 ? p.scale : 1.0f);
+      if (k == 0) {
+        st_f32_q(p.u + row0 * D, D, D, pre);
+      } else {
+        void* out = k == 1 ? p.v : k == 2 ? p.q : p.k;
+        st_bf16_q(static_cast<bf16*>(out) + row0 * D, D, D, pre);
+      }
+    }
+  }
+}
+
+// Which instance of the projection runs: proj_wgmma_kernel in bf16 at D <=
+// 128 (every fused preset), proj_kernel in f32 (the tight check instance)
+// and at D > 128. The Python predicate ops/fused_block.block_wgmma states
+// the same rule for the backward.
+inline bool proj_wgmma_route(const Params& p, bool is_bf16) {
+  return is_bf16 && fb90::post_width(p.D) != 0;
+}
+
+template <int DW>
+int launch_proj_wgmma(const Params& p, cudaStream_t stream) {
+  // its 8- and 16-byte accesses and cp.async: a misaligned operand fails
+  // the launch (the wrapper checks every operand's alignment)
+  if (!sm90::aligned16(p.x) || !sm90::aligned16(p.wuvqk) ||
+      !sm90::aligned16(p.q) || !sm90::aligned16(p.k) ||
+      !sm90::aligned16(p.v) || !sm90::aligned16(p.u))
+    return (int)cudaErrorInvalidValue;
+  return fb90::launch_persistent(proj_wgmma_kernel<DW>,
+                                 1024 + fb90::WuvqkSlices<DW>::kBytes,
+                                 p.B * (p.L / fb90::kRows), stream, p);
+}
+
+int launch_proj_wgmma_any(const Params& p, cudaStream_t stream) {
+  switch (fb90::post_width(p.D)) {
+    case 32: return launch_proj_wgmma<32>(p, stream);
+    case 64: return launch_proj_wgmma<64>(p, stream);
+    default: return launch_proj_wgmma<128>(p, stream);
+  }
+}
+
+template <typename T>
+int launch_proj(const Params& p, bool tc, cudaStream_t stream) {
+  const size_t sm = proj_smem<T>(p.D);
+  if (sm > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      proj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  proj_kernel<T><<<dim3(p.L / kTM, p.B), kThreads, sm, stream>>>(p, tc);
+  return (int)cudaGetLastError();
+}
+
+// stages: 1 = the projection, 2 = the attention and post half, 3 = both (the
+// whole block). Which instance runs where: bf16 at D <= 128 (every fused
+// preset, the whole-sequence and chunked forward and the ring's stages)
+// takes proj_wgmma_kernel (proj_wgmma_route) and attn_ffn_wgmma_kernel; f32
+// (the tight check instance) and D > 128 take proj_kernel and
+// attn_ffn_kernel (WMMA through shared memory in bf16, FMA loops in f32). A
+// choice by dtype and shape, made here alone: a launch the chosen instance
+// cannot make fails, and the wrapper raises.
 template <typename T>
 int launch(const Params& p, bool tc, cudaStream_t stream, int stages) {
-  if (std::is_same<T, bf16>::value &&
-      attn_ffn_wgmma_shape(p, p.av_in == nullptr)) {
-    if (stages & 1) {
-      const size_t sm_a = proj_smem<T>(p.D);
-      cudaError_t e = cudaFuncSetAttribute(
-          proj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)sm_a);
-      if (e != cudaSuccess) return (int)e;
-      proj_kernel<T><<<dim3(p.L / kTM, p.B), kThreads, sm_a, stream>>>(p,
-                                                                       tc);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    }
-    return (stages & 2) ? launch_attn_ffn_wgmma_any(p, stream) : 0;
+  const bool is_bf16 = std::is_same<T, bf16>::value;
+  if (stages & 1) {
+    const int e = proj_wgmma_route(p, is_bf16)
+                      ? launch_proj_wgmma_any(p, stream)
+                      : launch_proj<T>(p, tc, stream);
+    if (e != 0) return e;
   }
+  if (!(stages & 2)) return 0;
+  if (is_bf16 && attn_ffn_wgmma_shape(p, p.av_in == nullptr))
+    return launch_attn_ffn_wgmma_any(p, stream);
   int TQ = 0;
   for (int t = 64; t >= 16; t >>= 1) {
     if (p.L % t == 0 && attn_smem<T>(p.D, t) <= kMaxSmem) {
@@ -740,24 +844,14 @@ int launch(const Params& p, bool tc, cudaStream_t stream, int stages) {
       break;
     }
   }
-  const size_t sm_a = proj_smem<T>(p.D);
-  if (TQ == 0 || sm_a > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (TQ == 0) return (int)cudaErrorInvalidValue;
   const size_t sm_b = attn_smem<T>(p.D, TQ);
   cudaError_t e = cudaFuncSetAttribute(
-      proj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_a);
+      attn_ffn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm_b);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(attn_ffn_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sm_b);
-  if (e != cudaSuccess) return (int)e;
-  if (stages & 1) {
-    proj_kernel<T><<<dim3(p.L / kTM, p.B), kThreads, sm_a, stream>>>(p, tc);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (stages & 2)
-    attn_ffn_kernel<T><<<dim3(p.L / TQ, p.B), kThreads, sm_b, stream>>>(
-        p, TQ, tc);
+  attn_ffn_kernel<T><<<dim3(p.L / TQ, p.B), kThreads, sm_b, stream>>>(
+      p, TQ, tc);
   return (int)cudaGetLastError();
 }
 
@@ -819,7 +913,7 @@ static int run(int is_bf16, const void* x, const void* valid, const void* ln,
   return launch<float>(p, false, s, stages);
 }
 
-// The whole block: proj_kernel, then the second kernel.
+// The whole block: the projection, then the second kernel.
 extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
                                const void* ln, const void* wuvqk,
                                const void* buvqk, const void* wo,
@@ -836,10 +930,10 @@ extern "C" int fused_block_fwd(int is_bf16, const void* x, const void* valid,
 }
 
 // One stage of a sequence-sharded ring (ops/fused_block.ring_pre_fwd,
-// ring_post_fwd), on a shard of L tokens: stage 0 runs proj_kernel alone
+// ring_post_fwd), on a shard of L tokens: stage 0 runs the projection alone
 // (replacing _fwd_pre_kernel_chunk, l.452, as ring_pre_proj launches it;
 // inv_len is 1 / the whole sequence's length); stage 1 runs
-// attn_ffn_kernel's post half alone on the attention output av_in (in T),
+// the second kernel's post half alone on the attention output av_in (in T),
 // replacing _fwd_post_kernel_chunk (l.502) as ring_post_gate launches it.
 // Pointers a stage does not read may be null.
 extern "C" int fused_block_stage(int is_bf16, int stage, const void* x,

@@ -49,18 +49,19 @@
 // is deterministic.
 //
 // In bf16 at D <= 128 (every fused preset) step 1 is
-// gate_ffn_bwd_wgmma_kernel + wgrad_wgmma_kernel (below, on csrc/
-// fused_block_sm90.cuh): wgmma with register accumulators, and the weight
-// products dW2, dW13 and dWo taken over token ranges from bf16 scratch
-// instead of an f32 read-modify-write of ``part`` per tile.
+// gate_ffn_bwd_wgmma_kernel and step 3 proj_bwd_wgmma_kernel (below, on
+// csrc/fused_block_sm90.cuh): wgmma with register accumulators, and the
+// weight products dW2, dW13, dWo and dWuvqk taken over token ranges from
+// bf16 scratch by wgrad_wgmma_kernel instead of an f32 read-modify-write of
+// ``part`` per tile.
 //
 // Bound on the H100 at the flagship shape (B=128, L=1024, D=64, F=256,
 // H=1), per block: 93.46 GFLOP of products (recompute: projection 4.29,
 // s 8.60, Wo 1.07, W13 8.59; attention dv, da, dq, dk 8.60 each; weight
 // products twice each, dW and dX: projection 8.59, Wo 2.15, W13 17.18, W2
 // 8.59), 94.5 us at 989 TFLOP/s bf16, against 67 MB of x, av, dout and dx
-// (20 us at 3.35 TB/s): compute bound. proj_bwd, and gate_ffn_bwd where it
-// runs (f32, D > 128), run their products as WMMA tiles (bf16, f32
+// (20 us at 3.35 TB/s): compute bound. gate_ffn_bwd and proj_bwd, where
+// they run (f32, D > 128), run their products as WMMA tiles (bf16, f32
 // accumulators) through shared memory, FMA loops in f32.
 
 #include "fused_block_common.cuh"
@@ -92,10 +93,11 @@ struct BwdArgs {
   void* v;             // [B, L, D] T, scaled by 1/L
   void* dav;           // [B, L, D] T
   float* du;           // [B, L, D]
-  float* dy;           // [B, L, D]
+  float* dy;           // [B, L, D]; the projection backward's residual, or
+                       // null: none (the ring's stage 1)
   float* dv;           // [B, L, D], w.r.t. the scaled v
-  float* dq;           // [B, L, D], times hd^-1/2
-  float* dk;           // [B, L, D]
+  float* dq;           // [B, L, D], times hd^-1/2 (dq_scale 1)
+  float* dk;           // [B, L, D]; dv, dq, dk in T where cot_t
   float* part;         // [G, P] zeroed: per-block partial sums
   float* part_rab;     // [B * L / 16, H * NB]: per-(query tile, row) partials
   // outputs
@@ -110,10 +112,18 @@ struct BwdArgs {
   void* h2s;           // [B, L, D] T(LN3(y))
   void* gs;            // [B, L, D] T(g)
   void* dys;           // [B, L, D] T(dy)
+  // scratch of the wgmma projection backward, whose presence selects it
+  // (likewise): the operands of dWuvqk's product over tokens
+  void* h1s;           // [B, L, D] T(LN1(x))
+  void* duvqks;        // [B, L, 4D] T(duvqk)
+  float* psum;         // [B L / 64, 6D]: per tile, dbuvqk ([.., 4D] rows),
+                       // then LN1's gamma and beta ([.., 2D] rows)
   int B, L, D, H, F, NB;
   int G, P;            // blocks of the striding kernels; partial row width
   int off_w2, off_w13, off_wo, off_bo, off_ln, off_wuvqk, off_buvqk;
+  int cot_t;           // dv, dq, dk in T (the ring's stage 1), else f32
   float scale, inv_len;
+  float dq_scale;      // dq's factor before dsilu: 1, or hd^-1/2 (stage 1)
   unsigned thr;        // dropout: keep iff bits >= thr
   float keep_scale;    // dropout: 1 / (1 - p)
 };
@@ -413,8 +423,16 @@ size_t proj_bwd_smem(int D, int TM) {
          + 2 * align128(TM * sizeof(float));
 }
 
+// Element o of the cotangent v: in T where in_t (the ring's stage 1), else
+// f32.
+template <typename T>
+__device__ __forceinline__ float cot_at(const float* v, size_t o, int in_t) {
+  return in_t ? to_f(reinterpret_cast<const T*>(v)[o]) : v[o];
+}
+
 // Step 3: the projection and LN1 backward plus the residual, per TM-token
-// tile: duvqk = [du, dv / L, dq, dk] dsilu(pre), dWuvqk, dbuvqk, dx.
+// tile: duvqk = [du, dv / L, dq dq_scale, dk] dsilu(pre), dWuvqk, dbuvqk,
+// dx.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     proj_bwd_kernel(BwdArgs p, int TM, bool tc) {
@@ -464,10 +482,11 @@ __global__ void __launch_bounds__(kThreads)
         const int r = i / kNC, c = i - r * kNC, col = n0 + c;
         const int part_i = col / D, d = col - part_i * D;
         const size_t o = (row0 + r) * D + d;
-        const float src = part_i == 0   ? p.du[o]
-                          : part_i == 1 ? p.dv[o] * p.inv_len
-                          : part_i == 2 ? p.dq[o]
-                                        : p.dk[o];
+        const float src =
+            part_i == 0   ? p.du[o]
+            : part_i == 1 ? cot_at<T>(p.dv, o, p.cot_t) * p.inv_len
+            : part_i == 2 ? cot_at<T>(p.dq, o, p.cot_t) * p.dq_scale
+                          : cot_at<T>(p.dk, o, p.cot_t);
         const float g = src * dsilu(cs[r * kLdS + c] + p.buvqk[col]);
         cs[r * kLdS + c] = g;
         dcs[r * kLdP + c] = from_f<T>(g);
@@ -507,8 +526,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = lane; d < D; d += 32) {
         const float xh = (to_f(xr[d]) - m) * rsr;
         const size_t o = (row0 + r) * D + d;
-        static_cast<T*>(p.dx)[o] =
-            from_f<T>(p.dy[o] + rsr * (g[d] * g1[d] - m1 - xh * m2));
+        static_cast<T*>(p.dx)[o] = from_f<T>(
+            (p.dy ? p.dy[o] : 0.0f) + rsr * (g[d] * g1[d] - m1 - xh * m2));
       }
     }
   }
@@ -537,8 +556,9 @@ __global__ void __launch_bounds__(kThreads)
 //   The weight products' operands T(f), T(dx13), T(h2), T(g) and T(dy) go to
 //   the bf16 scratch of BwdArgs: no f32 read-modify-write per tile.
 // - wgrad_wgmma_kernel: dW2 = T(f)^T T(dout), dW13 = T(h2)^T T(dx13) and dWo
-//   = T(g)^T T(dy), products over tokens: one warpgroup per 64 x 64 output
-//   tile and range of token tiles, SS wgmma with both operands MN-major (the
+//   = T(g)^T T(dy) (and proj_bwd_wgmma_kernel's dWuvqk = T(h1)^T
+//   T(duvqk)), products over tokens: one warpgroup per 64 x 64 output tile
+//   and range of token tiles, SS wgmma with both operands MN-major (the
 //   tokens are the K index), written to the range's row of ``part``;
 //   reduce_rows_kernel sums the rows in a fixed order. No atomics anywhere.
 
@@ -597,8 +617,6 @@ __global__ void __launch_bounds__(fb90::kWg)
   const bf16* WP = static_cast<const bf16*>(p.wuvqk);
   const bf16* W13 = static_cast<const bf16*>(p.w13);
   const bf16* W2 = static_cast<const bf16*>(p.w2);
-  const float* g1 = p.ln;
-  const float* b1 = p.ln + D;
   const float* g2 = p.ln + 2 * D;
   const float* b2 = p.ln + 3 * D;
   const float* g3 = p.ln + 4 * D;
@@ -659,23 +677,12 @@ __global__ void __launch_bounds__(fb90::kWg)
       uint32_t h1a[DW / 16][4];
       if (k == 0) {
         // --- LN1 -> T(h1) fragments (kept); LN2's statistics of av ---
-        float v[NF], mu1[2], rs1[2];
-#pragma unroll
-        for (int i = 0; i < NF; i += 2) {
-          const float2 e = ld_bf16x2(x, D, i, D);
-          v[i] = e.x;
-          v[i + 1] = e.y;
-        }
-        row_stats(v, D, mu1, rs1);
-#pragma unroll
-        for (int i = 0; i < NF; i += 2) {
-          const int hf = (i >> 1) & 1;
-          const float2 gg = ld_vec2(g1, i, D), bb = ld_vec2(b1, i, D);
-          v[i] = (v[i] - mu1[hf]) * rs1[hf] * gg.x + bb.x;
-          v[i + 1] = (v[i + 1] - mu1[hf]) * rs1[hf] * gg.y + bb.y;
-        }
-        frags(v, h1a);
+        uint32_t xr[NF / 2];
+        float mu1[2], rs1[2];
+        ld_pairs(x, D, D, xr);
+        ln1<DW>(xr, p.ln, D, h1a, mu1, rs1);
         keep(h1_keep, reinterpret_cast<uint32_t(&)[DW / 4]>(h1a));
+        float v[NF];
 #pragma unroll
         for (int i = 0; i < NF; i += 2) {
           const float2 e = ld_bf16x2(av, D, i, D);
@@ -688,20 +695,9 @@ __global__ void __launch_bounds__(fb90::kWg)
       }
       // --- projection slice k: u (kept), v / L, q hd^-1/2, k ---
       float pre[NF];
-      const bf16* wp = reinterpret_cast<const bf16*>(st);
-      sm90::wgmma_fence();
-      chain<DW, 1>(pre, h1a, [&](int kk) {
-        return Tile<DW>::desc_mn(wp, DW, kk);
-      }, false);
-      finish(pre);
-      const float mul = k == 1 ? p.inv_len : k == 2 ? p.scale : 1.0f;
-#pragma unroll
-      for (int i = 0; i < NF; i += 2) {
-        const float2 bb = ld_vec2(p.buvqk + k * D, i, D);
-        const bool in = acc_col(i) < D;
-        pre[i] = in ? fast_silu(pre[i] + bb.x) * mul : 0.0f;
-        pre[i + 1] = in ? fast_silu(pre[i + 1] + bb.y) * mul : 0.0f;
-      }
+      proj_slice<DW>(pre, h1a, reinterpret_cast<const bf16*>(st));
+      silu_bias(pre, p.buvqk + k * D, D,
+                k == 1 ? p.inv_len : k == 2 ? p.scale : 1.0f);
       if (k == 0) {
         keep(u_keep, pre);
       } else {
@@ -928,8 +924,11 @@ struct WgradJob {
   int mo, no, off, tiles_m, tiles_n;
 };
 
+constexpr int kWgradJobs = 4;   // the gate's three, the projection's one
+
 struct WgradArgs {
-  WgradJob job[3];
+  WgradJob job[kWgradJobs];
+  int njob;
   float* part;
   int P;
   int ntok;   // token tiles of 64
@@ -945,7 +944,7 @@ __global__ void __launch_bounds__(fb90::kWg)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = sm90::align1024(smem_raw);
   int t = blockIdx.x, j = 0;
-  while (j < 2 && t >= p.job[j].tiles_m * p.job[j].tiles_n) {
+  while (j < p.njob - 1 && t >= p.job[j].tiles_m * p.job[j].tiles_n) {
     t -= p.job[j].tiles_m * p.job[j].tiles_n;
     ++j;
   }
@@ -998,10 +997,205 @@ __global__ void __launch_bounds__(fb90::kWg)
   }
 }
 
+// ===========================================================================
+// proj_bwd_wgmma_kernel: the projection and LN1 backward, the bf16 instance
+// on wgmma (csrc/fused_block_sm90.cuh)
+// ===========================================================================
+//
+// The same function as proj_bwd_kernel, for bf16 at D <= 128 (padded to DW
+// = 32, 64 or 128 columns): the whole-sequence and chunked backward's last
+// step and the ring's stage 1. Persistent blocks of one warpgroup, as many
+// as share an SM, stride over the 64-token tiles. Per tile, with register
+// accumulators:
+// - x's rows (8-byte loads), LN1 into T(h1)'s A fragments by the forward's
+//   function (ln1); T(h1) written to the h1s scratch and kept in shared
+//   memory for the four slices, each thread its own fragments;
+// - per slice k of Wuvqk (u, v, q, k): pre = T(h1) W_k (RS wgmma, W_k an
+//   MN-major B); its cotangent (du in f32; dv, dq, dk in f32, or in bf16 in
+//   the ring's stage 1; 16- or 8-byte loads); duvqk = cotangent times 1,
+//   1/L, dq_scale or 1, then times dsilu(pre + b_k), in f32 (the order of
+//   _bwd_proj_kernel_chunk and the ring's _rpp_bwd); its column sums
+//   (dbuvqk); T(duvqk) written to the duvqks scratch; dh1 += T(duvqk) W_k^T
+//   (RS wgmma, the same W_k tile as a K-major B: no weight is transposed or
+//   loaded twice);
+// - the LN1 backward per row by quad shuffles, with its gamma and beta
+//   column sums; dx = T(dy + LN1'(dh1)), dy null in the ring's stage 1.
+// Its time goes to latency within each warp more than to occupancy: with
+// the compiler's own register count (about 240 at DW = 64, two blocks an
+// SM) it runs faster than capped for three or four blocks, which spills
+// (PERF.md). Each tile's six column sums go, the four warps' shares added
+// in a fixed order, to the tile's rows of the psum scratch, which
+// reduce_rows_split_kernel sums in a fixed order after the kernel
+// (finish_grads): the block count follows the card, not G (sums per block
+// instead cost the kernel more than they save the sum). dWuvqk =
+// T(h1)^T T(duvqk) is taken over token ranges from the scratch by
+// wgrad_wgmma_kernel: a register accumulator of dWuvqk per block (at D=64
+// a 64 x 256 f32 tile, 128 registers a thread) would not fit beside dh1 and
+// the slice. Wuvqk stays in shared memory at DW <= 64; at DW = 128 its
+// slices stream through the two-stage cp.async ring.
+//
+// Bound: memory. At the flagship (B=128, L=1024, D=64) x, the f32
+// cotangents and dy in and dx out are 201 MB (60 us at 3.35 TB/s) against
+// 12.9 GFLOP (13 us); the scratch adds 84 MB written and read again.
+template <int DW>
+struct ProjBwdCarve {
+  static constexpr size_t kW = fb90::WuvqkSlices<DW>::kBytes;
+  // T(h1)'s fragments, [element][thread]
+  static constexpr size_t kKeep = (size_t)(DW / 4) * fb90::kWg * 4;
+  // the warps' shares of the six column sums (dbuvqk's four slices, LN1's
+  // gamma and beta) in two buffers, [2][6][4][DW]
+  static constexpr size_t kRed = fb90::round1024((size_t)48 * DW * 4);
+  static constexpr size_t bytes() { return 1024 + kW + kKeep + kRed; }
+};
+
+template <int DW>
+__global__ void __launch_bounds__(fb90::kWg) proj_bwd_wgmma_kernel(BwdArgs p) {
+  using namespace fb90;
+  using Cv = ProjBwdCarve<DW>;
+  constexpr int NF = DW / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  const int D = p.D, tid = threadIdx.x;
+  uint32_t* h1_keep = reinterpret_cast<uint32_t*>(base + Cv::kW);
+  float* wsum = reinterpret_cast<float*>(base + Cv::kW + Cv::kKeep);
+  const int ntiles = p.B * (p.L / kRows);
+  const int mine = (int)blockIdx.x < ntiles
+                       ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const WuvqkSlices<DW> ws{base, static_cast<const bf16*>(p.wuvqk), D,
+                           4 * mine};
+  ws.start();
+  // cotangent k of the tile at row0 (k == 4: the residual dy, 0 if null)
+  auto load_cot = [&](size_t row0, int k, float (&g)[NF]) {
+    if (k == 0 || k == 4) {
+      const float* c = k == 0 ? p.du : p.dy;
+      if (c) {
+        ld_f32_q(c + row0 * D, D, D, g);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NF; ++i) g[i] = 0.0f;
+      }
+      return;
+    }
+    const float* c = k == 1 ? p.dv : k == 2 ? p.dq : p.dk;
+    if (p.cot_t)
+      ld_bf16_q(reinterpret_cast<const bf16*>(c) + row0 * D, D, D, g);
+    else
+      ld_f32_q(c + row0 * D, D, D, g);
+  };
+
+  for (int ti = 0; ti < mine; ++ti) {
+    const int tile = blockIdx.x + ti * gridDim.x;
+    const size_t row0 = (size_t)tile * kRows;
+    const bf16* x = static_cast<const bf16*>(p.x) + row0 * D;
+    float* wbuf = wsum + (ti & 1) * 24 * DW;
+    float mu[2], rs[2];
+    {
+      uint32_t xr[NF / 2], h1a[DW / 16][4];
+      ld_pairs(x, D, D, xr);
+      ln1<DW>(xr, p.ln, D, h1a, mu, rs);
+      keep(h1_keep, reinterpret_cast<uint32_t(&)[DW / 4]>(h1a));
+      st_pairs(static_cast<bf16*>(p.h1s) + row0 * D, D, D,
+               reinterpret_cast<const uint32_t(&)[NF / 2]>(h1a));
+    }
+
+    float dh1[NF];
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      const bf16* w = ws.acquire(4 * ti + k);
+      float pre[NF];
+      {
+        uint32_t h1a[DW / 16][4];
+        unkeep(h1_keep, reinterpret_cast<uint32_t(&)[DW / 4]>(h1a));
+        proj_slice<DW>(pre, h1a, w);
+      }
+      // --- duvqk = cotangent * mul * dsilu(pre + b_k), f32 ---
+      {
+        float g[NF];
+        load_cot(row0, k, g);
+        const float mul = k == 1 ? p.inv_len : k == 2 ? p.dq_scale : 1.0f;
+        const float* bk = p.buvqk + k * D;
+#pragma unroll
+        for (int i = 0; i < NF; i += 2) {
+          const float2 bb = ld_vec2(bk, i, D);
+          const bool in = acc_col(i) < D;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = pre[i + e] + (e ? bb.y : bb.x);
+            const float sg = fast_sigmoid(v);
+            pre[i + e] = in ? g[i + e] * mul *
+                                  (sg * (1.0f + v * (1.0f - sg)))
+                            : 0.0f;
+          }
+        }
+      }
+      st_bf16_q(static_cast<bf16*>(p.duvqks) + row0 * 4 * D + k * D, 4 * D,
+                D, pre);
+      col_part<DW>(wbuf + k * 4 * DW, [&](int i) { return pre[i]; });
+      // --- dh1 += T(duvqk) W_k^T ---
+      uint32_t da[DW / 16][4];
+      frags(pre, da);
+      sm90::wgmma_fence();
+      chain<DW, 0>(dh1, da, [&](int kk) {
+        return Tile<DW>::desc_k(w, DW, kk);
+      }, k > 0);
+      finish(dh1);
+      ws.release();
+    }
+
+    // --- LN1 backward: gamma/beta sums, then dx = T(dy + LN1'(dh1)) ---
+    float xh[NF];
+    {
+      uint32_t xr[NF / 2];
+      ld_pairs(x, D, D, xr);   // again: the tile is still in L2
+#pragma unroll
+      for (int q = 0; q < NF / 2; ++q) {
+        const float2 e = unpack_bf16(xr[q]);
+        xh[2 * q] = e.x;
+        xh[2 * q + 1] = e.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NF; ++i) {
+      const int hf = (i >> 1) & 1;
+      xh[i] = acc_col(i) < D ? (xh[i] - mu[hf]) * rs[hf] : 0.0f;
+    }
+    col_part<DW>(wbuf + 16 * DW, [&](int i) { return dh1[i] * xh[i]; });
+    col_part<DW>(wbuf + 20 * DW, [&](int i) { return dh1[i]; });
+    float m1[2], m2[2];
+    row_means<NF>([&](int i) { return dh1[i] * p.ln[acc_col(i)]; },
+                  [&](int i) { return xh[i]; }, D, m1, m2);
+    {
+      float dy[NF];
+      load_cot(row0, 4, dy);
+#pragma unroll
+      for (int i = 0; i < NF; ++i) {
+        const int hf = (i >> 1) & 1, c = acc_col(i);
+        dh1[i] = c < D ? dy[i] + rs[hf] * (dh1[i] * p.ln[c] - m1[hf] -
+                                           xh[i] * m2[hf])
+                       : 0.0f;
+      }
+    }
+    st_bf16_q(static_cast<bf16*>(p.dx) + row0 * D, D, D, dh1);
+    __syncthreads();
+    // the tile's column sums, the warps' shares in order: dbuvqk to its row
+    // of psum's first [ntiles, 4D], LN1's gamma and beta to the second's
+    // [ntiles, 2D]
+    for (int i = tid; i < 6 * D; i += kWg) {
+      const int k = i / D, c = i - k * D;
+      const float* wk = wbuf + k * 4 * DW;
+      p.psum[k < 4 ? (size_t)tile * 4 * D + i
+                   : (size_t)ntiles * 4 * D + (size_t)tile * 2 * D + i -
+                         4 * D] =
+          ((wk[c] + wk[DW + c]) + wk[2 * DW + c]) + wk[3 * DW + c];
+    }
+  }
+}
+
 // Whether the wgmma gate/FFN kernels can take these operands: bf16, D at
 // most 128, the whole scratch there, every operand they stream with
 // cp.async on a 16-byte boundary. The wrapper passes the scratch exactly
-// where it wants them (ops/fused_block.post_wgmma); with the scratch there,
+// where it wants them (ops/fused_block.block_wgmma); with the scratch there,
 // a launch they cannot make fails rather than taking the other instance.
 inline bool gate_wgmma_ok(const BwdArgs& p, bool is_bf16) {
   return is_bf16 && fb90::post_width(p.D) != 0 && p.fs && p.dx13s &&
@@ -1013,8 +1207,28 @@ inline bool gate_wgmma_ok(const BwdArgs& p, bool is_bf16) {
          sm90::aligned16(p.w2);
 }
 
-// dW2, dW13 and dWo over ranges of at least 16 token tiles, at most G
-// ranges (rows of part; the rows past the last range stay 0)
+// The wgmma instances run exactly where their scratch is there (the
+// wrapper passes it in bf16 at D <= 128: ops/fused_block.block_wgmma): the
+// gate/FFN backward's, and the projection backward's.
+inline bool gate_wgmma_on(const BwdArgs& p) { return p.fs != nullptr; }
+inline bool proj_wgmma_on(const BwdArgs& p) { return p.h1s != nullptr; }
+
+// Whether proj_bwd_wgmma_kernel can take these operands: bf16, D at most
+// 128, its scratch there, every operand of its 8- and 16-byte accesses and
+// cp.async on a 16-byte boundary.
+inline bool proj_wgmma_ok(const BwdArgs& p, bool is_bf16) {
+  return is_bf16 && fb90::post_width(p.D) != 0 && p.h1s && p.duvqks &&
+         p.psum && sm90::aligned16(p.h1s) && sm90::aligned16(p.duvqks) &&
+         sm90::aligned16(p.x) && sm90::aligned16(p.wuvqk) &&
+         sm90::aligned16(p.dx) && sm90::aligned16(p.du) &&
+         sm90::aligned16(p.dv) && sm90::aligned16(p.dq) &&
+         sm90::aligned16(p.dk) && sm90::aligned16(p.dy);
+}
+
+// The weight products over tokens of the wgmma instances that ran (dW2,
+// dW13 and dWo of the gate; dWuvqk of the projection), over ranges of at
+// least 16 token tiles, at most G ranges (rows of part; the rows past the
+// last range stay 0)
 inline int launch_wgrad(const BwdArgs& p, cudaStream_t stream) {
   WgradArgs w = {};
   auto job = [](const void* a, int mo, const void* b, int no, int off) {
@@ -1028,38 +1242,24 @@ inline int launch_wgrad(const BwdArgs& p, cudaStream_t stream) {
     j.tiles_n = (no + 63) / 64;
     return j;
   };
-  w.job[0] = job(p.fs, p.F, p.dout, p.D, p.off_w2);
-  w.job[1] = job(p.h2s, p.D, p.dx13s, 2 * p.F, p.off_w13);
-  w.job[2] = job(p.gs, p.D, p.dys, p.D, p.off_wo);
+  if (gate_wgmma_on(p)) {
+    w.job[w.njob++] = job(p.fs, p.F, p.dout, p.D, p.off_w2);
+    w.job[w.njob++] = job(p.h2s, p.D, p.dx13s, 2 * p.F, p.off_w13);
+    w.job[w.njob++] = job(p.gs, p.D, p.dys, p.D, p.off_wo);
+  }
+  if (proj_wgmma_on(p))
+    w.job[w.njob++] = job(p.h1s, p.D, p.duvqks, 4 * p.D, p.off_wuvqk);
+  if (w.njob == 0) return 0;
   w.part = p.part;
   w.P = p.P;
   w.ntok = p.B * p.L / fb90::kRows;
   w.per = max(16, (w.ntok + p.G - 1) / p.G);
   const int ranges = (w.ntok + w.per - 1) / w.per;
   int tiles = 0;
-  for (const WgradJob& j : w.job) tiles += j.tiles_m * j.tiles_n;
+  for (int j = 0; j < w.njob; ++j) tiles += w.job[j].tiles_m * w.job[j].tiles_n;
   return hstu_bwd::launch_kernel(wgrad_wgmma_kernel, dim3(tiles, ranges),
                                  fb90::kWg, 1024 + sm90::kStages * kWgradStage,
                                  stream, w);
-}
-
-template <int DW>
-int launch_gate_wgmma(const BwdArgs& p, cudaStream_t stream) {
-  const int e = hstu_bwd::launch_kernel(
-      gate_ffn_bwd_wgmma_kernel<DW>, dim3(p.G), fb90::kWg,
-      GateCarve<DW>::bytes(), stream, p);
-  return e != 0 ? e : launch_wgrad(p, stream);
-}
-
-template <typename T>
-int launch_gate_wgmma_any(const BwdArgs& p, cudaStream_t stream) {
-  if (!gate_wgmma_ok(p, std::is_same<T, bf16>::value))
-    return (int)cudaErrorInvalidValue;
-  switch (fb90::post_width(p.D)) {
-    case 32: return launch_gate_wgmma<32>(p, stream);
-    case 64: return launch_gate_wgmma<64>(p, stream);
-    default: return launch_gate_wgmma<128>(p, stream);
-  }
 }
 
 template <typename T>
@@ -1067,6 +1267,91 @@ int pick_tile(int L, size_t (*smem)(int, int), int D) {
   for (int t = 64; t >= 16; t >>= 1)
     if (L % t == 0 && smem(D, t) <= kMaxSmem) return t;
   return 0;
+}
+
+// Step 1, the gate/FFN backward: gate_ffn_bwd_wgmma_kernel where its
+// scratch is there (its weight products follow in launch_wgrad), else
+// gate_ffn_bwd_kernel (WMMA through shared memory in bf16, FMA loops in
+// f32).
+template <typename T>
+int launch_gate(const BwdArgs& p, bool tc, cudaStream_t stream) {
+  if (gate_wgmma_on(p)) {
+    if (!gate_wgmma_ok(p, std::is_same<T, bf16>::value))
+      return (int)cudaErrorInvalidValue;
+    switch (fb90::post_width(p.D)) {
+      case 32:
+        return hstu_bwd::launch_kernel(gate_ffn_bwd_wgmma_kernel<32>,
+                                       dim3(p.G), fb90::kWg,
+                                       GateCarve<32>::bytes(), stream, p);
+      case 64:
+        return hstu_bwd::launch_kernel(gate_ffn_bwd_wgmma_kernel<64>,
+                                       dim3(p.G), fb90::kWg,
+                                       GateCarve<64>::bytes(), stream, p);
+      default:
+        return hstu_bwd::launch_kernel(gate_ffn_bwd_wgmma_kernel<128>,
+                                       dim3(p.G), fb90::kWg,
+                                       GateCarve<128>::bytes(), stream, p);
+    }
+  }
+  const int TM = pick_tile<T>(p.L, gate_smem<T>, p.D);
+  if (TM == 0) return (int)cudaErrorInvalidValue;
+  return hstu_bwd::launch_kernel(gate_ffn_bwd_kernel<T>, dim3(p.G), kThreads,
+                                 gate_smem<T>(p.D, TM), stream, p, TM, tc);
+}
+
+// Step 3, the projection and LN1 backward: proj_bwd_wgmma_kernel where its
+// scratch is there (dWuvqk follows in launch_wgrad; *rows its tile count,
+// the rows of psum), else proj_bwd_kernel (*rows 0).
+template <typename T>
+int launch_proj_bwd(const BwdArgs& p, bool tc, cudaStream_t stream,
+                    int* rows) {
+  *rows = 0;
+  if (proj_wgmma_on(p)) {
+    if (!proj_wgmma_ok(p, std::is_same<T, bf16>::value))
+      return (int)cudaErrorInvalidValue;
+    const int ntiles = p.B * (p.L / fb90::kRows);
+    *rows = ntiles;
+    switch (fb90::post_width(p.D)) {
+      case 32:
+        return fb90::launch_persistent(proj_bwd_wgmma_kernel<32>,
+                                       ProjBwdCarve<32>::bytes(), ntiles,
+                                       stream, p);
+      case 64:
+        return fb90::launch_persistent(proj_bwd_wgmma_kernel<64>,
+                                       ProjBwdCarve<64>::bytes(), ntiles,
+                                       stream, p);
+      default:
+        return fb90::launch_persistent(proj_bwd_wgmma_kernel<128>,
+                                       ProjBwdCarve<128>::bytes(), ntiles,
+                                       stream, p);
+    }
+  }
+  const int TM = pick_tile<T>(p.L, gate_smem<T>, p.D);
+  if (TM == 0) return (int)cudaErrorInvalidValue;
+  return hstu_bwd::launch_kernel(proj_bwd_kernel<T>, dim3(p.G), kThreads,
+                                 proj_bwd_smem<T>(p.D, TM), stream, p, TM,
+                                 tc);
+}
+
+// The weight products over tokens, then the fixed-order sums of part's
+// rows and, after proj_bwd_wgmma_kernel (proj_rows: psum's rows, one a
+// tile; 0: the kernel did not run), of psum's rows into dbuvqk's and LN1's
+// slots of grads (which part's rows leave 0).
+inline int finish_grads(const BwdArgs& p, int proj_rows,
+                        cudaStream_t stream) {
+  int e = launch_wgrad(p, stream);
+  if (e != 0) return e;
+  reduce_rows_kernel<<<(p.P + kThreads - 1) / kThreads, kThreads, 0,
+                       stream>>>(p.part, p.G, p.P, p.grads);
+  if ((e = (int)cudaGetLastError()) != 0 || proj_rows == 0) return e;
+  const int ntiles = p.B * (p.L / fb90::kRows);
+  const dim3 block(32, kSplitRows);
+  reduce_rows_split_kernel<<<(4 * p.D + 31) / 32, block, 0, stream>>>(
+      p.psum, proj_rows, 4 * p.D, p.grads + p.off_buvqk);
+  reduce_rows_split_kernel<<<(2 * p.D + 31) / 32, block, 0, stream>>>(
+      p.psum + (size_t)ntiles * 4 * p.D, proj_rows, 2 * p.D,
+      p.grads + p.off_ln);
+  return (int)cudaGetLastError();
 }
 
 // The attention backward's arguments: the pair of shards at off 0, Lq = Lk
@@ -1094,82 +1379,43 @@ hstu_bwd::AttnBwdArgs attn_args(const BwdArgs& p) {
   return a;
 }
 
+// Which instance runs where: with their scratch (the wrapper passes it in
+// bf16 at D <= 128, every fused preset) gate_ffn_bwd_wgmma_kernel and
+// proj_bwd_wgmma_kernel, their weight products in one wgrad_wgmma_kernel
+// launch; without it (f32, the tight check instance, and D > 128)
+// gate_ffn_bwd_kernel and proj_bwd_kernel (WMMA through shared memory in
+// bf16, FMA loops in f32). The attention backward chooses its own
+// (hstu_bwd::launch).
 template <typename T>
 int launch_bwd(const BwdArgs& p, bool tc, cudaStream_t stream) {
-  const int TM = pick_tile<T>(p.L, gate_smem<T>, p.D);
-  if (TM == 0) return (int)cudaErrorInvalidValue;
-  const size_t sm_g = gate_smem<T>(p.D, TM);
-  const size_t sm_p = proj_bwd_smem<T>(p.D, TM);
-  cudaError_t e;
-  e = cudaFuncSetAttribute(gate_ffn_bwd_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sm_g);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(proj_bwd_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sm_p);
-  if (e != cudaSuccess) return (int)e;
-
-  // Which instance runs where: with the weight products' scratch (the
-  // wrapper passes it in bf16 at D <= 128, every fused preset)
-  // gate_ffn_bwd_wgmma_kernel + wgrad_wgmma_kernel; without it (f32, the
-  // tight check instance, and D > 128) gate_ffn_bwd_kernel (WMMA through
-  // shared memory in bf16, FMA loops in f32).
-  if (p.fs) {
-    const int eg = launch_gate_wgmma_any<T>(p, stream);
-    if (eg != 0) return eg;
-  } else {
-    gate_ffn_bwd_kernel<T><<<p.G, kThreads, sm_g, stream>>>(p, TM, tc);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
+  int e = launch_gate<T>(p, tc, stream);
+  if (e != 0) return e;
   // dq and the rel-pos gradient (summed into drab), then dk and dv
-  const int ea = hstu_bwd::launch<T>(attn_args(p), true, true, stream);
-  if (ea != 0) return ea;
-  proj_bwd_kernel<T><<<p.G, kThreads, sm_p, stream>>>(p, TM, tc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  reduce_rows_kernel<<<(p.P + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(p.part, p.G, p.P, p.grads);
-  return (int)cudaGetLastError();
+  e = hstu_bwd::launch<T>(attn_args(p), true, true, stream);
+  if (e != 0) return e;
+  int rows = 0;
+  e = launch_proj_bwd<T>(p, tc, stream, &rows);
+  return e != 0 ? e : finish_grads(p, rows, stream);
 }
 
 // One stage of a sequence-sharded ring's backward, on a shard of L tokens:
-// stage 0 runs gate_ffn_bwd_kernel alone (replacing _bwd_gate_kernel_chunk,
-// l.612, as ring_post_gate's backward launches it: dav in T, dy and du in
-// f32, the gradients of W2, W13, Wo, bo and LN2/LN3), stage 1
-// proj_bwd_kernel alone (replacing _bwd_proj_kernel_chunk, l.710, as
-// ring_pre_proj's backward launches it, with dy zero: the post stage owns
-// the residual path; dq comes in already scaled by hd^-1/2, dv w.r.t. the
-// 1/L-scaled v, inv_len 1 / the whole sequence's length); each then sums
-// its partials with reduce_rows_kernel. The other stage's gradient slots of
-// ``grads`` come out 0.
+// stage 0 runs the gate/FFN backward alone (replacing
+// _bwd_gate_kernel_chunk, l.612, as ring_post_gate's backward launches it:
+// dav in T, dy and du in f32, the gradients of W2, W13, Wo, bo and
+// LN2/LN3), stage 1 the projection backward alone (replacing
+// _bwd_proj_kernel_chunk, l.710, as ring_pre_proj's backward launches it:
+// no residual, dy null, as the post stage owns the residual path; dq, dk,
+// dv in T as the pairs' backward returns them, dq times dq_scale = hd^-1/2
+// in f32, dv w.r.t. the 1/L-scaled v, inv_len 1 / the whole sequence's
+// length), each as launch_bwd chooses its instance; each then takes its
+// weight products and sums its partials. The other stage's gradient slots
+// of ``grads`` come out 0.
 template <typename T>
 int launch_stage(const BwdArgs& p, int stage, bool tc, cudaStream_t stream) {
-  const int TM = pick_tile<T>(p.L, gate_smem<T>, p.D);
-  if (TM == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if (stage == 0 && p.fs) {
-    // the wgmma instance, as launch_bwd chooses it
-    const int eg = launch_gate_wgmma_any<T>(p, stream);
-    if (eg != 0) return eg;
-  } else if (stage == 0) {
-    const size_t sm = gate_smem<T>(p.D, TM);
-    e = cudaFuncSetAttribute(gate_ffn_bwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm);
-    if (e != cudaSuccess) return (int)e;
-    gate_ffn_bwd_kernel<T><<<p.G, kThreads, sm, stream>>>(p, TM, tc);
-  } else {
-    const size_t sm = proj_bwd_smem<T>(p.D, TM);
-    e = cudaFuncSetAttribute(proj_bwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm);
-    if (e != cudaSuccess) return (int)e;
-    proj_bwd_kernel<T><<<p.G, kThreads, sm, stream>>>(p, TM, tc);
-  }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  reduce_rows_kernel<<<(p.P + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(p.part, p.G, p.P, p.grads);
-  return (int)cudaGetLastError();
+  int rows = 0;
+  const int e = stage == 0 ? launch_gate<T>(p, tc, stream)
+                           : launch_proj_bwd<T>(p, tc, stream, &rows);
+  return e != 0 ? e : finish_grads(p, rows, stream);
 }
 
 }  // namespace

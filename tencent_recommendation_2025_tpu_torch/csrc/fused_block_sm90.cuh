@@ -1,16 +1,17 @@
 // Building blocks of the fused HSTU block's wgmma kernels for Hopper, sm_90a:
-// the attention-plus-post forward (attn_ffn_wgmma_kernel, csrc/
-// fused_block.cu), the gate/FFN backward (gate_ffn_bwd_wgmma_kernel) and the
-// weight-gradient products over tokens (wgrad_wgmma_kernel, both in csrc/
-// fused_block_bwd.cu).
+// LN1 and the projection (proj_wgmma_kernel) and the attention-plus-post
+// forward (attn_ffn_wgmma_kernel, both in csrc/fused_block.cu), the
+// gate/FFN backward (gate_ffn_bwd_wgmma_kernel), the projection backward
+// (proj_bwd_wgmma_kernel) and the weight-gradient products over tokens
+// (wgrad_wgmma_kernel, all three in csrc/fused_block_bwd.cu).
 //
 // Conventions (those of csrc/sm90_mma.cuh): one warpgroup of 128 threads
 // owns 64 token rows; a [64 x N] f32 value lives in wgmma's accumulator
 // layout (acc_row, acc_col), so that a row's values sit in the four threads
 // of a quad and its LayerNorm statistics are two __shfl_xor each; a bf16
 // product operand on the A side is that layout's register fragment (frag),
-// rounded to nearest, so that T(g), T(LN3(y)), T(f), T(dout), T(dx13) and
-// T(dy) never pass through shared memory. The model width D (a multiple of
+// rounded to nearest, so that T(h1), T(g), T(LN3(y)), T(f), T(dout),
+// T(dx13), T(dy) and T(duvqk) never pass through shared memory. The model width D (a multiple of
 // 16, at most 128) is padded to DW = 32, 64 or 128 columns: padded columns
 // of every value are 0 and padded rows and columns of every weight tile are
 // loaded as zeros, so they add nothing to any product.
@@ -57,6 +58,28 @@ __host__ __device__ constexpr size_t round1024(size_t n) {
 
 __host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
   return a > b ? a : b;
+}
+
+// A persistent kernel of one warpgroup a block over ntiles tiles: as many
+// blocks as share the card's SMs at this shared memory (at most ntiles),
+// each striding over the tiles. Returns a cudaError_t code.
+template <typename K, typename A>
+inline int launch_persistent(K kernel, size_t smem, int ntiles,
+                             cudaStream_t stream, const A& args) {
+  if (smem > fbk::kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWg,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  const int fit = (per_sm > 1 ? per_sm : 1) * sms;
+  kernel<<<ntiles < fit ? ntiles : fit, kWg, smem, stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -162,6 +185,152 @@ __device__ __forceinline__ void st_f32(float* rows, size_t ld,
     if (c < D)
       *reinterpret_cast<float2*>(rows + (size_t)acc_row(i) * ld + c) =
           make_float2(v[i], v[i + 1]);
+  }
+}
+
+// Four consecutive columns a thread moves with one 8-byte (bf16) or 16-byte
+// (f32) access. Element pairs p and p + 2 of a thread (p = 2 j + h, j even:
+// the same row, column blocks j and j + 1) trade halves with the
+// neighbouring lane of its quad (lane ^ 1): the even lane then holds four
+// columns of block j from acc_col(2 p), the odd one four of block j + 1
+// from acc_col(2 p + 4) - 2. A block pair lies wholly inside or outside D
+// (D a multiple of 16).
+__device__ __forceinline__ int quad_col(int p) {
+  return (threadIdx.x & 1) ? acc_col(2 * p + 4) - 2 : acc_col(2 * p);
+}
+
+__device__ __forceinline__ float2 shfl1(float2 v) {
+  return make_float2(__shfl_xor_sync(0xffffffffu, v.x, 1),
+                     __shfl_xor_sync(0xffffffffu, v.y, 1));
+}
+
+__device__ __forceinline__ uint32_t shfl1(uint32_t v) {
+  return __shfl_xor_sync(0xffffffffu, v, 1);
+}
+
+// the pairs (a: column block j, b: block j + 1) -> the four columns this
+// lane stores, in order
+template <typename U>
+__device__ __forceinline__ void quad_out(U a, U b, U& lo, U& hi) {
+  const bool odd = threadIdx.x & 1;
+  const U got = shfl1(odd ? a : b);
+  lo = odd ? got : a;
+  hi = odd ? b : got;
+}
+
+// the four columns this lane loaded -> its pairs of blocks j and j + 1
+template <typename U>
+__device__ __forceinline__ void quad_in(U lo, U hi, U& a, U& b) {
+  const bool odd = threadIdx.x & 1;
+  const U got = shfl1(odd ? lo : hi);
+  a = odd ? got : lo;
+  b = odd ? hi : got;
+}
+
+// This thread's bf16 pairs of a [64 x ld] row block, raw (pair p holds
+// elements 2 p and 2 p + 1; 0 past D), by 8-byte loads.
+template <int NP>
+__device__ __forceinline__ void ld_pairs(const bf16* rows, size_t ld, int D,
+                                         uint32_t (&r)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; p += 4)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = quad_col(p + h);
+      uint2 v = make_uint2(0u, 0u);
+      if (c < D)
+        v = *reinterpret_cast<const uint2*>(rows +
+                                            (size_t)acc_row(2 * p + 2 * h) *
+                                                ld + c);
+      quad_in(v.x, v.y, r[p + h], r[p + h + 2]);
+    }
+}
+
+// The same pairs stored (columns past D skipped), 8 bytes a thread.
+template <int NP>
+__device__ __forceinline__ void st_pairs(bf16* rows, size_t ld, int D,
+                                         const uint32_t (&r)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; p += 4)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint2 v;
+      quad_out(r[p + h], r[p + h + 2], v.x, v.y);
+      const int c = quad_col(p + h);
+      if (c < D)
+        *reinterpret_cast<uint2*>(rows + (size_t)acc_row(2 * p + 2 * h) * ld +
+                                  c) = v;
+    }
+}
+
+// A [64 x N] f32 value (NF = N / 2 elements a thread) stored rounded to
+// bf16, 8 bytes a thread.
+template <int NF>
+__device__ __forceinline__ void st_bf16_q(bf16* rows, size_t ld, int D,
+                                          const float (&v)[NF]) {
+  uint32_t r[NF / 2];
+#pragma unroll
+  for (int p = 0; p < NF / 2; ++p) r[p] = sm90::pack_bf16(v[2 * p],
+                                                          v[2 * p + 1]);
+  st_pairs(rows, ld, D, r);
+}
+
+// A [64 x N] f32 value stored in f32, 16 bytes a thread.
+template <int NF>
+__device__ __forceinline__ void st_f32_q(float* rows, size_t ld, int D,
+                                         const float (&v)[NF]) {
+#pragma unroll
+  for (int p = 0; p < NF / 2; p += 4)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 lo, hi;
+      quad_out(make_float2(v[2 * p + 2 * h], v[2 * p + 2 * h + 1]),
+               make_float2(v[2 * p + 2 * h + 4], v[2 * p + 2 * h + 5]), lo,
+               hi);
+      const int c = quad_col(p + h);
+      if (c < D)
+        *reinterpret_cast<float4*>(rows + (size_t)acc_row(2 * p + 2 * h) *
+                                              ld + c) =
+            make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+}
+
+// This thread's elements of an f32 [64 x ld] row block (0 past D), by
+// 16-byte loads.
+template <int NF>
+__device__ __forceinline__ void ld_f32_q(const float* rows, size_t ld, int D,
+                                         float (&v)[NF]) {
+#pragma unroll
+  for (int p = 0; p < NF / 2; p += 4)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = quad_col(p + h);
+      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (c < D)
+        w = *reinterpret_cast<const float4*>(rows +
+                                             (size_t)acc_row(2 * p + 2 * h) *
+                                                 ld + c);
+      float2 a, b;
+      quad_in(make_float2(w.x, w.y), make_float2(w.z, w.w), a, b);
+      const int i = 2 * p + 2 * h;
+      v[i] = a.x;
+      v[i + 1] = a.y;
+      v[i + 4] = b.x;
+      v[i + 5] = b.y;
+    }
+}
+
+// The same elements of a bf16 row block, widened to f32 (8-byte loads).
+template <int NF>
+__device__ __forceinline__ void ld_bf16_q(const bf16* rows, size_t ld, int D,
+                                          float (&v)[NF]) {
+  uint32_t r[NF / 2];
+  ld_pairs(rows, ld, D, r);
+#pragma unroll
+  for (int p = 0; p < NF / 2; ++p) {
+    const float2 e = unpack_bf16(r[p]);
+    v[2 * p] = e.x;
+    v[2 * p + 1] = e.y;
   }
 }
 
@@ -310,6 +479,119 @@ __device__ __forceinline__ void finish(float (&acc)[NF]) {
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
   sm90::reg_fence(acc);
+}
+
+// ---------------------------------------------------------------------------
+// the pre half: LN1 and the projection to u, v, q, k, in the accumulator
+// layout (proj_wgmma_kernel, proj_bwd_wgmma_kernel and the recompute of
+// gate_ffn_bwd_wgmma_kernel)
+// ---------------------------------------------------------------------------
+
+// LN1 of a tile from x's raw bf16 pairs (ld_pairs): T(h1)'s A fragments
+// (0 past D), and the rows' mean and 1/sqrt(var + eps). ln points at LN1's
+// gamma, then its beta (the [6, D] pack).
+template <int DW>
+__device__ __forceinline__ void ln1(const uint32_t (&xr)[DW / 4],
+                                    const float* ln, int D,
+                                    uint32_t (&h1a)[DW / 16][4],
+                                    float (&mu)[2], float (&rs)[2]) {
+  constexpr int NF = DW / 2;
+  float v[NF];
+#pragma unroll
+  for (int p = 0; p < NF / 2; ++p) {
+    const float2 e = unpack_bf16(xr[p]);
+    v[2 * p] = e.x;
+    v[2 * p + 1] = e.y;
+  }
+  row_stats(v, D, mu, rs);
+#pragma unroll
+  for (int i = 0; i < NF; i += 2) {
+    const int hf = (i >> 1) & 1;
+    const float2 gg = ld_vec2(ln, i, D), bb = ld_vec2(ln + D, i, D);
+    v[i] = (v[i] - mu[hf]) * rs[hf] * gg.x + bb.x;
+    v[i + 1] = (v[i + 1] - mu[hf]) * rs[hf] * gg.y + bb.y;
+  }
+  frags(v, h1a);
+}
+
+// Wuvqk's four DW x DW slices (u, v, q, k) in shared memory from base,
+// step s of a kernel being slice s % 4 of its tile s / 4: at DW <= 64 all
+// four held for the whole kernel (8 or 32 KB, loaded once), at DW = 128
+// (32 KB a slice) streamed through the two-stage cp.async ring, one slice a
+// step. Every thread of the warpgroup calls each member.
+template <int DW>
+struct WuvqkSlices {
+  static constexpr bool kHeld = DW <= 64;
+  static constexpr size_t kSlice = (size_t)DW * DW * 2;
+  static constexpr size_t kBytes =
+      (kHeld ? 4 : sm90::kStages) * kSlice;   // a multiple of 1024
+  unsigned char* base;
+  const bf16* w;   // Wuvqk [D, 4D]
+  int D, steps;
+
+  __device__ bf16* slot(int s) const {
+    return reinterpret_cast<bf16*>(
+        base + (kHeld ? s % 4 : s % sm90::kStages) * kSlice);
+  }
+  __device__ void issue(int s) const {   // the ring's load of step s
+    if (s < steps) load_mat<DW>(slot(s), DW, w + (s % 4) * D, 4 * D, D, D);
+    sm90::cp_async_commit();
+  }
+  // before the first step (a barrier where the slices are held)
+  __device__ void start() const {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        load_mat<DW>(slot(k), DW, w + k * D, 4 * D, D, D);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<0>();
+      sm90::fence_async_smem();
+      __syncthreads();
+    } else {
+      issue(0);
+    }
+  }
+  // step s's slice, ready to read (the ring: a barrier, the next load out)
+  __device__ const bf16* acquire(int s) const {
+    if constexpr (!kHeld) {
+      issue(s + 1);
+      sm90::cp_async_wait<1>();
+      sm90::fence_async_smem();
+      __syncthreads();
+    }
+    return slot(s);
+  }
+  // after the last read of step s's slice (the ring: a barrier before a
+  // later issue reloads its stage)
+  __device__ void release() const {
+    if constexpr (!kHeld) __syncthreads();
+  }
+};
+
+// pre = T(h1) W_k, W_k one DW x DW slice of Wuvqk in shared memory (an
+// MN-major operand: its rows the K index), without the bias.
+template <int DW>
+__device__ __forceinline__ void proj_slice(float (&pre)[DW / 2],
+                                           const uint32_t (&h1a)[DW / 16][4],
+                                           const bf16* w) {
+  sm90::wgmma_fence();
+  chain<DW, 1>(pre, h1a, [&](int kk) { return Tile<DW>::desc_mn(w, DW, kk); },
+               false);
+  finish(pre);
+}
+
+// silu(pre + b) * mul on the first D columns, 0 past them: slice k's u,
+// v / L, q hd^-1/2 or k (b the slice's bias).
+template <int NF>
+__device__ __forceinline__ void silu_bias(float (&pre)[NF], const float* b,
+                                          int D, float mul) {
+#pragma unroll
+  for (int i = 0; i < NF; i += 2) {
+    const float2 bb = ld_vec2(b, i, D);
+    const bool in = acc_col(i) < D;
+    pre[i] = in ? fast_silu(pre[i] + bb.x) * mul : 0.0f;
+    pre[i + 1] = in ? fast_silu(pre[i + 1] + bb.y) * mul : 0.0f;
+  }
 }
 
 }  // namespace fb90

@@ -12,12 +12,13 @@ activations and returns ``x + block(x)``:
 
 Kernels, each replacing TPU kernels of the JAX package's file:
 
-- ``csrc/fused_block.cu`` (``proj_kernel``, then ``attn_ffn_wgmma_kernel``
-  in bf16 at D <= 128, ``attn_ffn_kernel`` in f32 and wider). Inference
+- ``csrc/fused_block.cu`` (``proj_wgmma_kernel`` then
+  ``attn_ffn_wgmma_kernel`` in bf16 at D <= 128; ``proj_kernel`` then
+  ``attn_ffn_kernel`` in f32 and wider). Inference
   (:func:`fused_hstu_block`) and training (:func:`fused_hstu_block_train`:
   the two dropouts, and ``av`` written for the backward). Replaces
   ``_fwd_kernel`` (l.274) and, in the chunked variant, the three forward
-  stages: ``_fwd_pre_kernel_chunk`` (l.452) is ``proj_kernel``;
+  stages: ``_fwd_pre_kernel_chunk`` (l.452) is the first kernel;
   ``_fwd_attn_kernel_chunk`` (l.468) and ``_fwd_post_kernel_chunk``
   (l.502) are the attention and the post half of the second kernel.
   Bound on the H100 at the flagship shape (B=128, L=1024, D=64, F=256,
@@ -33,9 +34,10 @@ Kernels, each replacing TPU kernels of the JAX package's file:
   0 (``attn_bwd_dq_wgmma_kernel``, which also sums the rel-pos gradient,
   and ``attn_bwd_dkdv_wgmma_kernel`` in bf16 at hd <= 128; the generic
   ``attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel`` in f32 and wider),
-  and ``_bwd_proj_kernel_chunk`` (l.710) with ``proj_bwd_kernel``, the
-  gradients summed by ``reduce_rows_kernel``. Bound: compute, 93.5 GFLOP
-  per block, 94.5 us.
+  and ``_bwd_proj_kernel_chunk`` (l.710) with ``proj_bwd_wgmma_kernel``
+  (dWuvqk by ``wgrad_wgmma_kernel``) in bf16 at D <= 128,
+  ``proj_bwd_kernel`` in f32 and wider, the gradients summed by
+  ``reduce_rows_kernel``. Bound: compute, 93.5 GFLOP per block, 94.5 us.
 
 - The ring units of a sequence-sharded mesh (the last section below):
   ``csrc/ring_pair.cu`` for one (query shard, key shard) pair, replacing
@@ -669,11 +671,12 @@ class _BwdArgs(ctypes.Structure):
         "x", "valid", "ln", "wuvqk", "buvqk", "wo", "bo", "w13", "w2", "rab",
         "av", "dout", "seed", "q", "k", "v", "dav", "du", "dy", "dv", "dq",
         "dk", "part", "part_rab", "dx", "grads", "drab", "fs", "dx13s",
-        "h2s", "gs", "dys")]
+        "h2s", "gs", "dys", "h1s", "duvqks", "psum")]
         + [(n, _I) for n in (
             "B", "L", "D", "H", "F", "NB", "G", "P", "off_w2", "off_w13",
-            "off_wo", "off_bo", "off_ln", "off_wuvqk", "off_buvqk")]
-        + [("scale", _F), ("inv_len", _F), ("thr", _U), ("keep_scale", _F)])
+            "off_wo", "off_bo", "off_ln", "off_wuvqk", "off_buvqk", "cot_t")]
+        + [("scale", _F), ("inv_len", _F), ("dq_scale", _F), ("thr", _U),
+           ("keep_scale", _F)])
 
 
 #: weight, LN and bias gradients in the order of the backward kernel's
@@ -697,31 +700,42 @@ def bwd_layout(D: int, F: int):
     return layout, off
 
 
-def post_wgmma(dtype: torch.dtype, D: int) -> bool:
-    """Whether the gate/FFN backward takes its wgmma instance
-    (``gate_ffn_bwd_wgmma_kernel`` with ``wgrad_wgmma_kernel``): bf16 at D
-    <= 128, every fused preset; f32 (the tight check instance) and wider
-    models take ``gate_ffn_bwd_kernel``. This is the one place of the rule:
-    the wrappers pass the wgmma instance's scratch (:func:`_gate_scratch`)
-    exactly then, and the CUDA source takes that instance exactly when the
-    scratch is there (a launch it cannot make fails). The forward's second
-    kernel is chosen in ``csrc/fused_block.cu`` alone
-    (``attn_ffn_wgmma_kernel`` in bf16 at D <= 128 with heads of 8k
-    columns, which the fused gate asks for)."""
+def block_wgmma(dtype: torch.dtype, D: int) -> bool:
+    """Whether the block's backward takes its wgmma instances
+    (``gate_ffn_bwd_wgmma_kernel`` and ``proj_bwd_wgmma_kernel``, their
+    weight products by ``wgrad_wgmma_kernel``): bf16 at D <= 128, every
+    fused preset; f32 (the tight check instance) and wider models take
+    ``gate_ffn_bwd_kernel`` and ``proj_bwd_kernel``. This is the one place
+    of the rule: the wrappers pass the wgmma instances' scratch
+    (:func:`_wgmma_scratch`) exactly then, and the CUDA source takes each
+    instance exactly when its scratch is there (a launch it cannot make
+    fails). The forward's kernels are chosen in ``csrc/fused_block.cu``
+    alone, by the same rule (``proj_wgmma_kernel``, and
+    ``attn_ffn_wgmma_kernel`` with heads of 8k columns, which the fused
+    gate asks for)."""
     return dtype == torch.bfloat16 and D <= 128
 
 
-def _gate_scratch(x: torch.Tensor, F: int) -> dict:
-    """The wgmma gate/FFN backward's bf16 scratch on x's tokens: the
-    operands of its weight-gradient products over tokens, T(f) [.., F],
-    T(dx13) [.., 2F], T(h2), T(g) and T(dy) [.., D]; empty where the
-    kernels take the other instance."""
+def _wgmma_scratch(x: torch.Tensor, F: int, gate: bool = True,
+                   proj: bool = True) -> dict:
+    """The scratch of the backward's wgmma instances on x's tokens: the
+    bf16 operands of their weight products over tokens, the gate/FFN's
+    T(f) [.., F], T(dx13) [.., 2F], T(h2), T(g) and T(dy) [.., D], the
+    projection's T(h1) [.., D] and T(duvqk) [.., 4D]; and the projection's
+    per-tile column sums ``psum`` (f32, [B L / 64, 6D]). Empty where the
+    kernels take the other instances."""
     B, L, D = x.shape
-    if not post_wgmma(x.dtype, D):
+    if not block_wgmma(x.dtype, D):
         return {}
-    return {n: torch.empty((B, L, w), dtype=x.dtype, device=x.device)
-            for n, w in (("fs", F), ("dx13s", 2 * F), ("h2s", D),
-                         ("gs", D), ("dys", D))}
+    widths = ((("fs", F), ("dx13s", 2 * F), ("h2s", D), ("gs", D),
+               ("dys", D)) if gate else ()) + \
+        ((("h1s", D), ("duvqks", 4 * D)) if proj else ())
+    out = {n: torch.empty((B, L, w), dtype=x.dtype, device=x.device)
+           for n, w in widths}
+    if proj:
+        out["psum"] = torch.empty(B * L // 64 * 6 * D, dtype=torch.float32,
+                                  device=x.device)
+    return out
 
 
 def _bwd_fn():
@@ -758,7 +772,7 @@ def _launch_bwd(x, av, dout, o, token_type, num_heads, seed, rate):
     seed_t = _seed_tensor(seed, dev) if drop else None
     ptrs = dict(x=x, valid=valid, av=av, dout=dout, part=part,
                 part_rab=part_rab, dx=dx, grads=grads, drab=drab, **scratch,
-                **_gate_scratch(x, F),
+                **_wgmma_scratch(x, F),
                 **{n: o[n] for n in ("ln", "wuvqk", "buvqk", "wo", "bo",
                                      "w13", "w2", "rab")})
     args = _BwdArgs(
@@ -766,8 +780,8 @@ def _launch_bwd(x, av, dout, o, token_type, num_heads, seed, rate):
         seed=seed_t.data_ptr() if drop else None,
         B=B, L=L, D=D, H=H, F=F, NB=NB, G=G, P=P,
         **{f"off_{n}": off for n, (off, _) in layout.items()},
-        scale=float(D // num_heads) ** -0.5, inv_len=1.0 / L,
-        thr=drop_threshold(rate) if drop else 0,
+        cot_t=0, scale=float(D // num_heads) ** -0.5, inv_len=1.0 / L,
+        dq_scale=1.0, thr=drop_threshold(rate) if drop else 0,
         keep_scale=keep_scale(rate) if drop else 1.0)
     fn = _bwd_fn()
     with torch.cuda.device(dev):
@@ -899,7 +913,8 @@ def fused_hstu_block_autograd(x: torch.Tensor, bp: Mapping,
 # the pre stage dx in T, and x's gradient is the sum of the two in T.
 #
 # Kernels, each replacing a TPU kernel of the JAX file:
-#   ring_pre_fwd   proj_kernel alone (csrc/fused_block.cu), l.452
+#   ring_pre_fwd   proj_wgmma_kernel alone (csrc/fused_block.cu; bf16 at
+#                  D <= 128, else proj_kernel), l.452
 #   ring_post_fwd  attn_ffn_wgmma_kernel's post half on a given T(av) (bf16
 #                  at D <= 128; else attn_ffn_kernel's), l.502
 #   ring_pair_fwd  pair_fwd_kernel (csrc/ring_pair.cu), l.1269
@@ -912,7 +927,8 @@ def fused_hstu_block_autograd(x: torch.Tensor, bp: Mapping,
 #   ring_post_bwd  gate_ffn_bwd_wgmma_kernel + wgrad_wgmma_kernel (bf16 at
 #                  D <= 128; else gate_ffn_bwd_kernel) alone
 #                  (csrc/fused_block_bwd.cu), l.612
-#   ring_pre_bwd   proj_bwd_kernel alone, zero residual, l.710
+#   ring_pre_bwd   proj_bwd_wgmma_kernel + wgrad_wgmma_kernel (bf16 at D
+#                  <= 128; else proj_bwd_kernel) alone, no residual, l.710
 
 def ring_pre_fwd_plain(x: torch.Tensor, o: Mapping, seq_len: int,
                        num_heads: int):
@@ -1158,8 +1174,9 @@ def _stage_fn():
 def ring_pre_fwd(x: torch.Tensor, ops: Mapping, seq_len: int,
                  num_heads: int):
     """The pre stage on a shard (see :func:`ring_pre_fwd_plain`). CPU
-    tensors take the plain version; CUDA tensors launch ``proj_kernel``
-    alone (counted in ``ring_pre_fwd.launches``)."""
+    tensors take the plain version; CUDA tensors launch the projection
+    alone (``proj_wgmma_kernel`` in bf16 at D <= 128; counted in
+    ``ring_pre_fwd.launches``)."""
     if not _on_card(x, "ring_pre_fwd"):
         return ring_pre_fwd_plain(x, ops, seq_len, num_heads)
     B, Lc, D = x.shape
@@ -1228,7 +1245,7 @@ def _stage_bwd_fn():
 
 
 def _launch_bwd_stage(stage, x, ops, num_heads, seq_len, seed, rate, keys,
-                      **bufs):
+                      cot_t=0, dq_scale=1.0, **bufs):
     """One backward stage (0: gate/FFN, 1: projection) on a shard; returns
     the gradients named in ``keys`` from its reduced partial sums."""
     B, Lc, D = x.shape
@@ -1243,7 +1260,7 @@ def _launch_bwd_stage(stage, x, ops, num_heads, seq_len, seed, rate, keys,
     drop = rate > 0.0
     seed_t = _seed_tensor(seed, dev) if drop else None
     ptrs = dict(x=x, part=part, grads=grads, **bufs,
-                **(_gate_scratch(x, F) if stage == 0 else {}),
+                **_wgmma_scratch(x, F, gate=stage == 0, proj=stage == 1),
                 **{n: ops[n] for n in ("ln", "wuvqk", "buvqk", "wo", "bo",
                                        "w13", "w2", "rab")})
     args = _BwdArgs(
@@ -1251,7 +1268,8 @@ def _launch_bwd_stage(stage, x, ops, num_heads, seq_len, seed, rate, keys,
         seed=seed_t.data_ptr() if drop else None,
         B=B, L=Lc, D=D, H=H, F=F, NB=NB, G=G, P=P,
         **{f"off_{n}": off for n, (off, _) in layout.items()},
-        scale=float(D // num_heads) ** -0.5, inv_len=1.0 / seq_len,
+        cot_t=cot_t, scale=float(D // num_heads) ** -0.5,
+        inv_len=1.0 / seq_len, dq_scale=dq_scale,
         thr=drop_threshold(rate) if drop else 0,
         keep_scale=keep_scale(rate) if drop else 1.0)
     with torch.cuda.device(dev):
@@ -1269,7 +1287,7 @@ def ring_post_bwd(x, av, dout, ops: Mapping, seed, rate: float,
     """The post stage's backward (see :func:`ring_post_bwd_plain`). CPU
     tensors take the plain version; CUDA tensors launch the gate/FFN
     backward alone (``gate_ffn_bwd_wgmma_kernel`` + ``wgrad_wgmma_kernel``
-    where :func:`post_wgmma`; counted in ``ring_post_bwd.launches``)."""
+    where :func:`block_wgmma`; counted in ``ring_post_bwd.launches``)."""
     if not _on_card(x, "ring_post_bwd"):
         return ring_post_bwd_plain(x, av, dout, ops, seed, rate, seq_len,
                                    num_heads)
@@ -1296,24 +1314,30 @@ ring_post_bwd.launches = 0
 def ring_pre_bwd(x, ops: Mapping, dq, dk, dv, du, seq_len: int,
                  num_heads: int) -> dict:
     """The pre stage's backward (see :func:`ring_pre_bwd_plain`). CPU
-    tensors take the plain version; CUDA tensors launch
-    ``proj_bwd_kernel`` alone with a zero residual (counted in
-    ``ring_pre_bwd.launches``)."""
+    tensors take the plain version; CUDA tensors launch the projection
+    backward alone, with no residual (``proj_bwd_wgmma_kernel`` +
+    ``wgrad_wgmma_kernel`` where :func:`block_wgmma`; counted in
+    ``ring_pre_bwd.launches``). The kernels read dq, dk and dv in x's
+    dtype, as the pairs' backward returns them, and du in f32, and apply
+    hd^-1/2 to dq in f32 (``f32(dq) * hd^-1/2``, then dsilu), as the plain
+    version does."""
     if not _on_card(x, "ring_pre_bwd"):
         return ring_pre_bwd_plain(x, ops, dq, dk, dv, du, seq_len, num_heads)
-    x, _ = _check(x, ops, None, num_heads, "ring pre stage backward")
-    f32 = torch.float32
-    hd = x.shape[-1] // num_heads
-    ins = {"dq": dq.float() * (hd ** -0.5), "dk": dk.float(),
-           "dv": dv.float(), "du": du.float()}
+    ins = {"dq": dq, "dk": dk, "dv": dv, "du": du}
+    for n, t in ins.items():
+        want = torch.float32 if n == "du" else x.dtype
+        if t.shape != x.shape or t.dtype != want:
+            raise ValueError(f"ring pre stage backward: {n} must be {want} "
+                             f"of x's shape {tuple(x.shape)}, not {t.dtype} "
+                             f"{tuple(t.shape)}")
     ins = {n: t.contiguous() for n, t in ins.items()}
-    if any(t.shape != x.shape for t in ins.values()):
-        raise ValueError("ring pre stage backward: gradients must match x")
+    x, _ = _check(x, ops, None, num_heads, "ring pre stage backward",
+                  *ins.values())
+    hd = x.shape[-1] // num_heads
     dx = torch.empty_like(x)
     out = _launch_bwd_stage(1, x, ops, num_heads, seq_len, 0, 0.0,
-                            ("ln", "wuvqk", "buvqk"), dx=dx,
-                            dy=torch.zeros(x.shape, dtype=f32,
-                                           device=x.device), **ins)
+                            ("ln", "wuvqk", "buvqk"), cot_t=1,
+                            dq_scale=float(hd) ** -0.5, dx=dx, **ins)
     ring_pre_bwd.launches += 1
     return dict(out, dx=dx)
 

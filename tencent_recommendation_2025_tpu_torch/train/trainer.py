@@ -85,7 +85,7 @@ def check_supported(cfg: Config, mesh=None) -> None:
                          f"user_emb), not {t.sparse_tables}")
     if t.grad_accum_steps > 1:
         _unported("gradient accumulation (train.grad_accum_steps > 1)",
-                  "Sparse tables and grad accumulation")
+                  "item 3 (training options)")
 
 
 @dataclasses.dataclass

@@ -115,3 +115,31 @@ def test_ptxas_report_names_the_post_half_and_gate_kernels():
          "spill_stores": 0, "spill_loads": 0},
         {"kernel": "wgrad_wgmma_kernel", "registers": 72,
          "spill_stores": 0, "spill_loads": 0}]
+
+
+PRE_LOG = """\
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__5e7a1c02_14_fused_block_cu_9b3f0d4117proj_wgmma_kernelILi64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__5e7a1c02_14_fused_block_cu_9b3f0d4117proj_wgmma_kernelILi64EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1a2b3c4d_18_fused_block_bwd_cu_5e6f7a8b21proj_bwd_wgmma_kernelILi128EEEv7BwdArgs' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__1a2b3c4d_18_fused_block_bwd_cu_5e6f7a8b21proj_bwd_wgmma_kernelILi128EEEv7BwdArgs
+    48 bytes stack frame, 44 bytes spill stores, 44 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1a2b3c4d_18_fused_block_bwd_cu_5e6f7a8b15proj_bwd_kernelI13__nv_bfloat16EEv7BwdArgsib' for 'sm_90a'
+ptxas info    : Used 64 registers
+"""
+
+
+def test_ptxas_report_names_the_pre_half_kernels():
+    """The fused block's wgmma pre half (proj_wgmma_kernel<DW> and
+    proj_bwd_wgmma_kernel<DW>, DW the padded model width) beside the first
+    design's proj_bwd_kernel<T>: chip_smoke.pre_spills reads the wgmma
+    kernels' spills from these names and fails on one at DW <= 64."""
+    assert kernels.ptxas_report(PRE_LOG) == [
+        {"kernel": "proj_wgmma_kernel<64>", "registers": 96,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "proj_bwd_wgmma_kernel<128>", "registers": 255,
+         "spill_stores": 44, "spill_loads": 44},
+        {"kernel": "proj_bwd_kernel<nv_bfloat16>", "registers": 64,
+         "spill_stores": 0, "spill_loads": 0}]

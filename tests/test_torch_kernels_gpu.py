@@ -567,7 +567,7 @@ def test_post_wgmma_kernels_match_plain_on_card(D, H, rate):
     row fully padded."""
     _cuda_or_skip()
     B, L, bf16 = 2, 512, torch.bfloat16
-    assert FB.post_wgmma(bf16, D)
+    assert FB.block_wgmma(bf16, D)
     bp, x, tt = _block(B, L, D, H, bf16, seed=D + H)
     counts = {n: getattr(FB, n).launches for n in (
         "fused_hstu_block", "fused_hstu_block_train", "fused_hstu_block_bwd",
@@ -633,3 +633,107 @@ def test_post_wgmma_kernels_chunked_variant_on_card(H, rate):
     for name in want:
         _bf16_close(got[name], want[name], name)
         assert torch.equal(got[name], again[name]), name
+
+
+#: (D, H) of the wgmma pre-half cases: D padded to 32, 64 and 128 columns,
+#: 1 to 8 heads (hd^-1/2 scales q in the forward and dq in stage 1)
+PRE_SHAPES = [(32, 1), (32, 4), (64, 1), (64, 4), (64, 8), (128, 1),
+              (128, 4), (128, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H", PRE_SHAPES)
+def test_pre_wgmma_kernels_match_plain_on_card(D, H):
+    """bf16 at D <= 128 takes proj_wgmma_kernel (forward) and
+    proj_bwd_wgmma_kernel + wgrad_wgmma_kernel (backward): the ring's pre
+    stage (a shard of 512 tokens of 1024) and its backward (dq, dk, dv in
+    bf16 as the pairs' backward returns them, du in f32, no residual), and
+    the chunked block (L=2048; the whole-sequence one is in
+    test_post_wgmma_kernels_match_plain_on_card) forward and backward,
+    each against its plain version, one launch each; gradients bitwise
+    equal across two calls (no atomics)."""
+    _cuda_or_skip()
+    bf16 = torch.bfloat16
+    assert FB.block_wgmma(bf16, D)
+    bp, x, _ = _block(2, 512, D, H, bf16, seed=3 * D + H)
+    counts = {n: getattr(FB, n).launches for n in (
+        "ring_pre_fwd", "ring_pre_bwd", "fused_hstu_block_train",
+        "fused_hstu_block_bwd")}
+    got = FB.ring_pre_fwd(x, bp, 1024, H)
+    torch.cuda.synchronize()
+    for name, g, w in zip("qkvu", got, FB.ring_pre_fwd_plain(x, bp, 1024,
+                                                             H)):
+        assert bool(torch.isfinite(g.float()).all()), name
+        _bf16_close(g, w, f"stage 0 {name}")
+    rng = np.random.default_rng(D * H + 7)
+    cots = [torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(
+        np.float32)).cuda() for _ in range(4)]
+    cots = [c.to(bf16) for c in cots[:3]] + cots[3:]
+    got = FB.ring_pre_bwd(x, bp, *cots, 1024, H)
+    again = FB.ring_pre_bwd(x, bp, *cots, 1024, H)
+    torch.cuda.synchronize()
+    want = FB.ring_pre_bwd_plain(x, bp, *cots, 1024, H)
+    assert set(got) == set(want)
+    for name in want:
+        assert bool(torch.isfinite(got[name].float()).all()), name
+        _bf16_close(got[name], want[name], f"stage 1 {name}")
+        assert torch.equal(got[name], again[name]), name
+    L = 2048
+    assert FB.chunked(L, D)
+    bp, x, tt = _block(2, L, D, H, bf16, seed=5 * D + H)
+    out, av = FB.fused_hstu_block_train(x, bp, tt, H, 9, 0.0)
+    ref, ref_av = FB.fused_hstu_block_train_plain(x, bp, tt, H, 9, 0.0)
+    _bf16_close(out, ref, "chunked out")
+    _bf16_close(av, ref_av, "chunked av")
+    dout = torch.from_numpy(np.random.default_rng(D + H).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(bf16).cuda()
+    got = FB.fused_hstu_block_bwd(x, ref_av, dout, bp, tt, H, 9, 0.0)
+    again = FB.fused_hstu_block_bwd(x, ref_av, dout, bp, tt, H, 9, 0.0)
+    torch.cuda.synchronize()
+    want = FB.fused_hstu_block_bwd_plain(x, ref_av, dout, bp, tt, H, 9, 0.0)
+    for name in want:
+        assert bool(torch.isfinite(got[name].float()).all()), name
+        _bf16_close(got[name], want[name], f"chunked {name}")
+        assert torch.equal(got[name], again[name]), name
+    assert {n: getattr(FB, n).launches - c for n, c in counts.items()} == {
+        "ring_pre_fwd": 1, "ring_pre_bwd": 2, "fused_hstu_block_train": 1,
+        "fused_hstu_block_bwd": 2}
+
+
+@pytest.mark.gpu
+def test_pre_wgmma_wrappers_raise_instead_of_falling_back_on_card(
+        monkeypatch):
+    """In bf16 at D <= 128 the pre stage's backward takes bf16 dq, dk, dv
+    and f32 du, nothing else, and raises before a launch on another dtype
+    or a misaligned operand; a launch the wgmma kernel cannot make (its
+    scratch misaligned) fails in the CUDA source and raises: no fallback to
+    proj_bwd_kernel."""
+    _cuda_or_skip()
+    bf16 = torch.bfloat16
+    bp, x, _ = _block(2, 256, 64, 1, bf16, seed=21)
+    cots = [torch.zeros(x.shape, dtype=bf16, device="cuda")
+            for _ in range(3)] + [torch.zeros(x.shape, device="cuda")]
+    before = FB.ring_pre_bwd.launches
+    with pytest.raises(ValueError, match="dq must be"):
+        FB.ring_pre_bwd(x, bp, cots[0].float(), *cots[1:], 512, 1)
+    with pytest.raises(ValueError, match="du must be"):
+        FB.ring_pre_bwd(x, bp, *cots[:3], cots[3].to(bf16), 512, 1)
+    flat = torch.zeros(x.numel() + 8, dtype=bf16, device="cuda")
+    shifted = flat[1:1 + x.numel()].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        FB.ring_pre_bwd(x, bp, shifted, *cots[1:], 512, 1)
+    real = FB._wgmma_scratch
+
+    def misaligned(t, F, gate=True, proj=True):
+        out = real(t, F, gate, proj)
+        if "h1s" in out:
+            buf = torch.empty(out["h1s"].numel() + 8, dtype=t.dtype,
+                              device=t.device)
+            out["h1s"] = buf[4:4 + out["h1s"].numel()].view(
+                out["h1s"].shape)
+        return out
+
+    monkeypatch.setattr(FB, "_wgmma_scratch", misaligned)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FB.ring_pre_bwd(x, bp, *cots, 512, 1)
+    assert FB.ring_pre_bwd.launches == before
