@@ -63,10 +63,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                scaled_dot_product_attention's; then the group scatter and
                group gather of a sparse-trained table (a 16M x 64 table, 1M
                groups, in f32 and bf16; 196,608 slots, 190,000 real groups
-               and a sentinel tail): bitwise equal to their plain versions,
-               the scatter in place with untouched groups unchanged, timed
-               beside the plain versions, index_copy_ / index_select and
-               their bytes bound;
+               and a sentinel tail, the gather also on the slots shuffled):
+               bitwise equal to their plain versions, the scatter in place
+               with untouched groups unchanged, timed beside the plain
+               versions, index_copy_ / index_select and their bytes bound,
+               the gather (timed after the library calls) and index_select
+               also by device time and the gather beside its first design
+               (streaming hints);
 4. training — a seeded synthetic fixture (1024 users, 5000 items, sequences
                of 256..1000 events) and the port's cli.train main with
                ``--preset hstu_flagship --maxlen 1023 --loader streaming
@@ -76,7 +79,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                and depth on 16 rows (8 at L=4096 and for sparse) against the
                plain versions on the CPU in bf16 and in f32 (loss and
                per-leaf gradient cosine); prints
-               train examples/s and a profile of one step (a fused run's
+               train examples/s, the profiled step's host time (CPU self
+               time summed, its 10 largest ops) and its device profile (a
+               fused run's
                must name the attention backward's, the pre half's, the post
                half's and the gate/FFN backward's wgmma kernels and none of
                the kernels they replaced);
@@ -110,21 +115,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                tool on its first 20,000 rows (build and search seconds,
                recall);
 6c. ring    — the sequence-parallel ring (after the long run): rows
-               10-12 (the pair kernels of csrc/ring_pair.cu) against their
-               plain versions at shards of 1024 and 2048, offsets 0, +Lc,
-               -Lc (wholly in the future: no launch, exactly 0) and +3 Lc,
-               H = 1, 4 and 8 (hd 8), f32 and bf16; the pre and post stages
-               and their backwards, each a launch of its own; every ring
-               kernel timed at the S = 2 shard of the long run (B=32, Lc =
-               2048) beside its plain version and bound; one full-depth
+               10-12 (the pair kernels of csrc/ring_pair.cu; the forward
+               pair_fwd_wgmma_kernel in bf16, pair_fwd_kernel in f32)
+               against their plain versions at shards of 1024 and 2048,
+               offsets 0, +Lc, -Lc (wholly in the future: no launch,
+               exactly 0), +3 Lc, Lc / 2 + 16 and -Lc / 2 - 16 (rows that
+               see no key exactly 0), H = 1, 4 and 8 (hd 8), f32 and bf16,
+               with the wgmma forward's registers and spills (none at W <=
+               64); the pre and post stages and their backwards, each a
+               launch of its own; every ring kernel timed at the S = 2
+               shard of the long run (B=32, Lc = 2048) beside its plain
+               version and bound, the pair forward also by device time and
+               beside its first design; one full-depth
                step of ``hstu_flagship`` at L=4096 on a local mesh of S = 2
                and 4 shards from the long run's checkpoint, against the
                single-device chunked step on the card and the CPU's plain
                ring, in bf16 and f32, on 8 rows, each step's
                launches held; the S = 2 step's ms and tokens/s (6 after 2,
-               launches held) and its profile (the attention backward's,
-               the post half's and the gate/FFN backward's wgmma kernels
-               named, as in the fused runs);
+               launches held), its host time as phase 4's and its profile
+               (the attention backward's, the post half's and the gate/FFN
+               backward's wgmma kernels named, as in the fused runs, and
+               pair_fwd_wgmma_kernel launched 24 times, pair_fwd_kernel
+               never);
 7. parity   — phases 4 and 5 for the reference's own models and the
                ReLU-FFN HSTU: cli.train's default (no --preset: baseline at
                L=102, dense, no kernel launched), ``--preset baseline
@@ -231,6 +243,10 @@ POST_REPLACED = ("attn_ffn_kernel", "gate_ffn_bwd_kernel")
 PRE_WGMMA = ("proj_wgmma_kernel", "proj_bwd_wgmma_kernel")
 #: the kernels they replace in bf16 (kept for f32 and D > 128)
 PRE_REPLACED = ("proj_kernel", "proj_bwd_kernel")
+#: the ring's pair forward on wgmma (bf16 where the attention loop takes the
+#: heads: every ring preset), then its first design (f32, other heads),
+#: which no bf16 ring step may launch
+PAIR_FWD = ("pair_fwd_wgmma_kernel", "pair_fwd_kernel")
 #: CUDA kernel names of each kernel family, as a profile lists them
 #: (forward, backward)
 KERNEL_NAMES = {
@@ -247,7 +263,7 @@ KERNEL_NAMES = {
              ("hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
               "reduce_rows_kernel")),
     "ring": (PRE_WGMMA[:1] + ("proj_kernel", "attn_ffn_wgmma_kernel",
-                              "attn_ffn_kernel", "pair_fwd_kernel"),
+                              "attn_ffn_kernel") + PAIR_FWD[:1],
              PRE_WGMMA[1:] + POST_WGMMA[1:] + ("gate_ffn_bwd_kernel",)
              + ATTN_BWD_NAMES
              + ("proj_bwd_kernel", "reduce_rows_kernel",
@@ -1219,17 +1235,22 @@ PRE_SHAPES = {"flagship": (128, 1024, 64, 1), "long": (32, 4096, 64, 1),
 #: 3, 9), the ring's pre stage (rows 3, 9 through ring_pre_proj)
 _PRE_REPLACES = {"flagship": ("274", "325"), "long": ("452", "710"),
                  "sparse": ("274", "325"), "ring": ("452", "710")}
-#: the pre half's wgmma selectors, and what a copy of each source built
-#: beside the checkout's puts in their place so that the first design
-#: (proj_kernel, proj_bwd_kernel) runs in bf16 too: its times beside the
-#: new kernels'
+#: the redesigned kernels' selectors, and what a copy of each source built
+#: beside the checkout's puts in their place so that the first design runs
+#: in bf16 too (proj_kernel, proj_bwd_kernel; the ring's pair_fwd_kernel;
+#: the group gather with streaming hints): its times beside the new
+#: kernels'
 _FIRST_DESIGN = {
     "fused_block": ("  return is_bf16 && fb90::post_width(p.D) != 0;\n",
                     "  return false;\n"),
     "fused_block_bwd": ("inline bool proj_wgmma_on(const BwdArgs& p) { "
                         "return p.h1s != nullptr; }",
                         "inline bool proj_wgmma_on(const BwdArgs&) { "
-                        "return false; }")}
+                        "return false; }"),
+    "ring_pair": ("  return is_bf16 && fb90::attn_heads(p.D, p.H);\n",
+                  "  return false;\n"),
+    "sparse_table": ("constexpr bool kGatherStream = false;",
+                     "constexpr bool kGatherStream = true;")}
 
 
 def start_first_design_builds():
@@ -1502,6 +1523,31 @@ def pre_smem(DW, bwd):
     keep = DW // 4 * 128 * 4 if bwd else 0
     red = -(-48 * DW * 4 // 1024) * 1024 if bwd else 0
     return 1024 + w + keep + red
+
+
+def pair_fwd_spills(report):
+    """Registers and spills of pair_fwd_wgmma_kernel<W> (W = 16, 32, 64,
+    128) in this run's build of ring_pair; a spill at W <= 64 fails, and so
+    do more than 128 registers there (4 blocks an SM). Logs each
+    instance."""
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    if "ring_pair" not in report:
+        log("ring_pair: not built in this run; spills not read")
+        return True
+    ok, found = True, []
+    for k in kernels.ptxas_report(report["ring_pair"]["log"]):
+        m = re.match(PAIR_FWD[0] + r"<(\d+)>$", k["kernel"])
+        if not m:
+            continue
+        W = int(m.group(1))
+        found.append(f"{k['kernel']} {k['registers']} registers, spills "
+                     f"{k['spill_stores']}/{k['spill_loads']} B")
+        ok &= W > 64 or (k["spill_stores"] + k["spill_loads"] == 0
+                         and k["registers"] <= 128)
+    ok &= len(found) == 4
+    log(f"ring_pair: {'; '.join(found)} {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def pre_spills(report):
@@ -1796,23 +1842,62 @@ def sdpa_ms(q, k, v, dout, valid, H):
     return fwd, bwd
 
 
-def kernel_device_ms(fn, names, iters=10):
+def kernel_device_ms(fn, names, iters=10, tries=4):
     """Device ms per call of the kernels whose names contain one of
     ``names``, from a torch.profiler trace of ``iters`` calls of ``fn``
     after one: the kernels alone, without the wrapper's host time that a
-    short call's CUDA-event reading includes."""
+    short call's CUDA-event reading includes. The profiler on the card's
+    machine loses kernel events as a long run goes on (the last one or two
+    of a trace, or late in a chip_smoke.py run whole traces), which a sum
+    over the calls would read as a faster kernel. So the trace holds two
+    calls more, each kernel name counts its mean duration times its
+    launches per call (its events over the calls, rounded, at least 1), and
+    a trace with fewer matching events than half the calls is taken again,
+    ``tries`` times in all; NaN (not measured) if none has them."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    calls = iters + 2
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and any(n in e.name
+                                                        for n in names):
+                per[e.name].append(e.device_time_total)
+        if 2 * sum(len(v) for v in per.values()) >= calls:
+            return sum(sum(v) / len(v) * max(1, round(len(v) / calls))
+                       for v in per.values()) / 1e3
+        time.sleep(0.5)
+    return float("nan")
+
+
+def queued_ms(fn, iters=10):
+    """ms per call of ``fn``'s kernels by CUDA events with the card's queue
+    held full: a spin kernel (about 25 ms) keeps the card busy while the
+    host enqueues the calls, so the reading leaves out the host's launch
+    time without the profiler. For calls that launch only the kernels being
+    timed."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(v for k, v in _device_ms(prof).items()
-               if any(n in k for n in names)) / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def phase_attention_times():
@@ -1896,19 +1981,24 @@ def phase_attention_times():
 #: the check's table: 16M rows of 64 as 1M write groups of 1024 elements;
 #: 196,608 slots (the 100M-row step's K) of which 190,000 real groups
 GROUPS = dict(nG=1 << 20, W=1024, K=196_608, n_real=190_000)
+GATHER_KERNEL = "group_gather_kernel"
 _GROUP_REPLACES = "tencent_recommendation_2025_tpu/ops/sparse_table.py:"
 
 
-def phase_group_kernels():
+def phase_group_kernels(libs):
     """The group scatter and group gather against their plain versions on
     the card, in f32 and bf16: the scatter in place (same buffer), equal to
     its plain version bitwise, untouched groups bitwise unchanged; the
-    gather's real rows equal to the plain gather's. Then each timed (CUDA
-    events) beside its plain version, its one-call yardstick on the [nG,
-    W] view (``index_copy_`` / ``index_select`` of the real groups) and its
-    bytes bound: the real groups' rows read once and written once, and the
-    slots' ids. Returns (ok, the kernels' JSON entries without launches,
-    from the bf16 run: the 100M-row step's dtype)."""
+    gather's real rows equal to the plain gather's, with the slots sorted
+    (a sentinel tail) and again shuffled (sentinels between real slots).
+    Then each timed (CUDA events) beside its plain version, its one-call
+    yardstick on the [nG, W] view (``index_copy_`` / ``index_select`` of the
+    real groups) and its bytes bound: the real groups' rows read once and
+    written once, and the slots' ids; the gather and ``index_select`` also
+    by their kernels' device time (the profiler), and the gather beside its
+    first design (group_gather_kernel: the copy of sparse_table.cu in
+    ``libs``), by both clocks. Returns (ok, the kernels' JSON entries
+    without launches, from the bf16 run: the 100M-row step's dtype)."""
     import numpy as np
     import torch
 
@@ -1920,6 +2010,10 @@ def phase_group_kernels():
         nG, size=n_real, replace=False))
     g = torch.from_numpy(groups).cuda()
     real = g[:n_real].long()
+    # the same slots shuffled: sentinels between the real ones
+    g_mix = g[torch.from_numpy(np.random.default_rng(62).permutation(K))
+              .cuda()]
+    mix_real = g_mix < nG
     untouched = torch.ones(nG, dtype=torch.bool, device="cuda")
     untouched[real] = False
     ok_all, entries = True, []
@@ -1942,34 +2036,59 @@ def phase_group_kernels():
         err_g = (got[:n_real].float() - want[:n_real].float()).abs().max() \
             .item()
         ok_g = torch.equal(got[:n_real], want[:n_real])
+        got = ST.group_gather(table, g_mix)
+        torch.cuda.synchronize()
+        want = ST.group_gather_plain(table, g_mix)
+        ok_g &= torch.equal(got[mix_real], want[mix_real])
         del got, want
         _free()
         src = arranged[:n_real]
-        t = {"scatter": time_ms(lambda: ST.group_scatter(table, g, arranged),
-                                3, 20),
-             "gather": time_ms(lambda: ST.group_gather(table, g), 3, 20)}
+
+        def scatter():
+            return ST.group_scatter(table, g, arranged)
+
+        def gather():
+            return ST.group_gather(table, g)
+
+        # CUDA events; the gather after the library calls: timed right
+        # after the scatter it read up to 17% high on some machines while
+        # its device time did not move
+        t = {"scatter": time_ms(scatter, 3, 20)}
+        lib = {"scatter": time_ms(lambda: table.index_copy_(0, real, src),
+                                  3, 20),
+               "gather": time_ms(lambda: table.index_select(0, real), 3, 20)}
+        t["gather"] = time_ms(gather, 3, 20)
         plain = {"scatter": time_ms(lambda: ST.group_scatter_plain(
                      table, g, arranged), 1, 5),
                  "gather": time_ms(lambda: ST.group_gather_plain(table, g),
                                    1, 5)}
-        lib = {"scatter": time_ms(lambda: table.index_copy_(0, real, src),
-                                  3, 20),
-               "gather": time_ms(lambda: table.index_select(0, real), 3, 20)}
+        # device ms: the gather kernel's, index_select's (its one kernel),
+        # then the first design's by both clocks
+        dev = (kernel_device_ms(gather, (GATHER_KERNEL,)),
+               kernel_device_ms(lambda: table.index_select(0, real), ("",)))
+        with first_design(libs):
+            old = (time_ms(gather, 3, 20),
+                   kernel_device_ms(gather, (GATHER_KERNEL,)))
         nbytes = 2 * n_real * W * table.element_size() + K * 4
         bound = nbytes / PEAK_BYTES * 1e3
         ok = ok_s and ok_g
         ok_all &= ok
         for key, err, row in (("scatter", err_s, "424"),
                               ("gather", err_g, "498")):
+            more = ("; in place, untouched groups unchanged" if key ==
+                    "scatter" else
+                    f"; device {GATHER_KERNEL} {dev[0]:.4f} ms, index_select "
+                    f"{dev[1]:.4f} ms; first design (streaming hints) "
+                    f"{old[0]:.4f} ms (device {old[1]:.4f} ms); shuffled "
+                    f"slots held too")
             log(f"group_{key} {str(dt)[6:]} ({nG} groups of {W}, {K} slots, "
                 f"{n_real} real): kernel {t[key]:.4f} ms "
                 f"({nbytes / t[key] / 1e6:.1f} GB/s), plain "
                 f"{plain[key]:.4f} ms, "
                 f"{'index_copy_' if key == 'scatter' else 'index_select'} "
                 f"{lib[key]:.4f} ms, bound {bound:.4f} ms (bytes: "
-                f"{nbytes / 1e6:.1f} MB); max abs err {err:.3g}"
-                + ("; in place, untouched groups unchanged" if key ==
-                   "scatter" else "") + f" {'ok' if ok else 'FAIL'}")
+                f"{nbytes / 1e6:.1f} MB); max abs err {err:.3g}" + more
+                + f" {'ok' if ok else 'FAIL'}")
             if dt == torch.bfloat16:
                 entries.append({
                     "name": f"group_{key}", "route": "cuda",
@@ -2300,6 +2419,28 @@ def _device_ms(prof):
     return by_name
 
 
+def _kernel_launches(prof):
+    """Launches by kernel name in a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    return collections.Counter(e.name for e in prof.events()
+                               if e.device_type == DeviceType.CUDA)
+
+
+def host_top(name, prof, wall):
+    """Logs where the host's time goes in a profiled step: the CPU self time
+    of every op summed (the step's host total) and the 10 ops with the most,
+    with their calls."""
+    avgs = list(prof.key_averages())
+    total = sum(a.self_cpu_time_total for a in avgs) / 1e3
+    top = sorted(avgs, key=lambda a: a.self_cpu_time_total, reverse=True)
+    log(f"{name}: host time of the profiled step: {total:.3f} ms of CPU self "
+        f"time over {len(avgs)} ops (wall {wall:.3f} ms); top 10 by self time "
+        f"(ms, calls): " + ", ".join(
+            f"{a.key[:48]} {a.self_cpu_time_total / 1e3:.3f} ({a.count})"
+            for a in top[:10]))
+
+
 def attn_bwd_route(name, by_name):
     """Whether a profiled bf16 step's backward ran the attention backward's
     wgmma kernels (both, with device time) and none of the kernels they
@@ -2371,6 +2512,7 @@ def phase_train_speed(data, ckpt, run):
     others = ", ".join(f"{k[:60]} {v:.3f}" for k, v in by_name.most_common()
                        if not any(n in k for n in fwd_names + bwd_names)
                        )[:900]
+    host_top(run.name, prof, wall)
     log(f"{run.name}: train step profile: wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall):.1%}); "
         f"{run.kernels} forward kernels {fwd:.3f} ms ({fsplit}), backward "
@@ -3030,6 +3172,12 @@ def check_ring_pairs(B, Lc, D, H, off, dt, seed):
     want["dk"], want["dv"] = FB.ring_pair_dkdv_plain(q, k, v, dav, valid,
                                                      rab, off, H)
     ok, worst, fails = ok_count, (None, 0.0), []
+    blind = min(Lc, max(0, -off))   # query rows that see no key
+    if n and blind:
+        zero = got["av"][:, :blind].abs().max().item() == 0.0
+        ok &= zero
+        if not zero:
+            fails.append(f"av rows 0..{blind - 1} (no visible key) not 0")
     for name in want:
         if n:   # the f32 partial is 0 on the fully padded row: held whole
             okg, eg, lim = compare_grad(got[name], want[name], dt)
@@ -3043,7 +3191,9 @@ def check_ring_pairs(B, Lc, D, H, off, dt, seed):
         if not okg:
             fails.append(f"{name} {eg:.4g} ({lim})")
     log(f"ring pair B={B} Lc={Lc} D={D} H={H} hd={D // H} off={off} "
-        f"{str(dt)[6:]}: launches {n} each {ok_count}; largest error "
+        f"{str(dt)[6:]}: launches {n} each {ok_count}"
+        + (f"; rows 0..{blind - 1} see no key, exactly 0" if n and blind
+           else "") + "; largest error "
         f"{worst[1]:.6g} ({worst[0]})"
         + (f", failing: {'; '.join(fails)}" if fails else "")
         + f" {'ok' if ok else 'FAIL'}")
@@ -3126,13 +3276,16 @@ def ring_bounds(B, Lc, D, H, F, pairs, elem):
         "ring_pre_bwd": pre_bounds(B, Lc, D, elem, ring=True)["bwd"]}
 
 
-def phase_ring_times(B, Lc, D, H, F):
+def phase_ring_times(B, Lc, D, H, F, libs):
     """At the S = 2 main path's shard (bf16): each ring kernel held to its
     plain version (a pair kernel at off 0, the diagonal with its causal
     mask, and at off Lc) and timed (CUDA events) beside it and its bound; a
     pair kernel's time is the mean over one block's pairs at S = 2 (two on
     the diagonal, off 0, and one behind it, off Lc), its bound the same
-    mean. Returns (ok, the JSON entries without launches)."""
+    mean. The pair forward also by its kernel's device time (the profiler)
+    and beside its first design, pair_fwd_kernel (the copy of ring_pair.cu
+    in ``libs``), by both clocks. Returns (ok, the JSON entries without
+    launches)."""
     import torch
 
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
@@ -3199,6 +3352,25 @@ def phase_ring_times(B, Lc, D, H, F):
                     f"({lim}) FAIL")
         t = sum(time_ms(lambda: kern[name](o), 2, 10) for o in offs) \
             / len(offs)
+        extra = ""
+        if name == "ring_pair_fwd":
+            # a call launches the one kernel: its device time by the
+            # profiler and by a held queue, each the mean over the offsets
+            def mean(f):
+                return sum(f(lambda: kern[name](o)) for o in offs) / len(offs)
+
+            def device(kname):
+                return (mean(lambda fn: kernel_device_ms(fn, (kname,))),
+                        mean(queued_ms))
+
+            dev, queued = device(PAIR_FWD[0])
+            with first_design(libs):
+                old = mean(lambda fn: time_ms(fn, 2, 10))
+                old_dev, old_queued = device(PAIR_FWD[1])
+            extra = (f"; {PAIR_FWD[0]} device {dev:.4f} ms (profiler), "
+                     f"{queued:.4f} ms (CUDA events, queue held full); "
+                     f"first design {PAIR_FWD[1]} {old:.4f} ms (device "
+                     f"{old_dev:.4f}, queue held {old_queued:.4f} ms)")
         _free()
         tp = sum(time_ms(lambda: plain[name](o), 1, 2) for o in offs) \
             / len(offs)
@@ -3215,7 +3387,7 @@ def phase_ring_times(B, Lc, D, H, F):
             f"ms ({by}: {fl / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB); kernel at "
             f"{fl / t / 1e9:.1f} TFLOP/s; max abs err against the plain "
             f"version {err:.4g}" + (" (offsets 0 and Lc)" if len(offs) > 1
-                                     else ""))
+                                     else "") + extra)
         entries.append({"name": name, "route": "cuda",
                         "source": SRC + _RING_SOURCES[name],
                         "replaces": f"{TPU}:{_RING_REPLACES[name]}",
@@ -3417,22 +3589,40 @@ def phase_ring_speed(run, ckpt, S=2):
     others = ", ".join(f"{k[:60]} {v:.3f}" for k, v in by_name.most_common()
                        if not any(n_ in k for n_ in fwd_names + bwd_names)
                        )[:900]
+    host_top(f"ring S={S}", prof, wall)
     log(f"ring S={S}: train step profile: wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall):.1%}); forward "
         f"kernels {fwd:.3f} ms ({fsplit}), backward kernels {bwd:.3f} ms "
         f"({split}); other kernels (ms): {others}")
     ok &= attn_bwd_route(f"ring S={S}", by_name)
     ok &= wgmma_route(f"ring S={S}", by_name)
+    ok &= pair_fwd_route(f"ring S={S}", by_name, _kernel_launches(prof),
+                         cfg.model.num_blocks * S * (S + 1) // 2)
     return ok, launches
 
 
-def phase_ring(ckpt):
+def pair_fwd_route(name, by_name, counts, want):
+    """Whether a profiled bf16 ring step launched pair_fwd_wgmma_kernel
+    ``want`` times (S (S + 1) / 2 per block), with device time, and its
+    first design pair_fwd_kernel never; logs both."""
+    n_new, n_old = (sum(v for k, v in counts.items() if n in k)
+                    for n in PAIR_FWD)
+    ms = sum(v for k, v in by_name.items() if PAIR_FWD[0] in k)
+    ok = n_new == want and n_old == 0 and ms > 0
+    log(f"{name}: the pair forward in the profiled step: {PAIR_FWD[0]} "
+        f"{n_new} launches (want {want}), {ms:.3f} device ms; {PAIR_FWD[1]} "
+        f"{n_old} launches {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_ring(ckpt, libs):
     """The ring's kernels against their plain versions (rows 10-12 at Lc =
-    1024 and 2048, offsets 0, +Lc, -Lc, +3 Lc, H = 1 and 4, and hd 8; the
-    stages at B = 4, Lc = 2048), each held again and timed at the main
-    path's shard (B = 32, Lc = 2048), the one-step checks at S = 2 and 4
-    and the S = 2 step's speed, on the long run's fixture and checkpoint.
-    Returns (ok, JSON entries)."""
+    1024 and 2048, offsets 0, +Lc, -Lc, +3 Lc, Lc / 2 + 16 and -Lc / 2 -
+    16, H = 1, 4 and 8 (hd 8), f32 and bf16; the stages at B = 4, Lc =
+    2048), each held again and timed at the main path's shard (B = 32, Lc =
+    2048; the pair forward beside its first design, a copy in ``libs``),
+    the one-step checks at S = 2 and 4 and the S = 2 step's speed, on the
+    long run's fixture and checkpoint. Returns (ok, JSON entries)."""
     import torch
 
     t0 = time.perf_counter()
@@ -3440,19 +3630,19 @@ def phase_ring(ckpt):
     ok = True
     i = 0
     for Lc in (1024, 2048):
-        for H in (1, 4):
-            for off in (0, Lc, -Lc, 3 * Lc):
+        for H in (1, 4, 8):
+            # the same shard, a past one, a future one (no launch), a far
+            # past one, and offsets off the 64-row tiles either way (the
+            # negative one leaves the first rows without a visible key)
+            for off in (0, Lc, -Lc, 3 * Lc, Lc // 2 + 16, -(Lc // 2) - 16):
                 for dt in (f32, bf16):
                     ok &= check_ring_pairs(2, Lc, 64, H, off, dt, 70 + i)
                     i += 1
-    for off in (0, 1024):
-        for dt in (f32, bf16):
-            ok &= check_ring_pairs(2, 1024, 64, 8, off, dt, 90 + off)
     ok &= check_ring_stages(4, 2048, 64, 1, 256, f32, 0.5, 95)
     ok &= check_ring_stages(4, 2048, 64, 1, 256, bf16, 0.01, 96)
     log(f"ring kernel checks: {time.perf_counter() - t0:.1f} s")
     ok_t, entries = phase_ring_times(LONG["B"], LONG["L"] // 2, LONG["D"],
-                                     LONG["H"], LONG["F"])
+                                     LONG["H"], LONG["F"], libs)
     ok &= ok_t
     ok &= phase_ring_one_step(LONG_RUN, ckpt)
     ok_s, launches = phase_ring_speed(LONG_RUN, ckpt)
@@ -3492,7 +3682,8 @@ def main() -> int:
 
     oks = {"attn_bwd_spills": attn_bwd_spills(report),
            "post_spills": post_spills(report),
-           "pre_spills": pre_spills(report)}
+           "pre_spills": pre_spills(report),
+           "pair_fwd_spills": pair_fwd_spills(report)}
     t0 = time.perf_counter()
     oks["kernels"] = phase_kernels()
     oks["times"], entries = phase_times(FLAGSHIP)
@@ -3503,7 +3694,7 @@ def main() -> int:
     oks["pre"], pre = phase_pre(libs)
     oks["attention_kernels"] = phase_attention_kernels()
     oks["attention_times"], attention = phase_attention_times()
-    oks["group_kernels"], group_entries = phase_group_kernels()
+    oks["group_kernels"], group_entries = phase_group_kernels(libs)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     def attach_post(run, trained, served):
@@ -3543,7 +3734,7 @@ def main() -> int:
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
 
     oks["ring"], ring_entries = phase_ring(
-        CK.latest_checkpoint(LONG_RUN.work / "model"))
+        CK.latest_checkpoint(LONG_RUN.work / "model"), libs)
     attach(MINI_LONG_RUN, *phase_run(MINI_LONG_RUN, oks))
     t0 = time.perf_counter()
     oks["mini_long_ann"] = phase_ann_methods(MINI_LONG_RUN)

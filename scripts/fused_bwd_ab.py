@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time the fused HSTU block's forward and backward and the ring's pair
-backward of one checkout of the port, on one NVIDIA H100, for a comparison
+kernels of one checkout of the port, on one NVIDIA H100, for a comparison
 of two commits in one machine's turns.
 
     python3 scripts/fused_bwd_ab.py ROOT TAG
@@ -20,16 +20,20 @@ inference forward), ``fused_hstu_block_train`` and ``fused_hstu_block_bwd``
 at the flagship (B=128, L=1024, D=64, H=1), long (B=32, L=4096) and sparse
 (B=64, L=1024, H=4) shapes, CUDA events over 20 calls after 3 (the
 backward 10 after 2), with the device ms of each kernel name in one
-profiled call of the training forward and the backward; and
-``ring_pair_dq`` /
-``ring_pair_dkdv`` at the S = 2 shard (B=32, Lc=2048), the mean over
-offsets 0, 0 and +Lc, and the pre stage and its backward there
+profiled call of the training forward and the backward, and a digest
+(sha256 of the values) of each forward's outputs, which two commits that
+compute the same numbers share bitwise; the ring's pair kernels at the S =
+2 shard (B=32, Lc=2048), the mean over offsets 0, 0 and +Lc:
+``ring_pair_fwd`` (``pair_fwd_wgmma_kernel`` on wgmma, ``pair_fwd_kernel``
+before it) by CUDA events and by its kernel's device ms, ``ring_pair_dq``,
+``ring_pair_dkdv``; and the pre stage and its backward there
 (``ring_pre_fwd``, ``ring_pre_bwd``: bf16 dq, dk, dv and f32 du). Prints
 ``tree TAG <package file>``, then one line ``AB {json}``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 
@@ -52,6 +56,13 @@ def main() -> int:
     kernels.build_all(["fused_block", "fused_block_bwd", "ring_pair"])
     bf16 = torch.bfloat16
     out = {"tag": tag, "card": cs.card_line()}
+
+    def digest(*ts):
+        """sha256 of the values (bf16 widens to f32 exactly)."""
+        h = hashlib.sha256()
+        for x in ts:
+            h.update(x.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
 
     def device_ms(fn):
         fn()
@@ -80,7 +91,8 @@ def main() -> int:
         def bwd():
             return FB.fused_hstu_block_bwd(x, av, dout, ops, tt, H, 5, 0.01)
 
-        out[name] = {"fwd_ms": cs.time_ms(fwd, 3, 20),
+        out[name] = {"fwd_sha": digest(fwd()), "train_sha": digest(*train()),
+                     "fwd_ms": cs.time_ms(fwd, 3, 20),
                      "train_ms": cs.time_ms(train, 3, 20),
                      "bwd_ms": cs.time_ms(bwd, 2, 10),
                      "device_train": device_ms(train),
@@ -88,6 +100,11 @@ def main() -> int:
         del x, ops, tt, av, dout
         cs._free()
     q, k, v, dav, valid, rab = cs._pair_inputs(32, 2048, 64, 1, bf16, 61)
+    fwds = [lambda o=o: FB.ring_pair_fwd(q, k, v, valid, rab, o, 1)
+            for o in (0, 0, 2048)]
+    out["ring_fwd_ms"] = sum(cs.time_ms(f, 2, 10) for f in fwds) / 3
+    out["ring_fwd_device_ms"] = sum(cs.kernel_device_ms(f, ("pair_fwd",))
+                                    for f in fwds) / 3
     for w, fn in (("dq", FB.ring_pair_dq), ("dkdv", FB.ring_pair_dkdv)):
         ts = [cs.time_ms(lambda: fn(q, k, v, dav, valid, rab, o, 1), 2, 10)
               for o in (0, 0, 2048)]

@@ -352,12 +352,13 @@ __global__ void __launch_bounds__(kThreads)
 // biases; then, for each F-chunk of 64 columns, the two W13 slices and the
 // W2 rows of the chunk. Wo and the query tiles are loaded once.
 //
-// - Attention, per step: S = q_h k_h^T (SS wgmma), a = silu(s + bias) with
-//   the causal and key-valid mask in registers (an unmasked path for tiles
-//   below the diagonal whose keys are all valid), T(a) straight into the A
-//   operand of av_h += T(a) v_h (RS wgmma). A head's sum goes to a shared
-//   f32 tile at its columns; with one head whose width is DW it stays in
-//   registers.
+// - Attention, per step (attn_issue and attn_step of csrc/fused_block_sm90
+//   .cuh, the loop the ring's pair_fwd_wgmma_kernel runs too): S = q_h
+//   k_h^T (SS wgmma), a = silu(s + bias) with the causal and key-valid mask
+//   in registers (an unmasked path for tiles below the diagonal whose keys
+//   are all valid), T(a) straight into the A operand of av_h += T(a) v_h
+//   (RS wgmma). A head's sum goes to a shared f32 tile at its columns; with
+//   one head whose width is DW it stays in registers.
 // - The post half from av in registers: LN2 * u * keep1 by quad shuffles,
 //   y = T(g) Wo + x + bo (RS, Wo an MN-major B), LN3, then per chunk x1 and
 //   x3 = T(LN3(y)) [W13 slices] (RS), f = silu(x1) x3 keep2 rounded into A
@@ -407,7 +408,7 @@ __global__ void __launch_bounds__(fb90::kWg) attn_ffn_wgmma_kernel(Params p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = sm90::align1024(smem_raw);
   const int D = p.D, H = p.H, hd = D / H, F = p.F, L = p.L, NB = p.NB;
-  const int tid = threadIdx.x, b = blockIdx.y;
+  const int b = blockIdx.y;
   const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kRows;
   const bool attn = p.av_in == nullptr;
   const Cv cv = Cv::of(H, attn);
@@ -445,19 +446,11 @@ __global__ void __launch_bounds__(fb90::kWg) attn_ffn_wgmma_kernel(Params p) {
       if (s < na) {
         const int h = s / n, kt = s - h * n;
         const size_t r0 = rowb + (size_t)kt * kRows;
-        load_mat<W>(reinterpret_cast<bf16*>(st), kRows, K + r0 * D + h * hd,
-                    D, kRows, hd);
-        load_mat<W>(reinterpret_cast<bf16*>(st + Cv::kQ),
-                    kRows, V + r0 * D + h * hd, D, kRows, hd);
-        unsigned char* rows = st + Cv::kTiles;
-        if (tid < kRows)
-          sm90::cp_async4(reinterpret_cast<int*>(rows) + tid,
-                          p.valid + r0 + tid);
-        if (tid < 2 * kRows - 1) {
-          const int dist = q0 - kt * kRows + tid - (kRows - 1);
-          sm90::cp_async4(reinterpret_cast<float*>(rows + 256) + tid,
-                          p.rab + (size_t)h * NB + min(max(dist, 0), NB - 1));
-        }
+        attn_issue<W, false>(
+            reinterpret_cast<bf16*>(st), reinterpret_cast<bf16*>(st + Cv::kQ),
+            st + Cv::kTiles, K + r0 * D + h * hd, V + r0 * D + h * hd,
+            p.valid + r0, p.rab + (size_t)h * NB, D, hd, L - kt * kRows,
+            q0 - kt * kRows, NB);
       } else {
         const int j0 = ((s - na) >> 1) * FC, w = min(FC, F - j0);
         bf16* t = reinterpret_cast<bf16*>(st);
@@ -477,12 +470,12 @@ __global__ void __launch_bounds__(fb90::kWg) attn_ffn_wgmma_kernel(Params p) {
   // (direct) or at the post half's start (from the av tile or av_in)
   float y[DW / 2];
   float s[32], acc[W / 2];
+  const int r0 = acc_row(0), c0 = acc_col(0);
   uint32_t h2a[DW / 16][4], fa[FC / 16][4];
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.0f;
-  const int r0 = acc_row(0), c0 = acc_col(0);
   const bool drop = p.seed != nullptr;
   const uint32_t seed = drop ? (uint32_t)p.seed[0] : 0u;
   const uint32_t key1 = drop_key(seed, 2u * b);
@@ -497,35 +490,9 @@ __global__ void __launch_bounds__(fb90::kWg) attn_ffn_wgmma_kernel(Params p) {
     if (step < na) {
       // --- attention: head h, key tile kt ---
       const int h = step / n, kt = step - h * n;
-      const int* kv = reinterpret_cast<const int*>(st + Cv::kTiles);
-      const float* rw = reinterpret_cast<const float*>(st + Cv::kTiles + 256);
-      // every key of the tile valid? (each thread reads the flag it copied)
-      const bool full = __syncthreads_and(tid >= kRows || kv[tid] != 0);
-      const int based = q0 - kt * kRows;   // distance of pair (0, 0)
-      sm90::wgmma_fence();
-      sm90::scores<W>(s, q_tile(h), reinterpret_cast<bf16*>(st));
-      finish(s);
-      auto act = [&](auto masked) {
-        constexpr bool kMasked = decltype(masked)::value;
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int r = r0 + (((i >> 1) & 1) << 3);
-          const int c = c0 + ((i >> 2) << 3) + (i & 1);
-          const float a = fast_silu(s[i] + rw[r - c + kRows - 1]);
-          const bool vis = !kMasked || (based + r - c >= 0 && kv[c] != 0);
-          s[i] = vis ? a : 0.0f;
-        }
-      };
-      if (full && kt < qt)
-        act(std::false_type{});
-      else
-        act(std::true_type{});
-      uint32_t a[4][4];
-      frags(s, a);
-      sm90::wgmma_fence();
-      sm90::accumulate<W>(acc, a,
-                          reinterpret_cast<bf16*>(st + Cv::kQ));
-      finish(acc);
+      attn_step<W>(acc, s, q_tile(h), reinterpret_cast<bf16*>(st),
+                   reinterpret_cast<bf16*>(st + Cv::kQ), st + Cv::kTiles,
+                   q0 - kt * kRows, r0, c0);
       if (kt == n - 1) {   // head h is summed
         if constexpr (W == DW && DW <= 64) {
           if (direct) {
@@ -664,9 +631,7 @@ __global__ void __launch_bounds__(fb90::kWg) attn_ffn_wgmma_kernel(Params p) {
 // Whether bf16 operands of this shape take attn_ffn_wgmma_kernel: D at
 // most 128 and head slices (with attention) in whole 16-byte chunks.
 inline bool attn_ffn_wgmma_shape(const Params& p, bool attn) {
-  const int hd = p.D / p.H;
-  return fb90::post_width(p.D) != 0 &&
-         (!attn || (hd % 8 == 0 && sm90::wgmma_width(hd) != 0));
+  return fb90::post_width(p.D) != 0 && (!attn || fb90::attn_heads(p.D, p.H));
 }
 
 template <int W, int DW>

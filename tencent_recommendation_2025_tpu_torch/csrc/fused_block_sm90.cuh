@@ -3,7 +3,10 @@
 // forward (attn_ffn_wgmma_kernel, both in csrc/fused_block.cu), the
 // gate/FFN backward (gate_ffn_bwd_wgmma_kernel), the projection backward
 // (proj_bwd_wgmma_kernel) and the weight-gradient products over tokens
-// (wgrad_wgmma_kernel, all three in csrc/fused_block_bwd.cu).
+// (wgrad_wgmma_kernel, all three in csrc/fused_block_bwd.cu); and the
+// attention loop that attn_ffn_wgmma_kernel and the ring's
+// pair_fwd_wgmma_kernel (csrc/ring_pair.cu) both run (attn_issue,
+// attn_step).
 //
 // Conventions (those of csrc/sm90_mma.cuh): one warpgroup of 128 threads
 // owns 64 token rows; a [64 x N] f32 value lives in wgmma's accumulator
@@ -50,6 +53,13 @@ constexpr int kBwdCPS = 2;
 // The padded width of a model of width D, 0 past 128.
 inline int post_width(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+}
+
+// Whether the attention loop (attn_issue, attn_step) takes heads of hd = D /
+// H columns: head slices in whole 16-byte chunks, at most 128 wide.
+inline bool attn_heads(int D, int H) {
+  const int hd = D / H;
+  return hd % 8 == 0 && sm90::wgmma_width(hd) != 0;
 }
 
 __host__ __device__ constexpr size_t round1024(size_t n) {
@@ -592,6 +602,95 @@ __device__ __forceinline__ void silu_bias(float (&pre)[NF], const float* b,
     pre[i] = in ? fast_silu(pre[i] + bb.x) * mul : 0.0f;
     pre[i + 1] = in ? fast_silu(pre[i + 1] + bb.y) * mul : 0.0f;
   }
+}
+
+// ---------------------------------------------------------------------------
+// the attention loop: one 64-query tile against one head's key tiles, a
+// step per key tile (attn_ffn_wgmma_kernel on one device, at distance q -
+// k; pair_fwd_wgmma_kernel on a ring's pair of shards, at q + off - k)
+// ---------------------------------------------------------------------------
+
+// A step's row data in its stage: the key tile's 64 valid flags (int), then
+// from byte kBiasAt the biases of its 127 diagonals (diagonal e = r - c + 63,
+// r the query row and c the key column in the tile).
+constexpr int kBiasAt = 256;
+
+// Issues (cp.async, uncommitted) the loads of one step: k and v, the
+// rows x hd blocks of a head from the key tile's first row (row stride D),
+// into the W-wide tiles kt and vt; the keys' valid flags; and the tile's
+// biases rab_h[clamp(based + e - 63, 0, NB - 1)], based the distance of
+// pair (0, 0). nk is the number of keys from the tile's first on: with
+// kRagged (a shard whose length need not be a multiple of 64) the keys past
+// nk load as zero rows with valid flag 0; without, the tile is whole (nk >=
+// 64, and the single device's loop keeps its registers). Every thread of
+// the warpgroup calls it.
+template <int W, bool kRagged>
+__device__ __forceinline__ void attn_issue(bf16* kt, bf16* vt,
+                                           unsigned char* rows, const bf16* k,
+                                           const bf16* v, const int* valid,
+                                           const float* rab_h, int D, int hd,
+                                           int nk, int based, int NB) {
+  const int tid = threadIdx.x;
+  const int nr = kRagged && nk < kRows ? nk : kRows;
+  load_mat<W>(kt, kRows, k, D, nr, hd);
+  load_mat<W>(vt, kRows, v, D, nr, hd);
+  if (tid < kRows) {
+    int* kv = reinterpret_cast<int*>(rows);
+    if (!kRagged || tid < nr)
+      sm90::cp_async4(kv + tid, valid + tid);
+    else
+      kv[tid] = 0;
+  }
+  if (tid < 2 * kRows - 1) {
+    const int dist = based + tid - (kRows - 1);
+    sm90::cp_async4(reinterpret_cast<float*>(rows + kBiasAt) + tid,
+                    rab_h + min(max(dist, 0), NB - 1));
+  }
+}
+
+// One step on a stage whose loads have landed (after the ring's wait and
+// fence; the barrier inside makes every thread's copies visible): acc (64 x
+// W, f32) += T(a) v_h, with S = q_h k_h^T (SS wgmma) into s and a =
+// silu(s + bias) where the pair's distance based + r - c is >= 0 and its
+// key valid, else 0, in registers; T(a) goes straight into the A fragments
+// of the RS wgmma. A tile whose pairs are all visible (every key valid,
+// every distance >= 0) takes the unmasked path. s is the caller's scratch;
+// r0 and c0 are acc_row(0) and acc_col(0), which the caller computes once
+// for its whole loop.
+template <int W>
+__device__ __forceinline__ void attn_step(float (&acc)[W / 2],
+                                          float (&s)[32], const bf16* q,
+                                          const bf16* kt, const bf16* vt,
+                                          const unsigned char* rows,
+                                          int based, int r0, int c0) {
+  const int tid = threadIdx.x;
+  const int* kv = reinterpret_cast<const int*>(rows);
+  const float* rw = reinterpret_cast<const float*>(rows + kBiasAt);
+  // every key of the tile valid? (each thread reads the flag it copied)
+  const bool full = __syncthreads_and(tid >= kRows || kv[tid] != 0);
+  sm90::wgmma_fence();
+  sm90::scores<W>(s, q, kt);
+  finish(s);
+  auto act = [&](auto masked) {
+    constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = r0 + (((i >> 1) & 1) << 3);
+      const int c = c0 + ((i >> 2) << 3) + (i & 1);
+      const float a = fast_silu(s[i] + rw[r - c + kRows - 1]);
+      const bool vis = !kMasked || (based + r - c >= 0 && kv[c] != 0);
+      s[i] = vis ? a : 0.0f;
+    }
+  };
+  if (full && based >= kRows - 1)
+    act(std::false_type{});
+  else
+    act(std::true_type{});
+  uint32_t a[4][4];
+  frags(s, a);
+  sm90::wgmma_fence();
+  sm90::accumulate<W>(acc, a, vt);
+  finish(acc);
 }
 
 }  // namespace fb90

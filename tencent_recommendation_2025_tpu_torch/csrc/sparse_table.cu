@@ -22,16 +22,27 @@
 // and keeps 8 DMAs of one [8, 128] tile in flight. Here one warp owns one
 // group: it reads its id and copies the row in 16-byte vectors, each lane
 // loading all of its vectors before it stores any (8 in flight per lane in
-// f32, 4 in bf16), with streaming cache hints, since neither side is read
-// again soon. Eight warps a block, one block per eight groups; the groups
-// are unique, so no two warps write one address. Offsets are 64-bit: a
-// 100M-row table holds 1.6e9 16-byte vectors.
+// f32, 4 in bf16). Eight warps a block, one block per eight groups; the
+// groups are unique, so no two warps write one address. Offsets are 64-bit:
+// a 100M-row table holds 1.6e9 16-byte vectors. The scatter loads and
+// stores with streaming hints (ld/st.global.cs: neither side is read again
+// soon); the gather with the default policy, 0.2-2% faster by device time
+// on the H100 and no slower than index_select (PERF.md row 21). Two
+// redesigns of the gather lost to it on the same card and were not kept:
+// persistent blocks moving whole rows through the bulk-copy engine
+// (cp.async.bulk through a ring of shared-memory stages, one issuing
+// thread, chunks of ids staged in shared memory) by 4-12%, and persistent
+// warps with several rows and the next ids in flight by 3-6%
+// (scripts/gather_variants.py times them in turns). At 88-89% of the
+// card's memory rate the copy moves what the memory delivers to a gather
+// of 2-4 KB rows.
 //
 // Bound on the H100: bytes. The scatter reads each real group's arranged
 // row and writes it into the table, 2 * W * elem bytes a group, plus the
 // 4-byte ids: a 65,536-group chunk of the 100M-row step in bf16 moves about
 // 268 MB, 80 us at 3.35 TB/s. The gather moves the same bytes the other
-// way.
+// way: at 190,000 real groups of 196,608 slots, 779 MB in bf16 (0.2325 ms)
+// and 1,557 MB in f32 (0.4649 ms).
 
 #include <cuda_runtime.h>
 
@@ -42,8 +53,9 @@ namespace {
 constexpr int kWarps = 8;        // groups per block, one warp each
 constexpr int kMaxVecs = 8;      // 16-byte vectors a lane keeps in flight
 
-// One warp copies group row groups[j] of the table to or from row j of buf.
-template <bool kToTable>
+// One warp copies group row groups[j] of the table to or from row j of buf,
+// with streaming cache hints where kStream.
+template <bool kToTable, bool kStream>
 __device__ __forceinline__ void copy_group(uint4* __restrict__ table,
                                            const int* __restrict__ groups,
                                            uint4* __restrict__ buf,
@@ -64,26 +76,35 @@ __device__ __forceinline__ void copy_group(uint4* __restrict__ table,
 #pragma unroll
     for (int u = 0; u < kMaxVecs; ++u) {
       const int i = base + u * 32 + lane;
-      if (i < vecs) v[u] = __ldcs(src + i);
+      if (i < vecs) v[u] = kStream ? __ldcs(src + i) : src[i];
     }
 #pragma unroll
     for (int u = 0; u < kMaxVecs; ++u) {
       const int i = base + u * 32 + lane;
-      if (i < vecs) __stcs(dst + i, v[u]);
+      if (i < vecs) {
+        if (kStream)
+          __stcs(dst + i, v[u]);
+        else
+          dst[i] = v[u];
+      }
     }
   }
 }
 
+// The gather's cache policy: the default one. chip_smoke.py builds a copy
+// with streaming hints, the first design, to time it beside this.
+constexpr bool kGatherStream = false;
+
 __global__ void __launch_bounds__(kWarps * 32)
 group_scatter_kernel(uint4* table, const int* groups, uint4* arranged,
                      long long K, long long nG, int vecs) {
-  copy_group<true>(table, groups, arranged, K, nG, vecs);
+  copy_group<true, true>(table, groups, arranged, K, nG, vecs);
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
 group_gather_kernel(uint4* table, const int* groups, uint4* out, long long K,
                     long long nG, int vecs) {
-  copy_group<false>(table, groups, out, K, nG, vecs);
+  copy_group<false, kGatherStream>(table, groups, out, K, nG, vecs);
 }
 
 int launch(bool to_table, void* table, const void* groups, void* buf,

@@ -41,10 +41,11 @@ Kernels, each replacing TPU kernels of the JAX package's file:
 
 - The ring units of a sequence-sharded mesh (the last section below):
   ``csrc/ring_pair.cu`` for one (query shard, key shard) pair, replacing
-  ``_pair_attn_fwd_kernel`` (l.1269), and ``_pair_dq_kernel`` (l.1304) and
-  ``_pair_dkdv_kernel`` (l.1345) through the same attention backward as the
-  single device's, and launches of their own for the pre and post stages
-  and their backwards.
+  ``_pair_attn_fwd_kernel`` (l.1269; in bf16 by ``pair_fwd_wgmma_kernel``,
+  the single device's attention loop at the pair's offset), and
+  ``_pair_dq_kernel`` (l.1304) and ``_pair_dkdv_kernel`` (l.1345) through
+  the same attention backward as the single device's, and launches of their
+  own for the pre and post stages and their backwards.
 
 Variants. The TPU package takes the whole-sequence kernels up to
 ``wholeseq_max_l(D)`` and the chunked ones above it (:func:`chunked`), for
@@ -917,7 +918,10 @@ def fused_hstu_block_autograd(x: torch.Tensor, bp: Mapping,
 #                  D <= 128, else proj_kernel), l.452
 #   ring_post_fwd  attn_ffn_wgmma_kernel's post half on a given T(av) (bf16
 #                  at D <= 128; else attn_ffn_kernel's), l.502
-#   ring_pair_fwd  pair_fwd_kernel (csrc/ring_pair.cu), l.1269
+#   ring_pair_fwd  pair_fwd_wgmma_kernel (csrc/ring_pair.cu: the attention
+#                  loop of attn_ffn_wgmma_kernel at the pair's offset; bf16
+#                  with heads of 8k columns up to 128, else pair_fwd_kernel),
+#                  l.1269
 #   ring_pair_dq   attn_bwd_dq_wgmma_kernel (csrc/hstu_attn_bwd_sm90.cuh;
 #                  bf16 at hd <= 128, else attn_bwd_dq_kernel) +
 #                  reduce_rows_kernel, l.1304

@@ -737,3 +737,120 @@ def test_pre_wgmma_wrappers_raise_instead_of_falling_back_on_card(
     with pytest.raises(RuntimeError, match="launch failed"):
         FB.ring_pre_bwd(x, bp, *cots, 512, 1)
     assert FB.ring_pre_bwd.launches == before
+
+
+def _pair_operands(B, Lq, Lk, D, H, seed):
+    """bf16 q [B, Lq, D], k and v [B, Lk, D], f32 rab [H, 128] and key
+    validity (row 0 left-padded) on the card, from numpy with a seed."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, s=0.5):
+        return torch.from_numpy((rng.standard_normal(shape) * s)
+                                .astype(np.float32)).cuda()
+
+    q, k, v = (t((B, L, D)).to(torch.bfloat16) for L in (Lq, Lk, Lk))
+    valid = torch.ones((B, Lk), dtype=torch.int32, device="cuda")
+    valid[0, :min(37, Lk)] = 0
+    return q, k, v, valid, t((H, 128), 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off", [0, 256, -256, 768, 96, -48])
+@pytest.mark.parametrize("D,H", [(64, 1), (64, 4), (64, 8), (32, 4),
+                                 (128, 1)])
+def test_pair_fwd_wgmma_kernel_matches_plain_on_card(D, H, off):
+    """Row 10 in bf16 (pair_fwd_wgmma_kernel, the attention loop of
+    attn_ffn_wgmma_kernel at a token offset) against ring_pair_fwd_plain:
+    the same shard, a past one, a future one (no launch, exactly 0), a far
+    past one, offsets off the 64-row tiles either way; hd 8 to 128. bf16
+    tolerance: one bf16 step of the largest value, cosine 0.999 (a rounds
+    to bf16 as the product's operand in both; sums in another order)."""
+    _cuda_or_skip()
+    B, L = 2, 256
+    q, k, v, valid, rab = _pair_operands(B, L, L, D, H, 4000 + D + H + off)
+    n = FB.ring_pair_fwd.launches
+    out = FB.ring_pair_fwd(q, k, v, valid, rab, off, H)
+    torch.cuda.synchronize()
+    assert FB.ring_pair_fwd.launches == n + (off + L > 0)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    ref = FB.ring_pair_fwd_plain(q, k, v, valid, rab, off, H)
+    if off + L <= 0:
+        assert not out.any()
+        return
+    _bf16_close(out, ref, f"pair forward D={D} H={H} off={off}")
+    if off < 0:   # the first -off query rows see no key at all
+        assert not out[:, :-off].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lq,Lk,off", [(272, 144, 0), (144, 272, 128),
+                                       (208, 208, -16), (16, 48, 32)])
+def test_pair_fwd_wgmma_kernel_ragged_shards_on_card(Lq, Lk, off):
+    """Shards whose lengths are multiples of 16 but not of 64, and Lq !=
+    Lk: the last query tile stores only its rows, the last key tile loads
+    zero rows with invalid flags past the shard's end."""
+    _cuda_or_skip()
+    q, k, v, valid, rab = _pair_operands(3, Lq, Lk, 64, 4, Lq + Lk + off)
+    out = FB.ring_pair_fwd(q, k, v, valid, rab, off, 4)
+    ref = FB.ring_pair_fwd_plain(q, k, v, valid, rab, off, 4)
+    assert out.shape == (3, Lq, 64)
+    _bf16_close(out, ref, f"pair forward Lq={Lq} Lk={Lk} off={off}")
+
+
+@pytest.mark.gpu
+def test_pair_fwd_wgmma_kernel_writes_zeros_where_no_key_is_visible_on_card():
+    """A query tile that sees no key (off = -Lc / 2: the first half of the
+    shard's queries precede every key) still writes its rows: exactly 0,
+    although the output's memory held NaNs before (the wrapper allocates it
+    with torch.empty)."""
+    _cuda_or_skip()
+    B, L, D, H = 2, 512, 64, 1
+    q, k, v, valid, rab = _pair_operands(B, L, L, D, H, 17)
+    for _ in range(3):   # NaNs in the blocks the allocator hands out next
+        junk = torch.full((B, L, D), float("nan"), device="cuda")
+        del junk
+        out = FB.ring_pair_fwd(q, k, v, valid, rab, -L // 2, H)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        assert not out[:, :L // 2].any()
+        assert out[:, L // 2:].abs().sum() > 0
+
+
+@pytest.mark.gpu
+def test_pair_fwd_wgmma_route_raises_instead_of_falling_back_on_card():
+    """In bf16 with heads the attention loop takes, a launch the wgmma
+    kernel cannot make (16 heads of 128 columns: their q tiles alone need
+    256 KB of shared memory) fails in the CUDA source and the wrapper
+    raises; it does not fall back to pair_fwd_kernel."""
+    _cuda_or_skip()
+    q, k, v, valid, rab = _pair_operands(1, 64, 64, 2048, 16, 5)
+    n = FB.ring_pair_fwd.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FB.ring_pair_fwd(q, k, v, valid, rab, 0, 16)
+    assert FB.ring_pair_fwd.launches == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row_bytes", [16, 2048, 4096])
+def test_group_gather_interleaved_slots_on_card(dtype, row_bytes):
+    """The gather on unsorted real groups with sentinel slots between them,
+    K a multiple of no block's share (2777 slots), rows of 16 B, 2 KB and 4
+    KB: every real slot's row bitwise equal to the plain gather's; one
+    launch a call."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+
+    rng = np.random.default_rng(row_bytes)
+    nG, K, W = 3000, 2777, row_bytes // dtype.itemsize
+    table = torch.randn((nG, W), generator=torch.Generator().manual_seed(3)
+                        ).to(dtype).cuda()
+    slots = rng.permutation(nG)[:K].astype(np.int32)
+    slots[rng.random(K) < 0.1] = nG
+    g = torch.from_numpy(slots).cuda()
+    real = g < nG
+    n = ST.group_gather.launches
+    got = ST.group_gather(table, g)
+    torch.cuda.synchronize()
+    assert ST.group_gather.launches == n + 1
+    assert torch.equal(got[real], ST.group_gather_plain(table, g)[real])

@@ -131,6 +131,32 @@ def test_pair_attention_matches_jax(forced, H, off):
         np.testing.assert_allclose(got.numpy(), want, **GRAD)
 
 
+@pytest.mark.parametrize("off", [0, LC])
+@pytest.mark.parametrize("H", [1, 4])
+def test_pair_attention_bf16_matches_jax(forced, H, off):
+    """Row 10 forward in bf16 (the card's instance, pair_fwd_wgmma_kernel,
+    is held to this plain version in bf16): q, k, v rounded to bf16 once
+    and given to both; the partial is f32 in both. The rounding points are
+    the same (a rounded to bf16 as the product's operand, f32 sums), so the
+    two differ only where a score summed in another order rounds a to the
+    neighbouring bf16 value (2^-8 relative) on a few of a row's LC pairs:
+    held to atol 2e-3, rtol 2e-3 (|partial| up to about 35 here, v not
+    scaled by 1/L; the largest difference seen is 1.2e-3, and an offset
+    off by 16 tokens is 1.5-9.5 away)."""
+    rng = np.random.default_rng(2000 + 10 * H + off)
+    q, k, v = (_np(rng, (B, LC, D), 0.5) for _ in range(3))
+    rab = _np(rng, (H, 128), 0.1)
+    valid = _valid(LC)
+    jq, jk, jv = (_tj(a).astype(jnp.bfloat16) for a in (q, k, v))
+    jout = JFB.ring_pair_attn(jq, jk, jv, jnp.asarray(valid)[:, :, None],
+                              jnp.asarray(rab), off, H, True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = TFB.ring_pair_fwd(tq, tk, tv, torch.from_numpy(valid),
+                            torch.from_numpy(rab), off, H)
+    assert out.dtype == torch.float32 and jout.dtype == jnp.float32
+    np.testing.assert_allclose(out.numpy(), _t(jout), rtol=2e-3, atol=2e-3)
+
+
 @pytest.mark.parametrize("H", [1, 2])
 def test_pre_stage_matches_jax(H):
     """ring_pre_proj: q, k, v, u on a shard (1/L of the whole sequence) and

@@ -161,6 +161,29 @@ def test_group_gather_plain_matches_pallas():
     np.testing.assert_array_equal(got[:20], want[:20].reshape(20, -1))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_group_gather_plain_matches_pallas_interleaved(dtype):
+    """Unsorted real groups with sentinel slots between them (the slot
+    order the card's kernel is held to in chip_smoke.py and the card
+    tests): every real slot's row bitwise equal to the Pallas kernel's in
+    interpret mode; the sentinel rows are zero in the plain version (the
+    kernels leave them unwritten)."""
+    rng = np.random.default_rng(5)
+    nG, K = 96, 1024
+    table, _, _, jtab, ttab = _scatter_case(rng, nG, dtype, 0, K)
+    groups = np.full((K,), nG, np.int32)
+    slots = np.sort(rng.choice(K, size=60, replace=False))
+    groups[slots] = rng.choice(nG, size=60, replace=False)
+    assert (np.diff(groups[slots]) < 0).any() and slots[-1] < K - 1
+    want = np.asarray(JST.pallas_group_gather(jtab, jnp.asarray(groups),
+                                              interpret=True), np.float32)
+    got = TST.group_gather(TST.group_view(ttab, 16), _t(groups))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got[slots].float().numpy(),
+                                  want[slots].reshape(60, -1))
+    assert not got[np.setdiff1d(np.arange(K), slots)].any()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_group_scatter_apply_across_chunks(monkeypatch, dtype):
     """The chunked merge (one scatter per chunk of 1024 groups, both
