@@ -56,11 +56,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                call on its route's launch counters, fully masked rows and
                padded keys exactly 0 (flash MHA also at hd 16 with L=1024,
                hd 24, hd 256, L=384 and hd 9, its row stats held to the
-               plain version's), and their times at the runs' shapes
+               plain version's; the HSTU attention also at hd 32, at 32,
+               898 and 1794 buckets, and in bf16 a second call bitwise
+               equal to the first), and their times at the runs' shapes
                (hstu_mini at B=32, L=4096 for the chunked route; CUDA
                events, and the kernels' device time by the profiler)
                beside the plain versions', their bounds and, for flash MHA,
-               scaled_dot_product_attention's; then the group scatter and
+               scaled_dot_product_attention's, for the HSTU attention
+               (hstu_fwd_wgmma_kernel and the shared backward's standalone
+               instance in bf16) its first design's (a copy of the source
+               with the wgmma route off, built beside the checkout's),
+               with the wgmma kernels' registers and spills (none at W <=
+               64); then the digests of the fused block's and the ring's
+               outputs (bitwise_digests), held to those recorded for the
+               tree before the standalone attention shared their kernels;
+               then the group scatter and
                group gather of a sparse-trained table (a 16M x 64 table, 1M
                groups, in f32 and bf16; 196,608 slots, 190,000 real groups
                and a sentinel tail, the gather also on the slots shuffled):
@@ -106,7 +116,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                on the same fixture and pack, with ``--eval_retrieval_users
                256`` (the chunked HSTU attention route: its launches, the
                epoch-end HR@10 record, the one-step check, the step's
-               speed and profile), served with 8 queries held to the CPU
+               speed and profile, which must name the HSTU attention's
+               wgmma kernels and none of its first design's, as must a
+               predict batch's), served with 8 queries held to the CPU
                and its result directory served again with the approx, int8
                and hnsw methods;
 6b. retrieval — the tiers on a seeded 10M x 64 corpus, Q=1024: exact,
@@ -141,7 +153,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                ReLU-FFN HSTU: cli.train's default (no --preset: baseline at
                L=102, dense, no kernel launched), ``--preset baseline
                --maxlen 255`` (flash MHA), ``--preset hstu_mini --maxlen
-               255`` (standalone HSTU attention), both on a fixture of 1024
+               255`` (standalone HSTU attention; its profiles held to its
+               wgmma route as mini_long's), both on a fixture of 1024
                users, 5000 items and 20..250 events, and ``--preset
                baseline_o1 --maxlen 1023`` (flash MHA, one head) on the
                flagship's fixture; the one-step check for baseline and
@@ -247,6 +260,14 @@ PRE_REPLACED = ("proj_kernel", "proj_bwd_kernel")
 #: heads: every ring preset), then its first design (f32, other heads),
 #: which no bf16 ring step may launch
 PAIR_FWD = ("pair_fwd_wgmma_kernel", "pair_fwd_kernel")
+#: the standalone HSTU attention on wgmma (bf16, hd % 8 == 0, hd <= 128:
+#: every HSTU preset): the forward, the backward pair in its standalone
+#: instance and the rel-pos sum; then the first design (f32, hd 129-256),
+#: which no bf16 hstu_mini step or predict batch may launch
+HSTU_WGMMA = ("hstu_fwd_wgmma_kernel",) + ATTN_BWD_WGMMA \
+    + ("reduce_rows_split_kernel",)
+HSTU_FIRST = ("hstu_fwd_kernel", "hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
+              "reduce_rows_kernel")
 #: CUDA kernel names of each kernel family, as a profile lists them
 #: (forward, backward)
 KERNEL_NAMES = {
@@ -259,9 +280,8 @@ KERNEL_NAMES = {
     "flash": (("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
               ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
-    "hstu": (("hstu_fwd_kernel",),
-             ("hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel",
-              "reduce_rows_kernel")),
+    "hstu": (HSTU_WGMMA[:1] + HSTU_FIRST[:1],
+             HSTU_WGMMA[1:] + HSTU_FIRST[1:]),
     "ring": (PRE_WGMMA[:1] + ("proj_kernel", "attn_ffn_wgmma_kernel",
                               "attn_ffn_kernel") + PAIR_FWD[:1],
              PRE_WGMMA[1:] + POST_WGMMA[1:] + ("gate_ffn_bwd_kernel",)
@@ -1005,20 +1025,23 @@ def phase_attn_bwd():
 
 def attn_bwd_spills(report):
     """Whether the attention backward's wgmma kernels at W <= 64 spill
-    nothing in this run's build (-Xptxas -v of fused_block_bwd and
-    ring_pair, 8 instances each); logs each instance."""
+    nothing in this run's build (-Xptxas -v): 8 instances each in
+    fused_block_bwd and ring_pair (attn_bwd_*_wgmma_kernel<W, 0>) and in
+    hstu_attention (the standalone instance, <W, 1>); logs each
+    instance."""
     from tencent_recommendation_2025_tpu_torch.ops import kernels
 
     ok = True
-    for lib in ("fused_block_bwd", "ring_pair"):
+    for lib, flag in (("fused_block_bwd", "0"), ("ring_pair", "0"),
+                      ("hstu_attention", "1")):
         if lib not in report:
             log(f"{lib}: not built in this run; spills not read")
             continue
         found = []
         for k in kernels.ptxas_report(report[lib]["log"]):
-            m = re.match(r"attn_bwd_(dq|dkdv)_wgmma_kernel<(\d+)>$",
+            m = re.match(r"attn_bwd_(dq|dkdv)_wgmma_kernel<(\d+), ([01])>$",
                          k["kernel"])
-            if not m:
+            if not m or m.group(3) != flag:
                 continue
             spill = k["spill_stores"] + k["spill_loads"]
             found.append(f"{k['kernel']} {k['registers']} registers, spills "
@@ -1238,6 +1261,7 @@ _PRE_REPLACES = {"flagship": ("274", "325"), "long": ("452", "710"),
 #: the redesigned kernels' selectors, and what a copy of each source built
 #: beside the checkout's puts in their place so that the first design runs
 #: in bf16 too (proj_kernel, proj_bwd_kernel; the ring's pair_fwd_kernel;
+#: the standalone HSTU attention's hstu_fwd_kernel and hstu_bwd_dq/dkdv;
 #: the group gather with streaming hints): its times beside the new
 #: kernels'
 _FIRST_DESIGN = {
@@ -1249,6 +1273,8 @@ _FIRST_DESIGN = {
                         "return false; }"),
     "ring_pair": ("  return is_bf16 && fb90::attn_heads(p.D, p.H);\n",
                   "  return false;\n"),
+    "hstu_attention": ("  return is_bf16 && wgmma_heads(D, H);\n",
+                       "  return false;\n"),
     "sparse_table": ("constexpr bool kGatherStream = false;",
                      "constexpr bool kGatherStream = true;")}
 
@@ -1525,19 +1551,20 @@ def pre_smem(DW, bwd):
     return 1024 + w + keep + red
 
 
-def pair_fwd_spills(report):
-    """Registers and spills of pair_fwd_wgmma_kernel<W> (W = 16, 32, 64,
-    128) in this run's build of ring_pair; a spill at W <= 64 fails, and so
-    do more than 128 registers there (4 blocks an SM). Logs each
-    instance."""
+def fwd_spills(report, lib, kernel):
+    """Registers and spills of the wgmma forward ``kernel``<W> (W = 16, 32,
+    64, 128) in this run's build of ``lib`` (ring_pair's
+    pair_fwd_wgmma_kernel, hstu_attention's hstu_fwd_wgmma_kernel); a
+    spill at W <= 64 fails, and so do more than 128 registers there (4
+    blocks an SM). Logs each instance."""
     from tencent_recommendation_2025_tpu_torch.ops import kernels
 
-    if "ring_pair" not in report:
-        log("ring_pair: not built in this run; spills not read")
+    if lib not in report:
+        log(f"{lib}: not built in this run; spills not read")
         return True
     ok, found = True, []
-    for k in kernels.ptxas_report(report["ring_pair"]["log"]):
-        m = re.match(PAIR_FWD[0] + r"<(\d+)>$", k["kernel"])
+    for k in kernels.ptxas_report(report[lib]["log"]):
+        m = re.match(kernel + r"<(\d+)>$", k["kernel"])
         if not m:
             continue
         W = int(m.group(1))
@@ -1546,7 +1573,7 @@ def pair_fwd_spills(report):
         ok &= W > 64 or (k["spill_stores"] + k["spill_loads"] == 0
                          and k["registers"] <= 128)
     ok &= len(found) == 4
-    log(f"ring_pair: {'; '.join(found)} {'ok' if ok else 'FAIL'}")
+    log(f"{lib}: {'; '.join(found)} {'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -1704,6 +1731,10 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
         route = "hstu_chunk" if HA._use_long(L, D) else "hstu"
     ok_route = {k_: after[k_] - before[k_] for k_ in after} == dict(
         dict.fromkeys(after, 0), **{f"{route}_fwd": 1, f"{route}_bwd": 1})
+    # the HSTU attention's second call: the same bits (drab summed in a
+    # fixed order, no atomics)
+    same = kind == "flash" or (torch.equal(fwd(q, k, v)[0], out) and all(
+        torch.equal(a, b) for a, b in zip(bwd(q, k, v, dout, aux), got)))
     ref, ref_aux = fwd_p(q, k, v)
     ok_f, e_f, lim_f = compare_attn(out, ref, dt)
     ok_f &= ok_route
@@ -1728,10 +1759,12 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
             worst = (name, eg)
         if not okg:
             parts.append(f"{name} {eg:.4g} ({limg})")
-    ok = ok_f and ok_b
+    ok = ok_f and ok_b and same
     log(f"{kind} B={B} L={L} D={D} H={H} hd={D // H}"
         + (f" NB={NB}" if kind == "hstu" else "")
-        + f" {str(dt)[6:]} ({route} counters {ok_route}): forward "
+        + f" {str(dt)[6:]} ({route} counters {ok_route}"
+        + ("" if kind == "flash" else f", two calls bitwise equal {same}")
+        + "): forward "
         f"max_abs_err={e_f:.6g} ({lim_f}); "
         f"backward largest error {worst[1]:.6g} ({worst[0]})"
         + (f", failing: {'; '.join(parts)}" if parts else "")
@@ -1747,7 +1780,11 @@ def phase_attention_kernels():
     (H=4) and L=1024 (H=1); HSTU attention at L=256 and 1024 with H=4 and
     H=1 and buckets 128 and 300; the chunked HSTU route (past _use_long) at
     L = 2048, 4096 and 16384 (hstu_mini's D=64, H=4) and with 1000 buckets
-    (H=1: the JAX package's 256 tile); both cores at hd 8 (D=32, H=4) and
+    (H=1: the JAX package's 256 tile); the HSTU attention also at the
+    bucket edges the JAX package takes (32; 898 on the whole-sequence
+    route at L=1024; 1794 on the chunked one at L=2048) and at hd 32 (D=64,
+    H=2), a second call bitwise equal to the first in bf16; both cores at
+    hd 8 (D=32, H=4) and
     hd 128 (D=128, H=1); flash MHA also at hd 16 with L=1024 (D=64, H=4),
     hd 24 (D=96, H=4, L=512: a head padded to 32 columns), hd 256 (D=256,
     H=1, L=256: the first kernels' bf16 path), L=384 (D=64, H=1: six
@@ -1766,7 +1803,9 @@ def phase_attention_kernels():
              ("hstu", 4, 256, 32, 4, 128), ("hstu", 2, 512, 128, 1, 128),
              ("flash", 4, 1024, 64, 4, 128), ("flash", 4, 512, 96, 4, 128),
              ("flash", 4, 256, 256, 1, 128), ("flash", 4, 384, 64, 1, 128),
-             ("flash", 4, 256, 36, 4, 128)]
+             ("flash", 4, 256, 36, 4, 128), ("hstu", 4, 512, 64, 4, 32),
+             ("hstu", 2, 1024, 64, 4, 898), ("hstu", 2, 2048, 64, 1, 1794),
+             ("hstu", 4, 512, 64, 2, 128)]
     ok = True
     for i, (kind, B, L, D, H, NB) in enumerate(cases):
         for dt in (f32, bf16):
@@ -1900,11 +1939,13 @@ def queued_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def phase_attention_times():
+def phase_attention_times(libs):
     """At each main-path shape, in bf16: forward and backward kernels against
-    their plain versions, then timed (CUDA events) beside them, their
-    bounds and, for flash MHA, SDPA; returns (ok, JSON entries without
-    launches, keyed by run)."""
+    their plain versions, then timed (CUDA events, and the kernels' device
+    time by the profiler) beside them, their bounds and, for flash MHA,
+    SDPA; the HSTU attention also beside its first design (the copy in
+    ``libs``, by CUDA events and device time); returns (ok, JSON entries
+    without launches, keyed by run)."""
     import torch
 
     bf16 = torch.bfloat16
@@ -1938,6 +1979,17 @@ def phase_attention_times():
                "bwd": kernel_device_ms(lambda: bwd(q, k, v, dout, aux),
                                        names[1])}
         _free()
+        first = {}
+        if kind != "flash":   # the first design's kernels, same wrappers
+            with first_design(libs):
+                for key, call, names in (
+                        ("fwd", lambda: fwd(q, k, v), HSTU_FIRST[:1]),
+                        ("bwd", lambda: bwd(q, k, v, dout, aux),
+                         HSTU_FIRST[1:])):
+                    first[key] = (time_ms(call, 2 if long_ else 3,
+                                          5 if long_ else 20),
+                                  kernel_device_ms(call, names))
+        _free()
         plain = {"fwd": time_ms(lambda: fwd_p(q, k, v), 1, 1 if long_ else 3)}
         _free()
         plain["bwd"] = time_ms(lambda: bwd_p(q, k, v, dout, ref_aux), 1,
@@ -1951,10 +2003,13 @@ def phase_attention_times():
                                       ("bwd", err_b, bwd_row, lib[1])):
             bound, by, flops, nbytes = attention_bound(
                 kind, B, L, D, H, 2, key == "bwd")
+            fd = (f"first design {first[key][0]:.4f} ms (device "
+                  f"{first[key][1]:.4f}), " if key in first else "")
             log(f"{name}_{key} ({run or 'no run'}: B={B} L={L} D={D} H={H} "
                 f"hd={D // H}): kernel "
                 f"{t[key]:.4f} ms (device {dev[key]:.4f} ms by the "
-                f"profiler), plain {plain[key]:.4f} ms, bound "
+                f"profiler, {flops / dev[key] / 1e9:.1f} TFLOP/s), {fd}"
+                f"plain {plain[key]:.4f} ms, bound "
                 f"{bound:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB), library "
                 + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
@@ -1963,6 +2018,8 @@ def phase_attention_times():
             if run is None:
                 continue
             hd = "" if D // H in (16, 64) else f"_hd{D // H}"
+            if kind != "flash" and key == "bwd":   # the shared backward
+                src = "hstu_attn_bwd_sm90.cuh"
             entries.append((run, {
                 "name": f"{name}_{key}_L{L}_H{H}{hd}", "route": "cuda",
                 "source": SRC + src, "replaces": tpu + row, "launches": None,
@@ -1972,6 +2029,126 @@ def phase_attention_times():
         del q, k, v, dout, valid, rab, aux, ref_aux
         _free()
     return ok_all, entries
+
+
+# ---------------------------------------------------------------------------
+# phase 3b': the shared kernels' numbers, bitwise
+# ---------------------------------------------------------------------------
+
+#: bitwise_digests() of the tree before the standalone HSTU attention moved
+#: onto the shared wgmma loops (commit 9255dd3), as scripts/fused_bwd_ab.py
+#: printed them for that tree on an NVIDIA H100 80GB HBM3 with nvcc
+#: DIGESTS_NVCC: the fused block's and the ring's kernels must still give
+#: these bits. Another nvcc may contract products differently, so under
+#: another release the digests are printed and not compared.
+DIGESTS_NVCC = "12.9"
+DIGESTS_BEFORE = {
+    "flagship_fwd": "fece16080d03e90b",
+    "flagship_train": "99037bbacd114b41",
+    "flagship_bwd": "797bad9d78c1a93f",
+    "long_fwd": "dd1f77a5e15beb07",
+    "long_train": "a1b085e3c2e99513",
+    "long_bwd": "b823b345762ef7e3",
+    "sparse_fwd": "b010e15b193a084a",
+    "sparse_train": "1c5d0d618cb3bc5f",
+    "sparse_bwd": "24df652634ce0360",
+    "ring_fwd_0": "d9759a6dc2b14523",
+    "ring_dq_0": "cc1da4b156f9e496",
+    "ring_dkdv_0": "748d388cf9d9ab09",
+    "ring_fwd_2048": "96af60d42d3c3435",
+    "ring_dq_2048": "ba9d56a9234f0c59",
+    "ring_dkdv_2048": "6d4a1caa05baf27f",
+    "ring_h4_fwd_0": "05d1e2ad221aa14b",
+    "ring_h4_dq_0": "48332edfa1f2c622",
+    "ring_h4_dkdv_0": "55a8a758dc6d1cac",
+    "ring_h4_fwd_1024": "a9299f67db46427e",
+    "ring_h4_dq_1024": "568a93c2597065c9",
+    "ring_h4_dkdv_1024": "b34e1f0057ef489c"}
+
+
+def bitwise_digests():
+    """sha256 prefixes of the fused block's and the ring's outputs in bf16
+    on seeded inputs, which two trees that compute the same numbers share
+    bitwise: the fused forward (inference; training: out and av) and
+    backward (every gradient) at the flagship, long and sparse shapes
+    (dropout 0.01), and the ring's pair forward, dq (with drab) and dk/dv
+    at offsets 0 and +Lc at the S = 2 shard of the long step (B=32, Lc =
+    2048, H=1) and at 4 heads of 16 (B=8, Lc = 1024)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    bf16 = torch.bfloat16
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for x in ts:   # bf16 widens to f32 exactly
+            h.update(x.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    for name, shp in (("flagship", FLAGSHIP), ("long", LONG),
+                      ("sparse", dict(FLAGSHIP, B=64, H=4))):
+        H = shp["H"]
+        x, ops, tt = block_inputs(**shp, dtype=bf16, seed=12)
+        y, av = FB.fused_hstu_block_train(x, ops, tt, H, 5, FLAGSHIP_DROPOUT)
+        dout = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            tuple(x.shape)).astype(np.float32)).to(bf16).cuda()
+        g = FB.fused_hstu_block_bwd(x, av, dout, ops, tt, H, 5,
+                                    FLAGSHIP_DROPOUT)
+        out[f"{name}_fwd"] = digest(FB.fused_hstu_block(x, ops, tt, H))
+        out[f"{name}_train"] = digest(y, av)
+        out[f"{name}_bwd"] = digest(*(g[n] for n in sorted(g)))
+        del x, ops, tt, y, av, dout, g
+        _free()
+    for tag, (B, Lc, H) in (("ring", (32, 2048, 1)),
+                            ("ring_h4", (8, 1024, 4))):
+        q, k, v, dav, valid, rab = _pair_inputs(B, Lc, 64, H, bf16, 61)
+        for off in (0, Lc):
+            out[f"{tag}_fwd_{off}"] = digest(
+                FB.ring_pair_fwd(q, k, v, valid, rab, off, H))
+            out[f"{tag}_dq_{off}"] = digest(
+                *FB.ring_pair_dq(q, k, v, dav, valid, rab, off, H))
+            out[f"{tag}_dkdv_{off}"] = digest(
+                *FB.ring_pair_dkdv(q, k, v, dav, valid, rab, off, H))
+        del q, k, v, dav, valid, rab
+        _free()
+    return out
+
+
+def nvcc_release():
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+
+    text = subprocess.run([kernels.nvcc_path(), "--version"],
+                          capture_output=True, text=True, timeout=60).stdout
+    m = re.search(r"release (\d+\.\d+)", text)
+    return m.group(1) if m else "unknown"
+
+
+def phase_digests():
+    """Prints bitwise_digests() and holds them to DIGESTS_BEFORE under the
+    nvcc release they were recorded with: a differing digest there means
+    this tree changed the fused block's or the ring's numbers."""
+    t0 = time.perf_counter()
+    got = bitwise_digests()
+    release = nvcc_release()
+    compared = bool(DIGESTS_BEFORE) and release == DIGESTS_NVCC
+    differ = sorted(k for k in got
+                    if compared and got[k] != DIGESTS_BEFORE.get(k))
+    log(f"digests of the fused block and the ring (bf16, nvcc {release}): "
+        + json.dumps(got))
+    if not compared:
+        verdict = f"not compared (recorded with nvcc {DIGESTS_NVCC})"
+    elif differ:
+        verdict = "differ at " + ", ".join(differ)
+    else:
+        verdict = "equal"
+    log(f"digests against the recorded ones of 9255dd3: {verdict}; "
+        f"{time.perf_counter() - t0:.1f} s {'FAIL' if differ else 'ok'}")
+    return not differ
 
 
 # ---------------------------------------------------------------------------
@@ -2455,12 +2632,31 @@ def attn_bwd_route(name, by_name):
     return ok
 
 
+def hstu_route(name, by_name, train=True):
+    """Whether a profiled bf16 step (train) or predict batch of an HSTU
+    attention run (hstu_mini, mini_long) ran the standalone attention's
+    wgmma kernels, each with device time: hstu_fwd_wgmma_kernel and,
+    training, the backward pair with reduce_rows_split_kernel; and none of
+    the first design's kernels. Logs the names found."""
+    want = HSTU_WGMMA if train else HSTU_WGMMA[:1]
+    found = {n: sum(v for k, v in by_name.items() if n in k)
+             for n in HSTU_WGMMA + HSTU_FIRST}
+    ok = all(found[n] > 0 for n in want) and not any(
+        found[n] for n in HSTU_FIRST)
+    log(f"{name}: the HSTU attention's wgmma route in the profiled "
+        f"{'step' if train else 'predict batch'} (device ms): "
+        + ", ".join(f"{n} {v:.3f}" for n, v in found.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def phase_train_speed(data, ckpt, run):
     """Train examples/s and tokens/s of the step itself (host clock,
     synchronised, after warm-up, on batches already on the card), and where
     one step's time goes (torch.profiler). Returns whether a fused run's
     profiled step took the attention backward's, the post half's and the
-    gate/FFN backward's wgmma kernels (True for the other runs)."""
+    gate/FFN backward's wgmma kernels, and an HSTU attention run's the
+    standalone attention's (hstu_route; True for the other runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2517,6 +2713,8 @@ def phase_train_speed(data, ckpt, run):
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall):.1%}); "
         f"{run.kernels} forward kernels {fwd:.3f} ms ({fsplit}), backward "
         f"kernels {bwd:.3f} ms ({split}); other kernels (ms): {others}")
+    if run.kernels in ("hstu", "hstu_chunk"):
+        return hstu_route(run.name, by_name)
     if run.kernels != "fused":
         return True
     ok = attn_bwd_route(run.name, by_name)
@@ -2631,7 +2829,8 @@ def phase_serving(ckpt, run):
 def profile_predict(model, params, batch, mm, run):
     """Where one predict batch's time goes: device time by kernel name
     (torch.profiler) against the synchronised host clock. Returns whether a
-    fused run's batch took the wgmma post-half kernel (True for the other
+    fused run's batch took the fused block's wgmma forward kernels, and an
+    HSTU attention run's hstu_fwd_wgmma_kernel (True for the other
     runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2654,6 +2853,8 @@ def profile_predict(model, params, batch, mm, run):
         f"{batch['seq'].shape[0]}): wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall_ms):.1%}); "
         f"{run.kernels} kernels {mine:.3f} ms; other kernels (ms): {others}")
+    if run.kernels in ("hstu", "hstu_chunk"):
+        return hstu_route(run.name, by_name, train=False)
     return run.kernels != "fused" or wgmma_route(run.name, by_name,
                                                 train=False)
 
@@ -3683,7 +3884,9 @@ def main() -> int:
     oks = {"attn_bwd_spills": attn_bwd_spills(report),
            "post_spills": post_spills(report),
            "pre_spills": pre_spills(report),
-           "pair_fwd_spills": pair_fwd_spills(report)}
+           "pair_fwd_spills": fwd_spills(report, "ring_pair", PAIR_FWD[0]),
+           "hstu_fwd_spills": fwd_spills(report, "hstu_attention",
+                                         HSTU_WGMMA[0])}
     t0 = time.perf_counter()
     oks["kernels"] = phase_kernels()
     oks["times"], entries = phase_times(FLAGSHIP)
@@ -3693,7 +3896,8 @@ def main() -> int:
     oks["post"], post = phase_post()
     oks["pre"], pre = phase_pre(libs)
     oks["attention_kernels"] = phase_attention_kernels()
-    oks["attention_times"], attention = phase_attention_times()
+    oks["attention_times"], attention = phase_attention_times(libs)
+    oks["digests"] = phase_digests()
     oks["group_kernels"], group_entries = phase_group_kernels(libs)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 

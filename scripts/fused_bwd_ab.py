@@ -6,9 +6,11 @@ of two commits in one machine's turns.
     python3 scripts/fused_bwd_ab.py ROOT TAG
 
 ROOT is the root of a checkout (this one, or an older commit unpacked with
-``git archive`` into a git-ignored directory); its package, its
-``chip_smoke.py`` helpers and its kernels (built under ROOT/build/) are the
-ones timed. Run it once per side in turns, each side its own process:
+``git archive`` into a git-ignored directory); its package and its kernels
+(built under ROOT/build/) are the ones timed. The inputs, timers and
+digests are those of the ``chip_smoke.py`` beside this script, so that both
+sides take the same inputs. Run it once per side in turns, each side its
+own process:
 
     for t in parent change change parent; do
         r=$([ $t = parent ] && echo build/parent || echo .)
@@ -20,22 +22,25 @@ inference forward), ``fused_hstu_block_train`` and ``fused_hstu_block_bwd``
 at the flagship (B=128, L=1024, D=64, H=1), long (B=32, L=4096) and sparse
 (B=64, L=1024, H=4) shapes, CUDA events over 20 calls after 3 (the
 backward 10 after 2), with the device ms of each kernel name in one
-profiled call of the training forward and the backward, and a digest
-(sha256 of the values) of each forward's outputs, which two commits that
-compute the same numbers share bitwise; the ring's pair kernels at the S =
+profiled call of the training forward and the backward; the ring's pair
+kernels at the S =
 2 shard (B=32, Lc=2048), the mean over offsets 0, 0 and +Lc:
 ``ring_pair_fwd`` (``pair_fwd_wgmma_kernel`` on wgmma, ``pair_fwd_kernel``
 before it) by CUDA events and by its kernel's device ms, ``ring_pair_dq``,
 ``ring_pair_dkdv``; and the pre stage and its backward there
-(``ring_pre_fwd``, ``ring_pre_bwd``: bf16 dq, dk, dv and f32 du). Prints
-``tree TAG <package file>``, then one line ``AB {json}``.
+(``ring_pre_fwd``, ``ring_pre_bwd``: bf16 dq, dk, dv and f32 du); and
+``chip_smoke.bitwise_digests()`` (sha256 of the fused block's forward and
+backward outputs and of the ring's pair kernels'), which two commits that
+compute the same numbers share bitwise. Prints ``tree TAG <package
+file>``, then one line ``AB {json}``.
 """
 
 from __future__ import annotations
 
-import hashlib
+import importlib.util
 import json
 import sys
+from pathlib import Path
 
 
 def main() -> int:
@@ -44,7 +49,11 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
     from tencent_recommendation_2025_tpu_torch.ops import kernels
 
@@ -56,13 +65,6 @@ def main() -> int:
     kernels.build_all(["fused_block", "fused_block_bwd", "ring_pair"])
     bf16 = torch.bfloat16
     out = {"tag": tag, "card": cs.card_line()}
-
-    def digest(*ts):
-        """sha256 of the values (bf16 widens to f32 exactly)."""
-        h = hashlib.sha256()
-        for x in ts:
-            h.update(x.float().cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
 
     def device_ms(fn):
         fn()
@@ -91,8 +93,7 @@ def main() -> int:
         def bwd():
             return FB.fused_hstu_block_bwd(x, av, dout, ops, tt, H, 5, 0.01)
 
-        out[name] = {"fwd_sha": digest(fwd()), "train_sha": digest(*train()),
-                     "fwd_ms": cs.time_ms(fwd, 3, 20),
+        out[name] = {"fwd_ms": cs.time_ms(fwd, 3, 20),
                      "train_ms": cs.time_ms(train, 3, 20),
                      "bwd_ms": cs.time_ms(bwd, 2, 10),
                      "device_train": device_ms(train),
@@ -115,6 +116,7 @@ def main() -> int:
         lambda: FB.ring_pre_fwd(x, ops, 4096, 1), 3, 20)
     out["ring_pre_bwd_ms"] = cs.time_ms(
         lambda: FB.ring_pre_bwd(x, ops, q, k, v, u, 4096, 1), 3, 20)
+    out["digests"] = cs.bitwise_digests()
     print("AB", json.dumps(out), flush=True)
     return 0
 

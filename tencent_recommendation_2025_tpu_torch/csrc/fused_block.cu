@@ -492,7 +492,7 @@ __global__ void __launch_bounds__(fb90::kWg) attn_ffn_wgmma_kernel(Params p) {
       const int h = step / n, kt = step - h * n;
       attn_step<W>(acc, s, q_tile(h), reinterpret_cast<bf16*>(st),
                    reinterpret_cast<bf16*>(st + Cv::kQ), st + Cv::kTiles,
-                   q0 - kt * kRows, r0, c0);
+                   q0 - kt * kRows, r0, c0, 1.0f);
       if (kt == n - 1) {   // head h is summed
         if constexpr (W == DW && DW <= 64) {
           if (direct) {

@@ -4,9 +4,10 @@
 // gate/FFN backward (gate_ffn_bwd_wgmma_kernel), the projection backward
 // (proj_bwd_wgmma_kernel) and the weight-gradient products over tokens
 // (wgrad_wgmma_kernel, all three in csrc/fused_block_bwd.cu); and the
-// attention loop that attn_ffn_wgmma_kernel and the ring's
-// pair_fwd_wgmma_kernel (csrc/ring_pair.cu) both run (attn_issue,
-// attn_step).
+// attention loop that attn_ffn_wgmma_kernel, the ring's
+// pair_fwd_wgmma_kernel (csrc/ring_pair.cu) and the standalone HSTU
+// attention's hstu_fwd_wgmma_kernel (csrc/hstu_attention.cu) all run
+// (attn_issue, attn_step).
 //
 // Conventions (those of csrc/sm90_mma.cuh): one warpgroup of 128 threads
 // owns 64 token rows; a [64 x N] f32 value lives in wgmma's accumulator
@@ -606,8 +607,9 @@ __device__ __forceinline__ void silu_bias(float (&pre)[NF], const float* b,
 
 // ---------------------------------------------------------------------------
 // the attention loop: one 64-query tile against one head's key tiles, a
-// step per key tile (attn_ffn_wgmma_kernel on one device, at distance q -
-// k; pair_fwd_wgmma_kernel on a ring's pair of shards, at q + off - k)
+// step per key tile (attn_ffn_wgmma_kernel on one device and
+// hstu_fwd_wgmma_kernel, at distance q - k; pair_fwd_wgmma_kernel on a
+// ring's pair of shards, at q + off - k)
 // ---------------------------------------------------------------------------
 
 // A step's row data in its stage: the key tile's 64 valid flags (int), then
@@ -651,18 +653,21 @@ __device__ __forceinline__ void attn_issue(bf16* kt, bf16* vt,
 // One step on a stage whose loads have landed (after the ring's wait and
 // fence; the barrier inside makes every thread's copies visible): acc (64 x
 // W, f32) += T(a) v_h, with S = q_h k_h^T (SS wgmma) into s and a =
-// silu(s + bias) where the pair's distance based + r - c is >= 0 and its
-// key valid, else 0, in registers; T(a) goes straight into the A fragments
-// of the RS wgmma. A tile whose pairs are all visible (every key valid,
-// every distance >= 0) takes the unmasked path. s is the caller's scratch;
-// r0 and c0 are acc_row(0) and acc_col(0), which the caller computes once
-// for its whole loop.
+// silu(s + bias) * a_mul where the pair's distance based + r - c is >= 0
+// and its key valid, else 0, in registers; T(a) goes straight into the A
+// fragments of the RS wgmma. a_mul is 1 for the fused block and the ring
+// (their v is already scaled by 1/L: a literal 1.0f folds away) and 1/L for
+// the standalone HSTU attention, which rounds a after the factor. A tile
+// whose pairs are all visible (every key valid, every distance >= 0) takes
+// the unmasked path. s is the caller's scratch; r0 and c0 are acc_row(0)
+// and acc_col(0), which the caller computes once for its whole loop.
 template <int W>
 __device__ __forceinline__ void attn_step(float (&acc)[W / 2],
                                           float (&s)[32], const bf16* q,
                                           const bf16* kt, const bf16* vt,
                                           const unsigned char* rows,
-                                          int based, int r0, int c0) {
+                                          int based, int r0, int c0,
+                                          float a_mul) {
   const int tid = threadIdx.x;
   const int* kv = reinterpret_cast<const int*>(rows);
   const float* rw = reinterpret_cast<const float*>(rows + kBiasAt);
@@ -679,7 +684,7 @@ __device__ __forceinline__ void attn_step(float (&acc)[W / 2],
       const int c = c0 + ((i >> 2) << 3) + (i & 1);
       const float a = fast_silu(s[i] + rw[r - c + kRows - 1]);
       const bool vis = !kMasked || (based + r - c >= 0 && kv[c] != 0);
-      s[i] = vis ? a : 0.0f;
+      s[i] = vis ? a * a_mul : 0.0f;
     }
   };
   if (full && based >= kRows - 1)

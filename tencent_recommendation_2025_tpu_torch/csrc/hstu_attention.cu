@@ -2,10 +2,13 @@
 // backward, whole sequence and chunked over keys.
 //
 // Replaces tencent_recommendation_2025_tpu/ops/hstu_attention.py::
-// _fwd_kernel (l.164) and _fwd_kernel_chunk (l.297) with hstu_fwd_kernel,
-// and ::_bwd_kernel (l.193), _dq_kernel_chunk (l.331) and
-// _dkdv_kernel_chunk (l.380) with hstu_bwd_dq_kernel, hstu_bwd_dkdv_kernel
-// and reduce_rows_kernel. Per batch row and head h, with q, k, v, dout
+// _fwd_kernel (l.164) and _fwd_kernel_chunk (l.297) with
+// hstu_fwd_wgmma_kernel (bf16, hd <= 128) or hstu_fwd_kernel, and
+// ::_bwd_kernel (l.193), _dq_kernel_chunk (l.331) and _dkdv_kernel_chunk
+// (l.380) with attn_bwd_dq_wgmma_kernel, attn_bwd_dkdv_wgmma_kernel and
+// reduce_rows_split_kernel (csrc/hstu_attn_bwd_sm90.cuh, bf16, hd <= 128)
+// or hstu_bwd_dq_kernel, hstu_bwd_dkdv_kernel and reduce_rows_kernel. Per
+// batch row and head h, with q, k, v, dout
 // [B, L, D] head-packed (D = H * hd, post-SiLU) in the compute dtype T
 // (bf16 on the product path, f32 in the checks) and rab [H, NB] f32:
 //
@@ -33,21 +36,48 @@
 // Design. The TPU's whole-sequence kernel runs a grid of (B,) over one
 // row's whole [L, D] in VMEM; its chunked kernels stream [blk, D] key tiles
 // on a (B, nq, nk) grid with an f32 accumulator carried across the key
-// axis. Here one block of 256 threads owns one (query tile, head, batch
-// row) and streams key tiles of its head's slice through shared memory up
-// to the diagonal (tiles above it skipped, heaviest query tiles first), so
-// shared memory is flat in L and one design serves both: the chunked route
-// differs only in its launch count (ops/hstu_attention.py). Tiles are TQ =
-// 64 rows, or 32 or 16 where a wide head (hd up to 256) would not fit 227
-// KB of shared memory. Products are 16x16x16 WMMA tiles, bf16 with f32
-// accumulators, where hd % 16 == 0; FMA loops otherwise (any hd) and for
-// T = f32 (the check instance); the bias, SiLU and mask are f32. The
-// backward is the fused block's attention half on this layout:
-// hstu_bwd_dq walks the key tiles of a query tile (dq), hstu_bwd_dkdv the
-// query tiles at or below a key tile's diagonal (dk, dv, and the rel-pos
-// gradient summed per tile diagonal into a per-(batch row, key tile)
-// slice), and reduce_rows sums the slices in a fixed order. No atomics: deterministic. Offsets into
-// [B, L, D] and the slices are 64-bit.
+// axis. Here every kernel streams key (or query) tiles through shared
+// memory at any L, so one design serves both routes, which differ only in
+// their launch counts (ops/hstu_attention.py). Two designs, chosen by
+// hstu_wgmma_route (below):
+//
+// - bf16 with head slices in whole 16-byte chunks at most 128 wide (every
+//   HSTU preset, hd 8 included): the wgmma kernels, the loops that the
+//   fused block and the ring already run. hstu_fwd_wgmma_kernel<W> is the
+//   ring's pair_fwd_wgmma_kernel at offset 0 with Lq = Lk = L: one
+//   warpgroup per (64-query tile, batch row) with all its heads, the
+//   heaviest tiles first; qs = T(q_h hd^-1/2) of every head held in
+//   swizzled shared memory (rounded as the tile lands, padded with zeros to
+//   W = 16, 32, 64 or 128 columns); a two-stage cp.async ring over (head,
+//   key tile up to the diagonal) streams k_h, v_h, the keys' valid flags
+//   and the tile's 127 biases into the attention step of
+//   csrc/fused_block_sm90.cuh (attn_step: S = qs k^T as an SS wgmma,
+//   silu, bias, mask and 1/L in registers, acc += T(a) v_h as an RS
+//   wgmma); each head's sum is stored in bf16 from the accumulator. The
+//   backward is the fused block's pair of kernels in their standalone
+//   instance (q rounded to T(q hd^-1/2) in shared memory, a and ds times
+//   1/L before they round, bf16 outputs) with the rel-pos partials per
+//   (batch row, query tile) summed by reduce_rows_split_kernel.
+// - f32 (the tight check instance) and hd 129-256: the first design below.
+//
+// The first design: one block of 256 threads owns one (query tile, head,
+// batch row) and streams key tiles of its head's slice through shared
+// memory up to the diagonal (tiles above it skipped, heaviest query tiles
+// first), so shared memory is flat in L. Tiles are TQ = 64 rows, or 32 or
+// 16 where a wide head (hd up to 256) would not fit 227 KB of shared
+// memory. Products are 16x16x16 WMMA tiles, bf16 with f32 accumulators,
+// where hd % 16 == 0; FMA loops otherwise (any hd) and for T = f32 (the
+// check instance); the bias, SiLU and mask are f32. The backward is the
+// fused block's attention half on this layout: hstu_bwd_dq walks the key
+// tiles of a query tile (dq), hstu_bwd_dkdv the query tiles at or below a
+// key tile's diagonal (dk, dv, and the rel-pos gradient summed per tile
+// diagonal into a per-(batch row, key tile) slice), and reduce_rows sums
+// the slices in a fixed order.
+//
+// Both designs: no atomics, so two calls give the same bits (drab
+// included); padded queries are not masked, as in the TPU kernels, and a
+// batch row with no valid key gives exact zeros. Offsets into [B, L, D]
+// and the partials are 64-bit.
 //
 // Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s). hstu_mini with --maxlen
 // 255 (B=64, L=256, D=64, H=4): forward 0.54 GFLOP of causal products
@@ -55,10 +85,14 @@
 // bytes; backward 1.35 GFLOP (s, da, dv, dq, dk) against 14.7 MB: 4.4 us,
 // bytes. With --maxlen 4095 (B=32, L=4096, D=64, H=4): forward 68.7 GFLOP,
 // 0.069 ms; backward 171.8 GFLOP, 0.174 ms; both bound by operations.
-// This first kernel recomputes s and da in both backward kernels and
-// stages every product through shared memory.
+// The first design recomputes s and da in both backward kernels and
+// stages every product through shared memory; the wgmma kernels recompute s
+// and da too (7 products where the least work is 5), with their operands
+// and accumulators in registers.
 
 #include "fused_block_common.cuh"
+#include "fused_block_sm90.cuh"
+#include "hstu_attn_bwd_sm90.cuh"
 
 using namespace fbk;
 
@@ -450,6 +484,171 @@ int launch_bwd(const HstuArgs& p, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the wgmma design (bf16, hd % 8 == 0, hd <= 128)
+// ---------------------------------------------------------------------------
+
+// The forward's shared memory: the qs tiles of every head held, k and v of
+// each (head, key tile) step and its row data through the ring.
+template <int W>
+__host__ __device__ inline sm90::Carve<W> fwd_carve(int H) {
+  return sm90::Carve<W>{H, 2, 0};
+}
+
+template <int W>
+__global__ void __launch_bounds__(fb90::kWg, W <= 64 ? 4 : 2)
+    hstu_fwd_wgmma_kernel(HstuArgs p) {
+  constexpr int kR = fb90::kRows;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  const sm90::Carve<W> cv = fwd_carve<W>(p.H);
+  const int D = p.D, H = p.H, hd = D / H, NB = p.NB;
+  const int b = blockIdx.y, qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kR;
+  const int n = qt + 1;   // key tiles 0 .. qt hold a pair at distance >= 0
+  const int steps = H * n;
+  const size_t rowq = (size_t)b * p.L + q0, rowk = (size_t)b * p.L;
+  const bf16* K = static_cast<const bf16*>(p.k) + rowk * D;
+  const bf16* V = static_cast<const bf16*>(p.v) + rowk * D;
+  bf16* out = static_cast<bf16*>(p.out) + rowq * D;
+
+  // qs = T(q_h hd^-1/2) of every head; the loads never write the padding
+  // columns hd..W-1, so those are zeroed first. The ring's first fence and
+  // the barrier in attn_step make these stores visible to the products.
+  if (hd < W) sm90::zero_smem(base, (size_t)H * cv.kTileBytes, fb90::kWg);
+  __syncthreads();
+  for (int h = 0; h < H; ++h)
+    sm90::load_tile_sync<W>(cv.held(base, h),
+                            static_cast<const bf16*>(p.q) + rowq * D + h * hd,
+                            D, kR, hd, fb90::kWg, true, p.scale, true);
+  auto issue = [&](int s) {
+    if (s < steps) {
+      const int h = s / n, k0 = (s - h * n) * kR, st = s % sm90::kStages;
+      fb90::attn_issue<W, false>(
+          cv.tile(base, st, 0), cv.tile(base, st, 1), cv.rows(base, st),
+          K + (size_t)k0 * D + h * hd, V + (size_t)k0 * D + h * hd,
+          p.valid + rowk + k0, p.rab + (size_t)h * NB, D, hd, kR, q0 - k0,
+          NB);
+    }
+    sm90::cp_async_commit();
+  };
+
+  // head h's sum to its columns in bf16, the accumulator cleared
+  float acc[W / 2], s[32];
+  const int r0 = sm90::acc_row(0), c0 = sm90::acc_col(0);
+  auto store = [&](int h) {
+#pragma unroll
+    for (int i = 0; i < W / 2; i += 2) {
+      const int r = sm90::acc_row(i), c = sm90::acc_col(i);
+      if (c < hd)
+        hstu_bwd::store_pair(out + (size_t)r * D + h * hd + c, acc[i],
+                             acc[i + 1]);
+      acc[i] = acc[i + 1] = 0.0f;
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+  issue(0);
+  for (int step = 0; step < steps; ++step) {
+    issue(step + 1);
+    sm90::cp_async_wait<1>();
+    sm90::fence_async_smem();
+    const int h = step / n, kt = step - h * n, st = step % sm90::kStages;
+    fb90::attn_step<W>(acc, s, cv.held(base, h), cv.tile(base, st, 0),
+                       cv.tile(base, st, 1), cv.rows(base, st), q0 - kt * kR,
+                       r0, c0, p.inv_len);
+    if (kt == n - 1) store(h);
+    __syncthreads();  // this stage is read; a later issue reloads it
+  }
+}
+
+// Whether the wgmma kernels take H heads of D / H columns: the attention
+// loop takes them (fb90::attn_heads: hd % 8 == 0, hd <= 128; every HSTU
+// preset) and the forward's held q tiles fit shared memory (H x W up to
+// about 1,700 columns).
+bool wgmma_heads(int D, int H) {
+  if (H <= 0 || D % H != 0 || !fb90::attn_heads(D, H)) return false;
+  switch (sm90::wgmma_width(D / H)) {
+    case 16: return fwd_carve<16>(H).bytes() <= kMaxSmem;
+    case 32: return fwd_carve<32>(H).bytes() <= kMaxSmem;
+    case 64: return fwd_carve<64>(H).bytes() <= kMaxSmem;
+    default: return fwd_carve<128>(H).bytes() <= kMaxSmem;
+  }
+}
+
+// Which design runs: the wgmma kernels in bf16 where they take the heads;
+// the first design in f32 (the tight check instance) and for other heads
+// (hd 129-256). The one place that chooses: a launch the chosen design
+// cannot make fails, and the wrapper raises.
+bool hstu_wgmma_route(bool is_bf16, int D, int H) {
+  return is_bf16 && wgmma_heads(D, H);
+}
+
+template <int W>
+int launch_fwd_wgmma(const HstuArgs& p, cudaStream_t stream) {
+  return hstu_bwd::launch_kernel(hstu_fwd_wgmma_kernel<W>,
+                                 dim3(p.L / fb90::kRows, p.B), fb90::kWg,
+                                 fwd_carve<W>(p.H).bytes(), stream, p);
+}
+
+int launch_fwd_wgmma_any(const HstuArgs& p, cudaStream_t stream) {
+  // the operands it copies and stores in 16-byte chunks: a misaligned one
+  // fails the launch (the wrapper checks their alignment first)
+  if (!sm90::aligned16(p.q) || !sm90::aligned16(p.k) ||
+      !sm90::aligned16(p.v) || !sm90::aligned16(p.out))
+    return (int)cudaErrorInvalidValue;
+  switch (sm90::wgmma_width(p.D / p.H)) {
+    case 16: return launch_fwd_wgmma<16>(p, stream);
+    case 32: return launch_fwd_wgmma<32>(p, stream);
+    case 64: return launch_fwd_wgmma<64>(p, stream);
+    default: return launch_fwd_wgmma<128>(p, stream);
+  }
+}
+
+// The backward's arguments at offset 0 with the standalone rounding points:
+// q rounds to T(q hd^-1/2), a and ds take 1/L before they round, dq is
+// times hd^-1/2 and every gradient but drab is stored in T.
+hstu_bwd::AttnBwdArgs attn_args(const HstuArgs& p) {
+  hstu_bwd::AttnBwdArgs a = {};
+  a.q = p.q;
+  a.k = p.k;
+  a.v = p.v;
+  a.dav = p.dout;
+  a.valid = p.valid;
+  a.rab = p.rab;
+  a.dq = p.dq;
+  a.dk = p.dk;
+  a.dv = p.dv;
+  a.part_rab = p.part_rab;
+  a.drab = p.drab;
+  a.B = p.B;
+  a.Lq = a.Lk = p.L;
+  a.D = p.D;
+  a.H = p.H;
+  a.NB = p.NB;
+  a.off = 0;
+  a.dq_scale = p.scale;
+  a.q_scale = p.scale;
+  a.a_mul = p.inv_len;
+  return a;
+}
+
+int launch_bwd_wgmma(const HstuArgs& p, cudaStream_t stream) {
+  if (!sm90::aligned16(p.q) || !sm90::aligned16(p.k) ||
+      !sm90::aligned16(p.v) || !sm90::aligned16(p.dout) ||
+      !sm90::aligned16(p.dq) || !sm90::aligned16(p.dk) ||
+      !sm90::aligned16(p.dv))
+    return (int)cudaErrorInvalidValue;
+  const hstu_bwd::AttnBwdArgs a = attn_args(p);
+  switch (sm90::wgmma_width(p.D / p.H)) {
+    case 16: return hstu_bwd::launch_wgmma<16, true>(a, true, true, stream);
+    case 32: return hstu_bwd::launch_wgmma<32, true>(a, true, true, stream);
+    case 64: return hstu_bwd::launch_wgmma<64, true>(a, true, true, stream);
+    default: return hstu_bwd::launch_wgmma<128, true>(a, true, true, stream);
+  }
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). q, k, v, out, dout, dq, dk, dv
@@ -459,11 +658,14 @@ int launch_bwd(const HstuArgs& p, cudaStream_t stream) {
 // 16-byte aligned. Requires L % 64 == 0, D % H == 0 and hd = D / H at most
 // 256. Each launch returns a cudaError_t code (0 on success).
 
-// The backward's query/key tile rows at this dtype, head dim and bucket
-// count (64, 32 or 16; 0 where no tile fits).
-extern "C" int hstu_attn_bwd_tile(int is_bf16, int hd, int NB) {
-  return is_bf16 ? pick_tile<bf16>(hd, NB, true)
-                 : pick_tile<float>(hd, NB, true);
+// The backward's query rows per rel-pos partial at this dtype, shape and
+// bucket count: 64 on the wgmma route; the first design's tile (64, 32 or
+// 16) otherwise; 0 where no tile fits.
+extern "C" int hstu_attn_bwd_tile(int is_bf16, int D, int H, int NB) {
+  if (H <= 0 || D % H != 0) return 0;
+  if (hstu_wgmma_route(is_bf16 != 0, D, H)) return hstu_bwd::kTile;
+  return is_bf16 ? pick_tile<bf16>(D / H, NB, true)
+                 : pick_tile<float>(D / H, NB, true);
 }
 
 extern "C" int hstu_attn_fwd(int is_bf16, const void* q, const void* k,
@@ -487,6 +689,7 @@ extern "C" int hstu_attn_fwd(int is_bf16, const void* q, const void* k,
   p.scale = scale;
   p.inv_len = inv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hstu_wgmma_route(is_bf16 != 0, D, H)) return launch_fwd_wgmma_any(p, s);
   return is_bf16 ? launch_fwd<bf16>(p, s) : launch_fwd<float>(p, s);
 }
 
@@ -517,5 +720,6 @@ extern "C" int hstu_attn_bwd(int is_bf16, const void* q, const void* k,
   p.scale = scale;
   p.inv_len = inv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hstu_wgmma_route(is_bf16 != 0, D, H)) return launch_bwd_wgmma(p, s);
   return is_bf16 ? launch_bwd<bf16>(p, s) : launch_bwd<float>(p, s);
 }

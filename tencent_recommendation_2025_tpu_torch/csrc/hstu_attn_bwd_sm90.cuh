@@ -1,13 +1,15 @@
-// The HSTU attention backward (dq, dk/dv and the rel-pos gradient) of the
-// fused block for Hopper, sm_90a: one pair of kernels that the single-device
-// fused backward (csrc/fused_block_bwd.cu, at off 0 and Lq = Lk = L) and
-// the sequence-parallel ring (csrc/ring_pair.cu, once per pair of shards)
-// both launch.
+// The HSTU attention backward (dq, dk/dv and the rel-pos gradient) for
+// Hopper, sm_90a: one pair of kernels that the single-device fused backward
+// (csrc/fused_block_bwd.cu, at off 0 and Lq = Lk = L), the
+// sequence-parallel ring (csrc/ring_pair.cu, once per pair of shards) and
+// the standalone HSTU attention (csrc/hstu_attention.cu, at off 0) launch.
 //
 // Replaces, in tencent_recommendation_2025_tpu/ops/fused_block.py, the
 // attention half of _bwd_kernel (l.325), _bwd_dq_kernel_chunk (l.533),
 // _bwd_dkdv_kernel_chunk (l.573), _pair_dq_kernel (l.1304) and
-// _pair_dkdv_kernel (l.1345). With q [B, Lq, D] (scaled by hd^-1/2), k and
+// _pair_dkdv_kernel (l.1345); in ops/hstu_attention.py, in bf16 at hd <=
+// 128, _bwd_kernel (l.193), _dq_kernel_chunk (l.331) and _dkdv_kernel_chunk
+// (l.380). With q [B, Lq, D] (scaled by hd^-1/2), k and
 // v [B, Lk, D] (v scaled by 1/L), dav [B, Lq, D], all in the compute dtype
 // T, a query at row r and a key at column c at the distance dist = r + off
 // - c, per head h:
@@ -23,6 +25,17 @@
 // the scaled q). a and ds round to T only as product operands; everything
 // elementwise is f32 (the TPU kernels' rounding points). Padded queries are
 // not masked, as there. Every output is f32.
+//
+// The standalone HSTU attention (ops/hstu_attention.py) takes q and v as
+// they are and rounds at its own points, which the kernels' kStandalone
+// instance (template parameter) keeps: q becomes T(q * q_scale) (q_scale =
+// hd^-1/2) in shared memory before any product reads it; a and ds are
+// multiplied by a_mul (1/L) before they round, ds before it adds to drab;
+// dq (times dq_scale = hd^-1/2), dk and dv are stored in T. T(x / L) is
+// T(x) / L only where L is a power of two, so the factors go exactly where
+// the plain version applies them. The other instance ignores these
+// fields and compiles no extra operation, so the fused block's and the
+// ring's numbers do not depend on them.
 //
 // Which kernels take which shape: bf16 with hd % 8 == 0, hd <= 128 and
 // both lengths multiples of 64 (every fused preset, single device or ring)
@@ -47,7 +60,9 @@
 //   so that T(a)^T and T(ds)^T are register A operands of dV += T(a)^T.dAV
 //   and dK += T(ds)^T.Q. 4 products a pair.
 //
-// W is hd padded to 16, 32, 64 or 128 columns with zeros in shared memory.
+// W is hd padded to 16, 32, 64 or 128 columns with zeros in shared memory;
+// kStandalone selects the standalone attention's rounding points and bf16
+// outputs (above).
 // Tiles whose pairs all lie in the future are skipped; a tile whose pairs
 // are all visible (every key valid, every distance >= 0) takes an
 // elementwise path with no mask. The sigmoid runs on the special-function
@@ -79,20 +94,22 @@ using fbk::bf16;
 
 // The backward's arguments, built by each caller from its own.
 struct AttnBwdArgs {
-  const void* q;     // [B, Lq, D] T, scaled by hd^-1/2
+  const void* q;     // [B, Lq, D] T, scaled by hd^-1/2 (standalone: not)
   const void* k;     // [B, Lk, D] T
-  const void* v;     // [B, Lk, D] T, scaled by 1/L
+  const void* v;     // [B, Lk, D] T, scaled by 1/L (standalone: not)
   const void* dav;   // [B, Lq, D] T
   const int* valid;  // [B, Lk] nonzero = valid key
   const float* rab;  // [H, NB]
-  float* dq;         // [B, Lq, D], times dq_scale
-  float* dk;         // [B, Lk, D]
-  float* dv;         // [B, Lk, D], w.r.t. the scaled v
+  void* dq;          // [B, Lq, D] f32 (standalone: T), times dq_scale
+  void* dk;          // [B, Lk, D] f32 (standalone: T)
+  void* dv;          // [B, Lk, D] f32 (standalone: T), w.r.t. the v taken
   float* part_rab;   // [B * Lq / 16, H * NB]: per-(query tile, row) partials
   float* drab;       // [H, NB]
   int B, Lq, Lk, D, H, NB;
   int off;           // first query position minus first key position
   float dq_scale;
+  float q_scale;     // standalone: q rounds to T(q * q_scale) first
+  float a_mul;       // standalone: a and ds times a_mul before rounding
 };
 
 // ===========================================================================
@@ -221,7 +238,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int i = threadIdx.x; i < TT * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
-    p.dq[(rowq + r) * D + d] = dq[r * ldf + d] * p.dq_scale;
+    static_cast<float*>(p.dq)[(rowq + r) * D + d] =
+        dq[r * ldf + d] * p.dq_scale;
   }
   float* out = p.part_rab + ((size_t)b * gridDim.x + qt) * H * NB;
   for (int i = threadIdx.x; i < H * NB; i += kThreads) out[i] = drab[i];
@@ -313,8 +331,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int i = threadIdx.x; i < TT * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
-    p.dk[(rowk + r) * D + d] = dk[r * ldf + d];
-    p.dv[(rowk + r) * D + d] = dv[r * ldf + d];
+    static_cast<float*>(p.dk)[(rowk + r) * D + d] = dk[r * ldf + d];
+    static_cast<float*>(p.dv)[(rowk + r) * D + d] = dv[r * ldf + d];
   }
 }
 
@@ -382,18 +400,40 @@ __host__ __device__ inline Carve<W> dkdv_carve() {
 }
 
 // Writes this thread's part of a 64 x W f32 accumulator, times `scale`, to
-// rows of `out` (row stride D), the first hd columns (hd even).
-template <int W>
-__device__ __forceinline__ void store_rows_f32(const float (&acc)[W / 2],
-                                               float* out, int D, int hd,
-                                               float scale) {
+// rows of `out` (row stride D), the first hd columns (hd even): f32 pairs,
+// or pairs rounded to bf16.
+__device__ __forceinline__ void store_pair(float* out, float a, float b) {
+  *reinterpret_cast<float2*>(out) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store_pair(bf16* out, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+}
+
+template <int W, typename O>
+__device__ __forceinline__ void store_rows(const float (&acc)[W / 2], O* out,
+                                           int D, int hd, float scale) {
 #pragma unroll
   for (int i = 0; i < W / 2; i += 2) {
     const int r = acc_row(i), c = acc_col(i);
     if (c < hd)
-      *reinterpret_cast<float2*>(out + (size_t)r * D + c) =
-          make_float2(acc[i] * scale, acc[i + 1] * scale);
+      store_pair(out + (size_t)r * D + c, acc[i] * scale, acc[i + 1] * scale);
   }
+}
+
+// The instance's output type: T (bf16) for the standalone attention, f32
+// for the fused block and the ring.
+template <bool kStandalone>
+using BwdOut = typename std::conditional<kStandalone, bf16, float>::type;
+
+// x * m in the standalone instance (a and ds times 1/L before they round);
+// x itself in the other, which compiles no multiply by 1.
+template <bool kStandalone>
+__device__ __forceinline__ float own_mul(float x, float m) {
+  if constexpr (kStandalone)
+    return x * m;
+  else
+    return x;
 }
 
 // The elementwise steps run in two instances: `masked` tests each pair's
@@ -401,7 +441,7 @@ __device__ __forceinline__ void store_rows_f32(const float (&acc)[W / 2],
 using Masked = std::true_type;
 using Dense = std::false_type;
 
-template <int W>
+template <int W, bool kStandalone>
 __global__ void __launch_bounds__(kWg)
     attn_bwd_dq_wgmma_kernel(AttnBwdArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -429,8 +469,10 @@ __global__ void __launch_bounds__(kWg)
   __syncthreads();
   for (int j = tid; j < NB; j += kWg) drab[j] = 0.0f;
   const size_t rowq = (size_t)b * p.Lq + q0;
+  // the standalone instance rounds T(q * q_scale) here, before any product
   sm90::load_tile_sync<W>(qs, static_cast<const bf16*>(p.q) + rowq * D + col,
-                          D, kTile, hd, kWg, true, 1.0f, false);
+                          D, kTile, hd, kWg, true,
+                          kStandalone ? p.q_scale : 1.0f, kStandalone);
   sm90::load_tile_sync<W>(dbs,
                           static_cast<const bf16*>(p.dav) + rowq * D + col, D,
                           kTile, hd, kWg, true, 1.0f, false);
@@ -458,6 +500,7 @@ __global__ void __launch_bounds__(kWg)
 
   float s[32], da[32], dq[W / 2];
   float far = 0.0f;   // this thread's share of the clamped bucket NB - 1
+  const float a_mul = p.a_mul;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = da[i] = 0.0f;
 #pragma unroll
@@ -474,7 +517,7 @@ __global__ void __launch_bounds__(kWg)
       float a, g;
       silu_pair(s[i] + rw[r - c + kTile - 1], a, g);
       const bool vis = !kMasked || (based + r - c >= 0 && kv[c] != 0);
-      da[i] = vis ? da[i] * g : 0.0f;
+      da[i] = vis ? own_mul<kStandalone>(da[i] * g, a_mul) : 0.0f;
     }
   };
 
@@ -544,7 +587,9 @@ __global__ void __launch_bounds__(kWg)
     sm90::reg_fence(dq);
     __syncthreads();  // this stage and the ds tile are read
   }
-  store_rows_f32<W>(dq, p.dq + rowq * D + col, D, hd, p.dq_scale);
+  using O = BwdOut<kStandalone>;
+  store_rows<W>(dq, static_cast<O*>(p.dq) + rowq * D + col, D, hd,
+                p.dq_scale);
 
   // the clamped bucket: the threads' sums in a fixed order
   far = fbk::warp_sum(far);
@@ -557,7 +602,7 @@ __global__ void __launch_bounds__(kWg)
   for (int j = tid; j < NB; j += kWg) out[j] = drab[j];
 }
 
-template <int W>
+template <int W, bool kStandalone>
 __global__ void __launch_bounds__(kWg)
     attn_bwd_dkdv_wgmma_kernel(AttnBwdArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -607,6 +652,7 @@ __global__ void __launch_bounds__(kWg)
   };
 
   float s[32], da[32], dk[W / 2], dv[W / 2];
+  const float a_mul = p.a_mul;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = da[i] = 0.0f;
 #pragma unroll
@@ -627,8 +673,8 @@ __global__ void __launch_bounds__(kWg)
       silu_pair(s[i] + rw[c - r + kTile - 1], a, g);
       const bool vis = !kMasked || (based + c - r >= 0 &&
                                     ((i >> 1) & 1 ? kv1 : kv0));
-      s[i] = vis ? a : 0.0f;
-      da[i] = vis ? da[i] * g : 0.0f;
+      s[i] = vis ? own_mul<kStandalone>(a, a_mul) : 0.0f;
+      da[i] = vis ? own_mul<kStandalone>(da[i] * g, a_mul) : 0.0f;
     }
   };
 
@@ -636,9 +682,12 @@ __global__ void __launch_bounds__(kWg)
   for (int step = 0; step < n; ++step) {
     issue(step + kStages - 1);
     sm90::cp_async_wait<kStages - 1>();
+    const int st = step % kStages;
+    // the standalone instance: T(q * q_scale) on the chunks this thread
+    // copied, before the fence and the barrier
+    if constexpr (kStandalone) cp.scale(cv.tile(base, st, 0), p.q_scale);
     sm90::fence_async_smem();
     __syncthreads();
-    const int st = step % kStages;
     const bf16* qs = cv.tile(base, st, 0);
     const bf16* dbs = cv.tile(base, st, 1);
     const float* rw = reinterpret_cast<const float*>(cv.rows(base, st));
@@ -669,8 +718,9 @@ __global__ void __launch_bounds__(kWg)
     sm90::reg_fence(dk);
     __syncthreads();  // this stage is read; a later issue reloads it
   }
-  store_rows_f32<W>(dk, p.dk + rowk * D + col, D, hd, 1.0f);
-  store_rows_f32<W>(dv, p.dv + rowk * D + col, D, hd, 1.0f);
+  using O = BwdOut<kStandalone>;
+  store_rows<W>(dk, static_cast<O*>(p.dk) + rowk * D + col, D, hd, 1.0f);
+  store_rows<W>(dv, static_cast<O*>(p.dv) + rowk * D + col, D, hd, 1.0f);
 }
 
 // ===========================================================================
@@ -709,11 +759,11 @@ inline int reduce_rab(const AttnBwdArgs& p, int tile, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int W>
+template <int W, bool kStandalone>
 inline int launch_wgmma(const AttnBwdArgs& p, bool dq, bool dkdv,
                         cudaStream_t stream) {
   if (dq) {
-    const int e = launch_kernel(attn_bwd_dq_wgmma_kernel<W>,
+    const int e = launch_kernel(attn_bwd_dq_wgmma_kernel<W, kStandalone>,
                                 dim3(p.Lq / kTile, p.H, p.B), kWg,
                                 dq_carve<W>(p.NB).bytes(), stream, p);
     if (e != 0) return e;
@@ -721,7 +771,7 @@ inline int launch_wgmma(const AttnBwdArgs& p, bool dq, bool dkdv,
     if (e2 != 0) return e2;
   }
   if (dkdv)
-    return launch_kernel(attn_bwd_dkdv_wgmma_kernel<W>,
+    return launch_kernel(attn_bwd_dkdv_wgmma_kernel<W, kStandalone>,
                          dim3(p.Lk / kTile, p.H, p.B), kWg,
                          dkdv_carve<W>().bytes(), stream, p);
   return 0;
@@ -737,10 +787,10 @@ inline int launch(const AttnBwdArgs& p, bool dq, bool dkdv,
     return (int)cudaErrorInvalidValue;
   if (std::is_same<T, bf16>::value && wgmma_shape(p)) {
     switch (wgmma_width(p.D / p.H)) {
-      case 16: return launch_wgmma<16>(p, dq, dkdv, stream);
-      case 32: return launch_wgmma<32>(p, dq, dkdv, stream);
-      case 64: return launch_wgmma<64>(p, dq, dkdv, stream);
-      default: return launch_wgmma<128>(p, dq, dkdv, stream);
+      case 16: return launch_wgmma<16, false>(p, dq, dkdv, stream);
+      case 32: return launch_wgmma<32, false>(p, dq, dkdv, stream);
+      case 64: return launch_wgmma<64, false>(p, dq, dkdv, stream);
+      default: return launch_wgmma<128, false>(p, dq, dkdv, stream);
     }
   }
   const int TT = generic_tile<T>(p);

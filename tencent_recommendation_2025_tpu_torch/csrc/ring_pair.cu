@@ -249,7 +249,7 @@ __global__ void __launch_bounds__(fb90::kWg, W <= 64 ? 4 : 2)
     const int h = step / n, kt = step - h * n, st = step % sm90::kStages;
     fb90::attn_step<W>(acc, s, cv.held(base, h), cv.tile(base, st, 0),
                        cv.tile(base, st, 1), cv.rows(base, st),
-                       q0 + p.off - kt * kR, r0, c0);
+                       q0 + p.off - kt * kR, r0, c0, 1.0f);
     if (kt == n - 1) store(h);
     __syncthreads();  // this stage is read; a later issue reloads it
   }

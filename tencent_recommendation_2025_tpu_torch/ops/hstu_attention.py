@@ -12,11 +12,25 @@ with T the compute dtype (bf16 on the card's product path, f32 in the
 checks) and ``seq_len`` the padded length. The backward gives dq, dk, dv in
 T and ``drab`` [H, buckets] in f32, summed over the batch.
 
-Kernels (``csrc/hstu_attention.cu``): ``hstu_fwd_kernel`` replaces
-``_fwd_kernel`` (l.164) and ``_fwd_kernel_chunk`` (l.297);
-``hstu_bwd_dq_kernel``, ``hstu_bwd_dkdv_kernel`` and ``reduce_rows_kernel``
-replace ``_bwd_kernel`` (l.193), ``_dq_kernel_chunk`` (l.331) and
-``_dkdv_kernel_chunk`` (l.380). The TPU kernels read the bias from
+Kernels (``csrc/hstu_attention.cu``), two designs chosen in one place on
+the C side (``hstu_wgmma_route``):
+
+- bf16 with hd % 8 == 0 and hd <= 128 (every HSTU preset): Hopper wgmma
+  kernels on the loops the fused block and the ring already run.
+  ``hstu_fwd_wgmma_kernel`` replaces ``_fwd_kernel`` (l.164) and
+  ``_fwd_kernel_chunk`` (l.297) on the attention step of
+  ``csrc/fused_block_sm90.cuh``; ``attn_bwd_dq_wgmma_kernel``,
+  ``attn_bwd_dkdv_wgmma_kernel`` (``csrc/hstu_attn_bwd_sm90.cuh``, their
+  standalone instance) and ``reduce_rows_split_kernel`` replace
+  ``_bwd_kernel`` (l.193), ``_dq_kernel_chunk`` (l.331) and
+  ``_dkdv_kernel_chunk`` (l.380). They keep the rounding points above
+  inside the kernels: q rounds to T(q * hd^-1/2) in shared memory, a and
+  ds take 1/L before they round, the outputs are stored in T.
+- f32 (the tight check instance) and hd 129-256: the first design,
+  ``hstu_fwd_kernel``, ``hstu_bwd_dq_kernel``, ``hstu_bwd_dkdv_kernel`` and
+  ``reduce_rows_kernel``.
+
+The TPU kernels read the bias from
 precomputed [blk, blk] tiles and return tile gradients; the CUDA kernels
 read ``rab`` by distance and sum its gradient straight into its buckets
 (the same values: every distance of a far tile clamps to the last bucket).
@@ -39,8 +53,9 @@ at 256 <= L, L % 128 == 0. ``silu_qkv`` (SiLU inside the kernel) has no
 caller in the JAX package and is not ported.
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
-kernel for CUDA tensors; it never falls back. The kernels take any head dim
-up to 256 (WMMA tensor-core products where hd % 16 == 0 in bf16, FMA loops
+kernel for CUDA tensors; it never falls back: a launch the chosen design
+cannot make raises. The kernels take any head dim up to 256 (the first
+design: WMMA tensor-core products where hd % 16 == 0 in bf16, FMA loops
 otherwise) and L a multiple of 64, bf16 or f32; a wider head raises
 ``NotImplementedError`` (ROADMAP Queue 3), anything else ``ValueError``.
 """
@@ -260,13 +275,14 @@ def _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads):
     is_bf16 = int(q.dtype == torch.bfloat16)
     tile_fn = kernels.load("hstu_attention").hstu_attn_bwd_tile
     tile_fn.restype = _I
-    tile_fn.argtypes = [_I, _I, _I]
-    tile = tile_fn(is_bf16, D // num_heads, NB)
+    tile_fn.argtypes = [_I] * 4
+    # query rows per rel-pos partial: 64 on the wgmma route
+    tile = tile_fn(is_bf16, D, num_heads, NB)
     if tile == 0:
         raise ValueError(f"hstu attention backward: no tile fits shared "
                          f"memory at hd={D // num_heads}, {NB} buckets")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # the rel-pos gradient of each (batch row, key tile), summed in order
+    # the rel-pos gradient of each (batch row, tile), summed in order
     part = torch.empty((B * (L // tile), num_heads, NB), dtype=torch.float32,
                        device=q.device)
     drab = torch.empty((num_heads, NB), dtype=torch.float32, device=q.device)

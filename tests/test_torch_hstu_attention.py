@@ -80,15 +80,23 @@ def test_f32_forward_and_gradients_match_jax(buckets):
         assert not g[-1].any() and not g[0, :PAD].any()
 
 
-def test_bf16_matches_jax_kernel():
-    """In bf16 (hstu_mini's 4 heads of 16) the port's plain version keeps
-    the JAX kernel's rounding points (q scaled then rounded, a rounded
-    before a @ v, ds rounded before its products): max abs error <= 1/128
-    of max(1, max|ref|) (one bf16 step) and cosine >= 0.99999 for the
-    output, dq, dk, dv and drab (an f32 sum)."""
-    q, k, v, do, rab, valid = _inputs(D=64, H=4, seed=5)
-    ref, rgrads = _jax(q, k, v, do, rab, valid, 4, jnp.bfloat16)
-    out, grads = _port(q, k, v, do, rab, valid, 4, torch.bfloat16)
+#: (D, H) of each head width the card's wgmma kernels take in bf16: hd 8,
+#: 16 (hstu_mini's 4 heads of 16), 32, 64 and 128
+WGMMA_HEADS = [(32, 4), (64, 4), (64, 2), (64, 1), (128, 1)]
+
+
+@pytest.mark.parametrize("D,H", WGMMA_HEADS)
+def test_bf16_matches_jax_kernel(D, H):
+    """In bf16 the port's plain version, which the card's kernels are held
+    to, keeps the JAX kernel's rounding points (q scaled then rounded, a
+    rounded after its 1/L and before a @ v, ds rounded before its
+    products): max abs error <= 1/128 of max(1, max|ref|) (one bf16 step)
+    and cosine >= 0.99999 for the output, dq, dk, dv and drab (an f32
+    sum), at every head width of the wgmma route."""
+    q, k, v, do, rab, valid = _inputs(D=D, H=H, seed=5 if D == 64 and H == 4
+                                      else D + H)
+    ref, rgrads = _jax(q, k, v, do, rab, valid, H, jnp.bfloat16)
+    out, grads = _port(q, k, v, do, rab, valid, H, torch.bfloat16)
     for name, got, want in zip(("out", "dq", "dk", "dv", "drab"),
                                (out, *grads), (ref, *rgrads)):
         g = got.float().numpy().astype(np.float64).ravel()
@@ -100,9 +108,12 @@ def test_bf16_matches_jax_kernel():
 
 
 #: chunked shapes with both ceilings cut to 128: (L, H, D, buckets, the
-#: bias-tile block the JAX package picks)
+#: bias-tile block the JAX package picks); from the third on at the 256
+#: tile: 4 heads of 8, and 1794 buckets (the most that tile takes) at
+#: L=2048, where distances past the last bucket clamp
 CHUNKED = [(384, 1, 64, 300, 128), (384, 4, 64, 128, 128),
-           (512, 1, 64, 300, 256), (512, 4, 64, 128, 256)]
+           (512, 1, 64, 300, 256), (512, 4, 64, 128, 256),
+           (512, 4, 32, 128, 256), (2048, 1, 64, 1794, 256)]
 
 
 def _cut_ceilings(monkeypatch):
@@ -166,8 +177,10 @@ def test_chunked_bf16_matches_jax_chunked_kernel(monkeypatch, L, H, D,
                                                  buckets, blk):
     """bf16 at the 256 tile: the plain version keeps the JAX chunked
     kernels' rounding points (f32 accumulator across key tiles, output
-    rounded once)."""
+    rounded once), 1794 buckets included."""
     _cut_ceilings(monkeypatch)
+    assert THA._tile_blk(L, H, buckets, D) == \
+        JHA._tile_blk(L, H, buckets, D) == blk
     q, k, v, do, rab, valid = _inputs(B=2, L=L, D=D, H=H, buckets=buckets,
                                       seed=7 + H)
     ref, rgrads = _jax(q, k, v, do, rab, valid, H, jnp.bfloat16)

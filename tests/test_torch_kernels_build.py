@@ -68,6 +68,35 @@ def test_ptxas_report_names_the_attention_backward_kernels():
          "spill_stores": 0, "spill_loads": 0}]
 
 
+STANDALONE_LOG = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__7d1e2f3a_17_hstu_attention_cu_4b5c6d7e21hstu_fwd_wgmma_kernelILi16EEEvNS_8HstuArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__7d1e2f3a_17_hstu_attention_cu_4b5c6d7e21hstu_fwd_wgmma_kernelILi16EEEvNS_8HstuArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN8hstu_bwd24attn_bwd_dq_wgmma_kernelILi16ELb1EEEvNS_11AttnBwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN8hstu_bwd24attn_bwd_dq_wgmma_kernelILi16ELb1EEEvNS_11AttnBwdArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN8hstu_bwd26attn_bwd_dkdv_wgmma_kernelILi64ELb0EEEvNS_11AttnBwdArgsE' for 'sm_90a'
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_names_the_standalone_attention_kernels():
+    """The standalone HSTU attention's wgmma forward (hstu_fwd_wgmma_kernel
+    <W>) and the shared backward's instances by head width W and
+    standalone flag (1: the standalone attention's, 0: the fused block's
+    and the ring's): chip_smoke.fwd_spills and attn_bwd_spills read
+    them by these names."""
+    assert kernels.ptxas_report(STANDALONE_LOG) == [
+        {"kernel": "hstu_fwd_wgmma_kernel<16>", "registers": 96,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "attn_bwd_dq_wgmma_kernel<16, 1>", "registers": 128,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "attn_bwd_dkdv_wgmma_kernel<64, 0>", "registers": 168,
+         "spill_stores": 0, "spill_loads": 0}]
+
+
 def test_ptxas_report_of_a_log_without_kernels_is_empty():
     assert kernels.ptxas_report("ptxas info    : 0 bytes gmem\n") == []
 
@@ -303,17 +332,41 @@ def test_cuda_source_passes_a_host_compiler_check(host_check, source):
 
 def test_host_compiler_check_catches_a_wrong_call(tmp_path):
     """The check is not vacuous: a call of the shared attention step with an
-    argument too many fails it, in both kernels that run the step."""
+    argument too many fails it, in all three kernels that run the step
+    (the fused block's, the ring's and the standalone HSTU attention's
+    forward)."""
     def extra_arg(text):
         assert text.count("attn_step<W>(acc, s, ") >= 1
         return text.replace("attn_step<W>(acc, s, ", "attn_step<W>(acc, s, 0, ")
 
-    out = _host_check(tmp_path, {"fused_block.cu": extra_arg,
-                                 "ring_pair.cu": extra_arg})
-    for name in ("fused_block.cu", "ring_pair.cu"):
+    callers = ("fused_block.cu", "ring_pair.cu", "hstu_attention.cu")
+    out = _host_check(tmp_path, dict.fromkeys(callers, extra_arg))
+    for name in callers:
         rc, err = out[name]
         assert rc != 0 and "attn_step" in err
     assert out["sparse_table.cu"][0] == 0
+
+
+def test_host_compiler_check_instantiates_the_standalone_backward(tmp_path):
+    """The standalone HSTU attention's instances of the shared backward
+    (attn_bwd_*_wgmma_kernel<W, true>, bf16 outputs, launched from
+    hstu_attention.cu) are instantiated by the check: without the bf16
+    overload of store_pair, which only those instances and the standalone
+    forward call, hstu_attention.cu fails and no other source does,
+    although all three include the header."""
+    def no_bf16_store(text):
+        old = """__device__ __forceinline__ void store_pair(bf16* out, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+}
+"""
+        assert text.count(old) == 1
+        return text.replace(old, "")
+
+    out = _host_check(tmp_path, {"hstu_attn_bwd_sm90.cuh": no_bf16_store})
+    rc, err = out["hstu_attention.cu"]
+    assert rc != 0 and "store_pair" in err
+    for name in ("fused_block_bwd.cu", "ring_pair.cu"):
+        assert out[name][0] == 0, out[name][1][-2000:]
 
 
 PAIR_GATHER_LOG = """\
@@ -331,7 +384,7 @@ ptxas info    : Used 48 registers
 def test_ptxas_report_names_the_pair_forward_and_gather_kernels():
     """The ring's pair forward on wgmma (pair_fwd_wgmma_kernel<W>, W the
     padded head width) beside its first design and the group gather:
-    chip_smoke.pair_fwd_spills reads the wgmma kernel's registers and
+    chip_smoke.fwd_spills reads the wgmma kernel's registers and
     spills from these names and fails on a spill at W <= 64."""
     assert kernels.ptxas_report(PAIR_GATHER_LOG) == [
         {"kernel": "pair_fwd_wgmma_kernel<64>", "registers": 128,

@@ -854,3 +854,167 @@ def test_group_gather_interleaved_slots_on_card(dtype, row_bytes):
     torch.cuda.synchronize()
     assert ST.group_gather.launches == n + 1
     assert torch.equal(got[real], ST.group_gather_plain(table, g)[real])
+
+
+# ---------------------------------------------------------------------------
+# the standalone HSTU attention on wgmma (bf16, hd % 8 == 0, hd <= 128)
+# ---------------------------------------------------------------------------
+
+#: (D, H) of each head width the wgmma route takes: hd 8 (padded to 16
+#: columns), 16, 32, 64, 128
+HSTU_WGMMA_HEADS = [(32, 4), (64, 4), (64, 2), (64, 1), (128, 1)]
+HSTU_WGMMA_FWD = ("hstu_fwd_wgmma_kernel",)
+HSTU_WGMMA_BWD = ("attn_bwd_dq_wgmma_kernel", "attn_bwd_dkdv_wgmma_kernel",
+                  "reduce_rows_split_kernel")
+HSTU_FIRST_DESIGN = ("hstu_fwd_kernel", "hstu_bwd_dq_kernel",
+                     "hstu_bwd_dkdv_kernel")
+
+
+def _token_close(got, ref, what):
+    """An attention output in bf16: max abs <= 3e-2 * max(1, max|ref|), the
+    lowest cosine over the tokens with a visible key >= 0.9995, and the
+    tokens with none exactly 0."""
+    g, r = got.float(), ref.float()
+    live = r.abs().amax(-1) > 0
+    assert not g[~live].any(), what
+    assert (g - r).abs().max() <= 3e-2 * max(1.0, r.abs().max()), what
+    cos = torch.nn.functional.cosine_similarity(g[live], r[live], dim=-1)
+    assert cos.min() >= 0.9995, (what, cos.min().item())
+
+
+def _hstu_wgmma_case(B, L, D, H, NB, seed):
+    """Kernel forward and backward against the plain versions in bf16 (the
+    output as _token_close, the gradients as _bf16_close), the padded keys
+    and queries of row 0 and the fully padded last row exactly 0; returns
+    (out, grads) of the kernels."""
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    q, k, v, dout, valid, rab = _attention(B, L, D, H, torch.bfloat16, seed,
+                                           NB)
+    out = HA.hstu_attention_fwd(q, k, v, valid, rab, L, H)
+    grads = HA.hstu_attention_bwd(q, k, v, dout, valid, rab, L, H)
+    torch.cuda.synchronize()
+    _token_close(out, HA.hstu_attention_fwd_plain(q, k, v, valid, rab, L, H),
+                 f"out hd={D // H} L={L} NB={NB}")
+    want = HA.hstu_attention_bwd_plain(q, k, v, dout, valid, rab, L, H)
+    pad = L // 3 + 5
+    for name, g, r in zip(("dq", "dk", "dv", "drab"), grads, want):
+        assert bool(torch.isfinite(g.float()).all()), name
+        _bf16_close(g, r, f"{name} hd={D // H} L={L} NB={NB}")
+        if name != "drab":
+            assert g.dtype == torch.bfloat16, name
+            assert not g[-1].any() and not g[0, :pad].any(), name
+    assert not out[-1].any() and not out[0, :pad].any()
+    return out, grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [256, 512, 4096])
+@pytest.mark.parametrize("D,H", HSTU_WGMMA_HEADS)
+def test_hstu_wgmma_kernels_match_plain_on_card(D, H, L):
+    """hd 8 to 128 at L = 256, 512 (whole sequence) and 4096 (the chunked
+    route's counters): one launch each way on the route's counters, held
+    to the plain versions in bf16."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    counters = (HA.hstu_attention_fwd, HA.hstu_attention_bwd,
+                HA.hstu_attention_chunk_fwd, HA.hstu_attention_chunk_bwd)
+    before = [c.launches for c in counters]
+    _hstu_wgmma_case(2, L, D, H, 128, 60 + L // 256 + D + H)
+    want = [0, 0, 1, 1] if HA._use_long(L, D) else [1, 1, 0, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NB,D,H", [
+    (32, 64, 4), (128, 64, 4), (300, 64, 4), (898, 64, 1), (1794, 64, 1),
+    (1794, 32, 4), (1794, 64, 2), (1794, 128, 1)])
+def test_hstu_wgmma_bucket_counts_on_card(NB, D, H):
+    """The bucket counts the JAX package takes, up to 898 on its
+    whole-sequence route and 1794 on its chunked one (L=2048: distances
+    past the last bucket clamp), 1794 at every padded head width W = 16,
+    32, 64, 128 (the dq kernel holds the [NB] partial in shared memory):
+    held to the plain versions, and a second call bitwise equal to the
+    first (drab sums in a fixed order)."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    L = 512 if NB <= 300 else 2048
+    out, grads = _hstu_wgmma_case(2, L, D, H, NB, NB + D)
+    q, k, v, dout, valid, rab = _attention(2, L, D, H, torch.bfloat16,
+                                           NB + D, NB)
+    assert torch.equal(HA.hstu_attention_fwd(q, k, v, valid, rab, L, H), out)
+    for g, again in zip(grads, HA.hstu_attention_bwd(q, k, v, dout, valid,
+                                                     rab, L, H)):
+        assert torch.equal(g, again)
+
+
+def _profiled_names(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D,H,wgmma", [
+    (torch.bfloat16, 64, 4, True), (torch.bfloat16, 32, 4, True),
+    (torch.float32, 64, 4, False), (torch.bfloat16, 192, 1, False),
+    (torch.bfloat16, 2048, 16, False)])
+def test_hstu_wgmma_route_by_profiler_names_on_card(dtype, D, H, wgmma):
+    """bf16 at hd 16 and 8 runs hstu_fwd_wgmma_kernel and the wgmma
+    backward pair with reduce_rows_split_kernel, and none of the first
+    design's kernels; f32, hd 192 and heads whose held q tiles would not
+    fit shared memory (16 of 128) run the first design and no wgmma
+    kernel."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    L = 256
+    q, k, v, dout, valid, rab = _attention(2, L, D, H, dtype, 3)
+    names = _profiled_names(lambda: (
+        HA.hstu_attention_fwd(q, k, v, valid, rab, L, H),
+        HA.hstu_attention_bwd(q, k, v, dout, valid, rab, L, H)))
+
+    def ran(kernel):
+        return any(kernel in n for n in names)
+
+    new, old = HSTU_WGMMA_FWD + HSTU_WGMMA_BWD, HSTU_FIRST_DESIGN
+    assert all(ran(n) == wgmma for n in new), names
+    assert all(ran(n) != wgmma for n in old), names
+
+
+@pytest.mark.gpu
+def test_hstu_wgmma_misaligned_view_raises_on_card(monkeypatch):
+    """A q that is contiguous but 2 bytes off a 16-byte boundary: the
+    wrapper raises before a launch; with the wrapper's check taken away the
+    wgmma launch itself fails and the wrapper raises; nothing falls back to
+    the first design and no counter moves."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    B, L, D, H = 2, 256, 64, 4
+    q, k, v, dout, valid, rab = _attention(B, L, D, H, torch.bfloat16, 4)
+    buf = torch.empty(B * L * D + 8, dtype=torch.bfloat16, device="cuda")
+    off = buf[1:1 + B * L * D].view(B, L, D)
+    off.copy_(q)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    counters = (HA.hstu_attention_fwd, HA.hstu_attention_bwd)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        HA.hstu_attention_fwd(off, k, v, valid, rab, L, H)
+    monkeypatch.setattr(HA, "check_attention_inputs", lambda *a: None)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        HA.hstu_attention_fwd(off, k, v, valid, rab, L, H)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        HA.hstu_attention_bwd(off, k, v, dout, valid, rab, L, H)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
