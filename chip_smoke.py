@@ -105,7 +105,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                attn_ffn_kernel); prints serving throughput and
                HR@10/NDCG@10 (one epoch on synthetic data: printed, not
                judged);
-6. long     — phases 4 and 5 on long sequences, through the chunked
+5b. semantic — the generative tier on the flagship's checkpoint and
+               fixture: cli.semantic at RQVAEConfig's defaults (3 levels x
+               256 codes x 32 dims) with ``--rq_steps 2000 --head_steps 1000
+               --num_query_users 1024`` (its query encode held to 32 fused
+               forward launches; semantic_ids.npy, semantic_eval.json; RQ-VAE
+               and head steps/s, tokenize items/s), then ``cli.infer
+               --ann_method semantic --beam_width 32`` (launches held), its
+               first 128 queries served again on the CPU from the same
+               files (mean top-10 overlap >= 0.98), semantic HR@10 / NDCG@10
+               beside the exact serve's (printed, not judged); then the
+               serving functions on a seeded 1M x 64 corpus and 1024
+               queries: tokenize items/s, beam-decode queries/s,
+               beam_retrieve's host seconds, the exact scorer's fill
+               seconds, peak memory (shapes, ranges, finite scores held);
+6. long    — phases 4 and 5 on long sequences, through the chunked
                variant: a fixture of 384 users, 5000 items and sequences of
                2048..4000 events, ``cli.train --maxlen 4095 --batch_size 32
                --loader cached --num_epochs 1`` (launch counts, losses,
@@ -386,6 +400,8 @@ SOFTMAX_DP_RUN = Run("softmax_dp", "sampled_softmax_dp", None, PARITY_FIXTURE,
 #: cli.train's last packed cache, kept across the runs: the runs that
 #: follow one of the same data and window reuse it
 PACKS: dict = {}
+#: each served run's HR@10 / NDCG@10 (cli.infer's exact top-k)
+SERVED: dict = {}
 SRC = "tencent_recommendation_2025_tpu_torch/csrc/"
 TPU = "tencent_recommendation_2025_tpu/ops/fused_block.py"
 
@@ -460,7 +476,12 @@ DRIFT_RULE = ("min(0.999, c - max(5e-4, 0.5 * (1 - c))), c the CPU bf16 "
 
 
 def log(*a):
+    """Prints to stdout; a line that reports a failed check also goes to
+    stderr, so that the end of stderr names what failed."""
     print(*a, flush=True)
+    text = " ".join(map(str, a))
+    if "FAIL" in text:
+        print(text, file=sys.stderr, flush=True)
 
 
 def card_line() -> str:
@@ -1231,13 +1252,11 @@ def wgmma_route(name, by_name, train=True):
     post half and, training, the gate/FFN backward with its weight-gradient
     kernel and the projection backward; and no bf16 instance of the kernels
     they replace. Logs the names found."""
-    want = PRE_WGMMA[:1] + POST_WGMMA[:1]
-    if train:
-        want += PRE_WGMMA[1:] + POST_WGMMA[1:]
+    want, forbid = route_names("fused", train)
     found = {n: sum(v for k, v in by_name.items() if n in k)
-             for n in PRE_WGMMA + POST_WGMMA + PRE_REPLACED + POST_REPLACED}
+             for n in PRE_WGMMA + POST_WGMMA + forbid}
     ok = all(found[n] > 0 for n in want) and not any(
-        found[n] for n in PRE_REPLACED + POST_REPLACED)
+        found[n] for n in forbid)
     log(f"{name}: the fused block's wgmma route in the profiled "
         f"{'step' if train else 'predict batch'} (device ms): "
         + ", ".join(f"{n} {v:.3f}" for n, v in found.items())
@@ -2604,6 +2623,64 @@ def _kernel_launches(prof):
                                if e.device_type == DeviceType.CUDA)
 
 
+def route_names(route, train=True):
+    """(the kernels a profiled bf16 step (train) or predict batch must run
+    with device time, the kernels it may not run) of a route check:
+    ``attn_bwd`` (attn_bwd_route), ``fused`` (wgmma_route), ``hstu``
+    (hstu_route)."""
+    if route == "attn_bwd":
+        return ATTN_BWD_WGMMA, ATTN_BWD_NAMES[2:] + ATTN_BWD_DELETED
+    if route == "fused":
+        want = PRE_WGMMA[:1] + POST_WGMMA[:1]
+        if train:
+            want += PRE_WGMMA[1:] + POST_WGMMA[1:]
+        return want, PRE_REPLACED + POST_REPLACED
+    return (HSTU_WGMMA if train else HSTU_WGMMA[:1]), HSTU_FIRST
+
+
+#: traces a route check takes of one call before it judges the last one
+ROUTE_TRACES = 4
+
+
+def route_trace(name, fn, routes, train=True, launches_ok=None):
+    """One call of ``fn`` (a step or a predict batch) under torch.profiler
+    for the route checks ``routes`` (names of :func:`route_names`):
+    (the profile, the call's wall ms). The card's profiler loses kernel
+    events late in a long process, at times a whole trace, and such a trace
+    reads as a call that never ran its kernels. So while a trace holds no
+    device time for a kernel the routes want (or ``launches_ok`` of its
+    launches by kernel name is false), and none for a kernel they forbid,
+    the call is traced again, ROUTE_TRACES traces in all; each retake is
+    logged, and the checks judge the last trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    want = [n for r in routes for n in route_names(r, train)[0]]
+    forbid = [n for r in routes for n in route_names(r, train)[1]]
+    for i in range(ROUTE_TRACES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        by_name = _device_ms(prof)
+
+        def ran(n):
+            return any(n in k and v > 0 for k, v in by_name.items())
+
+        missing = [n for n in want if not ran(n)]
+        if launches_ok is not None and not launches_ok(
+                _kernel_launches(prof)):
+            missing.append("the launches it counts")
+        if not missing or any(ran(n) for n in forbid) \
+                or i == ROUTE_TRACES - 1:
+            return prof, wall
+        log(f"{name}: trace {i + 1} of {ROUTE_TRACES} lacks "
+            f"{', '.join(missing)} and holds no forbidden kernel; traced "
+            f"again")
+
+
 def host_top(name, prof, wall):
     """Logs where the host's time goes in a profiled step: the CPU self time
     of every op summed (the step's host total) and the 10 ops with the most,
@@ -2622,10 +2699,11 @@ def attn_bwd_route(name, by_name):
     """Whether a profiled bf16 step's backward ran the attention backward's
     wgmma kernels (both, with device time) and none of the kernels they
     replaced nor the generic instance; logs the names found."""
+    want, forbid = route_names("attn_bwd")
     found = {n: sum(v for k, v in by_name.items() if n in k)
-             for n in ATTN_BWD_NAMES + ATTN_BWD_DELETED}
-    ok = all(found[n] > 0 for n in ATTN_BWD_WGMMA) and not any(
-        found[n] for n in ATTN_BWD_NAMES[2:] + ATTN_BWD_DELETED)
+             for n in want + forbid}
+    ok = all(found[n] > 0 for n in want) and not any(
+        found[n] for n in forbid)
     log(f"{name}: attention backward route in the profiled step (device "
         f"ms): " + ", ".join(f"{n} {v:.3f}" for n, v in found.items())
         + f" {'ok' if ok else 'FAIL'}")
@@ -2638,11 +2716,11 @@ def hstu_route(name, by_name, train=True):
     wgmma kernels, each with device time: hstu_fwd_wgmma_kernel and,
     training, the backward pair with reduce_rows_split_kernel; and none of
     the first design's kernels. Logs the names found."""
-    want = HSTU_WGMMA if train else HSTU_WGMMA[:1]
+    want, forbid = route_names("hstu", train)
     found = {n: sum(v for k, v in by_name.items() if n in k)
-             for n in HSTU_WGMMA + HSTU_FIRST}
+             for n in HSTU_WGMMA + forbid}
     ok = all(found[n] > 0 for n in want) and not any(
-        found[n] for n in HSTU_FIRST)
+        found[n] for n in forbid)
     log(f"{name}: the HSTU attention's wgmma route in the profiled "
         f"{'step' if train else 'predict batch'} (device ms): "
         + ", ".join(f"{n} {v:.3f}" for n, v in found.items())
@@ -2658,7 +2736,6 @@ def phase_train_speed(data, ckpt, run):
     gate/FFN backward's wgmma kernels, and an HSTU attention run's the
     standalone attention's (hstu_route; True for the other runs)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tencent_recommendation_2025_tpu_torch.data.featurizer import (
         FusedVocab, build_item_tables)
@@ -2694,12 +2771,14 @@ def phase_train_speed(data, ckpt, run):
         f"{cfg.model.dropout_rate}, tower dedup {cfg.train.tower_dedup}): "
         f"{dt * 1e3:.3f} ms, {B / dt:.1f} examples/s, {B * L / dt:.0f} "
         f"tokens/s (host clock, synchronised, {n} steps after 2 warm-up)")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def one_step():
+        nonlocal state, m
         state, m = step(state, batches[0], tabs["mm"], tabs)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+
+    routes = {"fused": ("attn_bwd", "fused"), "hstu": ("hstu",),
+              "hstu_chunk": ("hstu",)}.get(run.kernels, ())
+    prof, wall = route_trace(run.name, one_step, routes)
     by_name = _device_ms(prof)
     busy = sum(by_name.values())
     fwd_names, bwd_names = KERNEL_NAMES[run.kernels]
@@ -2823,6 +2902,7 @@ def phase_serving(ckpt, run):
         "n_queries": timings["n_queries"], "n_items": timings["n_items"],
         "hr10": metrics["hr"], "ndcg10": metrics["ndcg"]}
     log(f"{run.name}: serving at L={mcfg.maxlen + 1} " + json.dumps(serving))
+    SERVED[run.name] = metrics
     return ok and cos_ok and finite and shapes_ok, launches
 
 
@@ -2833,16 +2913,14 @@ def profile_predict(model, params, batch, mm, run):
     HSTU attention run's hstu_fwd_wgmma_kernel (True for the other
     runs)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     model.predict(params, batch, mm)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.predict(params, batch, mm)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    routes = {"fused": ("fused",), "hstu": ("hstu",),
+              "hstu_chunk": ("hstu",)}.get(run.kernels, ())
+    prof, wall_ms = route_trace(run.name,
+                                lambda: model.predict(params, batch, mm),
+                                routes, train=False)
     by_name = _device_ms(prof)
     busy = sum(by_name.values())
     names = KERNEL_NAMES[run.kernels][0]
@@ -2954,6 +3032,250 @@ def phase_ann_methods(run):
             + f"; {wall:.2f} s with the files' I/O "
             f"{'ok' if ok else 'FAIL'}")
     return ok_all
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the generative tier (RQ-VAE tokenizer, decode head)
+# ---------------------------------------------------------------------------
+
+#: cli.semantic at RQVAEConfig's defaults (3 levels x 256 codes x 32 dims,
+#: encoder 512, 256) on the flagship's checkpoint; its queries are 1024
+#: users' predict, 4 batches of 256
+SEMANTIC_ARGS = ("--rq_steps", "2000", "--head_steps", "1000",
+                 "--num_query_users", "1024")
+SEMANTIC_EVAL_KEYS = {"rq_recon", "codes_used", "genret_train_hr",
+                      "genret_beam_train_hr", "mips_train_hr", "num_pairs"}
+#: the serving functions at scale: a seeded corpus of 1M items and 1024
+#: queries (normal draws on the card with the flagship's served corpus's and
+#: queries' per-dimension mean and deviation), 32 beams, top 10
+SEMANTIC_SCALE = dict(N=1_000_000, Q=1024, W=32, k=10, seed=71)
+#: first queries of the card's semantic serve held to the CPU's
+SEMANTIC_CPU_ROWS = 128
+
+
+def phase_semantic(run):
+    """The generative tier on ``run``'s checkpoint, fixture and window: the
+    port's cli.semantic (item tower over every id, the RQ-VAE trained and
+    semantic_ids.npy written, the decode head trained on 1024 users' query
+    pairs, artifacts saved beside the checkpoint, semantic_eval.json), its
+    query encode held to the fused forward's launches (8 per batch of 256)
+    and nothing else; then cli.infer --ann_method semantic --beam_width 32
+    on the card (launches held), its first 128 queries served again by
+    run_semantic_ann on the CPU from the same files and artifacts (mean
+    top-10 overlap >= 0.98); semantic HR@10 / NDCG@10 printed beside the
+    exact serve's; then the serving functions at scale
+    (:func:`semantic_scale`). Returns (ok, the launches of both entry
+    points)."""
+    import numpy as np
+
+    from tencent_recommendation_2025_tpu_torch.cli import infer as INF
+    from tencent_recommendation_2025_tpu_torch.cli import semantic as SEM
+    from tencent_recommendation_2025_tpu_torch.config import RetrievalConfig
+    from tencent_recommendation_2025_tpu_torch.data import formats
+    from tencent_recommendation_2025_tpu_torch.retrieval import \
+        semantic_serve as SS
+
+    t_phase = time.perf_counter()
+    mcfg = run.config().model
+    model_dir = run.work / "model"
+    sem_dir = run.work / "semantic"
+    os.environ["TRAIN_DATA_PATH"] = str(run.data_dir)
+    os.environ["MODEL_OUTPUT_PATH"] = str(model_dir)
+    os.environ["EVAL_RESULT_PATH"] = str(sem_dir)
+    timings = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    ev = SEM.main(run.args() + list(SEMANTIC_ARGS), timings=timings)
+    wall = time.perf_counter() - t0
+    made = read_launches()
+    nb = timings["n_query_batches"]
+    ok = nb == 4 and check_launches(
+        run, "cli.semantic (query encode)", made,
+        expected_launches(run.kernels, mcfg.num_blocks, 0, nb))
+    ids = np.load(sem_dir / "semantic_ids.npy")
+    itemnum = run.fixture["num_items"]
+    ok_ids = bool(ids.shape == (itemnum + 1, 3) and ids.dtype == np.int32
+                  and (ids[0] == 0).all() and ids.min() >= 0
+                  and ids.max() < 256)
+    ok_ev = set(ev) == SEMANTIC_EVAL_KEYS and bool(
+        np.isfinite(ev["rq_recon"])) and ev["num_pairs"] > 0
+    log(f"{run.name}: cli.semantic {wall:.1f} s: semantic_ids "
+        f"{ids.shape} {ids.dtype}, distinct ids "
+        f"{len(np.unique(ids[1:], axis=0))}; {json.dumps(ev)} "
+        f"{'ok' if ok_ids and ok_ev else 'FAIL'}")
+    log(f"{run.name}: cli.semantic stages (host clock, synchronised): item "
+        f"tower {timings['item_reprs_s']:.3f} s; RQ-VAE "
+        f"{timings['rq_steps'] / timings['rq_train_s']:.1f} steps/s "
+        f"(batch 1024, {timings['rq_steps']} steps in "
+        f"{timings['rq_train_s']:.2f} s); tokenize "
+        f"{timings['tokenize_items'] / timings['tokenize_s']:.0f} items/s; "
+        f"query predict {timings['predict_s']:.3f} s ({nb} batches of 256); "
+        f"decode head {timings['head_steps'] / timings['head_train_s']:.1f} "
+        f"steps/s ({timings['head_steps']} steps in "
+        f"{timings['head_train_s']:.2f} s)")
+
+    res = run.work / "result_semantic"
+    os.environ["EVAL_DATA_PATH"] = str(run.data_dir)
+    os.environ["EVAL_RESULT_PATH"] = str(res)
+    served = {}
+    reset_launches()
+    metrics = INF.main(run.args() + ["--ann_method", "semantic",
+                                     "--beam_width", "32"], timings=served)
+    launches = read_launches()
+    ok &= check_launches(
+        run, "cli.infer --ann_method semantic", launches,
+        expected_launches(run.kernels, mcfg.num_blocks, 0,
+                          served["n_query_batches"]))
+    exact = SERVED.get(run.name, {})
+    log(f"{run.name}: semantic serve (beam 32, then the exact scorer's "
+        f"fill): {served['topk_s']:.3f} s for {served['n_queries']} queries "
+        f"over {served['n_items']} items; HR@10 {metrics['hr']:.4f} NDCG@10 "
+        f"{metrics['ndcg']:.4f} beside the exact MIPS serve's HR@10 "
+        f"{exact.get('hr', float('nan')):.4f} NDCG@10 "
+        f"{exact.get('ndcg', float('nan')):.4f} (printed, not judged)")
+
+    # the first queries again on the CPU, from the same files and artifacts
+    cpu_dir = run.work / "semantic_cpu"
+    cpu_dir.mkdir(parents=True, exist_ok=True)
+    for f in ("embedding.fbin", "id.u64bin"):
+        shutil.copy(res / f, cpu_dir / f)
+    n = SEMANTIC_CPU_ROWS
+    formats.save_emb(formats.load_fbin(res / "query.fbin")[:n],
+                     cpu_dir / "query.fbin")
+    t0 = time.perf_counter()
+    SS.run_semantic_ann(cpu_dir, model_dir, RetrievalConfig(), beam_width=32,
+                        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card = np.asarray(formats.read_result_ids(res / "id100.u64bin"))[:n]
+    cpu = np.asarray(formats.read_result_ids(cpu_dir / "id100.u64bin"))
+    overlap = _ids_recall(card, cpu)
+    differ = int((card != cpu).any(axis=1).sum())
+    ok_cpu = card.shape == cpu.shape == (n, 10) and overlap >= 0.98
+    log(f"{run.name}: semantic top-10 of the first {n} queries, card vs "
+        f"CPU ({cpu_s:.1f} s): mean overlap {overlap:.4f} (limit 0.98), "
+        f"{differ} rows differ {'ok' if ok_cpu else 'FAIL'}")
+
+    ok_scale = semantic_scale(model_dir, res)
+    log(f"semantic phase: {time.perf_counter() - t_phase:.1f} s")
+    return (ok and ok_ids and ok_ev and ok_cpu and ok_scale,
+            {k: made[k] + launches[k] for k in made})
+
+
+def semantic_scale(model_dir, res):
+    """The generative serving functions on the card at SEMANTIC_SCALE, with
+    the artifacts cli.semantic saved: tokenize the 1M-item corpus (8192
+    rows a call, as run_semantic_ann), beam-decode the 1024 queries (one
+    batch; 5 timed after 1), map the beams to items on the host
+    (beam_retrieve), and the exact scorer's fill (genret_score_items_exact
+    over the whole corpus in chunks of 4096, then its top 10); seconds on
+    the host clock, synchronised, and the peak device memory; then one
+    tokenize call and one beam decode under the profiler. Checks the
+    shapes, that codes and item indices are in range and that every score
+    is finite."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.data import formats
+    from tencent_recommendation_2025_tpu_torch.models import rqvae as R
+    from tencent_recommendation_2025_tpu_torch.retrieval.semantic_serve \
+        import load_semantic_artifacts
+
+    c = SEMANTIC_SCALE
+    N, Q, W, k = c["N"], c["Q"], c["W"], c["k"]
+    _free()
+    rq, head, cfg = load_semantic_artifacts(model_dir, "cuda")
+    L, C = cfg.num_levels, cfg.codebook_size
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+
+    def draw(ref, rows):
+        mu = torch.as_tensor(ref.mean(0), device="cuda")
+        sd = torch.as_tensor(ref.std(0), device="cuda")
+        return mu + sd * torch.randn((rows, ref.shape[1]), generator=gen,
+                                     device="cuda")
+
+    corpus = draw(formats.load_fbin(res / "embedding.fbin"), N)
+    queries = draw(formats.load_fbin(res / "query.fbin"), Q)
+    R.tokenize(rq, corpus[:8192])
+    R.genret_beam_decode(head, rq, queries, cfg, W)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    codes = torch.cat([R.tokenize(rq, corpus[s:s + 8192])
+                       for s in range(0, N, 8192)])
+    torch.cuda.synchronize()
+    t_tok = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(5):
+        bc, bs = R.genret_beam_decode(head, rq, queries, cfg, W)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / 5
+    codes_np, bc_np = codes.cpu().numpy(), bc.cpu().numpy()
+    t0 = time.perf_counter()
+    idx = R.beam_retrieve(bc_np, bs.cpu().numpy(), codes_np, k)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fs, fi = R.top_k(R.genret_score_items_exact(head, rq, queries, codes,
+                                                cfg), k)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    ok = bool(codes.shape == (N, L) and bc.shape == (Q, W, L)
+              and idx.shape == (Q, k) and fi.shape == (Q, k)
+              and codes.min() >= 0 and codes.max() < C
+              and bc.min() >= 0 and bc.max() < C
+              and idx.min() >= -1 and idx.max() < N
+              and fi.min() >= 0 and fi.max() < N
+              and torch.isfinite(bs).all() and torch.isfinite(fs).all()
+              and (bs[:, 1:] <= bs[:, :-1]).all())
+    short = int((idx < 0).any(axis=1).sum())
+    distinct = len(np.unique(codes_np, axis=0))
+    gb = 1e-9
+    log(f"semantic at scale ({N} items x {corpus.shape[1]}, {Q} queries, "
+        f"{L} levels x {C} codes, beam {W}, top {k}): tokenize "
+        f"{N / t_tok:.0f} items/s ({t_tok:.3f} s, {distinct} distinct ids); "
+        f"beam decode {Q / t_dec:.0f} queries/s ({t_dec * 1e3:.3f} ms a "
+        f"batch of {Q}); beam_retrieve on the host {t_host:.3f} s ({short} "
+        f"of {Q} rows short of {k}); the exact scorer's fill over the corpus "
+        f"{t_fill:.3f} s; peak device memory above the corpus and queries "
+        f"{(peak - base) * gb:.2f} GB (max_memory_allocated {peak * gb:.2f} "
+        f"GB) {'ok' if ok else 'FAIL'}")
+    for name, fn in (("tokenize (8192 rows)",
+                      lambda: R.tokenize(rq, corpus[:8192])),
+                     (f"beam decode ({Q} queries)",
+                      lambda: R.genret_beam_decode(head, rq, queries, cfg,
+                                                   W))):
+        profile_call(f"semantic {name}", fn)
+    del corpus, queries, codes
+    _free()
+    return ok
+
+
+def profile_call(name, fn):
+    """One synchronised call of ``fn`` under torch.profiler: its wall
+    against the device's busy time, the host's time (``host_top``) and the
+    kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = _device_ms(prof)
+    busy = sum(by_name.values())
+    host_top(name, prof, wall)
+    log(f"{name}: profile: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle {max(0.0, 1 - busy / wall):.1%}), "
+        f"{sum(_kernel_launches(prof).values())} kernel launches; kernels "
+        f"(ms): " + ", ".join(f"{k[:50]} {v:.3f}"
+                              for k, v in by_name.most_common(6)))
 
 
 #: the retrieval check: a seeded corpus of 10M rows of 64 and 1024 queries
@@ -3123,7 +3445,6 @@ def phase_sparse_100m():
     steps)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tencent_recommendation_2025_tpu_torch.config import (
         MM_EMB_DIMS, Config, ModelConfig, TrainConfig)
@@ -3241,13 +3562,15 @@ def phase_sparse_100m():
         state, m = step(state, bd, tabs["mm"], tabs)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_timed
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    traced = 0
+
+    def one_step():
+        nonlocal state, m, traced
         state, m = step(state, bd, tabs["mm"], tabs)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    steps += 2 + n_timed + 1
+        traced += 1
+
+    prof, wall = route_trace("100m", one_step, ("attn_bwd", "fused"))
+    steps += 2 + n_timed + traced
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     by_name = _device_ms(prof)
@@ -3742,7 +4065,6 @@ def phase_ring_speed(run, ckpt, S=2):
     one step's profile, which must name the attention backward's wgmma
     kernels. Returns (ok, launches)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tencent_recommendation_2025_tpu_torch.config import MeshConfig
     from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
@@ -3776,12 +4098,15 @@ def phase_ring_speed(run, ckpt, S=2):
         f"{B / dt:.1f} examples/s, {B * L / dt:.0f} tokens/s (host clock, "
         f"synchronised, {n} steps after 2 warm-up); loss "
         f"{float(m['loss']):.4f}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    pairs = cfg.model.num_blocks * S * (S + 1) // 2
+
+    def one_step():
+        nonlocal state, m
         state, m = step(state, batches[0], tabs["mm"], tabs)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+
+    prof, wall = route_trace(
+        f"ring S={S}", one_step, ("attn_bwd", "fused"),
+        launches_ok=lambda c: pair_fwd_launches(c) == (pairs, 0))
     by_name = _device_ms(prof)
     busy = sum(by_name.values())
     fwd_names, bwd_names = KERNEL_NAMES["ring"]
@@ -3798,16 +4123,22 @@ def phase_ring_speed(run, ckpt, S=2):
     ok &= attn_bwd_route(f"ring S={S}", by_name)
     ok &= wgmma_route(f"ring S={S}", by_name)
     ok &= pair_fwd_route(f"ring S={S}", by_name, _kernel_launches(prof),
-                         cfg.model.num_blocks * S * (S + 1) // 2)
+                         pairs)
     return ok, launches
+
+
+def pair_fwd_launches(counts):
+    """(launches of pair_fwd_wgmma_kernel, of pair_fwd_kernel) in a
+    profile's launches by kernel name."""
+    return tuple(sum(v for k, v in counts.items() if n in k)
+                 for n in PAIR_FWD)
 
 
 def pair_fwd_route(name, by_name, counts, want):
     """Whether a profiled bf16 ring step launched pair_fwd_wgmma_kernel
     ``want`` times (S (S + 1) / 2 per block), with device time, and its
     first design pair_fwd_kernel never; logs both."""
-    n_new, n_old = (sum(v for k, v in counts.items() if n in k)
-                    for n in PAIR_FWD)
+    n_new, n_old = pair_fwd_launches(counts)
     ms = sum(v for k, v in by_name.items() if PAIR_FWD[0] in k)
     ok = n_new == want and n_old == 0 and ms > 0
     log(f"{name}: the pair forward in the profiled step: {PAIR_FWD[0]} "
@@ -3927,6 +4258,9 @@ def main() -> int:
     # the fused JSON entries in order: fwd, fwd_train, bwd of each variant
     for run, found in ((FLAGSHIP_RUN, entries[:3]), (LONG_RUN, entries[3:])):
         trained, served = phase_run(run, oks)
+        if run is FLAGSHIP_RUN:   # the generative tier on its checkpoint
+            oks["semantic"], sem = phase_semantic(run)
+            served = {k: v + sem[k] for k, v in served.items()}
         for entry, n in zip(found, (served["fused_fwd"],
                                     trained["fused_train"],
                                     trained["fused_bwd"])):

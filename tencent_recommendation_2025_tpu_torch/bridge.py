@@ -4,7 +4,9 @@
 output of the JAX package passed through ``np.asarray``) or a checkpoint
 directory, and returns the port's nested parameter dict on a device. The
 names are the JAX pytree's own, blocks stacked along a leading
-``[num_blocks]`` axis, so the mapping is one to one.
+``[num_blocks]`` axis, so the mapping is one to one. :func:`tree_from_jax`
+does the same for a tree of dicts and lists (the RQ-VAE tokenizer and its
+decode head), keeping the lists.
 
 Checkpoint layout (``train/checkpoint.py`` of both packages): ``manifest.json``
 lists every leaf with its tree ``path``, ``file``, ``shape`` and ``dtype``,
@@ -121,3 +123,31 @@ def params_from_jax(src, device="cpu", itemnum: Optional[int] = None
                                itemnum + 1 if itemnum is not None else None)
         out[p] = _to_torch(arr, bf16, device)
     return _nest(out)
+
+
+def _listify(tree):
+    """Dicts whose keys are the positions 0..n-1 (a list's tree path
+    parts) back to lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listify(v) for k, v in tree.items()}
+    if out and sorted(out) == sorted(str(i) for i in range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def tree_from_jax(src, device="cpu"):
+    """The port's tensors from a JAX pytree of dicts and lists (the
+    ``{"rq": ..., "head": ...}`` trees of ``models/rqvae.py``) or from a
+    checkpoint directory of one: the same nest on ``device``, its ``enc``,
+    ``dec`` and ``heads`` lists kept as lists."""
+    if isinstance(src, (str, Path)):
+        return _listify(_nest({p: _to_torch(arr, bf16, device)
+                               for p, (arr, bf16)
+                               in read_checkpoint_leaves(src).items()}))
+    if isinstance(src, Mapping):
+        return {k: tree_from_jax(v, device) for k, v in src.items()}
+    if isinstance(src, (list, tuple)):
+        return [tree_from_jax(v, device) for v in src]
+    arr = np.asarray(src)
+    return _to_torch(_to_numpy(arr), arr.dtype.name == "bfloat16", device)

@@ -8,8 +8,9 @@ every test user's last position to ``query.fbin``, encode the candidate
 corpus from ``predict_set.jsonl`` (cold-start fill, mm attach,
 ``retrive_id2creative_id.json``) in fixed 1024-row chunks, run the top-k
 search of ``--ann_method`` (``exact``, the default; ``approx``; ``int8``,
-the quantized corpus; ``hnsw``, the C++ HNSW tool; see ``retrieval/ann``)
-and decode ``id100.u64bin`` to per-user top-10 creative ids.
+the quantized corpus; ``hnsw``, the C++ HNSW tool; ``semantic``, beam
+decoding through the artifacts of ``cli.semantic``, with ``--beam_width``;
+see ``retrieval/ann``) and decode ``id100.u64bin`` to per-user top-10 creative ids.
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given; without CUDA and without ``--device cpu`` it raises.
@@ -214,7 +215,9 @@ def infer(argv=None, timings: Optional[dict] = None):
     rcfg = dataclasses.replace(cfg.retrieval, method=args.ann_method)
     _sync(dev)
     t0 = time.perf_counter()
-    out = run_ann(result_dir, rcfg, device=dev)
+    out = run_ann(result_dir, rcfg, device=dev,
+                  model_output_path=env.model_output_path,
+                  beam_width=args.beam_width)
     _sync(dev)
     timings.update(topk_s=time.perf_counter() - t0)
     top10s_retrieved = formats.read_result_ids(out)

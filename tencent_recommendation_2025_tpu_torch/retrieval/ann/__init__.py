@@ -13,8 +13,9 @@ write the top-k retrieval ids to ``id100.u64bin``. Methods: ``exact``,
               --query_ef_search=640 --faiss_metric_type=0
 
 Where the tool cannot be built, ``hnsw`` falls back to exact search, as the
-JAX package's wrapper does. ``semantic`` (generative semantic-id serving)
-is not ported yet.
+JAX package's wrapper does. ``semantic`` serves through the tokenizer and
+decode head that ``cli.semantic`` saved under the model's output path
+(``retrieval/semantic_serve.run_semantic_ann``: beam decoding).
 """
 
 from __future__ import annotations
@@ -48,13 +49,21 @@ def binary_path(build: bool = True) -> Optional[Path]:
 def run_ann(result_dir, cfg: RetrievalConfig = RetrievalConfig(),
             dataset_file="embedding.fbin", id_file="id.u64bin",
             query_file="query.fbin", result_file="id100.u64bin",
-            device="cuda") -> Path:
+            device="cuda", model_output_path=None,
+            beam_width: int = 32) -> Path:
     """Top-k search by ``cfg.method`` with the reference's file contract;
-    returns the result file's path."""
+    returns the result file's path. ``semantic`` reads its artifacts under
+    ``model_output_path`` and decodes ``beam_width`` beams."""
     if cfg.method == "semantic":
-        raise NotImplementedError(
-            "ann method 'semantic': generative semantic-id serving is not "
-            "ported yet (ROADMAP Queue 1, Generative tier)")
+        from ..semantic_serve import run_semantic_ann
+
+        assert model_output_path is not None, \
+            "ann method 'semantic' needs the model output path"
+        return run_semantic_ann(result_dir, model_output_path, cfg,
+                                beam_width=beam_width,
+                                dataset_file=dataset_file, id_file=id_file,
+                                query_file=query_file,
+                                result_file=result_file, device=device)
     result_dir = Path(result_dir)
     out = result_dir / result_file
     tool = binary_path() if cfg.method == "hnsw" else None

@@ -40,7 +40,9 @@ def test_port_imports_no_jax():
                 "ops.flash_attention", "ops.hstu_attention",
                 "models.attention", "models.encoder", "models.hstu",
                 "parallel.mesh", "parallel.ring_fused",
-                "parallel.ring_attention"):
+                "parallel.ring_attention", "models.rqvae",
+                "train.rqvae_trainer", "retrieval.semantic_serve",
+                "cli.semantic"):
         assert f"{PORT}.{mod}" in imported, mod
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad

@@ -1,8 +1,8 @@
 """The port's top-k MIPS tiers (exact, approx, int8) and ANN file contract
 (with the HNSW tool) against the JAX package's (the single-device cases of
 tests/test_sharded_mips.py and tests/test_hnsw.py), and the serving
-entry's refusals: the unported semantic method and a CUDA device where
-there is none."""
+entry's refusals: the semantic method without its artifacts and a CUDA
+device where there is none."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,7 +46,9 @@ def _recall(got, want):
 def test_run_ann_exact_and_unported_methods(tmp_path):
     """exact, approx (the exact ids), int8 (the same top 10 as sets on a
     corpus without near ties) and hnsw through the file contract;
-    semantic still raises, naming its ROADMAP item."""
+    semantic raises without a model output path or without the artifacts
+    cli.semantic writes there (tests/test_torch_rqvae_pipeline.py serves
+    them)."""
     rng = np.random.default_rng(1)
     corpus = rng.standard_normal((50, 8)).astype(np.float32)
     queries = rng.standard_normal((6, 8)).astype(np.float32)
@@ -67,8 +69,11 @@ def test_run_ann_exact_and_unported_methods(tmp_path):
             np.testing.assert_array_equal(got, want)
         else:
             assert _recall(got, want) >= 0.9, method
-    with pytest.raises(NotImplementedError, match="Generative tier"):
+    with pytest.raises(AssertionError, match="model output path"):
         run_ann(tmp_path, RetrievalConfig(method="semantic"), device="cpu")
+    with pytest.raises(AssertionError, match="no semantic artifacts"):
+        run_ann(tmp_path, RetrievalConfig(method="semantic"), device="cpu",
+                model_output_path=tmp_path)
 
 
 @pytest.mark.parametrize("N,block_n", [(3000, 1024), (700, 1_048_576)])
