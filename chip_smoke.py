@@ -119,6 +119,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                queries: tokenize items/s, beam-decode queries/s,
                beam_retrieve's host seconds, the exact scorer's fill
                seconds, peak memory (shapes, ranges, finite scores held);
+5c. options — the training options on the flagship's fixture: one step at
+               full width and depth (B=128, L=1024, bf16, tower dedup off,
+               dropout 0) from its checkpoint at 4 microbatches against 1
+               (loss within 1e-3 relative, every gradient at cosine >=
+               0.999, the fused training forward and backward launched 4x,
+               peak memory above the state lower; both steps' ms), the
+               accumulated step profiled and held to the fused route's
+               wgmma kernels; ``cli.train --preset baseline_o1 --maxlen
+               1023 --grad_accum_steps 4`` (flash launches 4x a step's,
+               the native pack taken by --loader auto); preemption on the
+               fixture's first 512 users, 2 epochs through train_loop: two
+               uninterrupted runs, one that sends itself SIGTERM at epoch
+               2 step 1, its resume with skip_steps (the same state.step;
+               the preemption meta; parameters bitwise equal where the
+               uninterrupted runs are, else within 10x their own
+               difference at cosine >= 0.9999, and the ops that vary
+               named); an async checkpoint written while the next step
+               runs, bitwise equal to a synchronous save;
 6. long    — phases 4 and 5 on long sequences, through the chunked
                variant: a fixture of 384 users, 5000 items and sequences of
                2048..4000 events, ``cli.train --maxlen 4095 --batch_size 32
@@ -134,7 +152,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                wgmma kernels and none of its first design's, as must a
                predict batch's), served with 8 queries held to the CPU
                and its result directory served again with the approx, int8
-               and hnsw methods;
+               and hnsw methods; then the native C++ pack of the long
+               fixture, every field and the seen sets bitwise equal to the
+               python pack of the long run, both set-up times printed (the
+               runs below with --loader auto take the native pack);
 6b. retrieval — the tiers on a seeded 10M x 64 corpus, Q=1024: exact,
                approx (ids equal exact's) and int8 (recall@10 against
                exact), each one's time, queries/s and peak memory; the HNSW
@@ -349,8 +370,9 @@ class Run:
 
 # the L=1024 path keeps the streaming loader it has run with since its first
 # slice (its one-step check reads that run's checkpoint); the long path
-# takes the packed cache; the parity presets and hstu_mini take --loader
-# auto (the packed cache at these sizes)
+# takes the python pack (--loader cached), which the native pack is held
+# to; the parity presets, hstu_mini and sparse take --loader auto (the
+# native pack)
 FLAGSHIP_RUN = Run("flagship", "hstu_flagship", MAXLEN, FIXTURE,
                    WORK / "data", 128, ("--loader", "streaming"), WORK,
                    "fused", 32, True)
@@ -2329,8 +2351,10 @@ class _Tee(io.TextIOBase):
 
 def phase_training(run):
     """cli.train on the card, one epoch of ``run``; every launch counter
-    held to its expected count. A preset whose mesh wants several devices
-    must print the JAX CLI's warning and train single-device."""
+    held to its expected count (a step of G microbatches launches the
+    training kernels G times). A preset whose mesh wants several devices
+    must print the JAX CLI's warning and train single-device. The loader's
+    timings go to TIMINGS."""
     import numpy as np
     import torch
 
@@ -2365,6 +2389,7 @@ def phase_training(run):
                          packs=PACKS)
     wall = time.perf_counter() - t0
     launches = read_launches()
+    TIMINGS[run.name] = timings
 
     cfg = run.config()
     mc = cfg.mesh
@@ -2389,9 +2414,11 @@ def phase_training(run):
     if users:
         assert len(va) <= users
         n_eval += n_val
+    # each of a step's G microbatches runs the training kernels once
     ok = steps > 0 and check_launches(
         run, "training", launches,
-        expected_launches(run.kernels, cfg.model.num_blocks, steps, n_eval))
+        expected_launches(run.kernels, cfg.model.num_blocks,
+                          steps * cfg.train.grad_accum_steps, n_eval))
     records = [json.loads(ln) for ln in open(log_dir / "train.log")]
     lines = [ln for ln in records if "loss" in ln]
     losses = [ln["loss"] for ln in lines]
@@ -2976,6 +3003,443 @@ def phase_run(run, oks):
     oks[f"{run.name}_serve"], served = phase_serving(ckpt, run)
     log(f"{run.name} serving phase: {time.perf_counter() - t0:.1f} s")
     return trained, served
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the training options
+# ---------------------------------------------------------------------------
+
+#: microbatches of the gradient-accumulation checks (B=128 -> 32 rows a
+#: launch)
+ACCUM_G = 4
+#: cli.train --preset baseline_o1 --maxlen 1023 --grad_accum_steps 4 on the
+#: flagship's fixture, --loader auto (the native pack): flash MHA at 32 rows
+#: a launch
+ACCUM_RUN = Run("baseline_o1_g4", "baseline_o1", MAXLEN, FIXTURE,
+                WORK / "data", 128, ("--grad_accum_steps", str(ACCUM_G)),
+                WORK / "baseline_o1_g4", "flash", 0, False)
+#: the preemption runs' training users (the flagship fixture's first 512:
+#: 4 steps an epoch at B=128) and epochs
+PREEMPT_USERS = 512
+PREEMPT_EPOCHS = 2
+#: the resumed run's largest parameter difference to the uninterrupted run,
+#: in multiples of two uninterrupted runs' own, where those differ
+PREEMPT_NOISE_FACTOR = 10.0
+#: cli.train's loader timings by run name
+TIMINGS: dict = {}
+
+
+def _since(before):
+    now = read_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _grad_cos(a, b):
+    import torch
+
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0.0 and nb == 0.0:
+        return 1.0
+    return float(torch.dot(a.flatten(), b.flatten()) / (na * nb))
+
+
+def phase_accum(run, data, ckpt):
+    """One train step of ``run``'s model at full width and depth (the
+    flagship: B=128, L=1024, bf16; tower dedup off and dropout 0) from its
+    checkpoint on one batch, at G = ACCUM_G microbatches against G = 1: the
+    loss within 1e-3 relative, every gradient leaf at cosine >= 0.999 (bf16
+    against bf16), the fused training forward and backward launched G
+    times as often, the peak memory above the state lower; each step's
+    time (host clock, synchronised, 5 steps after 2) and peak printed; a
+    profiled G-microbatch step held to the fused route's wgmma kernels."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    cfg, schema, (batch,) = _train_batches(data, 1, run)
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dropout_rate=0.0),
+        train=dataclasses.replace(cfg.train, tower_dedup=False))
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+    model = SeqRecModel(cfg=cfg.model, schema=schema,
+                        fused=FusedVocab.build(schema), usernum=data.usernum,
+                        itemnum=data.itemnum)
+    params, _ = CK.load_params(ckpt)
+    tabs = TR.device_tables(tables, "cuda")
+    b = TR.put_batch(batch, "cuda")
+    nb = cfg.model.num_blocks
+    res, ok = {}, True
+    for G in (1, ACCUM_G):
+        c = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  grad_accum_steps=G))
+        state = TR.init_state(model, c, params=params, device="cuda")
+        step = TR.make_train_step(model, c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = read_launches()
+        state, m = step(state, b, tabs["mm"], tabs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        got = _since(before)
+        want = dict.fromkeys(got, 0)
+        want.update(fused_train=nb * G, fused_bwd=nb * G)
+        ok &= check_launches(run, f"G={G} step", got, want)
+        res[G] = dict(loss=float(m["loss"]), peak=peak, grads={
+            p: t.grad.float().clone() for p, t in TR.param_leaves(
+                state.params)})
+        for _ in range(2):
+            state, m = step(state, b, tabs["mm"], tabs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, m = step(state, b, tabs["mm"], tabs)
+        torch.cuda.synchronize()
+        res[G]["ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        if G > 1:
+            def one_step():
+                nonlocal state, m
+                state, m = step(state, b, tabs["mm"], tabs)
+
+            name = f"{run.name} G={G}"
+            prof, wall = route_trace(name, one_step, ("attn_bwd", "fused"))
+            by_name = _device_ms(prof)
+            busy = sum(by_name.values())
+            log(f"{name}: profiled step wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms (idle {max(0.0, 1 - busy / wall):.1%})")
+            ok &= attn_bwd_route(name, by_name)
+            ok &= wgmma_route(name, by_name)
+        del state
+    one, acc = res[1], res[ACCUM_G]
+    rel = abs(acc["loss"] - one["loss"]) / abs(one["loss"])
+    worst = min((_grad_cos(acc["grads"][p], g), p)
+                for p, g in one["grads"].items())
+    ok_num = rel <= 1e-3 and worst[0] >= 0.999
+    ok_mem = acc["peak"] < one["peak"]
+    log(f"{run.name}: grad accumulation at B=128, L=1024, bf16 (dropout 0, "
+        f"tower dedup off): loss G=1 {one['loss']:.6f}, G={ACCUM_G} "
+        f"{acc['loss']:.6f} (relative {rel:.2e}, limit 1e-3); lowest "
+        f"gradient cosine {worst[0]:.6f} ({worst[1]}; limit 0.999, bf16 "
+        f"against bf16) {'ok' if ok_num else 'FAIL'}")
+    log(f"{run.name}: step G=1 {one['ms']:.3f} ms, peak {one['peak'] / 2**20:.1f}"
+        f" MiB above the state; G={ACCUM_G} {acc['ms']:.3f} ms, peak "
+        f"{acc['peak'] / 2**20:.1f} MiB (host clock, synchronised, 5 steps "
+        f"after 2; peak by torch.cuda.max_memory_allocated, first step) "
+        f"{'ok' if ok_mem else 'FAIL'}")
+    return ok and ok_num and ok_mem
+
+
+class _SignalingLoader:
+    """A cached train loader that sends this process SIGTERM as it hands
+    out batch 1 of epoch 2; the train loop ends the step in flight, writes
+    its preemption checkpoint and returns."""
+
+    supports_prep = True
+
+    def __init__(self, inner):
+        self.inner, self.armed = inner, True
+
+    def __len__(self):
+        return len(self.inner)
+
+    def epoch(self, e, prep=None):
+        import signal
+
+        for i, b in enumerate(self.inner.epoch(e, prep=prep)):
+            if self.armed and e == 2 and i == 1:
+                self.armed = False
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield b
+
+
+def _max_diff(a, b):
+    """(largest absolute difference, lowest cosine, its leaf) over two
+    states' parameters."""
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    diff, worst = 0.0, (2.0, None)
+    for (p, x), (_, y) in zip(TR.param_leaves(a.params),
+                              TR.param_leaves(b.params)):
+        x, y = x.detach().float(), y.detach().float()
+        diff = max(diff, (x - y).abs().max().item())
+        worst = min(worst, (_grad_cos(x, y), p))
+    return diff, worst
+
+
+#: ops whose CUDA default is not deterministic (atomics) and which
+#: torch.use_deterministic_algorithms replaces with a deterministic
+#: implementation without a warning
+DETERMINISTIC_SWAPS = ("aten::index_add_", "aten::index_put_",
+                       "aten::_index_put_impl_", "aten::put_",
+                       "aten::scatter_add_", "aten::scatter_reduce_",
+                       "aten::index_reduce_", "aten::index_copy_",
+                       "aten::embedding_dense_backward",
+                       "aten::_embedding_bag_backward",
+                       "aten::repeat_interleave", "aten::cumsum")
+
+
+def _step_determinism(fresh_state, step_fn):
+    """Which ops make a step's bits vary: one step taken twice from the
+    same state (``fresh_state()`` loads it anew), its gradients compared
+    bitwise, then the same under torch.use_deterministic_algorithms
+    (warn_only, its warnings kept: ops it has no deterministic version of);
+    and the ops of the step (a CPU trace) that the switch replaces. Returns
+    (plain runs equal, switched runs equal, warned ops, replaced ops)."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    def grads():
+        state = step_fn(fresh_state())
+        torch.cuda.synchronize()
+        return [t.grad.clone() for _, t in TR.param_leaves(state.params)
+                if t.grad is not None]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    plain = same(grads(), grads())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            switched = same(grads(), grads())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    warned = set()
+    for w in caught:
+        text = str(w.message)
+        hit = re.match(r"(\S+) does not have a deterministic", text)
+        warned.add(hit.group(1) if hit else
+                   "cuBLAS" if "CuBLAS" in text else text[:60])
+    state = fresh_state()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step_fn(state)
+        torch.cuda.synchronize()
+    ran = {e.key for e in prof.key_averages()}
+    return plain, switched, sorted(warned), sorted(
+        op for op in DETERMINISTIC_SWAPS if op in ran)
+
+
+def phase_preempt(run, data, cache_dir):
+    """Preemption and step-exact resume at the flagship's width (B=128,
+    L=1024, bf16, the preset as it stands: tower dedup, dropout 0.01): the
+    fixture's first PREEMPT_USERS training users, PREEMPT_EPOCHS epochs
+    through train_loop on the native pack in ``cache_dir``. Two
+    uninterrupted runs (the card's run-to-run spread), one that sends
+    itself SIGTERM at epoch 2, step 1, and its resume from the preemption
+    checkpoint with skip_steps: the same state.step as the uninterrupted
+    run, a meta with preempted, epoch 1 and epoch_step >= 1, parameters
+    bitwise equal where the two uninterrupted runs are, else within
+    PREEMPT_NOISE_FACTOR times their own largest difference at per-leaf
+    cosine >= 0.9999 (the ops that are not deterministic named). Then an
+    async checkpoint written while the next step runs, bitwise equal to a
+    synchronous save of the same state."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.data import native_pack as NP
+    from tencent_recommendation_2025_tpu_torch.data.cached_dataset import \
+        CachedTrainLoader
+    from tencent_recommendation_2025_tpu_torch.data.dataset import \
+        TrainSampler
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.data.pipeline import \
+        train_val_split
+    from tencent_recommendation_2025_tpu_torch.data.schema import \
+        FeatureSchema
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    t_phase = time.perf_counter()
+    cfg = run.config()
+    schema = FeatureSchema.from_indexer(data.indexer, ("81",), 8)
+    sampler = TrainSampler(data, schema, cfg.model.maxlen)
+    tr, _ = train_val_split(len(sampler), cfg.train.valid_fraction,
+                            cfg.train.seed)
+    cache = NP.build_packed_cache_native(sampler, cache_dir)
+    loader = CachedTrainLoader(cache, tr[:PREEMPT_USERS],
+                               cfg.train.batch_size, seed=cfg.train.seed,
+                               num_workers=8)
+    n = len(loader)
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+    model = SeqRecModel(cfg=cfg.model, schema=schema,
+                        fused=FusedVocab.build(schema), usernum=data.usernum,
+                        itemnum=data.itemnum)
+    root = WORK / "preempt"
+    if root.exists():
+        shutil.rmtree(root)
+
+    def loop(name, src, state=None, **kw):
+        return TR.train_loop(
+            model, cfg, src, None, tables, ckpt_dir=str(root / name),
+            state=state if state is not None else TR.init_state(
+                model, cfg, device="cuda"),
+            num_epochs=PREEMPT_EPOCHS, verbose=False, device="cuda", **kw)
+
+    full = [loop(f"full{i}", loader) for i in (1, 2)]
+    pre = loop("pre", _SignalingLoader(loader))
+    ckpt = CK.latest_checkpoint(root / "pre")
+    restored, meta = CK.load_checkpoint(ckpt, model, cfg, device="cuda")
+    at = restored.step   # the resumed loop updates the state in place
+    res = loop("pre", loader, state=restored, start_epoch=meta["epoch"],
+               skip_steps=meta["epoch_step"])
+    want = PREEMPT_EPOCHS * n
+    ok_meta = (meta.get("preempted") is True and meta["epoch"] == 1
+               and meta["epoch_step"] >= 1
+               and at == pre.step == n + meta["epoch_step"]
+               and res.step == full[0].step == full[1].step == want)
+    log(f"{run.name}: preemption at epoch 2 step 1 ({PREEMPT_USERS} users, "
+        f"{n} steps an epoch): checkpoint {ckpt.name}, meta epoch "
+        f"{meta['epoch']} epoch_step {meta['epoch_step']} preempted "
+        f"{meta.get('preempted')}; state.step preempted {pre.step}, loaded "
+        f"{at}, resumed {res.step}, uninterrupted {full[0].step} and {full[1].step} "
+        f"(want {want}) {'ok' if ok_meta else 'FAIL'}")
+    noise, noise_cos = _max_diff(full[0], full[1])
+    diff, worst = _max_diff(full[0], res)
+    if noise == 0.0:
+        ok_eq = diff == 0.0
+        rule = "bitwise (the uninterrupted runs are bitwise equal)"
+    else:
+        ok_eq = diff <= PREEMPT_NOISE_FACTOR * noise and worst[0] >= 0.9999
+        rule = (f"<= {PREEMPT_NOISE_FACTOR:g} x the uninterrupted runs' own "
+                f"{noise:.3e} (their lowest cosine {noise_cos[0]:.8f}) and "
+                "cosine >= 0.9999")
+    log(f"{run.name}: resumed run against the uninterrupted one: largest "
+        f"difference {diff:.3e}, lowest cosine {worst[0]:.8f} ({worst[1]}); "
+        f"rule {rule} {'ok' if ok_eq else 'FAIL'}")
+
+    # the async save: the state copied at the call, the files written while
+    # the next step updates the state in place
+    step = TR.make_train_step(model, cfg)
+    tabs = TR.device_tables(tables, "cuda")
+    raw = next(iter(loader.epoch(PREEMPT_EPOCHS + 1)))
+    batch = TR.put_batch(_host_prep(cfg, raw, tables, data, 0), "cuda")
+    state = full[1]
+    sync = CK.save_checkpoint(root / "sync", state, state.step,
+                              model_config=model.cfg)
+    t0 = time.perf_counter()
+    handle = CK.save_checkpoint_async(root / "async", state, state.step,
+                                      model_config=model.cfg)
+    t_call = time.perf_counter() - t0
+    state, _ = step(state, batch, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    path = handle.result()
+    t_all = time.perf_counter() - t0
+    manifest = _json.loads((path / "manifest.json").read_text())
+    same = manifest == _json.loads((sync / "manifest.json").read_text())
+    for e in manifest["leaves"]:
+        same &= bool(np.array_equal(np.load(path / e["file"]),
+                                    np.load(sync / e["file"])))
+    moved = not torch.equal(state.params["pos_emb"].cpu(), torch.from_numpy(
+        np.load(path / next(e["file"] for e in manifest["leaves"]
+                            if e["path"] == "0/pos_emb"))))
+    ok_async = same and moved
+    log(f"{run.name}: async checkpoint ({len(manifest['leaves'])} leaves) "
+        f"bitwise equal to a synchronous save of the same state: {same}; "
+        f"the step that ran meanwhile moved the state: {moved}; the call "
+        f"returned in {t_call * 1e3:.1f} ms, the step ended at "
+        f"{t_step * 1e3:.1f} ms, the save at {t_all * 1e3:.1f} ms "
+        f"{'ok' if ok_async else 'FAIL'}")
+    if noise != 0.0 or diff != 0.0:
+        plain, switched, warned, swapped = _step_determinism(
+            lambda: CK.load_checkpoint(sync, model, cfg, device="cuda")[0],
+            lambda st: step(st, batch, tabs["mm"], tabs)[0])
+        log(f"{run.name}: one step twice from the same state: gradients "
+            f"bitwise equal {plain}; under torch.use_deterministic_"
+            f"algorithms {switched}; the step's ops whose CUDA default is "
+            f"not deterministic and which that switch replaces: "
+            f"{', '.join(swapped) or 'none'}; ops it warns of: "
+            f"{', '.join(warned) or 'none'}")
+    log(f"{run.name}: preemption phase {time.perf_counter() - t_phase:.1f} s")
+    return ok_meta and ok_eq and ok_async
+
+
+def phase_train_options(run, data, ckpt):
+    """Phase 5c on the flagship's fixture: gradient accumulation at the
+    flagship's width (:func:`phase_accum`), cli.train of ACCUM_RUN (flash
+    MHA launches held to G times a step's, the native pack taken by --loader
+    auto), preemption and step-exact resume (:func:`phase_preempt`, on
+    ACCUM_RUN's pack). Returns (ok, the fused kernels' launches of the
+    phase, ACCUM_RUN's)."""
+    t0 = time.perf_counter()
+    reset_launches()
+    ok = phase_accum(run, data, ckpt)
+    fused = read_launches()
+    ok_run, accum_launches, _, _ = phase_training(ACCUM_RUN)
+    ok_loader = TIMINGS[ACCUM_RUN.name].get("loader") == "native"
+    log(f"{ACCUM_RUN.name}: --loader auto took "
+        f"{TIMINGS[ACCUM_RUN.name].get('loader')} "
+        f"{'ok' if ok_loader else 'FAIL'}")
+    reset_launches()
+    ok_pre = phase_preempt(run, data, ACCUM_RUN.work / "model"
+                           / f"packed_cache_maxlen{MAXLEN}")
+    fused = {k: v + read_launches()[k] for k, v in fused.items()}
+    log(f"training options phase: {time.perf_counter() - t0:.1f} s")
+    return ok and ok_run and ok_loader and ok_pre, fused, accum_launches
+
+
+def phase_native_pack(run):
+    """The native pack of ``run``'s fixture and window (the long run's: 384
+    users, L=4096) on the card's host, every field and the seen sets
+    bitwise equal to the python pack cli.train built for it (kept in PACKS);
+    both set-up times printed."""
+    import numpy as np
+
+    from tencent_recommendation_2025_tpu_torch.data import native_pack as NP
+    from tencent_recommendation_2025_tpu_torch.data.dataset import \
+        TrainSampler
+    from tencent_recommendation_2025_tpu_torch.data.readers import \
+        TencentGRData
+    from tencent_recommendation_2025_tpu_torch.data.schema import \
+        FeatureSchema
+
+    py = next((v for k, v in PACKS.items()
+               if k[0] == "cached" and k[-1] == run.maxlen), None)
+    if py is None:
+        log(f"{run.name}: no python pack of the window kept in PACKS FAIL")
+        return False
+    data = TencentGRData(run.data_dir, mm_emb_ids=("81",))
+    schema = FeatureSchema.from_indexer(data.indexer, ("81",), 8)
+    sampler = TrainSampler(data, schema, run.maxlen)
+    out = WORK / "native_pack" / run.name
+    if out.exists():
+        shutil.rmtree(out)
+    t0 = time.perf_counter()
+    nat = NP.build_packed_cache_native(sampler, out, threads=8)
+    t_nat = time.perf_counter() - t0
+    bad = [k for k, v in py.fields.items()
+           if not np.array_equal(np.asarray(nat.fields[k]), v)]
+    if not (np.array_equal(np.asarray(nat.seen_sets.offs), py.seen_sets.offs)
+            and np.array_equal(np.asarray(nat.seen_sets.vals),
+                               py.seen_sets.vals)):
+        bad.append("seen sets")
+    ok = not bad and set(nat.fields) == set(py.fields)
+    t_py = TIMINGS.get(run.name, {}).get("cache_build_s", float("nan"))
+    mb = sum(np.asarray(v).nbytes for v in nat.fields.values()) / 2**20
+    log(f"{run.name}: native pack of {len(nat)} users at L={run.maxlen + 1} "
+        f"({len(nat.fields)} fields, {mb:.1f} MiB) in {t_nat:.2f} s (8 "
+        f"threads), the python pack in {t_py:.2f} s (cli.train, "
+        f"{run.name} run); bitwise equal: "
+        f"{'all fields and the seen sets' if ok else bad} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -4247,13 +4711,17 @@ def main() -> int:
                 + trained["fused_train"], trained["fused_bwd"])):
             entry["launches"] = n
 
+    extra = {}   # launches of phase 5c's cli.train run, by the run it adds to
+
     def attach(run, trained, served):
         """This run's launches into its attention kernels' JSON entries."""
+        more = extra.get(run.name, {})
         for name, entry in attention:
             if name == run.name:   # this run's forward or backward kernel
                 way = "bwd" if "_bwd_" in entry["name"] else "fwd"
                 key = f"{run.kernels}_{way}"
-                entry["launches"] = trained[key] + served[key]
+                entry["launches"] = trained[key] + served[key] \
+                    + more.get(key, 0)
 
     # the fused JSON entries in order: fwd, fwd_train, bwd of each variant
     for run, found in ((FLAGSHIP_RUN, entries[:3]), (LONG_RUN, entries[3:])):
@@ -4261,6 +4729,17 @@ def main() -> int:
         if run is FLAGSHIP_RUN:   # the generative tier on its checkpoint
             oks["semantic"], sem = phase_semantic(run)
             served = {k: v + sem[k] for k, v in served.items()}
+            # the training options on its fixture and checkpoint
+            from tencent_recommendation_2025_tpu_torch.data.readers import \
+                TencentGRData
+            from tencent_recommendation_2025_tpu_torch.train import \
+                checkpoint as CK
+
+            oks["train_options"], opt, extra[PARITY_RUNS[3].name] = \
+                phase_train_options(
+                    run, TencentGRData(run.data_dir, mm_emb_ids=("81",)),
+                    CK.latest_checkpoint(run.work / "model"))
+            trained = {k: v + opt[k] for k, v in trained.items()}
         for entry, n in zip(found, (served["fused_fwd"],
                                     trained["fused_train"],
                                     trained["fused_bwd"])):
@@ -4274,6 +4753,9 @@ def main() -> int:
     oks["ring"], ring_entries = phase_ring(
         CK.latest_checkpoint(LONG_RUN.work / "model"), libs)
     attach(MINI_LONG_RUN, *phase_run(MINI_LONG_RUN, oks))
+    # the long window's python pack is still in PACKS: the native one
+    # against it, before the runs that follow replace it
+    oks["native_pack"] = phase_native_pack(LONG_RUN)
     t0 = time.perf_counter()
     oks["mini_long_ann"] = phase_ann_methods(MINI_LONG_RUN)
     oks["retrieval"] = phase_retrieval()

@@ -11,9 +11,10 @@ decode head), keeping the lists.
 Checkpoint layout (``train/checkpoint.py`` of both packages): ``manifest.json``
 lists every leaf with its tree ``path``, ``file``, ``shape`` and ``dtype``,
 or with ``shards`` (per-extent files) for a mesh-sharded leaf; leaves of a
-train state's parameters have paths starting with ``0/`` (optimizer state
-``1/`` and step ``2`` are skipped). A table of 30M+ rows is stored packed as
-[V/R, 8, 128], row-major, and unpacks as ``reshape(-1, D)[:itemnum + 1]``.
+train state's parameters have paths starting with ``0/``, its optimizer
+state ``1/`` (:func:`opt_state_from_jax` reads a JAX-written one) and its
+step ``2``. A table of 30M+ rows is stored packed as [V/R, 8, 128],
+row-major, and unpacks as ``reshape(-1, D)[:itemnum + 1]``.
 """
 
 from __future__ import annotations
@@ -123,6 +124,66 @@ def params_from_jax(src, device="cpu", itemnum: Optional[int] = None
                                itemnum + 1 if itemnum is not None else None)
         out[p] = _to_torch(arr, bf16, device)
     return _nest(out)
+
+
+def opt_state_from_jax(path, device="cpu", dim: Optional[int] = None
+                       ) -> Dict:
+    """The optimizer state of a train state the JAX trainer wrote, in the
+    port's terms, read by leaf path from the checkpoint's manifest:
+
+    - ``step``: the train state's step (leaf ``2``);
+    - ``count``, ``exp_avg``, ``exp_avg_sq`` ({param path: tensor}): optax's
+      ``ScaleByAdamState`` (``count``, ``mu``, ``nu``), the first state of
+      ``optax.adam`` / ``adamw`` over every parameter (``1/0/...``) or over
+      the dense ones beside sparse tables (``1/dense/0/...``): AdamW's
+      ``step``, ``exp_avg`` and ``exp_avg_sq``;
+    - ``schedule_count``: the count of the learning-rate schedule's state
+      (``1/<i>/count``, i >= 1), None for a constant rate;
+    - ``tables`` ({table: {"mu", "nu"} or {"acc"}}): the row optimizers'
+      state (``1/tables/<table>/<key>``); a packed table's moments
+      ([V/R, 8, 128]) unpack to the port's [Vp, ``dim``].
+
+    Any other leaf raises: it is an optimizer the port does not mirror."""
+    path = Path(path)
+    entries = json.loads((path / MANIFEST_FILE).read_text())["leaves"]
+    leaves = {e["path"]: e for e in entries if not e["path"].startswith("0/")}
+    if "2" not in leaves:
+        raise ValueError(f"{path} holds no train state (no step leaf '2')")
+    pre = "1/dense/" if any(p.startswith("1/dense/") for p in leaves) \
+        else "1/"
+
+    def load(e, shape=None):
+        arr = _load_entry(path, e)
+        if shape is not None:
+            arr = arr.reshape(shape)
+        return _to_torch(arr, e["dtype"] == "bfloat16", device)
+
+    out = {"step": int(_load_entry(path, leaves["2"])), "count": None,
+           "schedule_count": None, "exp_avg": {}, "exp_avg_sq": {},
+           "tables": {}}
+    for p, e in leaves.items():
+        if p == "2":
+            continue
+        if p.startswith("1/tables/"):
+            name, key = p[len("1/tables/"):].split("/")
+            packed = e["shape"][1:] == [8, 128] and len(e["shape"]) == 3
+            out["tables"].setdefault(name, {})[key] = load(
+                e, (-1, dim) if packed else None)
+        elif p == pre + "0/count":
+            out["count"] = int(_load_entry(path, e))
+        elif p.startswith(pre + "0/mu/"):
+            out["exp_avg"][p[len(pre + "0/mu/"):]] = load(e)
+        elif p.startswith(pre + "0/nu/"):
+            out["exp_avg_sq"][p[len(pre + "0/nu/"):]] = load(e)
+        elif p.startswith(pre) and p.endswith("/count") and \
+                p[len(pre):-len("/count")].isdigit():
+            out["schedule_count"] = int(_load_entry(path, e))
+        else:
+            raise ValueError(f"optimizer leaf {p!r} of {path} is not an "
+                             "optax adam / adamw state or a row optimizer's")
+    if out["count"] is None:
+        raise ValueError(f"{path} holds no optax adam state ({pre}0/count)")
+    return out
 
 
 def _listify(tree):

@@ -8,11 +8,19 @@ named ``global_step{N}.valid_loss={v}``, which the port's ``cli.infer``
 serves).
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given; without CUDA and without ``--device cpu`` it raises. Loaders:
-``cached`` packs every user's sample once (``data/cached_dataset.py``) and
-samples negatives vectorised; ``streaming`` samples in python threads every
-epoch; ``auto`` takes the cached loader up to 2M samples and streams above,
-as the JAX package's ``auto`` does where its native tool is absent. In
+is given; without CUDA and without ``--device cpu`` it raises. Loaders, as
+the JAX CLI's: ``native`` packs every user's sample once with the C++ tool
+(``data/native_pack.py``; built on first use into ``build/native/``; the
+pack goes to ``TRAIN_CKPT_PATH/packed_cache_maxlen{maxlen}`` and is reused
+from there, or without TRAIN_CKPT_PATH to a temporary directory), and
+raises where the tool cannot be built; ``auto`` (the
+default) takes the native pack at any scale, and only where the tool cannot
+be built the python pack up to 2M samples, streaming above; ``cached`` is
+the python pack (``data/cached_dataset.py``); ``streaming`` samples in
+python threads every epoch. A checkpoint given by ``--state_dict_path``
+resumes at its epoch and, for a preemption checkpoint (SIGTERM during a
+run: the step in flight ends, a checkpoint is written and the run exits
+cleanly), at its step in the epoch. In
 one process, a preset whose mesh wants several devices
 (``sampled_softmax_dp``, ``sharded_multihost``, or any ``--mesh_*``) trains
 on one, with the JAX CLI's warning. Under ``torchrun`` (``WORLD_SIZE`` > 1)
@@ -23,9 +31,9 @@ and the BCE loss train sequence-parallel; any other mesh or option raises
 ``train.log``, TensorBoard events and checkpoints; the parameters are
 replicated, so the checkpoint is the single-device one.
 ``--eval_retrieval_users N`` logs HR@10 / NDCG@10 of N validation users at
-the end of each epoch (stdout, ``train.log``, TensorBoard). The native
-loader and gradient accumulation raise ``NotImplementedError`` naming their
-ROADMAP item.
+the end of each epoch (stdout, ``train.log``, TensorBoard).
+``--grad_accum_steps G`` trains each batch as G microbatches (dense tables,
+no tower dedup).
 
     TRAIN_DATA_PATH=... TRAIN_CKPT_PATH=... python -m \\
         tencent_recommendation_2025_tpu_torch.cli.train \\
@@ -48,11 +56,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
 
-#: above this many samples ``--loader auto`` streams instead of packing
+#: above this many samples ``--loader auto`` streams instead of taking the
+#: python pack, where the native tool cannot be built
 AUTO_CACHE_MAX_SAMPLES = 2_000_000
 
 
@@ -102,10 +112,11 @@ def get_args(argv=None):
                    help="1-based step the profile window starts at")
     p.add_argument("--loader", default="auto",
                    choices=["auto", "native", "cached", "streaming"],
-                   help="cached: python pack, vectorized negatives; "
-                        "streaming: threaded per-epoch sampling; auto: "
-                        "cached up to 2M samples, else streaming; native is "
-                        "not ported yet")
+                   help="native: the C++ pack (raises if the tool cannot "
+                        "be built); cached: python pack, vectorized "
+                        "negatives; streaming: threaded per-epoch sampling; "
+                        "auto: native, else cached up to 2M samples, else "
+                        "streaming")
     return p.parse_args(argv)
 
 
@@ -158,12 +169,12 @@ def single_device_warning(want: int, present: int) -> str:
 def main(argv=None, timings: Optional[dict] = None,
          packs: Optional[dict] = None):
     """Train; returns the final state. ``timings``, when given, receives the
-    loader taken ("cached" or "streaming") and, for the cached one, the
-    seconds its pack took and whether it was reused. ``packs``, when given,
-    keeps the last packed cache under (data directory, its mtime, mm ids,
-    array cap, maxlen): a caller that trains several models on the same
-    data and window in one process passes the same dict, and the pack is
-    built once."""
+    loader taken ("native", "cached" or "streaming") and, for a pack, the
+    seconds it took and whether it was reused. ``packs``, when given, keeps
+    the last pack under (its kind, data directory, its mtime, mm ids, array
+    cap, maxlen): a caller that trains several models on the same data and
+    window in one process passes the same dict, and the pack is built
+    once."""
     args = get_args(argv)
     timings = {} if timings is None else timings
     cfg = build_config(args)
@@ -171,6 +182,7 @@ def main(argv=None, timings: Optional[dict] = None,
     import torch
 
     from ..config import EnvPaths
+    from ..data import native_pack as NP
     from ..data.cached_dataset import CachedTrainLoader, PackedCache
     from ..data.dataset import TrainSampler
     from ..data.featurizer import FusedVocab, build_item_tables
@@ -180,6 +192,7 @@ def main(argv=None, timings: Optional[dict] = None,
     from ..models.baseline import SeqRecModel
     from ..train import checkpoint as CK
     from ..train.trainer import check_supported, train_loop
+    from ..utils.sysinfo import print_system_info
     from .infer import resolve_device
 
     dev = resolve_device(args.device)
@@ -203,16 +216,11 @@ def main(argv=None, timings: Optional[dict] = None,
         print(single_device_warning(
             want, torch.cuda.device_count() if dev.type == "cuda" else 1))
     check_supported(cfg, mesh)
-    if args.loader == "native":
-        raise NotImplementedError(
-            "--loader native (the C++ dataprep pack) is not ported yet: "
-            "ROADMAP Queue 1, item 4 (native pack)")
 
     env = EnvPaths.from_env()
     assert env.train_data_path, "TRAIN_DATA_PATH must be set"
-    print(f"System info: torch {torch.__version__}, device {dev}"
-          + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
-             else ""))
+    print("System info:")
+    print_system_info()
 
     data = TencentGRData(env.train_data_path,
                          mm_emb_ids=cfg.features.mm_emb_ids)
@@ -228,26 +236,64 @@ def main(argv=None, timings: Optional[dict] = None,
     sampler = TrainSampler(data, schema, cfg.model.maxlen)
     tr_idx, va_idx = train_val_split(len(sampler), cfg.train.valid_fraction,
                                      cfg.train.seed)
-    cached = args.loader == "cached" or (
-        args.loader == "auto" and len(sampler) <= AUTO_CACHE_MAX_SAMPLES)
-    if cached:
+    path = os.path.realpath(env.train_data_path)
+    window = (path, os.stat(path).st_mtime_ns,
+              tuple(cfg.features.mm_emb_ids), cfg.features.array_cap,
+              cfg.model.maxlen)
+
+    def packed(kind, build):
+        """The pack of ``kind`` ("native" or "cached"): the one ``packs``
+        holds for this window, else a new one, timed."""
         t0 = time.perf_counter()
-        path = os.path.realpath(env.train_data_path)
-        key = (path, os.stat(path).st_mtime_ns,
-               tuple(cfg.features.mm_emb_ids), cfg.features.array_cap,
-               cfg.model.maxlen)
-        cache = (packs or {}).get(key)
-        timings.update(loader="cached", cache_reused=cache is not None)
+        cache = (packs or {}).get((kind,) + window)
+        timings.update(loader=kind, cache_reused=cache is not None)
         if cache is None:
-            cache = PackedCache(sampler, num_workers=args.num_workers)
+            cache = build()
             if packs is not None:
                 packs.clear()
-                packs[key] = cache
+                packs[(kind,) + window] = cache
         timings["cache_build_s"] = time.perf_counter() - t0
-        print(f"loader: cached (--loader {args.loader}); "
+        print(f"loader: {kind} (--loader {args.loader}); "
               + ("reused the pack of" if timings["cache_reused"]
                  else "packed")
               + f" {len(cache)} samples in {timings['cache_build_s']:.2f} s")
+        return cache
+
+    def native_pack():
+        name = f"packed_cache_maxlen{cfg.model.maxlen}"
+        if env.train_ckpt_path:
+            cache_dir = Path(env.train_ckpt_path) / name
+            print(f"native dataprep cache at {cache_dir}")
+            return NP.build_packed_cache_native(sampler, cache_dir,
+                                                threads=args.num_workers)
+        # no checkpoint directory to keep it beside: a temporary one, whose
+        # files the memmapped pack outlives
+        with tempfile.TemporaryDirectory(prefix=name) as tmp:
+            return NP.build_packed_cache_native(sampler, Path(tmp),
+                                                threads=args.num_workers)
+
+    cache = None
+    if args.loader in ("native", "auto"):
+        if NP.tool_path() is not None:
+            try:
+                cache = packed("native", native_pack)
+            except Exception as e:
+                if args.loader == "native":
+                    raise
+                print(f"native dataprep unavailable ({e}); falling back to "
+                      "the python pack")
+        elif args.loader == "native":
+            raise RuntimeError(f"--loader native: the dataprep tool could "
+                               f"not be built from {NP.SOURCE}")
+        else:
+            print("native dataprep tool could not be built; falling back to "
+                  "the python pack")
+    if cache is None and (args.loader == "cached" or (
+            args.loader != "streaming"
+            and len(sampler) <= AUTO_CACHE_MAX_SAMPLES)):
+        cache = packed("cached", lambda: PackedCache(
+            sampler, num_workers=args.num_workers))
+    if cache is not None:
         train_loader = CachedTrainLoader(
             cache, tr_idx, cfg.train.batch_size, seed=cfg.train.seed,
             num_workers=min(args.num_workers, 8))
@@ -264,16 +310,20 @@ def main(argv=None, timings: Optional[dict] = None,
                                    num_workers=args.num_workers)
 
     state = None
-    start_epoch = 0
+    start_epoch = skip_steps = 0
     if args.state_dict_path:
         state, meta = CK.load_checkpoint(args.state_dict_path, model, cfg,
                                          device=dev)
         # the reference parses epoch= from the file name and runs only the
-        # remaining epochs; the meta carries it directly
+        # remaining epochs; the meta carries it directly, and a preemption
+        # checkpoint the steps taken into the next
         start_epoch = int(meta.get("epoch", 0))
+        skip_steps = int(meta.get("epoch_step", 0))
         print(f"resumed from {args.state_dict_path} "
               f"(step {meta.get('global_step')}, {start_epoch}/"
-              f"{cfg.train.num_epochs} epochs done)")
+              f"{cfg.train.num_epochs} epochs done"
+              + (f", +{skip_steps} steps into the next" if skip_steps
+                 else "") + ")")
 
     if args.inference_only:
         print("inference_only: skipping training")
@@ -286,7 +336,7 @@ def main(argv=None, timings: Optional[dict] = None,
                        log_dir=env.train_log_path,
                        tb_dir=env.train_tf_events_path,
                        ckpt_dir=env.train_ckpt_path, state=state,
-                       start_epoch=start_epoch,
+                       start_epoch=start_epoch, skip_steps=skip_steps,
                        profile_steps=args.profile_steps,
                        profile_dir=profile_dir,
                        profile_start=args.profile_start, mesh=mesh,

@@ -22,16 +22,24 @@ normalised by the global count of masked positions, and the gradients are
 summed over every process, so each holds the single-device gradient of the
 global batch and the replicated parameters stay equal.
 
+``train.grad_accum_steps`` = G > 1 splits each batch into G strided
+microbatches whose losses go backward one at a time, weighted by their
+counts of masked positions (one microbatch's activations live at a time).
+The epoch loop checkpoints on SIGTERM after the step in flight and resumes
+mid-epoch (``skip_steps``); its per-epoch saves write on a thread.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: any other mesh (a preset's ``cfg.mesh`` in one process trains
-single-device, as the JAX CLI falls back), ``grad_accum_steps > 1``, and the
-SIGTERM / preemption checkpoint with its mid-epoch resume.
+single-device, as the JAX CLI falls back) and G > 1 on a seq mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import signal
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
@@ -63,7 +71,9 @@ def check_supported(cfg: Config, mesh=None) -> None:
     missing. A ``mesh`` must have a seq axis above 1, pipe = model = 1,
     dense tables and the BCE loss (the sampled softmax's in-batch negatives
     span the global batch); anything else raises ``NotImplementedError``
-    naming ROADMAP Queue 1 item 5."""
+    naming ROADMAP Queue 1 item 5. ``grad_accum_steps > 1`` takes dense
+    tables without tower dedup (``ValueError`` otherwise, as the JAX step
+    asserts) and no seq mesh (item 5)."""
     t = cfg.train
     if mesh is not None:
         shape = getattr(mesh, "shape", None)
@@ -84,8 +94,19 @@ def check_supported(cfg: Config, mesh=None) -> None:
         raise ValueError("train.sparse_tables takes subsets of (item_emb, "
                          f"user_emb), not {t.sparse_tables}")
     if t.grad_accum_steps > 1:
-        _unported("gradient accumulation (train.grad_accum_steps > 1)",
-                  "item 3 (training options)")
+        # the JAX step's guards, with its messages
+        if t.sparse_tables:
+            raise ValueError(
+                "grad_accum_steps composes with dense tables only: the "
+                "sparse path's host-planned gather/scatter schedules index "
+                "the whole step's touched rows")
+        if t.tower_dedup:
+            raise ValueError(
+                "grad_accum_steps x tower_dedup unsupported: dedup spread "
+                "plans index global batch rows, not microbatch slices")
+        if mesh is not None and seq_size(mesh) > 1:
+            mesh_unported("gradient accumulation (train.grad_accum_steps > "
+                          "1) on a seq mesh")
 
 
 @dataclasses.dataclass
@@ -409,9 +430,12 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
     rate. With ``train.sparse_tables`` the listed tables train row-sparse
     (:func:`sparse_loss_backward`, then ``ops.sparse_table.
     apply_row_update`` at ``lr_at_step(step + 1)`` and global step ``step +
-    1``), and the metrics count the step's touched rows. The state updates
-    in place; the dense gradients stay on the leaves (``.grad``) until the
-    next step. Metrics stay on the device."""
+    1``), and the metrics count the step's touched rows. With
+    ``train.grad_accum_steps`` = G > 1 the batch trains as G microbatches
+    (``accumulate``); the metrics are then the loss and the masked-position
+    count, as the JAX step's. The state updates in place; the dense
+    gradients stay on the leaves (``.grad``) until the next step. Metrics
+    stay on the device."""
     check_supported(cfg, mesh)
     t = cfg.train
     sparse = tuple(t.sparse_tables)
@@ -421,6 +445,38 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
             "train.sparse_tables=('item_emb',) or pack_big_tables=False")
     proc = mesh is not None and mesh.process
 
+    G = max(1, int(t.grad_accum_steps))
+
+    def accumulate(state, batch, mm_tables, item_tables, dev):
+        """G microbatches, row i in microbatch i % G (``sampled_neg_ids``,
+        the step's shared negatives, reaches each whole): each one's loss
+        goes backward times its masked-position count n, into the leaves'
+        ``.grad``, which then divide by max(sum n, 1), so the step equals
+        the whole batch's exactly. Microbatch g draws from the generator of
+        (seed + 1, step, g)."""
+        B = batch["seq"].shape[0]
+        if B % G:
+            raise ValueError(f"batch of {B} rows does not split into "
+                             f"grad_accum_steps={G} microbatches")
+        lsum = wsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for g in range(G):
+            mb = {k: v[g::G].contiguous() if k != "sampled_neg_ids"
+                  and isinstance(v, torch.Tensor) and v.dim() > 0
+                  and v.shape[0] == B else v for k, v in batch.items()}
+            loss, m = compute_loss(model, state.params, mb, mm_tables,
+                                   item_tables, cfg, train=True,
+                                   gen=step_generator(t.seed, state.step,
+                                                      dev, g))
+            w = m["n_mask"].detach()
+            (loss * w).backward()
+            lsum = lsum + loss.detach().float() * w
+            wsum = wsum + w
+        wsum = wsum.clamp(min=1.0)
+        for _, p in dense_leaves(state.params, cfg):
+            if p.grad is not None:
+                p.grad.div_(wsum)
+        return {"loss": lsum / wsum, "n_mask": wsum}
+
     def step_fn(state: TrainState, batch, mm_tables, item_tables):
         dev = next(iter(_flatten(state.params).values())).device
         gen = step_generator(t.seed, state.step, dev, _data_shard(mesh))
@@ -428,6 +484,8 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
         if sparse:
             _, metrics, per = sparse_loss_backward(
                 model, cfg, state, batch, mm_tables, item_tables, gen)
+        elif G > 1:
+            metrics = accumulate(state, batch, mm_tables, item_tables, dev)
         else:
             loss, metrics = compute_loss(model, state.params,
                                          shard_batch(batch, mesh),
@@ -777,18 +835,29 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     Metrics stay on the device and are fetched every ``log_every`` steps.
     ``profile_steps`` > 0 traces steps ``profile_start`` ..
     ``profile_start + profile_steps - 1`` with ``torch.profiler`` into
-    ``profile_dir/trace.json``. The loop installs no SIGTERM handler:
-    preemption checkpoints are not ported yet.
+    ``profile_dir/trace.json``.
+
+    Preemption: in the main thread and without a process mesh the loop
+    takes SIGTERM. It finishes the step in flight, joins any save in
+    flight, writes a checkpoint synchronously with meta ``epoch`` = the
+    last whole epoch, ``epoch_step`` = the steps taken in the one it cut
+    and ``preempted`` = True, and returns; the previous handler is restored
+    on the way out. ``skip_steps`` resumes such a checkpoint: the first
+    epoch run drops that many batches (their host prep still runs, so the
+    prep keys stay on their batch index) and the rest equals the
+    uninterrupted run. The per-epoch checkpoints are written on a thread
+    (``checkpoint.save_checkpoint_async``), one at a time, joined even when
+    the loop fails; a save's own error is raised only when the loop did
+    not.
 
     With a ``mesh`` the steps run on it (see :func:`make_train_step`); on a
     process mesh every process runs the loop on the same global batches,
-    and only rank 0 logs, evaluates retrieval and writes checkpoints."""
-    from .checkpoint import save_checkpoint
+    and only rank 0 logs, evaluates retrieval and writes checkpoints,
+    synchronously."""
+    from .checkpoint import save_checkpoint, save_checkpoint_async
 
-    if skip_steps:
-        _unported("mid-epoch resume from a preemption checkpoint",
-                  "Resilience")
     device = torch.device(device)
+    proc = mesh is not None and mesh.process
     if state is None:
         state = init_state(model, cfg, device=device)
     train_step = make_train_step(model, cfg, mesh)
@@ -905,10 +974,37 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
               "nothing to do")
     prof = None
     ticks = 0
+
+    # preemption (a scheduler's SIGTERM with a grace window): finish the
+    # step in flight, checkpoint, return cleanly
+    stop = {"requested": False}
+    prev_sigterm, sig_installed = None, False
+    if threading.current_thread() is threading.main_thread() and not proc:
+
+        def on_term(signum, frame):
+            if not stop["requested"] and verbose:
+                print("train_loop: SIGTERM — checkpointing after the "
+                      "current step, then exiting cleanly")
+            stop["requested"] = True
+
+        try:
+            prev_sigterm = signal.signal(signal.SIGTERM, on_term)
+            sig_installed = True
+        except (ValueError, OSError):
+            pass
+
+    save_handle = None
+    crashed = False
     try:
         for epoch in range(start_epoch + 1, epochs + 1):
-            for step, batch in enumerate(prefetch(epoch_batches(epoch),
-                                                  put)):
+            skip = skip_steps if epoch == start_epoch + 1 else 0
+            src = epoch_batches(epoch)
+            if skip:
+                # mid-epoch resume: the trained prefix is dropped after its
+                # host prep, which stays keyed by batch index
+                src = itertools.islice(src, skip, None)
+            step = skip - 1
+            for step, batch in enumerate(prefetch(src, put), start=skip):
                 ticks += 1
                 if profile_steps and profile_dir and prof is None \
                         and ticks == profile_start:
@@ -931,7 +1027,25 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
                                    tables)
                     tb.scalar("Valid/loss", float(vm["loss"]),
                               timer.global_step)
+                if stop["requested"]:
+                    break
             flush(epoch)
+            if stop["requested"]:
+                if ckpt_dir:
+                    if save_handle is not None:
+                        save_handle.result()
+                        save_handle = None
+                    path = save_checkpoint(
+                        ckpt_dir, state, timer.global_step, 0.0,
+                        extra_meta={"epoch": epoch - 1,
+                                    "epoch_step": step + 1,
+                                    "preempted": True},
+                        model_config=model.cfg)
+                    if verbose:
+                        print(f"preemption checkpoint written: {path.name} "
+                              f"(epoch {epoch} step {step + 1} — resume "
+                              "continues mid-epoch via skip_steps)")
+                break
 
             # validation pass
             vstart = time.time()
@@ -960,15 +1074,39 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
                         print(f"epoch {epoch}: HR@10 {r['hr']:.4f} "
                               f"NDCG@10 {r['ndcg']:.4f} (n={r['n']})")
             if ckpt_dir:
-                path = save_checkpoint(ckpt_dir, state, timer.global_step,
-                                       valid_loss,
-                                       extra_meta={"epoch": epoch},
-                                       model_config=model.cfg)
+                if save_handle is not None:
+                    save_handle.result()   # one save in flight at a time
+                    save_handle = None
+                save = save_checkpoint if proc else save_checkpoint_async
+                out = save(ckpt_dir, state, timer.global_step, valid_loss,
+                           extra_meta={"epoch": epoch},
+                           model_config=model.cfg)
+                save_handle = None if proc else out
                 if verbose:
-                    print(f"checkpoint written: {path.name}")
+                    print(f"checkpoint {'written' if proc else 'writing'}: "
+                          f"global_step{timer.global_step}.valid_loss="
+                          f"{valid_loss:.4f}")
+    except BaseException:
+        crashed = True
+        raise
     finally:
         if prof is not None:   # run too short for the window
             _stop_profiler(prof, profile_dir, verbose)
+        # join the save in flight even on a crash: a restart reads the
+        # newest checkpoint and must not race the writer; its own error is
+        # raised only on the clean path, never over the crash
+        if save_handle is not None:
+            try:
+                save_handle.result()
+            except Exception:
+                if not crashed:
+                    raise
+        if sig_installed:
+            try:
+                signal.signal(signal.SIGTERM, prev_sigterm
+                              if prev_sigterm is not None else signal.SIG_DFL)
+            except (ValueError, OSError):
+                pass
         jlog.close()
         tb.close()
     return state

@@ -124,20 +124,20 @@ def test_cli_train_cached_loader_to_a_checkpoint(train_env):
     assert ck is not None and ck.name.startswith(f"global_step{state.step}.")
 
 
-@pytest.mark.parametrize("loader,taken", [("auto", "cached"),
+@pytest.mark.parametrize("loader,taken", [("auto", "native"),
                                           ("streaming", "streaming"),
-                                          ("native", None)])
+                                          ("native", "native")])
 def test_cli_train_loader_choice(train_env, loader, taken):
-    """``auto`` packs below 2M samples, as the JAX package's ``auto`` does
-    without its native tool; ``native`` is not ported and raises."""
+    """``auto`` takes the native C++ pack at any scale, as the JAX CLI's
+    ``auto`` does, and so does ``native``; the pack lands under
+    TRAIN_CKPT_PATH/packed_cache_maxlen{maxlen}."""
     argv = MODEL + ["--loader", loader, "--inference_only"]
     timings = {}
-    if taken is None:
-        with pytest.raises(NotImplementedError, match="native"):
-            TTRAIN.main(argv, timings=timings)
-        return
     assert TTRAIN.main(argv, timings=timings) is None
     assert timings["loader"] == taken
+    if taken == "native":
+        assert not timings["cache_reused"] and timings["cache_build_s"] > 0
+        assert list(train_env.rglob("packed_cache_maxlen255/meta.json"))
 
 
 def test_cli_train_reuses_the_last_pack(train_env):

@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
                 "parallel.mesh", "parallel.ring_fused",
                 "parallel.ring_attention", "models.rqvae",
                 "train.rqvae_trainer", "retrieval.semantic_serve",
-                "cli.semantic"):
+                "cli.semantic", "utils.sysinfo", "utils.debug",
+                "train.supervisor", "data.native_pack"):
         assert f"{PORT}.{mod}" in imported, mod
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad

@@ -77,7 +77,8 @@ def test_check_supported_raises_only_on_what_is_not_ported():
     TTR.check_supported(cfg)            # cfg.mesh 4x2: trains single-device
     with pytest.raises(NotImplementedError, match="mesh"):
         TTR.check_supported(cfg, mesh=object())
-    with pytest.raises(NotImplementedError):
+    # gradient accumulation is ported; on sparse tables the JAX guard holds
+    with pytest.raises(ValueError, match="dense tables only"):
         TTR.check_supported(cfg.replace(
             train=dataclasses.replace(cfg.train, grad_accum_steps=2)))
     # the epoch-end retrieval eval is ported
