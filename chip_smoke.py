@@ -137,6 +137,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                difference at cosine >= 0.9999, and the ops that vary
                named); an async checkpoint written while the next step
                runs, bitwise equal to a synchronous save;
+5d. dp      — data parallelism on a local mesh (every data shard in one
+               process, at the launch shapes of one card of a process
+               mesh): ``flagship_dp``, the flagship's checkpoint and batch
+               (B=128, L=1024) on 4 data shards of 32 rows, and
+               ``softmax_dp_mesh``, ``sampled_softmax_dp --maxlen 255``
+               (B=64, 4 heads of 16, 64 in-batch negatives) on 8 of 8 from
+               the preset's seed, each with the stacked tower-dedup plan
+               ([S, cap] ids held): 6 steps after 2 on the mesh and on the
+               single device (launches held), a profile of each (the fused
+               route's wgmma kernels; the fused kernels' device ms at B/S
+               rows a launch beside B's); the mesh's step against the
+               single device's on the card (loss within 1e-4 relative,
+               every gradient at cosine >= 0.999, dropout 0) and, on 2 rows
+               a shard, against the CPU's plain bf16 version of the same
+               mesh step (loss 1e-3, cosine 0.999); flagship_dp also at
+               2 microbatches against 1 on the mesh (tower dedup off;
+               loss 1e-3, cosine 0.999); ``train_loop`` on the mesh for 2
+               steps, its Performance/mfu scalar in (0, 1);
 6. long    — phases 4 and 5 on long sequences, through the chunked
                variant: a fixture of 384 users, 5000 items and sequences of
                2048..4000 events, ``cli.train --maxlen 4095 --batch_size 32
@@ -3395,6 +3413,350 @@ def phase_train_options(run, data, ckpt):
     return ok and ok_run and ok_loader and ok_pre, fused, accum_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: data parallelism on a local mesh
+# ---------------------------------------------------------------------------
+
+#: sampled_softmax_dp at L=256 on the parity fixture (its own L=102 runs no
+#: kernel; at 256 the fused kernels take its 4 heads of 16), no checkpoint:
+#: its parameters from the preset's seed
+SOFTMAX_DP_MESH_RUN = Run("softmax_dp_mesh", "sampled_softmax_dp", 255,
+                          PARITY_FIXTURE, PARITY_DATA, 64, (),
+                          WORK / "softmax_dp_mesh", "fused", 0, True,
+                          check_rows=16)
+#: (run, name, data shards) of the phase: 32 and 8 rows a shard
+DP_CASES = ((FLAGSHIP_RUN, "flagship_dp", 4), (SOFTMAX_DP_MESH_RUN,
+                                               "softmax_dp_mesh", 8))
+#: timed steps of each side (after 2)
+DP_STEPS = 6
+#: microbatches of the BCE case's accumulated step on the mesh
+DP_ACCUM_G = 2
+
+
+class _ListLoader:
+    """A train loader over batches already drawn: every epoch the same."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def epoch(self, e):
+        return iter(self.batches)
+
+
+class _Scalars:
+    """A TensorBoard writer that keeps every scalar in ``kept`` (tag ->
+    values)."""
+
+    def __init__(self, kept):
+        self.kept = kept
+
+    def scalar(self, tag, value, step):
+        self.kept.setdefault(tag, []).append(value)
+
+    def close(self):
+        pass
+
+
+def _dp_prep(cfg, batch, tables, itemnum, i, shards):
+    """The train loop's host prep of batch ``i`` of epoch 1 on ``shards``
+    data shards: the shared negatives of the sampled softmax, then the tower
+    dedup plan (stacked per shard above 1)."""
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    key = (cfg.train.seed, 97, 1, i)
+    if cfg.train.loss_type == "sampled_softmax":
+        batch = dict(batch, sampled_neg_ids=TR._sample_negatives(
+            cfg, itemnum, key))
+    if cfg.train.tower_dedup:
+        batch = TR.augment_batch_dedup(batch, cfg, tables, itemnum,
+                                       step_key=key, n_data_shards=shards)
+    return batch
+
+
+@contextlib.contextmanager
+def _cpu_inbatch_draw():
+    """The in-batch candidates drawn on the CPU from a generator seeded 0,
+    whatever the device: the card's and the CPU's steps then take the same
+    candidates (a device's generator draws other numbers)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import losses as LS
+
+    saved = LS.inbatch_draw
+    LS.inbatch_draw = lambda n, total, gen, dev: torch.randint(
+        0, total, (n,), generator=torch.Generator().manual_seed(0)).to(dev)
+    try:
+        yield
+    finally:
+        LS.inbatch_draw = saved
+
+
+def _fused_ms(by_name):
+    """(forward, backward) device ms of the fused kernels in a profile and
+    the text of the backward's split."""
+    fwd, _ = _kernel_split(by_name, KERNEL_NAMES["fused"][0])
+    bwd, split = _kernel_split(by_name, KERNEL_NAMES["fused"][1])
+    return fwd, bwd, split
+
+
+def phase_dp_case(run, name, S):
+    """``run``'s preset on a local mesh of S data shards on the card (B/S
+    rows a launch, the stacked tower-dedup plan), from its checkpoint or
+    (without one) the preset's seed:
+
+    - speed: DP_STEPS synchronised steps after 2 on the mesh and on the
+      single device from the same state and batches (bf16, the preset's
+      dropout), launches held, and one profiled step of each, which must
+      run the fused route's wgmma kernels: the fused forward and backward
+      device ms at B/S rows beside B's;
+    - card against card (bf16, dropout 0; from the checkpoint, or the
+      mesh's trained state): the mesh's step against the single device's
+      on the first batch, loss within 1e-4 relative, every gradient at
+      cosine >= 0.999;
+    - card against the CPU: the mesh's step on its first 2 S rows against
+      the CPU's plain bf16 version of the same step (the fused route's
+      plain versions, the same mesh; both draw the in-batch candidates on
+      the CPU), loss within 1e-3 relative, every gradient at cosine >=
+      0.999;
+    - under BCE, DP_ACCUM_G microbatches on the mesh against one (tower
+      dedup off, dropout 0): loss within 1e-3 relative, every gradient at
+      cosine >= 0.999, launches held;
+    - ``train_loop`` for 2 steps on the mesh: its ``Performance/mfu``
+      scalar written, between 0 and 1.
+
+    Returns (ok, the fused launches of the phase)."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.data import synthetic
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.data.readers import \
+        TencentGRData
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    t0 = time.perf_counter()
+    if not run.data_dir.exists():
+        synthetic.generate(run.data_dir, mm_emb_ids=("81",), **run.fixture)
+        log(f"{name}: fixture {run.fixture} generated in "
+            f"{time.perf_counter() - t0:.1f} s")
+    data = TencentGRData(run.data_dir, mm_emb_ids=("81",))
+    cfg, schema, raw = _train_batches(data, 2, run)
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+
+    def model_in(dtype, dropout=None):
+        mc = dataclasses.replace(cfg.model, dtype=dtype)
+        if dropout is not None:
+            mc = dataclasses.replace(mc, dropout_rate=dropout)
+        return (SeqRecModel(cfg=mc, schema=schema,
+                            fused=FusedVocab.build(schema),
+                            usernum=data.usernum, itemnum=data.itemnum),
+                cfg.replace(model=mc))
+
+    ckpt = CK.latest_checkpoint(run.work / "model")
+    model, c16 = model_in("bfloat16")
+    params = CK.load_params(ckpt)[0] if ckpt is not None else \
+        model.init(torch.Generator().manual_seed(cfg.train.seed))
+    mesh = local_mesh(MeshConfig(data=S))
+    B, L, nb = cfg.train.batch_size, cfg.model.maxlen + 1, \
+        cfg.model.num_blocks
+    prepped = {n: [_dp_prep(cfg, b, tables, data.itemnum, i, n)
+                   for i, b in enumerate(raw)] for n in (1, S)}
+    cap = TR.tower_dedup_capacity(cfg, data.itemnum, S)
+    shape = tuple(prepped[S][0]["dedup_uids"].shape)
+    ok = shape == (S, cap)
+    log(f"{name}: the stacked tower-dedup plan: dedup_uids {shape} (want "
+        f"({S}, {cap})) {'ok' if ok else 'FAIL'}")
+    tabs = TR.device_tables(tables, "cuda")
+    fused = dict.fromkeys(read_launches(), 0)
+
+    def count(got):
+        for k, v in got.items():
+            fused[k] += v
+
+    # speed: the mesh, then the single device, from the same state
+    res = {}
+    for side, m_, n in (("mesh", mesh, S), ("single", None, 1)):
+        batches = [TR.put_batch(b, "cuda") for b in prepped[n]]
+        state = TR.init_state(model, c16, params=params, device="cuda")
+        step = TR.make_train_step(model, c16, m_)
+        reset_launches()
+        for b in batches:
+            state, m = step(state, b, tabs["mm"], tabs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(DP_STEPS):
+            state, m = step(state, batches[i % 2], tabs["mm"], tabs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / DP_STEPS * 1e3
+        got = read_launches()
+        want = dict.fromkeys(got, 0)
+        want.update(fused_train=nb * n * (DP_STEPS + 2),
+                    fused_bwd=nb * n * (DP_STEPS + 2))
+        ok &= check_launches(run, f"{name} {side} speed steps ({n} x "
+                             f"{B // n} rows)", got, want)
+        ok &= bool(torch.isfinite(m["loss"]).item())
+        count(got)
+
+        def one_step():
+            nonlocal state, m
+            state, m = step(state, batches[0], tabs["mm"], tabs)
+
+        reset_launches()
+        prof, wall = route_trace(f"{name} {side}", one_step,
+                                 ("attn_bwd", "fused"))
+        count(read_launches())
+        by_name = _device_ms(prof)
+        ok &= attn_bwd_route(f"{name} {side}", by_name)
+        ok &= wgmma_route(f"{name} {side}", by_name)
+        fwd, bwd, split = _fused_ms(by_name)
+        res[side] = dict(ms=ms, fwd=fwd, bwd=bwd, split=split,
+                         busy=sum(by_name.values()), wall=wall)
+        if side == "mesh":
+            trained = state.params
+        del state
+    if ckpt is None:
+        params = trained              # the checks start from a trained state
+    mesh_r, one_r = res["mesh"], res["single"]
+    log(f"{name}: train step (B={B}, L={L}, bf16, dropout "
+        f"{cfg.model.dropout_rate}): {S} data shards of {B // S} rows "
+        f"{mesh_r['ms']:.3f} ms ({B / mesh_r['ms'] * 1e3:.1f} examples/s), "
+        f"single device {one_r['ms']:.3f} ms ({B / one_r['ms'] * 1e3:.1f} "
+        f"examples/s) (host clock, synchronised, {DP_STEPS} steps after 2)")
+    for side, r in res.items():
+        rows = B // S if side == "mesh" else B
+        n = S if side == "mesh" else 1
+        idle = max(0.0, 1 - r["busy"] / r["wall"])
+        log(f"{name}: {side} profiled step: wall {r['wall']:.3f} ms, busy "
+            f"{r['busy']:.3f} ms (idle {idle:.1%}); fused forward "
+            f"{r['fwd']:.3f} ms, backward "
+            f"{r['bwd']:.3f} ms ({r['split']}) for {nb * n} launches each "
+            f"at {rows} rows: {r['fwd'] / (nb * n):.4f} / "
+            f"{r['bwd'] / (nb * n):.4f} ms a launch, "
+            f"{r['fwd'] / B:.5f} / {r['bwd'] / B:.5f} ms a row")
+
+    # card against card, and against the CPU (dropout 0)
+    m0, c0 = model_in("bfloat16", dropout=0.0)
+
+    def worst_of(g, ref):
+        return min((_grad_cos(g[p], ref[p]), p) for p in ref)
+
+    reset_launches()
+    l_mesh, g_mesh = _loss_and_grads(m0, c0, params, prepped[S][0], tables,
+                                     "cuda", mesh=mesh)
+    l_one, g_one = _loss_and_grads(m0, c0, params, prepped[1][0], tables,
+                                   "cuda")
+    rel = abs(l_mesh - l_one) / abs(l_one)
+    worst = worst_of(g_mesh, g_one)
+    ok_cc = rel <= 1e-4 and worst[0] >= 0.999 and np.isfinite(l_mesh)
+    log(f"{name}: card mesh step against the card's single-device step "
+        f"(B={B}, bf16, dropout 0): loss {l_mesh:.6f} / {l_one:.6f} "
+        f"(relative {rel:.2e}, limit 1e-4); lowest gradient cosine "
+        f"{worst[0]:.6f} ({worst[1]}, limit 0.999) "
+        f"{'ok' if ok_cc else 'FAIL'}")
+    rows = 2 * S
+    cut = _dp_prep(cfg, {k: v[:rows] for k, v in raw[0].items()}, tables,
+                   data.itemnum, 0, S)
+    t1 = time.perf_counter()
+    with _cpu_inbatch_draw():
+        l_card, g_card = _loss_and_grads(m0, c0, params, cut, tables, "cuda",
+                                         mesh=mesh)
+        count(read_launches())
+        l_cpu, g_cpu = _loss_and_grads(m0, c0, params, cut, tables, "cpu",
+                                       route="fused", mesh=mesh)
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = worst_of(g_card, g_cpu)
+    ok_cpu = rel <= 1e-3 and worst[0] >= 0.999 and np.isfinite(l_card)
+    log(f"{name}: card mesh step against the CPU's plain bf16 version of it "
+        f"({rows} rows, {S} shards of 2; CPU {time.perf_counter() - t1:.1f}"
+        f" s): loss {l_card:.6f} / {l_cpu:.6f} (relative {rel:.2e}, limit "
+        f"1e-3); lowest gradient cosine {worst[0]:.6f} ({worst[1]}, limit "
+        f"0.999) {'ok' if ok_cpu else 'FAIL'}")
+
+    ok_acc = True
+    if cfg.train.loss_type == "bce":
+        # gradient accumulation on the mesh (tower dedup off: G > 1 refuses
+        # it; BCE draws nothing, so G microbatches give the batch's step)
+        cg = {G: c0.replace(train=dataclasses.replace(
+            c0.train, tower_dedup=False, grad_accum_steps=G))
+            for G in (1, DP_ACCUM_G)}
+        b = TR.put_batch(raw[0], "cuda")
+        acc = {}
+        reset_launches()
+        for G, c in cg.items():
+            state = TR.init_state(m0, c, params=params, device="cuda")
+            state, m = TR.make_train_step(m0, c, mesh)(state, b, tabs["mm"],
+                                                       tabs)
+            acc[G] = (float(m["loss"]), {p: t.grad.float().clone() for p, t
+                                         in TR.param_leaves(state.params)})
+            del state
+        got = read_launches()
+        count(got)
+        want = dict.fromkeys(got, 0)
+        want.update(fused_train=nb * S * (1 + DP_ACCUM_G),
+                    fused_bwd=nb * S * (1 + DP_ACCUM_G))
+        ok_acc = check_launches(run, f"{name} G=1 and G={DP_ACCUM_G} steps on "
+                                "the mesh", got, want)
+        (l1, g1), (lg, gg) = acc[1], acc[DP_ACCUM_G]
+        rel = abs(lg - l1) / abs(l1)
+        worst = worst_of(gg, g1)
+        ok_g = rel <= 1e-3 and worst[0] >= 0.999
+        ok_acc &= ok_g
+        log(f"{name}: G={DP_ACCUM_G} on the mesh ({DP_ACCUM_G} microbatches "
+            f"of {B // DP_ACCUM_G} rows, {B // DP_ACCUM_G // S} a shard; "
+            f"bf16, dropout 0, tower dedup off) against G=1 on it: loss "
+            f"{lg:.6f} / {l1:.6f} (relative {rel:.2e}, limit 1e-3); lowest "
+            f"gradient cosine {worst[0]:.6f} ({worst[1]}, limit 0.999) "
+            f"{'ok' if ok_g else 'FAIL'}")
+
+    # the epoch loop on the mesh writes Performance/mfu on the card
+    saved_writer, kept = TR.T.TBWriter, {}
+    TR.T.TBWriter = lambda log_dir: _Scalars(kept)
+    reset_launches()
+    try:
+        TR.train_loop(model, c16, _ListLoader(raw), None, tables,
+                      num_epochs=1, mesh=mesh, verbose=False, device="cuda",
+                      state=TR.init_state(model, c16, params=params,
+                                          device="cuda"))
+    finally:
+        TR.T.TBWriter = saved_writer
+    count(read_launches())
+    mfu = kept.get("Performance/mfu", [])
+    flops = TR.analytic_step_flops(c16, model, tower_dedup=True,
+                                   n_data_shards=S)
+    ok_mfu = len(mfu) == len(raw) and all(0.0 < v < 1.0 for v in mfu)
+    log(f"{name}: train_loop on the mesh: Performance/mfu "
+        f"{', '.join(f'{v:.4f}' for v in mfu) or 'absent'} (analytic "
+        f"{flops / 1e9:.1f} GFLOP a step, peak "
+        f"{TR.device_peak_flops('cuda', c16.model.dtype)}) "
+        f"{'ok' if ok_mfu else 'FAIL'}")
+    log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+    return ok and ok_cc and ok_cpu and ok_acc and ok_mfu, fused
+
+
+def phase_dp():
+    """Phase 5d: :func:`phase_dp_case` for each of DP_CASES. Returns (ok,
+    their fused launches summed)."""
+    t0 = time.perf_counter()
+    ok, fused = True, dict.fromkeys(read_launches(), 0)
+    for run, name, S in DP_CASES:
+        ok_c, got = phase_dp_case(run, name, S)
+        ok &= ok_c
+        fused = {k: v + got[k] for k, v in fused.items()}
+    log(f"data-parallel phase: {time.perf_counter() - t0:.1f} s")
+    return ok, fused
+
+
 def phase_native_pack(run):
     """The native pack of ``run``'s fixture and window (the long run's: 384
     users, L=4096) on the card's host, every field and the seen sets
@@ -4739,7 +5101,10 @@ def main() -> int:
                 phase_train_options(
                     run, TencentGRData(run.data_dir, mm_emb_ids=("81",)),
                     CK.latest_checkpoint(run.work / "model"))
-            trained = {k: v + opt[k] for k, v in trained.items()}
+            # data parallelism on a local mesh: its launches add to the
+            # whole-sequence kernels' entries, as phase 5c's
+            oks["dp"], dp = phase_dp()
+            trained = {k: v + opt[k] + dp[k] for k, v in trained.items()}
         for entry, n in zip(found, (served["fused_fwd"],
                                     trained["fused_train"],
                                     trained["fused_bwd"])):

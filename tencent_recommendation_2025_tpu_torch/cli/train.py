@@ -25,8 +25,12 @@ one process, a preset whose mesh wants several devices
 (``sampled_softmax_dp``, ``sharded_multihost``, or any ``--mesh_*``) trains
 on one, with the JAX CLI's warning. Under ``torchrun`` (``WORLD_SIZE`` > 1)
 the processes form the mesh, one card each (``LOCAL_RANK``; NCCL, or gloo
-with ``--device cpu``): a ``seq`` axis above 1, any ``data``, dense tables
-and the BCE loss train sequence-parallel; any other mesh or option raises
+with ``--device cpu``): ``seq`` = ``--mesh_seq`` (the preset's) and every
+other process on ``data``, as the JAX ``build_mesh`` folds them. Dense
+tables with either loss train data-parallel, sequence-parallel or both,
+with ``--grad_accum_steps`` too; the in-batch negatives of the sampled
+softmax span the global batch. Tower dedup is off there (the JAX CLI's
+warning). Pipe or model > 1 and sparse tables on a mesh raise
 ``NotImplementedError`` (ROADMAP Queue 1, item 5). Only rank 0 writes
 ``train.log``, TensorBoard events and checkpoints; the parameters are
 replicated, so the checkpoint is the single-device one.
@@ -41,9 +45,12 @@ no tower dedup).
 
 Long sequences (L = 4096, the chunked variant of the fused block kernels):
 ``--preset hstu_flagship --maxlen 4095 --batch_size 32 --loader cached``.
-Sequence-parallel on S cards (not yet run on a machine with several):
-``torchrun --nproc_per_node S -m tencent_recommendation_2025_tpu_torch.cli.
-train --preset hstu_flagship --mesh_seq S --maxlen 4095 --batch_size 32``.
+Data-parallel on N cards (not yet run on a machine with several):
+``torchrun --nproc_per_node N -m tencent_recommendation_2025_tpu_torch.cli.
+train --preset sampled_softmax_dp``. Sequence-parallel on S cards (not yet
+either): ``torchrun --nproc_per_node S -m tencent_recommendation_2025_tpu_
+torch.cli.train --preset hstu_flagship --mesh_seq S --maxlen 4095
+--batch_size 32``.
 Sparse tables and the sampled softmax: ``--preset sharded_multihost
 --maxlen 1023`` (sparse ``item_emb``, rowwise Adagrad) or ``--preset
 sampled_softmax_dp``. The ReLU-FFN HSTU on long histories (the standalone
@@ -161,9 +168,9 @@ def single_device_warning(want: int, present: int) -> str:
         return (f"WARNING: preset wants {want} devices but only {present} "
                 "present — training single-device")
     return (f"WARNING: preset wants {want} devices; one process drives one "
-            "card: a seq mesh trains under torchrun with one process per "
-            "card, other meshes wait for ROADMAP Queue 1, item 5 — training "
-            "single-device")
+            "card: a data or seq mesh trains under torchrun with one process "
+            "per card, pipe and model axes and sharded tables wait for "
+            "ROADMAP Queue 1, item 5 — training single-device")
 
 
 def main(argv=None, timings: Optional[dict] = None,
@@ -341,7 +348,7 @@ def main(argv=None, timings: Optional[dict] = None,
                        profile_dir=profile_dir,
                        profile_start=args.profile_start, mesh=mesh,
                        device=dev)
-    if mesh is not None:
+    if mesh is not None and mesh.process:
         dist.barrier()
         dist.destroy_process_group()
     print("Done")

@@ -68,19 +68,33 @@ class SeqRecModel:
         trainer.augment_batch_dedup) and its [cap, D] rows spread to each
         consumer site by its host plan (ops/sparse_table.planned_lookup).
         Returns (it_seq [B, L, D], pos_last [B, 1, D], negs: [B, L, D]
-        under BCE, the sampled negatives [N, D] under sampled softmax)."""
-        if batch["dedup_uids"].dim() != 1:
-            raise NotImplementedError(
-                "the stacked [S, cap] tower-dedup plan belongs to data "
-                "meshes: ROADMAP Queue 1, Multi-device layer")
-        tu = self.item_embeddings(params, batch["dedup_uids"],
-                                  batch["dedup_sparse"],
-                                  batch["dedup_array"], mm_tables,
+        under BCE, the sampled negatives [N, D] under sampled softmax).
+
+        The stacked plan of a data mesh (``dedup_uids`` [S, cap], every plan
+        leaf [S, ...]) runs one tower over the S x cap rows and each shard's
+        spreads over its own rows, which concatenate in data order into the
+        global batch's rows. Its shared sampled-softmax negatives have no
+        plan: ``negs`` is None there, and the caller towers them itself."""
+        uids = batch["dedup_uids"]
+
+        def flat(t):   # the stacked plan's [S, cap, ...] as [S * cap, ...]
+            return t if uids.dim() == 1 else t.flatten(0, 1)
+
+        tu = self.item_embeddings(params, flat(uids),
+                                  flat(batch["dedup_sparse"]),
+                                  flat(batch["dedup_array"]), mm_tables,
                                   lookup_site="dedup")
 
         def spread(site):
-            return planned_lookup(tu, *(batch[f"dedup_{site}_{k}"] for k in
-                                        ("idx", "perm", "starts", "ends")))
+            if f"dedup_{site}_idx" not in batch:
+                return None
+            plan = [batch[f"dedup_{site}_{k}"] for k in
+                    ("idx", "perm", "starts", "ends")]
+            if uids.dim() == 1:
+                return planned_lookup(tu, *plan)
+            tus = tu.reshape(uids.shape + tu.shape[-1:])
+            return torch.cat([planned_lookup(tus[s], *(p[s] for p in plan))
+                              for s in range(uids.shape[0])])
 
         return spread("seq"), spread("pos_last"), spread("negs")
 
@@ -104,16 +118,20 @@ class SeqRecModel:
     def forward(self, params: Mapping, batch: Mapping,
                 mm_tables: Mapping[str, torch.Tensor],
                 item_tables: Mapping[str, torch.Tensor], train: bool = True,
-                gen: Optional[torch.Generator] = None, mesh=None
+                gen: Optional[torch.Generator] = None, mesh=None,
+                spreads: Optional[Tuple[torch.Tensor, ...]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(log_feats [B, L, D], pos_embs, neg_embs). The positives' tower
         is the sequence item tower shifted by one (``pos[idx] ==
         seq[idx+1]`` with the same features by construction), so only the
         final target column runs its own tower. Negative-item features are
-        gathered on the device from the static item tables by id."""
-        if "dedup_uids" in batch:
-            it_seq, pos_last, neg_embs = self.dedup_spreads(params, batch,
-                                                            mm_tables)
+        gathered on the device from the static item tables by id.
+        ``spreads``: these rows' (it_seq, pos_last, negs) of a tower-dedup
+        plan already spread (a data shard's slice of the stacked plan's)."""
+        if spreads is None and "dedup_uids" in batch:
+            spreads = self.dedup_spreads(params, batch, mm_tables)
+        if spreads is not None:
+            it_seq, pos_last, neg_embs = spreads
             log_feats = self.log2feats(params, batch, mm_tables, train=train,
                                        gen=gen, item_tower_override=it_seq,
                                        mesh=mesh)
@@ -156,14 +174,16 @@ class SeqRecModel:
     def logits(self, params: Mapping, batch: Mapping,
                mm_tables: Mapping[str, torch.Tensor],
                item_tables: Mapping[str, torch.Tensor], train: bool = True,
-               gen: Optional[torch.Generator] = None, mesh=None
+               gen: Optional[torch.Generator] = None, mesh=None,
+               spreads: Optional[Tuple[torch.Tensor, ...]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(pos_logits, neg_logits, loss_mask): dot products masked to
         next-item positions (and to real samples of a padded batch); the
-        encoder on ``mesh`` (see ``models.encoder.encode``)."""
+        encoder on ``mesh`` (see ``models.encoder.encode``); ``spreads`` as
+        :meth:`forward`'s."""
         log_feats, pos_embs, neg_embs = self.forward(
             params, batch, mm_tables, item_tables, train=train, gen=gen,
-            mesh=mesh)
+            mesh=mesh, spreads=spreads)
         loss_mask = batch["next_token_type"] == 1
         if "sample_valid" in batch:
             loss_mask = loss_mask & (batch["sample_valid"][:, None] > 0)

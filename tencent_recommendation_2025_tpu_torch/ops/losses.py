@@ -56,7 +56,8 @@ def sampled_softmax_loss(query: torch.Tensor, pos_emb: torch.Tensor,
                          neg_embs: torch.Tensor, neg_ids: torch.Tensor,
                          pos_ids: torch.Tensor, loss_mask: torch.Tensor,
                          num_items: int, temperature: float = 1.0,
-                         neg_logq: Optional[torch.Tensor] = None
+                         neg_logq: Optional[torch.Tensor] = None,
+                         count: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Sampled softmax with logQ correction and accidental-hit masking.
 
@@ -83,7 +84,48 @@ def sampled_softmax_loss(query: torch.Tensor, pos_emb: torch.Tensor,
     logits = torch.cat([pos_logit[..., None], neg_logit], -1)
     nll = -torch.log_softmax(logits, -1)[..., 0]
     m = loss_mask.float()
-    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (nll * m).sum() / torch.clamp(m.sum() if count is None else count,
+                                         min=1.0)
+
+
+def inbatch_draw(n: int, positions: int, gen: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """[n] uniformly drawn indices into ``positions`` flattened batch
+    positions, from ``gen``: the in-batch candidates' draw."""
+    return torch.randint(0, positions, (n,), generator=gen, device=device)
+
+
+def inbatch_ids_logq(flat_ids: torch.Tensor, flat_valid: torch.Tensor,
+                     idx: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids [n], logq [n]) of the in-batch candidates at positions ``idx``
+    of the flattened positives ``flat_ids`` and their validity
+    ``flat_valid``: id 0 where a draw lands on an invalid position, logQ
+    the draw's exact probability count_batch(j) / n_valid."""
+    f32 = torch.float32
+    idx = idx.long()
+    cand_ids = torch.where(flat_valid[idx], flat_ids[idx],
+                           torch.zeros_like(flat_ids[idx]))
+    match = (flat_ids[None, :] == cand_ids[:, None]) & flat_valid[None, :]
+    counts = match.sum(1).to(f32)
+    n_valid = torch.clamp(flat_valid.sum().to(f32), min=1.0)
+    logq = torch.log(torch.clamp(counts, min=1.0)) - torch.log(n_valid)
+    return cand_ids, logq
+
+
+def inbatch_rows(pos_embs: torch.Tensor, idx: torch.Tensor,
+                 offset: int = 0) -> torch.Tensor:
+    """[n, D]: the rows of ``pos_embs`` [b, L, D] at the flattened positions
+    ``idx - offset`` where they fall inside it, zeros elsewhere. A data
+    shard whose rows start at flattened position ``offset`` fills the
+    candidates it owns; the sum over the shards is every candidate's row,
+    and its gradient returns to the shard that owns it."""
+    D = pos_embs.shape[-1]
+    flat = pos_embs.reshape(-1, D)
+    local = idx.long() - offset
+    own = (local >= 0) & (local < flat.shape[0])
+    rows = flat[local.clamp(0, flat.shape[0] - 1)]
+    return torch.where(own[:, None], rows, torch.zeros_like(rows))
 
 
 def inbatch_candidates(pos_ids: torch.Tensor, pos_embs: torch.Tensor,
@@ -98,19 +140,9 @@ def inbatch_candidates(pos_ids: torch.Tensor, pos_embs: torch.Tensor,
     [n, D], logq [n]): logQ is the exact per-candidate probability of this
     draw, count_batch(j) / n_valid over the valid positions. Draws that land
     on an invalid position get id 0, which the loss masks out."""
-    f32 = torch.float32
     flat_ids = pos_ids.reshape(-1)
-    flat_valid = loss_mask.reshape(-1)
-    D = pos_embs.shape[-1]
     if idx is None:
-        idx = torch.randint(0, flat_ids.shape[0], (n,), generator=gen,
-                            device=flat_ids.device)
-    idx = idx.long()
-    cand_ids = torch.where(flat_valid[idx], flat_ids[idx],
-                           torch.zeros_like(flat_ids[idx]))
-    cand_embs = pos_embs.reshape(-1, D)[idx]
-    match = (flat_ids[None, :] == cand_ids[:, None]) & flat_valid[None, :]
-    counts = match.sum(1).to(f32)
-    n_valid = torch.clamp(flat_valid.sum().to(f32), min=1.0)
-    logq = torch.log(torch.clamp(counts, min=1.0)) - torch.log(n_valid)
+        idx = inbatch_draw(n, flat_ids.shape[0], gen, flat_ids.device)
+    cand_ids, logq = inbatch_ids_logq(flat_ids, loss_mask.reshape(-1), idx)
+    cand_embs = pos_embs.reshape(-1, pos_embs.shape[-1])[idx.long()]
     return cand_ids, cand_embs, logq

@@ -1,5 +1,5 @@
 """Device meshes of the port: the (pipe, data, model, seq) axes of the JAX
-package's ``parallel/mesh.py``, for sequence-parallel training.
+package's ``parallel/mesh.py``, for data- and sequence-parallel training.
 
 Two kinds, with one interface that the encoder and the trainer read:
 
@@ -8,13 +8,17 @@ Two kinds, with one interface that the encoder and the trainer read:
   (data, seq) shard: the rows of its data index and, inside the encoder, the
   tokens of its seq index. It keeps a ``torch.distributed`` group per axis.
   Key/value shards rotate around the seq group by point-to-point sends
-  (:meth:`ProcessMesh.rotate`), and the encoder output gathers along L
-  (:meth:`ProcessMesh.gather_seq`).
-- :class:`LocalMesh`, :func:`local_mesh`: all S seq shards in one process
-  on one device, the counterpart of the JAX tests' virtual CPU devices:
-  rotation is indexing into the list of shards, and autograd sums the
-  key/value gradients itself. The tests and ``chip_smoke.py`` use it; the
-  CLI never builds it.
+  (:meth:`ProcessMesh.rotate`), the encoder output gathers along L
+  (:meth:`ProcessMesh.gather_seq`), and what the loss needs of the other
+  data shards (counts, the in-batch candidates) crosses the data group
+  (:meth:`ProcessMesh.sum_data`, :meth:`ProcessMesh.cat_data`).
+- :class:`LocalMesh`, :func:`local_mesh`: every data shard and every seq
+  shard in one process on one device, the counterpart of the JAX tests'
+  virtual CPU devices. The trainer runs each data shard's rows through the
+  model in turn, at the launch shapes of one card of the process mesh, and
+  combines them as the process mesh does; rotation is indexing into the
+  list of seq shards; autograd sums what the process mesh all-reduces. The
+  tests and ``chip_smoke.py`` use it; the CLI never builds it.
 
 Only meshes with pipe = model = 1 are built; others raise
 ``NotImplementedError`` naming ROADMAP Queue 1 item 5.
@@ -41,7 +45,7 @@ def unported(what: str):
 def _check_axes(cfg: MeshConfig) -> None:
     if cfg.pipe > 1 or cfg.model > 1:
         unported(f"a mesh with pipe={cfg.pipe}, model={cfg.model} (tensor "
-                 "and pipeline parallelism)")
+                 "and pipeline parallelism, slices d and e)")
 
 
 def initialize_distributed(device: str = "cuda") -> bool:
@@ -61,19 +65,42 @@ def initialize_distributed(device: str = "cuda") -> bool:
 
 
 class LocalMesh:
-    """Every seq shard in this process (see the module docstring). Its data
-    axis is 1: the rows all run here."""
+    """Every data and seq shard in this process (see the module
+    docstring)."""
 
     process = False
+    rank = 0
 
-    def __init__(self, seq: int):
-        self.shape: Dict[str, int] = {"pipe": 1, "data": 1, "model": 1,
+    def __init__(self, seq: int = 1, data: int = 1):
+        self.shape: Dict[str, int] = {"pipe": 1, "data": data, "model": 1,
                                       "seq": seq}
         self.data_index = 0
 
     @property
     def seq_indices(self) -> List[int]:
         return list(range(self.shape["seq"]))
+
+    @property
+    def data_indices(self) -> List[int]:
+        """The data shards whose rows run in this process: all of them."""
+        return list(range(self.shape["data"]))
+
+    @property
+    def encoder_mesh(self) -> Optional["LocalMesh"]:
+        """The mesh one data shard's rows take through the encoder: its seq
+        shards (None without a seq axis)."""
+        if self.shape["seq"] == 1:
+            return None
+        return self if self.shape["data"] == 1 \
+            else LocalMesh(seq=self.shape["seq"])
+
+    def sum_data(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of one tensor per data shard (differentiable)."""
+        return sum(parts[1:], parts[0])
+
+    def cat_data(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Every data shard's rows, in data order (dim 0)."""
+        return torch.cat(list(parts))
 
     def seq_shards(self, x: torch.Tensor) -> List[torch.Tensor]:
         """The local shards of ``x`` along L (dim 1)."""
@@ -112,6 +139,32 @@ class ProcessMesh:
     @property
     def seq_indices(self) -> List[int]:
         return [self.seq_index]
+
+    @property
+    def data_indices(self) -> List[int]:
+        return [self.data_index]
+
+    @property
+    def encoder_mesh(self) -> "ProcessMesh":
+        return self
+
+    def sum_data(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """This data shard's tensor summed over the data group: an
+        all-reduce whose backward all-reduces the cotangent, so each shard
+        receives the gradient of every shard's loss."""
+        (t,) = parts
+        return _AllReduceData.apply(t, self)
+
+    def cat_data(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Every data shard's rows, in data order (dim 0), no gradient (an
+        all-gather over the data group; bool tensors cross as uint8)."""
+        (t,) = parts
+        was_bool = t.dtype == torch.bool
+        t = (t.to(torch.uint8) if was_bool else t).detach().contiguous()
+        out = [torch.empty_like(t) for _ in range(self.shape["data"])]
+        dist.all_gather(out, t, group=self.data_group)
+        out = torch.cat(out)
+        return out.bool() if was_bool else out
 
     @property
     def rank(self) -> int:
@@ -159,6 +212,17 @@ class ProcessMesh:
         return t
 
 
+class _AllReduceData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(t.detach().clone(), "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous().clone(), "data"), None
+
+
 class _Shift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh):
@@ -200,13 +264,24 @@ def build_mesh(cfg: MeshConfig = MeshConfig()) -> ProcessMesh:
 
 
 def local_mesh(cfg: MeshConfig = MeshConfig()) -> LocalMesh:
-    """A mesh of cfg.seq shards in this process on one device (its data
-    axis folds to 1). With dropout on, its unfused "ring" route draws
-    whole-sequence masks where a process mesh draws per-shard ones, so the
-    two agree there only with dropout off; the fused ring folds the shard
-    seeds on both."""
+    """A mesh of cfg.data x cfg.seq shards in this process on one device.
+    With dropout on, its unfused "ring" route draws whole-sequence masks
+    where a process mesh draws per-shard ones, so the two agree there only
+    with dropout off; the fused ring folds the shard seeds on both. Each
+    data shard draws its dropout masks from its own generator, as a process
+    of that data index does."""
     _check_axes(cfg)
-    return LocalMesh(cfg.seq)
+    return LocalMesh(seq=cfg.seq, data=cfg.data)
+
+
+def data_rows(global_batch: int, n_data: int, index: int) -> slice:
+    """Data shard ``index``'s contiguous block of a global batch's rows, as
+    the JAX package's batch sharding splits the leading axis."""
+    if global_batch % n_data:
+        raise ValueError(f"batch {global_batch} is not divisible by data="
+                         f"{n_data}")
+    per = global_batch // n_data
+    return slice(index * per, (index + 1) * per)
 
 
 def host_batch_slice(global_batch: int, mesh=None) -> slice:
@@ -214,13 +289,12 @@ def host_batch_slice(global_batch: int, mesh=None) -> slice:
     index's share (all of them without a process mesh)."""
     if mesh is None or not mesh.process:
         return slice(0, global_batch)
-    dp = mesh.shape["data"]
-    if global_batch % dp:
-        raise ValueError(f"batch {global_batch} is not divisible by data="
-                         f"{dp}")
-    per = global_batch // dp
-    return slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+    return data_rows(global_batch, mesh.shape["data"], mesh.data_index)
 
 
 def seq_size(mesh: Optional[object]) -> int:
     return 1 if mesh is None else mesh.shape.get("seq", 1)
+
+
+def data_size(mesh: Optional[object]) -> int:
+    return 1 if mesh is None else mesh.shape.get("data", 1)

@@ -16,17 +16,23 @@ renamed, so a crash mid-write is never picked up;
 thread. Loading checks the saved model config and the parameter tree
 against the model's, as the JAX package does, and reads a train state the
 JAX trainer wrote too (its optax state, ``bridge.opt_state_from_jax``).
+The learned tables' rows follow the JAX loader's rules
+(:func:`convert_rows`): a table, its AdamW moments or its row-optimizer
+state whose row count differs from the model's by shard or pack padding
+(all-zero surplus rows) is cut or zero-extended to it; trained surplus
+rows, or any other row count, raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import re
 import shutil
 import threading
 from pathlib import Path
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -226,6 +232,85 @@ def save_checkpoint_async(ckpt_dir, state, global_step: int,
     return handle
 
 
+def _repad_rows(t: torch.Tensor, rows: int, path: str) -> torch.Tensor:
+    """``t`` cut or zero-extended to ``rows`` leading rows. Cutting needs
+    the dropped rows to be all zero (shard and pack padding is zero and
+    never read): a trained row raises. Extending warns, since new rows of
+    a grown vocabulary would restore as zeros, not as a fresh init."""
+    n = min(t.shape[0], rows)
+    if t.shape[0] > n and bool(t[n:].any()):
+        raise ValueError(
+            f"checkpoint leaf {path!r} has {t.shape[0]} rows but the model "
+            f"expects {rows}, and the surplus rows are NOT all zero — this "
+            "is trained data, not shard padding (vocab/itemnum skew between "
+            "save and load?); refusing to truncate")
+    if rows > t.shape[0]:
+        logging.getLogger(__name__).warning(
+            "checkpoint leaf %r: zero-extending %d -> %d rows (shard-pad "
+            "re-pad; if the model's vocab actually grew, the new rows "
+            "restore as zeros, not fresh init)", path, t.shape[0], rows)
+    out = t.new_zeros((rows,) + tuple(t.shape[1:]))
+    out[:n] = t[:n]
+    return out
+
+
+def convert_rows(t: torch.Tensor, shape, path: str = "?"
+                 ) -> Optional[torch.Tensor]:
+    """A learned table's leaf (a [V, D] table or moment, a [V] row
+    accumulator, or a JAX-packed [V / R, 8, 128] one, unpacked first) at
+    the model's ``shape``, by the JAX loader's rules (``_convert_layout``,
+    ``_repad_rows``): the same rows as they are; rows that differ by under
+    32, or by the padding of a table at packed scale (``ops.sparse_table.
+    padded_table_rows``, the port's Vp), cut (surplus rows all zero, else
+    ``ValueError``) or zero-extended. None for any other shape: the caller
+    raises its shape error."""
+    from ..ops.sparse_table import padded_table_rows
+
+    shape = tuple(shape)
+    if t.dim() == 3 and tuple(t.shape[1:]) == (8, 128) and len(shape) == 2 \
+            and shape[1] <= 128 and 128 % shape[1] == 0:
+        t = t.reshape(-1, shape[1])
+    if tuple(t.shape) == shape:
+        return t
+    if t.dim() != len(shape) or tuple(t.shape[1:]) != shape[1:]:
+        return None
+    have, want = t.shape[0], shape[0]
+    lo, hi = min(have, want), max(have, want)
+    if hi - lo < 32 or hi == padded_table_rows(lo):
+        return _repad_rows(t, want, path)
+    return None
+
+
+def _fit_rows(t: torch.Tensor, rows: int, path: str) -> torch.Tensor:
+    """:func:`convert_rows` to ``rows`` leading rows, raising where the
+    rows cannot convert."""
+    out = convert_rows(t, (rows,) + tuple(t.shape[1:]), path)
+    if out is None:
+        raise ValueError(
+            f"checkpoint leaf {path!r} shape {tuple(t.shape)} does not fit "
+            f"the model's {rows} rows — vocabulary skew (itemnum/usernum "
+            "differ between save and load) or architecture config skew")
+    return out
+
+
+def table_rows(model, packed: bool) -> Dict[str, int]:
+    """The rows of each learned table in ``model``: ``user_emb`` usernum +
+    1, ``item_emb`` itemnum + 1, or its Vp rows where ``packed`` (the port
+    trains it at packed scale)."""
+    from ..ops.sparse_table import padded_table_rows
+
+    items = model.itemnum + 1
+    return {"item_emb": padded_table_rows(items) if packed else items,
+            "user_emb": model.usernum + 1}
+
+
+def _fit_tables(params: dict, rows: Mapping[str, int]) -> dict:
+    """``params`` with each learned table at its model rows
+    (:func:`_fit_rows`)."""
+    return {k: _fit_rows(v, rows[k], k) if k in rows else v
+            for k, v in params.items()}
+
+
 def _check_structure(params: Mapping, model) -> None:
     """The checkpoint's parameter tree against the one ``model`` builds:
     the same leaf paths, and the same shapes outside the tables' rows (a
@@ -253,8 +338,9 @@ def load_checkpoint(path, model, cfg, device="cpu"):
     taken). The saved model config and parameter tree must match
     ``model``'s. A JAX-written state's optax AdamW moments, schedule count
     and row-optimizer state map onto the port's
-    (``bridge.opt_state_from_jax``); its packed item table keeps its Vp
-    rows where the port trains it at packed scale."""
+    (``bridge.opt_state_from_jax``). The tables, their moments and their
+    row-optimizer state take the model's rows (:func:`convert_rows`): the
+    item table's Vp where the port trains it at packed scale."""
     from .trainer import dense_leaves, init_state, packed_item_table
 
     path = Path(path)
@@ -266,9 +352,8 @@ def load_checkpoint(path, model, cfg, device="cpu"):
     meta = json.loads((path / META_FILE).read_text()) \
         if (path / META_FILE).exists() else {}
     _check_config(meta, model.cfg)
-    params = params_from_jax(path, device=device, itemnum=None
-                             if packed_item_table(cfg, model.itemnum)
-                             else model.itemnum)
+    rows = table_rows(model, packed_item_table(cfg, model.itemnum))
+    params = _fit_tables(params_from_jax(path, device=device), rows)
     _check_structure(params, model)
     state = init_state(model, cfg, params=params, device=device)
     dense = [p for p, _ in dense_leaves(state.params, cfg)]
@@ -294,6 +379,8 @@ def load_checkpoint(path, model, cfg, device="cpu"):
                 "reads the step")
         moments = {p: (js["exp_avg"][p], js["exp_avg_sq"][p]) for p in dense}
         tables = js["tables"]
+    moments = {p: tuple(_fit_rows(m, rows[p], f"1/{p}") for m in ms)
+               if p in rows else ms for p, ms in moments.items()}
     opt_state = {i: {"step": torch.tensor(float(count)),
                      "exp_avg": moments[p][0], "exp_avg_sq": moments[p][1]}
                  for i, p in enumerate(dense) if p in moments}
@@ -303,6 +390,9 @@ def load_checkpoint(path, model, cfg, device="cpu"):
     for name, opt in state.tables.items():
         for k in opt:
             got = tables[name][k]
+            if got.dim() == opt[k].dim() and got.shape[1:] == opt[k].shape[1:]:
+                got = _fit_rows(got, opt[k].shape[0],
+                                f"1/tables/{name}/{k}")
             if got.shape != opt[k].shape:
                 raise ValueError(f"table {name!r} optimizer state {k!r} "
                                  f"shape {tuple(got.shape)} != the port's "
@@ -327,8 +417,10 @@ def _state_leaves(path, device="cpu"):
 
 def load_params(path, model=None, device="cpu") -> Tuple[dict, dict]:
     """(params, meta) from a checkpoint directory written by either package.
-    With ``model`` (a SeqRecModel) the saved model config must match its
-    config, and a packed item table keeps its ``itemnum + 1`` rows."""
+    With ``model`` (a SeqRecModel) the saved model config and parameter
+    tree must match its own, and the tables take its rows
+    (:func:`convert_rows`): ``item_emb`` its ``itemnum + 1`` addressable
+    rows (a packed table's pad rows cut), ``user_emb`` ``usernum + 1``."""
     path = Path(path)
     meta = {}
     if (path / META_FILE).exists():
@@ -336,9 +428,9 @@ def load_params(path, model=None, device="cpu") -> Tuple[dict, dict]:
     if not (path / MANIFEST_FILE).exists():
         raise ValueError(f"{path} holds no {MANIFEST_FILE}: the legacy "
                          "single-blob checkpoint layout is not supported")
+    params = params_from_jax(path, device=device)
     if model is not None:
         _check_config(meta, model.cfg)
-    params = params_from_jax(path, device=device,
-                             itemnum=model.itemnum if model is not None
-                             else None)
+        params = _fit_tables(params, table_rows(model, packed=False))
+        _check_structure(params, model)
     return params, meta

@@ -9,8 +9,12 @@ Keeps the reference's machine-readable contracts:
   (``main.py:224-226,264-265``) plus O1's ``Gradient/{mean,max}`` and
   ``LearningRate/*`` (``BaseLineO1/main.py:296-314``);
 
-and adds the TPU-side metrics the north star asks for:
-``Performance/examples_per_second_per_chip`` and ``Performance/lookup_gb_s``.
+and adds the device-side metrics the north star asks for:
+``Performance/examples_per_second_per_chip``, ``Performance/lookup_gb_s``
+and ``Performance/mfu`` (the step's analytic matmul and attention FLOPs,
+``trainer.analytic_step_flops``, over its time and the cards' bf16 peak,
+``trainer.device_peak_flops``: written where that peak is known, an H100
+training in bf16, never on the CPU).
 """
 
 from __future__ import annotations

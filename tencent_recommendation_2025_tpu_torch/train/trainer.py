@@ -1,36 +1,43 @@
 """Training: train and eval steps, the host preps, epoch loop.
 
-Counterpart of ``tencent_recommendation_2025_tpu/train/trainer.py`` for one
-device: the BCE or sampled-softmax loss, backward (the fused block's
-backward kernel on the card), AdamW over the dense parameters, per-epoch
-validation, the epoch-end retrieval eval (``eval_retrieval_users``) and
-checkpoints. Tables listed in ``train.sparse_tables``
-(``item_emb``, ``user_emb``) train by the gather-train pattern of
-``ops/sparse_table.py``: the host dedups the step's touched ids
-(:func:`augment_batch_sparse`), the step differentiates the loss with
-respect to the gathered rows only and updates them with a row-sparse
-optimizer, in place; a table at packed scale (30M+ rows) writes back whole
-groups through the group-scatter kernel. PyTorch runs eagerly, so a step is
-a plain function; the train state is updated in place (the JAX package's is
-immutable and donated), which keeps one copy of the parameters and
-optimizer state.
+Counterpart of ``tencent_recommendation_2025_tpu/train/trainer.py``: the
+BCE or sampled-softmax loss, backward (the fused block's backward kernel on
+the card), AdamW over the dense parameters, per-epoch validation, the
+epoch-end retrieval eval (``eval_retrieval_users``) and checkpoints. Tables
+listed in ``train.sparse_tables`` (``item_emb``, ``user_emb``) train by the
+gather-train pattern of ``ops/sparse_table.py``: the host dedups the step's
+touched ids (:func:`augment_batch_sparse`), the step differentiates the
+loss with respect to the gathered rows only and updates them with a
+row-sparse optimizer, in place; a table at packed scale (30M+ rows) writes
+back whole groups through the group-scatter kernel. PyTorch runs eagerly,
+so a step is a plain function; the train state is updated in place (the
+JAX package's is immutable and donated), which keeps one copy of the
+parameters and optimizer state.
 
-A ``seq`` mesh (``parallel/mesh``) trains the encoder sequence-parallel:
-on a local mesh in one process; on a process mesh (one process per card,
-under ``torchrun``) each process takes its data index's rows, the loss is
-normalised by the global count of masked positions, and the gradients are
-summed over every process, so each holds the single-device gradient of the
-global batch and the replicated parameters stay equal.
+On a mesh (``parallel/mesh``) with a ``data`` axis, a ``seq`` axis or both,
+the parameters are replicated and each data shard trains its contiguous
+block of the global batch's rows: a process mesh (one process per card,
+under ``torchrun``) runs its own shard; a local mesh runs every shard in
+turn in one process, at the same launch shapes. The loss divides by the
+global count of masked positions; the sampled softmax's in-batch negatives
+are drawn over the global batch from a generator every shard shares, and
+their rows cross the data shards with their gradients. On a process mesh
+the gradients are then summed over every process, so each holds the
+single-device gradient of the global batch and the replicated parameters
+stay equal; on a local mesh autograd sums them. A ``seq`` axis also runs
+the encoder sequence-parallel.
 
 ``train.grad_accum_steps`` = G > 1 splits each batch into G strided
 microbatches whose losses go backward one at a time, weighted by their
-counts of masked positions (one microbatch's activations live at a time).
-The epoch loop checkpoints on SIGTERM after the step in flight and resumes
-mid-epoch (``skip_steps``); its per-epoch saves write on a thread.
+counts of masked positions (one microbatch's activations live at a time);
+on a mesh each data shard takes its block of each microbatch. The epoch
+loop checkpoints on SIGTERM after the step in flight and resumes mid-epoch
+(``skip_steps``); its per-epoch saves write on a thread.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: any other mesh (a preset's ``cfg.mesh`` in one process trains
-single-device, as the JAX CLI falls back) and G > 1 on a seq mesh.
+item: meshes with pipe or model > 1, and sparse tables on a mesh (a
+preset's ``cfg.mesh`` in one process trains single-device, as the JAX CLI
+falls back).
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ from ..data.pipeline import prefetch
 from ..models.baseline import SeqRecModel
 from ..ops import losses as LS
 from ..ops import sparse_table as ST
-from ..parallel.mesh import host_batch_slice, seq_size
+from ..parallel.mesh import data_rows, data_size, seq_size
 from ..parallel.mesh import unported as mesh_unported
 from . import telemetry as T
 
@@ -68,12 +75,11 @@ def check_supported(cfg: Config, mesh=None) -> None:
     """Raise on the training options the port does not cover yet. A
     preset's ``cfg.mesh`` is not one of them: in one process the port
     trains it on one device, as the JAX CLI does where the devices are
-    missing. A ``mesh`` must have a seq axis above 1, pipe = model = 1,
-    dense tables and the BCE loss (the sampled softmax's in-batch negatives
-    span the global batch); anything else raises ``NotImplementedError``
-    naming ROADMAP Queue 1 item 5. ``grad_accum_steps > 1`` takes dense
-    tables without tower dedup (``ValueError`` otherwise, as the JAX step
-    asserts) and no seq mesh (item 5)."""
+    missing. A ``mesh`` takes any data and seq axes, pipe = model = 1 and
+    dense tables; anything else raises ``NotImplementedError`` naming
+    ROADMAP Queue 1 item 5. ``grad_accum_steps > 1`` takes dense tables
+    without tower dedup, and on a data mesh microbatches whose rows divide
+    the data axis (``ValueError`` otherwise, as the JAX step asserts)."""
     t = cfg.train
     if mesh is not None:
         shape = getattr(mesh, "shape", None)
@@ -81,19 +87,14 @@ def check_supported(cfg: Config, mesh=None) -> None:
             mesh_unported(f"training on the device mesh {mesh!r}")
         if shape.get("pipe", 1) > 1 or shape.get("model", 1) > 1:
             mesh_unported(f"training on a mesh with pipe or model > 1 "
-                          f"({dict(shape)})")
-        if seq_size(mesh) < 2:
-            mesh_unported(f"training on a mesh without a seq axis "
-                          f"({dict(shape)}: data parallelism alone)")
+                          f"({dict(shape)}; slices d and e)")
         if t.sparse_tables:
-            mesh_unported("sparse tables on a device mesh")
-        if t.loss_type == "sampled_softmax":
-            mesh_unported("the sampled softmax on a device mesh (its "
-                          "in-batch negatives span the global batch)")
+            mesh_unported("sparse tables on a device mesh (slice b)")
     if not set(t.sparse_tables) <= {"item_emb", "user_emb"}:
         raise ValueError("train.sparse_tables takes subsets of (item_emb, "
                          f"user_emb), not {t.sparse_tables}")
-    if t.grad_accum_steps > 1:
+    G = t.grad_accum_steps
+    if G > 1:
         # the JAX step's guards, with its messages
         if t.sparse_tables:
             raise ValueError(
@@ -104,9 +105,80 @@ def check_supported(cfg: Config, mesh=None) -> None:
             raise ValueError(
                 "grad_accum_steps x tower_dedup unsupported: dedup spread "
                 "plans index global batch rows, not microbatch slices")
-        if mesh is not None and seq_size(mesh) > 1:
-            mesh_unported("gradient accumulation (train.grad_accum_steps > "
-                          "1) on a seq mesh")
+        dp = data_size(mesh)
+        if dp > 1 and (t.batch_size // G) % dp:
+            raise ValueError(
+                f"grad_accum_steps={G}: each microbatch has "
+                f"{t.batch_size // G} rows, which must divide the data axis "
+                f"({dp}) — the explicit EP a2a shards microbatch rows over "
+                "data")
+
+
+def analytic_step_flops(cfg: Config, model: SeqRecModel,
+                        tower_dedup: Optional[bool] = None,
+                        n_data_shards: int = 1) -> float:
+    """Matmul and attention FLOPs of one train step of the global batch
+    (forward + about 2x backward), analytic, as the JAX package counts
+    them; elementwise work excluded. Feeds ``Performance/mfu``. With tower
+    dedup (``tower_dedup``, default the config's) one tower at the static
+    unique capacity replaces the per-position towers; the stacked plan of
+    ``n_data_shards`` > 1 towers its capacity per shard, plus the shared
+    sampled negatives."""
+    from ..models.embedding import tower_dims
+    from ..models.encoder import swiglu_hidden_dim
+
+    mc, tc = cfg.model, cfg.train
+    B, L, D, H = tc.batch_size, mc.maxlen + 1, mc.hidden_units, mc.num_heads
+    M = B * L
+    proj = 2 * M * D * (4 * D if mc.block_type == "hstu" else 3 * D) \
+        + 2 * M * D * D
+    if mc.ffn_type == "swiglu":
+        F = swiglu_hidden_dim(D, mc.ffn_hidden_mult, mc.ffn_multiple_of)
+        ffn = 2 * M * D * 2 * F + 2 * M * F * D
+    else:
+        ffn = 2 * (2 * M * D * D)
+    attn = B * L * (L + 1) / 2 * H * 4 * (D // H)   # QK^T + AV per pair
+    blocks = mc.num_blocks * (proj + ffn + attn)
+    userdim, itemdim = tower_dims(mc, model.schema)
+    mm = sum(model.schema.item_emb_dims[f] for f in model.schema.mm_emb_ids)
+    K = MAX_USER_TOKENS_PER_ROW
+    item_tok = M + B      # the seq tower + the final-target column
+    item_tok += tc.num_sampled_negatives \
+        if tc.loss_type == "sampled_softmax" else M
+    if tc.tower_dedup if tower_dedup is None else tower_dedup:
+        item_tok = n_data_shards * tower_dedup_capacity(cfg, model.itemnum,
+                                                        n_data_shards)
+        if tc.loss_type == "sampled_softmax" and n_data_shards > 1:
+            item_tok += tc.num_sampled_negatives
+    towers = 2 * item_tok * (itemdim + mm) * D \
+        + 2 * B * (K + 1) * userdim * D
+    return 3.0 * (blocks + towers)                   # bwd ~ 2x fwd
+
+
+#: an H100 SXM's dense bf16 peak, the rate every bound in PERF.md uses
+H100_PEAK_BF16 = 989e12
+
+
+def device_peak_flops(device="cuda", dtype: str = "bfloat16"
+                      ) -> Optional[float]:
+    """The bf16 peak of the card ``device`` trains on, where known: an H100
+    (SXM) training in bf16; None on the CPU, in f32 and on any other
+    card (no mfu then)."""
+    device = torch.device(device)
+    if device.type != "cuda" or dtype != "bfloat16" \
+            or not torch.cuda.is_available():
+        return None
+    name = torch.cuda.get_device_name(device)
+    return H100_PEAK_BF16 if "H100" in name and "PCIe" not in name else None
+
+
+def _world_size() -> int:
+    """Processes in the initialised process group (1 without one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 @dataclasses.dataclass
@@ -205,67 +277,120 @@ def put_batch(batch: Mapping, device) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
-def step_generator(seed: int, step: int, device,
-                   shard: Optional[int] = None) -> torch.Generator:
+def step_generator(seed: int, step: int, device, *folds: int
+                   ) -> torch.Generator:
     """The step's randomness: a generator on the device seeded from
     (seed + 1, step), as the JAX step folds the step into its key, so a run
-    is reproducible step by step; a data shard's index, where given, folds
-    in too (its rows draw their own masks)."""
+    is reproducible step by step; ``folds`` (a microbatch's index, a data
+    shard's) fold in after them."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(np.random.SeedSequence(
-        [seed + 1, step] + ([] if shard is None else [shard]))
+        [seed + 1, step] + [int(f) for f in folds])
         .generate_state(1, np.uint64)[0] >> 1))
     return gen
 
 
-def shard_batch(batch: Mapping, mesh=None) -> Dict[str, Any]:
-    """This process's rows of a global batch (:func:`parallel.mesh.
-    host_batch_slice`): every tensor whose first axis is the batch's; the
-    batch itself without a process mesh."""
-    if mesh is None or not mesh.process:
-        return batch
+def shard_gens(mesh, seed: int, step: int, device, *folds: int):
+    """Each data shard's dropout generator, for the shards this process
+    runs, on a mesh with a data axis: the step's generator with the shard's
+    data index folded in, so that its rows draw their own masks and a local
+    mesh draws those of a process mesh. None without a data axis (the
+    step's generator draws them)."""
+    if data_size(mesh) == 1:
+        return None
+    return [step_generator(seed, step, device, *folds, d)
+            for d in mesh.data_indices]
+
+
+#: batch keys shared by every row and microbatch (never split by rows)
+SHARED_KEYS = ("sampled_neg_ids",)
+
+
+def batch_rows(batch: Mapping, rows: slice) -> Dict[str, Any]:
+    """``rows`` of a batch: every tensor whose leading axis is the batch's,
+    except the step's shared negatives."""
     B = batch["seq"].shape[0]
-    rows = host_batch_slice(B, mesh)
-    return {k: v[rows] if isinstance(v, torch.Tensor) and v.dim() > 0
+    return {k: v[rows] if k not in SHARED_KEYS
+            and isinstance(v, torch.Tensor) and v.dim() > 0
             and v.shape[0] == B else v for k, v in batch.items()}
 
 
-def _data_shard(mesh) -> Optional[int]:
-    """The data index that folds into the step generator: on a process
-    mesh with data > 1 only."""
-    if mesh is None or not mesh.process or mesh.shape["data"] == 1:
-        return None
-    return mesh.data_index
+def _data_shards(model: SeqRecModel, params, batch, mm_tables, mesh,
+                 gen, gens):
+    """[(rows' batch, dropout generator, spreads, rows)] for the data shards
+    this process runs, each its contiguous block of the global batch
+    (``parallel.mesh.data_rows``): one without a mesh. A stacked tower-dedup
+    plan runs its one tower over every shard's rows first, and each shard
+    takes its rows of the spreads."""
+    B = batch["seq"].shape[0]
+    n = data_size(mesh)
+    spreads = None
+    if "dedup_uids" in batch:
+        if batch["dedup_uids"].dim() == 2:
+            spreads = model.dedup_spreads(params, batch, mm_tables)
+            batch = {k: v for k, v in batch.items()
+                     if not k.startswith("dedup_")}
+        elif n > 1:
+            raise ValueError(
+                "tower-dedup on a data>1 mesh requires the STACKED [S, cap] "
+                "plan (augment_batch_dedup(n_data_shards=S))")
+    indices = [0] if mesh is None else mesh.data_indices
+    out = []
+    for g, d in zip(gens or [gen] * len(indices), indices):
+        rows = data_rows(B, n, d)
+        sp = None if spreads is None else \
+            tuple(None if t is None else t[rows] for t in spreads)
+        out.append((batch if n == 1 else batch_rows(batch, rows), g, sp,
+                    rows))
+    return out
+
+
+def _count(mesh, parts) -> torch.Tensor:
+    """The sum over every data shard of one count per local shard."""
+    if mesh is not None and mesh.process:
+        (c,) = parts
+        return mesh.all_reduce(c.detach().clone(), "data")
+    return sum(parts[1:], parts[0])
+
+
+def _encoder_mesh(mesh):
+    return None if mesh is None else mesh.encoder_mesh
 
 
 def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
                  cfg: Config, train: bool,
-                 gen: Optional[torch.Generator] = None, mesh=None
-                 ) -> Tuple[torch.Tensor, Dict]:
+                 gen: Optional[torch.Generator] = None, mesh=None,
+                 gens=None) -> Tuple[torch.Tensor, Dict]:
     """``train.loss_type`` "sampled_softmax": :func:`_sampled_softmax`;
     otherwise the reference BCE over next-item positions, plus the L2
     penalty on the item table when ``l2_emb`` > 0. ``params`` may hold
-    :class:`ops.sparse_table.GatheredRows` tables. The encoder runs on
-    ``mesh``. On a process mesh ``batch`` holds this process's rows: the
-    BCE divides by the global count of masked positions, the metrics hold
-    the global loss, and the loss returned is this process's share, whose
-    gradients summed over every process are the global loss's."""
+    :class:`ops.sparse_table.GatheredRows` tables.
+
+    ``batch`` is the global batch; on a ``mesh`` each data shard this
+    process runs takes its rows (the encoder on ``mesh.encoder_mesh``) and
+    its dropout masks from its generator in ``gens`` (:func:`shard_gens`;
+    ``gen`` without them). The loss divides by the global count of masked
+    positions and the metrics hold the global loss. On a local mesh the
+    loss returned is the global one; on a process mesh it is this process's
+    share, whose gradients summed over every process are the global
+    loss's."""
+    shards = _data_shards(model, params, batch, mm_tables, mesh, gen, gens)
     if cfg.train.loss_type == "sampled_softmax":
-        return _sampled_softmax(model, params, batch, mm_tables,
-                                item_tables, cfg, train, gen)
-    pos_logits, neg_logits, loss_mask = model.logits(
-        params, batch, mm_tables, item_tables, train=train, gen=gen,
-        mesh=mesh)
-    n_mask = loss_mask.sum().float()
-    proc = mesh is not None and mesh.process
-    if proc:
-        n_mask = mesh.all_reduce(n_mask, "data")
-    bce = LS.reference_bce_loss(pos_logits, neg_logits, loss_mask,
-                                count=n_mask if proc else None)
+        return _sampled_softmax(model, params, batch, shards, mm_tables,
+                                item_tables, cfg, train, gen, mesh)
+    outs = [model.logits(params, b, mm_tables, item_tables, train=train,
+                         gen=g, mesh=_encoder_mesh(mesh), spreads=sp)
+            for b, g, sp, _ in shards]
+    n_mask = _count(mesh, [lm.sum().float() for _, _, lm in outs])
+    multi = mesh is not None and (mesh.process or data_size(mesh) > 1)
+    parts = [LS.reference_bce_loss(pl, nl, lm,
+                                   count=n_mask if multi else None)
+             for pl, nl, lm in outs]
+    bce = sum(parts[1:], parts[0])
     l2 = LS.l2_emb_penalty(params["item_emb"], cfg.train.l2_emb) \
         if cfg.train.l2_emb > 0.0 else None
     loss = bce if l2 is None else bce + l2
-    if not proc:
+    if mesh is None or not mesh.process:
         return loss, {"loss": loss.detach(), "bce": bce.detach(),
                       "n_mask": n_mask}
     # every seq rank computes its rows' loss in full; each data rank adds
@@ -277,59 +402,88 @@ def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
     return share, {"loss": total, "bce": bce_all, "n_mask": n_mask}
 
 
-def _sampled_softmax(model: SeqRecModel, params, batch, mm_tables,
+def _sampled_softmax(model: SeqRecModel, params, batch, shards, mm_tables,
                      item_tables, cfg: Config, train: bool,
-                     gen: Optional[torch.Generator] = None
+                     gen: Optional[torch.Generator] = None, mesh=None
                      ) -> Tuple[torch.Tensor, Dict]:
     """Sampled softmax over [positive | shared negatives]: the positives
     reuse the sequence item tower shifted by one (only the final column
     runs its own tower), the negatives are ``batch["sampled_neg_ids"]``
     (the host preps sample them) or drawn on the device, and with
     ``num_inbatch_negatives`` > 0 the batch's positives join them with
-    their empirical logQ. With tower dedup one tower serves every site.
-    The draws come from ``gen``; without one (the eval step) from a
-    generator seeded 0, as the JAX eval step's fixed key."""
+    their empirical logQ. With tower dedup one tower serves every site; the
+    stacked plan has no negatives' plan, and the shared negatives run their
+    own tower. The draws come from ``gen``, the same on every data shard;
+    without one (the eval step) from a generator seeded 0, as the JAX eval
+    step's fixed key.
+
+    On a mesh (``shards``: :func:`_data_shards`) the in-batch candidates are
+    drawn over the global batch's positions: their ids and logQ from the
+    positives and masks gathered over the data shards, their rows from the
+    shard that holds each (``ops.losses.inbatch_rows``), summed over the
+    shards, which returns each row's gradient to its shard."""
     t = cfg.train
     dev = batch["seq"].device
     draw = gen if gen is not None else \
         torch.Generator(device=dev).manual_seed(0)
-    if "dedup_uids" in batch:
-        it_seq, pos_last, neg_embs = model.dedup_spreads(params, batch,
-                                                         mm_tables)
-        log_feats = model.log2feats(params, batch, mm_tables, train=train,
-                                    gen=gen, item_tower_override=it_seq)
-        neg_ids = batch["sampled_neg_ids"]
-    else:
-        log_feats, it_seq = model.log2feats(params, batch, mm_tables,
-                                            train=train, gen=gen,
-                                            return_item_tower=True)
-        pos_last = model.pos_last(params, batch, mm_tables)
-        neg_ids = batch.get("sampled_neg_ids")
-        if neg_ids is None:
-            neg_ids = torch.randint(1, model.itemnum + 1,
-                                    (t.num_sampled_negatives,),
-                                    generator=draw, device=dev,
-                                    dtype=torch.int32)
+    enc = _encoder_mesh(mesh)
+    per, neg_embs = [], None
+    for b, g, sp, rows in shards:
+        if sp is None and "dedup_uids" in b:
+            sp = model.dedup_spreads(params, b, mm_tables)
+        if sp is not None:
+            it_seq, pos_last, negs = sp
+            log_feats = model.log2feats(params, b, mm_tables, train=train,
+                                        gen=g, item_tower_override=it_seq,
+                                        mesh=enc)
+            neg_embs = negs if negs is not None else neg_embs
+        else:
+            log_feats, it_seq = model.log2feats(params, b, mm_tables,
+                                                train=train, gen=g,
+                                                return_item_tower=True,
+                                                mesh=enc)
+            pos_last = model.pos_last(params, b, mm_tables)
+        pos_embs = torch.cat([it_seq[:, 1:].to(pos_last.dtype), pos_last], 1)
+        mask = b["next_token_type"] == 1
+        if "sample_valid" in b:
+            mask = mask & (b["sample_valid"][:, None] > 0)
+        per.append((log_feats, pos_embs, mask, b["pos"], rows))
+    neg_ids = batch.get("sampled_neg_ids")
+    if neg_ids is None:
+        neg_ids = torch.randint(1, model.itemnum + 1,
+                                (t.num_sampled_negatives,), generator=draw,
+                                device=dev, dtype=torch.int32)
+    if neg_embs is None:
         neg_embs = model.candidates(params, neg_ids, mm_tables, item_tables,
                                     "negs")
-    pos_embs = torch.cat([it_seq[:, 1:].to(pos_last.dtype), pos_last], 1)
-    loss_mask = batch["next_token_type"] == 1
-    if "sample_valid" in batch:
-        loss_mask = loss_mask & (batch["sample_valid"][:, None] > 0)
+    n_mask = _count(mesh, [m.sum().float() for _, _, m, _, _ in per])
+    multi = mesh is not None and (mesh.process or data_size(mesh) > 1)
     neg_logq = None
     if t.num_inbatch_negatives > 0:
-        inb_ids, inb_embs, inb_logq = LS.inbatch_candidates(
-            batch["pos"], pos_embs, loss_mask, t.num_inbatch_negatives,
-            gen=draw)
+        cat = (lambda ps: ps[0]) if mesh is None else mesh.cat_data
+        flat_ids = cat([p.reshape(-1) for _, _, _, p, _ in per])
+        flat_valid = cat([m.reshape(-1) for _, _, m, _, _ in per])
+        idx = LS.inbatch_draw(t.num_inbatch_negatives, flat_ids.shape[0],
+                              draw, dev)
+        inb_ids, inb_logq = LS.inbatch_ids_logq(flat_ids, flat_valid, idx)
+        parts = [LS.inbatch_rows(pe, idx, rows.start * p.shape[1])
+                 for _, pe, _, p, rows in per]
+        inb_embs = parts[0] if mesh is None else mesh.sum_data(parts)
         uni = -float(torch.log(torch.tensor(float(model.itemnum))))
         neg_logq = torch.cat([torch.full((neg_ids.shape[0],), uni,
                                          device=dev), inb_logq])
         neg_ids = torch.cat([neg_ids, inb_ids.to(neg_ids.dtype)])
         neg_embs = torch.cat([neg_embs, inb_embs.to(neg_embs.dtype)])
-    loss = LS.sampled_softmax_loss(log_feats, pos_embs, neg_embs, neg_ids,
-                                   batch["pos"], loss_mask, model.itemnum,
-                                   neg_logq=neg_logq)
-    return loss, {"loss": loss.detach(), "n_mask": loss_mask.sum().float()}
+    losses = [LS.sampled_softmax_loss(lf, pe, neg_embs, neg_ids, p, m,
+                                      model.itemnum, neg_logq=neg_logq,
+                                      count=n_mask if multi else None)
+              for lf, pe, m, p, _ in per]
+    loss = sum(losses[1:], losses[0])
+    if mesh is None or not mesh.process:
+        return loss, {"loss": loss.detach(), "n_mask": n_mask}
+    # as the BCE: every seq rank computes its rows' loss in full
+    total = mesh.all_reduce(loss.detach().clone(), "data")
+    return loss / mesh.shape["seq"], {"loss": total, "n_mask": n_mask}
 
 
 def _grad_metrics(metrics: Dict, grads) -> Dict:
@@ -449,27 +603,28 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
 
     def accumulate(state, batch, mm_tables, item_tables, dev):
         """G microbatches, row i in microbatch i % G (``sampled_neg_ids``,
-        the step's shared negatives, reaches each whole): each one's loss
-        goes backward times its masked-position count n, into the leaves'
-        ``.grad``, which then divide by max(sum n, 1), so the step equals
-        the whole batch's exactly. Microbatch g draws from the generator of
-        (seed + 1, step, g)."""
+        the step's shared negatives, reaches each whole; on a mesh each
+        data shard takes its block of each microbatch): each one's loss
+        goes backward times its global masked-position count n, into the
+        leaves' ``.grad``, which then divide by max(sum n, 1), so the step
+        equals the whole batch's exactly. Microbatch g draws from the
+        generator of (seed + 1, step, g)."""
         B = batch["seq"].shape[0]
         if B % G:
             raise ValueError(f"batch of {B} rows does not split into "
                              f"grad_accum_steps={G} microbatches")
         lsum = wsum = torch.zeros((), dtype=torch.float32, device=dev)
         for g in range(G):
-            mb = {k: v[g::G].contiguous() if k != "sampled_neg_ids"
-                  and isinstance(v, torch.Tensor) and v.dim() > 0
-                  and v.shape[0] == B else v for k, v in batch.items()}
-            loss, m = compute_loss(model, state.params, mb, mm_tables,
-                                   item_tables, cfg, train=True,
-                                   gen=step_generator(t.seed, state.step,
-                                                      dev, g))
+            mb = batch_rows(batch, slice(g, None, G))
+            mb = {k: v.contiguous() if isinstance(v, torch.Tensor) else v
+                  for k, v in mb.items()}
+            loss, m = compute_loss(
+                model, state.params, mb, mm_tables, item_tables, cfg,
+                train=True, gen=step_generator(t.seed, state.step, dev, g),
+                mesh=mesh, gens=shard_gens(mesh, t.seed, state.step, dev, g))
             w = m["n_mask"].detach()
             (loss * w).backward()
-            lsum = lsum + loss.detach().float() * w
+            lsum = lsum + m["loss"].float() * w
             wsum = wsum + w
         wsum = wsum.clamp(min=1.0)
         for _, p in dense_leaves(state.params, cfg):
@@ -479,7 +634,7 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
 
     def step_fn(state: TrainState, batch, mm_tables, item_tables):
         dev = next(iter(_flatten(state.params).values())).device
-        gen = step_generator(t.seed, state.step, dev, _data_shard(mesh))
+        gen = step_generator(t.seed, state.step, dev)
         state.opt.zero_grad(set_to_none=True)
         if sparse:
             _, metrics, per = sparse_loss_backward(
@@ -487,10 +642,10 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
         elif G > 1:
             metrics = accumulate(state, batch, mm_tables, item_tables, dev)
         else:
-            loss, metrics = compute_loss(model, state.params,
-                                         shard_batch(batch, mesh),
-                                         mm_tables, item_tables, cfg,
-                                         train=True, gen=gen, mesh=mesh)
+            loss, metrics = compute_loss(
+                model, state.params, batch, mm_tables, item_tables, cfg,
+                train=True, gen=gen, mesh=mesh,
+                gens=shard_gens(mesh, t.seed, state.step, dev))
             loss.backward()
         leaves = [p for _, p in dense_leaves(state.params, cfg)]
         for p in leaves:
@@ -538,9 +693,8 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
 def make_eval_step(model: SeqRecModel, cfg: Config, mesh=None):
     @torch.no_grad()
     def step_fn(params, batch, mm_tables, item_tables):
-        return compute_loss(model, params, shard_batch(batch, mesh),
-                            mm_tables, item_tables, cfg, train=False,
-                            mesh=mesh)[1]
+        return compute_loss(model, params, batch, mm_tables, item_tables,
+                            cfg, train=False, mesh=mesh)[1]
 
     return step_fn
 
@@ -596,15 +750,19 @@ def augment_batch_dedup(batch, cfg: Config, item_feats, itemnum: int,
     device then runs ONE item tower at [cap] rows. Exact: spreading the
     unique rows reproduces the per-position towers.
 
-    A batch whose unique count exceeds the static capacity ships
-    un-dedup'd (dense per-position towers) with a rate-limited warning.
-    Under sampled softmax the negatives are sampled here from ``step_key``
-    (numpy), where the batch has none yet. Runs before
+    With ``n_data_shards`` = S > 1 (a data mesh) the prep is per shard:
+    each shard's contiguous row block (``parallel.mesh.data_rows``) dedups
+    into its own [cap] column at the per-shard capacity, and the arrays
+    stack to [S, cap, ...], every plan leaf to [S, ...]. The shared
+    sampled-softmax negatives stay outside the stacked plan (no ``negs``
+    plan: each shard would tower the same rows).
+
+    A batch whose unique count exceeds the static capacity (in any shard)
+    ships un-dedup'd (dense per-position towers) with a rate-limited
+    warning. Under sampled softmax the negatives are sampled here from
+    ``step_key`` (numpy), where the batch has none yet. Runs before
     :func:`augment_batch_sparse`, whose item_emb plan keys on the dedup'd
     id column."""
-    if n_data_shards != 1:
-        _unported("the stacked per-shard tower-dedup plan",
-                  "Multi-device layer")
     out = dict(batch)
     ss = cfg.train.loss_type == "sampled_softmax"
     if ss and "sampled_neg_ids" not in out:
@@ -613,20 +771,47 @@ def augment_batch_dedup(batch, cfg: Config, item_feats, itemnum: int,
     seq_ids = np.where(tt == 1, np.asarray(out["seq"]), 0)
     pos_last = np.asarray(out["pos"])[:, -1:]
     negs = np.asarray(out["sampled_neg_ids"] if ss else out["neg"])
-    cap = tower_dedup_capacity(cfg, itemnum)
-    sites = [("seq", seq_ids), ("pos_last", pos_last), ("negs", negs)]
-    u = np.unique(np.concatenate([i.reshape(-1) for _, i in sites]))
-    if len(u) > cap:
-        _warn_dedup_fallback(_DedupOverflow(len(u), cap))
+    S = max(n_data_shards, 1)
+    cap = tower_dedup_capacity(cfg, itemnum, S)
+    B = seq_ids.shape[0]
+    if B % S:
+        raise ValueError(f"batch rows {B} must divide data shards {S}")
+
+    def shard_plan(sites):
+        u = np.unique(np.concatenate([i.reshape(-1) for _, i in sites]))
+        if len(u) > cap:
+            raise _DedupOverflow(len(u), cap)
+        uids = np.full((cap,), itemnum + 1, np.int32)   # sentinel sorts last
+        uids[:len(u)] = u
+        return uids, {site: ST.build_lookup_plan(uids, ids)
+                      for site, ids in sites}
+
+    try:
+        if S == 1:
+            uids, plans = shard_plan([("seq", seq_ids),
+                                      ("pos_last", pos_last),
+                                      ("negs", negs)])
+        else:
+            per = []
+            for s in range(S):
+                sl = slice(s * (B // S), (s + 1) * (B // S))
+                sites = [("seq", seq_ids[sl]), ("pos_last", pos_last[sl])]
+                if not ss:
+                    sites.append(("negs", negs[sl]))
+                per.append(shard_plan(sites))
+            uids = np.stack([u for u, _ in per])               # [S, cap]
+            plans = {site: {k: np.stack([p[site][k] for _, p in per])
+                            for k in per[0][1][site]}
+                     for site in per[0][1]}
+    except _DedupOverflow as e:
+        _warn_dedup_fallback(e)
         return out   # un-dedup'd: per-position features intact
-    uids = np.full((cap,), itemnum + 1, np.int32)   # sentinel sorts last
-    uids[:len(u)] = u
     out["dedup_uids"] = uids
     safe = np.where(uids <= itemnum, uids, 0)        # sentinel -> zero row
     out["dedup_sparse"] = item_feats.sparse[safe].astype(np.int32)
     out["dedup_array"] = item_feats.array[safe].astype(np.int32)
-    for site, ids in sites:
-        for k, v in ST.build_lookup_plan(uids, ids).items():
+    for site, plan in plans.items():
+        for k, v in plan.items():
             out[f"dedup_{site}_{k}"] = v
     # the per-position feature copies these plans replace
     for k in ("seq_item_sparse", "seq_item_array", "pos_item_sparse",
@@ -850,23 +1035,36 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     the loop fails; a save's own error is raised only when the loop did
     not.
 
-    With a ``mesh`` the steps run on it (see :func:`make_train_step`); on a
-    process mesh every process runs the loop on the same global batches,
-    and only rank 0 logs, evaluates retrieval and writes checkpoints,
-    synchronously."""
+    With a ``mesh`` the steps run on it (see :func:`make_train_step`): the
+    state starts from ``parallel.train.init_sharded_state``, or a given one
+    lands through ``shard_existing_state`` (on a process mesh every process
+    takes rank 0's). On a process mesh every process runs the loop on the
+    same global batches, and only rank 0 logs and writes checkpoints,
+    synchronously. The epoch-end retrieval eval runs only without a mesh,
+    in one process, as the JAX loop's. Tower dedup runs in one process
+    without a seq axis: the stacked per-shard plan on a local data mesh;
+    elsewhere it is off, with the JAX loop's warning.
+
+    ``Performance/mfu`` (TensorBoard) is :func:`analytic_step_flops` (with
+    the dedup and data shards the run trains with) over the step's time
+    and :func:`device_peak_flops` times the processes, where that peak is
+    known."""
+    from ..parallel import train as PT
     from .checkpoint import save_checkpoint, save_checkpoint_async
 
     device = torch.device(device)
     proc = mesh is not None and mesh.process
+    world = _world_size()
     if state is None:
-        state = init_state(model, cfg, device=device)
+        state = init_state(model, cfg, device=device) if mesh is None \
+            else PT.init_sharded_state(model, cfg, mesh, device=device)
+    elif mesh is not None:
+        state = PT.shard_existing_state(mesh, state)
     train_step = make_train_step(model, cfg, mesh)
     eval_step = make_eval_step(model, cfg, mesh)
-    if mesh is not None and mesh.process and mesh.rank != 0:
+    if proc and mesh.rank != 0:
         log_dir = tb_dir = ckpt_dir = None
         verbose = False
-        cfg = cfg.replace(train=dataclasses.replace(
-            cfg.train, eval_retrieval_users=0))
     tables = device_tables(item_tables, device)
     mm_tables = tables["mm"]
 
@@ -883,21 +1081,29 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     if valid_loader is not None and len(valid_loader) > 0:
         probe_batch = put(next(iter(valid_loader.epoch(0))))
 
-    # epoch-end competition-metric eval (train.eval_retrieval_users)
+    # epoch-end competition-metric eval (train.eval_retrieval_users): one
+    # process without a mesh (JAX train/trainer.py:1051-1053)
     retrieval_eval_fn = None
-    if cfg.train.eval_retrieval_users > 0 and valid_loader is not None:
+    if cfg.train.eval_retrieval_users > 0 and valid_loader is not None \
+            and mesh is None and world == 1:
         retrieval_eval_fn = make_retrieval_eval(
             model, tables, mm_tables, put,
             max_users=cfg.train.eval_retrieval_users)
 
-    # the dedup plan indexes whole rows of one process's batch: not under a
-    # seq mesh or several processes (JAX train/trainer.py:1070-1080)
-    dedup_on = cfg.train.tower_dedup and mesh is None
+    # the dedup plan indexes whole rows of the batch: one process, no seq
+    # axis; stacked per data shard on a local data mesh (JAX
+    # train/trainer.py:1070-1081)
+    n_dp = data_size(mesh)
+    dedup_on = cfg.train.tower_dedup and world == 1 and seq_size(mesh) == 1
     if cfg.train.tower_dedup and not dedup_on and verbose:
         print("WARNING: train.tower_dedup needs a single-process mesh "
               "without seq/pipe sharding (model>1 only with sparse "
               "item_emb) — disabled for this run")
     sparse = bool(cfg.train.sparse_tables)
+    ss = cfg.train.loss_type == "sampled_softmax"
+    step_flops = analytic_step_flops(cfg, model, tower_dedup=dedup_on,
+                                     n_data_shards=n_dp)
+    step_peak = device_peak_flops(device, cfg.model.dtype)
     # a touched row read by the gather and written back, in the table dtype
     row_bytes = cfg.model.hidden_units * \
         (2 if cfg.model.table_dtype == "bfloat16" else 4)
@@ -924,7 +1130,11 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
             tb.scalar("Performance/steps_per_second",
                       rec["steps_per_second"], gs)
             tb.scalar("Performance/examples_per_second_per_chip",
-                      rec["steps_per_second"] * cfg.train.batch_size, gs)
+                      rec["steps_per_second"] * cfg.train.batch_size
+                      / world, gs)
+            if step_peak is not None and rec["step_time"] > 0:
+                tb.scalar("Performance/mfu", step_flops / rec["step_time"]
+                          / (step_peak * world), gs)
             if "touched_rows" in m and rec["step_time"] > 0:
                 # the step's own count of dedup'd rows across sparse tables
                 gb = m["touched_rows"] * row_bytes * 2 / 1e9
@@ -947,16 +1157,22 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
         pending.clear()
 
     def epoch_batches(epoch):
-        if not (dedup_on or sparse):
+        if not (dedup_on or sparse or ss):
             return train_loader.epoch(epoch)
 
         def prep(b, i):
             key = (cfg.train.seed, 97, epoch, i)
+            if ss and "sampled_neg_ids" not in b:
+                # the shared negatives from the batch's key on the host, as
+                # the dedup and sparse preps draw them: the same rows on
+                # every process, with or without those preps
+                b = dict(b, sampled_neg_ids=_sample_negatives(
+                    cfg, model.itemnum, key))
             if dedup_on:
                 # first: the sparse prep keys its item_emb plan on the
                 # dedup'd id column
                 b = augment_batch_dedup(b, cfg, item_tables, model.itemnum,
-                                        step_key=key)
+                                        step_key=key, n_data_shards=n_dp)
             if sparse:
                 b = augment_batch_sparse(b, cfg, model.itemnum, key,
                                          usernum=model.usernum)
@@ -1078,7 +1294,8 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
                     save_handle.result()   # one save in flight at a time
                     save_handle = None
                 save = save_checkpoint if proc else save_checkpoint_async
-                out = save(ckpt_dir, state, timer.global_step, valid_loss,
+                saved = state if mesh is None else PT.unpad_state(state)
+                out = save(ckpt_dir, saved, timer.global_step, valid_loss,
                            extra_meta={"epoch": epoch},
                            model_config=model.cfg)
                 save_handle = None if proc else out

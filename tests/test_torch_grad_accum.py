@@ -11,7 +11,8 @@ counts give the whole batch's step, on the CPU in f32 with dropout off.
   (hstu_flagship cut to D=16, 2 blocks, L=32, batch 4), through the dense
   route and the fused route's plain versions at B/G rows, at
   tests/test_torch_train.py's tolerances.
-- The guards: sparse tables, tower dedup, a seq mesh."""
+- The guards: sparse tables, tower dedup, microbatches that a data mesh
+  cannot split."""
 
 import dataclasses
 
@@ -214,8 +215,9 @@ def test_accum_matches_jax(jax_world, route, monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_accum_guards(small):
-    """As the JAX step's: sparse tables and tower dedup are refused; on a
-    seq mesh G > 1 waits for ROADMAP Queue 1 item 5."""
+    """As the JAX step's: sparse tables and tower dedup are refused, and on
+    a data mesh each microbatch's rows must divide the data axis; G > 1
+    takes seq and data meshes."""
     with pytest.raises(ValueError, match="tower_dedup"):
         TTR.check_supported(_cfg(small, grad_accum_steps=2,
                                  tower_dedup=True))
@@ -224,6 +226,10 @@ def test_accum_guards(small):
                                  sparse_tables=("item_emb",)))
     cfg = _cfg(small, grad_accum_steps=2)
     TTR.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TTR.check_supported(cfg, local_mesh(MeshConfig(seq=2)))
+    TTR.check_supported(cfg, local_mesh(MeshConfig(seq=2)))
+    TTR.check_supported(cfg, local_mesh(MeshConfig(data=4)))
+    # batch 8 at G=2: microbatches of 4 rows, which 8 data shards cannot
+    # split
+    with pytest.raises(ValueError, match="must divide the data axis"):
+        TTR.check_supported(cfg, local_mesh(MeshConfig(data=8)))
     TTR.check_supported(_cfg(small), local_mesh(MeshConfig(seq=2)))

@@ -111,42 +111,79 @@ class _ProcessMesh:
 
 
 _REFUSED = {
-    "data-only mesh": ("hstu_flagship", dict(data=2)),
     "pipe > 1": ("hstu_flagship", dict(pipe=2, seq=2)),
     "model > 1": ("hstu_flagship", dict(model=2, seq=2)),
     "sparse tables": ("sharded_multihost", dict(seq=2)),
-    "sampled softmax": ("sampled_softmax_dp", dict(seq=2)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_REFUSED))
 def test_process_mesh_refuses_what_it_does_not_cover(case):
-    """Under several processes a mesh without a seq axis, pipe or model >
-    1, sparse tables and the sampled softmax raise, naming ROADMAP Queue 1
-    item 5, rather than training each process on its own."""
+    """Under several processes pipe or model > 1 and sparse tables raise,
+    naming ROADMAP Queue 1 item 5, rather than training each process on
+    its own."""
     preset, shape = _REFUSED[case]
     with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
         TTR.check_supported(PRESETS[preset](), mesh=_ProcessMesh(**shape))
 
 
-def test_process_mesh_covers_seq_with_data():
-    TTR.check_supported(PRESETS["hstu_flagship"](),
-                        mesh=_ProcessMesh(data=2, seq=2))
+_COVERED = {
+    "seq with data": ("hstu_flagship", dict(data=2, seq=2), {}),
+    "data-only mesh": ("hstu_flagship", dict(data=2), {}),
+    "sampled softmax on data": ("sampled_softmax_dp", dict(data=8), {}),
+    "sampled softmax on data x seq": ("sampled_softmax_dp",
+                                      dict(data=2, seq=2), {}),
+    "G=2 on a data mesh": ("hstu_flagship", dict(data=8),
+                           dict(grad_accum_steps=2, tower_dedup=False)),
+    "G=2 on a seq mesh": ("hstu_flagship", dict(seq=2),
+                          dict(grad_accum_steps=2, tower_dedup=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_COVERED))
+def test_process_mesh_covers_seq_with_data(case):
+    """What a process mesh trains: data and seq axes alone or together,
+    the sampled softmax on them, G > 1 on either."""
+    import dataclasses
+
+    preset, shape, train = _COVERED[case]
+    cfg = PRESETS[preset]()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train))
+    TTR.check_supported(cfg, mesh=_ProcessMesh(**shape))
 
 
 def test_cli_under_several_processes_refuses_a_data_only_mesh(
-        synth_dir, tmp_path, monkeypatch):
-    """cli.train with WORLD_SIZE > 1 forms the process mesh before the
-    model (mocked here: no process group) and raises for a data-only
-    preset."""
+        synth_dir, tmp_path, monkeypatch, capsys):
+    """Once refused, a data-only preset now forms its mesh and trains:
+    cli.train with WORLD_SIZE > 1 builds the mesh from the preset's
+    (data=8) before the model and trains on it, without the single-device
+    warning. The process group is mocked here: the mesh built is a local
+    one of 2 data shards (one process, the stacked tower-dedup plan); the
+    real processes run in tests/test_torch_dp_dist.py."""
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
     from tencent_recommendation_2025_tpu_torch.parallel import mesh as PM
+
+    built = []
+
+    def build(cfg):
+        built.append(cfg)
+        return PM.local_mesh(MeshConfig(data=2))
 
     monkeypatch.setenv("WORLD_SIZE", "8")
     monkeypatch.setattr(PM, "initialize_distributed", lambda device: True)
-    monkeypatch.setattr(PM, "build_mesh",
-                        lambda cfg: _ProcessMesh(data=cfg.data))
+    monkeypatch.setattr(PM, "build_mesh", build)
     monkeypatch.setenv("TRAIN_DATA_PATH", str(synth_dir))
+    monkeypatch.setenv("TRAIN_LOG_PATH", str(tmp_path / "logs"))
     monkeypatch.setenv("TRAIN_CKPT_PATH", str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        TTRAIN.main(["--preset", "sampled_softmax_dp", *SMALL])
-    assert not (tmp_path / "ckpt").exists()
+    state = TTRAIN.main(["--preset", "sampled_softmax_dp", "--batch_size",
+                         "8", "--num_epochs", "1", *SMALL])
+    out = capsys.readouterr().out
+    assert [c.data for c in built] == [8]
+    assert "mesh: {'pipe': 1, 'data': 2, 'model': 1, 'seq': 1}" in out
+    assert "training single-device" not in out
+    assert "tower_dedup needs" not in out      # stacked on the data shards
+    lines = [json.loads(ln) for ln in open(tmp_path / "logs" / "train.log")]
+    assert state.step == len(lines) > 0
+    assert all(np.isfinite(ln["loss"]) for ln in lines)
+    assert TCK.latest_checkpoint(tmp_path / "ckpt").name.startswith(
+        f"global_step{state.step}.")
