@@ -144,14 +144,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                ``softmax_dp_mesh``, ``sampled_softmax_dp --maxlen 255``
                (B=64, 4 heads of 16, 64 in-batch negatives) on 8 of 8 from
                the preset's seed, each with the stacked tower-dedup plan
-               ([S, cap] ids held): 6 steps after 2 on the mesh and on the
-               single device (launches held), a profile of each (the fused
-               route's wgmma kernels; the fused kernels' device ms at B/S
-               rows a launch beside B's); the mesh's step against the
-               single device's on the card (loss within 1e-4 relative,
+               ([S, cap] ids held), the learned tables row-sharded over the
+               shards and the item-id lookups through the all-to-all: 6
+               steps after 2 on the mesh and on the single device
+               (launches held; the mesh's ep_overflow of each step
+               printed), a profile of each (the fused route's wgmma
+               kernels; the fused kernels' device ms at B/S rows a launch
+               beside B's); the mesh's step against the single device's on
+               the card where no id overflowed (loss within 1e-4 relative,
                every gradient at cosine >= 0.999, dropout 0) and, on 2 rows
                a shard, against the CPU's plain bf16 version of the same
-               mesh step (loss 1e-3, cosine 0.999); flagship_dp also at
+               mesh step (the same ep_overflow, loss 1e-3, cosine 0.999);
+               flagship_dp also at
                2 microbatches against 1 on the mesh (tower dedup off;
                loss 1e-3, cosine 0.999); ``train_loop`` on the mesh for 2
                steps, its Performance/mfu scalar in (0, 1);
@@ -236,6 +240,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                step ms, examples/s, lookup GB/s, peak memory, and the group
                scatter's device time in a profiled step, which must name
                the fused block's wgmma kernels as the fused runs' do;
+5e. sharded — inside phase 9, on its table: the same step on a local mesh
+               of 4 data shards (16 rows a fused launch), the item table's
+               4 row blocks the shards, from the state of phase 9's checked
+               step (its touched groups and accumulators restored) with
+               dropout off, against the single device's step from that
+               state (loss within 1e-4 relative, touched rows at cosine >=
+               0.999); each shard's touched groups and accumulators bitwise
+               equal to a plain row write of compute_row_update's rows
+               through its host plan; the 100,000 untouched rows unchanged;
+               the group scatter once per shard and chunk, the fused
+               kernels once per block and shard; host_shard_plan's ms, the
+               step's ms, a profiled step (the scatter's device ms a shard
+               launch beside the single device's, the fused kernels' at 16
+               rows, the idle share) and the peak memory above the table;
 10. report  — the script's seconds, the card line, one JSON line listing
                every kernel, then the last line ``{"ok": true, "device":
                {...}}``.
@@ -476,6 +494,13 @@ def reset_launches():
 
 def read_launches():
     return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def set_launches(counts):
+    """Every counter back to ``counts`` (a run read apart, in the middle of
+    another, leaves the outer run's counts as they were)."""
+    for k, fn in launch_counters().items():
+        fn.launches = counts[k]
 
 
 def expected_launches(kernels, blocks, steps, n_eval):
@@ -2509,27 +2534,36 @@ def _train_batches(data, n, run, rows=None):
 
 
 def _loss_and_grads(model, cfg, params, batch, tables, device, route=None,
-                    mesh=None):
+                    mesh=None, metrics=None):
     """Loss and per-leaf gradients of one training forward (dropout off),
-    the encoder on ``mesh`` where one is given."""
+    on ``mesh`` where one is given (its row-sharded tables' gradients at
+    the tables' rows: the shard-pad rows take none); ``metrics``, a dict,
+    receives the forward's (``ep_overflow`` where the all-to-all ran)."""
     import torch
 
     from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
 
     state = TR.init_state(model, cfg, params=params, device=device)
+    if mesh is not None:
+        state = PT.shard_existing_state(mesh, state)
     tabs = TR.device_tables(tables, device)
     saved = ENC.block_route
     if route is not None:
         ENC.block_route = lambda *a: route
     try:
-        loss, _ = TR.compute_loss(model, state.params,
-                                  TR.put_batch(batch, device), tabs["mm"],
-                                  tabs, cfg, train=True, mesh=mesh)
+        loss, got = TR.compute_loss(model, state.params,
+                                    TR.put_batch(batch, device), tabs["mm"],
+                                    tabs, cfg, train=True, mesh=mesh)
         loss.backward()
     finally:
         ENC.block_route = saved
-    return loss.item(), {p: t.grad.float().cpu()
+    if metrics is not None:
+        metrics.update({k: float(v) for k, v in got.items()})
+    rows = CK.table_rows(model, packed=False) if mesh is not None else {}
+    return loss.item(), {p: t.grad.float().cpu()[:rows.get(p)]
                          for p, t in TR.param_leaves(state.params)}
 
 
@@ -3504,23 +3538,27 @@ def _fused_ms(by_name):
 
 def phase_dp_case(run, name, S):
     """``run``'s preset on a local mesh of S data shards on the card (B/S
-    rows a launch, the stacked tower-dedup plan), from its checkpoint or
-    (without one) the preset's seed:
+    rows a launch, the stacked tower-dedup plan, the learned tables
+    row-sharded and the item-id lookups through the all-to-all), from its
+    checkpoint or (without one) the preset's seed:
 
     - speed: DP_STEPS synchronised steps after 2 on the mesh and on the
       single device from the same state and batches (bf16, the preset's
       dropout), launches held, and one profiled step of each, which must
       run the fused route's wgmma kernels: the fused forward and backward
-      device ms at B/S rows beside B's;
+      device ms at B/S rows beside B's; the mesh's ``ep_overflow`` of each
+      step printed;
     - card against card (bf16, dropout 0; from the checkpoint, or the
       mesh's trained state): the mesh's step against the single device's
       on the first batch, loss within 1e-4 relative, every gradient at
-      cosine >= 0.999;
+      cosine >= 0.999 (the tables' at their rows), where no id overflowed
+      its bucket (an overflowed id is a zero row on the mesh alone: the
+      next check holds the step then);
     - card against the CPU: the mesh's step on its first 2 S rows against
       the CPU's plain bf16 version of the same step (the fused route's
-      plain versions, the same mesh; both draw the in-batch candidates on
-      the CPU), loss within 1e-3 relative, every gradient at cosine >=
-      0.999;
+      plain versions, the same mesh, which overflows the same ids; both
+      draw the in-batch candidates on the CPU), the same ``ep_overflow``,
+      loss within 1e-3 relative, every gradient at cosine >= 0.999;
     - under BCE, DP_ACCUM_G microbatches on the mesh against one (tower
       dedup off, dropout 0): loss within 1e-3 relative, every gradient at
       cosine >= 0.999, launches held;
@@ -3539,6 +3577,7 @@ def phase_dp_case(run, name, S):
         TencentGRData
     from tencent_recommendation_2025_tpu_torch.models.baseline import \
         SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
     from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
         local_mesh
     from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
@@ -3585,20 +3624,27 @@ def phase_dp_case(run, name, S):
             fused[k] += v
 
     # speed: the mesh, then the single device, from the same state
-    res = {}
+    res, overflow = {}, []
     for side, m_, n in (("mesh", mesh, S), ("single", None, 1)):
         batches = [TR.put_batch(b, "cuda") for b in prepped[n]]
         state = TR.init_state(model, c16, params=params, device="cuda")
+        if m_ is not None:
+            state = PT.shard_existing_state(m_, state)
         step = TR.make_train_step(model, c16, m_)
         reset_launches()
+        ovf = []
         for b in batches:
             state, m = step(state, b, tabs["mm"], tabs)
+            ovf.append(m.get("ep_overflow"))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for i in range(DP_STEPS):
             state, m = step(state, batches[i % 2], tabs["mm"], tabs)
+            ovf.append(m.get("ep_overflow"))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) / DP_STEPS * 1e3
+        if m_ is not None:
+            overflow = [int(v) for v in ovf]
         got = read_launches()
         want = dict.fromkeys(got, 0)
         want.update(fused_train=nb * n * (DP_STEPS + 2),
@@ -3623,7 +3669,7 @@ def phase_dp_case(run, name, S):
         res[side] = dict(ms=ms, fwd=fwd, bwd=bwd, split=split,
                          busy=sum(by_name.values()), wall=wall)
         if side == "mesh":
-            trained = state.params
+            trained = PT.unpad_state(state, model, mesh).params
         del state
     if ckpt is None:
         params = trained              # the checks start from a trained state
@@ -3633,6 +3679,9 @@ def phase_dp_case(run, name, S):
         f"{mesh_r['ms']:.3f} ms ({B / mesh_r['ms'] * 1e3:.1f} examples/s), "
         f"single device {one_r['ms']:.3f} ms ({B / one_r['ms'] * 1e3:.1f} "
         f"examples/s) (host clock, synchronised, {DP_STEPS} steps after 2)")
+    log(f"{name}: ep_overflow of the mesh's {len(overflow)} steps (item ids "
+        f"past their all-to-all bucket, zero rows and no gradient): "
+        f"{', '.join(map(str, overflow))}")
     for side, r in res.items():
         rows = B // S if side == "mesh" else B
         n = S if side == "mesh" else 1
@@ -3652,36 +3701,50 @@ def phase_dp_case(run, name, S):
         return min((_grad_cos(g[p], ref[p]), p) for p in ref)
 
     reset_launches()
+    got = {}
     l_mesh, g_mesh = _loss_and_grads(m0, c0, params, prepped[S][0], tables,
-                                     "cuda", mesh=mesh)
+                                     "cuda", mesh=mesh, metrics=got)
     l_one, g_one = _loss_and_grads(m0, c0, params, prepped[1][0], tables,
                                    "cuda")
     rel = abs(l_mesh - l_one) / abs(l_one)
     worst = worst_of(g_mesh, g_one)
+    ovf = int(got.get("ep_overflow", 0))
     ok_cc = rel <= 1e-4 and worst[0] >= 0.999 and np.isfinite(l_mesh)
+    # overflowed ids return zero rows on the mesh alone: the single device
+    # is then another function, and the CPU's mesh step below the check
+    held = "ok" if ok_cc else "FAIL"
+    if ovf > 0:
+        ok_cc = bool(np.isfinite(l_mesh))
+        held = (f"not applicable: {ovf} ids overflowed (the CPU's mesh step "
+                "below holds it)")
     log(f"{name}: card mesh step against the card's single-device step "
-        f"(B={B}, bf16, dropout 0): loss {l_mesh:.6f} / {l_one:.6f} "
-        f"(relative {rel:.2e}, limit 1e-4); lowest gradient cosine "
-        f"{worst[0]:.6f} ({worst[1]}, limit 0.999) "
-        f"{'ok' if ok_cc else 'FAIL'}")
+        f"(B={B}, bf16, dropout 0, ep_overflow {ovf}): loss {l_mesh:.6f} / "
+        f"{l_one:.6f} (relative {rel:.2e}, limit 1e-4); lowest gradient "
+        f"cosine {worst[0]:.6f} ({worst[1]}, limit 0.999) {held}")
     rows = 2 * S
     cut = _dp_prep(cfg, {k: v[:rows] for k, v in raw[0].items()}, tables,
                    data.itemnum, 0, S)
     t1 = time.perf_counter()
+    got_card, got_cpu = {}, {}
     with _cpu_inbatch_draw():
         l_card, g_card = _loss_and_grads(m0, c0, params, cut, tables, "cuda",
-                                         mesh=mesh)
+                                         mesh=mesh, metrics=got_card)
         count(read_launches())
         l_cpu, g_cpu = _loss_and_grads(m0, c0, params, cut, tables, "cpu",
-                                       route="fused", mesh=mesh)
+                                       route="fused", mesh=mesh,
+                                       metrics=got_cpu)
     rel = abs(l_card - l_cpu) / abs(l_cpu)
     worst = worst_of(g_card, g_cpu)
-    ok_cpu = rel <= 1e-3 and worst[0] >= 0.999 and np.isfinite(l_card)
+    ovf_card = int(got_card.get("ep_overflow", -1))
+    ovf_cpu = int(got_cpu.get("ep_overflow", -1))
+    ok_cpu = rel <= 1e-3 and worst[0] >= 0.999 and np.isfinite(l_card) \
+        and ovf_card == ovf_cpu
     log(f"{name}: card mesh step against the CPU's plain bf16 version of it "
         f"({rows} rows, {S} shards of 2; CPU {time.perf_counter() - t1:.1f}"
-        f" s): loss {l_card:.6f} / {l_cpu:.6f} (relative {rel:.2e}, limit "
-        f"1e-3); lowest gradient cosine {worst[0]:.6f} ({worst[1]}, limit "
-        f"0.999) {'ok' if ok_cpu else 'FAIL'}")
+        f" s; ep_overflow {ovf_card} / {ovf_cpu}): loss {l_card:.6f} / "
+        f"{l_cpu:.6f} (relative {rel:.2e}, limit 1e-3); lowest gradient "
+        f"cosine {worst[0]:.6f} ({worst[1]}, limit 0.999) "
+        f"{'ok' if ok_cpu else 'FAIL'}")
 
     ok_acc = True
     if cfg.train.loss_type == "bce":
@@ -3694,7 +3757,8 @@ def phase_dp_case(run, name, S):
         acc = {}
         reset_launches()
         for G, c in cg.items():
-            state = TR.init_state(m0, c, params=params, device="cuda")
+            state = PT.shard_existing_state(mesh, TR.init_state(
+                m0, c, params=params, device="cuda"))
             state, m = TR.make_train_step(m0, c, mesh)(state, b, tabs["mm"],
                                                        tabs)
             acc[G] = (float(m["loss"]), {p: t.grad.float().clone() for p, t
@@ -4337,6 +4401,10 @@ def phase_sparse_100m():
     grp = torch.from_numpy(batch["scatter_groups"][:n_grp]).long().cuda()
     uid_pos = torch.from_numpy(batch["scatter_uid_pos"][:n_real]).long().cuda()
     groups_before = gview[grp].clone()
+    acc_before = acc[real].clone()
+    # the starting state of phase 5e: the dense leaves as they are now
+    params0 = {k: _tree_clone(v) for k, v in state.params.items()
+               if k != "item_emb"}
     bd = TR.put_batch(batch, "cuda")
     step = TR.make_train_step(model, cfg)
     log(f"100m: itemnum {itemnum} ({Vp} rows, {tuple(table.shape)} "
@@ -4361,9 +4429,9 @@ def phase_sparse_100m():
     want_acc = want_opt["acc"][:n_real]
     # the plain row write of those rows into a copy of the touched groups:
     # new rows at the touched slots, the old ones everywhere else
-    want_groups = groups_before.view(-1, c["D"]).index_copy_(
+    want_groups = groups_before.clone().view(-1, c["D"]).index_copy_(
         0, uid_pos, want_rows[:n_real]).view(n_grp, -1)
-    del per, p, want_rows, groups_before
+    del per, p, want_rows
     reset_launches()
     state, m = step(state, bd, tabs["mm"], tabs)
     torch.cuda.synchronize()
@@ -4374,11 +4442,23 @@ def phase_sparse_100m():
     row_err = 0.0 if ok_rows else \
         (got_groups.float() - want_groups.float()).abs().max().item()
     ok_untouched = torch.equal(table[sample], sample_before)
-    del want_groups, got_groups, want_acc, sample_before
-    # the peak of training, not of the check's copies
-    torch.cuda.reset_peak_memory_stats()
+    del want_groups, got_groups, want_acc
     touched = int(m["touched_rows"])
     loss = float(m["loss"])
+    # phase 5e from the same state: the touched groups and accumulators
+    # restored, the dense leaves of before the step; its launches read
+    # apart from this phase's
+    with torch.no_grad():
+        gview[grp] = groups_before
+        acc[real] = acc_before
+    outer = read_launches()
+    ok_sharded, sharded_launches, sharded_scatter = phase_sharded(
+        model, cfg, raw, tabs, table, acc, params0, real, grp,
+        groups_before, acc_before, sample, sample_before)
+    set_launches(outer)
+    del params0, groups_before, acc_before, sample_before
+    # the peak of training, not of the check's copies
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         state, m = step(state, bd, tabs["mm"], tabs)
     torch.cuda.synchronize()
@@ -4438,10 +4518,234 @@ def phase_sparse_100m():
         f"{fwd:.3f} ms, backward {bwd:.3f} ms; other kernels (ms): {others}")
     ok_route = attn_bwd_route("100m", by_name)
     ok_route &= wgmma_route("100m", by_name)
+    log(f"sharded_100m: group scatter {sharded_scatter:.4f} device ms a "
+        f"shard launch, beside the single device's {scatter_ms / chunks:.4f}"
+        f" ms a launch ({scatter_ms:.3f} ms in {chunks} launches a step)")
     del state, table, gview, acc, bd, tabs
     _free()
+    launches = {k: v + sharded_launches[k] for k, v in launches.items()}
     return (ok_rows and ok_acc and ok_untouched and ok_launch and finite
-            and ok_route, launches)
+            and ok_route and ok_sharded, launches)
+
+
+def _tree_clone(t):
+    """A copy of a parameter tree (tensors keep requires_grad)."""
+    if isinstance(t, dict):
+        return {k: _tree_clone(v) for k, v in t.items()}
+    return t.detach().clone().requires_grad_(t.requires_grad)
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the 100M step on a local mesh of row-sharded table shards
+# ---------------------------------------------------------------------------
+
+#: data shards of phase 5e: the table's 4 row blocks, B / 4 = 16 rows a
+#: fused launch
+SHARDED_100M = 4
+#: timed sharded steps (after 1)
+SHARDED_STEPS = 3
+
+
+def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
+                  groups_before, acc_before, sample, sample_before):
+    """Phase 5e: the 100M phase's step on a local mesh of SHARDED_100M data
+    shards, whose row-sharded item table is the 100M phase's own (its row
+    blocks are the shards: no second table is drawn), from the state of
+    that phase's checked step (``params0``: its dense leaves then; the
+    touched groups ``grp`` and the touched rows' accumulators as
+    ``groups_before`` and ``acc_before``, restored by the caller), with
+    dropout off (a data shard draws its own masks):
+
+    - the single device's step from that state, the touched groups and
+      accumulators restored after it; then the mesh's checked step: its
+      loss against the single device's (relative, limit 1e-4), the touched
+      rows against the single device's (largest difference, lowest cosine,
+      limit 0.999); each shard's touched groups,
+      whole, and accumulators bitwise equal to a plain row write of
+      ``compute_row_update``'s rows from the same step's row gradients
+      (through the shard's plan) into a copy of them; the 100M phase's
+      100,000 sampled untouched rows unchanged; launches: the fused kernels
+      once per block and data shard, the group scatter once per shard and
+      chunk, nothing else;
+    - the host plan's ms (``host_shard_plan``), the step's ms (host clock,
+      SHARDED_STEPS synchronised steps after 1) and one profiled step: the
+      group scatter's device ms a shard launch, the fused kernels' at 16
+      rows a launch, the idle share; the peak memory above the table.
+
+    Returns (ok, the launch counts of its steps, the group scatter's device
+    ms a shard launch)."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    t0 = time.perf_counter()
+    S, c = SHARDED_100M, SPARSE_100M
+    D, nb = c["D"], c["blocks"]
+    R = ST.scatter_group_rows(D)
+    Vp = table.shape[0]
+    rps = Vp // S
+    mesh = local_mesh(MeshConfig(data=S))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rate=0.0))
+    model = dataclasses.replace(model, cfg=cfg.model)
+
+    def fresh():
+        params = dict({k: _tree_clone(v) for k, v in params0.items()},
+                      item_emb=table)
+        return TR.TrainState(params, TR.make_optimizer(cfg, params), 0,
+                             {"item_emb": {"acc": acc}})
+
+    # the single device's step from the state, then the state restored
+    one = TR.put_batch(TR.augment_batch_sparse(raw, cfg, model.itemnum,
+                                               (0, 1)), table.device)
+    _, m = TR.make_train_step(model, cfg)(fresh(), one, tabs["mm"], tabs)
+    single_loss = float(m["loss"])
+    single_rows = table[real].clone()
+    gview = ST.group_view(table, R)
+    with torch.no_grad():
+        gview[grp] = groups_before
+        acc[real] = acc_before
+    del one, m
+    t1 = time.perf_counter()
+    batch = TR.augment_batch_sparse(raw, cfg, model.itemnum, (0, 1),
+                                    n_table_shards=S)
+    prep_s = time.perf_counter() - t1
+    Kp = batch["tshard_lids"].shape[1]
+    t1 = time.perf_counter()
+    ST.host_shard_plan(batch["touched_uids"], Vp, R, S, Kp)
+    plan_ms = (time.perf_counter() - t1) * 1e3
+    state = PT.shard_existing_state(mesh, fresh())
+    ok_same = state.params["item_emb"].data_ptr() == table.data_ptr()
+    dev = table.device
+    bd = TR.put_batch(batch, dev)
+
+    # the reference: the same step's row gradients through each shard's
+    # plan and compute_row_update, written plainly into a copy of the
+    # shard's touched groups
+    _, _, per = TR.sparse_loss_backward(
+        model, cfg, state, dict(bd), tabs["mm"], tabs,
+        TR.step_generator(cfg.train.seed, 0, dev), mesh=mesh,
+        gens=TR.shard_gens(mesh, cfg.train.seed, 0, dev))
+    p = per["item_emb"]
+    plan = p["shard_plan"]
+    blocks, accs = table.chunk(S), acc.chunk(S)
+    want = []
+    with torch.no_grad():
+        zero = torch.zeros((1, D), dtype=torch.float32, device=dev)
+        vals = torch.cat([p["rows"].grad.float(), zero])
+        rows0 = torch.cat([p["rows"].detach().float(), zero])
+        for s in range(S):
+            lids, gpos = plan["lids"][s], plan["gpos"][s].long()
+            n = int((lids < rps).sum())
+            new_rows, opt_rows = ST.compute_row_update(
+                blocks[s], {"acc": accs[s]}, lids, vals[gpos],
+                kind="rowwise_adagrad", lr=TR.lr_at_step(cfg.train, 1),
+                step=1, weight_decay=cfg.train.weight_decay,
+                rows0=rows0[gpos])
+            gv = ST.group_view(blocks[s], R)
+            groups = plan["groups"][s]
+            g = groups[:int((groups < gv.shape[0]).sum())].long()
+            lid = lids[:n].long()
+            pos = torch.searchsorted(g, lid // R) * R + lid % R
+            want.append((g, gv[g].clone().view(-1, D).index_copy_(
+                0, pos, new_rows[:n].to(table.dtype)).view(len(g), -1),
+                lid, opt_rows["acc"][:n]))
+    del per, p, vals, rows0
+    step = TR.make_train_step(model, cfg, mesh)
+    reset_launches()
+    state, m = step(state, bd, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    got = read_launches()
+    loss = float(m["loss"])
+    ok_groups = all(torch.equal(ST.group_view(blocks[s], R)[g], wg)
+                    and torch.equal(accs[s][lid], wa)
+                    for s, (g, wg, lid, wa) in enumerate(want))
+    n_grp = [len(g) for g, _, _, _ in want]
+    del want
+    ok_untouched = torch.equal(table[sample], sample_before)
+    rows = table[real].float()
+    ref = single_rows.float()
+    row_err = (rows - ref).abs().max().item()
+    live = ref.norm(dim=1) > 0       # the padding row 0 stays zero
+    cos = torch.nn.functional.cosine_similarity(
+        rows[live], ref[live], dim=1).min().item()
+    rel = abs(loss - single_loss) / abs(single_loss)
+    ok_num = rel <= 1e-4 and cos >= 0.999 and bool(np.isfinite(loss))
+    chunks = -(-Kp // ST._SCATTER_CHUNK_GROUPS)
+    want_l = dict.fromkeys(got, 0)
+    want_l.update(fused_train=nb * S, fused_bwd=nb * S,
+                  group_scatter=S * chunks)
+    ok_launch = got == want_l
+    log(f"sharded_100m: {S} data shards of {c['B'] // S} rows, the item "
+        f"table's {S} row blocks of {rps} rows ({rps * D * 2 / 1e9:.2f} GB "
+        f"each; the 100m phase's table itself: {ok_same}); host prep "
+        f"{prep_s:.2f} s, of which host_shard_plan {plan_ms:.1f} ms ({Kp} "
+        f"rows a shard; touched groups a shard "
+        f"{', '.join(map(str, n_grp))})")
+    log(f"sharded_100m: checked step: loss {loss:.6f} against the single "
+        f"device's {single_loss:.6f} (relative {rel:.2e}, limit 1e-4); "
+        f"{len(real)} touched rows against the single device's: largest "
+        f"difference {row_err:.3g}, lowest cosine {cos:.6f} (limit 0.999) "
+        f"{'ok' if ok_num else 'FAIL'}")
+    log(f"sharded_100m: each shard's touched groups and accumulators equal "
+        f"to a plain row write of compute_row_update's rows through its "
+        f"plan: {ok_groups}; 100,000 untouched rows unchanged {ok_untouched}"
+        f" {'ok' if ok_groups and ok_untouched and ok_same else 'FAIL'}")
+    log(f"sharded_100m: launches of the checked step: "
+        + ", ".join(f"{k} {got[k]} (expected {want_l[k]})" for k in got
+                    if got[k] or want_l[k])
+        + f" ({chunks} group-scatter chunks a shard; the single device "
+        f"launches {-(-len(batch['touched_uids']) // ST._SCATTER_CHUNK_GROUPS)}"
+        f" a step) {'ok' if ok_launch else 'FAIL'}")
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, bd, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(SHARDED_STEPS):
+        state, m = step(state, bd, tabs["mm"], tabs)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t1) / SHARDED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    traced = 0
+
+    def one_step():
+        nonlocal state, m, traced
+        state, m = step(state, bd, tabs["mm"], tabs)
+        traced += 1
+
+    prof, wall = route_trace("sharded_100m", one_step, ("attn_bwd", "fused"))
+    by_name = _device_ms(prof)
+    busy = sum(by_name.values())
+    scatter_ms, _ = _kernel_split(by_name, ("group_scatter_kernel",))
+    fwd, bwd, _ = _fused_ms(by_name)
+    steps = 1 + 1 + SHARDED_STEPS + traced
+    launches = read_launches()
+    ok_launch &= launches["group_scatter"] == S * chunks * steps
+    ok_route = attn_bwd_route("sharded_100m", by_name)
+    ok_route &= wgmma_route("sharded_100m", by_name)
+    finite = bool(np.isfinite(float(m["loss"])))
+    per_launch = scatter_ms / (S * chunks)
+    log(f"sharded_100m: train step {dt * 1e3:.3f} ms ({c['B'] / dt:.1f} "
+        f"examples/s; host clock, synchronised, {SHARDED_STEPS} steps after "
+        f"1); profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle {max(0.0, 1 - busy / wall):.1%}), group scatter "
+        f"{scatter_ms:.3f} ms in {S * chunks} launches ({per_launch:.4f} ms "
+        f"a shard launch), fused forward {fwd:.3f} ms, backward {bwd:.3f} ms"
+        f" for {nb * S} launches each at {c['B'] // S} rows "
+        f"({fwd / (nb * S):.4f} / {bwd / (nb * S):.4f} ms a launch); peak "
+        f"memory {(peak - table.numel() * 2) / 2 ** 30:.2f} GiB above the "
+        f"table's {table.numel() * 2 / 2 ** 30:.2f} GiB; losses finite "
+        f"{finite}")
+    del state, bd, blocks, accs
+    _free()
+    log(f"sharded_100m phase: {time.perf_counter() - t0:.1f} s")
+    return (ok_num and ok_groups and ok_untouched and ok_same and ok_launch
+            and ok_route and finite, launches, per_launch)
 
 
 # ---------------------------------------------------------------------------

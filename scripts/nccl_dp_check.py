@@ -12,12 +12,17 @@ fixture), then for each case below takes one ``make_train_step`` step from
 the same seeded state on the first global batch: in this process on one
 device (no mesh), and in N worker processes on a process mesh
 (``parallel.mesh.build_mesh``; each worker this file run again with the
-torchrun variables set). Per case it holds the process mesh's loss and
-gradient (rank 0's, all-reduced) to the single device's, every rank's
-parameters after the step bitwise equal to rank 0's, and (sampled softmax)
-every rank's candidates equal to the single device's; then it times 6
-synchronised steps after 2 on both sides (host clock; per card on the
-mesh).
+torchrun variables set). The learned tables row-shard over the data
+processes. Per case it holds the process mesh's loss and gradient (rank
+0's: the replicated leaves all-reduced, its rows of the tables) to the
+single device's, every rank's replicated parameters after the step bitwise
+equal to rank 0's and its rows of the tables (V / data of them) at
+cosine >= 0.999 to the single device's rows, and (sampled softmax) every rank's candidates equal
+to the single device's; the data-only cases print ``ep_overflow`` (the
+item ids past their all-to-all bucket: where it is above 0 the mesh's
+function differs from the single device's and the case says so); then it
+times 6 synchronised steps after 2 on both sides (host clock; per card on
+the mesh).
 
 - ``bce_dp``: hstu_flagship ``--maxlen 1023`` (L=1024, B=128, BCE), data N;
   bf16: loss within 1e-4 relative, every gradient at cosine >= 0.999.
@@ -26,11 +31,18 @@ mesh).
 - ``bce_dp_seq2``: the flagship on data N/2 x seq 2 (the fused ring across
   cards); f32 (the ring rounds elsewhere than the single device in bf16):
   loss within 1e-5 relative, cosine >= 0.999.
+- ``sparse_100m``: ``chip_smoke.py``'s 100M-row sparse step (itemnum 1e8,
+  B=64, L=1024, D=64, 8 blocks, H=1, bf16 table, rowwise Adagrad, BCE) on
+  data N, each card holding Vp / N rows of the table (3.2 GB at N = 4):
+  loss within 1e-4 relative; each rank's touched rows against the single
+  device's at cosine >= 0.999 (the rows' bf16 gradient sums in another
+  order), 100,000 sampled untouched rows of its block bitwise equal to
+  the single device's; its group scatter launched once per chunk.
 
 Dropout 0, tower dedup off (several processes gate it off). Prints the
 card line, one line per check ending in ``ok`` or ``FAIL`` (also on
 stderr), and a last line ``NCCL_DP {json}``; exits non-zero if a check
-failed.
+failed. ``--cases`` runs some of them.
 """
 
 from __future__ import annotations
@@ -54,8 +66,13 @@ FIXTURE = dict(num_users=1024, num_items=5000, min_seq=256, max_seq=1000,
 CASES = {"bce_dp": ("hstu_flagship", 1023, 128, "bce", 1, "bfloat16"),
          "softmax_dp": ("sampled_softmax_dp", 255, 64, "sampled_softmax", 1,
                         "bfloat16"),
-         "bce_dp_seq2": ("hstu_flagship", 1023, 128, "bce", 2, "float32")}
+         "bce_dp_seq2": ("hstu_flagship", 1023, 128, "bce", 2, "float32"),
+         "sparse_100m": (None, 1023, 64, "bce", 1, "bfloat16")}
 SMALL = dict(maxlen=63, batch=8, hidden_units=16, num_blocks=2)
+#: the sparse case's rehearsal on the CPU: 50,000 items at packed scale
+SMALL_ITEMS = 50_000
+#: untouched rows of a block held bitwise
+SAMPLE = 100_000
 STEPS = 6
 TIMEOUT = 600
 
@@ -114,14 +131,154 @@ def _world(case, small):
     return model, cfg, tables, b
 
 
+def _sparse_world(small):
+    """(model, config, feature tables as ``trainer.device_tables`` gives
+    them on the CPU, batch) of the sparse case: chip_smoke's
+    100M-row step, or its rehearsal at SMALL_ITEMS items (the packed-scale
+    threshold lowered to them) and SMALL widths."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as CS
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import (
+        MM_EMB_DIMS, Config, ModelConfig, TrainConfig)
+    from tencent_recommendation_2025_tpu_torch.data import schema as S
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import \
+        FusedVocab
+    from tencent_recommendation_2025_tpu_torch.data.schema import \
+        FeatureSchema
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+
+    c = dict(CS.SPARSE_100M)
+    if small:
+        ST.TABLE_PACK_MIN_ROWS = SMALL_ITEMS
+        c.update(itemnum=SMALL_ITEMS, B=SMALL["batch"],
+                 L=SMALL["maxlen"] + 1, blocks=SMALL["num_blocks"],
+                 feature_rows=1000)
+    cfg = Config(
+        model=ModelConfig(hidden_units=c["D"], num_blocks=c["blocks"],
+                          num_heads=c["heads"], maxlen=c["L"] - 1,
+                          block_type="hstu", ffn_type="swiglu",
+                          reference_init=False, dtype="bfloat16",
+                          table_dtype="bfloat16", dropout_rate=0.0),
+        train=TrainConfig(batch_size=c["B"], loss_type="bce", l2_emb=0.0,
+                          weight_decay=0.0, sparse_tables=("item_emb",),
+                          table_optimizer="rowwise_adagrad",
+                          table_moments_dtype="bfloat16"))
+    vocab = {fid: 50 for fid in (*S.USER_SPARSE_IDS, *S.ITEM_SPARSE_IDS,
+                                 *S.USER_ARRAY_IDS, *S.ITEM_ARRAY_IDS)}
+    schema = FeatureSchema(vocab=vocab, mm_emb_ids=("81",), array_cap=8)
+    model = SeqRecModel(cfg=cfg.model, schema=schema,
+                        fused=FusedVocab.build(schema), usernum=c["usernum"],
+                        itemnum=c["itemnum"])
+    rng = np.random.default_rng(0)
+    batch = CS.synthetic_batch(rng, c["B"], c["L"], schema, c["itemnum"],
+                               c["usernum"])
+    n = c["feature_rows"] + 1
+    sparse_t = rng.integers(0, 50, (n, len(S.ITEM_SPARSE_IDS)))
+    sparse_t[0] = 0
+    tables = {"sparse": torch.as_tensor(sparse_t.astype(np.int32)),
+              "array": torch.zeros((n, len(S.ITEM_ARRAY_IDS), 8),
+                                   dtype=torch.int32),
+              "mm": {"81": torch.as_tensor(rng.standard_normal(
+                  (n, MM_EMB_DIMS["81"])).astype(np.float32))}}
+    return model, cfg, tables, batch
+
+
+def _samples(uids, Vp, S):
+    """SAMPLE untouched ids of each of the S row blocks of a Vp-row table
+    (row 0 and the pad rows excluded), seeded by the block."""
+    out = []
+    rps = Vp // S
+    for s in range(S):
+        rng = np.random.default_rng(1 + s)
+        cand = rng.integers(max(s * rps, 1), (s + 1) * rps,
+                            SAMPLE + SAMPLE // 4)
+        out.append(np.unique(cand[~np.isin(cand, uids)])[:SAMPLE])
+    return out
+
+
+def _run_sparse(small, device, mesh, shards):
+    """The sparse case's step from the seeded state, then STEPS timed
+    after 2: (loss, the replicated leaves' gradients, their parameters, the
+    rows of the table this process holds {"lo", "uids", "rows", "sample",
+    "sampled"} after the first step, group-scatter launches of it, ms a
+    step). The untouched sample is :func:`_samples`' of ``shards`` blocks:
+    this process's block's, all of them without a mesh."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import (
+        table_index, table_shards)
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    model, cfg, tables, batch = _sparse_world(small)
+    S = table_shards(mesh)
+    b = TR.augment_batch_sparse(batch, cfg, model.itemnum, (0, 1),
+                                n_table_shards=S)
+    uids = b["touched_uids"]
+    state = PT.init_sharded_state(model, cfg, mesh, seed=5, device=device)
+    table = state.params["item_emb"]
+    rps = table.shape[0]
+    lo = table_index(mesh) * rps
+    real = uids[(uids >= lo) & (uids < lo + rps) & (uids > 0)]
+    samples = _samples(uids, rps * S, shards)
+    sample = np.concatenate(samples) if mesh is None \
+        else samples[table_index(mesh)]
+    tabs = {"sparse": tables["sparse"].to(device),
+            "array": tables["array"].to(device),
+            "mm": {k: v.to(device) for k, v in tables["mm"].items()}}
+    bd = TR.put_batch(b, device)
+    step = TR.make_train_step(model, cfg, mesh)
+    n0 = ST.group_scatter.launches
+    state, m = step(state, bd, tabs["mm"], tabs)
+    launches = ST.group_scatter.launches - n0
+    loss = float(m["loss"])
+    rows = {"lo": np.int64(lo), "block_rows": np.int64(rps),
+            "uids": real, "sample": sample,
+            "rows": table[torch.from_numpy(real - lo).long().to(
+                table.device)].float().cpu().numpy(),
+            "sampled": table[torch.from_numpy(sample - lo).long().to(
+                table.device)].view(torch.int16).cpu().numpy()}
+    dense = dict(TR.dense_leaves(state.params, cfg))
+    grads = {p: t.grad.float().cpu().numpy() for p, t in dense.items()
+             if p.split("/")[0] not in ("user_emb", "fused_feat")}
+    params = {p: t.detach().float().cpu().numpy() for p, t in dense.items()
+              if p.split("/")[0] not in ("user_emb", "fused_feat")}
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    for _ in range(2):
+        state, m = step(state, bd, tabs["mm"], tabs)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, m = step(state, bd, tabs["mm"], tabs)
+    sync()
+    ms = (time.perf_counter() - t0) / STEPS * 1e3
+    del state, table, bd
+    return loss, grads, params, rows, launches, ms
+
+
 def _run(case, small, device, mesh):
     """One step from the seeded state, then STEPS timed after 2: (loss,
     gradients by leaf, parameters after the first step, candidates the
-    sampled softmax took, ms a step)."""
+    sampled softmax took, the step's ep_overflow or -1, ms a step). On a
+    mesh a row-sharded table's gradient and parameter are this process's
+    rows, keyed ``<leaf>@<first row>``."""
     import torch
 
     from tencent_recommendation_2025_tpu_torch.ops import losses as LS
     from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        table_index
+    from tencent_recommendation_2025_tpu_torch.parallel.sharded_embedding \
+        import SHARDED_TABLES
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
 
     model, cfg, tables, batch = _world(case, small)
@@ -141,9 +298,16 @@ def _run(case, small, device, mesh):
     finally:
         LS.sampled_softmax_loss = loss_fn
     loss = float(m["loss"])
-    grads = {p: t.grad.float().cpu().numpy()
+    overflow = int(m.get("ep_overflow", -1))
+
+    def key(p, t):
+        if state.layout is None or p not in SHARDED_TABLES:
+            return p
+        return f"{p}@{table_index(mesh) * t.shape[0]}"
+
+    grads = {key(p, t): t.grad.float().cpu().numpy()
              for p, t in TR.param_leaves(state.params)}
-    params = {p: t.detach().float().cpu().numpy()
+    params = {key(p, t): t.detach().float().cpu().numpy()
               for p, t in TR.param_leaves(state.params)}
     cands = torch.cat(seen).numpy() if seen else np.zeros(0)
 
@@ -159,10 +323,10 @@ def _run(case, small, device, mesh):
         state, m = step(state, b, tabs["mm"], tabs)
     sync()
     ms = (time.perf_counter() - t0) / STEPS * 1e3
-    return loss, grads, params, cands, ms
+    return loss, grads, params, cands, overflow, ms
 
 
-def _worker(out_dir, device, small):
+def _worker(out_dir, device, small, cases):
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
@@ -172,21 +336,61 @@ def _worker(out_dir, device, small):
 
     initialize_distributed(device)
     res = {}
-    for case, (*_, seq, _) in CASES.items():
+    for case in cases:
+        seq = CASES[case][4]
         mesh = build_mesh(MeshConfig(seq=seq))
-        loss, grads, params, cands, ms = _run(case, small, device, mesh)
         res[f"{case}:shape"] = np.array([mesh.shape["data"],
                                          mesh.shape["seq"]])
+        if case == "sparse_100m":
+            loss, grads, params, rows, launches, ms = _run_sparse(
+                small, device, mesh, mesh.shape["data"])
+            res.update({f"{case}:rows:{k}": v for k, v in rows.items()})
+            res[f"{case}:launches"] = np.int64(launches)
+            cands, overflow = np.zeros(0), -1
+        else:
+            loss, grads, params, cands, overflow, ms = _run(case, small,
+                                                            device, mesh)
         res[f"{case}:loss"] = np.float64(loss)
         res[f"{case}:cands"] = cands
+        res[f"{case}:overflow"] = np.int64(overflow)
         res[f"{case}:ms"] = np.float64(ms)
         res.update({f"{case}:param:{p}": v for p, v in params.items()})
         if mesh.rank == 0:
             res.update({f"{case}:grad:{p}": v for p, v in grads.items()})
         dist.barrier()
+        _free(device)
     np.savez(Path(out_dir) / f"rank{dist.get_rank()}.npz", **res)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _free(device):
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+
+def _rows_of(single, key):
+    """The single device's leaf for a rank's key: ``<leaf>@<first row>``
+    is that rank's block of a row-sharded table (zeros past the table's
+    rows: the shard padding)."""
+    if "@" not in key:
+        return None, single[key]
+    leaf, lo = key.split("@")
+    return leaf, single[leaf][int(lo):]
+
+
+def _held(got, want):
+    """``want`` (the single device's rows from a block's first row) cut or
+    zero-extended to ``got``'s rows."""
+    n = min(len(got), len(want))
+    out = np.zeros_like(got)
+    out[:n] = want[:n]
+    return out
 
 
 def _cos(a, b):
@@ -203,7 +407,10 @@ def main() -> int:
     p.add_argument("--nproc", default=4, type=int)
     p.add_argument("--small", action="store_true",
                    help="CPU rehearsal widths (L=64, D=16, 2 blocks, B=8)")
+    p.add_argument("--cases", default=",".join(CASES),
+                   help="comma-separated cases to run")
     args = p.parse_args()
+    cases = args.cases.split(",")
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -230,7 +437,11 @@ def main() -> int:
         synthetic.generate(WORK / "data", mm_emb_ids=("81",), **fixture)
     # the single device first, alone on its card (its steps are timed)
     dev = "cuda:0" if args.device == "cuda" else "cpu"
-    one = {case: _run(case, args.small, dev, None) for case in CASES}
+    one = {}
+    for case in cases:
+        one[case] = _run_sparse(args.small, dev, None, args.nproc) \
+            if case == "sparse_100m" else _run(case, args.small, dev, None)
+        _free(args.device)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -241,7 +452,8 @@ def main() -> int:
                    MASTER_PORT=str(port), PYTHONPATH=str(ROOT))
         procs.append(subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--worker",
-             str(out_dir), args.device, "1" if args.small else "0"],
+             str(out_dir), args.device, "1" if args.small else "0",
+             ",".join(cases)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     ok = True
@@ -260,41 +472,108 @@ def main() -> int:
         return 1
     ranks = [np.load(out_dir / f"rank{r}.npz") for r in range(args.nproc)]
     summary = {}
-    for case, (*_, dtype) in CASES.items():
-        loss, grads, _, cands, ms = one[case]
+    for case in cases:
+        dtype = CASES[case][5]
         r0 = ranks[0]
-        rel_lim = 1e-5 if dtype == "float32" else 1e-4
-        rel = abs(float(r0[f"{case}:loss"]) - loss) / abs(loss)
-        worst = min((_cos(r0[f"{case}:grad:{p}"], g), p)
-                    for p, g in grads.items())
-        equal = all(np.array_equal(r[k], r0[k]) for r in ranks[1:]
-                    for k in r0.files if k.startswith(f"{case}:param:"))
-        same_cands = all(np.array_equal(r[f"{case}:cands"], cands)
-                         for r in ranks)
-        ok_c = rel <= rel_lim and worst[0] >= 0.999 and equal and same_cands
-        ok &= ok_c
         shape = tuple(int(x) for x in r0[f"{case}:shape"])
         mesh_ms = max(float(r[f"{case}:ms"]) for r in ranks)
+        if case == "sparse_100m":
+            ok_c, summary[case] = _check_sparse(case, one[case], ranks,
+                                                shape, mesh_ms)
+            ok &= ok_c
+            continue
+        loss, grads, params1, cands, _, ms = one[case]
+        rel_lim = 1e-5 if dtype == "float32" else 1e-4
+        rel = abs(float(r0[f"{case}:loss"]) - loss) / abs(loss)
+        pre = f"{case}:grad:"
+        worst = min((_cos(r0[k], _held(r0[k], _rows_of(grads,
+                                                       k[len(pre):])[1])),
+                     k[len(pre):]) for k in r0.files if k.startswith(pre))
+        pre = f"{case}:param:"
+        equal = all(np.array_equal(r[k], r0[k]) for r in ranks[1:]
+                    for k in r0.files if k.startswith(pre) and "@" not in k)
+        rows_ok = all(_cos(r[k], _held(r[k], _rows_of(
+            params1, k[len(pre):])[1])) >= 0.999
+            for r in ranks for k in r.files
+            if k.startswith(pre) and "@" in k)
+        same_cands = all(np.array_equal(r[f"{case}:cands"], cands)
+                         for r in ranks)
+        overflow = int(r0[f"{case}:overflow"])
+        ok_c = equal and same_cands and rows_ok
+        held = rel <= rel_lim and worst[0] >= 0.999
+        if overflow > 0:
+            note = (f"the single-device comparison does not apply: "
+                    f"{overflow} ids overflowed")
+        else:
+            ok_c &= held
+            note = ""
+        ok &= ok_c
         summary[case] = dict(mesh=shape, dtype=dtype, loss_rel=rel,
                              lowest_cos=worst[0], replicas_equal=equal,
+                             table_rows_held=rows_ok, ep_overflow=overflow,
                              candidates_equal=same_cands,
                              mesh_ms=mesh_ms, single_ms=ms)
         log(f"{case}: {args.nproc} processes, mesh (data, seq) {shape}, "
-            f"{dtype}: loss {float(r0[f'{case}:loss']):.6f} against one "
-            f"process's {loss:.6f} (relative {rel:.2e}, limit {rel_lim:g});"
-            f" lowest gradient cosine {worst[0]:.6f} ({worst[1]}, limit "
-            f"0.999); parameters after the step bitwise equal on every rank "
-            f"{equal}; candidates ({len(cands)}) equal on every rank and to "
-            f"one process's {same_cands}; step {mesh_ms:.3f} ms on the mesh "
-            f"(slowest rank) against {ms:.3f} ms in one process (host clock, "
-            f"synchronised, {STEPS} after 2) {'ok' if ok_c else 'FAIL'}")
+            f"{dtype}, ep_overflow {overflow}: loss "
+            f"{float(r0[f'{case}:loss']):.6f} against one process's "
+            f"{loss:.6f} (relative {rel:.2e}, limit {rel_lim:g}); lowest "
+            f"gradient cosine {worst[0]:.6f} ({worst[1]}, limit 0.999) "
+            f"{note}; replicated parameters after the step bitwise equal on "
+            f"every rank {equal}; each rank's table rows against one "
+            f"process's {rows_ok}; candidates ({len(cands)}) equal on every "
+            f"rank and to one process's {same_cands}; step {mesh_ms:.3f} ms "
+            f"on the mesh (slowest rank) against {ms:.3f} ms in one process "
+            f"(host clock, synchronised, {STEPS} after 2) "
+            f"{'ok' if ok_c else 'FAIL'}")
     print("NCCL_DP " + json.dumps({"device": card, "nproc": args.nproc,
                                    "cases": summary}), flush=True)
     return 0 if ok else 1
 
 
+def _check_sparse(case, single, ranks, shape, mesh_ms):
+    """The sparse case's checks of every rank against one process."""
+    loss, grads, _, rows1, launches1, ms = single
+    r0 = ranks[0]
+    rel = abs(float(r0[f"{case}:loss"]) - loss) / abs(loss)
+    worst = min((_cos(r0[f"{case}:grad:{p}"], g), p)
+                for p, g in grads.items())
+    pos = {int(u): i for i, u in enumerate(rows1["uids"])}
+    lowest, bitwise, blocks = 1.0, True, []
+    for r in ranks:
+        blocks.append(int(r[f"{case}:rows:block_rows"]))
+        got = r[f"{case}:rows:rows"]
+        want = rows1["rows"][[pos[int(u)] for u in r[f"{case}:rows:uids"]]]
+        live = np.linalg.norm(want, axis=1) > 0
+        num = (got * want).sum(1)[live]
+        den = (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))[
+            live]
+        if live.any():
+            lowest = min(lowest, float((num / den).min()))
+        # the rank's untouched sample, at the same ids in one process
+        at = np.searchsorted(rows1["sample"], r[f"{case}:rows:sample"])
+        bitwise &= bool(np.array_equal(rows1["sample"][at],
+                                       r[f"{case}:rows:sample"])) \
+            and np.array_equal(rows1["sampled"][at],
+                               r[f"{case}:rows:sampled"])
+    launches = [int(r[f"{case}:launches"]) for r in ranks]
+    ok = rel <= 1e-4 and worst[0] >= 0.999 and lowest >= 0.999 and bitwise
+    log(f"{case}: {len(ranks)} processes, mesh (data, seq) {shape}: table "
+        f"rows a rank {blocks}; loss {float(r0[f'{case}:loss']):.6f} against "
+        f"one process's {loss:.6f} (relative {rel:.2e}, limit 1e-4); lowest "
+        f"replicated-gradient cosine {worst[0]:.6f} ({worst[1]}); touched "
+        f"rows' lowest cosine to one process's {lowest:.6f} (limit 0.999); "
+        f"sampled untouched rows bitwise equal {bitwise}; group-scatter "
+        f"launches a rank {launches} (one process {launches1}); step "
+        f"{mesh_ms:.3f} ms on the mesh (slowest rank) against {ms:.3f} ms "
+        f"in one process {'ok' if ok else 'FAIL'}")
+    return ok, dict(mesh=shape, loss_rel=rel, lowest_cos=worst[0],
+                    rows_lowest_cos=lowest, untouched_equal=bitwise,
+                    block_rows=blocks, mesh_ms=mesh_ms, single_ms=ms)
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--worker":
-        _worker(sys.argv[2], sys.argv[3], sys.argv[4] == "1")
+        _worker(sys.argv[2], sys.argv[3], sys.argv[4] == "1",
+                sys.argv[5].split(","))
     else:
         sys.exit(main())

@@ -126,8 +126,8 @@ def params_from_jax(src, device="cpu", itemnum: Optional[int] = None
     return _nest(out)
 
 
-def opt_state_from_jax(path, device="cpu", dim: Optional[int] = None
-                       ) -> Dict:
+def opt_state_from_jax(path, device="cpu", dim: Optional[int] = None,
+                       read=None) -> Dict:
     """The optimizer state of a train state the JAX trainer wrote, in the
     port's terms, read by leaf path from the checkpoint's manifest:
 
@@ -143,7 +143,10 @@ def opt_state_from_jax(path, device="cpu", dim: Optional[int] = None
       state (``1/tables/<table>/<key>``); a packed table's moments
       ([V/R, 8, 128]) unpack to the port's [Vp, ``dim``].
 
-    Any other leaf raises: it is an optimizer the port does not mirror."""
+    Any other leaf raises: it is an optimizer the port does not mirror.
+    ``read(tree path, entry) -> tensor``, where given, reads the tensor
+    leaves instead (the table rows of one process of a mesh, already in the
+    port's layout)."""
     path = Path(path)
     entries = json.loads((path / MANIFEST_FILE).read_text())["leaves"]
     leaves = {e["path"]: e for e in entries if not e["path"].startswith("0/")}
@@ -153,6 +156,8 @@ def opt_state_from_jax(path, device="cpu", dim: Optional[int] = None
         else "1/"
 
     def load(e, shape=None):
+        if read is not None:
+            return read(e["path"], e)
         arr = _load_entry(path, e)
         if shape is not None:
             arr = arr.reshape(shape)

@@ -27,13 +27,17 @@ on one, with the JAX CLI's warning. Under ``torchrun`` (``WORLD_SIZE`` > 1)
 the processes form the mesh, one card each (``LOCAL_RANK``; NCCL, or gloo
 with ``--device cpu``): ``seq`` = ``--mesh_seq`` (the preset's) and every
 other process on ``data``, as the JAX ``build_mesh`` folds them. Dense
-tables with either loss train data-parallel, sequence-parallel or both,
-with ``--grad_accum_steps`` too; the in-batch negatives of the sampled
-softmax span the global batch. Tower dedup is off there (the JAX CLI's
-warning). Pipe or model > 1 and sparse tables on a mesh raise
-``NotImplementedError`` (ROADMAP Queue 1, item 5). Only rank 0 writes
-``train.log``, TensorBoard events and checkpoints; the parameters are
-replicated, so the checkpoint is the single-device one.
+or sparse tables with either loss train data-parallel, sequence-parallel or
+both (dense ones with ``--grad_accum_steps`` too); the learned tables
+row-shard over the data processes, the item-id lookups of a data-only mesh
+take the all-to-all (``Tables/ep_overflow``), and the in-batch negatives of
+the sampled softmax span the global batch. Tower dedup is off there (the
+JAX CLI's warning). Pipe or model > 1 raise ``NotImplementedError``
+(ROADMAP Queue 1, item 5): ``sharded_multihost``, whose preset wants model
+= 2, trains there with ``--mesh_model 1``. Only rank 0 writes
+``train.log`` and TensorBoard events; every process writes its table rows
+into the per-shard checkpoint (which ``cli.infer`` serves on one card), and
+``--state_dict_path`` resumes on any mesh, each process reading its rows.
 ``--eval_retrieval_users N`` logs HR@10 / NDCG@10 of N validation users at
 the end of each epoch (stdout, ``train.log``, TensorBoard).
 ``--grad_accum_steps G`` trains each batch as G microbatches (dense tables,
@@ -53,7 +57,9 @@ torch.cli.train --preset hstu_flagship --mesh_seq S --maxlen 4095
 --batch_size 32``.
 Sparse tables and the sampled softmax: ``--preset sharded_multihost
 --maxlen 1023`` (sparse ``item_emb``, rowwise Adagrad) or ``--preset
-sampled_softmax_dp``. The ReLU-FFN HSTU on long histories (the standalone
+sampled_softmax_dp``; on N cards, row-sharded: ``torchrun --nproc_per_node
+N -m tencent_recommendation_2025_tpu_torch.cli.train --preset
+sharded_multihost --mesh_model 1``. The ReLU-FFN HSTU on long histories (the standalone
 HSTU attention kernels, chunked route): ``--preset hstu_mini --maxlen 4095
 --batch_size 32 --loader cached``.
 """
@@ -169,8 +175,8 @@ def single_device_warning(want: int, present: int) -> str:
                 "present — training single-device")
     return (f"WARNING: preset wants {want} devices; one process drives one "
             "card: a data or seq mesh trains under torchrun with one process "
-            "per card, pipe and model axes and sharded tables wait for "
-            "ROADMAP Queue 1, item 5 — training single-device")
+            "per card, pipe and model axes wait for ROADMAP Queue 1, item 5 "
+            "— training single-device")
 
 
 def main(argv=None, timings: Optional[dict] = None,
@@ -320,7 +326,7 @@ def main(argv=None, timings: Optional[dict] = None,
     start_epoch = skip_steps = 0
     if args.state_dict_path:
         state, meta = CK.load_checkpoint(args.state_dict_path, model, cfg,
-                                         device=dev)
+                                         device=dev, mesh=mesh)
         # the reference parses epoch= from the file name and runs only the
         # remaining epochs; the meta carries it directly, and a preemption
         # checkpoint the steps taken into the next

@@ -10,10 +10,16 @@ methods over a nested parameter dict of tensors.
   negative logits over next-item positions;
 - :meth:`predict` — last-position query vectors;
 - :meth:`encode_items` — candidate-corpus item tower.
+
+On a data-only mesh the item-id lookups of the training forward (the
+sequence, the final positives, the BCE negatives, the tower-dedup column)
+take the explicit all-to-all (:meth:`SeqRecModel._ep_override`), whose
+bucket overflows :class:`ep_overflow_scope` counts.
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -22,9 +28,30 @@ import torch
 from ..config import ModelConfig
 from ..data.featurizer import FusedVocab
 from ..data.schema import FeatureSchema
-from ..ops.sparse_table import planned_lookup
+from ..ops.sparse_table import is_packed_scale, planned_lookup
+from ..parallel.sharded_embedding import ShardedTable, sharded_lookup_a2a
 from . import embedding as E
 from . import encoder as ENC
+
+#: the a2a overflow counts of the forward in flight (ep_overflow_scope)
+_EP_OVERFLOW_ACC: contextvars.ContextVar = contextvars.ContextVar(
+    "ep_overflow_acc", default=None)
+
+
+class ep_overflow_scope:
+    """Collects the bucket-overflow counts :meth:`SeqRecModel._ep_override`
+    emits during one forward, in a context variable (per thread, nesting
+    restored), never on the shared model: ``counts`` holds one count per
+    a2a lookup (``trainer.compute_loss`` sums them)."""
+
+    def __enter__(self):
+        self.counts = []
+        self._token = _EP_OVERFLOW_ACC.set(self.counts)
+        return self
+
+    def __exit__(self, *exc):
+        _EP_OVERFLOW_ACC.reset(self._token)
+        return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,21 +71,61 @@ class SeqRecModel:
         params.update(ENC.init_encoder_params(gen, self.cfg))
         return tree_to(params, device)
 
+    def _ep_override(self, params: Mapping, ids: torch.Tensor,
+                     stacked: bool = False) -> Optional[torch.Tensor]:
+        """The item-id embeddings by the explicit all-to-all
+        (``parallel.sharded_embedding.sharded_lookup_a2a``), under the JAX
+        package's conditions: a dense ``item_emb`` row-sharded on a mesh
+        with data > 1 and model = seq = pipe = 1 (a sparse-trained table is
+        a ``GatheredRows``, a table at packed scale trains sparse); None
+        elsewhere. The count of ids that overflowed their bucket (zero rows,
+        dropped gradients) goes to the enclosing :class:`ep_overflow_scope`.
+        ``stacked``: ids [S, cap] of the stacked tower-dedup plan, row d
+        sent by data shard d (a local mesh runs them in one call)."""
+        tbl = params["item_emb"]
+        if not isinstance(tbl, ShardedTable):
+            return None
+        shape = tbl.mesh.shape
+        if shape.get("data", 1) <= 1 or any(
+                shape.get(a, 1) != 1 for a in ("model", "seq", "pipe")) or (
+                self.cfg.pack_big_tables and is_packed_scale(
+                    self.itemnum + 1, self.cfg.hidden_units)):
+            return None
+        rows = list(enumerate(ids)) if stacked else [(0, ids)]
+        outs = []
+        for d, r in rows:
+            emb, ovf = sharded_lookup_a2a(tbl.mesh, tbl, r,
+                                          return_overflow=True, sender=d)
+            acc = _EP_OVERFLOW_ACC.get()
+            if acc is not None:
+                acc.append(ovf)
+            outs.append(emb)
+        emb = torch.stack(outs) if stacked else outs[0]
+        return emb.to(E.torch_dtype(self.cfg.dtype))
+
     def item_embeddings(self, params: Mapping, ids: torch.Tensor,
                         item_sparse: torch.Tensor, item_array: torch.Tensor,
                         mm_tables: Mapping[str, torch.Tensor],
                         mm_override: Optional[Mapping[str, torch.Tensor]]
-                        = None, lookup_site: Optional[str] = None
+                        = None, lookup_site: Optional[str] = None,
+                        ep: bool = False,
+                        item_emb_override: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
         """Item tower on explicit ids + features; ``mm_override`` supplies
         explicit multimodal vectors, else they are gathered by id.
-        ``lookup_site`` names the call site for sparse-training plans."""
+        ``lookup_site`` names the call site for sparse-training plans;
+        ``ep`` routes the id lookup through :meth:`_ep_override` where it
+        applies (the JAX package's sites that pass the mesh);
+        ``item_emb_override`` gives the id embeddings outright."""
         mm_vecs = mm_override if mm_override is not None else \
             E.gather_mm(mm_tables, ids, self.schema,
                         dtype=E.torch_dtype(self.cfg.dtype))
+        if item_emb_override is None and ep:
+            item_emb_override = self._ep_override(params, ids)
         return E.item_tower(params, ids, item_sparse, item_array, mm_vecs,
                             self.fused, self.schema, self.cfg,
-                            lookup_site=lookup_site)
+                            lookup_site=lookup_site,
+                            item_emb_override=item_emb_override)
 
     def dedup_spreads(self, params: Mapping, batch: Mapping,
                       mm_tables: Mapping[str, torch.Tensor]):
@@ -80,10 +147,13 @@ class SeqRecModel:
         def flat(t):   # the stacked plan's [S, cap, ...] as [S * cap, ...]
             return t if uids.dim() == 1 else t.flatten(0, 1)
 
+        ep = self._ep_override(params, uids, stacked=uids.dim() == 2)
         tu = self.item_embeddings(params, flat(uids),
                                   flat(batch["dedup_sparse"]),
                                   flat(batch["dedup_array"]), mm_tables,
-                                  lookup_site="dedup")
+                                  lookup_site="dedup",
+                                  item_emb_override=None if ep is None
+                                  else flat(ep))
 
         def spread(site):
             if f"dedup_{site}_idx" not in batch:
@@ -104,10 +174,15 @@ class SeqRecModel:
                   return_item_tower: bool = False,
                   item_tower_override: Optional[torch.Tensor] = None,
                   mesh=None):
+        ep = None
+        if item_tower_override is None:
+            ep = self._ep_override(params, torch.where(
+                batch["token_type"] == 1, batch["seq"],
+                torch.zeros_like(batch["seq"])))
         fused_out = E.fuse_sequence(
             params, batch, mm_tables, self.fused, self.schema, self.cfg,
             return_item_tower=return_item_tower,
-            item_tower_override=item_tower_override)
+            item_tower_override=item_tower_override, item_emb_override=ep)
         fused_emb, it_seq = fused_out if return_item_tower \
             else (fused_out, None)
         out = ENC.encode(params, fused_emb, batch["seq"],
@@ -144,7 +219,7 @@ class SeqRecModel:
         pos_embs = torch.cat([it_seq[:, 1:].to(pos_last.dtype), pos_last],
                              dim=1)
         neg_embs = self.candidates(params, batch["neg"], mm_tables,
-                                   item_tables, "posneg")
+                                   item_tables, "posneg", ep=True)
         return log_feats, pos_embs, neg_embs
 
     def pos_last(self, params: Mapping, batch: Mapping,
@@ -153,15 +228,16 @@ class SeqRecModel:
         return self.item_embeddings(
             params, batch["pos"][:, -1:], batch["pos_item_sparse"][:, -1:],
             batch["pos_item_array"][:, -1:], mm_tables,
-            lookup_site="pos_last")
+            lookup_site="pos_last", ep=True)
 
     def candidates(self, params: Mapping, ids: torch.Tensor,
                    mm_tables: Mapping[str, torch.Tensor],
                    item_tables: Mapping[str, torch.Tensor],
-                   lookup_site: str) -> torch.Tensor:
+                   lookup_site: str, ep: bool = False) -> torch.Tensor:
         """Item tower on candidate ids whose features are gathered on the
         device from the static item tables by id (ids clamped to the
-        tables, which may hold fewer rows than the item table)."""
+        tables, which may hold fewer rows than the item table); ``ep`` as
+        :meth:`item_embeddings`'s."""
         idx = ids.long()
 
         def take(table):
@@ -169,7 +245,7 @@ class SeqRecModel:
 
         return self.item_embeddings(params, ids, take(item_tables["sparse"]),
                                     take(item_tables["array"]), mm_tables,
-                                    lookup_site=lookup_site)
+                                    lookup_site=lookup_site, ep=ep)
 
     def logits(self, params: Mapping, batch: Mapping,
                mm_tables: Mapping[str, torch.Tensor],

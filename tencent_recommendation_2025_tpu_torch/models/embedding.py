@@ -19,7 +19,9 @@ for the TPU's layout, Vp the rows padded to a multiple of 256; the port
 keeps it [Vp, D], the same bytes row-major, with zero pad rows
 (ops/sparse_table.py). Under sparse-table training a table is a
 :class:`ops.sparse_table.GatheredRows` inside the step, and every lookup of
-it names its call site (``site``) for the host plans.
+it names its call site (``site``) for the host plans; on a data mesh a
+table row-sharded over its shards is a
+:class:`parallel.sharded_embedding.ShardedTable` there.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..data.featurizer import FusedVocab
 from ..data.schema import FeatureSchema
 from ..ops.sparse_table import GatheredRows, is_packed_scale, \
     padded_table_rows
+from ..parallel.sharded_embedding import ShardedTable, sharded_lookup
 
 #: vocabularies up to this size run the JAX forward as one-hot matmuls,
 #: which give a ZERO row for an id above the vocabulary (a gather would read
@@ -177,9 +180,14 @@ def masked_take(table, ids: torch.Tensor, dtype=None,
     ids clamp to the table's ends (the JAX gather's mode='clip') and send
     no gradient to the table. ``table`` may be a :class:`GatheredRows`
     (sparse-table training): ids then resolve against its rows, by the
-    host plan of call site ``site`` where the step ships one."""
+    host plan of call site ``site`` where the step ships one; or a
+    :class:`parallel.sharded_embedding.ShardedTable` (a table row-sharded on
+    a data mesh): ids then resolve by ``sharded_lookup``, where an id past
+    the padded table gives a zero row."""
     if isinstance(table, GatheredRows):
         emb = table.lookup(ids, site=site)
+    elif isinstance(table, ShardedTable):
+        emb = sharded_lookup(table.mesh, table, ids)
     else:
         emb = _ClampedTake.apply(table, ids)
     if dtype is not None:
@@ -237,13 +245,18 @@ def item_tower(params: Mapping, ids: torch.Tensor,
                mm_vecs: Mapping[str, torch.Tensor],
                fused: FusedVocab, schema: FeatureSchema,
                cfg: ModelConfig,
-               lookup_site: Optional[str] = None) -> torch.Tensor:
+               lookup_site: Optional[str] = None,
+               item_emb_override: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """Item-token embedding: id emb ++ sparse ++ array-sum ++ mm-proj -> DNN
     (feature order: id, ITEM_SPARSE, ITEM_ARRAY, continual, mm).
-    ``lookup_site`` names this call site for the sparse-training plans."""
+    ``lookup_site`` names this call site for the sparse-training plans;
+    ``item_emb_override``, the id embeddings looked up before (the explicit
+    all-to-all of ``models.baseline.SeqRecModel._ep_override``)."""
     dtype = torch_dtype(cfg.dtype)
-    feats = [masked_take(params["item_emb"], ids, dtype=dtype,
-                         site=lookup_site)]
+    feats = [item_emb_override.to(dtype) if item_emb_override is not None
+             else masked_take(params["item_emb"], ids, dtype=dtype,
+                              site=lookup_site)]
     if fused.n_item_sparse:
         offs, sizes = _slot_layout(fused, S.ITEM_SPARSE_IDS)
         sp = fused_feature_lookup(params["fused_feat"], item_sparse, offs,
@@ -295,7 +308,8 @@ def gather_mm(mm_tables: Mapping[str, torch.Tensor], ids: torch.Tensor,
 def fuse_sequence(params: Mapping, batch: Mapping, mm_tables: Mapping,
                   fused: FusedVocab, schema: FeatureSchema,
                   cfg: ModelConfig, return_item_tower: bool = False,
-                  item_tower_override: Optional[torch.Tensor] = None):
+                  item_tower_override: Optional[torch.Tensor] = None,
+                  item_emb_override: Optional[torch.Tensor] = None):
     """Both towers over the sequence, added (include_user=True fusion). Ids
     are multiplied by their token-type mask before lookup.
 
@@ -306,7 +320,9 @@ def fuse_sequence(params: Mapping, batch: Mapping, mm_tables: Mapping,
     ``item_tower_override``: the whole item tower [B, L, D], computed before
     (the tower-dedup spread, models/baseline.dedup_spreads); the batch's
     per-position item features are not read then. ``return_item_tower``
-    also returns the item tower, which the positives reuse."""
+    also returns the item tower, which the positives reuse.
+    ``item_emb_override``: the item tokens' id embeddings, looked up before
+    (:func:`item_tower`)."""
     seq = batch["seq"]
     tt = batch["token_type"]
     zero = torch.zeros_like(seq)
@@ -319,7 +335,8 @@ def fuse_sequence(params: Mapping, batch: Mapping, mm_tables: Mapping,
         mm_vecs = gather_mm(mm_tables, item_ids, schema, dtype=dtype)
         it = item_tower(params, item_ids, batch["seq_item_sparse"],
                         batch["seq_item_array"], mm_vecs, fused, schema, cfg,
-                        lookup_site="seq")
+                        lookup_site="seq",
+                        item_emb_override=item_emb_override)
 
     K = MAX_USER_TOKENS_PER_ROW
     B, L = seq.shape

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.sharded_embedding import ShardedTable
 from .sparse_table import GatheredRows
 
 
@@ -46,7 +47,11 @@ def reference_bce_loss(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
 def l2_emb_penalty(item_emb, l2_emb: float) -> torch.Tensor:
     """BaseLine's ``l2_emb * torch.norm(item_emb)``: L2 norm, not squared.
     Under sparse-table training (a :class:`GatheredRows`) it covers the
-    step's touched rows only."""
+    step's touched rows only; a row-sharded table (a
+    :class:`parallel.sharded_embedding.ShardedTable`) is summed over its
+    shards."""
+    if isinstance(item_emb, ShardedTable):
+        return l2_emb * torch.sqrt(item_emb.sum_squares())
     if isinstance(item_emb, GatheredRows):
         item_emb = item_emb.rows
     return l2_emb * torch.sqrt((item_emb.float() ** 2).sum())

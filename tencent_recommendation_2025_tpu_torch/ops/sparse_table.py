@@ -38,8 +38,18 @@ accumulator) and tables below packed scale take a plain row write
 at packed scale never does (the trainer refuses a batch without its group
 plan).
 
-The mesh-sharded tables (``host_shard_plan``, ``sharded_*``) belong to the
-multi-device layer and are not ported (ROADMAP Queue 1, item 10).
+On a data mesh a sparse table row-shards like every learned table
+(``parallel/sharded_embedding.py``): shard s holds the contiguous row block
+``[s * V / S, (s + 1) * V / S)``, at packed scale of the [Vp, D] table itself
+(Vp is a multiple of 256, so a block is whole groups for S <= 16), below it
+of the table padded to a multiple of S. The host plans each shard's share of
+the step's touched rows (:func:`host_shard_plan`, with :func:`shard_capacity`
+rows a shard); each shard takes its rows and an all-gather of the [Kp, D]
+row blocks rebuilds the step's rows (:func:`sharded_gather_rows`); each
+shard updates its own rows from the global gradient and writes them into its
+block (:func:`sharded_apply_row_update`): at packed scale through the group
+scatter on the block's groups, one launch per chunk and shard, below it by a
+row write.
 """
 
 from __future__ import annotations
@@ -535,3 +545,162 @@ def apply_row_update(table: torch.Tensor, opt: Dict, uids: torch.Tensor,
                                             rows0=rows0, **kw)
     return scatter_row_update(table, opt, uids, new_rows, opt_rows,
                               group_plan=group_plan, table_old=table_old)
+
+
+# ---------------------------------------------------------------------------
+# tables row-sharded over a mesh: per-shard plans, gather and update
+# ---------------------------------------------------------------------------
+
+def mesh_table_shards(mesh) -> int:
+    """Number of table-row shards of a mesh (product over the table
+    axes)."""
+    from ..parallel.mesh import table_shards
+
+    return table_shards(mesh)
+
+
+def shard_capacity(cap: int, n_shards: int, slack: float = 1.35) -> int:
+    """Static per-shard touched-row capacity: ceil(cap / S) with ``slack``
+    headroom for imbalance, rounded up to the scatter chunk (1024). With
+    uniformly spread ids the largest shard's load is cap / S + O(sqrt(cap /
+    S)); :func:`host_shard_plan` raises rather than drops rows past it."""
+    if n_shards <= 1:
+        return -(-cap // _SCATTER_CSC) * _SCATTER_CSC
+    per = int(-(-cap // n_shards) * slack)
+    return -(-per // _SCATTER_CSC) * _SCATTER_CSC
+
+
+def host_shard_plan(uids_np, vocab_rows: int, group_rows: Optional[int],
+                    n_shards: int, cap_per_shard: int) -> Dict:
+    """HOST-side per-shard plan for a table row-sharded over ``n_shards``
+    (``uids_np`` sorted unique, sentinel ``vocab_rows`` tail; ``vocab_rows``
+    the physical rows, a multiple of S). With S = n_shards, Kp =
+    cap_per_shard, R = group_rows, K = len(uids):
+
+    - ``lids`` [S, Kp] int32: LOCAL row ids per shard (sentinel: the rows
+      per shard, out of local range);
+    - ``gpos`` [S, Kp] int32: each local row's position in the global uid
+      order (sentinel K: callers append a zero row);
+    - ``groups`` [S, Kp] int32: local touched group ids (sentinel: the
+      local group count, skipped by the scatter);
+    - ``slot_src`` [S, Kp, R] int32: per group slot, the row in the shard's
+      new-rows tensor [Kp, D] (sentinel Kp: keep the old value);
+    - ``pos`` [K] int32: each uid's row in the all-gathered owner-blocked
+      buffer [S * Kp, D].
+
+    ``group_rows`` None (a table below packed scale, written by rows)
+    leaves out ``groups`` and ``slot_src``. Raises on a shard's capacity
+    overflow, naming ``train.sparse_shard_slack``."""
+    uids = np.asarray(uids_np)
+    K = len(uids)
+    Kp = int(cap_per_shard)
+    assert vocab_rows % n_shards == 0, (vocab_rows, n_shards)
+    rps = vocab_rows // n_shards
+    grouped = group_rows is not None
+    if grouped:
+        assert rps % group_rows == 0, (rps, group_rows)
+        nGl = rps // group_rows
+        groups = np.full((n_shards, Kp), nGl, np.int32)
+        slot_src = np.full((n_shards, Kp, group_rows), Kp, np.int32)
+    real = uids < vocab_rows
+    owner = np.minimum(uids // rps, n_shards - 1)
+    lids = np.full((n_shards, Kp), rps, np.int32)
+    gpos = np.full((n_shards, Kp), K, np.int32)
+    pos = np.zeros((K,), np.int32)
+    for s in range(n_shards):
+        sel = np.nonzero(real & (owner == s))[0]
+        n = len(sel)
+        if n > Kp:
+            raise ValueError(
+                f"table shard {s} touched {n} rows > per-shard capacity "
+                f"{Kp}. Shard ownership is contiguous-range "
+                f"(uid // rows_per_shard), so id layouts that cluster hot "
+                f"rows into one range can exceed the uniform-spread "
+                f"headroom — raise train.sparse_shard_slack by at least "
+                f"{n / max(Kp, 1):.2f}x its current value (default 1.35)")
+        lu = (uids[sel] - s * rps).astype(np.int32)
+        lids[s, :n] = lu
+        gpos[s, :n] = sel
+        pos[sel] = s * Kp + np.arange(n, dtype=np.int32)
+        if grouped:
+            gr = lu // group_rows
+            first = np.ones(n, bool)
+            first[1:] = gr[1:] != gr[:-1]
+            groups[s, : int(first.sum())] = gr[first]
+            gidx = np.cumsum(first) - 1
+            slot_src[s, gidx, lu % group_rows] = np.arange(n, dtype=np.int32)
+    out = {"lids": lids, "gpos": gpos, "pos": pos}
+    if grouped:
+        out.update(groups=groups, slot_src=slot_src)
+    return out
+
+
+def _shard_blocks(mesh, t: torch.Tensor):
+    """[(shard index, row block)] of a table or row-optimizer leaf this
+    process holds on ``mesh``: its own block on a process mesh, every row
+    block (views) of the leaf on a local mesh."""
+    if mesh.process:
+        return list(zip(mesh.table_indices, [t]))
+    return list(zip(mesh.table_indices, t.chunk(mesh_table_shards(mesh))))
+
+
+def sharded_gather_rows(mesh, table: torch.Tensor, uids: torch.Tensor,
+                        shard_plan: Dict, dim: int,
+                        plans: Optional[Dict] = None) -> GatheredRows:
+    """GatheredRows for ``uids`` from a table row-sharded over ``mesh``
+    (``table``: this process's leaf, :func:`_shard_blocks`): each shard's
+    rows at its ``lids``, one all-gather of the [Kp, D] row blocks (never
+    whole groups), then the host-planned permutation ``pos`` back to the
+    global uid order."""
+    blocks = _shard_blocks(mesh, table)
+    rps = blocks[0][1].shape[0]
+    vocab = rps * mesh_table_shards(mesh)
+    local = []
+    for s, blk in blocks:
+        lids = shard_plan["lids"][s]
+        rows = row_take(blk, lids)
+        local.append(rows * (lids < rps)[:, None].to(rows.dtype))
+    rows_cat = mesh.all_gather(local)[0]                  # [S * Kp, D]
+    rows = rows_cat[shard_plan["pos"].long()]
+    rows = rows * (uids < vocab)[:, None].to(rows.dtype)
+    return GatheredRows(uids, rows, plans or {})
+
+
+def sharded_apply_row_update(mesh, table: torch.Tensor, opt: Dict,
+                             uids: torch.Tensor, drows: torch.Tensor,
+                             shard_plan: Dict, rows0: torch.Tensor, *,
+                             kind: str, lr: float, step: int,
+                             weight_decay: float = 0.0, eps: float = 1e-8,
+                             b1: float = 0.9, b2: float = 0.98, **_unused
+                             ) -> Tuple[torch.Tensor, Dict]:
+    """Row-sparse update of a table row-sharded over ``mesh``, in place:
+    each shard takes its rows' gradient from the global [K, D] ``drows``
+    (and their old values from ``rows0``) through ``gpos``, updates its
+    block of the optimizer state (:func:`compute_row_update`) and writes
+    its block: with a grouped plan (packed scale, rowwise Adagrad only, as
+    the JAX package asserts) through :func:`group_scatter_apply` on the
+    block's groups, one group-scatter launch per chunk and shard on the
+    card; otherwise by a row write of the real local rows."""
+    grouped = "groups" in shard_plan
+    if grouped:
+        assert kind == "rowwise_adagrad", (
+            "sharded packed tables support rowwise_adagrad (the production "
+            f"choice at packed scale); got {kind!r}")
+    D = drows.shape[-1]
+    zero = drows.new_zeros((1, D), dtype=torch.float32)
+    vals_ext = torch.cat([drows.float(), zero])
+    rows_ext = torch.cat([rows0.float(), zero])
+    opt_blocks = {k: dict(_shard_blocks(mesh, v)) for k, v in opt.items()}
+    for s, blk in _shard_blocks(mesh, table):
+        lids = shard_plan["lids"][s]
+        gpos = shard_plan["gpos"][s].long()
+        oblk = {k: v[s] for k, v in opt_blocks.items()}
+        new_rows, opt_rows = compute_row_update(
+            blk, oblk, lids, vals_ext[gpos], kind=kind, lr=lr, step=step,
+            b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+            rows0=rows_ext[gpos])
+        plan = {"groups": shard_plan["groups"][s],
+                "slot_src": shard_plan["slot_src"][s]} if grouped else None
+        scatter_row_update(blk, oblk, lids, new_rows, opt_rows,
+                           group_plan=plan)
+    return table, opt

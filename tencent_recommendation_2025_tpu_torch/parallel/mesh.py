@@ -20,8 +20,20 @@ Two kinds, with one interface that the encoder and the trainer read:
   list of seq shards; autograd sums what the process mesh all-reduces. The
   tests and ``chip_smoke.py`` use it; the CLI never builds it.
 
+The learned tables row-shard over the table axes (pipe, data, model), as
+the JAX package's partition rules place them: :func:`table_shards` shards,
+of which a process holds the one of its data index (:func:`table_index`;
+the ranks of one data index across ``seq`` hold the same one) and a local
+mesh holds all. The lookups and the sparse path move rows between them by
+three collectives over the data group, each differentiable:
+``all_gather`` (tiled along dim 0; its transpose a reduce-scatter),
+``reduce_scatter`` (tiled, summed; its transpose an all-gather) and
+``all_to_all`` (tiled; its transpose the reverse exchange). A local mesh
+takes them over its list of shards.
+
 Only meshes with pipe = model = 1 are built; others raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 5.
+``NotImplementedError`` naming ROADMAP Queue 1 item 5 (slices d and e:
+tensor and pipeline parallelism).
 """
 
 from __future__ import annotations
@@ -86,6 +98,11 @@ class LocalMesh:
         return list(range(self.shape["data"]))
 
     @property
+    def table_indices(self) -> List[int]:
+        """The table shards this process holds: all of them."""
+        return self.data_indices
+
+    @property
     def encoder_mesh(self) -> Optional["LocalMesh"]:
         """The mesh one data shard's rows take through the encoder: its seq
         shards (None without a seq axis)."""
@@ -101,6 +118,27 @@ class LocalMesh:
     def cat_data(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Every data shard's rows, in data order (dim 0)."""
         return torch.cat(list(parts))
+
+    def all_gather(self, parts: Sequence[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+        """Every shard's tensor concatenated along dim 0, for each shard
+        (one tensor per data shard in, one per data shard out, as for
+        every collective here)."""
+        t = torch.cat(list(parts))
+        return [t] * len(parts)
+
+    def reduce_scatter(self, parts: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """The shards' tensors summed, shard d keeping block d of dim 0."""
+        return list(sum(parts[1:], parts[0]).chunk(len(parts)))
+
+    def all_to_all(self, parts: Sequence[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+        """Block d of shard s's dim 0 sent to shard d, which concatenates
+        what it receives in shard order."""
+        chunks = [p.chunk(len(parts)) for p in parts]
+        return [torch.cat([c[d] for c in chunks])
+                for d in range(len(parts))]
 
     def seq_shards(self, x: torch.Tensor) -> List[torch.Tensor]:
         """The local shards of ``x`` along L (dim 1)."""
@@ -145,8 +183,36 @@ class ProcessMesh:
         return [self.data_index]
 
     @property
+    def table_indices(self) -> List[int]:
+        """The table shard this process holds: its data index's."""
+        return [self.data_index]
+
+    @property
     def encoder_mesh(self) -> "ProcessMesh":
         return self
+
+    def all_gather(self, parts: Sequence[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+        """The data group's tensors concatenated along dim 0, in data order
+        (a list of one, as every collective here takes and returns this
+        shard's); the backward sums the cotangent over the group and keeps
+        this shard's block (a reduce-scatter)."""
+        (t,) = parts
+        return [_AllGatherData.apply(t, self)]
+
+    def reduce_scatter(self, parts: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """The tensor summed over the data group, this shard keeping block
+        ``data_index`` of dim 0; the backward all-gathers the cotangent."""
+        (t,) = parts
+        return [_ReduceScatterData.apply(t, self)]
+
+    def all_to_all(self, parts: Sequence[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+        """Block d of dim 0 sent to data rank d; what rank s sent here is
+        block s of the result. The backward is the reverse exchange."""
+        (t,) = parts
+        return [_AllToAllData.apply(t, self)]
 
     def sum_data(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """This data shard's tensor summed over the data group: an
@@ -204,11 +270,14 @@ class ProcessMesh:
         return [tuple(_Shift.apply(t, self) if t.requires_grad
                       else self.shift(t, 1) for t in ts)]
 
-    def all_reduce(self, t: torch.Tensor, group: str = "world"
-                   ) -> torch.Tensor:
-        """Sum ``t`` in place over the world, the data or the seq group."""
-        dist.all_reduce(t, group={"world": None, "data": self.data_group,
-                                  "seq": self.seq_group}[group])
+    def all_reduce(self, t: torch.Tensor, group: str = "world",
+                   op: str = "sum") -> torch.Tensor:
+        """Sum (or ``op="max"``) ``t`` in place over the world, the data or
+        the seq group."""
+        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op],
+                        group={"world": None, "data": self.data_group,
+                               "seq": self.seq_group}[group])
         return t
 
 
@@ -221,6 +290,62 @@ class _AllReduceData(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_reduce(g.contiguous().clone(), "data"), None
+
+
+def _gather(t: torch.Tensor, mesh) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(mesh.shape["data"])]
+    dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
+    return torch.cat(parts)
+
+
+def _scatter(t: torch.Tensor, mesh) -> torch.Tensor:
+    t = t.contiguous()
+    out = t.new_empty((t.shape[0] // mesh.shape["data"],) + t.shape[1:])
+    # reduce_scatter_single is the newer name of reduce_scatter_tensor
+    fn = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    fn(out, t, group=mesh.data_group)
+    return out
+
+
+def _exchange(t: torch.Tensor, mesh) -> torch.Tensor:
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=mesh.data_group)
+    return out
+
+
+class _AllGatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return _gather(t.detach(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.mesh), None
+
+
+class _ReduceScatterData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return _scatter(t.detach(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh), None
+
+
+class _AllToAllData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return _exchange(t.detach(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.mesh), None
 
 
 class _Shift(torch.autograd.Function):
@@ -244,8 +369,8 @@ class _GatherSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # a reduce-scatter, as an all-reduce and this shard's slice (gloo
-        # has no reduce-scatter)
+        # a reduce-scatter along L (dim 1): an all-reduce and this shard's
+        # slice
         mesh = ctx.mesh
         g = mesh.all_reduce(g.contiguous(), "seq")
         return mesh.seq_shards(g)[0].contiguous(), None
@@ -290,6 +415,26 @@ def host_batch_slice(global_batch: int, mesh=None) -> slice:
     if mesh is None or not mesh.process:
         return slice(0, global_batch)
     return data_rows(global_batch, mesh.shape["data"], mesh.data_index)
+
+
+TABLE_AXES = ("pipe", "data", "model")
+
+
+def table_shards(mesh: Optional[object]) -> int:
+    """S, the row shards of a learned table on ``mesh``: the product of the
+    table axes (the JAX package's ``TABLE_AXES``), 1 without a mesh."""
+    if mesh is None:
+        return 1
+    n = 1
+    for a in TABLE_AXES:
+        n *= mesh.shape.get(a, 1)
+    return n
+
+
+def table_index(mesh: Optional[object]) -> int:
+    """This process's table shard: its data index (pipe = model = 1), 0
+    without a mesh. A local mesh holds every shard (``table_indices``)."""
+    return 0 if mesh is None else mesh.data_index
 
 
 def seq_size(mesh: Optional[object]) -> int:

@@ -1,14 +1,18 @@
 """Training on a mesh: the train state and the batch of a data shard.
 
-Counterpart of ``tencent_recommendation_2025_tpu/parallel/train.py``. The
-JAX package places each leaf with its partition rules (tables row-sharded
-over (data, model), the EP layout) and lets one jitted SPMD step emit the
-collectives. Here the parameters and optimizer state are replicated, one
-copy per process (a local mesh holds one for all its shards), and the
-trainer runs each data shard's rows and sums their gradients
-(``train/trainer.py``). Replicated tables compute the same numbers as the
-row-sharded ones; the row layout belongs to ROADMAP Queue 1 item 5b, which
-takes :func:`unpad_state` as its seam.
+Counterpart of ``tencent_recommendation_2025_tpu/parallel/train.py``. As the
+JAX package's partition rules place them, the learned tables (``item_emb``,
+``user_emb``, ``fused_feat``), their AdamW moments and their row-optimizer
+state row-shard over the mesh's table shards (``parallel.mesh.
+table_shards``, the data size here): a process of a process mesh holds the
+rows of its data index, [s * V / S, (s + 1) * V / S) of the table padded to
+a multiple of S (a table at packed scale is not padded further: its Vp rows
+split into whole groups); a local mesh holds the padded table, whose row
+blocks are its shards. Every other parameter and its AdamW state is
+replicated, one copy per process. The trainer runs each data shard's rows
+(``train/trainer.py``), the tables' lookups cross the shards
+(``parallel/sharded_embedding.py``), and the replicated gradients are
+summed over the processes.
 """
 
 from __future__ import annotations
@@ -21,16 +25,116 @@ from ..config import Config
 from ..models.baseline import SeqRecModel
 from ..train.trainer import (TrainState, batch_rows, init_state,
                              make_train_step)
-from .mesh import data_rows
+from .mesh import data_rows, table_index, table_shards
+from .sharded_embedding import SHARDED_TABLES, table_block
+
+
+def layout(mesh) -> Optional[tuple]:
+    """The table layout of a state on ``mesh`` (``TrainState.layout``):
+    ("process", S, this shard) or ("local", S), None for whole tables
+    (S = 1 or no mesh)."""
+    S = table_shards(mesh)
+    if S == 1:
+        return None
+    return ("process", S, table_index(mesh)) if mesh.process \
+        else ("local", S)
+
+
+def _replace_leaf(state: TrainState, name: str, fn) -> None:
+    """``state.params[name]`` and its AdamW moments through ``fn``, the
+    optimizer's references moved to the new leaf."""
+    old = state.params[name]
+    with torch.no_grad():
+        new = fn(old.detach()).requires_grad_(old.requires_grad)
+    state.params[name] = new
+    for group in state.opt.param_groups:
+        group["params"] = [new if p is old else p for p in group["params"]]
+    if old in state.opt.state:
+        st = state.opt.state.pop(old)
+        state.opt.state[new] = {
+            k: fn(v) if isinstance(v, torch.Tensor) and v.dim() > 0
+            and v.shape[0] == old.shape[0] else v for k, v in st.items()}
+
+
+def _replicated_tensors(state: TrainState):
+    """Every replicated tensor of a train state, in a fixed order: the
+    parameters outside the row-sharded tables, the AdamW state of each (its
+    step counts too)."""
+    from ..bridge import _flatten
+
+    params = [t for p, t in _flatten(state.params).items()
+              if p.split("/")[0] not in SHARDED_TABLES]
+    out = [p.data for p in params]
+    for p in params:
+        st = state.opt.state.get(p, {})
+        out += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
+    return out
+
+
+def _broadcast(mesh, tensors) -> None:
+    """Rank 0's tensors to every process (a tensor off the first one's
+    device, as AdamW keeps its step counts, crosses through a copy)."""
+    import torch.distributed as dist
+
+    if not tensors:
+        return
+    dev = tensors[0].device
+    with torch.no_grad():
+        for t in tensors:
+            buf = t if t.device == dev else t.to(dev)
+            dist.broadcast(buf, src=0)
+            if buf is not t:
+                t.copy_(buf)
+
+
+def _land_tables(state: TrainState, mesh) -> TrainState:
+    """The state's tables, their AdamW moments and their row state cut to
+    this process's rows of ``mesh`` (:func:`table_block`), in place; a
+    state already in the mesh's layout as it is."""
+    want = layout(mesh)
+    if state.layout == want:
+        return state
+    if state.layout is not None:
+        raise ValueError(f"a train state laid out for {state.layout} cannot "
+                         f"land on a mesh of layout {want}: save it and "
+                         "load it there")
+    for name in SHARDED_TABLES:
+        if isinstance(state.params.get(name), torch.Tensor):
+            _replace_leaf(state, name, lambda t: table_block(t, mesh))
+    for opt in state.tables.values():
+        for k in opt:
+            opt[k] = table_block(opt[k], mesh)
+    state.layout = want
+    return state
+
+
+def shard_existing_state(mesh, state: TrainState) -> TrainState:
+    """Land a train state on ``mesh``, in place: the resume path. Its
+    tables cut to this process's rows (a whole table is never broadcast; a
+    state already in the mesh's layout, from ``load_checkpoint(mesh=...)``,
+    keeps them); on a process mesh the replicated tensors and the step
+    become rank 0's (a broadcast), so that the replicas start equal."""
+    _land_tables(state, mesh)
+    if mesh.process:
+        import torch.distributed as dist
+
+        tensors = _replicated_tensors(state)
+        _broadcast(mesh, tensors)
+        dev = tensors[0].device
+        step = torch.tensor([state.step], dtype=torch.int64, device=dev)
+        dist.broadcast(step, src=0)
+        state.step = int(step.item())
+    return state
 
 
 def init_sharded_state(model: SeqRecModel, cfg: Config, mesh,
                        seed: Optional[int] = None,
                        device="cuda") -> TrainState:
     """A fresh train state on ``mesh``: parameters drawn from ``seed``
-    (default ``cfg.train.seed``), replicated. Every process draws the same
-    numbers from the same seed on the CPU."""
-    return init_state(model, cfg, seed=seed, device=device)
+    (default ``cfg.train.seed``), the same numbers in every process, each
+    of which keeps its rows of the tables and of their optimizer state."""
+    return _land_tables(init_state(model, cfg, seed=seed, device=device),
+                        mesh)
 
 
 def shard_batch(mesh, batch: Mapping, index: Optional[int] = None
@@ -46,50 +150,44 @@ def shard_batch(mesh, batch: Mapping, index: Optional[int] = None
                                        mesh.shape["data"], index))
 
 
-def _tensors(state: TrainState):
-    """Every tensor of a train state, in a fixed order: the parameters, the
-    AdamW state of each parameter, the tables' row-optimizer state."""
-    from ..bridge import _flatten
+def unpad_state(state: TrainState, model: SeqRecModel, mesh=None,
+                packed: bool = False) -> TrainState:
+    """The state in the mesh-independent shapes: each table, its AdamW
+    moments and its row state at ``checkpoint.table_rows(model, packed)``
+    rows (``fused_feat``: the fused vocabulary's), the shard padding cut; on
+    a process mesh the tables are all-gathered over the data group first,
+    which holds every table whole in every process (for a test or an
+    export; the checkpoints stay per shard). A new state; the given one is
+    left as it is."""
+    import collections
+    import copy
 
-    params = list(_flatten(state.params).values())
-    out = [p.data for p in params]
-    for p in params:
-        st = state.opt.state.get(p, {})
-        out += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
-    for name in sorted(state.tables):
-        out += [state.tables[name][k] for k in sorted(state.tables[name])]
-    return out
+    from ..train.checkpoint import table_rows
 
-
-def shard_existing_state(mesh, state: TrainState) -> TrainState:
-    """Land an existing train state (a resumed checkpoint) on ``mesh``, the
-    resume path: on a process mesh every tensor of it and its step are rank
-    0's (a broadcast over the world; a tensor off the parameters' device,
-    as AdamW keeps its step counts, crosses through a copy there), so that
-    the replicas start equal; on a local mesh it is the state itself."""
-    if not mesh.process:
+    if state.layout is None:
         return state
-    import torch.distributed as dist
+    rows = dict(table_rows(model, packed),
+                fused_feat=model.fused.total_rows)
+    out = TrainState(dict(state.params), copy.copy(state.opt), state.step,
+                     {n: dict(o) for n, o in state.tables.items()}, None)
+    out.opt.param_groups = [dict(g, params=list(g["params"]))
+                            for g in state.opt.param_groups]
+    out.opt.state = collections.defaultdict(dict, state.opt.state)
 
-    tensors = _tensors(state)
-    dev = tensors[0].device
-    with torch.no_grad():
-        for t in tensors:
-            buf = t if t.device == dev else t.to(dev)
-            dist.broadcast(buf, src=0)
-            if buf is not t:
-                t.copy_(buf)
-        step = torch.tensor([state.step], dtype=torch.int64, device=dev)
-        dist.broadcast(step, src=0)
-    state.step = int(step.item())
-    return state
+    def whole(name):
+        def fn(t):
+            if state.layout[0] == "process":
+                t = mesh.all_gather([t.contiguous()])[0].detach()
+            return t[:rows[name]].clone()
+        return fn
 
-
-def unpad_state(state: TrainState, params_template=None) -> TrainState:
-    """The state as a checkpoint keeps it, in the mesh-independent shapes.
-    Replicated tables carry no shard padding, so this is the state itself;
-    row-sharded tables (ROADMAP Queue 1 item 5b) will cut it here."""
-    return state
+    for name in SHARDED_TABLES:
+        if isinstance(out.params.get(name), torch.Tensor):
+            _replace_leaf(out, name, whole(name))
+    for name, opt in out.tables.items():
+        for k in opt:
+            opt[k] = whole(name)(opt[k])
+    return out
 
 
 def make_sharded_train_step(model: SeqRecModel, cfg: Config, mesh):

@@ -10,8 +10,15 @@ its AdamW moments under ``1/<param path>/{exp_avg,exp_avg_sq}``, a
 sparse-trained table's row-optimizer state under ``1/tables/<table>/<key>``
 (``mu``, ``nu`` or ``acc``) and its step as ``2``, with ``"state_format":
 "torch"`` in the meta. A table at packed scale is saved as the port holds
-it, [Vp, D] with its pad rows. A directory is staged as ``.tmp`` and
-renamed, so a crash mid-write is never picked up;
+it, [Vp, D] with its pad rows. A train state whose tables are row-sharded
+on a mesh (``TrainState.layout``) writes each table leaf (the table, its
+AdamW moments, its row state) per shard, in the JAX package's manifest
+format: a ``"shards"`` entry listing one ``leaf_{i:05d}.{a}-{b}_{c}-{d}.npy``
+file per row extent, the shard-pad rows kept; on a process mesh the process
+owning an extent (the lowest rank holding it) writes it and rank 0 the
+rest. Leaves are listed in the JAX package's tree order, so its loader
+reads the directory into a template of the same tree. A directory is staged
+as ``.tmp`` and renamed, so a crash mid-write is never picked up;
 :func:`save_checkpoint_async` copies the state at once and writes on a
 thread. Loading checks the saved model config and the parameter tree
 against the model's, as the JAX package does, and reads a train state the
@@ -20,7 +27,9 @@ The learned tables' rows follow the JAX loader's rules
 (:func:`convert_rows`): a table, its AdamW moments or its row-optimizer
 state whose row count differs from the model's by shard or pack padding
 (all-zero surplus rows) is cut or zero-extended to it; trained surplus
-rows, or any other row count, raise.
+rows, or any other row count, raise. Loaded onto a mesh, a table leaf is
+read for this process's row extent only (memory-mapped files, sliced), in
+whatever shards it was saved.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..bridge import _flatten, opt_state_from_jax, params_from_jax
+from ..bridge import (_flatten, _load_entry, _nest, _to_numpy, _to_torch,
+                      opt_state_from_jax, params_from_jax)
 
 MANIFEST_FILE = "manifest.json"
 META_FILE = "meta.json"
@@ -94,33 +104,112 @@ def _leaf_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    if t.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(torch.empty(0, dtype=t.dtype).numpy().dtype)
+
+
+def _table_of(path: str) -> Optional[str]:
+    """The row-sharded table a leaf path belongs to (its parameter, the
+    AdamW moments ``1/<table>/...`` of the port, optax's ``.../mu/<table>``
+    of the JAX package, the row state ``1/tables/<table>/<key>``), or
+    None."""
+    from ..parallel.sharded_embedding import SHARDED_TABLES
+
+    parts = path.split("/")
+    if parts[0] == "0":
+        return parts[1] if len(parts) == 2 and parts[1] in SHARDED_TABLES \
+            else None
+    if parts[0] != "1" or len(parts) < 2:
+        return None
+    if parts[1] == "tables":
+        return parts[2]
+    for p in (parts[1], parts[-1]):
+        if p in SHARDED_TABLES:
+            return p
+    return None
+
+
 def _write(ckpt_dir, leaves: Mapping[str, torch.Tensor], meta: dict,
            global_step: int, valid_loss: float,
-           _fault_after_files: Optional[int] = None) -> Path:
+           _fault_after_files: Optional[int] = None, layout=None,
+           mesh=None) -> Path:
     """One checkpoint directory of ``leaves`` (tree path -> tensor), staged
     in ``.tmp`` and renamed, so a crash is never picked up.
-    ``_fault_after_files``, a test hook, raises after that many leaf
-    files, as a crash mid-write would stop."""
+    ``_fault_after_files``, a test hook, raises after that many files of
+    this process, as a crash mid-write would stop.
+
+    With a ``layout`` (``TrainState.layout``) each table leaf is written
+    per row extent (the JAX manifest's ``"shards"``): on a local mesh the
+    leaf is the padded table and every extent is written here; on a
+    process mesh (``mesh``) it is this process's block, written by the
+    lowest rank holding it (seq index 0), and rank 0 alone writes the
+    other leaves, the manifest and the meta, then renames, each phase
+    behind a barrier. The directory's name is rank 0's."""
+    import torch.distributed as dist
+
+    proc = mesh is not None and mesh.process
+    rank0 = not proc or dist.get_rank() == 0
+    if proc:
+        named = [global_step, valid_loss, meta]
+        dist.broadcast_object_list(named, src=0)
+        global_step, valid_loss, meta = named
     out = Path(ckpt_dir) / \
         f"global_step{global_step}.valid_loss={valid_loss:.4f}"
     tmp = out.with_name(out.name + ".tmp")
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
+    if rank0:
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+    if proc:
+        dist.barrier()
+    written = 0
+
+    def put(fname, t):
+        nonlocal written
+        if _fault_after_files is not None and written >= _fault_after_files:
+            raise RuntimeError("injected checkpoint fault (test hook)")
+        np.save(tmp / fname, _leaf_numpy(t)[0])
+        written += 1
+
     entries = []
     for i, (path, leaf) in enumerate(leaves.items()):
-        if _fault_after_files is not None and i >= _fault_after_files:
-            raise RuntimeError("injected checkpoint fault (test hook)")
-        arr, dtype = _leaf_numpy(leaf)
-        fname = f"leaf_{i:05d}.npy"
-        np.save(tmp / fname, arr)
-        entries.append({"path": path, "file": fname,
-                        "shape": list(arr.shape), "dtype": dtype})
-    (tmp / MANIFEST_FILE).write_text(json.dumps({"leaves": entries}))
-    (tmp / META_FILE).write_text(json.dumps(meta))
-    if out.exists():
-        shutil.rmtree(out)
-    tmp.rename(out)
+        entry = {"path": path, "dtype": _dtype_name(leaf)}
+        if layout is None or _table_of(path) is None:
+            entry.update(file=f"leaf_{i:05d}.npy", shape=list(leaf.shape))
+            if rank0:
+                put(entry["file"], leaf)
+            entries.append(entry)
+            continue
+        S = layout[1]
+        if proc:
+            rps = leaf.shape[0]
+            mine = {layout[2]: leaf} if mesh.seq_index == 0 else {}
+        else:
+            rps = leaf.shape[0] // S
+            mine = dict(enumerate(leaf.chunk(S)))
+        rest = [[0, d] for d in leaf.shape[1:]]
+        shards = []
+        for s in range(S):
+            index = [[s * rps, (s + 1) * rps]] + rest
+            fname = f"leaf_{i:05d}." + "_".join(f"{a}-{b}" for a, b
+                                                in index) + ".npy"
+            if s in mine:
+                put(fname, mine[s])
+            shards.append({"file": fname, "index": index})
+        entry.update(shape=[rps * S] + list(leaf.shape[1:]), shards=shards)
+        entries.append(entry)
+    if proc:
+        dist.barrier()
+    if rank0:
+        (tmp / MANIFEST_FILE).write_text(json.dumps({"leaves": entries}))
+        (tmp / META_FILE).write_text(json.dumps(meta))
+        if out.exists():
+            shutil.rmtree(out)
+        tmp.rename(out)
+    if proc:
+        dist.barrier()
     return out
 
 
@@ -160,21 +249,25 @@ def _state_tensors(state) -> dict:
         for k, t in opt.items():
             leaves[f"1/tables/{name}/{k}"] = t
     leaves["2"] = torch.tensor(state.step, dtype=torch.int64)
-    return leaves
+    # the JAX package's leaf order: nested dict keys sorted level by level
+    return dict(sorted(leaves.items(), key=lambda kv: kv[0].split("/")))
 
 
 def save_checkpoint(ckpt_dir, state, global_step: int,
                     valid_loss: float = 0.0, extra_meta: Optional[dict] = None,
                     model_config=None,
-                    _fault_after_files: Optional[int] = None) -> Path:
+                    _fault_after_files: Optional[int] = None,
+                    mesh=None) -> Path:
     """Write a train state (``train.trainer.TrainState``): its parameters
     under ``0/`` as :func:`save_params` does, the AdamW moments and the
-    tables' row-optimizer state under ``1/``, the step as ``2``.
-    ``_fault_after_files`` is :func:`_write`'s test hook."""
+    tables' row-optimizer state under ``1/``, the step as ``2``; the tables
+    of a state row-sharded on a mesh per shard (every process of a process
+    ``mesh`` calls it). ``_fault_after_files`` is :func:`_write`'s test
+    hook."""
     meta = _meta(global_step, valid_loss, model_config,
                  dict(extra_meta or {}, state_format="torch"))
     return _write(ckpt_dir, _state_tensors(state), meta, global_step,
-                  valid_loss, _fault_after_files)
+                  valid_loss, _fault_after_files, state.layout, mesh)
 
 
 class AsyncSaveHandle:
@@ -198,14 +291,16 @@ class AsyncSaveHandle:
 def save_checkpoint_async(ckpt_dir, state, global_step: int,
                           valid_loss: float = 0.0,
                           extra_meta: Optional[dict] = None,
-                          model_config=None) -> AsyncSaveHandle:
+                          model_config=None, mesh=None) -> AsyncSaveHandle:
     """:func:`save_checkpoint` with the files written on a daemon thread, so
     that the next steps overlap the disk. The state is copied to host
     memory now: the train step updates it in place, and a CPU tensor's
     ``.numpy()`` would be a view of what the next step overwrites, so every
     leaf is cloned, the AdamW moments and the tables' state too. One
     process only, as the JAX package's: several processes save
-    synchronously."""
+    synchronously. A local mesh's row-sharded tables are written per
+    shard, as :func:`save_checkpoint` writes them (``mesh`` is taken for
+    the same signature)."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized() \
@@ -222,7 +317,7 @@ def save_checkpoint_async(ckpt_dir, state, global_step: int,
     def run():
         try:
             handle.path = _write(ckpt_dir, snapshot, meta, global_step,
-                                 valid_loss)
+                                 valid_loss, layout=state.layout)
         except BaseException as e:   # raised by result()
             handle.error = e
 
@@ -296,12 +391,13 @@ def _fit_rows(t: torch.Tensor, rows: int, path: str) -> torch.Tensor:
 def table_rows(model, packed: bool) -> Dict[str, int]:
     """The rows of each learned table in ``model``: ``user_emb`` usernum +
     1, ``item_emb`` itemnum + 1, or its Vp rows where ``packed`` (the port
-    trains it at packed scale)."""
+    trains it at packed scale), ``fused_feat`` the fused vocabulary's."""
     from ..ops.sparse_table import padded_table_rows
 
     items = model.itemnum + 1
     return {"item_emb": padded_table_rows(items) if packed else items,
-            "user_emb": model.usernum + 1}
+            "user_emb": model.usernum + 1,
+            "fused_feat": model.fused.total_rows}
 
 
 def _fit_tables(params: dict, rows: Mapping[str, int]) -> dict:
@@ -326,13 +422,101 @@ def _check_structure(params: Mapping, model) -> None:
             f"{sorted(have.keys() - want.keys())[:5]} (model definition "
             "changed between save and load)")
     for p, shape in want.items():
-        if p not in ("item_emb", "user_emb") and have[p] != shape:
+        # the tables' rows are the vocabulary's and the layout's
+        skip = 1 if p in ("item_emb", "user_emb", "fused_feat") else 0
+        if have[p][skip:] != shape[skip:]:
             raise ValueError(f"checkpoint leaf {p!r} shape {have[p]} != "
                              f"model shape {shape} — architecture config "
                              "skew")
 
 
-def load_checkpoint(path, model, cfg, device="cpu"):
+def _source_rows(path: Path, e: dict, dim: int):
+    """(row count, rows(a, b)) of a table's manifest entry viewed as rows
+    (a packed [G, 8, 128] leaf as [G * 1024 / dim, dim]), whole or per
+    shard: ``rows`` reads [a, b) from the memory-mapped files, so only
+    those rows come off the disk."""
+    def view(arr):
+        if arr.ndim == 3 and tuple(arr.shape[1:]) == (8, 128):
+            return arr.reshape(-1, dim)
+        return arr
+
+    def load(fname):
+        return view(_to_numpy(np.load(path / fname, mmap_mode="r"),
+                              e["dtype"]))
+
+    if "shards" not in e:
+        arr = load(e["file"])
+        return arr.shape[0], lambda a, b: np.array(arr[a:b])
+    scale = 1024 // dim if len(e["shape"]) == 3 else 1
+    parts = sorted((sh["index"][0][0] * scale, sh["index"][0][1] * scale,
+                    sh["file"]) for sh in e["shards"])
+    first = load(parts[0][2])
+
+    def rows(a, b):
+        out = np.zeros((b - a,) + first.shape[1:], first.dtype)
+        for lo, hi, fname in parts:
+            if lo < b and hi > a:
+                x, y = max(a, lo), min(b, hi)
+                out[x - a:y - a] = load(fname)[x - lo:y - lo]
+        return out
+
+    return parts[-1][1], rows
+
+
+def _read_block(path: Path, e: dict, want: int, lo: int, hi: int, dim: int
+                ) -> np.ndarray:
+    """Rows [lo, hi) of a table leaf at the model's ``want`` rows (zeros
+    past them), read from the disk alone, by the rows rules of
+    :func:`convert_rows`; the block holding the last real row checks that
+    the saved rows past ``want`` are zero."""
+    from ..ops.sparse_table import padded_table_rows
+
+    src, rows = _source_rows(path, e, dim)
+    a, b = min(src, want), max(src, want)
+    if not (b - a < 32 or b == padded_table_rows(a)):
+        raise ValueError(
+            f"checkpoint leaf {e['path']!r} of {src} rows does not fit the "
+            f"model's {want} rows — vocabulary skew (itemnum/usernum differ "
+            "between save and load) or architecture config skew")
+    if src > want and lo < want <= hi and rows(want, src).any():
+        raise ValueError(
+            f"checkpoint leaf {e['path']!r} has {src} rows but the model "
+            f"expects {want}, and the surplus rows are NOT all zero — this "
+            "is trained data, not shard padding (vocab/itemnum skew between "
+            "save and load?); refusing to truncate")
+    n = max(0, min(hi, want, src) - lo)
+    head = rows(lo, lo + n)
+    out = np.zeros((hi - lo,) + head.shape[1:], head.dtype)
+    out[:n] = head
+    return out
+
+
+def _mesh_reader(path: Path, mesh, rows: Mapping[str, int], dim: int,
+                 device):
+    """``read(tree path, manifest entry) -> tensor`` for a load onto
+    ``mesh``: a table leaf's rows of this process (the whole padded table
+    on a local mesh) at the model's rows padded to the table shards,
+    every other leaf whole."""
+    from ..parallel.train import layout
+
+    lay = layout(mesh)
+    S = lay[1]
+
+    def read(p, e):
+        bf16 = e["dtype"] == "bfloat16"
+        name = _table_of(p)
+        if name not in rows:
+            return _to_torch(_load_entry(path, e), bf16, device)
+        rps = -(-rows[name] // S)
+        lo, hi = (lay[2] * rps, (lay[2] + 1) * rps) \
+            if lay[0] == "process" else (0, rps * S)
+        return _to_torch(_read_block(path, e, rows[name], lo, hi, dim),
+                         bf16, device)
+
+    return read
+
+
+def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
     """(train state, meta) from a train state either package wrote (``path``
     a checkpoint directory, or a directory holding them: the newest is
     taken). The saved model config and parameter tree must match
@@ -340,7 +524,11 @@ def load_checkpoint(path, model, cfg, device="cpu"):
     and row-optimizer state map onto the port's
     (``bridge.opt_state_from_jax``). The tables, their moments and their
     row-optimizer state take the model's rows (:func:`convert_rows`): the
-    item table's Vp where the port trains it at packed scale."""
+    item table's Vp where the port trains it at packed scale. With a
+    ``mesh`` of several table shards the state comes in the mesh's layout
+    (``parallel.train``): each table leaf read for this process's rows
+    only, from whatever shards or whole file it was saved in."""
+    from ..parallel.train import layout
     from .trainer import dense_leaves, init_state, packed_item_table
 
     path = Path(path)
@@ -353,19 +541,30 @@ def load_checkpoint(path, model, cfg, device="cpu"):
         if (path / META_FILE).exists() else {}
     _check_config(meta, model.cfg)
     rows = table_rows(model, packed_item_table(cfg, model.itemnum))
-    params = _fit_tables(params_from_jax(path, device=device), rows)
+    lay = None if mesh is None else layout(mesh)
+    read = None
+    if lay is None:
+        params = _fit_tables(params_from_jax(path, device=device), rows)
+    else:
+        read = _mesh_reader(path, mesh, rows, cfg.model.hidden_units,
+                            device)
+        entries = json.loads((path / MANIFEST_FILE).read_text())["leaves"]
+        params = _nest({e["path"][2:]: read(e["path"], e) for e in entries
+                        if e["path"].startswith("0/")})
     _check_structure(params, model)
     state = init_state(model, cfg, params=params, device=device)
+    state.layout = lay
     dense = [p for p, _ in dense_leaves(state.params, cfg)]
     if meta.get("state_format") == "torch":
-        leaves = dict(_state_leaves(path, device))
+        leaves = dict(_state_leaves(path, device, read))
         step = count = int(leaves["2"])
         moments = {p: (leaves[f"1/{p}/exp_avg"], leaves[f"1/{p}/exp_avg_sq"])
                    for p in dense if f"1/{p}/exp_avg" in leaves}
         tables = {name: {k: leaves[f"1/tables/{name}/{k}"] for k in opt}
                   for name, opt in state.tables.items()}
     else:
-        js = opt_state_from_jax(path, device, dim=cfg.model.hidden_units)
+        js = opt_state_from_jax(path, device, dim=cfg.model.hidden_units,
+                                read=read)
         step, count = js["step"], js["count"]
         if set(js["exp_avg"]) != set(dense):
             raise ValueError(
@@ -380,7 +579,8 @@ def load_checkpoint(path, model, cfg, device="cpu"):
         moments = {p: (js["exp_avg"][p], js["exp_avg_sq"][p]) for p in dense}
         tables = js["tables"]
     moments = {p: tuple(_fit_rows(m, rows[p], f"1/{p}") for m in ms)
-               if p in rows else ms for p, ms in moments.items()}
+               if p in rows and lay is None else ms
+               for p, ms in moments.items()}
     opt_state = {i: {"step": torch.tensor(float(count)),
                      "exp_avg": moments[p][0], "exp_avg_sq": moments[p][1]}
                  for i, p in enumerate(dense) if p in moments}
@@ -402,17 +602,18 @@ def load_checkpoint(path, model, cfg, device="cpu"):
     return state, meta
 
 
-def _state_leaves(path, device="cpu"):
+def _state_leaves(path, device="cpu", read=None):
     """(tree path, tensor on ``device``) of every leaf of a port-written
-    checkpoint outside the parameters: the optimizer states and the
-    step."""
-    manifest = json.loads((Path(path) / MANIFEST_FILE).read_text())
+    checkpoint outside the parameters: the optimizer states and the step
+    (through ``read(tree path, entry)`` where given: :func:`_mesh_reader`).
+    """
+    path = Path(path)
+    manifest = json.loads((path / MANIFEST_FILE).read_text())
     for e in manifest["leaves"]:
         if not e["path"].startswith("0/"):
-            t = torch.from_numpy(np.load(Path(path) / e["file"]))
-            if e["dtype"] == "bfloat16":
-                t = t.view(torch.bfloat16)
-            yield e["path"], t.to(device)
+            yield e["path"], read(e["path"], e) if read is not None else \
+                _to_torch(_load_entry(path, e), e["dtype"] == "bfloat16",
+                          device)
 
 
 def load_params(path, model=None, device="cpu") -> Tuple[dict, dict]:

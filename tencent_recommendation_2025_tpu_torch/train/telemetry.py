@@ -14,7 +14,10 @@ and adds the device-side metrics the north star asks for:
 and ``Performance/mfu`` (the step's analytic matmul and attention FLOPs,
 ``trainer.analytic_step_flops``, over its time and the cards' bf16 peak,
 ``trainer.device_peak_flops``: written where that peak is known, an H100
-training in bf16, never on the CPU).
+training in bf16, never on the CPU), and ``Tables/ep_overflow`` on a
+data-only mesh (the item ids past their all-to-all bucket in the step,
+which returned zero rows and dropped their gradient; a warning line when
+it is > 0).
 """
 
 from __future__ import annotations

@@ -15,17 +15,29 @@ JAX package's is immutable and donated), which keeps one copy of the
 parameters and optimizer state.
 
 On a mesh (``parallel/mesh``) with a ``data`` axis, a ``seq`` axis or both,
-the parameters are replicated and each data shard trains its contiguous
-block of the global batch's rows: a process mesh (one process per card,
-under ``torchrun``) runs its own shard; a local mesh runs every shard in
-turn in one process, at the same launch shapes. The loss divides by the
-global count of masked positions; the sampled softmax's in-batch negatives
-are drawn over the global batch from a generator every shard shares, and
-their rows cross the data shards with their gradients. On a process mesh
-the gradients are then summed over every process, so each holds the
-single-device gradient of the global batch and the replicated parameters
-stay equal; on a local mesh autograd sums them. A ``seq`` axis also runs
-the encoder sequence-parallel.
+each data shard trains its contiguous block of the global batch's rows: a
+process mesh (one process per card, under ``torchrun``) runs its own shard;
+a local mesh runs every shard in turn in one process, at the same launch
+shapes. The learned tables row-shard over the data shards
+(``parallel/train.py``): inside the step they are
+``parallel.sharded_embedding.ShardedTable`` s, whose lookups cross the
+shards, and on a data-only mesh the item-id lookups take the explicit
+all-to-all, whose bucket overflows the metrics count (``ep_overflow``).
+Every other parameter is replicated. The loss divides by the global count
+of masked positions; the sampled softmax's in-batch negatives are drawn
+over the global batch from a generator every shard shares, and their rows
+cross the data shards with their gradients. On a process mesh the
+replicated gradients are then summed over every process, so each holds the
+single-device gradient of the global batch and the replicas stay equal; a
+row-sharded table's gradient is its rows' over the global batch already
+(the lookups' backward), and is summed over the seq group only. On a local
+mesh autograd sums them. A ``seq`` axis also runs the encoder
+sequence-parallel. A sparse table on a data mesh trains per shard: the host
+plans each shard's touched rows (``augment_batch_sparse(n_table_shards=
+S)``), the shards' rows are all-gathered, their gradient summed over the
+processes, and each shard updates and writes its own rows
+(``ops.sparse_table.sharded_apply_row_update``: the group scatter on its
+row block at packed scale).
 
 ``train.grad_accum_steps`` = G > 1 splits each batch into G strided
 microbatches whose losses go backward one at a time, weighted by their
@@ -35,9 +47,8 @@ loop checkpoints on SIGTERM after the step in flight and resumes mid-epoch
 (``skip_steps``); its per-epoch saves write on a thread.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: meshes with pipe or model > 1, and sparse tables on a mesh (a
-preset's ``cfg.mesh`` in one process trains single-device, as the JAX CLI
-falls back).
+item: meshes with pipe or model > 1 (a preset's ``cfg.mesh`` in one process
+trains single-device, as the JAX CLI falls back).
 """
 
 from __future__ import annotations
@@ -58,28 +69,25 @@ from ..bridge import _flatten
 from ..config import MAX_USER_TOKENS_PER_ROW, Config
 from ..data.featurizer import ItemFeatureTables
 from ..data.pipeline import prefetch
-from ..models.baseline import SeqRecModel
+from ..models.baseline import SeqRecModel, ep_overflow_scope
 from ..ops import losses as LS
 from ..ops import sparse_table as ST
-from ..parallel.mesh import data_rows, data_size, seq_size
+from ..parallel.mesh import data_rows, data_size, seq_size, table_shards
 from ..parallel.mesh import unported as mesh_unported
+from ..parallel.sharded_embedding import SHARDED_TABLES, shard_view
 from . import telemetry as T
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1, "
-                              f"{item}")
 
 
 def check_supported(cfg: Config, mesh=None) -> None:
     """Raise on the training options the port does not cover yet. A
     preset's ``cfg.mesh`` is not one of them: in one process the port
     trains it on one device, as the JAX CLI does where the devices are
-    missing. A ``mesh`` takes any data and seq axes, pipe = model = 1 and
-    dense tables; anything else raises ``NotImplementedError`` naming
-    ROADMAP Queue 1 item 5. ``grad_accum_steps > 1`` takes dense tables
-    without tower dedup, and on a data mesh microbatches whose rows divide
-    the data axis (``ValueError`` otherwise, as the JAX step asserts)."""
+    missing. A ``mesh`` takes any data and seq axes, pipe = model = 1, and
+    dense or sparse tables; anything else raises ``NotImplementedError``
+    naming ROADMAP Queue 1 item 5. ``grad_accum_steps > 1`` takes dense
+    tables without tower dedup, and on a data mesh microbatches whose rows
+    divide the data axis (``ValueError`` otherwise, as the JAX step
+    asserts)."""
     t = cfg.train
     if mesh is not None:
         shape = getattr(mesh, "shape", None)
@@ -88,8 +96,6 @@ def check_supported(cfg: Config, mesh=None) -> None:
         if shape.get("pipe", 1) > 1 or shape.get("model", 1) > 1:
             mesh_unported(f"training on a mesh with pipe or model > 1 "
                           f"({dict(shape)}; slices d and e)")
-        if t.sparse_tables:
-            mesh_unported("sparse tables on a device mesh (slice b)")
     if not set(t.sparse_tables) <= {"item_emb", "user_emb"}:
         raise ValueError("train.sparse_tables takes subsets of (item_emb, "
                          f"user_emb), not {t.sparse_tables}")
@@ -186,12 +192,15 @@ class TrainState:
     """Parameters (a nested dict; f32 leaves that take gradients, and the
     sparse-trained tables, which do not), the dense leaves' AdamW, each
     sparse table's row-optimizer state (``tables``: name -> {"mu", "nu"}
-    or {"acc"}) and the count of steps taken."""
+    or {"acc"}) and the count of steps taken. ``layout``: None for whole
+    tables, else the row sharding of the learned tables on a mesh
+    (``parallel.train.layout``)."""
     params: Dict
     opt: torch.optim.Optimizer
     step: int = 0
     tables: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict)
+    layout: Optional[tuple] = None
 
 
 def lr_at_step(tcfg, step: int) -> float:
@@ -373,7 +382,26 @@ def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
     positions and the metrics hold the global loss. On a local mesh the
     loss returned is the global one; on a process mesh it is this process's
     share, whose gradients summed over every process are the global
-    loss's."""
+    loss's.
+
+    The row-sharded tables of ``params`` (a mesh with several table shards)
+    enter the model as ``ShardedTable`` s; where the forward's item-id
+    lookups took the all-to-all, the metrics hold ``ep_overflow``, the ids
+    that overflowed their bucket over the global batch (zero rows, dropped
+    gradients: alert on > 0)."""
+    with ep_overflow_scope() as scope:
+        loss, metrics = _compute_loss(model, shard_view(params, mesh), batch,
+                                      mm_tables, item_tables, cfg, train,
+                                      gen, mesh, gens)
+    if scope.counts:
+        metrics = dict(metrics, ep_overflow=sum(scope.counts))
+    return loss, metrics
+
+
+def _compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
+                  cfg: Config, train: bool,
+                  gen: Optional[torch.Generator] = None, mesh=None,
+                  gens=None) -> Tuple[torch.Tensor, Dict]:
     shards = _data_shards(model, params, batch, mm_tables, mesh, gen, gens)
     if cfg.train.loss_type == "sampled_softmax":
         return _sampled_softmax(model, params, batch, shards, mm_tables,
@@ -486,10 +514,23 @@ def _sampled_softmax(model: SeqRecModel, params, batch, shards, mm_tables,
     return loss / mesh.shape["seq"], {"loss": total, "n_mask": n_mask}
 
 
-def _grad_metrics(metrics: Dict, grads) -> Dict:
+def _grad_metrics(metrics: Dict, grads, mesh=None, sharded=()) -> Dict:
+    """``grad_max`` and ``grad_mean`` (the mean over the leaves of each
+    leaf's mean |g|) of the step's gradients, as the JAX step's. The leaves
+    at the indices ``sharded`` are this process's blocks of a row-sharded
+    table on a process mesh: their max and mean are over the whole padded
+    table (a max- and a sum-reduction over the data group)."""
     metrics = dict(metrics)
-    metrics["grad_max"] = torch.stack([g.abs().max() for g in grads]).max()
-    metrics["grad_mean"] = torch.stack([g.abs().mean() for g in grads]).mean()
+    maxs = [g.abs().max() for g in grads]
+    means = [g.abs().mean() for g in grads]
+    if sharded and mesh is not None and mesh.process:
+        S = table_shards(mesh)
+        for i in sharded:
+            maxs[i] = mesh.all_reduce(maxs[i].clone(), "data", op="max")
+            means[i] = mesh.all_reduce(grads[i].abs().sum(), "data") \
+                / (grads[i].numel() * S)
+    metrics["grad_max"] = torch.stack(maxs).max()
+    metrics["grad_mean"] = torch.stack(means).mean()
     return metrics
 
 
@@ -523,15 +564,24 @@ def _collect_touched_ids(batch, cfg: Config, name: str) -> torch.Tensor:
                       negs.reshape(-1).to(seq.dtype)])
 
 
+_SHARD_PLAN_KEYS = ("lids", "gpos", "pos", "groups", "slot_src")
+
+
 def sparse_loss_backward(model: SeqRecModel, cfg: Config, state: TrainState,
                          batch, mm_tables, item_tables,
-                         gen: Optional[torch.Generator] = None):
+                         gen: Optional[torch.Generator] = None, mesh=None,
+                         gens=None):
     """Forward and backward of a sparse-table step: per table in
     ``train.sparse_tables`` the touched rows are gathered (by whole groups
     at packed scale) into a :class:`ops.sparse_table.GatheredRows` whose
     rows take the gradient; then the loss and its backward, into the dense
-    leaves' ``.grad`` and the rows' ``.grad``. Returns (loss, metrics, per
-    table {"uids", "rows", "V", "group_plan", "group_buf"})."""
+    leaves' ``.grad`` and the rows' ``.grad``. On a ``mesh`` of several
+    table shards each shard's rows come by the batch's per-shard plan
+    (``tshard_*``: ``ops.sparse_table.sharded_gather_rows``) and the loss
+    runs each data shard's rows (``gens``: :func:`shard_gens`); on a process
+    mesh the rows' gradient is then this process's share. Returns (loss,
+    metrics, per table {"uids", "rows", "V", "group_plan", "group_buf",
+    "shard_plan"})."""
     batch = dict(batch)
     t = cfg.train
     if t.loss_type == "sampled_softmax" and "sampled_neg_ids" not in batch:
@@ -539,17 +589,30 @@ def sparse_loss_backward(model: SeqRecModel, cfg: Config, state: TrainState,
             1, model.itemnum + 1, (t.num_sampled_negatives,), generator=gen,
             device=batch["seq"].device, dtype=torch.int32)
     params = dict(state.params)
+    n_shards = table_shards(mesh)
     per = {}
     for name in t.sparse_tables:
         sfx = _sfx(name)
         table = state.params[name]
-        V = table.shape[0]
+        V = table.shape[0] * (n_shards if mesh is not None and mesh.process
+                              else 1)
         plans = batch.pop("sparse_plans" + sfx, {})
         group_plan = None
-        if "scatter_groups" + sfx in batch:
+        shard_plan = {k: batch.pop(f"tshard_{k}{sfx}")
+                      for k in _SHARD_PLAN_KEYS
+                      if f"tshard_{k}{sfx}" in batch} or None
+        if n_shards == 1:
+            shard_plan = None
+        elif shard_plan is None:
+            raise ValueError(
+                f"{name} is row-sharded over {n_shards} table shards: the "
+                "batch needs its per-shard plan (tshard_*, from "
+                f"augment_batch_sparse(n_table_shards={n_shards}))")
+        if shard_plan is None and "scatter_groups" + sfx in batch:
             group_plan = {k: batch.pop(f"scatter_{k}{sfx}")
                           for k in ("groups", "slot_src", "uid_pos")}
-        elif name == "item_emb" and packed_item_table(cfg, model.itemnum):
+        elif shard_plan is None and name == "item_emb" \
+                and packed_item_table(cfg, model.itemnum):
             # its write-back is the group kernel's, never a row write
             raise ValueError(
                 "item_emb is at packed scale (>= TABLE_PACK_MIN_ROWS rows) "
@@ -561,7 +624,11 @@ def sparse_loss_backward(model: SeqRecModel, cfg: Config, state: TrainState,
             ids_all = _collect_touched_ids(batch, cfg, name)
             uids = ST.unique_touched(ids_all, ids_all.shape[0], V)
         with torch.no_grad():
-            if group_plan is not None:
+            if shard_plan is not None:
+                gathered = ST.sharded_gather_rows(
+                    mesh, table, uids, shard_plan, cfg.model.hidden_units)
+                group_buf = None
+            elif group_plan is not None:
                 # one dim-0 group gather feeds the forward's rows and the
                 # write-back's old group content
                 gathered, group_buf = ST.gather_rows_grouped(
@@ -571,9 +638,10 @@ def sparse_loss_backward(model: SeqRecModel, cfg: Config, state: TrainState,
         rows = gathered.rows.requires_grad_(True)
         params[name] = ST.GatheredRows(uids, rows, plans)
         per[name] = dict(uids=uids, rows=rows, V=V, group_plan=group_plan,
-                         group_buf=group_buf)
+                         group_buf=group_buf, shard_plan=shard_plan)
     loss, metrics = compute_loss(model, params, batch, mm_tables,
-                                 item_tables, cfg, train=True, gen=gen)
+                                 item_tables, cfg, train=True, gen=gen,
+                                 mesh=mesh, gens=gens)
     loss.backward()
     return loss, metrics, per
 
@@ -598,6 +666,11 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
             "tables at packed scale (>=30M rows) must train sparsely: set "
             "train.sparse_tables=('item_emb',) or pack_big_tables=False")
     proc = mesh is not None and mesh.process
+    want_layout = None
+    if table_shards(mesh) > 1:
+        from ..parallel.train import layout
+
+        want_layout = layout(mesh)
 
     G = max(1, int(t.grad_accum_steps))
 
@@ -633,12 +706,18 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
         return {"loss": lsum / wsum, "n_mask": wsum}
 
     def step_fn(state: TrainState, batch, mm_tables, item_tables):
+        if state.layout != want_layout:
+            raise ValueError(
+                f"the train state's tables are laid out for {state.layout} "
+                f"and the mesh wants {want_layout}: land the state with "
+                "parallel.train.init_sharded_state or shard_existing_state")
         dev = next(iter(_flatten(state.params).values())).device
         gen = step_generator(t.seed, state.step, dev)
         state.opt.zero_grad(set_to_none=True)
         if sparse:
             _, metrics, per = sparse_loss_backward(
-                model, cfg, state, batch, mm_tables, item_tables, gen)
+                model, cfg, state, batch, mm_tables, item_tables, gen,
+                mesh=mesh, gens=shard_gens(mesh, t.seed, state.step, dev))
         elif G > 1:
             metrics = accumulate(state, batch, mm_tables, item_tables, dev)
         else:
@@ -647,47 +726,74 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
                 train=True, gen=gen, mesh=mesh,
                 gens=shard_gens(mesh, t.seed, state.step, dev))
             loss.backward()
-        leaves = [p for _, p in dense_leaves(state.params, cfg)]
+        named = dense_leaves(state.params, cfg)
+        leaves = [p for _, p in named]
         for p in leaves:
             # AdamW skips a leaf without a gradient, where optax still
             # decays it: a leaf the loss does not reach gets zeros
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in leaves]
+        # a row-sharded table's gradient is its rows' over the global batch
+        # already (the lookups' backward crossed the data group)
+        sharded = [i for i, (p, _) in enumerate(named)
+                   if want_layout is not None
+                   and p.split("/")[0] in SHARDED_TABLES]
         if proc:
-            # one all-reduce of every gradient: the global batch's sum
-            flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
-            off = 0
-            for g in grads:
-                g.copy_(flat[off:off + g.numel()].view_as(g))
-                off += g.numel()
+            # one all-reduce of every replicated gradient: the global
+            # batch's sum; a sharded table's over the seq group only
+            rep = [g for i, g in enumerate(grads) if i not in sharded]
+            _all_reduce_flat(mesh, rep, "world")
+            if mesh.shape["seq"] > 1:
+                _all_reduce_flat(mesh, [grads[i] for i in sharded], "seq")
         for group in state.opt.param_groups:
             group["lr"] = lr_at_step(t, state.step)
         state.opt.step()
         if sparse:
             touched = torch.zeros((), dtype=torch.int64, device=dev)
+            kw = dict(kind=t.table_optimizer,
+                      lr=lr_at_step(t, state.step + 1), step=state.step + 1,
+                      b1=t.adam_b1, b2=t.adam_b2, weight_decay=t.weight_decay)
             with torch.no_grad():
                 for name, p in per.items():
                     drows = p["rows"].grad if p["rows"].grad is not None \
                         else torch.zeros_like(p["rows"])
-                    grouped = p["group_plan"] is not None
-                    ST.apply_row_update(
-                        state.params[name], state.tables[name], p["uids"],
-                        drows, group_plan=p["group_plan"],
-                        rows0=p["rows"].detach() if grouped else None,
-                        table_old=p["group_buf"], kind=t.table_optimizer,
-                        lr=lr_at_step(t, state.step + 1),
-                        step=state.step + 1, b1=t.adam_b1, b2=t.adam_b2,
-                        weight_decay=t.weight_decay)
+                    if proc:
+                        # the global batch's: every process's share summed
+                        mesh.all_reduce(drows)
+                    if p["shard_plan"] is not None:
+                        ST.sharded_apply_row_update(
+                            mesh, state.params[name], state.tables[name],
+                            p["uids"], drows, p["shard_plan"],
+                            p["rows"].detach(), **kw)
+                    else:
+                        grouped = p["group_plan"] is not None
+                        ST.apply_row_update(
+                            state.params[name], state.tables[name],
+                            p["uids"], drows, group_plan=p["group_plan"],
+                            rows0=p["rows"].detach() if grouped else None,
+                            table_old=p["group_buf"], **kw)
                     grads.append(drows)
                     # the sentinel is the physical row count: real rows only
                     touched += (p["uids"] < p["V"]).sum()
             metrics = dict(metrics, touched_rows=touched)
-        metrics = _grad_metrics(metrics, grads)
+        metrics = _grad_metrics(metrics, grads, mesh, sharded)
         state.step += 1
         return state, metrics
 
     return step_fn
+
+
+def _all_reduce_flat(mesh, grads, group: str) -> None:
+    """Sum ``grads`` in place over ``group`` of ``mesh`` in one
+    all-reduce."""
+    if not grads:
+        return
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
 
 
 def make_eval_step(model: SeqRecModel, cfg: Config, mesh=None):
@@ -862,12 +968,16 @@ def augment_batch_sparse(batch, cfg: Config, itemnum: int, step_key,
     the table's physical rows), at packed scale the group write plan
     (``scatter_groups``, ``scatter_slot_src``, ``scatter_uid_pos``), and
     one lookup plan per call site (``sparse_plans``). Keys of tables other
-    than item_emb carry ``@<table>``; ``user_emb`` needs ``usernum``. The
-    per-shard plan of a mesh-sharded table (``n_table_shards`` > 1) is not
-    ported."""
-    if n_table_shards != 1:
-        _unported("the per-shard plan of a mesh-sharded table",
-                  "Multi-device layer")
+    than item_emb carry ``@<table>``; ``user_emb`` needs ``usernum``.
+
+    With ``n_table_shards`` = S > 1 (a table row-sharded over a mesh) the
+    per-shard plan (``ops.sparse_table.host_shard_plan`` at
+    ``shard_capacity(..., slack=train.sparse_shard_slack)`` rows a shard)
+    replaces the group plan, as ``tshard_lids``, ``tshard_gpos``,
+    ``tshard_pos`` and at packed scale ``tshard_groups`` and
+    ``tshard_slot_src``. A table below packed scale pads to a multiple of S
+    rows there, which are its physical rows and its sentinel."""
+    S = max(1, int(n_table_shards))
     out = dict(batch)
     ss = cfg.train.loss_type == "sampled_softmax"
     if ss and "sampled_neg_ids" not in out:
@@ -892,10 +1002,20 @@ def augment_batch_sparse(batch, cfg: Config, itemnum: int, step_key,
             rows = itemnum + 1
             packed = packed_item_table(cfg, itemnum)
         vocab = ST.padded_table_rows(rows) if packed else rows
+        if S > 1:
+            vocab = S * -(-vocab // S)
         uids = ST.host_unique_touched(ids_all,
                                       sparse_touch_capacity(cfg, name), vocab)
         out["touched_uids" + sfx] = uids
-        if packed:
+        if S > 1:
+            cap = ST.shard_capacity(sparse_touch_capacity(cfg, name), S,
+                                    slack=cfg.train.sparse_shard_slack)
+            plan = ST.host_shard_plan(
+                uids, vocab, ST.scatter_group_rows(D) if packed else None, S,
+                cap)
+            for k, v in plan.items():
+                out[f"tshard_{k}{sfx}"] = v
+        elif packed:
             plan = ST.host_group_plan(uids, vocab, ST.scatter_group_rows(D))
             for k, v in plan.items():
                 out[f"scatter_{k}{sfx}"] = v
@@ -1038,9 +1158,11 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     With a ``mesh`` the steps run on it (see :func:`make_train_step`): the
     state starts from ``parallel.train.init_sharded_state``, or a given one
     lands through ``shard_existing_state`` (on a process mesh every process
-    takes rank 0's). On a process mesh every process runs the loop on the
-    same global batches, and only rank 0 logs and writes checkpoints,
-    synchronously. The epoch-end retrieval eval runs only without a mesh,
+    takes rank 0's replicated tensors; each its own table rows). On a
+    process mesh every process runs the loop on the same global batches,
+    only rank 0 logs, and the checkpoints are written synchronously, per
+    table shard (each process the rows it owns, rank 0 the rest); a local
+    mesh's are per shard too. The epoch-end retrieval eval runs only without a mesh,
     in one process, as the JAX loop's. Tower dedup runs in one process
     without a seq axis: the stacked per-shard plan on a local data mesh;
     elsewhere it is off, with the JAX loop's warning.
@@ -1063,7 +1185,8 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     train_step = make_train_step(model, cfg, mesh)
     eval_step = make_eval_step(model, cfg, mesh)
     if proc and mesh.rank != 0:
-        log_dir = tb_dir = ckpt_dir = None
+        # every process writes its table rows into rank 0's checkpoint
+        log_dir = tb_dir = None
         verbose = False
     tables = device_tables(item_tables, device)
     mm_tables = tables["mm"]
@@ -1094,6 +1217,7 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     # axis; stacked per data shard on a local data mesh (JAX
     # train/trainer.py:1070-1081)
     n_dp = data_size(mesh)
+    n_tables = table_shards(mesh)
     dedup_on = cfg.train.tower_dedup and world == 1 and seq_size(mesh) == 1
     if cfg.train.tower_dedup and not dedup_on and verbose:
         print("WARNING: train.tower_dedup needs a single-process mesh "
@@ -1113,7 +1237,8 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
         if not pending:
             return
         keys = [k for k in ("loss", "bce", "grad_max", "grad_mean",
-                            "touched_rows") if k in pending[0][1]]
+                            "touched_rows", "ep_overflow")
+                if k in pending[0][1]]
         fetched = torch.stack([torch.stack([m[k].float() for k in keys])
                                for _, m in pending]).tolist()
         for (rec, _), vals in zip(pending, fetched):
@@ -1141,6 +1266,14 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
                 tb.scalar("Performance/lookup_gb_s", gb / rec["step_time"],
                           gs)
                 tb.scalar("Performance/touched_rows", m["touched_rows"], gs)
+            if "ep_overflow" in m:
+                ovf = int(m["ep_overflow"])
+                tb.scalar("Tables/ep_overflow", ovf, gs)
+                if ovf > 0 and verbose:
+                    print(f"WARNING step {gs}: {ovf} ids overflowed their "
+                          f"a2a shard bucket (returned zero embeddings, "
+                          f"dropped table grads) — raise "
+                          f"sharded_lookup_a2a capacity_factor")
             if gs % cfg.train.grad_log_every == 0:
                 lr_now = lr_at_step(cfg.train, gs)
                 tb.scalar("Gradient/max", m["grad_max"], gs)
@@ -1175,6 +1308,7 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
                                         step_key=key, n_data_shards=n_dp)
             if sparse:
                 b = augment_batch_sparse(b, cfg, model.itemnum, key,
+                                         n_table_shards=n_tables,
                                          usernum=model.usernum)
             return b
 
@@ -1256,7 +1390,7 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
                         extra_meta={"epoch": epoch - 1,
                                     "epoch_step": step + 1,
                                     "preempted": True},
-                        model_config=model.cfg)
+                        model_config=model.cfg, mesh=mesh)
                     if verbose:
                         print(f"preemption checkpoint written: {path.name} "
                               f"(epoch {epoch} step {step + 1} — resume "
@@ -1294,10 +1428,9 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
                     save_handle.result()   # one save in flight at a time
                     save_handle = None
                 save = save_checkpoint if proc else save_checkpoint_async
-                saved = state if mesh is None else PT.unpad_state(state)
-                out = save(ckpt_dir, saved, timer.global_step, valid_loss,
+                out = save(ckpt_dir, state, timer.global_step, valid_loss,
                            extra_meta={"epoch": epoch},
-                           model_config=model.cfg)
+                           model_config=model.cfg, mesh=mesh)
                 save_handle = None if proc else out
                 if verbose:
                     print(f"checkpoint {'written' if proc else 'writing'}: "

@@ -10,9 +10,14 @@ process.
   too. Every rank's softmax saw the same candidates: the shared negatives
   and the in-batch ones, drawn over the global batch.
 - ``cli.train --device cpu --preset sampled_softmax_dp`` under 2 processes
-  writes, from rank 0, a checkpoint equal to the single-process run's
-  (which trains single-device, with tower dedup; the processes without
-  it, with the JAX loop's warning).
+  writes a checkpoint equal to the single-process run's (which trains
+  single-device, with tower dedup; the processes without it, with the JAX
+  loop's warning): rank 0 its replicated leaves, each process its rows of
+  the row-sharded tables, whose pad rows stay zero.
+
+The processes' tables are row-sharded (each process holds its data index's
+rows; tests/test_torch_sharded_dist.py checks the layout); they are
+compared here whole, all-gathered (``parallel.train.unpad_state``).
 
 Each group of processes has a time limit of its own; the groups run at
 once, started by a module fixture."""
@@ -117,6 +122,9 @@ def _train_step(data_dir, step_name, mesh):
         state, m = step(state, TR.put_batch(batch, "cpu"), tabs["mm"], tabs)
     finally:
         LS.sampled_softmax_loss = loss_fn
+    if mesh is not None:
+        # the row-sharded tables whole, at their rows (all-gathered)
+        state = PT.unpad_state(state, model, mesh)
     params = {p: t.detach() for p, t in TR.param_leaves(state.params)}
     cands = torch.cat(seen).numpy() if seen else np.zeros(0)
     return params, float(m["loss"]), cands
@@ -293,9 +301,11 @@ def test_cli_train_two_processes_checkpoint_matches_one(groups, synth_dir,
     f1, f2 = (_flatten(CK.load_params(c)[0]) for c in (one_ck, two_ck))
     assert f1.keys() == f2.keys()
     for k in f1:
-        np.testing.assert_allclose(np.asarray(f2[k], np.float32),
-                                   np.asarray(f1[k], np.float32), rtol=1e-4,
-                                   atol=1e-4, err_msg=k)
+        a, b = np.asarray(f2[k], np.float32), np.asarray(f1[k], np.float32)
+        # the two processes' tables are saved per shard with their pad rows
+        assert not a[b.shape[0]:].any()
+        np.testing.assert_allclose(a[:b.shape[0]], b, rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
 
 
 if __name__ == "__main__":

@@ -434,6 +434,53 @@ def test_group_scatter_apply_launches_kernel_per_chunk_on_card(monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_scatter_on_row_blocks_matches_plain_on_card(dtype):
+    """A table row-sharded over 4 shards writes each shard's touched groups
+    into its row block, ``group_view(table[lo:hi], R)``, a view at a row
+    offset: per block the kernel equals its plain version bitwise and the
+    rows outside the block stay as they were; with every block written,
+    the whole table equals the plain writes' (the sentinel, the block's
+    group count, skipped)."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+
+    S, D = 4, 64
+    R = ST.scatter_group_rows(D)
+    Vp = ST._PAD_ROWS * 40                  # a padded table: 10240 rows
+    rps = Vp // S
+    rng = np.random.default_rng(14)
+    table = torch.randn((Vp, D), generator=torch.Generator().manual_seed(2)
+                        ).to(dtype).cuda()
+    ref = table.clone()
+    for s in range(S):
+        lo, hi = s * rps, (s + 1) * rps
+        nGl, K, n_real = rps // R, 128, 100
+        groups = np.full((K,), nGl, np.int32)
+        groups[:n_real] = np.sort(rng.choice(nGl, size=n_real,
+                                             replace=False))
+        g = torch.from_numpy(groups).cuda()
+        arranged = torch.randn(
+            (K, R * D), generator=torch.Generator().manual_seed(10 + s)
+        ).to(dtype).cuda()
+        before = table.clone()
+        block = ST.group_view(table[lo:hi], R)
+        assert block.data_ptr() % 16 == 0 and block.is_contiguous()
+        want = ST.group_scatter_plain(ST.group_view(ref[lo:hi], R), g,
+                                      arranged)
+        n = ST.group_scatter.launches
+        out = ST.group_scatter(block, g, arranged)
+        torch.cuda.synchronize()
+        assert ST.group_scatter.launches == n + 1
+        assert out.data_ptr() == table[lo:hi].data_ptr()
+        assert torch.equal(block, want)
+        outside = torch.ones(Vp, dtype=torch.bool, device="cuda")
+        outside[lo:hi] = False
+        assert torch.equal(table[outside], before[outside])
+    assert torch.equal(table, ref)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("off", [0, 256, -256, 768])
 @pytest.mark.parametrize("D,H", [(64, 1), (64, 4), (32, 4)])
 def test_ring_pair_kernels_match_plain_on_card(D, H, off):

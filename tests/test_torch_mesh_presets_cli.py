@@ -113,15 +113,17 @@ class _ProcessMesh:
 _REFUSED = {
     "pipe > 1": ("hstu_flagship", dict(pipe=2, seq=2)),
     "model > 1": ("hstu_flagship", dict(model=2, seq=2)),
-    "sparse tables": ("sharded_multihost", dict(seq=2)),
+    # sharded_multihost on its preset's mesh: model = 2 is tensor
+    # parallelism (slice d); its sparse tables train on data and seq
+    "sparse tables": ("sharded_multihost", dict(data=4, model=2)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_REFUSED))
 def test_process_mesh_refuses_what_it_does_not_cover(case):
-    """Under several processes pipe or model > 1 and sparse tables raise,
-    naming ROADMAP Queue 1 item 5, rather than training each process on
-    its own."""
+    """Under several processes pipe or model > 1 raise, naming ROADMAP
+    Queue 1 item 5, rather than training each process on its own; so does
+    sharded_multihost's own mesh (model = 2)."""
     preset, shape = _REFUSED[case]
     with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
         TTR.check_supported(PRESETS[preset](), mesh=_ProcessMesh(**shape))
@@ -137,13 +139,19 @@ _COVERED = {
                            dict(grad_accum_steps=2, tower_dedup=False)),
     "G=2 on a seq mesh": ("hstu_flagship", dict(seq=2),
                           dict(grad_accum_steps=2, tower_dedup=False)),
+    # sparse tables on any data mesh, with or without seq (row-sharded)
+    "sparse tables on seq": ("sharded_multihost", dict(seq=2), {}),
+    "sparse tables on data": ("sharded_multihost", dict(data=4), {}),
+    "sparse tables on data x seq": ("sharded_multihost",
+                                    dict(data=2, seq=2), {}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_COVERED))
 def test_process_mesh_covers_seq_with_data(case):
     """What a process mesh trains: data and seq axes alone or together,
-    the sampled softmax on them, G > 1 on either."""
+    the sampled softmax on them, G > 1 on either, sparse tables on any of
+    them."""
     import dataclasses
 
     preset, shape, train = _COVERED[case]

@@ -143,11 +143,18 @@ def _train_step(data_dir, mesh):
     the step's loss."""
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
 
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+
     cfg, model, tables, batch = _train_world(data_dir)
     state = TR.init_state(model, cfg, seed=5)
+    if mesh is not None:
+        # the tables row-sharded over the data shards (2 on four processes)
+        state = PT.shard_existing_state(mesh, state)
     tabs = TR.device_tables(tables, "cpu")
     step = TR.make_train_step(model, cfg, mesh)
     state, m = step(state, TR.put_batch(batch, "cpu"), tabs["mm"], tabs)
+    if mesh is not None:
+        state = PT.unpad_state(state, model, mesh)
     return {p: t.detach() for p, t in TR.param_leaves(state.params)}, \
         float(m["loss"])
 
