@@ -3539,8 +3539,9 @@ def _fused_ms(by_name):
 def phase_dp_case(run, name, S):
     """``run``'s preset on a local mesh of S data shards on the card (B/S
     rows a launch, the stacked tower-dedup plan, the learned tables
-    row-sharded and the item-id lookups through the all-to-all), from its
-    checkpoint or (without one) the preset's seed:
+    row-sharded and the item-id lookups through the all-to-all, the static
+    item and mm tables row-sharded: ``parallel.train.shard_tables``, S
+    blocks each), from its checkpoint or (without one) the preset's seed:
 
     - speed: DP_STEPS synchronised steps after 2 on the mesh and on the
       single device from the same state and batches (bf16, the preset's
@@ -3577,6 +3578,8 @@ def phase_dp_case(run, name, S):
         TencentGRData
     from tencent_recommendation_2025_tpu_torch.models.baseline import \
         SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.parallel import \
+        sharded_embedding as TSE
     from tencent_recommendation_2025_tpu_torch.parallel import train as PT
     from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
         local_mesh
@@ -3625,21 +3628,35 @@ def phase_dp_case(run, name, S):
 
     # speed: the mesh, then the single device, from the same state
     res, overflow = {}, []
+    # the static tables row-sharded over the mesh's table shards, once
+    stabs = PT.shard_tables(mesh, tabs)
+    blocks = {n: [tuple(b.shape) for b in t.blocks] for n, t in
+              (("sparse", stabs["sparse"]), ("mm", stabs["mm"]["81"]))
+              if isinstance(t, TSE.StaticTable)}
+    ok_static = len(blocks) == 2 and all(len(b) == S for b in
+                                         blocks.values())
+    log(f"{name}: static tables row-sharded over the {S} table shards: "
+        + ", ".join(f"{n} {len(b)} x {b[0]}" for n, b in blocks.items())
+        + f" ({tables.sparse.shape[0]} rows) "
+        f"{'ok' if ok_static else 'FAIL'}")
+    ok &= ok_static
     for side, m_, n in (("mesh", mesh, S), ("single", None, 1)):
         batches = [TR.put_batch(b, "cuda") for b in prepped[n]]
         state = TR.init_state(model, c16, params=params, device="cuda")
+        tb = tabs
         if m_ is not None:
             state = PT.shard_existing_state(m_, state)
+            tb = stabs
         step = TR.make_train_step(model, c16, m_)
         reset_launches()
         ovf = []
         for b in batches:
-            state, m = step(state, b, tabs["mm"], tabs)
+            state, m = step(state, b, tb["mm"], tb)
             ovf.append(m.get("ep_overflow"))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for i in range(DP_STEPS):
-            state, m = step(state, batches[i % 2], tabs["mm"], tabs)
+            state, m = step(state, batches[i % 2], tb["mm"], tb)
             ovf.append(m.get("ep_overflow"))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) / DP_STEPS * 1e3
@@ -3656,7 +3673,7 @@ def phase_dp_case(run, name, S):
 
         def one_step():
             nonlocal state, m
-            state, m = step(state, batches[0], tabs["mm"], tabs)
+            state, m = step(state, batches[0], tb["mm"], tb)
 
         reset_launches()
         prof, wall = route_trace(f"{name} {side}", one_step,
@@ -3759,8 +3776,8 @@ def phase_dp_case(run, name, S):
         for G, c in cg.items():
             state = PT.shard_existing_state(mesh, TR.init_state(
                 m0, c, params=params, device="cuda"))
-            state, m = TR.make_train_step(m0, c, mesh)(state, b, tabs["mm"],
-                                                       tabs)
+            state, m = TR.make_train_step(m0, c, mesh)(state, b,
+                                                       stabs["mm"], stabs)
             acc[G] = (float(m["loss"]), {p: t.grad.float().clone() for p, t
                                          in TR.param_leaves(state.params)})
             del state
@@ -4210,14 +4227,15 @@ def phase_retrieval():
         dt = time.perf_counter() - t0
         return out, dt, torch.cuda.max_memory_allocated() - base
 
-    (_, exact), t_exact, m_exact = timed(MIPS.topk_mips, corpus)
+    (exact_s, exact), t_exact, m_exact = timed(MIPS.topk_mips, corpus)
     (_, approx), t_approx, m_approx = timed(MIPS.topk_mips_approx, corpus)
     host = corpus.cpu().numpy()
     t0 = time.perf_counter()
     codes, scales = MIPS.quantize_corpus_int8(host, "cuda")
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
-    (_, int8), t_int8, m_int8 = timed(MIPS.topk_mips_int8, codes, scales)
+    (int8_s, int8), t_int8, m_int8 = timed(MIPS.topk_mips_int8, codes,
+                                           scales)
     exact_np = exact.cpu().numpy()
     ok_approx = torch.equal(approx, exact)
     r_int8 = _ids_recall(int8.cpu().numpy(), exact_np)
@@ -4232,7 +4250,13 @@ def phase_retrieval():
         log(f"retrieval {name} ({N} x {D}, Q={Q}, k={k}): {t * 1e3:.1f} ms, "
             f"{Q / t:.0f} queries/s, peak device memory above the corpus "
             f"{m * gb:.2f} GB; {extra}")
-    del corpus, codes, scales, host
+    del host
+    ok_sharded = retrieval_sharded(
+        corpus, codes, scales, queries,
+        {"exact": (exact_s, exact, t_exact), "approx": (None, approx,
+                                                        t_approx),
+         "int8": (int8_s, int8, t_int8)})
+    del corpus, codes, scales
     _free()
 
     # HNSW on the first rows, through the reference's file contract
@@ -4275,9 +4299,134 @@ def phase_retrieval():
         log("retrieval hnsw: the tool did not build FAIL")
     del base, queries
     _free()
-    ok = ok_approx and ok_hnsw
+    ok = ok_approx and ok_hnsw and ok_sharded
     log(f"retrieval tiers {'ok' if ok else 'FAIL'}")
     return ok
+
+
+#: corpus shards of phase 6b's sharded tiers (a local mesh on the card)
+RETRIEVAL_SHARDS = 4
+#: the pad-row case: rows (not a multiple of the shards), the planted top
+#: rows on the last shard
+PAD_ROWS = dict(N=1_000_001, top=10, seed=72)
+
+
+def _near_ties(s1, i1, s2, i2, rel):
+    """(places where the ids differ, whether every one of them holds two
+    scores within ``rel`` of each other)."""
+    import torch
+
+    diff = i1 != i2
+    close = (s1 - s2).abs() <= rel * torch.maximum(s1.abs(), s2.abs())
+    return int(diff.sum()), bool((close | ~diff).all())
+
+
+def pad_row_corpus(N, D, top, seed):
+    """Every score negative, the true top ``top`` planted on the last shard:
+    queries positive, rows -|x| - 1 elsewhere, and rows of the last shard's
+    start -(j + 1) / 1000 * u (u a positive unit row, j = 0..top-1), which
+    int8 quantizes exactly (one direction, scales apart by their factor).
+    The last shard's zero pad rows score 0, above every real row."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    corpus = -(torch.rand((N, D), generator=gen, device="cuda") + 1.0)
+    queries = torch.rand((64, D), generator=gen, device="cuda") + 0.1
+    rows = -(-N // RETRIEVAL_SHARDS)
+    u = torch.full((D,), 1.0 / D ** 0.5, device="cuda")
+    at = (RETRIEVAL_SHARDS - 1) * rows + torch.arange(top, device="cuda")
+    corpus[at] = -(torch.arange(top, device="cuda")[:, None] + 1.0) \
+        / 1000.0 * u
+    return corpus, queries, at
+
+
+def retrieval_sharded(corpus, codes, scales, queries, single):
+    """Phase 6b's sharded tiers: the 10M corpus row-sharded on a local mesh
+    of RETRIEVAL_SHARDS corpus shards on the card (views of the corpus and
+    of its int8 codes: no second copy), the same queries through
+    ``sharded_topk_mips`` (exact, approx) and ``sharded_topk_mips_int8``:
+    each tier's time (host clock, synchronised, after a warm-up on 100,000
+    rows) and queries/s beside the single device's (``single``: tier ->
+    (scores, ids, s)); exact ids equal to the single device's except at
+    places whose two scores are within 1e-5 relative (counted); approx ids
+    equal to sharded exact's; int8 recall@10 against the single device's
+    int8 >= 0.999 and ids equal except at bf16 ties (2^-8 relative); then
+    the pad-row case (:func:`pad_row_corpus`, PAD_ROWS) whose ids equal
+    the single device's exact ids in all three tiers. Returns ok."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as MIPS
+
+    S, k = RETRIEVAL_SHARDS, RETRIEVAL["k"]
+    N, Q = corpus.shape[0], queries.shape[0]
+    mesh = local_mesh(MeshConfig(data=S))
+    f32 = MIPS.shard_corpus(mesh, corpus, "cuda")
+    i8 = MIPS.shard_corpus_int8(mesh, (codes, scales), "cuda")
+    views = all(sh.data_ptr() == corpus[s * f32.rows:].data_ptr()
+                for s, sh in enumerate(f32.shards))
+    runs = {"exact": lambda c: MIPS.sharded_topk_mips(mesh, queries, c, k=k),
+            "approx": lambda c: MIPS.sharded_topk_mips(mesh, queries, c,
+                                                       k=k, approx=True),
+            "int8": lambda c: MIPS.sharded_topk_mips_int8(mesh, queries, c,
+                                                          k=k)}
+    got, times = {}, {}
+    for name, fn in runs.items():
+        fn(MIPS.shard_corpus(mesh, corpus[:100_000], "cuda")
+           if name != "int8" else MIPS.shard_corpus_int8(
+               mesh, (codes[:100_000], scales[:100_000]), "cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[name] = fn(i8 if name == "int8" else f32)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    es, ei = got["exact"]
+    n_ties, ok_exact = _near_ties(single["exact"][0], single["exact"][1], es,
+                                  ei, 1e-5)
+    ok_approx = torch.equal(got["approx"][1], ei)
+    s8, i8_ids = got["int8"]
+    r8 = _ids_recall(i8_ids.cpu().numpy(), single["int8"][1].cpu().numpy())
+    n8, ties8 = _near_ties(single["int8"][0], single["int8"][1], s8, i8_ids,
+                           2 ** -8)
+    ok_int8 = r8 >= 0.999 and ties8
+    for name in runs:
+        t1, t = single[name][2], times[name]
+        log(f"retrieval sharded {name} ({N} x {corpus.shape[1]} over {S} "
+            f"corpus shards of {f32.rows} rows on one card, Q={Q}, k={k}): "
+            f"{t * 1e3:.1f} ms, {Q / t:.0f} queries/s; single device "
+            f"{t1 * 1e3:.1f} ms, {Q / t1:.0f} queries/s")
+    log(f"retrieval sharded: shards are views of the corpus {views}; exact "
+        f"ids against the single device's: {n_ties} places differ, every "
+        f"one a near tie (two scores within 1e-5 relative) {ok_exact}; "
+        f"approx ids equal sharded exact's {ok_approx}; int8 recall@10 "
+        f"against the single device's int8 {r8:.6f} (limit 0.999), {n8} "
+        f"places differ, every one a bf16 tie {ties8} "
+        f"{'ok' if ok_exact and ok_approx and ok_int8 and views else 'FAIL'}")
+
+    c = PAD_ROWS
+    pc, pq, at = pad_row_corpus(N=c["N"], D=corpus.shape[1], top=c["top"],
+                                seed=c["seed"])
+    _, want = MIPS.topk_mips(pq, pc, k=k)
+    pcodes, pscales = MIPS.quantize_corpus_int8(pc, "cuda")
+    pad = {"exact": MIPS.sharded_topk_mips(mesh, pq, pc, k=k),
+           "approx": MIPS.sharded_topk_mips(mesh, pq, pc, k=k, approx=True),
+           "int8": MIPS.sharded_topk_mips_int8(mesh, pq, (pcodes, pscales),
+                                               k=k)}
+    planted = torch.equal(want, at[None, :].expand_as(want))
+    ok_pad = planted and all(torch.equal(i, want) and float(s.max()) < 0
+                             for s, i in pad.values())
+    rows = -(-c["N"] // S)
+    log(f"retrieval sharded pad rows: N={c['N']} over {S} shards of {rows} "
+        f"rows ({S * rows - c['N']} zero pad rows on the last), every score "
+        f"negative, the true top {k} planted on the last shard "
+        f"({planted}): ids equal the single device's exact ids in "
+        + ", ".join(f"{n} {torch.equal(i, want)}" for n, (_, i)
+                    in pad.items())
+        + f" {'ok' if ok_pad else 'FAIL'}")
+    del f32, i8, pc, pcodes, pscales
+    return ok_exact and ok_approx and ok_int8 and views and ok_pad
 
 
 # ---------------------------------------------------------------------------
@@ -4523,9 +4672,65 @@ def phase_sparse_100m():
         f" ms a launch ({scatter_ms:.3f} ms in {chunks} launches a step)")
     del state, table, gview, acc, bd, tabs
     _free()
+    ok_static = phase_static_100m(raw)
     launches = {k: v + sharded_launches[k] for k, v in launches.items()}
     return (ok_rows and ok_acc and ok_untouched and ok_launch and finite
-            and ok_route and ok_sharded, launches)
+            and ok_route and ok_sharded and ok_static, launches)
+
+
+#: phase 5e at full size: the static tables' rows (one per item and the
+#: padding row 0) and their shards
+STATIC_100M = dict(rows=100_000_001, shards=4, seed=73)
+
+
+def phase_static_100m(raw):
+    """Phase 5e's static tables at full size: the item ``sparse`` [V, 14]
+    int32 and ``mm["81"]`` [V, 32] f32 tables of V = STATIC_100M rows (18.4
+    GB, drawn on the card from a ``torch.Generator``), row-sharded over a
+    local mesh of 4 table shards (``parallel.train.shard_tables``: the
+    tables padded to 4 blocks, then the whole ones freed); their lookups
+    of the 100M phase's history and candidate ids and of the edge ids
+    against the whole tables' takes, computed before (:func:`step_ids`,
+    :func:`static_lookup_checks`). Returns ok."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import (MM_EMB_DIMS,
+                                                              MeshConfig)
+    from tencent_recommendation_2025_tpu_torch.data import schema as S
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+
+    t0 = time.perf_counter()
+    c = STATIC_100M
+    V = c["rows"]
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    tabs = {"sparse": torch.randint(0, 50, (V, len(S.ITEM_SPARSE_IDS)),
+                                    generator=gen, dtype=torch.int32,
+                                    device="cuda"),
+            "mm": {"81": torch.randn((V, MM_EMB_DIMS["81"]), generator=gen,
+                                     device="cuda")}}
+    torch.cuda.synchronize()
+    gb = (tabs["sparse"].numel() * 4 + tabs["mm"]["81"].numel() * 4) / 1e9
+    ids = step_ids(raw, "cuda")
+    ids["past"] = torch.tensor([V - 1, V, V + 7, 3 * V], device="cuda")
+    # the whole tables' takes; then only the shards stay on the card
+    wants = whole_takes(tabs, ids)
+    stabs = PT.shard_tables(local_mesh(MeshConfig(data=c["shards"])), tabs)
+    del tabs
+    _free()
+    held = torch.cuda.memory_allocated()
+    ok = static_lookup_checks("static_100m", stabs, wants, ids)
+    shard = sum(t.blocks[0].numel() * t.blocks[0].element_size()
+                for _, t in _static_leaves(stabs))
+    log(f"static_100m: sparse [{V}, 14] int32 and mm/81 [{V}, 32] f32 drawn "
+        f"on the card ({gb:.2f} GB), row-sharded over {c['shards']} shards: "
+        f"{shard / 1e9:.3f} GB a shard (both tables); device memory with "
+        f"the shards {held / 1e9:.2f} GB; {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    del stabs, wants
+    _free()
+    return ok
 
 
 def _tree_clone(t):
@@ -4544,6 +4749,74 @@ def _tree_clone(t):
 SHARDED_100M = 4
 #: timed sharded steps (after 1)
 SHARDED_STEPS = 3
+
+
+def step_ids(raw, dev):
+    """The ids a step's static lookups take, on ``dev``: the history's item
+    ids (item tokens of ``seq``), the candidates (``neg``), and the edge
+    ids 0, 1, 2**31 - 1 and -5."""
+    import numpy as np
+    import torch
+
+    hist = np.where(raw["token_type"] == 1, raw["seq"], 0)
+    edge = np.array([0, 1, 2 ** 31 - 1, -5], np.int64)
+    return {k: torch.as_tensor(v, device=dev) for k, v in
+            (("history", hist), ("candidates", raw["neg"]), ("edge", edge))}
+
+
+def _static_leaves(tabs):
+    """[(name, table)] of a static table tree's ``sparse`` and mm tables."""
+    return [("sparse", tabs["sparse"])] + [(f"mm/{k}", t)
+                                           for k, t in tabs["mm"].items()]
+
+
+def whole_takes(tabs, id_sets):
+    """{table: {id set: the whole table's take}} (``models.embedding.
+    static_take``: ids clamped to the table's rows)."""
+    from tencent_recommendation_2025_tpu_torch.models import embedding as E
+
+    return {t: {n: E.static_take(w, ids) for n, ids in id_sets.items()}
+            for t, w in _static_leaves(tabs)}
+
+
+def static_lookup_checks(name, stabs, wants, id_sets):
+    """Each row-sharded static table of ``stabs`` (``parallel.train.
+    shard_tables``' tree) looked up at each id set of ``id_sets``: through
+    ``models.embedding.static_take`` (on a local mesh one take of the
+    padded table) and by a process mesh's rule (each shard's owned rows,
+    zeros elsewhere, summed over the shards), both ``torch.equal`` to the
+    whole table's take (``wants``: :func:`whole_takes`). Logs each table's
+    shards and their bytes; returns ok."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.models import embedding as E
+    from tencent_recommendation_2025_tpu_torch.parallel import \
+        sharded_embedding as TSE
+
+    ok, parts, shards = True, [], []
+    for tname, st in _static_leaves(stabs):
+        if not isinstance(st, TSE.StaticTable):
+            ok = False
+            parts.append(f"{tname} not sharded")
+            continue
+        blk = st.blocks[0]
+        shards.append(f"{tname} {len(st.blocks)} x {tuple(blk.shape)} "
+                      f"{blk.dtype} ({blk.numel() * blk.element_size() / 1e9:.3f}"
+                      f" GB a shard; {st.rows} real rows)")
+        for iname, ids in id_sets.items():
+            want = wants[tname][iname]
+            idx = ids.long().clamp(0, st.rows - 1)
+            summed = sum(TSE.owned_rows(b, idx, s * st.rows_per_shard)
+                         for s, b in enumerate(st.blocks))
+            eq = torch.equal(E.static_take(st, ids), want) \
+                and torch.equal(summed, want)
+            ok &= eq
+            parts.append(f"{tname}[{iname}] {eq}")
+    log(f"{name}: static tables row-sharded: {'; '.join(shards)}")
+    log(f"{name}: static lookups equal to the whole tables' takes "
+        f"(torch.equal; the sharded take and the shards' owned rows "
+        f"summed): {', '.join(parts)} {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
@@ -4571,6 +4844,11 @@ def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
       SHARDED_STEPS synchronised steps after 1) and one profiled step: the
       group scatter's device ms a shard launch, the fused kernels' at 16
       rows a launch, the idle share; the peak memory above the table.
+
+    The phase's static item and mm tables (200,001 rows) row-shard over the
+    same S shards (``parallel.train.shard_tables``) and every mesh step
+    takes them so; their lookups of the step's history and candidate ids
+    are held to the whole tables' (:func:`static_lookup_checks`).
 
     Returns (ok, the launch counts of its steps, the group scatter's device
     ms a shard launch)."""
@@ -4623,12 +4901,18 @@ def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
     ok_same = state.params["item_emb"].data_ptr() == table.data_ptr()
     dev = table.device
     bd = TR.put_batch(batch, dev)
+    # the static tables row-sharded over the same S shards (200,001 rows:
+    # pad rows on the last shard; the batch's ids reach 1e8, past them)
+    stabs = PT.shard_tables(mesh, tabs)
+    ids = step_ids(raw, dev)
+    ok_static = static_lookup_checks("sharded_100m", stabs,
+                                     whole_takes(tabs, ids), ids)
 
     # the reference: the same step's row gradients through each shard's
     # plan and compute_row_update, written plainly into a copy of the
     # shard's touched groups
     _, _, per = TR.sparse_loss_backward(
-        model, cfg, state, dict(bd), tabs["mm"], tabs,
+        model, cfg, state, dict(bd), stabs["mm"], stabs,
         TR.step_generator(cfg.train.seed, 0, dev), mesh=mesh,
         gens=TR.shard_gens(mesh, cfg.train.seed, 0, dev))
     p = per["item_emb"]
@@ -4658,7 +4942,7 @@ def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
     del per, p, vals, rows0
     step = TR.make_train_step(model, cfg, mesh)
     reset_launches()
-    state, m = step(state, bd, tabs["mm"], tabs)
+    state, m = step(state, bd, stabs["mm"], stabs)
     torch.cuda.synchronize()
     got = read_launches()
     loss = float(m["loss"])
@@ -4703,11 +4987,11 @@ def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
         f"launches {-(-len(batch['touched_uids']) // ST._SCATTER_CHUNK_GROUPS)}"
         f" a step) {'ok' if ok_launch else 'FAIL'}")
     torch.cuda.reset_peak_memory_stats()
-    state, m = step(state, bd, tabs["mm"], tabs)
+    state, m = step(state, bd, stabs["mm"], stabs)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(SHARDED_STEPS):
-        state, m = step(state, bd, tabs["mm"], tabs)
+        state, m = step(state, bd, stabs["mm"], stabs)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t1) / SHARDED_STEPS
     peak = torch.cuda.max_memory_allocated()
@@ -4715,7 +4999,7 @@ def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
 
     def one_step():
         nonlocal state, m, traced
-        state, m = step(state, bd, tabs["mm"], tabs)
+        state, m = step(state, bd, stabs["mm"], stabs)
         traced += 1
 
     prof, wall = route_trace("sharded_100m", one_step, ("attn_bwd", "fused"))
@@ -4745,7 +5029,7 @@ def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
     _free()
     log(f"sharded_100m phase: {time.perf_counter() - t0:.1f} s")
     return (ok_num and ok_groups and ok_untouched and ok_same and ok_launch
-            and ok_route and finite, launches, per_launch)
+            and ok_route and finite and ok_static, launches, per_launch)
 
 
 # ---------------------------------------------------------------------------
@@ -5053,9 +5337,10 @@ def phase_ring_times(B, Lc, D, H, F, libs):
     return ok, entries
 
 
-def _ring_world(run, ckpt, rows=None, dropout=True):
+def _ring_world(run, ckpt, rows=None, dropout=True, blocks=None):
     """The long run's model, tables, trained parameters and first two train
-    batches (cut to ``rows``), for the ring's steps."""
+    batches (cut to ``rows``), for the ring's steps; ``blocks``: the model
+    cut to its first ``blocks`` blocks."""
     from tencent_recommendation_2025_tpu_torch.data.featurizer import (
         FusedVocab, build_item_tables)
     from tencent_recommendation_2025_tpu_torch.data.readers import \
@@ -5069,6 +5354,9 @@ def _ring_world(run, ckpt, rows=None, dropout=True):
     if not dropout:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dropout_rate=0.0))
+    if blocks is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    num_blocks=blocks))
     tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
                                data.mm_emb_dict, data.indexer_i_rev)
 
@@ -5080,13 +5368,26 @@ def _ring_world(run, ckpt, rows=None, dropout=True):
                 cfg.replace(model=mc))
 
     params, _ = CK.load_params(ckpt)
+    if blocks is not None:       # blocks are stacked on a leading axis
+        params["blocks"] = _tree_map(lambda t: t[:blocks], params["blocks"])
     return model_in, tables, params, raw
 
 
+def _tree_map(fn, t):
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, v) for k, v in t.items()}
+    return fn(t)
+
+
+#: depth of the ring's one-step check: the long model's first 4 of its 8
+#: blocks (its CPU reference took 71 s of an 866 s run at 8)
+RING_CHECK_BLOCKS = 4
+
+
 def phase_ring_one_step(run, ckpt):
-    """One full-depth step (loss and every gradient, dropout off) on the
-    first 8 rows of the long run's first batch, on a local mesh of S = 2
-    and 4 shards on the card, held (a) to the single-device chunked fused
+    """One step (loss and every gradient, dropout off) of the long model cut
+    to RING_CHECK_BLOCKS blocks on the first 8 rows of the long run's first
+    batch, on a local mesh of S = 2 and 4 shards on the card, held (a) to the single-device chunked fused
     step on the card: in f32 (cosine >= 0.999), and in bf16 to the
     single-device f32 step by the drift rule, c the single-device bf16
     step's own cosine (the ring's rounding points differ from the single
@@ -5103,7 +5404,8 @@ def phase_ring_one_step(run, ckpt):
         local_mesh
 
     model_in, tables, params, raw = _ring_world(run, ckpt, rows=8,
-                                                dropout=False)
+                                                dropout=False,
+                                                blocks=RING_CHECK_BLOCKS)
     batch = raw[0]
     m16, c16 = model_in("bfloat16")
     m32, c32 = model_in("float32")
@@ -5183,7 +5485,7 @@ def phase_ring_one_step(run, ckpt):
         ok &= held(f"S={S} card ring vs {cpu} bf16", g16, q16)
         ok &= held(f"S={S} card ring vs {cpu} f32 ({DRIFT_RULE})", g16, q32,
                    drift(q16, q32))
-    log(f"ring one-step checks (8 rows, L=4096, 8 blocks): "
+    log(f"ring one-step checks (8 rows, L=4096, {blocks} blocks): "
         f"{time.perf_counter() - t0:.1f} s")
     return ok
 

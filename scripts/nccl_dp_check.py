@@ -12,8 +12,8 @@ fixture), then for each case below takes one ``make_train_step`` step from
 the same seeded state on the first global batch: in this process on one
 device (no mesh), and in N worker processes on a process mesh
 (``parallel.mesh.build_mesh``; each worker this file run again with the
-torchrun variables set). The learned tables row-shard over the data
-processes. Per case it holds the process mesh's loss and gradient (rank
+torchrun variables set). The learned tables and the static item and mm
+tables row-shard over the data processes. Per case it holds the process mesh's loss and gradient (rank
 0's: the replicated leaves all-reduced, its rows of the tables) to the
 single device's, every rank's replicated parameters after the step bitwise
 equal to rank 0's and its rows of the tables (V / data of them) at
@@ -33,11 +33,29 @@ the mesh).
   loss within 1e-5 relative, cosine >= 0.999.
 - ``sparse_100m``: ``chip_smoke.py``'s 100M-row sparse step (itemnum 1e8,
   B=64, L=1024, D=64, 8 blocks, H=1, bf16 table, rowwise Adagrad, BCE) on
-  data N, each card holding Vp / N rows of the table (3.2 GB at N = 4):
-  loss within 1e-4 relative; each rank's touched rows against the single
-  device's at cosine >= 0.999 (the rows' bf16 gradient sums in another
-  order), 100,000 sampled untouched rows of its block bitwise equal to
-  the single device's; its group scatter launched once per chunk.
+  data N, each card holding Vp / N rows of the table (3.2 GB at N = 4)
+  and ceil(V / N) rows of the full-size static tables (``sparse`` [V, 14]
+  int32 and ``mm["81"]`` [V, 32] f32, V = 1e8 + 1: 18.4 GB whole, drawn
+  on each card chunk by chunk from seeded generators, so that a rank draws
+  only its rows and they equal the single card's): loss within 1e-4
+  relative; each rank's touched rows against the single device's at
+  cosine >= 0.999 (the rows' bf16 gradient sums in another order),
+  100,000 sampled untouched rows of its block bitwise equal to the single
+  device's; its group scatter launched once per chunk; each card's bytes
+  of the static tables printed.
+- ``topk``: the sharded serving tiers (``retrieval/mips.py``) on a process
+  mesh of N corpus shards: a 100M x 64 int8 corpus and a 25M x 64 f32 one
+  (exact and approx), Q=1024, k=10, each card drawing and holding its rows
+  only (chunk-seeded as above; the int8 rows quantized on the card chunk
+  by chunk), against one card holding the whole corpus: ids equal except
+  at places whose two scores are within 1e-5 relative (f32) or 2^-8 (int8,
+  the bf16 ranking's ties), counted; recall@10 >= 0.999; each card's
+  corpus bytes and the times of both sides (host clock, synchronised,
+  after a warm-up).
+- ``infer``: ``cli.infer --preset hstu_flagship --maxlen 1023`` (exact)
+  under ``torchrun --nproc_per_node N`` on a seeded checkpoint of the
+  flagship model, against one process on one card: the ``id100.u64bin``
+  files byte-equal.
 
 Dropout 0, tower dedup off (several processes gate it off). Prints the
 card line, one line per check ending in ``ok`` or ``FAIL`` (also on
@@ -67,7 +85,14 @@ CASES = {"bce_dp": ("hstu_flagship", 1023, 128, "bce", 1, "bfloat16"),
          "softmax_dp": ("sampled_softmax_dp", 255, 64, "sampled_softmax", 1,
                         "bfloat16"),
          "bce_dp_seq2": ("hstu_flagship", 1023, 128, "bce", 2, "float32"),
-         "sparse_100m": (None, 1023, 64, "bce", 1, "bfloat16")}
+         "sparse_100m": (None, 1023, 64, "bce", 1, "bfloat16"),
+         "topk": (None, None, None, None, 1, "float32"),
+         "infer": ("hstu_flagship", 1023, 128, None, 1, "bfloat16")}
+#: the topk case's corpora (rows, width) and queries; --small's
+TOPK = dict(int8=100_000_000, f32=25_000_000, D=64, Q=1024, k=10, seed=91)
+TOPK_SMALL = dict(TOPK, int8=200_003, f32=50_001, Q=64)
+#: rows of a table drawn on a card at a time, each chunk from its own seed
+CHUNK = 1 << 22
 SMALL = dict(maxlen=63, batch=8, hidden_units=16, num_blocks=2)
 #: the sparse case's rehearsal on the CPU: 50,000 items at packed scale
 SMALL_ITEMS = 50_000
@@ -135,7 +160,9 @@ def _sparse_world(small):
     """(model, config, feature tables as ``trainer.device_tables`` gives
     them on the CPU, batch) of the sparse case: chip_smoke's
     100M-row step, or its rehearsal at SMALL_ITEMS items (the packed-scale
-    threshold lowered to them) and SMALL widths."""
+    threshold lowered to them) and SMALL widths. Of the tables the step
+    takes ``array`` as it is; ``sparse`` and ``mm`` give their widths to
+    the full-size ones (:func:`_static_tables`)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as CS
     import torch
@@ -200,6 +227,154 @@ def _samples(uids, Vp, S):
     return out
 
 
+def _drawn_rows(lo, hi, width, seed, device, integer=False):
+    """Rows [lo, hi) of a seeded [*, width] table (f32 normal, or int32 in
+    [0, 50) with ``integer``) drawn on ``device`` CHUNK rows at a time,
+    chunk c from a generator of its own: every process draws the same rows
+    for the same range, and only the chunks that hold them."""
+    import torch
+
+    out = torch.empty((hi - lo, width), device=device,
+                      dtype=torch.int32 if integer else torch.float32)
+    for c in range(lo // CHUNK, -(-hi // CHUNK)):
+        a = c * CHUNK
+        gen = torch.Generator(device=device).manual_seed(seed * 1_000_003
+                                                         + c)
+        t = torch.randint(0, 50, (CHUNK, width), generator=gen,
+                          dtype=torch.int32, device=device) if integer \
+            else torch.randn((CHUNK, width), generator=gen, device=device)
+        s0, s1 = max(lo, a), min(hi, a + CHUNK)
+        out[s0 - lo:s1 - lo] = t[s0 - a:s1 - a]
+        del t
+    return out
+
+
+def _drawn_int8(lo, hi, width, seed, device):
+    """:func:`_drawn_rows`' f32 rows [lo, hi) as int8 codes and scales,
+    quantized on ``device`` a chunk at a time (the f32 rows are never held
+    whole)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as MIPS
+
+    codes = torch.empty((hi - lo, width), dtype=torch.int8, device=device)
+    scales = torch.empty((hi - lo,), dtype=torch.float32, device=device)
+    for a in range(lo - lo % CHUNK, hi, CHUNK):
+        s0, s1 = max(lo, a), min(hi, a + CHUNK)
+        c, sc = MIPS.quantize_corpus_int8(
+            _drawn_rows(s0, s1, width, seed, device), device)
+        codes[s0 - lo:s1 - lo], scales[s0 - lo:s1 - lo] = c, sc
+    return codes, scales
+
+
+def _shard_extent(n, mesh):
+    """(lo, hi, rows a shard) of this process's rows of an n-row table
+    sharded over every axis of ``mesh``, (0, n, n) without one."""
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        world_shards
+
+    if mesh is None:
+        return 0, n, n
+    rows = -(-n // world_shards(mesh))
+    lo = min(mesh.rank * rows, n)
+    return lo, min(lo + rows, n), rows
+
+
+def _pad_to(t, rows):
+    import torch
+
+    if t.shape[0] == rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],)
+                                     + tuple(t.shape[1:]))])
+
+
+def _run_topk(small, device, mesh):
+    """The topk case on ``mesh`` (this process's shard of each corpus) or
+    on one device (the whole corpora): ({tier: (scores, ids)}, corpus
+    bytes this device holds a tier, {tier: ms of a timed call after one
+    warm-up})."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as MIPS
+
+    c = TOPK_SMALL if small else TOPK
+    D, k = c["D"], c["k"]
+    gen = torch.Generator(device=device).manual_seed(c["seed"])
+    q = torch.randn((c["Q"], D), generator=gen, device=device)
+    out, held, ms = {}, {}, {}
+
+    def timed(name, fn):
+        fn()
+        _sync(device)
+        t0 = time.perf_counter()
+        s, i = fn()
+        _sync(device)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        out[name] = (s.cpu().numpy(), i.cpu().numpy())
+
+    n = c["int8"]
+    lo, hi, rows = _shard_extent(n, mesh)
+    codes, scales = _drawn_int8(lo, hi, D, c["seed"] + 1, device)
+    held["int8"] = codes.numel() + scales.numel() * 4
+    if mesh is None:
+        timed("int8", lambda: MIPS.topk_mips_int8(q, codes, scales, k=k))
+    else:
+        scales = torch.cat([scales, scales.new_ones(rows - scales.shape[0])])
+        corpus = MIPS.ShardedCorpus(mesh, [(_pad_to(codes, rows), scales)],
+                                    n, rows)
+        timed("int8", lambda: MIPS.sharded_topk_mips_int8(mesh, q, corpus,
+                                                          k=k))
+        del corpus
+    del codes, scales
+    _free(device)
+    n = c["f32"]
+    lo, hi, rows = _shard_extent(n, mesh)
+    rows_f = _drawn_rows(lo, hi, D, c["seed"] + 2, device)
+    held["f32"] = rows_f.numel() * 4
+    for name, approx in (("exact", False), ("approx", True)):
+        if mesh is None:
+            fn = MIPS.topk_mips_approx if approx else MIPS.topk_mips
+            timed(name, lambda: fn(q, rows_f, k=k))
+        else:
+            corpus = MIPS.ShardedCorpus(mesh, [_pad_to(rows_f, rows)], n,
+                                        rows)
+            timed(name, lambda: MIPS.sharded_topk_mips(mesh, q, corpus, k=k,
+                                                       approx=approx))
+    del rows_f
+    _free(device)
+    return out, held, ms
+
+
+def _sync(device):
+    import torch
+
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+
+
+def _static_tables(tables, V, mesh, device):
+    """The sparse case's static item tables at V rows (``sparse`` and
+    ``mm["81"]`` at ``tables``' widths; ``array`` as ``tables`` holds it):
+    drawn whole without a mesh, else only this process's row block
+    (``parallel.mesh.table_index``), zero-padded, as a ``StaticTable``."""
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import (
+        table_index, table_shards)
+    from tencent_recommendation_2025_tpu_torch.parallel.sharded_embedding \
+        import StaticTable
+
+    rows = -(-V // table_shards(mesh))
+    lo = min(table_index(mesh) * rows, V)
+    hi = min(lo + rows, V)
+    sp = _drawn_rows(lo, hi, tables["sparse"].shape[1], 7, device,
+                     integer=True)
+    mm = _drawn_rows(lo, hi, tables["mm"]["81"].shape[1], 8, device)
+    if mesh is not None:
+        sp, mm = (StaticTable([_pad_to(t, rows)], mesh, V) for t in (sp, mm))
+    return {"sparse": sp, "array": tables["array"].to(device),
+            "mm": {"81": mm}}
+
+
 def _run_sparse(small, device, mesh, shards):
     """The sparse case's step from the seeded state, then STEPS timed
     after 2: (loss, the replicated leaves' gradients, their parameters, the
@@ -228,9 +403,10 @@ def _run_sparse(small, device, mesh, shards):
     samples = _samples(uids, rps * S, shards)
     sample = np.concatenate(samples) if mesh is None \
         else samples[table_index(mesh)]
-    tabs = {"sparse": tables["sparse"].to(device),
-            "array": tables["array"].to(device),
-            "mm": {k: v.to(device) for k, v in tables["mm"].items()}}
+    tabs = _static_tables(tables, model.itemnum + 1, mesh, device)
+    static_bytes = sum(t.numel() * t.element_size() for t in (
+        [tabs["sparse"], tabs["mm"]["81"]] if mesh is None else
+        [tabs["sparse"].blocks[0], tabs["mm"]["81"].blocks[0]]))
     bd = TR.put_batch(b, device)
     step = TR.make_train_step(model, cfg, mesh)
     n0 = ST.group_scatter.launches
@@ -238,6 +414,7 @@ def _run_sparse(small, device, mesh, shards):
     launches = ST.group_scatter.launches - n0
     loss = float(m["loss"])
     rows = {"lo": np.int64(lo), "block_rows": np.int64(rps),
+            "static_bytes": np.int64(static_bytes),
             "uids": real, "sample": sample,
             "rows": table[torch.from_numpy(real - lo).long().to(
                 table.device)].float().cpu().numpy(),
@@ -261,7 +438,7 @@ def _run_sparse(small, device, mesh, shards):
         state, m = step(state, bd, tabs["mm"], tabs)
     sync()
     ms = (time.perf_counter() - t0) / STEPS * 1e3
-    del state, table, bd
+    del state, table, bd, tabs
     return loss, grads, params, rows, launches, ms
 
 
@@ -283,7 +460,7 @@ def _run(case, small, device, mesh):
 
     model, cfg, tables, batch = _world(case, small)
     state = PT.init_sharded_state(model, cfg, mesh, seed=5, device=device)
-    tabs = TR.device_tables(tables, device)
+    tabs = TR.device_tables(tables, device, mesh)   # static tables sharded
     b = TR.put_batch(batch, device)
     step = PT.make_sharded_train_step(model, cfg, mesh)
     seen, loss_fn = [], LS.sampled_softmax_loss
@@ -341,6 +518,16 @@ def _worker(out_dir, device, small, cases):
         mesh = build_mesh(MeshConfig(seq=seq))
         res[f"{case}:shape"] = np.array([mesh.shape["data"],
                                          mesh.shape["seq"]])
+        if case == "topk":
+            out, held, ms = _run_topk(small, device, mesh)
+            for tier, (sc, ids) in out.items():
+                res[f"topk:{tier}:scores"], res[f"topk:{tier}:ids"] = sc, ids
+                res[f"topk:{tier}:ms"] = np.float64(ms[tier])
+            res.update({f"topk:held:{t}": np.int64(v)
+                        for t, v in held.items()})
+            dist.barrier()
+            _free(device)
+            continue
         if case == "sparse_100m":
             loss, grads, params, rows, launches, ms = _run_sparse(
                 small, device, mesh, mesh.shape["data"])
@@ -438,22 +625,27 @@ def main() -> int:
     # the single device first, alone on its card (its steps are timed)
     dev = "cuda:0" if args.device == "cuda" else "cpu"
     one = {}
+    runs = {"sparse_100m": lambda: _run_sparse(args.small, dev, None,
+                                               args.nproc),
+            "topk": lambda: _run_topk(args.small, dev, None)}
     for case in cases:
-        one[case] = _run_sparse(args.small, dev, None, args.nproc) \
-            if case == "sparse_100m" else _run(case, args.small, dev, None)
+        if case != "infer":
+            one[case] = runs.get(case, lambda: _run(case, args.small, dev,
+                                                    None))()
         _free(args.device)
+    mesh_cases = [c for c in cases if c != "infer"]
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     procs = []
-    for rank in range(args.nproc):
+    for rank in range(args.nproc if mesh_cases else 0):
         env = dict(os.environ, WORLD_SIZE=str(args.nproc), RANK=str(rank),
                    LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
                    MASTER_PORT=str(port), PYTHONPATH=str(ROOT))
         procs.append(subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--worker",
              str(out_dir), args.device, "1" if args.small else "0",
-             ",".join(cases)],
+             ",".join(mesh_cases)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     ok = True
@@ -470,12 +662,22 @@ def main() -> int:
             ok = False
     if not ok:
         return 1
-    ranks = [np.load(out_dir / f"rank{r}.npz") for r in range(args.nproc)]
+    ranks = [np.load(out_dir / f"rank{r}.npz") for r in range(args.nproc)] \
+        if mesh_cases else []
     summary = {}
     for case in cases:
+        if case == "infer":
+            ok_c, summary[case] = _check_infer(args)
+            ok &= ok_c
+            continue
         dtype = CASES[case][5]
         r0 = ranks[0]
         shape = tuple(int(x) for x in r0[f"{case}:shape"])
+        if case == "topk":
+            ok_c, summary[case] = _check_topk(
+                one[case], ranks, shape, TOPK_SMALL if args.small else TOPK)
+            ok &= ok_c
+            continue
         mesh_ms = max(float(r[f"{case}:ms"]) for r in ranks)
         if case == "sparse_100m":
             ok_c, summary[case] = _check_sparse(case, one[case], ranks,
@@ -530,6 +732,121 @@ def main() -> int:
     return 0 if ok else 1
 
 
+def _check_topk(single, ranks, shape, sizes):
+    """The topk case's checks of every rank against one card (``sizes``:
+    TOPK or TOPK_SMALL)."""
+    out1, held1, ms1 = single
+    ok, summary = True, {}
+    for tier, (s1, i1) in out1.items():
+        rel = 2.0 ** -8 if tier == "int8" else 1e-5
+        r0 = ranks[0]
+        s, i = r0[f"topk:{tier}:scores"], r0[f"topk:{tier}:ids"]
+        same = all(np.array_equal(r[f"topk:{tier}:ids"], i) for r in ranks)
+        diff = i != i1
+        close = np.abs(s - s1) <= rel * np.maximum(np.abs(s), np.abs(s1))
+        ties = bool((close | ~diff).all())
+        recall = float(np.mean([len(set(a) & set(b)) / len(b)
+                                for a, b in zip(i.tolist(), i1.tolist())]))
+        held = [int(r[f"topk:held:{'int8' if tier == 'int8' else 'f32'}"])
+                for r in ranks]
+        ms = max(float(r[f"topk:{tier}:ms"]) for r in ranks)
+        ok_t = same and ties and recall >= 0.999
+        ok &= ok_t
+        summary[tier] = dict(places_differ=int(diff.sum()), all_ties=ties,
+                             recall=recall, ranks_equal=same,
+                             held_bytes=held, mesh_ms=ms,
+                             single_ms=ms1[tier])
+        corpus = sizes["int8" if tier == "int8" else "f32"]
+        log(f"topk {tier}: {len(ranks)} processes, mesh (data, seq) {shape}"
+            f", {corpus} x {sizes['D']}: ids against one card's: "
+            f"{int(diff.sum())} places differ, every one a tie within "
+            f"{rel:g} relative {ties}; recall@10 {recall:.6f} (limit 0.999); "
+            f"every rank the same ids {same}; corpus bytes a card "
+            f"{[round(b / 1e9, 3) for b in held]} GB (one card alone "
+            f"{held1['int8' if tier == 'int8' else 'f32'] / 1e9:.3f} GB); "
+            f"{ms:.1f} ms on the mesh (slowest rank) against {ms1[tier]:.1f} "
+            f"ms on one card ({len(i)} queries; host clock, synchronised, "
+            f"after 1) {'ok' if ok_t else 'FAIL'}")
+    return ok, summary
+
+
+def _infer_args(args):
+    preset, maxlen, batch, _, _, _ = CASES["infer"]
+    out = ["--preset", preset, "--maxlen", str(maxlen), "--batch_size",
+           str(batch), "--device", args.device, "--num_workers", "2",
+           "--ann_method", "exact"]
+    if args.small:
+        out += ["--maxlen", str(SMALL["maxlen"]), "--hidden_units",
+                str(SMALL["hidden_units"]), "--num_blocks",
+                str(SMALL["num_blocks"]), "--dtype", "float32"]
+    return out
+
+
+def _check_infer(args):
+    """The infer case: a seeded checkpoint of the model ``cli.infer``
+    builds from :func:`_infer_args`, served by one process and under
+    ``torchrun`` by N; the result files compared byte for byte."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.cli import infer as INF
+    from tencent_recommendation_2025_tpu_torch.config import PRESETS
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import \
+        FusedVocab
+    from tencent_recommendation_2025_tpu_torch.data.readers import \
+        TencentGRData
+    from tencent_recommendation_2025_tpu_torch.data.schema import \
+        FeatureSchema
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+
+    a = INF.get_args(_infer_args(args))
+    cfg = PRESETS[a.preset]()
+    over = {k: getattr(a, k) for k in ("hidden_units", "num_blocks",
+                                       "maxlen", "dtype")
+            if getattr(a, k) is not None}
+    mc = dataclasses.replace(cfg.model, **over)
+    data = TencentGRData(WORK / "data", mm_emb_ids=("81",), split="test")
+    schema = FeatureSchema.from_indexer(data.indexer, ("81",),
+                                        cfg.features.array_cap)
+    model = SeqRecModel(cfg=mc, schema=schema, fused=FusedVocab.build(schema),
+                        usernum=data.usernum, itemnum=data.itemnum)
+    ckpt = WORK / "infer_ckpt"
+    if not ckpt.exists():
+        CK.save_params(ckpt, model.init(torch.Generator().manual_seed(5)),
+                       model_config=mc)
+    base = dict(os.environ, PYTHONPATH=str(ROOT),
+                EVAL_DATA_PATH=str(WORK / "data"),
+                MODEL_OUTPUT_PATH=str(ckpt))
+    mod = "tencent_recommendation_2025_tpu_torch.cli.infer"
+    res, secs = {}, {}
+    for side, pre in (("one", []), ("mesh", [
+            "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(args.nproc)])):
+        out = WORK / f"infer_{side}"
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable] + pre + ["-m", mod]
+                             + _infer_args(args),
+                             env=dict(base, EVAL_RESULT_PATH=str(out)),
+                             capture_output=True, text=True, timeout=TIMEOUT)
+        secs[side] = time.perf_counter() - t0
+        if run.returncode != 0:
+            log(f"infer {side}: exited {run.returncode} FAIL:\n"
+                f"{(run.stdout + run.stderr)[-4000:]}")
+            return False, {}
+        hr = [ln for ln in run.stdout.splitlines() if ln.startswith("HR@10")]
+        res[side] = ((out / "id100.u64bin").read_bytes(), hr)
+    equal = res["one"][0] == res["mesh"][0] and len(res["one"][0]) > 8
+    ok = equal and len(res["mesh"][1]) == 1 and res["mesh"][1] == \
+        res["one"][1]
+    log(f"infer: cli.infer {' '.join(_infer_args(args))} under torchrun "
+        f"--nproc_per_node {args.nproc} ({secs['mesh']:.1f} s) against one "
+        f"process ({secs['one']:.1f} s): id100.u64bin byte-equal {equal} "
+        f"({len(res['one'][0])} bytes); {res['mesh'][1]} / {res['one'][1]} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, dict(equal=equal, mesh_s=secs["mesh"], one_s=secs["one"])
+
+
 def _check_sparse(case, single, ranks, shape, mesh_ms):
     """The sparse case's checks of every rank against one process."""
     loss, grads, _, rows1, launches1, ms = single
@@ -538,9 +855,10 @@ def _check_sparse(case, single, ranks, shape, mesh_ms):
     worst = min((_cos(r0[f"{case}:grad:{p}"], g), p)
                 for p, g in grads.items())
     pos = {int(u): i for i, u in enumerate(rows1["uids"])}
-    lowest, bitwise, blocks = 1.0, True, []
+    lowest, bitwise, blocks, static = 1.0, True, [], []
     for r in ranks:
         blocks.append(int(r[f"{case}:rows:block_rows"]))
+        static.append(int(r[f"{case}:rows:static_bytes"]))
         got = r[f"{case}:rows:rows"]
         want = rows1["rows"][[pos[int(u)] for u in r[f"{case}:rows:uids"]]]
         live = np.linalg.norm(want, axis=1) > 0
@@ -558,7 +876,9 @@ def _check_sparse(case, single, ranks, shape, mesh_ms):
     launches = [int(r[f"{case}:launches"]) for r in ranks]
     ok = rel <= 1e-4 and worst[0] >= 0.999 and lowest >= 0.999 and bitwise
     log(f"{case}: {len(ranks)} processes, mesh (data, seq) {shape}: table "
-        f"rows a rank {blocks}; loss {float(r0[f'{case}:loss']):.6f} against "
+        f"rows a rank {blocks}; static tables' bytes a card "
+        f"{[round(b / 1e9, 3) for b in static]} GB (one card alone "
+        f"{int(rows1['static_bytes']) / 1e9:.3f} GB); loss {float(r0[f'{case}:loss']):.6f} against "
         f"one process's {loss:.6f} (relative {rel:.2e}, limit 1e-4); lowest "
         f"replicated-gradient cosine {worst[0]:.6f} ({worst[1]}); touched "
         f"rows' lowest cosine to one process's {lowest:.6f} (limit 0.999); "
@@ -568,7 +888,8 @@ def _check_sparse(case, single, ranks, shape, mesh_ms):
         f"in one process {'ok' if ok else 'FAIL'}")
     return ok, dict(mesh=shape, loss_rel=rel, lowest_cos=worst[0],
                     rows_lowest_cos=lowest, untouched_equal=bitwise,
-                    block_rows=blocks, mesh_ms=mesh_ms, single_ms=ms)
+                    block_rows=blocks, static_bytes=static,
+                    mesh_ms=mesh_ms, single_ms=ms)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,17 @@ is given; without CUDA and without ``--device cpu`` it raises.
     EVAL_DATA_PATH=... EVAL_RESULT_PATH=... MODEL_OUTPUT_PATH=... \\
     python -m tencent_recommendation_2025_tpu_torch.cli.infer \\
         --preset hstu_flagship --maxlen 1023
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the processes join one group (NCCL,
+one card each; gloo with ``--device cpu``): rank 0 encodes the queries and
+the corpus and writes the files as one process does; after a barrier every
+process reads the corpus file's rows of its shard and serves them
+(``exact``, ``approx``, ``int8``: the corpus row-sharded over the
+processes, ``retrieval/mips.py``), and rank 0 writes the result file and
+scores it. ``hnsw`` and ``semantic`` run on rank 0 alone.
+
+    torchrun --nproc_per_node 4 -m tencent_recommendation_2025_tpu_torch.cli\\
+        .infer --preset hstu_flagship --maxlen 1023
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from pathlib import Path
 from typing import Optional
@@ -73,34 +85,50 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def serving_mesh(dev):
+    """(the process mesh over ``torchrun``'s processes, joined here, and
+    the device of this process) where ``WORLD_SIZE`` > 1; (None, ``dev``)
+    for one process."""
+    import torch
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None, dev
+    from ..parallel.mesh import build_mesh, initialize_distributed
+
+    initialize_distributed(dev.type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return build_mesh(), dev
+
+
 def infer(argv=None, timings: Optional[dict] = None):
-    """Returns (per-user top-10 creative ids, user ids). ``timings``, when
+    """Returns (per-user top-10 creative ids, user ids); None on a rank
+    above 0 of a process mesh, which writes no file. ``timings``, when
     given, receives the host-clock seconds and counts of each phase
     (synchronised with the device)."""
     args = get_args(argv)
-
-    import torch
-
-    from ..config import MM_EMB_DIMS, EnvPaths, PRESETS
-    from ..data import formats
-    from ..data.dataset import TestSampler
-    from ..data.featurizer import (FusedVocab, build_item_tables,
-                                   pack_item_feat)
-    from ..data.pipeline import TestLoader
-    from ..data.readers import TencentGRData
-    from ..data.schema import FeatureSchema
-    from ..models.baseline import SeqRecModel
-    from ..retrieval.ann import run_ann
-    from ..train import checkpoint as CK
-
     dev = resolve_device(args.device)
-    timings = {} if timings is None else timings
+    mesh, dev = serving_mesh(dev)
+    out = _infer(args, dev, mesh, {} if timings is None else timings)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
+    return out
+
+
+def _infer(args, dev, mesh, timings: dict):
+    from ..config import EnvPaths, PRESETS
+    from ..data import formats
+    from ..retrieval.ann import run_ann
 
     env = EnvPaths.from_env()
     assert env.eval_data_path, "EVAL_DATA_PATH must be set"
     assert env.eval_result_path, "EVAL_RESULT_PATH must be set"
     result_dir = Path(env.eval_result_path)
     result_dir.mkdir(parents=True, exist_ok=True)
+    rank0 = mesh is None or mesh.rank == 0
 
     cfg = PRESETS[args.preset]()
     over = {k: getattr(args, k) for k in
@@ -113,6 +141,50 @@ def infer(argv=None, timings: Optional[dict] = None):
         model=dataclasses.replace(cfg.model, **over),
         features=dataclasses.replace(cfg.features,
                                      mm_emb_ids=tuple(args.mm_emb_id)))
+
+    if rank0:
+        user_list, retrieve_id2creative_id = _encode(
+            args, cfg, env, dev, result_dir, timings)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()         # the files written before any rank reads
+
+    rcfg = dataclasses.replace(cfg.retrieval, method=args.ann_method)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = result_dir / "id100.u64bin"
+    if rank0 or args.ann_method in ("exact", "approx", "int8"):
+        out = run_ann(result_dir, rcfg, device=dev,
+                      model_output_path=env.model_output_path,
+                      beam_width=args.beam_width, mesh=mesh)
+    _sync(dev)
+    timings.update(topk_s=time.perf_counter() - t0)
+    if not rank0:
+        return None
+    top10s_retrieved = formats.read_result_ids(out)
+    top10s = [[retrieve_id2creative_id.get(int(r), 0) for r in row]
+              for row in top10s_retrieved]
+    return top10s, user_list
+
+
+def _encode(args, cfg, env, dev, result_dir, timings: dict):
+    """Encode every test user's query and the candidate corpus and write
+    ``query.fbin``, ``embedding.fbin``, ``id.u64bin`` and
+    ``retrive_id2creative_id.json``; returns (user ids, retrieval id ->
+    creative id)."""
+    import torch
+
+    from ..config import MM_EMB_DIMS
+    from ..data import formats
+    from ..data.dataset import TestSampler
+    from ..data.featurizer import (FusedVocab, build_item_tables,
+                                   pack_item_feat)
+    from ..data.pipeline import TestLoader
+    from ..data.readers import TencentGRData
+    from ..data.schema import FeatureSchema
+    from ..models.baseline import SeqRecModel
+    from ..train import checkpoint as CK
 
     data = TencentGRData(env.eval_data_path,
                          mm_emb_ids=cfg.features.mm_emb_ids, split="test")
@@ -211,25 +283,17 @@ def infer(argv=None, timings: Optional[dict] = None):
     formats.save_emb(query_embs, result_dir / "query.fbin")
     with open(result_dir / "retrive_id2creative_id.json", "w") as f:
         json.dump(retrieve_id2creative_id, f)
-
-    rcfg = dataclasses.replace(cfg.retrieval, method=args.ann_method)
-    _sync(dev)
-    t0 = time.perf_counter()
-    out = run_ann(result_dir, rcfg, device=dev,
-                  model_output_path=env.model_output_path,
-                  beam_width=args.beam_width)
-    _sync(dev)
-    timings.update(topk_s=time.perf_counter() - t0)
-    top10s_retrieved = formats.read_result_ids(out)
-    top10s = [[retrieve_id2creative_id.get(int(r), 0) for r in row]
-              for row in top10s_retrieved]
-    return top10s, user_list
+    return user_list, retrieve_id2creative_id
 
 
 def main(argv=None, timings: Optional[dict] = None):
     """Run :func:`infer`, then score HR@10/NDCG@10 when the data carries
-    ``ground_truth.json``; returns those metrics (or None)."""
-    top10s, users = infer(argv, timings)
+    ``ground_truth.json``; returns those metrics (or None; None on a rank
+    above 0 of a process mesh)."""
+    res = infer(argv, timings)
+    if res is None:
+        return None
+    top10s, users = res
     print(f"retrieved top-10 for {len(users)} users")
 
     from ..config import EnvPaths

@@ -35,10 +35,15 @@ def save_emb(emb: np.ndarray, save_path: PathLike) -> None:
         emb.tofile(f)
 
 
-def load_fbin(path: PathLike) -> np.ndarray:
-    """Read a float32 ``.fbin`` written by :func:`save_emb`."""
+def load_fbin(path: PathLike, mmap: bool = False) -> np.ndarray:
+    """Read a float32 ``.fbin`` written by :func:`save_emb`; ``mmap``: a
+    read-only memory map, whose rows are read when sliced (a process that
+    serves a shard of the corpus reads its rows only)."""
     with open(Path(path), "rb") as f:
         rows, cols = _HEADER.unpack(f.read(8))
+        if mmap:
+            return np.memmap(f, dtype=np.float32, mode="r",
+                             offset=_HEADER.size, shape=(rows, cols))
         data = np.fromfile(f, dtype=np.float32, count=rows * cols)
     return data.reshape(rows, cols)
 

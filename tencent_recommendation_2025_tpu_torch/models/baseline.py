@@ -235,17 +235,14 @@ class SeqRecModel:
                    item_tables: Mapping[str, torch.Tensor],
                    lookup_site: str, ep: bool = False) -> torch.Tensor:
         """Item tower on candidate ids whose features are gathered on the
-        device from the static item tables by id (ids clamped to the
-        tables, which may hold fewer rows than the item table); ``ep`` as
-        :meth:`item_embeddings`'s."""
-        idx = ids.long()
-
-        def take(table):
-            return table[idx.clamp(0, table.shape[0] - 1)]
-
-        return self.item_embeddings(params, ids, take(item_tables["sparse"]),
-                                    take(item_tables["array"]), mm_tables,
-                                    lookup_site=lookup_site, ep=ep)
+        device from the static item tables by id (``embedding.static_take``:
+        ids clamped to the tables, which may hold fewer rows than the item
+        table; a table row-sharded on a data mesh looked up across its
+        shards); ``ep`` as :meth:`item_embeddings`'s."""
+        return self.item_embeddings(
+            params, ids, E.static_take(item_tables["sparse"], ids),
+            E.static_take(item_tables["array"], ids), mm_tables,
+            lookup_site=lookup_site, ep=ep)
 
     def logits(self, params: Mapping, batch: Mapping,
                mm_tables: Mapping[str, torch.Tensor],

@@ -39,7 +39,8 @@ from ..data.featurizer import FusedVocab
 from ..data.schema import FeatureSchema
 from ..ops.sparse_table import GatheredRows, is_packed_scale, \
     padded_table_rows
-from ..parallel.sharded_embedding import ShardedTable, sharded_lookup
+from ..parallel.sharded_embedding import (ShardedTable, StaticTable,
+                                          sharded_lookup, static_lookup)
 
 #: vocabularies up to this size run the JAX forward as one-hot matmuls,
 #: which give a ZERO row for an id above the vocabulary (a gather would read
@@ -293,14 +294,23 @@ def user_tower(params: Mapping, ids: torch.Tensor,
     return Fn.relu(linear(_cast_linear(params["userdnn"], dtype), x))
 
 
+def static_take(table, ids: torch.Tensor) -> torch.Tensor:
+    """A static table's rows by id, out-of-range ids clamped to its ends
+    (the JAX gather's mode='clip'); ``table`` may be a
+    :class:`parallel.sharded_embedding.StaticTable` (row-sharded on a data
+    mesh: ``static_lookup``, which clamps to the real rows too)."""
+    if isinstance(table, StaticTable):
+        return static_lookup(table, ids)
+    return table[ids.long().clamp(0, table.shape[0] - 1)]
+
+
 def gather_mm(mm_tables: Mapping[str, torch.Tensor], ids: torch.Tensor,
               schema: FeatureSchema, dtype=None) -> Dict[str, torch.Tensor]:
     """Gather frozen multimodal vectors by item id (id 0 hits the zero row;
-    out-of-range ids clamp)."""
+    out-of-range ids clamp): :func:`static_take`."""
     out = {}
     for fid in schema.mm_emb_ids:
-        t = mm_tables[fid]
-        v = t[ids.long().clamp(0, t.shape[0] - 1)]
+        v = static_take(mm_tables[fid], ids)
         out[fid] = v.to(dtype) if dtype is not None else v
     return out
 

@@ -31,6 +31,12 @@ three collectives over the data group, each differentiable:
 ``all_to_all`` (tiled; its transpose the reverse exchange). A local mesh
 takes them over its list of shards.
 
+The serving corpus row-shards over every axis, flattened (``retrieval/
+mips.py``): :func:`world_shards` shards, of which a process holds the one of
+its rank (``rank = data_index * seq + seq_index``, the JAX device order) and
+a local mesh all (``world_indices``); ``all_gather_world`` gathers the
+shards' winners over every process (no gradient).
+
 Only meshes with pipe = model = 1 are built; others raise
 ``NotImplementedError`` naming ROADMAP Queue 1 item 5 (slices d and e:
 tensor and pipeline parallelism).
@@ -140,6 +146,18 @@ class LocalMesh:
         return [torch.cat([c[d] for c in chunks])
                 for d in range(len(parts))]
 
+    @property
+    def world_indices(self) -> List[int]:
+        """The flattened shards (every axis) this process holds: all."""
+        return list(range(self.shape["data"] * self.shape["seq"]))
+
+    def all_gather_world(self, parts: Sequence[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+        """Every flattened shard's tensor concatenated along dim 0, in shard
+        order, for each shard (no gradient)."""
+        t = torch.cat(list(parts))
+        return [t] * len(parts)
+
     def seq_shards(self, x: torch.Tensor) -> List[torch.Tensor]:
         """The local shards of ``x`` along L (dim 1)."""
         return list(x.chunk(self.shape["seq"], dim=1))
@@ -235,6 +253,20 @@ class ProcessMesh:
     @property
     def rank(self) -> int:
         return self.data_index * self.shape["seq"] + self.seq_index
+
+    @property
+    def world_indices(self) -> List[int]:
+        """The flattened shard this process holds: its rank's."""
+        return [self.rank]
+
+    def all_gather_world(self, parts: Sequence[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+        """Every process's tensor concatenated along dim 0, in rank order
+        (a list of one; no gradient)."""
+        (t,) = parts
+        out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, t.detach().contiguous())
+        return [torch.cat(out)]
 
     def seq_shards(self, x: torch.Tensor) -> List[torch.Tensor]:
         """This process's shard of ``x`` along L (dim 1), as a list of
@@ -435,6 +467,18 @@ def table_index(mesh: Optional[object]) -> int:
     """This process's table shard: its data index (pipe = model = 1), 0
     without a mesh. A local mesh holds every shard (``table_indices``)."""
     return 0 if mesh is None else mesh.data_index
+
+
+def world_shards(mesh: Optional[object]) -> int:
+    """The flattened shards of ``mesh``: the product of every axis (the
+    serving corpus's shards, JAX ``retrieval/mips.py``'s ``n_shards``), 1
+    without a mesh."""
+    if mesh is None:
+        return 1
+    n = 1
+    for a in AXES:
+        n *= mesh.shape.get(a, 1)
+    return n
 
 
 def seq_size(mesh: Optional[object]) -> int:

@@ -37,12 +37,25 @@ lookup sees one data shard's ids: :func:`sharded_lookup` there is the sum of
 every table shard's owned take, which is one masked take of the padded
 table (each id has one owner), and :func:`sharded_lookup_a2a` buckets that
 shard's ids and reads each bucket from its owner's block.
+
+The static item-feature tables (the item ``sparse`` table, int32, and each
+``mm`` table, f32: frozen, read by id) row-shard over the same axes on a
+data mesh (:func:`shard_tables`, the JAX ``parallel/train.shard_tables``,
+which ``parallel.train`` exports): every 2-D table of more than 64 rows
+becomes a :class:`StaticTable`, padded to a multiple of S, of which a
+process holds its block (copied alone from the host). :func:`static_lookup` takes it as
+:func:`sharded_lookup` takes a learned table, forward only, for any dtype,
+with two differences: ids clamp to the table's *real* last row before the
+owner is chosen (the single device's clamp; the JAX mesh's clip reaches a
+zero pad row instead), and id 0 reads row 0 as it is. One owner's row
+summed with zeros is exact, so the lookup equals the whole table's take
+bitwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional, Tuple
+from typing import Any, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -279,3 +292,111 @@ def sharded_lookup_a2a(mesh, table: ShardedTable, ids: torch.Tensor,
     if mesh.process:
         n_over = mesh.all_reduce(n_over, "data")
     return out, n_over
+
+
+# ---------------------------------------------------------------------------
+# static tables
+# ---------------------------------------------------------------------------
+
+#: a static table row-shards when it is 2-D and has more rows than this
+#: (the JAX ``shard_tables`` rule)
+STATIC_MIN_ROWS = 64
+
+
+@dataclasses.dataclass
+class StaticTable:
+    """A static (frozen) table row-sharded over ``mesh``'s table axes:
+    ``blocks`` as :class:`ShardedTable`'s (on a local mesh views of
+    ``whole``, the padded table), ``rows`` the table's real rows."""
+
+    blocks: List[torch.Tensor]
+    mesh: object
+    rows: int
+    whole: Optional[torch.Tensor] = None
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.blocks[0].shape[0]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The padded table's shape, [S * rows_per_shard, W]."""
+        return (self.rows_per_shard * table_shards(self.mesh),) \
+            + tuple(self.blocks[0].shape[1:])
+
+
+def static_table(table, mesh, device=None) -> StaticTable:
+    """A whole static table (a host array or a tensor) row-sharded on
+    ``mesh``, on ``device`` (default: the tensor's own, else the CPU): on a
+    process mesh only this process's block of ``ceil(V / S)`` rows is
+    copied there (and zero-padded at the table's end); on a local mesh the
+    table zero-padded to S blocks."""
+    rows = table.shape[0]
+    S = table_shards(mesh)
+    rps = -(-rows // S)
+    if device is None:
+        device = table.device if isinstance(table, torch.Tensor) else "cpu"
+    if not mesh.process:
+        whole = pad_rows(torch.as_tensor(table, device=device), S)
+        return StaticTable(list(whole.chunk(S)), mesh, rows, whole)
+    lo = table_index(mesh) * rps
+    part = table[lo:lo + rps]
+    if isinstance(part, torch.Tensor):
+        block = part.to(device, copy=True)
+    else:
+        block = torch.from_numpy(np.ascontiguousarray(part)).to(device)
+    if block.shape[0] < rps:
+        block = torch.cat([block, block.new_zeros(
+            (rps - block.shape[0],) + tuple(block.shape[1:]))])
+    return StaticTable([block], mesh, rows)
+
+
+def shard_tables(mesh, tables, device=None) -> Any:
+    """``tables`` (a dict tree of host arrays or tensors: the trainer's
+    ``{"sparse", "array", "mm": {...}}``) with every 2-D table of more than
+    :data:`STATIC_MIN_ROWS` rows a :class:`StaticTable` on ``mesh`` and
+    every other leaf a tensor on ``device``, whole (the 3-D ``array``
+    table, small tables); a :class:`StaticTable` passes as it is. The tree
+    as tensors on ``device`` without a mesh or with one table shard."""
+    sharded = mesh is not None and table_shards(mesh) > 1
+
+    def put(leaf):
+        if isinstance(leaf, Mapping):
+            return {k: put(v) for k, v in leaf.items()}
+        if isinstance(leaf, StaticTable):
+            return leaf
+        if sharded and getattr(leaf, "ndim", 0) == 2 \
+                and leaf.shape[0] > STATIC_MIN_ROWS:
+            return static_table(leaf, mesh, device)
+        return torch.as_tensor(leaf, device=device)
+
+    return put(tables)
+
+
+def owned_rows(block: torch.Tensor, ids: torch.Tensor, lo: int
+               ) -> torch.Tensor:
+    """``block``'s rows for the ids in [lo, lo + rows), zeros for the rest
+    (any dtype; no gradient)."""
+    rel = ids - lo
+    owned = (rel >= 0) & (rel < block.shape[0])
+    rows = block[rel.clamp(0, block.shape[0] - 1)]
+    return torch.where(owned[..., None], rows, rows.new_zeros(()))
+
+
+def static_lookup(table: StaticTable, ids: torch.Tensor) -> torch.Tensor:
+    """``table[clamp(ids, 0, rows - 1)]`` of a row-sharded static table:
+    ``ids`` [B, ...] (this data shard's rows) -> [B, ..., W]. On a process
+    mesh: the clamped ids all-gathered over the data group, each shard's
+    owned rows (zeros elsewhere), a reduce-scatter back to this rank's
+    rows; on a local mesh one take of the padded table. Equal to the whole
+    table's take bitwise."""
+    idx = ids.long().clamp(0, table.rows - 1)
+    mesh = table.mesh
+    with torch.no_grad():
+        if not mesh.process:
+            return table.whole[idx]
+        (gids,) = mesh.all_gather([idx])
+        lo = table_index(mesh) * table.rows_per_shard
+        (out,) = mesh.reduce_scatter([owned_rows(table.blocks[0], gids,
+                                                  lo)])
+    return out

@@ -12,7 +12,8 @@ blocks are its shards. Every other parameter and its AdamW state is
 replicated, one copy per process. The trainer runs each data shard's rows
 (``train/trainer.py``), the tables' lookups cross the shards
 (``parallel/sharded_embedding.py``), and the replicated gradients are
-summed over the processes.
+summed over the processes. The static item-feature tables row-shard over
+the same shards (:func:`shard_tables`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ from ..models.baseline import SeqRecModel
 from ..train.trainer import (TrainState, batch_rows, init_state,
                              make_train_step)
 from .mesh import data_rows, table_index, table_shards
-from .sharded_embedding import SHARDED_TABLES, table_block
+# shard_tables (JAX parallel/train.py:159): the static item and mm tables
+# row-sharded over the table shards, padded to S, the others whole
+from .sharded_embedding import SHARDED_TABLES, shard_tables, table_block
 
 
 def layout(mesh) -> Optional[tuple]:

@@ -3,7 +3,9 @@
 Counterpart of ``tencent_recommendation_2025_tpu/retrieval/ann``: read
 ``embedding.fbin`` / ``id.u64bin`` / ``query.fbin`` from a result directory,
 write the top-k retrieval ids to ``id100.u64bin``. Methods: ``exact``,
-``approx`` and ``int8`` through :func:`..mips.retrieve_topk` on the device;
+``approx`` and ``int8`` through :func:`..mips.retrieve_topk` on the device
+(on a mesh, or over the processes of an initialised group, the corpus
+row-sharded: each process reads and places its rows only);
 ``hnsw`` through the repo's C++ HNSW tool (``native/hnsw``, built with
 ``make`` on first use), the reference's own contract:
 
@@ -50,10 +52,13 @@ def run_ann(result_dir, cfg: RetrievalConfig = RetrievalConfig(),
             dataset_file="embedding.fbin", id_file="id.u64bin",
             query_file="query.fbin", result_file="id100.u64bin",
             device="cuda", model_output_path=None,
-            beam_width: int = 32) -> Path:
+            beam_width: int = 32, mesh=None) -> Path:
     """Top-k search by ``cfg.method`` with the reference's file contract;
     returns the result file's path. ``semantic`` reads its artifacts under
-    ``model_output_path`` and decodes ``beam_width`` beams."""
+    ``model_output_path`` and decodes ``beam_width`` beams. ``mesh`` (the
+    device tiers): the corpus shards over it (``mips.retrieve_topk``); on
+    a process mesh every process serves its rows and rank 0 writes the
+    result file."""
     if cfg.method == "semantic":
         from ..semantic_serve import run_semantic_ann
 
@@ -81,13 +86,16 @@ def run_ann(result_dir, cfg: RetrievalConfig = RetrievalConfig(),
             f"--faiss_metric_type={cfg.metric_type}",
         ], check=True)
         return out
-    from ..mips import retrieve_topk
+    from ..mips import corpus_mesh, retrieve_topk
 
-    corpus = formats.load_fbin(result_dir / dataset_file)
+    mesh = corpus_mesh() if mesh is None else mesh
+    corpus = formats.load_fbin(result_dir / dataset_file,
+                               mmap=mesh is not None)
     ids = formats.load_u64bin(result_dir / id_file)[:, 0]
     queries = formats.load_fbin(result_dir / query_file)
     top = retrieve_topk(queries, corpus, ids, k=cfg.top_k, device=device,
-                        approx=cfg.method == "approx",
+                        mesh=mesh, approx=cfg.method == "approx",
                         quantize=cfg.method == "int8")
-    formats.save_result_ids(top, out)
+    if mesh is None or not mesh.process or mesh.rank == 0:
+        formats.save_result_ids(top, out)
     return out

@@ -23,7 +23,10 @@ shapes. The learned tables row-shard over the data shards
 ``parallel.sharded_embedding.ShardedTable`` s, whose lookups cross the
 shards, and on a data-only mesh the item-id lookups take the explicit
 all-to-all, whose bucket overflows the metrics count (``ep_overflow``).
-Every other parameter is replicated. The loss divides by the global count
+The static item ``sparse`` and ``mm`` tables row-shard over the same
+shards (``parallel.train.shard_tables``: ``StaticTable`` s, looked up
+across the shards, ids clamped to the real rows). Every other parameter is
+replicated. The loss divides by the global count
 of masked positions; the sampled softmax's in-batch negatives are drawn
 over the global batch from a generator every shard shares, and their rows
 cross the data shards with their gradients. On a process mesh the
@@ -74,7 +77,8 @@ from ..ops import losses as LS
 from ..ops import sparse_table as ST
 from ..parallel.mesh import data_rows, data_size, seq_size, table_shards
 from ..parallel.mesh import unported as mesh_unported
-from ..parallel.sharded_embedding import SHARDED_TABLES, shard_view
+from ..parallel.sharded_embedding import (SHARDED_TABLES, shard_tables,
+                                          shard_view)
 from . import telemetry as T
 
 
@@ -270,12 +274,14 @@ def init_state(model: SeqRecModel, cfg: Config, seed: Optional[int] = None,
     return TrainState(params, make_optimizer(cfg, params), 0, tables)
 
 
-def device_tables(item_tables: ItemFeatureTables, device) -> Dict[str, Any]:
-    """The static item-feature and mm tables, on the device once."""
-    return {"sparse": torch.as_tensor(item_tables.sparse, device=device),
-            "array": torch.as_tensor(item_tables.array, device=device),
-            "mm": {k: torch.as_tensor(v, device=device)
-                   for k, v in item_tables.mm.items()}}
+def device_tables(item_tables: ItemFeatureTables, device,
+                  mesh=None) -> Dict[str, Any]:
+    """The static item-feature and mm tables, on the device once; on a
+    ``mesh`` with several table shards the large ones row-sharded
+    (``parallel.train.shard_tables``: a process copies its rows only)."""
+    return shard_tables(mesh, {"sparse": item_tables.sparse,
+                               "array": item_tables.array,
+                               "mm": dict(item_tables.mm)}, device)
 
 
 def put_batch(batch: Mapping, device) -> Dict[str, Any]:
@@ -385,10 +391,16 @@ def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
     loss's.
 
     The row-sharded tables of ``params`` (a mesh with several table shards)
-    enter the model as ``ShardedTable`` s; where the forward's item-id
-    lookups took the all-to-all, the metrics hold ``ep_overflow``, the ids
-    that overflowed their bucket over the global batch (zero rows, dropped
+    enter the model as ``ShardedTable`` s, the static tables as
+    ``StaticTable`` s (whole ones are sharded here, per call:
+    ``train_loop`` shards them once); where the forward's item-id lookups
+    took the all-to-all, the metrics hold ``ep_overflow``, the ids that
+    overflowed their bucket over the global batch (zero rows, dropped
     gradients: alert on > 0)."""
+    if table_shards(mesh) > 1:
+        mm_tables = shard_tables(mesh, mm_tables)
+        item_tables = shard_tables(
+            mesh, {k: v for k, v in item_tables.items() if k != "mm"})
     with ep_overflow_scope() as scope:
         loss, metrics = _compute_loss(model, shard_view(params, mesh), batch,
                                       mm_tables, item_tables, cfg, train,
@@ -1162,7 +1174,9 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     process mesh every process runs the loop on the same global batches,
     only rank 0 logs, and the checkpoints are written synchronously, per
     table shard (each process the rows it owns, rank 0 the rest); a local
-    mesh's are per shard too. The epoch-end retrieval eval runs only without a mesh,
+    mesh's are per shard too. The static tables row-shard once, before the
+    first step (``device_tables(..., mesh)``: a process of a process mesh
+    copies its rows only). The epoch-end retrieval eval runs only without a mesh,
     in one process, as the JAX loop's. Tower dedup runs in one process
     without a seq axis: the stacked per-shard plan on a local data mesh;
     elsewhere it is off, with the JAX loop's warning.
@@ -1188,7 +1202,7 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
         # every process writes its table rows into rank 0's checkpoint
         log_dir = tb_dir = None
         verbose = False
-    tables = device_tables(item_tables, device)
+    tables = device_tables(item_tables, device, mesh)
     mm_tables = tables["mm"]
 
     def put(b):

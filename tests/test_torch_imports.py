@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                 "train.rqvae_trainer", "retrieval.semantic_serve",
                 "cli.semantic", "utils.sysinfo", "utils.debug",
                 "train.supervisor", "data.native_pack", "parallel.train",
-                "parallel.sharded_embedding"):
+                "parallel.sharded_embedding", "retrieval.mips",
+                "data.formats"):
         assert f"{PORT}.{mod}" in imported, mod
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad
