@@ -1858,6 +1858,15 @@ def check_attention(kind, B, L, D, H, dt, seed, NB=128):
     return ok
 
 
+#: HSTU heads past 256, which the first design takes (B, L, D, H): hd 512
+#: and 320 at L=256, the chunked route at L=2048, and hd 1024, whose
+#: backward (bf16 and f32) and forward (f32) stream the head through
+#: shared memory in column slices
+WIDE_HEADS = [("hstu", 2, 256, 512, 1, 128), ("hstu", 2, 256, 640, 2, 128),
+              ("hstu", 1, 2048, 512, 1, 128),
+              ("hstu", 2, 256, 1024, 1, 128)]
+
+
 def phase_attention_kernels():
     """The attention cores against their plain versions on seeded inputs
     with left padding and one fully padded row (B > 1): flash MHA at L=256
@@ -1873,8 +1882,10 @@ def phase_attention_kernels():
     hd 24 (D=96, H=4, L=512: a head padded to 32 columns), hd 256 (D=256,
     H=1, L=256: the first kernels' bf16 path), L=384 (D=64, H=1: six
     tiles) and hd 9 (D=36, H=4: an odd head, copied through registers),
-    its kernel's row stats held to the plain version's; f32 (tight) and
-    bf16. Each call is held to its own route's counters."""
+    its kernel's row stats held to the plain version's; the HSTU heads
+    past 256 (``WIDE_HEADS``: the first design, its column slices at hd
+    1024); f32 (tight) and bf16. Each call is held to its own route's
+    counters."""
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1889,7 +1900,7 @@ def phase_attention_kernels():
              ("flash", 4, 256, 256, 1, 128), ("flash", 4, 384, 64, 1, 128),
              ("flash", 4, 256, 36, 4, 128), ("hstu", 4, 512, 64, 4, 32),
              ("hstu", 2, 1024, 64, 4, 898), ("hstu", 2, 2048, 64, 1, 1794),
-             ("hstu", 4, 512, 64, 2, 128)]
+             ("hstu", 4, 512, 64, 2, 128)] + WIDE_HEADS
     ok = True
     for i, (kind, B, L, D, H, NB) in enumerate(cases):
         for dt in (f32, bf16):
@@ -1907,7 +1918,8 @@ ATTN_SHAPES = (("flash", "baseline", 64, 256, 64, 4),
                ("flash", "baseline_hd8", 64, 256, 32, 4),
                ("flash", "baseline_o1_hd128", 128, 512, 128, 1),
                ("hstu", None, 64, 256, 32, 4),
-               ("hstu", None, 64, 512, 128, 1))
+               ("hstu", None, 64, 512, 128, 1)) + tuple(
+    ("hstu_chunk", None, B, L, D, H) for _, B, L, D, H, _ in WIDE_HEADS)
 _ATTN_REPLACES = {
     "flash": ("flash_attention.cu",
               "tencent_recommendation_2025_tpu/ops/flash_attention.py:",
@@ -2064,7 +2076,9 @@ def phase_attention_times(libs):
                                        names[1])}
         _free()
         first = {}
-        if kind != "flash":   # the first design's kernels, same wrappers
+        # the first design's kernels, same wrappers (past hd 128 they are
+        # the kernels timed above)
+        if kind != "flash" and D // H <= 128:
             with first_design(libs):
                 for key, call, names in (
                         ("fwd", lambda: fwd(q, k, v), HSTU_FIRST[:1]),
@@ -3838,6 +3852,258 @@ def phase_dp():
     return ok, fused
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: tensor parallelism on a local data x model mesh
+# ---------------------------------------------------------------------------
+
+#: (run, name, data shards, model shards, batch) of phase 5f:
+#: sharded_multihost on its own data 4 x model 2 (16 rows and 2 heads of 16
+#: a standalone attention launch; its item table at packed scale, so that
+#: each of the 8 table shards writes through the group scatter), and the
+#: flagship on data 2 x model 2 at 32 rows (H = 1: every shard runs the
+#: head whole, H % M != 0)
+TP_CASES = ((SPARSE_RUN, "tp_sparse", 4, 2, 64),
+            (FLAGSHIP_RUN, "tp_flagship", 2, 2, 64))
+#: timed steps of each side (after 1)
+TP_STEPS = 2
+
+
+def phase_tp_case(run, name, S_data, M, B):
+    """``run``'s preset on a local mesh of data ``S_data`` x model ``M``
+    (bf16, dropout off) against the single device's card step from the
+    same state and batch on the mesh's route ("core": the blocks unfused,
+    the standalone attention; the single device's own fused route rounds
+    elsewhere in bf16, and its gradients' cosine to the core route's is
+    printed): the loss within 1e-3 relative, the lowest per-leaf gradient
+    cosine >= 0.999; with a sparse ``item_emb`` (at
+    packed scale here: ``TABLE_PACK_MIN_ROWS`` 1) every table shard's
+    touched groups and accumulators bitwise a plain row write of the same
+    step's rows (:func:`plain_group_writes`). The launches: the standalone
+    HSTU attention (rows 13-14) once a block, data shard and model shard
+    (once a block and data shard where M does not divide H), the group
+    scatter once a table shard and chunk, no fused kernel; a profiled mesh
+    step runs the attention's wgmma kernels (``hstu_route``). Logs the
+    mesh's and the single device's step ms (host clock, TP_STEPS
+    synchronised steps after 1), the mesh step's idle share, and the HSTU
+    attention's device ms a launch at the shard's heads beside all heads.
+    Returns (ok, the launches of the phase)."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.data.readers import \
+        TencentGRData
+    from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    t0 = time.perf_counter()
+    if not run.data_dir.exists():
+        from tencent_recommendation_2025_tpu_torch.data import synthetic
+
+        synthetic.generate(run.data_dir, mm_emb_ids=("81",), **run.fixture)
+    data = TencentGRData(run.data_dir, mm_emb_ids=("81",))
+    run = dataclasses.replace(run, batch_size=B)
+    cfg, schema, (raw,) = _train_batches(data, 1, run)
+    sparse = "item_emb" in cfg.train.sparse_tables
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dtype="bfloat16",
+                                  dropout_rate=0.0),
+        # tower dedup takes a model mesh only with a sparse item_emb
+        train=dataclasses.replace(cfg.train, tower_dedup=sparse))
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+    mesh = local_mesh(MeshConfig(data=S_data, model=M))
+    S = S_data * M
+    nb, H, D = cfg.model.num_blocks, cfg.model.num_heads, \
+        cfg.model.hidden_units
+    saved_min = ST.TABLE_PACK_MIN_ROWS
+    ST.TABLE_PACK_MIN_ROWS = 1 if sparse else saved_min
+    try:
+        model = SeqRecModel(cfg=cfg.model, schema=schema,
+                            fused=FusedVocab.build(schema),
+                            usernum=data.usernum, itemnum=data.itemnum)
+        params = model.init(torch.Generator().manual_seed(cfg.train.seed),
+                            device="cuda")
+        tabs = TR.device_tables(tables, "cuda")
+        stabs = PT.shard_tables(mesh, tabs)
+
+        def prep(n_data, n_tables):
+            key = (cfg.train.seed, 97, 1, 0)
+            b = dict(raw)
+            if cfg.train.loss_type == "sampled_softmax":
+                b["sampled_neg_ids"] = TR._sample_negatives(
+                    cfg, data.itemnum, key)
+            if cfg.train.tower_dedup:
+                b = TR.augment_batch_dedup(b, cfg, tables, data.itemnum,
+                                           step_key=key,
+                                           n_data_shards=n_data)
+            if sparse:
+                b = TR.augment_batch_sparse(b, cfg, data.itemnum, key,
+                                            n_table_shards=n_tables,
+                                            usernum=data.usernum)
+            return TR.put_batch(b, "cuda")
+
+        def fresh(m_):
+            state = TR.init_state(model, cfg, params=params, device="cuda")
+            return state if m_ is None else PT.shard_existing_state(m_,
+                                                                    state)
+
+        res = {}
+        one_b = prep(1, 1)
+        for side, m_, b in (("single", None, one_b),
+                            ("single_core", None, one_b),
+                            ("mesh", mesh, prep(S_data, S))):
+            state = fresh(m_)
+            tb = tabs if m_ is None else stabs
+            want = plain_group_writes(model, cfg, fresh(m_), b, tb, m_) \
+                if sparse and m_ is not None else None
+            step = TR.make_train_step(model, cfg, m_)
+            reset_launches()
+            saved_route = ENC.block_route
+            if side == "single_core":
+                # the route the mesh takes (the blocks unfused, the
+                # standalone attention), so that the check holds the split
+                # alone: the fused route rounds elsewhere in bf16
+                ENC.block_route = lambda *a: "core"
+            try:
+                state, met = step(state, b, tb["mm"], tb)
+            finally:
+                ENC.block_route = saved_route
+            torch.cuda.synchronize()
+            if side == "single_core":
+                res[side] = dict(loss=float(met["loss"]), got=read_launches(),
+                                 grads={p: t.grad.float().clone() for p, t in
+                                        TR.dense_leaves(state.params, cfg)})
+                del state
+                continue
+            got = read_launches()
+            grads = {p: t.grad.float().clone() for p, t in
+                     TR.dense_leaves(state.params, cfg)}
+            ok_groups = want is None or groups_written(
+                want, state.params["item_emb"],
+                state.tables["item_emb"]["acc"])
+            t1 = time.perf_counter()
+            for _ in range(TP_STEPS):
+                state, _ = step(state, b, tb["mm"], tb)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) / TP_STEPS * 1e3
+            prof = wall = None
+            if m_ is not None:
+                def one_step():
+                    nonlocal state
+                    state, _ = step(state, b, tb["mm"], tb)
+
+                prof, wall = route_trace(name, one_step, ("hstu",))
+            res[side] = dict(loss=float(met["loss"]), grads=grads, ms=ms,
+                             got=got, ok_groups=ok_groups, prof=prof,
+                             wall=wall)
+            del state
+            _free()
+    finally:
+        ST.TABLE_PACK_MIN_ROWS = saved_min
+    one, core, tp = res["single"], res["single_core"], res["mesh"]
+    rel = abs(tp["loss"] - core["loss"]) / abs(core["loss"])
+    # a mesh's table gradients hold the shard-pad rows past the table's
+    cos = {p: _grad_cos(tp["grads"][p][:len(g)], g)
+           for p, g in core["grads"].items()}
+    worst = min((c, p) for p, c in cos.items())
+    fused = min((_grad_cos(core["grads"][p], g), p)
+                for p, g in one["grads"].items())
+    ok_num = rel <= 1e-3 and worst[0] >= 0.999 \
+        and bool(np.isfinite(tp["loss"]))
+    # launches of the checked mesh step
+    calls = nb * S_data * (M if H % M == 0 else 1)
+    key = "hstu_chunk" if HA._use_long(cfg.model.maxlen + 1,
+                                       D // M if H % M == 0 else D) \
+        else "hstu"
+    got = tp["got"]
+    want_l = dict.fromkeys(got, 0)
+    want_l.update({f"{key}_fwd": calls, f"{key}_bwd": calls})
+    if sparse:
+        want_l["group_scatter"] = got["group_scatter"]
+        ok_scatter = got["group_scatter"] >= S
+    else:
+        ok_scatter = True
+    ok_launch = got == want_l and ok_scatter
+    by_name = _device_ms(tp["prof"])
+    ok_route = hstu_route(name, by_name)
+    busy = sum(by_name.values())
+    log(f"{name}: {run.preset} (B={B}, L={cfg.model.maxlen + 1}, D={D}, "
+        f"H={H}, {nb} blocks, bf16, dropout 0) on data {S_data} x model {M} "
+        f"({B // S_data} rows and {H // M if H % M == 0 else H} heads of "
+        f"{D // H} a standalone attention launch) against the single "
+        f"device's step on the mesh's route (unfused blocks, the standalone "
+        f"attention) from the same state: loss {tp['loss']:.6f} / "
+        f"{core['loss']:.6f} (relative {rel:.2e}, limit 1e-3); lowest "
+        f"gradient cosine {worst[0]:.6f} ({worst[1]}, limit 0.999) "
+        f"{'ok' if ok_num else 'FAIL'}; the single device's own fused "
+        f"route against its core route: loss {one['loss']:.6f}, lowest "
+        f"gradient cosine {fused[0]:.6f} ({fused[1]}; the two routes' bf16 "
+        f"rounding, printed only)")
+    if sparse:
+        log(f"{name}: each of the {S} table shards' touched groups and "
+            f"accumulators equal to a plain row write of compute_row_update"
+            f"'s rows through its plan: {tp['ok_groups']} "
+            f"{'ok' if tp['ok_groups'] else 'FAIL'}")
+    log(f"{name}: launches of the checked mesh step: "
+        + ", ".join(f"{k} {got[k]} (expected {want_l[k]})" for k in got
+                    if got[k] or want_l[k])
+        + f"; the single device's: " + ", ".join(
+            f"{k} {v}" for k, v in one["got"].items() if v)
+        + "; on the core route: " + ", ".join(
+            f"{k} {v}" for k, v in core["got"].items() if v)
+        + f" {'ok' if ok_launch else 'FAIL'}")
+    log(f"{name}: train step {tp['ms']:.3f} ms on the mesh "
+        f"({B / tp['ms'] * 1e3:.1f} examples/s), single device "
+        f"{one['ms']:.3f} ms ({B / one['ms'] * 1e3:.1f} examples/s) (host "
+        f"clock, synchronised, {TP_STEPS} steps after 1); profiled mesh "
+        f"step: wall {tp['wall']:.3f} ms, device busy {busy:.3f} ms (idle "
+        f"{max(0.0, 1 - busy / tp['wall']):.1%})")
+    # the standalone attention at the shard's heads beside all of them
+    L = cfg.model.maxlen + 1
+    for Hc, Dc in ((H // M, D // M), (H, D)) if H % M == 0 else ((H, D),):
+        q, k, v, dout, valid, rab = attention_inputs(B // S_data, L, Dc, Hc,
+                                                     torch.bfloat16, 60)
+        fns = (lambda: HA.hstu_attention_fwd(q, k, v, valid, rab, L, Hc),
+               lambda: HA.hstu_attention_bwd(q, k, v, dout, valid, rab, L,
+                                             Hc))
+        shown = []
+        for call, names in zip(fns, KERNEL_NAMES["hstu"]):
+            ms = kernel_device_ms(call, names)
+            # the profiler loses events late in a run: then CUDA events
+            # with the queue held full (queued_ms), said so
+            shown.append(f"{ms:.4f} device ms" if ms == ms else
+                         f"{queued_ms(call):.4f} queued ms")
+        log(f"{name}: HSTU attention at {B // S_data} rows, L={L}, {Hc} "
+            f"heads of {Dc // Hc}: forward {shown[0]} / backward {shown[1]} "
+            f"a launch")
+        del q, k, v, dout, valid, rab
+    _free()
+    log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+    return (ok_num and tp["ok_groups"] and ok_launch and ok_route, got)
+
+
+def phase_tp():
+    """Phase 5f: tensor parallelism on a local mesh (:data:`TP_CASES`).
+    Returns (ok, the launches of its checked mesh steps)."""
+    ok, launches = True, None
+    for run, name, S_data, M, B in TP_CASES:
+        o, got = phase_tp_case(run, name, S_data, M, B)
+        ok &= o
+        launches = got if launches is None else \
+            {k: v + got[k] for k, v in launches.items()}
+    return ok, launches
+
+
 def phase_native_pack(run):
     """The native pack of ``run``'s fixture and window (the long run's: 384
     users, L=4096) on the card's host, every field and the seen sets
@@ -4819,6 +5085,72 @@ def static_lookup_checks(name, stabs, wants, id_sets):
     return ok
 
 
+def plain_group_writes(model, cfg, state, bd, stabs, mesh):
+    """The reference of a sharded sparse step's write-back: the step's row
+    gradients (its forward and backward from ``state``, step 0) through
+    each table shard's plan and ``compute_row_update`` (rowwise Adagrad),
+    written plainly into a copy of the shard's touched groups. Per shard
+    (its touched group ids, their rows after the write, its real local
+    rows, their accumulators after it)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        table_shards
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    table = state.params["item_emb"]
+    acc = state.tables["item_emb"]["acc"]
+    S, D = table_shards(mesh), table.shape[1]
+    R = ST.scatter_group_rows(D)
+    rps = table.shape[0] // S
+    dev = table.device
+    _, _, per = TR.sparse_loss_backward(
+        model, cfg, state, dict(bd), stabs["mm"], stabs,
+        TR.step_generator(cfg.train.seed, 0, dev), mesh=mesh,
+        gens=TR.shard_gens(mesh, cfg.train.seed, 0, dev))
+    p = per["item_emb"]
+    plan = p["shard_plan"]
+    blocks, accs = table.chunk(S), acc.chunk(S)
+    want = []
+    with torch.no_grad():
+        zero = torch.zeros((1, D), dtype=torch.float32, device=dev)
+        vals = torch.cat([p["rows"].grad.float(), zero])
+        rows0 = torch.cat([p["rows"].detach().float(), zero])
+        for s in range(S):
+            lids, gpos = plan["lids"][s], plan["gpos"][s].long()
+            n = int((lids < rps).sum())
+            new_rows, opt_rows = ST.compute_row_update(
+                blocks[s], {"acc": accs[s]}, lids, vals[gpos],
+                kind="rowwise_adagrad", lr=TR.lr_at_step(cfg.train, 1),
+                step=1, weight_decay=cfg.train.weight_decay,
+                rows0=rows0[gpos])
+            gv = ST.group_view(blocks[s], R)
+            groups = plan["groups"][s]
+            g = groups[:int((groups < gv.shape[0]).sum())].long()
+            lid = lids[:n].long()
+            pos = torch.searchsorted(g, lid // R) * R + lid % R
+            want.append((g, gv[g].clone().view(-1, D).index_copy_(
+                0, pos, new_rows[:n].to(table.dtype)).view(len(g), -1),
+                lid, opt_rows["acc"][:n]))
+    return want
+
+
+def groups_written(want, table, acc) -> bool:
+    """Whether each shard's touched groups of ``table`` (whole) and their
+    accumulators are bitwise ``want``'s (:func:`plain_group_writes`)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+
+    R = ST.scatter_group_rows(table.shape[1])
+    S = len(want)
+    return all(torch.equal(ST.group_view(b, R)[g], wg)
+               and torch.equal(a[lid], wa)
+               for b, a, (g, wg, lid, wa) in zip(table.chunk(S),
+                                                  acc.chunk(S), want))
+
+
 def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
                   groups_before, acc_before, sample, sample_before):
     """Phase 5e: the 100M phase's step on a local mesh of SHARDED_100M data
@@ -4908,47 +5240,15 @@ def phase_sharded(model, cfg, raw, tabs, table, acc, params0, real, grp,
     ok_static = static_lookup_checks("sharded_100m", stabs,
                                      whole_takes(tabs, ids), ids)
 
-    # the reference: the same step's row gradients through each shard's
-    # plan and compute_row_update, written plainly into a copy of the
-    # shard's touched groups
-    _, _, per = TR.sparse_loss_backward(
-        model, cfg, state, dict(bd), stabs["mm"], stabs,
-        TR.step_generator(cfg.train.seed, 0, dev), mesh=mesh,
-        gens=TR.shard_gens(mesh, cfg.train.seed, 0, dev))
-    p = per["item_emb"]
-    plan = p["shard_plan"]
+    want = plain_group_writes(model, cfg, state, bd, stabs, mesh)
     blocks, accs = table.chunk(S), acc.chunk(S)
-    want = []
-    with torch.no_grad():
-        zero = torch.zeros((1, D), dtype=torch.float32, device=dev)
-        vals = torch.cat([p["rows"].grad.float(), zero])
-        rows0 = torch.cat([p["rows"].detach().float(), zero])
-        for s in range(S):
-            lids, gpos = plan["lids"][s], plan["gpos"][s].long()
-            n = int((lids < rps).sum())
-            new_rows, opt_rows = ST.compute_row_update(
-                blocks[s], {"acc": accs[s]}, lids, vals[gpos],
-                kind="rowwise_adagrad", lr=TR.lr_at_step(cfg.train, 1),
-                step=1, weight_decay=cfg.train.weight_decay,
-                rows0=rows0[gpos])
-            gv = ST.group_view(blocks[s], R)
-            groups = plan["groups"][s]
-            g = groups[:int((groups < gv.shape[0]).sum())].long()
-            lid = lids[:n].long()
-            pos = torch.searchsorted(g, lid // R) * R + lid % R
-            want.append((g, gv[g].clone().view(-1, D).index_copy_(
-                0, pos, new_rows[:n].to(table.dtype)).view(len(g), -1),
-                lid, opt_rows["acc"][:n]))
-    del per, p, vals, rows0
     step = TR.make_train_step(model, cfg, mesh)
     reset_launches()
     state, m = step(state, bd, stabs["mm"], stabs)
     torch.cuda.synchronize()
     got = read_launches()
     loss = float(m["loss"])
-    ok_groups = all(torch.equal(ST.group_view(blocks[s], R)[g], wg)
-                    and torch.equal(accs[s][lid], wa)
-                    for s, (g, wg, lid, wa) in enumerate(want))
+    ok_groups = groups_written(want, table, acc)
     n_grp = [len(g) for g, _, _, _ in want]
     del want
     ok_untouched = torch.equal(table[sample], sample_before)
@@ -5379,9 +5679,10 @@ def _tree_map(fn, t):
     return fn(t)
 
 
-#: depth of the ring's one-step check: the long model's first 4 of its 8
-#: blocks (its CPU reference took 71 s of an 866 s run at 8)
-RING_CHECK_BLOCKS = 4
+#: depth of the ring's one-step check: the long model's first 2 of its 8
+#: blocks (its CPU reference took 71 s of an 866 s run at 8; the check 34 s
+#: of a 797 s run at 4, once phase 5f was added)
+RING_CHECK_BLOCKS = 2
 
 
 def phase_ring_one_step(run, ckpt):
@@ -5711,6 +6012,12 @@ def main() -> int:
             # whole-sequence kernels' entries, as phase 5c's
             oks["dp"], dp = phase_dp()
             trained = {k: v + opt[k] + dp[k] for k, v in trained.items()}
+            # tensor parallelism on a local mesh: its standalone HSTU
+            # attention launches add to that kernel's entries (hstu_mini's
+            # run), its group scatters to the group entries
+            oks["tp"], tp = phase_tp()
+            extra["hstu_mini"] = {k: tp[k] for k in ("hstu_fwd",
+                                                     "hstu_bwd")}
         for entry, n in zip(found, (served["fused_fwd"],
                                     trained["fused_train"],
                                     trained["fused_bwd"])):
@@ -5752,7 +6059,7 @@ def main() -> int:
     oks["sparse_100m"], launches = phase_sparse_100m()
     log(f"100m phase: {time.perf_counter() - t0:.1f} s")
     for entry in group_entries:
-        entry["launches"] = launches[entry["name"]]
+        entry["launches"] = launches[entry["name"]] + tp[entry["name"]]
     entries += [e for es in attn_bwd.values() for e in es]
     entries += [e for es in post.values() for e in es]
     entries += [e for es in pre.values() for e in es]

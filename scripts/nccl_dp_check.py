@@ -56,6 +56,20 @@ the mesh).
   under ``torchrun --nproc_per_node N`` on a seeded checkpoint of the
   flagship model, against one process on one card: the ``id100.u64bin``
   files byte-equal.
+- ``tp`` (tensor parallelism; ``--cases tp`` runs the three):
+  ``tp_sparse``, sharded_multihost ``--maxlen 1023`` (B=64, sparse
+  ``item_emb``, the sampled softmax) on data N/2 x model 2, and
+  ``tp_flagship_seq2``, the flagship on data N/4 x model 2 x seq 2 (the
+  unfused ring on each shard's heads), both f32 with the limits of
+  ``bce_dp_seq2`` (a model mesh runs its blocks unfused, which round
+  elsewhere than the single device's fused kernels in bf16: ``pos_emb``'s
+  gradient at cosine 0.9982 on four cards); the tensor-parallel leaves' gradients and
+  parameters gathered whole over the model group before they are held;
+  ``tp_cli``, ``cli.train --preset sharded_multihost --maxlen 1023`` for
+  one epoch under ``torchrun --nproc_per_node N`` without
+  ``--mesh_model`` (the preset's model = 2, the rest on data): the mesh
+  line, finite losses in ``train.log``, a checkpoint whose table extents
+  are one a (data, model) shard.
 
 Dropout 0, tower dedup off (several processes gate it off). Prints the
 card line, one line per check ending in ``ok`` or ``FAIL`` (also on
@@ -68,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -87,7 +102,18 @@ CASES = {"bce_dp": ("hstu_flagship", 1023, 128, "bce", 1, "bfloat16"),
          "bce_dp_seq2": ("hstu_flagship", 1023, 128, "bce", 2, "float32"),
          "sparse_100m": (None, 1023, 64, "bce", 1, "bfloat16"),
          "topk": (None, None, None, None, 1, "float32"),
-         "infer": ("hstu_flagship", 1023, 128, None, 1, "bfloat16")}
+         "infer": ("hstu_flagship", 1023, 128, None, 1, "bfloat16"),
+         "tp_sparse": ("sharded_multihost", 1023, 64, "sampled_softmax", 1,
+                       "float32"),
+         "tp_flagship_seq2": ("hstu_flagship", 1023, 128, "bce", 2,
+                              "float32"),
+         "tp_cli": ("sharded_multihost", 1023, 64, None, 1, "bfloat16")}
+#: the model axis of the tensor-parallel cases (1 elsewhere)
+MODEL_AXIS = {"tp_sparse": 2, "tp_flagship_seq2": 2}
+#: --cases names that stand for several cases
+CASE_GROUPS = {"tp": ("tp_sparse", "tp_flagship_seq2", "tp_cli")}
+#: the cases that run their own processes (not the workers' mesh)
+OWN_PROCESSES = ("infer", "tp_cli")
 #: the topk case's corpora (rows, width) and queries; --small's
 TOPK = dict(int8=100_000_000, f32=25_000_000, D=64, Q=1024, k=10, seed=91)
 TOPK_SMALL = dict(TOPK, int8=200_003, f32=50_001, Q=64)
@@ -451,9 +477,11 @@ def _run(case, small, device, mesh):
     import torch
 
     from tencent_recommendation_2025_tpu_torch.ops import losses as LS
+    from tencent_recommendation_2025_tpu_torch.parallel import \
+        partition as PP
     from tencent_recommendation_2025_tpu_torch.parallel import train as PT
-    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
-        table_index
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import (
+        table_index, table_shards)
     from tencent_recommendation_2025_tpu_torch.parallel.sharded_embedding \
         import SHARDED_TABLES
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
@@ -461,6 +489,10 @@ def _run(case, small, device, mesh):
     model, cfg, tables, batch = _world(case, small)
     state = PT.init_sharded_state(model, cfg, mesh, seed=5, device=device)
     tabs = TR.device_tables(tables, device, mesh)   # static tables sharded
+    if cfg.train.sparse_tables:
+        batch = TR.augment_batch_sparse(
+            batch, cfg, model.itemnum, (cfg.train.seed, 97, 1, 0),
+            n_table_shards=table_shards(mesh), usernum=model.usernum)
     b = TR.put_batch(batch, device)
     step = PT.make_sharded_train_step(model, cfg, mesh)
     seen, loss_fn = [], LS.sampled_softmax_loss
@@ -482,9 +514,20 @@ def _run(case, small, device, mesh):
             return p
         return f"{p}@{table_index(mesh) * t.shape[0]}"
 
-    grads = {key(p, t): t.grad.float().cpu().numpy()
-             for p, t in TR.param_leaves(state.params)}
-    params = {key(p, t): t.detach().float().cpu().numpy()
+    split = PP.model_dims(state.params) \
+        if mesh is not None and mesh.shape["model"] > 1 else {}
+
+    def whole(p, t):
+        """A tensor-parallel leaf's slice gathered whole over the model
+        group (every rank calls it, in the same order)."""
+        if p not in split:
+            return t
+        return PP.join_model(mesh, t, p, split[p])
+
+    grads = {key(p, t): whole(p, t.grad).float().cpu().numpy()
+             for p, t in TR.param_leaves(state.params)
+             if t.grad is not None}
+    params = {key(p, t): whole(p, t.detach()).float().cpu().numpy()
               for p, t in TR.param_leaves(state.params)}
     cands = torch.cat(seen).numpy() if seen else np.zeros(0)
 
@@ -515,8 +558,10 @@ def _worker(out_dir, device, small, cases):
     res = {}
     for case in cases:
         seq = CASES[case][4]
-        mesh = build_mesh(MeshConfig(seq=seq))
+        mesh = build_mesh(MeshConfig(seq=seq,
+                                     model=MODEL_AXIS.get(case, 1)))
         res[f"{case}:shape"] = np.array([mesh.shape["data"],
+                                         mesh.shape["model"],
                                          mesh.shape["seq"]])
         if case == "topk":
             out, held, ms = _run_topk(small, device, mesh)
@@ -597,7 +642,8 @@ def main() -> int:
     p.add_argument("--cases", default=",".join(CASES),
                    help="comma-separated cases to run")
     args = p.parse_args()
-    cases = args.cases.split(",")
+    cases = [c for name in args.cases.split(",")
+             for c in CASE_GROUPS.get(name, (name,))]
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -629,11 +675,11 @@ def main() -> int:
                                                args.nproc),
             "topk": lambda: _run_topk(args.small, dev, None)}
     for case in cases:
-        if case != "infer":
+        if case not in OWN_PROCESSES:
             one[case] = runs.get(case, lambda: _run(case, args.small, dev,
                                                     None))()
         _free(args.device)
-    mesh_cases = [c for c in cases if c != "infer"]
+    mesh_cases = [c for c in cases if c not in OWN_PROCESSES]
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -666,8 +712,9 @@ def main() -> int:
         if mesh_cases else []
     summary = {}
     for case in cases:
-        if case == "infer":
-            ok_c, summary[case] = _check_infer(args)
+        if case in OWN_PROCESSES:
+            ok_c, summary[case] = (_check_infer if case == "infer"
+                                   else _check_tp_cli)(args)
             ok &= ok_c
             continue
         dtype = CASES[case][5]
@@ -715,7 +762,8 @@ def main() -> int:
                              table_rows_held=rows_ok, ep_overflow=overflow,
                              candidates_equal=same_cands,
                              mesh_ms=mesh_ms, single_ms=ms)
-        log(f"{case}: {args.nproc} processes, mesh (data, seq) {shape}, "
+        log(f"{case}: {args.nproc} processes, mesh (data, model, seq) "
+            f"{shape}, "
             f"{dtype}, ep_overflow {overflow}: loss "
             f"{float(r0[f'{case}:loss']):.6f} against one process's "
             f"{loss:.6f} (relative {rel:.2e}, limit {rel_lim:g}); lowest "
@@ -757,7 +805,7 @@ def _check_topk(single, ranks, shape, sizes):
                              held_bytes=held, mesh_ms=ms,
                              single_ms=ms1[tier])
         corpus = sizes["int8" if tier == "int8" else "f32"]
-        log(f"topk {tier}: {len(ranks)} processes, mesh (data, seq) {shape}"
+        log(f"topk {tier}: {len(ranks)} processes, mesh (data, model, seq) {shape}"
             f", {corpus} x {sizes['D']}: ids against one card's: "
             f"{int(diff.sum())} places differ, every one a tie within "
             f"{rel:g} relative {ties}; recall@10 {recall:.6f} (limit 0.999); "
@@ -847,6 +895,63 @@ def _check_infer(args):
     return ok, dict(equal=equal, mesh_s=secs["mesh"], one_s=secs["one"])
 
 
+def _check_tp_cli(args):
+    """The tp_cli case: ``cli.train --preset sharded_multihost`` (one epoch
+    of the fixture) under ``torchrun --nproc_per_node N`` with no
+    ``--mesh_model``: it exits 0 on data N/2 x model 2, its train.log
+    losses are finite, and its checkpoint's item table has one extent a
+    (data, model) shard while the tensor-parallel leaves are whole."""
+    preset, maxlen, batch, _, _, _ = CASES["tp_cli"]
+    cli = ["--preset", preset, "--maxlen", str(maxlen), "--batch_size",
+           str(batch), "--device", args.device, "--num_workers", "2",
+           "--num_epochs", "1"]
+    if args.small:
+        cli += ["--maxlen", str(SMALL["maxlen"]), "--batch_size",
+                str(SMALL["batch"]), "--hidden_units",
+                str(SMALL["hidden_units"]), "--num_blocks",
+                str(SMALL["num_blocks"]), "--dtype", "float32"]
+    out = WORK / "tp_cli"
+    if out.exists():          # a checkpoint of an earlier run is no proof
+        shutil.rmtree(out)
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               TRAIN_DATA_PATH=str(WORK / "data"),
+               TRAIN_LOG_PATH=str(out / "logs"),
+               TRAIN_CKPT_PATH=str(out / "ckpt"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc_per_node", str(args.nproc),
+                          "-m", "tencent_recommendation_2025_tpu_torch.cli."
+                          "train"] + cli, env=env, capture_output=True,
+                         text=True, timeout=TIMEOUT)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        log(f"tp_cli: exited {run.returncode} FAIL:\n"
+            f"{(run.stdout + run.stderr)[-4000:]}")
+        return False, {}
+    shape = {"pipe": 1, "data": args.nproc // 2, "model": 2, "seq": 1}
+    mesh_line = f"mesh: {shape} over {args.nproc} processes" in run.stdout
+    lines = [json.loads(ln) for ln in open(out / "logs" / "train.log")]
+    losses = [ln["loss"] for ln in lines if "loss" in ln]
+    finite = bool(losses) and all(np.isfinite(losses))
+    sys.path.insert(0, str(ROOT))
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+
+    ck = CK.latest_checkpoint(out / "ckpt")
+    entries = {e["path"]: e for e in json.loads(
+        (ck / "manifest.json").read_text())["leaves"]} if ck else {}
+    extents = len(entries.get("0/item_emb", {}).get("shards", []))
+    whole = "file" in entries.get("0/blocks/hstu/uvqk/w", {})
+    ok = mesh_line and finite and extents == args.nproc and whole
+    log(f"tp_cli: cli.train {' '.join(cli)} under torchrun --nproc_per_node "
+        f"{args.nproc} ({secs:.1f} s): mesh {shape} {mesh_line}; "
+        f"{len(losses)} steps, losses finite {finite} (last "
+        f"{losses[-1] if losses else float('nan'):.6f}); checkpoint "
+        f"{ck.name if ck else None}: item_emb in {extents} extents, uvqk "
+        f"whole {whole} {'ok' if ok else 'FAIL'}")
+    return ok, dict(mesh=shape, steps=len(losses), seconds=secs,
+                    extents=extents)
+
+
 def _check_sparse(case, single, ranks, shape, mesh_ms):
     """The sparse case's checks of every rank against one process."""
     loss, grads, _, rows1, launches1, ms = single
@@ -875,7 +980,7 @@ def _check_sparse(case, single, ranks, shape, mesh_ms):
                                r[f"{case}:rows:sampled"])
     launches = [int(r[f"{case}:launches"]) for r in ranks]
     ok = rel <= 1e-4 and worst[0] >= 0.999 and lowest >= 0.999 and bitwise
-    log(f"{case}: {len(ranks)} processes, mesh (data, seq) {shape}: table "
+    log(f"{case}: {len(ranks)} processes, mesh (data, model, seq) {shape}: table "
         f"rows a rank {blocks}; static tables' bytes a card "
         f"{[round(b / 1e9, 3) for b in static]} GB (one card alone "
         f"{int(rows1['static_bytes']) / 1e9:.3f} GB); loss {float(r0[f'{case}:loss']):.6f} against "

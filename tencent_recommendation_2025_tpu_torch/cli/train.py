@@ -25,16 +25,16 @@ one process, a preset whose mesh wants several devices
 (``sampled_softmax_dp``, ``sharded_multihost``, or any ``--mesh_*``) trains
 on one, with the JAX CLI's warning. Under ``torchrun`` (``WORLD_SIZE`` > 1)
 the processes form the mesh, one card each (``LOCAL_RANK``; NCCL, or gloo
-with ``--device cpu``): ``seq`` = ``--mesh_seq`` (the preset's) and every
-other process on ``data``, as the JAX ``build_mesh`` folds them. Dense
-or sparse tables with either loss train data-parallel, sequence-parallel or
-both (dense ones with ``--grad_accum_steps`` too); the learned tables
-row-shard over the data processes, the item-id lookups of a data-only mesh
-take the all-to-all (``Tables/ep_overflow``), and the in-batch negatives of
-the sampled softmax span the global batch. Tower dedup is off there (the
-JAX CLI's warning). Pipe or model > 1 raise ``NotImplementedError``
-(ROADMAP Queue 1, item 5): ``sharded_multihost``, whose preset wants model
-= 2, trains there with ``--mesh_model 1``. Only rank 0 writes
+with ``--device cpu``): ``model`` = ``--mesh_model`` and ``seq`` =
+``--mesh_seq`` (the preset's) and every other process on ``data``, as the
+JAX ``build_mesh`` folds them. Dense or sparse tables with either loss
+train data-parallel, tensor-parallel, sequence-parallel or any mix (dense
+ones with ``--grad_accum_steps`` too); the learned tables row-shard over
+the data x model processes, the item-id lookups of a data-only mesh take
+the all-to-all (``Tables/ep_overflow``), and the in-batch negatives of the
+sampled softmax span the global batch. Tower dedup is off there (the JAX
+CLI's warning). Pipe > 1 raises ``NotImplementedError`` (ROADMAP Queue 1,
+item 5). Only rank 0 writes
 ``train.log`` and TensorBoard events; every process writes its table rows
 into the per-shard checkpoint (which ``cli.infer`` serves on one card), and
 ``--state_dict_path`` resumes on any mesh, each process reading its rows.
@@ -57,9 +57,11 @@ torch.cli.train --preset hstu_flagship --mesh_seq S --maxlen 4095
 --batch_size 32``.
 Sparse tables and the sampled softmax: ``--preset sharded_multihost
 --maxlen 1023`` (sparse ``item_emb``, rowwise Adagrad) or ``--preset
-sampled_softmax_dp``; on N cards, row-sharded: ``torchrun --nproc_per_node
-N -m tencent_recommendation_2025_tpu_torch.cli.train --preset
-sharded_multihost --mesh_model 1``. The ReLU-FFN HSTU on long histories (the standalone
+sampled_softmax_dp``; on N cards, row-sharded over data x model and
+tensor-parallel on the preset's model = 2: ``torchrun --nproc_per_node N
+-m tencent_recommendation_2025_tpu_torch.cli.train --preset
+sharded_multihost`` (N = 8 is the preset's data 4 x model 2). The ReLU-FFN
+HSTU on long histories (the standalone
 HSTU attention kernels, chunked route): ``--preset hstu_mini --maxlen 4095
 --batch_size 32 --loader cached``.
 """
@@ -174,8 +176,8 @@ def single_device_warning(want: int, present: int) -> str:
         return (f"WARNING: preset wants {want} devices but only {present} "
                 "present — training single-device")
     return (f"WARNING: preset wants {want} devices; one process drives one "
-            "card: a data or seq mesh trains under torchrun with one process "
-            "per card, pipe and model axes wait for ROADMAP Queue 1, item 5 "
+            "card: a data, model or seq mesh trains under torchrun with one "
+            "process per card, a pipe axis waits for ROADMAP Queue 1, item 5 "
             "— training single-device")
 
 

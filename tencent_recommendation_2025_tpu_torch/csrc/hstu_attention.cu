@@ -58,14 +58,22 @@
 //   instance (q rounded to T(q hd^-1/2) in shared memory, a and ds times
 //   1/L before they round, bf16 outputs) with the rel-pos partials per
 //   (batch row, query tile) summed by reduce_rows_split_kernel.
-// - f32 (the tight check instance) and hd 129-256: the first design below.
+// - f32 (the tight check instance) and every other head (hd past 128, or
+//   not a multiple of 8): the first design below.
 //
 // The first design: one block of 256 threads owns one (query tile, head,
 // batch row) and streams key tiles of its head's slice through shared
 // memory up to the diagonal (tiles above it skipped, heaviest query tiles
 // first), so shared memory is flat in L. Tiles are TQ = 64 rows, or 32 or
-// 16 where a wide head (hd up to 256) would not fit 227 KB of shared
-// memory. Products are 16x16x16 WMMA tiles, bf16 with f32 accumulators,
+// 16 where a wide head would not fit 227 KB of shared memory. Past the
+// width where a 16-row q, k, v and output tile set fits (the backward's
+// past hd 840 in bf16 and 560 in f32, the forward's past 1,400 and 870),
+// the head streams through in column slices of HS: each
+// output slice walks its key (query) tiles again, the scores s (and da)
+// summed over every slice of q and k (do and v) before the SiLU, and the
+// output, dq, dk and dv written slice by slice (pick_tiles); the rel-pos
+// gradient is summed in the first slice's walk. That recomputes the score
+// products once per slice: a simple design that takes any hd. Products are 16x16x16 WMMA tiles, bf16 with f32 accumulators,
 // where hd % 16 == 0; FMA loops otherwise (any hd) and for T = f32 (the
 // check instance); the bias, SiLU and mask are f32. The backward is the
 // fused block's attention half on this layout: hstu_bwd_dq walks the key
@@ -98,8 +106,6 @@ using namespace fbk;
 
 namespace {
 
-constexpr int kMaxHd = 256;  // widest head slice the kernels take
-
 struct HstuArgs {
   const void* q;       // [B, L, D] T
   const void* k;       // [B, L, D] T
@@ -114,25 +120,31 @@ struct HstuArgs {
   float* part_rab;     // backward scratch [B * L / TQ, H, NB]
   float* drab;         // backward: [H, NB]
   int B, L, D, H, NB;
+  int HS;              // first design: the head's columns a slice holds
   float scale;         // hd^-1/2
   float inv_len;       // 1 / L
 };
 
 template <typename T>
-size_t fwd_smem(int hd, int TQ) {
-  return 3 * align128((size_t)TQ * (hd + 8) * sizeof(T))  // q, k, v
+size_t fwd_smem(int hs, int TQ) {
+  return 3 * align128((size_t)TQ * (hs + 8) * sizeof(T))  // q, k, v
          + align128((size_t)TQ * kLdS * sizeof(float))     // s
          + align128((size_t)TQ * kLdP * sizeof(T))         // a
-         + align128((size_t)TQ * (hd + 4) * sizeof(float)) // out sum
+         + align128((size_t)TQ * (hs + 4) * sizeof(float)) // out sum
          + align128(TQ * sizeof(int));                     // key valid
 }
 
+// The first design's forward. With HS >= hd the whole head sits in shared
+// memory (q loaded once); past that width the head streams through in
+// column slices of HS: each output slice walks the key tiles again, the
+// scores summed over every slice of q and k first.
 template <typename T, int TQ>
 __global__ void __launch_bounds__(kThreads)
     hstu_fwd_kernel(HstuArgs p, bool tc) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = p.D, hd = D / p.H, L = p.L, NB = p.NB;
-  const int ldh = hd + 8, lda = hd + 4;
+  const int D = p.D, hd = D / p.H, L = p.L, NB = p.NB, HS = p.HS;
+  const int ldh = HS + 8, lda = HS + 4;
+  const bool whole = HS >= hd;
   const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * TQ;
 
@@ -154,65 +166,84 @@ __global__ void __launch_bounds__(kThreads)
 
   const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
   const float* rab = p.rab + (size_t)h * NB;
-  load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, TQ, hd,
-               qs, ldh, p.scale, true);
-  for (int i = threadIdx.x; i < TQ * hd; i += kThreads)
-    acc[(i / hd) * lda + i % hd] = 0.0f;
+  const T* Q = static_cast<const T*>(p.q) + (rowb + q0) * D + col;
+  const T* K = static_cast<const T*>(p.k) + rowb * D + col;
+  const T* V = static_cast<const T*>(p.v) + rowb * D + col;
+  if (whole) load_head<T>(Q, D, TQ, hd, qs, ldh, p.scale, true);
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * TQ;
-    __syncthreads();  // the previous tile's products are done
-    load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, TQ,
-                 hd, ks, ldh, 1.0f, false);
-    load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, TQ,
-                 hd, vs, ldh, 1.0f, false);
-    for (int j = threadIdx.x; j < TQ; j += kThreads)
-      kval[j] = p.valid[rowb + k0 + j];
-    __syncthreads();
-    gemm<T, false, true, false>(qs, ldh, ks, ldh, ss, kLdS, TQ, TQ, hd, tc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < TQ * TQ; i += kThreads) {
-      const int r = i / TQ, c = i - r * TQ;
-      const int dist = (q0 + r) - (k0 + c);
-      float a = 0.0f;
-      if (dist >= 0 && kval[c] != 0)
-        a = silu(ss[r * kLdS + c] + rab[min(dist, NB - 1)]) * p.inv_len;
-      as[r * kLdP + c] = from_f<T>(a);
+  for (int c0 = 0; c0 < hd; c0 += HS) {
+    const int cw = min(HS, hd - c0);
+    for (int i = threadIdx.x; i < TQ * cw; i += kThreads)
+      acc[(i / cw) * lda + i % cw] = 0.0f;
+    for (int kt = 0; kt <= qt; ++kt) {
+      const size_t k0 = (size_t)kt * TQ;
+      // s = sum over the head's slices of qs_s k_s^T
+      for (int s0 = 0; s0 < hd; s0 += HS) {
+        const int sw = min(HS, hd - s0);
+        __syncthreads();  // the previous products are done with the tiles
+        if (!whole)
+          load_head<T>(Q + s0, D, TQ, sw, qs, ldh, p.scale, true);
+        load_head<T>(K + k0 * D + s0, D, TQ, sw, ks, ldh, 1.0f, false);
+        if (s0 == 0) {
+          load_head<T>(V + k0 * D + c0, D, TQ, cw, vs, ldh, 1.0f, false);
+          for (int j = threadIdx.x; j < TQ; j += kThreads)
+            kval[j] = p.valid[rowb + k0 + j];
+        }
+        __syncthreads();
+        if (s0 == 0)
+          gemm<T, false, true, false>(qs, ldh, ks, ldh, ss, kLdS, TQ, TQ, sw,
+                                      tc);
+        else
+          gemm<T, false, true, true>(qs, ldh, ks, ldh, ss, kLdS, TQ, TQ, sw,
+                                     tc);
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < TQ * TQ; i += kThreads) {
+        const int r = i / TQ, c = i - r * TQ;
+        const int dist = (q0 + r) - (int)(k0 + c);
+        float a = 0.0f;
+        if (dist >= 0 && kval[c] != 0)
+          a = silu(ss[r * kLdS + c] + rab[min(dist, NB - 1)]) * p.inv_len;
+        as[r * kLdP + c] = from_f<T>(a);
+      }
+      __syncthreads();
+      gemm<T, false, false, true>(as, kLdP, vs, ldh, acc, lda, TQ, cw, TQ,
+                                  tc);
     }
     __syncthreads();
-    gemm<T, false, false, true>(as, kLdP, vs, ldh, acc, lda, TQ, hd, TQ, tc);
-  }
-  __syncthreads();
-  T* out = static_cast<T*>(p.out) + (rowb + q0) * D + col;
-  for (int i = threadIdx.x; i < TQ * hd; i += kThreads) {
-    const int r = i / hd, d = i - r * hd;
-    out[(size_t)r * D + d] = from_f<T>(acc[r * lda + d]);
+    T* out = static_cast<T*>(p.out) + (rowb + q0) * D + col + c0;
+    for (int i = threadIdx.x; i < TQ * cw; i += kThreads) {
+      const int r = i / cw, d = i - r * cw;
+      out[(size_t)r * D + d] = from_f<T>(acc[r * lda + d]);
+    }
+    __syncthreads();
   }
 }
 
 template <typename T>
-size_t bwd_smem(int hd, int NB, int TQ) {
-  return 4 * align128((size_t)TQ * (hd + 8) * sizeof(T))   // q, do, k, v
+size_t bwd_smem(int hs, int NB, int TQ) {
+  return 4 * align128((size_t)TQ * (hs + 8) * sizeof(T))   // q, do, k, v
          + 2 * align128((size_t)TQ * kLdS * sizeof(float))  // s, da/ds
          + 2 * align128((size_t)TQ * kLdP * sizeof(T))      // a, T(ds)
-         + 2 * align128((size_t)TQ * (hd + 4) * sizeof(float))  // sums
+         + 2 * align128((size_t)TQ * (hs + 4) * sizeof(float))  // sums
          + align128(TQ * sizeof(int))                       // key valid
          + align128(NB * sizeof(float))                     // drab slice
          + align128(2 * TQ * sizeof(float));                // diagonals
 }
 
-// The shared-memory carve-out of both backward kernels.
+// The shared-memory carve-out of both backward kernels (hs: the columns of
+// the head a slice holds).
 template <typename T>
 struct BwdTiles {
   T *qs, *dos, *ks, *vs, *as, *dss;
   float *ss, *das, *acc1, *acc2, *drab, *diag;
   int* kval;
 
-  __device__ BwdTiles(unsigned char* ptr, int hd, int NB, int TQ) {
-    const size_t tile = align128((size_t)TQ * (hd + 8) * sizeof(T));
+  __device__ BwdTiles(unsigned char* ptr, int hs, int NB, int TQ) {
+    const size_t tile = align128((size_t)TQ * (hs + 8) * sizeof(T));
     const size_t ftile = align128((size_t)TQ * kLdS * sizeof(float));
     const size_t ptile = align128((size_t)TQ * kLdP * sizeof(T));
-    const size_t atile = align128((size_t)TQ * (hd + 4) * sizeof(float));
+    const size_t atile = align128((size_t)TQ * (hs + 4) * sizeof(float));
     qs = reinterpret_cast<T*>(ptr);
     dos = reinterpret_cast<T*>(ptr + tile);
     ks = reinterpret_cast<T*>(ptr + 2 * tile);
@@ -235,19 +266,32 @@ struct BwdTiles {
   }
 };
 
-// s = qs k^T and da = do v^T of one tile pair, then on the visible pairs
-// the bias and SiLU: a (into as, when given) and ds = da * dsilu(s) / L (f32
-// into das, rounded into dss); zero elsewhere.
+// s += qs k^T and da += do v^T over ``width`` columns of the head (the
+// first slice writes, later ones add).
 template <typename T, int TQ>
-__device__ void pair_grads(const HstuArgs& p, BwdTiles<T>& t, int hd,
-                           const float* rab, int q0, int k0, bool tc,
-                           bool with_a) {
-  const int ldh = hd + 8, NB = p.NB;
-  gemm<T, false, true, false>(t.qs, ldh, t.ks, ldh, t.ss, kLdS, TQ, TQ, hd,
-                              tc);
-  gemm<T, false, true, false>(t.dos, ldh, t.vs, ldh, t.das, kLdS, TQ, TQ, hd,
-                              tc);
-  __syncthreads();
+__device__ void pair_scores(BwdTiles<T>& t, int ldh, int width, bool tc,
+                            bool accum) {
+  if (accum) {
+    gemm<T, false, true, true>(t.qs, ldh, t.ks, ldh, t.ss, kLdS, TQ, TQ,
+                               width, tc);
+    gemm<T, false, true, true>(t.dos, ldh, t.vs, ldh, t.das, kLdS, TQ, TQ,
+                               width, tc);
+  } else {
+    gemm<T, false, true, false>(t.qs, ldh, t.ks, ldh, t.ss, kLdS, TQ, TQ,
+                                width, tc);
+    gemm<T, false, true, false>(t.dos, ldh, t.vs, ldh, t.das, kLdS, TQ, TQ,
+                                width, tc);
+  }
+}
+
+// On the visible pairs of one tile pair (s and da summed, a barrier
+// before): the bias and SiLU, a (into as, when given) and ds = da *
+// dsilu(s) / L (f32 into das, rounded into dss); zero elsewhere; a barrier
+// after.
+template <typename T, int TQ>
+__device__ void pair_values(const HstuArgs& p, BwdTiles<T>& t,
+                            const float* rab, int q0, int k0, bool with_a) {
+  const int NB = p.NB;
   for (int i = threadIdx.x; i < TQ * TQ; i += kThreads) {
     const int r = i / TQ, c = i - r * TQ;
     const int dist = (q0 + r) - (k0 + c);
@@ -264,116 +308,163 @@ __device__ void pair_grads(const HstuArgs& p, BwdTiles<T>& t, int hd,
   __syncthreads();
 }
 
-// dq of one query tile, walking the key tiles up to its diagonal.
+// dq of one query tile, walking the key tiles up to its diagonal; past HS
+// columns, once per output slice, the scores summed over every slice.
 template <typename T, int TQ>
 __global__ void __launch_bounds__(kThreads)
     hstu_bwd_dq_kernel(HstuArgs p, bool tc) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = p.D, hd = D / p.H, L = p.L;
-  const int ldh = hd + 8, lda = hd + 4;
+  const int D = p.D, hd = D / p.H, L = p.L, HS = p.HS;
+  const int ldh = HS + 8, lda = HS + 4;
+  const bool whole = HS >= hd;
   const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * TQ;
-  BwdTiles<T> t(smem, hd, p.NB, TQ);
+  BwdTiles<T> t(smem, HS, p.NB, TQ);
 
   const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
   const float* rab = p.rab + (size_t)h * p.NB;
-  load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, TQ, hd,
-               t.qs, ldh, p.scale, true);
-  load_head<T>(static_cast<const T*>(p.dout) + (rowb + q0) * D + col, D, TQ,
-               hd, t.dos, ldh, 1.0f, false);
-  for (int i = threadIdx.x; i < TQ * hd; i += kThreads)
-    t.acc1[(i / hd) * lda + i % hd] = 0.0f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * TQ;
-    __syncthreads();  // the previous tile is done with every buffer
-    load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, TQ,
-                 hd, t.ks, ldh, 1.0f, false);
-    load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, TQ,
-                 hd, t.vs, ldh, 1.0f, false);
-    for (int j = threadIdx.x; j < TQ; j += kThreads)
-      t.kval[j] = p.valid[rowb + k0 + j];
-    __syncthreads();
-    pair_grads<T, TQ>(p, t, hd, rab, q0, k0, tc, false);
-    // dq += T(ds) k
-    gemm<T, false, false, true>(t.dss, kLdP, t.ks, ldh, t.acc1, lda, TQ, hd,
-                                TQ, tc);
+  const T* Q = static_cast<const T*>(p.q) + (rowb + q0) * D + col;
+  const T* DO = static_cast<const T*>(p.dout) + (rowb + q0) * D + col;
+  const T* K = static_cast<const T*>(p.k) + rowb * D + col;
+  const T* V = static_cast<const T*>(p.v) + rowb * D + col;
+  if (whole) {
+    load_head<T>(Q, D, TQ, hd, t.qs, ldh, p.scale, true);
+    load_head<T>(DO, D, TQ, hd, t.dos, ldh, 1.0f, false);
   }
-  __syncthreads();
-  T* dq = static_cast<T*>(p.dq) + (rowb + q0) * D + col;
-  for (int i = threadIdx.x; i < TQ * hd; i += kThreads) {
-    const int r = i / hd, d = i - r * hd;
-    dq[(size_t)r * D + d] = from_f<T>(t.acc1[r * lda + d] * p.scale);
+
+  for (int c0 = 0; c0 < hd; c0 += HS) {
+    const int cw = min(HS, hd - c0);
+    for (int i = threadIdx.x; i < TQ * cw; i += kThreads)
+      t.acc1[(i / cw) * lda + i % cw] = 0.0f;
+    for (int kt = 0; kt <= qt; ++kt) {
+      const size_t k0 = (size_t)kt * TQ;
+      for (int s0 = 0; s0 < hd; s0 += HS) {
+        const int sw = min(HS, hd - s0);
+        __syncthreads();  // the previous products are done with the tiles
+        if (!whole) {
+          load_head<T>(Q + s0, D, TQ, sw, t.qs, ldh, p.scale, true);
+          load_head<T>(DO + s0, D, TQ, sw, t.dos, ldh, 1.0f, false);
+        }
+        load_head<T>(K + k0 * D + s0, D, TQ, sw, t.ks, ldh, 1.0f, false);
+        load_head<T>(V + k0 * D + s0, D, TQ, sw, t.vs, ldh, 1.0f, false);
+        if (s0 == 0)
+          for (int j = threadIdx.x; j < TQ; j += kThreads)
+            t.kval[j] = p.valid[rowb + k0 + j];
+        __syncthreads();
+        pair_scores<T, TQ>(t, ldh, sw, tc, s0 > 0);
+      }
+      __syncthreads();
+      // the output slice's columns of k (the whole head is there already)
+      if (!whole)
+        load_head<T>(K + k0 * D + c0, D, TQ, cw, t.ks, ldh, 1.0f, false);
+      pair_values<T, TQ>(p, t, rab, q0, (int)k0, false);
+      // dq += T(ds) k
+      gemm<T, false, false, true>(t.dss, kLdP, t.ks, ldh, t.acc1, lda, TQ,
+                                  cw, TQ, tc);
+    }
+    __syncthreads();
+    T* dq = static_cast<T*>(p.dq) + (rowb + q0) * D + col + c0;
+    for (int i = threadIdx.x; i < TQ * cw; i += kThreads) {
+      const int r = i / cw, d = i - r * cw;
+      dq[(size_t)r * D + d] = from_f<T>(t.acc1[r * lda + d] * p.scale);
+    }
+    __syncthreads();
   }
 }
 
 // dk, dv of one key tile, walking the query tiles at or below its
-// diagonal, and the rel-pos gradient of the same pairs per tile diagonal.
+// diagonal, and the rel-pos gradient of the same pairs per tile diagonal
+// (in the first output slice's walk); past HS columns, once per output
+// slice, the scores summed over every slice.
 template <typename T, int TQ>
 __global__ void __launch_bounds__(kThreads)
     hstu_bwd_dkdv_kernel(HstuArgs p, bool tc) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = p.D, H = p.H, hd = D / H, L = p.L, NB = p.NB;
-  const int ldh = hd + 8, lda = hd + 4;
+  const int D = p.D, H = p.H, hd = D / H, L = p.L, NB = p.NB, HS = p.HS;
+  const int ldh = HS + 8, lda = HS + 4;
+  const bool whole = HS >= hd;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * TQ;
-  BwdTiles<T> t(smem, hd, NB, TQ);
+  BwdTiles<T> t(smem, HS, NB, TQ);
   float* dk = t.acc1;
   float* dv = t.acc2;
 
   const size_t rowb = (size_t)b * L, col = (size_t)h * hd;
   const float* rab = p.rab + (size_t)h * NB;
-  load_head<T>(static_cast<const T*>(p.k) + (rowb + k0) * D + col, D, TQ, hd,
-               t.ks, ldh, 1.0f, false);
-  load_head<T>(static_cast<const T*>(p.v) + (rowb + k0) * D + col, D, TQ, hd,
-               t.vs, ldh, 1.0f, false);
+  const T* K = static_cast<const T*>(p.k) + (rowb + k0) * D + col;
+  const T* V = static_cast<const T*>(p.v) + (rowb + k0) * D + col;
+  const T* Q = static_cast<const T*>(p.q) + rowb * D + col;
+  const T* DO = static_cast<const T*>(p.dout) + rowb * D + col;
+  if (whole) {
+    load_head<T>(K, D, TQ, hd, t.ks, ldh, 1.0f, false);
+    load_head<T>(V, D, TQ, hd, t.vs, ldh, 1.0f, false);
+  }
   for (int j = threadIdx.x; j < TQ; j += kThreads)
     t.kval[j] = p.valid[rowb + k0 + j];
-  for (int i = threadIdx.x; i < TQ * hd; i += kThreads) {
-    dk[(i / hd) * lda + i % hd] = 0.0f;
-    dv[(i / hd) * lda + i % hd] = 0.0f;
-  }
   for (int i = threadIdx.x; i < NB; i += kThreads) t.drab[i] = 0.0f;
 
-  for (int qt = kt; qt < L / TQ; ++qt) {
-    const int q0 = qt * TQ;
-    __syncthreads();  // the previous query tile is done with every buffer
-    load_head<T>(static_cast<const T*>(p.q) + (rowb + q0) * D + col, D, TQ,
-                 hd, t.qs, ldh, p.scale, true);
-    load_head<T>(static_cast<const T*>(p.dout) + (rowb + q0) * D + col, D,
-                 TQ, hd, t.dos, ldh, 1.0f, false);
-    __syncthreads();
-    pair_grads<T, TQ>(p, t, hd, rab, q0, k0, tc, true);
-    // dv += a^T do;  dk += T(ds)^T qs
-    gemm<T, true, false, true>(t.as, kLdP, t.dos, ldh, dv, lda, TQ, hd, TQ,
-                               tc);
-    gemm<T, true, false, true>(t.dss, kLdP, t.qs, ldh, dk, lda, TQ, hd, TQ,
-                               tc);
-    // rel-pos gradient: diagonal e of the tile holds the pairs at distance
-    // q0 - k0 + e - (TQ - 1); distances below NB - 1 are distinct per
-    // diagonal, the clamped ones fold in order below
-    for (int e = threadIdx.x; e < 2 * TQ - 1; e += kThreads) {
-      const int off = e - (TQ - 1);  // r - c
-      float s = 0.0f;
-      for (int r = max(0, off); r < min(TQ, TQ + off); ++r)
-        s += t.das[r * kLdS + (r - off)];
-      t.diag[e] = s;
-      const int dist = q0 - k0 + off;
-      if (dist >= 0 && dist < NB - 1) t.drab[dist] += s;
+  for (int c0 = 0; c0 < hd; c0 += HS) {
+    const int cw = min(HS, hd - c0);
+    for (int i = threadIdx.x; i < TQ * cw; i += kThreads) {
+      dk[(i / cw) * lda + i % cw] = 0.0f;
+      dv[(i / cw) * lda + i % cw] = 0.0f;
+    }
+    for (int qt = kt; qt < L / TQ; ++qt) {
+      const size_t q0 = (size_t)qt * TQ;
+      for (int s0 = 0; s0 < hd; s0 += HS) {
+        const int sw = min(HS, hd - s0);
+        __syncthreads();  // the previous products are done with the tiles
+        load_head<T>(Q + q0 * D + s0, D, TQ, sw, t.qs, ldh, p.scale, true);
+        load_head<T>(DO + q0 * D + s0, D, TQ, sw, t.dos, ldh, 1.0f, false);
+        if (!whole) {
+          load_head<T>(K + s0, D, TQ, sw, t.ks, ldh, 1.0f, false);
+          load_head<T>(V + s0, D, TQ, sw, t.vs, ldh, 1.0f, false);
+        }
+        __syncthreads();
+        pair_scores<T, TQ>(t, ldh, sw, tc, s0 > 0);
+      }
+      __syncthreads();
+      // the output slice's columns of qs and do
+      if (!whole) {
+        load_head<T>(Q + q0 * D + c0, D, TQ, cw, t.qs, ldh, p.scale, true);
+        load_head<T>(DO + q0 * D + c0, D, TQ, cw, t.dos, ldh, 1.0f, false);
+      }
+      pair_values<T, TQ>(p, t, rab, (int)q0, k0, true);
+      // dv += a^T do;  dk += T(ds)^T qs
+      gemm<T, true, false, true>(t.as, kLdP, t.dos, ldh, dv, lda, TQ, cw, TQ,
+                                 tc);
+      gemm<T, true, false, true>(t.dss, kLdP, t.qs, ldh, dk, lda, TQ, cw, TQ,
+                                 tc);
+      if (c0 == 0) {
+        // rel-pos gradient: diagonal e of the tile holds the pairs at
+        // distance q0 - k0 + e - (TQ - 1); distances below NB - 1 are
+        // distinct per diagonal, the clamped ones fold in order below
+        for (int e = threadIdx.x; e < 2 * TQ - 1; e += kThreads) {
+          const int off = e - (TQ - 1);  // r - c
+          float s = 0.0f;
+          for (int r = max(0, off); r < min(TQ, TQ + off); ++r)
+            s += t.das[r * kLdS + (r - off)];
+          t.diag[e] = s;
+          const int dist = (int)q0 - k0 + off;
+          if (dist >= 0 && dist < NB - 1) t.drab[dist] += s;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          for (int e = 0; e < 2 * TQ - 1; ++e)
+            if ((int)q0 - k0 + e - (TQ - 1) >= NB - 1)
+              t.drab[NB - 1] += t.diag[e];
+        }
+      }
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int e = 0; e < 2 * TQ - 1; ++e)
-        if (q0 - k0 + e - (TQ - 1) >= NB - 1) t.drab[NB - 1] += t.diag[e];
+    T* dko = static_cast<T*>(p.dk) + (rowb + k0) * D + col + c0;
+    T* dvo = static_cast<T*>(p.dv) + (rowb + k0) * D + col + c0;
+    for (int i = threadIdx.x; i < TQ * cw; i += kThreads) {
+      const int r = i / cw, d = i - r * cw;
+      dko[(size_t)r * D + d] = from_f<T>(dk[r * lda + d]);
+      dvo[(size_t)r * D + d] = from_f<T>(dv[r * lda + d]);
     }
-  }
-  __syncthreads();
-  T* dko = static_cast<T*>(p.dk) + (rowb + k0) * D + col;
-  T* dvo = static_cast<T*>(p.dv) + (rowb + k0) * D + col;
-  for (int i = threadIdx.x; i < TQ * hd; i += kThreads) {
-    const int r = i / hd, d = i - r * hd;
-    dko[(size_t)r * D + d] = from_f<T>(dk[r * lda + d]);
-    dvo[(size_t)r * D + d] = from_f<T>(dv[r * lda + d]);
+    __syncthreads();
   }
   float* out = p.part_rab + (((size_t)b * gridDim.x + kt) * H + h) * NB;
   for (int i = threadIdx.x; i < NB; i += kThreads) out[i] = t.drab[i];
@@ -404,20 +495,27 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool shapes_ok(int B, int L, int D, int H, int NB) {
-  if (B <= 0 || H <= 0 || L <= 0 || NB <= 0 || L % 64 != 0 || D % H != 0)
-    return false;
-  return D / H <= kMaxHd;
+  return B > 0 && H > 0 && L > 0 && NB > 0 && L % 64 == 0 && D % H == 0;
 }
 
-// The query/key tile: 64 rows, or 32 or 16 where the head slice would not
-// fit shared memory at 64 (0: none fits).
+// The first design's tiles: TQ query (key) rows and HS columns of the head
+// a slice holds. The whole head in 64, 32 or 16 rows where it fits shared
+// memory; past that width 16 rows and column slices of 512, 256, ... 16
+// (the widest that fits).
+struct Tiles {
+  int tq, hs;
+};
+
 template <typename T>
-int pick_tile(int hd, int NB, bool bwd) {
-  for (int t = 64; t >= 16; t >>= 1) {
-    const size_t sm = bwd ? bwd_smem<T>(hd, NB, t) : fwd_smem<T>(hd, t);
-    if (sm <= kMaxSmem) return t;
-  }
-  return 0;
+Tiles pick_tiles(int hd, int NB, bool bwd) {
+  auto fits = [&](int hs, int tq) {
+    return (bwd ? bwd_smem<T>(hs, NB, tq) : fwd_smem<T>(hs, tq)) <= kMaxSmem;
+  };
+  for (int t = 64; t >= 16; t >>= 1)
+    if (fits(hd, t)) return {t, hd};
+  for (int hs = 512; hs >= 16; hs >>= 1)
+    if (hs < hd && fits(hs, 16)) return {16, hs};
+  return {0, 0};
 }
 
 template <typename T>
@@ -426,22 +524,23 @@ bool use_tc(int hd) {
 }
 
 template <typename T, int TQ>
-int launch_fwd_tiles(const HstuArgs& p, cudaStream_t stream) {
-  const int hd = p.D / p.H;
-  const size_t sm = fwd_smem<T>(hd, TQ);
+int launch_fwd_tiles(HstuArgs p, int hs, cudaStream_t stream) {
+  p.HS = hs;
+  const size_t sm = fwd_smem<T>(hs, TQ);
   cudaError_t e = cudaFuncSetAttribute(
       hstu_fwd_kernel<T, TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sm);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(p.L / TQ, p.H, p.B);
-  hstu_fwd_kernel<T, TQ><<<grid, kThreads, sm, stream>>>(p, use_tc<T>(hd));
+  hstu_fwd_kernel<T, TQ><<<grid, kThreads, sm, stream>>>(
+      p, use_tc<T>(p.D / p.H));
   return (int)cudaGetLastError();
 }
 
 template <typename T, int TQ>
-int launch_bwd_tiles(const HstuArgs& p, cudaStream_t stream) {
-  const int hd = p.D / p.H;
-  const size_t sm = bwd_smem<T>(hd, p.NB, TQ);
+int launch_bwd_tiles(HstuArgs p, int hs, cudaStream_t stream) {
+  p.HS = hs;
+  const size_t sm = bwd_smem<T>(hs, p.NB, TQ);
   cudaError_t e = cudaFuncSetAttribute(
       hstu_bwd_dq_kernel<T, TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sm);
@@ -450,7 +549,7 @@ int launch_bwd_tiles(const HstuArgs& p, cudaStream_t stream) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)sm);
   if (e != cudaSuccess) return (int)e;
-  const bool tc = use_tc<T>(hd);
+  const bool tc = use_tc<T>(p.D / p.H);
   const dim3 grid(p.L / TQ, p.H, p.B);
   hstu_bwd_dq_kernel<T, TQ><<<grid, kThreads, sm, stream>>>(p, tc);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -466,20 +565,22 @@ int launch_bwd_tiles(const HstuArgs& p, cudaStream_t stream) {
 // the 64-row design's did.
 template <typename T>
 int launch_fwd(const HstuArgs& p, cudaStream_t stream) {
-  switch (pick_tile<T>(p.D / p.H, p.NB, false)) {
-    case 64: return launch_fwd_tiles<T, 64>(p, stream);
-    case 32: return launch_fwd_tiles<T, 32>(p, stream);
-    case 16: return launch_fwd_tiles<T, 16>(p, stream);
+  const Tiles t = pick_tiles<T>(p.D / p.H, p.NB, false);
+  switch (t.tq) {
+    case 64: return launch_fwd_tiles<T, 64>(p, t.hs, stream);
+    case 32: return launch_fwd_tiles<T, 32>(p, t.hs, stream);
+    case 16: return launch_fwd_tiles<T, 16>(p, t.hs, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 int launch_bwd(const HstuArgs& p, cudaStream_t stream) {
-  switch (pick_tile<T>(p.D / p.H, p.NB, true)) {
-    case 64: return launch_bwd_tiles<T, 64>(p, stream);
-    case 32: return launch_bwd_tiles<T, 32>(p, stream);
-    case 16: return launch_bwd_tiles<T, 16>(p, stream);
+  const Tiles t = pick_tiles<T>(p.D / p.H, p.NB, true);
+  switch (t.tq) {
+    case 64: return launch_bwd_tiles<T, 64>(p, t.hs, stream);
+    case 32: return launch_bwd_tiles<T, 32>(p, t.hs, stream);
+    case 16: return launch_bwd_tiles<T, 16>(p, t.hs, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -579,7 +680,7 @@ bool wgmma_heads(int D, int H) {
 
 // Which design runs: the wgmma kernels in bf16 where they take the heads;
 // the first design in f32 (the tight check instance) and for other heads
-// (hd 129-256). The one place that chooses: a launch the chosen design
+// (any hd past 128). The one place that chooses: a launch the chosen design
 // cannot make fails, and the wrapper raises.
 bool hstu_wgmma_route(bool is_bf16, int D, int H) {
   return is_bf16 && wgmma_heads(D, H);
@@ -655,8 +756,8 @@ int launch_bwd_wgmma(const HstuArgs& p, cudaStream_t stream) {
 // [B, L, D] head-packed in the compute dtype (bf16 when is_bf16, else
 // f32), valid [B, L] int32, rab and drab [H, NB] f32, part_rab
 // [B * L / hstu_attn_bwd_tile(...), H, NB] f32 scratch; all contiguous and
-// 16-byte aligned. Requires L % 64 == 0, D % H == 0 and hd = D / H at most
-// 256. Each launch returns a cudaError_t code (0 on success).
+// 16-byte aligned. Requires L % 64 == 0 and D % H == 0 (any hd = D / H).
+// Each launch returns a cudaError_t code (0 on success).
 
 // The backward's query rows per rel-pos partial at this dtype, shape and
 // bucket count: 64 on the wgmma route; the first design's tile (64, 32 or
@@ -664,8 +765,8 @@ int launch_bwd_wgmma(const HstuArgs& p, cudaStream_t stream) {
 extern "C" int hstu_attn_bwd_tile(int is_bf16, int D, int H, int NB) {
   if (H <= 0 || D % H != 0) return 0;
   if (hstu_wgmma_route(is_bf16 != 0, D, H)) return hstu_bwd::kTile;
-  return is_bf16 ? pick_tile<bf16>(D / H, NB, true)
-                 : pick_tile<float>(D / H, NB, true);
+  return is_bf16 ? pick_tiles<bf16>(D / H, NB, true).tq
+                 : pick_tiles<float>(D / H, NB, true).tq;
 }
 
 extern "C" int hstu_attn_fwd(int is_bf16, const void* q, const void* k,

@@ -21,7 +21,10 @@ keeps it [Vp, D], the same bytes row-major, with zero pad rows
 :class:`ops.sparse_table.GatheredRows` inside the step, and every lookup of
 it names its call site (``site``) for the host plans; on a data mesh a
 table row-sharded over its shards is a
-:class:`parallel.sharded_embedding.ShardedTable` there.
+:class:`parallel.sharded_embedding.ShardedTable` there. On a model mesh
+the tower DNNs and ``mm_proj`` are column-split
+(:class:`parallel.partition.ModelShards`): each shard computes its columns
+and :func:`linear` gathers them whole.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..data.featurizer import FusedVocab
 from ..data.schema import FeatureSchema
 from ..ops.sparse_table import GatheredRows, is_packed_scale, \
     padded_table_rows
+from ..parallel.partition import ModelShards, column_parallel
 from ..parallel.sharded_embedding import (ShardedTable, StaticTable,
                                           sharded_lookup, static_lookup)
 
@@ -76,6 +80,12 @@ def linear_init(gen, d_in, d_out):
 
 
 def linear(p, x):
+    """``x @ w + b``; a column-split ``w`` (a ``ModelShards`` on a model
+    mesh) gives each shard's columns, gathered whole over the model group
+    (``gather_from_model``), as the JAX package's SPMD result is."""
+    if isinstance(p["w"], ModelShards):
+        out = column_parallel(x, p["w"], p["b"])
+        return out.mesh.gather_from_model(out.parts)
     return x @ p["w"] + p["b"]
 
 

@@ -14,7 +14,12 @@ attention, whole-sequence or chunked, ``ops/hstu_attention``; flash MHA,
 ``ops/flash_attention``; on a ``seq`` mesh, the per-shard fused blocks and
 ring pair kernels of ``parallel/ring_fused``). Where it runs plain XLA, the
 port runs plain PyTorch on any device (on a ``seq`` mesh the unfused ring,
-``parallel/ring_attention``). On the CPU every path is plain.
+``parallel/ring_attention``). On the CPU every path is plain. On a
+``model`` mesh (tensor parallelism) the fused kernels are off, as the JAX
+package's ``mesh_trivial`` turns them off, and every block runs
+tensor-parallel: its projections split over the model shards, each
+shard's attention core on its own heads (``models/hstu.py``,
+``models/attention.py``, :func:`ffn`).
 """
 
 from __future__ import annotations
@@ -32,10 +37,11 @@ from ..ops import fused_block as FB
 from ..ops import hstu_attention as HA
 from .attention import init_mha_params, mha
 from .embedding import layernorm, layernorm_init, linear_init, torch_dtype
-from .hstu import (dropout, hstu_block, hstu_output, hstu_project,
-                   init_hstu_params)
+from .hstu import (dropout, dropout_shards, hstu_attend, hstu_block,
+                   hstu_output, hstu_project, init_hstu_params)
 from ..parallel import ring_attention as RA
-from ..parallel.mesh import seq_size, unported
+from ..parallel.mesh import model_size, seq_size, unported
+from ..parallel.partition import ModelShards, column_parallel, row_parallel
 from ..parallel.ring_fused import ring_fused_encode
 
 
@@ -57,15 +63,36 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 def ffn(params: Mapping, x: torch.Tensor, rate: float = 0.0,
         train: bool = False,
         gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """SwiGLU (packed ``w13``, ``w2``) or ReLU (``fc1``, ``fc2``). On a model
+    mesh the input weight is column-split (each shard its columns of w1
+    and w3, or of fc1) and the output weight row-split: the hidden takes
+    its columns of the whole-width dropout draw, the partial products sum
+    over the model group before fc2's replicated bias."""
     dtype = x.dtype
+    w_in = params["w13"] if "w13" in params else params["fc1"]["w"]
+    if isinstance(w_in, ModelShards):
+        if "w13" in params:
+            h = column_parallel(x, w_in.to(dtype)).map(_swiglu)
+            h = dropout_shards(h, rate, train, gen)
+            return row_parallel(h, params["w2"], dtype)
+        h = column_parallel(x, w_in.to(dtype),
+                            params["fc1"]["b"].to(dtype))
+        h = dropout_shards(h, rate, train, gen).map(Fn.relu)
+        h = row_parallel(h, params["fc2"]["w"], dtype) \
+            + params["fc2"]["b"].to(dtype)
+        return dropout(h, rate, train, gen)
     if "w13" in params:
-        x1, x3 = torch.chunk(x @ params["w13"].to(dtype), 2, dim=-1)
-        h = dropout(Fn.silu(x1) * x3, rate, train, gen)
+        h = dropout(_swiglu(x @ params["w13"].to(dtype)), rate, train, gen)
         return h @ params["w2"].to(dtype)
     h = x @ params["fc1"]["w"].to(dtype) + params["fc1"]["b"].to(dtype)
     h = Fn.relu(dropout(h, rate, train, gen))
     h = h @ params["fc2"]["w"].to(dtype) + params["fc2"]["b"].to(dtype)
     return dropout(h, rate, train, gen)
+
+
+def _swiglu(x13: torch.Tensor) -> torch.Tensor:
+    x1, x3 = torch.chunk(x13, 2, dim=-1)
+    return Fn.silu(x1) * x3
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -173,13 +200,18 @@ def block_route(cfg: ModelConfig, L: int, backend: str, mesh=None) -> str:
     - "dense": plain PyTorch (MHA beyond the flash gate, as in the JAX
       package).
 
-    A head wider than the kernels take (256) raises ``NotImplementedError``
-    in the kernel's wrapper, on the card."""
-    S = seq_size(mesh)
+    On a mesh whose ``model`` axis is M > 1 the fused kernels are off, as
+    the JAX package's ``mesh_trivial`` turns them off: "core" or "dense" by
+    the gates above, "ring" with a seq axis too; each shard's attention
+    core then runs its H / M heads (all H where M does not divide H).
+
+    The HSTU kernels take any head dim; flash MHA's gate caps D, and so
+    its heads, at 256."""
+    S, M = seq_size(mesh), model_size(mesh)
     if S > 1:
-        return "ring_fused" if FB.ring_fused_supported(cfg, L, S, backend) \
-            else "ring"
-    if FB.fused_block_supported(cfg, L, backend):
+        return "ring_fused" if M == 1 and FB.ring_fused_supported(
+            cfg, L, S, backend) else "ring"
+    if M == 1 and FB.fused_block_supported(cfg, L, backend):
         return "fused"
     if backend != "cuda" or not cfg.use_flash_attention \
             or not (256 <= L and L % 128 == 0):
@@ -193,27 +225,29 @@ def block_route(cfg: ModelConfig, L: int, backend: str, mesh=None) -> str:
 
 
 def attention_core(cfg: ModelConfig, token_type: torch.Tensor, mesh=None,
-                   seq_len: Optional[int] = None):
+                   seq_len: Optional[int] = None,
+                   heads: Optional[int] = None):
     """The attention inner loop of the "core" route on head-packed
-    [B, L, D] q, k, v: flash MHA for an MHA block, ``core(q, k, v)``; the
-    standalone HSTU attention for an HSTU block, ``core(q, k, v, rab)``.
-    Keys with token_type 0 are masked; HSTU divides by the padded L. With a
-    ``seq`` mesh, the unfused ring's cores (``token_type`` then this
-    process's shard on a process mesh, and ``seq_len`` the whole
-    sequence's L)."""
+    [B, L, heads * hd] q, k, v: flash MHA for an MHA block, ``core(q, k,
+    v)``; the standalone HSTU attention for an HSTU block, ``core(q, k, v,
+    rab)``. Keys with token_type 0 are masked; HSTU divides by the padded
+    L. ``heads``: the heads of one call (default ``cfg.num_heads``; a model
+    shard's H / M). With a ``seq`` mesh, the unfused ring's cores
+    (``token_type`` then this process's shard on a process mesh, and
+    ``seq_len`` the whole sequence's L)."""
     valid = token_type != 0
     L = token_type.shape[1] if seq_len is None else seq_len
-    H = cfg.num_heads
+    H = cfg.num_heads if heads is None else heads
     if seq_size(mesh) > 1:
         if cfg.block_type == "hstu":
-            hd = cfg.hidden_units // H
+            hd = cfg.hidden_units // cfg.num_heads
             return lambda q, k, v, rab: RA.ring_hstu_attention(
                 mesh, q, k, v, valid, rab, H, hd ** -0.5, L)
         return lambda q, k, v: RA.ring_attention(mesh, q, k, v, valid, H)
     if cfg.block_type == "hstu":
         return lambda q, k, v, rab: HA.hstu_attention_packed(
-            q, k, v, valid, rab, L, cfg.num_heads)
-    return lambda q, k, v: FA.flash_mha_packed(q, k, v, valid, cfg.num_heads)
+            q, k, v, valid, rab, L, H)
+    return lambda q, k, v: FA.flash_mha_packed(q, k, v, valid, H)
 
 
 def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
@@ -241,13 +275,15 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     A ``mesh`` (``parallel/mesh``) whose ``seq`` axis is S > 1 takes the
     ring routes. Every process computes the embeddings of its whole rows;
     the blocks run on its shards of L (all S on a local mesh), and the
-    output gathers along L before the final LayerNorm. A mesh with pipe or
-    model > 1 raises ``NotImplementedError``."""
+    output gathers along L before the final LayerNorm. On a mesh whose
+    ``model`` axis is M > 1 the blocks' parameters come split
+    (``parallel.partition.tp_view``) and every block is tensor-parallel
+    (``models/hstu.py``, ``models/attention.py``, :func:`ffn`). A mesh
+    with pipe > 1 raises ``NotImplementedError``."""
     shape = getattr(mesh, "shape", None)
-    if mesh is not None and (shape is None or shape.get("pipe", 1) > 1
-                             or shape.get("model", 1) > 1):
-        unported(f"the encoder on the mesh {shape or mesh!r} (pipeline and "
-                 "tensor parallelism)")
+    if mesh is not None and (shape is None or shape.get("pipe", 1) > 1):
+        unported(f"the encoder on the mesh {shape or mesh!r} (pipeline "
+                 "parallelism)")
     dtype = torch_dtype(cfg.dtype)
     B, L, D = fused_emb.shape
     x = fused_emb.to(dtype) * torch.tensor(D ** 0.5, dtype=dtype)
@@ -311,7 +347,12 @@ def _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen, train,
                                         cfg.num_heads)
         return x
 
-    core = attention_core(cfg, token_type, mesh, seq_len) \
+    H = cfg.num_heads
+    M = model_size(mesh)
+    # a model shard's core runs its H / M heads, or all H where M does not
+    # divide H (models/hstu.hstu_attend, models/attention._mha_tp)
+    core = attention_core(cfg, token_type, mesh, seq_len,
+                          heads=H // M if H % M == 0 else H) \
         if route in ("core", "ring") else None
     # the dense [B, L, L] mask only where no core runs; a core masks by
     # token_type itself
@@ -328,7 +369,6 @@ def _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen, train,
         # dropout off (the fused ring folds the shard seeds on both)
         si, di = mesh.seq_indices[0], mesh.data_index
         seeds = [s + si * 1000003 + di * 10007 for s in seeds]
-    H = cfg.num_heads
 
     def ln(p, t):
         return layernorm(_cast_ln(p, dtype), t)
@@ -368,7 +408,7 @@ def _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen, train,
         bp = block_params(blocks, i)
         if split:
             u, v, q, k = ckpt(hstu_pre, x, bp)
-            av = core(q, k, v, bp["hstu"]["rab"])
+            av = hstu_attend(q, k, v, bp["hstu"]["rab"], None, H, core)
             x = ckpt(hstu_post, x, av, u, bp, seeds[i])
         elif remat:
             x = ckpt(run_block, x, bp, seeds[i])

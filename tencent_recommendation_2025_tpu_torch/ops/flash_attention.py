@@ -39,8 +39,11 @@ does: 256 <= L, L % 128 == 0 and L * max(D, 64) <= 1024 * 64; longer MHA
 runs dense. Each wrapper takes its plain version for tensors on the CPU and
 launches its kernel for CUDA tensors (counted in ``flash_mha_fwd.launches``
 and ``flash_mha_bwd.launches``); it never falls back. The kernels take any
-head dim up to 256 and L a multiple of 64, bf16 or f32; anything else
-raises, as does a backward on CUDA tensors without the forward's stats.
+head dim up to 256 (``MAX_HEAD_DIM``) and L a multiple of 64, bf16 or f32;
+anything else raises, as does a backward on CUDA tensors without the
+forward's stats. A wider head raises ``NotImplementedError``: no route
+reaches one, since the gate's L * max(D, 64) <= 1024 * 64 at 256 <= L caps
+D, and so hd, at 256 (JAX ``models/encoder.py:188, 204``).
 """
 
 from __future__ import annotations
@@ -55,6 +58,8 @@ from .fused_block import _heads, _mm, _rows, _stream
 from .hstu_attention import causal_valid, check_attention_inputs, valid_int32
 
 MAX_FLASH_L = 1024
+#: the widest head the flash kernels take (the gate caps D at 256)
+MAX_HEAD_DIM = 256
 
 
 def safe_masked_softmax(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -180,7 +185,8 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_mha_fwd_plain(q, k, v, valid, num_heads, return_stats)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_fwd: no kernel for {q.device}")
-    check_attention_inputs("flash attention kernel", num_heads, q, k, v)
+    check_attention_inputs("flash attention kernel", num_heads, q, k, v,
+                           max_head_dim=MAX_HEAD_DIM)
     B, L, D = q.shape
     vi = valid_int32(valid, q.shape)
     out = torch.empty_like(q)
@@ -215,7 +221,7 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_bwd: no kernel for {q.device}")
     check_attention_inputs("flash attention backward", num_heads, q, k, v,
-                           dout)
+                           dout, max_head_dim=MAX_HEAD_DIM)
     if stats is None:
         raise ValueError("flash_mha_bwd: the kernels take the forward's "
                          "stats (flash_mha_fwd(..., return_stats=True))")

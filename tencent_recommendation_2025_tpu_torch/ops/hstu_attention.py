@@ -26,9 +26,11 @@ the C side (``hstu_wgmma_route``):
   ``_dkdv_kernel_chunk`` (l.380). They keep the rounding points above
   inside the kernels: q rounds to T(q * hd^-1/2) in shared memory, a and
   ds take 1/L before they round, the outputs are stored in T.
-- f32 (the tight check instance) and hd 129-256: the first design,
-  ``hstu_fwd_kernel``, ``hstu_bwd_dq_kernel``, ``hstu_bwd_dkdv_kernel`` and
-  ``reduce_rows_kernel``.
+- f32 (the tight check instance) and every other head (hd past 128): the
+  first design, ``hstu_fwd_kernel``, ``hstu_bwd_dq_kernel``,
+  ``hstu_bwd_dkdv_kernel`` and ``reduce_rows_kernel``, which takes any hd:
+  past the width where a 16-row tile set of the whole head fits shared
+  memory it streams the head through in column slices.
 
 The TPU kernels read the bias from
 precomputed [blk, blk] tiles and return tile gradients; the CUDA kernels
@@ -54,16 +56,15 @@ caller in the JAX package and is not ported.
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for CUDA tensors; it never falls back: a launch the chosen design
-cannot make raises. The kernels take any head dim up to 256 (the first
-design: WMMA tensor-core products where hd % 16 == 0 in bf16, FMA loops
-otherwise) and L a multiple of 64, bf16 or f32; a wider head raises
-``NotImplementedError`` (ROADMAP Queue 3), anything else ``ValueError``.
+cannot make raises. The kernels take any head dim (the first design: WMMA
+tensor-core products where hd % 16 == 0 in bf16, FMA loops otherwise) and
+L a multiple of 64, bf16 or f32; anything else raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as Fn
@@ -75,8 +76,6 @@ BLK = 128
 MAX_WHOLESEQ_L = 1024
 #: L is a multiple of the kernels' largest query and key tile
 KERNEL_TILE = 64
-#: the widest head slice the attention kernels take
-MAX_HEAD_DIM = 256
 
 
 def _n_near(buckets: int, blk: int = BLK) -> int:
@@ -120,22 +119,24 @@ def _tile_blk(L: int, H: int, buckets: int, D: int = 64) -> int:
 
 
 def check_attention_inputs(name: str, num_heads: int, q: torch.Tensor,
-                           *others: torch.Tensor) -> None:
-    """Raise on what the attention kernels do not take: q and every other
+                           *others: torch.Tensor,
+                           max_head_dim: Optional[int] = None) -> None:
+    """Raise on what an attention kernel does not take: q and every other
     [B, L, D] operand alike in shape and dtype (bf16 or f32), L a multiple
     of 64, D a multiple of num_heads, contiguous, 16-byte aligned, on one
-    device; a head dim past ``MAX_HEAD_DIM`` raises
-    ``NotImplementedError``."""
+    device; a head dim past the kernel's ``max_head_dim`` (None: any, the
+    HSTU kernels) raises ``NotImplementedError``."""
     B, L, D = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} takes bf16 or f32, not {q.dtype}")
     if D % num_heads:
         raise ValueError(f"{name} needs D % H == 0 (D={D}, H={num_heads})")
-    if D // num_heads > MAX_HEAD_DIM:
+    if max_head_dim is not None and D // num_heads > max_head_dim:
         raise NotImplementedError(
             f"{name}: head dim {D // num_heads} (D={D}, H={num_heads}) is "
-            f"past the {MAX_HEAD_DIM} the attention kernels take: ROADMAP "
-            "Queue 3, heads wider than 256")
+            f"past the {max_head_dim} the kernel takes: no route of the "
+            "port or of the JAX package reaches it (ROADMAP Queue 3, heads "
+            "wider than 256)")
     if L % KERNEL_TILE:
         raise ValueError(f"{name} needs L % {KERNEL_TILE} == 0 (L={L})")
     for t in (q, *others):

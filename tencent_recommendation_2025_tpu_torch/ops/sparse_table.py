@@ -38,8 +38,10 @@ accumulator) and tables below packed scale take a plain row write
 at packed scale never does (the trainer refuses a batch without its group
 plan).
 
-On a data mesh a sparse table row-shards like every learned table
-(``parallel/sharded_embedding.py``): shard s holds the contiguous row block
+On a data (x model) mesh a sparse table row-shards like every learned
+table over S = data x model shards (``parallel/sharded_embedding.py``; a
+process holds shard ``data_index * model + model_index``): shard s holds
+the contiguous row block
 ``[s * V / S, (s + 1) * V / S)``, at packed scale of the [Vp, D] table itself
 (Vp is a multiple of 256, so a block is whole groups for S <= 16), below it
 of the table padded to a multiple of S. The host plans each shard's share of
@@ -649,9 +651,10 @@ def sharded_gather_rows(mesh, table: torch.Tensor, uids: torch.Tensor,
                         plans: Optional[Dict] = None) -> GatheredRows:
     """GatheredRows for ``uids`` from a table row-sharded over ``mesh``
     (``table``: this process's leaf, :func:`_shard_blocks`): each shard's
-    rows at its ``lids``, one all-gather of the [Kp, D] row blocks (never
-    whole groups), then the host-planned permutation ``pos`` back to the
-    global uid order."""
+    rows at its ``lids``, one all-gather of the [Kp, D] row blocks over the
+    table shards (never whole groups; on a model mesh over the model group,
+    then the data group), then the host-planned permutation ``pos`` back
+    to the global uid order."""
     blocks = _shard_blocks(mesh, table)
     rps = blocks[0][1].shape[0]
     vocab = rps * mesh_table_shards(mesh)
@@ -660,7 +663,7 @@ def sharded_gather_rows(mesh, table: torch.Tensor, uids: torch.Tensor,
         lids = shard_plan["lids"][s]
         rows = row_take(blk, lids)
         local.append(rows * (lids < rps)[:, None].to(rows.dtype))
-    rows_cat = mesh.all_gather(local)[0]                  # [S * Kp, D]
+    rows_cat = mesh.all_gather_tables(local)              # [S * Kp, D]
     rows = rows_cat[shard_plan["pos"].long()]
     rows = rows * (uids < vocab)[:, None].to(rows.dtype)
     return GatheredRows(uids, rows, plans or {})

@@ -1,45 +1,65 @@
 """Device meshes of the port: the (pipe, data, model, seq) axes of the JAX
-package's ``parallel/mesh.py``, for data- and sequence-parallel training.
+package's ``parallel/mesh.py``, for data-, tensor- and sequence-parallel
+training.
 
 Two kinds, with one interface that the encoder and the trainer read:
 
 - :class:`ProcessMesh`, :func:`build_mesh`: one process per card, under
   ``torchrun`` (:func:`initialize_distributed`). Each process holds one
-  (data, seq) shard: the rows of its data index and, inside the encoder, the
-  tokens of its seq index. It keeps a ``torch.distributed`` group per axis.
-  Key/value shards rotate around the seq group by point-to-point sends
-  (:meth:`ProcessMesh.rotate`), the encoder output gathers along L
-  (:meth:`ProcessMesh.gather_seq`), and what the loss needs of the other
-  data shards (counts, the in-batch candidates) crosses the data group
-  (:meth:`ProcessMesh.sum_data`, :meth:`ProcessMesh.cat_data`).
-- :class:`LocalMesh`, :func:`local_mesh`: every data shard and every seq
-  shard in one process on one device, the counterpart of the JAX tests'
-  virtual CPU devices. The trainer runs each data shard's rows through the
-  model in turn, at the launch shapes of one card of the process mesh, and
-  combines them as the process mesh does; rotation is indexing into the
-  list of seq shards; autograd sums what the process mesh all-reduces. The
-  tests and ``chip_smoke.py`` use it; the CLI never builds it.
+  (data, model, seq) shard: the rows of its data index, the model slices
+  of its model index and, inside the encoder, the tokens of its seq index.
+  Processes are ordered as the JAX mesh orders its devices
+  (``reshape(pipe, data, model, seq)``): ``rank = (data_index * model +
+  model_index) * seq + seq_index``. It keeps a ``torch.distributed`` group
+  per axis: the seq group (the ranks of one (data, model) index), the data
+  group (one (model, seq) index), the model group (one (data, seq) index),
+  and the replica group of one model index (data x seq), over which a
+  replicated or model-split gradient is summed. Key/value shards rotate
+  around the seq group by point-to-point sends (:meth:`ProcessMesh.rotate`),
+  the encoder output gathers along L (:meth:`ProcessMesh.gather_seq`), and
+  what the loss needs of the other data shards (counts, the in-batch
+  candidates) crosses the data group (:meth:`ProcessMesh.sum_data`,
+  :meth:`ProcessMesh.cat_data`).
+- :class:`LocalMesh`, :func:`local_mesh`: every shard in one process on one
+  device, the counterpart of the JAX tests' virtual CPU devices. The
+  trainer runs each data shard's rows through the model in turn, at the
+  launch shapes of one card of the process mesh, and combines them as the
+  process mesh does; the model shards of a data shard run one after
+  another inside each layer; rotation is indexing into the list of seq
+  shards; autograd sums what the process mesh all-reduces. The tests and
+  ``chip_smoke.py`` use it; the CLI never builds it.
+
+The model axis is Megatron's tensor parallelism, in the conjugate pairs of
+operators a layer needs, each a ``torch.autograd.Function`` over the model
+group and list-in or list-out (one tensor per model shard this process
+holds: all of them on a local mesh, its own on a process mesh):
+``copy_to_model`` (identity forward, a sum of the cotangents backward),
+``reduce_from_model`` (the partials summed forward, in f32 and in model
+order, the cotangent passed through backward), ``gather_from_model`` (the
+shards concatenated along the last dim; backward, this shard's slice of
+the cotangent) and ``scatter_to_model`` (this shard's slice; backward, the
+cotangents gathered).
 
 The learned tables row-shard over the table axes (pipe, data, model), as
 the JAX package's partition rules place them: :func:`table_shards` shards,
-of which a process holds the one of its data index (:func:`table_index`;
-the ranks of one data index across ``seq`` hold the same one) and a local
-mesh holds all. The lookups and the sparse path move rows between them by
-three collectives over the data group, each differentiable:
-``all_gather`` (tiled along dim 0; its transpose a reduce-scatter),
-``reduce_scatter`` (tiled, summed; its transpose an all-gather) and
-``all_to_all`` (tiled; its transpose the reverse exchange). A local mesh
+of which a process holds the one of its (data, model) index
+(:func:`table_index`: ``data_index * model + model_index``, the JAX
+``shard_idx``; the ranks of one such index across ``seq`` hold the same
+one) and a local mesh holds all. The lookups and the sparse path move rows
+between them by three collectives over the data group, each
+differentiable: ``all_gather`` (tiled along dim 0; its transpose a
+reduce-scatter), ``reduce_scatter`` (tiled, summed; its transpose an
+all-gather) and ``all_to_all`` (tiled; its transpose the reverse
+exchange), and by ``reduce_from_model`` over the model group. A local mesh
 takes them over its list of shards.
 
 The serving corpus row-shards over every axis, flattened (``retrieval/
 mips.py``): :func:`world_shards` shards, of which a process holds the one of
-its rank (``rank = data_index * seq + seq_index``, the JAX device order) and
-a local mesh all (``world_indices``); ``all_gather_world`` gathers the
-shards' winners over every process (no gradient).
+its rank and a local mesh all (``world_indices``); ``all_gather_world``
+gathers the shards' winners over every process (no gradient).
 
-Only meshes with pipe = model = 1 are built; others raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 5 (slices d and e:
-tensor and pipeline parallelism).
+Meshes with pipe > 1 raise ``NotImplementedError`` naming ROADMAP Queue 1
+item 5 (slice e: pipeline parallelism).
 """
 
 from __future__ import annotations
@@ -61,9 +81,9 @@ def unported(what: str):
 
 
 def _check_axes(cfg: MeshConfig) -> None:
-    if cfg.pipe > 1 or cfg.model > 1:
-        unported(f"a mesh with pipe={cfg.pipe}, model={cfg.model} (tensor "
-                 "and pipeline parallelism, slices d and e)")
+    if cfg.pipe > 1:
+        unported(f"a mesh with pipe={cfg.pipe} (pipeline parallelism, "
+                 "slice e)")
 
 
 def initialize_distributed(device: str = "cuda") -> bool:
@@ -83,16 +103,16 @@ def initialize_distributed(device: str = "cuda") -> bool:
 
 
 class LocalMesh:
-    """Every data and seq shard in this process (see the module
+    """Every data, model and seq shard in this process (see the module
     docstring)."""
 
     process = False
     rank = 0
+    data_index = 0
 
-    def __init__(self, seq: int = 1, data: int = 1):
-        self.shape: Dict[str, int] = {"pipe": 1, "data": data, "model": 1,
-                                      "seq": seq}
-        self.data_index = 0
+    def __init__(self, seq: int = 1, data: int = 1, model: int = 1):
+        self.shape: Dict[str, int] = {"pipe": 1, "data": data,
+                                      "model": model, "seq": seq}
 
     @property
     def seq_indices(self) -> List[int]:
@@ -104,18 +124,23 @@ class LocalMesh:
         return list(range(self.shape["data"]))
 
     @property
+    def model_indices(self) -> List[int]:
+        """The model shards this process holds: all of them."""
+        return list(range(self.shape["model"]))
+
+    @property
     def table_indices(self) -> List[int]:
         """The table shards this process holds: all of them."""
-        return self.data_indices
+        return list(range(self.shape["data"] * self.shape["model"]))
 
     @property
     def encoder_mesh(self) -> Optional["LocalMesh"]:
         """The mesh one data shard's rows take through the encoder: its seq
-        shards (None without a seq axis)."""
-        if self.shape["seq"] == 1:
+        and model shards (None with neither axis)."""
+        if self.shape["seq"] == 1 and self.shape["model"] == 1:
             return None
         return self if self.shape["data"] == 1 \
-            else LocalMesh(seq=self.shape["seq"])
+            else LocalMesh(seq=self.shape["seq"], model=self.shape["model"])
 
     def sum_data(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The sum of one tensor per data shard (differentiable)."""
@@ -133,6 +158,12 @@ class LocalMesh:
         t = torch.cat(list(parts))
         return [t] * len(parts)
 
+    def all_gather_tables(self, parts: Sequence[torch.Tensor]
+                          ) -> torch.Tensor:
+        """One tensor per table shard, concatenated along dim 0 in table
+        order (no gradient)."""
+        return torch.cat(list(parts))
+
     def reduce_scatter(self, parts: Sequence[torch.Tensor]
                        ) -> List[torch.Tensor]:
         """The shards' tensors summed, shard d keeping block d of dim 0."""
@@ -146,10 +177,26 @@ class LocalMesh:
         return [torch.cat([c[d] for c in chunks])
                 for d in range(len(parts))]
 
+    # the model group: one tensor per model shard in or out
+    def copy_to_model(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return [x] * self.shape["model"]
+
+    def reduce_from_model(self, parts: Sequence[torch.Tensor]
+                          ) -> torch.Tensor:
+        return _ordered_sum([p.float() for p in parts])
+
+    def gather_from_model(self, parts: Sequence[torch.Tensor], dim: int = -1
+                          ) -> torch.Tensor:
+        return torch.cat(list(parts), dim=dim)
+
+    def scatter_to_model(self, x: torch.Tensor, dim: int = -1
+                         ) -> List[torch.Tensor]:
+        return list(x.chunk(self.shape["model"], dim=dim))
+
     @property
     def world_indices(self) -> List[int]:
         """The flattened shards (every axis) this process holds: all."""
-        return list(range(self.shape["data"] * self.shape["seq"]))
+        return list(range(world_shards(self)))
 
     def all_gather_world(self, parts: Sequence[torch.Tensor]
                          ) -> List[torch.Tensor]:
@@ -170,27 +217,60 @@ class LocalMesh:
         return shards[-1:] + shards[:-1]
 
 
+def _ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The parts summed in list order (model order), in their dtype."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
 class ProcessMesh:
-    """This process's place in a (data, seq) mesh of processes, one card
-    each (see the module docstring): ``rank = data_index * seq +
-    seq_index``, as the JAX mesh orders its devices."""
+    """This process's place in a (data, model, seq) mesh of processes, one
+    card each (see the module docstring): ``rank = (data_index * model +
+    model_index) * seq + seq_index``, as the JAX mesh orders its
+    devices."""
 
     process = True
 
-    def __init__(self, data: int, seq: int):
+    def __init__(self, data: int, seq: int, model: int = 1):
         rank = dist.get_rank()
-        self.shape = {"pipe": 1, "data": data, "model": 1, "seq": seq}
-        self.data_index, self.seq_index = divmod(rank, seq)
-        self.seq_ranks = [self.data_index * seq + s for s in range(seq)]
+        self.shape = {"pipe": 1, "data": data, "model": model, "seq": seq}
+        dm, self.seq_index = divmod(rank, seq)
+        self.data_index, self.model_index = divmod(dm, model)
+
+        def rk(d, m, s):
+            return (d * model + m) * seq + s
+
+        self.seq_ranks = [rk(self.data_index, self.model_index, s)
+                          for s in range(seq)]
+        self.model_ranks = [rk(self.data_index, m, self.seq_index)
+                            for m in range(model)]
         # every process creates every group, in the same order
         for d in range(data):
-            g = dist.new_group([d * seq + s for s in range(seq)])
-            if d == self.data_index:
-                self.seq_group = g
-        for s in range(seq):
-            g = dist.new_group([d * seq + s for d in range(data)])
-            if s == self.seq_index:
-                self.data_group = g
+            for m in range(model):
+                g = dist.new_group([rk(d, m, s) for s in range(seq)])
+                if (d, m) == (self.data_index, self.model_index):
+                    self.seq_group = g
+        for m in range(model):
+            for s in range(seq):
+                g = dist.new_group([rk(d, m, s) for d in range(data)])
+                if (m, s) == (self.model_index, self.seq_index):
+                    self.data_group = g
+        for d in range(data):
+            for s in range(seq):
+                g = dist.new_group([rk(d, m, s) for m in range(model)])
+                if (d, s) == (self.data_index, self.seq_index):
+                    self.model_group = g
+        self.replica_ranks = [rk(d, self.model_index, s)
+                              for d in range(data) for s in range(seq)]
+        if model == 1:
+            self.replica_group = None       # the world
+        for m in range(model if model > 1 else 0):
+            g = dist.new_group([rk(d, m, s) for d in range(data)
+                                for s in range(seq)])
+            if m == self.model_index:
+                self.replica_group = g
 
     @property
     def seq_indices(self) -> List[int]:
@@ -201,9 +281,13 @@ class ProcessMesh:
         return [self.data_index]
 
     @property
+    def model_indices(self) -> List[int]:
+        return [self.model_index]
+
+    @property
     def table_indices(self) -> List[int]:
-        """The table shard this process holds: its data index's."""
-        return [self.data_index]
+        """The table shard this process holds: its (data, model) index's."""
+        return [table_index(self)]
 
     @property
     def encoder_mesh(self) -> "ProcessMesh":
@@ -217,6 +301,17 @@ class ProcessMesh:
         this shard's block (a reduce-scatter)."""
         (t,) = parts
         return [_AllGatherData.apply(t, self)]
+
+    def all_gather_tables(self, parts: Sequence[torch.Tensor]
+                          ) -> torch.Tensor:
+        """Every table shard's tensor concatenated along dim 0 in table
+        order (``data_index * model + model_index``): gathered over the
+        model group, then over the data group (no gradient)."""
+        (t,) = parts
+        t = t.detach().contiguous()
+        if self.shape["model"] > 1:
+            t = torch.cat(gather_model(t, self))
+        return _gather(t, self)
 
     def reduce_scatter(self, parts: Sequence[torch.Tensor]
                        ) -> List[torch.Tensor]:
@@ -250,9 +345,37 @@ class ProcessMesh:
         out = torch.cat(out)
         return out.bool() if was_bool else out
 
+    # the model group: this shard's tensor in or out, as a list of one
+    def copy_to_model(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """``x`` as this shard's input of a model-split layer; the backward
+        sums the cotangent over the model group."""
+        return [_CopyToModel.apply(x, self)]
+
+    def reduce_from_model(self, parts: Sequence[torch.Tensor]
+                          ) -> torch.Tensor:
+        """The model group's partials summed in f32, in model order (an
+        all-gather and an ordered sum, so every shard holds the same bits
+        as a local mesh); the backward passes the cotangent through."""
+        (t,) = parts
+        return _ReduceFromModel.apply(t.float(), self)
+
+    def gather_from_model(self, parts: Sequence[torch.Tensor], dim: int = -1
+                          ) -> torch.Tensor:
+        """The model group's tensors concatenated along ``dim``; the
+        backward keeps this shard's slice of the cotangent."""
+        (t,) = parts
+        return _GatherModel.apply(t, self, dim)
+
+    def scatter_to_model(self, x: torch.Tensor, dim: int = -1
+                         ) -> List[torch.Tensor]:
+        """This shard's slice of ``x`` along ``dim``; the backward gathers
+        the cotangent over the model group."""
+        return [_ScatterModel.apply(x, self, dim)]
+
     @property
     def rank(self) -> int:
-        return self.data_index * self.shape["seq"] + self.seq_index
+        return (self.data_index * self.shape["model"] + self.model_index) \
+            * self.shape["seq"] + self.seq_index
 
     @property
     def world_indices(self) -> List[int]:
@@ -304,13 +427,76 @@ class ProcessMesh:
 
     def all_reduce(self, t: torch.Tensor, group: str = "world",
                    op: str = "sum") -> torch.Tensor:
-        """Sum (or ``op="max"``) ``t`` in place over the world, the data or
-        the seq group."""
+        """Sum (or ``op="max"``) ``t`` in place over the world, the data,
+        the seq, the model or the replica group (data x seq: the ranks of
+        this model index)."""
         dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op],
                         group={"world": None, "data": self.data_group,
-                               "seq": self.seq_group}[group])
+                               "seq": self.seq_group,
+                               "model": self.model_group,
+                               "replica": self.replica_group}[group])
         return t
+
+
+def gather_model(t: torch.Tensor, mesh) -> List[torch.Tensor]:
+    """Every model shard's ``t`` of a process mesh, in model order (an
+    all-gather over the model group; no gradient)."""
+    parts = [torch.empty_like(t) for _ in range(mesh.shape["model"])]
+    dist.all_gather(parts, t.detach().contiguous(), group=mesh.model_group)
+    return parts
+
+
+def _model_slice(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    return t.chunk(mesh.shape["model"], dim=dim)[mesh.model_index] \
+        .contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous().clone(), "model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        parts = [torch.empty_like(t) for _ in range(mesh.shape["model"])]
+        dist.all_gather(parts, t.detach().contiguous(),
+                        group=mesh.model_group)
+        return _ordered_sum(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return torch.cat(gather_model(t, mesh), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_slice(g, ctx.mesh, ctx.dim), None, None
+
+
+class _ScatterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _model_slice(x.detach(), mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(gather_model(g, ctx.mesh), dim=ctx.dim), None, \
+            None
 
 
 class _AllReduceData(torch.autograd.Function):
@@ -409,26 +595,27 @@ class _GatherSeq(torch.autograd.Function):
 
 
 def build_mesh(cfg: MeshConfig = MeshConfig()) -> ProcessMesh:
-    """The process mesh over the initialised process group: seq = cfg.seq,
-    and every leftover process folds into data, as the JAX ``build_mesh``
-    folds leftover devices."""
+    """The process mesh over the initialised process group: model =
+    cfg.model, seq = cfg.seq, and every leftover process folds into data,
+    as the JAX ``build_mesh`` folds leftover devices."""
     _check_axes(cfg)
     n = dist.get_world_size()
-    if n % cfg.seq:
-        raise ValueError(f"{n} processes are not divisible by seq="
-                         f"{cfg.seq}")
-    return ProcessMesh(n // cfg.seq, cfg.seq)
+    if n % (cfg.model * cfg.seq):
+        raise ValueError(f"{n} processes are not divisible by model="
+                         f"{cfg.model} x seq={cfg.seq}")
+    return ProcessMesh(n // (cfg.model * cfg.seq), cfg.seq, cfg.model)
 
 
 def local_mesh(cfg: MeshConfig = MeshConfig()) -> LocalMesh:
-    """A mesh of cfg.data x cfg.seq shards in this process on one device.
+    """A mesh of cfg.data x cfg.model x cfg.seq shards in this process on
+    one device.
     With dropout on, its unfused "ring" route draws whole-sequence masks
     where a process mesh draws per-shard ones, so the two agree there only
     with dropout off; the fused ring folds the shard seeds on both. Each
     data shard draws its dropout masks from its own generator, as a process
     of that data index does."""
     _check_axes(cfg)
-    return LocalMesh(seq=cfg.seq, data=cfg.data)
+    return LocalMesh(seq=cfg.seq, data=cfg.data, model=cfg.model)
 
 
 def data_rows(global_batch: int, n_data: int, index: int) -> slice:
@@ -464,9 +651,13 @@ def table_shards(mesh: Optional[object]) -> int:
 
 
 def table_index(mesh: Optional[object]) -> int:
-    """This process's table shard: its data index (pipe = model = 1), 0
-    without a mesh. A local mesh holds every shard (``table_indices``)."""
-    return 0 if mesh is None else mesh.data_index
+    """This process's table shard: ``data_index * model + model_index``
+    (pipe = 1; JAX ``sharded_embedding.py``'s ``shard_idx``), 0 without a
+    mesh. A local mesh holds every shard (``table_indices``)."""
+    if mesh is None or not mesh.process:
+        return 0
+    M = mesh.shape.get("model", 1)
+    return mesh.data_index * M + (mesh.model_index if M > 1 else 0)
 
 
 def world_shards(mesh: Optional[object]) -> int:
@@ -487,3 +678,7 @@ def seq_size(mesh: Optional[object]) -> int:
 
 def data_size(mesh: Optional[object]) -> int:
     return 1 if mesh is None else mesh.shape.get("data", 1)
+
+
+def model_size(mesh: Optional[object]) -> int:
+    return 1 if mesh is None else mesh.shape.get("model", 1)

@@ -1,4 +1,4 @@
-"""Row-sharded learned tables and their lookups on a data mesh.
+"""Row-sharded learned tables and their lookups on a data (x model) mesh.
 
 Counterpart of ``tencent_recommendation_2025_tpu/parallel/sharded_embedding.
 py``. The learned tables (``item_emb``, ``user_emb``, ``fused_feat``: the
@@ -6,8 +6,8 @@ JAX partition rules' table leaves) row-shard over the mesh's table axes:
 with S = :func:`num_table_shards`, shard s holds rows ``[s * V / S, (s + 1)
 * V / S)`` of the table padded to a multiple of S (:func:`pad_rows`; the pad
 rows are zero and never addressed). A process of a process mesh holds the
-block of its data index; a local mesh holds the padded table, whose row
-blocks are the shards.
+block of its (data, model) index (``mesh.table_index``); a local mesh
+holds the padded table, whose row blocks are the shards.
 
 Inside a step the trainer hands the model a :class:`ShardedTable` in place
 of each such leaf; ``models.embedding.masked_take`` dispatches on it, so
@@ -18,15 +18,17 @@ explicit form of the gather XLA partitions for the JAX package:
    batch's ids);
 2. each shard takes the rows it owns, zeros elsewhere (and for the padding
    id 0);
-3. a reduce-scatter sums the shards' rows and hands each data rank back its
-   own batch rows.
+3. on a model mesh a sum over the model group combines the shards of one
+   data index (``reduce_from_model``), then a reduce-scatter sums the
+   shards' rows and hands each data rank back its own batch rows.
 
 Its backward all-gathers the cotangent and scatter-adds it into each
 shard's owned rows: every shard receives its rows' gradient over the global
 batch, and nothing else of the table crosses the mesh.
 
 :func:`sharded_lookup_a2a` is the item-id lookup of a data-only mesh
-(``models.baseline.SeqRecModel._ep_override``): each data rank buckets its
+(``models.baseline.SeqRecModel._ep_override``; never on a model mesh, as
+in the JAX package): each data rank buckets its
 ids by owner into static buckets of ``cap`` slots, one all-to-all sends
 them, the owners take their rows, a second all-to-all returns them. An id
 past its bucket's capacity returns a zero row, loses its gradient and is
@@ -126,7 +128,8 @@ class ShardedTable:
         (differentiable; summed over the data group on a process mesh)."""
         if self.whole is not None:
             return (self.whole.float() ** 2).sum()
-        return self.mesh.sum_data([(self.blocks[0].float() ** 2).sum()])
+        return self.mesh.sum_data([_sum_model(
+            self.mesh, (self.blocks[0].float() ** 2).sum())])
 
 
 def table_block(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -198,15 +201,26 @@ def sharded_lookup(mesh, table: ShardedTable, ids: torch.Tensor,
     """Differentiable lookup of a row-sharded table: ``ids`` [B, ...] (this
     data shard's rows) -> [B, ..., D]; id 0 gives a zero row with
     ``mask_zero``, as ``embedding.masked_take``. On a process mesh: the ids
-    all-gathered over the data group, each shard's owned rows, a
-    reduce-scatter back to this rank's rows."""
+    all-gathered over the data group, each shard's owned rows, on a model
+    mesh a sum over the model group (``reduce_from_model``: the shards of
+    one data index hold different rows; its backward hands each the
+    cotangent), a reduce-scatter back to this rank's rows."""
     if mesh.process:
         (gids,) = mesh.all_gather([ids])
         lo = table_index(mesh) * table.rows_per_shard
-        (out,) = mesh.reduce_scatter([_owned_take(table.blocks[0], gids, lo,
-                                                  mask_zero)])
+        emb = _owned_take(table.blocks[0], gids, lo, mask_zero)
+        (out,) = mesh.reduce_scatter([_sum_model(mesh, emb)])
         return out
     return _owned_take(table.whole, ids, 0, mask_zero)
+
+
+def _sum_model(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the model group of a process mesh (in its dtype;
+    each id has one owner, so the sum is exact), ``t`` without a model
+    axis."""
+    if mesh.shape.get("model", 1) == 1:
+        return t
+    return mesh.reduce_from_model([t]).to(t.dtype)
 
 
 def dense_lookup_oracle(table: torch.Tensor, ids: torch.Tensor,
@@ -387,9 +401,9 @@ def static_lookup(table: StaticTable, ids: torch.Tensor) -> torch.Tensor:
     """``table[clamp(ids, 0, rows - 1)]`` of a row-sharded static table:
     ``ids`` [B, ...] (this data shard's rows) -> [B, ..., W]. On a process
     mesh: the clamped ids all-gathered over the data group, each shard's
-    owned rows (zeros elsewhere), a reduce-scatter back to this rank's
-    rows; on a local mesh one take of the padded table. Equal to the whole
-    table's take bitwise."""
+    owned rows (zeros elsewhere), summed over the model group on a model
+    mesh, a reduce-scatter back to this rank's rows; on a local mesh one
+    take of the padded table. Equal to the whole table's take bitwise."""
     idx = ids.long().clamp(0, table.rows - 1)
     mesh = table.mesh
     with torch.no_grad():
@@ -397,6 +411,8 @@ def static_lookup(table: StaticTable, ids: torch.Tensor) -> torch.Tensor:
             return table.whole[idx]
         (gids,) = mesh.all_gather([idx])
         lo = table_index(mesh) * table.rows_per_shard
-        (out,) = mesh.reduce_scatter([owned_rows(table.blocks[0], gids,
-                                                  lo)])
+        rows = owned_rows(table.blocks[0], gids, lo)
+        if mesh.shape.get("model", 1) > 1:
+            rows = mesh.all_reduce(rows.contiguous(), "model")
+        (out,) = mesh.reduce_scatter([rows])
     return out

@@ -4,16 +4,20 @@ Counterpart of ``tencent_recommendation_2025_tpu/parallel/train.py``. As the
 JAX package's partition rules place them, the learned tables (``item_emb``,
 ``user_emb``, ``fused_feat``), their AdamW moments and their row-optimizer
 state row-shard over the mesh's table shards (``parallel.mesh.
-table_shards``, the data size here): a process of a process mesh holds the
-rows of its data index, [s * V / S, (s + 1) * V / S) of the table padded to
+table_shards``, data x model): a process of a process mesh holds the rows
+of its (data, model) index s, [s * V / S, (s + 1) * V / S) of the table padded to
 a multiple of S (a table at packed scale is not padded further: its Vp rows
 split into whole groups); a local mesh holds the padded table, whose row
 blocks are its shards. Every other parameter and its AdamW state is
-replicated, one copy per process. The trainer runs each data shard's rows
-(``train/trainer.py``), the tables' lookups cross the shards
-(``parallel/sharded_embedding.py``), and the replicated gradients are
-summed over the processes. The static item-feature tables row-shard over
-the same shards (:func:`shard_tables`).
+replicated, one copy per process, except on a model mesh, where each
+tensor-parallel leaf (``parallel/partition.py``) and its AdamW moments are
+split over the model shards (:func:`land_model`: a process holds its
+slice; a local mesh keeps the leaf whole and its steps slice it). The
+trainer runs each data shard's rows (``train/trainer.py``), the tables'
+lookups cross the shards (``parallel/sharded_embedding.py``), and the
+replicated and split gradients are summed over the replica group. The
+static item-feature tables row-shard over the same shards
+(:func:`shard_tables`).
 """
 
 from __future__ import annotations
@@ -26,47 +30,59 @@ from ..config import Config
 from ..models.baseline import SeqRecModel
 from ..train.trainer import (TrainState, batch_rows, init_state,
                              make_train_step)
-from .mesh import data_rows, table_index, table_shards
+from .mesh import data_rows, model_size, table_index, table_shards
+from .partition import join_model, model_dims, shard_slice
 # shard_tables (JAX parallel/train.py:159): the static item and mm tables
 # row-sharded over the table shards, padded to S, the others whole
 from .sharded_embedding import SHARDED_TABLES, shard_tables, table_block
 
 
 def layout(mesh) -> Optional[tuple]:
-    """The table layout of a state on ``mesh`` (``TrainState.layout``):
-    ("process", S, this shard) or ("local", S), None for whole tables
-    (S = 1 or no mesh)."""
+    """The layout of a state on ``mesh`` (``TrainState.layout``): ("local",
+    S) (whole tensor-parallel leaves, S row blocks of each table);
+    ("process", S, this table shard) on a process mesh, with its model size
+    M appended where M > 1 (each tensor-parallel leaf this process's model
+    slice); None for whole leaves (S = 1 or no mesh)."""
     S = table_shards(mesh)
     if S == 1:
         return None
-    return ("process", S, table_index(mesh)) if mesh.process \
-        else ("local", S)
+    if not mesh.process:
+        return ("local", S)
+    M = model_size(mesh)
+    return ("process", S, table_index(mesh)) + ((M,) if M > 1 else ())
 
 
-def _replace_leaf(state: TrainState, name: str, fn) -> None:
-    """``state.params[name]`` and its AdamW moments through ``fn``, the
-    optimizer's references moved to the new leaf."""
-    old = state.params[name]
+def _replace_leaf(state: TrainState, path: str, fn, cut=None) -> None:
+    """The parameter at tree ``path`` of ``state.params`` and its AdamW
+    moments through ``fn``, the optimizer's references moved to the new
+    leaf. ``cut(v)``: whether a moment takes ``fn`` too (default: a
+    tensor whose leading dim is the leaf's)."""
+    *up, name = path.split("/")
+    holder = state.params
+    for k in up:
+        holder = holder[k]
+    old = holder[name]
     with torch.no_grad():
         new = fn(old.detach()).requires_grad_(old.requires_grad)
-    state.params[name] = new
+    holder[name] = new
     for group in state.opt.param_groups:
         group["params"] = [new if p is old else p for p in group["params"]]
+    if cut is None:
+        def cut(v):
+            return v.dim() > 0 and v.shape[0] == old.shape[0]
     if old in state.opt.state:
         st = state.opt.state.pop(old)
         state.opt.state[new] = {
-            k: fn(v) if isinstance(v, torch.Tensor) and v.dim() > 0
-            and v.shape[0] == old.shape[0] else v for k, v in st.items()}
+            k: fn(v) if isinstance(v, torch.Tensor) and cut(v) else v
+            for k, v in st.items()}
 
 
-def _replicated_tensors(state: TrainState):
-    """Every replicated tensor of a train state, in a fixed order: the
-    parameters outside the row-sharded tables, the AdamW state of each (its
-    step counts too)."""
+def _tensors(state: TrainState, keep):
+    """The parameters at the tree paths ``keep`` accepts, then the AdamW
+    state of each (its step counts too), in a fixed order."""
     from ..bridge import _flatten
 
-    params = [t for p, t in _flatten(state.params).items()
-              if p.split("/")[0] not in SHARDED_TABLES]
+    params = [t for p, t in _flatten(state.params).items() if keep(p)]
     out = [p.data for p in params]
     for p in params:
         st = state.opt.state.get(p, {})
@@ -74,9 +90,10 @@ def _replicated_tensors(state: TrainState):
     return out
 
 
-def _broadcast(mesh, tensors) -> None:
-    """Rank 0's tensors to every process (a tensor off the first one's
-    device, as AdamW keeps its step counts, crosses through a copy)."""
+def _broadcast(tensors, src: int = 0, group=None) -> None:
+    """The tensors of rank ``src`` to every process of ``group`` (the
+    world by default; a tensor off the first one's device, as AdamW keeps
+    its step counts, crosses through a copy)."""
     import torch.distributed as dist
 
     if not tensors:
@@ -85,9 +102,33 @@ def _broadcast(mesh, tensors) -> None:
     with torch.no_grad():
         for t in tensors:
             buf = t if t.device == dev else t.to(dev)
-            dist.broadcast(buf, src=0)
+            dist.broadcast(buf, src=src, group=group)
             if buf is not t:
                 t.copy_(buf)
+
+
+def land_model(state: TrainState, mesh) -> TrainState:
+    """The tensor-parallel leaves of a state with whole leaves, and their
+    AdamW moments, cut to this process's model slice (a process mesh with
+    M > 1; ``partition.shard_slice``, JAX ``opt_state_shardings``), in
+    place. A local mesh keeps them whole (its steps slice them)."""
+    M = model_size(mesh)
+    if mesh is None or not mesh.process or M == 1:
+        return state
+    for path, dim in model_dims(state.params).items():
+        def fn(t, path=path, dim=dim):
+            return shard_slice(t, path, dim, M, mesh.model_index).clone()
+
+        shape = _leaf(state.params, path).shape
+        _replace_leaf(state, path, fn, cut=lambda v, shape=shape:
+                      tuple(v.shape) == tuple(shape))
+    return state
+
+
+def _leaf(params, path):
+    for k in path.split("/"):
+        params = params[k]
+    return params
 
 
 def _land_tables(state: TrainState, mesh) -> TrainState:
@@ -107,22 +148,31 @@ def _land_tables(state: TrainState, mesh) -> TrainState:
     for opt in state.tables.values():
         for k in opt:
             opt[k] = table_block(opt[k], mesh)
+    land_model(state, mesh)
     state.layout = want
     return state
 
 
 def shard_existing_state(mesh, state: TrainState) -> TrainState:
     """Land a train state on ``mesh``, in place: the resume path. Its
-    tables cut to this process's rows (a whole table is never broadcast; a
-    state already in the mesh's layout, from ``load_checkpoint(mesh=...)``,
-    keeps them); on a process mesh the replicated tensors and the step
-    become rank 0's (a broadcast), so that the replicas start equal."""
+    tables cut to this process's rows and its tensor-parallel leaves to its
+    model slice (a whole table is never broadcast; a state already in the
+    mesh's layout, from ``load_checkpoint(mesh=...)``, keeps them); on a
+    process mesh the replicated tensors and the step become rank 0's, and
+    each model slice the first replica's of its model index (broadcasts),
+    so that the replicas start equal."""
     _land_tables(state, mesh)
     if mesh.process:
         import torch.distributed as dist
 
-        tensors = _replicated_tensors(state)
-        _broadcast(mesh, tensors)
+        split = set(model_dims(state.params)) \
+            if model_size(mesh) > 1 else set()
+        tensors = _tensors(state, lambda p: p.split("/")[0]
+                           not in SHARDED_TABLES and p not in split)
+        _broadcast(tensors)
+        if split:
+            _broadcast(_tensors(state, lambda p: p in split),
+                       src=mesh.replica_ranks[0], group=mesh.replica_group)
         dev = tensors[0].device
         step = torch.tensor([state.step], dtype=torch.int64, device=dev)
         dist.broadcast(step, src=0)
@@ -158,10 +208,11 @@ def unpad_state(state: TrainState, model: SeqRecModel, mesh=None,
     """The state in the mesh-independent shapes: each table, its AdamW
     moments and its row state at ``checkpoint.table_rows(model, packed)``
     rows (``fused_feat``: the fused vocabulary's), the shard padding cut; on
-    a process mesh the tables are all-gathered over the data group first,
-    which holds every table whole in every process (for a test or an
-    export; the checkpoints stay per shard). A new state; the given one is
-    left as it is."""
+    a process mesh the tables are all-gathered over the table shards first
+    and the tensor-parallel leaves and their moments over the model group
+    (:func:`whole_model`), which holds every leaf whole in every process
+    (for a test or an export; the checkpoints stay per shard). A new
+    state; the given one is left as it is."""
     import collections
     import copy
 
@@ -171,8 +222,9 @@ def unpad_state(state: TrainState, model: SeqRecModel, mesh=None,
         return state
     rows = dict(table_rows(model, packed),
                 fused_feat=model.fused.total_rows)
-    out = TrainState(dict(state.params), copy.copy(state.opt), state.step,
-                     {n: dict(o) for n, o in state.tables.items()}, None)
+    out = TrainState(_copy_tree(state.params), copy.copy(state.opt),
+                     state.step, {n: dict(o) for n, o in state.tables.items()},
+                     None)
     out.opt.param_groups = [dict(g, params=list(g["params"]))
                             for g in state.opt.param_groups]
     out.opt.state = collections.defaultdict(dict, state.opt.state)
@@ -180,7 +232,7 @@ def unpad_state(state: TrainState, model: SeqRecModel, mesh=None,
     def whole(name):
         def fn(t):
             if state.layout[0] == "process":
-                t = mesh.all_gather([t.contiguous()])[0].detach()
+                t = mesh.all_gather_tables([t.contiguous()])
             return t[:rows[name]].clone()
         return fn
 
@@ -190,7 +242,31 @@ def unpad_state(state: TrainState, model: SeqRecModel, mesh=None,
     for name, opt in out.tables.items():
         for k in opt:
             opt[k] = whole(name)(opt[k])
+    if len(state.layout) > 3:
+        whole_model(out, mesh)
     return out
+
+
+def _copy_tree(tree):
+    """The dicts of a parameter tree copied, its tensors shared."""
+    if isinstance(tree, Mapping):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def whole_model(state: TrainState, mesh) -> TrainState:
+    """The tensor-parallel leaves of a state holding this process's model
+    slices (a process mesh with M > 1) and their AdamW moments whole again
+    (gathered over the model group, ``partition.shard_join``), in
+    place."""
+    for path, dim in model_dims(state.params).items():
+        def fn(t, path=path, dim=dim):
+            return join_model(mesh, t, path, dim)
+
+        shape = _leaf(state.params, path).shape
+        _replace_leaf(state, path, fn, cut=lambda v, shape=shape:
+                      tuple(v.shape) == tuple(shape))
+    return state
 
 
 def make_sharded_train_step(model: SeqRecModel, cfg: Config, mesh):

@@ -16,7 +16,7 @@ AdamW moments, its row state) per shard, in the JAX package's manifest
 format: a ``"shards"`` entry listing one ``leaf_{i:05d}.{a}-{b}_{c}-{d}.npy``
 file per row extent, the shard-pad rows kept; on a process mesh the process
 owning an extent (the lowest rank holding it) writes it and rank 0 the
-rest. Leaves are listed in the JAX package's tree order, so its loader
+rest, a tensor-parallel leaf whole (gathered over the model group). Leaves are listed in the JAX package's tree order, so its loader
 reads the directory into a template of the same tree. A directory is staged
 as ``.tmp`` and renamed, so a crash mid-write is never picked up;
 :func:`save_checkpoint_async` copies the state at once and writes on a
@@ -262,12 +262,30 @@ def save_checkpoint(ckpt_dir, state, global_step: int,
     under ``0/`` as :func:`save_params` does, the AdamW moments and the
     tables' row-optimizer state under ``1/``, the step as ``2``; the tables
     of a state row-sharded on a mesh per shard (every process of a process
-    ``mesh`` calls it). ``_fault_after_files`` is :func:`_write`'s test
-    hook."""
+    ``mesh`` calls it), its tensor-parallel leaves whole (gathered over the
+    model group, written by rank 0). ``_fault_after_files`` is
+    :func:`_write`'s test hook."""
     meta = _meta(global_step, valid_loss, model_config,
                  dict(extra_meta or {}, state_format="torch"))
-    return _write(ckpt_dir, _state_tensors(state), meta, global_step,
-                  valid_loss, _fault_after_files, state.layout, mesh)
+    leaves = _state_tensors(state)
+    if state.layout is not None and len(state.layout) > 3:
+        leaves = _whole_model_leaves(state, leaves, mesh)
+    return _write(ckpt_dir, leaves, meta, global_step, valid_loss,
+                  _fault_after_files, state.layout, mesh)
+
+
+def _whole_model_leaves(state, leaves: dict, mesh) -> dict:
+    """``leaves`` with every tensor-parallel parameter of a process mesh's
+    state, and its AdamW moments, gathered whole over the model group
+    (every process calls it; rank 0 writes them)."""
+    from ..parallel.partition import join_model, model_dims
+
+    out = dict(leaves)
+    for p, dim in model_dims(state.params).items():
+        for key in (f"0/{p}", f"1/{p}/exp_avg", f"1/{p}/exp_avg_sq"):
+            if key in out:
+                out[key] = join_model(mesh, out[key], p, dim)
+    return out
 
 
 class AsyncSaveHandle:
@@ -527,7 +545,10 @@ def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
     item table's Vp where the port trains it at packed scale. With a
     ``mesh`` of several table shards the state comes in the mesh's layout
     (``parallel.train``): each table leaf read for this process's rows
-    only, from whatever shards or whole file it was saved in."""
+    only, from whatever shards or whole file it was saved in; on a process
+    mesh with a model axis each tensor-parallel leaf and its moments are
+    read whole (a JAX checkpoint's per-shard column extents assembled) and
+    cut to this process's slice (``parallel.train.land_model``)."""
     from ..parallel.train import layout
     from .trainer import dense_leaves, init_state, packed_item_table
 
@@ -599,6 +620,10 @@ def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
                                  f"{tuple(opt[k].shape)}")
             opt[k] = got.to(opt[k].dtype)
     state.step = step
+    if lay is not None:
+        from ..parallel.train import land_model
+
+        land_model(state, mesh)
     return state, meta
 
 

@@ -49,9 +49,16 @@ on a mesh each data shard takes its block of each microbatch. The epoch
 loop checkpoints on SIGTERM after the step in flight and resumes mid-epoch
 (``skip_steps``); its per-epoch saves write on a thread.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: meshes with pipe or model > 1 (a preset's ``cfg.mesh`` in one process
-trains single-device, as the JAX CLI falls back).
+On a mesh whose ``model`` axis is M > 1 (tensor parallelism) every
+tensor-parallel leaf (``parallel/partition.py``'s rules) is split over the
+model shards: each shard runs its slices of the towers and the blocks
+(``parallel.partition.tp_view``), the learned tables row-shard over data x
+model, and the gradients of the replicated and the split leaves are
+summed over the replica group (the data x seq ranks of one model index).
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+item: meshes with pipe > 1 (a preset's ``cfg.mesh`` in one process trains
+single-device, as the JAX CLI falls back).
 """
 
 from __future__ import annotations
@@ -75,8 +82,10 @@ from ..data.pipeline import prefetch
 from ..models.baseline import SeqRecModel, ep_overflow_scope
 from ..ops import losses as LS
 from ..ops import sparse_table as ST
-from ..parallel.mesh import data_rows, data_size, seq_size, table_shards
+from ..parallel.mesh import (data_rows, data_size, model_size, seq_size,
+                             table_shards)
 from ..parallel.mesh import unported as mesh_unported
+from ..parallel.partition import model_dims, tp_view
 from ..parallel.sharded_embedding import (SHARDED_TABLES, shard_tables,
                                           shard_view)
 from . import telemetry as T
@@ -86,8 +95,8 @@ def check_supported(cfg: Config, mesh=None) -> None:
     """Raise on the training options the port does not cover yet. A
     preset's ``cfg.mesh`` is not one of them: in one process the port
     trains it on one device, as the JAX CLI does where the devices are
-    missing. A ``mesh`` takes any data and seq axes, pipe = model = 1, and
-    dense or sparse tables; anything else raises ``NotImplementedError``
+    missing. A ``mesh`` takes any data, model and seq axes with pipe = 1,
+    and dense or sparse tables; pipe > 1 raises ``NotImplementedError``
     naming ROADMAP Queue 1 item 5. ``grad_accum_steps > 1`` takes dense
     tables without tower dedup, and on a data mesh microbatches whose rows
     divide the data axis (``ValueError`` otherwise, as the JAX step
@@ -97,9 +106,9 @@ def check_supported(cfg: Config, mesh=None) -> None:
         shape = getattr(mesh, "shape", None)
         if shape is None:
             mesh_unported(f"training on the device mesh {mesh!r}")
-        if shape.get("pipe", 1) > 1 or shape.get("model", 1) > 1:
-            mesh_unported(f"training on a mesh with pipe or model > 1 "
-                          f"({dict(shape)}; slices d and e)")
+        if shape.get("pipe", 1) > 1:
+            mesh_unported(f"training on a mesh with pipe > 1 "
+                          f"({dict(shape)}; slice e)")
     if not set(t.sparse_tables) <= {"item_emb", "user_emb"}:
         raise ValueError("train.sparse_tables takes subsets of (item_emb, "
                          f"user_emb), not {t.sparse_tables}")
@@ -390,7 +399,10 @@ def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
     share, whose gradients summed over every process are the global
     loss's.
 
-    The row-sharded tables of ``params`` (a mesh with several table shards)
+    On a mesh whose model axis is M > 1 the tensor-parallel leaves enter
+    the model as ``parallel.partition.ModelShards`` (``tp_view``: a local
+    mesh's whole leaves sliced here, a process mesh's own slices). The
+    row-sharded tables of ``params`` (a mesh with several table shards)
     enter the model as ``ShardedTable`` s, the static tables as
     ``StaticTable`` s (whole ones are sharded here, per call:
     ``train_loop`` shards them once); where the forward's item-id lookups
@@ -402,9 +414,9 @@ def compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
         item_tables = shard_tables(
             mesh, {k: v for k, v in item_tables.items() if k != "mm"})
     with ep_overflow_scope() as scope:
-        loss, metrics = _compute_loss(model, shard_view(params, mesh), batch,
-                                      mm_tables, item_tables, cfg, train,
-                                      gen, mesh, gens)
+        loss, metrics = _compute_loss(
+            model, tp_view(shard_view(params, mesh), mesh), batch, mm_tables,
+            item_tables, cfg, train, gen, mesh, gens)
     if scope.counts:
         metrics = dict(metrics, ep_overflow=sum(scope.counts))
     return loss, metrics
@@ -526,21 +538,31 @@ def _sampled_softmax(model: SeqRecModel, params, batch, shards, mm_tables,
     return loss / mesh.shape["seq"], {"loss": total, "n_mask": n_mask}
 
 
-def _grad_metrics(metrics: Dict, grads, mesh=None, sharded=()) -> Dict:
+def _grad_metrics(metrics: Dict, grads, mesh=None, sharded=(),
+                  split=()) -> Dict:
     """``grad_max`` and ``grad_mean`` (the mean over the leaves of each
-    leaf's mean |g|) of the step's gradients, as the JAX step's. The leaves
-    at the indices ``sharded`` are this process's blocks of a row-sharded
-    table on a process mesh: their max and mean are over the whole padded
-    table (a max- and a sum-reduction over the data group)."""
+    leaf's mean |g|) of the step's gradients, as the JAX step's. On a
+    process mesh the leaves at the indices ``sharded`` are this process's
+    blocks of a row-sharded table, and those at ``split`` its model slices
+    of a tensor-parallel leaf: their max and mean are over the whole leaf
+    (a max- and a sum-reduction over the groups that hold its other
+    parts: data and model for a table, model for a slice)."""
     metrics = dict(metrics)
     maxs = [g.abs().max() for g in grads]
     means = [g.abs().mean() for g in grads]
-    if sharded and mesh is not None and mesh.process:
-        S = table_shards(mesh)
-        for i in sharded:
-            maxs[i] = mesh.all_reduce(maxs[i].clone(), "data", op="max")
-            means[i] = mesh.all_reduce(grads[i].abs().sum(), "data") \
-                / (grads[i].numel() * S)
+    proc = mesh is not None and mesh.process
+    M = model_size(mesh)
+    for i in (sharded if proc else ()):
+        groups = ("data", "model") if M > 1 else ("data",)
+        mx, sm = maxs[i].clone(), grads[i].abs().sum()
+        for grp in groups:
+            mx = mesh.all_reduce(mx, grp, op="max")
+            sm = mesh.all_reduce(sm, grp)
+        maxs[i], means[i] = mx, sm / (grads[i].numel() * table_shards(mesh))
+    for i in (split if proc and M > 1 else ()):
+        maxs[i] = mesh.all_reduce(maxs[i].clone(), "model", op="max")
+        means[i] = mesh.all_reduce(grads[i].abs().sum(), "model") \
+            / (grads[i].numel() * M)
     metrics["grad_max"] = torch.stack(maxs).max()
     metrics["grad_mean"] = torch.stack(means).mean()
     return metrics
@@ -751,11 +773,17 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
         sharded = [i for i, (p, _) in enumerate(named)
                    if want_layout is not None
                    and p.split("/")[0] in SHARDED_TABLES]
+        tp_leaves = model_dims(state.params) if model_size(mesh) > 1 else {}
+        split = [i for i, (p, _) in enumerate(named) if p in tp_leaves]
         if proc:
-            # one all-reduce of every replicated gradient: the global
-            # batch's sum; a sharded table's over the seq group only
+            # one all-reduce of every replicated or model-split gradient
+            # over the replica group (data x seq, the ranks of this model
+            # index): the global batch's sum; each model shard already
+            # holds the whole gradient of a replicated leaf (the model
+            # operators' backward summed it). A sharded table's over the
+            # seq group only
             rep = [g for i, g in enumerate(grads) if i not in sharded]
-            _all_reduce_flat(mesh, rep, "world")
+            _all_reduce_flat(mesh, rep, "replica")
             if mesh.shape["seq"] > 1:
                 _all_reduce_flat(mesh, [grads[i] for i in sharded], "seq")
         for group in state.opt.param_groups:
@@ -771,8 +799,8 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
                     drows = p["rows"].grad if p["rows"].grad is not None \
                         else torch.zeros_like(p["rows"])
                     if proc:
-                        # the global batch's: every process's share summed
-                        mesh.all_reduce(drows)
+                        # the global batch's: every replica's share summed
+                        mesh.all_reduce(drows, "replica")
                     if p["shard_plan"] is not None:
                         ST.sharded_apply_row_update(
                             mesh, state.params[name], state.tables[name],
@@ -789,7 +817,7 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
                     # the sentinel is the physical row count: real rows only
                     touched += (p["uids"] < p["V"]).sum()
             metrics = dict(metrics, touched_rows=touched)
-        metrics = _grad_metrics(metrics, grads, mesh, sharded)
+        metrics = _grad_metrics(metrics, grads, mesh, sharded, split)
         state.step += 1
         return state, metrics
 
@@ -1232,7 +1260,9 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     # train/trainer.py:1070-1081)
     n_dp = data_size(mesh)
     n_tables = table_shards(mesh)
-    dedup_on = cfg.train.tower_dedup and world == 1 and seq_size(mesh) == 1
+    dedup_on = cfg.train.tower_dedup and world == 1 and seq_size(mesh) == 1 \
+        and (model_size(mesh) == 1
+             or "item_emb" in cfg.train.sparse_tables)
     if cfg.train.tower_dedup and not dedup_on and verbose:
         print("WARNING: train.tower_dedup needs a single-process mesh "
               "without seq/pipe sharding (model>1 only with sparse "

@@ -158,7 +158,7 @@ def test_kernel_input_checks():
     with pytest.raises(ValueError, match="D % H"):
         check("k", 3, z(2, 256, 64))
     with pytest.raises(NotImplementedError, match="Queue 3"):
-        check("k", 1, z(2, 256, 264))
+        check("k", 1, z(2, 256, 264), max_head_dim=TFA.MAX_HEAD_DIM)
     with pytest.raises(ValueError, match="L % 64"):
         check("k", 1, z(2, 96, 64))
     with pytest.raises(ValueError, match="bf16 or f32"):

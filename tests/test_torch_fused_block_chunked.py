@@ -292,9 +292,10 @@ def test_block_route_takes_the_chunked_variant_on_the_card():
             dataclasses.replace(jcfg, hidden_units=D), L, "tpu"), (D, L)
     relu = dataclasses.replace(cfg, ffn_type="relu")
     assert TENC.block_route(relu, 4096, "cuda") == "core"
-    # D=512 in one head: the core route, whose kernels refuse a head past
-    # 256 before any launch (ROADMAP Queue 3)
+    # D=512 in one head: the core route, whose kernels take the head of
+    # 512 (the JAX package runs its Pallas kernels there too)
     wide = dataclasses.replace(cfg, hidden_units=512)
     assert TENC.block_route(wide, 2048, "cuda") == "core"
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        THA.check_attention_inputs("k", 1, torch.zeros((1, 2048, 512)))
+    assert not JFB.fused_block_supported(
+        dataclasses.replace(jcfg, hidden_units=512), 2048, "tpu")
+    THA.check_attention_inputs("k", 1, torch.zeros((1, 2048, 512)))

@@ -251,20 +251,45 @@ def test_n_near_error_matches_jax():
 
 def test_use_long_dispatch_and_the_card_raising_for_it():
     """The chunked dispatch is the JAX package's; hstu_mini takes the core
-    route on the card at every long L (the chunked kernels); a head past
-    the 256 the kernels take raises NotImplementedError naming its ROADMAP
-    entry, before any launch."""
+    route on the card at every long L (the chunked kernels); every head
+    width is taken by the HSTU kernels' input check (hd 512 and 1024 as
+    hd 256), while a bad shape still raises before any launch."""
     for L in (256, 512, 1024, 2048, 4096):
-        for D in (16, 64, 128, 256):
+        for D in (16, 64, 128, 256, 512):
             assert THA._use_long(L, D) == JHA._use_long(L, D), (L, D)
     mini = PRESETS["hstu_mini"]().model
     for L in (1024, 2048, 4096, 16384):
         assert TENC.block_route(mini, L, "cuda") == "core"
     assert TENC.block_route(mini, 2048, "cpu") == "dense"
     wide = torch.zeros((1, 256, 512))
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        THA.check_attention_inputs("k", 1, wide)
+    THA.check_attention_inputs("k", 1, wide)          # hd 512: taken
     THA.check_attention_inputs("k", 2, wide)          # hd 256: taken
+    THA.check_attention_inputs("k", 1, torch.zeros((1, 256, 1024)))
+    with pytest.raises(ValueError, match="L % 64"):
+        THA.check_attention_inputs("k", 1, torch.zeros((1, 96, 512)))
+
+
+#: heads past 256 (hd 320 and 512), whole-sequence (L * D <= 1024 * 64)
+#: and chunked in both packages: (L, D, H)
+WIDE_HEADS = [(128, 320, 1), (128, 512, 1), (256, 640, 2), (256, 512, 1)]
+
+
+@pytest.mark.parametrize("L,D,H", WIDE_HEADS)
+def test_wide_heads_match_jax(L, D, H):
+    """A head wider than 256 takes the port's plain versions, which equal
+    the JAX kernels (interpret mode) at the f32 tolerances: forward rtol
+    1e-4 / atol 1e-5, dq, dk, dv and drab 2e-4 / 2e-5, on the JAX
+    package's whole-sequence or chunked route as its dispatch picks."""
+    assert JHA._use_long(L, D) == THA._use_long(L, D) == (L == 256)
+    q, k, v, do, rab, valid = _inputs(B=2, L=L, D=D, H=H, seed=D + L)
+    q, k, v, do = (t * 0.5 for t in (q, k, v, do))
+    ref, rgrads = _jax(q, k, v, do, rab, valid, H)
+    out, grads = _port(q, k, v, do, rab, valid, H)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+    for name, g, r in zip(("dq", "dk", "dv", "drab"), grads, rgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
 
 
 def test_oracle_and_head_interface_match_jax():

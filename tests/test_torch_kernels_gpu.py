@@ -355,16 +355,31 @@ def test_flash_backward_needs_the_forward_stats_on_card():
 
 @pytest.mark.gpu
 def test_attention_wrappers_raise_instead_of_falling_back_on_card():
-    """On CUDA tensors a shape the kernels do not take raises before a
-    launch: a head past 256 (NotImplementedError), D not a multiple of H,
-    fp16."""
+    """On CUDA tensors a head of 512 launches the HSTU kernels' first
+    design, equal to its plain version (f32: forward and gradients within
+    1e-4 of max(1, max|plain|)); a flash head past 256 raises
+    NotImplementedError, and D not a multiple of H and fp16 raise, before
+    a launch."""
     _cuda_or_skip()
     from tencent_recommendation_2025_tpu_torch.ops import flash_attention as FA
     from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
 
-    q, k, v, _, valid, rab = _attention(2, 2048, 512, 1, torch.float32, 10)
+    q, k, v, dout, valid, rab = _attention(2, 256, 512, 1, torch.float32, 10)
+    counters = (HA.hstu_attention_chunk_fwd, HA.hstu_attention_chunk_bwd)
+    before = [c.launches for c in counters]
+    got = (HA.hstu_attention_fwd(q, k, v, valid, rab, 256, 1),
+           *HA.hstu_attention_bwd(q, k, v, dout, valid, rab, 256, 1))
+    # hd 512 at L=256 is a chunked shape (_use_long)
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    cpu = [t.cpu() for t in (q, k, v, dout, valid, rab)]
+    want = (HA.hstu_attention_fwd_plain(*cpu[:3], cpu[4], cpu[5], 256, 1),
+            *HA.hstu_attention_bwd_plain(*cpu, 256, 1))
+    for name, g, w in zip(("out", "dq", "dk", "dv", "drab"), got, want):
+        err = (g.cpu().float() - w.float()).abs().max().item()
+        assert err <= 1e-4 * max(1.0, w.abs().max().item()), (name, err)
+    wide = q.new_zeros((2, 256, 264))
     with pytest.raises(NotImplementedError, match="Queue 3"):
-        HA.hstu_attention_packed(q, k, v, valid, rab, 2048, 1)
+        FA.flash_mha_fwd(wide, wide, wide, valid, 1)
     q, k, v, _, valid, rab = _attention(2, 256, 64, 3, torch.float32, 11)
     with pytest.raises(ValueError, match="D % H"):
         FA.flash_mha_fwd(q, k, v, valid, 3)

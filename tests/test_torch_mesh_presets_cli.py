@@ -112,24 +112,23 @@ class _ProcessMesh:
 
 _REFUSED = {
     "pipe > 1": ("hstu_flagship", dict(pipe=2, seq=2)),
-    "model > 1": ("hstu_flagship", dict(model=2, seq=2)),
-    # sharded_multihost on its preset's mesh: model = 2 is tensor
-    # parallelism (slice d); its sparse tables train on data and seq
-    "sparse tables": ("sharded_multihost", dict(data=4, model=2)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_REFUSED))
 def test_process_mesh_refuses_what_it_does_not_cover(case):
-    """Under several processes pipe or model > 1 raise, naming ROADMAP
-    Queue 1 item 5, rather than training each process on its own; so does
-    sharded_multihost's own mesh (model = 2)."""
+    """Under several processes pipe > 1 raises, naming ROADMAP Queue 1 item
+    5, rather than training each process on its own."""
     preset, shape = _REFUSED[case]
     with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
         TTR.check_supported(PRESETS[preset](), mesh=_ProcessMesh(**shape))
 
 
 _COVERED = {
+    "model > 1": ("hstu_flagship", dict(model=2, seq=2), {}),
+    # sharded_multihost on its preset's own mesh: model = 2 is tensor
+    # parallelism, its sparse tables row-shard over data x model
+    "sparse tables": ("sharded_multihost", dict(data=4, model=2), {}),
     "seq with data": ("hstu_flagship", dict(data=2, seq=2), {}),
     "data-only mesh": ("hstu_flagship", dict(data=2), {}),
     "sampled softmax on data": ("sampled_softmax_dp", dict(data=8), {}),
@@ -149,9 +148,9 @@ _COVERED = {
 
 @pytest.mark.parametrize("case", sorted(_COVERED))
 def test_process_mesh_covers_seq_with_data(case):
-    """What a process mesh trains: data and seq axes alone or together,
-    the sampled softmax on them, G > 1 on either, sparse tables on any of
-    them."""
+    """What a process mesh trains: data, model and seq axes alone or
+    together, the sampled softmax on them, G > 1 on either, sparse tables
+    on any of them (sharded_multihost's own data 4 x model 2)."""
     import dataclasses
 
     preset, shape, train = _COVERED[case]

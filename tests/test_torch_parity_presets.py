@@ -232,8 +232,7 @@ def test_block_route_mirrors_make_attention_cores(name, L, route):
 def test_block_route_raises_for_chunked_hstu_attention():
     """An HSTU shape past the whole-sequence kernels (_use_long) takes the
     chunked HSTU attention kernels on the card (the core route, at any
-    width up to 256 per head); a head past 256 raises in the kernels' input
-    check; MHA past the flash gate runs dense; a wider MHA runs dense from
+    head width: a head of 512 passes the kernels' input check); MHA past the flash gate runs dense; a wider MHA runs dense from
     a shorter L."""
     mini = PRESETS["hstu_mini"]().model
     assert THA._use_long(2048, 64) and not THA._use_long(1024, 64)
@@ -241,8 +240,7 @@ def test_block_route_raises_for_chunked_hstu_attention():
     wide = dataclasses.replace(mini, hidden_units=128)
     assert THA._use_long(1024, 128)
     assert TENC.block_route(wide, 1024, "cuda") == "core"
-    with pytest.raises(NotImplementedError, match="wider than 256"):
-        THA.check_attention_inputs("k", 1, torch.zeros((1, 1024, 512)))
+    THA.check_attention_inputs("k", 1, torch.zeros((1, 1024, 512)))
     mha = dataclasses.replace(PRESETS["baseline"]().model, hidden_units=128)
     assert TENC.block_route(mha, 512, "cuda") == "core"
     assert TENC.block_route(mha, 1024, "cuda") == "dense"
