@@ -107,7 +107,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                judged);
 5b. semantic — the generative tier on the flagship's checkpoint and
                fixture: cli.semantic at RQVAEConfig's defaults (3 levels x
-               256 codes x 32 dims) with ``--rq_steps 2000 --head_steps 1000
+               256 codes x 32 dims) with ``--rq_steps 400 --head_steps 1000
                --num_query_users 1024`` (its query encode held to 32 fused
                forward launches; semantic_ids.npy, semantic_eval.json; RQ-VAE
                and head steps/s, tokenize items/s), then ``cli.infer
@@ -159,6 +159,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                2 microbatches against 1 on the mesh (tower dedup off;
                loss 1e-3, cosine 0.999); ``train_loop`` on the mesh for 2
                steps, its Performance/mfu scalar in (0, 1);
+5f. tp      — tensor parallelism on a local data x model mesh
+               (``phase_tp_case``);
+5g. pp      — pipeline parallelism on a local pipe 2 x data 2 mesh
+               (``phase_pp_case``): the flagship (B=128, 8 microbatches a
+               data column: 8 rows a fused launch, 4 blocks a stage) and
+               ``sharded_multihost --maxlen 1023`` (B=64, 4 microbatches,
+               sparse item_emb at packed scale over 4 table shards), bf16,
+               dropout 0, against the single device's fused step from the
+               same state (loss within 1e-4 relative, every gradient at
+               cosine >= 0.9999, every table shard's touched groups
+               bitwise); the fused launches counted and held to the wgmma
+               route, both sides' step ms, idle shares and the fused
+               kernels' device ms a launch; the fused kernels alone at 8,
+               16 and 128 rows; dropout on pipe 2: two microbatches of
+               identical rows draw different masks, the kept share within
+               a binomial bound;
 6. long    — phases 4 and 5 on long sequences, through the chunked
                variant: a fixture of 384 users, 5000 items and sequences of
                2048..4000 events, ``cli.train --maxlen 4095 --batch_size 32
@@ -4104,6 +4120,323 @@ def phase_tp():
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5g: pipeline parallelism on a local pipe x data mesh
+# ---------------------------------------------------------------------------
+
+#: (run, name, pipe, data, pp_microbatches, batch) of phase 5g: the flagship
+#: at its B=128 on pipe 2 x data 2 with 8 microbatches a data column (8 rows
+#: a fused launch, 4 blocks a stage: a card of a 4-card job), and
+#: sharded_multihost (B=64, H=4, sparse item_emb at packed scale, the
+#: sampled softmax) on pipe 2 x data 2 with 4 (8 rows a launch; 4 table
+#: shards, each writing through the group scatter)
+PP_CASES = ((FLAGSHIP_RUN, "pp_flagship", 2, 2, 8, 128),
+            (SPARSE_RUN, "pp_sparse", 2, 2, 4, 64))
+#: timed steps of each side (after 1)
+PP_STEPS = 2
+#: rows a launch at which the fused kernels are timed alone (the cases' 8,
+#: a shard's 16 of pp_sparse), beside the single device's B
+PP_LAUNCH_ROWS = (8, 16, 128)
+
+
+def phase_pp_case(run, name, P, D, M, B):
+    """``run``'s preset on a local mesh of pipe ``P`` x data ``D`` with
+    ``M`` microbatches a data column (bf16, dropout off, tower dedup off as
+    a pipe mesh turns it off) against the single device's fused step from
+    the same state and batch: the loss within 1e-4 relative, the lowest
+    per-leaf gradient cosine >= 0.9999; with a sparse ``item_emb`` (at
+    packed scale here: ``TABLE_PACK_MIN_ROWS`` 1) every table shard's
+    touched groups and accumulators bitwise a plain row write of the same
+    step's rows (:func:`plain_group_writes`). The launches: the fused
+    training forward and backward once a block and microbatch (NB x M x
+    D), the group scatter at least once a table shard; a profiled mesh
+    step runs the fused block's and the attention backward's wgmma
+    kernels. Logs both sides' step ms (host clock, PP_STEPS synchronised
+    steps after 1), idle shares, and the fused forward's and backward's
+    device ms a launch at the microbatch's rows beside the single
+    device's at B. Returns (ok, the launches of the checked mesh step)."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.data.readers import \
+        TencentGRData
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    t0 = time.perf_counter()
+    if not run.data_dir.exists():
+        from tencent_recommendation_2025_tpu_torch.data import synthetic
+
+        synthetic.generate(run.data_dir, mm_emb_ids=("81",), **run.fixture)
+    data = TencentGRData(run.data_dir, mm_emb_ids=("81",))
+    run = dataclasses.replace(run, batch_size=B)
+    cfg, schema, (raw,) = _train_batches(data, 1, run)
+    sparse = "item_emb" in cfg.train.sparse_tables
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dtype="bfloat16",
+                                  dropout_rate=0.0),
+        train=dataclasses.replace(cfg.train, tower_dedup=False),
+        mesh=MeshConfig(pipe=P, data=D, pp_microbatches=M))
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+    mesh = local_mesh(cfg.mesh)
+    S = P * D
+    rows = B // S // (M // P)
+    nb, H, L = cfg.model.num_blocks, cfg.model.num_heads, \
+        cfg.model.maxlen + 1
+    saved_min = ST.TABLE_PACK_MIN_ROWS
+    ST.TABLE_PACK_MIN_ROWS = 1 if sparse else saved_min
+    try:
+        model = SeqRecModel(cfg=cfg.model, schema=schema,
+                            fused=FusedVocab.build(schema),
+                            usernum=data.usernum, itemnum=data.itemnum)
+        params = model.init(torch.Generator().manual_seed(cfg.train.seed),
+                            device="cuda")
+        tabs = TR.device_tables(tables, "cuda")
+        stabs = PT.shard_tables(mesh, tabs)
+
+        def prep(n_tables):
+            key = (cfg.train.seed, 97, 1, 0)
+            b = dict(raw)
+            if cfg.train.loss_type == "sampled_softmax":
+                b["sampled_neg_ids"] = TR._sample_negatives(
+                    cfg, data.itemnum, key)
+            if sparse:
+                b = TR.augment_batch_sparse(b, cfg, data.itemnum, key,
+                                            n_table_shards=n_tables,
+                                            usernum=data.usernum)
+            return TR.put_batch(b, "cuda")
+
+        def fresh(m_):
+            state = TR.init_state(model, cfg, params=params, device="cuda")
+            return state if m_ is None else PT.shard_existing_state(m_,
+                                                                    state)
+
+        res = {}
+        for side, m_, b in (("single", None, prep(1)),
+                            ("mesh", mesh, prep(S))):
+            state = fresh(m_)
+            tb = tabs if m_ is None else stabs
+            want = plain_group_writes(model, cfg, fresh(m_), b, tb, m_) \
+                if sparse and m_ is not None else None
+            step = TR.make_train_step(model, cfg, m_)
+            reset_launches()
+            state, met = step(state, b, tb["mm"], tb)
+            torch.cuda.synchronize()
+            got = read_launches()
+            grads = {p: t.grad.float().clone() for p, t in
+                     TR.dense_leaves(state.params, cfg)}
+            ok_groups = want is None or groups_written(
+                want, state.params["item_emb"],
+                state.tables["item_emb"]["acc"])
+            t1 = time.perf_counter()
+            for _ in range(PP_STEPS):
+                state, _ = step(state, b, tb["mm"], tb)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) / PP_STEPS * 1e3
+
+            def one_step():
+                nonlocal state
+                state, _ = step(state, b, tb["mm"], tb)
+
+            prof, wall = route_trace(f"{name} {side}", one_step,
+                                     ("attn_bwd", "fused"))
+            by_name = _device_ms(prof)
+            ok_route = wgmma_route(f"{name} {side}", by_name) \
+                and attn_bwd_route(f"{name} {side}", by_name)
+            fwd, bwd, split = _fused_ms(by_name)
+            res[side] = dict(loss=float(met["loss"]), grads=grads, ms=ms,
+                             got=got, ok_groups=ok_groups, wall=wall,
+                             busy=sum(by_name.values()), fwd=fwd, bwd=bwd,
+                             split=split, ok_route=ok_route)
+            del state
+            _free()
+    finally:
+        ST.TABLE_PACK_MIN_ROWS = saved_min
+    one, pp = res["single"], res["mesh"]
+    rel = abs(pp["loss"] - one["loss"]) / abs(one["loss"])
+    # a mesh's table gradients hold the shard-pad rows past the table's
+    cos = {p: _grad_cos(pp["grads"][p][:len(g)], g)
+           for p, g in one["grads"].items()}
+    worst = min((c, p) for p, c in cos.items())
+    ok_num = rel <= 1e-4 and worst[0] >= 0.9999 \
+        and bool(np.isfinite(pp["loss"]))
+    calls = nb * M * D
+    got = pp["got"]
+    want_l = dict.fromkeys(got, 0)
+    want_l.update(fused_train=calls, fused_bwd=calls)
+    if sparse:
+        want_l["group_scatter"] = got["group_scatter"]
+    ok_launch = got == want_l and (not sparse or got["group_scatter"] >= S)
+    log(f"{name}: {run.preset} (B={B}, L={L}, D={cfg.model.hidden_units}, "
+        f"H={H}, {nb} blocks, bf16, dropout 0) on pipe {P} x data {D}, "
+        f"{M} microbatches a data column ({rows} rows a fused launch, "
+        f"{nb // P} blocks a stage) against the single device's fused step "
+        f"from the same state: loss {pp['loss']:.6f} / {one['loss']:.6f} "
+        f"(relative {rel:.2e}, limit 1e-4); lowest gradient cosine "
+        f"{worst[0]:.7f} ({worst[1]}, limit 0.9999) "
+        f"{'ok' if ok_num else 'FAIL'}")
+    if sparse:
+        log(f"{name}: each of the {S} table shards' touched groups and "
+            f"accumulators equal to a plain row write of compute_row_update"
+            f"'s rows through its plan: {pp['ok_groups']} "
+            f"{'ok' if pp['ok_groups'] else 'FAIL'}")
+    log(f"{name}: launches of the checked mesh step: "
+        + ", ".join(f"{k} {got[k]} (expected {want_l[k]})" for k in got
+                    if got[k] or want_l[k])
+        + "; the single device's: " + ", ".join(
+            f"{k} {v}" for k, v in one["got"].items() if v)
+        + f" {'ok' if ok_launch else 'FAIL'}")
+    log(f"{name}: train step {pp['ms']:.3f} ms on the mesh "
+        f"({B / pp['ms'] * 1e3:.1f} examples/s), single device "
+        f"{one['ms']:.3f} ms ({B / one['ms'] * 1e3:.1f} examples/s) (host "
+        f"clock, synchronised, {PP_STEPS} steps after 1)")
+    for side, r, n, at in (("mesh", pp, calls, rows),
+                           ("single", one, nb, B)):
+        log(f"{name}: {side} profiled step: wall {r['wall']:.3f} ms, busy "
+            f"{r['busy']:.3f} ms (idle "
+            f"{max(0.0, 1 - r['busy'] / r['wall']):.1%}); fused forward "
+            f"{r['fwd']:.3f} ms, backward {r['bwd']:.3f} ms ({r['split']}) "
+            f"for {n} launches each at {at} rows: {r['fwd'] / n:.4f} / "
+            f"{r['bwd'] / n:.4f} ms a launch, {r['fwd'] / B:.5f} / "
+            f"{r['bwd'] / B:.5f} ms a row")
+    _free()
+    log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+    return (ok_num and pp["ok_groups"] and ok_launch and pp["ok_route"]
+            and one["ok_route"], got)
+
+
+def pp_launch_times():
+    """The fused block's training forward and backward kernels alone at
+    the flagship's shape and PP_LAUNCH_ROWS rows (bf16, the preset's
+    dropout): device ms a launch and a row (:func:`kernel_device_ms`)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+
+    H, p = FLAGSHIP["H"], FLAGSHIP_DROPOUT
+    seed = torch.tensor([99], dtype=torch.int32, device="cuda")
+    shown = []
+    for rows in PP_LAUNCH_ROWS:
+        x, ops, tt = block_inputs(**dict(FLAGSHIP, B=rows),
+                                  dtype=torch.bfloat16, seed=12)
+        _, av = FB.fused_hstu_block_train(x, ops, tt, H, seed, p)
+        dout = torch.randn(x.shape, generator=torch.Generator(
+            device="cuda").manual_seed(16), device="cuda").to(x.dtype)
+        fwd = kernel_device_ms(lambda: FB.fused_hstu_block_train(
+            x, ops, tt, H, seed, p), KERNEL_NAMES["fused"][0])
+        bwd = kernel_device_ms(lambda: FB.fused_hstu_block_bwd(
+            x, av, dout, ops, tt, H, seed, p), KERNEL_NAMES["fused"][1])
+        shown.append(f"{rows} rows {fwd:.4f} / {bwd:.4f} ms a launch "
+                     f"({fwd / rows:.5f} / {bwd / rows:.5f} ms a row)")
+        del x, ops, tt, av, dout
+    _free()
+    log("pp: fused training forward / backward alone at L=1024, D=64, H=1 "
+        "(device ms): " + "; ".join(shown))
+
+
+def pp_dropout_check():
+    """Dropout on a pipe mesh: the flagship's blocks (bf16, its dropout
+    rate) on a local mesh of pipe 2, 16 identical rows in 2 microbatches of
+    8; every fused launch's seed recorded. Two microbatches of identical
+    rows draw different masks in every block (the masks the kernels draw:
+    ``ops.fused_block.keep_mask`` of the launch's seed, which phase 3 holds
+    the kernels to), and the kept share of all of them stays within 5
+    binomial standard deviations of 1 - rate. Returns ok."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import ModelConfig
+    from tencent_recommendation_2025_tpu_torch.models import encoder as ENC
+    from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import LocalMesh
+
+    rate, R, L, D = FLAGSHIP_DROPOUT, 16, FLAGSHIP["L"], FLAGSHIP["D"]
+    cfg = ModelConfig(hidden_units=D, num_heads=1, num_blocks=8,
+                      maxlen=L - 1, block_type="hstu", ffn_type="swiglu",
+                      dtype="bfloat16", dropout_rate=rate,
+                      reference_init=False)
+    F = ENC.swiglu_hidden_dim(D, cfg.ffn_hidden_mult, cfg.ffn_multiple_of)
+    params = _tree_map(lambda t: t.to("cuda"), ENC.init_encoder_params(
+        torch.Generator().manual_seed(3), cfg))
+    g = torch.Generator().manual_seed(4)
+    emb = torch.randn((1, L, D), generator=g).repeat(R, 1, 1).to("cuda")
+    ids = torch.ones((R, L), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((L + 1, D), device="cuda")
+    seen = []
+    real = FB.fused_hstu_block_autograd
+
+    def record(x, bp, tt, seed, *a, **k):
+        seen.append((int(seed), x.shape[0]))
+        return real(x, bp, tt, seed, *a, **k)
+
+    FB.fused_hstu_block_autograd = record
+    try:
+        out = ENC.encode(params, emb, ids, ids, pos, cfg, train=True,
+                         gen=torch.Generator(device="cuda").manual_seed(5),
+                         mesh=LocalMesh(pipe=2, pp_microbatches=4),
+                         route="fused")
+        torch.cuda.synchronize()
+    finally:
+        FB.fused_hstu_block_autograd = real
+    # the launches in the GPipe order: tick t runs stage s (blocks s k ..
+    # s k + k - 1) on microbatch t - s
+    P, m, k = 2, 2, cfg.num_blocks // 2
+    order = [(t - st, st * k + j) for t in range(m + P - 1)
+             for st in range(P) if 0 <= t - st < m for j in range(k)]
+    ok = len(seen) == len(order) and all(n == R // 2 for _, n in seen)
+    by = {key: sd for key, (sd, _) in zip(order, seen)}
+    seeds = {sd for sd, _ in seen}
+    ok &= len(seeds) == len(seen)          # no two launches share a seed
+    kept = total = differ = 0
+    for blk in range(cfg.num_blocks):
+        s0, s1 = by.get((0, blk), 0), by.get((1, blk), 0)
+        for site, W in ((0, D), (1, F)):
+            m0 = FB.keep_mask(R // 2, L, W, s0, site, rate, "cuda") > 0
+            m1 = FB.keep_mask(R // 2, L, W, s1, site, rate, "cuda") > 0
+            differ += int(not torch.equal(m0[0], m1[0]))
+            kept += int(m0.sum()) + int(m1.sum())
+            total += m0.numel() + m1.numel()
+    share = kept / total
+    sigma = (rate * (1 - rate) / total) ** 0.5
+    ok_share = abs(share - (1 - rate)) <= 5 * sigma
+    ok_out = bool(torch.isfinite(out.float()).all())
+    ok_all = ok and differ == 2 * cfg.num_blocks and ok_share and ok_out
+    log(f"pp: dropout on pipe 2 (rate {rate}, {R} identical rows in 2 "
+        f"microbatches of {R // 2}, 8 blocks): {len(seen)} fused launches, "
+        f"{len(seeds)} distinct seeds; row 0 of the two microbatches "
+        f"draws another mask at {differ} of {2 * cfg.num_blocks} (block, "
+        f"site) pairs; kept share {share:.6f} of {total} draws (want "
+        f"{1 - rate:.4f} within 5 sigma = {5 * sigma:.2e}) "
+        f"{'ok' if ok_all else 'FAIL'}")
+    _free()
+    return ok_all
+
+
+def phase_pp():
+    """Phase 5g: pipeline parallelism on a local mesh (:data:`PP_CASES`),
+    the fused kernels alone at a microbatch's rows, and the dropout masks.
+    Returns (ok, the launches of its checked mesh steps)."""
+    t0 = time.perf_counter()
+    ok, launches = True, None
+    for run, name, P, D, M, B in PP_CASES:
+        o, got = phase_pp_case(run, name, P, D, M, B)
+        ok &= o
+        launches = got if launches is None else \
+            {k: v + got[k] for k, v in launches.items()}
+    pp_launch_times()
+    ok &= pp_dropout_check()
+    log(f"pipeline-parallel phase: {time.perf_counter() - t0:.1f} s")
+    return ok, launches
+
+
 def phase_native_pack(run):
     """The native pack of ``run``'s fixture and window (the long run's: 384
     users, L=4096) on the card's host, every field and the seen sets
@@ -4213,8 +4546,10 @@ def phase_ann_methods(run):
 
 #: cli.semantic at RQVAEConfig's defaults (3 levels x 256 codes x 32 dims,
 #: encoder 512, 256) on the flagship's checkpoint; its queries are 1024
-#: users' predict, 4 batches of 256
-SEMANTIC_ARGS = ("--rq_steps", "2000", "--head_steps", "1000",
+#: users' predict, 4 batches of 256. 400 RQ-VAE steps (2000 until phase 5g
+#: was added: 18.4 of the phase's 63.3 s at 108.8 steps/s); the checks the
+#: phase judges read the artifacts, not how far they trained
+SEMANTIC_ARGS = ("--rq_steps", "400", "--head_steps", "1000",
                  "--num_query_users", "1024")
 SEMANTIC_EVAL_KEYS = {"rq_recon", "codes_used", "genret_train_hr",
                       "genret_beam_train_hr", "mips_train_hr", "num_pairs"}
@@ -6018,6 +6353,11 @@ def main() -> int:
             oks["tp"], tp = phase_tp()
             extra["hstu_mini"] = {k: tp[k] for k in ("hstu_fwd",
                                                      "hstu_bwd")}
+            # pipeline parallelism on a local mesh: its fused launches add
+            # to the whole-sequence kernels' entries, its group scatters to
+            # the group entries
+            oks["pp"], pp = phase_pp()
+            trained = {k: v + pp[k] for k, v in trained.items()}
         for entry, n in zip(found, (served["fused_fwd"],
                                     trained["fused_train"],
                                     trained["fused_bwd"])):
@@ -6059,7 +6399,8 @@ def main() -> int:
     oks["sparse_100m"], launches = phase_sparse_100m()
     log(f"100m phase: {time.perf_counter() - t0:.1f} s")
     for entry in group_entries:
-        entry["launches"] = launches[entry["name"]] + tp[entry["name"]]
+        entry["launches"] = launches[entry["name"]] + tp[entry["name"]] \
+            + pp[entry["name"]]
     entries += [e for es in attn_bwd.values() for e in es]
     entries += [e for es in post.values() for e in es]
     entries += [e for es in pre.values() for e in es]

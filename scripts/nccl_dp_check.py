@@ -70,6 +70,17 @@ the mesh).
   ``--mesh_model`` (the preset's model = 2, the rest on data): the mesh
   line, finite losses in ``train.log``, a checkpoint whose table extents
   are one a (data, model) shard.
+- ``pp`` (pipeline parallelism; ``--cases pp`` runs the three):
+  ``pp4_flagship``, the flagship on pipe N (4 stages of 2 blocks at N = 4)
+  and ``pp2_flagship``, the flagship on pipe 2 x data N/2, each with 8
+  microbatches a data column, f32 with the limits of ``bce_dp_seq2``; the
+  stacked block leaves' gradients and parameters gathered whole over the
+  pipe group before they are held; ``pp_cli``, ``cli.train --preset
+  hstu_flagship --maxlen 1023 --mesh_pipe 2 --mesh_data N/2
+  --pp_microbatches 8`` for one epoch under ``torchrun --nproc_per_node
+  N``: the mesh line, finite losses, a checkpoint whose table extents are
+  one a (pipe, data) shard while the block leaves are whole. (``--small``
+  runs them at 4 blocks and 16 rows, 4 microbatches.)
 
 Dropout 0, tower dedup off (several processes gate it off). Prints the
 card line, one line per check ending in ``ok`` or ``FAIL`` (also on
@@ -107,13 +118,21 @@ CASES = {"bce_dp": ("hstu_flagship", 1023, 128, "bce", 1, "bfloat16"),
                        "float32"),
          "tp_flagship_seq2": ("hstu_flagship", 1023, 128, "bce", 2,
                               "float32"),
-         "tp_cli": ("sharded_multihost", 1023, 64, None, 1, "bfloat16")}
+         "tp_cli": ("sharded_multihost", 1023, 64, None, 1, "bfloat16"),
+         "pp4_flagship": ("hstu_flagship", 1023, 128, "bce", 1, "float32"),
+         "pp2_flagship": ("hstu_flagship", 1023, 128, "bce", 1, "float32"),
+         "pp_cli": ("hstu_flagship", 1023, 128, None, 1, "bfloat16")}
 #: the model axis of the tensor-parallel cases (1 elsewhere)
 MODEL_AXIS = {"tp_sparse": 2, "tp_flagship_seq2": 2}
+#: the pipe axis of the pipeline-parallel cases (0: every process; 1
+#: elsewhere), and their microbatches a data column (--small: 4)
+PIPE_AXIS = {"pp4_flagship": 0, "pp2_flagship": 2}
+PP_MICROBATCHES = 8
 #: --cases names that stand for several cases
-CASE_GROUPS = {"tp": ("tp_sparse", "tp_flagship_seq2", "tp_cli")}
+CASE_GROUPS = {"tp": ("tp_sparse", "tp_flagship_seq2", "tp_cli"),
+               "pp": ("pp4_flagship", "pp2_flagship", "pp_cli")}
 #: the cases that run their own processes (not the workers' mesh)
-OWN_PROCESSES = ("infer", "tp_cli")
+OWN_PROCESSES = ("infer", "tp_cli", "pp_cli")
 #: the topk case's corpora (rows, width) and queries; --small's
 TOPK = dict(int8=100_000_000, f32=25_000_000, D=64, Q=1024, k=10, seed=91)
 TOPK_SMALL = dict(TOPK, int8=200_003, f32=50_001, Q=64)
@@ -158,10 +177,7 @@ def _world(case, small):
             str(batch), "--dropout_rate", "0", "--dtype", dtype,
             "--loss_type", loss]
     if small:
-        args += ["--maxlen", str(SMALL["maxlen"]), "--batch_size",
-                 str(SMALL["batch"]), "--hidden_units",
-                 str(SMALL["hidden_units"]), "--num_blocks",
-                 str(SMALL["num_blocks"])]
+        args += _small_args(case)
     cfg = TRN.build_config(TRN.get_args(args))
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, tower_dedup=False))
     data = TencentGRData(WORK / "data", mm_emb_ids=("81",))
@@ -180,6 +196,24 @@ def _world(case, small):
         b["sampled_neg_ids"] = TR._sample_negatives(
             cfg, data.itemnum, (cfg.train.seed, 97, 1, 0))
     return model, cfg, tables, b
+
+
+def _small_args(case):
+    """The --small widths of ``case``'s cli.train arguments: a pipe case's
+    blocks and rows split over 4 stages and 4 microbatches."""
+    pp = case.startswith("pp")
+    return ["--maxlen", str(SMALL["maxlen"]), "--batch_size",
+            str(16 if pp else SMALL["batch"]), "--hidden_units",
+            str(SMALL["hidden_units"]), "--num_blocks",
+            str(4 if pp else SMALL["num_blocks"])]
+
+
+def _pipe_mesh_config(case, nproc, small):
+    """The MeshConfig keys of a pipeline-parallel case (none elsewhere)."""
+    if case not in PIPE_AXIS:
+        return {}
+    return dict(pipe=PIPE_AXIS[case] or nproc,
+                pp_microbatches=4 if small else PP_MICROBATCHES)
 
 
 def _sparse_world(small):
@@ -471,7 +505,8 @@ def _run_sparse(small, device, mesh, shards):
 def _run(case, small, device, mesh):
     """One step from the seeded state, then STEPS timed after 2: (loss,
     gradients by leaf, parameters after the first step, candidates the
-    sampled softmax took, the step's ep_overflow or -1, ms a step). On a
+    sampled softmax took, the step's ep_overflow or -1, ms a step, the
+    first step's (grad_max, grad_mean)). On a
     mesh a row-sharded table's gradient and parameter are this process's
     rows, keyed ``<leaf>@<first row>``."""
     import torch
@@ -481,7 +516,7 @@ def _run(case, small, device, mesh):
         partition as PP
     from tencent_recommendation_2025_tpu_torch.parallel import train as PT
     from tencent_recommendation_2025_tpu_torch.parallel.mesh import (
-        table_index, table_shards)
+        gather_pipe, pipe_size, table_index, table_shards)
     from tencent_recommendation_2025_tpu_torch.parallel.sharded_embedding \
         import SHARDED_TABLES
     from tencent_recommendation_2025_tpu_torch.train import trainer as TR
@@ -508,6 +543,7 @@ def _run(case, small, device, mesh):
         LS.sampled_softmax_loss = loss_fn
     loss = float(m["loss"])
     overflow = int(m.get("ep_overflow", -1))
+    grad_metrics = np.array([float(m["grad_max"]), float(m["grad_mean"])])
 
     def key(p, t):
         if state.layout is None or p not in SHARDED_TABLES:
@@ -519,7 +555,10 @@ def _run(case, small, device, mesh):
 
     def whole(p, t):
         """A tensor-parallel leaf's slice gathered whole over the model
-        group (every rank calls it, in the same order)."""
+        group, a stage's blocks over the pipe group (every rank calls it,
+        in the same order)."""
+        if pipe_size(mesh) > 1 and p.startswith("blocks/"):
+            return gather_pipe(t, mesh)
         if p not in split:
             return t
         return PP.join_model(mesh, t, p, split[p])
@@ -543,7 +582,7 @@ def _run(case, small, device, mesh):
         state, m = step(state, b, tabs["mm"], tabs)
     sync()
     ms = (time.perf_counter() - t0) / STEPS * 1e3
-    return loss, grads, params, cands, overflow, ms
+    return loss, grads, params, cands, overflow, ms, grad_metrics
 
 
 def _worker(out_dir, device, small, cases):
@@ -558,11 +597,14 @@ def _worker(out_dir, device, small, cases):
     res = {}
     for case in cases:
         seq = CASES[case][4]
-        mesh = build_mesh(MeshConfig(seq=seq,
-                                     model=MODEL_AXIS.get(case, 1)))
+        mesh = build_mesh(MeshConfig(seq=seq, model=MODEL_AXIS.get(case, 1),
+                                     **_pipe_mesh_config(
+                                         case, dist.get_world_size(),
+                                         small)))
         res[f"{case}:shape"] = np.array([mesh.shape["data"],
                                          mesh.shape["model"],
                                          mesh.shape["seq"]])
+        res[f"{case}:pipe"] = np.int64(mesh.shape["pipe"])
         if case == "topk":
             out, held, ms = _run_topk(small, device, mesh)
             for tier, (sc, ids) in out.items():
@@ -580,8 +622,9 @@ def _worker(out_dir, device, small, cases):
             res[f"{case}:launches"] = np.int64(launches)
             cands, overflow = np.zeros(0), -1
         else:
-            loss, grads, params, cands, overflow, ms = _run(case, small,
-                                                            device, mesh)
+            loss, grads, params, cands, overflow, ms, gm = _run(
+                case, small, device, mesh)
+            res[f"{case}:grad_metrics"] = gm
         res[f"{case}:loss"] = np.float64(loss)
         res[f"{case}:cands"] = cands
         res[f"{case}:overflow"] = np.int64(overflow)
@@ -713,8 +756,9 @@ def main() -> int:
     summary = {}
     for case in cases:
         if case in OWN_PROCESSES:
-            ok_c, summary[case] = (_check_infer if case == "infer"
-                                   else _check_tp_cli)(args)
+            ok_c, summary[case] = {"infer": _check_infer,
+                                   "tp_cli": _check_tp_cli,
+                                   "pp_cli": _check_pp_cli}[case](args)
             ok &= ok_c
             continue
         dtype = CASES[case][5]
@@ -731,9 +775,16 @@ def main() -> int:
                                                 shape, mesh_ms)
             ok &= ok_c
             continue
-        loss, grads, params1, cands, _, ms = one[case]
+        loss, grads, params1, cands, _, ms, gm = one[case]
         rel_lim = 1e-5 if dtype == "float32" else 1e-4
         rel = abs(float(r0[f"{case}:loss"]) - loss) / abs(loss)
+        # grad_max and grad_mean over the whole leaves, on every rank; a
+        # row-sharded table's mean counts its pad rows, as on the JAX mesh
+        # (about 7e-5 of grad_mean at the fixture's 5,001 rows over 4
+        # shards), where a block leaf reduced over the wrong group is 2x
+        gm_rel = max(float(np.max(np.abs(r[f"{case}:grad_metrics"] - gm)
+                                  / np.abs(gm))) for r in ranks)
+        gm_ok = gm_rel <= 1e-3 or dtype != "float32"
         pre = f"{case}:grad:"
         worst = min((_cos(r0[k], _held(r0[k], _rows_of(grads,
                                                        k[len(pre):])[1])),
@@ -748,7 +799,7 @@ def main() -> int:
         same_cands = all(np.array_equal(r[f"{case}:cands"], cands)
                          for r in ranks)
         overflow = int(r0[f"{case}:overflow"])
-        ok_c = equal and same_cands and rows_ok
+        ok_c = equal and same_cands and rows_ok and gm_ok
         held = rel <= rel_lim and worst[0] >= 0.999
         if overflow > 0:
             note = (f"the single-device comparison does not apply: "
@@ -757,18 +808,22 @@ def main() -> int:
             ok_c &= held
             note = ""
         ok &= ok_c
-        summary[case] = dict(mesh=shape, dtype=dtype, loss_rel=rel,
+        pipe = int(r0[f"{case}:pipe"])
+        summary[case] = dict(mesh=shape, pipe=pipe, dtype=dtype,
+                             loss_rel=rel,
                              lowest_cos=worst[0], replicas_equal=equal,
+                             grad_metrics_rel=gm_rel,
                              table_rows_held=rows_ok, ep_overflow=overflow,
                              candidates_equal=same_cands,
                              mesh_ms=mesh_ms, single_ms=ms)
         log(f"{case}: {args.nproc} processes, mesh (data, model, seq) "
-            f"{shape}, "
+            f"{shape}" + (f" x pipe {pipe}" if pipe > 1 else "") + ", "
             f"{dtype}, ep_overflow {overflow}: loss "
             f"{float(r0[f'{case}:loss']):.6f} against one process's "
             f"{loss:.6f} (relative {rel:.2e}, limit {rel_lim:g}); lowest "
             f"gradient cosine {worst[0]:.6f} ({worst[1]}, limit 0.999) "
-            f"{note}; replicated parameters after the step bitwise equal on "
+            f"{note}; grad_max / grad_mean relative {gm_rel:.2e} (limit "
+            f"1e-3 in float32); replicated parameters after the step bitwise equal on "
             f"every rank {equal}; each rank's table rows against one "
             f"process's {rows_ok}; candidates ({len(cands)}) equal on every "
             f"rank and to one process's {same_cands}; step {mesh_ms:.3f} ms "
@@ -906,10 +961,7 @@ def _check_tp_cli(args):
            str(batch), "--device", args.device, "--num_workers", "2",
            "--num_epochs", "1"]
     if args.small:
-        cli += ["--maxlen", str(SMALL["maxlen"]), "--batch_size",
-                str(SMALL["batch"]), "--hidden_units",
-                str(SMALL["hidden_units"]), "--num_blocks",
-                str(SMALL["num_blocks"]), "--dtype", "float32"]
+        cli += _small_args("tp_cli") + ["--dtype", "float32"]
     out = WORK / "tp_cli"
     if out.exists():          # a checkpoint of an earlier run is no proof
         shutil.rmtree(out)
@@ -948,6 +1000,65 @@ def _check_tp_cli(args):
         f"{losses[-1] if losses else float('nan'):.6f}); checkpoint "
         f"{ck.name if ck else None}: item_emb in {extents} extents, uvqk "
         f"whole {whole} {'ok' if ok else 'FAIL'}")
+    return ok, dict(mesh=shape, steps=len(losses), seconds=secs,
+                    extents=extents)
+
+
+def _check_pp_cli(args):
+    """The pp_cli case: ``cli.train --preset hstu_flagship --maxlen 1023
+    --mesh_pipe 2 --mesh_data N/2 --pp_microbatches 8`` (one epoch of the
+    fixture) under ``torchrun --nproc_per_node N``: it exits 0 on pipe 2 x
+    data N/2, its train.log losses are finite, and its checkpoint's item
+    table has one extent a (pipe, data) shard while the stacked block
+    leaves are whole."""
+    preset, maxlen, batch, _, _, _ = CASES["pp_cli"]
+    M = 4 if args.small else PP_MICROBATCHES
+    cli = ["--preset", preset, "--maxlen", str(maxlen), "--batch_size",
+           str(batch), "--device", args.device, "--num_workers", "2",
+           "--num_epochs", "1", "--mesh_pipe", "2", "--mesh_data",
+           str(args.nproc // 2), "--pp_microbatches", str(M)]
+    if args.small:
+        cli += _small_args("pp_cli") + ["--dtype", "float32"]
+    out = WORK / "pp_cli"
+    if out.exists():          # a checkpoint of an earlier run is no proof
+        shutil.rmtree(out)
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               TRAIN_DATA_PATH=str(WORK / "data"),
+               TRAIN_LOG_PATH=str(out / "logs"),
+               TRAIN_CKPT_PATH=str(out / "ckpt"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc_per_node", str(args.nproc),
+                          "-m", "tencent_recommendation_2025_tpu_torch.cli."
+                          "train"] + cli, env=env, capture_output=True,
+                         text=True, timeout=TIMEOUT)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        log(f"pp_cli: exited {run.returncode} FAIL:\n"
+            f"{(run.stdout + run.stderr)[-4000:]}")
+        return False, {}
+    shape = {"pipe": 2, "data": args.nproc // 2, "model": 1, "seq": 1}
+    mesh_line = f"mesh: {shape} over {args.nproc} processes" in run.stdout
+    lines = [json.loads(ln) for ln in open(out / "logs" / "train.log")]
+    losses = [ln["loss"] for ln in lines if "loss" in ln]
+    finite = bool(losses) and all(np.isfinite(losses))
+    sys.path.insert(0, str(ROOT))
+    from tencent_recommendation_2025_tpu_torch.train import checkpoint as CK
+
+    ck = CK.latest_checkpoint(out / "ckpt")
+    entries = {e["path"]: e for e in json.loads(
+        (ck / "manifest.json").read_text())["leaves"]} if ck else {}
+    extents = len(entries.get("0/item_emb", {}).get("shards", []))
+    uvqk = entries.get("0/blocks/hstu/uvqk/w", {})
+    blocks = 4 if args.small else 8
+    whole = "file" in uvqk and uvqk.get("shape", [0])[0] == blocks
+    ok = mesh_line and finite and extents == args.nproc and whole
+    log(f"pp_cli: cli.train {' '.join(cli)} under torchrun --nproc_per_node "
+        f"{args.nproc} ({secs:.1f} s): mesh {shape} {mesh_line}; "
+        f"{len(losses)} steps, losses finite {finite} (last "
+        f"{losses[-1] if losses else float('nan'):.6f}); checkpoint "
+        f"{ck.name if ck else None}: item_emb in {extents} extents, uvqk "
+        f"whole ({blocks} blocks) {whole} {'ok' if ok else 'FAIL'}")
     return ok, dict(mesh=shape, steps=len(losses), seconds=secs,
                     extents=extents)
 

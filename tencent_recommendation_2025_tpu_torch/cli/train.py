@@ -32,9 +32,12 @@ train data-parallel, tensor-parallel, sequence-parallel or any mix (dense
 ones with ``--grad_accum_steps`` too); the learned tables row-shard over
 the data x model processes, the item-id lookups of a data-only mesh take
 the all-to-all (``Tables/ep_overflow``), and the in-batch negatives of the
-sampled softmax span the global batch. Tower dedup is off there (the JAX
-CLI's warning). Pipe > 1 raises ``NotImplementedError`` (ROADMAP Queue 1,
-item 5). Only rank 0 writes
+sampled softmax span the global batch. ``--mesh_pipe P`` (with data only:
+pipe with model or seq raises ``ValueError``, as the JAX ``build_mesh``
+asserts) runs the blocks pipeline-parallel over P stages, the other
+processes on data, each data column's stages a GPipe schedule of
+``--pp_microbatches`` microbatches. Tower dedup is off on a process mesh
+and on a pipe mesh (the JAX CLI's warning). Only rank 0 writes
 ``train.log`` and TensorBoard events; every process writes its table rows
 into the per-shard checkpoint (which ``cli.infer`` serves on one card), and
 ``--state_dict_path`` resumes on any mesh, each process reading its rows.
@@ -60,7 +63,10 @@ Sparse tables and the sampled softmax: ``--preset sharded_multihost
 sampled_softmax_dp``; on N cards, row-sharded over data x model and
 tensor-parallel on the preset's model = 2: ``torchrun --nproc_per_node N
 -m tencent_recommendation_2025_tpu_torch.cli.train --preset
-sharded_multihost`` (N = 8 is the preset's data 4 x model 2). The ReLU-FFN
+sharded_multihost`` (N = 8 is the preset's data 4 x model 2).
+Pipeline-parallel on pipe 2 x data 2: ``torchrun --nproc_per_node 4 -m
+tencent_recommendation_2025_tpu_torch.cli.train --preset hstu_flagship
+--maxlen 1023 --mesh_pipe 2 --mesh_data 2 --pp_microbatches 8``. The ReLU-FFN
 HSTU on long histories (the standalone
 HSTU attention kernels, chunked route): ``--preset hstu_mini --maxlen 4095
 --batch_size 32 --loader cached``.
@@ -176,9 +182,8 @@ def single_device_warning(want: int, present: int) -> str:
         return (f"WARNING: preset wants {want} devices but only {present} "
                 "present — training single-device")
     return (f"WARNING: preset wants {want} devices; one process drives one "
-            "card: a data, model or seq mesh trains under torchrun with one "
-            "process per card, a pipe axis waits for ROADMAP Queue 1, item 5 "
-            "— training single-device")
+            "card: a data, model, seq or pipe mesh trains under torchrun with "
+            "one process per card — training single-device")
 
 
 def main(argv=None, timings: Optional[dict] = None,
@@ -279,6 +284,20 @@ def main(argv=None, timings: Optional[dict] = None,
         if env.train_ckpt_path:
             cache_dir = Path(env.train_ckpt_path) / name
             print(f"native dataprep cache at {cache_dir}")
+            if mesh is None or not mesh.process:
+                return NP.build_packed_cache_native(sampler, cache_dir,
+                                                    threads=args.num_workers)
+            # the processes of a mesh share the directory: rank 0 packs and
+            # the others load its pack after a barrier (packing at once,
+            # they would rewrite files another one has memory-mapped)
+            import torch.distributed as dist
+
+            try:
+                if dist.get_rank() == 0:
+                    return NP.build_packed_cache_native(
+                        sampler, cache_dir, threads=args.num_workers)
+            finally:
+                dist.barrier()
             return NP.build_packed_cache_native(sampler, cache_dir,
                                                 threads=args.num_workers)
         # no checkpoint directory to keep it beside: a temporary one, whose

@@ -19,7 +19,9 @@ port runs plain PyTorch on any device (on a ``seq`` mesh the unfused ring,
 package's ``mesh_trivial`` turns them off, and every block runs
 tensor-parallel: its projections split over the model shards, each
 shard's attention core on its own heads (``models/hstu.py``,
-``models/attention.py``, :func:`ffn`).
+``models/attention.py``, :func:`ffn`). On a ``pipe`` mesh the blocks run
+as a GPipe schedule over the stages (``parallel/pipeline_parallel``), each
+microbatch on the route the single device takes at its shape.
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ from .embedding import layernorm, layernorm_init, linear_init, torch_dtype
 from .hstu import (dropout, dropout_shards, hstu_attend, hstu_block,
                    hstu_output, hstu_project, init_hstu_params)
 from ..parallel import ring_attention as RA
-from ..parallel.mesh import model_size, seq_size, unported
+from ..parallel.mesh import (model_size, pipe_blocks, pipe_size,
+                             seq_size, unported)
+from ..parallel.pipeline_parallel import shard_schedule
 from ..parallel.partition import ModelShards, column_parallel, row_parallel
 from ..parallel.ring_fused import ring_fused_encode
 
@@ -278,12 +282,17 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     output gathers along L before the final LayerNorm. On a mesh whose
     ``model`` axis is M > 1 the blocks' parameters come split
     (``parallel.partition.tp_view``) and every block is tensor-parallel
-    (``models/hstu.py``, ``models/attention.py``, :func:`ffn`). A mesh
-    with pipe > 1 raises ``NotImplementedError``."""
-    shape = getattr(mesh, "shape", None)
-    if mesh is not None and (shape is None or shape.get("pipe", 1) > 1):
-        unported(f"the encoder on the mesh {shape or mesh!r} (pipeline "
-                 "parallelism)")
+    (``models/hstu.py``, ``models/attention.py``, :func:`ffn`).
+
+    On a mesh whose ``pipe`` axis is P > 1 the blocks run as a GPipe
+    schedule of the mesh's ``pp_microbatches`` microbatches a data column
+    (:func:`_pipe_blocks`), and the final LayerNorm on the rows' own
+    stage. ``fused_emb`` holds the rows of one data shard: a
+    process mesh's own (its stage's ``params["blocks"]`` are its NB / P
+    blocks), or one shard's on a local mesh (whole blocks), which the
+    trainer calls once a shard."""
+    if mesh is not None and getattr(mesh, "shape", None) is None:
+        unported(f"the encoder on the mesh {mesh!r}")
     dtype = torch_dtype(cfg.dtype)
     B, L, D = fused_emb.shape
     x = fused_emb.to(dtype) * torch.tensor(D ** 0.5, dtype=dtype)
@@ -299,7 +308,10 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
         raise ValueError(f"route {route!r} with a mesh of seq "
                          f"{seq_size(mesh)}: the ring routes, and only they, "
                          "take a seq mesh")
-    if route == "ring_fused":
+    if pipe_size(mesh) > 1:
+        x = _pipe_blocks(blocks, x, token_type, cfg, use_dropout, gen, train,
+                         route, mesh)
+    elif route == "ring_fused":
         # every seq rank holds the whole rows; the blocks run on its shards
         seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_blocks,),
                               generator=gen, device=gen.device) \
@@ -320,13 +332,68 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     return layernorm(_cast_ln(params["last_ln"], dtype), x)
 
 
+def _pipe_blocks(blocks, x, token_type, cfg, use_dropout, gen, train, route,
+                 mesh):
+    """The block stack of one data shard's rows on a pipe mesh (before the
+    final LayerNorm). The rows split into M / P contiguous microbatches,
+    the layout ``parallel/pipeline_parallel`` names (the encoder is
+    row-independent: a row's output does not depend on which microbatch
+    holds it); each microbatch's ``x`` and ``token_type`` ride the conveyor
+    together, and each stage runs its blocks on the route the single
+    device takes at the microbatch's shape (the fused kernels where
+    seq = model = 1 and the gate passes, as the JAX pp body does).
+
+    Dropout: this shard draws one seed per (microbatch, block) from its own
+    generator, and the seeds ride with the rows, so a mask depends on
+    neither the stage that runs it nor the schedule, and no two
+    microbatches (of this or another shard) share one. The fused kernel
+    seeds each row by its index within the launch, the seed by microbatch:
+    the JAX package folds the microbatch index into the block keys for the
+    same reason (row r of every microbatch would draw one mask)."""
+    P, NB, M = mesh.shape["pipe"], cfg.num_blocks, mesh.pp_microbatches
+    rows = x.shape[0]
+    m_loc = M // P
+    if M % P or rows % m_loc:
+        raise ValueError(f"{rows} rows of a data shard do not split into "
+                         f"pp_microbatches={M} / pipe {P} microbatches")
+    stage = pipe_blocks(NB, mesh)
+    act = {"x": x, "tt": token_type}
+    if use_dropout:
+        seeds = torch.randint(0, 2 ** 31 - 1, (m_loc, NB), generator=gen,
+                              device=gen.device)
+        act["seed"] = seeds.repeat_interleave(rows // m_loc, dim=0)
+    grad = torch.is_grad_enabled()
+    fused = route == "fused"
+    stacked = {"b": torch.arange(NB)[stage],
+               "bp": FB.block_operands(blocks, x.dtype)
+               if fused and not grad else blocks}
+    zero = torch.zeros((), dtype=torch.int64)
+    rate, H = cfg.dropout_rate, cfg.num_heads
+    L = x.shape[1]
+
+    def block_fn(a, sp):
+        b = int(sp["b"])
+        if fused and grad:
+            seed = a["seed"][0, b] if use_dropout else zero
+            xo = FB.fused_hstu_block_autograd(a["x"], sp["bp"], a["tt"],
+                                              seed, H, rate, use_dropout)
+        elif fused:
+            xo = FB.fused_hstu_block(a["x"], sp["bp"], a["tt"], H)
+        else:
+            seed = int(a["seed"][0, b]) if use_dropout else None
+            xo = _block_step(cfg, a["tt"], a["tt"], use_dropout, train,
+                             route, None, L)(a["x"], sp["bp"], seed)
+        return dict(a, x=xo)
+
+    return shard_schedule(mesh, block_fn, stacked, act, M)["x"]
+
+
 def _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen, train,
             route, mesh, seq_len):
     """The block stack on the "fused", "core", "dense" and "ring" routes
     (before the final LayerNorm); on a process mesh's "ring" route, over
     this process's shard of x and ``token_type`` (``seq_len`` the whole
     sequence's L)."""
-    dtype = x.dtype
     rate = cfg.dropout_rate
     blocks = params["blocks"]
     if route == "fused":
@@ -341,22 +408,12 @@ def _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen, train,
                     x, block_params(blocks, i), token_type, seeds[i],
                     cfg.num_heads, rate, use_dropout)
         else:
-            ops = FB.block_operands(blocks, dtype)   # every block's, at once
+            ops = FB.block_operands(blocks, x.dtype)  # every block's at once
             for i in range(cfg.num_blocks):
                 x = FB.fused_hstu_block(x, block_params(ops, i), token_type,
                                         cfg.num_heads)
         return x
 
-    H = cfg.num_heads
-    M = model_size(mesh)
-    # a model shard's core runs its H / M heads, or all H where M does not
-    # divide H (models/hstu.hstu_attend, models/attention._mha_tp)
-    core = attention_core(cfg, token_type, mesh, seq_len,
-                          heads=H // M if H % M == 0 else H) \
-        if route in ("core", "ring") else None
-    # the dense [B, L, L] mask only where no core runs; a core masks by
-    # token_type itself
-    mask = attention_mask(seq_ids, token_type) if core is None else None
     # each block draws its masks from a generator of its own, rebuilt from
     # an int seed, so that a checkpointed block's recompute draws them again
     seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_blocks,), generator=gen,
@@ -369,6 +426,31 @@ def _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen, train,
         # dropout off (the fused ring folds the shard seeds on both)
         si, di = mesh.seq_indices[0], mesh.data_index
         seeds = [s + si * 1000003 + di * 10007 for s in seeds]
+    step = _block_step(cfg, seq_ids, token_type, use_dropout, train, route,
+                       mesh, seq_len)
+    for i in range(cfg.num_blocks):
+        x = step(x, block_params(blocks, i), seeds[i])
+    return x
+
+
+def _block_step(cfg, seq_ids, token_type, use_dropout, train, route, mesh,
+                seq_len):
+    """``step(x, block params, seed) -> x``: one block on the "core",
+    "dense" and "ring" routes, with its attention core (or its dense mask)
+    built here once for the blocks that share ``token_type``, and the
+    checkpoints of ``cfg.remat_blocks``."""
+    rate = cfg.dropout_rate
+    H = cfg.num_heads
+    M = model_size(mesh)
+    dtype = torch_dtype(cfg.dtype)
+    # a model shard's core runs its H / M heads, or all H where M does not
+    # divide H (models/hstu.hstu_attend, models/attention._mha_tp)
+    core = attention_core(cfg, token_type, mesh, seq_len,
+                          heads=H // M if H % M == 0 else H) \
+        if route in ("core", "ring") else None
+    # the dense [B, L, L] mask only where no core runs; a core masks by
+    # token_type itself
+    mask = attention_mask(seq_ids, token_type) if core is None else None
 
     def ln(p, t):
         return layernorm(_cast_ln(p, dtype), t)
@@ -404,17 +486,17 @@ def _blocks(params, x, seq_ids, token_type, cfg, use_dropout, gen, train,
     split = remat and core is not None and cfg.block_type == "hstu"
     ckpt = functools.partial(torch.utils.checkpoint.checkpoint,
                              use_reentrant=False)
-    for i in range(cfg.num_blocks):
-        bp = block_params(blocks, i)
+
+    def step(x, bp, seed):
         if split:
             u, v, q, k = ckpt(hstu_pre, x, bp)
             av = hstu_attend(q, k, v, bp["hstu"]["rab"], None, H, core)
-            x = ckpt(hstu_post, x, av, u, bp, seeds[i])
-        elif remat:
-            x = ckpt(run_block, x, bp, seeds[i])
-        else:
-            x = run_block(x, bp, seeds[i])
-    return x
+            return ckpt(hstu_post, x, av, u, bp, seed)
+        if remat:
+            return ckpt(run_block, x, bp, seed)
+        return run_block(x, bp, seed)
+
+    return step
 
 
 def _block_generator(seed: Optional[int], device) -> Optional[torch.Generator]:

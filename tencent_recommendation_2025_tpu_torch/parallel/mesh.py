@@ -1,6 +1,6 @@
 """Device meshes of the port: the (pipe, data, model, seq) axes of the JAX
-package's ``parallel/mesh.py``, for data-, tensor- and sequence-parallel
-training.
+package's ``parallel/mesh.py``, for data-, tensor-, sequence- and
+pipeline-parallel training.
 
 Two kinds, with one interface that the encoder and the trainer read:
 
@@ -9,12 +9,15 @@ Two kinds, with one interface that the encoder and the trainer read:
   (data, model, seq) shard: the rows of its data index, the model slices
   of its model index and, inside the encoder, the tokens of its seq index.
   Processes are ordered as the JAX mesh orders its devices
-  (``reshape(pipe, data, model, seq)``): ``rank = (data_index * model +
-  model_index) * seq + seq_index``. It keeps a ``torch.distributed`` group
-  per axis: the seq group (the ranks of one (data, model) index), the data
-  group (one (model, seq) index), the model group (one (data, seq) index),
-  and the replica group of one model index (data x seq), over which a
-  replicated or model-split gradient is summed. Key/value shards rotate
+  (``reshape(pipe, data, model, seq)``): ``rank = ((pipe_index * data +
+  data_index) * model + model_index) * seq + seq_index``. It keeps a
+  ``torch.distributed`` group per axis: the seq group (the ranks of one
+  (pipe, data, model) index), the data group (one (model, seq) index, over
+  pipe x data: see below), the model group (one (pipe, data, seq) index),
+  the replica group of one model index (pipe x data x seq), over which a
+  replicated or model-split gradient is summed, and with pipe > 1 the pipe
+  group of each data column (one (data, model, seq) index) and the stage
+  group of each pipe index (its data ranks). Key/value shards rotate
   around the seq group by point-to-point sends (:meth:`ProcessMesh.rotate`),
   the encoder output gathers along L (:meth:`ProcessMesh.gather_seq`), and
   what the loss needs of the other data shards (counts, the in-batch
@@ -58,12 +61,22 @@ mips.py``): :func:`world_shards` shards, of which a process holds the one of
 its rank and a local mesh all (``world_indices``); ``all_gather_world``
 gathers the shards' winners over every process (no gradient).
 
-Meshes with pipe > 1 raise ``NotImplementedError`` naming ROADMAP Queue 1
-item 5 (slice e: pipeline parallelism).
+The pipe axis (pipeline parallelism, ``parallel/pipeline_parallel.py``)
+composes with data only (pipe > 1 with model or seq raises ``ValueError``,
+as the JAX ``build_mesh`` asserts). Outside the encoder a pipe x data mesh
+is a data mesh of P x D shards in the JAX order ``pipe_index * data +
+data_index`` (JAX ``BATCH_RULES``: the batch over ("pipe", "data")): the
+rows of a global batch (:func:`data_size`, ``data_indices``,
+:func:`host_batch_slice`), the data group's collectives and the table
+shards. Inside it, each data column's P ranks run the stacked blocks as a
+GPipe schedule, stage p holding blocks [p NB / P, (p + 1) NB / P)
+(:func:`pipe_blocks`); ``pp_microbatches`` (the mesh config's) sets its
+microbatches.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -80,10 +93,13 @@ def unported(what: str):
     raise NotImplementedError(f"{what} is not ported yet: {QUEUE_ITEM}")
 
 
-def _check_axes(cfg: MeshConfig) -> None:
-    if cfg.pipe > 1:
-        unported(f"a mesh with pipe={cfg.pipe} (pipeline parallelism, "
-                 "slice e)")
+def check_axes(shape: Dict[str, int]) -> None:
+    """Raise ``ValueError`` for a pipe axis with a model or a seq axis in a
+    mesh's ``shape``, as the JAX ``build_mesh`` asserts."""
+    if shape.get("pipe", 1) > 1 and (shape.get("model", 1) > 1
+                                     or shape.get("seq", 1) > 1):
+        raise ValueError(
+            "pipe>1 composes with data parallelism only (model=seq=1)")
 
 
 def initialize_distributed(device: str = "cuda") -> bool:
@@ -110,9 +126,12 @@ class LocalMesh:
     rank = 0
     data_index = 0
 
-    def __init__(self, seq: int = 1, data: int = 1, model: int = 1):
-        self.shape: Dict[str, int] = {"pipe": 1, "data": data,
+    def __init__(self, seq: int = 1, data: int = 1, model: int = 1,
+                 pipe: int = 1, pp_microbatches: int = 8):
+        self.shape: Dict[str, int] = {"pipe": pipe, "data": data,
                                       "model": model, "seq": seq}
+        check_axes(self.shape)
+        self.pp_microbatches = pp_microbatches
 
     @property
     def seq_indices(self) -> List[int]:
@@ -120,8 +139,9 @@ class LocalMesh:
 
     @property
     def data_indices(self) -> List[int]:
-        """The data shards whose rows run in this process: all of them."""
-        return list(range(self.shape["data"]))
+        """The data shards whose rows run in this process: all of them
+        (pipe x data, flattened, on a pipe mesh)."""
+        return list(range(data_size(self)))
 
     @property
     def model_indices(self) -> List[int]:
@@ -131,12 +151,16 @@ class LocalMesh:
     @property
     def table_indices(self) -> List[int]:
         """The table shards this process holds: all of them."""
-        return list(range(self.shape["data"] * self.shape["model"]))
+        return list(range(table_shards(self)))
 
     @property
     def encoder_mesh(self) -> Optional["LocalMesh"]:
         """The mesh one data shard's rows take through the encoder: its seq
-        and model shards (None with neither axis)."""
+        and model shards, or its pipe stages (None without any of those
+        axes)."""
+        if self.shape["pipe"] > 1:
+            return LocalMesh(pipe=self.shape["pipe"],
+                             pp_microbatches=self.pp_microbatches)
         if self.shape["seq"] == 1 and self.shape["model"] == 1:
             return None
         return self if self.shape["data"] == 1 \
@@ -226,51 +250,61 @@ def _ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class ProcessMesh:
-    """This process's place in a (data, model, seq) mesh of processes, one
-    card each (see the module docstring): ``rank = (data_index * model +
-    model_index) * seq + seq_index``, as the JAX mesh orders its
-    devices."""
+    """This process's place in a (pipe, data, model, seq) mesh of processes,
+    one card each (see the module docstring): ``rank = ((pipe_index * data
+    + data_index) * model + model_index) * seq + seq_index``, as the JAX
+    mesh orders its devices."""
 
     process = True
 
-    def __init__(self, data: int, seq: int, model: int = 1):
+    def __init__(self, data: int, seq: int, model: int = 1, pipe: int = 1,
+                 pp_microbatches: int = 8):
         rank = dist.get_rank()
-        self.shape = {"pipe": 1, "data": data, "model": model, "seq": seq}
-        dm, self.seq_index = divmod(rank, seq)
-        self.data_index, self.model_index = divmod(dm, model)
+        self.shape = {"pipe": pipe, "data": data, "model": model,
+                      "seq": seq}
+        check_axes(self.shape)
+        self.pp_microbatches = pp_microbatches
+        rest, self.seq_index = divmod(rank, seq)
+        rest, self.model_index = divmod(rest, model)
+        self.pipe_index, self.data_index = divmod(rest, data)
+        me = (self.pipe_index, self.data_index, self.model_index,
+              self.seq_index)
 
-        def rk(d, m, s):
-            return (d * model + m) * seq + s
+        def rk(p, d, m, s):
+            return ((p * data + d) * model + m) * seq + s
 
-        self.seq_ranks = [rk(self.data_index, self.model_index, s)
-                          for s in range(seq)]
-        self.model_ranks = [rk(self.data_index, m, self.seq_index)
-                            for m in range(model)]
-        # every process creates every group, in the same order
-        for d in range(data):
-            for m in range(model):
-                g = dist.new_group([rk(d, m, s) for s in range(seq)])
-                if (d, m) == (self.data_index, self.model_index):
-                    self.seq_group = g
-        for m in range(model):
-            for s in range(seq):
-                g = dist.new_group([rk(d, m, s) for d in range(data)])
-                if (m, s) == (self.model_index, self.seq_index):
-                    self.data_group = g
-        for d in range(data):
-            for s in range(seq):
-                g = dist.new_group([rk(d, m, s) for m in range(model)])
-                if (d, s) == (self.data_index, self.seq_index):
-                    self.model_group = g
-        self.replica_ranks = [rk(d, self.model_index, s)
-                              for d in range(data) for s in range(seq)]
+        def groups(axes):
+            """Every group of the ranks that differ only along ``axes``
+            (every process creates every group, in the same order), and
+            this process's: (its group, its ranks in group order)."""
+            sizes = dict(zip("pdms", (pipe, data, model, seq)))
+            fixed = [a for a in "pdms" if a not in axes]
+            mine = None
+            for key in itertools.product(*(range(sizes[a]) for a in fixed)):
+                at = dict(zip(fixed, key))
+                ranks = [rk(**at, **dict(zip(axes, var)))
+                         for var in itertools.product(
+                             *(range(sizes[a]) for a in axes))]
+                g = dist.new_group(ranks)
+                if all(me["pdms".index(a)] == at[a] for a in fixed):
+                    mine = (g, ranks)
+            return mine
+
+        self.seq_group, self.seq_ranks = groups("s")
+        # the data group spans pipe x data: the batch's shards
+        self.data_group, _ = groups("pd")
+        self.model_group, self.model_ranks = groups("m")
         if model == 1:
             self.replica_group = None       # the world
-        for m in range(model if model > 1 else 0):
-            g = dist.new_group([rk(d, m, s) for d in range(data)
-                                for s in range(seq)])
-            if m == self.model_index:
-                self.replica_group = g
+            self.replica_ranks = list(range(dist.get_world_size()))
+        else:
+            self.replica_group, self.replica_ranks = groups("pds")
+        self.pipe_group = self.stage_group = None
+        self.pipe_ranks = self.stage_ranks = None
+        if pipe > 1:
+            self.pipe_group, self.pipe_ranks = groups("p")
+            self.stage_group, self.stage_ranks = groups("d")
+            _warm(self.pipe_group)
 
     @property
     def seq_indices(self) -> List[int]:
@@ -278,7 +312,9 @@ class ProcessMesh:
 
     @property
     def data_indices(self) -> List[int]:
-        return [self.data_index]
+        """This process's data shard: pipe x data flattened
+        (``pipe_index * data + data_index``)."""
+        return [batch_index(self)]
 
     @property
     def model_indices(self) -> List[int]:
@@ -286,7 +322,8 @@ class ProcessMesh:
 
     @property
     def table_indices(self) -> List[int]:
-        """The table shard this process holds: its (data, model) index's."""
+        """The table shard this process holds: its (pipe, data, model)
+        index's."""
         return [table_index(self)]
 
     @property
@@ -340,7 +377,7 @@ class ProcessMesh:
         (t,) = parts
         was_bool = t.dtype == torch.bool
         t = (t.to(torch.uint8) if was_bool else t).detach().contiguous()
-        out = [torch.empty_like(t) for _ in range(self.shape["data"])]
+        out = [torch.empty_like(t) for _ in range(data_size(self))]
         dist.all_gather(out, t, group=self.data_group)
         out = torch.cat(out)
         return out.bool() if was_bool else out
@@ -374,8 +411,8 @@ class ProcessMesh:
 
     @property
     def rank(self) -> int:
-        return (self.data_index * self.shape["model"] + self.model_index) \
-            * self.shape["seq"] + self.seq_index
+        return (batch_index(self) * self.shape["model"]
+                + self.model_index) * self.shape["seq"] + self.seq_index
 
     @property
     def world_indices(self) -> List[int]:
@@ -428,15 +465,27 @@ class ProcessMesh:
     def all_reduce(self, t: torch.Tensor, group: str = "world",
                    op: str = "sum") -> torch.Tensor:
         """Sum (or ``op="max"``) ``t`` in place over the world, the data,
-        the seq, the model or the replica group (data x seq: the ranks of
-        this model index)."""
+        the seq, the model, the replica group (pipe x data x seq: the ranks
+        of this model index), the pipe group (this data column's stages)
+        or the stage group (this pipe index's data ranks)."""
         dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op],
                         group={"world": None, "data": self.data_group,
                                "seq": self.seq_group,
                                "model": self.model_group,
-                               "replica": self.replica_group}[group])
+                               "replica": self.replica_group,
+                               "pipe": self.pipe_group,
+                               "stage": self.stage_group}[group])
         return t
+
+
+def _warm(group) -> None:
+    """One all-reduce over ``group``: NCCL creates a group's communicator at
+    its first collective, which must involve every rank of the group,
+    before point-to-point batches that involve only some of them."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    dist.all_reduce(torch.zeros(1, device=dev), group=group)
 
 
 def gather_model(t: torch.Tensor, mesh) -> List[torch.Tensor]:
@@ -445,6 +494,15 @@ def gather_model(t: torch.Tensor, mesh) -> List[torch.Tensor]:
     parts = [torch.empty_like(t) for _ in range(mesh.shape["model"])]
     dist.all_gather(parts, t.detach().contiguous(), group=mesh.model_group)
     return parts
+
+
+def gather_pipe(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A stacked block leaf (or moment) whole from this stage's blocks: the
+    pipe group's slices concatenated along dim 0, in stage order (no
+    gradient)."""
+    parts = [torch.empty_like(t) for _ in range(mesh.shape["pipe"])]
+    dist.all_gather(parts, t.detach().contiguous(), group=mesh.pipe_group)
+    return torch.cat(parts)
 
 
 def _model_slice(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
@@ -511,14 +569,14 @@ class _AllReduceData(torch.autograd.Function):
 
 
 def _gather(t: torch.Tensor, mesh) -> torch.Tensor:
-    parts = [torch.empty_like(t) for _ in range(mesh.shape["data"])]
+    parts = [torch.empty_like(t) for _ in range(data_size(mesh))]
     dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
     return torch.cat(parts)
 
 
 def _scatter(t: torch.Tensor, mesh) -> torch.Tensor:
     t = t.contiguous()
-    out = t.new_empty((t.shape[0] // mesh.shape["data"],) + t.shape[1:])
+    out = t.new_empty((t.shape[0] // data_size(mesh),) + t.shape[1:])
     # reduce_scatter_single is the newer name of reduce_scatter_tensor
     fn = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
@@ -595,27 +653,28 @@ class _GatherSeq(torch.autograd.Function):
 
 
 def build_mesh(cfg: MeshConfig = MeshConfig()) -> ProcessMesh:
-    """The process mesh over the initialised process group: model =
-    cfg.model, seq = cfg.seq, and every leftover process folds into data,
-    as the JAX ``build_mesh`` folds leftover devices."""
-    _check_axes(cfg)
+    """The process mesh over the initialised process group: pipe =
+    cfg.pipe, model = cfg.model, seq = cfg.seq, and every leftover process
+    folds into data, as the JAX ``build_mesh`` folds leftover devices."""
     n = dist.get_world_size()
-    if n % (cfg.model * cfg.seq):
-        raise ValueError(f"{n} processes are not divisible by model="
-                         f"{cfg.model} x seq={cfg.seq}")
-    return ProcessMesh(n // (cfg.model * cfg.seq), cfg.seq, cfg.model)
+    rest = cfg.pipe * cfg.model * cfg.seq
+    if n % rest:
+        raise ValueError(f"{n} processes are not divisible by pipe*model*"
+                         f"seq={rest}")
+    return ProcessMesh(n // rest, cfg.seq, cfg.model, cfg.pipe,
+                       cfg.pp_microbatches)
 
 
 def local_mesh(cfg: MeshConfig = MeshConfig()) -> LocalMesh:
-    """A mesh of cfg.data x cfg.model x cfg.seq shards in this process on
-    one device.
+    """A mesh of cfg.pipe x cfg.data x cfg.model x cfg.seq shards in this
+    process on one device.
     With dropout on, its unfused "ring" route draws whole-sequence masks
     where a process mesh draws per-shard ones, so the two agree there only
     with dropout off; the fused ring folds the shard seeds on both. Each
     data shard draws its dropout masks from its own generator, as a process
     of that data index does."""
-    _check_axes(cfg)
-    return LocalMesh(seq=cfg.seq, data=cfg.data, model=cfg.model)
+    return LocalMesh(seq=cfg.seq, data=cfg.data, model=cfg.model,
+                     pipe=cfg.pipe, pp_microbatches=cfg.pp_microbatches)
 
 
 def data_rows(global_batch: int, n_data: int, index: int) -> slice:
@@ -633,7 +692,7 @@ def host_batch_slice(global_batch: int, mesh=None) -> slice:
     index's share (all of them without a process mesh)."""
     if mesh is None or not mesh.process:
         return slice(0, global_batch)
-    return data_rows(global_batch, mesh.shape["data"], mesh.data_index)
+    return data_rows(global_batch, data_size(mesh), batch_index(mesh))
 
 
 TABLE_AXES = ("pipe", "data", "model")
@@ -651,13 +710,21 @@ def table_shards(mesh: Optional[object]) -> int:
 
 
 def table_index(mesh: Optional[object]) -> int:
-    """This process's table shard: ``data_index * model + model_index``
-    (pipe = 1; JAX ``sharded_embedding.py``'s ``shard_idx``), 0 without a
-    mesh. A local mesh holds every shard (``table_indices``)."""
+    """This process's table shard: ``(pipe_index * data + data_index) *
+    model + model_index`` (JAX ``sharded_embedding.py``'s ``shard_idx``
+    over ``TABLE_AXES``), 0 without a mesh. A local mesh holds every shard
+    (``table_indices``)."""
     if mesh is None or not mesh.process:
         return 0
     M = mesh.shape.get("model", 1)
-    return mesh.data_index * M + (mesh.model_index if M > 1 else 0)
+    return batch_index(mesh) * M + (mesh.model_index if M > 1 else 0)
+
+
+def batch_index(mesh) -> int:
+    """A process's data shard of a global batch's rows: ``pipe_index *
+    data + data_index`` (pipe x data flattened, JAX ``BATCH_RULES``)."""
+    return getattr(mesh, "pipe_index", 0) * mesh.shape.get("data", 1) \
+        + mesh.data_index
 
 
 def world_shards(mesh: Optional[object]) -> int:
@@ -677,7 +744,29 @@ def seq_size(mesh: Optional[object]) -> int:
 
 
 def data_size(mesh: Optional[object]) -> int:
-    return 1 if mesh is None else mesh.shape.get("data", 1)
+    """The data shards of a global batch: pipe x data (the JAX batch
+    sharding over ("pipe", "data")), 1 without a mesh."""
+    return 1 if mesh is None else \
+        mesh.shape.get("pipe", 1) * mesh.shape.get("data", 1)
+
+
+def pipe_size(mesh: Optional[object]) -> int:
+    return 1 if mesh is None else mesh.shape.get("pipe", 1)
+
+
+def pipe_blocks(num_blocks: int, mesh) -> slice:
+    """The blocks stage ``mesh.pipe_index`` of a process mesh holds:
+    [p NB / P, (p + 1) NB / P) (the stacked leaves' leading axis over
+    ``pipe``); all of them without a pipe axis. Raises where P does not
+    divide NB, with the JAX message."""
+    P = pipe_size(mesh)
+    if num_blocks % P:
+        raise ValueError(f"num_blocks {num_blocks} not divisible by pipe "
+                         f"stages {P}")
+    if P == 1 or not mesh.process:
+        return slice(0, num_blocks)
+    k = num_blocks // P
+    return slice(mesh.pipe_index * k, (mesh.pipe_index + 1) * k)
 
 
 def model_size(mesh: Optional[object]) -> int:

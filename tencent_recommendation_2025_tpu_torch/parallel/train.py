@@ -4,15 +4,17 @@ Counterpart of ``tencent_recommendation_2025_tpu/parallel/train.py``. As the
 JAX package's partition rules place them, the learned tables (``item_emb``,
 ``user_emb``, ``fused_feat``), their AdamW moments and their row-optimizer
 state row-shard over the mesh's table shards (``parallel.mesh.
-table_shards``, data x model): a process of a process mesh holds the rows
-of its (data, model) index s, [s * V / S, (s + 1) * V / S) of the table padded to
+table_shards``, pipe x data x model): a process of a process mesh holds the
+rows of its (pipe, data, model) index s, [s * V / S, (s + 1) * V / S) of the table padded to
 a multiple of S (a table at packed scale is not padded further: its Vp rows
 split into whole groups); a local mesh holds the padded table, whose row
 blocks are its shards. Every other parameter and its AdamW state is
 replicated, one copy per process, except on a model mesh, where each
 tensor-parallel leaf (``parallel/partition.py``) and its AdamW moments are
 split over the model shards (:func:`land_model`: a process holds its
-slice; a local mesh keeps the leaf whole and its steps slice it). The
+slice; a local mesh keeps the leaf whole and its steps slice it), and on a
+pipe mesh, where each stacked block leaf and its AdamW moments are cut to
+the stage's blocks (:func:`land_pipe`; a local mesh keeps them whole). The
 trainer runs each data shard's rows (``train/trainer.py``), the tables'
 lookups cross the shards (``parallel/sharded_embedding.py``), and the
 replicated and split gradients are summed over the replica group. The
@@ -30,7 +32,9 @@ from ..config import Config
 from ..models.baseline import SeqRecModel
 from ..train.trainer import (TrainState, batch_rows, init_state,
                              make_train_step)
-from .mesh import data_rows, model_size, table_index, table_shards
+from .mesh import (batch_index, data_rows, data_size, gather_pipe,
+                   model_size, pipe_blocks, pipe_size, table_index,
+                   table_shards)
 from .partition import join_model, model_dims, shard_slice
 # shard_tables (JAX parallel/train.py:159): the static item and mm tables
 # row-sharded over the table shards, padded to S, the others whole
@@ -40,16 +44,29 @@ from .sharded_embedding import SHARDED_TABLES, shard_tables, table_block
 def layout(mesh) -> Optional[tuple]:
     """The layout of a state on ``mesh`` (``TrainState.layout``): ("local",
     S) (whole tensor-parallel leaves, S row blocks of each table);
-    ("process", S, this table shard) on a process mesh, with its model size
-    M appended where M > 1 (each tensor-parallel leaf this process's model
-    slice); None for whole leaves (S = 1 or no mesh)."""
+    ("process", S, this table shard) on a process mesh, followed by
+    ("model", M) where M > 1 (each tensor-parallel leaf this process's model
+    slice) and ("pipe", P) where P > 1 (each stacked block leaf this
+    stage's blocks): :func:`split_axes`; None for whole leaves (S = 1 or no
+    mesh)."""
     S = table_shards(mesh)
     if S == 1:
         return None
     if not mesh.process:
         return ("local", S)
-    M = model_size(mesh)
-    return ("process", S, table_index(mesh)) + ((M,) if M > 1 else ())
+    split = [(axis, n) for axis, n in (("model", model_size(mesh)),
+                                       ("pipe", pipe_size(mesh))) if n > 1]
+    return ("process", S, table_index(mesh), *split)
+
+
+def split_axes(state_layout: Optional[tuple]) -> Dict[str, int]:
+    """The mesh axes over which a state of ``state_layout`` holds leaves in
+    slices, with their sizes: "model" (the tensor-parallel leaves) and
+    "pipe" (the stacked block leaves); empty where every such leaf is
+    whole (no layout, a local mesh)."""
+    if state_layout is None or state_layout[0] != "process":
+        return {}
+    return dict(state_layout[3:])
 
 
 def _replace_leaf(state: TrainState, path: str, fn, cut=None) -> None:
@@ -125,6 +142,38 @@ def land_model(state: TrainState, mesh) -> TrainState:
     return state
 
 
+def _block_paths(params):
+    from ..bridge import _flatten
+
+    return [p for p in _flatten(params) if p.startswith("blocks/")]
+
+
+def land_pipe(state: TrainState, mesh) -> TrainState:
+    """Every stacked block leaf of a state with whole leaves, and its AdamW
+    moments, cut to this stage's blocks (a process mesh with pipe > 1;
+    :func:`parallel.mesh.pipe_blocks`), in place. A local mesh keeps them
+    whole (its stages slice them)."""
+    if mesh is None or not mesh.process or pipe_size(mesh) == 1:
+        return state
+    for path in _block_paths(state.params):
+        nb = _leaf(state.params, path).shape[0]
+        rows = pipe_blocks(nb, mesh)
+        _replace_leaf(state, path, lambda t, rows=rows: t[rows].clone(),
+                      cut=lambda v, nb=nb: v.dim() > 0 and v.shape[0] == nb)
+    return state
+
+
+def whole_pipe(state: TrainState, mesh) -> TrainState:
+    """The stacked block leaves of a state holding this stage's blocks, and
+    their AdamW moments, whole again (gathered over the pipe group), in
+    place."""
+    for path in _block_paths(state.params):
+        nb = _leaf(state.params, path).shape[0]
+        _replace_leaf(state, path, lambda t: gather_pipe(t, mesh),
+                      cut=lambda v, nb=nb: v.dim() > 0 and v.shape[0] == nb)
+    return state
+
+
 def _leaf(params, path):
     for k in path.split("/"):
         params = params[k]
@@ -149,6 +198,7 @@ def _land_tables(state: TrainState, mesh) -> TrainState:
         for k in opt:
             opt[k] = table_block(opt[k], mesh)
     land_model(state, mesh)
+    land_pipe(state, mesh)
     state.layout = want
     return state
 
@@ -158,21 +208,28 @@ def shard_existing_state(mesh, state: TrainState) -> TrainState:
     tables cut to this process's rows and its tensor-parallel leaves to its
     model slice (a whole table is never broadcast; a state already in the
     mesh's layout, from ``load_checkpoint(mesh=...)``, keeps them); on a
-    process mesh the replicated tensors and the step become rank 0's, and
-    each model slice the first replica's of its model index (broadcasts),
-    so that the replicas start equal."""
+    process mesh the replicated tensors and the step become rank 0's, each
+    model slice the first replica's of its model index and each stage's
+    blocks its first data rank's (broadcasts), so that the replicas start
+    equal."""
     _land_tables(state, mesh)
     if mesh.process:
         import torch.distributed as dist
 
         split = set(model_dims(state.params)) \
             if model_size(mesh) > 1 else set()
+        staged = set(_block_paths(state.params)) \
+            if pipe_size(mesh) > 1 else set()
         tensors = _tensors(state, lambda p: p.split("/")[0]
-                           not in SHARDED_TABLES and p not in split)
+                           not in SHARDED_TABLES and p not in split
+                           and p not in staged)
         _broadcast(tensors)
         if split:
             _broadcast(_tensors(state, lambda p: p in split),
                        src=mesh.replica_ranks[0], group=mesh.replica_group)
+        if staged:
+            _broadcast(_tensors(state, lambda p: p in staged),
+                       src=mesh.stage_ranks[0], group=mesh.stage_group)
         dev = tensors[0].device
         step = torch.tensor([state.step], dtype=torch.int64, device=dev)
         dist.broadcast(step, src=0)
@@ -196,11 +253,11 @@ def shard_batch(mesh, batch: Mapping, index: Optional[int] = None
     (default: this process's data index), as the JAX package's batch
     sharding splits the leading axis; the step's shared negatives stay
     whole. The batch itself without a mesh or with one data shard."""
-    if mesh is None or mesh.shape["data"] == 1:
+    if data_size(mesh) == 1:
         return dict(batch)
-    index = mesh.data_index if index is None else index
+    index = batch_index(mesh) if index is None else index
     return batch_rows(batch, data_rows(batch["seq"].shape[0],
-                                       mesh.shape["data"], index))
+                                       data_size(mesh), index))
 
 
 def unpad_state(state: TrainState, model: SeqRecModel, mesh=None,
@@ -210,7 +267,8 @@ def unpad_state(state: TrainState, model: SeqRecModel, mesh=None,
     rows (``fused_feat``: the fused vocabulary's), the shard padding cut; on
     a process mesh the tables are all-gathered over the table shards first
     and the tensor-parallel leaves and their moments over the model group
-    (:func:`whole_model`), which holds every leaf whole in every process
+    (:func:`whole_model`) and the stage's blocks over the pipe group
+    (:func:`whole_pipe`), which holds every leaf whole in every process
     (for a test or an export; the checkpoints stay per shard). A new
     state; the given one is left as it is."""
     import collections
@@ -242,8 +300,11 @@ def unpad_state(state: TrainState, model: SeqRecModel, mesh=None,
     for name, opt in out.tables.items():
         for k in opt:
             opt[k] = whole(name)(opt[k])
-    if len(state.layout) > 3:
+    split = split_axes(state.layout)
+    if "model" in split:
         whole_model(out, mesh)
+    if "pipe" in split:
+        whole_pipe(out, mesh)
     return out
 
 

@@ -263,28 +263,45 @@ def save_checkpoint(ckpt_dir, state, global_step: int,
     tables' row-optimizer state under ``1/``, the step as ``2``; the tables
     of a state row-sharded on a mesh per shard (every process of a process
     ``mesh`` calls it), its tensor-parallel leaves whole (gathered over the
-    model group, written by rank 0). ``_fault_after_files`` is
+    model group, written by rank 0), and on a pipe mesh its stacked block
+    leaves whole (gathered over the pipe group). ``_fault_after_files`` is
     :func:`_write`'s test hook."""
     meta = _meta(global_step, valid_loss, model_config,
                  dict(extra_meta or {}, state_format="torch"))
+    from ..parallel.train import split_axes
+
     leaves = _state_tensors(state)
-    if state.layout is not None and len(state.layout) > 3:
-        leaves = _whole_model_leaves(state, leaves, mesh)
+    split = split_axes(state.layout)
+    if split:
+        leaves = _whole_model_leaves(state, leaves, mesh, split)
     return _write(ckpt_dir, leaves, meta, global_step, valid_loss,
                   _fault_after_files, state.layout, mesh)
 
 
-def _whole_model_leaves(state, leaves: dict, mesh) -> dict:
-    """``leaves`` with every tensor-parallel parameter of a process mesh's
-    state, and its AdamW moments, gathered whole over the model group
-    (every process calls it; rank 0 writes them)."""
+def _whole_model_leaves(state, leaves: dict, mesh, split: dict) -> dict:
+    """``leaves`` with the split leaves of a process mesh's state (``split``:
+    ``parallel.train.split_axes``) gathered whole: every tensor-parallel
+    parameter and its AdamW moments over the model group, every stacked
+    block leaf and its moments over the pipe group (every process calls
+    it; rank 0 writes them)."""
+    from ..parallel.mesh import gather_pipe
     from ..parallel.partition import join_model, model_dims
 
     out = dict(leaves)
-    for p, dim in model_dims(state.params).items():
-        for key in (f"0/{p}", f"1/{p}/exp_avg", f"1/{p}/exp_avg_sq"):
-            if key in out:
+
+    def moments(p):
+        return [k for k in (f"0/{p}", f"1/{p}/exp_avg", f"1/{p}/exp_avg_sq")
+                if k in out]
+
+    if "model" in split:
+        for p, dim in model_dims(state.params).items():
+            for key in moments(p):
                 out[key] = join_model(mesh, out[key], p, dim)
+    if "pipe" in split:
+        for p in _flatten(state.params):
+            if p.startswith("blocks/"):
+                for key in moments(p):
+                    out[key] = gather_pipe(out[key], mesh)
     return out
 
 
@@ -548,7 +565,9 @@ def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
     only, from whatever shards or whole file it was saved in; on a process
     mesh with a model axis each tensor-parallel leaf and its moments are
     read whole (a JAX checkpoint's per-shard column extents assembled) and
-    cut to this process's slice (``parallel.train.land_model``)."""
+    cut to this process's slice (``parallel.train.land_model``), and on a
+    process mesh with a pipe axis each stacked block leaf and its moments
+    to the stage's blocks (``parallel.train.land_pipe``)."""
     from ..parallel.train import layout
     from .trainer import dense_leaves, init_state, packed_item_table
 
@@ -621,9 +640,10 @@ def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
             opt[k] = got.to(opt[k].dtype)
     state.step = step
     if lay is not None:
-        from ..parallel.train import land_model
+        from ..parallel.train import land_model, land_pipe
 
         land_model(state, mesh)
+        land_pipe(state, mesh)
     return state, meta
 
 

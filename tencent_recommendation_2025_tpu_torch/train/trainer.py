@@ -56,9 +56,14 @@ model shards: each shard runs its slices of the towers and the blocks
 model, and the gradients of the replicated and the split leaves are
 summed over the replica group (the data x seq ranks of one model index).
 
-Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
-item: meshes with pipe > 1 (a preset's ``cfg.mesh`` in one process trains
-single-device, as the JAX CLI falls back).
+On a mesh whose ``pipe`` axis is P > 1 (pipeline parallelism, with data
+only) the batch's rows shard over the P x D ranks as over a data mesh, and
+inside the encoder each data column's ranks run the blocks as a GPipe
+schedule (``models/encoder.py``, ``parallel/pipeline_parallel.py``): each
+stage holds its NB / P blocks and their AdamW moments, whose gradients are
+summed over the stage's data ranks, every other replicated gradient over
+all P x D. The eval step runs the same schedule. A preset's ``cfg.mesh``
+in one process trains single-device, as the JAX CLI falls back.
 """
 
 from __future__ import annotations
@@ -82,8 +87,8 @@ from ..data.pipeline import prefetch
 from ..models.baseline import SeqRecModel, ep_overflow_scope
 from ..ops import losses as LS
 from ..ops import sparse_table as ST
-from ..parallel.mesh import (data_rows, data_size, model_size, seq_size,
-                             table_shards)
+from ..parallel.mesh import (check_axes, data_rows, data_size, model_size,
+                             pipe_size, seq_size, table_shards)
 from ..parallel.mesh import unported as mesh_unported
 from ..parallel.partition import model_dims, tp_view
 from ..parallel.sharded_embedding import (SHARDED_TABLES, shard_tables,
@@ -95,20 +100,18 @@ def check_supported(cfg: Config, mesh=None) -> None:
     """Raise on the training options the port does not cover yet. A
     preset's ``cfg.mesh`` is not one of them: in one process the port
     trains it on one device, as the JAX CLI does where the devices are
-    missing. A ``mesh`` takes any data, model and seq axes with pipe = 1,
-    and dense or sparse tables; pipe > 1 raises ``NotImplementedError``
-    naming ROADMAP Queue 1 item 5. ``grad_accum_steps > 1`` takes dense
-    tables without tower dedup, and on a data mesh microbatches whose rows
-    divide the data axis (``ValueError`` otherwise, as the JAX step
-    asserts)."""
+    missing. A ``mesh`` takes any data, model and seq axes, and a pipe
+    axis with data only (``ValueError`` for pipe with model or seq, as the
+    JAX ``build_mesh`` asserts), with dense or sparse tables.
+    ``grad_accum_steps > 1`` takes dense tables without tower dedup, and
+    on a data mesh microbatches whose rows divide the data axis
+    (``ValueError`` otherwise, as the JAX step asserts)."""
     t = cfg.train
     if mesh is not None:
         shape = getattr(mesh, "shape", None)
         if shape is None:
             mesh_unported(f"training on the device mesh {mesh!r}")
-        if shape.get("pipe", 1) > 1:
-            mesh_unported(f"training on a mesh with pipe > 1 "
-                          f"({dict(shape)}; slice e)")
+        check_axes(shape)
     if not set(t.sparse_tables) <= {"item_emb", "user_emb"}:
         raise ValueError("train.sparse_tables takes subsets of (item_emb, "
                          f"user_emb), not {t.sparse_tables}")
@@ -124,7 +127,7 @@ def check_supported(cfg: Config, mesh=None) -> None:
             raise ValueError(
                 "grad_accum_steps x tower_dedup unsupported: dedup spread "
                 "plans index global batch rows, not microbatch slices")
-        dp = data_size(mesh)
+        dp = 1 if mesh is None else mesh.shape.get("data", 1)
         if dp > 1 and (t.batch_size // G) % dp:
             raise ValueError(
                 f"grad_accum_steps={G}: each microbatch has "
@@ -447,7 +450,7 @@ def _compute_loss(model: SeqRecModel, params, batch, mm_tables, item_tables,
                       "n_mask": n_mask}
     # every seq rank computes its rows' loss in full; each data rank adds
     # its rows' share, the penalty once
-    S, dp = mesh.shape["seq"], mesh.shape["data"]
+    S, dp = mesh.shape["seq"], data_size(mesh)
     bce_all = mesh.all_reduce(bce.detach().clone(), "data")
     total = bce_all if l2 is None else bce_all + l2.detach()
     share = (bce if l2 is None else bce + l2 / dp) / S
@@ -544,25 +547,28 @@ def _grad_metrics(metrics: Dict, grads, mesh=None, sharded=(),
     leaf's mean |g|) of the step's gradients, as the JAX step's. On a
     process mesh the leaves at the indices ``sharded`` are this process's
     blocks of a row-sharded table, and those at ``split`` its model slices
-    of a tensor-parallel leaf: their max and mean are over the whole leaf
-    (a max- and a sum-reduction over the groups that hold its other
-    parts: data and model for a table, model for a slice)."""
+    of a tensor-parallel leaf (its stage's blocks of a stacked block leaf on
+    a pipe mesh): their max and mean are over the whole leaf (a max- and a
+    sum-reduction over the groups that hold its other parts: data and model
+    for a table, model (pipe) for a slice)."""
     metrics = dict(metrics)
     maxs = [g.abs().max() for g in grads]
     means = [g.abs().mean() for g in grads]
     proc = mesh is not None and mesh.process
     M = model_size(mesh)
+    split_grp, n_split = ("model", M) if M > 1 \
+        else ("pipe", pipe_size(mesh))
+    table_grps = ("data", "model") if M > 1 else ("data",)
     for i in (sharded if proc else ()):
-        groups = ("data", "model") if M > 1 else ("data",)
         mx, sm = maxs[i].clone(), grads[i].abs().sum()
-        for grp in groups:
+        for grp in table_grps:
             mx = mesh.all_reduce(mx, grp, op="max")
             sm = mesh.all_reduce(sm, grp)
         maxs[i], means[i] = mx, sm / (grads[i].numel() * table_shards(mesh))
-    for i in (split if proc and M > 1 else ()):
-        maxs[i] = mesh.all_reduce(maxs[i].clone(), "model", op="max")
-        means[i] = mesh.all_reduce(grads[i].abs().sum(), "model") \
-            / (grads[i].numel() * M)
+    for i in (split if proc and n_split > 1 else ()):
+        maxs[i] = mesh.all_reduce(maxs[i].clone(), split_grp, op="max")
+        means[i] = mesh.all_reduce(grads[i].abs().sum(), split_grp) \
+            / (grads[i].numel() * n_split)
     metrics["grad_max"] = torch.stack(maxs).max()
     metrics["grad_mean"] = torch.stack(means).mean()
     return metrics
@@ -775,15 +781,22 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
                    and p.split("/")[0] in SHARDED_TABLES]
         tp_leaves = model_dims(state.params) if model_size(mesh) > 1 else {}
         split = [i for i, (p, _) in enumerate(named) if p in tp_leaves]
+        # a stage's blocks on a pipe mesh: its data ranks hold them
+        staged = [i for i, (p, _) in enumerate(named)
+                  if pipe_size(mesh) > 1 and proc
+                  and p.startswith("blocks/")]
         if proc:
             # one all-reduce of every replicated or model-split gradient
-            # over the replica group (data x seq, the ranks of this model
-            # index): the global batch's sum; each model shard already
-            # holds the whole gradient of a replicated leaf (the model
-            # operators' backward summed it). A sharded table's over the
+            # over the replica group (pipe x data x seq, the ranks of this
+            # model index): the global batch's sum; each model shard
+            # already holds the whole gradient of a replicated leaf (the
+            # model operators' backward summed it). A stage's blocks' over
+            # the stage group (its data ranks), a sharded table's over the
             # seq group only
-            rep = [g for i, g in enumerate(grads) if i not in sharded]
+            rep = [g for i, g in enumerate(grads)
+                   if i not in sharded and i not in staged]
             _all_reduce_flat(mesh, rep, "replica")
+            _all_reduce_flat(mesh, [grads[i] for i in staged], "stage")
             if mesh.shape["seq"] > 1:
                 _all_reduce_flat(mesh, [grads[i] for i in sharded], "seq")
         for group in state.opt.param_groups:
@@ -817,7 +830,8 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
                     # the sentinel is the physical row count: real rows only
                     touched += (p["uids"] < p["V"]).sum()
             metrics = dict(metrics, touched_rows=touched)
-        metrics = _grad_metrics(metrics, grads, mesh, sharded, split)
+        metrics = _grad_metrics(metrics, grads, mesh, sharded,
+                                split + staged)
         state.step += 1
         return state, metrics
 
@@ -1256,13 +1270,13 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
             max_users=cfg.train.eval_retrieval_users)
 
     # the dedup plan indexes whole rows of the batch: one process, no seq
-    # axis; stacked per data shard on a local data mesh (JAX
-    # train/trainer.py:1070-1081)
-    n_dp = data_size(mesh)
+    # or pipe axis; stacked per data shard on a local data mesh (JAX
+    # train/trainer.py:1070-1081, whose flops count the data axis)
+    n_dp = 1 if mesh is None else mesh.shape["data"]
     n_tables = table_shards(mesh)
     dedup_on = cfg.train.tower_dedup and world == 1 and seq_size(mesh) == 1 \
-        and (model_size(mesh) == 1
-             or "item_emb" in cfg.train.sparse_tables)
+        and pipe_size(mesh) == 1 and (model_size(mesh) == 1
+                                      or "item_emb" in cfg.train.sparse_tables)
     if cfg.train.tower_dedup and not dedup_on and verbose:
         print("WARNING: train.tower_dedup needs a single-process mesh "
               "without seq/pipe sharding (model>1 only with sparse "

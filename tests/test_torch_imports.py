@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                 "cli.semantic", "utils.sysinfo", "utils.debug",
                 "train.supervisor", "data.native_pack", "parallel.train",
                 "parallel.sharded_embedding", "retrieval.mips",
-                "data.formats", "parallel.partition"):
+                "data.formats", "parallel.partition",
+                "parallel.pipeline_parallel"):
         assert f"{PORT}.{mod}" in imported, mod
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad

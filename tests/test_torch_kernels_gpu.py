@@ -1191,3 +1191,49 @@ def test_async_checkpoint_snapshot_is_bitwise_on_card(tmp_path):
                                       np.load(sync / e["file"]),
                                       err_msg=e["path"])
     assert state.step == 2
+
+
+@pytest.mark.gpu
+def test_pipe_mesh_step_matches_single_device_on_card(tmp_path):
+    """One bf16 step on a local mesh of pipe 2 x data 2 with 4 microbatches
+    a data column (1 row a fused launch, 1 block a stage) against the
+    single device's fused step from the same parameters: loss within 1e-4
+    relative, every gradient at cosine >= 0.999 (the tables' at their
+    rows), the fused training forward and backward launched once a block
+    and microbatch (2 x 4 x 2 = 16 times)."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.parallel import train as PT
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    cfg, model, tables, batch = _train_world(tmp_path)
+    params = TR.init_state(model, cfg, device="cpu").params
+    mesh = local_mesh(MeshConfig(pipe=2, data=2, pp_microbatches=4))
+    out = {}
+    for side, m_ in (("single", None), ("mesh", mesh)):
+        state = TR.init_state(model, cfg, params=params, device="cuda")
+        tb = tables
+        if m_ is not None:
+            state = PT.shard_existing_state(m_, state)
+            tb = PT.shard_tables(m_, tables)
+        before = (FB.fused_hstu_block_train.launches,
+                  FB.fused_hstu_block_bwd.launches)
+        state, m = TR.make_train_step(model, cfg, m_)(state, batch,
+                                                      tb["mm"], tb)
+        torch.cuda.synchronize()
+        out[side] = (float(m["loss"]),
+                     {p: t.grad.float() for p, t in TR.dense_leaves(
+                         state.params, cfg)},
+                     (FB.fused_hstu_block_train.launches - before[0],
+                      FB.fused_hstu_block_bwd.launches - before[1]))
+    (l1, g1, n1), (lp, gp, npp) = out["single"], out["mesh"]
+    assert n1 == (2, 2) and npp == (16, 16)
+    assert abs(lp - l1) <= 1e-4 * abs(l1)
+    for p, g in g1.items():
+        a, b = g.flatten(), gp[p][:len(g)].flatten()
+        if a.norm() == 0 and b.norm() == 0:
+            continue
+        cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
+        assert cos >= 0.999, (p, cos)

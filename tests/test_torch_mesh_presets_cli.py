@@ -112,15 +112,18 @@ class _ProcessMesh:
 
 _REFUSED = {
     "pipe > 1": ("hstu_flagship", dict(pipe=2, seq=2)),
+    "pipe with model": ("hstu_flagship", dict(pipe=2, model=2)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_REFUSED))
 def test_process_mesh_refuses_what_it_does_not_cover(case):
-    """Under several processes pipe > 1 raises, naming ROADMAP Queue 1 item
-    5, rather than training each process on its own."""
+    """Under several processes a pipe axis with a seq or a model axis
+    raises ``ValueError``, as the JAX ``build_mesh`` asserts (pipe > 1
+    composes with data only), rather than training each process on its
+    own."""
     preset, shape = _REFUSED[case]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    with pytest.raises(ValueError, match=r"model=seq=1"):
         TTR.check_supported(PRESETS[preset](), mesh=_ProcessMesh(**shape))
 
 
@@ -143,14 +146,22 @@ _COVERED = {
     "sparse tables on data": ("sharded_multihost", dict(data=4), {}),
     "sparse tables on data x seq": ("sharded_multihost",
                                     dict(data=2, seq=2), {}),
+    # pipeline parallelism: a pipe axis alone or with data
+    "pipe 2": ("hstu_flagship", dict(pipe=2), {}),
+    "pipe 2 x data 2": ("hstu_flagship", dict(pipe=2, data=2), {}),
+    "sparse tables on pipe x data": ("sharded_multihost",
+                                     dict(pipe=2, data=2), {}),
+    "G=2 on a pipe mesh": ("hstu_flagship", dict(pipe=2, data=2),
+                           dict(grad_accum_steps=2, tower_dedup=False)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_COVERED))
 def test_process_mesh_covers_seq_with_data(case):
     """What a process mesh trains: data, model and seq axes alone or
-    together, the sampled softmax on them, G > 1 on either, sparse tables
-    on any of them (sharded_multihost's own data 4 x model 2)."""
+    together, a pipe axis alone or with data, the sampled softmax on them,
+    G > 1 on any, sparse tables on any of them (sharded_multihost's own
+    data 4 x model 2)."""
     import dataclasses
 
     preset, shape, train = _COVERED[case]
