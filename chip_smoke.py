@@ -70,6 +70,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                64); then the digests of the fused block's and the ring's
                outputs (bitwise_digests), held to those recorded for the
                tree before the standalone attention shared their kernels;
+               then the HSTU attention's silu_qkv instances (pre-activation
+               q, k, v; phase_silu): each against its plain version in f32
+               and bf16 (W = 16, 64, 128 whole-sequence, the chunked route,
+               hd 256 and the sliced hd 1024 on the first design), their
+               own counters, a second call bitwise equal; one HSTU block
+               with a fused_silu core as a path (its launches counted, its
+               output and gradients held to the plain core's); at
+               hstu_mini's and mini_long's shapes the fused SiLU timed
+               beside silu_qkv=False with a separate SiLU pass over [B, L,
+               3D], with the bounds;
                then the group scatter and
                group gather of a sparse-trained table (a 16M x 64 table, 1M
                groups, in f32 and bf16; 196,608 slots, 190,000 real groups
@@ -90,7 +100,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                plain versions on the CPU in bf16 and in f32 (loss and
                per-leaf gradient cosine); prints
                train examples/s, the profiled step's host time (CPU self
-               time summed, its 10 largest ops) and its device profile (a
+               time summed, its 10 largest ops); for the flagship and
+               mini_long the step's fused-feature lookups replayed
+               (phase_lookup_bwd: the one-hot backward's table gradient
+               bitwise equal over two calls on one device and on a local
+               data mesh of 2, held to f64 sums, and timed beside the
+               one-hot products in chunks, the index_add_ it replaced and
+               a one-level segment sum); and its device profile (a
                fused run's
                must name the attention backward's, the pre half's, the post
                half's and the gate/FFN backward's wgmma kernels and none of
@@ -439,7 +455,7 @@ MINI_LONG_RUN = Run("mini_long", "hstu_mini", 4095, LONG_FIXTURE,
                     WORK / "long" / "data", 32,
                     ("--batch_size", "32", "--loader", "cached",
                      "--eval_retrieval_users", "256"), WORK / "mini_long",
-                    "hstu_chunk", 8, True, check_rows=8)
+                    "hstu_chunk", 4, True, check_rows=4)
 PARITY_DATA = WORK / "parity_data"
 PARITY_RUNS = (
     # cli.train's default: baseline at its own window (L=102), dense
@@ -495,6 +511,11 @@ def launch_counters():
             "hstu_bwd": HA.hstu_attention_bwd,
             "hstu_chunk_fwd": HA.hstu_attention_chunk_fwd,
             "hstu_chunk_bwd": HA.hstu_attention_chunk_bwd,
+            # the silu_qkv instances, counted apart (no route sets them)
+            "hstu_silu_fwd": _SiluCounter(HA.hstu_attention_fwd),
+            "hstu_silu_bwd": _SiluCounter(HA.hstu_attention_bwd),
+            "hstu_chunk_silu_fwd": _SiluCounter(HA.hstu_attention_chunk_fwd),
+            "hstu_chunk_silu_bwd": _SiluCounter(HA.hstu_attention_chunk_bwd),
             "group_scatter": ST.group_scatter,
             "group_gather": ST.group_gather,
             **{n: getattr(FB, n) for n in (
@@ -1128,28 +1149,29 @@ def phase_attn_bwd():
 def attn_bwd_spills(report):
     """Whether the attention backward's wgmma kernels at W <= 64 spill
     nothing in this run's build (-Xptxas -v): 8 instances each in
-    fused_block_bwd and ring_pair (attn_bwd_*_wgmma_kernel<W, 0>) and in
-    hstu_attention (the standalone instance, <W, 1>); logs each
-    instance."""
+    fused_block_bwd and ring_pair (attn_bwd_*_wgmma_kernel<W, 0, 0>) and 16
+    in hstu_attention (the standalone instance, <W, 1, 0>, and its
+    silu_qkv instance, <W, 1, 1>); logs each instance."""
     from tencent_recommendation_2025_tpu_torch.ops import kernels
 
     ok = True
-    for lib, flag in (("fused_block_bwd", "0"), ("ring_pair", "0"),
-                      ("hstu_attention", "1")):
+    for lib, flags in (("fused_block_bwd", ("0, 0",)),
+                       ("ring_pair", ("0, 0",)),
+                       ("hstu_attention", ("1, 0", "1, 1"))):
         if lib not in report:
             log(f"{lib}: not built in this run; spills not read")
             continue
         found = []
         for k in kernels.ptxas_report(report[lib]["log"]):
-            m = re.match(r"attn_bwd_(dq|dkdv)_wgmma_kernel<(\d+), ([01])>$",
-                         k["kernel"])
-            if not m or m.group(3) != flag:
+            m = re.match(r"attn_bwd_(dq|dkdv)_wgmma_kernel<(\d+), "
+                         r"([01], [01])>$", k["kernel"])
+            if not m or m.group(3) not in flags:
                 continue
             spill = k["spill_stores"] + k["spill_loads"]
             found.append(f"{k['kernel']} {k['registers']} registers, spills "
                          f"{k['spill_stores']}/{k['spill_loads']} B")
             ok &= int(m.group(2)) > 64 or spill == 0
-        ok &= len(found) == 8
+        ok &= len(found) == 8 * len(flags)
         log(f"{lib}: attention backward wgmma kernels: {'; '.join(found)} "
             f"{'ok' if ok else 'FAIL'}")
     return ok
@@ -1651,12 +1673,13 @@ def pre_smem(DW, bwd):
     return 1024 + w + keep + red
 
 
-def fwd_spills(report, lib, kernel):
+def fwd_spills(report, lib, kernel, variants=1):
     """Registers and spills of the wgmma forward ``kernel``<W> (W = 16, 32,
     64, 128) in this run's build of ``lib`` (ring_pair's
-    pair_fwd_wgmma_kernel, hstu_attention's hstu_fwd_wgmma_kernel); a
-    spill at W <= 64 fails, and so do more than 128 registers there (4
-    blocks an SM). Logs each instance."""
+    pair_fwd_wgmma_kernel; hstu_attention's hstu_fwd_wgmma_kernel<W, 0>
+    and its silu_qkv instance <W, 1>: ``variants`` 2); a spill at W <= 64
+    fails, and so do more than 128 registers there (4 blocks an SM). Logs
+    each instance."""
     from tencent_recommendation_2025_tpu_torch.ops import kernels
 
     if lib not in report:
@@ -1664,7 +1687,7 @@ def fwd_spills(report, lib, kernel):
         return True
     ok, found = True, []
     for k in kernels.ptxas_report(report[lib]["log"]):
-        m = re.match(kernel + r"<(\d+)>$", k["kernel"])
+        m = re.match(kernel + r"<(\d+)(?:, [01])?>$", k["kernel"])
         if not m:
             continue
         W = int(m.group(1))
@@ -1672,7 +1695,7 @@ def fwd_spills(report, lib, kernel):
                      f"{k['spill_stores']}/{k['spill_loads']} B")
         ok &= W > 64 or (k["spill_stores"] + k["spill_loads"] == 0
                          and k["registers"] <= 128)
-    ok &= len(found) == 4
+    ok &= len(found) == 4 * variants
     log(f"{lib}: {'; '.join(found)} {'ok' if ok else 'FAIL'}")
     return ok
 
@@ -2143,6 +2166,268 @@ def phase_attention_times(libs):
         del q, k, v, dout, valid, rab, aux, ref_aux
         _free()
     return ok_all, entries
+
+
+# ---------------------------------------------------------------------------
+# phase 3b'': the HSTU attention's in-kernel SiLU (silu_qkv)
+# ---------------------------------------------------------------------------
+
+#: silu_qkv checks (kind, B, L, D, H): W = 16 (hd 16), 64 and 128 on the
+#: whole-sequence route, hd 16 on the chunked one, hd 256 (the first design
+#: in both dtypes) and hd 1024 (its column slices: bf16 backward, f32
+#: forward); each in f32 (the first design) and bf16
+SILU_CASES = (("hstu", 4, 256, 64, 4), ("hstu", 2, 512, 64, 1),
+              ("hstu", 2, 512, 128, 1), ("hstu_chunk", 2, 2048, 64, 4),
+              ("hstu_chunk", 2, 256, 256, 1),
+              ("hstu_chunk", 2, 256, 1024, 1))
+#: the main paths' shapes of the silu_qkv instances: hstu_mini's (B=64,
+#: L=256) and mini_long's (B=32, L=4096), D=64, H=4
+SILU_SHAPES = (("hstu", "hstu_mini", 64, 256, 64, 4),
+               ("hstu_chunk", "mini_long", 32, 4096, 64, 4))
+
+
+class _SiluCounter:
+    """A wrapper's ``silu_launches`` as a launch counter (``.launches``)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.silu_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.silu_launches = n
+
+
+def _silu_fns(kind, valid, rab, L, H):
+    """(kernel forward, kernel backward, plain forward, plain backward) of
+    the silu_qkv instances on pre-activation q, k, v."""
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    if kind == "hstu_chunk":
+        fwd, bwd = HA.hstu_attention_chunk_fwd, HA.hstu_attention_chunk_bwd
+    else:
+        fwd, bwd = HA.hstu_attention_fwd, HA.hstu_attention_bwd
+    return (lambda q, k, v: fwd(q, k, v, valid, rab, L, H, True),
+            lambda q, k, v, d: bwd(q, k, v, d, valid, rab, L, H, True),
+            lambda q, k, v: HA.hstu_attention_fwd_plain(
+                q, k, v, valid, rab, L, H, True),
+            lambda q, k, v, d: HA.hstu_attention_bwd_plain(
+                q, k, v, d, valid, rab, L, H, True))
+
+
+def check_silu(kind, B, L, D, H, dt, seed):
+    """One silu_qkv instance against its plain version: forward and the
+    pre-activations' gradients (compare_attn, compare_grad), the fully
+    masked row and the padded queries exactly 0, one launch each way on
+    the route's silu counters (``silu_launches``) and none elsewhere, a
+    second call bitwise equal."""
+    import torch
+
+    t0 = time.perf_counter()
+    q, k, v, dout, valid, rab = attention_inputs(B, L, D, H, dt, seed)
+    fwd, bwd, fwd_p, bwd_p = _silu_fns(kind, valid, rab, L, H)
+    before = read_launches()
+    out = fwd(q, k, v)
+    got = bwd(q, k, v, dout)
+    torch.cuda.synchronize()
+    after = read_launches()
+    ok_route = {n: after[n] - before[n] for n in after} == dict(
+        dict.fromkeys(after, 0), **{f"{kind}_silu_fwd": 1,
+                                    f"{kind}_silu_bwd": 1})
+    same = torch.equal(fwd(q, k, v), out) and all(
+        torch.equal(a, b) for a, b in zip(bwd(q, k, v, dout), got))
+    ok, e_f, lim_f = compare_attn(out, fwd_p(q, k, v), dt)
+    ok &= ok_route and same
+    worst, pad = (None, 0.0), L // 3 + 5
+    for name, g, w in zip(("dq", "dk", "dv", "drab"), got,
+                          bwd_p(q, k, v, dout)):
+        okg, eg, _ = compare_grad(g, w, dt)
+        okg &= bool(torch.isfinite(g.float()).all())
+        if name != "drab":
+            okg &= bool((g[0, :pad] == 0).all()) and bool((g[-1] == 0).all())
+        ok &= okg
+        if eg >= worst[1]:
+            worst = (name, eg)
+    log(f"silu_qkv {kind} B={B} L={L} D={D} H={H} hd={D // H} "
+        f"{str(dt)[6:]} (counters {ok_route}, two calls bitwise equal "
+        f"{same}): forward max_abs_err={e_f:.6g} ({lim_f}); backward "
+        f"largest error {worst[1]:.6g} ({worst[0]}); "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    del q, k, v, dout, out, got
+    _free()
+    return ok
+
+
+def silu_block_launches():
+    """The fused_silu hook as a path: one HSTU block (models/hstu.
+    hstu_block, bf16) whose core is the standalone attention with
+    silu_qkv, forward and backward, at hstu_mini's shape (B=64, L=256,
+    D=64, H=4; output and gradients held to the same block on the core's
+    plain versions: cosine >= 0.999) and at mini_long's (B=32, L=4096: its
+    chunked kernels), the launch counters set to 0 before and read after.
+    Returns (ok, the silu counters' launches)."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.models import hstu as TH
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    bf16 = torch.bfloat16
+    ok = True
+    saved = read_launches()
+    reset_launches()
+    for B, L in ((64, 256), (32, 4096)):
+        D, H = 64, 4
+        gen = torch.Generator().manual_seed(B + L)
+        params = TH.init_hstu_params(gen, D, H)
+        params = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cuda())
+                  for k, v in params.items()}
+        rng = np.random.default_rng(L)
+        x = torch.from_numpy(rng.standard_normal((B, L, D)).astype(
+            np.float32)).to(bf16).cuda()
+        cot = torch.from_numpy(rng.standard_normal((B, L, D)).astype(
+            np.float32)).to(bf16).cuda()
+        valid = torch.ones((B, L), dtype=torch.bool, device="cuda")
+        valid[0, :L // 3] = False
+
+        def core(q, k, v, rab):
+            return HA.hstu_attention_packed(q, k, v, valid, rab, L, H,
+                                            silu_qkv=True)
+
+        def plain(q, k, v, rab):
+            return HA.hstu_attention_fwd_plain(q, k, v, valid, rab.float(),
+                                               L, H, True)
+
+        core.fused_silu = plain.fused_silu = True
+        runs = (core,) if L > 1024 else (core, plain)
+        res = []
+        for c in runs:
+            leaves = [params["uvqk"]["w"], params["rab"]]
+            for t in leaves:
+                t.requires_grad_(True)
+                t.grad = None
+            xr = x.clone().requires_grad_(True)
+            out = TH.hstu_block(params, xr, None, H, core=c)
+            out.backward(cot)
+            res.append([out.detach().float(), xr.grad.float()]
+                       + [t.grad.float() for t in leaves])
+            torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all()) for t in res[0])
+        cos = [float(torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0)) for a, b in zip(*res)] \
+            if len(res) == 2 else []
+        ok_b = finite and all(c_ >= 0.999 for c_ in cos)
+        ok &= ok_b
+        log(f"fused_silu block B={B} L={L} D={D} H={H} bf16: finite {finite}"
+            + (f", cosines to the plain core (out, dx, dWuvqk, drab) "
+               + ", ".join(f"{c_:.6f}" for c_ in cos) + " (limit 0.999)"
+               if cos else "") + f" {'ok' if ok_b else 'FAIL'}")
+        del params, x, cot, res
+        _free()
+    got = read_launches()
+    set_launches(saved)
+    want = dict(dict.fromkeys(got, 0), hstu_silu_fwd=1, hstu_silu_bwd=1,
+                hstu_chunk_silu_fwd=1, hstu_chunk_silu_bwd=1)
+    ok_l = got == want
+    nonzero = {k: v for k, v in got.items() if v}
+    log(f"fused_silu block launches {json.dumps(nonzero)} (want one each "
+        f"way on each route, every other counter 0) "
+        f"{'ok' if ok_l else 'FAIL'}")
+    return ok and ok_l, got
+
+
+def phase_silu():
+    """silu_qkv: every instance against its plain version (SILU_CASES, f32
+    and bf16), the fused_silu block as a path (silu_block_launches), then
+    at hstu_mini's and mini_long's shapes in bf16 the fused SiLU's forward
+    and backward beside silu_qkv=False with a separate SiLU pass over [B,
+    L, 3D] (Fn.silu forward; its backward, silu_backward, after the
+    attention's backward): CUDA events and the kernels' device ms by the
+    profiler, the bounds, the plain versions. Returns (ok, JSON entries of
+    the silu instances: no main path launches them, their
+    ``check_launches`` the block run's)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    t0 = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    ok = True
+    for i, case in enumerate(SILU_CASES):
+        for dt in (f32, bf16):
+            ok &= check_silu(*case, dt, 80 + i)
+    ok_b, launches = silu_block_launches()
+    ok &= ok_b
+    entries = []
+    for kind, run, B, L, D, H in SILU_SHAPES:
+        _free()
+        q, k, v, dout, valid, rab = attention_inputs(B, L, D, H, bf16, 90)
+        fwd, bwd, fwd_p, bwd_p = _silu_fns(kind, valid, rab, L, H)
+        f0, b0 = _attn_fns(kind, valid, rab, L, H)[:2]
+        uvqk = torch.cat([q, k, v], dim=-1)   # the [B, L, 3D] SiLU pass
+        g3 = torch.cat([dout] * 3, dim=-1)
+        out = fwd(q, k, v)
+        ok_f, err_f, _ = compare_attn(out, fwd_p(q, k, v), bf16)
+        err_b = 0.0
+        for g, w in zip(bwd(q, k, v, dout), bwd_p(q, k, v, dout)):
+            okg, eg, _ = compare_grad(g, w, bf16)
+            ok_f &= okg
+            err_b = max(err_b, eg)
+        ok &= ok_f
+        del out
+        _free()
+        long_ = L > 1024
+        w, n = (2, 5) if long_ else (3, 20)
+        names = KERNEL_NAMES[kind]
+        calls = {
+            "fwd": (lambda: fwd(q, k, v),
+                    lambda: (Fn.silu(uvqk), f0(q, k, v))),
+            "bwd": (lambda: bwd(q, k, v, dout),
+                    lambda: (b0(q, k, v, dout, None),
+                             torch.ops.aten.silu_backward(g3, uvqk)))}
+        plain = {"fwd": time_ms(lambda: fwd_p(q, k, v), 1, 1 if long_ else 3)}
+        _free()
+        plain["bwd"] = time_ms(lambda: bwd_p(q, k, v, dout), 1,
+                               1 if long_ else 3)
+        _free()
+        name = _ATTN_NAMES[kind]
+        src, tpu, fwd_row, bwd_row = _ATTN_REPLACES[kind]
+        for key, err, row in (("fwd", err_f, fwd_row),
+                              ("bwd", err_b, bwd_row)):
+            fused, apart = calls[key]
+            way = 0 if key == "fwd" else 1
+            t_fused = time_ms(fused, w, n)
+            t_apart = time_ms(apart, w, n)
+            d_fused = kernel_device_ms(fused, names[way])
+            d_apart = kernel_device_ms(apart, names[way] + ("silu",))
+            bound, by, flops, nbytes = attention_bound(kind, B, L, D, H, 2,
+                                                       key == "bwd")
+            log(f"{name}_silu_{key} ({run}: B={B} L={L} D={D} H={H}): "
+                f"silu_qkv {t_fused:.4f} ms (device {d_fused:.4f}); "
+                f"silu_qkv=False with a separate SiLU pass over [B, L, 3D] "
+                f"{t_apart:.4f} ms (device {d_apart:.4f}); plain "
+                f"{plain[key]:.4f} ms; bound {bound:.4f} ms ({by}: "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); max abs "
+                f"err {err:.4g} {'ok' if ok_f else 'FAIL'}")
+            entries.append({
+                "name": f"{name}_silu_{key}_L{L}_H{H}", "route": "cuda",
+                "source": SRC + ("hstu_attention.cu" if key == "fwd"
+                                 else "hstu_attn_bwd_sm90.cuh"),
+                "replaces": tpu + row,
+                # no main path sets fused_silu: the block run's count is
+                # this phase's own check, apart from the path's launches
+                "launches": 0,
+                "check_launches": launches[f"{kind}_silu_{key}"],
+                "max_abs_err": err, "ms": t_fused, "plain_ms": plain[key],
+                "bound_ms": bound, "bound_by": by, "library_ms": None})
+        del q, k, v, dout, valid, rab, uvqk, g3
+        _free()
+    log(f"silu_qkv phase: {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, entries
 
 
 # ---------------------------------------------------------------------------
@@ -3071,6 +3356,214 @@ def cosine(a, b):
                              * np.linalg.norm(b, axis=1))
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: the fused-feature lookup's one-hot backward
+# ---------------------------------------------------------------------------
+
+#: the runs whose step's fused-feature lookups phase_lookup_bwd replays
+LOOKUP_RUNS = ("flagship", "mini_long")
+#: ids a product of onehot_chunked_grad takes at once
+ONEHOT_CHUNK = 1 << 15
+
+
+def onehot_chunked_grad(ids, offsets, sizes, cot, n_rows):
+    """The other repeatable design of the one-hot backward, timed beside
+    the port's (``parallel.sharded_embedding.row_grad_sum``, a stable sort
+    and a segmented sum): per (offset, vocab) group, as the JAX
+    ``_fl_bwd`` takes it, f32 products one_hot(id - 1, vocab)^T @ cot over
+    chunks of ONEHOT_CHUNK ids, summed in chunk order (cuBLAS, no atomic),
+    written at rows offset + 1 .. offset + vocab."""
+    import torch
+
+    F = len(offsets)
+    D = cot.shape[-1]
+    flat = ids.reshape(-1, F).long()
+    c = cot.reshape(-1, F, D).float()
+    out = c.new_zeros((n_rows, D))
+    groups = {}
+    for f in range(F):
+        groups.setdefault((int(offsets[f]), int(sizes[f])), []).append(f)
+    for (off, vocab), fs in groups.items():
+        idc = flat[:, fs].t().reshape(-1)
+        cc = c[:, fs].transpose(0, 1).reshape(-1, D)
+        cols = torch.arange(1, vocab + 1, device=ids.device)
+        acc = c.new_zeros((vocab, D))
+        for s in range(0, idc.shape[0], ONEHOT_CHUNK):
+            oh = (idc[s:s + ONEHOT_CHUNK, None] == cols[None]).float()
+            acc += oh.t() @ cc[s:s + ONEHOT_CHUNK]
+        out[off + 1:off + 1 + vocab] = acc
+    return out
+
+
+def segment_sum_one_level(rows, cot, n_rows):
+    """``row_grad_sum``'s first design, timed beside it: one
+    ``segment_reduce`` over the sorted rows, each row's terms walked by
+    one thread (thousands where a small vocabulary's rows hold every
+    id)."""
+    import torch
+
+    flat = rows.reshape(-1).long()
+    x = cot.reshape(flat.shape[0], cot.shape[-1]).float()
+    key = torch.where((flat >= 0) & (flat < n_rows), flat,
+                      torch.full_like(flat, n_rows))
+    key, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(
+        key, torch.arange(n_rows + 1, device=key.device))
+    return torch.segment_reduce(x[order], "sum", offsets=starts, axis=0,
+                                unsafe=True)
+
+
+def _lookup_inputs(ids, offsets, sizes):
+    """(the rows the one-hot backward sums into, -1 for none; the rows
+    index_add_ adds into, the clamped gather's; its keep mask) of one
+    recorded lookup."""
+    import torch
+
+    off = torch.as_tensor(offsets, dtype=torch.long, device=ids.device)
+    sz = torch.as_tensor(sizes, dtype=torch.long, device=ids.device)
+    live = (ids > 0) & (ids <= sz)
+    grad_rows = torch.where(live, ids.long() + off,
+                            torch.full_like(ids, -1, dtype=torch.long))
+    return grad_rows, live
+
+
+def phase_lookup_bwd(run, data):
+    """The fused-feature lookups of one train step of ``run`` (bf16, its
+    first batch after the host prep, dropout 0), recorded from
+    ``compute_loss``'s forward, replayed with seeded f32 cotangents: the
+    table gradient of all of them through the port's lookup (the one-hot
+    backward) twice, bitwise equal, on one device and on a local data mesh
+    of 2 shards (a ShardedTable, each shard's rows in turn); against an
+    index_add_ of the same rows in f64 (rtol 1e-5); then the step's
+    lookup backward timed four ways on the same inputs, once each: the port's
+    (row_grad_sum), the one-hot products in chunks (onehot_chunked_grad),
+    the index_add_ the port took before (which sent an id above its
+    vocabulary to the next feature's rows) and the segment sum in one
+    level (segment_sum_one_level), by CUDA events and by the profiler's
+    device ms summed over every kernel."""
+    import numpy as np
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.data.featurizer import (
+        FusedVocab, build_item_tables)
+    from tencent_recommendation_2025_tpu_torch.models import embedding as TE
+    from tencent_recommendation_2025_tpu_torch.models.baseline import \
+        SeqRecModel
+    from tencent_recommendation_2025_tpu_torch.parallel import \
+        sharded_embedding as SE
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+    from tencent_recommendation_2025_tpu_torch.train import trainer as TR
+
+    t0 = time.perf_counter()
+    cfg, schema, (batch,) = _train_batches(data, 1, run)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rate=0.0))
+    tables = build_item_tables(data.item_feat_dict, data.itemnum, schema,
+                               data.mm_emb_dict, data.indexer_i_rev)
+    batch = _host_prep(cfg, batch, tables, data, 0)
+    model = SeqRecModel(cfg=cfg.model, schema=schema,
+                        fused=FusedVocab.build(schema),
+                        usernum=data.usernum, itemnum=data.itemnum)
+    state = TR.init_state(model, cfg, device="cuda")
+    tabs = TR.device_tables(tables, "cuda")
+    calls, orig = [], TE.fused_feature_lookup
+
+    def record(table, ids, offsets, dtype=None, sizes=None):
+        calls.append((ids.detach(), np.asarray(offsets),
+                      np.asarray(sizes)))
+        return orig(table, ids, offsets, dtype=dtype, sizes=sizes)
+
+    TE.fused_feature_lookup = record
+    try:
+        with torch.no_grad():
+            TR.compute_loss(model, state.params, TR.put_batch(batch, "cuda"),
+                            tabs["mm"], tabs, cfg, train=True)
+    finally:
+        TE.fused_feature_lookup = orig
+    table = state.params["fused_feat"].detach()
+    V, D = table.shape
+    rng = np.random.default_rng(5)
+    cots = [torch.from_numpy(rng.standard_normal(tuple(ids.shape) + (D,))
+                             .astype(np.float32)).cuda()
+            for ids, _, _ in calls]
+    n_ids = sum(ids.numel() for ids, _, _ in calls)
+
+    def through_lookup(t, shards=1):
+        """The table gradient of every recorded lookup (the port's)."""
+        leaf = SE.pad_rows(t, shards).clone().requires_grad_(True)
+        src = leaf if shards == 1 else SE.ShardedTable.of_leaf(
+            leaf, local_mesh(MeshConfig(data=shards)))
+        loss = 0.0
+        for (ids, offs, sizes), cot in zip(calls, cots):
+            for rows in np.array_split(np.arange(ids.shape[0]), shards):
+                if rows.size:
+                    r = torch.from_numpy(rows).cuda()
+                    out = TE.fused_feature_lookup(src, ids[r], offs,
+                                                  sizes=sizes)
+                    loss = loss + (out.float() * cot[r]).sum()
+        loss.backward()
+        return leaf.grad[:V]
+
+    ok, text = True, []
+    for shards in (1, 2):
+        g1, g2 = through_lookup(table, shards), through_lookup(table, shards)
+        torch.cuda.synchronize()
+        same = torch.equal(g1, g2)
+        ok &= same
+        text.append(f"{'one device' if shards == 1 else 'data mesh of 2'}: "
+                    f"two calls bitwise equal {same}")
+    want = torch.zeros((V, D), dtype=torch.float64, device="cuda")
+    for (ids, offs, sizes), cot in zip(calls, cots):
+        rows, live = _lookup_inputs(ids, offs, sizes)
+        want.index_add_(0, rows[live], cot[live].double())
+    lim = 1e-5 * max(1.0, want.abs().max().item())
+    inputs = []
+    for (ids, offs, sizes), cot in zip(calls, cots):
+        rows, live = _lookup_inputs(ids, offs, sizes)
+        glob = torch.where(ids > 0, ids.long() + torch.as_tensor(
+            offs, dtype=torch.long, device="cuda"), 0).clamp(max=V - 1)
+        inputs.append((ids, offs, sizes, cot, rows, glob.reshape(-1),
+                       (cot * (ids > 0)[..., None]).reshape(-1, D)))
+    designs = {
+        "sorted segment sum in two levels (the port's)": lambda: [
+            SE.row_grad_sum(rows, cot, V)
+            for _, _, _, cot, rows, _, _ in inputs],
+        "one-hot products in chunks": lambda: [
+            onehot_chunked_grad(ids, offs, sizes, cot, V)
+            for ids, offs, sizes, cot, _, _, _ in inputs],
+        "index_add_ (before)": lambda: [
+            cot.new_zeros((V, D)).index_add_(0, glob, masked)
+            for _, _, _, cot, _, glob, masked in inputs],
+        "sorted segment sum in one level": lambda: [
+            segment_sum_one_level(rows, cot, V)
+            for _, _, _, cot, rows, _, _ in inputs]}
+    # every design's sum over the lookups against the f64 sums of the
+    # same rows (index_add_ also adds an id above its vocabulary: its
+    # error is printed, not held)
+    for name, fn in designs.items():
+        total = g1.double() if "(the port's)" in name else \
+            torch.stack(fn()).double().sum(0)
+        err = (total - want).abs().max().item()
+        held = not name.startswith("index_add_")
+        ok &= err <= lim or not held
+        text.append(f"{name} against an f64 index_add_ of the live rows: "
+                    f"max abs err {err:.3g}"
+                    + (f" (limit {lim:.3g})" if held else ""))
+    times = {}
+    for name, fn in designs.items():
+        ms = time_ms(fn, 2, 5)
+        dev = kernel_device_ms(fn, ("",), iters=3)
+        times[name] = f"{ms:.4f} ms (device {dev:.4f})"
+    _free()
+    log(f"{run.name}: fused-feature lookup backward of one step "
+        f"({len(calls)} lookups, {n_ids:,} ids, table {V} x {D}): "
+        + "; ".join(text) + "; times: "
+        + "; ".join(f"{k} {v}" for k, v in times.items())
+        + f"; {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def phase_run(run, oks):
     """One end-to-end path: cli.train (with the one-step check where the run
     asks for it), the step's speed, then cli.infer. Returns the training
@@ -3080,6 +3573,8 @@ def phase_run(run, oks):
     if run.one_step:
         oks[f"{run.name}_one_step"] = phase_one_step(run, data, ckpt)
     oks[f"{run.name}_route"] = phase_train_speed(data, ckpt, run)
+    if run.name in LOOKUP_RUNS:
+        oks[f"{run.name}_lookup_bwd"] = phase_lookup_bwd(run, data)
     log(f"{run.name} training phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     oks[f"{run.name}_serve"], served = phase_serving(ckpt, run)
@@ -6285,7 +6780,7 @@ def main() -> int:
            "pre_spills": pre_spills(report),
            "pair_fwd_spills": fwd_spills(report, "ring_pair", PAIR_FWD[0]),
            "hstu_fwd_spills": fwd_spills(report, "hstu_attention",
-                                         HSTU_WGMMA[0])}
+                                         HSTU_WGMMA[0], variants=2)}
     t0 = time.perf_counter()
     oks["kernels"] = phase_kernels()
     oks["times"], entries = phase_times(FLAGSHIP)
@@ -6297,6 +6792,7 @@ def main() -> int:
     oks["attention_kernels"] = phase_attention_kernels()
     oks["attention_times"], attention = phase_attention_times(libs)
     oks["digests"] = phase_digests()
+    oks["silu"], silu_entries = phase_silu()
     oks["group_kernels"], group_entries = phase_group_kernels(libs)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
@@ -6388,7 +6884,7 @@ def main() -> int:
         log(f"{run.name} training phase: {time.perf_counter() - t0:.1f} s")
     for run in PARITY_RUNS[3:]:
         attach(run, *phase_run(run, oks))
-    entries += [entry for _, entry in attention]
+    entries += [entry for _, entry in attention] + silu_entries
     # sharded_multihost's table is below packed scale: no group scatter
     for run in (SPARSE_RUN, SOFTMAX_DP_RUN):
         trained, served = phase_run(run, oks)

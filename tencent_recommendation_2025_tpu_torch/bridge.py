@@ -117,6 +117,12 @@ def params_from_jax(src, device="cpu", itemnum: Optional[int] = None
     else:
         flat = {p: (_to_numpy(v), np.asarray(v).dtype.name == "bfloat16")
                 for p, v in _flatten(src).items()}
+    return params_from_leaves(flat, device, itemnum)
+
+
+def params_from_leaves(flat: Mapping[str, tuple], device="cpu",
+                       itemnum: Optional[int] = None) -> Dict:
+    """:func:`params_from_jax` of {param path: (numpy array, is_bf16)}."""
     out = {}
     for p, (arr, bf16) in flat.items():
         if p == "item_emb" and is_packed(arr):
@@ -150,44 +156,54 @@ def opt_state_from_jax(path, device="cpu", dim: Optional[int] = None,
     path = Path(path)
     entries = json.loads((path / MANIFEST_FILE).read_text())["leaves"]
     leaves = {e["path"]: e for e in entries if not e["path"].startswith("0/")}
-    if "2" not in leaves:
-        raise ValueError(f"{path} holds no train state (no step leaf '2')")
-    pre = "1/dense/" if any(p.startswith("1/dense/") for p in leaves) \
-        else "1/"
 
-    def load(e, shape=None):
+    def load(p, packed):
+        e = leaves[p]
         if read is not None:
-            return read(e["path"], e)
+            return read(p, e)
         arr = _load_entry(path, e)
-        if shape is not None:
-            arr = arr.reshape(shape)
+        if packed:
+            arr = arr.reshape(-1, dim)
         return _to_torch(arr, e["dtype"] == "bfloat16", device)
 
-    out = {"step": int(_load_entry(path, leaves["2"])), "count": None,
-           "schedule_count": None, "exp_avg": {}, "exp_avg_sq": {},
-           "tables": {}}
-    for p, e in leaves.items():
+    return jax_opt_state({p: e["shape"] for p, e in leaves.items()}, load,
+                         lambda p: int(_load_entry(path, leaves[p])), path)
+
+
+def jax_opt_state(shapes: Mapping[str, list], load, scalar, where) -> Dict:
+    """:func:`opt_state_from_jax`'s mapping of a JAX train state's leaves
+    outside its parameters (``shapes``: {tree path: shape}) onto the
+    port's terms; ``load(tree path, packed) -> tensor`` reads a tensor leaf
+    (``packed``: a [V/R, 8, 128] table leaf, read as [Vp, D] rows),
+    ``scalar(tree path) -> int`` a count; ``where`` names the checkpoint in
+    errors."""
+    if "2" not in shapes:
+        raise ValueError(f"{where} holds no train state (no step leaf '2')")
+    pre = "1/dense/" if any(p.startswith("1/dense/") for p in shapes) \
+        else "1/"
+    out = {"step": scalar("2"), "count": None, "schedule_count": None,
+           "exp_avg": {}, "exp_avg_sq": {}, "tables": {}}
+    for p, shape in shapes.items():
         if p == "2":
             continue
         if p.startswith("1/tables/"):
             name, key = p[len("1/tables/"):].split("/")
-            packed = e["shape"][1:] == [8, 128] and len(e["shape"]) == 3
-            out["tables"].setdefault(name, {})[key] = load(
-                e, (-1, dim) if packed else None)
+            packed = len(shape) == 3 and list(shape[1:]) == [8, 128]
+            out["tables"].setdefault(name, {})[key] = load(p, packed)
         elif p == pre + "0/count":
-            out["count"] = int(_load_entry(path, e))
+            out["count"] = scalar(p)
         elif p.startswith(pre + "0/mu/"):
-            out["exp_avg"][p[len(pre + "0/mu/"):]] = load(e)
+            out["exp_avg"][p[len(pre + "0/mu/"):]] = load(p, False)
         elif p.startswith(pre + "0/nu/"):
-            out["exp_avg_sq"][p[len(pre + "0/nu/"):]] = load(e)
+            out["exp_avg_sq"][p[len(pre + "0/nu/"):]] = load(p, False)
         elif p.startswith(pre) and p.endswith("/count") and \
                 p[len(pre):-len("/count")].isdigit():
-            out["schedule_count"] = int(_load_entry(path, e))
+            out["schedule_count"] = scalar(p)
         else:
-            raise ValueError(f"optimizer leaf {p!r} of {path} is not an "
+            raise ValueError(f"optimizer leaf {p!r} of {where} is not an "
                              "optax adam / adamw state or a row optimizer's")
     if out["count"] is None:
-        raise ValueError(f"{path} holds no optax adam state ({pre}0/count)")
+        raise ValueError(f"{where} holds no optax adam state ({pre}0/count)")
     return out
 
 

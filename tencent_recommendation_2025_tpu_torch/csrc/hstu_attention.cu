@@ -82,6 +82,21 @@
 // diagonal into a per-(batch row, key tile) slice), and reduce_rows sums
 // the slices in a fixed order.
 //
+// silu_qkv (the TPU kernels' static flag, in all five bodies): q, k and v
+// are the pre-activations. Every kernel applies the SiLU in f32 as its q,
+// k and v tiles land, q to T(silu(q) hd^-1/2) with one rounding, k and v
+// to T(silu(.)) (_load_qkv, l.143), and the backward multiplies dq (after
+// hd^-1/2), dk and dv by dsilu of the output rows' pre-activations, read
+// from global memory (l.250-261, 375, 424); dk sums against the rounded
+// T(silu(q) hd^-1/2). The wgmma design takes it as a template parameter:
+// hstu_fwd_wgmma_kernel<W, true> applies it to the held q tiles in
+// load_tile_sync and to each ring stage's k and v in place, on the chunks
+// a thread copied (silu_stage), before the ring's fence and attn_step's
+// barrier; the backward pair's <W, 1, 1> instance does the same
+// (hstu_attn_bwd_sm90.cuh). The first design reads it at run time
+// (load_act, pre_grad). The fused block's and the ring's instances of the
+// shared code compile as before.
+//
 // Both designs: no atomics, so two calls give the same bits (drab
 // included); padded queries are not masked, as in the TPU kernels, and a
 // batch row with no valid key gives exact zeros. Offsets into [B, L, D]
@@ -121,9 +136,36 @@ struct HstuArgs {
   float* drab;         // backward: [H, NB]
   int B, L, D, H, NB;
   int HS;              // first design: the head's columns a slice holds
+  int silu;            // silu_qkv: q, k, v are pre-activations
   float scale;         // hd^-1/2
   float inv_len;       // 1 / L
 };
+
+// load_head of the first design's q, k and v tiles: with ``act``
+// (silu_qkv) each element becomes T(silu(f32(element))), times ``scale``
+// before it rounds where ``scaled`` (q: one rounding), one element a
+// thread.
+template <typename T>
+__device__ void load_act(const T* src, int src_ld, int rows, int width,
+                         T* dst, int ld, float scale, bool scaled,
+                         bool act) {
+  if (!act) {
+    load_head<T>(src, src_ld, rows, width, dst, ld, scale, scaled);
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * width; i += kThreads) {
+    const int r = i / width, c = i - r * width;
+    const float x = silu(to_f(src[(size_t)r * src_ld + c]));
+    dst[(size_t)r * ld + c] = from_f<T>(scaled ? x * scale : x);
+  }
+}
+
+// The first design's epilogue factor of a gradient element: dsilu (f32) of
+// its pre-activation where silu_qkv, else 1.
+template <typename T>
+__device__ __forceinline__ float pre_grad(const T* pre, bool act) {
+  return act ? dsilu(to_f(*pre)) : 1.0f;
+}
 
 template <typename T>
 size_t fwd_smem(int hs, int TQ) {
@@ -169,7 +211,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* Q = static_cast<const T*>(p.q) + (rowb + q0) * D + col;
   const T* K = static_cast<const T*>(p.k) + rowb * D + col;
   const T* V = static_cast<const T*>(p.v) + rowb * D + col;
-  if (whole) load_head<T>(Q, D, TQ, hd, qs, ldh, p.scale, true);
+  const bool act = p.silu != 0;
+  if (whole) load_act<T>(Q, D, TQ, hd, qs, ldh, p.scale, true, act);
 
   for (int c0 = 0; c0 < hd; c0 += HS) {
     const int cw = min(HS, hd - c0);
@@ -182,10 +225,10 @@ __global__ void __launch_bounds__(kThreads)
         const int sw = min(HS, hd - s0);
         __syncthreads();  // the previous products are done with the tiles
         if (!whole)
-          load_head<T>(Q + s0, D, TQ, sw, qs, ldh, p.scale, true);
-        load_head<T>(K + k0 * D + s0, D, TQ, sw, ks, ldh, 1.0f, false);
+          load_act<T>(Q + s0, D, TQ, sw, qs, ldh, p.scale, true, act);
+        load_act<T>(K + k0 * D + s0, D, TQ, sw, ks, ldh, 1.0f, false, act);
         if (s0 == 0) {
-          load_head<T>(V + k0 * D + c0, D, TQ, cw, vs, ldh, 1.0f, false);
+          load_act<T>(V + k0 * D + c0, D, TQ, cw, vs, ldh, 1.0f, false, act);
           for (int j = threadIdx.x; j < TQ; j += kThreads)
             kval[j] = p.valid[rowb + k0 + j];
         }
@@ -327,8 +370,9 @@ __global__ void __launch_bounds__(kThreads)
   const T* DO = static_cast<const T*>(p.dout) + (rowb + q0) * D + col;
   const T* K = static_cast<const T*>(p.k) + rowb * D + col;
   const T* V = static_cast<const T*>(p.v) + rowb * D + col;
+  const bool act = p.silu != 0;
   if (whole) {
-    load_head<T>(Q, D, TQ, hd, t.qs, ldh, p.scale, true);
+    load_act<T>(Q, D, TQ, hd, t.qs, ldh, p.scale, true, act);
     load_head<T>(DO, D, TQ, hd, t.dos, ldh, 1.0f, false);
   }
 
@@ -342,11 +386,13 @@ __global__ void __launch_bounds__(kThreads)
         const int sw = min(HS, hd - s0);
         __syncthreads();  // the previous products are done with the tiles
         if (!whole) {
-          load_head<T>(Q + s0, D, TQ, sw, t.qs, ldh, p.scale, true);
+          load_act<T>(Q + s0, D, TQ, sw, t.qs, ldh, p.scale, true, act);
           load_head<T>(DO + s0, D, TQ, sw, t.dos, ldh, 1.0f, false);
         }
-        load_head<T>(K + k0 * D + s0, D, TQ, sw, t.ks, ldh, 1.0f, false);
-        load_head<T>(V + k0 * D + s0, D, TQ, sw, t.vs, ldh, 1.0f, false);
+        load_act<T>(K + k0 * D + s0, D, TQ, sw, t.ks, ldh, 1.0f, false,
+                    act);
+        load_act<T>(V + k0 * D + s0, D, TQ, sw, t.vs, ldh, 1.0f, false,
+                    act);
         if (s0 == 0)
           for (int j = threadIdx.x; j < TQ; j += kThreads)
             t.kval[j] = p.valid[rowb + k0 + j];
@@ -356,7 +402,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       // the output slice's columns of k (the whole head is there already)
       if (!whole)
-        load_head<T>(K + k0 * D + c0, D, TQ, cw, t.ks, ldh, 1.0f, false);
+        load_act<T>(K + k0 * D + c0, D, TQ, cw, t.ks, ldh, 1.0f, false, act);
       pair_values<T, TQ>(p, t, rab, q0, (int)k0, false);
       // dq += T(ds) k
       gemm<T, false, false, true>(t.dss, kLdP, t.ks, ldh, t.acc1, lda, TQ,
@@ -366,7 +412,10 @@ __global__ void __launch_bounds__(kThreads)
     T* dq = static_cast<T*>(p.dq) + (rowb + q0) * D + col + c0;
     for (int i = threadIdx.x; i < TQ * cw; i += kThreads) {
       const int r = i / cw, d = i - r * cw;
-      dq[(size_t)r * D + d] = from_f<T>(t.acc1[r * lda + d] * p.scale);
+      // silu_qkv: times dsilu of the pre-activation q (after the scale)
+      dq[(size_t)r * D + d] = from_f<T>(
+          t.acc1[r * lda + d] * p.scale *
+          pre_grad(Q + (size_t)r * D + c0 + d, act));
     }
     __syncthreads();
   }
@@ -395,9 +444,10 @@ __global__ void __launch_bounds__(kThreads)
   const T* V = static_cast<const T*>(p.v) + (rowb + k0) * D + col;
   const T* Q = static_cast<const T*>(p.q) + rowb * D + col;
   const T* DO = static_cast<const T*>(p.dout) + rowb * D + col;
+  const bool act = p.silu != 0;
   if (whole) {
-    load_head<T>(K, D, TQ, hd, t.ks, ldh, 1.0f, false);
-    load_head<T>(V, D, TQ, hd, t.vs, ldh, 1.0f, false);
+    load_act<T>(K, D, TQ, hd, t.ks, ldh, 1.0f, false, act);
+    load_act<T>(V, D, TQ, hd, t.vs, ldh, 1.0f, false, act);
   }
   for (int j = threadIdx.x; j < TQ; j += kThreads)
     t.kval[j] = p.valid[rowb + k0 + j];
@@ -414,11 +464,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int s0 = 0; s0 < hd; s0 += HS) {
         const int sw = min(HS, hd - s0);
         __syncthreads();  // the previous products are done with the tiles
-        load_head<T>(Q + q0 * D + s0, D, TQ, sw, t.qs, ldh, p.scale, true);
+        load_act<T>(Q + q0 * D + s0, D, TQ, sw, t.qs, ldh, p.scale, true,
+                    act);
         load_head<T>(DO + q0 * D + s0, D, TQ, sw, t.dos, ldh, 1.0f, false);
         if (!whole) {
-          load_head<T>(K + s0, D, TQ, sw, t.ks, ldh, 1.0f, false);
-          load_head<T>(V + s0, D, TQ, sw, t.vs, ldh, 1.0f, false);
+          load_act<T>(K + s0, D, TQ, sw, t.ks, ldh, 1.0f, false, act);
+          load_act<T>(V + s0, D, TQ, sw, t.vs, ldh, 1.0f, false, act);
         }
         __syncthreads();
         pair_scores<T, TQ>(t, ldh, sw, tc, s0 > 0);
@@ -426,7 +477,8 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       // the output slice's columns of qs and do
       if (!whole) {
-        load_head<T>(Q + q0 * D + c0, D, TQ, cw, t.qs, ldh, p.scale, true);
+        load_act<T>(Q + q0 * D + c0, D, TQ, cw, t.qs, ldh, p.scale, true,
+                    act);
         load_head<T>(DO + q0 * D + c0, D, TQ, cw, t.dos, ldh, 1.0f, false);
       }
       pair_values<T, TQ>(p, t, rab, (int)q0, k0, true);
@@ -461,8 +513,12 @@ __global__ void __launch_bounds__(kThreads)
     T* dvo = static_cast<T*>(p.dv) + (rowb + k0) * D + col + c0;
     for (int i = threadIdx.x; i < TQ * cw; i += kThreads) {
       const int r = i / cw, d = i - r * cw;
-      dko[(size_t)r * D + d] = from_f<T>(dk[r * lda + d]);
-      dvo[(size_t)r * D + d] = from_f<T>(dv[r * lda + d]);
+      // silu_qkv: times dsilu of the pre-activation k and v
+      const size_t at = (size_t)r * D + c0 + d;
+      dko[(size_t)r * D + d] = from_f<T>(dk[r * lda + d] *
+                                         pre_grad(K + at, act));
+      dvo[(size_t)r * D + d] = from_f<T>(dv[r * lda + d] *
+                                         pre_grad(V + at, act));
     }
     __syncthreads();
   }
@@ -596,7 +652,30 @@ __host__ __device__ inline sm90::Carve<W> fwd_carve(int H) {
   return sm90::Carve<W>{H, 2, 0};
 }
 
+// silu_qkv on a ring stage's k or v tile: T(silu(.)) in place on the
+// chunks this thread copied in fb90::attn_issue (load_mat's order: chunk i
+// = threadIdx.x + j kWg of the tile's kRows x W / 8), the hd real columns;
+// after the ring's wait, before its fence (the barrier in attn_step then
+// shows every thread's chunks to the products).
 template <int W>
+__device__ __forceinline__ void silu_stage(bf16* t, int hd) {
+  constexpr int kCh = W / 8;
+  unsigned char* tb = reinterpret_cast<unsigned char*>(t);
+  for (int i = threadIdx.x; i < fb90::kRows * kCh; i += fb90::kWg) {
+    const int r = i / kCh, c = (i % kCh) * 8;
+    if (c >= hd) continue;
+    uint4* q = reinterpret_cast<uint4*>(
+        tb + sm90::Tile<W>::offset(r, c, fb90::kRows));
+    uint4 raw = *q;
+    bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = __float2bfloat16_rn(sm90::silu_f32(__bfloat162float(e[j])));
+    *q = raw;
+  }
+}
+
+template <int W, bool kSilu>
 __global__ void __launch_bounds__(fb90::kWg, W <= 64 ? 4 : 2)
     hstu_fwd_wgmma_kernel(HstuArgs p) {
   constexpr int kR = fb90::kRows;
@@ -612,15 +691,16 @@ __global__ void __launch_bounds__(fb90::kWg, W <= 64 ? 4 : 2)
   const bf16* V = static_cast<const bf16*>(p.v) + rowk * D;
   bf16* out = static_cast<bf16*>(p.out) + rowq * D;
 
-  // qs = T(q_h hd^-1/2) of every head; the loads never write the padding
-  // columns hd..W-1, so those are zeroed first. The ring's first fence and
-  // the barrier in attn_step make these stores visible to the products.
+  // qs = T(q_h hd^-1/2) of every head (kSilu: T(silu(q_h) hd^-1/2)); the
+  // loads never write the padding columns hd..W-1, so those are zeroed
+  // first. The ring's first fence and the barrier in attn_step make these
+  // stores visible to the products.
   if (hd < W) sm90::zero_smem(base, (size_t)H * cv.kTileBytes, fb90::kWg);
   __syncthreads();
   for (int h = 0; h < H; ++h)
-    sm90::load_tile_sync<W>(cv.held(base, h),
-                            static_cast<const bf16*>(p.q) + rowq * D + h * hd,
-                            D, kR, hd, fb90::kWg, true, p.scale, true);
+    sm90::load_tile_sync<W, kSilu>(
+        cv.held(base, h), static_cast<const bf16*>(p.q) + rowq * D + h * hd,
+        D, kR, hd, fb90::kWg, true, p.scale, true);
   auto issue = [&](int s) {
     if (s < steps) {
       const int h = s / n, k0 = (s - h * n) * kR, st = s % sm90::kStages;
@@ -654,8 +734,12 @@ __global__ void __launch_bounds__(fb90::kWg, W <= 64 ? 4 : 2)
   for (int step = 0; step < steps; ++step) {
     issue(step + 1);
     sm90::cp_async_wait<1>();
-    sm90::fence_async_smem();
     const int h = step / n, kt = step - h * n, st = step % sm90::kStages;
+    if constexpr (kSilu) {   // T(silu(k_h)), T(silu(v_h)) as they land
+      silu_stage<W>(cv.tile(base, st, 0), hd);
+      silu_stage<W>(cv.tile(base, st, 1), hd);
+    }
+    sm90::fence_async_smem();
     fb90::attn_step<W>(acc, s, cv.held(base, h), cv.tile(base, st, 0),
                        cv.tile(base, st, 1), cv.rows(base, st), q0 - kt * kR,
                        r0, c0, p.inv_len);
@@ -688,9 +772,13 @@ bool hstu_wgmma_route(bool is_bf16, int D, int H) {
 
 template <int W>
 int launch_fwd_wgmma(const HstuArgs& p, cudaStream_t stream) {
-  return hstu_bwd::launch_kernel(hstu_fwd_wgmma_kernel<W>,
-                                 dim3(p.L / fb90::kRows, p.B), fb90::kWg,
-                                 fwd_carve<W>(p.H).bytes(), stream, p);
+  const dim3 grid(p.L / fb90::kRows, p.B);
+  const size_t sm = fwd_carve<W>(p.H).bytes();
+  if (p.silu)
+    return hstu_bwd::launch_kernel(hstu_fwd_wgmma_kernel<W, true>, grid,
+                                   fb90::kWg, sm, stream, p);
+  return hstu_bwd::launch_kernel(hstu_fwd_wgmma_kernel<W, false>, grid,
+                                 fb90::kWg, sm, stream, p);
 }
 
 int launch_fwd_wgmma_any(const HstuArgs& p, cudaStream_t stream) {
@@ -742,6 +830,18 @@ int launch_bwd_wgmma(const HstuArgs& p, cudaStream_t stream) {
       !sm90::aligned16(p.dv))
     return (int)cudaErrorInvalidValue;
   const hstu_bwd::AttnBwdArgs a = attn_args(p);
+  if (p.silu) {   // the silu_qkv instances
+    switch (sm90::wgmma_width(p.D / p.H)) {
+      case 16: return hstu_bwd::launch_wgmma<16, true, true>(a, true, true,
+                                                             stream);
+      case 32: return hstu_bwd::launch_wgmma<32, true, true>(a, true, true,
+                                                             stream);
+      case 64: return hstu_bwd::launch_wgmma<64, true, true>(a, true, true,
+                                                             stream);
+      default: return hstu_bwd::launch_wgmma<128, true, true>(a, true, true,
+                                                              stream);
+    }
+  }
   switch (sm90::wgmma_width(p.D / p.H)) {
     case 16: return hstu_bwd::launch_wgmma<16, true>(a, true, true, stream);
     case 32: return hstu_bwd::launch_wgmma<32, true>(a, true, true, stream);
@@ -754,7 +854,8 @@ int launch_bwd_wgmma(const HstuArgs& p, cudaStream_t stream) {
 
 // Plain C entry points (bound with ctypes). q, k, v, out, dout, dq, dk, dv
 // [B, L, D] head-packed in the compute dtype (bf16 when is_bf16, else
-// f32), valid [B, L] int32, rab and drab [H, NB] f32, part_rab
+// f32; q, k, v the pre-activations and dq, dk, dv their gradients when
+// silu, the silu_qkv instances), valid [B, L] int32, rab and drab [H, NB] f32, part_rab
 // [B * L / hstu_attn_bwd_tile(...), H, NB] f32 scratch; all contiguous and
 // 16-byte aligned. Requires L % 64 == 0 and D % H == 0 (any hd = D / H).
 // Each launch returns a cudaError_t code (0 on success).
@@ -769,13 +870,14 @@ extern "C" int hstu_attn_bwd_tile(int is_bf16, int D, int H, int NB) {
                  : pick_tiles<float>(D / H, NB, true).tq;
 }
 
-extern "C" int hstu_attn_fwd(int is_bf16, const void* q, const void* k,
-                             const void* v, const void* valid,
+extern "C" int hstu_attn_fwd(int is_bf16, int silu, const void* q,
+                             const void* k, const void* v, const void* valid,
                              const void* rab, void* out, int B, int L, int D,
                              int H, int NB, float scale, float inv_len,
                              void* stream) {
   if (!shapes_ok(B, L, D, H, NB)) return (int)cudaErrorInvalidValue;
   HstuArgs p = {};
+  p.silu = silu;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -794,14 +896,15 @@ extern "C" int hstu_attn_fwd(int is_bf16, const void* q, const void* k,
   return is_bf16 ? launch_fwd<bf16>(p, s) : launch_fwd<float>(p, s);
 }
 
-extern "C" int hstu_attn_bwd(int is_bf16, const void* q, const void* k,
-                             const void* v, const void* dout,
+extern "C" int hstu_attn_bwd(int is_bf16, int silu, const void* q,
+                             const void* k, const void* v, const void* dout,
                              const void* valid, const void* rab, void* dq,
                              void* dk, void* dv, void* part_rab, void* drab,
                              int B, int L, int D, int H, int NB, float scale,
                              float inv_len, void* stream) {
   if (!shapes_ok(B, L, D, H, NB)) return (int)cudaErrorInvalidValue;
   HstuArgs p = {};
+  p.silu = silu;
   p.q = q;
   p.k = k;
   p.v = v;

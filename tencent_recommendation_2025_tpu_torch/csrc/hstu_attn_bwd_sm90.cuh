@@ -35,7 +35,14 @@
 // T(x) / L only where L is a power of two, so the factors go exactly where
 // the plain version applies them. The other instance ignores these
 // fields and compiles no extra operation, so the fused block's and the
-// ring's numbers do not depend on them.
+// ring's numbers do not depend on them. The standalone attention's
+// silu_qkv (kSilu, a third template parameter, off by default and only
+// with kStandalone) takes the pre-activation q, k, v: q becomes T(silu(q)
+// * q_scale), k and v T(silu(.)), each as its tile lands (the held tiles
+// in load_tile_sync, the streamed ones by TileCopy::silu on the chunks a
+// thread copied, before the ring's fence and barrier), and the stores
+// multiply dq (after dq_scale), dk and dv by dsilu of the output rows'
+// pre-activations, read from global memory (store_rows_dsilu).
 //
 // Which kernels take which shape: bf16 with hd % 8 == 0, hd <= 128 and
 // both lengths multiples of 64 (every fused preset, single device or ring)
@@ -421,6 +428,26 @@ __device__ __forceinline__ void store_rows(const float (&acc)[W / 2], O* out,
   }
 }
 
+// store_rows of the standalone attention's silu_qkv instance: each value
+// times `scale`, then times dsilu (f32) of the pre-activation at the same
+// place of `pre` (the output rows of q, k or v, row stride D), rounded to
+// bf16 once.
+template <int W>
+__device__ __forceinline__ void store_rows_dsilu(const float (&acc)[W / 2],
+                                                 bf16* out, const bf16* pre,
+                                                 int D, int hd, float scale) {
+#pragma unroll
+  for (int i = 0; i < W / 2; i += 2) {
+    const int r = acc_row(i), c = acc_col(i);
+    if (c < hd) {
+      const bf16* x = pre + (size_t)r * D + c;
+      store_pair(out + (size_t)r * D + c,
+                 acc[i] * scale * fbk::dsilu(__bfloat162float(x[0])),
+                 acc[i + 1] * scale * fbk::dsilu(__bfloat162float(x[1])));
+    }
+  }
+}
+
 // The instance's output type: T (bf16) for the standalone attention, f32
 // for the fused block and the ring.
 template <bool kStandalone>
@@ -441,9 +468,10 @@ __device__ __forceinline__ float own_mul(float x, float m) {
 using Masked = std::true_type;
 using Dense = std::false_type;
 
-template <int W, bool kStandalone>
+template <int W, bool kStandalone, bool kSilu = false>
 __global__ void __launch_bounds__(kWg)
     attn_bwd_dq_wgmma_kernel(AttnBwdArgs p) {
+  static_assert(kStandalone || !kSilu, "silu_qkv is the standalone's");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = sm90::align1024(smem_raw);
   const Carve<W> cv = dq_carve<W>(p.NB);
@@ -470,9 +498,10 @@ __global__ void __launch_bounds__(kWg)
   for (int j = tid; j < NB; j += kWg) drab[j] = 0.0f;
   const size_t rowq = (size_t)b * p.Lq + q0;
   // the standalone instance rounds T(q * q_scale) here, before any product
-  sm90::load_tile_sync<W>(qs, static_cast<const bf16*>(p.q) + rowq * D + col,
-                          D, kTile, hd, kWg, true,
-                          kStandalone ? p.q_scale : 1.0f, kStandalone);
+  // (the silu_qkv instance T(silu(q) * q_scale))
+  sm90::load_tile_sync<W, kSilu>(
+      qs, static_cast<const bf16*>(p.q) + rowq * D + col, D, kTile, hd, kWg,
+      true, kStandalone ? p.q_scale : 1.0f, kStandalone);
   sm90::load_tile_sync<W>(dbs,
                           static_cast<const bf16*>(p.dav) + rowq * D + col, D,
                           kTile, hd, kWg, true, 1.0f, false);
@@ -525,8 +554,12 @@ __global__ void __launch_bounds__(kWg)
   for (int step = 0; step < n; ++step) {
     issue(step + kStages - 1);
     sm90::cp_async_wait<kStages - 1>();
-    sm90::fence_async_smem();
     const int st = step % kStages;
+    if constexpr (kSilu) {   // T(silu(k)), T(silu(v)) on this thread's chunks
+      cp.silu(cv.tile(base, st, 0), 1.0f);
+      cp.silu(cv.tile(base, st, 1), 1.0f);
+    }
+    sm90::fence_async_smem();
     const unsigned char* rows = cv.rows(base, st);
     const int* kv = reinterpret_cast<const int*>(rows);
     const float* rw = reinterpret_cast<const float*>(rows + 256);
@@ -588,8 +621,13 @@ __global__ void __launch_bounds__(kWg)
     __syncthreads();  // this stage and the ds tile are read
   }
   using O = BwdOut<kStandalone>;
-  store_rows<W>(dq, static_cast<O*>(p.dq) + rowq * D + col, D, hd,
-                p.dq_scale);
+  if constexpr (kSilu)   // the pre-activation q's gradient
+    store_rows_dsilu<W>(dq, static_cast<bf16*>(p.dq) + rowq * D + col,
+                        static_cast<const bf16*>(p.q) + rowq * D + col, D,
+                        hd, p.dq_scale);
+  else
+    store_rows<W>(dq, static_cast<O*>(p.dq) + rowq * D + col, D, hd,
+                  p.dq_scale);
 
   // the clamped bucket: the threads' sums in a fixed order
   far = fbk::warp_sum(far);
@@ -602,9 +640,10 @@ __global__ void __launch_bounds__(kWg)
   for (int j = tid; j < NB; j += kWg) out[j] = drab[j];
 }
 
-template <int W, bool kStandalone>
+template <int W, bool kStandalone, bool kSilu = false>
 __global__ void __launch_bounds__(kWg)
     attn_bwd_dkdv_wgmma_kernel(AttnBwdArgs p) {
+  static_assert(kStandalone || !kSilu, "silu_qkv is the standalone's");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = sm90::align1024(smem_raw);
   const Carve<W> cv = dkdv_carve<W>();
@@ -627,10 +666,13 @@ __global__ void __launch_bounds__(kWg)
   if (hd < W) sm90::zero_smem(base, cv.bytes() - 1024, kWg);
   __syncthreads();
   const size_t rowk = (size_t)b * p.Lk + k0;
-  sm90::load_tile_sync<W>(ks, static_cast<const bf16*>(p.k) + rowk * D + col,
-                          D, kTile, hd, kWg, true, 1.0f, false);
-  sm90::load_tile_sync<W>(vs, static_cast<const bf16*>(p.v) + rowk * D + col,
-                          D, kTile, hd, kWg, true, 1.0f, false);
+  // (the silu_qkv instance: T(silu(k)), T(silu(v)))
+  sm90::load_tile_sync<W, kSilu>(
+      ks, static_cast<const bf16*>(p.k) + rowk * D + col, D, kTile, hd, kWg,
+      true, 1.0f, false);
+  sm90::load_tile_sync<W, kSilu>(
+      vs, static_cast<const bf16*>(p.v) + rowk * D + col, D, kTile, hd, kWg,
+      true, 1.0f, false);
   if (tid < kTile) kval[tid] = p.valid[rowk + tid];
 
   // step s streams query tile first + s: q, dav and the biases of its 127
@@ -684,8 +726,12 @@ __global__ void __launch_bounds__(kWg)
     sm90::cp_async_wait<kStages - 1>();
     const int st = step % kStages;
     // the standalone instance: T(q * q_scale) on the chunks this thread
-    // copied, before the fence and the barrier
-    if constexpr (kStandalone) cp.scale(cv.tile(base, st, 0), p.q_scale);
+    // copied, before the fence and the barrier (silu_qkv: T(silu(q) *
+    // q_scale))
+    if constexpr (kSilu)
+      cp.silu(cv.tile(base, st, 0), p.q_scale);
+    else if constexpr (kStandalone)
+      cp.scale(cv.tile(base, st, 0), p.q_scale);
     sm90::fence_async_smem();
     __syncthreads();
     const bf16* qs = cv.tile(base, st, 0);
@@ -719,8 +765,17 @@ __global__ void __launch_bounds__(kWg)
     __syncthreads();  // this stage is read; a later issue reloads it
   }
   using O = BwdOut<kStandalone>;
-  store_rows<W>(dk, static_cast<O*>(p.dk) + rowk * D + col, D, hd, 1.0f);
-  store_rows<W>(dv, static_cast<O*>(p.dv) + rowk * D + col, D, hd, 1.0f);
+  if constexpr (kSilu) {   // the pre-activation k's and v's gradients
+    store_rows_dsilu<W>(dk, static_cast<bf16*>(p.dk) + rowk * D + col,
+                        static_cast<const bf16*>(p.k) + rowk * D + col, D,
+                        hd, 1.0f);
+    store_rows_dsilu<W>(dv, static_cast<bf16*>(p.dv) + rowk * D + col,
+                        static_cast<const bf16*>(p.v) + rowk * D + col, D,
+                        hd, 1.0f);
+  } else {
+    store_rows<W>(dk, static_cast<O*>(p.dk) + rowk * D + col, D, hd, 1.0f);
+    store_rows<W>(dv, static_cast<O*>(p.dv) + rowk * D + col, D, hd, 1.0f);
+  }
 }
 
 // ===========================================================================
@@ -759,19 +814,20 @@ inline int reduce_rab(const AttnBwdArgs& p, int tile, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int W, bool kStandalone>
+template <int W, bool kStandalone, bool kSilu = false>
 inline int launch_wgmma(const AttnBwdArgs& p, bool dq, bool dkdv,
                         cudaStream_t stream) {
   if (dq) {
-    const int e = launch_kernel(attn_bwd_dq_wgmma_kernel<W, kStandalone>,
-                                dim3(p.Lq / kTile, p.H, p.B), kWg,
-                                dq_carve<W>(p.NB).bytes(), stream, p);
+    const int e = launch_kernel(
+        attn_bwd_dq_wgmma_kernel<W, kStandalone, kSilu>,
+        dim3(p.Lq / kTile, p.H, p.B), kWg, dq_carve<W>(p.NB).bytes(), stream,
+        p);
     if (e != 0) return e;
     const int e2 = reduce_rab(p, kTile, stream);
     if (e2 != 0) return e2;
   }
   if (dkdv)
-    return launch_kernel(attn_bwd_dkdv_wgmma_kernel<W, kStandalone>,
+    return launch_kernel(attn_bwd_dkdv_wgmma_kernel<W, kStandalone, kSilu>,
                          dim3(p.Lk / kTile, p.H, p.B), kWg,
                          dkdv_carve<W>().bytes(), stream, p);
   return 0;

@@ -173,6 +173,18 @@ struct Tile {
   }
 };
 
+// The SiLU of a pre-activation q, k or v element in f32 (the standalone
+// HSTU attention's silu_qkv), before it rounds to bf16: the sigmoid by the
+// special-function unit (ex2.approx, rcp.approx), as the scores' SiLU
+// takes it, since every block that streams a k, v or q tile applies it
+// again.
+__device__ __forceinline__ float silu_f32(float v) {
+  float e, y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-v * kLog2e));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(1.0f + e));
+  return v * y;
+}
+
 // One thread's share of the 16-byte chunks of a kRows x width tile (width
 // <= W, a multiple of 8; source rows `ld` elements apart, in whole
 // chunks), copied by all kWgThreads threads: chunk i = thread + 128 j is
@@ -222,6 +234,22 @@ struct TileCopy {
     each([&](uint32_t so, uint32_t go) { cp_async16(tb + so, src + go); });
   }
 
+  // bf16(silu(f32(element)) * s), in place, on the chunks this thread
+  // copied (the standalone HSTU attention's silu_qkv: one rounding; after
+  // cp_async_wait, before the fence and barrier)
+  __device__ __forceinline__ void silu(bf16* t, float s) const {
+    unsigned char* tb = reinterpret_cast<unsigned char*>(t);
+    each([&](uint32_t so, uint32_t) {
+      uint4* q = reinterpret_cast<uint4*>(tb + so);
+      uint4 raw = *q;
+      bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        e[j] = __float2bfloat16_rn(silu_f32(__bfloat162float(e[j])) * s);
+      *q = raw;
+    });
+  }
+
   // bf16(f32(element) * scale), in place, on the chunks this thread copied
   // (after cp_async_wait, before the fence and barrier)
   __device__ __forceinline__ void scale(bf16* t, float s) const {
@@ -239,9 +267,11 @@ struct TileCopy {
 };
 
 // The same copy through registers, for any width and alignment; with
-// `scaled` each element becomes bf16(f32(element) * scale). Vectorised
-// (16 bytes a thread) where `vec`.
-template <int W>
+// `scaled` each element becomes bf16(f32(element) * scale), with kSilu
+// bf16(silu(f32(element)) * scale) (the standalone HSTU attention's
+// silu_qkv: one rounding; scale 1 for k and v). Vectorised (16 bytes a
+// thread) where `vec`.
+template <int W, bool kSilu = false>
 __device__ __forceinline__ void load_tile_sync(bf16* t, const bf16* src,
                                                int ld, int rows, int width,
                                                int nthreads, bool vec,
@@ -251,7 +281,13 @@ __device__ __forceinline__ void load_tile_sync(bf16* t, const bf16* src,
     for (int i = threadIdx.x; i < rows * nch; i += nthreads) {
       const int r = i / nch, c = (i - r * nch) << 3;
       uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-      if (scaled) {
+      if constexpr (kSilu) {
+        bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          e[j] = __float2bfloat16_rn(silu_f32(__bfloat162float(e[j])) *
+                                     scale);
+      } else if (scaled) {
         bf16* e = reinterpret_cast<bf16*>(&raw);
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -264,8 +300,12 @@ __device__ __forceinline__ void load_tile_sync(bf16* t, const bf16* src,
   for (int i = threadIdx.x; i < rows * width; i += nthreads) {
     const int r = i / width, c = i - r * width;
     const bf16 e = src[(size_t)r * ld + c];
-    *Tile<W>::at(t, r, c, rows) =
-        scaled ? __float2bfloat16_rn(__bfloat162float(e) * scale) : e;
+    if constexpr (kSilu)
+      *Tile<W>::at(t, r, c, rows) =
+          __float2bfloat16_rn(silu_f32(__bfloat162float(e)) * scale);
+    else
+      *Tile<W>::at(t, r, c, rows) =
+          scaled ? __float2bfloat16_rn(__bfloat162float(e) * scale) : e;
   }
 }
 

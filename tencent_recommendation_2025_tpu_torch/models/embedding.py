@@ -44,12 +44,20 @@ from ..ops.sparse_table import GatheredRows, is_packed_scale, \
     padded_table_rows
 from ..parallel.partition import ModelShards, column_parallel
 from ..parallel.sharded_embedding import (ShardedTable, StaticTable,
-                                          sharded_lookup, static_lookup)
+                                          _RowTake, sharded_lookup,
+                                          static_lookup)
 
 #: vocabularies up to this size run the JAX forward as one-hot matmuls,
 #: which give a ZERO row for an id above the vocabulary (a gather would read
 #: the next feature's row); the port reproduces that
 ONEHOT_FWD_MAX_VOCAB = 1024
+#: up to this size the JAX package takes the table gradient as one-hot
+#: products (``_fused_lookup_onehot_bwd``, and the one-hot forward's
+#: transpose): an id above its slot's vocabulary matches no one-hot column
+#: and sends NO gradient, though the gather forward reads row offset + id
+#: (the next feature's); the port sums the same rows, bitwise repeatably
+#: (``parallel.sharded_embedding.row_grad_sum``)
+ONEHOT_BWD_MAX_VOCAB = 16384
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -186,7 +194,8 @@ class _ClampedTake(torch.autograd.Function):
 
 
 def masked_take(table, ids: torch.Tensor, dtype=None,
-                site: Optional[str] = None) -> torch.Tensor:
+                site: Optional[str] = None,
+                grad_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``table[ids] * (ids != 0)``: the padding-row-0 contract. Out-of-range
     ids clamp to the table's ends (the JAX gather's mode='clip') and send
     no gradient to the table. ``table`` may be a :class:`GatheredRows`
@@ -194,11 +203,19 @@ def masked_take(table, ids: torch.Tensor, dtype=None,
     host plan of call site ``site`` where the step ships one; or a
     :class:`parallel.sharded_embedding.ShardedTable` (a table row-sharded on
     a data mesh): ids then resolve by ``sharded_lookup``, where an id past
-    the padded table gives a zero row."""
+    the padded table gives a zero row. ``grad_ids`` (a plain or sharded
+    table): the row each id's gradient goes to, -1 for none, summed
+    bitwise repeatably (the one-hot backward of
+    :func:`fused_feature_lookup`)."""
     if isinstance(table, GatheredRows):
+        if grad_ids is not None:
+            raise ValueError("grad_ids takes a plain or a sharded table")
         emb = table.lookup(ids, site=site)
     elif isinstance(table, ShardedTable):
-        emb = sharded_lookup(table.mesh, table, ids)
+        emb = sharded_lookup(table.mesh, table, ids, grad_ids=grad_ids)
+    elif grad_ids is not None:
+        emb = _RowTake.apply(table, ids.long().clamp(0, table.shape[0] - 1),
+                             grad_ids)
     else:
         emb = _ClampedTake.apply(table, ids)
     if dtype is not None:
@@ -213,18 +230,30 @@ def fused_feature_lookup(fused_table: torch.Tensor, ids: torch.Tensor,
 
     Row = offset[f] + id when id > 0, the shared zero row otherwise. With
     per-slot vocabulary ``sizes`` no larger than ONEHOT_FWD_MAX_VOCAB, ids
-    above their vocabulary give zero rows, as the JAX one-hot forward does.
+    above their vocabulary give zero rows, as the JAX one-hot forward does;
+    no larger than ONEHOT_BWD_MAX_VOCAB, the gradient is the JAX one-hot
+    backward's (``_fused_lookup_onehot_bwd``, ``_fl_bwd``): f32 sums of
+    the cotangents of the ids in (0, vocab] at offset + id (slots that
+    share an offset into one slice), nothing for an id above its
+    vocabulary (whose forward, past ONEHOT_FWD_MAX_VOCAB, still reads row
+    offset + id), zero elsewhere, summed in a fixed order.
     """
     offsets = torch.as_tensor(np.asarray(offsets), dtype=torch.long,
                               device=ids.device)
     keep = ids > 0
-    if sizes is not None and max(sizes) <= ONEHOT_FWD_MAX_VOCAB:
+    grad_ids = None
+    if sizes is not None and max(sizes) <= ONEHOT_BWD_MAX_VOCAB:
         sz = torch.as_tensor(np.asarray(sizes), dtype=torch.long,
                              device=ids.device)
-        keep = keep & (ids <= sz)
+        live = keep & (ids <= sz)
+        grad_ids = torch.where(live, ids.long() + offsets,
+                               torch.full_like(ids, -1, dtype=torch.long))
+        if max(sizes) <= ONEHOT_FWD_MAX_VOCAB:
+            keep = live
     global_ids = torch.where(keep, ids.long() + offsets,
                              torch.zeros_like(ids, dtype=torch.long))
-    return masked_take(fused_table, global_ids, dtype=dtype)
+    return masked_take(fused_table, global_ids, dtype=dtype,
+                       grad_ids=grad_ids)
 
 
 def _slot_layout(fused: FusedVocab, fids):

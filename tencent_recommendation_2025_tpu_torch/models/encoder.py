@@ -42,8 +42,8 @@ from .embedding import layernorm, layernorm_init, linear_init, torch_dtype
 from .hstu import (dropout, dropout_shards, hstu_attend, hstu_block,
                    hstu_output, hstu_project, init_hstu_params)
 from ..parallel import ring_attention as RA
-from ..parallel.mesh import (model_size, pipe_blocks, pipe_size,
-                             seq_size, unported)
+from ..parallel.mesh import (check_mesh, model_size, pipe_blocks,
+                             pipe_size, seq_size)
 from ..parallel.pipeline_parallel import shard_schedule
 from ..parallel.partition import ModelShards, column_parallel, row_parallel
 from ..parallel.ring_fused import ring_fused_encode
@@ -291,8 +291,8 @@ def encode(params: Mapping, fused_emb: torch.Tensor, seq_ids: torch.Tensor,
     process mesh's own (its stage's ``params["blocks"]`` are its NB / P
     blocks), or one shard's on a local mesh (whole blocks), which the
     trainer calls once a shard."""
-    if mesh is not None and getattr(mesh, "shape", None) is None:
-        unported(f"the encoder on the mesh {mesh!r}")
+    if mesh is not None:
+        check_mesh(mesh, "the encoder")
     dtype = torch_dtype(cfg.dtype)
     B, L, D = fused_emb.shape
     x = fused_emb.to(dtype) * torch.tensor(D ** 0.5, dtype=dtype)
@@ -473,7 +473,8 @@ def _block_step(cfg, seq_ids, token_type, use_dropout, train, route, mesh,
         return ln(bp["ffn_ln"], x + ffn(bp["ffn"], x, rate, use_dropout, bg))
 
     def hstu_pre(x, bp):
-        return hstu_project(bp["hstu"], ln(bp["attn_ln"], x))
+        return hstu_project(bp["hstu"], ln(bp["attn_ln"], x),
+                            getattr(core, "fused_silu", False))
 
     def hstu_post(x, av, u, bp, seed):
         bg = _block_generator(seed, x.device)

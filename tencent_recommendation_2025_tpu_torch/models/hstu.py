@@ -87,21 +87,30 @@ def dropout_shards(x: ModelShards, rate: float, train: bool,
                        x.mesh)
 
 
-def hstu_project(params: Mapping, x: torch.Tensor):
+def hstu_project(params: Mapping, x: torch.Tensor,
+                 fused_silu: bool = False):
     """(u, v, q, k), each [B, L, D]: silu of the packed D -> 4D
-    projection. With the projection column-split over a model mesh (a
-    ``ModelShards``), each is a ``ModelShards`` of the shard's columns of
-    u, v, q and k (the shard's heads)."""
+    projection; with ``fused_silu`` (a core that applies the SiLU to q, k
+    and v itself, as the JAX package's hook reads ``core.fused_silu``)
+    silu(u) and the PRE-activation v, q, k. With the projection
+    column-split over a model mesh (a ``ModelShards``), each is a
+    ``ModelShards`` of the shard's columns of u, v, q and k (the shard's
+    heads)."""
     dtype = x.dtype
     w, b = params["uvqk"]["w"], params["uvqk"]["b"]
+
+    def act(uvqk):
+        if not fused_silu:
+            return torch.split(Fn.silu(uvqk), uvqk.shape[-1] // 4, dim=-1)
+        u, v, q, k = torch.split(uvqk, uvqk.shape[-1] // 4, dim=-1)
+        return Fn.silu(u), v, q, k
+
     if isinstance(w, ModelShards):
-        uvqk = column_parallel(x, w.to(dtype), b.to(dtype)).map(Fn.silu)
-        parts = [torch.split(t, t.shape[-1] // 4, dim=-1)
-                 for t in uvqk.parts]
+        parts = [act(t) for t in
+                 column_parallel(x, w.to(dtype), b.to(dtype)).parts]
         return tuple(ModelShards([p[i] for p in parts], w.mesh)
                      for i in range(4))
-    uvqk = Fn.silu(x @ w.to(dtype) + b.to(dtype))
-    return torch.split(uvqk, x.shape[-1], dim=-1)
+    return act(x @ w.to(dtype) + b.to(dtype))
 
 
 def hstu_output(params: Mapping, av: torch.Tensor, u,
@@ -151,9 +160,10 @@ def dense_av(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def hstu_attend(q, k, v, rab: torch.Tensor, mask: Optional[torch.Tensor],
                 num_heads: int, core=None) -> torch.Tensor:
-    """av [B, L, D] of post-SiLU q, k, v: ``core(q, k, v, rab)`` where one
-    is given, else the dense loop (:func:`dense_av`). On a model mesh (q,
-    k, v ``ModelShards``) with H % M == 0 each shard runs its H / M heads
+    """av [B, L, D] of post-SiLU q, k, v (pre-activation for a core with
+    ``fused_silu``): ``core(q, k, v, rab)`` where one is given, else the
+    dense loop (:func:`dense_av`). On a model mesh (q, k, v
+    ``ModelShards``) with H % M == 0 each shard runs its H / M heads
     with its rows of ``rab`` (``scatter_to_model``; the core built for H /
     M heads) and av gathers whole; otherwise q, k and v gather whole and
     every shard runs all H heads (the core built for H)."""
@@ -184,11 +194,14 @@ def hstu_block(params: Mapping, x: torch.Tensor,
     ``core(q, k, v, rab) -> av`` replaces the dense pointwise-attention
     inner loop on head-packed [B, L, D] post-SiLU q, k, v (the standalone
     HSTU attention kernels, ``ops/hstu_attention.py``); ``mask`` is then
-    unused. The JAX package's unpacked [B, H, L, hd] cores and its
-    ``fused_silu`` variant are set nowhere in it and are not ported. With
-    the parameters split over a model mesh (``ModelShards``) the block is
-    tensor-parallel (:func:`hstu_project`, :func:`hstu_attend`,
-    :func:`hstu_output`)."""
-    u, v, q, k = hstu_project(params, x)
+    unused. A core whose ``fused_silu`` attribute is True takes the
+    pre-activation q, k, v and applies the SiLU itself (e.g.
+    ``hstu_attention_packed(..., silu_qkv=True)``), as in the JAX package
+    (``models/hstu.py:79-82``), where no route sets it either; only u goes
+    through the SiLU here then. The JAX package's unpacked [B, H, L, hd]
+    cores are set nowhere in it and are not ported. With the parameters
+    split over a model mesh (``ModelShards``) the block is tensor-parallel
+    (:func:`hstu_project`, :func:`hstu_attend`, :func:`hstu_output`)."""
+    u, v, q, k = hstu_project(params, x, getattr(core, "fused_silu", False))
     av = hstu_attend(q, k, v, params["rab"], mask, num_heads, core)
     return hstu_output(params, av, u, dropout_rate, train, gen)

@@ -51,8 +51,16 @@ The bucket limit follows the bias-tile block the JAX package picks
 256 on the chunked one where L and its VMEM budget allow (at most 1794).
 The encoder takes these kernels where the JAX package's
 ``make_attention_cores`` does: an HSTU block that the fused gate refuses,
-at 256 <= L, L % 128 == 0. ``silu_qkv`` (SiLU inside the kernel) has no
-caller in the JAX package and is not ported.
+at 256 <= L, L % 128 == 0.
+
+``silu_qkv=True`` (the JAX package's flag, every kernel body) takes the
+PRE-activation q, k, v: each kernel applies the SiLU in f32 as its q, k
+and v tiles land (q to T(silu(q) * hd^-1/2), one rounding; k and v to
+T(silu(.)); JAX ``_load_qkv``, l.143), and the backward's epilogues
+multiply dq, dk and dv by dsilu of the output rows' pre-activations, read
+from global memory (l.250-261, 375, 424). No route of the port or of the
+JAX package sets it (``models/hstu.py``'s ``fused_silu`` hook); its
+launches count apart, in each wrapper's ``silu_launches``.
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for CUDA tensors; it never falls back: a launch the chosen design
@@ -170,44 +178,67 @@ def causal_valid(valid: torch.Tensor, L: int) -> torch.Tensor:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _scores(q, k, valid, rab, num_heads):
-    """(T(q * hd^-1/2) in heads, s with the bias [B, H, L, L] f32, mask)."""
-    L, D = q.shape[1], q.shape[2]
-    hd = D // num_heads
-    qs = _heads((q.float() * hd ** -0.5).to(q.dtype), num_heads)
-    pos = torch.arange(L, device=q.device)
+def _act(q, k, v, num_heads, silu_qkv):
+    """The operands the products take: (qs = T(act(q) * hd^-1/2), T(act(k)),
+    T(act(v))), act the SiLU in f32 with ``silu_qkv`` (q, k, v then the
+    pre-activations) and the identity without it (k and v as they are),
+    each rounded once."""
+    hd = q.shape[2] // num_heads
+    if not silu_qkv:
+        return (q.float() * hd ** -0.5).to(q.dtype), k, v
+    return ((Fn.silu(q.float()) * hd ** -0.5).to(q.dtype),
+            Fn.silu(k.float()).to(k.dtype), Fn.silu(v.float()).to(v.dtype))
+
+
+def _scores(qs, k, valid, rab, num_heads):
+    """(qs in heads, s with the bias [B, H, L, L] f32, mask) of the
+    operands :func:`_act` gives."""
+    L = qs.shape[1]
+    qh = _heads(qs, num_heads)
+    pos = torch.arange(L, device=qs.device)
     bucket = (pos[:, None] - pos[None, :]).clamp(0, rab.shape[1] - 1)
-    s = _mm(qs, _heads(k, num_heads).transpose(-1, -2)) \
+    s = _mm(qh, _heads(k, num_heads).transpose(-1, -2)) \
         + rab.float()[:, bucket][None]
-    return qs, s, causal_valid(valid, L)
+    return qh, s, causal_valid(valid, L)
 
 
 def hstu_attention_fwd_plain(q, k, v, valid, rab, seq_len: int,
-                             num_heads: int) -> torch.Tensor:
+                             num_heads: int,
+                             silu_qkv: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel, with its rounding
-    points."""
-    _, s, mask = _scores(q, k, valid, rab, num_heads)
+    points (``silu_qkv``: q, k, v are pre-activations, :func:`_act`)."""
+    qs, k, v = _act(q, k, v, num_heads, silu_qkv)
+    _, s, mask = _scores(qs, k, valid, rab, num_heads)
     a = (Fn.silu(s) * (mask.float() / seq_len)).to(q.dtype)
     return _rows(_mm(a, _heads(v, num_heads))).to(q.dtype)
 
 
 def hstu_attention_bwd_plain(q, k, v, dout, valid, rab, seq_len: int,
-                             num_heads: int) -> Tuple[torch.Tensor, ...]:
+                             num_heads: int, silu_qkv: bool = False
+                             ) -> Tuple[torch.Tensor, ...]:
     """Plain version of the backward kernel, written out op by op with its
     rounding points: (dq, dk, dv) in the compute dtype, drab [H, buckets]
-    in f32."""
+    in f32. With ``silu_qkv`` the gradients are the pre-activations':
+    dq = T(dq_acc hd^-1/2 dsilu(q)), dk = T(dk_acc dsilu(k)), dv =
+    T(dv_acc dsilu(v)), dsilu in f32 of the inputs, dk_acc summed against
+    the rounded T(silu(q) hd^-1/2)."""
     cdt = q.dtype
     hd = q.shape[2] // num_heads
-    qs, s, mask = _scores(q, k, valid, rab, num_heads)
+    qs, ka, va = _act(q, k, v, num_heads, silu_qkv)
+    qh, s, mask = _scores(qs, ka, valid, rab, num_heads)
     m = mask.float() / seq_len
     a = (Fn.silu(s) * m).to(cdt)
     do = _heads(dout.to(cdt), num_heads)
-    dv = _mm(a.transpose(-1, -2), do)
-    ds = _mm(do, _heads(v, num_heads).transpose(-1, -2)) * _dsilu(s) * m
+    dv = _rows(_mm(a.transpose(-1, -2), do))
+    ds = _mm(do, _heads(va, num_heads).transpose(-1, -2)) * _dsilu(s) * m
     dsc = ds.to(cdt)
-    dq = _mm(dsc, _heads(k, num_heads)) * hd ** -0.5
-    dk = _mm(dsc.transpose(-1, -2), qs)
-    return (_rows(dq).to(cdt), _rows(dk).to(cdt), _rows(dv).to(cdt),
+    dq = _rows(_mm(dsc, _heads(ka, num_heads))) * hd ** -0.5
+    dk = _rows(_mm(dsc.transpose(-1, -2), qh))
+    if silu_qkv:
+        dq = dq * _dsilu(q.float())
+        dk = dk * _dsilu(k.float())
+        dv = dv * _dsilu(v.float())
+    return (dq.to(cdt), dk.to(cdt), dv.to(cdt),
             _rab_grad(ds.sum(0), rab.shape[1]))
 
 
@@ -235,7 +266,7 @@ _F = ctypes.c_float
 def _fn(name: str, n_ptr: int):
     fn = getattr(kernels.load("hstu_attention"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [_I] + [_P] * n_ptr + [_I] * 5 + [_F, _F, _P]
+    fn.argtypes = [_I, _I] + [_P] * n_ptr + [_I] * 5 + [_F, _F, _P]
     return fn
 
 
@@ -248,7 +279,7 @@ def _check_rab(rab: torch.Tensor, num_heads: int, device) -> torch.Tensor:
     return rab.to(torch.float32).contiguous()
 
 
-def _launch_fwd(q, k, v, valid, rab, seq_len, num_heads):
+def _launch_fwd(q, k, v, valid, rab, seq_len, num_heads, silu_qkv):
     check_attention_inputs("hstu attention kernel", num_heads, q, k, v)
     B, L, D = q.shape
     vi = valid_int32(valid, q.shape)
@@ -256,17 +287,17 @@ def _launch_fwd(q, k, v, valid, rab, seq_len, num_heads):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _fn("hstu_attn_fwd", 6)(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), vi.data_ptr(), rab.data_ptr(), out.data_ptr(), B,
-            L, D, num_heads, rab.shape[1], float(D // num_heads) ** -0.5,
-            1.0 / seq_len, _stream(q.device))
+            int(q.dtype == torch.bfloat16), int(silu_qkv), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), vi.data_ptr(), rab.data_ptr(),
+            out.data_ptr(), B, L, D, num_heads, rab.shape[1],
+            float(D // num_heads) ** -0.5, 1.0 / seq_len, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"hstu_attn_fwd kernel launch failed: CUDA error "
                            f"{rc}")
     return out
 
 
-def _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads):
+def _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads, silu_qkv):
     check_attention_inputs("hstu attention backward", num_heads, q, k, v,
                            dout)
     B, L, D = q.shape
@@ -289,11 +320,11 @@ def _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads):
     drab = torch.empty((num_heads, NB), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _fn("hstu_attn_bwd", 11)(
-            is_bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), vi.data_ptr(), rab.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), part.data_ptr(), drab.data_ptr(), B,
-            L, D, num_heads, NB, float(D // num_heads) ** -0.5,
-            1.0 / seq_len, _stream(q.device))
+            is_bf16, int(silu_qkv), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), vi.data_ptr(), rab.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
+            drab.data_ptr(), B, L, D, num_heads, NB,
+            float(D // num_heads) ** -0.5, 1.0 / seq_len, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"hstu_attn_bwd kernel launch failed: CUDA error "
                            f"{rc}")
@@ -310,122 +341,141 @@ def _on_card(name: str, q: torch.Tensor) -> bool:
     return True
 
 
+def _count(wrapper, silu_qkv: bool) -> None:
+    """One launch on ``wrapper``'s counter: ``launches``, or for the
+    ``silu_qkv`` instances ``silu_launches``."""
+    if silu_qkv:
+        wrapper.silu_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 def hstu_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        valid: torch.Tensor, rab: torch.Tensor, seq_len: int,
-                       num_heads: int) -> torch.Tensor:
-    """The forward kernel on head-packed [B, L, D] q, k, v; ``valid`` [B, L]
-    (nonzero = valid key), ``rab`` [H, buckets]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, counted in
-    ``hstu_attention_fwd.launches``, or for a chunked shape (``_use_long``)
-    in :func:`hstu_attention_chunk_fwd`'s count."""
+                       num_heads: int, silu_qkv: bool = False
+                       ) -> torch.Tensor:
+    """The forward kernel on head-packed [B, L, D] q, k, v (pre-activations
+    with ``silu_qkv``); ``valid`` [B, L] (nonzero = valid key), ``rab``
+    [H, buckets]. CPU tensors take the plain version; CUDA tensors launch
+    the kernel, counted in ``hstu_attention_fwd.launches`` (``silu_qkv``:
+    ``.silu_launches``), or for a chunked shape (``_use_long``) in
+    :func:`hstu_attention_chunk_fwd`'s count."""
     if not _on_card("hstu_attention_fwd", q):
         return hstu_attention_fwd_plain(q, k, v, valid, rab, seq_len,
-                                        num_heads)
+                                        num_heads, silu_qkv)
     if _use_long(q.shape[1], q.shape[2]):
         return hstu_attention_chunk_fwd(q, k, v, valid, rab, seq_len,
-                                        num_heads)
-    out = _launch_fwd(q, k, v, valid, rab, seq_len, num_heads)
-    hstu_attention_fwd.launches += 1
+                                        num_heads, silu_qkv)
+    out = _launch_fwd(q, k, v, valid, rab, seq_len, num_heads, silu_qkv)
+    _count(hstu_attention_fwd, silu_qkv)
     return out
-
-
-hstu_attention_fwd.launches = 0
 
 
 def hstu_attention_chunk_fwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, valid: torch.Tensor,
                              rab: torch.Tensor, seq_len: int,
-                             num_heads: int) -> torch.Tensor:
+                             num_heads: int, silu_qkv: bool = False
+                             ) -> torch.Tensor:
     """The forward kernel where the JAX package takes ``_fwd_kernel_chunk``
-    (counted in ``hstu_attention_chunk_fwd.launches``)."""
+    (counted in ``hstu_attention_chunk_fwd.launches``, ``silu_qkv``:
+    ``.silu_launches``)."""
     if not _on_card("hstu_attention_chunk_fwd", q):
         return hstu_attention_fwd_plain(q, k, v, valid, rab, seq_len,
-                                        num_heads)
-    out = _launch_fwd(q, k, v, valid, rab, seq_len, num_heads)
-    hstu_attention_chunk_fwd.launches += 1
+                                        num_heads, silu_qkv)
+    out = _launch_fwd(q, k, v, valid, rab, seq_len, num_heads, silu_qkv)
+    _count(hstu_attention_chunk_fwd, silu_qkv)
     return out
-
-
-hstu_attention_chunk_fwd.launches = 0
 
 
 def hstu_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        dout: torch.Tensor, valid: torch.Tensor,
-                       rab: torch.Tensor, seq_len: int, num_heads: int
-                       ) -> Tuple[torch.Tensor, ...]:
-    """The backward kernels: (dq, dk, dv, drab). CPU tensors take the plain
-    version; CUDA tensors launch the kernels, one count in
-    ``hstu_attention_bwd.launches``, or for a chunked shape in
+                       rab: torch.Tensor, seq_len: int, num_heads: int,
+                       silu_qkv: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels: (dq, dk, dv, drab), with ``silu_qkv`` the
+    pre-activations' dq, dk, dv. CPU tensors take the plain version; CUDA
+    tensors launch the kernels, one count in ``hstu_attention_bwd.launches``
+    (``silu_qkv``: ``.silu_launches``), or for a chunked shape in
     :func:`hstu_attention_chunk_bwd`'s."""
     if not _on_card("hstu_attention_bwd", q):
         return hstu_attention_bwd_plain(q, k, v, dout, valid, rab, seq_len,
-                                        num_heads)
+                                        num_heads, silu_qkv)
     if _use_long(q.shape[1], q.shape[2]):
         return hstu_attention_chunk_bwd(q, k, v, dout, valid, rab, seq_len,
-                                        num_heads)
-    grads = _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads)
-    hstu_attention_bwd.launches += 1
+                                        num_heads, silu_qkv)
+    grads = _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads,
+                        silu_qkv)
+    _count(hstu_attention_bwd, silu_qkv)
     return grads
-
-
-hstu_attention_bwd.launches = 0
 
 
 def hstu_attention_chunk_bwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, dout: torch.Tensor,
                              valid: torch.Tensor, rab: torch.Tensor,
-                             seq_len: int, num_heads: int
+                             seq_len: int, num_heads: int,
+                             silu_qkv: bool = False
                              ) -> Tuple[torch.Tensor, ...]:
     """The backward kernels where the JAX package takes
     ``_dq_kernel_chunk`` and ``_dkdv_kernel_chunk`` (one count in
-    ``hstu_attention_chunk_bwd.launches``)."""
+    ``hstu_attention_chunk_bwd.launches``, ``silu_qkv``:
+    ``.silu_launches``)."""
     if not _on_card("hstu_attention_chunk_bwd", q):
         return hstu_attention_bwd_plain(q, k, v, dout, valid, rab, seq_len,
-                                        num_heads)
-    grads = _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads)
-    hstu_attention_chunk_bwd.launches += 1
+                                        num_heads, silu_qkv)
+    grads = _launch_bwd(q, k, v, dout, valid, rab, seq_len, num_heads,
+                        silu_qkv)
+    _count(hstu_attention_chunk_bwd, silu_qkv)
     return grads
 
 
-hstu_attention_chunk_bwd.launches = 0
+for _w in (hstu_attention_fwd, hstu_attention_chunk_fwd, hstu_attention_bwd,
+           hstu_attention_chunk_bwd):
+    _w.launches = 0
+    _w.silu_launches = 0
 
 
 class HstuAttentionFn(torch.autograd.Function):
-    """``apply(q, k, v, valid, rab, seq_len, num_heads)``: the forward kernel,
-    and the backward kernel for dq, dk, dv and the f32 ``rab`` gradient."""
+    """``apply(q, k, v, valid, rab, seq_len, num_heads, silu_qkv)``: the
+    forward kernel, and the backward kernel for dq, dk, dv and the f32
+    ``rab`` gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, valid, rab, seq_len, num_heads):
+    def forward(ctx, q, k, v, valid, rab, seq_len, num_heads, silu_qkv):
         ctx.save_for_backward(q, k, v, valid, rab)
-        ctx.seq_len, ctx.num_heads = seq_len, num_heads
-        return hstu_attention_fwd(q, k, v, valid, rab, seq_len, num_heads)
+        ctx.seq_len, ctx.num_heads, ctx.silu_qkv = seq_len, num_heads, \
+            silu_qkv
+        return hstu_attention_fwd(q, k, v, valid, rab, seq_len, num_heads,
+                                  silu_qkv)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, valid, rab = ctx.saved_tensors
         dq, dk, dv, drab = hstu_attention_bwd(
             q, k, v, dout.contiguous(), valid, rab, ctx.seq_len,
-            ctx.num_heads)
-        return dq, dk, dv, None, drab.to(rab.dtype), None, None
+            ctx.num_heads, ctx.silu_qkv)
+        return dq, dk, dv, None, drab.to(rab.dtype), None, None, None
 
 
 def hstu_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           valid: torch.Tensor, rab: torch.Tensor,
-                          seq_len: int, num_heads: int) -> torch.Tensor:
+                          seq_len: int, num_heads: int,
+                          silu_qkv: bool = False) -> torch.Tensor:
     """Head-packed HSTU attention: q/k/v [B, L, D] (D = H * hd), valid
     [B, L], rab [H, buckets]. Returns [B, L, D]. Differentiable in q, k, v
-    and rab. Raises the JAX package's ``ValueError`` where its bias tiles
-    at the block its dispatch picks (``_tile_blk``) take fewer buckets."""
+    and rab. ``silu_qkv``: q, k, v are the PRE-activation projections and
+    the SiLU runs inside the kernels, their gradients through dsilu in the
+    epilogues (the JAX package's flag). Raises the JAX package's
+    ``ValueError`` where its bias tiles at the block its dispatch picks
+    (``_tile_blk``) take fewer buckets."""
     L, D = q.shape[1], q.shape[2]
     _n_near(rab.shape[1], _tile_blk(L, rab.shape[0], rab.shape[1], D))
     return HstuAttentionFn.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), valid, rab, seq_len,
-                                 num_heads)
+                                 num_heads, silu_qkv)
 
 
 def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    valid: torch.Tensor, rab: torch.Tensor,
-                   seq_len: int) -> torch.Tensor:
+                   seq_len: int, silu_qkv: bool = False) -> torch.Tensor:
     """[B, H, L, hd] interface (transposes into the packed layout)."""
     B, H, L, hd = q.shape
 
@@ -433,5 +483,5 @@ def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return t.transpose(1, 2).reshape(B, L, H * hd).contiguous()
 
     out = hstu_attention_packed(pack(q), pack(k), pack(v), valid, rab,
-                                seq_len, H)
+                                seq_len, H, silu_qkv)
     return out.reshape(B, L, H, hd).transpose(1, 2)

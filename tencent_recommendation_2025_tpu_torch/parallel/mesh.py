@@ -86,11 +86,14 @@ import torch.distributed as dist
 from ..config import MeshConfig
 
 AXES = ("pipe", "data", "model", "seq")
-QUEUE_ITEM = "ROADMAP Queue 1, item 5 (Multi-device layer)"
 
 
-def unported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: {QUEUE_ITEM}")
+def check_mesh(mesh, what: str) -> None:
+    """Raise ``TypeError`` for a ``mesh`` that is no mesh: an object
+    without a ``shape`` (``what`` names the caller)."""
+    if getattr(mesh, "shape", None) is None:
+        raise TypeError(f"{what}: {mesh!r} is not a mesh (it has no "
+                        "`shape`): pass a ProcessMesh or a LocalMesh")
 
 
 def check_axes(shape: Dict[str, int]) -> None:

@@ -23,8 +23,10 @@ explicit form of the gather XLA partitions for the JAX package:
    shards' rows and hands each data rank back its own batch rows.
 
 Its backward all-gathers the cotangent and scatter-adds it into each
-shard's owned rows: every shard receives its rows' gradient over the global
-batch, and nothing else of the table crosses the mesh.
+shard's owned rows (the fused-feature lookups' one-hot backward sums them
+in a fixed order instead, :func:`row_grad_sum`): every shard receives its
+rows' gradient over the global batch, and nothing else of the table
+crosses the mesh.
 
 :func:`sharded_lookup_a2a` is the item-id lookup of a data-only mesh
 (``models.baseline.SeqRecModel._ep_override``; never on a model mesh, as
@@ -57,6 +59,7 @@ bitwise.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -162,56 +165,115 @@ def shard_view(params: Mapping, mesh) -> dict:
             for k, v in params.items()}
 
 
+def row_grad_sum(rows: torch.Tensor, cot: torch.Tensor,
+                 n_rows: int) -> torch.Tensor:
+    """[n_rows, D] f32: row r holds the sum of ``cot[i]`` over the i whose
+    ``rows[i]`` is r; an index outside [0, n_rows) sends nothing. Bitwise
+    repeatable on the card: no atomic add, as the JAX package's one-hot
+    products sum in a fixed order where ``index_add_`` on the card does
+    not. A stable sort of the rows, the cotangent gathered in that order,
+    then a segmented sum in two levels (``torch.segment_reduce``, whose
+    threads each add one segment's terms in order): pieces cut at every
+    row's start and every C-th entry (C about sqrt(N)), then each row's
+    pieces, so that no thread walks more than about sqrt(N) terms where a
+    row of a small vocabulary holds thousands of ids."""
+    flat = rows.reshape(-1).long()
+    n = flat.shape[0]
+    x = cot.reshape(n, cot.shape[-1]).float()
+    key = torch.where((flat >= 0) & (flat < n_rows), flat,
+                      torch.full_like(flat, n_rows))
+    key, order = torch.sort(key, stable=True)
+    x = x[order]
+    dev = key.device
+    ends = torch.arange(n_rows + 1, device=dev)
+    chunk = max(64, math.isqrt(n))
+    cuts = torch.sort(torch.cat([torch.searchsorted(key, ends),
+                                 torch.arange(0, n, chunk, device=dev)]))[0]
+    # the offsets are well formed by construction: no checks (a host sync)
+    part = torch.segment_reduce(x, "sum", offsets=cuts, axis=0, unsafe=True)
+    # each piece's row, the key at its first entry (past the end: none)
+    prow = torch.cat([key, key.new_full((1,), n_rows)])[cuts[:-1]]
+    return torch.segment_reduce(part, "sum",
+                                offsets=torch.searchsorted(prow, ends),
+                                axis=0, unsafe=True)
+
+
 class _RowTake(torch.autograd.Function):
-    """``src[idx]`` (every index within ``src``'s rows) whose backward is one
-    ``index_add_`` into zeros, as ``embedding._ClampedTake``'s: PyTorch's
-    own indexing backward (an accumulating ``index_put_``) sorts the
-    indices first."""
+    """``src[idx]`` (every index within ``src``'s rows). Its backward is one
+    ``index_add_`` into zeros, as ``embedding._ClampedTake``'s (PyTorch's
+    own indexing backward, an accumulating ``index_put_``, sorts the
+    indices first); with ``grad_idx`` it is :func:`row_grad_sum` into the
+    rows ``grad_idx`` names instead (-1: no gradient), bitwise
+    repeatable."""
 
     @staticmethod
-    def forward(ctx, src, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, src, idx, grad_idx=None):
+        ctx.save_for_backward(idx if grad_idx is None else grad_idx)
+        ctx.summed = grad_idx is not None
         ctx.shape = src.shape
         return src[idx]
 
     @staticmethod
     def backward(ctx, cot):
         (idx,) = ctx.saved_tensors
-        flat = idx.reshape(-1)
-        grad = cot.new_zeros(ctx.shape).index_add_(
-            0, flat, cot.reshape((flat.shape[0],) + tuple(ctx.shape[1:])))
-        return grad, None
+        if ctx.summed:
+            grad = row_grad_sum(idx, cot, ctx.shape[0]).to(cot.dtype)
+        else:
+            flat = idx.reshape(-1)
+            grad = cot.new_zeros(ctx.shape).index_add_(
+                0, flat,
+                cot.reshape((flat.shape[0],) + tuple(ctx.shape[1:])))
+        # one gradient per input: apply(src, idx) or apply(src, idx, grad_idx)
+        return (grad,) + (None,) * (len(ctx.needs_input_grad) - 1)
 
 
 def _owned_take(block: torch.Tensor, ids: torch.Tensor, lo: int,
-                mask_zero: bool) -> torch.Tensor:
+                mask_zero: bool,
+                grad_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``block``'s rows for the ids in [lo, lo + rows), zeros for the rest
     (and for id 0 with ``mask_zero``); its backward scatter-adds into the
-    owned rows only."""
+    owned rows only, or with ``grad_ids`` (a row per id, -1 for none) sums
+    into the owned rows those name (:func:`row_grad_sum`)."""
     rel = ids.long() - lo
     owned = (rel >= 0) & (rel < block.shape[0])
     if mask_zero:
         owned = owned & (ids != 0)
-    emb = _RowTake.apply(block, rel.clamp(0, block.shape[0] - 1))
+    grad_idx = None
+    if grad_ids is not None:
+        g = grad_ids.long() - lo
+        grad_idx = torch.where((grad_ids >= 0) & (g >= 0)
+                               & (g < block.shape[0]), g,
+                               torch.full_like(g, -1))
+    emb = _RowTake.apply(block, rel.clamp(0, block.shape[0] - 1), grad_idx)
     return emb * owned[..., None].to(emb.dtype)
 
 
 def sharded_lookup(mesh, table: ShardedTable, ids: torch.Tensor,
-                   mask_zero: bool = True) -> torch.Tensor:
+                   mask_zero: bool = True,
+                   grad_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable lookup of a row-sharded table: ``ids`` [B, ...] (this
     data shard's rows) -> [B, ..., D]; id 0 gives a zero row with
     ``mask_zero``, as ``embedding.masked_take``. On a process mesh: the ids
     all-gathered over the data group, each shard's owned rows, on a model
     mesh a sum over the model group (``reduce_from_model``: the shards of
     one data index hold different rows; its backward hands each the
-    cotangent), a reduce-scatter back to this rank's rows."""
+    cotangent), a reduce-scatter back to this rank's rows. ``grad_ids``
+    (the one-hot backward of ``embedding.fused_feature_lookup``): the row
+    each id's gradient goes to, -1 for none, summed bitwise repeatably
+    (:func:`row_grad_sum`)."""
     if mesh.process:
-        (gids,) = mesh.all_gather([ids])
+        if grad_ids is None:
+            (gids,) = mesh.all_gather([ids])
+            ggrad = None
+        else:   # one collective: the ids and their gradient rows stacked
+            (both,) = mesh.all_gather([torch.stack(
+                [ids.long(), grad_ids.long()], dim=-1)])
+            gids, ggrad = both.unbind(-1)
         lo = table_index(mesh) * table.rows_per_shard
-        emb = _owned_take(table.blocks[0], gids, lo, mask_zero)
+        emb = _owned_take(table.blocks[0], gids, lo, mask_zero, ggrad)
         (out,) = mesh.reduce_scatter([_sum_model(mesh, emb)])
         return out
-    return _owned_take(table.whole, ids, 0, mask_zero)
+    return _owned_take(table.whole, ids, 0, mask_zero, grad_ids)
 
 
 def _sum_model(mesh, t: torch.Tensor) -> torch.Tensor:

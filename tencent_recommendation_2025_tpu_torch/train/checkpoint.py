@@ -29,7 +29,12 @@ state whose row count differs from the model's by shard or pack padding
 (all-zero surplus rows) is cut or zero-extended to it; trained surplus
 rows, or any other row count, raise. Loaded onto a mesh, a table leaf is
 read for this process's row extent only (memory-mapped files, sliced), in
-whatever shards it was saved.
+whatever shards it was saved. The JAX package's legacy single-blob layout
+(``state.msgpack``, which ``flax.serialization.to_bytes`` wrote from the
+list of the JAX train state's leaves) loads too, positionally, in that
+state's leaf order (parameters, optax state, step), by a reader of the
+msgpack subset flax writes
+(:func:`read_msgpack`: neither ``msgpack`` nor ``flax`` is needed).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import json
 import logging
 import re
 import shutil
+import struct
 import threading
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple
@@ -47,10 +53,12 @@ import numpy as np
 import torch
 
 from ..bridge import (_flatten, _load_entry, _nest, _to_numpy, _to_torch,
-                      opt_state_from_jax, params_from_jax)
+                      jax_opt_state, opt_state_from_jax, params_from_jax,
+                      params_from_leaves)
 
 MANIFEST_FILE = "manifest.json"
 META_FILE = "meta.json"
+CKPT_FILE = "state.msgpack"          # the JAX package's legacy layout
 
 # config keys that change only storage layout, not the trained function
 _LAYOUT_KEYS = ("pack_big_tables",)
@@ -551,6 +559,184 @@ def _mesh_reader(path: Path, mesh, rows: Mapping[str, int], dim: int,
     return read
 
 
+def read_msgpack(blob: bytes):
+    """The object of a msgpack blob, in the subset that
+    ``flax.serialization.msgpack_serialize`` writes: maps (dicts), arrays
+    (lists), strings, ints, floats, nil and booleans, bin, and flax's ext
+    types, an ndarray (code 1, itself a msgpack array of the shape, the
+    dtype's name and the row-major bytes) and a numpy scalar (code 3, the
+    same as a 0-d array), each returned as (numpy array, is_bf16): a
+    bfloat16 array as its uint16 bits (``bridge._to_torch`` views them).
+    An array over flax's chunk size is a map of its flat chunks
+    (:func:`_unchunk`)."""
+    pos = 0
+
+    def take(n):
+        nonlocal pos
+        if pos + n > len(blob):
+            raise ValueError("truncated msgpack blob")
+        pos += n
+        return blob[pos - n:pos]
+
+    def uint(n):
+        return int.from_bytes(take(n), "big")
+
+    def ext(code, n):
+        data = take(n)
+        if code not in (1, 3):
+            raise ValueError(f"msgpack ext type {code} is not flax's ndarray")
+        shape, dtype, buf = read_msgpack(data)
+        if isinstance(dtype, bytes):
+            dtype = dtype.decode()
+        bf16 = dtype == "bfloat16"
+        arr = np.frombuffer(buf, np.uint16 if bf16 else np.dtype(dtype))
+        return arr.reshape(tuple(shape)), bf16
+
+    def obj():
+        t = take(1)[0]
+        if t <= 0x7F or t >= 0xE0:               # fixint
+            return t if t <= 0x7F else t - 0x100
+        if t <= 0x8F:                            # fixmap
+            return {obj(): obj() for _ in range(t & 0x0F)}
+        if t <= 0x9F:                            # fixarray
+            return [obj() for _ in range(t & 0x0F)]
+        if t <= 0xBF:                            # fixstr
+            return take(t & 0x1F).decode()
+        if t in (0xC0, 0xC2, 0xC3):
+            return {0xC0: None, 0xC2: False, 0xC3: True}[t]
+        if 0xC4 <= t <= 0xC6:                    # bin 8/16/32
+            return bytes(take(uint(1 << (t - 0xC4))))
+        if 0xC7 <= t <= 0xC9:                    # ext 8/16/32
+            n = uint(1 << (t - 0xC7))
+            return ext(int.from_bytes(take(1), "big", signed=True), n)
+        if t in (0xCA, 0xCB):
+            return struct.unpack(">f" if t == 0xCA else ">d",
+                                 take(4 if t == 0xCA else 8))[0]
+        if 0xCC <= t <= 0xCF:                    # uint 8-64
+            return uint(1 << (t - 0xCC))
+        if 0xD0 <= t <= 0xD3:                    # int 8-64
+            return int.from_bytes(take(1 << (t - 0xD0)), "big", signed=True)
+        if 0xD4 <= t <= 0xD8:                    # fixext 1-16
+            code = int.from_bytes(take(1), "big", signed=True)
+            return ext(code, 1 << (t - 0xD4))
+        if 0xD9 <= t <= 0xDB:                    # str 8/16/32
+            return take(uint(1 << (t - 0xD9))).decode()
+        if t in (0xDC, 0xDD):                    # array 16/32
+            return [obj() for _ in range(uint(2 << (t - 0xDC)))]
+        if t in (0xDE, 0xDF):                    # map 16/32
+            return {obj(): obj() for _ in range(uint(2 << (t - 0xDE)))}
+        raise ValueError(f"msgpack type byte {t:#x} is not one flax writes")
+
+    out = obj()
+    if pos != len(blob):
+        raise ValueError("trailing bytes after the msgpack object")
+    return out
+
+
+def _unchunk(leaf):
+    """A leaf of a flax blob as (numpy array, is_bf16): an array over
+    flax's chunk size is a map ``{"__msgpack_chunked_array__": True,
+    "shape": {"0": ..}, "chunks": {"0": flat chunk, ..}}``, joined here; a
+    python int or float (a scalar leaf) as a 0-d array."""
+    if isinstance(leaf, dict) and leaf.get("__msgpack_chunked_array__"):
+        shape = tuple(leaf["shape"][str(i)] for i in range(len(leaf["shape"])))
+        chunks = [leaf["chunks"][str(i)] for i in range(len(leaf["chunks"]))]
+        return (np.concatenate([c[0].reshape(-1) for c in chunks])
+                .reshape(shape), chunks[0][1])
+    if isinstance(leaf, tuple):
+        return leaf
+    if isinstance(leaf, (bool, int, float)):
+        return np.asarray(leaf), False
+    raise ValueError(f"a leaf of the blob is a {type(leaf).__name__}, not "
+                     "an array")
+
+
+def _jax_state_shapes(state, cfg, tables) -> Dict[str, Tuple[tuple, bool]]:
+    """{tree path: (shape, is a table leaf)} of the train state the JAX
+    trainer builds for this model and config (its ``init_state(model,
+    make_optimizer(cfg), seed, cfg)``), in its leaf order: the parameters
+    under ``0/``; optax's adam / adamw state over every parameter (``1/``),
+    or over the dense ones (``1/dense/``) beside the sparse tables' row
+    state (``1/tables/<table>/<key>``): its count, ``mu`` and ``nu``, and
+    where the learning rate is not constant the schedule's count
+    (``<i>/count``, after adamw's stateless decayed weights); the step
+    ``2``. The shapes are those of ``state`` (a fresh port state); the
+    leaves of the learned ``tables`` are marked, as their rows may differ
+    by the JAX package's padding or packing (:func:`convert_rows`)."""
+    from .trainer import dense_leaves
+
+    t = cfg.train
+    params = _flatten(state.params)
+    out = {f"0/{p}": (tuple(v.shape), p.split("/")[0] in tables)
+           for p, v in params.items()}
+    pre = "1/dense/" if t.sparse_tables else "1/"
+    out[pre + "0/count"] = ((), False)
+    for p, _ in dense_leaves(state.params, cfg):
+        for k in ("mu", "nu"):
+            out[f"{pre}0/{k}/{p}"] = out[f"0/{p}"]
+    if not (t.lr_schedule == "constant" and t.lr_warmup_steps == 0):
+        out[f"{pre}{2 if t.weight_decay > 0 else 1}/count"] = ((), False)
+    for name, opt in state.tables.items():
+        for k, v in opt.items():
+            out[f"1/tables/{name}/{k}"] = (tuple(v.shape), True)
+    out["2"] = ((), False)
+    # the JAX leaf order: dict keys sorted, tuple positions in order
+    return dict(sorted(out.items(), key=lambda kv: kv[0].split("/")))
+
+
+def _legacy_blob(path: Path) -> Optional[Path]:
+    """The legacy single-blob file ``path`` names (the file, or a
+    directory's ``state.msgpack`` where it holds no manifest), else
+    None."""
+    if path.is_file():
+        return path
+    if not (path / MANIFEST_FILE).exists() and (path / CKPT_FILE).exists():
+        return path / CKPT_FILE
+    return None
+
+
+def _legacy_state(blob_file: Path, template, cfg, rows, device):
+    """(params, JAX optimizer state) of a legacy blob: its leaves taken
+    positionally in the JAX train state's leaf order (``template``:
+    :func:`_jax_state_shapes`), the parameters' tables at the model's
+    ``rows``, the optimizer leaves mapped as a JAX-written manifest's are
+    (``bridge.jax_opt_state``). A leaf count or a leaf shape that differs
+    raises ``ValueError``, as the JAX loader's guards do (a table leaf's
+    when its rows are fitted: :func:`_fit_rows`)."""
+    tree = read_msgpack(blob_file.read_bytes())
+    if not isinstance(tree, dict) or set(tree) != {str(i) for i in
+                                                   range(len(tree))}:
+        raise ValueError(f"{blob_file} is not a positional list of leaves "
+                         "(flax.serialization.to_bytes of a leaf list)")
+    if len(tree) != len(template):
+        raise ValueError(f"checkpoint holds {len(tree)} leaves, the model's "
+                         f"JAX train state {len(template)} — a different "
+                         "architecture or optimizer config")
+    flat = {}
+    for i, (p, (shape, table)) in enumerate(template.items()):
+        arr, bf16 = _unchunk(tree[str(i)])
+        if tuple(arr.shape) != shape and not table:   # tables: when fitted
+            raise ValueError(
+                f"checkpoint leaf {i} ({p}) shape {tuple(arr.shape)} != model "
+                f"shape {shape} — the checkpoint was trained with a "
+                "different architecture config (check hidden_units/"
+                "num_blocks/num_heads/maxlen)")
+        flat[p] = (np.array(arr), bf16)
+    params = _fit_tables(params_from_leaves(
+        {p[2:]: v for p, v in flat.items() if p.startswith("0/")}, device),
+        rows)
+
+    def load(p, packed):
+        arr, bf16 = flat[p]
+        return _to_torch(arr.reshape(-1, cfg.model.hidden_units) if packed
+                         else arr, bf16, device)
+
+    js = jax_opt_state({p: list(a.shape) for p, (a, _) in flat.items()
+                        if not p.startswith("0/")}, load,
+                       lambda p: int(flat[p][0]), blob_file)
+    return params, js
+
+
 def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
     """(train state, meta) from a train state either package wrote (``path``
     a checkpoint directory, or a directory holding them: the newest is
@@ -567,20 +753,36 @@ def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
     read whole (a JAX checkpoint's per-shard column extents assembled) and
     cut to this process's slice (``parallel.train.land_model``), and on a
     process mesh with a pipe axis each stacked block leaf and its moments
-    to the stage's blocks (``parallel.train.land_pipe``)."""
-    from ..parallel.train import layout
-    from .trainer import dense_leaves, init_state, packed_item_table
+    to the stage's blocks (``parallel.train.land_pipe``).
+
+    The legacy single-blob layout (``path`` a ``state.msgpack`` file, or a
+    directory holding one and no manifest) loads positionally, as the JAX
+    loader does: the leaves in the order of the JAX trainer's train state
+    for this model and config (:func:`_jax_state_shapes`: its parameters,
+    optax state and step), each of the template's shape (``ValueError``
+    otherwise), the optax state mapped as a JAX-written manifest's; onto a
+    ``mesh`` through ``parallel.train.shard_existing_state``."""
+    from ..parallel.train import layout, shard_existing_state
+    from .trainer import init_state, packed_item_table
 
     path = Path(path)
-    if not (path / MANIFEST_FILE).exists():
+    blob = _legacy_blob(path)
+    if blob is None and not (path / MANIFEST_FILE).exists():
         found = latest_checkpoint(path)
         if found is None:
             raise FileNotFoundError(f"no checkpoint under {path}")
         path = found
     meta = json.loads((path / META_FILE).read_text()) \
-        if (path / META_FILE).exists() else {}
+        if path.is_dir() and (path / META_FILE).exists() else {}
     _check_config(meta, model.cfg)
     rows = table_rows(model, packed_item_table(cfg, model.itemnum))
+    if blob is not None:
+        params, js = _legacy_state(blob, _jax_state_shapes(
+            init_state(model, cfg), cfg, rows), cfg, rows, device)
+        state = _assemble(model, cfg, device, params, None, None, js)
+        if mesh is not None:
+            shard_existing_state(mesh, state)
+        return state, meta
     lay = None if mesh is None else layout(mesh)
     read = None
     if lay is None:
@@ -591,20 +793,40 @@ def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
         entries = json.loads((path / MANIFEST_FILE).read_text())["leaves"]
         params = _nest({e["path"][2:]: read(e["path"], e) for e in entries
                         if e["path"].startswith("0/")})
+    leaves = dict(_state_leaves(path, device, read)) \
+        if meta.get("state_format") == "torch" else None
+    js = None if leaves is not None else opt_state_from_jax(
+        path, device, dim=cfg.model.hidden_units, read=read)
+    state = _assemble(model, cfg, device, params, leaves, lay, js)
+    if lay is not None:
+        from ..parallel.train import land_model, land_pipe
+
+        land_model(state, mesh)
+        land_pipe(state, mesh)
+    return state, meta
+
+
+def _assemble(model, cfg, device, params, leaves, lay, js):
+    """The train state of ``params`` and the optimizer state of a
+    port-format checkpoint's ``leaves`` ({tree path: tensor}: the AdamW
+    moments under ``1/<param>/``, the tables' row state under
+    ``1/tables/``, the step as ``2``), or where ``leaves`` is None of a
+    JAX-written one (``js``: ``bridge.opt_state_from_jax``); the tables at
+    the model's rows unless ``lay`` (a mesh's layout) holds them."""
+    from .trainer import dense_leaves, init_state, packed_item_table
+
+    rows = table_rows(model, packed_item_table(cfg, model.itemnum))
     _check_structure(params, model)
     state = init_state(model, cfg, params=params, device=device)
     state.layout = lay
     dense = [p for p, _ in dense_leaves(state.params, cfg)]
-    if meta.get("state_format") == "torch":
-        leaves = dict(_state_leaves(path, device, read))
+    if leaves is not None:
         step = count = int(leaves["2"])
         moments = {p: (leaves[f"1/{p}/exp_avg"], leaves[f"1/{p}/exp_avg_sq"])
                    for p in dense if f"1/{p}/exp_avg" in leaves}
         tables = {name: {k: leaves[f"1/tables/{name}/{k}"] for k in opt}
                   for name, opt in state.tables.items()}
     else:
-        js = opt_state_from_jax(path, device, dim=cfg.model.hidden_units,
-                                read=read)
         step, count = js["step"], js["count"]
         if set(js["exp_avg"]) != set(dense):
             raise ValueError(
@@ -639,12 +861,7 @@ def load_checkpoint(path, model, cfg, device="cpu", mesh=None):
                                  f"{tuple(opt[k].shape)}")
             opt[k] = got.to(opt[k].dtype)
     state.step = step
-    if lay is not None:
-        from ..parallel.train import land_model, land_pipe
-
-        land_model(state, mesh)
-        land_pipe(state, mesh)
-    return state, meta
+    return state
 
 
 def _state_leaves(path, device="cpu", read=None):

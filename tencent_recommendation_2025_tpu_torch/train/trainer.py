@@ -87,9 +87,8 @@ from ..data.pipeline import prefetch
 from ..models.baseline import SeqRecModel, ep_overflow_scope
 from ..ops import losses as LS
 from ..ops import sparse_table as ST
-from ..parallel.mesh import (check_axes, data_rows, data_size, model_size,
-                             pipe_size, seq_size, table_shards)
-from ..parallel.mesh import unported as mesh_unported
+from ..parallel.mesh import (check_axes, check_mesh, data_rows, data_size,
+                             model_size, pipe_size, seq_size, table_shards)
 from ..parallel.partition import model_dims, tp_view
 from ..parallel.sharded_embedding import (SHARDED_TABLES, shard_tables,
                                           shard_view)
@@ -108,10 +107,8 @@ def check_supported(cfg: Config, mesh=None) -> None:
     (``ValueError`` otherwise, as the JAX step asserts)."""
     t = cfg.train
     if mesh is not None:
-        shape = getattr(mesh, "shape", None)
-        if shape is None:
-            mesh_unported(f"training on the device mesh {mesh!r}")
-        check_axes(shape)
+        check_mesh(mesh, "training on a device mesh")
+        check_axes(mesh.shape)
     if not set(t.sparse_tables) <= {"item_emb", "user_emb"}:
         raise ValueError("train.sparse_tables takes subsets of (item_emb, "
                          f"user_emb), not {t.sparse_tables}")

@@ -1237,3 +1237,102 @@ def test_pipe_mesh_step_matches_single_device_on_card(tmp_path):
             continue
         cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
         assert cos >= 0.999, (p, cos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,D,H", [(256, 64, 4), (512, 64, 1),
+                                   (512, 128, 1), (2048, 64, 4),
+                                   (256, 256, 1), (256, 1024, 1)])
+def test_hstu_silu_qkv_kernels_match_plain_on_card(L, D, H, dtype):
+    """The silu_qkv instances (pre-activation q, k, v: the SiLU as the
+    tiles land, dsilu in the backward's stores) against their plain
+    versions: W = 16, 64 and 128 on the whole-sequence route, the chunked
+    route at L=2048, hd 256 and the sliced hd 1024 on the first design; f32
+    (the first design) and bf16. One launch each way on the route's
+    ``silu_launches`` and none on ``launches``; a second call bitwise
+    equal."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
+
+    q, k, v, dout, valid, rab = _attention(2, L, D, H, dtype, 70 + D + H)
+    counters = (HA.hstu_attention_fwd, HA.hstu_attention_bwd,
+                HA.hstu_attention_chunk_fwd, HA.hstu_attention_chunk_bwd)
+    before = [(c.launches, c.silu_launches) for c in counters]
+    out = HA.hstu_attention_fwd(q, k, v, valid, rab, L, H, silu_qkv=True)
+    grads = HA.hstu_attention_bwd(q, k, v, dout, valid, rab, L, H,
+                                  silu_qkv=True)
+    torch.cuda.synchronize()
+    one = (0, 1)
+    want = [(0, 0)] * 2 + [one] * 2 if HA._use_long(L, D) \
+        else [one] * 2 + [(0, 0)] * 2
+    assert [(c.launches - a, c.silu_launches - b)
+            for c, (a, b) in zip(counters, before)] == want
+    ref = HA.hstu_attention_fwd_plain(q, k, v, valid, rab, L, H, True)
+    refs = HA.hstu_attention_bwd_plain(q, k, v, dout, valid, rab, L, H,
+                                       True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        for name, g, r in zip(("dq", "dk", "dv", "drab"), grads, refs):
+            _close(g, r, name)
+    else:
+        for name, g, r in zip(("out", "dq", "dk", "dv", "drab"),
+                              (out, *grads), (ref, *refs)):
+            _bf16_close(g, r, name)
+    assert torch.equal(out, HA.hstu_attention_fwd(q, k, v, valid, rab, L, H,
+                                                  silu_qkv=True))
+    for g, g2 in zip(grads, HA.hstu_attention_bwd(q, k, v, dout, valid, rab,
+                                                  L, H, silu_qkv=True)):
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_fused_feature_lookup_backward_is_repeatable_on_card(shards):
+    """The fused-feature lookup's one-hot backward (a stable sort and a
+    segmented sum) gives the same bits over two calls, on one device and
+    on a local data mesh of 2 shards; an id above its slot's vocabulary
+    sends nothing; the sums match an f64 index_add_ of the kept rows
+    within 1e-5 of the largest sum."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.config import MeshConfig
+    from tencent_recommendation_2025_tpu_torch.models import embedding as TE
+    from tencent_recommendation_2025_tpu_torch.parallel import \
+        sharded_embedding as SE
+    from tencent_recommendation_2025_tpu_torch.parallel.mesh import \
+        local_mesh
+
+    rng = np.random.default_rng(4)
+    sizes = [2000, 1500, 40, 40, 40]
+    offs = [0, 2001, 3502, 3502, 3502]
+    V, D = 3544, 64
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(
+        np.float32)).cuda()
+    ids = torch.from_numpy(np.stack(
+        [rng.integers(0, int(1.2 * s) + 1, (64, 256)) for s in sizes],
+        axis=-1)).cuda()
+    cot = torch.from_numpy(rng.standard_normal(tuple(ids.shape) + (D,))
+                           .astype(np.float32)).cuda()
+
+    def grad():
+        leaf = SE.pad_rows(table, shards).clone().requires_grad_(True)
+        src = leaf if shards == 1 else SE.ShardedTable.of_leaf(
+            leaf, local_mesh(MeshConfig(data=shards)))
+        loss = 0.0
+        for s in range(shards):   # each data shard's batch rows in turn
+            part = slice(s * 64 // shards, (s + 1) * 64 // shards)
+            out = TE.fused_feature_lookup(src, ids[part], offs, sizes=sizes)
+            loss = loss + (out * cot[part]).sum()
+        loss.backward()
+        return leaf.grad[:V]
+
+    g1, g2 = grad(), grad()
+    assert torch.equal(g1, g2)
+    sz = torch.tensor(sizes, device="cuda")
+    live = (ids > 0) & (ids <= sz)
+    rows = ids + torch.tensor(offs, device="cuda")
+    want = torch.zeros((V, D), dtype=torch.float64, device="cuda").index_add_(
+        0, rows[live], cot[live].double())
+    # f32 sums of up to ~1,200 terms a row, in another order than f64's
+    err = (g1.double() - want).abs().max().item()
+    assert err <= 1e-5 * max(1.0, want.abs().max().item()), err

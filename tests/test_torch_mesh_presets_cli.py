@@ -75,7 +75,7 @@ def test_check_supported_raises_only_on_what_is_not_ported():
 
     cfg = PRESETS["sharded_multihost"]()
     TTR.check_supported(cfg)            # cfg.mesh 4x2: trains single-device
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="is not a mesh"):
         TTR.check_supported(cfg, mesh=object())
     # gradient accumulation is ported; on sparse tables the JAX guard holds
     with pytest.raises(ValueError, match="dense tables only"):

@@ -120,7 +120,7 @@ def test_unported_encoder_branches_raise(models):
     w = models
     b = {k: torch.from_numpy(v) for k, v in w["batch"].items()}
     fe = torch.zeros(b["seq"].shape + (32,))
-    with pytest.raises(NotImplementedError, match="Multi-device layer"):
+    with pytest.raises(TypeError, match="is not a mesh"):
         TENC.encode(w["p"], fe, b["seq"], b["token_type"],
                     w["p"]["pos_emb"], w["m"].cfg, mesh=object())
     # the training forward is ported: it runs on both routes
