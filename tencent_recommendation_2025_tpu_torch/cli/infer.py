@@ -185,6 +185,8 @@ def _encode(args, cfg, env, dev, result_dir, timings: dict):
     from ..data.schema import FeatureSchema
     from ..models.baseline import SeqRecModel
     from ..train import checkpoint as CK
+    from ..train.trainer import put_batch
+    from ..utils import tracing as TRC
 
     data = TencentGRData(env.eval_data_path,
                          mm_emb_ids=cfg.features.mm_emb_ids, split="test")
@@ -210,12 +212,12 @@ def _encode(args, cfg, env, dev, result_dir, timings: dict):
                         num_workers=args.num_workers)
     queries, user_list = [], []
     t_predict = 0.0
-    for batch, uids, n_valid in loader:
+    for j, (batch, uids, n_valid) in enumerate(loader):
         _sync(dev)
         t0 = time.perf_counter()
-        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        q = model.predict(params, tb, mm_tables)
-        q = q.float().cpu().numpy()
+        with TRC.span("request", {"batch": j}):
+            q = model.predict(params, put_batch(batch, dev), mm_tables)
+            q = q.float().cpu().numpy()
         t_predict += time.perf_counter() - t0
         queries.append(q[:n_valid])
         user_list += uids[:n_valid]

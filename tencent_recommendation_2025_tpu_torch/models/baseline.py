@@ -30,6 +30,7 @@ from ..data.featurizer import FusedVocab
 from ..data.schema import FeatureSchema
 from ..ops.sparse_table import is_packed_scale, planned_lookup
 from ..parallel.sharded_embedding import ShardedTable, sharded_lookup_a2a
+from ..utils import tracing as TRC
 from . import embedding as E
 from . import encoder as ENC
 
@@ -174,20 +175,27 @@ class SeqRecModel:
                   return_item_tower: bool = False,
                   item_tower_override: Optional[torch.Tensor] = None,
                   mesh=None):
+        """The encoder's output [B, L, D] (and the sequence's item tower,
+        ``return_item_tower``). Spans: ``towers`` (the lookups and fusion
+        towers) and ``blocks`` (the attention blocks and the last
+        LayerNorm)."""
         ep = None
-        if item_tower_override is None:
-            ep = self._ep_override(params, torch.where(
-                batch["token_type"] == 1, batch["seq"],
-                torch.zeros_like(batch["seq"])))
-        fused_out = E.fuse_sequence(
-            params, batch, mm_tables, self.fused, self.schema, self.cfg,
-            return_item_tower=return_item_tower,
-            item_tower_override=item_tower_override, item_emb_override=ep)
+        with TRC.span("towers"):
+            if item_tower_override is None:
+                ep = self._ep_override(params, torch.where(
+                    batch["token_type"] == 1, batch["seq"],
+                    torch.zeros_like(batch["seq"])))
+            fused_out = E.fuse_sequence(
+                params, batch, mm_tables, self.fused, self.schema, self.cfg,
+                return_item_tower=return_item_tower,
+                item_tower_override=item_tower_override,
+                item_emb_override=ep)
         fused_emb, it_seq = fused_out if return_item_tower \
             else (fused_out, None)
-        out = ENC.encode(params, fused_emb, batch["seq"],
-                         batch["token_type"], params["pos_emb"], self.cfg,
-                         train=train, gen=gen, mesh=mesh)
+        with TRC.span("blocks"):
+            out = ENC.encode(params, fused_emb, batch["seq"],
+                             batch["token_type"], params["pos_emb"],
+                             self.cfg, train=train, gen=gen, mesh=mesh)
         return (out, it_seq) if return_item_tower else out
 
     def forward(self, params: Mapping, batch: Mapping,

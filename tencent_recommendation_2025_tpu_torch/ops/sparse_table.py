@@ -32,7 +32,9 @@ replacing ``pallas_group_scatter``, l.391-476); its gather twin
 package: :func:`gather_rows_grouped` takes the plain dim-0 gather. Each
 wrapper takes its plain version for a CPU tensor and launches its kernel
 for a CUDA tensor (counted in ``group_scatter.launches`` and
-``group_gather.launches``); it never falls back. 1-D state (the rowwise
+``group_gather.launches``); it never falls back. The gathers of a step's
+rows open span ``table.gather``, the row updates ``table.update``
+(``utils/tracing``). 1-D state (the rowwise
 accumulator) and tables below packed scale take a plain row write
 (``index_copy_``), as they take XLA's scatter in the JAX package; a table
 at packed scale never does (the trainer refuses a batch without its group
@@ -63,6 +65,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing as TRC
 from . import kernels
 
 # ---------------------------------------------------------------------------
@@ -178,10 +181,12 @@ def row_take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows(table: torch.Tensor, uids: torch.Tensor) -> GatheredRows:
-    rows = row_take(table, uids)
-    # sentinel lanes read a clamped row; zero them so they contribute nothing
-    return GatheredRows(uids, rows * (uids < table.shape[0])[:, None]
-                        .to(rows.dtype))
+    with TRC.span("table.gather"):
+        rows = row_take(table, uids)
+        # sentinel lanes read a clamped row; zero them so they contribute
+        # nothing
+        return GatheredRows(uids, rows * (uids < table.shape[0])[:, None]
+                            .to(rows.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -467,11 +472,12 @@ def gather_rows_grouped(table: torch.Tensor, uids: torch.Tensor,
     takes it), then the touched rows out of that buffer. The buffer is the
     old content :func:`group_scatter_apply` merges with."""
     R = group_plan["slot_src"].shape[1]
-    groups_view = group_view(table, R)
-    group_buf = groups_view[group_plan["groups"].long()
-                            .clamp(0, groups_view.shape[0] - 1)]
-    rows = group_buf.view(-1, dim)[group_plan["uid_pos"].long()]
-    rows = rows * (uids < table.shape[0])[:, None].to(rows.dtype)
+    with TRC.span("table.gather"):
+        groups_view = group_view(table, R)
+        group_buf = groups_view[group_plan["groups"].long()
+                                .clamp(0, groups_view.shape[0] - 1)]
+        rows = group_buf.view(-1, dim)[group_plan["uid_pos"].long()]
+        rows = rows * (uids < table.shape[0])[:, None].to(rows.dtype)
     return GatheredRows(uids, rows, plans or {}), group_buf
 
 
@@ -543,10 +549,11 @@ def apply_row_update(table: torch.Tensor, opt: Dict, uids: torch.Tensor,
     """:func:`compute_row_update` then :func:`scatter_row_update`, in
     place. At packed scale pass ``rows0`` and ``table_old`` from
     :func:`gather_rows_grouped`, so the table is not gathered again."""
-    new_rows, opt_rows = compute_row_update(table, opt, uids, drows,
-                                            rows0=rows0, **kw)
-    return scatter_row_update(table, opt, uids, new_rows, opt_rows,
-                              group_plan=group_plan, table_old=table_old)
+    with TRC.span("table.update"):
+        new_rows, opt_rows = compute_row_update(table, opt, uids, drows,
+                                                rows0=rows0, **kw)
+        return scatter_row_update(table, opt, uids, new_rows, opt_rows,
+                                  group_plan=group_plan, table_old=table_old)
 
 
 # ---------------------------------------------------------------------------
@@ -659,13 +666,14 @@ def sharded_gather_rows(mesh, table: torch.Tensor, uids: torch.Tensor,
     rps = blocks[0][1].shape[0]
     vocab = rps * mesh_table_shards(mesh)
     local = []
-    for s, blk in blocks:
-        lids = shard_plan["lids"][s]
-        rows = row_take(blk, lids)
-        local.append(rows * (lids < rps)[:, None].to(rows.dtype))
-    rows_cat = mesh.all_gather_tables(local)              # [S * Kp, D]
-    rows = rows_cat[shard_plan["pos"].long()]
-    rows = rows * (uids < vocab)[:, None].to(rows.dtype)
+    with TRC.span("table.gather"):
+        for s, blk in blocks:
+            lids = shard_plan["lids"][s]
+            rows = row_take(blk, lids)
+            local.append(rows * (lids < rps)[:, None].to(rows.dtype))
+        rows_cat = mesh.all_gather_tables(local)          # [S * Kp, D]
+        rows = rows_cat[shard_plan["pos"].long()]
+        rows = rows * (uids < vocab)[:, None].to(rows.dtype)
     return GatheredRows(uids, rows, plans or {})
 
 
@@ -691,19 +699,21 @@ def sharded_apply_row_update(mesh, table: torch.Tensor, opt: Dict,
             f"choice at packed scale); got {kind!r}")
     D = drows.shape[-1]
     zero = drows.new_zeros((1, D), dtype=torch.float32)
-    vals_ext = torch.cat([drows.float(), zero])
-    rows_ext = torch.cat([rows0.float(), zero])
     opt_blocks = {k: dict(_shard_blocks(mesh, v)) for k, v in opt.items()}
-    for s, blk in _shard_blocks(mesh, table):
-        lids = shard_plan["lids"][s]
-        gpos = shard_plan["gpos"][s].long()
-        oblk = {k: v[s] for k, v in opt_blocks.items()}
-        new_rows, opt_rows = compute_row_update(
-            blk, oblk, lids, vals_ext[gpos], kind=kind, lr=lr, step=step,
-            b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-            rows0=rows_ext[gpos])
-        plan = {"groups": shard_plan["groups"][s],
-                "slot_src": shard_plan["slot_src"][s]} if grouped else None
-        scatter_row_update(blk, oblk, lids, new_rows, opt_rows,
-                           group_plan=plan)
+    with TRC.span("table.update"):
+        vals_ext = torch.cat([drows.float(), zero])
+        rows_ext = torch.cat([rows0.float(), zero])
+        for s, blk in _shard_blocks(mesh, table):
+            lids = shard_plan["lids"][s]
+            gpos = shard_plan["gpos"][s].long()
+            oblk = {k: v[s] for k, v in opt_blocks.items()}
+            new_rows, opt_rows = compute_row_update(
+                blk, oblk, lids, vals_ext[gpos], kind=kind, lr=lr,
+                step=step, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                rows0=rows_ext[gpos])
+            plan = {"groups": shard_plan["groups"][s],
+                    "slot_src": shard_plan["slot_src"][s]} \
+                if grouped else None
+            scatter_row_update(blk, oblk, lids, new_rows, opt_rows,
+                               group_plan=plan)
     return table, opt

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import world_shards
+from ..utils import tracing as TRC
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -118,17 +119,25 @@ def _resolve_spills(best_s, best_i, probes, rerun):
     scores; the rows where such a tie is at or above their final k-th score
     (one sync a call) are scanned again by ``rerun(rows)``, which takes
     ``lax.top_k``'s choice everywhere. Every row in :func:`_by_index` order;
-    places no corpus row filled keep (lowest score, row 0)."""
-    if probes:
-        p = torch.stack([x.float() for x in probes])        # [blocks, Q, 2]
-        tie = (p[..., 1] == p[..., 0]) & (p[..., 0] > _NEG)
-        spill = torch.where(tie, p[..., 0], _NEG).amax(0)
-        rows = (tie.any(0) & (spill >= best_s[:, -1])).nonzero()[:, 0]
-        if rows.numel():
-            best_s[rows], best_i[rows] = rerun(rows)
-    best_s, best_i = _by_index(best_s, best_i)
-    return best_s, torch.where(best_s == _NEG, torch.zeros_like(best_i),
-                               best_i)
+    places no corpus row filled keep (lowest score, row 0). Spans
+    ``mips.resolve`` and, around the second scan, ``mips.rescan``; the rows
+    scanned again count in ``mips.rescanned_rows`` on every call, 0
+    included."""
+    with TRC.span("mips.resolve"):
+        n = 0
+        if probes:
+            p = torch.stack([x.float() for x in probes])    # [blocks, Q, 2]
+            tie = (p[..., 1] == p[..., 0]) & (p[..., 0] > _NEG)
+            spill = torch.where(tie, p[..., 0], _NEG).amax(0)
+            rows = (tie.any(0) & (spill >= best_s[:, -1])).nonzero()[:, 0]
+            n = rows.numel()
+            if n:
+                with TRC.span("mips.rescan"):
+                    best_s[rows], best_i[rows] = rerun(rows)
+        TRC.count("mips.rescanned_rows", n)
+        best_s, best_i = _by_index(best_s, best_i)
+        return best_s, torch.where(best_s == _NEG, torch.zeros_like(best_i),
+                                   best_i)
 
 
 def _mask_pad(s: torch.Tensor, first: int, n_valid: Optional[int],
@@ -146,23 +155,29 @@ def _scan_f32(q, corpus, k, block_n, base, n_valid, whole, exact):
     top k of the running winners with the whole block (``whole``: exact
     tier) or the stable merge of the block's own top k (approx tier). A
     corpus of one block takes ``lax.top_k``'s choice at once. Returns
-    (scores, indices, probes)."""
+    (scores, indices, probes). Spans a block: ``mips.score`` (the product,
+    the pad mask) and ``mips.select`` (the top k, the merge)."""
     Q, N = q.shape[0], corpus.shape[0]
     exact = exact or N <= block_n
     best_s, best_i = _init(Q, k, q.device)
     probes = []
     for start in range(0, N, block_n):
-        block = corpus[start:start + block_n].float()
-        s = _mask_pad(q @ block.T, base + start, n_valid, _NEG)
-        if whole:
-            idx = torch.arange(base + start, base + start + block.shape[0],
-                               device=q.device)[None, :].expand(Q, -1)
-            best_s, pos, pr = _top_k(torch.cat([best_s, s], dim=1), k, exact)
-            best_i = torch.gather(torch.cat([best_i, idx], dim=1), 1, pos)
-        else:
-            bs, bi, pr = _top_k(s, k, exact)
-            best_s, best_i = _merge(best_s, best_i, *_by_index(bs, bi + base
-                                                               + start), k)
+        with TRC.span("mips.score"):
+            block = corpus[start:start + block_n].float()
+            s = _mask_pad(q @ block.T, base + start, n_valid, _NEG)
+        with TRC.span("mips.select"):
+            if whole:
+                idx = torch.arange(base + start,
+                                   base + start + block.shape[0],
+                                   device=q.device)[None, :].expand(Q, -1)
+                best_s, pos, pr = _top_k(torch.cat([best_s, s], dim=1), k,
+                                         exact)
+                best_i = torch.gather(torch.cat([best_i, idx], dim=1), 1,
+                                      pos)
+            else:
+                bs, bi, pr = _top_k(s, k, exact)
+                best_s, best_i = _merge(best_s, best_i,
+                                        *_by_index(bs, bi + base + start), k)
         if pr is not None:
             probes.append(pr)
     return best_s, best_i, probes
@@ -175,12 +190,15 @@ def topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int = 10,
     """queries [Q, D], corpus [N, D] -> (scores [Q, k] f32, indices [Q, k]
     int64). ``base``/``n_valid``, for a shard: its row 0 is global row
     ``base``, and global rows at or past ``n_valid`` are padding, scored
-    the lowest value before the top-k; indices are global rows."""
+    the lowest value before the top-k; indices are global rows. Span
+    ``topk_mips``; the queries count in ``mips.queries``."""
     block_n = min(block_n, max(k, corpus.shape[0]))
-    q = queries.float()
-    out = _scan_f32(q, corpus, k, block_n, base, n_valid, True, False)
-    return _resolve_spills(*out, lambda rows: _scan_f32(
-        q[rows], corpus, k, block_n, base, n_valid, True, True)[:2])
+    with TRC.span("topk_mips"):
+        TRC.count("mips.queries", queries.shape[0])
+        q = queries.float()
+        out = _scan_f32(q, corpus, k, block_n, base, n_valid, True, False)
+        return _resolve_spills(*out, lambda rows: _scan_f32(
+            q[rows], corpus, k, block_n, base, n_valid, True, True)[:2])
 
 
 def topk_mips_approx(queries: torch.Tensor, corpus: torch.Tensor,
@@ -191,12 +209,14 @@ def topk_mips_approx(queries: torch.Tensor, corpus: torch.Tensor,
     top k (exact here, where the TPU takes ``approx_max_k``), then one
     merge of the block winners. Returns the exact result. ``base`` /
     ``n_valid`` as :func:`topk_mips`'s: pad rows are masked before each
-    block's top-k."""
+    block's top-k. Spans and counters as :func:`topk_mips`'s."""
     block_n = min(block_n, max(k, corpus.shape[0]))
-    q = queries.float()
-    out = _scan_f32(q, corpus, k, block_n, base, n_valid, False, False)
-    return _resolve_spills(*out, lambda rows: _scan_f32(
-        q[rows], corpus, k, block_n, base, n_valid, False, True)[:2])
+    with TRC.span("topk_mips"):
+        TRC.count("mips.queries", queries.shape[0])
+        q = queries.float()
+        out = _scan_f32(q, corpus, k, block_n, base, n_valid, False, False)
+        return _resolve_spills(*out, lambda rows: _scan_f32(
+            q[rows], corpus, k, block_n, base, n_valid, False, True)[:2])
 
 
 def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -257,18 +277,21 @@ def _scan_int8(qi, codes, scales, k, block_n, base, n_valid, exact):
     """The int8 tier's scan (before the query scales): each block's int32
     scores times the corpus scales in bf16, pad rows masked, its top k
     merged into the running winners. A corpus of one block takes
-    ``lax.top_k``'s choice at once. Returns (scores, indices, probes)."""
+    ``lax.top_k``'s choice at once. Returns (scores, indices, probes).
+    Spans a block as :func:`_scan_f32`'s."""
     exact = exact or codes.shape[0] <= block_n
     best_s, best_i = _init(qi.shape[0], k, qi.device)
     probes = []
     for start in range(0, codes.shape[0], block_n):
-        sc = _int8_scores(qi, codes[start:start + block_n]).to(
-            torch.bfloat16)
-        sc.mul_(scales[start:start + block_n].to(torch.bfloat16)[None, :])
-        _mask_pad(sc, base + start, n_valid, -float("inf"))
-        bs, bi, pr = _top_k(sc, k, exact)
-        best_s, best_i = _merge(best_s, best_i,
-                                *_by_index(bs, bi + base + start), k)
+        with TRC.span("mips.score"):
+            sc = _int8_scores(qi, codes[start:start + block_n]).to(
+                torch.bfloat16)
+            sc.mul_(scales[start:start + block_n].to(torch.bfloat16)[None, :])
+            _mask_pad(sc, base + start, n_valid, -float("inf"))
+        with TRC.span("mips.select"):
+            bs, bi, pr = _top_k(sc, k, exact)
+            best_s, best_i = _merge(best_s, best_i,
+                                    *_by_index(bs, bi + base + start), k)
         if pr is not None:
             probes.append(pr)
     return best_s, best_i, probes
@@ -293,13 +316,16 @@ def topk_mips_int8(queries: torch.Tensor, codes: torch.Tensor,
     copy), the same ids.
 
     ``base`` / ``n_valid`` as :func:`topk_mips`'s: a shard's pad rows (code
-    0, score 0) rank -inf in bf16 before each block's top-k."""
-    qi, qs = _quantize_rows(queries.float())
+    0, score 0) rank -inf in bf16 before each block's top-k. Spans and
+    counters as :func:`topk_mips`'s."""
     block_n = min(block_n, max(k, codes.shape[0]))
-    out = _scan_int8(qi, codes, scales, k, block_n, base, n_valid, False)
-    best_s, best_i = _resolve_spills(*out, lambda rows: _scan_int8(
-        qi[rows], codes, scales, k, block_n, base, n_valid, True)[:2])
-    return best_s * qs[:, None], best_i
+    with TRC.span("topk_mips"):
+        TRC.count("mips.queries", queries.shape[0])
+        qi, qs = _quantize_rows(queries.float())
+        out = _scan_int8(qi, codes, scales, k, block_n, base, n_valid, False)
+        best_s, best_i = _resolve_spills(*out, lambda rows: _scan_int8(
+            qi[rows], codes, scales, k, block_n, base, n_valid, True)[:2])
+        return best_s * qs[:, None], best_i
 
 # ---------------------------------------------------------------------------
 # the sharded tier
@@ -471,17 +497,19 @@ def retrieve_topk(query_embs: np.ndarray, corpus_embs: np.ndarray,
                                  device=device)
     out = []
     for s in range(0, len(query_embs), query_batch):
-        q = torch.as_tensor(np.asarray(query_embs[s:s + query_batch],
-                                       np.float32), device=device)
-        if mesh is not None and quantize:
-            _, idx = sharded_topk_mips_int8(mesh, q, corpus, k=k)
-        elif mesh is not None:
-            _, idx = sharded_topk_mips(mesh, q, corpus, k=k, approx=approx)
-        elif quantize:
-            _, idx = topk_mips_int8(q, *corpus, k=k)
-        elif approx:
-            _, idx = topk_mips_approx(q, corpus, k=k)
-        else:
-            _, idx = topk_mips(q, corpus, k=k)
-        out.append(idx.cpu().numpy())
+        with TRC.span("request", {"batch": s // query_batch}):
+            q = torch.as_tensor(np.asarray(query_embs[s:s + query_batch],
+                                           np.float32), device=device)
+            if mesh is not None and quantize:
+                _, idx = sharded_topk_mips_int8(mesh, q, corpus, k=k)
+            elif mesh is not None:
+                _, idx = sharded_topk_mips(mesh, q, corpus, k=k,
+                                           approx=approx)
+            elif quantize:
+                _, idx = topk_mips_int8(q, *corpus, k=k)
+            elif approx:
+                _, idx = topk_mips_approx(q, corpus, k=k)
+            else:
+                _, idx = topk_mips(q, corpus, k=k)
+            out.append(idx.cpu().numpy())
     return np.asarray(corpus_ids)[np.concatenate(out, axis=0)]

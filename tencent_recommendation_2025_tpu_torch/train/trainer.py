@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import math
 import signal
 import threading
@@ -92,6 +93,7 @@ from ..parallel.mesh import (check_axes, check_mesh, data_rows, data_size,
 from ..parallel.partition import model_dims, tp_view
 from ..parallel.sharded_embedding import (SHARDED_TABLES, shard_tables,
                                           shard_view)
+from ..utils import tracing as TRC
 from . import telemetry as T
 
 
@@ -295,10 +297,25 @@ def device_tables(item_tables: ItemFeatureTables, device,
 
 def put_batch(batch: Mapping, device) -> Dict[str, Any]:
     """A host batch on ``device`` (nested dicts, the sparse prep's per-site
-    plans, kept nested)."""
-    return {k: put_batch(v, device) if isinstance(v, Mapping)
-            else torch.as_tensor(np.asarray(v), device=device)
-            for k, v in batch.items()}
+    plans, kept nested), in span ``put_batch``; the host arrays' bytes
+    count in ``put.bytes``."""
+    nbytes = [0]
+    with TRC.span("put_batch"):
+        out = _put(batch, device, nbytes)
+    TRC.count("put.bytes", nbytes[0])
+    return out
+
+
+def _put(batch: Mapping, device, nbytes) -> Dict[str, Any]:
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, Mapping):
+            out[k] = _put(v, device, nbytes)
+        else:
+            a = np.asarray(v)
+            nbytes[0] += a.nbytes
+            out[k] = torch.as_tensor(a, device=device)
+    return out
 
 
 def step_generator(seed: int, step: int, device, *folds: int
@@ -676,10 +693,12 @@ def sparse_loss_backward(model: SeqRecModel, cfg: Config, state: TrainState,
         params[name] = ST.GatheredRows(uids, rows, plans)
         per[name] = dict(uids=uids, rows=rows, V=V, group_plan=group_plan,
                          group_buf=group_buf, shard_plan=shard_plan)
-    loss, metrics = compute_loss(model, params, batch, mm_tables,
-                                 item_tables, cfg, train=True, gen=gen,
-                                 mesh=mesh, gens=gens)
-    loss.backward()
+    with TRC.span("step.forward"):
+        loss, metrics = compute_loss(model, params, batch, mm_tables,
+                                     item_tables, cfg, train=True, gen=gen,
+                                     mesh=mesh, gens=gens)
+    with TRC.span("step.backward"):
+        loss.backward()
     return loss, metrics, per
 
 
@@ -694,7 +713,9 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
     (``accumulate``); the metrics are then the loss and the masked-position
     count, as the JAX step's. The state updates in place; the dense
     gradients stay on the leaves (``.grad``) until the next step. Metrics
-    stay on the device."""
+    stay on the device. Spans (``utils/tracing``): ``step.forward``,
+    ``step.backward`` (each microbatch's), ``step.allreduce`` (a process
+    mesh), ``step.dense_update`` and ``step.table_update``."""
     check_supported(cfg, mesh)
     t = cfg.train
     sparse = tuple(t.sparse_tables)
@@ -728,12 +749,16 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
             mb = batch_rows(batch, slice(g, None, G))
             mb = {k: v.contiguous() if isinstance(v, torch.Tensor) else v
                   for k, v in mb.items()}
-            loss, m = compute_loss(
-                model, state.params, mb, mm_tables, item_tables, cfg,
-                train=True, gen=step_generator(t.seed, state.step, dev, g),
-                mesh=mesh, gens=shard_gens(mesh, t.seed, state.step, dev, g))
+            with TRC.span("step.forward"):
+                loss, m = compute_loss(
+                    model, state.params, mb, mm_tables, item_tables, cfg,
+                    train=True,
+                    gen=step_generator(t.seed, state.step, dev, g),
+                    mesh=mesh,
+                    gens=shard_gens(mesh, t.seed, state.step, dev, g))
             w = m["n_mask"].detach()
-            (loss * w).backward()
+            with TRC.span("step.backward"):
+                (loss * w).backward()
             lsum = lsum + m["loss"].float() * w
             wsum = wsum + w
         wsum = wsum.clamp(min=1.0)
@@ -758,11 +783,13 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
         elif G > 1:
             metrics = accumulate(state, batch, mm_tables, item_tables, dev)
         else:
-            loss, metrics = compute_loss(
-                model, state.params, batch, mm_tables, item_tables, cfg,
-                train=True, gen=gen, mesh=mesh,
-                gens=shard_gens(mesh, t.seed, state.step, dev))
-            loss.backward()
+            with TRC.span("step.forward"):
+                loss, metrics = compute_loss(
+                    model, state.params, batch, mm_tables, item_tables, cfg,
+                    train=True, gen=gen, mesh=mesh,
+                    gens=shard_gens(mesh, t.seed, state.step, dev))
+            with TRC.span("step.backward"):
+                loss.backward()
         named = dense_leaves(state.params, cfg)
         leaves = [p for _, p in named]
         for p in leaves:
@@ -792,19 +819,22 @@ def make_train_step(model: SeqRecModel, cfg: Config, mesh=None):
             # seq group only
             rep = [g for i, g in enumerate(grads)
                    if i not in sharded and i not in staged]
-            _all_reduce_flat(mesh, rep, "replica")
-            _all_reduce_flat(mesh, [grads[i] for i in staged], "stage")
-            if mesh.shape["seq"] > 1:
-                _all_reduce_flat(mesh, [grads[i] for i in sharded], "seq")
+            with TRC.span("step.allreduce"):
+                _all_reduce_flat(mesh, rep, "replica")
+                _all_reduce_flat(mesh, [grads[i] for i in staged], "stage")
+                if mesh.shape["seq"] > 1:
+                    _all_reduce_flat(mesh, [grads[i] for i in sharded],
+                                     "seq")
         for group in state.opt.param_groups:
             group["lr"] = lr_at_step(t, state.step)
-        state.opt.step()
+        with TRC.span("step.dense_update"):
+            state.opt.step()
         if sparse:
             touched = torch.zeros((), dtype=torch.int64, device=dev)
             kw = dict(kind=t.table_optimizer,
                       lr=lr_at_step(t, state.step + 1), step=state.step + 1,
                       b1=t.adam_b1, b2=t.adam_b2, weight_decay=t.weight_decay)
-            with torch.no_grad():
+            with torch.no_grad(), TRC.span("step.table_update"):
                 for name, p in per.items():
                     drows = p["rows"].grad if p["rows"].grad is not None \
                         else torch.zeros_like(p["rows"])
@@ -934,8 +964,11 @@ def augment_batch_dedup(batch, cfg: Config, item_feats, itemnum: int,
     if B % S:
         raise ValueError(f"batch rows {B} must divide data shards {S}")
 
+    TRC.count("dedup.batches", 1)
+
     def shard_plan(sites):
         u = np.unique(np.concatenate([i.reshape(-1) for _, i in sites]))
+        TRC.count("dedup.unique_rows", len(u))
         if len(u) > cap:
             raise _DedupOverflow(len(u), cap)
         uids = np.full((cap,), itemnum + 1, np.int32)   # sentinel sorts last
@@ -1191,7 +1224,10 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     Metrics stay on the device and are fetched every ``log_every`` steps.
     ``profile_steps`` > 0 traces steps ``profile_start`` ..
     ``profile_start + profile_steps - 1`` with ``torch.profiler`` into
-    ``profile_dir/trace.json``.
+    ``profile_dir/trace.json``, every thread's spans (``utils/tracing``)
+    in it: ``rec.train.prep`` (on the thread that preps), ``rec.train.put``,
+    ``rec.train.step`` (holding :func:`make_train_step`'s) and
+    ``rec.train.flush``, the metrics' sync.
 
     Preemption: in the main thread and without a process mesh the loop
     takes SIGTERM. It finishes the step in flight, joins any save in
@@ -1245,7 +1281,8 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
     mm_tables = tables["mm"]
 
     def put(b):
-        return put_batch(b, device)
+        with TRC.span("train.put"):
+            return put_batch(b, device)
 
     epochs = num_epochs or cfg.train.num_epochs
     jlog = T.JsonlLogger(log_dir)
@@ -1294,8 +1331,9 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
         keys = [k for k in ("loss", "bce", "grad_max", "grad_mean",
                             "touched_rows", "ep_overflow")
                 if k in pending[0][1]]
-        fetched = torch.stack([torch.stack([m[k].float() for k in keys])
-                               for _, m in pending]).tolist()
+        with TRC.span("train.flush"):     # the metrics' sync
+            fetched = torch.stack([torch.stack([m[k].float() for k in keys])
+                                   for _, m in pending]).tolist()
         for (rec, _), vals in zip(pending, fetched):
             m = dict(zip(keys, vals))
             gs = rec["global_step"]
@@ -1349,23 +1387,26 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
             return train_loader.epoch(epoch)
 
         def prep(b, i):
-            key = (cfg.train.seed, 97, epoch, i)
-            if ss and "sampled_neg_ids" not in b:
-                # the shared negatives from the batch's key on the host, as
-                # the dedup and sparse preps draw them: the same rows on
-                # every process, with or without those preps
-                b = dict(b, sampled_neg_ids=_sample_negatives(
-                    cfg, model.itemnum, key))
-            if dedup_on:
-                # first: the sparse prep keys its item_emb plan on the
-                # dedup'd id column
-                b = augment_batch_dedup(b, cfg, item_tables, model.itemnum,
-                                        step_key=key, n_data_shards=n_dp)
-            if sparse:
-                b = augment_batch_sparse(b, cfg, model.itemnum, key,
-                                         n_table_shards=n_tables,
-                                         usernum=model.usernum)
-            return b
+            # on whichever thread runs it: the loader's workers or the
+            # prefetch thread
+            with TRC.span("train.prep"):
+                key = (cfg.train.seed, 97, epoch, i)
+                if ss and "sampled_neg_ids" not in b:
+                    # the shared negatives from the batch's key on the host, as
+                    # the dedup and sparse preps draw them: the same rows on
+                    # every process, with or without those preps
+                    b = dict(b, sampled_neg_ids=_sample_negatives(
+                        cfg, model.itemnum, key))
+                if dedup_on:
+                    # first: the sparse prep keys its item_emb plan on the
+                    # dedup'd id column
+                    b = augment_batch_dedup(b, cfg, item_tables, model.itemnum,
+                                            step_key=key, n_data_shards=n_dp)
+                if sparse:
+                    b = augment_batch_sparse(b, cfg, model.itemnum, key,
+                                             n_table_shards=n_tables,
+                                             usernum=model.usernum)
+                return b
 
         # the cached loader runs the prep on its worker pool (keyed by batch
         # index, so deterministic); other loaders get it serially on the
@@ -1415,7 +1456,9 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
                         and ticks == profile_start:
                     prof = _start_profiler()
                 t0 = time.time()
-                state, metrics = train_step(state, batch, mm_tables, tables)
+                with TRC.span("train.step"):
+                    state, metrics = train_step(state, batch, mm_tables,
+                                                tables)
                 if prof is not None and \
                         ticks == profile_start + profile_steps - 1:
                     _stop_profiler(prof, profile_dir, verbose)
@@ -1518,19 +1561,31 @@ def train_loop(model: SeqRecModel, cfg: Config, train_loader, valid_loader,
 
 
 def _start_profiler():
+    """A started ``torch.profiler`` of the CPU (every thread's ops and
+    spans) and the card, with the counters (``utils/tracing``) at its
+    start."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
+    prof = profile(activities=acts, experimental_config=_ExperimentalConfig(
+        profile_all_threads=True))
+    prof.counters_at_start = TRC.counters()
     prof.__enter__()
     return prof
 
 
 def _stop_profiler(prof, profile_dir, verbose: bool) -> None:
+    """Write ``profile_dir/trace.json``, the counters' change since
+    :func:`_start_profiler` in its top-level ``rec.counters`` (the host
+    preps count as they run, ahead of the steps)."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+    was = prof.counters_at_start
+    prof.add_metadata_json(TRC.SPAN_PREFIX + "counters", json.dumps(
+        {k: v - was.get(k, 0) for k, v in TRC.counters().items()}))
     prof.__exit__(None, None, None)
     Path(profile_dir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
