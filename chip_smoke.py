@@ -210,11 +210,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                fixture, every field and the seen sets bitwise equal to the
                python pack of the long run, both set-up times printed (the
                runs below with --loader auto take the native pack);
-6b. retrieval — the tiers on a seeded 10M x 64 corpus, Q=1024: exact,
-               approx (ids equal exact's) and int8 (recall@10 against
-               exact), each one's time, queries/s and peak memory; the HNSW
-               tool on its first 20,000 rows (build and search seconds,
-               recall);
+6b. retrieval — the tiers on a seeded 10M x 64 corpus, Q=1024: the exact
+               tier's kernel (csrc/mips_topk.cu) against its plain version
+               (ids equal, scores within 1e-5 of the score scale), timed
+               (CUDA events) beside its bound, the plain version and the
+               library path it replaced (torch.topk over blocked scores),
+               with its registers, shared memory and spills and the
+               mips_topk.launches count; exact, approx (ids equal
+               exact's) and int8 (recall@10 against exact), each one's
+               time, queries/s and peak memory; the HNSW tool on its first
+               20,000 rows (build and search seconds, recall);
 6c. ring    — the sequence-parallel ring (after the long run): rows
                10-12 (the pair kernels of csrc/ring_pair.cu; the forward
                pair_fwd_wgmma_kernel in bf16, pair_fwd_kernel in f32)
@@ -502,6 +507,7 @@ def launch_counters():
     from tencent_recommendation_2025_tpu_torch.ops import fused_block as FB
     from tencent_recommendation_2025_tpu_torch.ops import hstu_attention as HA
     from tencent_recommendation_2025_tpu_torch.ops import sparse_table as ST
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as MIPS
 
     return {"fused_fwd": FB.fused_hstu_block,
             "fused_train": FB.fused_hstu_block_train,
@@ -521,7 +527,9 @@ def launch_counters():
             **{n: getattr(FB, n) for n in (
                 "ring_pre_fwd", "ring_post_fwd", "ring_pair_fwd",
                 "ring_pair_dq", "ring_pair_dkdv", "ring_post_bwd",
-                "ring_pre_bwd")}}
+                "ring_pre_bwd")},
+            # the exact tier's scan (retrieval.mips.mips_topk)
+            "mips_topk": MIPS.mips_topk}
 
 
 def reset_launches():
@@ -540,9 +548,10 @@ def set_launches(counts):
         fn.launches = counts[k]
 
 
-def expected_launches(kernels, blocks, steps, n_eval):
+def expected_launches(kernels, blocks, steps, n_eval, scans=0):
     """Every counter's launches over ``steps`` training steps and
-    ``n_eval`` forward-only batches (validation, probes, serving), as the
+    ``n_eval`` forward-only batches (validation, probes, serving), and
+    ``scans`` calls of the exact tier's scan (:func:`scan_calls`), as the
     JAX package's remat runs them: the fused block once forward (training
     instance) and once backward per block and step; flash MHA twice forward
     (the checkpointed block's recompute re-runs it) and once backward; the
@@ -550,6 +559,7 @@ def expected_launches(kernels, blocks, steps, n_eval):
     the chunked counters past ``_use_long``; one forward per block and
     batch without autograd. Every other counter 0."""
     want = dict.fromkeys(launch_counters(), 0)
+    want["mips_topk"] = scans
     if kernels == "fused":
         want.update(fused_fwd=blocks * n_eval, fused_train=blocks * steps,
                     fused_bwd=blocks * steps)
@@ -561,6 +571,18 @@ def expected_launches(kernels, blocks, steps, n_eval):
         want.update({f"{prefix}_fwd": blocks * (steps + n_eval),
                      f"{prefix}_bwd": blocks * steps})
     return want
+
+
+def scan_calls(n_queries):
+    """The exact tier's scans of one ``retrieve_topk`` over ``n_queries``
+    queries: one per query batch."""
+    import inspect
+
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as MIPS
+
+    batch = inspect.signature(MIPS.retrieve_topk).parameters[
+        "query_batch"].default
+    return -(-n_queries // batch)
 
 
 def drift_limit(c):
@@ -2772,11 +2794,13 @@ def phase_training(run):
     if users:
         assert len(va) <= users
         n_eval += n_val
-    # each of a step's G microbatches runs the training kernels once
+    # each of a step's G microbatches runs the training kernels once; the
+    # retrieval eval of the one epoch scans once (topk_mips_approx)
     ok = steps > 0 and check_launches(
         run, "training", launches,
         expected_launches(run.kernels, cfg.model.num_blocks,
-                          steps * cfg.train.grad_accum_steps, n_eval))
+                          steps * cfg.train.grad_accum_steps, n_eval,
+                          scans=int(users > 0)))
     records = [json.loads(ln) for ln in open(log_dir / "train.log")]
     lines = [ln for ln in records if "loss" in ln]
     losses = [ln["loss"] for ln in lines]
@@ -3240,10 +3264,12 @@ def phase_serving(ckpt, run):
     metrics = INF.main(run.args(), timings=timings)
     launches = read_launches()
     nb = timings["n_query_batches"]
-    # every test user is a query, in batches of 128
+    # every test user is a query, in batches of 128; the exact top-k scans
+    # them in retrieve_topk's query batches
     ok = nb == -(-run.fixture["num_users"] // 128) and check_launches(
         run, "serving", launches,
-        expected_launches(run.kernels, mcfg.num_blocks, 0, nb))
+        expected_launches(run.kernels, mcfg.num_blocks, 0, nb,
+                          scans=scan_calls(timings["n_queries"])))
 
     # first query batch again through the plain version of every kernel on
     # the path, on the CPU: in f32, and in bf16 (the card's rounding points)
@@ -5093,8 +5119,9 @@ def phase_semantic(run):
     made = read_launches()
     nb = timings["n_query_batches"]
     ok = nb == 4 and check_launches(
-        run, "cli.semantic (query encode)", made,
-        expected_launches(run.kernels, mcfg.num_blocks, 0, nb))
+        run, "cli.semantic (query encode, exact-MIPS hit rate)", made,
+        expected_launches(run.kernels, mcfg.num_blocks, 0, nb,
+                          scans=scan_calls(ev["num_pairs"])))
     ids = np.load(sem_dir / "semantic_ids.npy")
     itemnum = run.fixture["num_items"]
     ok_ids = bool(ids.shape == (itemnum + 1, 3) and ids.dtype == np.int32
@@ -5288,15 +5315,87 @@ def profile_call(name, fn):
 RETRIEVAL = dict(N=10_000_000, D=64, Q=1024, k=10, hnsw_rows=20_000)
 
 
-def phase_retrieval():
-    """The retrieval tiers at 10M x 64 with Q=1024, k=10: exact (blocked,
-    65,536 rows a block), approx (per 1M-row block) and int8 (codes
-    quantized on the host in row chunks, scores int8 x int8 exact in int32,
-    ranked in bf16): each one's time (host clock, synchronised, after a
-    warm-up on a 100,000-row slice), queries/s, peak device memory above
-    the resident corpus, and recall@10 against exact; approx's ids must
-    equal exact's. Then the HNSW tool on the first 20,000 rows: build and
-    search seconds and recall@10 against exact on that slice."""
+def _library_topk(q, corpus, k, block=65536):
+    """The library path the exact tier's kernel replaced, as its yardstick:
+    cuBLAS's f32 product of each block of rows, ``torch.topk`` of its
+    scores, and a ``torch.topk`` of the running winners with the block's."""
+    import torch
+
+    best_s = torch.full((q.shape[0], k), -float("inf"), device=q.device)
+    best_i = torch.zeros((q.shape[0], k), dtype=torch.long, device=q.device)
+    for lo in range(0, corpus.shape[0], block):
+        top = torch.topk(q @ corpus[lo:lo + block].T, k, dim=1)
+        cat_s = torch.cat([best_s, top.values], 1)
+        cat_i = torch.cat([best_i, top.indices + lo], 1)
+        sel = torch.topk(cat_s, k, dim=1).indices
+        best_s, best_i = cat_s.gather(1, sel), cat_i.gather(1, sel)
+    return best_s, best_i
+
+
+def retrieval_kernel(report, corpus, queries, k):
+    """The exact tier's kernel (``retrieval.mips.mips_topk``) on the
+    retrieval corpus: against its plain version (ids equal; scores within
+    1e-5 of the score scale, |q| times the rows' rms), then timed by CUDA
+    events beside its bound (2QND at the bf16 peak or the f32 corpus read
+    once, the larger), its plain version and the library path it replaced
+    (:func:`_library_topk`); the scan kernel's registers and spills from
+    the build's ``-Xptxas -v`` report (``report``) and its dynamic shared
+    memory. Returns (ok, the kernel's JSON entry without launches)."""
+    import torch
+
+    from tencent_recommendation_2025_tpu_torch.ops import kernels
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as MIPS
+
+    (N, D), Q = corpus.shape, queries.shape[0]
+    got_s, got_i = MIPS.mips_topk(queries, corpus, k)
+    want_s, want_i = MIPS._topk_mips_plain(queries, corpus, k)
+    scale = queries.norm(dim=1, keepdim=True) \
+        * corpus.pow(2).sum(1).mean().sqrt()
+    err = ((got_s - want_s).abs() / scale).max().item()
+    same = torch.equal(got_i, want_i)
+    ok = same and err <= 1e-5
+    del got_s, got_i, want_s, want_i
+    t = time_ms(lambda: MIPS.mips_topk(queries, corpus, k), 2, 10)
+    t_plain = time_ms(lambda: MIPS._topk_mips_plain(queries, corpus, k), 1, 2)
+    t_lib = time_ms(lambda: _library_topk(queries, corpus, k), 1, 2)
+    bound, by, flops, nbytes = _bound(2.0 * Q * N * D, 4.0 * N * D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = MIPS.scan_plan(Q, N, k, D, sms)
+    names = (f"mips_scan_kernel<{plan.tm}>", "mips_merge_kernel")
+    built = [r for r in kernels.ptxas_report(
+        report.get("mips_topk", {}).get("log", "")) if r["kernel"] in names]
+    regs = "; ".join(f"{r['kernel']} {r['registers']} registers, spills "
+                     f"{r['spill_stores']}/{r['spill_loads']} B"
+                     for r in built) or "not built in this run"
+    smem = MIPS.scan_smem_bytes(plan.tm, D, k)
+    log(f"retrieval kernel mips_topk ({N} x {D}, Q={Q}, k={k}; {plan}): "
+        f"{t:.3f} ms ({flops / t / 1e9:.1f} TFLOP/s of f32 FFMA), bound "
+        f"{bound:.3f} ms ({by}: {flops / 1e12:.3f} TFLOP; "
+        f"{nbytes / 1e9:.2f} GB), plain {t_plain:.3f} ms, library_ms "
+        f"{t_lib:.3f} ms; ids equal the plain version's {same}, largest "
+        f"score error {err:.3g} of the score scale; {regs}; {smem} B of "
+        f"dynamic shared memory a scan block {'ok' if ok else 'FAIL'}")
+    return ok, {"name": "mips_topk", "route": "cuda",
+                "source": SRC + "mips_topk.cu",
+                "replaces": "none: the JAX package leaves the exact scan to "
+                            "XLA", "launches": None, "max_abs_err": err,
+                "ms": t, "plain_ms": t_plain, "bound_ms": bound,
+                "bound_by": by, "library_ms": t_lib}
+
+
+def phase_retrieval(report):
+    """The retrieval tiers at 10M x 64 with Q=1024, k=10: first the exact
+    tier's kernel against its plain version and timed
+    (:func:`retrieval_kernel`); then exact (the kernel), approx (the same
+    kernel on the card) and int8 (codes quantized on the host in row
+    chunks, scores int8 x int8 exact in int32, ranked in bf16): each one's
+    time (host clock, synchronised, after a warm-up on a 100,000-row
+    slice), queries/s, peak device memory above the resident corpus, and
+    recall@10 against exact; approx's ids must equal exact's. Then the
+    HNSW tool on the first 20,000 rows: build and search seconds and
+    recall@10 against exact on that slice. Returns (ok, the kernel's JSON
+    entry); the phase's own ``mips_topk.launches`` (the check, the timings
+    and the tiers) are logged apart, not put in the entry."""
     import numpy as np
     import torch
 
@@ -5311,6 +5410,8 @@ def phase_retrieval():
     queries = torch.randn((Q, D), generator=gen, device="cuda")
     n = c["hnsw_rows"]
     base = corpus[:n].clone()
+    launches = MIPS.mips_topk.launches
+    ok_kernel, entry = retrieval_kernel(report, corpus, queries, k)
 
     def timed(fn, *args):
         fn(queries, *(a[:100_000] for a in args), k=k)
@@ -5395,9 +5496,12 @@ def phase_retrieval():
         log("retrieval hnsw: the tool did not build FAIL")
     del base, queries
     _free()
-    ok = ok_approx and ok_hnsw and ok_sharded
+    log(f"retrieval: mips_topk.launches {MIPS.mips_topk.launches - launches}"
+        f" in this phase's own check, timings and tiers (not the main "
+        f"paths'; the kernels line counts those)")
+    ok = ok_kernel and ok_approx and ok_hnsw and ok_sharded
     log(f"retrieval tiers {'ok' if ok else 'FAIL'}")
-    return ok
+    return ok, entry
 
 
 #: corpus shards of phase 6b's sharded tiers (a local mesh on the card)
@@ -6812,6 +6916,15 @@ def main() -> int:
             entry["launches"] = n
 
     extra = {}   # launches of phase 5c's cli.train run, by the run it adds to
+    # the exact tier's scans on the main paths: cli.train's retrieval eval,
+    # cli.infer's exact top k and cli.semantic's exact-MIPS hit rate
+    scans = []
+
+    def run_path(run):
+        """phase_run, its scans kept."""
+        trained, served = phase_run(run, oks)
+        scans.append(trained["mips_topk"] + served["mips_topk"])
+        return trained, served
 
     def attach(run, trained, served):
         """This run's launches into its attention kernels' JSON entries."""
@@ -6825,10 +6938,11 @@ def main() -> int:
 
     # the fused JSON entries in order: fwd, fwd_train, bwd of each variant
     for run, found in ((FLAGSHIP_RUN, entries[:3]), (LONG_RUN, entries[3:])):
-        trained, served = phase_run(run, oks)
+        trained, served = run_path(run)
         if run is FLAGSHIP_RUN:   # the generative tier on its checkpoint
             oks["semantic"], sem = phase_semantic(run)
             served = {k: v + sem[k] for k, v in served.items()}
+            scans.append(sem["mips_topk"])
             # the training options on its fixture and checkpoint
             from tencent_recommendation_2025_tpu_torch.data.readers import \
                 TencentGRData
@@ -6866,28 +6980,28 @@ def main() -> int:
 
     oks["ring"], ring_entries = phase_ring(
         CK.latest_checkpoint(LONG_RUN.work / "model"), libs)
-    attach(MINI_LONG_RUN, *phase_run(MINI_LONG_RUN, oks))
+    attach(MINI_LONG_RUN, *run_path(MINI_LONG_RUN))
     # the long window's python pack is still in PACKS: the native one
     # against it, before the runs that follow replace it
     oks["native_pack"] = phase_native_pack(LONG_RUN)
     t0 = time.perf_counter()
     oks["mini_long_ann"] = phase_ann_methods(MINI_LONG_RUN)
-    oks["retrieval"] = phase_retrieval()
+    oks["retrieval"], mips_entry = phase_retrieval(report)
     log(f"retrieval phase: {time.perf_counter() - t0:.1f} s")
     # the head-dim runs after the runs of the same window (the pack reused)
     for run in PARITY_RUNS[:3]:
-        attach(run, *phase_run(run, oks))
+        attach(run, *run_path(run))
     for run in HEAD_DIM_RUNS:
         t0 = time.perf_counter()
         oks[f"{run.name}_train"], trained, _, _ = phase_training(run)
         attach(run, trained, dict.fromkeys(trained, 0))
         log(f"{run.name} training phase: {time.perf_counter() - t0:.1f} s")
     for run in PARITY_RUNS[3:]:
-        attach(run, *phase_run(run, oks))
+        attach(run, *run_path(run))
     entries += [entry for _, entry in attention] + silu_entries
     # sharded_multihost's table is below packed scale: no group scatter
     for run in (SPARSE_RUN, SOFTMAX_DP_RUN):
-        trained, served = phase_run(run, oks)
+        trained, served = run_path(run)
         for entry in attn_bwd.get(run.name, ()):
             entry["launches"] = trained["fused_bwd"]
         attach_post(run, trained, served)
@@ -6900,7 +7014,8 @@ def main() -> int:
     entries += [e for es in attn_bwd.values() for e in es]
     entries += [e for es in post.values() for e in es]
     entries += [e for es in pre.values() for e in es]
-    entries += group_entries + ring_entries
+    mips_entry["launches"] = sum(scans)
+    entries += group_entries + ring_entries + [mips_entry]
     log(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -31,7 +31,8 @@ SOURCES = {"fused_block": "fused_block.cu",
            "flash_attention": "flash_attention.cu",
            "hstu_attention": "hstu_attention.cu",
            "sparse_table": "sparse_table.cu",
-           "ring_pair": "ring_pair.cu"}
+           "ring_pair": "ring_pair.cu",
+           "mips_topk": "mips_topk.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

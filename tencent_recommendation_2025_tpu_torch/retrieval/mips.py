@@ -4,13 +4,19 @@ Counterpart of ``tencent_recommendation_2025_tpu/retrieval/mips.py``, its
 single-device tiers; the JAX package leaves all of them to XLA, so here
 they are plain PyTorch.
 
-- :func:`topk_mips`, exact: blocked ``[Q, D] x [D, N]`` scoring with a
+- :func:`topk_mips`, exact. On the card, the hand-written kernel
+  :func:`mips_topk` (``csrc/mips_topk.cu``, two launches, no sync): f32
+  FFMA scoring with each query's running top k kept in registers and
+  shared memory, so that no score reaches device memory, then a merge of
+  the corpus slices' winners. On the CPU, its plain version
+  :func:`_topk_mips_plain`: blocked ``[Q, D] x [D, N]`` scoring with a
   running top-k merge, so peak memory is O(Q * (k + block_n)), never
   O(Q * N).
 - :func:`topk_mips_approx`: the JAX package takes ``lax.approx_max_k`` per
   1M-row block, then one exact merge of the block winners. CUDA has no
-  approximate top-k, so each block takes an exact top-k, which meets the
-  contract (recall 1) and returns the exact ids.
+  approximate top-k: on the card it takes :func:`mips_topk`, the exact
+  result in the exact tier's order; on the CPU each block takes an exact
+  top-k, which meets the contract (recall 1) and returns the exact ids.
 - :func:`quantize_corpus_int8` / :func:`topk_mips_int8`: the corpus as
   per-row symmetric int8 codes and f32 scales (4x smaller than f32: the
   route for a corpus whose f32 form does not fit the card), queries
@@ -43,7 +49,8 @@ Indices are global corpus rows; where k exceeds the corpus, the missing
 places score the lowest f32 value with index 0. Tied scores resolve as
 ``lax.top_k`` resolves them, to the lower index, so that a mesh returns one
 card's ids (equal corpus vectors tie in f32; the int8 tier's bf16 ranking
-ties often): block winners merge by a stable sort; each block's top k is
+ties often). The kernel ranks by score, then row, throughout. The plain
+scans merge block winners by a stable sort; each block's top k is
 ``torch.topk``'s, which may keep any of several scores tied across the k-th
 place, so it takes the k + 1-th too, and a row whose such tie could reach
 its final winners is scanned again with ``lax.top_k``'s choice
@@ -53,12 +60,14 @@ block takes that choice at once).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import kernels
 from ..parallel.mesh import world_shards
 from ..utils import tracing as TRC
 
@@ -183,14 +192,172 @@ def _scan_f32(q, corpus, k, block_n, base, n_valid, whole, exact):
     return best_s, best_i, probes
 
 
-def topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int = 10,
-              block_n: int = 65536, base: int = 0,
-              n_valid: Optional[int] = None
+#: the kernel's limits (``csrc/mips_topk.cu``): places of the top k, widths
+KERNEL_MAX_K = 128
+KERNEL_MAX_D = 1024
+#: corpus rows a kernel call scans: rows are int32 there, and a list's k
+#: sentinel rows rank after every real one
+KERNEL_MAX_ROWS = 2 ** 31 - 1 - KERNEL_MAX_K
+#: corpus rows a tile of the scan kernel; shared-memory budgets (bytes) of
+#: a block's query tile and of its queries' top-k lists
+_TILE_ROWS = 128
+_QUERY_TILE_BYTES = 72 * 1024
+_LIST_BYTES = 32 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """:func:`mips_topk`'s cut of a scan: ``qtiles`` query tiles of 16
+    ``tm`` queries times ``slices`` slices of ``rows`` corpus rows (the last
+    one shorter), one block each."""
+
+    tm: int
+    qtiles: int
+    slices: int
+    rows: int
+
+
+def _query_pitch(D: int) -> int:
+    """Floats a query row takes in the kernel's shared memory: D rounded up
+    to 4, an odd number of 16-byte groups."""
+    pa = -(-D // 4) * 4
+    return pa + 4 if pa // 4 % 2 == 0 else pa
+
+
+def scan_plan(Q: int, n: int, k: int, D: int, sms: int) -> ScanPlan:
+    """The kernel's cut of a scan of ``n`` corpus rows for ``Q`` (>= 1)
+    queries on a card of ``sms`` SMs. The query tile is the narrowest of 16,
+    32 and 64 queries that holds Q, narrowed further until it fits its
+    shared-memory budget (wide D) and its top-k lists theirs (large k). The
+    rows split into slices of whole 128-row tiles: enough for two blocks an
+    SM over the query tiles (one slice where the query tiles alone fill
+    them), none empty; no slice for ``n`` = 0. (On an H100 a tile of 128
+    queries, whose register tile holds one block an SM, ran the scan at
+    Q = 1024 over 10M x 64 in 50-54 ms, one of 64 in 41-44.)"""
+    tm = 4
+    while tm > 1 and 16 * (tm // 2) >= Q:
+        tm //= 2
+    while tm > 1 and (16 * tm * _query_pitch(D) * 4 > _QUERY_TILE_BYTES
+                      or 16 * tm * k * 8 > _LIST_BYTES):
+        tm //= 2
+    qtiles = -(-Q // (16 * tm))
+    if n <= 0:
+        return ScanPlan(tm, qtiles, 0, 0)
+    tiles = -(-n // _TILE_ROWS)
+    per = -(-tiles // max(1, min(tiles, 2 * sms // qtiles)))
+    return ScanPlan(tm, qtiles, -(-tiles // per), per * _TILE_ROWS)
+
+
+def scan_smem_bytes(tm: int, D: int, k: int) -> int:
+    """Dynamic shared memory of a scan block (the kernel's ``scan_smem``):
+    the query tile, three stages of 128 rows of 36 floats, the queries' top-k
+    lists and 32 candidate slots each, and the slots' counts."""
+    bm = 16 * tm
+    return 4 * (bm * _query_pitch(D) + 3 * _TILE_ROWS * 36 + 2 * bm * k
+                + 2 * bm * 32 + bm)
+
+
+def _rows_scanned(N: int, base: int, n_valid: Optional[int]) -> int:
+    """Rows [0, n) of a shard of N rows whose row 0 is global row ``base``
+    that hold corpus rows: those below global row ``n_valid``."""
+    return N if n_valid is None else max(0, min(N, n_valid - base))
+
+
+def _check_kernel_shapes(k: int, D: int, N: int) -> None:
+    if not 1 <= k <= KERNEL_MAX_K:
+        raise ValueError(f"mips_topk: k = {k} is outside the kernel's limit "
+                         f"1..{KERNEL_MAX_K} (KERNEL_MAX_K)")
+    if not 1 <= D <= KERNEL_MAX_D:
+        raise ValueError(f"mips_topk: width D = {D} is outside the kernel's "
+                         f"limit 1..{KERNEL_MAX_D} (KERNEL_MAX_D)")
+    if N > KERNEL_MAX_ROWS:
+        raise ValueError(f"mips_topk: {N} corpus rows exceed the kernel's "
+                         f"limit {KERNEL_MAX_ROWS} (KERNEL_MAX_ROWS)")
+
+
+def _kernel_fn(name: str):
+    fn = getattr(kernels.load("mips_topk"), name)
+    fn.restype = ctypes.c_int
+    ints = 8 if name == "mips_topk_scan" else 3
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints \
+        + [ctypes.c_longlong, ctypes.c_void_p]
+    return fn
+
+
+def mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int = 10,
+              base: int = 0, n_valid: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """queries [Q, D], corpus [N, D] -> (scores [Q, k] f32, indices [Q, k]
-    int64). ``base``/``n_valid``, for a shard: its row 0 is global row
-    ``base``, and global rows at or past ``n_valid`` are padding, scored
-    the lowest value before the top-k; indices are global rows. Span
+    """The exact top k of ``queries`` [Q, D] against ``corpus`` [N, D], CUDA
+    tensors, by the hand-written kernel ``csrc/mips_topk.cu``: (scores
+    [Q, k] f32, global rows [Q, k] int64) in :func:`_by_index` order, as
+    :func:`_topk_mips_plain` returns them. Scores are f32 FFMA sums over D
+    in column order. ``base`` / ``n_valid`` as :func:`topk_mips`'s: rows at
+    or past global row ``n_valid`` are never scored; places no row filled
+    hold (lowest f32, 0). Two launches, span ``mips.scan`` around the scan
+    of the corpus slices (:func:`scan_plan`) and ``mips.merge`` around the
+    merge of their winners; no sync. Counted in ``mips_topk.launches`` (a
+    call), the queries in ``mips.kernel_queries``, and 0 in
+    ``mips.rescanned_rows``: nothing is scanned again. k, D and N beyond
+    the kernel's limits raise; any other dtype or layout of the operands
+    is taken as contiguous f32 (queries as f32 rows of unit stride: the
+    last position of a batch's activations is read in place)."""
+    Q, D = queries.shape
+    N = corpus.shape[0]
+    _check_kernel_shapes(k, D, N)
+    dev = corpus.device
+    if dev.type != "cuda" or queries.device != dev or corpus.shape[1] != D:
+        raise ValueError(f"mips_topk: needs queries [Q, D] and corpus [N, D] "
+                         f"on one card, got {tuple(queries.shape)} on "
+                         f"{queries.device} and {tuple(corpus.shape)} on "
+                         f"{dev}")
+    TRC.count("mips.kernel_queries", Q)
+    TRC.count("mips.rescanned_rows", 0)
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.long, device=dev)
+    if Q == 0:
+        return out_s, out_i
+    q = queries
+    if q.dtype != torch.float32 or q.stride(1) != 1 \
+            or (Q > 1 and q.stride(0) < D):
+        q = q.float().contiguous()
+    c = corpus.float().contiguous()
+    n = _rows_scanned(N, base, n_valid)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = scan_plan(Q, n, k, D, sms)
+    part_s = torch.empty((plan.slices, Q, k), dtype=torch.float32, device=dev)
+    part_r = torch.empty((plan.slices, Q, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if plan.slices:
+            with TRC.span("mips.scan"):
+                rc = _kernel_fn("mips_topk_scan")(
+                    q.data_ptr(), c.data_ptr(), part_s.data_ptr(),
+                    part_r.data_ptr(), Q, D, k, n, plan.rows, plan.slices,
+                    plan.tm, int(D % 4 == 0 and c.data_ptr() % 16 == 0),
+                    q.stride(0) if Q > 1 else D, stream)
+            if rc != 0:
+                raise RuntimeError(f"mips_topk scan kernel launch failed: "
+                                   f"CUDA error {rc}")
+        with TRC.span("mips.merge"):
+            rc = _kernel_fn("mips_topk_merge")(
+                part_s.data_ptr(), part_r.data_ptr(), out_s.data_ptr(),
+                out_i.data_ptr(), Q, k, plan.slices, int(base), stream)
+        if rc != 0:
+            raise RuntimeError(f"mips_topk merge kernel launch failed: CUDA "
+                               f"error {rc}")
+    mips_topk.launches += 1
+    return out_s, out_i
+
+
+mips_topk.launches = 0
+
+
+def _topk_mips_plain(queries: torch.Tensor, corpus: torch.Tensor,
+                     k: int = 10, block_n: int = 65536, base: int = 0,
+                     n_valid: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_mips`'s plain version, on any device: the blocked scan
+    (:func:`_scan_f32`) and the tie rescan (:func:`_resolve_spills`). Span
     ``topk_mips``; the queries count in ``mips.queries``."""
     block_n = min(block_n, max(k, corpus.shape[0]))
     with TRC.span("topk_mips"):
@@ -201,15 +368,39 @@ def topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int = 10,
             q[rows], corpus, k, block_n, base, n_valid, True, True)[:2])
 
 
+def topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int = 10,
+              block_n: int = 65536, base: int = 0,
+              n_valid: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """queries [Q, D], corpus [N, D] -> (scores [Q, k] f32, indices [Q, k]
+    int64). ``base``/``n_valid``, for a shard: its row 0 is global row
+    ``base``, and global rows at or past ``n_valid`` are padding, scored
+    the lowest value before the top-k; indices are global rows. A CPU
+    corpus takes :func:`_topk_mips_plain` (``block_n`` rows a block), any
+    other :func:`mips_topk` (the kernel: no blocks). Span ``topk_mips``;
+    the queries count in ``mips.queries``."""
+    if corpus.device.type == "cpu":
+        return _topk_mips_plain(queries, corpus, k, block_n, base, n_valid)
+    with TRC.span("topk_mips"):
+        TRC.count("mips.queries", queries.shape[0])
+        return mips_topk(queries, corpus, k, base, n_valid)
+
+
 def topk_mips_approx(queries: torch.Tensor, corpus: torch.Tensor,
                      k: int = 10, block_n: int = 1_048_576, base: int = 0,
                      n_valid: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The JAX package's approximate tier on the card: per 1M-row block the
-    top k (exact here, where the TPU takes ``approx_max_k``), then one
-    merge of the block winners. Returns the exact result. ``base`` /
-    ``n_valid`` as :func:`topk_mips`'s: pad rows are masked before each
-    block's top-k. Spans and counters as :func:`topk_mips`'s."""
+    """The JAX package's approximate tier: on the card :func:`mips_topk`,
+    the exact tier's kernel, bitwise :func:`topk_mips`'s result; on the CPU
+    per 1M-row block the top k (exact here, where the TPU takes
+    ``approx_max_k``), then one merge of the block winners, the exact
+    result. ``base`` / ``n_valid`` as :func:`topk_mips`'s: pad rows are
+    never scored on the card and masked before each block's top-k on the
+    CPU. Spans and counters as :func:`topk_mips`'s."""
+    if corpus.device.type != "cpu":
+        with TRC.span("topk_mips"):
+            TRC.count("mips.queries", queries.shape[0])
+            return mips_topk(queries, corpus, k, base, n_valid)
     block_n = min(block_n, max(k, corpus.shape[0]))
     with TRC.span("topk_mips"):
         TRC.count("mips.queries", queries.shape[0])

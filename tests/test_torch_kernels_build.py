@@ -233,6 +233,12 @@ cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int);
 cudaError_t cudaGetLastError();
 void __syncthreads();
 int __syncthreads_and(int);
+int __syncthreads_or(int);
+void __syncwarp(unsigned = 0xffffffffu);
+int atomicAdd(int*, int);
+unsigned __ballot_sync(unsigned, int);
+int __any_sync(unsigned, int);
+int __ffs(int);
 template <class T> T __shfl_xor_sync(unsigned, T, int);
 template <class T> T __shfl_sync(unsigned, T, int);
 size_t __cvta_generic_to_shared(const void*);

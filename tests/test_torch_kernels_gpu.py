@@ -1336,3 +1336,149 @@ def test_fused_feature_lookup_backward_is_repeatable_on_card(shards):
     # f32 sums of up to ~1,200 terms a row, in another order than f64's
     err = (g1.double() - want).abs().max().item()
     assert err <= 1e-5 * max(1.0, want.abs().max().item()), err
+
+
+# ---------------------------------------------------------------------------
+# the exact top-k scan (csrc/mips_topk.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+def _mips_operands(Q, N, D, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((Q, D), generator=g, device="cuda"),
+            torch.randn((N, D), generator=g, device="cuda"))
+
+
+def _mips_agree(queries, corpus, k, base=0, n_valid=None):
+    """The kernel's result twice and the plain version's on the same card
+    tensors: ids equal, two calls bitwise equal, one launch a call, the
+    queries counted, and scores within 1e-5 of the query's score scale
+    (|q| times the corpus rows' rms: f32 sums in two orders)."""
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as M
+    from tencent_recommendation_2025_tpu_torch.utils import tracing as TRC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want_s, want_i = M._topk_mips_plain(queries, corpus, k, base=base,
+                                        n_valid=n_valid)
+    n, kq = M.mips_topk.launches, TRC.counters().get("mips.kernel_queries", 0)
+    got_s, got_i = M.topk_mips(queries, corpus, k, base=base,
+                               n_valid=n_valid)
+    again_s, again_i = M.mips_topk(queries, corpus, k, base=base,
+                                   n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert M.mips_topk.launches == n + 2
+    assert TRC.counters()["mips.kernel_queries"] == kq + 2 * len(queries)
+    assert torch.equal(got_s, again_s) and torch.equal(got_i, again_i)
+    assert got_s.dtype == torch.float32 and got_i.dtype == torch.long
+    assert torch.equal(got_i, want_i), (got_i != want_i).sum().item()
+    scale = queries.norm(dim=1, keepdim=True) \
+        * corpus.pow(2).sum(1).mean().sqrt()
+    assert bool(((got_s - want_s).abs() <= 1e-5 * scale).all())
+    return got_s, got_i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,N,D,k", [
+    (1, 1_000_003, 64, 10), (7, 65_537, 16, 128), (1024, 1_000_003, 64, 10),
+    (4096, 65_537, 128, 20), (7, 5, 512, 10), (1, 300, 16, 128),
+    (1024, 300, 512, 1), (4096, 1_000_003, 16, 128), (7, 1_000_003, 128, 1),
+    (1024, 65_537, 512, 20), (4096, 5, 64, 1), (1, 65_537, 512, 20),
+    (7, 300, 13, 10), (1024, 65_537, 62, 10)])
+def test_mips_topk_kernel_matches_plain_on_card(Q, N, D, k):
+    """The kernel against ``_topk_mips_plain`` on the same card tensors,
+    k > N included (places no row fills hold the lowest f32 and row 0), D
+    not a multiple of 4 (the 4-byte copies), and ``topk_mips_approx``
+    bitwise the exact tier's result."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as M
+
+    queries, corpus = _mips_operands(Q, N, D, seed=Q + N + D + k)
+    s, i = _mips_agree(queries, corpus, k)
+    if k > N:
+        assert bool((s[:, N:] == torch.finfo(torch.float32).min).all())
+        assert not i[:, N:].any()
+    a_s, a_i = M.topk_mips_approx(queries, corpus, k)
+    assert torch.equal(a_s, s) and torch.equal(a_i, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base,n_valid", [(0, 2000), (4000, 5500),
+                                          (8000, 5500), (0, None)])
+def test_mips_topk_kernel_honours_a_shards_pad_rows_on_card(base, n_valid):
+    """A shard of 4,000 rows whose row 0 is global row ``base``, rows at or
+    past global ``n_valid`` zero pad rows: every real score is negative, so
+    a pad row scored would win. Indices are global rows; a shard of pad
+    rows only returns (lowest f32, 0) everywhere."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shard = -(torch.rand((4000, 64), generator=g, device="cuda") + 1.0)
+    queries = torch.rand((33, 64), generator=g, device="cuda") + 0.1
+    if n_valid is not None:
+        shard[max(0, n_valid - base):] = 0.0
+    s, i = _mips_agree(queries, shard, 20, base=base, n_valid=n_valid)
+    real = 4000 if n_valid is None else max(0, min(4000, n_valid - base))
+    if real == 0:
+        assert bool((s == torch.finfo(torch.float32).min).all())
+        assert not i.any()
+    else:
+        assert bool((s < 0).all()) and bool((i >= base).all())
+        assert bool((i < base + real).all())
+
+
+@pytest.mark.gpu
+def test_mips_topk_kernel_breaks_ties_to_the_lower_row_on_card():
+    """Copies of one row placed across the kernel's tile (128 rows) and
+    slice boundaries, more copies than k: every query's top k are the k
+    lowest rows of the copies, scores bitwise equal, as the plain
+    version's tie rescan returns them."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as M
+
+    Q, N, D, k = 7, 1_000_003, 64, 5
+    queries, corpus = _mips_operands(Q, N, D, seed=11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = M.scan_plan(Q, N, k, D, sms)
+    assert plan.slices > 4
+    at = sorted({127, 128, 255} | {s * plan.rows + d for s in (1, 2, 3)
+                                    for d in (-1, 0)})
+    assert len(at) > k
+    corpus[at] = 10.0 * queries[0] / queries[0].norm()
+    queries[1:] = queries[0]
+    s, i = _mips_agree(queries, corpus, k)
+    want = torch.tensor(at[:k], device="cuda").expand(Q, k)
+    assert torch.equal(i, want)
+    assert bool((s == s[:, :1]).all())
+
+
+@pytest.mark.gpu
+def test_mips_topk_kernel_limits_raise_on_card():
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as M
+
+    queries, corpus = _mips_operands(4, 1000, 64, seed=3)
+    with pytest.raises(ValueError, match="KERNEL_MAX_K"):
+        M.topk_mips(queries, corpus, k=M.KERNEL_MAX_K + 1)
+    wide = torch.zeros((4, M.KERNEL_MAX_D + 1), device="cuda")
+    with pytest.raises(ValueError, match="KERNEL_MAX_D"):
+        M.topk_mips(wide, wide, k=1)
+
+
+@pytest.mark.gpu
+def test_mips_topk_kernel_reads_a_query_view_in_place_on_card():
+    """Queries as ``predict`` returns them, the last position of [Q, L, D]
+    activations (rows L * D floats apart), give the contiguous copy's
+    result bitwise; rows of stride 0 (an expanded query) are copied."""
+    _cuda_or_skip()
+    from tencent_recommendation_2025_tpu_torch.retrieval import mips as M
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    acts = torch.randn((300, 5, 64), generator=g, device="cuda")
+    corpus = torch.randn((70_000, 64), generator=g, device="cuda")
+    view = acts[:, -1, :]
+    assert view.stride(0) == 5 * 64
+    s, i = M.mips_topk(view, corpus, 10)
+    want_s, want_i = M.mips_topk(view.contiguous(), corpus, 10)
+    assert torch.equal(s, want_s) and torch.equal(i, want_i)
+    one = acts[0, -1][None, :].expand(7, 64)
+    s, i = M.mips_topk(one, corpus, 10)
+    want_s, want_i = M.mips_topk(one.contiguous(), corpus, 10)
+    assert torch.equal(s, want_s) and torch.equal(i, want_i)

@@ -191,3 +191,72 @@ def test_infer_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
         TINF.resolve_device("cuda")
     assert TINF.resolve_device("cpu").type == "cpu"
     assert TINF.get_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("Q,N,k,D,base,n_valid", [
+    (1, 10_000_000, 10, 64, 0, None), (1024, 10_000_000, 10, 64, 0, None),
+    (4096, 10_000_000, 10, 64, 0, None), (4096, 1_000_003, 128, 512, 0,
+                                          None),
+    (7, 300, 10, 16, 0, None), (1, 5, 128, 1024, 0, None),
+    (33, 4000, 20, 64, 4000, 5500), (33, 4000, 20, 64, 0, 2000),
+    (2, 129, 1, 13, 0, None), (1024, 25_000_000, 10, 64, 75_000_000,
+                               100_000_000)])
+def test_scan_plan_gives_every_row_to_one_slice(Q, N, k, D, base, n_valid):
+    """The kernel's cut (``scan_plan``, on a 132-SM card): every row of
+    [0, min(N, n_valid - base)) in exactly one slice of whole 128-row
+    tiles, no slice empty, the query tiles cover Q and fit their
+    shared-memory budgets, and at Q = 1, 1,024 and 4,096 over 10M rows the
+    blocks fill the SMs."""
+    n = TM._rows_scanned(N, base, n_valid)
+    assert n == (N if n_valid is None else min(N, n_valid - base))
+    p = TM.scan_plan(Q, n, k, D, 132)
+    assert p.tm in (1, 2, 4) and p.qtiles * 16 * p.tm >= Q
+    assert (p.qtiles - 1) * 16 * p.tm < Q
+    assert p.tm == 1 or (16 * p.tm * TM._query_pitch(D) * 4
+                         <= TM._QUERY_TILE_BYTES
+                         and 16 * p.tm * k * 8 <= TM._LIST_BYTES)
+    assert p.rows % TM._TILE_ROWS == 0 and p.slices >= 1
+    owner = np.full(n, -1)
+    for s in range(p.slices):
+        lo, hi = s * p.rows, min((s + 1) * p.rows, n)
+        assert lo < hi                       # no slice is empty
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = s
+    assert (owner >= 0).all()
+    if N == 10_000_000:
+        assert p.qtiles * p.slices >= 132
+
+
+def test_scan_plan_of_a_shard_of_pad_rows_has_no_slice():
+    assert TM._rows_scanned(4000, 8000, 5500) == 0
+    p = TM.scan_plan(33, 0, 20, 64, 132)
+    assert p.slices == 0 and p.qtiles == 1
+
+
+def test_mips_topk_kernel_limits_raise_and_cpu_takes_the_plain_version():
+    """``mips_topk`` refuses k and D past the kernel's limits (naming the
+    limit) and CPU tensors; ``topk_mips`` on CPU tensors takes the plain
+    version at any k and leaves the kernel's counters alone."""
+    from tencent_recommendation_2025_tpu_torch.utils import tracing as TRC
+
+    q = torch.zeros((3, 64))
+    with pytest.raises(ValueError, match="KERNEL_MAX_K"):
+        TM.mips_topk(q, torch.zeros((10, 64)), k=TM.KERNEL_MAX_K + 1)
+    with pytest.raises(ValueError, match="KERNEL_MAX_K"):
+        TM.mips_topk(q, torch.zeros((10, 64)), k=0)
+    wide = torch.zeros((3, TM.KERNEL_MAX_D + 1))
+    with pytest.raises(ValueError, match="KERNEL_MAX_D"):
+        TM.mips_topk(wide, wide, k=1)
+    with pytest.raises(ValueError, match="on one card"):
+        TM.mips_topk(q, torch.zeros((10, 64)), k=10)
+    launches = TM.mips_topk.launches
+    kq = TRC.counters().get("mips.kernel_queries", 0)
+    rng = np.random.default_rng(5)
+    c = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
+    qq = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    s, i = TM.topk_mips(qq, c, k=TM.KERNEL_MAX_K + 2, block_n=64)
+    assert s.shape == (3, TM.KERNEL_MAX_K + 2)
+    want = torch.topk(qq @ c.T, TM.KERNEL_MAX_K + 2, dim=1)
+    assert torch.equal(i, want.indices)
+    assert TM.mips_topk.launches == launches
+    assert TRC.counters().get("mips.kernel_queries", 0) == kq
